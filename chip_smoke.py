@@ -1,0 +1,466 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA card, end to end.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. card: its name, and its name and power limit from nvidia-smi;
+2. build: every kernel of ``paddle_tpu_torch/csrc`` with nvcc for sm_90a,
+   all sources in parallel, with nvcc's register / shared-memory / spill
+   report;
+3. kernel checks: each kernel against its plain PyTorch version on the
+   card, in bf16, at the shapes of the Llama-3-8B serving path, with the
+   tolerance stated below;
+4. kernel times (CUDA events, warmed up, inputs rotated through copies
+   larger than the 50 MB L2 so each call finds them cold, as the serving
+   path does): the kernel, its plain version, one PyTorch call computing
+   the same function as a yardstick (``scaled_dot_product_attention``;
+   the port never calls it) and the least time the card could take;
+5. a small model against a CPU reference: logits of a prefill and of
+   decode steps, fp32, the card (kernels) against the CPU (plain
+   versions);
+6. the slice: Llama-3-8B at full width and depth with random weights
+   from the seed, served through ``Predictor.generate`` on 4 requests of
+   512 prompt tokens, 128 new tokens, greedy. Each kernel's launch count
+   is set to 0 just before this run and read just after: flash attention
+   must run once per layer (32), decode attention once per layer and
+   decode step (32 x 127). A second greedy call must give the same
+   tokens, and one seeded sampled call must give valid ids. Last,
+   torch.profiler splits one decode step's device time by kernel kind
+   and gives the device's busy share of the step.
+
+It prints a JSON line of per-kernel numbers, then the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA
+card, or without the ``paddle_tpu_torch`` package beside it, it exits
+non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+# peak rates of one H100 SXM (NVIDIA data sheet, dense bf16)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+L2_BYTES = 50 * 2 ** 20
+
+# bf16 kernel vs plain version: both round p and out to bf16 at the same
+# points; the sums run in another order and p is rounded against another
+# running max. For outputs of magnitude below ~2 that stays within 2e-2.
+TOL_BF16 = 2e-2
+# fp32 small model, card (kernels, fp32 matmuls without TF32) vs CPU
+TOL_SMALL_LOGITS = 2e-3
+
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
+DECODE_SOURCE = "paddle_tpu_torch/csrc/decode_attention.cu"
+FLASH_REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:149"
+DECODE_REPLACES = "paddle_tpu/ops/pallas/decode_attention.py:161"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call of fn(i) over ``iters`` calls, timed with
+    CUDA events after ``warmup`` calls."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies_for(nbytes: int) -> int:
+    """How many copies of a call's inputs exceed the L2 cache twice."""
+    return max(2, -(-2 * L2_BYTES // max(nbytes, 1)))
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# ------------------------------------------------------------------ phases
+def phase_build():
+    from paddle_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    log(f"[build] {len(built)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc "
+        f"{' '.join(_build.NVCC_FLAGS)})")
+    for b in built.values():
+        log(f"[build] {b.name}: {b.seconds:.1f} s -> {b.path.name}")
+        for line in b.ptxas.splitlines():
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "Compiling entry")):
+                log(f"[ptxas] {b.name}: {line.strip()}")
+
+
+def flash_inputs(gen, dev, b, s, h, kv, d):
+    q = torch.randn(b, s, h, d, generator=gen, device=dev) * 0.5
+    k = torch.randn(b, s, kv, d, generator=gen, device=dev) * 0.5
+    v = torch.randn(b, s, kv, d, generator=gen, device=dev)
+    return [t.to(torch.bfloat16) for t in (q, k, v)]
+
+
+def phase_kernel_checks(gen, dev):
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_fwd_plain)
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_plain)
+    errs = {}
+    cases = [("flash main [4,512,32,128] kv 8 causal",
+              (4, 512, 32, 8, 128), dict(causal=True)),
+             ("flash window=100 [1,256,8,128] kv 2",
+              (1, 256, 8, 2, 128), dict(causal=True, window=100)),
+             ("flash segment_ids [2,256,8,128] kv 2",
+              (2, 256, 8, 2, 128), dict(causal=True, seg=True))]
+    for name, shape, kw in cases:
+        q, k, v = flash_inputs(gen, dev, *shape)
+        if kw.pop("seg", False):
+            seg = torch.ones(shape[0], shape[1], dtype=torch.int32,
+                             device=dev)
+            seg[:, 100:] = 2
+            seg[:, -8:] = 0
+            kw["segment_ids"] = seg
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_fwd_plain(q, k, v, **kw)
+        err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+        log(f"[check] {name}: max_abs_err {err:.3e} (lse {lse_err:.3e}) "
+            f"tol {TOL_BF16}")
+        if not (err <= TOL_BF16 and lse_err <= 1e-2):
+            fail(f"flash kernel disagrees with its plain version: {name}")
+        errs.setdefault("flash", err)
+
+    b, T, h, kv, d = 4, 640, 32, 8, 128
+    q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    ck = torch.randn(b, T, kv, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    cv = torch.randn(b, T, kv, d, generator=gen, device=dev).to(
+        torch.bfloat16)
+    for ci, window in ((0, None), (31, None), (32, None), (511, None),
+                       (639, None), (600, 128)):
+        out = decode_attention_fwd(q, ck, cv, ci, window=window)
+        torch.cuda.synchronize()
+        ref = decode_attention_fwd_plain(q, ck, cv, ci, window=window)
+        err = max_err(out, ref)
+        log(f"[check] decode [4,32,128] over [4,640,8,128] cache_index {ci}"
+            f" window {window}: max_abs_err {err:.3e} tol {TOL_BF16}")
+        if not err <= TOL_BF16:
+            fail(f"decode kernel disagrees with its plain version at "
+                 f"cache_index {ci}")
+        if ci == 639:
+            errs["decode"] = err
+    return errs
+
+
+def phase_kernel_times(gen, dev, card):
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_fwd_plain)
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_plain)
+    rows = {}
+
+    # flash at the prefill shape
+    b, s, h, kv, d = 4, 512, 32, 8, 128
+    el = 2
+    call_bytes = el * (2 * b * s * h * d + 2 * b * s * kv * d) + 4 * b * h * s
+    n = copies_for(call_bytes)
+    sets = [flash_inputs(gen, dev, b, s, h, kv, d) for _ in range(n)]
+    lib_sets = [tuple(t.transpose(1, 2).repeat_interleave(h // t.shape[2], 1)
+                      .contiguous() for t in qkv) for qkv in sets]
+    ms = cuda_ms(lambda i: flash_attention_fwd(*sets[i % n], causal=True),
+                 iters=40)
+    plain_ms = cuda_ms(lambda i: flash_attention_fwd_plain(*sets[i % n],
+                                                           causal=True),
+                       iters=10)
+    lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
+        *lib_sets[i % n], is_causal=True), iters=40)
+    pairs = b * h * s * (s + 1) // 2            # causal (row, key) pairs
+    bound_ms, bound_by = bound(call_bytes, 4 * d * pairs)
+    rows["flash"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+    del sets, lib_sets
+
+    # decode at the largest cache index of the slice's cache
+    b, T, h, kv, d = 4, 640, 32, 8, 128
+    ci = T - 1
+    valid = ci + 1
+    call_bytes = el * (2 * b * h * d + 2 * b * valid * kv * d)
+    n = copies_for(call_bytes)
+    sets = []
+    for _ in range(n):
+        q = torch.randn(b, h, d, generator=gen, device=dev)
+        ck = torch.randn(b, T, kv, d, generator=gen, device=dev)
+        cv = torch.randn(b, T, kv, d, generator=gen, device=dev)
+        sets.append(tuple(t.to(torch.bfloat16) for t in (q, ck, cv)))
+    lib_sets = [(q[:, :, None],
+                 ck[:, :valid].transpose(1, 2).repeat_interleave(h // kv, 1)
+                 .contiguous(),
+                 cv[:, :valid].transpose(1, 2).repeat_interleave(h // kv, 1)
+                 .contiguous()) for q, ck, cv in sets]
+    ms = cuda_ms(lambda i: decode_attention_fwd(*sets[i % n], ci),
+                 iters=200)
+    plain_ms = cuda_ms(lambda i: decode_attention_fwd_plain(*sets[i % n],
+                                                            ci), iters=50)
+    lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
+        *lib_sets[i % n]), iters=200)
+    bound_ms, bound_by = bound(call_bytes, 4 * d * valid * h * b)
+    rows["decode"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    for name, r in rows.items():
+        log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    return rows
+
+
+def phase_small_reference(dev):
+    """fp32 Llama with head_dim 128 and 4 query heads per kv head: logits
+    of a 128-token prefill (flash) and 4 decode steps (decode kernel) on
+    the card against the same model on the CPU (plain versions)."""
+    import paddle_tpu_torch as ptt
+    cfg = ptt.llama_tiny(hidden_size=512, intermediate_size=1024,
+                         num_attention_heads=4, num_key_value_heads=1,
+                         vocab_size=1024, max_position_embeddings=512)
+    cpu = ptt.LlamaForCausalLM(cfg, device="cpu",
+                               generator=ptt.make_generator(1, "cpu"))
+    gpu = ptt.LlamaForCausalLM(cfg, device=dev,
+                               generator=ptt.make_generator(1, dev))
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (2, 132),
+                        generator=ptt.make_generator(2, "cpu"))
+    worst = 0.0
+    with torch.inference_mode():
+        caches = {m: m.init_kv_caches(2, 132) for m in (cpu, gpu)}
+        steps = [(ids[:, :128], 0)] + [(ids[:, t:t + 1], t)
+                                       for t in range(128, 132)]
+        for chunk, ci in steps:
+            ref, caches[cpu] = cpu(chunk, kv_caches=caches[cpu],
+                                   cache_index=ci)
+            got, caches[gpu] = gpu(chunk.to(dev), kv_caches=caches[gpu],
+                                   cache_index=ci)
+            if not torch.isfinite(got).all():
+                fail("small model: non-finite logits on the card")
+            worst = max(worst, max_err(got.cpu(), ref))
+    log(f"[small] fp32 Llama d=128 prefill 128 + 4 decode steps, card vs "
+        f"CPU: max_abs_err {worst:.3e} tol {TOL_SMALL_LOGITS}")
+    if not worst <= TOL_SMALL_LOGITS:
+        fail("small model: card logits disagree with the CPU reference")
+
+
+def phase_slice(seed, dev, card):
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops.kernels.decode_attention import \
+        decode_attention_fwd
+    from paddle_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention_fwd
+    cfg = ptt.llama3_8b()
+    t0 = time.perf_counter()
+    model = ptt.LlamaForCausalLM(cfg, device=dev,
+                                 generator=ptt.make_generator(seed, dev))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[slice] Llama-3-8B (hidden {cfg.hidden_size}, layers "
+        f"{cfg.num_hidden_layers}, heads {cfg.num_attention_heads}/"
+        f"{cfg.num_key_value_heads}, ffn {cfg.intermediate_size}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}): {n_params / 1e9:.2f} B params, "
+        f"random init on the card in {time.perf_counter() - t0:.1f} s")
+    pred = ptt.Predictor(model, device=dev)
+    b, prompt, new = 4, 512, 128
+    ids = torch.randint(0, cfg.vocab_size, (b, prompt), device=dev,
+                        generator=ptt.make_generator(seed + 1, dev))
+    greedy = ptt.GenerationConfig(max_new_tokens=new)
+
+    # warm-up (cuBLAS handles, allocator) and the prefill's own time
+    pred.generate(ids, config=ptt.GenerationConfig(max_new_tokens=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.generate(ids, config=ptt.GenerationConfig(max_new_tokens=1))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention_fwd.launches = 0
+    decode_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    out = pred.generate(ids, config=greedy)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash": flash_attention_fwd.launches,
+                "decode": decode_attention_fwd.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = {"flash": cfg.num_hidden_layers,
+            "decode": cfg.num_hidden_layers * (new - 1)}
+    log(f"[slice] launches in one generate: {launches} (want {want})")
+    if launches != want:
+        fail(f"kernel launches {launches} != {want}")
+    if tuple(out.shape) != (b, prompt + new):
+        fail(f"generate returned shape {tuple(out.shape)}")
+    if not torch.equal(out[:, :prompt], ids):
+        fail("generate changed the prompt")
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        fail("generate returned ids outside the vocabulary")
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    log(f"[slice] prefill {prefill_ms:.1f} ms (4 x 512 tokens + first "
+        f"token), decode {decode_ms:.2f} ms/token step, "
+        f"{b * new / (total_ms / 1e3):.1f} new tokens/s, generate "
+        f"{total_ms:.1f} ms, peak memory {peak_gb:.2f} GB [{card}]")
+
+    again = pred.generate(ids, config=greedy)
+    if not torch.equal(again, out):
+        fail("a second greedy generate gave other tokens")
+    log("[slice] second greedy generate: identical tokens")
+    sampled_cfg = ptt.GenerationConfig(max_new_tokens=new, do_sample=True,
+                                       temperature=0.8, top_p=0.95)
+    sampled = pred.generate(ids, config=sampled_cfg,
+                            generator=ptt.make_generator(seed + 2, dev))
+    ok = (tuple(sampled.shape) == (b, prompt + new)
+          and bool(((sampled >= 0) & (sampled < cfg.vocab_size)).all())
+          and torch.equal(sampled[:, :prompt], ids))
+    if not ok:
+        fail("sampled generate returned invalid ids")
+    log(f"[slice] sampled generate (temperature 0.8, top_p 0.95): valid "
+        f"ids; {int((sampled[:, prompt:] != out[:, prompt:]).sum())} of "
+        f"{b * new} tokens differ from greedy")
+    profile_decode_step(ptt, pred, ids, decode_ms, card)
+    return launches
+
+
+def _device_profile(pred, ids, new_tokens, ptt):
+    """(wall ms, {category: device ms}, device events) of one generate
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = ptt.GenerationConfig(max_new_tokens=new_tokens)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred.generate(ids, config=cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cats = {"decode_attention": 0.0, "flash_attention": 0.0, "gemm": 0.0,
+            "other": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n += 1
+        name = e.name.lower()
+        cat = ("decode_attention" if "decode_kernel" in name else
+               "flash_attention" if "flash_fwd_kernel" in name else
+               "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
+                                                 "cutlass", "nvjet"))
+               else "other")
+        cats[cat] += e.time_range.elapsed_us() / 1e3
+    return wall, cats, n
+
+
+def profile_decode_step(ptt, pred, ids, step_ms, card):
+    """Where a decode step's time goes: torch.profiler over a generate of
+    1 and of 33 new tokens; the difference over 32 is one decode step.
+    Device busy share = its device time over the step's wall time, with
+    the profiler (inflated) and without it (``step_ms``, the main run)."""
+    w1, c1, n1 = _device_profile(pred, ids, 1, ptt)
+    w33, c33, n33 = _device_profile(pred, ids, 33, ptt)
+    steps = 32
+    if n33 == n1:
+        log("[profile] torch.profiler recorded no device events: device "
+            "busy share not measured")
+        return
+    step_wall = (w33 - w1) / steps
+    per = {k: (c33[k] - c1[k]) / steps for k in c33}
+    busy = sum(per.values())
+    log(f"[profile] decode step under the profiler: wall {step_wall:.3f} "
+        f"ms, device busy {busy:.3f} ms ({100 * busy / step_wall:.1f} % "
+        f"of it, {100 * busy / step_ms:.1f} % of the unprofiled "
+        f"{step_ms:.2f} ms step), "
+        f"{(n33 - n1) / steps:.0f} device ops per step; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in per.items())
+        + f" [{card}]")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA "
+             "card")
+    try:
+        import paddle_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"cannot import paddle_tpu_torch ({e}); run from the root of "
+             f"the repository")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(f"[card] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+
+    phase_build()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    errs = phase_kernel_checks(gen, dev)
+    times = phase_kernel_times(gen, dev, card)
+    phase_small_reference(dev)
+    launches = phase_slice(args.seed, dev, card)
+
+    meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
+            "decode": ("decode_attention", DECODE_SOURCE, DECODE_REPLACES)}
+    kernels = []
+    for key, (name, source, replaces) in meta.items():
+        t = times[key]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[key],
+                        "max_abs_err": errs[key], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,83 @@
+"""Inference predictor (counterpart of ``paddle_tpu/inference.py``:
+``Config`` and ``Predictor`` with its ``run`` and ``generate``).
+
+Requests pad their batch dim up to a fixed bucket ladder, with the last
+row repeated, and the padding rows are cropped from every output, so
+results are exact and a server sees few distinct batch shapes. Weight-only
+quantization, ``serve_stream`` (the ``PagedEngine`` path) and
+``BatchingPredictor`` come with later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from .device import resolve_device
+
+DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+
+class Config:
+    """The predictor's settings: the batch bucket ladder."""
+
+    def __init__(self):
+        self.batch_buckets: Optional[Tuple[int, ...]] = DEFAULT_BUCKETS
+
+    def set_batch_buckets(self, buckets: Optional[Sequence[int]]):
+        """None disables bucketing (every batch runs at its own size)."""
+        self.batch_buckets = tuple(sorted(buckets)) if buckets else None
+        return self
+
+
+def _pad_rows(x: torch.Tensor, cap: int) -> torch.Tensor:
+    return torch.cat([x, x[-1:].expand(cap - x.shape[0], *x.shape[1:])])
+
+
+class Predictor:
+    """Wraps a model for serving on ``device`` (the CUDA card unless the
+    caller passes ``device="cpu"``; the model is moved there)."""
+
+    def __init__(self, model, config: Optional[Config] = None, device=None):
+        self.config = config or Config()
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+
+    def _bucket(self, b: int) -> int:
+        for cap in self.config.batch_buckets or ():
+            if b <= cap:
+                return cap
+        return b  # beyond the ladder (or no ladder): exact shape
+
+    def _padded(self, x, b, cap):
+        x = torch.as_tensor(x, device=self.device)
+        if cap != b and x.dim() and x.shape[0] == b:
+            return _pad_rows(x, cap)
+        return x
+
+    @torch.inference_mode()
+    def run(self, *inputs):
+        """Forward on host or device inputs; returns the model's outputs,
+        with any batch padding cropped."""
+        args = [torch.as_tensor(x, device=self.device) for x in inputs]
+        b = args[0].shape[0] if args[0].dim() else 1
+        cap = self._bucket(b)
+        out = self.model(*[self._padded(a, b, cap) for a in args])
+        if cap != b and out.dim() and out.shape[0] == cap:
+            out = out[:b]
+        return out
+
+    __call__ = run
+
+    def generate(self, input_ids, prompt_start=None, **kwargs):
+        """Autoregressive generation through the model's static KV cache
+        (``generate`` of ``paddle_tpu_torch.generation``); the batch pads
+        to its bucket and the padding rows are cropped."""
+        input_ids = torch.as_tensor(input_ids, device=self.device)
+        b = input_ids.shape[0]
+        cap = self._bucket(b)
+        if prompt_start is not None:
+            prompt_start = self._padded(prompt_start, b, cap)
+        out = self.model.generate(self._padded(input_ids, b, cap),
+                                  prompt_start=prompt_start, **kwargs)
+        return out[:b]

@@ -1,0 +1,46 @@
+"""Hand-written Hopper kernels and the one routing rule for them
+(counterpart of ``paddle_tpu/ops/pallas/__init__.py``).
+
+The tensor's device decides the route, and nothing else does:
+
+- every tensor on the CPU: the kernel's plain PyTorch version;
+- every tensor on a CUDA card of compute capability 9.0 or more: the
+  kernel, built from ``paddle_tpu_torch/csrc`` at first use;
+- anything else (a mix of devices, an older card): an error.
+
+There is no environment flag that sends CUDA tensors to the plain
+version, and no fallback when a kernel fails: the wrapper raises.
+"""
+from __future__ import annotations
+
+import torch
+
+MIN_CAPABILITY = (9, 0)
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on a Hopper card (launch the kernel),
+    False when they all lie on the CPU (run the plain version)."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return False
+    if types != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(
+            f"kernel inputs must all lie on the CPU or all on one CUDA "
+            f"card; got {sorted(str(t.device) for t in tensors)}")
+    cap = torch.cuda.get_device_capability(tensors[0].device)
+    if cap < MIN_CAPABILITY:
+        raise RuntimeError(
+            f"the kernels are built for sm_90a; this card has compute "
+            f"capability {cap[0]}.{cap[1]}")
+    return True
+
+
+def check_layout(**tensors: torch.Tensor) -> None:
+    """The kernels index dense row-major tensors and load 16 bytes at a
+    time: each tensor must be contiguous and 16-byte aligned."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")

@@ -1,0 +1,3 @@
+from .rng import make_generator
+
+__all__ = ["make_generator"]
