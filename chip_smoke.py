@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    report;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, in bf16, at the shapes of the Llama-3-8B serving path, with the
-   tolerance stated below;
+   tolerance stated below; the ragged paged kernel also in fp32, with a
+   window, with 4 queries per row, and replayed from a CUDA graph after
+   its seq_lens and tables changed in place;
 4. kernel times (CUDA events, warmed up, inputs rotated through copies
    larger than the 50 MB L2 so each call finds them cold, as the serving
    path does): the kernel, its plain version, one PyTorch call computing
@@ -27,7 +29,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode step (32 x 127). A second greedy call must give the same
    tokens, and one seeded sampled call must give valid ids. Last,
    torch.profiler splits one decode step's device time by kernel kind
-   and gives the device's busy share of the step.
+   and gives the device's busy share of the step;
+7. the paged slice, on the same model: ``PagedEngine(fused_tick=False)``
+   serves (a) 24 seeded requests (prompts 32-768, 32-128 new tokens, 4
+   sampled, one with a stop sequence, admission mid-decode) with the
+   counts set to 0 just before and read just after: ragged paged
+   attention must run once per layer and decode tick (32 x decode_steps)
+   and never during a prefill, flash and decode attention never; a rerun
+   must give identical tokens, sampled ones included. (b) chunked
+   prefill with the prefix cache: 8 requests sharing a 512-token prefix
+   must hit it, and a resubmitted prompt must give its cold run's tokens.
+   (c) ``Predictor.serve_stream`` over a pool too small for its load
+   must preempt and still complete every request. TTFT, tick time,
+   tokens/s and peak memory are printed beside the card.
 
 It prints a JSON line of per-kernel numbers, then the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -60,6 +74,13 @@ FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
 DECODE_SOURCE = "paddle_tpu_torch/csrc/decode_attention.cu"
 FLASH_REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:149"
 DECODE_REPLACES = "paddle_tpu/ops/pallas/decode_attention.py:161"
+RAGGED_SOURCE = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
+RAGGED_REPLACES = "paddle_tpu/ops/pallas/ragged_paged_attention.py:164"
+# fp32 kernel vs plain version: the same fp32 sums in another order
+TOL_FP32 = 1e-4
+# the serving geometry of the paged phase (KV pool ~2.1 GB in bf16)
+PAGED = dict(max_slots=16, block_size=16, max_blocks_per_seq=64,
+             num_blocks=1025)
 
 
 def log(msg: str) -> None:
@@ -249,6 +270,120 @@ def phase_kernel_times(gen, dev, card):
     return rows
 
 
+def paged_case(gen, dev, lens, T=1, dtype=torch.bfloat16, R=16, h=32,
+               kvh=8, d=128, B=16, M=64, P=1025):
+    """q, pools and int32 tables / seq_lens on the card: each row's table
+    a random permutation of physical blocks (never block 0), rows 1 and 2
+    sharing row 0's first half as prefix sharing does, idle rows (len 0)
+    an all-zero table."""
+    shape = (R, T, h, d) if T > 1 else (R, h, d)
+    q = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(P, B, kvh, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(P, B, kvh, d, generator=gen, device=dev).to(dtype)
+    tables = torch.stack([torch.randperm(P - 1, generator=gen,
+                                         device=dev)[:M] + 1
+                          for _ in range(R)]).to(torch.int32)
+    tables[1:3, :M // 2] = tables[0, :M // 2]
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    tables[lens == 0] = 0
+    return q, kp, vp, tables.contiguous(), lens
+
+
+def ragged_lens(gen, dev, T, R=16, B=16, M=64):
+    edge = [0, B - 1, B, M * B - T]
+    rest = torch.randint(1, M * B - T, (R - len(edge),), generator=gen,
+                         device=dev).tolist()
+    return edge + rest
+
+
+def phase_ragged_checks(gen, dev):
+    """The ragged kernel against its plain version at the engine's
+    geometry (R 16, h 32, kvh 8, d 128, B 16, M 64, P 1025), bf16 and
+    fp32: no window, window 100, 4 queries per row; then one call
+    captured in a CUDA graph and replayed after seq_lens and tables
+    changed in place. Returns the bf16 no-window error."""
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_plain)
+    first = None
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32,
+                                                   TOL_FP32)):
+        for T, window in ((1, None), (1, 100), (4, None)):
+            lens = ragged_lens(gen, dev, T)
+            args = paged_case(gen, dev, lens, T=T, dtype=dtype)
+            out = ragged_paged_attention(*args, window=window)
+            torch.cuda.synchronize()
+            ref = ragged_paged_attention_plain(*args, window=window)
+            err = max_err(out, ref)
+            log(f"[check] ragged {str(dtype)[6:]} T={T} window {window} "
+                f"q {list(args[0].shape)} pools {list(args[1].shape)} "
+                f"seq_lens {lens[:4]}+random: max_abs_err {err:.3e} "
+                f"tol {tol}")
+            if not err <= tol:
+                fail(f"ragged kernel disagrees with its plain version "
+                     f"({dtype}, T={T}, window {window})")
+            if first is None:
+                first = err
+    q, kp, vp, tbl, sl = paged_case(gen, dev, ragged_lens(gen, dev, 1))
+    ragged_paged_attention(q, kp, vp, tbl, sl)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ragged_paged_attention(q, kp, vp, tbl, sl)
+    for _ in range(2):
+        _, _, _, tbl2, sl2 = paged_case(gen, dev, ragged_lens(gen, dev, 1))
+        tbl.copy_(tbl2)
+        sl.copy_(sl2)
+        graph.replay()
+        torch.cuda.synchronize()
+        err = max_err(out, ragged_paged_attention_plain(q, kp, vp, tbl, sl))
+        log(f"[check] ragged CUDA-graph replay after in-place seq_lens / "
+            f"table change: max_abs_err {err:.3e} tol {TOL_BF16}")
+        if not err <= TOL_BF16:
+            fail("ragged kernel replayed from a CUDA graph disagrees")
+    return first
+
+
+def phase_ragged_time(gen, dev, card):
+    """The ragged kernel at the engine's shape: R 16 single-query rows,
+    seq_lens drawn from 64..1023, bf16, inputs rotated through copies
+    larger than the L2. Yardstick: one SDPA call over K/V pre-gathered
+    and head-expanded to [R, h, M*B, d] with a boolean length mask (the
+    gather outside the timing; the port never calls it)."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_plain)
+    R, h, kvh, d, B, M = 16, 32, 8, 128, 16, 64
+    lens = torch.randint(64, 1024, (R,), generator=gen, device=dev)
+    valid = int((lens + 1).sum())
+    el = 2
+    call_bytes = el * (2 * valid * kvh * d + 2 * R * h * d)
+    n = copies_for(call_bytes)
+    sets = [paged_case(gen, dev, lens) for _ in range(n)]
+    kpos = torch.arange(M * B, device=dev)
+    mask = (kpos[None, :] <= lens[:, None])[:, None, None, :]
+    lib_sets = []
+    for q, kp, vp, tbl, _ in sets:
+        tb = tbl.long()
+        ks = kp[tb].reshape(R, M * B, kvh, d).transpose(1, 2)
+        vs = vp[tb].reshape(R, M * B, kvh, d).transpose(1, 2)
+        lib_sets.append((q[:, :, None], ks.repeat_interleave(h // kvh, 1)
+                         .contiguous(), vs.repeat_interleave(h // kvh, 1)
+                         .contiguous()))
+    ms = cuda_ms(lambda i: ragged_paged_attention(*sets[i % n]), iters=200)
+    plain_ms = cuda_ms(lambda i: ragged_paged_attention_plain(*sets[i % n]),
+                       iters=20)
+    lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
+        *lib_sets[i % n], attn_mask=mask), iters=200)
+    bound_ms, bound_by = bound(call_bytes, 4 * d * valid * h)
+    log(f"[time] ragged: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{call_bytes / 1e6:.1f} MB of valid K/V for seq_lens "
+        f"{sorted(lens.tolist())}) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_small_reference(dev):
     """fp32 Llama with head_dim 128 and 4 query heads per kv head: logits
     of a 128-token prefill (flash) and 4 decode steps (decode kernel) on
@@ -359,6 +494,222 @@ def phase_slice(seed, dev, card):
         f"ids; {int((sampled[:, prompt:] != out[:, prompt:]).sum())} of "
         f"{b * new} tokens differ from greedy")
     profile_decode_step(ptt, pred, ids, decode_ms, card)
+    return launches, model
+
+
+def _reset_launches():
+    from paddle_tpu_torch.ops.kernels.decode_attention import \
+        decode_attention_fwd
+    from paddle_tpu_torch.ops.kernels.flash_attention import \
+        flash_attention_fwd
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        ragged_paged_attention
+    fns = {"flash": flash_attention_fwd, "decode": decode_attention_fwd,
+           "ragged": ragged_paged_attention}
+    for fn in fns.values():
+        fn.launches = 0
+    return lambda: {k: fn.launches for k, fn in fns.items()}
+
+
+def _serve(eng, subs, late_after: int):
+    """Submit ``subs`` (rid, ids, kw), the last ones only after
+    ``late_after`` ticks so they are admitted mid-decode; run to the end.
+    Returns (results, wall seconds, {rid: TTFT ms}, ragged launches seen
+    inside prefills)."""
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        ragged_paged_attention
+    t_sub, ttft, in_prefill = {}, {}, [0]
+    mark = {}
+
+    def sink(rid, kind, **_):
+        now = time.perf_counter()
+        if kind == "engine_queue":
+            t_sub[rid] = now
+        elif kind == "slot_take":
+            mark[rid] = ragged_paged_attention.launches
+        elif kind == "prefill_done":
+            ttft[rid] = (now - t_sub[rid]) * 1e3
+            in_prefill[0] += ragged_paged_attention.launches - mark[rid]
+    eng.trace_sink = sink
+    eng.results.clear()
+    eng.logprobs.clear()
+    first = len(subs) // 2
+    t0 = time.perf_counter()
+    for rid, ids, kw in subs[:first]:
+        eng.submit(rid, ids, **kw)
+    for _ in range(late_after):
+        eng.step()
+    for rid, ids, kw in subs[first:]:
+        eng.submit(rid, ids, **kw)
+    out = eng.run()
+    torch.cuda.synchronize()
+    eng.trace_sink = None
+    return out, time.perf_counter() - t0, ttft, in_prefill[0]
+
+
+def profile_paged_tick(eng, ids, card, ticks: int = 16):
+    """Where a steady paged decode tick's time goes: 16 greedy requests
+    decoding (no admission, no finish), ``ticks`` ticks timed on the
+    host clock, then the same number under torch.profiler split by
+    kernel kind. Device busy share = device time over the unprofiled
+    tick."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(eng.R):
+        eng.submit(f"p{i}", ids(256), max_new_tokens=3 * ticks + 4)
+    eng.step()                          # admit + prefill all, first tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step()
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / ticks
+    cats = {"ragged_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n += 1
+        name = e.name.lower()
+        cat = ("ragged_attention" if "ragged_kernel" in name else
+               "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
+                                                 "cutlass", "nvjet"))
+               else "other")
+        cats[cat] += e.time_range.elapsed_us() / 1e3 / ticks
+    eng.run()
+    if not n:
+        log("[profile] torch.profiler recorded no device events: paged "
+            "tick busy share not measured")
+        return
+    busy = sum(cats.values())
+    log(f"[profile] paged decode tick (16 active rows, seq_len ~256-300): "
+        f"unprofiled {tick_ms:.2f} ms, under the profiler {wall:.2f} ms, "
+        f"device busy {busy:.3f} ms ({100 * busy / tick_ms:.1f} % of the "
+        f"unprofiled tick), {n / ticks:.0f} device ops per tick; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in cats.items())
+        + f" [{card}]")
+
+
+def phase_paged(seed, dev, card, model):
+    """Llama-3-8B served by the ported PagedEngine on its host tick."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rs = np.random.RandomState(seed + 10)
+    gen = ptt.make_generator(seed + 11, "cpu")
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+
+    # (a) whole-prompt prefill, mixed traffic, admission mid-decode
+    subs = []
+    for i in range(24):
+        kw = dict(max_new_tokens=int(rs.randint(32, 129)))
+        if i % 6 == 5:
+            kw.update(temperature=0.8, top_p=0.95, seed=1000 + i)
+        if i == 3:
+            kw["stop_sequences"] = [[int(t) for t in rs.randint(
+                0, cfg.vocab_size, 2)], [int(rs.randint(cfg.vocab_size))]]
+        subs.append((f"a{i}", ids(int(rs.randint(32, 769))), kw))
+    eng = PagedEngine(model, fused_tick=False, **PAGED)
+    pool_gb = sum(kp.numel() * kp.element_size() * 2
+                  for kp, _ in eng.pools) / 1e9
+    log(f"[paged] PagedEngine(fused_tick=False, {PAGED}): KV pool "
+        f"{pool_gb:.2f} GB on the card")
+    _serve(eng, subs[:2], late_after=0)          # warm-up (allocator)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps0 = eng.stats["decode_steps"]
+    read = _reset_launches()
+    out, wall, ttft, in_prefill = _serve(eng, subs, late_after=8)
+    launches = read()
+    ticks = eng.stats["decode_steps"] - steps0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = {"flash": 0, "decode": 0, "ragged": L * ticks}
+    log(f"[paged] (a) launches in the run: {launches} (want {want}; "
+        f"{in_prefill} inside prefills)")
+    if launches != want or in_prefill:
+        fail(f"paged launches {launches} != {want} (prefills: "
+             f"{in_prefill})")
+    new_tokens = 0
+    for rid, tok_ids, kw in subs:
+        got = out.get(rid)
+        if got is None:
+            fail(f"request {rid} did not finish")
+        new_tokens += len(got)
+        n = kw["max_new_tokens"]
+        stopped = "stop_sequences" in kw and len(got) < n
+        if len(got) != n and not stopped:
+            fail(f"request {rid}: {len(got)} tokens, want {n}")
+        if not all(0 <= t < cfg.vocab_size for t in got):
+            fail(f"request {rid}: ids outside the vocabulary")
+    h = eng._h_decode.stats()
+    t = np.array([ttft[r] for r, _, _ in subs])
+    log(f"[paged] (a) 24 requests, {new_tokens} new tokens in {ticks} "
+        f"decode ticks, {wall:.2f} s: TTFT median {np.median(t):.1f} ms "
+        f"p99 {np.percentile(t, 99):.1f} ms, mean tick "
+        f"{h['mean']:.2f} ms (paged_decode_step_ms, {h['count']} ticks "
+        f"incl. warm-up), {new_tokens / wall:.1f} new tokens/s, peak "
+        f"memory {peak_gb:.2f} GB [{card}]")
+    again, _, _, _ = _serve(eng, subs, late_after=8)
+    if again != out:
+        bad = [r for r in out if again.get(r) != out[r]]
+        fail(f"a rerun of the same submissions gave other tokens: {bad}")
+    log("[paged] (a) rerun of the same submissions: identical tokens "
+        "(4 sampled included)")
+    profile_paged_tick(eng, ids, card)
+    del eng
+
+    # (b) chunked prefill + prefix cache
+    eng = PagedEngine(model, fused_tick=False, chunk_prefill_tokens=128,
+                      enable_prefix_cache=True, **PAGED)
+    prefix = ids(512)
+    subs = [(f"b{i}", torch.cat([prefix, ids(64)]),
+             dict(max_new_tokens=32)) for i in range(8)]
+    cold, _, _, _ = _serve(eng, subs[:1], late_after=0)
+    warm, wall, ttft, _ = _serve(eng, subs[1:], late_after=2)
+    hits = eng.stats["prefix_hit_tokens"]
+    rid, tok_ids, kw = subs[0]
+    res, _, _, _ = _serve(eng, [(rid, tok_ids, kw)], late_after=0)
+    log(f"[paged] (b) chunk 128 + prefix cache: prefix_hit_tokens {hits}, "
+        f"prefill chunks {eng.stats['prefill_chunks']}, 7 borrowers TTFT "
+        f"median {np.median(list(ttft.values())):.1f} ms; resubmitted "
+        f"prompt identical to its cold run: {res[rid] == cold[rid]} "
+        f"[{card}]")
+    if not hits > 0:
+        fail("the shared 512-token prefix never hit the prefix cache")
+    if res[rid] != cold[rid] or any(len(v) != 32 for v in warm.values()):
+        fail("a prefix-cache hit changed a request's greedy tokens")
+    del eng
+
+    # (c) preemption through Predictor.serve_stream
+    pred = ptt.Predictor(model, device=dev)
+    reqs = {f"c{i}": ids(256) for i in range(8)}
+    geo = dict(PAGED, num_blocks=129)
+    t0 = time.perf_counter()
+    res = pred.serve_stream(reqs, max_new_tokens=128, fused_tick=False,
+                            **geo)
+    wall = time.perf_counter() - t0
+    st = pred.last_serve_stats
+    log(f"[paged] (c) serve_stream, 8 x (256 + 128) tokens in a "
+        f"{geo['num_blocks'] - 1}-block pool: preemptions "
+        f"{st['preemptions']}, {st['decode_steps']} ticks, {wall:.2f} s "
+        f"[{card}]")
+    if not st["preemptions"] > 0:
+        fail("the undersized pool never preempted")
+    if sorted(res) != sorted(reqs) or any(len(v) != 128
+                                          for v in res.values()):
+        fail("serve_stream under preemption lost or cut a request")
+    pred._paged_engines.clear()
     return launches
 
 
@@ -439,12 +790,17 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = phase_kernel_checks(gen, dev)
+    errs["ragged"] = phase_ragged_checks(gen, dev)
     times = phase_kernel_times(gen, dev, card)
+    times["ragged"] = phase_ragged_time(gen, dev, card)
     phase_small_reference(dev)
-    launches = phase_slice(args.seed, dev, card)
+    launches, model = phase_slice(args.seed, dev, card)
+    launches["ragged"] = phase_paged(args.seed, dev, card, model)["ragged"]
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
-            "decode": ("decode_attention", DECODE_SOURCE, DECODE_REPLACES)}
+            "decode": ("decode_attention", DECODE_SOURCE, DECODE_REPLACES),
+            "ragged": ("ragged_paged_attention", RAGGED_SOURCE,
+                       RAGGED_REPLACES)}
     kernels = []
     for key, (name, source, replaces) in meta.items():
         t = times[key]

@@ -4,10 +4,13 @@ It imports torch and numpy only, never jax or anything of ``paddle_tpu``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when asked for the card and there is none.
 
-This slice serves Llama through ``Predictor.generate``: the Llama forward
-over a static KV cache, ``generate()``, and two hand-written kernels for
-``sm_90a`` (flash-attention forward and decode attention, under
-``ops/kernels`` with their sources in ``csrc``).
+It serves Llama two ways. ``Predictor.generate`` runs the forward over a
+static KV cache (``generate()``). ``PagedEngine``
+(``generation/paged.py``) and ``Predictor.serve_stream`` run a
+continuous-batching engine over a paged KV cache, on the per-tick host
+path. Three hand-written kernels for ``sm_90a`` sit under
+``ops/kernels``, with their sources in ``csrc``: flash-attention
+forward, decode attention and ragged paged attention.
 """
 from .convert import load_jax_state_dict
 from .device import resolve_device

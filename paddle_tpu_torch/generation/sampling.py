@@ -1,17 +1,26 @@
 """Logits processors for autoregressive decoding (the subset of
-``paddle_tpu/generation/sampling.py`` that ``generate()`` uses).
+``paddle_tpu/generation/sampling.py`` that ``generate()`` and the paged
+engine's host tick use).
 
 Filtering masks to the finite -1e30, as the JAX package does, so a
-filtered row never holds a NaN. Sampling draws from an explicit
-``torch.Generator``; the JAX package's threefry keys have no torch
-counterpart, so sampled streams match the reference in distribution, not
-bit for bit.
+filtered row never holds a NaN. ``generate()`` draws from an explicit
+``torch.Generator``. The engine's per-row sampling uses a row key of two
+32-bit words, (seed, counter), instead of the JAX package's threefry
+keys: a token is the Gumbel-max over noise hashed from (seed, counter,
+vocab index) with integer ops, and every emitted token advances the
+counter by one. Nothing hidden enters a draw, so a row's stream does not
+depend on its batch, resumes exactly after a preemption (the key rides
+with the request), and gives the same tokens on the CPU and the card for
+the same logits. Neither kind of sampled stream matches the JAX
+package's bit for bit; they match it in distribution.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
+_M32 = 0xFFFFFFFF
 
 
 def apply_temperature(logits, temperature):
@@ -79,3 +88,102 @@ def suffix_window_hits(seq, cur: int, g: int):
     last = seq[..., max(cur - g, 0):max(cur - g, 0) + g]      # [..., g]
     hit = (win == last[..., None, :]).all(dim=-1)
     return hit & (starts <= cur - g - 1) & (cur >= g)
+
+
+# ------------------------------------------------------- per-row sampling
+def repetition_penalty_rows(logits, seen, penalties):
+    """Per-row repetition penalty: logits [R, V], seen [R, V] bool,
+    penalties [R] (1.0 = off). Rows at 1.0 pass through bit-exactly."""
+    p = penalties.float()[:, None]
+    pen = torch.where(logits > 0, logits / p, logits * p)
+    return torch.where(seen & (p != 1.0), pen, logits)
+
+
+def filter_logits_rows(logits, temperature, top_k, top_p):
+    """Per-row temperature / top-k / top-p on [R, V] logits with per-row
+    tensors (k <= 0 / p >= 1 disable). Returns fp32 logits: kept entries
+    divided by the temperature, the rest NEG_INF. The same ops, in the
+    same order, as the JAX package's ``filter_logits_rows``."""
+    raw = logits.float()
+    V = raw.shape[-1]
+    temperature = temperature.float()
+    top_k = top_k.long()
+    top_p = top_p.float()
+    neg = torch.full_like(raw, NEG_INF)
+    lt = raw / temperature.clamp_min(1e-6)[:, None]
+    # per-row top-k: the k-th largest value is the threshold
+    sd = torch.sort(lt, dim=-1, descending=True).values
+    kth = sd.gather(1, (top_k - 1).clamp(0, V - 1)[:, None])
+    lt = torch.where((top_k[:, None] > 0) & (lt < kth), neg, lt)
+    # the top-k-filtered row in sorted order, from the one sort: rank >= k
+    # is masked (ties at the k-th value are kept by the filter above but
+    # counted once in the top-p cumsum)
+    rank = torch.arange(V, device=raw.device)[None, :]
+    sd2 = torch.where((top_k[:, None] <= 0) | (rank < top_k[:, None]), sd,
+                      neg)
+    probs = torch.softmax(sd2, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep_sorted = (cum - probs) < top_p[:, None]    # always keeps argmax
+    thresh = torch.where(keep_sorted, sd2,
+                         torch.full_like(sd2, float("inf"))).amin(
+                             dim=-1, keepdim=True)
+    return torch.where((top_p[:, None] < 1.0) & (lt < thresh), neg, lt)
+
+
+def seed_key_row(seed: int) -> np.ndarray:
+    """One row's key: [seed, counter] as two uint32 words, counter 0.
+    It replaces the JAX package's threefry ``PRNGKey(seed)`` data."""
+    return np.array([int(seed) & _M32, 0], np.uint32)
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for int64 tensors holding uint32 values, split
+    in 16-bit halves so no intermediate leaves the int64 range."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _mix32(x):
+    """A 32-bit integer finaliser (xor-shift-multiply, the "lowbias32"
+    constants) on int64 tensors holding uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel_noise_rows(keys, vocab: int):
+    """[R, V] float64 Gumbel noise of the rows' keys ([R, 2] int64 of
+    uint32 words): a counter-based hash of (seed, counter, vocab index),
+    so the same key gives the same bits on any device and in any batch."""
+    keys = keys.long()
+    base = _mix32(_mix32(keys[:, 0] ^ 0x243F6A88) ^ keys[:, 1])     # [R]
+    v = torch.arange(vocab, device=keys.device, dtype=torch.int64)
+    h = _mix32(_mix32(base[:, None] ^ v[None, :]) ^ 0x85EBCA6B)
+    u = ((h >> 8).double() + 0.5) / float(1 << 24)           # in (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def sample_token_rows(logits, keys, temperature, top_k, top_p):
+    """Per-row sampling for continuous batching. logits [R, V] (raw);
+    keys [R, 2] int64 rows of (seed, counter); temperature [R] (<= 0:
+    greedy, the exact argmax of the raw fp32 logits); top_k [R] (<= 0
+    disables); top_p [R] (>= 1 disables).
+
+    Returns (tokens [R] int64, logprobs [R] fp32 of the chosen token under
+    the unfiltered softmax, new_keys [R, 2] with every counter advanced by
+    one). A sampled token is argmax(filtered logits + Gumbel noise), in
+    float64."""
+    raw = logits.float()
+    lt = filter_logits_rows(raw, temperature, top_k, top_p)
+    noise = gumbel_noise_rows(keys, raw.shape[-1])
+    sampled = torch.argmax(lt.double() + noise, dim=-1)
+    tokens = torch.where(temperature <= 0.0, torch.argmax(raw, dim=-1),
+                         sampled)
+    logprobs = torch.log_softmax(raw, dim=-1).gather(
+        1, tokens[:, None])[:, 0]
+    keys = keys.long()
+    new_keys = torch.stack([keys[:, 0], (keys[:, 1] + 1) & _M32], dim=1)
+    return tokens, logprobs, new_keys

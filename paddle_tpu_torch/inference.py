@@ -1,11 +1,13 @@
 """Inference predictor (counterpart of ``paddle_tpu/inference.py``:
-``Config`` and ``Predictor`` with its ``run`` and ``generate``).
+``Config`` and ``Predictor`` with its ``run``, ``generate`` and
+``serve_stream``).
 
 Requests pad their batch dim up to a fixed bucket ladder, with the last
 row repeated, and the padding rows are cropped from every output, so
-results are exact and a server sees few distinct batch shapes. Weight-only
-quantization, ``serve_stream`` (the ``PagedEngine`` path) and
-``BatchingPredictor`` come with later slices of the port.
+results are exact and a server sees few distinct batch shapes.
+``serve_stream`` serves a request stream through a ``PagedEngine``.
+Weight-only quantization and ``BatchingPredictor`` come with later slices
+of the port.
 """
 from __future__ import annotations
 
@@ -42,6 +44,9 @@ class Predictor:
         self.config = config or Config()
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.last_serve_stats = {}
+        self.last_logprobs = {}
+        self._paged_engines = {}
 
     def _bucket(self, b: int) -> int:
         for cap in self.config.batch_buckets or ():
@@ -81,3 +86,33 @@ class Predictor:
         out = self.model.generate(self._padded(input_ids, b, cap),
                                   prompt_start=prompt_start, **kwargs)
         return out[:b]
+
+    def serve_stream(self, requests, max_new_tokens: int = 64,
+                     eos_token_id=None, sampling=None, **engine_kw):
+        """Continuous-batching service for a mixed-length request stream:
+        ``requests`` maps request_id -> input_ids. Admission is FIFO: a
+        request enters the moment a slot and its blocks free up.
+        ``sampling`` maps request_id -> dict of per-request overrides
+        (temperature / top_k / top_p / seed / repetition_penalty /
+        stop_sequences); chosen-token logprobs land in
+        ``self.last_logprobs``. Returns request_id -> generated ids.
+
+        ``engine_kw`` goes to ``PagedEngine`` (this slice's engine needs
+        ``fused_tick=False``). The engine, its pools included, is cached
+        per ``engine_kw``, so repeated calls allocate nothing new."""
+        from .generation.paged import PagedEngine
+        key = tuple(sorted(engine_kw.items()))
+        eng = self._paged_engines.get(key)
+        if eng is None:
+            eng = PagedEngine(self.model, **engine_kw)
+            self._paged_engines[key] = eng
+        for rid, ids in requests.items():
+            eng.submit(rid, ids, max_new_tokens=max_new_tokens,
+                       eos_token_id=eos_token_id,
+                       **((sampling or {}).get(rid, {})))
+        out = eng.run()
+        eng.results.clear()  # the caller owns them now
+        self.last_logprobs = dict(eng.logprobs)
+        eng.logprobs.clear()
+        self.last_serve_stats = dict(eng.stats)
+        return out

@@ -1,15 +1,16 @@
 """Llama-3 family (counterpart of ``paddle_tpu/models/llama.py``).
 
-The serving path of the JAX package, in PyTorch: the static-KV-cache
-attention that ``generate()`` drives, and the no-cache forward. The
-branches that belong to later slices raise ``NotImplementedError``: the
-paged KV cache (``PagedEngine``), ring attention over a sequence-parallel
-mesh, per-layer recompute and the pipeline-parallel train step.
+The serving paths of the JAX package, in PyTorch: the static-KV-cache
+attention that ``generate()`` drives, the paged KV cache that
+``PagedEngine`` drives, and the no-cache forward. The branches that
+belong to later slices raise ``NotImplementedError``: ring attention over
+a sequence-parallel mesh, per-layer recompute and the pipeline-parallel
+train step.
 
 PyTorch idiom inside: ``nn.Module``s with an explicit device and
 generator, the RoPE tables computed once per forward in ``LlamaModel``
 (the JAX package computes the same tables in every layer), and the KV
-cache written in place.
+caches (static and paged) written in place.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..generation.paged import (PagedKV, paged_chunk_attention,
+                                paged_decode_attention, paged_decode_write,
+                                paged_prefill_write)
 from ..nn import RMSNorm
 from ..nn import functional as F
 from ..ops.attention import (decode_attention, dense_attention,
@@ -225,8 +229,18 @@ class LlamaAttention(nn.Module):
                                         has_bias=False, **kw)
 
     def forward(self, x, rope, kv_cache=None, cache_index=None,
-                attn_mask=None, attn_start=None, segment_ids=None):
+                attn_mask=None, attn_start=None, segment_ids=None,
+                positions=None, paged_chunk: bool = False,
+                paged_decode: bool = False):
         """``rope`` is the (cos, sin) pair of :func:`rotary_cos_sin`.
+
+        With ``kv_cache`` a :class:`PagedKV` (the paged engine), this
+        step's K/V are written into the pools in place and (out, cache) is
+        returned. s == 1 (or ``paged_decode`` at any s, multi-query rows)
+        attends each row's blocks through the ragged paged kernel; a
+        chunk (``paged_chunk``, ``positions`` [1, s] global) attends over
+        its row's earlier chunks too; a whole prompt is causal attention
+        over itself (its pad tail lands in the garbage block).
 
         With ``kv_cache`` = (k, v) [b, T, kv, d] tensors, this token's K/V
         are written into the cache IN PLACE at ``cache_index`` (a Python
@@ -242,11 +256,22 @@ class LlamaAttention(nn.Module):
         cos, sin = rope
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
 
+        if isinstance(kv_cache, PagedKV):
+            if s == 1 or paged_decode:
+                cache = paged_decode_write(kv_cache, k, v)
+                out = paged_decode_attention(q, cache, window=self.window)
+            elif paged_chunk:
+                cache = paged_prefill_write(kv_cache, k, v,
+                                            positions=positions[0])
+                out = paged_chunk_attention(q, cache, positions,
+                                            window=self.window)
+            else:
+                cache = paged_prefill_write(kv_cache, k, v)
+                out = dense_attention(q, k, v, causal=True,
+                                      window=self.window)
+            return self.o_proj(out.reshape(b, s, nh * d)), cache
+
         if kv_cache is not None:
-            if not isinstance(kv_cache, (tuple, list)):
-                raise NotImplementedError(
-                    "paged KV caches (PagedEngine) come with the next "
-                    "slice of the port")
             ck, cv = kv_cache
             cache_index = operator.index(cache_index)
             ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
@@ -335,11 +360,16 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, device=device, generator=generator)
 
     def forward(self, x, rope, kv_cache=None, cache_index=None,
-                attn_mask=None, attn_start=None, segment_ids=None):
+                attn_mask=None, attn_start=None, segment_ids=None,
+                positions=None, paged_chunk: bool = False,
+                paged_decode: bool = False):
         attn_out = self.self_attn(self.input_layernorm(x), rope,
                                   kv_cache=kv_cache, cache_index=cache_index,
                                   attn_mask=attn_mask, attn_start=attn_start,
-                                  segment_ids=segment_ids)
+                                  segment_ids=segment_ids,
+                                  positions=positions,
+                                  paged_chunk=paged_chunk,
+                                  paged_decode=paged_decode)
         new_cache = None
         if kv_cache is not None:
             attn_out, new_cache = attn_out
@@ -375,7 +405,8 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, positions=None, kv_caches=None,
                 cache_index=None, attn_mask=None, attn_start=None,
-                segment_ids=None):
+                segment_ids=None, paged_chunk: bool = False,
+                paged_decode: bool = False):
         cfg = self.config
         if cfg.recompute and kv_caches is None:
             raise NotImplementedError(
@@ -400,7 +431,9 @@ class LlamaModel(nn.Module):
                         kv_cache=kv_caches[i] if kv_caches is not None
                         else None,
                         cache_index=cache_index, attn_mask=attn_mask,
-                        attn_start=attn_start, segment_ids=segment_ids)
+                        attn_start=attn_start, segment_ids=segment_ids,
+                        positions=positions, paged_chunk=paged_chunk,
+                        paged_decode=paged_decode)
             if kv_caches is not None:
                 x, cache = out
                 new_caches.append(cache)
@@ -434,9 +467,11 @@ class LlamaForCausalLM(CausalLMBase):
 
     def forward(self, input_ids, positions=None, kv_caches=None,
                 cache_index=None, attn_mask=None, attn_start=None,
-                segment_ids=None):
+                segment_ids=None, paged_chunk: bool = False,
+                paged_decode: bool = False):
         out = self.model(input_ids, positions, kv_caches, cache_index,
-                         attn_mask, attn_start, segment_ids=segment_ids)
+                         attn_mask, attn_start, segment_ids=segment_ids,
+                         paged_chunk=paged_chunk, paged_decode=paged_decode)
         caches = None
         if kv_caches is not None:
             out, caches = out

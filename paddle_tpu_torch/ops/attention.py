@@ -1,9 +1,9 @@
 """Attention dispatch (counterpart of ``paddle_tpu/ops/attention.py``).
 
 Public functions keep the JAX package's [b, s, h, d] layout. The gates
-(``use_flash``, ``use_decode_kernel``) look at shapes only; which device
-the tensors lie on decides, inside the kernel wrappers, whether the
-Hopper kernel or its plain version runs. The TPU-only conditions of the
+(``use_flash``, ``use_decode_kernel``, ``use_paged_kernel``) look at
+shapes only; which device the tensors lie on decides, inside the kernel
+wrappers, whether the Hopper kernel or its plain version runs. The TPU-only conditions of the
 JAX gates (a TPU backend or interpret mode, the d=64 even-kv rule of
 Mosaic's tiling) are not inherited.
 """
@@ -17,6 +17,8 @@ from .kernels.decode_attention import HEAD_DIMS as _DECODE_HEAD_DIMS
 from .kernels.decode_attention import MAX_GROUP, decode_attention_fwd
 from .kernels.flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
 from .kernels.flash_attention import flash_attention_fwd
+from .kernels.ragged_paged_attention import HEAD_DIMS as _PAGED_HEAD_DIMS
+from .kernels.ragged_paged_attention import MAX_ROWS as _PAGED_MAX_ROWS
 
 
 def use_flash(query, key, attn_mask, dropout_p) -> bool:
@@ -81,6 +83,17 @@ def dense_attention(query, key, value, attn_mask=None, causal=False,
     probs = torch.softmax(scores, dim=-1).to(query.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
     return out.transpose(1, 2)
+
+
+def use_paged_kernel(q, kp) -> bool:
+    """The ragged paged kernel's shapes (q [R, T, h, d], pools [P, B, kvh,
+    d]): whole query-head groups, head_dim 64, 128 or 256, and T x group
+    query rows that fit the kernel. The TPU gate's interpret-mode switch
+    and its Mosaic rules (B % 8, d % 128 or kvh == 1) are not inherited."""
+    T, h, d = q.shape[1], q.shape[2], q.shape[3]
+    kvh = kp.shape[2]
+    return (h % kvh == 0 and d in _PAGED_HEAD_DIMS
+            and T * (h // kvh) <= _PAGED_MAX_ROWS)
 
 
 def use_decode_kernel(q, k_cache) -> bool:

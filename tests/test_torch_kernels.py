@@ -197,7 +197,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 def test_import_keeps_jax_and_paddle_tpu_out():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.ops.attention, "
-            "paddle_tpu_torch.ops.kernels._build\n"
+            "paddle_tpu_torch.ops.kernels._build, "
+            "paddle_tpu_torch.generation.paged\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'))\n"

@@ -13,6 +13,8 @@ from paddle_tpu_torch.ops.kernels.decode_attention import (
     decode_attention_fwd, decode_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd, flash_attention_fwd_plain)
+from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+    ragged_paged_attention, ragged_paged_attention_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -83,3 +85,82 @@ def test_decode_kernel_matches_plain(cuda_card, cache_index, window, dtype):
     ref = decode_attention_fwd_plain(q, ck, cv, cache_index, window=window)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
                                rtol=0)
+
+
+def _paged_case(rs, R, T, h, kvh, d, B, M, P, lens):
+    """Pools of random values, tables of distinct random physical blocks
+    per row (never block 0), rows 1 and 2 sharing row 0's first blocks as
+    prefix sharing does, and the given seq_lens (idle rows keep an
+    all-zero table)."""
+    q = _randn(rs, R, T, h, d) if T > 1 else _randn(rs, R, h, d)
+    kp = _randn(rs, P, B, kvh, d)
+    vp = _randn(rs, P, B, kvh, d)
+    tables = np.zeros((R, M), np.int32)
+    for r in range(R):
+        tables[r] = rs.permutation(np.arange(1, P))[:M]
+    tables[1:3, :M // 2] = tables[0, :M // 2]
+    lens = np.asarray(lens, np.int32)
+    tables[lens == 0] = 0
+    return q, kp, vp, torch.from_numpy(tables), torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("T,window", [(1, None), (1, 100), (4, None)],
+                         ids=["decode", "window", "multi-query"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_ragged_kernel_matches_plain(cuda_card, T, window, dtype):
+    rs = np.random.RandomState(T)
+    R, h, kvh, d, B, M, P = 16, 32, 8, 128, 16, 64, 1025
+    lens = [0, B - 1, B, M * B - T, 1, 100, 257, 640] + list(
+        rs.randint(1, M * B - T, R - 8))
+    q, kp, vp, tbl, sl = _paged_case(rs, R, T, h, kvh, d, B, M, P, lens)
+    args = [x.to(cuda_card) for x in (q.to(dtype), kp.to(dtype),
+                                      vp.to(dtype), tbl, sl)]
+    n = ragged_paged_attention.launches
+    out = ragged_paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == n + 1
+    ref = ragged_paged_attention_plain(*args, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("d,group", [(64, 2), (256, 1)])
+def test_ragged_kernel_other_head_dims(cuda_card, d, group):
+    rs = np.random.RandomState(d)
+    R, kvh, B, M, P = 4, 2, 8, 16, 80
+    q, kp, vp, tbl, sl = _paged_case(rs, R, 1, kvh * group, kvh, d, B, M, P,
+                                     [0, 7, 8, 127])
+    args = [x.to(cuda_card) for x in (q, kp, vp, tbl, sl)]
+    out = ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ragged_paged_attention_plain(*args),
+                               atol=ATOL[torch.float32], rtol=0)
+
+
+def test_ragged_kernel_replays_in_a_cuda_graph(cuda_card):
+    """One call captured in a CUDA graph; seq_lens and table contents
+    changed in place between replays; each replay agrees with the plain
+    version on the new values."""
+    rs = np.random.RandomState(7)
+    R, h, kvh, d, B, M, P = 16, 32, 8, 128, 16, 64, 1025
+    q, kp, vp, tbl, sl = _paged_case(rs, R, 1, h, kvh, d, B, M, P,
+                                     rs.randint(1, 900, R))
+    q, kp, vp = (x.to(cuda_card, torch.bfloat16) for x in (q, kp, vp))
+    tbl, sl = tbl.to(cuda_card), sl.to(cuda_card)
+    ragged_paged_attention(q, kp, vp, tbl, sl)      # warm-up, uncaptured
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ragged_paged_attention(q, kp, vp, tbl, sl)
+    for seed in (1, 2):
+        rs2 = np.random.RandomState(seed)
+        _, _, _, tbl2, sl2 = _paged_case(rs2, R, 1, h, kvh, d, B, M, P,
+                                         rs2.randint(0, M * B - 1, R))
+        tbl.copy_(tbl2)
+        sl.copy_(sl2)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = ragged_paged_attention_plain(q, kp, vp, tbl, sl)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=ATOL[torch.bfloat16], rtol=0)

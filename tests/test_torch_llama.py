@@ -10,8 +10,10 @@ import pytest
 import torch
 
 import paddle_tpu_torch as ptt
+from paddle_tpu.generation.paged import PagedKV as JaxPagedKV
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import llama_tiny as jax_llama_tiny
+from paddle_tpu_torch.generation.paged import PagedKV
 
 # fp32 logits: same math, summed in another order by XLA and torch
 ATOL_LOGITS = 1e-4
@@ -132,8 +134,62 @@ def test_later_slices_raise_not_implemented():
     ids = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="training"):
         tm(ids)
-    tm.config.recompute = False
-    with pytest.raises(NotImplementedError, match="paged"):
-        tm(ids, kv_caches=[object()] * 2, cache_index=0)
     with pytest.raises(NotImplementedError, match="pipeline"):
         tm.pipeline_functional(2)
+
+
+@pytest.mark.parametrize("overrides", [dict(), dict(sliding_window=6)],
+                         ids=["tiny", "window"])
+def test_paged_branch_logits_match_jax(overrides):
+    """The paged attention branch (the engine's three calls): a
+    whole-prompt prefill over a padded bucket, two prompt chunks
+    (``paged_chunk``) and a two-row decode step; logits at the live
+    positions match the JAX package's, and the port writes its pools in
+    place."""
+    jm, tm = _pair(**overrides)
+    cfg = tm.config
+    P, B, M = 12, 4, 6
+    shape = (P, B, cfg.num_key_value_heads, cfg.head_dim)
+    ids = _ids(2, 16, cfg.vocab_size, seed=3)
+    tables = np.array([[1, 2, 3, 4, 0, 0], [5, 6, 7, 8, 9, 0]], np.int32)
+
+    def both(tokens, positions, rows, lens, **kw):
+        jc = [JaxPagedKV(a, b, jnp.asarray(tables[rows]), jnp.asarray(lens))
+              for a, b in jpools]
+        ref, new = jm(jnp.asarray(tokens), positions=jnp.asarray(positions),
+                      kv_caches=jc, **kw)
+        jpools[:] = [(c.kp, c.vp) for c in new]
+        tc = [PagedKV(a, b, torch.from_numpy(tables[rows]),
+                      torch.from_numpy(lens)) for a, b in tpools]
+        with torch.no_grad():
+            got, caches = tm(torch.from_numpy(tokens),
+                             positions=torch.from_numpy(positions),
+                             kv_caches=tc, **kw)
+        assert caches[0].kp is tpools[0][0]
+        return np.asarray(ref), got.numpy()
+
+    jpools = [(jnp.zeros(shape), jnp.zeros(shape))
+              for _ in range(cfg.num_hidden_layers)]
+    tpools = [(torch.zeros(shape), torch.zeros(shape))
+              for _ in range(cfg.num_hidden_layers)]
+    # row 0: whole prompt of 9 tokens in a 16-token bucket
+    padded = ids[:1].copy()
+    padded[0, 9:] = 0
+    ref, got = both(padded, np.arange(16)[None].astype(np.int32), [0],
+                    np.array([9], np.int32))
+    np.testing.assert_allclose(got[:, :9], ref[:, :9], atol=ATOL_LOGITS,
+                               rtol=0)
+    # row 1: 13 prompt tokens in two chunks of 8
+    for start in (0, 8):
+        chunk = ids[1:, start:start + 8].copy()
+        live = min(8, 13 - start)
+        chunk[0, live:] = 0
+        ref, got = both(chunk, (start + np.arange(8))[None].astype(np.int32),
+                        [1], np.array([start + live], np.int32),
+                        paged_chunk=True)
+        np.testing.assert_allclose(got[:, :live], ref[:, :live],
+                                   atol=ATOL_LOGITS, rtol=0)
+    # one decode step for both rows (the ragged kernel's plain version)
+    lens = np.array([9, 13], np.int32)
+    ref, got = both(ids[:, 14:15], lens[:, None], [0, 1], lens)
+    np.testing.assert_allclose(got, ref, atol=ATOL_LOGITS, rtol=0)

@@ -1,0 +1,201 @@
+"""The port's ragged paged attention and its dispatch against the JAX
+package's, on the CPU.
+
+The plain version (what the wrapper runs on CPU tensors) is held against
+``ragged_paged_attention_pallas`` in interpret mode, fp32, same numpy
+inputs, within 1e-5. ``paged_decode_attention`` is held against the JAX
+package's dense paged route on both of its own routes (the gate admits:
+the plain ragged version; the gate refuses: the dense gather).
+``test_torch_kernels_gpu.py`` holds the CUDA kernel against the plain
+version on the card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.generation.paged import PagedKV as JaxPagedKV
+from paddle_tpu.generation.paged import \
+    paged_decode_attention as jax_paged_decode_attention
+from paddle_tpu.generation.paged import paged_decode_write as jax_write
+from paddle_tpu.generation.paged import paged_prefill_write as jax_prefill
+from paddle_tpu.ops.pallas.ragged_paged_attention import \
+    ragged_paged_attention_pallas
+from paddle_tpu_torch.generation.paged import (PagedKV,
+                                               paged_decode_attention,
+                                               paged_decode_write,
+                                               paged_prefill_write)
+from paddle_tpu_torch.ops import attention as port_attn
+from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+    ragged_paged_attention, ragged_paged_attention_plain)
+
+# fp32 on the CPU: both sides sum the same fp32 products in another order
+ATOL_FP32 = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.delenv("PADDLE_TPU_PAGED_ATTN", raising=False)
+
+
+@pytest.fixture
+def jax_dense(monkeypatch):
+    monkeypatch.delenv("PADDLE_TPU_PALLAS_INTERPRET", raising=False)
+    monkeypatch.setenv("PADDLE_TPU_PAGED_ATTN", "dense")
+
+
+def _case(seed, R=4, T=1, h=4, kvh=2, d=64, B=8, M=6, P=24, lens=None):
+    """Random q and pools; each row's table a random draw of distinct
+    physical blocks (never block 0), rows 1 and 2 sharing row 0's first
+    blocks as prefix sharing does; idle rows (len 0) keep an all-zero
+    table."""
+    rs = np.random.RandomState(seed)
+    shape = (R, T, h, d) if T > 1 else (R, h, d)
+    q = rs.randn(*shape).astype(np.float32)
+    kp = rs.randn(P, B, kvh, d).astype(np.float32)
+    vp = rs.randn(P, B, kvh, d).astype(np.float32)
+    tables = np.stack([rs.permutation(np.arange(1, P))[:M]
+                       for _ in range(R)]).astype(np.int32)
+    tables[1:3, :M // 2] = tables[0, :M // 2]
+    lens = np.asarray(lens if lens is not None
+                      else rs.randint(0, M * B - T, R), np.int32)
+    tables[lens == 0] = 0
+    return q, kp, vp, tables, lens
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("T,window,group,lens", [
+    (1, None, 2, [0, 7, 8, 47]),            # idle row, block edges, full
+    (1, 5, 2, [0, 7, 8, 47]),
+    (1, None, 1, [3, 16, 30, 47]),
+    (1, 13, 4, [1, 9, 24, 40]),
+    (3, None, 2, [0, 7, 8, 45]),            # multi-query, full row
+    (3, 6, 4, [2, 8, 15, 45]),
+], ids=["decode", "window", "mha", "group4-window", "multi-query",
+        "multi-query-window-group4"])
+def test_ragged_plain_matches_pallas(pallas_interpret, T, window, group,
+                                     lens):
+    q, kp, vp, tables, sl = _case(T + group, T=T, h=2 * group, lens=lens)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    ref = ragged_paged_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(sl), scale, window=window)
+    got = ragged_paged_attention(*_torch(q, kp, vp, tables, sl),
+                                 window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL_FP32,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("T,window,h", [(1, None, 4), (1, 6, 4),
+                                        (2, None, 4), (1, None, 3)],
+                         ids=["kernel", "kernel-window", "kernel-multi",
+                              "dense-gather"])
+def test_paged_decode_attention_matches_jax_dense(jax_dense, T, window, h):
+    """Both routes of the port's dispatch against the JAX package's dense
+    paged route. h = 3 over 3 kv heads at d = 48 is refused by the gate
+    (head_dim), so it takes the dense gather."""
+    d = 48 if h == 3 else 64
+    kvh = 3 if h == 3 else 2
+    q, kp, vp, tables, sl = _case(11, T=T, h=h, kvh=kvh, d=d,
+                                  lens=[0, 8, 21, 44])
+    q4 = q if T > 1 else q[:, None]
+    ref = jax_paged_decode_attention(
+        jnp.asarray(q4), JaxPagedKV(jnp.asarray(kp), jnp.asarray(vp),
+                                    jnp.asarray(tables), jnp.asarray(sl)),
+        window=window)
+    tq, tkp, tvp, ttb, tsl = _torch(q4, kp, vp, tables, sl)
+    assert port_attn.use_paged_kernel(tq, tkp) == (h != 3)
+    got = paged_decode_attention(tq, PagedKV(tkp, tvp, ttb, tsl),
+                                 window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL_FP32,
+                               rtol=0)
+
+
+def test_gate_takes_shapes_only():
+    kp = torch.zeros(4, 8, 2, 64)
+    assert port_attn.use_paged_kernel(torch.zeros(2, 1, 4, 64), kp)
+    assert port_attn.use_paged_kernel(torch.zeros(2, 16, 4, 64), kp)
+    assert not port_attn.use_paged_kernel(torch.zeros(2, 17, 4, 64), kp)
+    assert not port_attn.use_paged_kernel(torch.zeros(2, 1, 3, 64), kp)
+    assert not port_attn.use_paged_kernel(torch.zeros(2, 1, 4, 96),
+                                          torch.zeros(4, 8, 2, 96))
+    # B % 8 and d % 128 were Mosaic's rules: not inherited
+    assert port_attn.use_paged_kernel(torch.zeros(2, 1, 4, 64),
+                                      torch.zeros(4, 5, 2, 64))
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_paged_writes_match_jax(T):
+    """Decode writes (T = 1 and T > 1, positions past M to the garbage
+    block) and prefill writes (pads to the garbage block) leave the same
+    pools as the JAX package's, and write the port's pools in place."""
+    q, kp, vp, tables, sl = _case(5, T=T, lens=[0, 7, 8, 46])
+    rs = np.random.RandomState(6)
+    k = rs.randn(4, T, 2, 64).astype(np.float32)
+    v = rs.randn(4, T, 2, 64).astype(np.float32)
+    ref = jax_write(JaxPagedKV(jnp.asarray(kp), jnp.asarray(vp),
+                               jnp.asarray(tables), jnp.asarray(sl)),
+                    jnp.asarray(k), jnp.asarray(v))
+    tkp, tvp = _torch(kp.copy(), vp.copy())
+    pk = paged_decode_write(PagedKV(tkp, tvp, *_torch(tables, sl)),
+                            *_torch(k, v))
+    assert pk.kp is tkp
+    live = np.ones(kp.shape[0], bool)
+    live[0] = False                 # colliding garbage writes: unordered
+    np.testing.assert_array_equal(tkp.numpy()[live],
+                                  np.asarray(ref.kp)[live])
+    np.testing.assert_array_equal(tvp.numpy()[live],
+                                  np.asarray(ref.vp)[live])
+
+    kc = rs.randn(1, 16, 2, 64).astype(np.float32)
+    lens0 = np.array([11], np.int32)
+    positions = np.arange(8, 24, dtype=np.int32)
+    ref = jax_prefill(JaxPagedKV(jnp.asarray(kp), jnp.asarray(vp),
+                                 jnp.asarray(tables[:1]),
+                                 jnp.asarray(lens0)),
+                      jnp.asarray(kc), jnp.asarray(kc),
+                      positions=jnp.asarray(positions))
+    tkp, tvp = _torch(kp.copy(), vp.copy())
+    paged_prefill_write(PagedKV(tkp, tvp, *_torch(tables[:1], lens0)),
+                        *_torch(kc, kc),
+                        positions=torch.from_numpy(positions))
+    np.testing.assert_array_equal(tkp.numpy()[live],
+                                  np.asarray(ref.kp)[live])
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    q, kp, vp, tables, sl = _torch(*_case(2))
+    n = ragged_paged_attention.launches
+    out = ragged_paged_attention(q, kp, vp, tables, sl)
+    assert torch.equal(out, ragged_paged_attention_plain(q, kp, vp, tables,
+                                                         sl))
+    assert ragged_paged_attention.launches == n
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, kp, vp, tables, sl = _torch(*_case(3))
+    with pytest.raises(TypeError, match="int32"):
+        ragged_paged_attention(q, kp, vp, tables.long(), sl)
+    with pytest.raises(TypeError):
+        ragged_paged_attention(q, kp.double(), vp, tables, sl)
+    with pytest.raises(ValueError, match="head_dim"):
+        ragged_paged_attention(q[..., :48], kp[..., :48], vp[..., :48],
+                               tables, sl)
+    with pytest.raises(ValueError, match="query rows"):
+        ragged_paged_attention(torch.zeros(4, 17, 4, 64), kp, vp, tables,
+                               sl)
+    with pytest.raises(ValueError, match="seq_lens"):
+        ragged_paged_attention(q, kp, vp, tables, sl[:2])
+    with pytest.raises(ValueError, match="window"):
+        ragged_paged_attention(q, kp, vp, tables, sl, window=0)
