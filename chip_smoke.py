@@ -43,6 +43,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    must preempt and still complete every request. TTFT, tick time,
    tokens/s and peak memory are printed beside the card.
 
+8. the flash backward (phases run beside 3 and 4): the dq and dk/dv
+   kernels against their plain version at sq = sk = 2048 (causal, window
+   256, packed segments, non-causal; d 128 and 64; bf16 and fp32; bits
+   repeat), ``FlashAttentionFunction`` against autograd through dense
+   attention; at the training shape each kernel against its plain
+   version again, then their times beside the bounds, each kernel's
+   plain version and an SDPA backward; a small fp32 Llama's Trainer step
+   on the card against the CPU (loss and every parameter's update);
+9. the training slice: Llama-3-8B at full width with 4 layers (random
+   weights from the seed, bf16, AdamW with fp32 masters) through
+   ``Trainer`` for 10 steps over 2 seeded [2, 2048] batches. The counts
+   are set to 0 just before and read just after: flash forward, dq and
+   dk/dv run once per layer and step (40 each), decode and ragged never;
+   the loss stays finite and falls. Step time, tokens/s, MFU, peak
+   memory and a torch.profiler split of one step are printed beside the
+   card, then step times with prefetch depth 0 against 2. Last, with
+   recompute=True the loss and gradients must equal those without, and
+   2 steps must run the flash forward twice per layer and step and give
+   the same losses.
+
 It prints a JSON line of per-kernel numbers, then the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the ``paddle_tpu_torch`` package beside it, it exits
@@ -51,6 +71,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -69,6 +90,10 @@ L2_BYTES = 50 * 2 ** 20
 TOL_BF16 = 2e-2
 # fp32 small model, card (kernels, fp32 matmuls without TF32) vs CPU
 TOL_SMALL_LOGITS = 2e-3
+# the small model's SGD update, card vs CPU, per parameter: within this
+# share of the parameter's largest update, plus 1e-6 for the rounding of
+# fp32 sums in another order (a sound run differs by < 1e-6 in all)
+TOL_SMALL_UPDATE = 1e-3
 
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
 DECODE_SOURCE = "paddle_tpu_torch/csrc/decode_attention.cu"
@@ -78,6 +103,22 @@ RAGGED_SOURCE = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
 RAGGED_REPLACES = "paddle_tpu/ops/pallas/ragged_paged_attention.py:164"
 # fp32 kernel vs plain version: the same fp32 sums in another order
 TOL_FP32 = 1e-4
+FLASH_BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+DQ_REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:375"
+DKV_REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:389"
+# bf16 backward vs its plain version, relative to the largest reference
+# gradient: p and ds are rounded to bf16 at the same points, the sums run
+# in another order over up to 2048 keys or 4 x 2048 query rows
+TOL_BWD_BF16 = 2e-2
+# the training slice: Llama-3-8B width, 4 layers, [2, 2048] batches
+TRAIN_LAYERS = 4
+TRAIN_BATCH = (2, 2048)
+TRAIN_STEPS = 10
+# steps of each run of the feed A/B (prefetch depth 0 against 2)
+FEED_STEPS = 6
+# the backward's checks (b, s, h, kv) and timing shape (b, s, h, kv, d)
+BWD_CHECK = (1, 2048, 8, 2)
+BWD_TIME = (2, 2048, 32, 8, 128)
 # the serving geometry of the paged phase (KV pool ~2.1 GB in bf16)
 PAGED = dict(max_slots=16, block_size=16, max_blocks_per_seq=64,
              num_blocks=1025)
@@ -500,12 +541,14 @@ def phase_slice(seed, dev, card):
 def _reset_launches():
     from paddle_tpu_torch.ops.kernels.decode_attention import \
         decode_attention_fwd
-    from paddle_tpu_torch.ops.kernels.flash_attention import \
-        flash_attention_fwd
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
     fns = {"flash": flash_attention_fwd, "decode": decode_attention_fwd,
-           "ragged": ragged_paged_attention}
+           "ragged": ragged_paged_attention,
+           "flash_bwd_dq": flash_attention_bwd_dq,
+           "flash_bwd_dkv": flash_attention_bwd_dkv}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -634,7 +677,8 @@ def phase_paged(seed, dev, card, model):
     launches = read()
     ticks = eng.stats["decode_steps"] - steps0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    want = {"flash": 0, "decode": 0, "ragged": L * ticks}
+    want = {"flash": 0, "decode": 0, "ragged": L * ticks, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
     log(f"[paged] (a) launches in the run: {launches} (want {want}; "
         f"{in_prefill} inside prefills)")
     if launches != want or in_prefill:
@@ -766,6 +810,479 @@ def profile_decode_step(ptt, pred, ids, step_ms, card):
         + f" [{card}]")
 
 
+# ---------------------------------------------------------- training phases
+def _bwd_inputs(gen, dev, dtype, b, s, h, kv, d, seg=False):
+    """q, k, v, dout (seeded, on the card) and, with ``seg``, three packed
+    segments per row and a pad tail (id 0)."""
+    q = torch.randn(b, s, h, d, generator=gen, device=dev) * 0.5
+    k = torch.randn(b, s, kv, d, generator=gen, device=dev) * 0.5
+    v = torch.randn(b, s, kv, d, generator=gen, device=dev)
+    g = torch.randn(b, s, h, d, generator=gen, device=dev)
+    ids = None
+    if seg:
+        ids = torch.zeros(b, s, dtype=torch.int32, device=dev)
+        ids[:, :s // 3], ids[:, s // 3:s // 2] = 1, 2
+        ids[:, s // 2:s - 96] = 3
+    return [t.to(dtype) for t in (q, k, v, g)] + [ids]
+
+
+def phase_bwd_checks(gen, dev):
+    """The dq and dk/dv kernels against the plain FA-2 backward on the
+    card at sq = sk = 2048, GQA group 4: causal, causal with window 256,
+    three packed segments with a pad tail, non-causal, d = 128 and 64, in
+    bf16 and fp32; each run twice must give the same bits. Then
+    FlashAttentionFunction forward + backward against torch autograd
+    through dense_attention. The kernels line's errors come from
+    phase_bwd_times, at the training shape."""
+    from paddle_tpu_torch.ops.attention import dense_attention
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        FlashAttentionFunction, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd)
+    cases = [("causal", 128, dict(causal=True)),
+             ("causal window 256", 128, dict(causal=True, window=256)),
+             ("segments", 128, dict(causal=True, seg=True)),
+             ("non-causal", 128, dict(causal=False)),
+             ("causal d=64", 64, dict(causal=True))]
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, d, kw in cases:
+            kw = dict(kw)
+            q, k, v, g, seg = _bwd_inputs(gen, dev, dtype, *BWD_CHECK, d,
+                                          seg=kw.pop("seg", False))
+            kw["segment_ids"] = seg
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            got = flash_attention_bwd(q, k, v, out, lse, g, **kw)
+            again = flash_attention_bwd(q, k, v, out, lse, g, **kw)
+            torch.cuda.synchronize()
+            ref = flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            line = []
+            for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+                err, rmax = max_err(a, r), float(r.float().abs().max())
+                line.append(f"{gname} {err:.3e} (max|ref| {rmax:.3e})")
+                tol = (TOL_BWD_BF16 * rmax if dtype == torch.bfloat16
+                       else TOL_FP32)
+                if not err <= tol:
+                    fail(f"flash backward {gname} disagrees with its plain "
+                         f"version: {name}, {dtype}")
+            log(f"[check] flash bwd {str(dtype)[6:]} {name} q "
+                f"{list(q.shape)} kv {list(k.shape)}: " + ", ".join(line) + f"; bitwise repeat {same} "
+                f"(tol {'2e-2 x max|ref|' if dtype == torch.bfloat16 else TOL_FP32})")
+            if not same:
+                fail(f"flash backward is not deterministic: {name}, {dtype}")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g, _ = _bwd_inputs(gen, dev, dtype, *BWD_CHECK, 128)
+        grads = []
+        for fn in ("flash", "flash", "dense"):
+            # the reference: dense attention in fp32 on the same values
+            cast = (lambda t: t) if fn == "flash" else (lambda t: t.float())
+            xs = [cast(t).detach().requires_grad_() for t in (q, k, v)]
+            out = (FlashAttentionFunction.apply(*xs, True) if fn == "flash"
+                   else dense_attention(*xs, causal=True))
+            out.backward(cast(g))
+            grads.append([x.grad for x in xs])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(grads[0], grads[1]))
+        worst = max(max_err(a, r) / max(float(r.float().abs().max()), 1e-30)
+                    for a, r in zip(grads[0], grads[2]))
+        tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_FP32
+        log(f"[check] FlashAttentionFunction {str(dtype)[6:]} causal q "
+            f"{list(q.shape)} kv {list(k.shape)}, forward + backward vs "
+            f"autograd through "
+            f"fp32 dense_attention: max |d| / max|ref| {worst:.3e} (tol "
+            f"{tol}); "
+            f"bitwise repeat {same}")
+        if not (worst <= tol and same):
+            fail(f"FlashAttentionFunction gradients disagree or do not "
+                 f"repeat ({dtype})")
+
+
+def phase_bwd_times(gen, dev, card):
+    """The backward at the slice's shape: q [2,2048,32,128], k/v
+    [2,2048,8,128], bf16, causal. First each kernel's output on these
+    inputs against the plain twin (TOL_BWD_BF16 x max|ref|; these are the
+    errors the kernels line reports). Then the times of the dq kernel, the
+    dk/dv kernel and their sum; of each kernel's plain version (dq alone,
+    dk and dv alone) and of the whole plain twin; and, as the yardstick
+    the port never calls, of SDPA's backward on the same values asked for
+    dq alone, for dk and dv alone, and for all three (heads expanded by a
+    repeat_interleave inside the graph, so dk and dv include its sum)."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        _delta, flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+        flash_attention_bwd_plain, flash_attention_fwd)
+    b, s, h, kv, d = BWD_TIME
+    el = 2
+    q_bytes, kv_bytes = el * b * s * h * d, el * b * s * kv * d
+    row_bytes = 4 * b * h * s                     # lse or delta, fp32
+    # the whole function: q, k, v, out, dout, lse read; dq, dk, dv written
+    fn_bytes = 4 * q_bytes + 4 * kv_bytes + row_bytes
+    dq_bytes = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+    dkv_bytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+    pairs = b * h * s * (s + 1) // 2
+    prod = 2 * d * pairs                          # FLOP of one product
+    n = copies_for(fn_bytes)
+    sets = []
+    for _ in range(n):
+        q, k, v, g, _ = _bwd_inputs(gen, dev, torch.bfloat16, b, s, h, kv, d)
+        out, lse = flash_attention_fwd(q, k, v, causal=True)
+        sets.append((q, k, v, out, lse, g, _delta(out, g)))
+    kw = dict(causal=True, scale=1.0 / d ** 0.5, window=None)
+
+    def kargs(i):
+        return [sets[i % n][j] for j in (0, 1, 2, 5, 4, 6)] + [None]
+
+    errs = {}
+    got = [flash_attention_bwd_dq(*kargs(0), **kw),
+           *flash_attention_bwd_dkv(*kargs(0), **kw)]
+    ref = flash_attention_bwd_plain(*sets[0][:6], causal=True)
+    line = []
+    for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err, rmax = max_err(a, r), float(r.float().abs().max())
+        line.append(f"{gname} {err:.3e} (max|ref| {rmax:.3e})")
+        if not err <= TOL_BWD_BF16 * rmax:
+            fail(f"flash backward {gname} disagrees with its plain version "
+                 f"at the training shape")
+        key = "flash_bwd_dq" if gname == "dq" else "flash_bwd_dkv"
+        errs[key] = max(errs.get(key, 0.0), err)
+    log(f"[check] flash bwd bf16 causal at the training shape q "
+        f"{[b, s, h, d]} kv {[b, s, kv, d]}: " + ", ".join(line)
+        + " (tol 2e-2 x max|ref|)")
+    del got, ref
+    dq_ms = cuda_ms(lambda i: flash_attention_bwd_dq(*kargs(i), **kw),
+                    iters=10)
+    dkv_ms = cuda_ms(lambda i: flash_attention_bwd_dkv(*kargs(i), **kw),
+                     iters=10)
+    plain = {}
+    for key, fn in (("flash_bwd_dq", flash_attention_bwd_dq_plain),
+                    ("flash_bwd_dkv", flash_attention_bwd_dkv_plain),
+                    ("whole", flash_attention_bwd_plain)):
+        plain[key] = cuda_ms(lambda i: fn(*sets[i % n][:6], causal=True),
+                             iters=3, warmup=1)
+    lib = []
+    for q, k, v, out, lse, g, _ in sets:
+        xs = [t.transpose(1, 2).contiguous().requires_grad_()
+              for t in (q, k, v)]
+        o = TF.scaled_dot_product_attention(
+            xs[0], *[x.repeat_interleave(h // kv, 1) for x in xs[1:]],
+            is_causal=True)
+        lib.append((o, xs, g.transpose(1, 2).contiguous()))
+    library = {}
+    for key, which in (("flash_bwd_dq", [0]), ("flash_bwd_dkv", [1, 2]),
+                       ("whole", [0, 1, 2])):
+        library[key] = cuda_ms(lambda i: torch.autograd.grad(
+            lib[i % n][0], [lib[i % n][1][j] for j in which], lib[i % n][2],
+            retain_graph=True), iters=10)
+    rows = {}
+    for key, ms, nbytes, products in (("flash_bwd_dq", dq_ms, dq_bytes, 3),
+                                      ("flash_bwd_dkv", dkv_ms, dkv_bytes,
+                                       4)):
+        bound_ms, bound_by = bound(nbytes, products * prod)
+        rows[key] = dict(ms=ms, plain_ms=plain[key], library_ms=library[key],
+                         bound_ms=bound_ms, bound_by=bound_by)
+    fn_bound, fn_by = bound(fn_bytes, 5 * prod)
+    log(f"[time] flash bwd at q {[b, s, h, d]} kv {[b, s, kv, d]} bf16 "
+        f"causal: dq kernel {dq_ms:.4f} ms (bound "
+        f"{rows['flash_bwd_dq']['bound_ms']:.4f} ms, 3 products; plain dq "
+        f"{plain['flash_bwd_dq']:.4f} ms; sdpa backward for dq "
+        f"{library['flash_bwd_dq']:.4f} ms), dk/dv kernel {dkv_ms:.4f} ms "
+        f"(bound {rows['flash_bwd_dkv']['bound_ms']:.4f} ms, 4 products; "
+        f"plain dk/dv {plain['flash_bwd_dkv']:.4f} ms; sdpa backward for "
+        f"dk, dv {library['flash_bwd_dkv']:.4f} ms), sum "
+        f"{dq_ms + dkv_ms:.4f} ms; the backward as a whole: bound "
+        f"{fn_bound:.4f} ms ({fn_by}: 5 products, "
+        f"{5 * prod / 1e9:.1f} GFLOP, {fn_bytes / 1e6:.1f} MB); plain "
+        f"{plain['whole']:.4f} ms; sdpa backward for dq, dk, dv "
+        f"{library['whole']:.4f} ms [{card}]")
+    del sets, lib
+    return rows, errs
+
+
+def phase_train_small(dev):
+    """One SGD Trainer step of a small fp32 Llama (head_dim 64, seq 128:
+    the flash route) on the card (kernels) and on the CPU (plain
+    versions) from the same weights and batch: the loss must agree within
+    TOL_SMALL_LOGITS, and each parameter's update within TOL_SMALL_UPDATE
+    of its largest element plus 1e-6, so that a fault in an attention
+    gradient fails here too."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    cfg = ptt.llama_tiny(hidden_size=256, num_attention_heads=4,
+                         num_key_value_heads=2)
+    cpu = ptt.LlamaForCausalLM(cfg, device="cpu",
+                               generator=ptt.make_generator(3, "cpu"))
+    gpu = ptt.LlamaForCausalLM(cfg, device=dev,
+                               generator=ptt.make_generator(3, dev))
+    gpu.load_state_dict(cpu.state_dict())
+    before = {k: v.detach().clone().cpu() for k, v in cpu.named_parameters()}
+    batch = [np.random.RandomState(4).randint(0, cfg.vocab_size, (2, 128))]
+    losses, updates = [], []
+    n0 = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    for m in (gpu, cpu):
+        args = ptt.TrainingArguments(output_dir="output/chip_smoke_small",
+                                     max_steps=1, logging_steps=1,
+                                     graceful_shutdown=False)
+        tr = ptt.Trainer(m, ptt.optimizer.SGD(learning_rate=1.0), args,
+                         train_dataloader=batch)
+        tr.train()
+        losses.append(tr.logger.history["loss"][0][1])
+        updates.append({k: v.detach().cpu() - before[k]
+                        for k, v in m.named_parameters()})
+    launched = (flash_attention_bwd_dq.launches - n0[0],
+                flash_attention_bwd_dkv.launches - n0[1])
+    worst = max(max_err(updates[0][k], updates[1][k]) for k in before)
+    # each parameter's difference over what it may be
+    share = max(max_err(updates[0][k], updates[1][k])
+                / (TOL_SMALL_UPDATE * float(updates[1][k].abs().max())
+                   + 1e-6) for k in before)
+    qkv = min(float(updates[0][f"model.layers.{i}.self_attn.{p}_proj.weight"]
+                    .abs().max()) for i in range(2) for p in "qkv")
+    log(f"[small] fp32 Llama d=64, one SGD Trainer step on [2,128]: loss card "
+        f"{losses[0]:.6f} vs CPU {losses[1]:.6f}; max |update difference| "
+        f"{worst:.3e}, at most {share:.3f} of its tolerance "
+        f"({TOL_SMALL_UPDATE} x the parameter's max |update| + 1e-6); "
+        f"smallest max |q/k/v update| {qkv:.3e}; backward launches (dq, "
+        f"dk/dv) {launched}")
+    if not (abs(losses[0] - losses[1]) <= TOL_SMALL_LOGITS and share <= 1):
+        fail("small model: the card's Trainer step disagrees with the CPU's")
+    if launched != (2, 2) or not qkv > 0:
+        fail("small model: attention gradients did not go through the "
+             "backward kernels")
+
+
+def _train_model(seed, dev, **overrides):
+    import paddle_tpu_torch as ptt
+    cfg = ptt.llama3_8b(num_hidden_layers=TRAIN_LAYERS, **overrides)
+    return ptt.LlamaForCausalLM(cfg, device=dev,
+                                generator=ptt.make_generator(seed, dev))
+
+
+def _trainer(model, batches, steps, clock=None, prefetch_depth=2):
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.optimizer import lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=10),
+                            warmup_steps=2)
+    opt = ptt.optimizer.AdamW(
+        learning_rate=sched, weight_decay=0.01, multi_precision=True,
+        grad_clip=ptt.optimizer.ClipGradByGlobalNorm(1.0))
+    args = ptt.TrainingArguments(output_dir="output/chip_smoke_train",
+                                 max_steps=steps, logging_steps=1,
+                                 prefetch_depth=prefetch_depth,
+                                 graceful_shutdown=False)
+    return ptt.Trainer(model, opt, args, train_dataloader=batches,
+                       callbacks=[clock] if clock else None)
+
+
+def profile_train_step(tr, step_ms, card):
+    """torch.profiler over one more step of the trainer: device time by
+    kind (weight matmuls, flash forward, dq, dk/dv, the optimizer's clip
+    and update, other elementwise) and the device's busy share of the
+    unprofiled median step. The optimizer's kernels are those that start
+    inside the device-side span of its ``optimizer_apply`` range; the
+    ranges' own device-side spans are not kernels and are not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    spans = {"train_step", "optimizer_apply"}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(max_steps=tr.global_step + 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = [e for e in device
+              if getattr(e, "is_user_annotation", False) or e.name in spans]
+    opt = [(e.time_range.start, e.time_range.end) for e in ranges
+           if e.name == "optimizer_apply"]
+    skip = {id(e) for e in ranges}
+    kernels = [e for e in device if id(e) not in skip]
+    cats = {"gemm": 0.0, "flash_fwd": 0.0, "flash_bwd_dq": 0.0,
+            "flash_bwd_dkv": 0.0, "optimizer": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.name.lower()
+        cat = ("flash_fwd" if "flash_fwd_kernel" in name else
+               "flash_bwd_dq" if "flash_bwd_dq_kernel" in name else
+               "flash_bwd_dkv" if "flash_bwd_dkv_kernel" in name else
+               "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
+                                                 "cutlass", "nvjet"))
+               else "other")
+        if cat == "other" and any(a <= e.time_range.start <= b
+                                  for a, b in opt):
+            cat = "optimizer"
+        cats[cat] += e.time_range.elapsed_us() / 1e3
+    if not kernels:
+        log("[profile] torch.profiler recorded no device events: train step "
+            "split not measured")
+        return
+    busy = sum(cats.values())
+    note = ("" if opt else " (no device-side optimizer range: the optimizer "
+            "is not measured apart and is counted in other)")
+    log(f"[profile] train step (4 layers, [2,2048]): under the profiler "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / step_ms:.1f}"
+        f" % of the unprofiled median step {step_ms:.1f} ms), "
+        f"{len(kernels)} device ops; "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in cats.items()) + note
+        + f" [{card}]")
+
+
+def phase_train(seed, dev, card):
+    """The training slice: Llama-3-8B at full width, 4 layers, bf16, random
+    weights from the seed, AdamW (fp32 masters, weight decay 0.01) with a
+    2-step linear warm-up into a cosine over 10 and global-norm clipping
+    at 1.0, through ``Trainer`` for 10 steps over 2 seeded [2, 2048]
+    token batches, alternating, prefetch depth 2, logging every step.
+    The counts are set to 0 just before the run and read just after:
+    flash forward, dq and dk/dv once per layer and step, decode and
+    ragged never. Then a profiled step; the feed A/B (prefetch depth 0
+    against 2, FEED_STEPS steps a run); and a fresh model with
+    recompute=True (policy full): its loss and gradients on batch 0 as
+    without recompute, then 2 Trainer steps with the flash forward twice
+    per layer and step and the plain run's losses."""
+    import gc
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.utils.profiler import StepTimer, device_peak_flops
+
+    class StepClock(ptt.TrainerCallback):
+        """Host time at the end of each logged step (after the loss's
+        sync)."""
+
+        def __init__(self):
+            self.t = []
+
+        def on_step_end(self, step, logs):
+            self.t.append(time.perf_counter())
+
+    rs = np.random.RandomState(seed + 20)
+    model = _train_model(seed, dev)
+    cfg = model.config
+    batches = [rs.randint(0, cfg.vocab_size, TRAIN_BATCH) for _ in range(2)]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] Llama-3-8B width (hidden {cfg.hidden_size}, ffn "
+        f"{cfg.intermediate_size}, heads {cfg.num_attention_heads}/"
+        f"{cfg.num_key_value_heads}, vocab {cfg.vocab_size}), "
+        f"{cfg.num_hidden_layers} layers, {cfg.dtype}: "
+        f"{n_params / 1e9:.3f} B params; batch {list(TRAIN_BATCH)}")
+    clock = StepClock()
+    tr = _trainer(model, batches, TRAIN_STEPS, clock)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = _reset_launches()
+    clock.t = [time.perf_counter()]
+    tr.train()
+    torch.cuda.synchronize()
+    launches = read()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    L = cfg.num_hidden_layers
+    want = {"flash": L * TRAIN_STEPS, "decode": 0, "ragged": 0,
+            "flash_bwd_dq": L * TRAIN_STEPS, "flash_bwd_dkv": L * TRAIN_STEPS}
+    losses = [v for _, v in tr.logger.history["loss"]]
+    log(f"[train] launches in {TRAIN_STEPS} steps: {launches} (want {want})")
+    log(f"[train] losses per step: " + ", ".join(f"{x:.4f}" for x in losses))
+    if launches != want:
+        fail(f"training launches {launches} != {want}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail("training loss is not finite at every step")
+    if not losses[-1] < losses[0]:
+        fail(f"training loss did not fall: step 1 {losses[0]:.4f}, step "
+             f"{TRAIN_STEPS} {losses[-1]:.4f}")
+    steps_ms = np.diff(clock.t) * 1e3
+    step_ms = float(np.median(steps_ms[2:]))
+    tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    tps = tokens / (step_ms / 1e3)
+    timer = StepTimer(flops_per_token=tr._derived_flops,
+                      peak_flops=device_peak_flops())
+    log(f"[train] step ms (host clock, loss synced): "
+        + ", ".join(f"{x:.1f}" for x in steps_ms)
+        + f"; median of steps 3-{TRAIN_STEPS} {step_ms:.1f} ms, "
+        f"{tps:.0f} tokens/s, {tr._derived_flops * tokens / 1e12:.2f} TFLOP"
+        f"/step (6N + attention), MFU {100 * timer.mfu_at(tps):.2f} % of "
+        f"{timer.peak_flops / 1e12:.0f} TFLOP/s, peak memory {peak_gb:.2f} GB"
+        f" [{card}]")
+    profile_train_step(tr, step_ms, card)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the feed: the same model trained on by fresh Trainers that prefetch
+    # (depth 2, the default) or feed inline (depth 0), in the order 0, 2,
+    # 2, 0; the median of each run's steps 3 to FEED_STEPS
+    feed = {0: [], 2: []}
+    for depth in (0, 2, 2, 0):
+        clock = StepClock()
+        tr = _trainer(model, batches, FEED_STEPS, clock, depth)
+        torch.cuda.synchronize()
+        clock.t = [time.perf_counter()]
+        tr.train()
+        torch.cuda.synchronize()
+        feed[depth].append(float(np.median(np.diff(clock.t)[2:])) * 1e3)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[train] feed A/B, median step ms of steps 3-{FEED_STEPS} (host "
+        f"clock, loss synced), runs in the order 0, 2, 2, 0: "
+        f"prefetch_depth=0 " + ", ".join(f"{x:.2f}" for x in feed[0])
+        + "; prefetch_depth=2 " + ", ".join(f"{x:.2f}" for x in feed[2])
+        + f" [{card}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = _train_model(seed, dev, recompute=True, recompute_policy="full")
+    # recompute changes memory, not math: the loss and every gradient on
+    # batch 0 with the per-layer recompute and without it, same weights
+    ids = torch.as_tensor(batches[0], device=dev).long()
+    grads = {}
+    for on in (True, False):
+        model.config.recompute = on
+        loss = ptt.causal_lm_loss(model(ids), ids)
+        grads[on] = [loss.detach()] + list(torch.autograd.grad(
+            loss, list(model.parameters())))
+        del loss
+    model.config.recompute = True
+    share = max(max_err(a, r) / max(float(r.float().abs().max()), 1e-30)
+                for a, r in zip(grads[True], grads[False]))
+    same = sum(torch.equal(a, r) for a, r in zip(grads[True], grads[False]))
+    log(f"[train] recompute=True vs False on batch 0: loss and "
+        f"{len(grads[True]) - 1} gradients, max |d| / max|ref| {share:.3e} "
+        f"(tol {TOL_BWD_BF16}); {same} of {len(grads[True])} bitwise equal")
+    if not share <= TOL_BWD_BF16:
+        fail("recompute changed the loss or a gradient")
+    del grads, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = _trainer(model, batches, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = _reset_launches()
+    tr.train()
+    torch.cuda.synchronize()
+    rc = read()
+    rc_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    rc_losses = [v for _, v in tr.logger.history["loss"]]
+    want_rc = {"flash": 2 * L * 2, "decode": 0, "ragged": 0,
+               "flash_bwd_dq": L * 2, "flash_bwd_dkv": L * 2}
+    log(f"[train] recompute=True (full), 2 steps: launches {rc} (want "
+        f"{want_rc}); losses {rc_losses[0]:.4f}, {rc_losses[1]:.4f} (plain "
+        f"run {losses[0]:.4f}, {losses[1]:.4f}); peak memory {rc_peak:.2f} GB"
+        f" vs {peak_gb:.2f} GB without recompute [{card}]")
+    if rc != want_rc:
+        fail(f"recompute launches {rc} != {want_rc}")
+    if not all(abs(a - r) <= TOL_BF16 * abs(r)
+               for a, r in zip(rc_losses, losses[:2])):
+        fail("recompute changed the loss of step 1 or 2")
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -791,13 +1308,28 @@ def main():
     gen.manual_seed(args.seed)
     errs = phase_kernel_checks(gen, dev)
     errs["ragged"] = phase_ragged_checks(gen, dev)
+    phase_bwd_checks(gen, dev)
     times = phase_kernel_times(gen, dev, card)
     times["ragged"] = phase_ragged_time(gen, dev, card)
+    bwd_times, bwd_errs = phase_bwd_times(gen, dev, card)
+    times.update(bwd_times)
+    errs.update(bwd_errs)
     phase_small_reference(dev)
+    phase_train_small(dev)
     launches, model = phase_slice(args.seed, dev, card)
     launches["ragged"] = phase_paged(args.seed, dev, card, model)["ragged"]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = phase_train(args.seed, dev, card)
+    for key in ("flash_bwd_dq", "flash_bwd_dkv"):
+        launches[key] = trained[key]
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
+            "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,
+                             DQ_REPLACES),
+            "flash_bwd_dkv": ("flash_attention_bwd_dkv", FLASH_BWD_SOURCE,
+                              DKV_REPLACES),
             "decode": ("decode_attention", DECODE_SOURCE, DECODE_REPLACES),
             "ragged": ("ragged_paged_attention", RAGGED_SOURCE,
                        RAGGED_REPLACES)}

@@ -8,17 +8,24 @@ It serves Llama two ways. ``Predictor.generate`` runs the forward over a
 static KV cache (``generate()``). ``PagedEngine``
 (``generation/paged.py``) and ``Predictor.serve_stream`` run a
 continuous-batching engine over a paged KV cache, on the per-tick host
-path. Three hand-written kernels for ``sm_90a`` sit under
-``ops/kernels``, with their sources in ``csrc``: flash-attention
-forward, decode attention and ragged paged attention.
+path. ``Trainer`` (``trainer.py``) trains it on one card with the
+optimizers of ``optimizer/``, through flash attention and its backward.
+Five hand-written kernels for ``sm_90a`` sit under ``ops/kernels``, with
+their sources in ``csrc``: flash-attention forward, the flash backward's
+dq and dk/dv, decode attention and ragged paged attention.
 """
 from .convert import load_jax_state_dict
 from .device import resolve_device
 from .generation import GenerationConfig, generate
 from .inference import Config, Predictor
-from .models import LlamaConfig, LlamaForCausalLM, llama3_8b, llama_tiny
+from . import optimizer
+from .models import (LlamaConfig, LlamaForCausalLM, causal_lm_loss,
+                     llama3_8b, llama_tiny)
+from .trainer import Trainer, TrainerCallback, TrainingArguments
 from .utils.rng import make_generator
 
 __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "generate", "Config", "Predictor", "LlamaConfig",
-           "LlamaForCausalLM", "llama3_8b", "llama_tiny", "make_generator"]
+           "LlamaForCausalLM", "causal_lm_loss", "llama3_8b", "llama_tiny",
+           "make_generator", "optimizer", "Trainer", "TrainerCallback",
+           "TrainingArguments"]

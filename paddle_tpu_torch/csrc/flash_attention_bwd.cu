@@ -1,0 +1,545 @@
+// Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv,
+// bf16 or fp32 in, fp32 accumulate. What they replace, what bounds them and
+// how the design answers that: see
+// paddle_tpu_torch/ops/kernels/flash_attention.py.
+//
+// Layout: q, dout, dq [b, sq, h, d]; k, v, dk, dv [b, sk, hk, d]; lse and
+// delta = rowsum(dout * out) [b, h, sq] fp32; segment ids [b, s] int32
+// (optional, sq == sk). Query head hh reads kv head hh / (h / hk).
+//
+// Both kernels recompute the scores with the forward's conventions (finite
+// -1e30 mask, causal aligned bottom-right by sk - sq, window band, segment
+// equality with pad = 0), form p = exp(s - lse) and
+// ds = p * (dp - delta) * scale with dp = dout . v, and round where the TPU
+// kernels round: p to dout's type before p^T dout, ds to q/k's type before
+// ds K and ds^T q; outputs are cast once at the end. Every output element
+// is written by exactly one block and summed in a fixed order: no atomics,
+// so two runs give the same bits.
+//
+// dq: one block of 4 warps per (batch*head, q tile). The block keeps its
+// q and dout rows (packed words, read as broadcasts) and its fp32 dq
+// accumulator in shared memory and loops over the kv tiles the masks leave
+// live, staged as packed words with an odd stride. Each warp owns BQ/4 rows
+// and works on 4 at a time: lane i scores keys i and i+32 (s and dp in one
+// pass over d), then in the ds K product owns a strip of head dims.
+//
+// dk/dv: one block of 4 warps per (batch*kv head, kv tile). K and V
+// (packed words) and the two fp32 accumulators stay in shared memory; the
+// block loops over the GQA group's query heads and, for each, over the live
+// q tiles, staged as packed words with an odd stride. The roles of rows and
+// keys swap: each warp owns BK/4 keys, lane i takes q rows i and i+32, and
+// the p^T dout and ds^T q products run with lanes on strips of head dims.
+//
+// Tiles are sized so that two blocks fit an SM's shared memory in bf16 at
+// d <= 128 (8 warps in flight per SM).
+#include "common.cuh"
+
+namespace {
+
+using ptt::Elt;
+using ptt::NEG_INF;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int R = 4;  // rows (dq) or keys (dk/dv) a warp handles at once
+
+// a [rows][KW] tile of T elements from global memory into shared words with
+// row stride KS; rows past `limit` are zero
+template <typename T, int D>
+__device__ inline void stage_words(uint32_t* dst, int ks, const T* src,
+                                   size_t row_stride, int row0, int rows,
+                                   int limit, int tid) {
+  constexpr int KW = D * static_cast<int>(sizeof(T)) / 4;
+  for (int i = tid; i < rows * (KW / 4); i += THREADS) {
+    const int j = i / (KW / 4), c = i % (KW / 4);
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (row0 + j < limit)
+      x = reinterpret_cast<const uint4*>(src + (size_t)(row0 + j) *
+                                                   row_stride)[c];
+    uint32_t* d = dst + j * ks + 4 * c;
+    d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
+  }
+}
+
+__device__ inline bool live(int row, int key, int off, int causal,
+                            int window) {
+  if (!causal) return true;
+  if (row + off < key) return false;
+  return window <= 0 || row + off - key < window;
+}
+
+// ------------------------------------------------------------------- dq
+template <typename T, int D>
+struct DqGeometry {
+  static constexpr int BQ = D == 256 ? 32 : 64;
+  static constexpr int BK = (sizeof(T) == 4 && D == 256) ? 32 : 64;
+  static constexpr int KW = D * static_cast<int>(sizeof(T)) / 4;
+  static constexpr int KS = KW + 1;
+  static constexpr size_t SMEM = sizeof(float) * (BQ * D + WARPS * BK * R) +
+                                 sizeof(uint32_t) * 2 * (BQ * KW + BK * KS) +
+                                 sizeof(int) * BK;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ seg, T* __restrict__ dq,
+                        int sq, int sk, int h, int hk, float scale,
+                        int causal, int window) {
+  using G = DqGeometry<T, D>;
+  constexpr int BQ = G::BQ, BK = G::BK, KW = G::KW, KS = G::KS;
+  constexpr int E = Elt<T>::PER_WORD;
+  constexpr int NC = BK / 32;              // keys per lane in a tile
+  constexpr int WPL = KW / 32;             // K words per lane in ds K
+  constexpr int ROWS_PER_WARP = BQ / WARPS;
+  constexpr int PASSES = ROWS_PER_WARP / R;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Acc = reinterpret_cast<float*>(smem);       // [BQ][D] dq
+  float* Ds = Acc + BQ * D;                          // [WARPS][BK][R]
+  uint32_t* Qw = reinterpret_cast<uint32_t*>(Ds + WARPS * BK * R);
+  uint32_t* Gw = Qw + BQ * KW;                       // [BQ][KW]
+  uint32_t* Kw = Gw + BQ * KW;                       // [BK][KS]
+  uint32_t* Vw = Kw + BK * KS;                       // [BK][KS]
+  int* kseg = reinterpret_cast<int*>(Vw + BK * KS);  // [BK]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int b = bh / h, hh = bh % h, kvh = hh / (h / hk);
+  // the last q tiles see the most keys under the causal mask: launched
+  // first, so the longest blocks do not trail the grid
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int off = sk - sq;
+  const size_t qstride = (size_t)h * D, kstride = (size_t)hk * D;
+  const T* qb = q + ((size_t)b * sq * h + hh) * D;
+  const T* gb = g + ((size_t)b * sq * h + hh) * D;
+  const T* kb = k + ((size_t)b * sk * hk + kvh) * D;
+  const T* vb = v + ((size_t)b * sk * hk + kvh) * D;
+
+  stage_words<T, D>(Qw, KW, qb, qstride, q0, BQ, sq, tid);
+  stage_words<T, D>(Gw, KW, gb, qstride, q0, BQ, sq, tid);
+  for (int i = tid; i < BQ * D; i += THREADS) Acc[i] = 0.f;
+
+  float lse_r[PASSES][R], del_r[PASSES][R];
+  int seg_r[PASSES][R];
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = q0 + warp * ROWS_PER_WARP + p * R + r;
+      const bool ok = row < sq;
+      lse_r[p][r] = ok ? lse[(size_t)bh * sq + row] : 0.f;
+      del_r[p][r] = ok ? delta[(size_t)bh * sq + row] : 0.f;
+      seg_r[p][r] = (ok && seg != nullptr) ? seg[(size_t)b * sq + row] : 0;
+    }
+
+  int hi = sk, lo = 0;
+  if (causal) {
+    hi = min(sk, q0 + BQ + off);
+    if (window > 0) lo = max(0, q0 + off - (window - 1));
+  }
+  lo = (lo / BK) * BK;
+
+  for (int k0 = lo; k0 < hi; k0 += BK) {
+    __syncthreads();  // the last tile's readers are done with Kw/Vw/kseg
+    stage_words<T, D>(Kw, KS, kb, kstride, k0, BK, sk, tid);
+    stage_words<T, D>(Vw, KS, vb, kstride, k0, BK, sk, tid);
+    if (seg != nullptr)
+      for (int j = tid; j < BK; j += THREADS)
+        kseg[j] = k0 + j < sk ? seg[(size_t)b * sk + k0 + j] : -1;
+    __syncthreads();
+
+#pragma unroll
+    for (int pass = 0; pass < PASSES; ++pass) {
+      const int rbase = warp * ROWS_PER_WARP + pass * R;
+      float s[R][NC], dp[R][NC];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) s[r][c] = dp[r][c] = 0.f;
+
+#pragma unroll 2
+      for (int w = 0; w < KW; ++w) {
+        float kf[NC][E], vf[NC][E];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          Elt<T>::unpack(Kw[(lane + 32 * c) * KS + w], kf[c]);
+          Elt<T>::unpack(Vw[(lane + 32 * c) * KS + w], vf[c]);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float qf[E], gf[E];
+          Elt<T>::unpack(Qw[(rbase + r) * KW + w], qf);
+          Elt<T>::unpack(Gw[(rbase + r) * KW + w], gf);
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              s[r][c] = fmaf(qf[e], kf[c][e], s[r][c]);
+              dp[r][c] = fmaf(gf[e], vf[c][e], dp[r][c]);
+            }
+        }
+      }
+
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = q0 + rbase + r;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int key = k0 + lane + 32 * c;
+          bool keep = live(row, key, off, causal, window);
+          if (seg != nullptr) keep = keep && kseg[lane + 32 * c] ==
+                                                 seg_r[pass][r];
+          const float sm = keep ? s[r][c] * scale : NEG_INF;
+          const float p = (row < sq && key < sk)
+                              ? expf(sm - lse_r[pass][r]) : 0.f;
+          const float ds = p * (dp[r][c] - del_r[pass][r]) * scale;
+          // ds goes through K's type before the ds K product
+          Ds[(warp * BK + lane + 32 * c) * R + r] = Elt<T>::round(ds);
+        }
+      }
+      __syncwarp();
+
+      float acc[R][WPL * E];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < WPL; ++i)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[r][i * E + e] = Acc[(rbase + r) * D + (lane + 32 * i) * E + e];
+      const float* dw = Ds + warp * BK * R;
+#pragma unroll 4
+      for (int j = 0; j < BK; ++j) {
+        const float4 d4 = *reinterpret_cast<const float4*>(dw + j * R);
+        const float dr[R] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int i = 0; i < WPL; ++i) {
+          float kf[E];
+          Elt<T>::unpack(Kw[j * KS + lane + 32 * i], kf);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[r][i * E + e] = fmaf(dr[r], kf[e], acc[r][i * E + e]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < WPL; ++i)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            Acc[(rbase + r) * D + (lane + 32 * i) * E + e] = acc[r][i * E + e];
+      __syncwarp();  // Ds is rewritten by the next pass
+    }
+  }
+  __syncthreads();
+
+  T* dqb = dq + ((size_t)b * sq * h + hh) * D;
+  for (int i = tid; i < BQ * D; i += THREADS) {
+    const int row = q0 + i / D;
+    if (row < sq) dqb[(size_t)row * qstride + i % D] = Elt<T>::from_float(Acc[i]);
+  }
+}
+
+// ---------------------------------------------------------------- dk/dv
+template <typename T, int D>
+struct DkvGeometry {
+  static constexpr int BK = D == 64 ? 64 : 32;
+  static constexpr int BQ = (sizeof(T) == 4 && D == 256) ? 32 : 64;
+  static constexpr int KW = D * static_cast<int>(sizeof(T)) / 4;
+  static constexpr int KS = KW + 1;
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * BK * D + 2 * WARPS * BQ * R + 2 * BQ) +
+      sizeof(uint32_t) * 2 * (BK * KW + BQ * KS) + sizeof(int) * BQ;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ g,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ seg, T* __restrict__ dk,
+                         T* __restrict__ dv, int sq, int sk, int h, int hk,
+                         float scale, int causal, int window) {
+  using G = DkvGeometry<T, D>;
+  constexpr int BQ = G::BQ, BK = G::BK, KW = G::KW, KS = G::KS;
+  constexpr int E = Elt<T>::PER_WORD;
+  constexpr int NC = BQ / 32;              // q rows per lane in a tile
+  constexpr int WPL = KW / 32;
+  constexpr int KEYS_PER_WARP = BK / WARPS;
+  constexpr int PASSES = KEYS_PER_WARP / R;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dKs = reinterpret_cast<float*>(smem);       // [BK][D]
+  float* dVs = dKs + BK * D;                         // [BK][D]
+  float* Pp = dVs + BK * D;                          // [WARPS][BQ][R] p
+  float* Pd = Pp + WARPS * BQ * R;                   // [WARPS][BQ][R] ds
+  float* lse_s = Pd + WARPS * BQ * R;                // [BQ]
+  float* del_s = lse_s + BQ;                         // [BQ]
+  uint32_t* Kw = reinterpret_cast<uint32_t*>(del_s + BQ);  // [BK][KW]
+  uint32_t* Vw = Kw + BK * KW;                             // [BK][KW]
+  uint32_t* Qw = Vw + BK * KW;                             // [BQ][KS]
+  uint32_t* Gw = Qw + BQ * KS;                             // [BQ][KS]
+  int* qseg = reinterpret_cast<int*>(Gw + BQ * KS);        // [BQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bkv = blockIdx.x;
+  const int b = bkv / hk, kvh = bkv % hk, group = h / hk;
+  // the first kv tiles are seen by the most q rows under the causal mask:
+  // they are launched first
+  const int k0 = blockIdx.y * BK;
+  const int off = sk - sq;
+  const size_t qstride = (size_t)h * D, kstride = (size_t)hk * D;
+  const T* kb = k + ((size_t)b * sk * hk + kvh) * D;
+  const T* vb = v + ((size_t)b * sk * hk + kvh) * D;
+
+  stage_words<T, D>(Kw, KW, kb, kstride, k0, BK, sk, tid);
+  stage_words<T, D>(Vw, KW, vb, kstride, k0, BK, sk, tid);
+  for (int i = tid; i < BK * D; i += THREADS) dKs[i] = dVs[i] = 0.f;
+
+  int kseg_r[PASSES][R];
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int key = k0 + warp * KEYS_PER_WARP + p * R + r;
+      kseg_r[p][r] =
+          (seg != nullptr && key < sk) ? seg[(size_t)b * sk + key] : -1;
+    }
+
+  // q rows any key of this tile may be attended by
+  int lo = 0, hi = sq;
+  if (causal) {
+    lo = max(0, k0 - off);
+    if (window > 0) hi = min(sq, k0 + BK + window - 1 - off);
+  }
+  lo = (lo / BQ) * BQ;
+
+  for (int gi = 0; gi < group; ++gi) {
+    const int hh = kvh * group + gi;
+    const int bh = b * h + hh;
+    const T* qb = q + ((size_t)b * sq * h + hh) * D;
+    const T* gb = g + ((size_t)b * sq * h + hh) * D;
+    for (int q0 = lo; q0 < hi; q0 += BQ) {
+      __syncthreads();  // the last tile's readers are done with Qw/Gw/...
+      stage_words<T, D>(Qw, KS, qb, qstride, q0, BQ, sq, tid);
+      stage_words<T, D>(Gw, KS, gb, qstride, q0, BQ, sq, tid);
+      for (int j = tid; j < BQ; j += THREADS) {
+        const int row = q0 + j;
+        const bool ok = row < sq;
+        lse_s[j] = ok ? lse[(size_t)bh * sq + row] : 0.f;
+        del_s[j] = ok ? delta[(size_t)bh * sq + row] : 0.f;
+        qseg[j] = (ok && seg != nullptr) ? seg[(size_t)b * sq + row] : -2;
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int pass = 0; pass < PASSES; ++pass) {
+        const int kbase = warp * KEYS_PER_WARP + pass * R;
+        float s[R][NC], dp[R][NC];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) s[r][c] = dp[r][c] = 0.f;
+
+#pragma unroll 2
+        for (int w = 0; w < KW; ++w) {
+          float qf[NC][E], gf[NC][E];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            Elt<T>::unpack(Qw[(lane + 32 * c) * KS + w], qf[c]);
+            Elt<T>::unpack(Gw[(lane + 32 * c) * KS + w], gf[c]);
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float kf[E], vf[E];
+            Elt<T>::unpack(Kw[(kbase + r) * KW + w], kf);
+            Elt<T>::unpack(Vw[(kbase + r) * KW + w], vf);
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+#pragma unroll
+              for (int c = 0; c < NC; ++c) {
+                s[r][c] = fmaf(kf[e], qf[c][e], s[r][c]);
+                dp[r][c] = fmaf(vf[e], gf[c][e], dp[r][c]);
+              }
+          }
+        }
+
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int key = k0 + kbase + r;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const int j = lane + 32 * c;
+            const int row = q0 + j;
+            bool keep = live(row, key, off, causal, window);
+            if (seg != nullptr) keep = keep && qseg[j] == kseg_r[pass][r];
+            const float sm = keep ? s[r][c] * scale : NEG_INF;
+            const float p = (row < sq && key < sk) ? expf(sm - lse_s[j])
+                                                   : 0.f;
+            const float ds = p * (dp[r][c] - del_s[j]) * scale;
+            // p goes through dout's type before p^T dout, ds through q's
+            // before ds^T q
+            Pp[(warp * BQ + j) * R + r] = Elt<T>::round(p);
+            Pd[(warp * BQ + j) * R + r] = Elt<T>::round(ds);
+          }
+        }
+        __syncwarp();
+
+        // dv += p^T dout, then dk += ds^T q: lanes on strips of head dims
+#pragma unroll
+        for (int which = 0; which < 2; ++which) {
+          float* A = which == 0 ? dVs : dKs;
+          const float* pw = (which == 0 ? Pp : Pd) + warp * BQ * R;
+          const uint32_t* X = which == 0 ? Gw : Qw;
+          float acc[R][WPL * E];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int i = 0; i < WPL; ++i)
+#pragma unroll
+              for (int e = 0; e < E; ++e)
+                acc[r][i * E + e] =
+                    A[(kbase + r) * D + (lane + 32 * i) * E + e];
+#pragma unroll 4
+          for (int j = 0; j < BQ; ++j) {
+            const float4 p4 = *reinterpret_cast<const float4*>(pw + j * R);
+            const float pr[R] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int i = 0; i < WPL; ++i) {
+              float xf[E];
+              Elt<T>::unpack(X[j * KS + lane + 32 * i], xf);
+#pragma unroll
+              for (int r = 0; r < R; ++r)
+#pragma unroll
+                for (int e = 0; e < E; ++e)
+                  acc[r][i * E + e] = fmaf(pr[r], xf[e], acc[r][i * E + e]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int i = 0; i < WPL; ++i)
+#pragma unroll
+              for (int e = 0; e < E; ++e)
+                A[(kbase + r) * D + (lane + 32 * i) * E + e] =
+                    acc[r][i * E + e];
+        }
+        __syncwarp();  // Pp/Pd are rewritten by the next pass
+      }
+    }
+  }
+  __syncthreads();
+
+  T* dkb = dk + ((size_t)b * sk * hk + kvh) * D;
+  T* dvb = dv + ((size_t)b * sk * hk + kvh) * D;
+  for (int i = tid; i < BK * D; i += THREADS) {
+    const int key = k0 + i / D;
+    if (key >= sk) continue;
+    const size_t at = (size_t)key * kstride + i % D;
+    dkb[at] = Elt<T>::from_float(dKs[i]);
+    dvb[at] = Elt<T>::from_float(dVs[i]);
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *g;
+  const float *lse, *delta;
+  const int* seg;
+  int b, sq, sk, h, hk;
+  float scale;
+  int causal, window;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a, void* dq) {
+  const size_t smem = DqGeometry<T, D>::SMEM;
+  auto kernel = flash_bwd_dq_kernel<T, D>;
+  cudaError_t err = ptt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int BQ = DqGeometry<T, D>::BQ;
+  const dim3 grid(a.b * a.h, (a.sq + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
+      a.seg, static_cast<T*>(dq), a.sq, a.sk, a.h, a.hk, a.scale, a.causal,
+      a.window);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
+  const size_t smem = DkvGeometry<T, D>::SMEM;
+  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  cudaError_t err = ptt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int BK = DkvGeometry<T, D>::BK;
+  const dim3 grid(a.b * a.hk, (a.sk + BK - 1) / BK);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
+      a.seg, static_cast<T*>(dk), static_cast<T*>(dv), a.sq, a.sk, a.h, a.hk,
+      a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int d, const Args& a, void* o0, void* o1) {
+  const bool dq = o1 == nullptr;
+  switch (d) {
+    case 64:
+      return dq ? launch_dq<T, 64>(a, o0) : launch_dkv<T, 64>(a, o0, o1);
+    case 128:
+      return dq ? launch_dq<T, 128>(a, o0) : launch_dkv<T, 128>(a, o0, o1);
+    case 256:
+      return dq ? launch_dq<T, 256>(a, o0) : launch_dkv<T, 256>(a, o0, o1);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int run(const void* q, const void* k, const void* v, const void* g,
+        const void* lse, const void* delta, const void* seg, void* o0,
+        void* o1, int b, int sq, int sk, int h, int hk, int d, float scale,
+        int causal, int window, int dtype, void* stream) {
+  const Args a{q, k, v, g,
+               static_cast<const float*>(lse),
+               static_cast<const float*>(delta),
+               static_cast<const int*>(seg), b, sq, sk, h, hk, scale, causal,
+               window, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch<float>(d, a, o0, o1);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(d, a, o0, o1);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = fp32, 1 = bf16. seg may be null. window <= 0 means none.
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
+                                      const void* v, const void* g,
+                                      const void* lse, const void* delta,
+                                      const void* seg, void* dq, int b,
+                                      int sq, int sk, int h, int hk, int d,
+                                      float scale, int causal, int window,
+                                      int dtype, void* stream) {
+  return run(q, k, v, g, lse, delta, seg, dq, nullptr, b, sq, sk, h, hk, d,
+             scale, causal, window, dtype, stream);
+}
+
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
+                                       const void* v, const void* g,
+                                       const void* lse, const void* delta,
+                                       const void* seg, void* dk, void* dv,
+                                       int b, int sq, int sk, int h, int hk,
+                                       int d, float scale, int causal,
+                                       int window, int dtype, void* stream) {
+  return run(q, k, v, g, lse, delta, seg, dk, dv, b, sq, sk, h, hk, d, scale,
+             causal, window, dtype, stream);
+}

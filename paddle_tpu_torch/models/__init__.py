@@ -1,5 +1,6 @@
 from .base import CausalLMBase
-from .llama import LlamaConfig, LlamaForCausalLM, llama3_8b, llama_tiny
+from .llama import (LlamaConfig, LlamaForCausalLM, causal_lm_loss, llama3_8b,
+                    llama_tiny)
 
-__all__ = ["CausalLMBase", "LlamaConfig", "LlamaForCausalLM", "llama3_8b",
-           "llama_tiny"]
+__all__ = ["CausalLMBase", "LlamaConfig", "LlamaForCausalLM",
+           "causal_lm_loss", "llama3_8b", "llama_tiny"]

@@ -2,10 +2,11 @@
 
 The serving paths of the JAX package, in PyTorch: the static-KV-cache
 attention that ``generate()`` drives, the paged KV cache that
-``PagedEngine`` drives, and the no-cache forward. The branches that
-belong to later slices raise ``NotImplementedError``: ring attention over
-a sequence-parallel mesh, per-layer recompute and the pipeline-parallel
-train step.
+``PagedEngine`` drives, and the no-cache forward, which the trainer
+differentiates (flash attention through its backward kernels, per-layer
+recompute when ``config.recompute`` is on). The branches that belong to
+the multi-device slice raise ``NotImplementedError``: ring attention over
+a sequence-parallel mesh and the pipeline-parallel train step.
 
 PyTorch idiom inside: ``nn.Module``s with an explicit device and
 generator, the RoPE tables computed once per forward in ``LlamaModel``
@@ -29,6 +30,7 @@ from ..generation.paged import (PagedKV, paged_chunk_attention,
                                 paged_prefill_write)
 from ..nn import RMSNorm
 from ..nn import functional as F
+from ..nn.recompute import recompute
 from ..ops.attention import (decode_attention, dense_attention,
                              flash_attention, segment_mask, use_flash)
 from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
@@ -52,7 +54,10 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     attention_bias: bool = False       # Qwen2 uses biased q/k/v projections
     initializer_range: float = 0.02
-    recompute: bool = False            # training slice
+    recompute: bool = False
+    # recompute policy name (see nn.recompute.POLICIES): "full"
+    # rematerializes everything, "dots_saveable" keeps matmul outputs
+    recompute_policy: str = "full"
     use_flash_attention: bool = True
     # sliding-window attention (Qwen2/Mistral): each query attends only the
     # trailing `sliding_window` keys; only layers with index >=
@@ -408,10 +413,6 @@ class LlamaModel(nn.Module):
                 segment_ids=None, paged_chunk: bool = False,
                 paged_decode: bool = False):
         cfg = self.config
-        if cfg.recompute and kv_caches is None:
-            raise NotImplementedError(
-                "recompute (activation checkpointing) comes with the "
-                "training slice of the port")
         b, s = input_ids.shape
         if positions is None:
             start = cache_index if cache_index is not None else 0
@@ -427,6 +428,14 @@ class LlamaModel(nn.Module):
                               attention_scaling=self.attn_scaling)
         new_caches = [] if kv_caches is not None else None
         for i, layer in enumerate(self.layers):
+            if cfg.recompute and kv_caches is None:
+                # per-layer activation recompute: the backward replays
+                # the layer's forward instead of keeping its activations
+                x = recompute(
+                    lambda h, lyr=layer: lyr(h, rope, attn_mask=attn_mask,
+                                             segment_ids=segment_ids),
+                    x, policy=cfg.recompute_policy)
+                continue
             out = layer(x, rope,
                         kv_cache=kv_caches[i] if kv_caches is not None
                         else None,
@@ -482,3 +491,10 @@ class LlamaForCausalLM(CausalLMBase):
             logits = self.lm_head(out)
         logits = logits.float()
         return (logits, caches) if kv_caches is not None else logits
+
+
+def causal_lm_loss(logits, labels, ignore_index: int = -100):
+    """Shifted next-token cross entropy: logits [b, s, v], labels [b, s]
+    (the token ids themselves in the default recipe)."""
+    return F.cross_entropy(logits[:, :-1], labels[:, 1:],
+                           ignore_index=ignore_index, reduction="mean")

@@ -20,7 +20,7 @@ from . import initializer as I
 def _param(shape, init, generator, device, dtype):
     t = torch.empty(shape, device=device, dtype=dtype)
     init(t, generator)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class Linear(nn.Module):

@@ -16,7 +16,7 @@ class RMSNorm(nn.Module):
         self.epsilon = epsilon
         self.weight = nn.Parameter(
             torch.ones(hidden_size, device=resolve_device(device),
-                       dtype=dtype), requires_grad=False)
+                       dtype=dtype))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)

@@ -16,7 +16,7 @@ import torch
 from .kernels.decode_attention import HEAD_DIMS as _DECODE_HEAD_DIMS
 from .kernels.decode_attention import MAX_GROUP, decode_attention_fwd
 from .kernels.flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
-from .kernels.flash_attention import flash_attention_fwd
+from .kernels.flash_attention import FlashAttentionFunction
 from .kernels.ragged_paged_attention import HEAD_DIMS as _PAGED_HEAD_DIMS
 from .kernels.ragged_paged_attention import MAX_ROWS as _PAGED_MAX_ROWS
 
@@ -34,11 +34,11 @@ def use_flash(query, key, attn_mask, dropout_p) -> bool:
 def flash_attention(query, key, value, causal=False, scale=None,
                     segment_ids=None, window=None):
     """[b, s, h, d] flash attention; GQA-aware. ``segment_ids`` [b, s]
-    (0 = pad) restricts attention to same-segment pairs."""
-    out, _ = flash_attention_fwd(query, key, value, causal=causal,
-                                 scale=scale, window=window,
-                                 segment_ids=segment_ids)
-    return out
+    (0 = pad) restricts attention to same-segment pairs. Differentiable on
+    both devices through :class:`FlashAttentionFunction`, whose backward
+    is the flash backward kernels on the card."""
+    return FlashAttentionFunction.apply(query, key, value, causal, scale,
+                                        window, segment_ids)
 
 
 def segment_mask(segment_ids):

@@ -24,6 +24,39 @@ K/V element read from shared memory serves 4 query rows. This first
 version does its products with fp32 FMAs on the CUDA cores, not on the
 tensor cores, so it runs far from the byte bound; moving QK^T and PV onto
 ``wgmma`` with TMA-fed tiles is the next step.
+
+Backward: ``flash_attention_bwd`` replaces ``_flash_bwd`` (:307), which
+reaches two TPU kernels, ``_bwd_dq_kernel`` (:208, call :375) and
+``_bwd_dkv_kernel`` (:253, call :389). Same function: delta =
+rowsum(dout * out) in fp32 (a torch reduction, outside the kernels, as
+the JAX package keeps it outside the ``pallas_call``); p recomputed from
+the forward's lse with the same masks; ds = p * (dp - delta) * scale; p
+cast to dout's type before p^T dout, ds to q/k's type before ds K and
+ds^T q, the outputs cast once at the end. ``FlashAttentionFunction`` is
+the counterpart of the ``custom_vjp`` wiring (``_flash``, ``_flash_seg``
+:415-462).
+
+Bound of the backward on the H100: at the training shape of the slice (q
+[2, 2048, 32, 128], k/v [2, 2048, 8, 128], bf16, causal) the function
+does 5 products of 2 * d FLOP per live (row, key) pair (s, dp, dq, dk,
+dv: about 172 GFLOP, 0.174 ms at 989 TFLOP/s) and moves about 170 MB
+(0.05 ms), so it is bound by operations. The TPU split recomputes s and
+dp in both kernels: on that work the dq kernel's bound is 3 products and
+the dk/dv kernel's 4.
+
+Design (``csrc/flash_attention_bwd.cu``): dq takes one block per
+(batch*head, q tile) and loops over the live kv tiles; dk/dv takes one
+block per (batch*kv head, kv tile) and loops over the GQA group's query
+heads and their live q tiles, so no head repeat is materialised and no
+atomics are needed: each output element is summed by one block in a
+fixed order and two runs give the same bits. Like the forward, the
+products run as fp32 FMAs on the CUDA cores from shared-memory tiles;
+tensor cores are later work. Two choices keep the CUDA cores busier: q,
+dout, K and V sit in shared memory as packed bf16 words (only the
+accumulators are fp32), so two blocks fit an SM at d <= 128; and the
+blocks with the most live tiles under the causal mask (the last q tiles
+for dq, the first kv tiles for dk/dv) are launched first, so the longest
+blocks do not trail the grid.
 """
 from __future__ import annotations
 
@@ -42,6 +75,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p])
+_BWD_TAIL = ([ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
+_DQ_ARGTYPES = [ctypes.c_void_p] * 8 + _BWD_TAIL
+_DKV_ARGTYPES = [ctypes.c_void_p] * 9 + _BWD_TAIL
 
 
 def _check(q, k, v, causal, window, segment_ids):
@@ -68,6 +106,26 @@ def _check(q, k, v, causal, window, segment_ids):
                          f"sq == sk; got {tuple(segment_ids.shape)}")
 
 
+def _masked_scores(qf, kf, scale, causal, window, segment_ids):
+    """fp32 scores [b, h, sq, sk] of q [b, h, sq, d] against k [b, h, sk,
+    d], with the kernels' masks at the finite NEG_INF: causal aligned
+    bottom-right (offset sk - sq), the window band, segment equality."""
+    sq, sk = qf.shape[2], kf.shape[2]
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    keep = torch.ones(sq, sk, dtype=torch.bool, device=qf.device)
+    if causal:
+        qpos = torch.arange(sq, device=qf.device)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=qf.device)[None, :]
+        keep = qpos >= kpos
+        if window is not None:
+            keep = keep & (qpos - kpos < window)
+    keep = keep[None, None]
+    if segment_ids is not None:
+        seg = segment_ids.to(torch.int32)
+        keep = keep & (seg[:, None, :, None] == seg[:, None, None, :])
+    return torch.where(keep, s, torch.full_like(s, NEG_INF))
+
+
 def flash_attention_fwd_plain(q, k, v, *, causal=False, scale=None,
                               window=None, segment_ids=None):
     """The same function in plain PyTorch, over the whole score matrix:
@@ -80,19 +138,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal=False, scale=None,
     qf = q.float().transpose(1, 2)                       # [b, h, sq, d]
     kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
     vt = v.transpose(1, 2).repeat_interleave(group, dim=1)
-    s = (qf @ kf.transpose(-1, -2)) * scale              # [b, h, sq, sk]
-    keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
-    if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        kpos = torch.arange(sk, device=q.device)[None, :]
-        keep = qpos >= kpos
-        if window is not None:
-            keep = keep & (qpos - kpos < window)
-    keep = keep[None, None]
-    if segment_ids is not None:
-        seg = segment_ids.to(torch.int32)
-        keep = keep & (seg[:, None, :, None] == seg[:, None, None, :])
-    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    s = _masked_scores(qf, kf, scale, causal, window, segment_ids)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     safe_l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -140,3 +186,185 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+# ---------------------------------------------------------------- backward
+def _check_bwd(q, k, v, out, lse, dout, causal, window, segment_ids):
+    _check(q, k, v, causal, window, segment_ids)
+    b, sq, h, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"out and dout must be {q.dtype}; got {out.dtype}, "
+                        f"{dout.dtype}")
+    if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [b, h, sq] = {(b, h, sq)}; got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+
+
+def _delta(out, dout):
+    """rowsum(dout * out) in fp32, [b, h, sq] like lse."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_plain(q, k, v, out, lse, dout, causal, scale, window, segment_ids,
+               dq_part, dkv_part):
+    """The plain FA-2 backward; forms dq (``dq_part``) and/or dk, dv
+    (``dkv_part``), as a list in that order."""
+    _check_bwd(q, k, v, out, lse, dout, causal, window, segment_ids)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    group = h // hk
+    qf = q.float().transpose(1, 2)                       # [b, h, sq, d]
+    kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    gf = dout.float().transpose(1, 2)
+    s = _masked_scores(qf, kf, scale, causal, window, segment_ids)
+    p = torch.exp(s - lse[..., None])
+    dp = gf @ vf.transpose(-1, -2)
+    ds = (p * (dp - _delta(out, dout)[..., None]) * scale).to(q.dtype).float()
+    grads = []
+    if dq_part:
+        grads.append((ds @ kf).to(q.dtype))               # [b, h, sq, d]
+    if dkv_part:
+        p = p.to(dout.dtype).float()
+        dk = (ds.transpose(-1, -2) @ qf).reshape(b, hk, group, sk, d).sum(2)
+        dv = (p.transpose(-1, -2) @ gf).reshape(b, hk, group, sk, d).sum(2)
+        grads += [dk.to(k.dtype), dv.to(v.dtype)]
+    return [t.transpose(1, 2).contiguous() for t in grads]
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=False,
+                              scale=None, window=None, segment_ids=None):
+    """The backward in plain PyTorch, as the explicit FA-2 formula over the
+    whole score matrix (not autograd through the forward): p recomputed
+    from ``lse``, ds = p * (dp - delta) * scale, with the kernels'
+    rounding points. Returns (dq, dk, dv) in the inputs' dtype."""
+    return tuple(_bwd_plain(q, k, v, out, lse, dout, causal, scale, window,
+                            segment_ids, True, True))
+
+
+def flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, *, causal=False,
+                                 scale=None, window=None, segment_ids=None):
+    """The dq kernel's plain version: dq alone (s, dp and ds @ K: three
+    products), as :func:`flash_attention_bwd_plain` forms it."""
+    return _bwd_plain(q, k, v, out, lse, dout, causal, scale, window,
+                      segment_ids, True, False)[0]
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, out, lse, dout, *, causal=False,
+                                  scale=None, window=None, segment_ids=None):
+    """The dk/dv kernel's plain version: (dk, dv) alone (s, dp, ds^T q and
+    p^T dout: four products), as :func:`flash_attention_bwd_plain` forms
+    them."""
+    return tuple(_bwd_plain(q, k, v, out, lse, dout, causal, scale, window,
+                            segment_ids, False, True))
+
+
+def _bwd_args(q, k, v, dout, lse, delta, seg, causal, scale, window):
+    extra = [] if seg is None else [seg]
+    if not use_kernel(q, k, v, dout, lse, delta, *extra):
+        raise ValueError("the backward kernels take CUDA tensors; "
+                         "flash_attention_bwd routes CPU tensors to the "
+                         "plain version")
+    check_layout(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
+             None if seg is None else seg.data_ptr()],
+            [b, sq, sk, h, hk, d, float(scale), int(causal),
+             0 if window is None else int(window), DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream])
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, seg, *, causal,
+                           scale, window):
+    """Launch the dq kernel on CUDA tensors (contiguous; ``delta`` and
+    ``lse`` fp32 [b, h, sq], ``seg`` int32 or None). Returns dq."""
+    ptrs, tail = _bwd_args(q, k, v, dout, lse, delta, seg, causal, scale,
+                           window)
+    dq = torch.empty_like(q)
+    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dq",
+                      _DQ_ARGTYPES)
+    _build.check("flash_attention_bwd", fn(*ptrs, dq.data_ptr(), *tail))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, seg, *, causal,
+                            scale, window):
+    """Launch the dk/dv kernel on CUDA tensors (as
+    :func:`flash_attention_bwd_dq`). Returns (dk, dv)."""
+    ptrs, tail = _bwd_args(q, k, v, dout, lse, delta, seg, causal, scale,
+                           window)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dkv",
+                      _DKV_ARGTYPES)
+    _build.check("flash_attention_bwd",
+                 fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *tail))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=False,
+                        scale=None, window=None, segment_ids=None):
+    """Flash-attention backward on [b, s, h, d] tensors: (dq, dk, dv) from
+    the forward's inputs, its ``out`` and fp32 ``lse`` [b, h, sq], and the
+    output's gradient ``dout``.
+
+    CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors launch
+    the dq and the dk/dv kernels, on the current stream, or raise."""
+    _check_bwd(q, k, v, out, lse, dout, causal, window, segment_ids)
+    extra = [] if segment_ids is None else [segment_ids]
+    if not use_kernel(q, k, v, out, lse, dout, *extra):
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, scale=scale,
+                                         window=window,
+                                         segment_ids=segment_ids)
+    scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
+    seg = (None if segment_ids is None
+           else segment_ids.to(torch.int32).contiguous())
+    delta = _delta(out, dout)
+    kw = dict(causal=causal, scale=scale, window=window)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, seg, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, seg, **kw)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its own backward (the counterpart of the JAX
+    package's ``custom_vjp`` wiring, ``_flash`` / ``_flash_seg``): the
+    forward saves q, k, v, out and the fp32 lse; the backward runs
+    :func:`flash_attention_bwd`, the kernels on the card and the plain
+    formula on the CPU. ``segment_ids`` gets no gradient.
+
+        out = FlashAttentionFunction.apply(q, k, v, causal, scale, window,
+                                           segment_ids)
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False, scale=None, window=None,
+                segment_ids=None):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                       window=window,
+                                       segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.opts = dict(causal=causal, scale=scale, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(),
+                                         segment_ids=segment_ids,
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None

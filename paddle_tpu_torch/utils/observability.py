@@ -1,17 +1,32 @@
-"""Metrics registry and flight recorder: the subset of
-``paddle_tpu/utils/observability.py`` that the paged engine touches
-(``Counter``, ``Histogram``, ``MetricsRegistry``, ``registry()``,
-``record_event`` and the serving bucket grids), copied so the port needs
-nothing of the JAX package. The span tracer, time series and run-dir
-artifacts come with the serving slice.
+"""Metrics registry, span tracer and flight recorder: the subset of
+``paddle_tpu/utils/observability.py`` that the paged engine and the
+trainer touch, copied so the port needs nothing of the JAX package:
+``Counter``, ``Gauge``, ``Histogram``, ``MetricsRegistry``, the serving
+bucket grids, ``counter`` / ``gauge`` / ``histogram``, ``span``,
+``record_event``, and the run-dir artifacts (``configure``, ``flush``:
+``trace_<attempt>.json`` and ``metrics.prom``; ``dump_flight``:
+``flight_<attempt>.json``; ``publish`` into a ``LogWriter``), with
+``run_id`` / ``attempt_id``. A span is also a
+``torch.profiler.record_function`` range, so it shows in a torch.profiler
+trace as the JAX package's spans show in a jax.profiler one. The time
+series, tick-phase documents and ``reset`` come with the serving slice.
 """
 from __future__ import annotations
 
+import contextlib
+import json
 import math
+import os
 import threading
 import time
+import uuid
 from collections import deque
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import torch
+
+ENV_RUN_ID = "PADDLE_TPU_RUN_ID"
+ENV_ATTEMPT = "PADDLE_TPU_ATTEMPT"
 
 # default latency buckets (milliseconds): sub-ms serving ticks up to
 # multi-minute checkpoint restores
@@ -28,6 +43,24 @@ SERVING_MS_BUCKETS = (0.1, 0.2, 0.5, 1, 2, 5, 10, 20, 50, 100,
 # checkpoint-sized transfers at the top
 BYTES_BUCKETS = (64, 256, 1024, 4096, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9,
                  1e10, 1e11)
+
+
+def run_id() -> str:
+    """Stable id for this run, minted once and published to the
+    environment so spawned children inherit it."""
+    rid = os.environ.get(ENV_RUN_ID)
+    if not rid:
+        rid = uuid.uuid4().hex[:12]
+        os.environ[ENV_RUN_ID] = rid
+    return rid
+
+
+def attempt_id() -> int:
+    """Elastic attempt number: 0 for a directly launched process."""
+    try:
+        return int(os.environ.get(ENV_ATTEMPT, "0") or 0)
+    except ValueError:
+        return 0
 
 
 # ---------------------------------------------------------------- metrics
@@ -57,6 +90,32 @@ class Counter:
             raise ValueError("counters only go up; use a gauge")
         with self._lock:
             self._value += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Last-write-wins scalar."""
+
+    __slots__ = ("_value", "_lock")
+
+    def __init__(self):
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, v: float):
+        with self._lock:
+            self._value = float(v)
+
+    def inc(self, n: float = 1.0):
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0):
+        self.inc(-n)
 
     @property
     def value(self) -> float:
@@ -194,6 +253,9 @@ class MetricsRegistry:
     def counter(self, name: str, **labels) -> Counter:
         return self._get("counter", name, Counter, labels)
 
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get("gauge", name, Gauge, labels)
+
     def histogram(self, name: str, buckets=None, **labels) -> Histogram:
         return self._get("histogram", name,
                          lambda: Histogram(buckets or DEFAULT_MS_BUCKETS),
@@ -257,10 +319,66 @@ class MetricsRegistry:
                 writer.add_scalar(full, m.value, step)
 
 
+class SpanTracer:
+    """Chrome-trace ("Trace Event Format") span collector: a bounded ring
+    of complete events (the most recent window survives a long run);
+    ``flush()`` writes a JSON object Perfetto or chrome://tracing load.
+    Timestamps are epoch microseconds."""
+
+    def __init__(self, max_events: int = 200_000):
+        self._events: deque = deque(maxlen=max_events)
+        self._lock = threading.Lock()
+        self.total_events = 0
+        self._pid = os.getpid()
+
+    @property
+    def dropped(self) -> int:
+        return max(0, self.total_events - len(self._events))
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs) -> Iterator[None]:
+        t0 = time.time()
+        try:
+            with torch.profiler.record_function(name):
+                yield
+        finally:
+            dur = time.time() - t0
+            ev = {"name": name, "cat": "paddle_tpu_torch", "ph": "X",
+                  "ts": t0 * 1e6, "dur": dur * 1e6, "pid": self._pid,
+                  "tid": threading.get_ident() & 0x7FFFFFFF,
+                  "args": attrs}
+            with self._lock:
+                self._events.append(ev)
+                self.total_events += 1
+
+    def flush(self, path: str):
+        """Write (atomically) the chrome-trace JSON object."""
+        with self._lock:
+            events = list(self._events)
+            dropped = self.dropped
+        doc = {"traceEvents": events, "displayTimeUnit": "ms",
+               "otherData": {"run_id": run_id(), "attempt": attempt_id(),
+                             "dropped_events": dropped}}
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+        return path
+
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    try:
+        return float(v)          # numpy / torch scalars
+    except (TypeError, ValueError):
+        return str(v)
+
 
 class FlightRecorder:
     """Bounded ring buffer of recent structured events (lock-free on the
-    record path: ``deque`` append is atomic)."""
+    record path: ``deque`` append is atomic); ``dump()`` writes the whole
+    window atomically for the post-crash "what just happened" read."""
 
     def __init__(self, capacity: int = 512):
         self.capacity = capacity
@@ -269,16 +387,31 @@ class FlightRecorder:
 
     def record(self, kind: str, **fields):
         ev = {"wall": time.time(), "kind": kind}
-        ev.update(fields)
+        for k, v in fields.items():
+            ev[k] = _jsonable(v)
         self._events.append(ev)
         self.total_events += 1
 
     def snapshot(self) -> List[dict]:
         return list(self._events)
 
+    def dump(self, path: str, reason: str) -> str:
+        doc = {"run_id": run_id(), "attempt": attempt_id(),
+               "reason": reason, "dumped_wall": time.time(),
+               "capacity": self.capacity, "total_events": self.total_events,
+               "events": list(self._events)}
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+        return path
+
 
 _registry = MetricsRegistry()
+_tracer = SpanTracer()
 _recorder = FlightRecorder()
+_run_dir: Optional[str] = None
+_state_lock = threading.Lock()
 
 
 def registry() -> MetricsRegistry:
@@ -289,5 +422,84 @@ def recorder() -> FlightRecorder:
     return _recorder
 
 
+def counter(name: str, **labels) -> Counter:
+    return _registry.counter(name, **labels)
+
+
+def gauge(name: str, **labels) -> Gauge:
+    return _registry.gauge(name, **labels)
+
+
+def histogram(name: str, buckets=None, **labels) -> Histogram:
+    return _registry.histogram(name, buckets=buckets, **labels)
+
+
+def span(name: str, **attrs):
+    return _tracer.span(name, **attrs)
+
+
 def record_event(kind: str, **fields):
     _recorder.record(kind, **fields)
+
+
+def configure(directory: str) -> str:
+    """Point the process-default observability at a run dir (the trainer
+    passes ``<output_dir>/runs``, where its JSONL metrics land too)."""
+    global _run_dir
+    with _state_lock:
+        os.makedirs(directory, exist_ok=True)
+        _run_dir = directory
+    return directory
+
+
+def flight_path() -> Optional[str]:
+    return None if _run_dir is None else os.path.join(
+        _run_dir, f"flight_{attempt_id()}.json")
+
+
+def trace_path() -> Optional[str]:
+    return None if _run_dir is None else os.path.join(
+        _run_dir, f"trace_{attempt_id()}.json")
+
+
+def metrics_path() -> Optional[str]:
+    return None if _run_dir is None else os.path.join(
+        _run_dir, "metrics.prom")
+
+
+def dump_flight(reason: str) -> Optional[str]:
+    """Dump the flight window, the trace and the metrics snapshot. No-op
+    without a configured run dir; never raises (a broken dump must not
+    mask the original crash)."""
+    path = flight_path()
+    if path is None:
+        return None
+    try:
+        out = _recorder.dump(path, reason)
+        flush()
+        return out
+    except Exception:
+        return None
+
+
+def flush() -> None:
+    """Write the trace and the Prometheus text snapshot into the
+    configured run dir (atomic, idempotent)."""
+    if _run_dir is None:
+        return
+    try:
+        _tracer.flush(trace_path())
+    except Exception:
+        pass
+    try:
+        tmp = metrics_path() + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(_registry.prometheus_text())
+        os.replace(tmp, metrics_path())
+    except Exception:
+        pass
+
+
+def publish(writer, step: int) -> None:
+    """Merge registry values into a LogWriter JSONL stream."""
+    _registry.publish(writer, step)

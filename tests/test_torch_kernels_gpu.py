@@ -12,7 +12,9 @@ import torch
 from paddle_tpu_torch.ops.kernels.decode_attention import (
     decode_attention_fwd, decode_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention_fwd, flash_attention_fwd_plain)
+    FlashAttentionFunction, flash_attention_bwd, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
 
@@ -164,3 +166,91 @@ def test_ragged_kernel_replays_in_a_cuda_graph(cuda_card):
         ref = ragged_paged_attention_plain(q, kp, vp, tbl, sl)
         torch.testing.assert_close(out.float(), ref.float(),
                                    atol=ATOL[torch.bfloat16], rtol=0)
+
+
+# backward, bf16: kernel and plain version round p and ds at the same
+# points and sum in another order; relative to the largest reference
+# gradient, as the magnitudes grow with the sequence
+BWD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _bwd_case(dev, dtype, b, sq, sk, h, kv, d, seg=False, seed=0):
+    rs = np.random.RandomState(seed)
+    q = _randn(rs, b, sq, h, d, scale=0.5).to(dev, dtype)
+    k = _randn(rs, b, sk, kv, d, scale=0.5).to(dev, dtype)
+    v = _randn(rs, b, sk, kv, d).to(dev, dtype)
+    g = _randn(rs, b, sq, h, d).to(dev, dtype)
+    ids = None
+    if seg:
+        ids = torch.zeros(b, sq, dtype=torch.int32)
+        ids[:, :sq // 3], ids[:, sq // 3:sq // 2] = 1, 2
+        ids[:, sq // 2:sq - 24] = 3
+        ids = ids.to(dev)
+    return q, k, v, g, ids
+
+
+def _assert_grads_close(got, want, dtype):
+    for a, b in zip(got, want):
+        tol = BWD_RTOL[dtype] * max(float(b.float().abs().max()), 1.0)
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("case", [
+    dict(b=2, sq=256, sk=256, h=8, kv=2, d=128, causal=True),
+    dict(b=1, sq=256, sk=256, h=8, kv=2, d=128, causal=True, window=70),
+    dict(b=2, sq=256, sk=256, h=4, kv=2, d=64, causal=True, seg=True),
+    dict(b=1, sq=128, sk=128, h=4, kv=4, d=64, causal=False),
+    dict(b=1, sq=128, sk=256, h=4, kv=1, d=128, causal=True),
+    dict(b=1, sq=192, sk=192, h=4, kv=1, d=256, causal=True),
+    dict(b=1, sq=200, sk=200, h=4, kv=2, d=64, causal=False),
+], ids=["gqa-causal", "window", "segments", "full", "longer-keys", "d256",
+        "ragged-full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_bwd_kernels_match_plain(cuda_card, case, dtype):
+    """dq and dk/dv kernels against the plain FA-2 formula on the same
+    out and lse; each kernel launches once."""
+    q, k, v, g, seg = _bwd_case(cuda_card, dtype, case["b"], case["sq"],
+                                case["sk"], case["h"], case["kv"], case["d"],
+                                case.get("seg", False))
+    kw = dict(causal=case["causal"], window=case.get("window"),
+              segment_ids=seg)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    n = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
+    _assert_grads_close(got, want, dtype)
+
+
+def test_flash_bwd_kernels_repeat_bitwise(cuda_card):
+    """No atomics: two runs on the same inputs give the same bits."""
+    q, k, v, g, _ = _bwd_case(cuda_card, torch.bfloat16, 2, 512, 512, 8, 2,
+                              128, seed=3)
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    a = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    b = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_function_grads_on_the_card(cuda_card, dtype):
+    """``FlashAttentionFunction`` on CUDA tensors: every input gets a
+    non-null gradient from the kernels, equal to the plain backward's on
+    the CPU copies of the same values."""
+    q, k, v, g, _ = _bwd_case(cuda_card, dtype, 1, 256, 256, 8, 2, 64,
+                              seed=4)
+    grads = []
+    for dev in (cuda_card, torch.device("cpu")):
+        xs = [t.to(dev).detach().requires_grad_() for t in (q, k, v)]
+        out = FlashAttentionFunction.apply(*xs, True)
+        assert type(out.grad_fn).__name__ == \
+            "FlashAttentionFunctionBackward"
+        out.backward(g.to(dev))
+        assert all(x.grad is not None for x in xs)
+        grads.append([x.grad.cpu() for x in xs])
+    _assert_grads_close(grads[0], grads[1], dtype)
