@@ -63,6 +63,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    2 steps must run the flash forward twice per layer and step and give
    the same losses.
 
+10. weight-only quantized serving (the kernel phases run beside 3 and 4):
+   the quant kernel against its plain version at every Llama-3-8B
+   projection shape, int8 and int4, m in {1, 4, 16, 64} bf16 rows, and
+   the grid paged kernel against its plain version (bf16, fp32, a window,
+   dead table slots pointing outside the pool), against the ragged
+   kernel bit for bit, and replayed from a CUDA graph; their times; a
+   small fp32 Llama quantized to int8 and int4 through ``Predictor``, the
+   card against the CPU. Then phase 6's model quantized in place by
+   ``Predictor(model, Config().enable_weight_only_quant(8))``: the same
+   ``generate`` with quant 7 x 32 x 127, flash 32 and decode 32 x 127
+   launches and its numbers next to bf16's; ``PagedEngine`` on it under
+   ``PADDLE_TPU_PAGED_ATTN=grid`` (grid once per layer and tick, quant once
+   per projection and tick or short prefill, ragged never), a rerun, and
+   the same requests under ``ragged``; last the model rebuilt from the
+   seed and quantized to int4, through the same ``generate``.
+
 It prints a JSON line of per-kernel numbers, then the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the ``paddle_tpu_torch`` package beside it, it exits
@@ -122,6 +138,24 @@ BWD_TIME = (2, 2048, 32, 8, 128)
 # the serving geometry of the paged phase (KV pool ~2.1 GB in bf16)
 PAGED = dict(max_slots=16, block_size=16, max_blocks_per_seq=64,
              num_blocks=1025)
+QUANT_SOURCE = "paddle_tpu_torch/csrc/quant_matmul.cu"
+QUANT_REPLACES = "paddle_tpu/ops/pallas/quant_matmul.py:67"
+GRID_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+GRID_REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:92"
+# Llama-3-8B's projections (din, dout): q/o, k/v, gate/up, down
+QUANT_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+# quant kernel vs its plain version, bf16 activations: both dequantize and
+# sum in fp32, in another order (warp and split-K partials), and round
+# once to bf16, so two nearby fp32 sums may land one bf16 step apart:
+# |d| <= 2^-7 |ref| + 1e-3 max|ref| (the second term for elements near 0,
+# where the order of the fp32 sums shows)
+TOL_QUANT_REL = 2.0 ** -7
+TOL_QUANT_ABS = 1e-3
+# projections a Llama layer quantizes: q, k, v, o, gate, up, down
+QUANT_PER_LAYER = 7
+# every kernel's launch count, each 0
+NO_LAUNCHES = dict.fromkeys(("flash", "decode", "ragged", "flash_bwd_dq",
+                             "flash_bwd_dkv", "quant", "grid"), 0)
 
 
 def log(msg: str) -> None:
@@ -155,6 +189,35 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int, replays: int = 3) -> float:
+    """Device milliseconds per call of fn(i), i = 0 .. calls-1, captured
+    once into a CUDA graph and replayed: the calls run back to back on the
+    card with none of the host's per-call cost. (A kernel shorter than its
+    wrapper's host time would otherwise be timed at the host's pace:
+    ``cuda_ms`` measures the device's timeline, idle gaps included.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm-up outside capture
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def copies_for(nbytes: int) -> int:
@@ -384,14 +447,17 @@ def phase_ragged_checks(gen, dev):
     return first
 
 
-def phase_ragged_time(gen, dev, card):
-    """The ragged kernel at the engine's shape: R 16 single-query rows,
-    seq_lens drawn from 64..1023, bf16, inputs rotated through copies
-    larger than the L2. Yardstick: one SDPA call over K/V pre-gathered
-    and head-expanded to [R, h, M*B, d] with a boolean length mask (the
-    gather outside the timing; the port never calls it)."""
+def phase_paged_time(gen, dev, card):
+    """The ragged and the grid paged kernels at the engine's shape: R 16
+    single-query rows, seq_lens drawn from 64..1023, bf16, the same inputs
+    rotated through copies larger than the L2. Yardstick: one SDPA call
+    over K/V pre-gathered and head-expanded to [R, h, M*B, d] with a
+    boolean length mask (the gather outside the timing; the port never
+    calls it). Returns one row for each kernel."""
     import torch.nn.functional as TF
 
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_plain)
     R, h, kvh, d, B, M = 16, 32, 8, 128, 16, 64
@@ -411,18 +477,22 @@ def phase_ragged_time(gen, dev, card):
         lib_sets.append((q[:, :, None], ks.repeat_interleave(h // kvh, 1)
                          .contiguous(), vs.repeat_interleave(h // kvh, 1)
                          .contiguous()))
-    ms = cuda_ms(lambda i: ragged_paged_attention(*sets[i % n]), iters=200)
-    plain_ms = cuda_ms(lambda i: ragged_paged_attention_plain(*sets[i % n]),
-                       iters=20)
     lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
         *lib_sets[i % n], attn_mask=mask), iters=200)
     bound_ms, bound_by = bound(call_bytes, 4 * d * valid * h)
-    log(f"[time] ragged: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-        f"{call_bytes / 1e6:.1f} MB of valid K/V for seq_lens "
-        f"{sorted(lens.tolist())}) [{card}]")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    rows = {}
+    for key, fn, plain in (
+            ("ragged", ragged_paged_attention, ragged_paged_attention_plain),
+            ("grid", paged_attention, paged_attention_plain)):
+        ms = cuda_ms(lambda i: fn(*sets[i % n]), iters=200)
+        plain_ms = cuda_ms(lambda i: plain(*sets[i % n]), iters=20)
+        log(f"[time] {key}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{call_bytes / 1e6:.1f} MB of valid K/V for seq_lens "
+            f"{sorted(lens.tolist())}) [{card}]")
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+    return rows
 
 
 def phase_small_reference(dev):
@@ -459,12 +529,64 @@ def phase_small_reference(dev):
         fail("small model: card logits disagree with the CPU reference")
 
 
+def _weight_gb(model) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in [*model.parameters(), *model.buffers()]) / 1e9
+
+
+def _generate_run(ptt, pred, ids, new, want, label, dev, card):
+    """Warm-up, the prefill's own time (a generate of 1 token), then the
+    main path: one greedy generate of ``new`` tokens with every kernel's
+    count set to 0 just before and read just after (it must equal
+    ``want``), and a second greedy call that must give the same tokens."""
+    b, prompt = ids.shape
+    vocab = pred.model.config.vocab_size
+    greedy = ptt.GenerationConfig(max_new_tokens=new)
+    one = ptt.GenerationConfig(max_new_tokens=1)
+    pred.generate(ids, config=one)      # warm-up (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.generate(ids, config=one)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    out = pred.generate(ids, config=greedy)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = read()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"[{label}] launches in one generate: {launches} (want {want})")
+    if launches != want:
+        fail(f"{label}: kernel launches {launches} != {want}")
+    if tuple(out.shape) != (b, prompt + new):
+        fail(f"{label}: generate returned shape {tuple(out.shape)}")
+    if not torch.equal(out[:, :prompt], ids):
+        fail(f"{label}: generate changed the prompt")
+    if not ((out >= 0) & (out < vocab)).all():
+        fail(f"{label}: generate returned ids outside the vocabulary")
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    log(f"[{label}] prefill {prefill_ms:.1f} ms ({b} x {prompt} tokens + "
+        f"first token), decode {decode_ms:.2f} ms/token step, "
+        f"{b * new / (total_ms / 1e3):.1f} new tokens/s, generate "
+        f"{total_ms:.1f} ms, peak memory {peak_gb:.2f} GB [{card}]")
+    again = pred.generate(ids, config=greedy)
+    if not torch.equal(again, out):
+        fail(f"{label}: a second greedy generate gave other tokens")
+    log(f"[{label}] second greedy generate: identical tokens")
+    return dict(out=out, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                peak_gb=peak_gb, launches=launches)
+
+
 def phase_slice(seed, dev, card):
+    """Llama-3-8B in bf16 through ``Predictor.generate``. Returns the run's
+    numbers (with the prompt ids, the weights' bytes and the prefill's
+    last-position logits, for the quantized phases to compare with) and
+    the model."""
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.ops.kernels.decode_attention import \
-        decode_attention_fwd
-    from paddle_tpu_torch.ops.kernels.flash_attention import \
-        flash_attention_fwd
     cfg = ptt.llama3_8b()
     t0 = time.perf_counter()
     model = ptt.LlamaForCausalLM(cfg, device=dev,
@@ -480,48 +602,10 @@ def phase_slice(seed, dev, card):
     b, prompt, new = 4, 512, 128
     ids = torch.randint(0, cfg.vocab_size, (b, prompt), device=dev,
                         generator=ptt.make_generator(seed + 1, dev))
-    greedy = ptt.GenerationConfig(max_new_tokens=new)
-
-    # warm-up (cuBLAS handles, allocator) and the prefill's own time
-    pred.generate(ids, config=ptt.GenerationConfig(max_new_tokens=1))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pred.generate(ids, config=ptt.GenerationConfig(max_new_tokens=1))
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-
-    # the main path: counts set to 0 just before, read just after
-    torch.cuda.reset_peak_memory_stats(dev)
-    flash_attention_fwd.launches = 0
-    decode_attention_fwd.launches = 0
-    t0 = time.perf_counter()
-    out = pred.generate(ids, config=greedy)
-    torch.cuda.synchronize()
-    total_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"flash": flash_attention_fwd.launches,
-                "decode": decode_attention_fwd.launches}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    want = {"flash": cfg.num_hidden_layers,
-            "decode": cfg.num_hidden_layers * (new - 1)}
-    log(f"[slice] launches in one generate: {launches} (want {want})")
-    if launches != want:
-        fail(f"kernel launches {launches} != {want}")
-    if tuple(out.shape) != (b, prompt + new):
-        fail(f"generate returned shape {tuple(out.shape)}")
-    if not torch.equal(out[:, :prompt], ids):
-        fail("generate changed the prompt")
-    if not ((out >= 0) & (out < cfg.vocab_size)).all():
-        fail("generate returned ids outside the vocabulary")
-    decode_ms = (total_ms - prefill_ms) / (new - 1)
-    log(f"[slice] prefill {prefill_ms:.1f} ms (4 x 512 tokens + first "
-        f"token), decode {decode_ms:.2f} ms/token step, "
-        f"{b * new / (total_ms / 1e3):.1f} new tokens/s, generate "
-        f"{total_ms:.1f} ms, peak memory {peak_gb:.2f} GB [{card}]")
-
-    again = pred.generate(ids, config=greedy)
-    if not torch.equal(again, out):
-        fail("a second greedy generate gave other tokens")
-    log("[slice] second greedy generate: identical tokens")
+    L = cfg.num_hidden_layers
+    want = dict(NO_LAUNCHES, flash=L, decode=L * (new - 1))
+    run = _generate_run(ptt, pred, ids, new, want, "slice", dev, card)
+    out = run["out"]
     sampled_cfg = ptt.GenerationConfig(max_new_tokens=new, do_sample=True,
                                        temperature=0.8, top_p=0.95)
     sampled = pred.generate(ids, config=sampled_cfg,
@@ -534,8 +618,10 @@ def phase_slice(seed, dev, card):
     log(f"[slice] sampled generate (temperature 0.8, top_p 0.95): valid "
         f"ids; {int((sampled[:, prompt:] != out[:, prompt:]).sum())} of "
         f"{b * new} tokens differ from greedy")
-    profile_decode_step(ptt, pred, ids, decode_ms, card)
-    return launches, model
+    profile_decode_step(ptt, pred, ids, run["decode_ms"], card, "bf16")
+    run.update(ids=ids, new=new, weight_gb=_weight_gb(model),
+               logits=pred.run(ids)[:, -1].float())
+    return run, model
 
 
 def _reset_launches():
@@ -543,12 +629,15 @@ def _reset_launches():
         decode_attention_fwd
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
+    from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
     fns = {"flash": flash_attention_fwd, "decode": decode_attention_fwd,
            "ragged": ragged_paged_attention,
            "flash_bwd_dq": flash_attention_bwd_dq,
-           "flash_bwd_dkv": flash_attention_bwd_dkv}
+           "flash_bwd_dkv": flash_attention_bwd_dkv,
+           "quant": quant_matmul, "grid": paged_attention}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in fns.items()}
@@ -677,8 +766,7 @@ def phase_paged(seed, dev, card, model):
     launches = read()
     ticks = eng.stats["decode_steps"] - steps0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    want = {"flash": 0, "decode": 0, "ragged": L * ticks, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+    want = dict(NO_LAUNCHES, ragged=L * ticks)
     log(f"[paged] (a) launches in the run: {launches} (want {want}; "
         f"{in_prefill} inside prefills)")
     if launches != want or in_prefill:
@@ -769,8 +857,8 @@ def _device_profile(pred, ids, new_tokens, ptt):
         pred.generate(ids, config=cfg)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    cats = {"decode_attention": 0.0, "flash_attention": 0.0, "gemm": 0.0,
-            "other": 0.0}
+    cats = {"decode_attention": 0.0, "flash_attention": 0.0,
+            "quant_matmul": 0.0, "gemm": 0.0, "other": 0.0}
     n = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -779,6 +867,7 @@ def _device_profile(pred, ids, new_tokens, ptt):
         name = e.name.lower()
         cat = ("decode_attention" if "decode_kernel" in name else
                "flash_attention" if "flash_fwd_kernel" in name else
+               "quant_matmul" if "qmm_" in name else
                "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
                else "other")
@@ -786,11 +875,12 @@ def _device_profile(pred, ids, new_tokens, ptt):
     return wall, cats, n
 
 
-def profile_decode_step(ptt, pred, ids, step_ms, card):
+def profile_decode_step(ptt, pred, ids, step_ms, card, label):
     """Where a decode step's time goes: torch.profiler over a generate of
     1 and of 33 new tokens; the difference over 32 is one decode step.
     Device busy share = its device time over the step's wall time, with
-    the profiler (inflated) and without it (``step_ms``, the main run)."""
+    the profiler (inflated) and without it (``step_ms``, the main run);
+    host idle = the unprofiled step less the device's busy time."""
     w1, c1, n1 = _device_profile(pred, ids, 1, ptt)
     w33, c33, n33 = _device_profile(pred, ids, 33, ptt)
     steps = 32
@@ -801,13 +891,469 @@ def profile_decode_step(ptt, pred, ids, step_ms, card):
     step_wall = (w33 - w1) / steps
     per = {k: (c33[k] - c1[k]) / steps for k in c33}
     busy = sum(per.values())
-    log(f"[profile] decode step under the profiler: wall {step_wall:.3f} "
-        f"ms, device busy {busy:.3f} ms ({100 * busy / step_wall:.1f} % "
-        f"of it, {100 * busy / step_ms:.1f} % of the unprofiled "
-        f"{step_ms:.2f} ms step), "
+    log(f"[profile] {label} decode step under the profiler: wall "
+        f"{step_wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / step_wall:.1f} % of it, {100 * busy / step_ms:.1f}"
+        f" % of the unprofiled {step_ms:.2f} ms step; host idle "
+        f"{max(step_ms - busy, 0.0):.3f} ms of it), "
         f"{(n33 - n1) / steps:.0f} device ops per step; "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in per.items())
         + f" [{card}]")
+
+
+# ------------------------------------------------------ quantized serving
+def phase_grid_checks(gen, dev):
+    """The grid paged kernel against its plain version at the engine's
+    geometry (R 16, h 32 over kvh 8, d 128, B 16, M 64, P 1025; lens with
+    0 and block edges), bf16 and fp32, with and without a window. Every
+    table slot past a row's live count holds an index far outside the
+    pool, which the kernel must never read (the plain version gathers
+    whole tables, so it gets those slots zeroed). Without a window the
+    kernel is also held bit for bit against the ragged kernel. Last, one
+    call captured in a CUDA graph and replayed after seq_lens and tables
+    changed in place. Returns the bf16 no-window error."""
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        ragged_paged_attention
+    B, M = PAGED["block_size"], PAGED["max_blocks_per_seq"]
+    first = None
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32,
+                                                   TOL_FP32)):
+        for window in (None, 100):
+            lens = ragged_lens(gen, dev, 1)
+            q, kp, vp, tbl, sl = paged_case(gen, dev, lens, dtype=dtype)
+            dead = (torch.arange(M, device=dev)[None, :]
+                    >= ((sl.long() + B) // B)[:, None])
+            out = paged_attention(q, kp, vp, tbl.masked_fill(dead, 1 << 30),
+                                  sl, window=window)
+            again = paged_attention(q, kp, vp, tbl, sl, window=window)
+            torch.cuda.synchronize()
+            ref = paged_attention_plain(q, kp, vp, tbl.masked_fill(dead, 0),
+                                        sl, window=window)
+            err = max_err(out, ref)
+            same = torch.equal(out, again)
+            note = ""
+            if window is None:
+                rag = ragged_paged_attention(q, kp, vp, tbl, sl)
+                note = (f"; bit for bit equal to the ragged kernel: "
+                        f"{torch.equal(out, rag)} (max |d| "
+                        f"{max_err(out, rag):.3e})")
+            log(f"[check] grid {str(dtype)[6:]} window {window} q "
+                f"{list(q.shape)} pools {list(kp.shape)} seq_lens "
+                f"{lens[:4]}+random, dead slots -> 2^30: max_abs_err "
+                f"{err:.3e} tol {tol}; bitwise repeat {same}{note}")
+            if not err <= tol:
+                fail(f"grid kernel disagrees with its plain version "
+                     f"({dtype}, window {window})")
+            if not same:
+                fail(f"grid kernel does not repeat ({dtype}, window {window})")
+            if first is None:
+                first = err
+    q, kp, vp, tbl, sl = paged_case(gen, dev, ragged_lens(gen, dev, 1))
+    paged_attention(q, kp, vp, tbl, sl, window=100)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention(q, kp, vp, tbl, sl, window=100)
+    for _ in range(2):
+        _, _, _, tbl2, sl2 = paged_case(gen, dev, ragged_lens(gen, dev, 1))
+        tbl.copy_(tbl2)
+        sl.copy_(sl2)
+        graph.replay()
+        torch.cuda.synchronize()
+        err = max_err(out, paged_attention_plain(q, kp, vp, tbl, sl,
+                                                 window=100))
+        log(f"[check] grid CUDA-graph replay (window 100) after in-place "
+            f"seq_lens / table change: max_abs_err {err:.3e} tol {TOL_BF16}")
+        if not err <= TOL_BF16:
+            fail("grid kernel replayed from a CUDA graph disagrees")
+    return first
+
+
+def _quantized(gen, dev, din, dout, bits):
+    """Codes and scales of a random [din, dout] weight (std 0.02, as the
+    model's init), quantized on the card."""
+    from paddle_tpu_torch.quant import quantize_blockwise
+    return quantize_blockwise(
+        torch.randn(din, dout, generator=gen, device=dev) * 0.02, bits)
+
+
+def phase_quant_checks(gen, dev):
+    """The quant kernel against its plain version on the card: bf16
+    activations with m in {1, 4, 16, 64} rows, every Llama-3-8B
+    projection shape, int8 and int4; each call made twice must give the
+    same bits. Returns the largest error."""
+    from paddle_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_plain)
+    worst = 0.0
+    for bits in (8, 4):
+        for din, dout in QUANT_SHAPES:
+            qw, sc = _quantized(gen, dev, din, dout, bits)
+            line, top = [], 0.0
+            for m in (1, 4, 16, 64):
+                x = torch.randn(m, din, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                out = quant_matmul(x, qw, sc, bits)
+                again = quant_matmul(x, qw, sc, bits)
+                torch.cuda.synchronize()
+                ref = quant_matmul_plain(x, qw, sc, bits).float()
+                d = (out.float() - ref).abs()
+                top = max(top, float(ref.abs().max()))
+                ok = bool((d <= TOL_QUANT_REL * ref.abs()
+                           + TOL_QUANT_ABS * float(ref.abs().max())).all())
+                same = torch.equal(out, again)
+                line.append(f"m={m} {float(d.max()):.3e}")
+                if not ok:
+                    fail(f"quant kernel disagrees with its plain version: "
+                         f"int{bits} {din}->{dout} m={m}")
+                if not same:
+                    fail(f"quant kernel does not repeat: int{bits} "
+                         f"{din}->{dout} m={m}")
+                worst = max(worst, float(d.max()))
+            log(f"[check] quant int{bits} {din}->{dout} bf16, max_abs_err "
+                + ", ".join(line) + f" (max|ref| {top:.2f}; tol "
+                f"2^-7 |ref| + {TOL_QUANT_ABS} max|ref|); bitwise repeat")
+    return worst
+
+
+def phase_quant_times(gen, dev, card):
+    """The quant kernel at every projection shape, int8 and int4, m = 4
+    (``generate``'s decode) and m = 16 (a paged tick), codes and scales
+    rotated through copies larger than the L2, timed as device time per
+    call from a CUDA graph of back-to-back calls (``graph_ms``: these
+    kernels are shorter than their wrapper's host time; the eager
+    per-call time, which is the host's, is printed beside the gate's). At
+    gate_proj 4096->14336 also its plain version and, as the yardstick
+    the port never calls, one ``torch.matmul`` of the bf16 activations
+    with the pre-dequantized bf16 weight (an unquantized model's
+    projection), timed the same way. Bound: the codes, scales,
+    activations and output once over 3.35 TB/s, against 2 m din dout FLOP
+    at the bf16 rate. Returns the int8, m = 4 gate row."""
+    from paddle_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_plain)
+    from paddle_tpu_torch.quant import dequantize_weight
+    rows, others = {}, []
+    for bits in (8, 4):
+        for din, dout in QUANT_SHAPES:
+            code_bytes = din * dout * bits // 8
+            n = copies_for(code_bytes)
+            sets = [_quantized(gen, dev, din, dout, bits) for _ in range(n)]
+            gate = (din, dout) == (4096, 14336)
+            ws = ([dequantize_weight(q, s, bits, dtype=torch.bfloat16)
+                   for q, s in sets] if gate else None)
+            for m in (4, 16):
+                x = torch.randn(m, din, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                nbytes = (code_bytes + 2 * (din // 128) * dout
+                          + 2 * m * (din + dout))
+                bound_ms, bound_by = bound(nbytes, 2 * m * din * dout)
+                ms = graph_ms(lambda i: quant_matmul(x, *sets[i % n], bits),
+                              calls=60)
+                if not gate:
+                    others.append(f"int{bits} {din}->{dout} m={m} {ms:.4f}"
+                                  f" ms (bound {bound_ms:.4f})")
+                    continue
+                eager_ms = cuda_ms(lambda i: quant_matmul(x, *sets[i % n],
+                                                          bits), iters=200)
+                plain_ms = graph_ms(lambda i: quant_matmul_plain(
+                    x, *sets[i % n], bits), calls=6)
+                lib_ms = graph_ms(lambda i: torch.matmul(x, ws[i % n]),
+                                  calls=60)
+                rows[(bits, m)] = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=lib_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by, eager_ms=eager_ms)
+            del sets, ws
+    log(f"[time] quant, other projections (kernel on the card, bound): "
+        + "; ".join(others) + f" [{card}]")
+    # the host's pace per projection call: k/v (4096 -> 1024) at m = 4,
+    # whose kernels are shorter than any call's host time, eager under
+    # inference_mode as the serving paths run; the device idles between
+    # calls, so these are host times
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.quant import QuantizedLinear
+    lin = ptt.nn.Linear(4096, 1024, generator=gen, has_bias=False,
+                        device=dev, dtype=torch.bfloat16)
+    qlin = QuantizedLinear.from_linear(lin, bits=8)
+    x3 = torch.randn(4, 1, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        host = {"bf16 Linear": cuda_ms(lambda i: lin(x3), iters=300),
+                "int8 QuantizedLinear": cuda_ms(lambda i: qlin(x3),
+                                                iters=300)}
+    log(f"[time] one projection call at the host's pace (k/v 4096->1024, "
+        f"x [4, 1, 4096] bf16, eager): "
+        + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in host.items())
+        + f" [{card}]")
+    for (bits, m), r in rows.items():
+        log(f"[time] quant int{bits} gate_proj 4096->14336 m={m}: kernel "
+            f"{r.pop('eager_ms'):.4f} ms a call eager (the host's pace), "
+            f"{r['ms']:.4f} ms on the card; plain {r['plain_ms']:.4f} ms, "
+            f"bf16 matmul on the dequantized weight {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    return rows[(8, 4)]
+
+
+def phase_small_quant(dev):
+    """A small fp32 Llama (hidden 256, ffn 512, 4/2 heads: every
+    projection passes the kernel's gate; ``llama_tiny``'s hidden 64 would
+    quantize nothing it admits) through ``Predictor`` with int8 and with
+    int4 weight-only quantization, the same weights quantized on the CPU
+    for both: logits of a 128-token prefill (the dequant route) and of 4
+    decode steps (the quant kernel, 7 x 2 layers a step) on the card
+    against the CPU (plain versions)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+    cfg = ptt.llama_tiny(hidden_size=256, intermediate_size=512,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         vocab_size=1024, max_position_embeddings=512)
+    ids = torch.randint(0, cfg.vocab_size, (2, 132),
+                        generator=ptt.make_generator(6, "cpu"))
+    steps = [(ids[:, :128], 0)] + [(ids[:, t:t + 1], t)
+                                   for t in range(128, 132)]
+    for bits in (8, 4):
+        preds = {}
+        for where in ("cpu", dev):
+            model = ptt.LlamaForCausalLM(
+                cfg, device="cpu", generator=ptt.make_generator(5, "cpu"))
+            preds[where] = ptt.Predictor(
+                model, ptt.Config().enable_weight_only_quant(bits),
+                device=where)
+        worst = 0.0
+        n0 = quant_matmul.launches
+        with torch.inference_mode():
+            caches = {w: p.model.init_kv_caches(2, 132)
+                      for w, p in preds.items()}
+            for chunk, ci in steps:
+                ref, caches["cpu"] = preds["cpu"].model(
+                    chunk, kv_caches=caches["cpu"], cache_index=ci)
+                got, caches[dev] = preds[dev].model(
+                    chunk.to(dev), kv_caches=caches[dev], cache_index=ci)
+                if not torch.isfinite(got).all():
+                    fail(f"small int{bits} model: non-finite logits on the "
+                         f"card")
+                worst = max(worst, max_err(got.cpu(), ref))
+        launched = quant_matmul.launches - n0
+        want = QUANT_PER_LAYER * cfg.num_hidden_layers * 4
+        log(f"[small] fp32 Llama hidden 256, int{bits} weight-only, prefill "
+            f"128 + 4 decode steps, card vs CPU: max_abs_err {worst:.3e} "
+            f"tol {TOL_SMALL_LOGITS}; quant launches {launched} (want "
+            f"{want})")
+        if not worst <= TOL_SMALL_LOGITS:
+            fail(f"small int{bits} model: card logits disagree with the CPU")
+        if launched != want:
+            fail(f"small int{bits} model: quant launches {launched} != "
+                 f"{want}")
+
+
+def _quantize_for_serving(ptt, model, bits, dev):
+    """``Predictor(model, Config().enable_weight_only_quant(bits))``: the
+    model is quantized in place, its bf16 projections freed. Returns the
+    predictor and a line on the weights' bytes."""
+    from paddle_tpu_torch.quant import QuantizedLinear
+    t0 = time.perf_counter()
+    pred = ptt.Predictor(model, ptt.Config().enable_weight_only_quant(bits),
+                         device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = [m for m in model.modules() if isinstance(m, QuantizedLinear)]
+    want = QUANT_PER_LAYER * model.config.num_hidden_layers
+    if len(layers) != want:
+        fail(f"int{bits}: {len(layers)} projections quantized, want {want}")
+    codes = sum(m.qweight.numel() for m in layers) / 1e9
+    scales = sum(m.scales.numel() * 2 for m in layers) / 1e9
+    total = _weight_gb(model)
+    return pred, (f"{len(layers)} projections quantized in place in "
+                  f"{seconds:.1f} s: weights {total:.2f} GB ({codes:.2f} GB "
+                  f"codes, {scales:.3f} GB bf16 scales, "
+                  f"{total - codes - scales:.2f} GB embedding, head and "
+                  f"norms in bf16)"), total
+
+
+def _against_bf16(label, pred, run, bf16, card):
+    """The quantized run's numbers next to the bf16 run's, and its
+    prefill's last-position logits against the bf16 model's."""
+    logits = pred.run(bf16["ids"])[:, -1].float()
+    if not torch.isfinite(logits).all():
+        fail(f"{label}: non-finite prefill logits")
+    b = bf16["ids"].shape[1]
+    same_top = int((logits.argmax(-1) == bf16["logits"].argmax(-1)).sum())
+    same_new = int((run["out"][:, b:] == bf16["out"][:, b:]).sum())
+    log(f"[{label}] next to bf16: decode {run['decode_ms']:.2f} vs "
+        f"{bf16['decode_ms']:.2f} ms/step, prefill {run['prefill_ms']:.1f} "
+        f"vs {bf16['prefill_ms']:.1f} ms, peak memory {run['peak_gb']:.2f} "
+        f"vs {bf16['peak_gb']:.2f} GB, weights {run['weight_gb']:.2f} vs "
+        f"{bf16['weight_gb']:.2f} GB; prefill last-position logits max "
+        f"|{label} - bf16| {max_err(logits, bf16['logits']):.3e} (max "
+        f"|bf16 logit| {float(bf16['logits'].abs().max()):.3e}), argmax "
+        f"equal in {same_top} of {logits.shape[0]} rows; greedy new tokens "
+        f"equal to bf16's: {same_new} of {run['out'][:, b:].numel()} "
+        f"[{card}]")
+
+
+def phase_quant_slice(dev, card, model, bf16):
+    """The slice with int8 weight-only quantization: phase 6's model
+    quantized in place by ``Predictor``, then ``generate`` on the same 4 x
+    512 prompts, 128 new, greedy. Launch counts: the quant kernel once per
+    projection and decode step (the 2048-row prefill takes the dequant
+    route), flash once per layer, decode once per layer and step."""
+    import paddle_tpu_torch as ptt
+    L = model.config.num_hidden_layers
+    new = bf16["new"]
+    pred, line, weight_gb = _quantize_for_serving(ptt, model, 8, dev)
+    log(f"[int8] Predictor(Config().enable_weight_only_quant(8)): {line}")
+    want = dict(NO_LAUNCHES, flash=L, decode=L * (new - 1),
+                quant=QUANT_PER_LAYER * L * (new - 1))
+    run = _generate_run(ptt, pred, bf16["ids"], new, want, "int8", dev, card)
+    run["weight_gb"] = weight_gb
+    _against_bf16("int8", pred, run, bf16, card)
+    profile_decode_step(ptt, pred, bf16["ids"], run["decode_ms"], card,
+                        "int8")
+    return pred, run
+
+
+def phase_quant_paged(seed, dev, card, model):
+    """The paged path on the int8 model: ``PagedEngine(fused_tick=False)``
+    under ``PADDLE_TPU_PAGED_ATTN=grid`` (set in the process and restored
+    after) over 12 seeded requests, a third of them with prompts of at
+    most 64 tokens (their whole-prompt prefill passes the quant gate),
+    admission mid-decode. Counts: grid once per layer and decode tick,
+    ragged, flash and decode never, quant once per projection and (decode
+    tick or short prefill). A rerun must give identical tokens. Then the
+    same requests under ``ragged``: its counts, and its tokens against
+    the grid run's."""
+    import os
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rs = np.random.RandomState(seed + 30)
+    gen = ptt.make_generator(seed + 31, "cpu")
+    subs = []
+    for i in range(12):
+        n = int(rs.randint(8, 65) if i % 3 == 0 else rs.randint(65, 769))
+        subs.append((f"q{i}", torch.randint(0, cfg.vocab_size, (n,),
+                                            generator=gen),
+                     dict(max_new_tokens=int(rs.randint(32, 97)))))
+    short = sum(len(ids) <= 64 for _, ids, _ in subs)
+    prev = os.environ.get("PADDLE_TPU_PAGED_ATTN")
+    runs = {}
+    try:
+        for mode in ("grid", "ragged"):
+            os.environ["PADDLE_TPU_PAGED_ATTN"] = mode
+            eng = PagedEngine(model, fused_tick=False, **PAGED)
+            _serve(eng, subs[:2], late_after=0)      # warm-up (allocator)
+            st0 = dict(eng.stats)
+            read = _reset_launches()
+            out, wall, ttft, _ = _serve(eng, subs, late_after=8)
+            launches = read()
+            ticks = eng.stats["decode_steps"] - st0["decode_steps"]
+            prefills = eng.stats["prefills"] - st0["prefills"]
+            preempted = eng.stats["preemptions"] - st0["preemptions"]
+            want = dict(NO_LAUNCHES, quant=QUANT_PER_LAYER * L
+                        * (ticks + short))
+            want[mode] = L * ticks
+            new_tokens = sum(len(v) for v in out.values())
+            log(f"[int8 paged] PADDLE_TPU_PAGED_ATTN={mode}: 12 requests "
+                f"({short} with prompts <= 64 tokens), {new_tokens} new "
+                f"tokens in {ticks} decode ticks, {prefills} prefills, "
+                f"{preempted} preemptions, {wall:.2f} s, "
+                f"{new_tokens / wall:.1f} new tokens/s, TTFT median "
+                f"{np.median(list(ttft.values())):.1f} ms; launches "
+                f"{launches} (want {want}) [{card}]")
+            if launches != want or prefills != len(subs) or preempted:
+                fail(f"int8 paged ({mode}): launches {launches} != {want} "
+                     f"or prefills {prefills} != {len(subs)} or "
+                     f"{preempted} preemptions")
+            for rid, _, kw in subs:
+                if len(out.get(rid, ())) != kw["max_new_tokens"]:
+                    fail(f"int8 paged ({mode}): request {rid} was cut")
+            if mode == "grid":
+                again, _, _, _ = _serve(eng, subs, late_after=8)
+                if again != out:
+                    fail("int8 paged (grid): a rerun gave other tokens")
+                log("[int8 paged] grid rerun of the same submissions: "
+                    "identical tokens")
+            runs[mode] = (out, launches)
+            del eng
+    finally:
+        if prev is None:
+            os.environ.pop("PADDLE_TPU_PAGED_ATTN", None)
+        else:
+            os.environ["PADDLE_TPU_PAGED_ATTN"] = prev
+    grid, ragged = runs["grid"][0], runs["ragged"][0]
+    same = sum(a == b for rid in grid
+               for a, b in zip(grid[rid], ragged[rid]))
+    total = sum(len(v) for v in grid.values())
+    log(f"[int8 paged] grid vs ragged greedy tokens: {same} of {total} "
+        f"equal; identical requests "
+        f"{sum(grid[r] == ragged[r] for r in grid)} of {len(grid)}")
+    return runs["grid"][1]
+
+
+def phase_int4(seed, dev, card, bf16):
+    """int4: Llama-3-8B rebuilt from the seed at full width and depth and
+    quantized in place with ``enable_weight_only_quant(4)``; ``generate``
+    as in the int8 phase (quant launches 7 x layers x 127)."""
+    import paddle_tpu_torch as ptt
+    model = ptt.LlamaForCausalLM(ptt.llama3_8b(), device=dev,
+                                 generator=ptt.make_generator(seed, dev))
+    L = model.config.num_hidden_layers
+    new = bf16["new"]
+    pred, line, weight_gb = _quantize_for_serving(ptt, model, 4, dev)
+    log(f"[int4] Predictor(Config().enable_weight_only_quant(4)), "
+        f"{L} layers (full depth): {line}")
+    want = dict(NO_LAUNCHES, flash=L, decode=L * (new - 1),
+                quant=QUANT_PER_LAYER * L * (new - 1))
+    run = _generate_run(ptt, pred, bf16["ids"], new, want, "int4", dev, card)
+    run["weight_gb"] = weight_gb
+    _against_bf16("int4", pred, run, bf16, card)
+    return pred
+
+
+def phase_decode_ab(seed, dev, card, int4, ids):
+    """The decode step of bf16 and int8 (the model rebuilt from the seed
+    for each) and of the int4 predictor, ``generate`` on the same prompts,
+    measured in turns (bf16, int8, int4, int4, int8, bf16) so that the
+    host's drift between phases (the step is host-bound) falls on all
+    three alike: each turn is a generate of 33 tokens less one of 1, over
+    32 steps."""
+    import paddle_tpu_torch as ptt
+    preds = {}
+    for key, config in (("bf16", ptt.Config()),
+                        ("int8", ptt.Config().enable_weight_only_quant(8))):
+        model = ptt.LlamaForCausalLM(ptt.llama3_8b(), device=dev,
+                                     generator=ptt.make_generator(seed, dev))
+        preds[key] = ptt.Predictor(model, config, device=dev)
+        del model
+    preds["int4"] = int4
+
+    def timed(pred, new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.generate(ids, config=ptt.GenerationConfig(max_new_tokens=new))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    steps = {k: [] for k in preds}
+    for key in ("bf16", "int8", "int4", "int4", "int8", "bf16"):
+        timed(preds[key], 1)                           # warm
+        steps[key].append((timed(preds[key], 33) - timed(preds[key], 1))
+                          / 32)
+    mean = {k: sum(v) / len(v) for k, v in steps.items()}
+    log(f"[decode A/B] ms per decode step, 4 x 512 prompts, in turns bf16, "
+        f"int8, int4, int4, int8, bf16: "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
+                    for k, v in steps.items())
+        + f"; int8 / bf16 {mean['int8'] / mean['bf16']:.3f}, int4 / bf16 "
+        f"{mean['int4'] / mean['bf16']:.3f} [{card}]")
+    del preds
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------- training phases
@@ -1180,8 +1726,8 @@ def phase_train(seed, dev, card):
     launches = read()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     L = cfg.num_hidden_layers
-    want = {"flash": L * TRAIN_STEPS, "decode": 0, "ragged": 0,
-            "flash_bwd_dq": L * TRAIN_STEPS, "flash_bwd_dkv": L * TRAIN_STEPS}
+    want = dict(NO_LAUNCHES, flash=L * TRAIN_STEPS,
+                flash_bwd_dq=L * TRAIN_STEPS, flash_bwd_dkv=L * TRAIN_STEPS)
     losses = [v for _, v in tr.logger.history["loss"]]
     log(f"[train] launches in {TRAIN_STEPS} steps: {launches} (want {want})")
     log(f"[train] losses per step: " + ", ".join(f"{x:.4f}" for x in losses))
@@ -1266,8 +1812,8 @@ def phase_train(seed, dev, card):
     rc = read()
     rc_peak = torch.cuda.max_memory_allocated(dev) / 1e9
     rc_losses = [v for _, v in tr.logger.history["loss"]]
-    want_rc = {"flash": 2 * L * 2, "decode": 0, "ragged": 0,
-               "flash_bwd_dq": L * 2, "flash_bwd_dkv": L * 2}
+    want_rc = dict(NO_LAUNCHES, flash=2 * L * 2, flash_bwd_dq=L * 2,
+                   flash_bwd_dkv=L * 2)
     log(f"[train] recompute=True (full), 2 steps: launches {rc} (want "
         f"{want_rc}); losses {rc_losses[0]:.4f}, {rc_losses[1]:.4f} (plain "
         f"run {losses[0]:.4f}, {losses[1]:.4f}); peak memory {rc_peak:.2f} GB"
@@ -1308,17 +1854,31 @@ def main():
     gen.manual_seed(args.seed)
     errs = phase_kernel_checks(gen, dev)
     errs["ragged"] = phase_ragged_checks(gen, dev)
+    errs["grid"] = phase_grid_checks(gen, dev)
+    errs["quant"] = phase_quant_checks(gen, dev)
     phase_bwd_checks(gen, dev)
     times = phase_kernel_times(gen, dev, card)
-    times["ragged"] = phase_ragged_time(gen, dev, card)
+    times.update(phase_paged_time(gen, dev, card))
+    times["quant"] = phase_quant_times(gen, dev, card)
     bwd_times, bwd_errs = phase_bwd_times(gen, dev, card)
     times.update(bwd_times)
     errs.update(bwd_errs)
     phase_small_reference(dev)
+    phase_small_quant(dev)
     phase_train_small(dev)
-    launches, model = phase_slice(args.seed, dev, card)
+    bf16, model = phase_slice(args.seed, dev, card)
+    launches = dict(bf16["launches"])
     launches["ragged"] = phase_paged(args.seed, dev, card, model)["ragged"]
-    del model
+    pred, int8 = phase_quant_slice(dev, card, model, bf16)
+    launches["quant"] = int8["launches"]["quant"]
+    launches["grid"] = phase_quant_paged(args.seed, dev, card,
+                                         pred.model)["grid"]
+    del pred, model, int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred4 = phase_int4(args.seed, dev, card, bf16)
+    phase_decode_ab(args.seed, dev, card, pred4, bf16["ids"])
+    del pred4, bf16
     gc.collect()
     torch.cuda.empty_cache()
     trained = phase_train(args.seed, dev, card)
@@ -1332,7 +1892,9 @@ def main():
                               DKV_REPLACES),
             "decode": ("decode_attention", DECODE_SOURCE, DECODE_REPLACES),
             "ragged": ("ragged_paged_attention", RAGGED_SOURCE,
-                       RAGGED_REPLACES)}
+                       RAGGED_REPLACES),
+            "grid": ("paged_attention", GRID_SOURCE, GRID_REPLACES),
+            "quant": ("quant_matmul", QUANT_SOURCE, QUANT_REPLACES)}
     kernels = []
     for key, (name, source, replaces) in meta.items():
         t = times[key]

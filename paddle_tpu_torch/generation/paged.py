@@ -18,9 +18,10 @@
   chosen tokens. Scheduling, the prefix cache, preemption, stop
   sequences, cancel and timeout are host bookkeeping, as in the JAX
   package.
-- A decode tick's attention is the ragged paged kernel, once per layer;
-  whole-prompt prefill is dense causal attention over the prompt and a
-  chunk attends over its row's gathered blocks.
+- A decode tick's attention is the ragged paged kernel, once per layer
+  (the grid paged kernel under ``PADDLE_TPU_PAGED_ATTN=grid``, as in the
+  JAX package); whole-prompt prefill is dense causal attention over the
+  prompt and a chunk attends over its row's gathered blocks.
 
 The device-resident tick (``fused_tick=True``, ring mode, delta
 transitions, the fused patch queue, scan ticks), speculative ticks, the
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import hashlib
 import itertools
+import os
 import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import dense_attention, use_paged_kernel
+from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..utils import observability as obs
 from ..utils.faults import BackpressureError
@@ -141,18 +144,29 @@ def paged_decode_attention(q, pk: PagedKV, scale: Optional[float] = None,
     """q [R, T, h, d] against each row's blocks: query t of row r sits at
     position seq_lens[r] + t and attends tokens 0..seq_lens[r]+t.
 
-    When ``use_paged_kernel`` admits the shapes: the ragged paged kernel
-    (its plain version on CPU tensors). Otherwise the dense whole-table
-    gather with a per-(row, position) mask."""
+    ``PADDLE_TPU_PAGED_ATTN``, read at each call, picks the route as in the
+    JAX package, when ``use_paged_kernel`` admits the shapes:
+
+    - ``ragged`` (the default, and any unknown value): the ragged paged
+      kernel, for single- and multi-query rows;
+    - ``grid``: the grid paged kernel for single-query rows (T == 1);
+      multi-query rows take the dense gather;
+    - ``dense``: the dense gather.
+
+    Each kernel runs its plain version on CPU tensors. The dense route is
+    the whole-table gather with a per-(row, position) mask; it also takes
+    the shapes the gate refuses."""
     R, T = q.shape[0], q.shape[1]
     kvh, d = pk.kp.shape[2], pk.kp.shape[3]
-    if use_paged_kernel(q, pk.kp):
+    mode = os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged")
+    if mode != "dense" and use_paged_kernel(q, pk.kp):
         if T == 1:
-            return ragged_paged_attention(
-                q[:, 0], pk.kp, pk.vp, pk.block_tables, pk.seq_lens,
-                scale, window=window)[:, None]
-        return ragged_paged_attention(q, pk.kp, pk.vp, pk.block_tables,
-                                      pk.seq_lens, scale, window=window)
+            fn = paged_attention if mode == "grid" else ragged_paged_attention
+            return fn(q[:, 0], pk.kp, pk.vp, pk.block_tables, pk.seq_lens,
+                      scale, window=window)[:, None]
+        if mode != "grid":
+            return ragged_paged_attention(q, pk.kp, pk.vp, pk.block_tables,
+                                          pk.seq_lens, scale, window=window)
     tbl = pk.block_tables.long()
     ks = pk.kp[tbl]                                   # [R, M, B, kvh, d]
     vs = pk.vp[tbl]

@@ -6,8 +6,10 @@ Requests pad their batch dim up to a fixed bucket ladder, with the last
 row repeated, and the padding rows are cropped from every output, so
 results are exact and a server sees few distinct batch shapes.
 ``serve_stream`` serves a request stream through a ``PagedEngine``.
-Weight-only quantization and ``BatchingPredictor`` come with later slices
-of the port.
+``Config.enable_weight_only_quant(8 or 4)`` quantizes the model's
+projections in place at load (``quant.quantize_model``), so every
+decode-sized projection runs the fused dequant-matmul kernel.
+``BatchingPredictor`` comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -21,10 +23,29 @@ DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
 
 
 class Config:
-    """The predictor's settings: the batch bucket ladder."""
+    """The predictor's settings: dtype, weight-only quantization and the
+    batch bucket ladder."""
 
     def __init__(self):
+        self.dtype = None                         # None = keep model dtype
+        self.quant_bits: Optional[int] = None     # 8 / 4 / None
+        self.quant_skip = ["lm_head", "embed"]
         self.batch_buckets: Optional[Tuple[int, ...]] = DEFAULT_BUCKETS
+
+    def enable_weight_only_quant(self, bits: int = 8):
+        if bits not in (4, 8):
+            raise ValueError(f"bits must be 4 or 8, got {bits}")
+        self.quant_bits = bits
+        return self
+
+    def set_dtype(self, dtype):
+        """A torch dtype or its name ("bfloat16", "float32", ...)."""
+        if isinstance(dtype, str):
+            dtype = getattr(torch, dtype, None)
+        if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+            raise ValueError(f"not a floating dtype: {dtype!r}")
+        self.dtype = dtype
+        return self
 
     def set_batch_buckets(self, buckets: Optional[Sequence[int]]):
         """None disables bucketing (every batch runs at its own size)."""
@@ -38,11 +59,24 @@ def _pad_rows(x: torch.Tensor, cap: int) -> torch.Tensor:
 
 class Predictor:
     """Wraps a model for serving on ``device`` (the CUDA card unless the
-    caller passes ``device="cpu"``; the model is moved there)."""
+    caller passes ``device="cpu"``; the model is moved there). As the JAX
+    one does, it first casts the model's floating parameters to
+    ``config.dtype`` and then quantizes the model in place when
+    ``config.quant_bits`` is set."""
 
     def __init__(self, model, config: Optional[Config] = None, device=None):
         self.config = config or Config()
         self.device = resolve_device(device)
+        if self.config.dtype is not None:
+            # parameters only: buffers such as the fp32 RoPE frequencies
+            # keep their dtype
+            for p in model.parameters():
+                if p.is_floating_point():
+                    p.data = p.data.to(self.config.dtype)
+        if self.config.quant_bits:
+            from .quant import quantize_model
+            quantize_model(model, bits=self.config.quant_bits,
+                           skip=self.config.quant_skip)
         self.model = model.to(self.device).eval()
         self.last_serve_stats = {}
         self.last_logprobs = {}

@@ -13,9 +13,12 @@ version, and no fallback when a kernel fails: the wrapper raises.
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 MIN_CAPABILITY = (9, 0)
+_capability: Dict[torch.device, Tuple[int, int]] = {}
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -28,7 +31,10 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
         raise ValueError(
             f"kernel inputs must all lie on the CPU or all on one CUDA "
             f"card; got {sorted(str(t.device) for t in tensors)}")
-    cap = torch.cuda.get_device_capability(tensors[0].device)
+    dev = tensors[0].device
+    cap = _capability.get(dev)
+    if cap is None:
+        cap = _capability[dev] = torch.cuda.get_device_capability(dev)
     if cap < MIN_CAPABILITY:
         raise RuntimeError(
             f"the kernels are built for sm_90a; this card has compute "

@@ -25,7 +25,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
@@ -36,6 +36,7 @@ BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], Any] = {}
 
 
 @dataclass
@@ -112,10 +113,15 @@ def build_all() -> Dict[str, Built]:
 def entry(name: str, symbol: str, argtypes):
     """C function ``symbol`` of ``csrc/<name>.cu`` with its argument types
     declared (``c_void_p`` for every pointer and the stream, or ctypes
-    would pass them as 32-bit ints) and a ``cudaError_t`` result."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    would pass them as 32-bit ints) and a ``cudaError_t`` result; looked
+    up and declared at the first call, then reused (a wrapper calls this
+    at every launch)."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
     return fn
 
 

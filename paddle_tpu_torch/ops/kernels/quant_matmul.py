@@ -1,0 +1,153 @@
+"""Fused weight-only dequant-matmul on Hopper, and its plain PyTorch
+version.
+
+Replaces: ``paddle_tpu/ops/pallas/quant_matmul.py`` ``quant_matmul_pallas``
+(:67; kernel ``_qmm_kernel`` :43, gate ``use_quant_matmul`` :116). Same
+function: ``out = (x.float() @ (q.float() * s.float())).to(x.dtype)`` for
+x [m, din], codes int8 [din, dout] (``bits=8``) or int4 packed two to a
+byte along din [din/2, dout] (``bits=4``: low nibble the even row, high
+nibble the odd one, both sign-extended), and bf16 scales [din/128, dout],
+one per 128 code rows and column. The dequant is in fp32, the sums are in
+fp32, the output is rounded once, and the full-precision weight never
+exists in device memory. Bias stays outside, as in the JAX package. The
+TPU kernel's 8-row pad of x and its 8-sublane regrouping of the scales
+serve Mosaic's tiling and are not carried over.
+
+Bound on the H100: at m <= 64 the function is one pass over the codes
+and scales (x and out are small): Llama-3-8B's gate projection 4096 ->
+14336 moves 58.7 MB of int8 codes and 0.9 MB of scales, 17.8 us at 3.35
+TB/s (int4 about 9 us); its 2 m din dout operations are far below the
+tensor-core rate, so the bound is the bytes.
+
+Design (``csrc/quant_matmul.cu``): each lane loads 16 bytes of a code row
+(16 neighbouring columns; a warp reads 512 contiguous bytes), 8 rows in
+flight, turns codes into floats with a byte-into-mantissa trick instead of
+the slow int-to-float conversion, and accumulates the fp32 products for a
+chunk of up to 4 activation rows in registers. The grid is (row chunks,
+512-column tiles, contraction splits): Llama's k/v projection has only 2
+column tiles, so the contraction is split until the grid fills the card,
+and a second pass adds the splits' fp32 partials in a fixed order. No
+atomics: the result repeats bit for bit. What holds it back: the products
+run on CUDA-core FMAs, so at m = 16 and more it is bound by FMA issue, not
+by bytes (larger m re-reads the codes from L2 once per 4 rows); tensor
+cores (``mma`` on bf16 codes, exact for |q| <= 127) are the later fix.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from . import _build, check_layout, use_kernel
+
+QUANT_BLOCK = 128   # code rows per scale (quantize_blockwise block_size)
+MAX_ROWS = 64       # the gate's largest m
+COLS = 512          # output columns per block of the kernel
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_sms: Dict[int, int] = {}
+
+
+def use_quant_matmul(x2d, qweight, block_size: int) -> bool:
+    """The kernel targets decode-sized activations (small m) where the
+    weight stream dominates; larger m goes to a plain dequant + matmul."""
+    m, din = x2d.shape
+    dout = qweight.shape[1]
+    return (block_size == QUANT_BLOCK and m <= MAX_ROWS
+            and din % QUANT_BLOCK == 0 and dout % 128 == 0)
+
+
+def unpack_int4(qweight: torch.Tensor) -> torch.Tensor:
+    """Packed int4 [din/2, dout] -> int32 codes [din, dout]: the low nibble
+    is the even row, the high nibble the odd one, both sign-extended."""
+    b = qweight.to(torch.int32)
+    lo = ((b & 0x0F) ^ 8) - 8
+    hi = b >> 4                     # arithmetic: the signed high nibble
+    return torch.stack([lo, hi], dim=1).reshape(-1, qweight.shape[1])
+
+
+def _check(x, qweight, scales, bits):
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if x.dim() != 2 or qweight.dim() != 2 or scales.dim() != 2:
+        raise ValueError(f"want x [m, din], qweight [din or din/2, dout], "
+                         f"scales [din/128, dout]; got {tuple(x.shape)}, "
+                         f"{tuple(qweight.shape)}, {tuple(scales.shape)}")
+    m, din = x.shape
+    dout = qweight.shape[1]
+    rows = din if bits == 8 else din // 2
+    if (din % QUANT_BLOCK or qweight.shape[0] != rows
+            or tuple(scales.shape) != (din // QUANT_BLOCK, dout)):
+        raise ValueError(f"qweight {tuple(qweight.shape)} and scales "
+                         f"{tuple(scales.shape)} do not fit x "
+                         f"{tuple(x.shape)} at {bits} bits")
+    if x.dtype not in DTYPES or qweight.dtype != torch.int8 \
+            or scales.dtype != torch.bfloat16:
+        raise TypeError(f"want x in {list(DTYPES)}, int8 codes and bf16 "
+                        f"scales; got {x.dtype}, {qweight.dtype}, "
+                        f"{scales.dtype}")
+
+
+def quant_matmul_plain(x, qweight, scales, bits: int = 8):
+    """The same function in plain PyTorch, with the kernel's rounding
+    points: fp32 dequant, fp32 matmul, one rounding to x's dtype."""
+    _check(x, qweight, scales, bits)
+    q = unpack_int4(qweight) if bits == 4 else qweight
+    din, dout = q.shape
+    w = (q.float().reshape(din // QUANT_BLOCK, QUANT_BLOCK, dout)
+         * scales.float()[:, None, :]).reshape(din, dout)
+    return (x.float() @ w).to(x.dtype)
+
+
+def splits_for(m: int, din: int, dout: int, sms: int) -> int:
+    """Contraction splits: as many blocks as fit in one wave at three a
+    streaming multiprocessor (a fourth would wait for a second wave), at
+    most one split per 128-row scale block. Depends on the shapes alone,
+    so a call repeats bit for bit."""
+    base = -(-m // row_chunk(m)) * -(-dout // COLS)
+    return max(1, min(din // QUANT_BLOCK, 3 * sms // base))
+
+
+def row_chunk(m: int) -> int:
+    """Activation rows one block of the kernel holds: 1, 2 or 4."""
+    return 1 if m == 1 else 2 if m == 2 else 4
+
+
+def quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
+                 scales: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """x [m, din] @ dequant(qweight, scales) -> [m, dout] in x's dtype.
+
+    CPU tensors take :func:`quant_matmul_plain`; CUDA tensors launch the
+    kernel, on the current stream, or raise."""
+    _check(x, qweight, scales, bits)
+    if not use_kernel(x, qweight, scales):
+        return quant_matmul_plain(x, qweight, scales, bits)
+    x = x.contiguous()
+    check_layout(qweight=qweight, scales=scales)
+    m, din = x.shape
+    dout = qweight.shape[1]
+    if dout % 16:
+        raise ValueError(f"dout {dout} must be a multiple of 16")
+    out = torch.empty(m, dout, dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    dev = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = splits_for(m, din, dout, _sms[dev])
+    partial = (torch.empty(splits, m, dout, dtype=torch.float32,
+                           device=x.device) if splits > 1 else out)
+    fn = _build.entry("quant_matmul", "quant_matmul_fwd", _ARGTYPES)
+    rc = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), partial.data_ptr(), m, din, dout, bits,
+            row_chunk(m), splits, DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("quant_matmul", rc)
+    quant_matmul.launches += 1
+    return out
+
+
+quant_matmul.launches = 0

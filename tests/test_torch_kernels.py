@@ -4,6 +4,7 @@ On the CPU each wrapper runs its plain PyTorch version, which is held
 against the Pallas kernel in interpret mode (fp32, same numpy inputs).
 ``test_torch_kernels_gpu.py`` holds the CUDA kernels against the plain
 versions on the card."""
+import os
 import subprocess
 import sys
 
@@ -196,14 +197,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_import_keeps_jax_and_paddle_tpu_out():
-    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.ops.attention, "
-            "paddle_tpu_torch.ops.kernels._build, "
-            "paddle_tpu_torch.generation.paged\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'paddle_tpu' or "
-            "m.startswith('paddle_tpu.'))\n"
-            "assert not bad, bad\n")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    """Every module of the port, found by walking the package, and
+    chip_smoke.py import in a fresh interpreter without JAX or the JAX
+    package coming in."""
+    code = (
+        "import importlib, pkgutil, sys, paddle_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "paddle_tpu_torch.__path__, 'paddle_tpu_torch.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "want = {'trainer', 'optimizer', 'io', 'utils.profiler', 'quant',"
+        " 'quant.gptq_awq', 'ops.kernels.quant_matmul',"
+        " 'ops.kernels.paged_attention', 'generation.paged'}\n"
+        "missing = want - {n.split('.', 1)[1] for n in names}\n"
+        "assert not missing, missing\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'paddle_tpu' or "
+        "m.startswith('paddle_tpu.'))\n"
+        "assert not bad, bad\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=root)
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

@@ -15,6 +15,10 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     FlashAttentionFunction, flash_attention_bwd, flash_attention_bwd_dkv,
     flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
+from paddle_tpu_torch.ops.kernels.paged_attention import (
+    paged_attention, paged_attention_plain)
+from paddle_tpu_torch.ops.kernels.quant_matmul import (quant_matmul,
+                                                       quant_matmul_plain)
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_plain)
 
@@ -254,3 +258,175 @@ def test_flash_function_grads_on_the_card(cuda_card, dtype):
         assert all(x.grad is not None for x in xs)
         grads.append([x.grad.cpu() for x in xs])
     _assert_grads_close(grads[0], grads[1], dtype)
+
+
+# ------------------------------------------------------------- quant matmul
+# Llama-3-8B's projections: q/o 4096 -> 4096, k/v 4096 -> 1024, gate/up
+# 4096 -> 14336, down 14336 -> 4096
+QUANT_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+# kernel vs plain version: both dequantize in fp32 and sum in fp32, in
+# another order (split partials, warp partials), then round once to the
+# output type. bf16: the two fp32 sums may round to neighbouring bf16
+# values (rtol 2^-7, one bf16 step); fp32: the sums' order alone. The
+# atol share covers elements near 0 from cancelling sums.
+QUANT_TOL = {torch.bfloat16: (2.0 ** -7, 1e-3),
+             torch.float32: (1e-5, 1e-5)}
+
+
+def _quant_case(dev, dtype, m, din, dout, bits, seed=0):
+    """Activations and random codes / scales made on the card: int8 codes
+    in [-127, 127], int4 bytes of any value (both nibbles in [-8, 7], the
+    kernel must sign-extend -8 too), bf16 scales of the magnitude
+    quantize_blockwise gives 0.05-scale weights."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn(m, din, generator=g, device=dev).to(dtype)
+    rows = din if bits == 8 else din // 2
+    lo, hi = (-127, 128) if bits == 8 else (-128, 128)
+    q = torch.randint(lo, hi, (rows, dout), generator=g, device=dev,
+                      dtype=torch.int16).to(torch.int8)
+    s = (torch.rand(din // 128, dout, generator=g, device=dev) * 2e-3
+         + 1e-4).to(torch.bfloat16)
+    return x, q, s
+
+
+def _assert_quant_close(out, ref, dtype):
+    rtol, atol_share = QUANT_TOL[dtype]
+    atol = atol_share * float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("m", [1, 3, 16, 64])
+@pytest.mark.parametrize("din,dout", QUANT_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in QUANT_SHAPES])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_quant_kernel_matches_plain(cuda_card, bits, din, dout, m):
+    x, q, s = _quant_case(cuda_card, torch.bfloat16, m, din, dout, bits)
+    n = quant_matmul.launches
+    out = quant_matmul(x, q, s, bits)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == n + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (m, dout)
+    _assert_quant_close(out, quant_matmul_plain(x, q, s, bits),
+                        torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 2, 5, 64])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_quant_kernel_fp32(cuda_card, bits, m):
+    x, q, s = _quant_case(cuda_card, torch.float32, m, 1024, 640, bits,
+                          seed=m)
+    out = quant_matmul(x, q, s, bits)
+    torch.cuda.synchronize()
+    _assert_quant_close(out, quant_matmul_plain(x, q, s, bits),
+                        torch.float32)
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_quant_kernel_repeats_bitwise(cuda_card, bits):
+    """No atomics: the k/v shape splits the contraction, and two calls
+    still give the same bits."""
+    x, q, s = _quant_case(cuda_card, torch.bfloat16, 4, 4096, 1024, bits,
+                          seed=9)
+    a = quant_matmul(x, q, s, bits)
+    b = quant_matmul(x, q, s, bits)
+    assert torch.equal(a, b)
+
+
+def test_quant_kernel_rejects_bad_shapes(cuda_card):
+    x, q, s = _quant_case(cuda_card, torch.bfloat16, 4, 256, 256, 8)
+    with pytest.raises(ValueError, match="do not fit"):
+        quant_matmul(x[:, :200], q[:200], s)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quant_matmul(x, q[:, :200].contiguous(), s[:, :200].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(x, q.t().contiguous().t(), s)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        quant_matmul(x.cpu(), q, s)
+
+
+# ------------------------------------------------------- grid paged attention
+def _grid_args(dev, dtype, rs, lens, h=32, kvh=8, d=128, B=16, M=64, P=1025):
+    q, kp, vp, tbl, sl = _paged_case(rs, len(lens), 1, h, kvh, d, B, M, P,
+                                     lens)
+    return [x.to(dev) for x in (q.to(dtype), kp.to(dtype), vp.to(dtype),
+                                tbl, sl)]
+
+
+GRID_LENS = [0, 15, 16, 1023, 1, 100, 257, 640, 31, 32, 500, 999, 2, 47,
+             48, 700]
+
+
+@pytest.mark.parametrize("window", [None, 100, 7], ids=["full", "window",
+                                                         "short-window"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_grid_kernel_matches_plain(cuda_card, dtype, window):
+    """The paged engine's geometry (16 rows, 32 heads over 8 kv heads, d
+    128, blocks of 16, 64 slots a row), lens with 0 and block edges; every
+    slot past a row's live count holds an index far outside the pool,
+    which the kernel must never read (the plain version gathers whole
+    tables, so it gets the same tables with those slots zeroed)."""
+    rs = np.random.RandomState(11)
+    q, kp, vp, tbl, sl = _grid_args(cuda_card, dtype, rs, GRID_LENS)
+    bad = tbl.clone()
+    live = (sl.long() + 16) // 16
+    dead = torch.arange(64, device=cuda_card)[None, :] >= live[:, None]
+    bad[dead] = 1 << 30
+    n = paged_attention.launches
+    out = paged_attention(q, kp, vp, bad, sl, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == n + 1
+    tbl[dead] = 0
+    ref = paged_attention_plain(q, kp, vp, tbl, sl, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("d,group", [(64, 2), (256, 1), (128, 16)])
+def test_grid_kernel_other_head_dims(cuda_card, d, group):
+    rs = np.random.RandomState(d)
+    args = _grid_args(cuda_card, torch.float32, rs, [0, 7, 8, 127],
+                      h=2 * group, kvh=2, d=d, B=8, M=16, P=80)
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, paged_attention_plain(*args),
+                               atol=ATOL[torch.float32], rtol=0)
+
+
+def test_grid_kernel_equals_ragged_bitwise_and_repeats(cuda_card):
+    """Without a window the grid kernel keeps the ragged kernel's tiles
+    and order of sums: the two agree bit for bit, and each call repeats."""
+    rs = np.random.RandomState(12)
+    args = _grid_args(cuda_card, torch.bfloat16, rs, GRID_LENS)
+    a = paged_attention(*args)
+    b = paged_attention(*args)
+    c = ragged_paged_attention(*args)
+    assert torch.equal(a, b)
+    assert torch.equal(a, c)
+
+
+def test_grid_kernel_replays_in_a_cuda_graph(cuda_card):
+    """One call captured in a CUDA graph; seq_lens and table contents
+    changed in place between replays; each replay agrees with the plain
+    version on the new values."""
+    rs = np.random.RandomState(13)
+    q, kp, vp, tbl, sl = _grid_args(cuda_card, torch.bfloat16, rs,
+                                    rs.randint(1, 900, 16))
+    paged_attention(q, kp, vp, tbl, sl, window=200)  # warm-up, uncaptured
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention(q, kp, vp, tbl, sl, window=200)
+    for seed in (1, 2):
+        rs2 = np.random.RandomState(seed)
+        _, _, _, tbl2, sl2 = _grid_args(cuda_card, torch.bfloat16, rs2,
+                                        rs2.randint(0, 64 * 16 - 1, 16))
+        tbl.copy_(tbl2)
+        sl.copy_(sl2)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = paged_attention_plain(q, kp, vp, tbl, sl, window=200)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=ATOL[torch.bfloat16], rtol=0)

@@ -20,6 +20,7 @@ from paddle_tpu.generation.paged import paged_decode_write as jax_write
 from paddle_tpu.generation.paged import paged_prefill_write as jax_prefill
 from paddle_tpu.ops.pallas.ragged_paged_attention import \
     ragged_paged_attention_pallas
+from paddle_tpu_torch.generation import paged as port_paged
 from paddle_tpu_torch.generation.paged import (PagedKV,
                                                paged_decode_attention,
                                                paged_decode_write,
@@ -48,8 +49,19 @@ def pallas_interpret(monkeypatch):
 
 @pytest.fixture
 def jax_dense(monkeypatch):
+    """The JAX side takes its dense paged route; the variable is set
+    around its call only, since the port reads it too (and would then
+    take its own dense gather instead of the route the case names)."""
     monkeypatch.delenv("PADDLE_TPU_PALLAS_INTERPRET", raising=False)
-    monkeypatch.setenv("PADDLE_TPU_PAGED_ATTN", "dense")
+    monkeypatch.delenv("PADDLE_TPU_PAGED_ATTN", raising=False)
+
+    def run(fn, *args, **kw):
+        monkeypatch.setenv("PADDLE_TPU_PAGED_ATTN", "dense")
+        try:
+            return fn(*args, **kw)
+        finally:
+            monkeypatch.delenv("PADDLE_TPU_PAGED_ATTN")
+    return run
 
 
 def _case(seed, R=4, T=1, h=4, kvh=2, d=64, B=8, M=6, P=24, lens=None):
@@ -101,23 +113,32 @@ def test_ragged_plain_matches_pallas(pallas_interpret, T, window, group,
                                         (2, None, 4), (1, None, 3)],
                          ids=["kernel", "kernel-window", "kernel-multi",
                               "dense-gather"])
-def test_paged_decode_attention_matches_jax_dense(jax_dense, T, window, h):
-    """Both routes of the port's dispatch against the JAX package's dense
-    paged route. h = 3 over 3 kv heads at d = 48 is refused by the gate
-    (head_dim), so it takes the dense gather."""
+def test_paged_decode_attention_matches_jax_dense(jax_dense, monkeypatch,
+                                                  T, window, h):
+    """Both routes of the port's dispatch, under the default
+    ``PADDLE_TPU_PAGED_ATTN``, against the JAX package's dense paged
+    route. h = 3 over 3 kv heads at d = 48 is refused by the gate
+    (head_dim), so it takes the dense gather; the others take the ragged
+    kernel's wrapper."""
     d = 48 if h == 3 else 64
     kvh = 3 if h == 3 else 2
     q, kp, vp, tables, sl = _case(11, T=T, h=h, kvh=kvh, d=d,
                                   lens=[0, 8, 21, 44])
     q4 = q if T > 1 else q[:, None]
-    ref = jax_paged_decode_attention(
+    ref = jax_dense(
+        jax_paged_decode_attention,
         jnp.asarray(q4), JaxPagedKV(jnp.asarray(kp), jnp.asarray(vp),
                                     jnp.asarray(tables), jnp.asarray(sl)),
         window=window)
     tq, tkp, tvp, ttb, tsl = _torch(q4, kp, vp, tables, sl)
     assert port_attn.use_paged_kernel(tq, tkp) == (h != 3)
+    calls = []
+    monkeypatch.setattr(port_paged, "ragged_paged_attention",
+                        lambda *a, **kw: calls.append(1)
+                        or ragged_paged_attention(*a, **kw))
     got = paged_decode_attention(tq, PagedKV(tkp, tvp, ttb, tsl),
                                  window=window)
+    assert len(calls) == (h != 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL_FP32,
                                rtol=0)
 
