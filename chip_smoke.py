@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: its name, and its name and power limit from nvidia-smi;
 2. build: every kernel of ``paddle_tpu_torch/csrc`` with nvcc for sm_90a,
    all sources in parallel, with nvcc's register / shared-memory / spill
-   report;
+   report, and the HGMMA (wgmma) and UTMALDG (TMA load) instructions of
+   each library's SASS: both must be nonzero in the tensor-core flash
+   forward and dk/dv kernels;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, in bf16, at the shapes of the Llama-3-8B serving path, with the
    tolerance stated below; the ragged paged kernel also in fp32, with a
@@ -17,7 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    larger than the 50 MB L2 so each call finds them cold, as the serving
    path does): the kernel, its plain version, one PyTorch call computing
    the same function as a yardstick (``scaled_dot_product_attention``;
-   the port never calls it) and the least time the card could take;
+   the port never calls it) and the least time the card could take; the
+   flash forward also at the training shape, and beside the tensor-core
+   kernels the CUDA-core (simt) kernels they replaced on bf16, on the
+   same inputs;
 5. a small model against a CPU reference: logits of a prefill and of
    decode steps, fp32, the card (kernels) against the CPU (plain
    versions);
@@ -25,8 +30,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    from the seed, served through ``Predictor.generate`` on 4 requests of
    512 prompt tokens, 128 new tokens, greedy. Each kernel's launch count
    is set to 0 just before this run and read just after: flash attention
-   must run once per layer (32), decode attention once per layer and
-   decode step (32 x 127). A second greedy call must give the same
+   must run once per layer (32), all on the wgmma route, decode
+   attention once per layer and decode step (32 x 127). A second greedy call must give the same
    tokens, and one seeded sampled call must give valid ids. Last,
    torch.profiler splits one decode step's device time by kernel kind
    and gives the device's busy share of the step;
@@ -55,7 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights from the seed, bf16, AdamW with fp32 masters) through
    ``Trainer`` for 10 steps over 2 seeded [2, 2048] batches. The counts
    are set to 0 just before and read just after: flash forward, dq and
-   dk/dv run once per layer and step (40 each), decode and ragged never;
+   dk/dv run once per layer and step (40 each; the forward and dk/dv all
+   on the wgmma route), decode and ragged never;
    the loss stays finite and falls. Step time, tokens/s, MFU, peak
    memory and a torch.profiler split of one step are printed beside the
    card, then step times with prefetch depth 0 against 2. Last, with
@@ -153,6 +159,10 @@ TOL_QUANT_REL = 2.0 ** -7
 TOL_QUANT_ABS = 1e-3
 # projections a Llama layer quantizes: q, k, v, o, gate, up, down
 QUANT_PER_LAYER = 7
+# the kernels redesigned for the tensor cores, by library: their SASS must
+# hold HGMMA (wgmma) and UTMALDG (TMA loads)
+WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
+                 "flash_attention_bwd": ("flash_bwd_dkv_wgmma_kernel",)}
 # every kernel's launch count, each 0
 NO_LAUNCHES = dict.fromkeys(("flash", "decode", "ragged", "flash_bwd_dq",
                              "flash_bwd_dkv", "quant", "grid"), 0)
@@ -237,6 +247,27 @@ def max_err(a, b) -> float:
 
 
 # ------------------------------------------------------------------ phases
+def sass_counts(lib) -> dict:
+    """{kernel function: (HGMMA, UTMALDG)}: the wgmma and TMA-load
+    instructions in each function of a built library, from cuobjdump's
+    SASS listing."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "UTMALDG" in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
 def phase_build():
     from paddle_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
@@ -248,8 +279,58 @@ def phase_build():
         log(f"[build] {b.name}: {b.seconds:.1f} s -> {b.path.name}")
         for line in b.ptxas.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
-                                       "Compiling entry")):
+                                       "Compiling entry", "warning",
+                                       "Performance", "setmaxnreg")):
                 log(f"[ptxas] {b.name}: {line.strip()}")
+    # the two tensor-core kernels must hold wgmma and TMA loads
+    for b in built.values():
+        counts = sass_counts(b.path)
+        total = [sum(c[i] for c in counts.values()) for i in (0, 1)]
+        log(f"[sass] {b.name}: HGMMA {total[0]}, UTMALDG {total[1]} in "
+            f"{len(counts)} functions")
+        for fn, (hg, tma) in counts.items():
+            if "wgmma_kernel" in fn:
+                log(f"[sass] {b.name}: {fn}: HGMMA {hg}, UTMALDG {tma}")
+        for kernel in WGMMA_KERNELS.get(b.name, ()):
+            mine = [c for fn, c in counts.items() if kernel in fn]
+            if not mine or not all(hg and tma for hg, tma in mine):
+                fail(f"{b.name}: {kernel} lacks HGMMA or UTMALDG in its "
+                     f"SASS: {mine}")
+
+
+def _simt_fwd(q, k, v):
+    """The CUDA-core forward kernel (the route bf16 took before the wgmma
+    kernel) on bf16 inputs, causal: for its time beside the new kernel's
+    only, outside every counted run."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    fn = _build.entry("flash_attention_fwd", "flash_attention_fwd_simt",
+                      fa._ARGTYPES)
+    _build.check("flash_attention_fwd", fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+        lse.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d, d ** -0.5, 1, 0,
+        1, torch.cuda.current_stream().cuda_stream))
+    return out, lse
+
+
+def _simt_dkv(q, k, v, dout, lse, delta):
+    """The CUDA-core dk/dv kernel on bf16 inputs, causal, as
+    ``_simt_fwd``."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    b, sq, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dkv_simt",
+                      fa._DKV_ARGTYPES)
+    _build.check("flash_attention_bwd", fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), None, dk.data_ptr(), dv.data_ptr(),
+        b, sq, k.shape[1], h, k.shape[2], d, d ** -0.5, 1, 0, 1,
+        torch.cuda.current_stream().cuda_stream))
+    return dk, dv
 
 
 def flash_inputs(gen, dev, b, s, h, kv, d):
@@ -320,26 +401,34 @@ def phase_kernel_times(gen, dev, card):
         flash_attention_fwd, flash_attention_fwd_plain)
     rows = {}
 
-    # flash at the prefill shape
-    b, s, h, kv, d = 4, 512, 32, 8, 128
+    # flash at the prefill shape, then at the training shape; beside the
+    # kernel of the main path (wgmma), the CUDA-core kernel it replaced
+    # (simt) on the same inputs, timed in this run
+    for key, (b, s, h, kv, d) in (("flash", (4, 512, 32, 8, 128)),
+                                  ("flash_train", (2, 2048, 32, 8, 128))):
+        el = 2
+        call_bytes = (el * (2 * b * s * h * d + 2 * b * s * kv * d)
+                      + 4 * b * h * s)
+        n = copies_for(call_bytes)
+        sets = [flash_inputs(gen, dev, b, s, h, kv, d) for _ in range(n)]
+        lib_sets = [tuple(t.transpose(1, 2)
+                          .repeat_interleave(h // t.shape[2], 1)
+                          .contiguous() for t in qkv) for qkv in sets]
+        ms = cuda_ms(lambda i: flash_attention_fwd(*sets[i % n],
+                                                   causal=True), iters=40)
+        simt_ms = cuda_ms(lambda i: _simt_fwd(*sets[i % n]), iters=5)
+        plain_ms = cuda_ms(lambda i: flash_attention_fwd_plain(
+            *sets[i % n], causal=True), iters=5)
+        lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
+            *lib_sets[i % n], is_causal=True), iters=40)
+        pairs = b * h * s * (s + 1) // 2        # causal (row, key) pairs
+        bound_ms, bound_by = bound(call_bytes, 4 * d * pairs)
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         simt_ms=simt_ms,
+                         shape=f"q {[b, s, h, d]} kv {[b, s, kv, d]}")
+        del sets, lib_sets
     el = 2
-    call_bytes = el * (2 * b * s * h * d + 2 * b * s * kv * d) + 4 * b * h * s
-    n = copies_for(call_bytes)
-    sets = [flash_inputs(gen, dev, b, s, h, kv, d) for _ in range(n)]
-    lib_sets = [tuple(t.transpose(1, 2).repeat_interleave(h // t.shape[2], 1)
-                      .contiguous() for t in qkv) for qkv in sets]
-    ms = cuda_ms(lambda i: flash_attention_fwd(*sets[i % n], causal=True),
-                 iters=40)
-    plain_ms = cuda_ms(lambda i: flash_attention_fwd_plain(*sets[i % n],
-                                                           causal=True),
-                       iters=10)
-    lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
-        *lib_sets[i % n], is_causal=True), iters=40)
-    pairs = b * h * s * (s + 1) // 2            # causal (row, key) pairs
-    bound_ms, bound_by = bound(call_bytes, 4 * d * pairs)
-    rows["flash"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
-    del sets, lib_sets
 
     # decode at the largest cache index of the slice's cache
     b, T, h, kv, d = 4, 640, 32, 8, 128
@@ -368,9 +457,12 @@ def phase_kernel_times(gen, dev, card):
     rows["decode"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
     for name, r in rows.items():
-        log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+        old = (f", simt kernel {r['simt_ms']:.4f} ms" if "simt_ms" in r
+               else "")
+        log(f"[time] {name} {r.get('shape', '')}: kernel {r['ms']:.4f} ms"
+            f"{old}, plain {r['plain_ms']:.4f} ms, sdpa "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) [{card}]")
     return rows
 
 
@@ -562,6 +654,7 @@ def _generate_run(ptt, pred, ids, new, want, label, dev, card):
     log(f"[{label}] launches in one generate: {launches} (want {want})")
     if launches != want:
         fail(f"{label}: kernel launches {launches} != {want}")
+    _check_routes(label, flash=want["flash"])
     if tuple(out.shape) != (b, prompt + new):
         fail(f"{label}: generate returned shape {tuple(out.shape)}")
     if not torch.equal(out[:, :prompt], ids):
@@ -640,7 +733,24 @@ def _reset_launches():
            "quant": quant_matmul, "grid": paged_attention}
     for fn in fns.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     return lambda: {k: fn.launches for k, fn in fns.items()}
+
+
+def _check_routes(label, **want_wgmma):
+    """Since the last ``_reset_launches``: each named routed kernel
+    (``flash``, ``flash_bwd_dkv``) launched ``n`` times on the wgmma route
+    and never on the simt route."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_fwd)
+    fns = {"flash": flash_attention_fwd,
+           "flash_bwd_dkv": flash_attention_bwd_dkv}
+    got = {k: dict(fns[k].launches_by_route) for k in want_wgmma}
+    want = {k: {"wgmma": n, "simt": 0} for k, n in want_wgmma.items()}
+    log(f"[{label}] launches by route: {got} (want {want})")
+    if got != want:
+        fail(f"{label}: launches by route {got} != {want}")
 
 
 def _serve(eng, subs, late_after: int):
@@ -866,7 +976,7 @@ def _device_profile(pred, ids, new_tokens, ptt):
         n += 1
         name = e.name.lower()
         cat = ("decode_attention" if "decode_kernel" in name else
-               "flash_attention" if "flash_fwd_kernel" in name else
+               "flash_attention" if "flash_fwd_" in name else
                "quant_matmul" if "qmm_" in name else
                "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
@@ -1500,6 +1610,9 @@ def phase_bwd_times(gen, dev, card):
                     iters=10)
     dkv_ms = cuda_ms(lambda i: flash_attention_bwd_dkv(*kargs(i), **kw),
                      iters=10)
+    # the CUDA-core dk/dv kernel that bf16 took before, on the same inputs
+    dkv_simt_ms = cuda_ms(lambda i: _simt_dkv(*kargs(i)[:6]), iters=3,
+                          warmup=1)
     plain = {}
     for key, fn in (("flash_bwd_dq", flash_attention_bwd_dq_plain),
                     ("flash_bwd_dkv", flash_attention_bwd_dkv_plain),
@@ -1527,13 +1640,14 @@ def phase_bwd_times(gen, dev, card):
         bound_ms, bound_by = bound(nbytes, products * prod)
         rows[key] = dict(ms=ms, plain_ms=plain[key], library_ms=library[key],
                          bound_ms=bound_ms, bound_by=bound_by)
+    rows["flash_bwd_dkv"]["simt_ms"] = dkv_simt_ms
     fn_bound, fn_by = bound(fn_bytes, 5 * prod)
     log(f"[time] flash bwd at q {[b, s, h, d]} kv {[b, s, kv, d]} bf16 "
         f"causal: dq kernel {dq_ms:.4f} ms (bound "
         f"{rows['flash_bwd_dq']['bound_ms']:.4f} ms, 3 products; plain dq "
         f"{plain['flash_bwd_dq']:.4f} ms; sdpa backward for dq "
         f"{library['flash_bwd_dq']:.4f} ms), dk/dv kernel {dkv_ms:.4f} ms "
-        f"(bound {rows['flash_bwd_dkv']['bound_ms']:.4f} ms, 4 products; "
+        f"(simt kernel {dkv_simt_ms:.4f} ms; bound {rows['flash_bwd_dkv']['bound_ms']:.4f} ms, 4 products; "
         f"plain dk/dv {plain['flash_bwd_dkv']:.4f} ms; sdpa backward for "
         f"dk, dv {library['flash_bwd_dkv']:.4f} ms), sum "
         f"{dq_ms + dkv_ms:.4f} ms; the backward as a whole: bound "
@@ -1650,9 +1764,9 @@ def profile_train_step(tr, step_ms, card):
             "flash_bwd_dkv": 0.0, "optimizer": 0.0, "other": 0.0}
     for e in kernels:
         name = e.name.lower()
-        cat = ("flash_fwd" if "flash_fwd_kernel" in name else
+        cat = ("flash_fwd" if "flash_fwd_" in name else
                "flash_bwd_dq" if "flash_bwd_dq_kernel" in name else
-               "flash_bwd_dkv" if "flash_bwd_dkv_kernel" in name else
+               "flash_bwd_dkv" if "flash_bwd_dkv_" in name else
                "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
                else "other")
@@ -1733,6 +1847,8 @@ def phase_train(seed, dev, card):
     log(f"[train] losses per step: " + ", ".join(f"{x:.4f}" for x in losses))
     if launches != want:
         fail(f"training launches {launches} != {want}")
+    _check_routes("train", flash=L * TRAIN_STEPS,
+                  flash_bwd_dkv=L * TRAIN_STEPS)
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail("training loss is not finite at every step")
     if not losses[-1] < losses[0]:
@@ -1820,6 +1936,7 @@ def phase_train(seed, dev, card):
         f" vs {peak_gb:.2f} GB without recompute [{card}]")
     if rc != want_rc:
         fail(f"recompute launches {rc} != {want_rc}")
+    _check_routes("train recompute", flash=2 * L * 2, flash_bwd_dkv=L * 2)
     if not all(abs(a - r) <= TOL_BF16 * abs(r)
                for a, r in zip(rc_losses, losses[:2])):
         fail("recompute changed the loss of step 1 or 2")
@@ -1898,7 +2015,8 @@ def main():
     kernels = []
     for key, (name, source, replaces) in meta.items():
         t = times[key]
-        kernels.append({"name": name, "route": "cuda", "source": source,
+        route = "cuda-wgmma" if key in ("flash", "flash_bwd_dkv") else "cuda"
+        kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[key],
                         "max_abs_err": errs[key], "ms": t["ms"],
                         "plain_ms": t["plain_ms"],

@@ -5,12 +5,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace ptt {
 
 // The finite mask value of the TPU kernels: exp(NEG_INF - m) is 0 once a
 // row has seen a real score, and a fully masked tile cannot make a NaN.
 constexpr float NEG_INF = -1e30f;
+
+// Codes the C entry points return beside cudaError_t values: a tensor map
+// that cuTensorMapEncodeTiled refused (ERR_TENSOR_MAP + its CUresult), or
+// no cuTensorMapEncodeTiled to call.
+constexpr int ERR_TENSOR_MAP = 10000;
+constexpr int ERR_NO_ENCODER = 20000;
 
 template <typename T>
 struct Elt;
@@ -100,5 +107,14 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 }  // namespace ptt
 
 extern "C" const char* kernel_error_string(int err) {
+  static char text[96];
+  if (err == ptt::ERR_NO_ENCODER)
+    return "cuTensorMapEncodeTiled is not available";
+  if (err >= ptt::ERR_TENSOR_MAP && err < ptt::ERR_NO_ENCODER) {
+    snprintf(text, sizeof(text),
+             "cuTensorMapEncodeTiled refused the tensor map (CUresult %d)",
+             err - ptt::ERR_TENSOR_MAP);
+    return text;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,13 +1,14 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv,
-// bf16 or fp32 in, fp32 accumulate. What they replace, what bounds them and
-// how the design answers that: see
+// Flash-attention backward for Hopper (sm_90a): dq and dk/dv, bf16 or fp32
+// in, fp32 accumulate; dk/dv in two variants that the Python wrapper
+// chooses from the dtype and head dim, never after a failure. What they
+// replace, what bounds them and how the design answers that: see
 // paddle_tpu_torch/ops/kernels/flash_attention.py.
 //
 // Layout: q, dout, dq [b, sq, h, d]; k, v, dk, dv [b, sk, hk, d]; lse and
 // delta = rowsum(dout * out) [b, h, sq] fp32; segment ids [b, s] int32
 // (optional, sq == sk). Query head hh reads kv head hh / (h / hk).
 //
-// Both kernels recompute the scores with the forward's conventions (finite
+// All kernels recompute the scores with the forward's conventions (finite
 // -1e30 mask, causal aligned bottom-right by sk - sq, window band, segment
 // equality with pad = 0), form p = exp(s - lse) and
 // ds = p * (dp - delta) * scale with dp = dout . v, and round where the TPU
@@ -23,16 +24,32 @@
 // and works on 4 at a time: lane i scores keys i and i+32 (s and dp in one
 // pass over d), then in the ds K product owns a strip of head dims.
 //
-// dk/dv: one block of 4 warps per (batch*kv head, kv tile). K and V
-// (packed words) and the two fp32 accumulators stay in shared memory; the
-// block loops over the GQA group's query heads and, for each, over the live
-// q tiles, staged as packed words with an odd stride. The roles of rows and
-// keys swap: each warp owns BK/4 keys, lane i takes q rows i and i+32, and
-// the p^T dout and ds^T q products run with lanes on strips of head dims.
+// dk/dv, wgmma (bf16, d in {64, 128}): one block per (batch*kv head,
+// 128-key tile): two consumer warpgroups of 64 keys each and a producer
+// warpgroup, which hands its registers to them (setmaxnreg) and of which
+// one warp works. It loads the K and V tiles once by TMA, then streams
+// 64-row tiles of q and dout through a ring of shared-memory stages (TMA,
+// 128-byte swizzle, mbarriers) over the GQA group's query heads and, for
+// each, its live q tiles, and stages each tile's lse, delta and segment
+// ids beside them; both warpgroups read every stage. Per tile a warpgroup
+// forms S^T = K Q^T and dP^T = V dout^T with wgmma (m64n64k16, operands
+// K-major in shared memory), p^T and ds^T on the fp32 fragments, and
+// dV += P^T dout, dK += dS^T Q with wgmma whose A is that fragment rounded
+// to bf16 pairs in registers and whose B (dout or q) takes the transpose
+// bit. dK and dV stay in registers (64 x d fp32 each) and are cast and
+// stored once.
 //
-// Tiles are sized so that two blocks fit an SM's shared memory in bf16 at
-// d <= 128 (8 warps in flight per SM).
-#include "common.cuh"
+// dk/dv, simt (fp32, or d = 256): one block of 4 warps per (batch*kv
+// head, kv tile). K and V (packed words) and the two fp32 accumulators
+// stay in shared memory; the block loops over the GQA group's query heads
+// and, for each, over the live q tiles, staged as packed words with an
+// odd stride. The roles of rows and keys swap: each warp owns BK/4 keys,
+// lane i takes q rows i and i+32, and the p^T dout and ds^T q products run
+// with lanes on strips of head dims.
+//
+// The simt tiles are sized so that two blocks fit an SM's shared memory in
+// bf16 at d <= 128 (8 warps in flight per SM).
+#include "hopper.cuh"
 
 namespace {
 
@@ -260,7 +277,7 @@ struct DkvGeometry {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    flash_bwd_dkv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
@@ -477,7 +494,7 @@ cudaError_t launch_dq(const Args& a, void* dq) {
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   const size_t smem = DkvGeometry<T, D>::SMEM;
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_simt_kernel<T, D>;
   cudaError_t err = ptt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   constexpr int BK = DkvGeometry<T, D>::BK;
@@ -519,6 +536,265 @@ int run(const void* q, const void* k, const void* v, const void* g,
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------- dk/dv on wgmma
+namespace wg {
+
+constexpr int BK = 128;                // keys per block: 64 a warpgroup
+constexpr int BQ = 64;                 // q rows per streamed tile
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int STAGES = 3;
+constexpr int ROW_BYTES = 128;         // one half-row: 64 bf16
+constexpr int Q_HALF = BQ * ROW_BYTES;   // one half of a q or dout tile
+constexpr int KV_HALF = BK * ROW_BYTES;  // one half of the K or V tile
+
+template <int D>
+struct Smem {
+  static constexpr int Q_TILE = (D / 64) * Q_HALF;    // 64 rows x D
+  static constexpr int KV_TILE = (D / 64) * KV_HALF;  // 128 rows x D
+  // 1024 for the alignment of the swizzled tiles; K, V; the Q and dout
+  // stages; lse, delta and q segment ids per stage; the barriers (K/V's,
+  // and full / empty per stage)
+  static constexpr size_t BYTES = 1024 + 2 * KV_TILE + 2 * STAGES * Q_TILE +
+                                  3 * STAGES * BQ * 4 + 8 * (1 + 2 * STAGES);
+};
+
+}  // namespace wg
+
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tg,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const int* __restrict__ seg,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                               int h, int hk, float scale, int causal,
+                               int window) {
+  using S = wg::Smem<D>;
+  constexpr int BQ = wg::BQ, BK = wg::BK, STAGES = wg::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = ptt::align1024(smem_raw);
+  unsigned char* Vs = Ks + S::KV_TILE;
+  unsigned char* Qs = Vs + S::KV_TILE;           // [STAGES] tiles
+  unsigned char* Gs = Qs + STAGES * S::Q_TILE;   // [STAGES] tiles
+  float* lse_s = reinterpret_cast<float*>(Gs + STAGES * S::Q_TILE);
+  float* del_s = lse_s + STAGES * BQ;
+  int* qseg_s = reinterpret_cast<int*>(del_s + STAGES * BQ);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(qseg_s + STAGES * BQ);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int bkv = blockIdx.x;
+  const int b = bkv / hk, kvh = bkv % hk, group = h / hk;
+  // the first kv tiles are seen by the most q rows under the causal mask:
+  // they are launched first
+  const int k0 = blockIdx.y * BK;
+  const int off = sk - sq;
+  // q rows any key of this tile may be attended by
+  int lo = 0, hi = sq;
+  if (causal) {
+    lo = max(0, k0 - off);
+    if (window > 0) hi = min(sq, k0 + BK + window - 1 - off);
+  }
+  lo = (lo / BQ) * BQ;
+  const int nq = hi > lo ? (hi - lo + BQ - 1) / BQ : 0;
+  const int n = group * nq;  // q tiles: the group's heads, then their rows
+
+  if (tid == 0) {
+    ptt::mbar_init(kvbar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      ptt::mbar_init(full + st, 1 + 32);  // the TMA's and the warp's rows
+      ptt::mbar_init(empty + st, wg::CONSUMERS * 128);
+    }
+    ptt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= wg::CONSUMERS * 128) {  // the producer warpgroup
+    ptt::setmaxnreg_dec<wg::PRODUCER_REGS>();
+    if (tid >= wg::CONSUMERS * 128 + 32) return;  // one warp is enough
+    if (lane == 0) {
+      ptt::mbar_arrive_tx(kvbar, 2 * S::KV_TILE);
+      for (int half = 0; half < D / 64; ++half) {
+        ptt::tma_load_4d(Ks + half * wg::KV_HALF, &tk, kvbar, 64 * half, kvh,
+                         k0, b);
+        ptt::tma_load_4d(Vs + half * wg::KV_HALF, &tv, kvbar, 64 * half, kvh,
+                         k0, b);
+      }
+    }
+    for (int i = 0; i < n; ++i) {
+      const int st = i % STAGES;
+      const int hh = kvh * group + i / nq, q0 = lo + (i % nq) * BQ;
+      const int bh = b * h + hh;
+      ptt::mbar_wait(empty + st, ((i / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        ptt::mbar_arrive_tx(full + st, 2 * S::Q_TILE);
+        for (int half = 0; half < D / 64; ++half) {
+          ptt::tma_load_4d(Qs + st * S::Q_TILE + half * wg::Q_HALF, &tq,
+                           full + st, 64 * half, hh, q0, b);
+          ptt::tma_load_4d(Gs + st * S::Q_TILE + half * wg::Q_HALF, &tg,
+                           full + st, 64 * half, hh, q0, b);
+        }
+      }
+      for (int j = lane; j < BQ; j += 32) {
+        const int row = q0 + j;
+        const bool ok = row < sq;
+        lse_s[st * BQ + j] = ok ? lse[(size_t)bh * sq + row] : 0.f;
+        del_s[st * BQ + j] = ok ? delta[(size_t)bh * sq + row] : 0.f;
+        qseg_s[st * BQ + j] =
+            (ok && seg != nullptr) ? seg[(size_t)b * sq + row] : -2;
+      }
+      ptt::mbar_arrive(full + st);
+    }
+    return;
+  }
+
+  // a consumer warpgroup, on keys wgi*64 .. +63 of the tile: this thread
+  // owns keys kr and kr + 8 (rows of the accumulator fragments, see
+  // hopper.cuh); the columns of S^T and dP^T are q rows
+  ptt::setmaxnreg_inc<wg::CONSUMER_REGS>();
+  const int wgi = tid / 128, w = (tid & 127) / 32, quad = lane & 3;
+  const unsigned char* kt = Ks + wgi * 64 * wg::ROW_BYTES;
+  const unsigned char* vt = Vs + wgi * 64 * wg::ROW_BYTES;
+  int key[2], kseg[2];
+  key[0] = k0 + wgi * 64 + w * 16 + lane / 4;
+  key[1] = key[0] + 8;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    kseg[r] = (seg != nullptr && key[r] < sk) ? seg[(size_t)b * sk + key[r]]
+                                              : -1;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  ptt::mbar_wait(kvbar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int st = i % STAGES, q0 = lo + (i % nq) * BQ;
+    const unsigned char* qt = Qs + st * S::Q_TILE;
+    const unsigned char* gt = Gs + st * S::Q_TILE;
+    ptt::mbar_wait(full + st, (i / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dout^T, both operands K-major
+    float sT[BQ / 2], dpT[BQ / 2];
+    ptt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = (kk / 4) * wg::KV_HALF + (kk % 4) * 32;
+      const int bt = (kk / 4) * wg::Q_HALF + (kk % 4) * 32;
+      ptt::wgmma_ss<BQ>(sT, ptt::desc_kmajor(kt + at),
+                        ptt::desc_kmajor(qt + bt), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = (kk / 4) * wg::KV_HALF + (kk % 4) * 32;
+      const int bt = (kk / 4) * wg::Q_HALF + (kk % 4) * 32;
+      ptt::wgmma_ss<BQ>(dpT, ptt::desc_kmajor(vt + at),
+                        ptt::desc_kmajor(gt + bt), kk > 0);
+    }
+    ptt::wgmma_commit();
+    ptt::wgmma_wait<0>();
+    ptt::fence_regs<BQ / 2>(sT);
+    ptt::fence_regs<BQ / 2>(dpT);
+
+    // p^T = exp(s^T * scale - lse), ds^T = p^T (dp^T - delta) scale, with
+    // the forward's masks; sT becomes p^T and dpT ds^T
+    const float* ls = lse_s + st * BQ;
+    const float* dl = del_s + st * BQ;
+    const int* qs = qseg_s + st * BQ;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * quad + e;
+        const int row = q0 + col;
+        const float lse_c = ls[col], del_c = dl[col];
+        const int qseg = qs[col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int reg = 4 * j + 2 * r + e;
+          bool keep = live(row, key[r], off, causal, window);
+          if (seg != nullptr) keep = keep && qseg == kseg[r];
+          const float sm = keep ? sT[reg] * scale : NEG_INF;
+          const float p =
+              (row < sq && key[r] < sk) ? __expf(sm - lse_c) : 0.f;
+          dpT[reg] = p * (dpT[reg] - del_c) * scale;
+          sT[reg] = p;
+        }
+      }
+    // p through dout's type before p^T dout, ds through q's before
+    // ds^T q: the bf16 pairs of columns 16kk .. 16kk+15 are step kk's A
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        pa[kk][c] = ptt::pack_bf16(sT[8 * kk + 2 * c], sT[8 * kk + 2 * c + 1]);
+        da[kk][c] =
+            ptt::pack_bf16(dpT[8 * kk + 2 * c], dpT[8 * kk + 2 * c + 1]);
+      }
+
+    // dV += P^T dout, dK += dS^T Q: B MN-major (the transpose bit)
+    ptt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      ptt::wgmma_rs<D>(dv_acc, pa[kk],
+                       ptt::desc_mnmajor(gt + kk * 16 * wg::ROW_BYTES,
+                                         wg::Q_HALF),
+                       1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      ptt::wgmma_rs<D>(dk_acc, da[kk],
+                       ptt::desc_mnmajor(qt + kk * 16 * wg::ROW_BYTES,
+                                         wg::Q_HALF),
+                       1);
+    ptt::wgmma_commit();
+    ptt::wgmma_wait<0>();
+    ptt::fence_regs<D / 2>(dv_acc);
+    ptt::fence_regs<D / 2>(dk_acc);
+    ptt::mbar_arrive(empty + st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= sk) continue;
+    const size_t at = (((size_t)b * sk + key[r]) * hk + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 4 * j + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j + 2 * quad) =
+          __floats2bfloat162_rn(dk_acc[c], dk_acc[c + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j + 2 * quad) =
+          __floats2bfloat162_rn(dv_acc[c], dv_acc[c + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
+  CUtensorMap tq, tk, tv, tg;
+  int rc = ptt::encode_bshd(&tq, a.q, a.b, a.sq, a.h, D, wg::BQ);
+  if (rc == 0) rc = ptt::encode_bshd(&tg, a.g, a.b, a.sq, a.h, D, wg::BQ);
+  if (rc == 0) rc = ptt::encode_bshd(&tk, a.k, a.b, a.sk, a.hk, D, wg::BK);
+  if (rc == 0) rc = ptt::encode_bshd(&tv, a.v, a.b, a.sk, a.hk, D, wg::BK);
+  if (rc != 0) return rc;
+  const size_t smem = wg::Smem<D>::BYTES;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  cudaError_t err = ptt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.b * a.hk, (a.sk + wg::BK - 1) / wg::BK);
+  kernel<<<grid, wg::THREADS, smem, a.stream>>>(
+      tq, tk, tv, tg, a.lse, a.delta, a.seg,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.sq,
+      a.sk, a.h, a.hk, a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16. seg may be null. window <= 0 means none.
@@ -533,7 +809,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
              scale, causal, window, dtype, stream);
 }
 
-extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
+extern "C" int flash_attention_bwd_dkv_simt(const void* q, const void* k,
                                        const void* v, const void* g,
                                        const void* lse, const void* delta,
                                        const void* seg, void* dk, void* dv,
@@ -542,4 +818,22 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int window, int dtype, void* stream) {
   return run(q, k, v, g, lse, delta, seg, dk, dv, b, sq, sk, h, hk, d, scale,
              causal, window, dtype, stream);
+}
+
+// bf16 only, d in {64, 128}; the other arguments as
+// flash_attention_bwd_dkv_simt
+extern "C" int flash_attention_bwd_dkv_wgmma(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* lse, const void* delta, const void* seg, void* dk, void* dv,
+    int b, int sq, int sk, int h, int hk, int d, float scale, int causal,
+    int window, int dtype, void* stream) {
+  const Args a{q, k, v, g,
+               static_cast<const float*>(lse),
+               static_cast<const float*>(delta),
+               static_cast<const int*>(seg), b, sq, sk, h, hk, scale, causal,
+               window, static_cast<cudaStream_t>(stream)};
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if (d == 64) return launch_dkv_wgmma<64>(a, dk, dv);
+  if (d == 128) return launch_dkv_wgmma<128>(a, dk, dv);
+  return cudaErrorInvalidValue;
 }

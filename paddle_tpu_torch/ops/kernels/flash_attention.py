@@ -9,21 +9,35 @@ ids; GQA query head hh reads kv head hh // (h // hk). The finite -1e30
 mask value, the fp32 accumulation, ``p`` cast to V's type before the PV
 product and the 1e-30 clamp of the final divide are the TPU kernel's.
 
+Routes, chosen from the dtype and head dim alone (:func:`flash_route`),
+never after a failure: bf16 at d in {64, 128} takes the ``wgmma`` kernel;
+fp32 (wgmma has no fp32 product, and TF32 would break the fp32 checks)
+and d = 256 take the ``simt`` kernel. A failed build or launch raises.
+Each wrapper counts its launches, in all and by route
+(``launches_by_route``).
+
 Bound on the H100: at the prefill shape of Llama-3-8B (q [4, 512, 32,
 128], k/v [4, 512, 8, 128], bf16, causal) the function moves about 42 MB
 (q, k, v read once, out and lse written once: about 12.6 us at 3.35 TB/s)
 and does about 8.6 GFLOP on the causal half (about 8.7 us at 989 TFLOP/s
-in bf16), so its bound is the bytes.
+in bf16), so its bound is the bytes. At the training shape (q [2, 2048,
+32, 128], k/v [2, 2048, 8, 128]) it does 68.7 GFLOP against 84 MB, so
+its bound is the operations: 69.5 us.
 
-Design (``csrc/flash_attention_fwd.cu``): the TPU's sequential kv grid
-axis becomes a loop inside one block per (batch*head, 64-row q tile);
-tiles wholly above the causal diagonal or before the window band are
-never loaded. K/V tiles are staged in shared memory with an odd word
-stride, so the score loop reads them without bank conflicts, and each
-K/V element read from shared memory serves 4 query rows. This first
-version does its products with fp32 FMAs on the CUDA cores, not on the
-tensor cores, so it runs far from the byte bound; moving QK^T and PV onto
-``wgmma`` with TMA-fed tiles is the next step.
+Design (``csrc/flash_attention_fwd.cu``). ``wgmma``: the TPU's
+sequential kv grid axis becomes a loop inside one block per (batch*head,
+128-row q tile) with two consumer warpgroups of 64 rows and a producer
+warpgroup that hands them its registers. The producer loads Q once and
+streams 128-key K/V tiles through a ring of 3 shared-memory stages by TMA
+(128-byte swizzle, mbarriers), so copies overlap the products; S = Q K^T
+and O += P V run on the tensor cores (``wgmma``), the online softmax on
+the fp32 accumulator fragment while the last tile's P V is in flight,
+and p becomes the register operand of P V without a trip through shared
+memory. Tiles wholly above the causal diagonal or before the window band
+are never loaded; the per-element masks run only on tiles that need
+them. ``simt``: one block per (batch*head, 64-row q tile),
+K/V tiles staged with an odd word stride and the products as fp32 FMAs on
+the CUDA cores, far from either bound.
 
 Backward: ``flash_attention_bwd`` replaces ``_flash_bwd`` (:307), which
 reaches two TPU kernels, ``_bwd_dq_kernel`` (:208, call :375) and
@@ -49,14 +63,16 @@ Design (``csrc/flash_attention_bwd.cu``): dq takes one block per
 block per (batch*kv head, kv tile) and loops over the GQA group's query
 heads and their live q tiles, so no head repeat is materialised and no
 atomics are needed: each output element is summed by one block in a
-fixed order and two runs give the same bits. Like the forward, the
-products run as fp32 FMAs on the CUDA cores from shared-memory tiles;
-tensor cores are later work. Two choices keep the CUDA cores busier: q,
-dout, K and V sit in shared memory as packed bf16 words (only the
-accumulators are fp32), so two blocks fit an SM at d <= 128; and the
-blocks with the most live tiles under the causal mask (the last q tiles
-for dq, the first kv tiles for dk/dv) are launched first, so the longest
-blocks do not trail the grid.
+fixed order and two runs give the same bits. The blocks with the most
+live tiles under the causal mask (the last q tiles for dq, the first kv
+tiles for dk/dv) are launched first. dk/dv has the forward's two routes:
+``wgmma`` (bf16, d in {64, 128}) keeps a 128-key K/V tile in shared
+memory and, in two consumer warpgroups of 64 keys, the fp32 dK, dV
+accumulators in registers, while a producer warp streams 64-row q and
+dout tiles by TMA; all four products run on the tensor cores (p and ds
+as register operands); ``simt`` and the dq kernel
+run theirs as fp32 FMAs on the CUDA cores from shared-memory tiles of
+packed bf16 words, two blocks per SM at d <= 128.
 """
 from __future__ import annotations
 
@@ -71,6 +87,7 @@ from . import _build, check_layout, use_kernel
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("wgmma", "simt")
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -126,6 +143,25 @@ def _masked_scores(qf, kf, scale, causal, window, segment_ids):
     return torch.where(keep, s, torch.full_like(s, NEG_INF))
 
 
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that the forward and the dk/dv backward launch for this
+    dtype and head dim: ``"wgmma"`` (tensor cores, TMA) for bf16 at d 64
+    or 128, else ``"simt"`` (CUDA-core FMAs)."""
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
+        return "wgmma"
+    return "simt"
+
+
+def _count(fn, route):
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
+
+
+def _reset_counts(fn):
+    fn.launches = 0
+    fn.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
 def flash_attention_fwd_plain(q, k, v, *, causal=False, scale=None,
                               window=None, segment_ids=None):
     """The same function in plain PyTorch, over the whole score matrix:
@@ -158,7 +194,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     segment; ``window`` (causal only) keeps the trailing ``window`` keys.
 
     CPU tensors take :func:`flash_attention_fwd_plain`; CUDA tensors launch
-    the kernel, on the current stream, or raise."""
+    the kernel of :func:`flash_route`, on the current stream, or raise."""
     _check(q, k, v, causal, window, segment_ids)
     extra = [] if segment_ids is None else [segment_ids]
     if not use_kernel(q, k, v, *extra):
@@ -171,9 +207,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     seg = (None if segment_ids is None
            else segment_ids.to(torch.int32).contiguous())
+    route = flash_route(q.dtype, d)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _build.entry("flash_attention_fwd", "flash_attention_fwd",
+    fn = _build.entry("flash_attention_fwd", f"flash_attention_fwd_{route}",
                       _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if seg is None else seg.data_ptr(), out.data_ptr(),
@@ -181,11 +218,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             0 if window is None else int(window), DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention_fwd", rc)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, route)
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+_reset_counts(flash_attention_fwd)
 
 
 # ---------------------------------------------------------------- backward
@@ -297,21 +334,22 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, seg, *, causal,
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, seg, *, causal,
                             scale, window):
-    """Launch the dk/dv kernel on CUDA tensors (as
+    """Launch the dk/dv kernel of :func:`flash_route` on CUDA tensors (as
     :func:`flash_attention_bwd_dq`). Returns (dk, dv)."""
     ptrs, tail = _bwd_args(q, k, v, dout, lse, delta, seg, causal, scale,
                            window)
+    route = flash_route(q.dtype, q.shape[3])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dkv",
-                      _DKV_ARGTYPES)
+    fn = _build.entry("flash_attention_bwd",
+                      f"flash_attention_bwd_dkv_{route}", _DKV_ARGTYPES)
     _build.check("flash_attention_bwd",
                  fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *tail))
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, route)
     return dk, dv
 
 
 flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+_reset_counts(flash_attention_bwd_dkv)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=False,

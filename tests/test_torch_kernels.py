@@ -22,7 +22,7 @@ from paddle_tpu_torch.ops.kernels import use_kernel
 from paddle_tpu_torch.ops.kernels.decode_attention import (
     decode_attention_fwd, decode_attention_fwd_plain)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention_fwd, flash_attention_fwd_plain)
+    flash_attention_fwd, flash_attention_fwd_plain, flash_route)
 
 # fp32 on the CPU: both sides sum the same fp32 products in another order
 ATOL_FP32 = 1e-5
@@ -180,6 +180,21 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     assert (flash_attention_fwd.launches, decode_attention_fwd.launches) \
         == (f0, d0)
     assert not use_kernel(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt")])
+def test_flash_route_depends_on_dtype_and_head_dim_alone(dtype, d, route):
+    """bf16 at d 64 or 128 takes the tensor-core kernels; fp32 (no fp32
+    wgmma) and d 256 the CUDA-core ones. The CPU's plain route counts
+    nothing on either."""
+    assert flash_route(dtype, d) == route
+    before = dict(flash_attention_fwd.launches_by_route)
+    q = torch.zeros(1, 8, 2, d, dtype=dtype)
+    flash_attention_fwd(q, q, q, causal=True)
+    assert flash_attention_fwd.launches_by_route == before
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

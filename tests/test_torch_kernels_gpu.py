@@ -42,20 +42,30 @@ def _randn(rs, *shape, scale=1.0):
     return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32))
 
 
+def _want_route(dtype, d):
+    """The route the wrappers must take: tensor cores for bf16 at d 64 or
+    128, the CUDA-core kernel for fp32 and for d 256."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+
+
 @pytest.mark.parametrize("case", [
     dict(b=2, s=256, h=8, kv=2, d=128, causal=True),
     dict(b=1, s=200, h=4, kv=4, d=64, causal=False),
     dict(b=1, s=256, h=4, kv=1, d=256, causal=True, window=70),
     dict(b=2, s=256, h=4, kv=2, d=64, causal=True, seg=True),
-], ids=["gqa-causal", "ragged-full", "d256-window", "segments"])
+    dict(b=1, s=128, sk=256, h=8, kv=2, d=128, causal=True),
+    dict(b=1, s=384, h=4, kv=1, d=128, causal=True, window=100),
+], ids=["gqa-causal", "ragged-full", "d256-window", "segments",
+        "longer-keys", "window"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 def test_flash_kernel_matches_plain(cuda_card, case, dtype):
     rs = np.random.RandomState(0)
     b, s, h, kv, d = (case[k] for k in ("b", "s", "h", "kv", "d"))
+    sk = case.get("sk", s)
     q = _randn(rs, b, s, h, d, scale=0.5).to(cuda_card, dtype)
-    k = _randn(rs, b, s, kv, d, scale=0.5).to(cuda_card, dtype)
-    v = _randn(rs, b, s, kv, d).to(cuda_card, dtype)
+    k = _randn(rs, b, sk, kv, d, scale=0.5).to(cuda_card, dtype)
+    v = _randn(rs, b, sk, kv, d).to(cuda_card, dtype)
     seg = None
     if case.get("seg"):
         seg = torch.ones(b, s, dtype=torch.int32)
@@ -64,10 +74,14 @@ def test_flash_kernel_matches_plain(cuda_card, case, dtype):
         seg = seg.to(cuda_card)
     kw = dict(causal=case["causal"], window=case.get("window"),
               segment_ids=seg)
+    route = _want_route(dtype, d)
     n = flash_attention_fwd.launches
+    by_route = dict(flash_attention_fwd.launches_by_route)
     out, lse = flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention_fwd.launches == n + 1
+    by_route[route] += 1
+    assert flash_attention_fwd.launches_by_route == by_route
     ref, ref_lse = flash_attention_fwd_plain(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
                                rtol=0)
@@ -221,10 +235,13 @@ def test_flash_bwd_kernels_match_plain(cuda_card, case, dtype):
               segment_ids=seg)
     out, lse = flash_attention_fwd(q, k, v, **kw)
     n = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    by_route = dict(flash_attention_bwd_dkv.launches_by_route)
     got = flash_attention_bwd(q, k, v, out, lse, g, **kw)
     torch.cuda.synchronize()
     assert (flash_attention_bwd_dq.launches,
             flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    by_route[_want_route(dtype, case["d"])] += 1
+    assert flash_attention_bwd_dkv.launches_by_route == by_route
     want = flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
     _assert_grads_close(got, want, dtype)
 
@@ -236,6 +253,30 @@ def test_flash_bwd_kernels_repeat_bitwise(cuda_card):
     out, lse = flash_attention_fwd(q, k, v, causal=True)
     a = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
     b = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True, window=300),
+                                dict(causal=False, seg=True)],
+                         ids=["window", "segments"])
+def test_flash_dkv_wgmma_repeats_bitwise(cuda_card, kw):
+    """The tensor-core dk/dv kernel at GQA group 4 (each block sums four
+    query heads): two launches give the same bits, and both took the
+    wgmma route."""
+    kw = dict(kw)
+    q, k, v, g, seg = _bwd_case(cuda_card, torch.bfloat16, 2, 640, 640, 16,
+                                4, 128, kw.pop("seg", False), seed=5)
+    out, lse = flash_attention_fwd(q, k, v, segment_ids=seg, **kw)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    n = flash_attention_bwd_dkv.launches_by_route["wgmma"]
+    args = (q, k, v, g, lse, delta, seg)
+    opts = dict(causal=kw["causal"], scale=128 ** -0.5,
+                window=kw.get("window"))
+    a = flash_attention_bwd_dkv(*args, **opts)
+    b = flash_attention_bwd_dkv(*args, **opts)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dkv.launches_by_route["wgmma"] == n + 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
