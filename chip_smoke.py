@@ -9,20 +9,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    all sources in parallel, with nvcc's register / shared-memory / spill
    report, and the HGMMA (wgmma) and UTMALDG (TMA load) instructions of
    each library's SASS: both must be nonzero in the tensor-core flash
-   forward and dk/dv kernels;
+   forward, dq and dk/dv kernels;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, in bf16, at the shapes of the Llama-3-8B serving path, with the
-   tolerance stated below; the ragged paged kernel also in fp32, with a
-   window, with 4 queries per row, and replayed from a CUDA graph after
-   its seq_lens and tables changed in place;
+   tolerance stated below; the decode kernel at cache indices on the
+   edges of its T splits, with and without a window, in bf16, fp16 and
+   fp32, each call repeated bit for bit; the ragged paged kernel also in
+   fp32, with a window, with 4 queries per row, and replayed from a CUDA
+   graph after its seq_lens and tables changed in place. Then fp16: every
+   kernel against its plain version at small shapes (the flash forward,
+   dq and dk/dv at d 64, 128 and 256; decode, ragged, grid, quant), and
+   the counts show the d 128 forward, dq and dk/dv on the wgmma route;
 4. kernel times (CUDA events, warmed up, inputs rotated through copies
    larger than the 50 MB L2 so each call finds them cold, as the serving
    path does): the kernel, its plain version, one PyTorch call computing
    the same function as a yardstick (``scaled_dot_product_attention``;
    the port never calls it) and the least time the card could take; the
-   flash forward also at the training shape, and beside the tensor-core
-   kernels the CUDA-core (simt) kernels they replaced on bf16, on the
-   same inputs;
+   flash forward also at the training shape, decode also for one row
+   over an 8192-position cache (decode and quant as device time from a
+   CUDA graph of back-to-back calls: their wrappers' host time per call
+   exceeds the kernels'), and beside the tensor-core kernels the
+   CUDA-core (simt) kernels they replaced on bf16, on the same inputs;
 5. a small model against a CPU reference: logits of a prefill and of
    decode steps, fp32, the card (kernels) against the CPU (plain
    versions);
@@ -31,8 +38,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    512 prompt tokens, 128 new tokens, greedy. Each kernel's launch count
    is set to 0 just before this run and read just after: flash attention
    must run once per layer (32), all on the wgmma route, decode
-   attention once per layer and decode step (32 x 127). A second greedy call must give the same
-   tokens, and one seeded sampled call must give valid ids. Last,
+   attention once per layer and decode step (32 x 127), all on the mma
+   route. A second greedy call must give the same tokens, and one seeded
+   sampled call must give valid ids. Last,
    torch.profiler splits one decode step's device time by kernel kind
    and gives the device's busy share of the step;
 7. the paged slice, on the same model: ``PagedEngine(fused_tick=False)``
@@ -54,14 +62,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    repeat), ``FlashAttentionFunction`` against autograd through dense
    attention; at the training shape each kernel against its plain
    version again, then their times beside the bounds, each kernel's
-   plain version and an SDPA backward; a small fp32 Llama's Trainer step
+   plain version and an SDPA backward (and at head_dim 64, the wgmma
+   kernels beside their bounds and SDPA); a small fp32 Llama's Trainer step
    on the card against the CPU (loss and every parameter's update);
 9. the training slice: Llama-3-8B at full width with 4 layers (random
    weights from the seed, bf16, AdamW with fp32 masters) through
    ``Trainer`` for 10 steps over 2 seeded [2, 2048] batches. The counts
    are set to 0 just before and read just after: flash forward, dq and
-   dk/dv run once per layer and step (40 each; the forward and dk/dv all
-   on the wgmma route), decode and ragged never;
+   dk/dv run once per layer and step (40 each, all on the wgmma route),
+   decode and ragged never;
    the loss stays finite and falls. Step time, tokens/s, MFU, peak
    memory and a torch.profiler split of one step are printed beside the
    card, then step times with prefetch depth 0 against 2. Last, with
@@ -85,8 +94,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same requests under ``ragged``; last the model rebuilt from the
    seed and quantized to int4, through the same ``generate``.
 
-It prints a JSON line of per-kernel numbers, then the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA
+It prints a JSON line of per-kernel numbers (each kernel's route taken
+from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
+forward, dq and dk/dv), then the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the ``paddle_tpu_torch`` package beside it, it exits
 non-zero and prints no result.
 """
@@ -125,6 +136,13 @@ RAGGED_SOURCE = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
 RAGGED_REPLACES = "paddle_tpu/ops/pallas/ragged_paged_attention.py:164"
 # fp32 kernel vs plain version: the same fp32 sums in another order
 TOL_FP32 = 1e-4
+# fp16 kernel vs plain version: the bf16 reasons with 3 more bits of
+# significand (about 2.5 fp16 steps at magnitude 2, as 2e-2 is for bf16);
+# the backward relative to the largest reference gradient
+TOL_FP16 = 5e-3
+TOL_BWD_FP16 = 1e-2
+# the quant kernel in fp16: one fp16 step of the output (2^-10 |ref|)
+TOL_QUANT_REL_FP16 = 2.0 ** -10
 FLASH_BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 DQ_REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:375"
 DKV_REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:389"
@@ -162,7 +180,8 @@ QUANT_PER_LAYER = 7
 # the kernels redesigned for the tensor cores, by library: their SASS must
 # hold HGMMA (wgmma) and UTMALDG (TMA loads)
 WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
-                 "flash_attention_bwd": ("flash_bwd_dkv_wgmma_kernel",)}
+                 "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel",
+                                         "flash_bwd_dkv_wgmma_kernel")}
 # every kernel's launch count, each 0
 NO_LAUNCHES = dict.fromkeys(("flash", "decode", "ragged", "flash_bwd_dq",
                              "flash_bwd_dkv", "quant", "grid"), 0)
@@ -333,6 +352,145 @@ def _simt_dkv(q, k, v, dout, lse, delta):
     return dk, dv
 
 
+def _decode_splits_at(q, ck, cv, ci, splits):
+    """The decode kernel of the main path's route with ``splits`` blocks
+    along T instead of the rule's, for the split-count line only (outside
+    every counted run)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    b, h, d = q.shape
+    T, kv = ck.shape[1], ck.shape[2]
+    work, arrivals = da._scratch_for(q.device, b * kv * splits * (h // kv)
+                                     * (d + 2), b * kv)
+    out = torch.empty_like(q)
+    fn = _build.entry("decode_attention",
+                      f"decode_attention_fwd_{da.decode_route(q.dtype)}",
+                      da._ARGTYPES)
+    _build.check("decode_attention", fn(
+        q.data_ptr(), ck.data_ptr(), cv.data_ptr(), out.data_ptr(),
+        work.data_ptr(), arrivals.data_ptr(), b, T, h, kv, d, ci, d ** -0.5,
+        0, splits, da.DTYPES[q.dtype],
+        torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+def _simt_dq(q, k, v, dout, lse, delta):
+    """The CUDA-core dq kernel on 16-bit inputs, causal, as
+    ``_simt_fwd``."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    b, sq, h, d = q.shape
+    dq = torch.empty_like(q)
+    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dq_simt",
+                      fa._DQ_ARGTYPES)
+    _build.check("flash_attention_bwd", fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), None, dq.data_ptr(), b, sq,
+        k.shape[1], h, k.shape[2], d, d ** -0.5, 1, 0, fa.DTYPES[q.dtype],
+        torch.cuda.current_stream().cuda_stream))
+    return dq
+
+
+def phase_fp16_checks(gen, dev):
+    """fp16 through every kernel against its plain version, at small
+    shapes: the flash forward, dq and dk/dv at d 64 and 128 (wgmma) and
+    256 (simt), causal, with a window and with segments; decode (its
+    split edges run in phase_decode_checks); ragged (T 1 and 4), grid
+    (dead table slots outside the pool, a window) and quant (int8, int4,
+    m 4 and 16). The counts are set to 0 before the flash cases at d 128
+    and read after: forward, dq and dk/dv all on the wgmma route."""
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_fwd_plain)
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    from paddle_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention, paged_attention_plain)
+    from paddle_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_plain)
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_plain)
+    f16 = torch.float16
+    for d in (128, 64, 256):
+        if d == 128:
+            _reset_launches()
+        for kw in (dict(causal=True), dict(causal=True, window=100),
+                   dict(causal=True, seg=True)):
+            kw = dict(kw)
+            q, k, v, g, seg = _bwd_inputs(gen, dev, f16, 2, 512, 8, 2, d,
+                                          seg=kw.pop("seg", False))
+            kw["segment_ids"] = seg
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            got = flash_attention_bwd(q, k, v, out, lse, g, **kw)
+            torch.cuda.synchronize()
+            ref, ref_lse = flash_attention_fwd_plain(q, k, v, **kw)
+            want = flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
+            err = max_err(out, ref)
+            rel = [max_err(a, r) / max(float(r.float().abs().max()), 1.0)
+                   for a, r in zip(got, want)]
+            name = ("causal" if seg is None and "window" not in kw
+                    else "segments" if seg is not None else "window 100")
+            log(f"[fp16] flash d={d} {name} q {list(q.shape)} kv "
+                f"{list(k.shape)}: forward max_abs_err {err:.3e} (lse "
+                f"{max_err(lse, ref_lse):.3e}; tol {TOL_FP16}), dq/dk/dv "
+                f"max |d| / max|ref| " + ", ".join(f"{x:.3e}" for x in rel)
+                + f" (tol {TOL_BWD_FP16})")
+            if not (err <= TOL_FP16 and max(rel) <= TOL_BWD_FP16):
+                fail(f"fp16 flash d={d} {name} disagrees with its plain "
+                     f"version")
+        if d == 128:
+            _check_routes("fp16 d=128", flash=3, flash_bwd_dq=3,
+                          flash_bwd_dkv=3)
+    b, T, h, kv, d = 4, 640, 32, 8, 128
+    q = torch.randn(b, h, d, generator=gen, device=dev).to(f16)
+    ck = torch.randn(b, T, kv, d, generator=gen, device=dev).to(f16)
+    cv = torch.randn(b, T, kv, d, generator=gen, device=dev).to(f16)
+    err = max_err(decode_attention_fwd(q, ck, cv, 600, window=300),
+                  decode_attention_fwd_plain(q, ck, cv, 600, window=300))
+    log(f"[fp16] decode [4,32,128] over [4,640,8,128] cache_index 600 window"
+        f" 300: max_abs_err {err:.3e} (tol {TOL_FP16})")
+    if not err <= TOL_FP16:
+        fail("fp16 decode disagrees with its plain version")
+    B, M = PAGED["block_size"], PAGED["max_blocks_per_seq"]
+    for T in (1, 4):
+        args = paged_case(gen, dev, ragged_lens(gen, dev, T), T=T, dtype=f16)
+        err = max_err(ragged_paged_attention(*args, window=100),
+                      ragged_paged_attention_plain(*args, window=100))
+        log(f"[fp16] ragged T={T} window 100 q {list(args[0].shape)} pools "
+            f"{list(args[1].shape)}: max_abs_err {err:.3e} (tol {TOL_FP16})")
+        if not err <= TOL_FP16:
+            fail(f"fp16 ragged T={T} disagrees with its plain version")
+    q, kp, vp, tbl, sl = paged_case(gen, dev, ragged_lens(gen, dev, 1),
+                                    dtype=f16)
+    dead = (torch.arange(M, device=dev)[None, :]
+            >= ((sl.long() + B) // B)[:, None])
+    err = max_err(paged_attention(q, kp, vp, tbl.masked_fill(dead, 1 << 30),
+                                  sl, window=100),
+                  paged_attention_plain(q, kp, vp, tbl.masked_fill(dead, 0),
+                                        sl, window=100))
+    log(f"[fp16] grid window 100, dead slots -> 2^30: max_abs_err {err:.3e}"
+        f" (tol {TOL_FP16})")
+    if not err <= TOL_FP16:
+        fail("fp16 grid disagrees with its plain version")
+    line = []
+    for bits in (8, 4):
+        qw, sc = _quantized(gen, dev, 4096, 14336, bits)
+        for m in (4, 16):
+            x = torch.randn(m, 4096, generator=gen, device=dev).to(f16)
+            out = quant_matmul(x, qw, sc, bits)
+            ref = quant_matmul_plain(x, qw, sc, bits).float()
+            diff = (out.float() - ref).abs()
+            ok = bool((diff <= TOL_QUANT_REL_FP16 * ref.abs()
+                       + TOL_QUANT_ABS * float(ref.abs().max())).all())
+            line.append(f"int{bits} m={m} {float(diff.max()):.3e}")
+            if not (ok and out.dtype == f16):
+                fail(f"fp16 quant int{bits} m={m} disagrees with its plain "
+                     f"version")
+    log(f"[fp16] quant gate_proj 4096->14336, fp16 x, bf16 scales: "
+        f"max_abs_err " + ", ".join(line) + f" (tol 2^-10 |ref| + "
+        f"{TOL_QUANT_ABS} max|ref|)")
+
+
 def flash_inputs(gen, dev, b, s, h, kv, d):
     q = torch.randn(b, s, h, d, generator=gen, device=dev) * 0.5
     k = torch.randn(b, s, kv, d, generator=gen, device=dev) * 0.5
@@ -341,8 +499,6 @@ def flash_inputs(gen, dev, b, s, h, kv, d):
 
 
 def phase_kernel_checks(gen, dev):
-    from paddle_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention_fwd, decode_attention_fwd_plain)
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_plain)
     errs = {}
@@ -370,33 +526,69 @@ def phase_kernel_checks(gen, dev):
             fail(f"flash kernel disagrees with its plain version: {name}")
         errs.setdefault("flash", err)
 
-    b, T, h, kv, d = 4, 640, 32, 8, 128
-    q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
-    ck = torch.randn(b, T, kv, d, generator=gen, device=dev).to(
-        torch.bfloat16)
-    cv = torch.randn(b, T, kv, d, generator=gen, device=dev).to(
-        torch.bfloat16)
-    for ci, window in ((0, None), (31, None), (32, None), (511, None),
-                       (639, None), (600, 128)):
-        out = decode_attention_fwd(q, ck, cv, ci, window=window)
-        torch.cuda.synchronize()
-        ref = decode_attention_fwd_plain(q, ck, cv, ci, window=window)
-        err = max_err(out, ref)
-        log(f"[check] decode [4,32,128] over [4,640,8,128] cache_index {ci}"
-            f" window {window}: max_abs_err {err:.3e} tol {TOL_BF16}")
-        if not err <= TOL_BF16:
-            fail(f"decode kernel disagrees with its plain version at "
-                 f"cache_index {ci}")
-        if ci == 639:
-            errs["decode"] = err
+    errs["decode"] = phase_decode_checks(gen, dev)
     return errs
+
+
+def decode_edges(T, b, kv):
+    """(cache_index, window) pairs on the edges of the decode kernel's
+    splits on this card: the first position; the last of split 0 and the
+    first of split 1; a window from split 0 into split 1; one inside
+    split 1; the last position of the cache, with and without a window.
+    Returns them with the split count."""
+    from paddle_tpu_torch.ops.kernels.decode_attention import decode_splits
+    splits = decode_splits(
+        T, b * kv, torch.cuda.get_device_properties(0).multi_processor_count)
+    c = -(-T // splits)
+    return splits, [(0, None), (c - 1, None), (c, None), (c + 10, 20),
+                    (2 * c - 1, 5), (T - 1, None), (T - 1, 128)]
+
+
+def phase_decode_checks(gen, dev):
+    """The decode kernels (split along T; mma for bf16 and fp16, simt for
+    fp32) against their plain version at the slice's shape (q [4,32,128],
+    cache [4,640,8,128]) at cache indices on the edges of the splits, with
+    and without a window; each call made twice must give the same bits.
+    Returns the bf16 error at the last position."""
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_fwd_plain, decode_route)
+    b, T, h, kv, d = 4, 640, 32, 8, 128
+    splits, edges = decode_edges(T, b, kv)
+    main_err = None
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float16, TOL_FP16),
+                       (torch.float32, TOL_FP32)):
+        q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
+        ck = torch.randn(b, T, kv, d, generator=gen, device=dev).to(dtype)
+        cv = torch.randn(b, T, kv, d, generator=gen, device=dev).to(dtype)
+        line = []
+        for ci, window in edges:
+            out = decode_attention_fwd(q, ck, cv, ci, window=window)
+            again = decode_attention_fwd(q, ck, cv, ci, window=window)
+            torch.cuda.synchronize()
+            ref = decode_attention_fwd_plain(q, ck, cv, ci, window=window)
+            err = max_err(out, ref)
+            line.append(f"{ci}/{window} {err:.3e}")
+            if not err <= tol:
+                fail(f"decode kernel disagrees with its plain version at "
+                     f"cache_index {ci} window {window} ({dtype})")
+            if not torch.equal(out, again):
+                fail(f"decode kernel does not repeat at cache_index {ci} "
+                     f"window {window} ({dtype})")
+            if dtype == torch.bfloat16 and (ci, window) == (T - 1, None):
+                main_err = err
+        log(f"[check] decode {str(dtype)[6:]} ({decode_route(dtype)} "
+            f"kernel) [4,32,128] over [4,640,8,128], "
+            f"{splits} splits of {-(-T // splits)} positions: max_abs_err at "
+            f"cache_index/window " + ", ".join(line) + f" (tol {tol}); "
+            f"bitwise repeat")
+    return main_err
 
 
 def phase_kernel_times(gen, dev, card):
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention_fwd, decode_attention_fwd_plain)
+        decode_attention_fwd, decode_attention_fwd_plain, decode_splits)
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_plain)
     rows = {}
@@ -430,32 +622,56 @@ def phase_kernel_times(gen, dev, card):
         del sets, lib_sets
     el = 2
 
-    # decode at the largest cache index of the slice's cache
-    b, T, h, kv, d = 4, 640, 32, 8, 128
-    ci = T - 1
-    valid = ci + 1
-    call_bytes = el * (2 * b * h * d + 2 * b * valid * kv * d)
-    n = copies_for(call_bytes)
-    sets = []
-    for _ in range(n):
-        q = torch.randn(b, h, d, generator=gen, device=dev)
-        ck = torch.randn(b, T, kv, d, generator=gen, device=dev)
-        cv = torch.randn(b, T, kv, d, generator=gen, device=dev)
-        sets.append(tuple(t.to(torch.bfloat16) for t in (q, ck, cv)))
-    lib_sets = [(q[:, :, None],
-                 ck[:, :valid].transpose(1, 2).repeat_interleave(h // kv, 1)
-                 .contiguous(),
-                 cv[:, :valid].transpose(1, 2).repeat_interleave(h // kv, 1)
-                 .contiguous()) for q, ck, cv in sets]
-    ms = cuda_ms(lambda i: decode_attention_fwd(*sets[i % n], ci),
-                 iters=200)
-    plain_ms = cuda_ms(lambda i: decode_attention_fwd_plain(*sets[i % n],
-                                                            ci), iters=50)
-    lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
-        *lib_sets[i % n]), iters=200)
-    bound_ms, bound_by = bound(call_bytes, 4 * d * valid * h * b)
-    rows["decode"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+    # decode at the largest cache index: the slice's cache, and one row
+    # over a long cache (one block per (row, kv head) gave 8 blocks there)
+    for key, (b, T, h, kv, d) in (("decode", (4, 640, 32, 8, 128)),
+                                  ("decode_long", (1, 8192, 32, 8, 128))):
+        ci = T - 1
+        valid = ci + 1
+        call_bytes = el * (2 * b * h * d + 2 * b * valid * kv * d)
+        n = copies_for(call_bytes)
+        sets = []
+        for _ in range(n):
+            q = torch.randn(b, h, d, generator=gen, device=dev)
+            ck = torch.randn(b, T, kv, d, generator=gen, device=dev)
+            cv = torch.randn(b, T, kv, d, generator=gen, device=dev)
+            sets.append(tuple(t.to(torch.bfloat16) for t in (q, ck, cv)))
+        lib_sets = [(q[:, :, None],
+                     ck[:, :valid].transpose(1, 2)
+                     .repeat_interleave(h // kv, 1).contiguous(),
+                     cv[:, :valid].transpose(1, 2)
+                     .repeat_interleave(h // kv, 1).contiguous())
+                    for q, ck, cv in sets]
+        # device time from a CUDA graph of back-to-back calls: the
+        # wrapper's host time per call is longer than these kernels
+        ms = graph_ms(lambda i: decode_attention_fwd(*sets[i % n], ci),
+                      calls=60)
+        eager_ms = cuda_ms(lambda i: decode_attention_fwd(*sets[i % n], ci),
+                           iters=200)
+        plain_ms = graph_ms(lambda i: decode_attention_fwd_plain(
+            *sets[i % n], ci), calls=10)
+        lib_ms = graph_ms(lambda i: TF.scaled_dot_product_attention(
+            *lib_sets[i % n]), calls=60)
+        bound_ms, bound_by = bound(call_bytes, 4 * d * valid * h * b)
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         shape=f"q {[b, h, d]} cache {[b, T, kv, d]} "
+                               f"cache_index {ci} (CUDA graph; kernel "
+                               f"{eager_ms:.4f} ms a call eager)")
+        # the split rule against half and twice its split count, same
+        # inputs, same timing
+        rule = decode_splits(
+            T, b * kv, torch.cuda.get_device_properties(0)
+            .multi_processor_count)
+        alt = {}
+        for k in sorted({max(1, rule // 2), rule, min(64, 2 * rule)}):
+            alt[k] = graph_ms(
+                lambda i: _decode_splits_at(*sets[i % n], ci, k), calls=60)
+        log(f"[time] decode split count, {key} shape, cache_index {ci}: "
+            + ", ".join(f"{k} splits{' (rule)' if k == rule else ''} "
+                        f"{v:.4f} ms" for k, v in alt.items())
+            + f" [{card}]")
+        del sets, lib_sets
     for name, r in rows.items():
         old = (f", simt kernel {r['simt_ms']:.4f} ms" if "simt_ms" in r
                else "")
@@ -654,7 +870,7 @@ def _generate_run(ptt, pred, ids, new, want, label, dev, card):
     log(f"[{label}] launches in one generate: {launches} (want {want})")
     if launches != want:
         fail(f"{label}: kernel launches {launches} != {want}")
-    _check_routes(label, flash=want["flash"])
+    routes = _check_routes(label, flash=want["flash"], decode=want["decode"])
     if tuple(out.shape) != (b, prompt + new):
         fail(f"{label}: generate returned shape {tuple(out.shape)}")
     if not torch.equal(out[:, :prompt], ids):
@@ -671,7 +887,7 @@ def _generate_run(ptt, pred, ids, new, want, label, dev, card):
         fail(f"{label}: a second greedy generate gave other tokens")
     log(f"[{label}] second greedy generate: identical tokens")
     return dict(out=out, prefill_ms=prefill_ms, decode_ms=decode_ms,
-                peak_gb=peak_gb, launches=launches)
+                peak_gb=peak_gb, launches=launches, routes=routes)
 
 
 def phase_slice(seed, dev, card):
@@ -738,19 +954,34 @@ def _reset_launches():
     return lambda: {k: fn.launches for k, fn in fns.items()}
 
 
-def _check_routes(label, **want_wgmma):
-    """Since the last ``_reset_launches``: each named routed kernel
-    (``flash``, ``flash_bwd_dkv``) launched ``n`` times on the wgmma route
-    and never on the simt route."""
+# the tensor-core route of each routed kernel, which bf16 and fp16 take
+FAST_ROUTE = {"flash": "wgmma", "flash_bwd_dq": "wgmma",
+              "flash_bwd_dkv": "wgmma", "decode": "mma"}
+
+
+def _routed():
+    from paddle_tpu_torch.ops.kernels.decode_attention import \
+        decode_attention_fwd
     from paddle_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd_dkv, flash_attention_fwd)
-    fns = {"flash": flash_attention_fwd,
-           "flash_bwd_dkv": flash_attention_bwd_dkv}
-    got = {k: dict(fns[k].launches_by_route) for k in want_wgmma}
-    want = {k: {"wgmma": n, "simt": 0} for k, n in want_wgmma.items()}
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    return {"flash": flash_attention_fwd,
+            "flash_bwd_dq": flash_attention_bwd_dq,
+            "flash_bwd_dkv": flash_attention_bwd_dkv,
+            "decode": decode_attention_fwd}
+
+
+def _check_routes(label, **want_fast):
+    """Since the last ``_reset_launches``: each named routed kernel
+    (``flash``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``decode``) launched
+    ``n`` times on its tensor-core route (``FAST_ROUTE``) and never on the
+    simt route. Returns the counts by route."""
+    fns = _routed()
+    got = {k: dict(fns[k].launches_by_route) for k in want_fast}
+    want = {k: {FAST_ROUTE[k]: n, "simt": 0} for k, n in want_fast.items()}
     log(f"[{label}] launches by route: {got} (want {want})")
     if got != want:
         fail(f"{label}: launches by route {got} != {want}")
+    return got
 
 
 def _serve(eng, subs, late_after: int):
@@ -975,7 +1206,8 @@ def _device_profile(pred, ids, new_tokens, ptt):
             continue
         n += 1
         name = e.name.lower()
-        cat = ("decode_attention" if "decode_kernel" in name else
+        cat = ("decode_attention" if "decode_mma_kernel" in name
+               or "decode_simt_kernel" in name else
                "flash_attention" if "flash_fwd_" in name else
                "quant_matmul" if "qmm_" in name else
                "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
@@ -1610,7 +1842,9 @@ def phase_bwd_times(gen, dev, card):
                     iters=10)
     dkv_ms = cuda_ms(lambda i: flash_attention_bwd_dkv(*kargs(i), **kw),
                      iters=10)
-    # the CUDA-core dk/dv kernel that bf16 took before, on the same inputs
+    # the CUDA-core kernels that bf16 took before, on the same inputs
+    dq_simt_ms = cuda_ms(lambda i: _simt_dq(*kargs(i)[:6]), iters=3,
+                         warmup=1)
     dkv_simt_ms = cuda_ms(lambda i: _simt_dkv(*kargs(i)[:6]), iters=3,
                           warmup=1)
     plain = {}
@@ -1640,10 +1874,12 @@ def phase_bwd_times(gen, dev, card):
         bound_ms, bound_by = bound(nbytes, products * prod)
         rows[key] = dict(ms=ms, plain_ms=plain[key], library_ms=library[key],
                          bound_ms=bound_ms, bound_by=bound_by)
+    rows["flash_bwd_dq"]["simt_ms"] = dq_simt_ms
     rows["flash_bwd_dkv"]["simt_ms"] = dkv_simt_ms
     fn_bound, fn_by = bound(fn_bytes, 5 * prod)
     log(f"[time] flash bwd at q {[b, s, h, d]} kv {[b, s, kv, d]} bf16 "
-        f"causal: dq kernel {dq_ms:.4f} ms (bound "
+        f"causal: dq kernel {dq_ms:.4f} ms (simt kernel {dq_simt_ms:.4f} "
+        f"ms; bound "
         f"{rows['flash_bwd_dq']['bound_ms']:.4f} ms, 3 products; plain dq "
         f"{plain['flash_bwd_dq']:.4f} ms; sdpa backward for dq "
         f"{library['flash_bwd_dq']:.4f} ms), dk/dv kernel {dkv_ms:.4f} ms "
@@ -1656,7 +1892,54 @@ def phase_bwd_times(gen, dev, card):
         f"{plain['whole']:.4f} ms; sdpa backward for dq, dk, dv "
         f"{library['whole']:.4f} ms [{card}]")
     del sets, lib
+    bwd_times_d64(gen, dev, card)
     return rows, errs
+
+
+def bwd_times_d64(gen, dev, card):
+    """The wgmma dq and dk/dv kernels at head_dim 64 (q [2,2048,32,64],
+    k/v [2,2048,8,64], bf16, causal) beside their bounds and SDPA's
+    backward asked for the same gradients, as phase_bwd_times does at
+    128."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        _delta, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_fwd)
+    b, s, h, kv, _ = BWD_TIME
+    d, el = 64, 2
+    q_bytes, kv_bytes = el * b * s * h * d, el * b * s * kv * d
+    row_bytes = 4 * b * h * s
+    prod = 2 * d * (b * h * s * (s + 1) // 2)
+    n = copies_for(4 * q_bytes + 4 * kv_bytes + row_bytes)
+    sets, lib = [], []
+    for _ in range(n):
+        q, k, v, g, _ = _bwd_inputs(gen, dev, torch.bfloat16, b, s, h, kv, d)
+        out, lse = flash_attention_fwd(q, k, v, causal=True)
+        sets.append((q, k, v, g, lse, _delta(out, g), None))
+        xs = [t.transpose(1, 2).contiguous().requires_grad_()
+              for t in (q, k, v)]
+        o = TF.scaled_dot_product_attention(
+            xs[0], *[x.repeat_interleave(h // kv, 1) for x in xs[1:]],
+            is_causal=True)
+        lib.append((o, xs, g.transpose(1, 2).contiguous()))
+    kw = dict(causal=True, scale=d ** -0.5, window=None)
+    parts = []
+    for key, fn, which, nbytes, products in (
+            ("dq", flash_attention_bwd_dq, [0],
+             3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 3),
+            ("dk/dv", flash_attention_bwd_dkv, [1, 2],
+             2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 4)):
+        ms = cuda_ms(lambda i: fn(*sets[i % n], **kw), iters=10)
+        lib_ms = cuda_ms(lambda i: torch.autograd.grad(
+            lib[i % n][0], [lib[i % n][1][j] for j in which], lib[i % n][2],
+            retain_graph=True), iters=10)
+        bound_ms, bound_by = bound(nbytes, products * prod)
+        parts.append(f"{key} kernel {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+                     f"{bound_by}; sdpa backward for {key} {lib_ms:.4f} ms)")
+    log(f"[time] flash bwd at d=64, q {[b, s, h, d]} kv {[b, s, kv, d]} bf16 "
+        f"causal, wgmma: " + "; ".join(parts) + f" [{card}]")
+    del sets, lib
 
 
 def phase_train_small(dev):
@@ -1765,7 +2048,7 @@ def profile_train_step(tr, step_ms, card):
     for e in kernels:
         name = e.name.lower()
         cat = ("flash_fwd" if "flash_fwd_" in name else
-               "flash_bwd_dq" if "flash_bwd_dq_kernel" in name else
+               "flash_bwd_dq" if "flash_bwd_dq_" in name else
                "flash_bwd_dkv" if "flash_bwd_dkv_" in name else
                "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
@@ -1847,8 +2130,9 @@ def phase_train(seed, dev, card):
     log(f"[train] losses per step: " + ", ".join(f"{x:.4f}" for x in losses))
     if launches != want:
         fail(f"training launches {launches} != {want}")
-    _check_routes("train", flash=L * TRAIN_STEPS,
-                  flash_bwd_dkv=L * TRAIN_STEPS)
+    routes = _check_routes("train", flash=L * TRAIN_STEPS,
+                           flash_bwd_dq=L * TRAIN_STEPS,
+                           flash_bwd_dkv=L * TRAIN_STEPS)
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail("training loss is not finite at every step")
     if not losses[-1] < losses[0]:
@@ -1936,14 +2220,15 @@ def phase_train(seed, dev, card):
         f" vs {peak_gb:.2f} GB without recompute [{card}]")
     if rc != want_rc:
         fail(f"recompute launches {rc} != {want_rc}")
-    _check_routes("train recompute", flash=2 * L * 2, flash_bwd_dkv=L * 2)
+    _check_routes("train recompute", flash=2 * L * 2, flash_bwd_dq=L * 2,
+                  flash_bwd_dkv=L * 2)
     if not all(abs(a - r) <= TOL_BF16 * abs(r)
                for a, r in zip(rc_losses, losses[:2])):
         fail("recompute changed the loss of step 1 or 2")
     del tr, model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, routes
 
 
 def main():
@@ -1974,6 +2259,7 @@ def main():
     errs["grid"] = phase_grid_checks(gen, dev)
     errs["quant"] = phase_quant_checks(gen, dev)
     phase_bwd_checks(gen, dev)
+    phase_fp16_checks(gen, dev)
     times = phase_kernel_times(gen, dev, card)
     times.update(phase_paged_time(gen, dev, card))
     times["quant"] = phase_quant_times(gen, dev, card)
@@ -1985,6 +2271,7 @@ def main():
     phase_train_small(dev)
     bf16, model = phase_slice(args.seed, dev, card)
     launches = dict(bf16["launches"])
+    routes = dict(bf16["routes"])
     launches["ragged"] = phase_paged(args.seed, dev, card, model)["ragged"]
     pred, int8 = phase_quant_slice(dev, card, model, bf16)
     launches["quant"] = int8["launches"]["quant"]
@@ -1998,9 +2285,10 @@ def main():
     del pred4, bf16
     gc.collect()
     torch.cuda.empty_cache()
-    trained = phase_train(args.seed, dev, card)
+    trained, train_routes = phase_train(args.seed, dev, card)
     for key in ("flash_bwd_dq", "flash_bwd_dkv"):
         launches[key] = trained[key]
+        routes[key] = train_routes[key]
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,
@@ -2015,7 +2303,9 @@ def main():
     kernels = []
     for key, (name, source, replaces) in meta.items():
         t = times[key]
-        route = "cuda-wgmma" if key in ("flash", "flash_bwd_dkv") else "cuda"
+        # the routed kernels: the routes their main-path launches took
+        taken = [r for r, n in routes.get(key, {}).items() if n]
+        route = "-".join(["cuda"] + taken)
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[key],
                         "max_abs_err": errs[key], "ms": t["ms"],

@@ -3,9 +3,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
+
+#include <mutex>
+#include <set>
+#include <tuple>
 
 namespace ptt {
 
@@ -53,6 +58,56 @@ struct Elt<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Elt<__half> {
+  static constexpr int PER_WORD = 2;
+  // little-endian: element 0 is the low half-word
+  __device__ static inline void unpack(uint32_t w, float* f) {
+    const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&w));
+    f[0] = x.x;
+    f[1] = x.y;
+  }
+  __device__ static inline float to_float(__half x) { return __half2float(x); }
+  __device__ static inline __half from_float(float x) {
+    return __float2half_rn(x);  // round to nearest even, as astype does
+  }
+  __device__ static inline float round(float x) {
+    return __half2float(__float2half_rn(x));
+  }
+};
+
+// The dtype codes of the Python wrappers: 0 = fp32, 1 = bf16, 2 = fp16.
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<T>{}) for the element type of `dtype` (any of the three), or
+// cudaErrorInvalidValue for another code.
+template <typename F>
+inline int by_dtype(int dtype, F&& f) {
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(f(Tag<float>{}));
+    case 1:
+      return static_cast<int>(f(Tag<__nv_bfloat16>{}));
+    case 2:
+      return static_cast<int>(f(Tag<__half>{}));
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// As by_dtype for the 16-bit types alone, which the tensor-core kernels
+// take (f is never instantiated for fp32, which gives
+// cudaErrorInvalidValue).
+template <typename F>
+inline int by_half_dtype(int dtype, F&& f) {
+  if (dtype == 1) return static_cast<int>(f(Tag<__nv_bfloat16>{}));
+  if (dtype == 2) return static_cast<int>(f(Tag<__half>{}));
+  return cudaErrorInvalidValue;
+}
+
 // N contiguous elements at p (aligned to their size in bytes) -> N floats,
 // with the widest loads the size allows.
 template <typename T, int N>
@@ -95,13 +150,26 @@ __device__ inline float warp_max(float x) {
   return x;
 }
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory.
+// Opt a kernel in to more than 48 KB of dynamic shared memory, once per
+// kernel, size and card: the attribute call costs the host more than a
+// short kernel takes to run, and the wrappers launch at every call.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::set<std::tuple<const void*, size_t, int>> done;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel),
+                                   bytes, dev);
+  std::lock_guard<std::mutex> hold(mu);
+  if (done.count(key)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.insert(key);
+  return err;
 }
 
 }  // namespace ptt

@@ -1,7 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a): dq and dk/dv, bf16 or fp32
-// in, fp32 accumulate; dk/dv in two variants that the Python wrapper
-// chooses from the dtype and head dim, never after a failure. What they
-// replace, what bounds them and how the design answers that: see
+// Flash-attention backward for Hopper (sm_90a): dq and dk/dv, fp32, bf16
+// or fp16 in, fp32 accumulate; each in two variants that the Python
+// wrapper chooses from the dtype and head dim, never after a failure. What
+// they replace, what bounds them and how the design answers that: see
 // paddle_tpu_torch/ops/kernels/flash_attention.py.
 //
 // Layout: q, dout, dq [b, sq, h, d]; k, v, dk, dv [b, sk, hk, d]; lse and
@@ -13,31 +13,51 @@
 // equality with pad = 0), form p = exp(s - lse) and
 // ds = p * (dp - delta) * scale with dp = dout . v, and round where the TPU
 // kernels round: p to dout's type before p^T dout, ds to q/k's type before
-// ds K and ds^T q; outputs are cast once at the end. Every output element
-// is written by exactly one block and summed in a fixed order: no atomics,
-// so two runs give the same bits.
+// ds K and ds^T q; outputs are cast once at the end. The mask, lse, delta,
+// p and ds stay in fp32 registers until those casts, so fp16's range (no
+// finite -1e30) never meets the mask. Every output element is written by
+// exactly one block and summed in a fixed order: no atomics, so two runs
+// give the same bits.
 //
-// dq: one block of 4 warps per (batch*head, q tile). The block keeps its
-// q and dout rows (packed words, read as broadcasts) and its fp32 dq
-// accumulator in shared memory and loops over the kv tiles the masks leave
-// live, staged as packed words with an odd stride. Each warp owns BQ/4 rows
-// and works on 4 at a time: lane i scores keys i and i+32 (s and dp in one
-// pass over d), then in the ds K product owns a strip of head dims.
+// dq, wgmma (bf16 or fp16, d in {64, 128}): one block per (batch*head,
+// 128-row q tile), the last q tiles launched first: two consumer
+// warpgroups of 64 rows each and a producer warpgroup, which hands its
+// registers to them (setmaxnreg) and of which one thread works. It loads
+// the Q and dout tiles once by TMA, then streams 64-key tiles of the kv
+// head's K and V through a ring of 4 shared-memory stages (TMA, 128-byte
+// swizzle, mbarriers); tiles wholly outside the live band are never
+// loaded. A thread's accumulator rows are fixed q rows, so it holds their
+// lse and delta in registers. Per tile a warpgroup forms S = Q K^T and
+// dP = dout V^T with wgmma (m64n64k16, operands K-major), p and ds on the
+// fp32 fragments (the masks only on tiles that cross the diagonal, the
+// window edge, sk or a segment), and dQ += dS K with wgmma whose A is ds
+// rounded to T pairs in registers and whose B = K takes the transpose bit.
+// A tile's S and dP are issued before the last tile's dS K, so forming one
+// tile's ds overlaps the other's product. dQ (64 x d fp32) stays in
+// registers and is cast and stored once.
 //
-// dk/dv, wgmma (bf16, d in {64, 128}): one block per (batch*kv head,
-// 128-key tile): two consumer warpgroups of 64 keys each and a producer
-// warpgroup, which hands its registers to them (setmaxnreg) and of which
-// one warp works. It loads the K and V tiles once by TMA, then streams
-// 64-row tiles of q and dout through a ring of shared-memory stages (TMA,
-// 128-byte swizzle, mbarriers) over the GQA group's query heads and, for
-// each, its live q tiles, and stages each tile's lse, delta and segment
-// ids beside them; both warpgroups read every stage. Per tile a warpgroup
-// forms S^T = K Q^T and dP^T = V dout^T with wgmma (m64n64k16, operands
-// K-major in shared memory), p^T and ds^T on the fp32 fragments, and
-// dV += P^T dout, dK += dS^T Q with wgmma whose A is that fragment rounded
-// to bf16 pairs in registers and whose B (dout or q) takes the transpose
-// bit. dK and dV stay in registers (64 x d fp32 each) and are cast and
-// stored once.
+// dq, simt (fp32, or d = 256): one block of 4 warps per (batch*head, q
+// tile). The block keeps its q and dout rows (packed words, read as
+// broadcasts) and its fp32 dq accumulator in shared memory and loops over
+// the kv tiles the masks leave live, staged as packed words with an odd
+// stride. Each warp owns BQ/4 rows and works on 4 at a time: lane i scores
+// keys i and i+32 (s and dp in one pass over d), then in the ds K product
+// owns a strip of head dims.
+//
+// dk/dv, wgmma (bf16 or fp16, d in {64, 128}): one block per (batch*kv
+// head, 128-key tile): two consumer warpgroups of 64 keys each and a
+// producer warpgroup, which hands its registers to them (setmaxnreg) and
+// of which one warp works. It loads the K and V tiles once by TMA, then
+// streams 64-row tiles of q and dout through a ring of shared-memory
+// stages (TMA, 128-byte swizzle, mbarriers) over the GQA group's query
+// heads and, for each, its live q tiles, and stages each tile's lse, delta
+// and segment ids beside them; both warpgroups read every stage. Per tile
+// a warpgroup forms S^T = K Q^T and dP^T = V dout^T with wgmma
+// (m64n64k16, operands K-major in shared memory), p^T and ds^T on the fp32
+// fragments, and dV += P^T dout, dK += dS^T Q with wgmma whose A is that
+// fragment rounded to T pairs in registers and whose B (dout or q) takes
+// the transpose bit. dK and dV stay in registers (64 x d fp32 each) and
+// are cast and stored once.
 //
 // dk/dv, simt (fp32, or d = 256): one block of 4 warps per (batch*kv
 // head, kv tile). K and V (packed words) and the two fp32 accumulators
@@ -48,7 +68,7 @@
 // with lanes on strips of head dims.
 //
 // The simt tiles are sized so that two blocks fit an SM's shared memory in
-// bf16 at d <= 128 (8 warps in flight per SM).
+// 16-bit types at d <= 128 (8 warps in flight per SM).
 #include "hopper.cuh"
 
 namespace {
@@ -99,7 +119,7 @@ struct DqGeometry {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    flash_bwd_dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ g,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
@@ -478,7 +498,7 @@ struct Args {
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
   const size_t smem = DqGeometry<T, D>::SMEM;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_simt_kernel<T, D>;
   cudaError_t err = ptt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   constexpr int BQ = DqGeometry<T, D>::BQ;
@@ -531,9 +551,9 @@ int run(const void* q, const void* k, const void* v, const void* g,
                static_cast<const float*>(delta),
                static_cast<const int*>(seg), b, sq, sk, h, hk, scale, causal,
                window, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch<float>(d, a, o0, o1);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(d, a, o0, o1);
-  return cudaErrorInvalidValue;
+  return ptt::by_dtype(dtype, [&](auto tag) {
+    return dispatch<typename decltype(tag)::type>(d, a, o0, o1);
+  });
 }
 
 // ------------------------------------------------------- dk/dv on wgmma
@@ -545,7 +565,7 @@ constexpr int CONSUMERS = 2;
 constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int STAGES = 3;
-constexpr int ROW_BYTES = 128;         // one half-row: 64 bf16
+constexpr int ROW_BYTES = 128;         // one half-row: 64 bf16 or fp16
 constexpr int Q_HALF = BQ * ROW_BYTES;   // one half of a q or dout tile
 constexpr int KV_HALF = BK * ROW_BYTES;  // one half of the K or V tile
 
@@ -562,7 +582,7 @@ struct Smem {
 
 }  // namespace wg
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(wg::THREADS, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -571,8 +591,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                const int* __restrict__ seg,
-                               __nv_bfloat16* __restrict__ dk,
-                               __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                               T* __restrict__ dk, T* __restrict__ dv, int sq,
+                               int sk,
                                int h, int hk, float scale, int causal,
                                int window) {
   using S = wg::Smem<D>;
@@ -687,14 +707,14 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     for (int kk = 0; kk < D / 16; ++kk) {
       const int at = (kk / 4) * wg::KV_HALF + (kk % 4) * 32;
       const int bt = (kk / 4) * wg::Q_HALF + (kk % 4) * 32;
-      ptt::wgmma_ss<BQ>(sT, ptt::desc_kmajor(kt + at),
+      ptt::wgmma_ss<T, BQ>(sT, ptt::desc_kmajor(kt + at),
                         ptt::desc_kmajor(qt + bt), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int at = (kk / 4) * wg::KV_HALF + (kk % 4) * 32;
       const int bt = (kk / 4) * wg::Q_HALF + (kk % 4) * 32;
-      ptt::wgmma_ss<BQ>(dpT, ptt::desc_kmajor(vt + at),
+      ptt::wgmma_ss<T, BQ>(dpT, ptt::desc_kmajor(vt + at),
                         ptt::desc_kmajor(gt + bt), kk > 0);
     }
     ptt::wgmma_commit();
@@ -728,28 +748,28 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
         }
       }
     // p through dout's type before p^T dout, ds through q's before
-    // ds^T q: the bf16 pairs of columns 16kk .. 16kk+15 are step kk's A
+    // ds^T q: the T pairs of columns 16kk .. 16kk+15 are step kk's A
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        pa[kk][c] = ptt::pack_bf16(sT[8 * kk + 2 * c], sT[8 * kk + 2 * c + 1]);
+        pa[kk][c] = ptt::pack2<T>(sT[8 * kk + 2 * c], sT[8 * kk + 2 * c + 1]);
         da[kk][c] =
-            ptt::pack_bf16(dpT[8 * kk + 2 * c], dpT[8 * kk + 2 * c + 1]);
+            ptt::pack2<T>(dpT[8 * kk + 2 * c], dpT[8 * kk + 2 * c + 1]);
       }
 
     // dV += P^T dout, dK += dS^T Q: B MN-major (the transpose bit)
     ptt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      ptt::wgmma_rs<D>(dv_acc, pa[kk],
+      ptt::wgmma_rs<T, D>(dv_acc, pa[kk],
                        ptt::desc_mnmajor(gt + kk * 16 * wg::ROW_BYTES,
                                          wg::Q_HALF),
                        1);
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      ptt::wgmma_rs<D>(dk_acc, da[kk],
+      ptt::wgmma_rs<T, D>(dk_acc, da[kk],
                        ptt::desc_mnmajor(qt + kk * 16 * wg::ROW_BYTES,
                                          wg::Q_HALF),
                        1);
@@ -767,46 +787,353 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = 4 * j + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j + 2 * quad) =
-          __floats2bfloat162_rn(dk_acc[c], dk_acc[c + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j + 2 * quad) =
-          __floats2bfloat162_rn(dv_acc[c], dv_acc[c + 1]);
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * j + 2 * quad) =
+          ptt::pack2<T>(dk_acc[c], dk_acc[c + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * j + 2 * quad) =
+          ptt::pack2<T>(dv_acc[c], dv_acc[c + 1]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   CUtensorMap tq, tk, tv, tg;
-  int rc = ptt::encode_bshd(&tq, a.q, a.b, a.sq, a.h, D, wg::BQ);
-  if (rc == 0) rc = ptt::encode_bshd(&tg, a.g, a.b, a.sq, a.h, D, wg::BQ);
-  if (rc == 0) rc = ptt::encode_bshd(&tk, a.k, a.b, a.sk, a.hk, D, wg::BK);
-  if (rc == 0) rc = ptt::encode_bshd(&tv, a.v, a.b, a.sk, a.hk, D, wg::BK);
+  int rc = ptt::encode_bshd<T>(&tq, a.q, a.b, a.sq, a.h, D, wg::BQ);
+  if (rc == 0) rc = ptt::encode_bshd<T>(&tg, a.g, a.b, a.sq, a.h, D, wg::BQ);
+  if (rc == 0) rc = ptt::encode_bshd<T>(&tk, a.k, a.b, a.sk, a.hk, D, wg::BK);
+  if (rc == 0) rc = ptt::encode_bshd<T>(&tv, a.v, a.b, a.sk, a.hk, D, wg::BK);
   if (rc != 0) return rc;
   const size_t smem = wg::Smem<D>::BYTES;
-  auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<T, D>;
   cudaError_t err = ptt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.b * a.hk, (a.sk + wg::BK - 1) / wg::BK);
   kernel<<<grid, wg::THREADS, smem, a.stream>>>(
       tq, tk, tv, tg, a.lse, a.delta, a.seg,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.sq,
-      a.sk, a.h, a.hk, a.scale, a.causal, a.window);
+      static_cast<T*>(dk), static_cast<T*>(dv), a.sq, a.sk, a.h, a.hk,
+      a.scale, a.causal, a.window);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------- dq on wgmma
+namespace wgdq {
+
+constexpr int BQ = 128;                // q rows per block: 64 a warpgroup
+constexpr int BK = 64;                 // keys per streamed K/V tile
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int STAGES = 4;
+constexpr int ROW_BYTES = 128;           // one half-row: 64 bf16 or fp16
+constexpr int Q_HALF = BQ * ROW_BYTES;   // one half of the Q or dout tile
+constexpr int KV_HALF = BK * ROW_BYTES;  // one half of a K or V tile
+
+template <int D>
+struct Smem {
+  static constexpr int Q_TILE = (D / 64) * Q_HALF;    // 128 rows x D
+  static constexpr int KV_TILE = (D / 64) * KV_HALF;  // 64 rows x D
+  // 1024 for the alignment of the swizzled tiles; Q and dout; the K and V
+  // stages; the barriers (Q/dout's, and full / empty per stage)
+  static constexpr size_t BYTES =
+      1024 + 2 * Q_TILE + 2 * STAGES * KV_TILE + 8 * (1 + 2 * STAGES);
+};
+
+}  // namespace wgdq
+
+// dq for one (batch*head, 128-row q tile): two consumer warpgroups of 64
+// rows and a producer warpgroup (see the file's head).
+template <typename T, int D>
+__global__ void __launch_bounds__(wgdq::THREADS, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tg,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              const int* __restrict__ seg, T* __restrict__ dq,
+                              int sq, int sk, int h, int hk, float scale,
+                              int causal, int window) {
+  using S = wgdq::Smem<D>;
+  constexpr int BQ = wgdq::BQ, BK = wgdq::BK, STAGES = wgdq::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = ptt::align1024(smem_raw);
+  unsigned char* Gs = Qs + S::Q_TILE;
+  unsigned char* Ks = Gs + S::Q_TILE;            // [STAGES] tiles
+  unsigned char* Vs = Ks + STAGES * S::KV_TILE;  // [STAGES] tiles
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + STAGES * S::KV_TILE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / h, hh = bh % h, kvh = hh / (h / hk);
+  // the last q tiles see the most keys under the causal mask: launched
+  // first, so the longest blocks do not trail the grid
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int off = sk - sq;
+  // key range any row of this tile may attend
+  int hi = sk, lo = 0;
+  if (causal) {
+    hi = min(sk, q0 + BQ + off);
+    if (window > 0) lo = max(0, q0 + off - (window - 1));
+  }
+  lo = (lo / BK) * BK;
+  const int ntiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+
+  if (tid == 0) {
+    ptt::mbar_init(qbar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      ptt::mbar_init(full + st, 1);
+      ptt::mbar_init(empty + st, wgdq::CONSUMERS * 128);
+    }
+    ptt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= wgdq::CONSUMERS * 128) {  // the producer warpgroup
+    ptt::setmaxnreg_dec<wgdq::PRODUCER_REGS>();
+    if (tid != wgdq::CONSUMERS * 128) return;  // one thread is enough
+    ptt::mbar_arrive_tx(qbar, 2 * S::Q_TILE);
+    for (int half = 0; half < D / 64; ++half) {
+      ptt::tma_load_4d(Qs + half * wgdq::Q_HALF, &tq, qbar, 64 * half, hh, q0,
+                       b);
+      ptt::tma_load_4d(Gs + half * wgdq::Q_HALF, &tg, qbar, 64 * half, hh, q0,
+                       b);
+    }
+    for (int i = 0; i < ntiles; ++i) {
+      const int st = i % STAGES, k0 = lo + i * BK;
+      ptt::mbar_wait(empty + st, ((i / STAGES) & 1) ^ 1);
+      ptt::mbar_arrive_tx(full + st, 2 * S::KV_TILE);
+      for (int half = 0; half < D / 64; ++half) {
+        ptt::tma_load_4d(Ks + st * S::KV_TILE + half * wgdq::KV_HALF, &tk,
+                         full + st, 64 * half, kvh, k0, b);
+        ptt::tma_load_4d(Vs + st * S::KV_TILE + half * wgdq::KV_HALF, &tv,
+                         full + st, 64 * half, kvh, k0, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup, on q rows wgi*64 .. +63 of the tile: this thread
+  // owns rows row[0] and row[1] = row[0] + 8 of every accumulator fragment
+  // (see hopper.cuh), so it loads their lse, delta and segment ids once
+  ptt::setmaxnreg_inc<wgdq::CONSUMER_REGS>();
+  const int wgi = tid / 128, lane = tid & 31, w = (tid & 127) / 32;
+  const int quad = lane & 3;
+  int row[2], qseg[2] = {0, 0};
+  float lse_r[2], del_r[2];
+  row[0] = q0 + wgi * 64 + w * 16 + lane / 4;
+  row[1] = row[0] + 8;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = row[r] < sq;
+    lse_r[r] = ok ? lse[(size_t)bh * sq + row[r]] : 0.f;
+    del_r[r] = ok ? delta[(size_t)bh * sq + row[r]] : 0.f;
+    if (seg != nullptr) qseg[r] = ok ? seg[(size_t)b * sq + row[r]] : 0;
+  }
+  // whether a tile needs the per-element masks: the same answer for all
+  // 64 rows of the warpgroup
+  const int rmin = q0 + wgi * 64, rmax = rmin + 63;
+  auto masked = [&](int k0) {
+    return seg != nullptr || k0 + BK > sk ||
+           (causal && (k0 + BK - 1 > rmin + off ||
+                       (window > 0 && k0 <= rmax + off - window)));
+  };
+  float acc[D / 2], s[BK / 2], dp[BK / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  uint32_t da[BK / 16][4];  // the last tile's ds: the A operand of dS K
+  const unsigned char* qtile = Qs + wgi * 64 * wgdq::ROW_BYTES;
+  const unsigned char* gtile = Gs + wgi * 64 * wgdq::ROW_BYTES;
+
+  // S = Q K^T and dP = dout V^T, both operands K-major
+  auto issue_s = [&](int i) {
+    const unsigned char* kt = Ks + (i % STAGES) * S::KV_TILE;
+    const unsigned char* vt = Vs + (i % STAGES) * S::KV_TILE;
+    ptt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = (kk / 4) * wgdq::Q_HALF + (kk % 4) * 32;
+      const int bt = (kk / 4) * wgdq::KV_HALF + (kk % 4) * 32;
+      ptt::wgmma_ss<T, BK>(s, ptt::desc_kmajor(qtile + at),
+                           ptt::desc_kmajor(kt + bt), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = (kk / 4) * wgdq::Q_HALF + (kk % 4) * 32;
+      const int bt = (kk / 4) * wgdq::KV_HALF + (kk % 4) * 32;
+      ptt::wgmma_ss<T, BK>(dp, ptt::desc_kmajor(gtile + at),
+                           ptt::desc_kmajor(vt + bt), kk > 0);
+    }
+    ptt::wgmma_commit();
+  };
+  // dQ += dS K: K as B, MN-major (the transpose bit)
+  auto issue_dq = [&](int i) {
+    const unsigned char* kt = Ks + (i % STAGES) * S::KV_TILE;
+    ptt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      ptt::wgmma_rs<T, D>(acc, da[kk],
+                          ptt::desc_mnmajor(kt + kk * 16 * wgdq::ROW_BYTES,
+                                            wgdq::KV_HALF),
+                          1);
+    ptt::wgmma_commit();
+  };
+  // p = exp(s * scale - lse) with the forward's masks (keys at or past sk
+  // give p = 0), ds = p (dp - delta) scale, left in dp
+  auto grads = [&](int k0) {
+    if (masked(k0)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * quad + e;
+          const int kseg = (seg != nullptr && key < sk)
+                               ? seg[(size_t)b * sk + key] : -1;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int reg = 4 * j + 2 * r + e;
+            bool keep = live(row[r], key, off, causal, window);
+            if (seg != nullptr) keep = keep && kseg == qseg[r];
+            const float sm = keep ? s[reg] * scale : NEG_INF;
+            const float p = key < sk ? __expf(sm - lse_r[r]) : 0.f;
+            dp[reg] = p * (dp[reg] - del_r[r]) * scale;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i / 2) % 2;
+        const float p = __expf(s[i] * scale - lse_r[r]);
+        dp[i] = p * (dp[i] - del_r[r]) * scale;
+      }
+    }
+  };
+  // ds goes through K's type before dS K: the T pairs of columns
+  // 16kk .. 16kk+15 are step kk's A operand
+  auto to_da = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        da[kk][c] = ptt::pack2<T>(dp[8 * kk + 2 * c], dp[8 * kk + 2 * c + 1]);
+  };
+
+  ptt::mbar_wait(qbar, 0);
+  // The first tile alone; then each turn issues this tile's S and dP and
+  // the last tile's dS K as two wgmma groups and forms this tile's ds while
+  // dS K is in flight (no first-turn branch inside the loop, so ptxas can
+  // see which group each wait retires).
+  if (ntiles > 0) {
+    ptt::mbar_wait(full, 0);
+    issue_s(0);
+    ptt::wgmma_wait<0>();
+    ptt::fence_regs<BK / 2>(s);
+    ptt::fence_regs<BK / 2>(dp);
+    grads(lo);
+    to_da();
+  }
+  for (int i = 1; i < ntiles; ++i) {
+    ptt::mbar_wait(full + i % STAGES, (i / STAGES) & 1);
+    issue_s(i);
+    issue_dq(i - 1);
+    ptt::wgmma_wait<1>();
+    ptt::fence_regs<BK / 2>(s);
+    ptt::fence_regs<BK / 2>(dp);
+    grads(lo + i * BK);
+    ptt::wgmma_wait<0>();
+    ptt::fence_regs<D / 2>(acc);
+    ptt::mbar_arrive(empty + (i - 1) % STAGES);
+    to_da();
+  }
+  if (ntiles > 0) {  // the last tile's dS K
+    issue_dq(ntiles - 1);
+    ptt::wgmma_wait<0>();
+    ptt::fence_regs<D / 2>(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= sq) continue;
+    T* out = dq + (((size_t)b * sq + row[r]) * h + hh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * quad) =
+          ptt::pack2<T>(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+template <typename T, int D>
+int launch_dq_wgmma(const Args& a, void* dq) {
+  CUtensorMap tq, tk, tv, tg;
+  int rc = ptt::encode_bshd<T>(&tq, a.q, a.b, a.sq, a.h, D, wgdq::BQ);
+  if (rc == 0) rc = ptt::encode_bshd<T>(&tg, a.g, a.b, a.sq, a.h, D, wgdq::BQ);
+  if (rc == 0)
+    rc = ptt::encode_bshd<T>(&tk, a.k, a.b, a.sk, a.hk, D, wgdq::BK);
+  if (rc == 0)
+    rc = ptt::encode_bshd<T>(&tv, a.v, a.b, a.sk, a.hk, D, wgdq::BK);
+  if (rc != 0) return rc;
+  const size_t smem = wgdq::Smem<D>::BYTES;
+  auto kernel = flash_bwd_dq_wgmma_kernel<T, D>;
+  cudaError_t err = ptt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.b * a.h, (a.sq + wgdq::BQ - 1) / wgdq::BQ);
+  kernel<<<grid, wgdq::THREADS, smem, a.stream>>>(
+      tq, tk, tv, tg, a.lse, a.delta, a.seg, static_cast<T*>(dq), a.sq, a.sk,
+      a.h, a.hk, a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+// The wgmma kernels: bf16 or fp16 (dtype 1 or 2), d in {64, 128}; dq when
+// o1 is null, else dk (o0) and dv (o1).
+int run_wgmma(const void* q, const void* k, const void* v, const void* g,
+              const void* lse, const void* delta, const void* seg, void* o0,
+              void* o1, int b, int sq, int sk, int h, int hk, int d,
+              float scale, int causal, int window, int dtype, void* stream) {
+  const Args a{q, k, v, g,
+               static_cast<const float*>(lse),
+               static_cast<const float*>(delta),
+               static_cast<const int*>(seg), b, sq, sk, h, hk, scale, causal,
+               window, static_cast<cudaStream_t>(stream)};
+  return ptt::by_half_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    const bool dq = o1 == nullptr;
+    if (d == 64)
+      return dq ? launch_dq_wgmma<T, 64>(a, o0)
+                : launch_dkv_wgmma<T, 64>(a, o0, o1);
+    if (d == 128)
+      return dq ? launch_dq_wgmma<T, 128>(a, o0)
+                : launch_dkv_wgmma<T, 128>(a, o0, o1);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. seg may be null. window <= 0 means none.
-extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
-                                      const void* v, const void* g,
-                                      const void* lse, const void* delta,
-                                      const void* seg, void* dq, int b,
-                                      int sq, int sk, int h, int hk, int d,
-                                      float scale, int causal, int window,
-                                      int dtype, void* stream) {
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16 (the wgmma entry points take 1 and 2,
+// at d 64 and 128). seg may be null. window <= 0 means none.
+extern "C" int flash_attention_bwd_dq_simt(const void* q, const void* k,
+                                           const void* v, const void* g,
+                                           const void* lse, const void* delta,
+                                           const void* seg, void* dq, int b,
+                                           int sq, int sk, int h, int hk,
+                                           int d, float scale, int causal,
+                                           int window, int dtype,
+                                           void* stream) {
   return run(q, k, v, g, lse, delta, seg, dq, nullptr, b, sq, sk, h, hk, d,
              scale, causal, window, dtype, stream);
+}
+
+extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k,
+                                            const void* v, const void* g,
+                                            const void* lse, const void* delta,
+                                            const void* seg, void* dq, int b,
+                                            int sq, int sk, int h, int hk,
+                                            int d, float scale, int causal,
+                                            int window, int dtype,
+                                            void* stream) {
+  return run_wgmma(q, k, v, g, lse, delta, seg, dq, nullptr, b, sq, sk, h,
+                   hk, d, scale, causal, window, dtype, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv_simt(const void* q, const void* k,
@@ -820,20 +1147,11 @@ extern "C" int flash_attention_bwd_dkv_simt(const void* q, const void* k,
              causal, window, dtype, stream);
 }
 
-// bf16 only, d in {64, 128}; the other arguments as
-// flash_attention_bwd_dkv_simt
 extern "C" int flash_attention_bwd_dkv_wgmma(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, const void* seg, void* dk, void* dv,
     int b, int sq, int sk, int h, int hk, int d, float scale, int causal,
     int window, int dtype, void* stream) {
-  const Args a{q, k, v, g,
-               static_cast<const float*>(lse),
-               static_cast<const float*>(delta),
-               static_cast<const int*>(seg), b, sq, sk, h, hk, scale, causal,
-               window, static_cast<cudaStream_t>(stream)};
-  if (dtype != 1) return cudaErrorInvalidValue;
-  if (d == 64) return launch_dkv_wgmma<64>(a, dk, dv);
-  if (d == 128) return launch_dkv_wgmma<128>(a, dk, dv);
-  return cudaErrorInvalidValue;
+  return run_wgmma(q, k, v, g, lse, delta, seg, dk, dv, b, sq, sk, h, hk, d,
+                   scale, causal, window, dtype, stream);
 }

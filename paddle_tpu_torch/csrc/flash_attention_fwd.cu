@@ -7,30 +7,31 @@
 // (optional, sq == sk), out [b, sq, h, d], lse [b, h, sq] fp32. Query head
 // hh reads kv head hh / (h / hk).
 //
-// wgmma (bf16, d in {64, 128}): one block per (batch*head, 128-row q
-// tile), the last q tiles (the most keys under the causal mask) launched
-// first. Two consumer warpgroups own 64 query rows each; a producer
-// warpgroup hands its registers to them (setmaxnreg), and one of its
-// threads loads the Q tile once and streams 128-key K/V tiles through a
-// ring of 3 shared-memory stages, all by TMA with the 128-byte swizzle,
+// wgmma (bf16 or fp16, d in {64, 128}): one block per (batch*head,
+// 128-row q tile), the last q tiles (the most keys under the causal mask)
+// launched first. Two consumer warpgroups own 64 query rows each; a
+// producer warpgroup hands its registers to them (setmaxnreg), and one of
+// its threads loads the Q tile once and streams 128-key K/V tiles through
+// a ring of 3 shared-memory stages, all by TMA with the 128-byte swizzle,
 // completed on mbarriers. S = Q K^T is wgmma m64n128k16 with both
 // operands K-major in shared memory; the online softmax runs on the fp32
 // accumulator fragment (row max over the 4 lanes of a quad, the masks per
 // element only on tiles that cut the causal diagonal, the window band,
-// sk or a segment); p, rounded to bf16, is already the register A operand
-// of O += P V, whose B = V takes wgmma's transpose bit. A tile's S = Q K^T
-// is issued before the last tile's P V, so the softmax of one overlaps
-// the other on the tensor cores. Tiles wholly above the causal diagonal
-// or before the window band are never loaded; keys past sk read as zeros
-// (TMA) and are masked.
+// sk or a segment); p, rounded to the input type, is already the register
+// A operand of O += P V, whose B = V takes wgmma's transpose bit. A tile's
+// S = Q K^T is issued before the last tile's P V, so the softmax of one
+// overlaps the other on the tensor cores. Tiles wholly above the causal
+// diagonal or before the window band are never loaded; keys past sk read
+// as zeros (TMA) and are masked. The mask value and the running max stay
+// in fp32 registers, so fp16's range (no finite -1e30) never meets them.
 //
-// simt (fp32, or d = 256): one block of 4 warps per (batch*head, 64-row
-// query tile), looping over 64-key tiles of K and V staged in shared
-// memory with an odd word stride, with the products as fp32 FMAs on the
-// CUDA cores. Each warp owns 16 query rows and works on 4 of them at a
-// time: lane i scores keys i and i+32 against the 4 rows, and in the PV
-// product owns a strip of head dims. Rows keep their running max and sum
-// in registers and their output accumulator in shared memory.
+// simt (fp32, or d = 256; fp32, bf16 or fp16 in): one block of 4 warps
+// per (batch*head, 64-row query tile), looping over 64-key tiles of K and
+// V staged in shared memory with an odd word stride, with the products as
+// fp32 FMAs on the CUDA cores. Each warp owns 16 query rows and works on 4
+// of them at a time: lane i scores keys i and i+32 against the 4 rows, and
+// in the PV product owns a strip of head dims. Rows keep their running max
+// and sum in registers and their output accumulator in shared memory.
 #include "hopper.cuh"
 
 namespace {
@@ -287,7 +288,7 @@ constexpr int BK = 128;         // keys per K/V tile
 constexpr int CONSUMERS = 2;    // warpgroups of 64 rows each
 constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-constexpr int ROW_BYTES = 128;  // one half-row: 64 bf16
+constexpr int ROW_BYTES = 128;  // one half-row: 64 bf16 or fp16
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
@@ -378,13 +379,13 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
 
 }  // namespace wg
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(wg::THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const int* __restrict__ seg,
-                           __nv_bfloat16* __restrict__ out,
+                           T* __restrict__ out,
                            float* __restrict__ lse, int sq, int sk, int h,
                            int hk, float scale, int causal, int window) {
   using S = wg::Smem<D>;
@@ -483,7 +484,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       for (int kk = 0; kk < D / 16; ++kk) {
         const int at = (kk / 4) * S::Q_HALF + (kk % 4) * 32;
         const int bt = (kk / 4) * S::KV_HALF + (kk % 4) * 32;
-        ptt::wgmma_ss<BK>(s, ptt::desc_kmajor(qtile + at),
+        ptt::wgmma_ss<T, BK>(s, ptt::desc_kmajor(qtile + at),
                           ptt::desc_kmajor(kt + bt), kk > 0);
       }
       ptt::wgmma_commit();
@@ -493,7 +494,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       ptt::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        ptt::wgmma_rs<D>(o, pa[kk],
+        ptt::wgmma_rs<T, D>(o, pa[kk],
                          ptt::desc_mnmajor(vt + kk * 16 * wg::ROW_BYTES,
                                            S::KV_HALF),
                          1);
@@ -509,13 +510,13 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
         }
     };
     // p goes through V's type before the PV product, as on the TPU: the
-    // bf16 pairs of columns 16kk .. 16kk+15 are step kk's A operand
+    // T pairs of columns 16kk .. 16kk+15 are step kk's A operand
     auto to_pa = [&]() {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          pa[kk][c] = ptt::pack_bf16(s[8 * kk + 2 * c], s[8 * kk + 2 * c + 1]);
+          pa[kk][c] = ptt::pack2<T>(s[8 * kk + 2 * c], s[8 * kk + 2 * c + 1]);
     };
     // The first tile alone; then each turn issues this tile's S and the
     // last tile's P V as two wgmma groups and runs this tile's softmax
@@ -558,40 +559,40 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       if (row[r] >= sq) continue;
       const float lc = fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* orow = out + (((size_t)b * sq + row[r]) * h + hh) * D;
+      T* orow = out + (((size_t)b * sq + row[r]) * h + hh) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * quad) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] / lc,
-                                  o[4 * j + 2 * r + 1] / lc);
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * quad) =
+            ptt::pack2<T>(o[4 * j + 2 * r] / lc, o[4 * j + 2 * r + 1] / lc);
       if (quad == 0) lse[(size_t)bh * sq + row[r]] = m[r] + logf(lc);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* seg,
                  void* out, float* lse, int b, int sq, int sk, int h, int hk,
                  float scale, int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int rc = ptt::encode_bshd(&tq, q, b, sq, h, D, wg::BQ);
-  if (rc == 0) rc = ptt::encode_bshd(&tk, k, b, sk, hk, D, wg::BK);
-  if (rc == 0) rc = ptt::encode_bshd(&tv, v, b, sk, hk, D, wg::BK);
+  int rc = ptt::encode_bshd<T>(&tq, q, b, sq, h, D, wg::BQ);
+  if (rc == 0) rc = ptt::encode_bshd<T>(&tk, k, b, sk, hk, D, wg::BK);
+  if (rc == 0) rc = ptt::encode_bshd<T>(&tv, v, b, sk, hk, D, wg::BK);
   if (rc != 0) return rc;
   const size_t smem = wg::Smem<D>::BYTES;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  auto kernel = flash_fwd_wgmma_kernel<T, D>;
   cudaError_t err = ptt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, (sq + wg::BQ - 1) / wg::BQ);
   kernel<<<grid, wg::THREADS, smem, stream>>>(
-      tq, tk, tv, seg, static_cast<__nv_bfloat16*>(out), lse, sq, sk, h, hk,
+      tq, tk, tv, seg, static_cast<T*>(out), lse, sq, sk, h, hk,
       scale, causal, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. seg may be null. window <= 0 means none.
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16. seg may be null. window <= 0 means
+// none.
 extern "C" int flash_attention_fwd_simt(const void* q, const void* k,
                                    const void* v, const void* seg, void* out,
                                    void* lse, int b, int sq, int sk, int h,
@@ -600,16 +601,15 @@ extern "C" int flash_attention_fwd_simt(const void* q, const void* k,
   const int* s = static_cast<const int*>(seg);
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, s, out, l, b, sq, sk, h, hk, scale,
-                             causal, window, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, s, out, l, b, sq, sk, h, hk,
-                                     scale, causal, window, st);
-  return cudaErrorInvalidValue;
+  return ptt::by_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return dispatch_d<T>(d, q, k, v, s, out, l, b, sq, sk, h, hk, scale,
+                         causal, window, st);
+  });
 }
 
-// bf16 only, d in {64, 128}; the other arguments as flash_attention_fwd_simt
+// bf16 or fp16 (dtype 1 or 2), d in {64, 128}; the other arguments as
+// flash_attention_fwd_simt
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          const void* v, const void* seg,
                                          void* out, void* lse, int b, int sq,
@@ -619,12 +619,14 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
   const int* s = static_cast<const int*>(seg);
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 1) return cudaErrorInvalidValue;
-  if (d == 64)
-    return launch_wgmma<64>(q, k, v, s, out, l, b, sq, sk, h, hk, scale,
-                            causal, window, st);
-  if (d == 128)
-    return launch_wgmma<128>(q, k, v, s, out, l, b, sq, sk, h, hk, scale,
-                             causal, window, st);
-  return cudaErrorInvalidValue;
+  return ptt::by_half_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    if (d == 64)
+      return launch_wgmma<T, 64>(q, k, v, s, out, l, b, sq, sk, h, hk, scale,
+                                 causal, window, st);
+    if (d == 128)
+      return launch_wgmma<T, 128>(q, k, v, s, out, l, b, sq, sk, h, hk,
+                                  scale, causal, window, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }

@@ -1,6 +1,6 @@
 // Grid paged attention for Hopper (sm_90a): single-query paged decode,
-// bf16 or fp32 in, fp32 accumulate. What it replaces, what bounds it and
-// how the design answers that: see
+// fp32, bf16 or fp16 in, fp32 accumulate. What it replaces, what bounds it
+// and how the design answers that: see
 // paddle_tpu_torch/ops/kernels/paged_attention.py.
 //
 // Layout: q [R, h, d], pools [P, B, kvh, d], block_tables [R, M] int32,
@@ -284,7 +284,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. window <= 0 means none.
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16. window <= 0 means none.
 extern "C" int paged_attention_fwd(const void* q, const void* kp,
                                    const void* vp, const void* tables,
                                    const void* lens, void* out, int R, int h,
@@ -294,11 +294,8 @@ extern "C" int paged_attention_fwd(const void* q, const void* kp,
       B < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, kp, vp, tables, lens, out, R, h, kvh, M, B,
-                             scale, window, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, kp, vp, tables, lens, out, R, h,
-                                      kvh, M, B, scale, window, st);
-  return cudaErrorInvalidValue;
+  return ptt::by_dtype(dtype, [&](auto tag) {
+    return dispatch_d<typename decltype(tag)::type>(
+        d, q, kp, vp, tables, lens, out, R, h, kvh, M, B, scale, window, st);
+  });
 }

@@ -1,6 +1,7 @@
-// Fused weight-only dequant-matmul for Hopper (sm_90a): x [m, din] (bf16 or
-// fp32) times int8 [din, dout] or int4 [din/2, dout] codes with bf16 scales
-// [din/128, dout], fp32 dequant and fp32 sums, out [m, dout] in x's type.
+// Fused weight-only dequant-matmul for Hopper (sm_90a): x [m, din] (fp32,
+// bf16 or fp16) times int8 [din, dout] or int4 [din/2, dout] codes with
+// bf16 scales [din/128, dout], fp32 dequant and fp32 sums, out [m, dout]
+// in x's type (rounded once).
 // What it replaces, what bounds it and how the design answers that: see
 // paddle_tpu_torch/ops/kernels/quant_matmul.py.
 //
@@ -232,7 +233,8 @@ cudaError_t dispatch_bits(int bits, int mt, const void* x, const void* qw,
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. mt: activation rows per block (1, 2 or 4).
+// dtype of x and out: 0 = fp32, 1 = bf16, 2 = fp16 (the scales are bf16
+// whatever x is). mt: activation rows per block (1, 2 or 4).
 // partial: fp32 [splits, m, dout] scratch, unused when splits == 1.
 extern "C" int quant_matmul_fwd(const void* x, const void* qw,
                                 const void* scales, void* out, void* partial,
@@ -242,11 +244,8 @@ extern "C" int quant_matmul_fwd(const void* x, const void* qw,
       splits < 1 || splits > din / QB)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_bits<float>(bits, mt, x, qw, scales, out, partial, m, din,
-                                dout, splits, st);
-  if (dtype == 1)
-    return dispatch_bits<__nv_bfloat16>(bits, mt, x, qw, scales, out, partial,
-                                        m, din, dout, splits, st);
-  return cudaErrorInvalidValue;
+  return ptt::by_dtype(dtype, [&](auto tag) {
+    return dispatch_bits<typename decltype(tag)::type>(
+        bits, mt, x, qw, scales, out, partial, m, din, dout, splits, st);
+  });
 }

@@ -19,6 +19,7 @@ import torch
 
 MIN_CAPABILITY = (9, 0)
 _capability: Dict[torch.device, Tuple[int, int]] = {}
+_sms: Dict[int, int] = {}
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -40,6 +41,28 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
             f"the kernels are built for sm_90a; this card has compute "
             f"capability {cap[0]}.{cap[1]}")
     return True
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of ``t``'s card (read once per card):
+    kernels that split work across blocks size their grids by it."""
+    index = t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``t``'s card, which the
+    kernels launch on. Read without building a ``torch.cuda.Stream``: that
+    costs the host more per call than the short kernels take to run."""
+    index = t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_layout(**tensors: torch.Tensor) -> None:

@@ -8,9 +8,9 @@ positions 0..cache_index attend, only the trailing ``window`` of them
 with a sliding window; GQA-native, each K/V row read once per kv head for
 its whole query group; fp32 softmax and accumulation with the finite
 -1e30 mask, ``p`` cast to V's type before the PV product and the 1e-30
-clamp of the final divide. The TPU kernel's (8, 128) tiling and its
-head-pair zero-embedding serve Mosaic's layout rules and are not carried
-over.
+clamp of the final divide; fp32, bf16 or fp16 in, out in q's dtype. The
+TPU kernel's (8, 128) tiling and its head-pair zero-embedding serve
+Mosaic's layout rules and are not carried over.
 
 Bound on the H100: the function must read the valid K/V positions once.
 For Llama-3-8B at b=4, kv=8, d=128, bf16 and cache_index 639 that is
@@ -19,34 +19,56 @@ query dim are far below the tensor-core rate, so the bound is the bytes,
 and at a smaller cache_index only the valid positions count.
 
 Design (``csrc/decode_attention.cu``): the TPU's sequential T grid axis
-becomes a loop inside one block per (row, kv head). Each lane owns d/32
-contiguous dims of the group's queries; warps take interleaved runs of
-positions and load a whole run's K and V rows before using them, so
-several loads are in flight per warp; the 8 warps' partial softmaxes
-merge through shared memory at the end. Positions past ``cache_index``
-or before the window are never read. With one block per (row, kv head),
-a batch of 4 over 8 kv heads fills only 32 of the 132 SMs; splitting T
-across blocks (a second merge pass) is the next step.
+becomes a split of T across blocks. Each (row, kv head) takes ``splits``
+blocks (:func:`decode_splits`: from T, b * kv and the card's SM count
+alone, never from ``cache_index``, so the launch shape is the same at
+every step and a CUDA graph of the step can replay it); split s covers
+positions [s * chunk, (s + 1) * chunk), and a split with no attended
+position returns at once. Two kernels, chosen from the dtype alone
+(:func:`decode_route`), never after a failure: ``mma`` (bf16, fp16)
+stages 16 positions of K and V at a time per warp with cp.async and runs
+S = Q K^T and O += P V on the tensor cores (mma.sync m16n8k16, the
+group's query heads as the rows); ``simt`` (fp32, which the 16-bit
+tensor-core products cannot hold exactly) reads each row with 16-byte
+loads spread over d / 4 lanes and sums the scores over them. Every K/V
+row is read once for the whole query group. The splits merge in the
+same launch: the last live block of a (row, kv head) to arrive at its
+counter (an atomic add) merges the live splits' (m, l, acc) from a
+workspace in split order, whatever the order of arrival, so two runs
+give the same bits; with one live split the block writes the output
+itself. ``launches`` stays one per call, counted by route in
+``launches_by_route``. The workspace and the counters are kept per card
+and reused (the kernel leaves the counters at 0), so the wrapper
+allocates only the output; calls that run concurrently on two streams of
+one card would share them.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 import operator
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build, check_layout, use_kernel
+from . import _build, check_layout, sm_count, stream_of, use_kernel
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p])
+# the least positions a split covers: below this a block's fixed costs
+# (loading the queries, the merge) outweigh its share of the rows
+MIN_CHUNK = 64
+MAX_SPLITS = 64     # the kernel's merge holds at most this many
+
+ROUTES = ("mma", "simt")
+
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# per card: the (workspace, counters) scratch
+_scratch: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _check(q, k_cache, v_cache, cache_index, window):
@@ -72,6 +94,33 @@ def _check(q, k_cache, v_cache, cache_index, window):
         raise ValueError(f"cache_index {cache_index} outside [0, {T})")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+
+
+def decode_route(dtype: torch.dtype) -> str:
+    """The kernel a call launches: ``"mma"`` (tensor cores) for bf16 and
+    fp16, ``"simt"`` (CUDA-core FMAs) for fp32."""
+    return "simt" if dtype == torch.float32 else "mma"
+
+
+def decode_splits(T: int, pairs: int, sms: int) -> int:
+    """Blocks along T per (row, kv head) for ``pairs`` = b * kv of them:
+    at most one block per SM in all (more splits cost more in the merge
+    than they gain in parallel reads), each over at least ``MIN_CHUNK``
+    positions of the cache. Depends on the static shapes and the card
+    alone, never on ``cache_index``."""
+    return max(1, min(-(-T // MIN_CHUNK), sms // pairs, MAX_SPLITS))
+
+
+def _scratch_for(dev: torch.device, floats: int, pairs: int):
+    """The card's fp32 workspace of at least ``floats`` elements and its
+    int32 counters (at least ``pairs``, all 0), grown when too small."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    work, arrivals = _scratch.get(idx, (None, None))
+    if work is None or work.numel() < floats or arrivals.numel() < pairs:
+        work = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
+        arrivals = torch.zeros(max(pairs, 1), dtype=torch.int32, device=dev)
+        _scratch[idx] = (work, arrivals)
+    return work, arrivals
 
 
 def decode_attention_fwd_plain(q, k_cache, v_cache, cache_index: int,
@@ -116,15 +165,23 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     b, h, d = q.shape
     T, kv = k_cache.shape[1], k_cache.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
+    splits = decode_splits(T, b * kv, sm_count(q))
+    work, arrivals = _scratch_for(q.device, b * kv * splits * (h // kv)
+                                  * (d + 2), b * kv)
+    route = decode_route(q.dtype)
     out = torch.empty_like(q)
-    fn = _build.entry("decode_attention", "decode_attention_fwd", _ARGTYPES)
+    fn = _build.entry("decode_attention", f"decode_attention_fwd_{route}",
+                      _ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), b, T, h, kv, d, cache_index, float(scale),
-            0 if window is None else int(window), DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), work.data_ptr(), arrivals.data_ptr(), b, T, h,
+            kv, d, cache_index, float(scale),
+            0 if window is None else int(window), splits, DTYPES[q.dtype],
+            stream_of(q))
     _build.check("decode_attention", rc)
     decode_attention_fwd.launches += 1
+    decode_attention_fwd.launches_by_route[route] += 1
     return out
 
 
 decode_attention_fwd.launches = 0
+decode_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -9,12 +9,16 @@ ids; GQA query head hh reads kv head hh // (h // hk). The finite -1e30
 mask value, the fp32 accumulation, ``p`` cast to V's type before the PV
 product and the 1e-30 clamp of the final divide are the TPU kernel's.
 
+Types: fp32, bf16 and fp16 in, out in the inputs' type, lse fp32. The
+mask value, the running max and lse stay in fp32 on every route, as in
+the TPU kernel's ``_scores`` (fp16 has no finite -1e30).
+
 Routes, chosen from the dtype and head dim alone (:func:`flash_route`),
-never after a failure: bf16 at d in {64, 128} takes the ``wgmma`` kernel;
-fp32 (wgmma has no fp32 product, and TF32 would break the fp32 checks)
-and d = 256 take the ``simt`` kernel. A failed build or launch raises.
-Each wrapper counts its launches, in all and by route
-(``launches_by_route``).
+never after a failure: bf16 or fp16 at d in {64, 128} takes the ``wgmma``
+kernel; fp32 (wgmma has no fp32 product, and TF32 would break the fp32
+checks) and d = 256 take the ``simt`` kernel. A failed build or launch
+raises. Each wrapper (the forward, dq and dk/dv) counts its launches, in
+all and by route (``launches_by_route``).
 
 Bound on the H100: at the prefill shape of Llama-3-8B (q [4, 512, 32,
 128], k/v [4, 512, 8, 128], bf16, causal) the function moves about 42 MB
@@ -65,14 +69,19 @@ heads and their live q tiles, so no head repeat is materialised and no
 atomics are needed: each output element is summed by one block in a
 fixed order and two runs give the same bits. The blocks with the most
 live tiles under the causal mask (the last q tiles for dq, the first kv
-tiles for dk/dv) are launched first. dk/dv has the forward's two routes:
-``wgmma`` (bf16, d in {64, 128}) keeps a 128-key K/V tile in shared
-memory and, in two consumer warpgroups of 64 keys, the fp32 dK, dV
-accumulators in registers, while a producer warp streams 64-row q and
+tiles for dk/dv) are launched first. Both kernels have the forward's two
+routes. dq on ``wgmma`` keeps a 128-row Q and dout tile in shared memory
+and, in two consumer warpgroups of 64 rows, the fp32 dQ accumulator in
+registers, while a producer thread streams 64-key K and V tiles of the
+kv head by TMA; its three products run on the tensor cores (ds as the
+register operand of dS K) and each thread keeps the lse and delta of its
+fixed rows in registers. dk/dv on ``wgmma`` keeps a 128-key K/V tile in
+shared memory and, in two consumer warpgroups of 64 keys, the fp32 dK,
+dV accumulators in registers, while a producer warp streams 64-row q and
 dout tiles by TMA; all four products run on the tensor cores (p and ds
-as register operands); ``simt`` and the dq kernel
-run theirs as fp32 FMAs on the CUDA cores from shared-memory tiles of
-packed bf16 words, two blocks per SM at d <= 128.
+as register operands). The ``simt`` kernels run theirs as fp32 FMAs on
+the CUDA cores from shared-memory tiles of packed 16-bit words, two
+blocks per SM at d <= 128.
 """
 from __future__ import annotations
 
@@ -82,12 +91,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, check_layout, use_kernel
+from . import _build, check_layout, stream_of, use_kernel
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROUTES = ("wgmma", "simt")
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -144,10 +154,10 @@ def _masked_scores(qf, kf, scale, causal, window, segment_ids):
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that the forward and the dk/dv backward launch for this
-    dtype and head dim: ``"wgmma"`` (tensor cores, TMA) for bf16 at d 64
-    or 128, else ``"simt"`` (CUDA-core FMAs)."""
-    if dtype == torch.bfloat16 and head_dim in (64, 128):
+    """The kernel that the forward and both backward kernels launch for
+    this dtype and head dim: ``"wgmma"`` (tensor cores, TMA) for bf16 or
+    fp16 at d 64 or 128, else ``"simt"`` (CUDA-core FMAs)."""
+    if dtype in WGMMA_DTYPES and head_dim in (64, 128):
         return "wgmma"
     return "simt"
 
@@ -216,7 +226,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if seg is None else seg.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, sq, sk, h, hk, d, float(scale), int(causal),
             0 if window is None else int(window), DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            stream_of(q))
     _build.check("flash_attention_fwd", rc)
     _count(flash_attention_fwd, route)
     return out, lse
@@ -315,20 +325,22 @@ def _bwd_args(q, k, v, dout, lse, delta, seg, causal, scale, window):
              None if seg is None else seg.data_ptr()],
             [b, sq, sk, h, hk, d, float(scale), int(causal),
              0 if window is None else int(window), DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream])
+             stream_of(q)])
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, seg, *, causal,
                            scale, window):
-    """Launch the dq kernel on CUDA tensors (contiguous; ``delta`` and
-    ``lse`` fp32 [b, h, sq], ``seg`` int32 or None). Returns dq."""
+    """Launch the dq kernel of :func:`flash_route` on CUDA tensors
+    (contiguous; ``delta`` and ``lse`` fp32 [b, h, sq], ``seg`` int32 or
+    None). Returns dq."""
     ptrs, tail = _bwd_args(q, k, v, dout, lse, delta, seg, causal, scale,
                            window)
+    route = flash_route(q.dtype, q.shape[3])
     dq = torch.empty_like(q)
-    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dq",
-                      _DQ_ARGTYPES)
+    fn = _build.entry("flash_attention_bwd",
+                      f"flash_attention_bwd_dq_{route}", _DQ_ARGTYPES)
     _build.check("flash_attention_bwd", fn(*ptrs, dq.data_ptr(), *tail))
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, route)
     return dq
 
 
@@ -348,7 +360,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, seg, *, causal,
     return dk, dv
 
 
-flash_attention_bwd_dq.launches = 0
+_reset_counts(flash_attention_bwd_dq)
 _reset_counts(flash_attention_bwd_dkv)
 
 

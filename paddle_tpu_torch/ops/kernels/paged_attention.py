@@ -40,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, check_layout, use_kernel
+from . import _build, check_layout, stream_of, use_kernel
 from .ragged_paged_attention import (DTYPES, HEAD_DIMS,
                                      ragged_paged_attention_plain)
 
@@ -117,7 +117,7 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             R, h, kvh, d, M, B, float(scale),
             0 if window is None else int(window), DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            stream_of(q))
     _build.check("paged_attention", rc)
     paged_attention.launches += 1
     return out

@@ -35,19 +35,17 @@ cores (``mma`` on bf16 codes, exact for |q| <= 127) are the later fix.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
-from . import _build, check_layout, use_kernel
+from . import _build, check_layout, sm_count, stream_of, use_kernel
 
 QUANT_BLOCK = 128   # code rows per scale (quantize_blockwise block_size)
 MAX_ROWS = 64       # the gate's largest m
 COLS = 512          # output columns per block of the kernel
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_sms: Dict[int, int] = {}
 
 
 def use_quant_matmul(x2d, qweight, block_size: int) -> bool:
@@ -133,18 +131,14 @@ def quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
     out = torch.empty(m, dout, dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    dev = x.device.index if x.device.index is not None else \
-        torch.cuda.current_device()
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = splits_for(m, din, dout, _sms[dev])
+    splits = splits_for(m, din, dout, sm_count(x))
     partial = (torch.empty(splits, m, dout, dtype=torch.float32,
                            device=x.device) if splits > 1 else out)
     fn = _build.entry("quant_matmul", "quant_matmul_fwd", _ARGTYPES)
     rc = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
             out.data_ptr(), partial.data_ptr(), m, din, dout, bits,
             row_chunk(m), splits, DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            stream_of(x))
     _build.check("quant_matmul", rc)
     quant_matmul.launches += 1
     return out

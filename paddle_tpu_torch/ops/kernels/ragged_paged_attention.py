@@ -44,12 +44,12 @@ from typing import Optional
 
 import torch
 
-from . import _build, check_layout, use_kernel
+from . import _build, check_layout, stream_of, use_kernel
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 MAX_ROWS = 32       # T x (query heads per kv head) the kernel holds
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -148,7 +148,7 @@ def ragged_paged_attention(q: torch.Tensor, kp: torch.Tensor,
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             R, T, h, kvh, d, M, B, float(scale),
             0 if window is None else int(window), DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            stream_of(q))
     _build.check("ragged_paged_attention", rc)
     ragged_paged_attention.launches += 1
     return out

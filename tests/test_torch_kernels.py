@@ -185,11 +185,13 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "simt"), (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt"), (torch.float32, 256, "simt")])
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+    (torch.float16, 64, "wgmma"), (torch.float16, 128, "wgmma"),
+    (torch.float16, 256, "simt")])
 def test_flash_route_depends_on_dtype_and_head_dim_alone(dtype, d, route):
-    """bf16 at d 64 or 128 takes the tensor-core kernels; fp32 (no fp32
-    wgmma) and d 256 the CUDA-core ones. The CPU's plain route counts
-    nothing on either."""
+    """bf16 or fp16 at d 64 or 128 takes the tensor-core kernels; fp32
+    (no fp32 wgmma) and d 256 the CUDA-core ones. The CPU's plain route
+    counts nothing on either."""
     assert flash_route(dtype, d) == route
     before = dict(flash_attention_fwd.launches_by_route)
     q = torch.zeros(1, 8, 2, d, dtype=dtype)

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention_fwd, decode_attention_fwd_plain)
+    decode_attention_fwd, decode_attention_fwd_plain, decode_splits)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     FlashAttentionFunction, flash_attention_bwd, flash_attention_bwd_dkv,
     flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_fwd,
@@ -26,9 +26,12 @@ pytestmark = pytest.mark.gpu
 
 # bf16: kernel and plain version round p and out to bf16 at the same
 # points but sum in another order, and round p against another running
-# max; 2e-2 covers that for outputs of magnitude up to ~2. fp32: the same
-# sums in another order.
-ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# max; 2e-2 covers that for outputs of magnitude up to ~2. fp16: the same
+# roundings with 3 more bits of significand, about 2.5 fp16 steps at
+# magnitude 2 as 2e-2 is for bf16. fp32: the same sums in another order.
+ATOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+DTYPE_IDS = ["bf16", "fp16", "fp32"]
 
 
 @pytest.fixture
@@ -43,9 +46,10 @@ def _randn(rs, *shape, scale=1.0):
 
 
 def _want_route(dtype, d):
-    """The route the wrappers must take: tensor cores for bf16 at d 64 or
-    128, the CUDA-core kernel for fp32 and for d 256."""
-    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    """The route the wrappers must take: tensor cores for bf16 or fp16 at d
+    64 or 128, the CUDA-core kernel for fp32 and for d 256."""
+    return ("wgmma" if dtype in (torch.bfloat16, torch.float16)
+            and d in (64, 128) else "simt")
 
 
 @pytest.mark.parametrize("case", [
@@ -57,8 +61,7 @@ def _want_route(dtype, d):
     dict(b=1, s=384, h=4, kv=1, d=128, causal=True, window=100),
 ], ids=["gqa-causal", "ragged-full", "d256-window", "segments",
         "longer-keys", "window"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_flash_kernel_matches_plain(cuda_card, case, dtype):
     rs = np.random.RandomState(0)
     b, s, h, kv, d = (case[k] for k in ("b", "s", "h", "kv", "d"))
@@ -88,23 +91,101 @@ def test_flash_kernel_matches_plain(cuda_card, case, dtype):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
-@pytest.mark.parametrize("cache_index,window", [(0, None), (127, None),
-                                                (639, None), (400, 100)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
-def test_decode_kernel_matches_plain(cuda_card, cache_index, window, dtype):
-    rs = np.random.RandomState(cache_index)
-    b, T, h, kv, d = 4, 640, 32, 8, 128
-    q = _randn(rs, b, h, d).to(cuda_card, dtype)
-    ck = _randn(rs, b, T, kv, d).to(cuda_card, dtype)
-    cv = _randn(rs, b, T, kv, d).to(cuda_card, dtype)
+def _decode_case(dev, dtype, b=4, T=640, h=32, kv=8, d=128, seed=0):
+    rs = np.random.RandomState(seed)
+    return [_randn(rs, *shape).to(dev, dtype)
+            for shape in ((b, h, d), (b, T, kv, d), (b, T, kv, d))]
+
+
+def _chunk(T, b, kv):
+    """Positions per split of the decode kernel on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return -(-T // decode_splits(T, b * kv, sms))
+
+
+# cache_index (from the split length c) and window: the first position;
+# the last of split 0 and the first of split 1 (one live split, then two);
+# a window from inside split 0 into split 1, and one inside split 1 alone;
+# the whole cache
+DECODE_EDGES = [(lambda c: 0, None), (lambda c: c - 1, None),
+                (lambda c: c, None), (lambda c: c + 10, 20),
+                (lambda c: 2 * c - 1, 5), (lambda c: 639, None),
+                (lambda c: 639, 100)]
+DECODE_EDGE_IDS = ["first", "split0-end", "split1-start", "window-across",
+                   "window-inside", "last", "last-window"]
+
+
+@pytest.mark.parametrize("edge", DECODE_EDGES, ids=DECODE_EDGE_IDS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_decode_kernel_matches_plain(cuda_card, edge, dtype):
+    """The decode kernel at Llama-3-8B's decode shape (q [4, 32, 128],
+    cache [4, 640, 8, 128]) at cache indices on the edges of its splits,
+    with and without a window: one launch, within ATOL of the plain
+    version."""
+    q, ck, cv = _decode_case(cuda_card, dtype)
+    ci, window = edge[0](_chunk(640, 4, 8)), edge[1]
     n = decode_attention_fwd.launches
-    out = decode_attention_fwd(q, ck, cv, cache_index, window=window)
+    by_route = dict(decode_attention_fwd.launches_by_route)
+    out = decode_attention_fwd(q, ck, cv, ci, window=window)
     torch.cuda.synchronize()
     assert decode_attention_fwd.launches == n + 1
-    ref = decode_attention_fwd_plain(q, ck, cv, cache_index, window=window)
+    by_route["simt" if dtype == torch.float32 else "mma"] += 1
+    assert decode_attention_fwd.launches_by_route == by_route
+    ref = decode_attention_fwd_plain(q, ck, cv, ci, window=window)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("d,group,T", [(64, 2, 300), (256, 1, 130),
+                                       (128, 8, 8192), (64, 3, 1000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_decode_kernel_other_shapes(cuda_card, d, group, T, dtype):
+    """Other head dims and groups (3 is held by the kernels for 4), and
+    one row over a long cache (many splits merged), at the last position
+    and with a window."""
+    q, ck, cv = _decode_case(cuda_card, dtype, b=1 + (T < 1000), T=T,
+                             h=2 * group, kv=2, d=d, seed=d)
+    for ci, window in ((T - 1, None), (T // 2, 37)):
+        out = decode_attention_fwd(q, ck, cv, ci, window=window)
+        torch.cuda.synchronize()
+        ref = decode_attention_fwd_plain(q, ck, cv, ci, window=window)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=ATOL[dtype], rtol=0)
+
+
+def test_decode_kernel_repeats_bitwise(cuda_card):
+    """The splits merge in split order whatever the order in which the
+    blocks finish: two calls give the same bits, at cache indices with
+    several live splits."""
+    q, ck, cv = _decode_case(cuda_card, torch.bfloat16, seed=3)
+    for ci, window in ((639, None), (400, 250)):
+        a = decode_attention_fwd(q, ck, cv, ci, window=window)
+        b = decode_attention_fwd(q, ck, cv, ci, window=window)
+        assert torch.equal(a, b)
+
+
+def test_decode_kernel_replays_in_a_cuda_graph(cuda_card):
+    """One call at a fixed cache_index captured in a CUDA graph; the
+    cache and the query changed in place between replays; each replay
+    agrees with the plain version on the new values (the counters the
+    merge uses are left at 0 by every launch)."""
+    q, ck, cv = _decode_case(cuda_card, torch.bfloat16, seed=4)
+    decode_attention_fwd(q, ck, cv, 600)             # warm-up, uncaptured
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_fwd(q, ck, cv, 600)
+    for seed in (1, 2):
+        for t, new in zip((q, ck, cv), _decode_case(cuda_card,
+                                                    torch.bfloat16,
+                                                    seed=seed)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = decode_attention_fwd_plain(q, ck, cv, 600)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=ATOL[torch.bfloat16], rtol=0)
 
 
 def _paged_case(rs, R, T, h, kvh, d, B, M, P, lens):
@@ -126,8 +207,7 @@ def _paged_case(rs, R, T, h, kvh, d, B, M, P, lens):
 
 @pytest.mark.parametrize("T,window", [(1, None), (1, 100), (4, None)],
                          ids=["decode", "window", "multi-query"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_ragged_kernel_matches_plain(cuda_card, T, window, dtype):
     rs = np.random.RandomState(T)
     R, h, kvh, d, B, M, P = 16, 32, 8, 128, 16, 64, 1025
@@ -188,8 +268,9 @@ def test_ragged_kernel_replays_in_a_cuda_graph(cuda_card):
 
 # backward, bf16: kernel and plain version round p and ds at the same
 # points and sum in another order; relative to the largest reference
-# gradient, as the magnitudes grow with the sequence
-BWD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# gradient, as the magnitudes grow with the sequence. fp16 rounds the same
+# values with 3 more bits.
+BWD_RTOL = {torch.bfloat16: 2e-2, torch.float16: 1e-2, torch.float32: 1e-4}
 
 
 def _bwd_case(dev, dtype, b, sq, sk, h, kv, d, seg=False, seed=0):
@@ -223,11 +304,11 @@ def _assert_grads_close(got, want, dtype):
     dict(b=1, sq=200, sk=200, h=4, kv=2, d=64, causal=False),
 ], ids=["gqa-causal", "window", "segments", "full", "longer-keys", "d256",
         "ragged-full"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_flash_bwd_kernels_match_plain(cuda_card, case, dtype):
     """dq and dk/dv kernels against the plain FA-2 formula on the same
-    out and lse; each kernel launches once."""
+    out and lse; each kernel launches once, on the route of its dtype and
+    head dim (wgmma for bf16 and fp16 at d 64 and 128)."""
     q, k, v, g, seg = _bwd_case(cuda_card, dtype, case["b"], case["sq"],
                                 case["sk"], case["h"], case["kv"], case["d"],
                                 case.get("seg", False))
@@ -235,13 +316,15 @@ def test_flash_bwd_kernels_match_plain(cuda_card, case, dtype):
               segment_ids=seg)
     out, lse = flash_attention_fwd(q, k, v, **kw)
     n = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
-    by_route = dict(flash_attention_bwd_dkv.launches_by_route)
+    fns = (flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    by_route = [dict(fn.launches_by_route) for fn in fns]
     got = flash_attention_bwd(q, k, v, out, lse, g, **kw)
     torch.cuda.synchronize()
     assert (flash_attention_bwd_dq.launches,
             flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
-    by_route[_want_route(dtype, case["d"])] += 1
-    assert flash_attention_bwd_dkv.launches_by_route == by_route
+    for fn, before in zip(fns, by_route):
+        before[_want_route(dtype, case["d"])] += 1
+        assert fn.launches_by_route == before
     want = flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
     _assert_grads_close(got, want, dtype)
 
@@ -281,14 +364,44 @@ def test_flash_dkv_wgmma_repeats_bitwise(cuda_card, kw):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("kw", [dict(causal=True, window=300),
+                                dict(causal=False, seg=True)],
+                         ids=["window", "segments"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_flash_dq_wgmma_repeats_bitwise(cuda_card, kw, dtype):
+    """The tensor-core dq kernel at GQA group 4: each dq element is summed
+    by one block in a fixed order, so two launches give the same bits,
+    and both took the wgmma route."""
+    kw = dict(kw)
+    q, k, v, g, seg = _bwd_case(cuda_card, dtype, 2, 640, 640, 16, 4, 128,
+                                kw.pop("seg", False), seed=6)
+    out, lse = flash_attention_fwd(q, k, v, segment_ids=seg, **kw)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    n = flash_attention_bwd_dq.launches_by_route["wgmma"]
+    args = (q, k, v, g, lse, delta, seg)
+    opts = dict(causal=kw["causal"], scale=128 ** -0.5,
+                window=kw.get("window"))
+    a = flash_attention_bwd_dq(*args, **opts)
+    b = flash_attention_bwd_dq(*args, **opts)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.launches_by_route["wgmma"] == n + 2
+    assert torch.equal(a, b)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, g, segment_ids=seg,
+                                     **kw)[0]
+    _assert_grads_close([a], [want], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_flash_function_grads_on_the_card(cuda_card, dtype):
     """``FlashAttentionFunction`` on CUDA tensors: every input gets a
     non-null gradient from the kernels, equal to the plain backward's on
     the CPU copies of the same values."""
     q, k, v, g, _ = _bwd_case(cuda_card, dtype, 1, 256, 256, 8, 2, 64,
                               seed=4)
+    fns = (flash_attention_fwd, flash_attention_bwd_dq,
+           flash_attention_bwd_dkv)
+    before = [dict(fn.launches_by_route) for fn in fns]
     grads = []
     for dev in (cuda_card, torch.device("cpu")):
         xs = [t.to(dev).detach().requires_grad_() for t in (q, k, v)]
@@ -298,6 +411,9 @@ def test_flash_function_grads_on_the_card(cuda_card, dtype):
         out.backward(g.to(dev))
         assert all(x.grad is not None for x in xs)
         grads.append([x.grad.cpu() for x in xs])
+    for fn, counts in zip(fns, before):     # the card's run, by route
+        counts[_want_route(dtype, 64)] += 1
+        assert fn.launches_by_route == counts
     _assert_grads_close(grads[0], grads[1], dtype)
 
 
@@ -311,6 +427,7 @@ QUANT_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 # values (rtol 2^-7, one bf16 step); fp32: the sums' order alone. The
 # atol share covers elements near 0 from cancelling sums.
 QUANT_TOL = {torch.bfloat16: (2.0 ** -7, 1e-3),
+             torch.float16: (2.0 ** -10, 1e-3),
              torch.float32: (1e-5, 1e-5)}
 
 
@@ -364,6 +481,20 @@ def test_quant_kernel_fp32(cuda_card, bits, m):
                         torch.float32)
 
 
+@pytest.mark.parametrize("m", [1, 4, 16, 64])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_quant_kernel_fp16(cuda_card, bits, m):
+    """fp16 activations with the bf16 scales: fp32 dequant and sums, the
+    output rounded once to fp16; the k/v shape splits the contraction."""
+    x, q, s = _quant_case(cuda_card, torch.float16, m, 4096, 1024, bits,
+                          seed=m)
+    out = quant_matmul(x, q, s, bits)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float16
+    _assert_quant_close(out, quant_matmul_plain(x, q, s, bits),
+                        torch.float16)
+
+
 @pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
 def test_quant_kernel_repeats_bitwise(cuda_card, bits):
     """No atomics: the k/v shape splits the contraction, and two calls
@@ -401,8 +532,7 @@ GRID_LENS = [0, 15, 16, 1023, 1, 100, 257, 640, 31, 32, 500, 999, 2, 47,
 
 @pytest.mark.parametrize("window", [None, 100, 7], ids=["full", "window",
                                                          "short-window"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_grid_kernel_matches_plain(cuda_card, dtype, window):
     """The paged engine's geometry (16 rows, 32 heads over 8 kv heads, d
     128, blocks of 16, 64 slots a row), lens with 0 and block edges; every
