@@ -7,16 +7,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: its name, and its name and power limit from nvidia-smi;
 2. build: every kernel of ``paddle_tpu_torch/csrc`` with nvcc for sm_90a,
    all sources in parallel, with nvcc's register / shared-memory / spill
-   report, and the HGMMA (wgmma) and UTMALDG (TMA load) instructions of
-   each library's SASS: both must be nonzero in the tensor-core flash
-   forward, dq and dk/dv kernels;
+   report, and the HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
+   instructions of each library's SASS: HGMMA and UTMALDG must be nonzero
+   in the tensor-core flash forward, dq and dk/dv kernels, HMMA in the
+   mma decode, ragged and quant kernels, which must spill nothing;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, in bf16, at the shapes of the Llama-3-8B serving path, with the
    tolerance stated below; the decode kernel at cache indices on the
    edges of its T splits, with and without a window, in bf16, fp16 and
-   fp32, each call repeated bit for bit; the ragged paged kernel also in
-   fp32, with a window, with 4 queries per row, and replayed from a CUDA
-   graph after its seq_lens and tables changed in place. Then fp16: every
+   fp32, each call repeated bit for bit; the ragged paged kernel in bf16
+   (mma) and fp32 (simt), with 1, 2 and 4 queries per row, with a window
+   and with one long row among short ones, each call on its route by
+   count and repeated bit for bit, and replayed from a CUDA graph after
+   its seq_lens and tables changed in place. Then fp16: every
    kernel against its plain version at small shapes (the flash forward,
    dq and dk/dv at d 64, 128 and 256; decode, ragged, grid, quant), and
    the counts show the d 128 forward, dq and dk/dv on the wgmma route;
@@ -28,8 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash forward also at the training shape, decode also for one row
    over an 8192-position cache (decode and quant as device time from a
    CUDA graph of back-to-back calls: their wrappers' host time per call
-   exceeds the kernels'), and beside the tensor-core kernels the
-   CUDA-core (simt) kernels they replaced on bf16, on the same inputs;
+   exceeds the kernels'; so are ragged and grid), and beside the
+   tensor-core kernels the CUDA-core (simt) kernels they replaced on
+   bf16, on the same inputs; the ragged kernel also at half and twice its
+   chunk of table blocks;
 5. a small model against a CPU reference: logits of a prefill and of
    decode steps, fp32, the card (kernels) against the CPU (plain
    versions);
@@ -47,8 +52,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    serves (a) 24 seeded requests (prompts 32-768, 32-128 new tokens, 4
    sampled, one with a stop sequence, admission mid-decode) with the
    counts set to 0 just before and read just after: ragged paged
-   attention must run once per layer and decode tick (32 x decode_steps)
-   and never during a prefill, flash and decode attention never; a rerun
+   attention must run once per layer and decode tick (32 x decode_steps),
+   all on the mma route, and never during a prefill, flash and decode
+   attention never; a rerun
    must give identical tokens, sampled ones included. (b) chunked
    prefill with the prefix cache: 8 requests sharing a 512-token prefix
    must hit it, and a resubmitted prompt must give its cold run's tokens.
@@ -83,12 +89,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    projection shape, int8 and int4, m in {1, 4, 16, 64} bf16 rows, and
    the grid paged kernel against its plain version (bf16, fp32, a window,
    dead table slots pointing outside the pool), against the ragged
-   kernel bit for bit, and replayed from a CUDA graph; their times; a
+   kernel (bit for bit in fp32), and replayed from a CUDA graph; their
+   times (quant at m 4, 16, 32 and 64); a
    small fp32 Llama quantized to int8 and int4 through ``Predictor``, the
    card against the CPU. Then phase 6's model quantized in place by
    ``Predictor(model, Config().enable_weight_only_quant(8))``: the same
-   ``generate`` with quant 7 x 32 x 127, flash 32 and decode 32 x 127
-   launches and its numbers next to bf16's; ``PagedEngine`` on it under
+   ``generate`` with quant 7 x 32 x 127 (all on the mma route), flash 32
+   and decode 32 x 127 launches and its numbers next to bf16's;
+   ``PagedEngine`` on it under
    ``PADDLE_TPU_PAGED_ATTN=grid`` (grid once per layer and tick, quant once
    per projection and tick or short prefill, ragged never), a rerun, and
    the same requests under ``ragged``; last the model rebuilt from the
@@ -96,7 +104,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
-forward, dq and dk/dv), then the card's name and power limit, and last
+forward, dq and dk/dv, ``cuda-mma`` for decode, ragged and quant),
+then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the ``paddle_tpu_torch`` package beside it, it exits
 non-zero and prints no result.
@@ -182,6 +191,11 @@ QUANT_PER_LAYER = 7
 WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
                  "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel",
                                          "flash_bwd_dkv_wgmma_kernel")}
+# the kernels on mma.sync, by library: their SASS must hold HMMA, and
+# ptxas must report no spills for them
+MMA_KERNELS = {"quant_matmul": ("qmm_mma_kernel",),
+               "ragged_paged_attention": ("ragged_mma_kernel",),
+               "decode_attention": ("decode_mma_kernel",)}
 # every kernel's launch count, each 0
 NO_LAUNCHES = dict.fromkeys(("flash", "decode", "ragged", "flash_bwd_dq",
                              "flash_bwd_dkv", "quant", "grid"), 0)
@@ -267,9 +281,9 @@ def max_err(a, b) -> float:
 
 # ------------------------------------------------------------------ phases
 def sass_counts(lib) -> dict:
-    """{kernel function: (HGMMA, UTMALDG)}: the wgmma and TMA-load
-    instructions in each function of a built library, from cuobjdump's
-    SASS listing."""
+    """{kernel function: (HGMMA, UTMALDG, HMMA)}: the wgmma, TMA-load and
+    mma.sync instructions in each function of a built library, from
+    cuobjdump's SASS listing."""
     import os
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -280,11 +294,35 @@ def sass_counts(lib) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn is not None:
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "UTMALDG" in line
+            counts[fn][2] += "HMMA" in line
     return {k: tuple(v) for k, v in counts.items()}
+
+
+def ptxas_usage(report: str) -> dict:
+    """{kernel function: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v report."""
+    import re
+    usage, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = [0, 0, 0]
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
 
 
 def phase_build():
@@ -301,20 +339,36 @@ def phase_build():
                                        "Compiling entry", "warning",
                                        "Performance", "setmaxnreg")):
                 log(f"[ptxas] {b.name}: {line.strip()}")
-    # the two tensor-core kernels must hold wgmma and TMA loads
+    # the tensor-core kernels: wgmma and TMA loads, or mma.sync, in the
+    # SASS; the mma.sync kernels spill nothing
     for b in built.values():
         counts = sass_counts(b.path)
-        total = [sum(c[i] for c in counts.values()) for i in (0, 1)]
-        log(f"[sass] {b.name}: HGMMA {total[0]}, UTMALDG {total[1]} in "
-            f"{len(counts)} functions")
-        for fn, (hg, tma) in counts.items():
+        total = [sum(c[i] for c in counts.values()) for i in (0, 1, 2)]
+        log(f"[sass] {b.name}: HGMMA {total[0]}, UTMALDG {total[1]}, HMMA "
+            f"{total[2]} in {len(counts)} functions")
+        for fn, (hg, tma, hm) in counts.items():
             if "wgmma_kernel" in fn:
                 log(f"[sass] {b.name}: {fn}: HGMMA {hg}, UTMALDG {tma}")
+            if "mma_kernel" in fn and "wgmma" not in fn:
+                log(f"[sass] {b.name}: {fn}: HMMA {hm}")
         for kernel in WGMMA_KERNELS.get(b.name, ()):
             mine = [c for fn, c in counts.items() if kernel in fn]
-            if not mine or not all(hg and tma for hg, tma in mine):
+            if not mine or not all(hg and tma for hg, tma, _ in mine):
                 fail(f"{b.name}: {kernel} lacks HGMMA or UTMALDG in its "
                      f"SASS: {mine}")
+        for kernel in MMA_KERNELS.get(b.name, ()):
+            mine = [c for fn, c in counts.items() if kernel in fn]
+            if not mine or not all(hm for _, _, hm in mine):
+                fail(f"{b.name}: {kernel} lacks HMMA in its SASS: {mine}")
+            usage = {fn: u for fn, u in ptxas_usage(b.ptxas).items()
+                     if kernel in fn}
+            if usage:
+                regs = sorted({u[0] for u in usage.values()})
+                spills = sum(u[1] + u[2] for u in usage.values())
+                log(f"[ptxas] {b.name}: {kernel}: {len(usage)} instances, "
+                    f"registers {regs[0]}-{regs[-1]}, spill bytes {spills}")
+                if spills:
+                    fail(f"{b.name}: {kernel} spills: {usage}")
 
 
 def _simt_fwd(q, k, v):
@@ -710,29 +764,46 @@ def ragged_lens(gen, dev, T, R=16, B=16, M=64):
 
 def phase_ragged_checks(gen, dev):
     """The ragged kernel against its plain version at the engine's
-    geometry (R 16, h 32, kvh 8, d 128, B 16, M 64, P 1025), bf16 and
-    fp32: no window, window 100, 4 queries per row; then one call
-    captured in a CUDA graph and replayed after seq_lens and tables
-    changed in place. Returns the bf16 no-window error."""
+    geometry (R 16, h 32, kvh 8, d 128, B 16, M 64, P 1025), bf16 (mma)
+    and fp32 (simt): 1, 2 and 4 queries per row, no window and window
+    100, lens with idle rows, block edges and a row at M * B - T, rows 1
+    and 2 borrowing row 0's blocks; one long row among short ones; every
+    call on its route by count and, in bf16, repeated bit for bit. Then
+    one call captured in a CUDA graph and replayed after seq_lens and
+    tables changed in place. Returns the bf16 T = 1 no-window error."""
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_plain)
+        ragged_paged_attention, ragged_paged_attention_plain, ragged_route)
     first = None
+    B, M = PAGED["block_size"], PAGED["max_blocks_per_seq"]
     for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32,
                                                    TOL_FP32)):
-        for T, window in ((1, None), (1, 100), (4, None)):
-            lens = ragged_lens(gen, dev, T)
+        route = ragged_route(dtype, 128)
+        cases = [(T, window, ragged_lens(gen, dev, T)) for T in (1, 2, 4)
+                 for window in (None, 100)]
+        cases.append((1, None, [M * B - 1] + [3] * 15))
+        for T, window, lens in cases:
             args = paged_case(gen, dev, lens, T=T, dtype=dtype)
-            out = ragged_paged_attention(*args, window=window)
+            fn = ragged_paged_attention
+            before = dict(fn.launches_by_route)
+            out = fn(*args, window=window)
+            again = fn(*args, window=window)
             torch.cuda.synchronize()
+            before[route] += 2
+            if fn.launches_by_route != before:
+                fail(f"ragged {dtype} T={T}: launches by route "
+                     f"{fn.launches_by_route} != {before}")
             ref = ragged_paged_attention_plain(*args, window=window)
             err = max_err(out, ref)
-            log(f"[check] ragged {str(dtype)[6:]} T={T} window {window} "
-                f"q {list(args[0].shape)} pools {list(args[1].shape)} "
-                f"seq_lens {lens[:4]}+random: max_abs_err {err:.3e} "
-                f"tol {tol}")
+            same = torch.equal(out, again)
+            log(f"[check] ragged {str(dtype)[6:]} ({route}) T={T} window "
+                f"{window} q {list(args[0].shape)} pools "
+                f"{list(args[1].shape)} seq_lens {lens[:4]}+...: "
+                f"max_abs_err {err:.3e} tol {tol}; bitwise repeat {same}")
             if not err <= tol:
                 fail(f"ragged kernel disagrees with its plain version "
                      f"({dtype}, T={T}, window {window})")
+            if not same:
+                fail(f"ragged kernel does not repeat ({dtype}, T={T})")
             if first is None:
                 first = err
     q, kp, vp, tbl, sl = paged_case(gen, dev, ragged_lens(gen, dev, 1))
@@ -758,10 +829,12 @@ def phase_ragged_checks(gen, dev):
 def phase_paged_time(gen, dev, card):
     """The ragged and the grid paged kernels at the engine's shape: R 16
     single-query rows, seq_lens drawn from 64..1023, bf16, the same inputs
-    rotated through copies larger than the L2. Yardstick: one SDPA call
-    over K/V pre-gathered and head-expanded to [R, h, M*B, d] with a
-    boolean length mask (the gather outside the timing; the port never
-    calls it). Returns one row for each kernel."""
+    rotated through copies larger than the L2, device time from a CUDA
+    graph. Yardstick: one SDPA call over K/V pre-gathered and
+    head-expanded to [R, h, M*B, d] with a boolean length mask (the gather
+    outside the timing; the port never calls it). Then the ragged kernel's
+    first design (simt) on the same inputs, and the mma kernel at half and
+    twice its chunk. Returns one row for each kernel."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.kernels.paged_attention import (
@@ -792,14 +865,30 @@ def phase_paged_time(gen, dev, card):
     for key, fn, plain in (
             ("ragged", ragged_paged_attention, ragged_paged_attention_plain),
             ("grid", paged_attention, paged_attention_plain)):
-        ms = cuda_ms(lambda i: fn(*sets[i % n]), iters=200)
+        ms = graph_ms(lambda i: fn(*sets[i % n]), calls=40)
         plain_ms = cuda_ms(lambda i: plain(*sets[i % n]), iters=20)
-        log(f"[time] {key}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-            f"{call_bytes / 1e6:.1f} MB of valid K/V for seq_lens "
-            f"{sorted(lens.tolist())}) [{card}]")
+        log(f"[time] {key}: kernel {ms:.4f} ms (device time, CUDA graph), "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {call_bytes / 1e6:.1f} MB of "
+            f"valid K/V for seq_lens {sorted(lens.tolist())}) [{card}]")
         rows[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
+    # the ragged kernel's first design (simt) on the same bf16 inputs, and
+    # the mma kernel at half and twice its chunk: for the times beside the
+    # kernel's only, outside every counted run
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as ra
+    from paddle_tpu_torch.ops.kernels import sm_count
+    chunk = ra.ragged_chunk_blocks(R, M, B, kvh, sm_count(sets[0][0]))
+    simt_ms = graph_ms(lambda i: ra._launch("simt", *sets[i % n], None,
+                                            None, 0), calls=40)
+    sweep = {}
+    for c in sorted({max(1, chunk // 2), chunk, min(M, 2 * chunk)}):
+        sweep[c] = graph_ms(lambda i: ra._launch("mma", *sets[i % n], None,
+                                                 None, c), calls=40)
+    log(f"[time] ragged: the first port's simt kernel on the same inputs "
+        f"{simt_ms:.4f} ms; mma at chunk of "
+        + ", ".join(f"{c} blocks {t:.4f} ms" for c, t in sweep.items())
+        + f" (the rule takes {chunk}) [{card}]")
     return rows
 
 
@@ -870,7 +959,8 @@ def _generate_run(ptt, pred, ids, new, want, label, dev, card):
     log(f"[{label}] launches in one generate: {launches} (want {want})")
     if launches != want:
         fail(f"{label}: kernel launches {launches} != {want}")
-    routes = _check_routes(label, flash=want["flash"], decode=want["decode"])
+    routes = _check_routes(label, flash=want["flash"], decode=want["decode"],
+                           quant=want["quant"])
     if tuple(out.shape) != (b, prompt + new):
         fail(f"{label}: generate returned shape {tuple(out.shape)}")
     if not torch.equal(out[:, :prompt], ids):
@@ -956,7 +1046,8 @@ def _reset_launches():
 
 # the tensor-core route of each routed kernel, which bf16 and fp16 take
 FAST_ROUTE = {"flash": "wgmma", "flash_bwd_dq": "wgmma",
-              "flash_bwd_dkv": "wgmma", "decode": "mma"}
+              "flash_bwd_dkv": "wgmma", "decode": "mma", "quant": "mma",
+              "ragged": "mma"}
 
 
 def _routed():
@@ -964,15 +1055,20 @@ def _routed():
         decode_attention_fwd
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        ragged_paged_attention
     return {"flash": flash_attention_fwd,
             "flash_bwd_dq": flash_attention_bwd_dq,
             "flash_bwd_dkv": flash_attention_bwd_dkv,
-            "decode": decode_attention_fwd}
+            "decode": decode_attention_fwd, "quant": quant_matmul,
+            "ragged": ragged_paged_attention}
 
 
 def _check_routes(label, **want_fast):
     """Since the last ``_reset_launches``: each named routed kernel
-    (``flash``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``decode``) launched
+    (``flash``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``decode``, ``quant``,
+    ``ragged``) launched
     ``n`` times on its tensor-core route (``FAST_ROUTE``) and never on the
     simt route. Returns the counts by route."""
     fns = _routed()
@@ -1051,7 +1147,7 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16):
             continue
         n += 1
         name = e.name.lower()
-        cat = ("ragged_attention" if "ragged_kernel" in name else
+        cat = ("ragged_attention" if "ragged_" in name else
                "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
                else "other")
@@ -1113,6 +1209,7 @@ def phase_paged(seed, dev, card, model):
     if launches != want or in_prefill:
         fail(f"paged launches {launches} != {want} (prefills: "
              f"{in_prefill})")
+    routes = _check_routes("paged (a)", ragged=L * ticks)
     new_tokens = 0
     for rid, tok_ids, kw in subs:
         got = out.get(rid)
@@ -1183,7 +1280,7 @@ def phase_paged(seed, dev, card, model):
                                           for v in res.values()):
         fail("serve_stream under preemption lost or cut a request")
     pred._paged_engines.clear()
-    return launches
+    return launches, routes
 
 
 def _device_profile(pred, ids, new_tokens, ptt):
@@ -1251,7 +1348,9 @@ def phase_grid_checks(gen, dev):
     table slot past a row's live count holds an index far outside the
     pool, which the kernel must never read (the plain version gathers
     whole tables, so it gets those slots zeroed). Without a window the
-    kernel is also held bit for bit against the ragged kernel. Last, one
+    kernel is also held against the ragged kernel: bit for bit in fp32
+    (both keep the first design there), within the tolerance in bf16
+    (the ragged kernel runs split-KV on mma). Last, one
     call captured in a CUDA graph and replayed after seq_lens and tables
     changed in place. Returns the bf16 no-window error."""
     from paddle_tpu_torch.ops.kernels.paged_attention import (
@@ -1278,9 +1377,16 @@ def phase_grid_checks(gen, dev):
             note = ""
             if window is None:
                 rag = ragged_paged_attention(q, kp, vp, tbl, sl)
-                note = (f"; bit for bit equal to the ragged kernel: "
-                        f"{torch.equal(out, rag)} (max |d| "
-                        f"{max_err(out, rag):.3e})")
+                pinned = torch.equal(out, rag)
+                note = (f"; against the ragged kernel: bit for bit "
+                        f"{pinned}, max |d| {max_err(out, rag):.3e}")
+                # fp32: both keep the first design's tiles and order of
+                # sums; bf16: the ragged kernel runs split-KV on mma
+                if dtype == torch.float32 and not pinned:
+                    fail("grid kernel differs from the ragged simt kernel "
+                         "in fp32")
+                if max_err(out, rag) > tol:
+                    fail(f"grid and ragged kernels disagree ({dtype})")
             log(f"[check] grid {str(dtype)[6:]} window {window} q "
                 f"{list(q.shape)} pools {list(kp.shape)} seq_lens "
                 f"{lens[:4]}+random, dead slots -> 2^30: max_abs_err "
@@ -1359,19 +1465,41 @@ def phase_quant_checks(gen, dev):
     return worst
 
 
+def _simt_quant(x, qw, sc, bits):
+    """The CUDA-core quant kernel (the route bf16 took before the mma
+    kernel) on bf16 activations: for its time beside the new kernel's
+    only, outside every counted run."""
+    from paddle_tpu_torch.ops.kernels import _build, sm_count, stream_of
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+    m, din = x.shape
+    dout = qw.shape[1]
+    out = torch.empty(m, dout, dtype=x.dtype, device=x.device)
+    splits = qm.splits_for(m, din, dout, sm_count(x))
+    partial = (torch.empty(splits, m, dout, dtype=torch.float32,
+                           device=x.device) if splits > 1 else out)
+    fn = _build.entry("quant_matmul", "quant_matmul_fwd_simt",
+                      qm._ARGTYPES["simt"])
+    rc = fn(x.data_ptr(), qw.data_ptr(), sc.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), m, din, dout, bits, qm.row_chunk(m), splits,
+            qm.DTYPES[x.dtype], stream_of(x))
+    _build.check("quant_matmul", rc)
+    return out
+
+
 def phase_quant_times(gen, dev, card):
     """The quant kernel at every projection shape, int8 and int4, m = 4
-    (``generate``'s decode) and m = 16 (a paged tick), codes and scales
-    rotated through copies larger than the L2, timed as device time per
-    call from a CUDA graph of back-to-back calls (``graph_ms``: these
-    kernels are shorter than their wrapper's host time; the eager
+    (``generate``'s decode), 16 (a paged tick), 32 and 64, codes and
+    scales rotated through copies larger than the L2, timed as device
+    time per call from a CUDA graph of back-to-back calls (``graph_ms``:
+    these kernels are shorter than their wrapper's host time; the eager
     per-call time, which is the host's, is printed beside the gate's). At
-    gate_proj 4096->14336 also its plain version and, as the yardstick
-    the port never calls, one ``torch.matmul`` of the bf16 activations
-    with the pre-dequantized bf16 weight (an unquantized model's
-    projection), timed the same way. Bound: the codes, scales,
-    activations and output once over 3.35 TB/s, against 2 m din dout FLOP
-    at the bf16 rate. Returns the int8, m = 4 gate row."""
+    gate_proj 4096->14336 also the CUDA-core kernel of the first port on
+    the same bf16 inputs, the plain version and, as the yardstick the
+    port never calls, one ``torch.matmul`` of the bf16 activations with
+    the pre-dequantized bf16 weight (an unquantized model's projection),
+    timed the same way. Bound: the codes, scales, activations and output
+    once over 3.35 TB/s, against 2 m din dout FLOP at the bf16 rate.
+    Returns the int8, m = 4 gate row."""
     from paddle_tpu_torch.ops.kernels.quant_matmul import (
         quant_matmul, quant_matmul_plain)
     from paddle_tpu_torch.quant import dequantize_weight
@@ -1384,7 +1512,7 @@ def phase_quant_times(gen, dev, card):
             gate = (din, dout) == (4096, 14336)
             ws = ([dequantize_weight(q, s, bits, dtype=torch.bfloat16)
                    for q, s in sets] if gate else None)
-            for m in (4, 16):
+            for m in (4, 16, 32, 64):
                 x = torch.randn(m, din, generator=gen,
                                 device=dev).to(torch.bfloat16)
                 nbytes = (code_bytes + 2 * (din // 128) * dout
@@ -1398,13 +1526,16 @@ def phase_quant_times(gen, dev, card):
                     continue
                 eager_ms = cuda_ms(lambda i: quant_matmul(x, *sets[i % n],
                                                           bits), iters=200)
+                simt_ms = graph_ms(lambda i: _simt_quant(x, *sets[i % n],
+                                                         bits), calls=60)
                 plain_ms = graph_ms(lambda i: quant_matmul_plain(
                     x, *sets[i % n], bits), calls=6)
                 lib_ms = graph_ms(lambda i: torch.matmul(x, ws[i % n]),
                                   calls=60)
                 rows[(bits, m)] = dict(ms=ms, plain_ms=plain_ms,
                                        library_ms=lib_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by, eager_ms=eager_ms)
+                                       bound_by=bound_by, eager_ms=eager_ms,
+                                       simt_ms=simt_ms)
             del sets, ws
     log(f"[time] quant, other projections (kernel on the card, bound): "
         + "; ".join(others) + f" [{card}]")
@@ -1429,7 +1560,9 @@ def phase_quant_times(gen, dev, card):
     for (bits, m), r in rows.items():
         log(f"[time] quant int{bits} gate_proj 4096->14336 m={m}: kernel "
             f"{r.pop('eager_ms'):.4f} ms a call eager (the host's pace), "
-            f"{r['ms']:.4f} ms on the card; plain {r['plain_ms']:.4f} ms, "
+            f"{r['ms']:.4f} ms on the card (mma); the first port's simt "
+            f"kernel on the same inputs {r.pop('simt_ms'):.4f} ms; plain "
+            f"{r['plain_ms']:.4f} ms, "
             f"bf16 matmul on the dequantized weight {r['library_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
     return rows[(8, 4)]
@@ -1611,6 +1744,8 @@ def phase_quant_paged(seed, dev, card, model):
                 fail(f"int8 paged ({mode}): launches {launches} != {want} "
                      f"or prefills {prefills} != {len(subs)} or "
                      f"{preempted} preemptions")
+            _check_routes(f"int8 paged ({mode})", quant=want["quant"],
+                          ragged=want["ragged"])
             for rid, _, kw in subs:
                 if len(out.get(rid, ())) != kw["max_new_tokens"]:
                     fail(f"int8 paged ({mode}): request {rid} was cut")
@@ -2272,9 +2407,12 @@ def main():
     bf16, model = phase_slice(args.seed, dev, card)
     launches = dict(bf16["launches"])
     routes = dict(bf16["routes"])
-    launches["ragged"] = phase_paged(args.seed, dev, card, model)["ragged"]
+    paged, paged_routes = phase_paged(args.seed, dev, card, model)
+    launches["ragged"] = paged["ragged"]
+    routes["ragged"] = paged_routes["ragged"]
     pred, int8 = phase_quant_slice(dev, card, model, bf16)
     launches["quant"] = int8["launches"]["quant"]
+    routes["quant"] = int8["routes"]["quant"]
     launches["grid"] = phase_quant_paged(args.seed, dev, card,
                                          pred.model)["grid"]
     del pred, model, int8

@@ -8,9 +8,9 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include <map>
 #include <mutex>
-#include <set>
-#include <tuple>
+#include <utility>
 
 namespace ptt {
 
@@ -151,8 +151,10 @@ __device__ inline float warp_max(float x) {
 }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory, once per
-// kernel, size and card: the attribute call costs the host more than a
-// short kernel takes to run, and the wrappers launch at every call.
+// kernel, card and larger size: the attribute call costs the host more
+// than a short kernel takes to run, and the wrappers launch at every call.
+// The attribute is one ceiling per kernel, so it is only ever raised (a
+// smaller request after a larger one keeps the larger ceiling).
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -160,15 +162,15 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   static std::mutex mu;
-  static std::set<std::tuple<const void*, size_t, int>> done;
-  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel),
-                                   bytes, dev);
+  static std::map<std::pair<const void*, int>, size_t> ceiling;
+  const auto key = std::make_pair(reinterpret_cast<const void*>(kernel), dev);
   std::lock_guard<std::mutex> hold(mu);
-  if (done.count(key)) return cudaSuccess;
+  auto it = ceiling.find(key);
+  if (it != ceiling.end() && it->second >= bytes) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
-  if (err == cudaSuccess) done.insert(key);
+  if (err == cudaSuccess) ceiling[key] = bytes;
   return err;
 }
 

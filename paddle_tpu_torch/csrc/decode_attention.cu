@@ -41,7 +41,7 @@
 // partial softmaxes (m = -1e30, l = 0) merge to l = 0, not NaN.
 #include <type_traits>
 
-#include "hopper.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -107,12 +107,7 @@ __device__ void merge_and_store(Merge<D, G, STREAMS>& sm, T* out, float* work,
   }
   if (live == 1) return;
 
-  __threadfence();  // this block's partial is visible before it arrives
-  __syncthreads();
-  if (tid == 0) sm.last_in = atomicAdd(arrivals + pair, 1) == live - 1;
-  __syncthreads();
-  if (!sm.last_in) return;
-  __threadfence();
+  if (!ptt::arrive_last(arrivals + pair, live, &sm.last_in)) return;
   // the live splits in split order: each thread's output elements of the
   // first CH splits and every split's m and l are loaded together; then
   // each head's factors and sum once, then the elements' sums, CH splits
@@ -203,57 +198,12 @@ struct MmaGeo {
   static constexpr size_t SMEM = (size_t)WARPS * WARP_BYTES;
 };
 
-// 16 bytes global -> shared, bypassing L1; zeros when !ok
-__device__ inline void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile(
-      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-          ptt::smem_u32(dst)),
-      "l"(src), "r"(ok ? 16 : 0)
-      : "memory");
-}
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ inline void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(ptt::smem_u32(p)));
-}
-__device__ inline void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(ptt::smem_u32(p)));
-}
-
-// d += a b for an m16n8k16 tile, fp32 accumulate: a as 4 T pairs, b as 2
-template <typename T>
-__device__ void mma16816(float* d, const uint32_t* a, const uint32_t* b);
-template <>
-__device__ inline void mma16816<__nv_bfloat16>(float* d, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-template <>
-__device__ inline void mma16816<__half>(float* d, const uint32_t* a,
-                                        const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using ptt::cp_async16;
+using ptt::cp_async_commit;
+using ptt::cp_async_wait;
+using ptt::ldmatrix_x4;
+using ptt::ldmatrix_x4_trans;
+using ptt::mma16816;
 
 // Fragments (lane l, r = l / 4, c = l % 4): the m16n8 accumulator holds
 // rows r and r + 8 at columns 2c and 2c + 1; the A operand of an m16k16

@@ -19,22 +19,42 @@ and scales (x and out are small): Llama-3-8B's gate projection 4096 ->
 TB/s (int4 about 9 us); its 2 m din dout operations are far below the
 tensor-core rate, so the bound is the bytes.
 
-Design (``csrc/quant_matmul.cu``): each lane loads 16 bytes of a code row
-(16 neighbouring columns; a warp reads 512 contiguous bytes), 8 rows in
-flight, turns codes into floats with a byte-into-mantissa trick instead of
-the slow int-to-float conversion, and accumulates the fp32 products for a
-chunk of up to 4 activation rows in registers. The grid is (row chunks,
-512-column tiles, contraction splits): Llama's k/v projection has only 2
-column tiles, so the contraction is split until the grid fills the card,
-and a second pass adds the splits' fp32 partials in a fixed order. No
-atomics: the result repeats bit for bit. What holds it back: the products
-run on CUDA-core FMAs, so at m = 16 and more it is bound by FMA issue, not
-by bytes (larger m re-reads the codes from L2 once per 4 rows); tensor
-cores (``mma`` on bf16 codes, exact for |q| <= 127) are the later fix.
+Design (``csrc/quant_matmul.cu``). Two kernels, chosen from x's dtype
+alone (:func:`quant_route`), never after a failure:
+
+- ``mma`` (bf16, fp16 activations): the tensor cores, with the weight as
+  the 16-row operand of ``mma.sync`` m16n8k16 and all m <= 64 activation
+  rows on its n side (1, 2, 4 or 8 tiles of 8), so every code byte
+  crosses from device memory and is converted once per call, whatever m
+  is. Codes become floats by a byte-into-mantissa trick and then x's
+  type, exactly (|q| <= 128); each 128-row scale block's fp32 partial is
+  multiplied by its scales after the product, so no rounding is added
+  that the JAX function lacks. Codes, x rows and scales are staged with
+  cp.async three scale blocks deep. The contraction is split
+  (:func:`mma_splits`, from the shapes and the card's SM count alone:
+  the k/v projection has only 8 column tiles of 128, gate_proj 112), and
+  the splits
+  merge in the same launch: the last block of a column tile to arrive
+  at its counter adds the fp32 partials in split order and resets the
+  counter. One launch a call; the workspace and counters are kept per
+  card (calls running at once on two streams of one card would share
+  them), so the wrapper allocates only the output and a call can be
+  captured in a CUDA graph. What holds it back: at m = 64 every column
+  tile stages all its x rows from L2 (as many bytes as the codes), and
+  int4 spends the same conversions and syncs per scale block on half the
+  bytes.
+- ``simt`` (fp32 activations, which the 16-bit tensor-core products
+  cannot hold): the first port's kernel. Each lane loads 16 bytes of a
+  code row, 8 rows in flight, and accumulates fp32 products for a chunk
+  of up to 4 activation rows on CUDA-core FMAs; a second pass adds the
+  split-K partials in a fixed order.
+
+No atomics decide an order of sums: both repeat bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -43,9 +63,18 @@ from . import _build, check_layout, sm_count, stream_of, use_kernel
 QUANT_BLOCK = 128   # code rows per scale (quantize_blockwise block_size)
 MAX_ROWS = 64       # the gate's largest m
 COLS = 512          # output columns per block of the kernel
+MMA_COLS = 128     # output columns per block of the mma kernel
+MMA_ROWS = 64      # activation rows per block of the mma kernel
+# the least 128-row scale blocks a split of the mma kernel takes
+MIN_SPLIT_BLOCKS = 2
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROUTES = ("mma", "simt")
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = {
+    "simt": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "mma": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+# per card: the mma kernel's (workspace, counters) scratch
+_scratch: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def use_quant_matmul(x2d, qweight, block_size: int) -> bool:
@@ -99,6 +128,46 @@ def quant_matmul_plain(x, qweight, scales, bits: int = 8):
     return (x.float() @ w).to(x.dtype)
 
 
+def quant_route(dtype: torch.dtype) -> str:
+    """The kernel a call launches: ``"mma"`` (tensor cores) for bf16 and
+    fp16 activations, ``"simt"`` (CUDA-core FMAs) for fp32."""
+    return "simt" if dtype == torch.float32 else "mma"
+
+
+def mma_splits(m: int, din: int, dout: int, sms: int, bits: int = 8) -> int:
+    """Contraction splits of the mma kernel: the largest divisor of the
+    scale-block count (so every split streams the same bytes) that gives
+    at most about two blocks per streaming multiprocessor in all (four
+    for int4, whose blocks stream half the bytes), each split over at
+    least ``MIN_SPLIT_BLOCKS`` scale blocks. Depends on the shapes and the
+    card alone, so a call repeats bit for bit."""
+    nkb = din // QUANT_BLOCK
+    tiles = -(-dout // MMA_COLS) * -(-m // MMA_ROWS)
+    target = max(1, min(nkb // MIN_SPLIT_BLOCKS,
+                        -(-2 * sms * (8 // bits) // tiles)))
+    return max(s for s in range(1, target + 1) if nkb % s == 0)
+
+
+def _mma_rows(m: int) -> int:
+    """Activation rows one mma block holds: 8, 16, 32 or 64."""
+    return next(n for n in (8, 16, 32, 64) if m <= n or n == 64)
+
+
+def _scratch_for(dev: torch.device, floats: int, counters: int):
+    """The card's fp32 workspace of at least ``floats`` elements and its
+    int32 counters (at least ``counters``, all 0), grown when too
+    small."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    work, arrivals = _scratch.get(idx, (None, None))
+    if (work is None or work.numel() < floats
+            or arrivals.numel() < counters):
+        work = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
+        arrivals = torch.zeros(max(counters, 1), dtype=torch.int32,
+                               device=dev)
+        _scratch[idx] = (work, arrivals)
+    return work, arrivals
+
+
 def splits_for(m: int, din: int, dout: int, sms: int) -> int:
     """Contraction splits: as many blocks as fit in one wave at three a
     streaming multiprocessor (a fourth would wait for a second wave), at
@@ -131,17 +200,29 @@ def quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
     out = torch.empty(m, dout, dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    splits = splits_for(m, din, dout, sm_count(x))
-    partial = (torch.empty(splits, m, dout, dtype=torch.float32,
-                           device=x.device) if splits > 1 else out)
-    fn = _build.entry("quant_matmul", "quant_matmul_fwd", _ARGTYPES)
-    rc = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), m, din, dout, bits,
-            row_chunk(m), splits, DTYPES[x.dtype],
-            stream_of(x))
+    route = quant_route(x.dtype)
+    fn = _build.entry("quant_matmul", f"quant_matmul_fwd_{route}",
+                      _ARGTYPES[route])
+    if route == "mma":
+        splits = mma_splits(m, din, dout, sm_count(x), bits)
+        tiles = -(-dout // MMA_COLS) * -(-m // MMA_ROWS)
+        work, arrivals = _scratch_for(
+            x.device, tiles * splits * _mma_rows(m) * MMA_COLS, tiles)
+        rc = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), work.data_ptr(), arrivals.data_ptr(), m,
+                din, dout, bits, splits, DTYPES[x.dtype], stream_of(x))
+    else:
+        splits = splits_for(m, din, dout, sm_count(x))
+        partial = (torch.empty(splits, m, dout, dtype=torch.float32,
+                               device=x.device) if splits > 1 else out)
+        rc = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), partial.data_ptr(), m, din, dout, bits,
+                row_chunk(m), splits, DTYPES[x.dtype], stream_of(x))
     _build.check("quant_matmul", rc)
     quant_matmul.launches += 1
+    quant_matmul.launches_by_route[route] += 1
     return out
 
 
 quant_matmul.launches = 0
+quant_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -18,9 +18,10 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_attention, paged_attention_plain)
 from paddle_tpu_torch.ops.kernels.quant_matmul import (quant_matmul,
-                                                       quant_matmul_plain)
+                                                       quant_matmul_plain,
+                                                       quant_route)
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
-    ragged_paged_attention, ragged_paged_attention_plain)
+    ragged_paged_attention, ragged_paged_attention_plain, ragged_route)
 
 pytestmark = pytest.mark.gpu
 
@@ -205,46 +206,96 @@ def _paged_case(rs, R, T, h, kvh, d, B, M, P, lens):
     return q, kp, vp, torch.from_numpy(tables), torch.from_numpy(lens)
 
 
-@pytest.mark.parametrize("T,window", [(1, None), (1, 100), (4, None)],
-                         ids=["decode", "window", "multi-query"])
+def _ragged_on(dev, dtype, q, kp, vp, tbl, sl):
+    return [x.to(dev) for x in (q.to(dtype), kp.to(dtype), vp.to(dtype),
+                                tbl, sl)]
+
+
+def _ragged_checked(args, window, dtype):
+    """One counted call on its route, held against the plain version."""
+    route = ragged_route(dtype, args[0].shape[-1])
+    n = ragged_paged_attention.launches
+    by_route = dict(ragged_paged_attention.launches_by_route)
+    out = ragged_paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == n + 1
+    by_route[route] += 1
+    assert ragged_paged_attention.launches_by_route == by_route
+    ref = ragged_paged_attention_plain(*args, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
+                               rtol=0)
+    return out
+
+
+@pytest.mark.parametrize("T", [1, 2, 4])
+@pytest.mark.parametrize("window", [None, 1, 100, 5000],
+                         ids=["full", "window1", "window100", "window-wide"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_ragged_kernel_matches_plain(cuda_card, T, window, dtype):
+    """The paged engine's geometry: idle rows, block edges, a row at
+    M * B - T, rows 1 and 2 borrowing row 0's blocks; bf16 and fp16 on
+    the mma route, fp32 on simt."""
     rs = np.random.RandomState(T)
     R, h, kvh, d, B, M, P = 16, 32, 8, 128, 16, 64, 1025
     lens = [0, B - 1, B, M * B - T, 1, 100, 257, 640] + list(
         rs.randint(1, M * B - T, R - 8))
-    q, kp, vp, tbl, sl = _paged_case(rs, R, T, h, kvh, d, B, M, P, lens)
-    args = [x.to(cuda_card) for x in (q.to(dtype), kp.to(dtype),
-                                      vp.to(dtype), tbl, sl)]
-    n = ragged_paged_attention.launches
-    out = ragged_paged_attention(*args, window=window)
-    torch.cuda.synchronize()
-    assert ragged_paged_attention.launches == n + 1
-    ref = ragged_paged_attention_plain(*args, window=window)
-    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
-                               rtol=0)
+    args = _ragged_on(cuda_card, dtype, *_paged_case(
+        rs, R, T, h, kvh, d, B, M, P, lens))
+    _ragged_checked(args, window, dtype)
 
 
-@pytest.mark.parametrize("d,group", [(64, 2), (256, 1)])
-def test_ragged_kernel_other_head_dims(cuda_card, d, group):
-    rs = np.random.RandomState(d)
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_ragged_kernel_one_long_row(cuda_card, T, dtype):
+    """Imbalance: one row at M * B - T, every other row short; its chunks
+    run side by side and merge in order."""
+    rs = np.random.RandomState(20 + T)
+    R, h, kvh, d, B, M, P = 16, 32, 8, 128, 16, 64, 1025
+    lens = [M * B - T] + list(rs.randint(0, 20, R - 1))
+    args = _ragged_on(cuda_card, dtype, *_paged_case(
+        rs, R, T, h, kvh, d, B, M, P, lens))
+    _ragged_checked(args, None, dtype)
+
+
+@pytest.mark.parametrize("d,group,T", [(64, 1, 1), (64, 8, 4), (128, 1, 2),
+                                       (128, 8, 4), (256, 4, 1),
+                                       (256, 8, 2)])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_ragged_kernel_other_head_dims(cuda_card, d, group, T, dtype):
+    """Group 1, 4 and 8, head_dim 64, 128 and 256, a small pool with
+    blocks of 8 and a window: d 256 takes simt in every dtype."""
+    rs = np.random.RandomState(d + group + T)
     R, kvh, B, M, P = 4, 2, 8, 16, 80
-    q, kp, vp, tbl, sl = _paged_case(rs, R, 1, kvh * group, kvh, d, B, M, P,
-                                     [0, 7, 8, 127])
-    args = [x.to(cuda_card) for x in (q, kp, vp, tbl, sl)]
-    out = ragged_paged_attention(*args)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out, ragged_paged_attention_plain(*args),
-                               atol=ATOL[torch.float32], rtol=0)
+    args = _ragged_on(cuda_card, dtype, *_paged_case(
+        rs, R, T, kvh * group, kvh, d, B, M, P, [0, 7, 8, M * B - T]))
+    _ragged_checked(args, None, dtype)
+    _ragged_checked(args, 20, dtype)
 
 
-def test_ragged_kernel_replays_in_a_cuda_graph(cuda_card):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_ragged_kernel_repeats_bitwise(cuda_card, dtype):
+    """Chunks merge in chunk order whatever the order in which the blocks
+    finish: two calls give the same bits."""
+    rs = np.random.RandomState(31)
+    R, h, kvh, d, B, M, P = 16, 32, 8, 128, 16, 64, 1025
+    for T in (1, 4):
+        args = _ragged_on(cuda_card, dtype, *_paged_case(
+            rs, R, T, h, kvh, d, B, M, P, rs.randint(0, M * B - T, R)))
+        a = ragged_paged_attention(*args, window=300)
+        b = ragged_paged_attention(*args, window=300)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T", [1, 4])
+def test_ragged_kernel_replays_in_a_cuda_graph(cuda_card, T):
     """One call captured in a CUDA graph; seq_lens and table contents
-    changed in place between replays; each replay agrees with the plain
-    version on the new values."""
+    changed in place between replays (which changes every row's chunk
+    count); each replay agrees with the plain version on the new values
+    (the counters the merge uses are left at 0 by every launch)."""
     rs = np.random.RandomState(7)
     R, h, kvh, d, B, M, P = 16, 32, 8, 128, 16, 64, 1025
-    q, kp, vp, tbl, sl = _paged_case(rs, R, 1, h, kvh, d, B, M, P,
+    q, kp, vp, tbl, sl = _paged_case(rs, R, T, h, kvh, d, B, M, P,
                                      rs.randint(1, 900, R))
     q, kp, vp = (x.to(cuda_card, torch.bfloat16) for x in (q, kp, vp))
     tbl, sl = tbl.to(cuda_card), sl.to(cuda_card)
@@ -255,8 +306,8 @@ def test_ragged_kernel_replays_in_a_cuda_graph(cuda_card):
         out = ragged_paged_attention(q, kp, vp, tbl, sl)
     for seed in (1, 2):
         rs2 = np.random.RandomState(seed)
-        _, _, _, tbl2, sl2 = _paged_case(rs2, R, 1, h, kvh, d, B, M, P,
-                                         rs2.randint(0, M * B - 1, R))
+        _, _, _, tbl2, sl2 = _paged_case(rs2, R, T, h, kvh, d, B, M, P,
+                                         rs2.randint(0, M * B - T, R))
         tbl.copy_(tbl2)
         sl.copy_(sl2)
         graph.replay()
@@ -455,30 +506,44 @@ def _assert_quant_close(out, ref, dtype):
                                atol=atol)
 
 
-@pytest.mark.parametrize("m", [1, 3, 16, 64])
-@pytest.mark.parametrize("din,dout", QUANT_SHAPES,
-                         ids=[f"{a}x{b}" for a, b in QUANT_SHAPES])
-@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
-def test_quant_kernel_matches_plain(cuda_card, bits, din, dout, m):
-    x, q, s = _quant_case(cuda_card, torch.bfloat16, m, din, dout, bits)
+QUANT_MS = [1, 3, 4, 8, 9, 16, 17, 32, 33, 63, 64]
+
+
+def _quant_checked(x, q, s, bits):
+    """One counted call on its route, held against the plain version."""
+    route = quant_route(x.dtype)
     n = quant_matmul.launches
+    by_route = dict(quant_matmul.launches_by_route)
     out = quant_matmul(x, q, s, bits)
     torch.cuda.synchronize()
     assert quant_matmul.launches == n + 1
-    assert out.dtype == torch.bfloat16 and out.shape == (m, dout)
-    _assert_quant_close(out, quant_matmul_plain(x, q, s, bits),
-                        torch.bfloat16)
+    by_route[route] += 1
+    assert quant_matmul.launches_by_route == by_route
+    assert out.dtype == x.dtype and out.shape == (x.shape[0], q.shape[1])
+    _assert_quant_close(out, quant_matmul_plain(x, q, s, bits), x.dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("m", QUANT_MS)
+@pytest.mark.parametrize("din,dout", QUANT_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in QUANT_SHAPES])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_quant_kernel_matches_plain(cuda_card, bits, din, dout, m, dtype):
+    """Every Llama-3-8B projection, m from 1 to 64 (partial n-tiles of 8
+    included), on the mma route."""
+    x, q, s = _quant_case(cuda_card, dtype, m, din, dout, bits, seed=m)
+    _quant_checked(x, q, s, bits)
 
 
 @pytest.mark.parametrize("m", [1, 2, 5, 64])
 @pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
 def test_quant_kernel_fp32(cuda_card, bits, m):
+    """fp32 activations on the simt route."""
     x, q, s = _quant_case(cuda_card, torch.float32, m, 1024, 640, bits,
                           seed=m)
-    out = quant_matmul(x, q, s, bits)
-    torch.cuda.synchronize()
-    _assert_quant_close(out, quant_matmul_plain(x, q, s, bits),
-                        torch.float32)
+    _quant_checked(x, q, s, bits)
 
 
 @pytest.mark.parametrize("m", [1, 4, 16, 64])
@@ -488,22 +553,63 @@ def test_quant_kernel_fp16(cuda_card, bits, m):
     output rounded once to fp16; the k/v shape splits the contraction."""
     x, q, s = _quant_case(cuda_card, torch.float16, m, 4096, 1024, bits,
                           seed=m)
-    out = quant_matmul(x, q, s, bits)
-    torch.cuda.synchronize()
-    assert out.dtype == torch.float16
-    _assert_quant_close(out, quant_matmul_plain(x, q, s, bits),
-                        torch.float16)
+    _quant_checked(x, q, s, bits)
 
 
 @pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
 def test_quant_kernel_repeats_bitwise(cuda_card, bits):
-    """No atomics: the k/v shape splits the contraction, and two calls
-    still give the same bits."""
-    x, q, s = _quant_case(cuda_card, torch.bfloat16, 4, 4096, 1024, bits,
-                          seed=9)
-    a = quant_matmul(x, q, s, bits)
-    b = quant_matmul(x, q, s, bits)
-    assert torch.equal(a, b)
+    """The k/v shape splits the contraction and the splits merge in split
+    order whatever the order in which the blocks finish: two calls give
+    the same bits."""
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for m in (4, 16, 64):
+            x, q, s = _quant_case(cuda_card, dtype, m, 4096, 1024, bits,
+                                  seed=9)
+            a = quant_matmul(x, q, s, bits)
+            b = quant_matmul(x, q, s, bits)
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [4, 16, 64])
+def test_quant_kernel_one_launch_and_only_the_output(cuda_card, m):
+    """The mma route makes one kernel launch a call (the splits merge in
+    it) and, once its per-card scratch exists, allocates only the
+    output."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, q, s = _quant_case(cuda_card, torch.bfloat16, m, 4096, 1024, 8)
+    quant_matmul(x, q, s, 8)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_card)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = quant_matmul(x, q, s, 8)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_card) - before == (
+        out.numel() * out.element_size() + 511) // 512 * 512
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert kernels and all("qmm_mma_kernel" in k for k in kernels), kernels
+    assert len(kernels) == 1, kernels
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_quant_kernel_replays_in_a_cuda_graph(cuda_card, bits):
+    """One split call captured in a CUDA graph; x changed in place between
+    replays; each replay agrees with the plain version on the new values
+    (the split counters are left at 0 by every launch)."""
+    x, q, s = _quant_case(cuda_card, torch.bfloat16, 16, 4096, 1024, bits)
+    quant_matmul(x, q, s, bits)                      # warm-up, uncaptured
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant_matmul(x, q, s, bits)
+    for seed in (1, 2):
+        x.copy_(_quant_case(cuda_card, torch.bfloat16, 16, 4096, 1024, bits,
+                            seed=seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_quant_close(out, quant_matmul_plain(x, q, s, bits),
+                            torch.bfloat16)
 
 
 def test_quant_kernel_rejects_bad_shapes(cuda_card):
@@ -567,15 +673,25 @@ def test_grid_kernel_other_head_dims(cuda_card, d, group):
 
 
 def test_grid_kernel_equals_ragged_bitwise_and_repeats(cuda_card):
-    """Without a window the grid kernel keeps the ragged kernel's tiles
-    and order of sums: the two agree bit for bit, and each call repeats."""
+    """fp32, where the ragged kernel keeps its first design (simt): without
+    a window the grid kernel keeps its tiles and order of sums, so the two
+    agree bit for bit, and each call repeats. In bf16 the ragged kernel
+    runs split-KV on the tensor cores: the two agree within the bf16
+    tolerance, and the grid kernel still repeats."""
     rs = np.random.RandomState(12)
-    args = _grid_args(cuda_card, torch.bfloat16, rs, GRID_LENS)
+    args = _grid_args(cuda_card, torch.float32, rs, GRID_LENS)
     a = paged_attention(*args)
     b = paged_attention(*args)
     c = ragged_paged_attention(*args)
     assert torch.equal(a, b)
     assert torch.equal(a, c)
+    args = [x.to(torch.bfloat16) if x.is_floating_point() else x
+            for x in args]
+    a = paged_attention(*args)
+    assert torch.equal(a, paged_attention(*args))
+    torch.testing.assert_close(a.float(),
+                               ragged_paged_attention(*args).float(),
+                               atol=ATOL[torch.bfloat16], rtol=0)
 
 
 def test_grid_kernel_replays_in_a_cuda_graph(cuda_card):

@@ -19,7 +19,11 @@ from paddle_tpu.generation.paged import \
 from paddle_tpu.generation.paged import paged_decode_write as jax_write
 from paddle_tpu.generation.paged import paged_prefill_write as jax_prefill
 from paddle_tpu.ops.pallas.ragged_paged_attention import \
+    build_schedule as jax_build_schedule
+from paddle_tpu.ops.pallas.ragged_paged_attention import \
     ragged_paged_attention_pallas
+from paddle_tpu.ops.pallas.ragged_paged_attention import \
+    schedule_capacity as jax_schedule_capacity
 from paddle_tpu_torch.generation import paged as port_paged
 from paddle_tpu_torch.generation.paged import (PagedKV,
                                                paged_decode_attention,
@@ -27,7 +31,9 @@ from paddle_tpu_torch.generation.paged import (PagedKV,
                                                paged_prefill_write)
 from paddle_tpu_torch.ops import attention as port_attn
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
-    ragged_paged_attention, ragged_paged_attention_plain)
+    build_chunk_schedule, build_schedule, ragged_chunk_blocks,
+    ragged_paged_attention, ragged_paged_attention_plain, ragged_route,
+    schedule_capacity)
 
 # fp32 on the CPU: both sides sum the same fp32 products in another order
 ATOL_FP32 = 1e-5
@@ -220,3 +226,90 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ragged_paged_attention(q, kp, vp, tables, sl[:2])
     with pytest.raises(ValueError, match="window"):
         ragged_paged_attention(q, kp, vp, tables, sl, window=0)
+
+
+# ------------------------------------------------- the mma kernel's work list
+def _schedule_case(seed, q_len, R=8, M=6, B=8, P=24):
+    """seq_lens with idle rows, block edges and a row at M * B - q_len;
+    tables of distinct random blocks, rows 1 and 2 sharing row 0's first
+    half (prefix sharing), idle rows all zeros."""
+    rs = np.random.RandomState(seed)
+    lens = np.array([0, B - 1, B, M * B - q_len] + list(
+        rs.randint(0, M * B - q_len, R - 4)), np.int32)
+    tables = np.stack([rs.permutation(np.arange(1, P))[:M]
+                       for _ in range(R)]).astype(np.int32)
+    tables[1:3, :M // 2] = tables[0, :M // 2]
+    tables[lens == 0] = 0
+    return tables, lens
+
+
+@pytest.mark.parametrize("q_len", [1, 4])
+@pytest.mark.parametrize("window", [None, 1, 100, 5000],
+                         ids=["none", "w1", "w100", "wide"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_build_schedule_bitwise_equals_jax(seed, window, q_len):
+    """The port's plain ``build_schedule`` and ``schedule_capacity`` give
+    the JAX functions' arrays bit for bit."""
+    tables, lens = _schedule_case(seed, q_len, B=16)
+    R, M = tables.shape
+    S = schedule_capacity(R, M, 24)
+    assert S == jax_schedule_capacity(R, M, 24)
+    want = jax_build_schedule(jnp.asarray(tables), jnp.asarray(lens), S, 16,
+                              window=window, q_len=q_len)
+    got = build_schedule(torch.from_numpy(tables), torch.from_numpy(lens),
+                         S, 16, window=window, q_len=q_len)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _runs(row, idx, live, C):
+    """The live steps of a schedule as (row, idx // C) runs, in order."""
+    out = []
+    for r, i, v in zip(row.tolist(), idx.tolist(), live.tolist()):
+        if v and (not out or out[-1] != (r, i // C)):
+            out.append((r, i // C))
+    return out
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("q_len", [1, 4])
+@pytest.mark.parametrize("window", [None, 1, 20], ids=["none", "w1", "w20"])
+def test_chunk_schedule_is_the_block_schedule_merged_run_by_run(C, q_len,
+                                                                window):
+    """The mma kernel's list of (row, chunk) items: the block schedule's
+    live steps grouped C blocks at a time, in the same order, live-first
+    in a capacity of R x ceil(M / C), the dead tail repeating the last
+    live item; every row has at least one item."""
+    tables, lens = _schedule_case(3, q_len)
+    R, M = tables.shape
+    tbl, sl = torch.from_numpy(tables), torch.from_numpy(lens)
+    blocks = build_schedule(tbl, sl, schedule_capacity(R, M, 24), 8,
+                            window=window, q_len=q_len)
+    row, chunk, live = build_chunk_schedule(tbl, sl, C, 8, window=window,
+                                            q_len=q_len)
+    assert row.shape == (R * -(-M // C),)
+    assert _runs(row, chunk, live, 1) == _runs(*blocks, C)
+    n = int(live.sum())
+    assert live[:n].all() and not live[n:].any()
+    assert (row[n:] == row[n - 1]).all() and (chunk[n:] == chunk[n - 1]).all()
+    assert sorted(set(row[:n].tolist())) == list(range(R))
+
+
+def test_chunk_blocks_depend_on_static_shapes_alone():
+    """At the paged engine's geometry (16 rows, 64 blocks of 16, 8 kv
+    heads, 132 SMs) a chunk is 4 blocks (64 positions): 512 blocks, live
+    or not. More rows take longer chunks; a row never has more than 32."""
+    assert ragged_chunk_blocks(16, 64, 16, 8, 132) == 4
+    assert ragged_chunk_blocks(64, 64, 16, 8, 132) > 4
+    for R, M, B, kvh in ((1, 2048, 16, 8), (4, 16, 8, 2), (256, 64, 16, 8)):
+        c = ragged_chunk_blocks(R, M, B, kvh, 132)
+        assert 1 <= c <= M and -(-M // c) <= 32
+
+
+def test_ragged_route_depends_on_dtype_and_head_dim_alone():
+    for dtype in (torch.bfloat16, torch.float16):
+        assert ragged_route(dtype, 64) == ragged_route(dtype, 128) == "mma"
+        assert ragged_route(dtype, 256) == "simt"
+    assert {ragged_route(torch.float32, d) for d in (64, 128, 256)} == {
+        "simt"}

@@ -26,8 +26,10 @@ from paddle_tpu.models import llama_tiny as jax_llama_tiny
 from paddle_tpu.ops.pallas.quant_matmul import quant_matmul_pallas
 from paddle_tpu.quant import gptq_awq as jax_gptq_awq
 from paddle_tpu.quant import weight_only as jax_wo
-from paddle_tpu_torch.ops.kernels.quant_matmul import (quant_matmul,
+from paddle_tpu_torch.ops.kernels.quant_matmul import (mma_splits,
+                                                       quant_matmul,
                                                        quant_matmul_plain,
+                                                       quant_route,
                                                        use_quant_matmul)
 from paddle_tpu_torch.quant import (AWQLinear, QuantizedLinear,
                                     awq_quantize_model, awq_search_scale,
@@ -166,6 +168,34 @@ def test_quant_kernel_gate_and_plain_route_without_counting():
     n = quant_matmul.launches
     assert torch.equal(quant_matmul(x, qt, st), quant_matmul_plain(x, qt, st))
     assert quant_matmul.launches == n
+
+
+def test_quant_route_depends_on_dtype_alone():
+    """bf16 and fp16 activations take the tensor-core kernel, fp32 the
+    CUDA-core one, at any shape; a CPU call counts on neither route."""
+    assert quant_route(torch.bfloat16) == quant_route(torch.float16) == "mma"
+    assert quant_route(torch.float32) == "simt"
+    qt, st = quantize_blockwise(torch.randn(256, 128), 8)
+    before = dict(quant_matmul.launches_by_route)
+    quant_matmul(torch.randn(4, 256).to(torch.bfloat16), qt, st)
+    assert quant_matmul.launches_by_route == before
+
+
+@pytest.mark.parametrize("m", [1, 16, 64, 65, 200])
+def test_mma_splits_stay_on_scale_blocks(m):
+    """Split-K of the tensor-core kernel: from the shapes, the bits and
+    the SM count alone, never more splits than pairs of 128-row scale
+    blocks, a divisor of the scale-block count, and more
+    splits where the projection has few column tiles (Llama-3-8B's k/v
+    projection, 8 tiles of 128, against gate_proj's 112)."""
+    for din, dout in ((4096, 4096), (4096, 1024), (4096, 14336),
+                      (14336, 4096), (128, 16)):
+        for bits in (8, 4):
+            s = mma_splits(m, din, dout, 132, bits)
+            assert 1 <= s <= max(1, din // 128 // 2)
+            assert (din // 128) % s == 0       # every split the same bytes
+            assert s == mma_splits(m, din, dout, 132, bits)
+    assert mma_splits(4, 4096, 1024, 132) > mma_splits(4, 4096, 14336, 132)
 
 
 def test_quant_wrapper_rejects_what_the_kernel_does_not_take():
