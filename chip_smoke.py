@@ -10,7 +10,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    report, and the HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
    instructions of each library's SASS: HGMMA and UTMALDG must be nonzero
    in the tensor-core flash forward, dq and dk/dv kernels, HMMA in the
-   mma decode, ragged and quant kernels, which must spill nothing;
+   mma decode, ragged, quant and grid kernels, which must spill nothing;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, in bf16, at the shapes of the Llama-3-8B serving path, with the
    tolerance stated below; the decode kernel at cache indices on the
@@ -34,7 +34,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    exceeds the kernels'; so are ragged and grid), and beside the
    tensor-core kernels the CUDA-core (simt) kernels they replaced on
    bf16, on the same inputs; the ragged kernel also at half and twice its
-   chunk of table blocks;
+   chunk of table blocks; the grid kernel beside its PR 4 design and the
+   ragged kernel, with its chunks in clusters of 8 and 16, and at two
+   weak shapes (one row of 8192 positions; the tick's short rows);
 5. a small model against a CPU reference: logits of a prefill and of
    decode steps, fp32, the card (kernels) against the CPU (plain
    versions);
@@ -87,24 +89,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. weight-only quantized serving (the kernel phases run beside 3 and 4):
    the quant kernel against its plain version at every Llama-3-8B
    projection shape, int8 and int4, m in {1, 4, 16, 64} bf16 rows, and
-   the grid paged kernel against its plain version (bf16, fp32, a window,
-   dead table slots pointing outside the pool), against the ragged
-   kernel (bit for bit in fp32), and replayed from a CUDA graph; their
-   times (quant at m 4, 16, 32 and 64); a
+   the grid paged kernel against its plain version (bf16 and fp16 on the
+   mma route, fp32 on simt, by count; a window; dead table slots pointing
+   outside the pool; bits repeat), against the ragged kernel (bit for bit
+   in fp32), and replayed from a CUDA graph; their times (quant at m 4,
+   16, 32 and 64); a
    small fp32 Llama quantized to int8 and int4 through ``Predictor``, the
    card against the CPU. Then phase 6's model quantized in place by
    ``Predictor(model, Config().enable_weight_only_quant(8))``: the same
    ``generate`` with quant 7 x 32 x 127 (all on the mma route), flash 32
    and decode 32 x 127 launches and its numbers next to bf16's;
    ``PagedEngine`` on it under
-   ``PADDLE_TPU_PAGED_ATTN=grid`` (grid once per layer and tick, quant once
-   per projection and tick or short prefill, ragged never), a rerun, and
-   the same requests under ``ragged``; last the model rebuilt from the
-   seed and quantized to int4, through the same ``generate``.
+   ``PADDLE_TPU_PAGED_ATTN=grid`` (grid once per layer and tick, all on
+   the mma route, quant once per projection and tick or short prefill,
+   ragged never), a rerun, a profiled steady tick (the grid attention's
+   device time), and the same requests under ``ragged``; last the model
+   rebuilt from the seed and quantized to int4, through the same
+   ``generate``.
 
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
-forward, dq and dk/dv, ``cuda-mma`` for decode, ragged and quant),
+forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid),
 then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the ``paddle_tpu_torch`` package beside it, it exits
@@ -195,7 +200,8 @@ WGMMA_KERNELS = {"flash_attention_fwd": ("flash_fwd_wgmma_kernel",),
 # ptxas must report no spills for them
 MMA_KERNELS = {"quant_matmul": ("qmm_mma_kernel",),
                "ragged_paged_attention": ("ragged_mma_kernel",),
-               "decode_attention": ("decode_mma_kernel",)}
+               "decode_attention": ("decode_mma_kernel",),
+               "paged_attention": ("grid_mma_kernel",)}
 # every kernel's launch count, each 0
 NO_LAUNCHES = dict.fromkeys(("flash", "decode", "ragged", "flash_bwd_dq",
                              "flash_bwd_dkv", "quant", "grid"), 0)
@@ -834,7 +840,8 @@ def phase_paged_time(gen, dev, card):
     head-expanded to [R, h, M*B, d] with a boolean length mask (the gather
     outside the timing; the port never calls it). Then the ragged kernel's
     first design (simt) on the same inputs, and the mma kernel at half and
-    twice its chunk. Returns one row for each kernel."""
+    twice its chunk; the grid kernel's variants and weak shapes
+    (``grid_times``). Returns one row for each kernel."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.kernels.paged_attention import (
@@ -889,7 +896,80 @@ def phase_paged_time(gen, dev, card):
         f"{simt_ms:.4f} ms; mma at chunk of "
         + ", ".join(f"{c} blocks {t:.4f} ms" for c, t in sweep.items())
         + f" (the rule takes {chunk}) [{card}]")
+    grid_times(gen, dev, card, sets, n, lens, rows["grid"]["ms"])
     return rows
+
+
+def _grid_lines(label, sets, n, lens, M, card, rule_ms=None):
+    """One ``[time] grid`` line for bf16 inputs ``sets`` (n copies, the
+    rows' ``lens``, M table slots): the mma kernel by its rule (timed here
+    unless ``rule_ms`` is given), with its chunks in clusters of 8 and 16,
+    the PR 4 kernel (simt) and the ragged kernel on the same inputs, the
+    bound, and how many (row, chunk) blocks are live. Outside every
+    counted run."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import sm_count
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        ragged_paged_attention
+    q, kp = sets[0][0], sets[0][1]
+    R, h, d = q.shape
+    _, B, kvh, _ = kp.shape
+    sms = sm_count(q)
+    split = pa.grid_split(R, M, kvh, sms)
+    if rule_ms is None:
+        rule_ms = graph_ms(lambda i: pa.paged_attention(*sets[i % n]),
+                           calls=40)
+    clusters = {}
+    for cl in (8, 16):
+        sp = pa.grid_split(R, M, kvh, sms, cluster=cl)
+        clusters[sp] = graph_ms(lambda i: pa._launch(
+            "mma", *sets[i % n], None, None, sp), calls=40)
+    simt_ms = graph_ms(lambda i: pa._launch("simt", *sets[i % n], None,
+                                            None), calls=20)
+    ragged_ms = graph_ms(lambda i: ragged_paged_attention(*sets[i % n]),
+                         calls=40)
+    valid = sum(int(x) + 1 for x in lens)
+    bound_ms, bound_by = bound(2 * (2 * valid * kvh * d + 2 * R * h * d),
+                               4 * d * valid * h)
+    live = pa.grid_live_chunks(sets[0][4], M, split[0], split[1], B)
+    log(f"[time] grid {label} q {list(q.shape)} pools {list(kp.shape)}: mma "
+        f"{rule_ms:.4f} ms by the rule (chunks, slots a chunk, kv heads a "
+        f"block) {split}, live (row, chunk) blocks {int(live.sum())} of "
+        f"{live.numel()}; clusters "
+        + ", ".join(f"{sp} {t:.4f} ms" for sp, t in clusters.items())
+        + f"; the PR 4 kernel (simt) {simt_ms:.4f} ms, ragged {ragged_ms:.4f}"
+        f" ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    return dict(ms=rule_ms, simt_ms=simt_ms, ragged_ms=ragged_ms,
+                bound_ms=bound_ms, clusters=clusters)
+
+
+def grid_times(gen, dev, card, sets, n, lens, rule_ms):
+    """The grid kernel at the engine's shape (``sets``, timed by
+    ``phase_paged_time``) beside its variants, then at two weak shapes:
+    one row of 8192 positions (R 1, M 512: at most 8 chunks of 1024 in
+    one cluster) and the tick's short rows (R 16, seq_lens 256..300: most
+    chunks dead); last 16 idle rows (one position each): the launch's
+    fixed cost."""
+    M = PAGED["max_blocks_per_seq"]
+    out = {"engine": _grid_lines("engine", sets, n, lens, M, card, rule_ms)}
+    long_lens = [8191]
+    long_sets = [paged_case(gen, dev, long_lens, R=1, M=512, P=513)
+                 for _ in range(copies_for(2 * 2 * 8192 * 8 * 128))]
+    out["long"] = _grid_lines("one long row", long_sets, len(long_sets),
+                              long_lens, 512, card)
+    del long_sets
+    short_lens = torch.randint(256, 301, (16,), generator=gen,
+                               device=dev).tolist()
+    nb = copies_for(2 * 2 * sum(x + 1 for x in short_lens) * 8 * 128)
+    short_sets = [paged_case(gen, dev, short_lens) for _ in range(nb)]
+    out["short"] = _grid_lines("tick's short rows", short_sets, nb,
+                               short_lens, M, card)
+    del short_sets
+    idle_lens = [0] * 16
+    out["idle"] = _grid_lines("idle rows (the fixed cost)",
+                              [paged_case(gen, dev, idle_lens)], 1,
+                              idle_lens, M, card)
+    return out
 
 
 def phase_small_reference(dev):
@@ -1047,7 +1127,7 @@ def _reset_launches():
 # the tensor-core route of each routed kernel, which bf16 and fp16 take
 FAST_ROUTE = {"flash": "wgmma", "flash_bwd_dq": "wgmma",
               "flash_bwd_dkv": "wgmma", "decode": "mma", "quant": "mma",
-              "ragged": "mma"}
+              "ragged": "mma", "grid": "mma"}
 
 
 def _routed():
@@ -1055,6 +1135,7 @@ def _routed():
         decode_attention_fwd
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
     from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
@@ -1062,13 +1143,13 @@ def _routed():
             "flash_bwd_dq": flash_attention_bwd_dq,
             "flash_bwd_dkv": flash_attention_bwd_dkv,
             "decode": decode_attention_fwd, "quant": quant_matmul,
-            "ragged": ragged_paged_attention}
+            "ragged": ragged_paged_attention, "grid": paged_attention}
 
 
 def _check_routes(label, **want_fast):
     """Since the last ``_reset_launches``: each named routed kernel
     (``flash``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``decode``, ``quant``,
-    ``ragged``) launched
+    ``ragged``, ``grid``) launched
     ``n`` times on its tensor-core route (``FAST_ROUTE``) and never on the
     simt route. Returns the counts by route."""
     fns = _routed()
@@ -1116,12 +1197,13 @@ def _serve(eng, subs, late_after: int):
     return out, time.perf_counter() - t0, ttft, in_prefill[0]
 
 
-def profile_paged_tick(eng, ids, card, ticks: int = 16):
+def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged"):
     """Where a steady paged decode tick's time goes: 16 greedy requests
     decoding (no admission, no finish), ``ticks`` ticks timed on the
     host clock, then the same number under torch.profiler split by
-    kernel kind. Device busy share = device time over the unprofiled
-    tick."""
+    kernel kind (ragged or grid attention: their kernels' names). Device
+    busy share = device time over the unprofiled tick. Returns the
+    categories' device ms per tick, or None without device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(eng.R):
@@ -1140,7 +1222,8 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16):
             eng.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / ticks
-    cats = {"ragged_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    cats = {"ragged_attention": 0.0, "grid_attention": 0.0, "gemm": 0.0,
+            "quant_matmul": 0.0, "other": 0.0}
     n = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1148,22 +1231,25 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16):
         n += 1
         name = e.name.lower()
         cat = ("ragged_attention" if "ragged_" in name else
+               "grid_attention" if "grid_" in name else
+               "quant_matmul" if "qmm_" in name else
                "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
                                                  "cutlass", "nvjet"))
                else "other")
         cats[cat] += e.time_range.elapsed_us() / 1e3 / ticks
     eng.run()
     if not n:
-        log("[profile] torch.profiler recorded no device events: paged "
-            "tick busy share not measured")
-        return
+        log(f"[profile] torch.profiler recorded no device events: {label} "
+            f"tick busy share not measured")
+        return None
     busy = sum(cats.values())
-    log(f"[profile] paged decode tick (16 active rows, seq_len ~256-300): "
+    log(f"[profile] {label} decode tick (16 active rows, seq_len ~256-300): "
         f"unprofiled {tick_ms:.2f} ms, under the profiler {wall:.2f} ms, "
         f"device busy {busy:.3f} ms ({100 * busy / tick_ms:.1f} % of the "
         f"unprofiled tick), {n / ticks:.0f} device ops per tick; "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in cats.items())
         + f" [{card}]")
+    return cats
 
 
 def phase_paged(seed, dev, card, model):
@@ -1344,32 +1430,39 @@ def profile_decode_step(ptt, pred, ids, step_ms, card, label):
 def phase_grid_checks(gen, dev):
     """The grid paged kernel against its plain version at the engine's
     geometry (R 16, h 32 over kvh 8, d 128, B 16, M 64, P 1025; lens with
-    0 and block edges), bf16 and fp32, with and without a window. Every
-    table slot past a row's live count holds an index far outside the
-    pool, which the kernel must never read (the plain version gathers
-    whole tables, so it gets those slots zeroed). Without a window the
-    kernel is also held against the ragged kernel: bit for bit in fp32
-    (both keep the first design there), within the tolerance in bf16
-    (the ragged kernel runs split-KV on mma). Last, one
-    call captured in a CUDA graph and replayed after seq_lens and tables
-    changed in place. Returns the bf16 no-window error."""
+    0, block edges and a row at M * B - 1), bf16 and fp16 (mma) and fp32
+    (simt), with and without a window, each call on its route by count
+    and repeated bit for bit. Every table slot past a row's live count
+    holds an index far outside the pool, which the kernel must never read
+    (the plain version gathers whole tables, so it gets those slots
+    zeroed). Without a window the kernel is also held against the ragged
+    kernel: bit for bit in fp32 (both keep the first design there),
+    within the tolerance in bf16 and fp16 (two split-KV designs). Last,
+    one call captured in a CUDA graph and replayed after seq_lens and
+    tables changed in place. Returns the bf16 no-window error."""
     from paddle_tpu_torch.ops.kernels.paged_attention import (
-        paged_attention, paged_attention_plain)
+        grid_route, paged_attention, paged_attention_plain)
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
     B, M = PAGED["block_size"], PAGED["max_blocks_per_seq"]
     first = None
-    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32,
-                                                   TOL_FP32)):
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float16, TOL_FP16),
+                       (torch.float32, TOL_FP32)):
+        route = grid_route(dtype, 128)
         for window in (None, 100):
             lens = ragged_lens(gen, dev, 1)
             q, kp, vp, tbl, sl = paged_case(gen, dev, lens, dtype=dtype)
             dead = (torch.arange(M, device=dev)[None, :]
                     >= ((sl.long() + B) // B)[:, None])
+            before = dict(paged_attention.launches_by_route)
             out = paged_attention(q, kp, vp, tbl.masked_fill(dead, 1 << 30),
                                   sl, window=window)
             again = paged_attention(q, kp, vp, tbl, sl, window=window)
             torch.cuda.synchronize()
+            before[route] += 2
+            if paged_attention.launches_by_route != before:
+                fail(f"grid {dtype}: launches by route "
+                     f"{paged_attention.launches_by_route} != {before}")
             ref = paged_attention_plain(q, kp, vp, tbl.masked_fill(dead, 0),
                                         sl, window=window)
             err = max_err(out, ref)
@@ -1381,13 +1474,13 @@ def phase_grid_checks(gen, dev):
                 note = (f"; against the ragged kernel: bit for bit "
                         f"{pinned}, max |d| {max_err(out, rag):.3e}")
                 # fp32: both keep the first design's tiles and order of
-                # sums; bf16: the ragged kernel runs split-KV on mma
+                # sums; bf16 and fp16: two split-KV designs on mma
                 if dtype == torch.float32 and not pinned:
                     fail("grid kernel differs from the ragged simt kernel "
                          "in fp32")
                 if max_err(out, rag) > tol:
                     fail(f"grid and ragged kernels disagree ({dtype})")
-            log(f"[check] grid {str(dtype)[6:]} window {window} q "
+            log(f"[check] grid {str(dtype)[6:]} ({route}) window {window} q "
                 f"{list(q.shape)} pools {list(kp.shape)} seq_lens "
                 f"{lens[:4]}+random, dead slots -> 2^30: max_abs_err "
                 f"{err:.3e} tol {tol}; bitwise repeat {same}{note}")
@@ -1693,11 +1786,13 @@ def phase_quant_paged(seed, dev, card, model):
     under ``PADDLE_TPU_PAGED_ATTN=grid`` (set in the process and restored
     after) over 12 seeded requests, a third of them with prompts of at
     most 64 tokens (their whole-prompt prefill passes the quant gate),
-    admission mid-decode. Counts: grid once per layer and decode tick,
-    ragged, flash and decode never, quant once per projection and (decode
-    tick or short prefill). A rerun must give identical tokens. Then the
-    same requests under ``ragged``: its counts, and its tokens against
-    the grid run's."""
+    admission mid-decode. Counts: grid once per layer and decode tick (on
+    the mma route), ragged, flash and decode never, quant once per
+    projection and (decode tick or short prefill). A rerun must give
+    identical tokens, and torch.profiler splits a steady tick (the grid
+    attention's device time per tick). Then the same requests under
+    ``ragged``: its counts, and its tokens against the grid run's.
+    Returns the grid run's launches and launches by route."""
     import os
 
     import numpy as np
@@ -1744,8 +1839,9 @@ def phase_quant_paged(seed, dev, card, model):
                 fail(f"int8 paged ({mode}): launches {launches} != {want} "
                      f"or prefills {prefills} != {len(subs)} or "
                      f"{preempted} preemptions")
-            _check_routes(f"int8 paged ({mode})", quant=want["quant"],
-                          ragged=want["ragged"])
+            routes = _check_routes(f"int8 paged ({mode})",
+                                   quant=want["quant"],
+                                   ragged=want["ragged"], grid=want["grid"])
             for rid, _, kw in subs:
                 if len(out.get(rid, ())) != kw["max_new_tokens"]:
                     fail(f"int8 paged ({mode}): request {rid} was cut")
@@ -1755,7 +1851,10 @@ def phase_quant_paged(seed, dev, card, model):
                     fail("int8 paged (grid): a rerun gave other tokens")
                 log("[int8 paged] grid rerun of the same submissions: "
                     "identical tokens")
-            runs[mode] = (out, launches)
+                profile_paged_tick(eng, lambda k: torch.randint(
+                    0, cfg.vocab_size, (k,), generator=gen), card,
+                    label="int8 grid")
+            runs[mode] = (out, launches, routes)
             del eng
     finally:
         if prev is None:
@@ -1769,7 +1868,7 @@ def phase_quant_paged(seed, dev, card, model):
     log(f"[int8 paged] grid vs ragged greedy tokens: {same} of {total} "
         f"equal; identical requests "
         f"{sum(grid[r] == ragged[r] for r in grid)} of {len(grid)}")
-    return runs["grid"][1]
+    return runs["grid"][1], runs["grid"][2]
 
 
 def phase_int4(seed, dev, card, bf16):
@@ -2413,8 +2512,10 @@ def main():
     pred, int8 = phase_quant_slice(dev, card, model, bf16)
     launches["quant"] = int8["launches"]["quant"]
     routes["quant"] = int8["routes"]["quant"]
-    launches["grid"] = phase_quant_paged(args.seed, dev, card,
-                                         pred.model)["grid"]
+    grid_launches, grid_routes = phase_quant_paged(args.seed, dev, card,
+                                                   pred.model)
+    launches["grid"] = grid_launches["grid"]
+    routes["grid"] = grid_routes["grid"]
     del pred, model, int8
     gc.collect()
     torch.cuda.empty_cache()

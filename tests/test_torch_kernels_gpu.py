@@ -15,8 +15,9 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     FlashAttentionFunction, flash_attention_bwd, flash_attention_bwd_dkv,
     flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
+from paddle_tpu_torch.ops.kernels import paged_attention as grid_module
 from paddle_tpu_torch.ops.kernels.paged_attention import (
-    paged_attention, paged_attention_plain)
+    grid_route, grid_split, paged_attention, paged_attention_plain)
 from paddle_tpu_torch.ops.kernels.quant_matmul import (quant_matmul,
                                                        quant_matmul_plain,
                                                        quant_route)
@@ -636,29 +637,165 @@ GRID_LENS = [0, 15, 16, 1023, 1, 100, 257, 640, 31, 32, 500, 999, 2, 47,
              48, 700]
 
 
-@pytest.mark.parametrize("window", [None, 100, 7], ids=["full", "window",
-                                                         "short-window"])
-@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
-def test_grid_kernel_matches_plain(cuda_card, dtype, window):
-    """The paged engine's geometry (16 rows, 32 heads over 8 kv heads, d
-    128, blocks of 16, 64 slots a row), lens with 0 and block edges; every
-    slot past a row's live count holds an index far outside the pool,
-    which the kernel must never read (the plain version gathers whole
-    tables, so it gets the same tables with those slots zeroed)."""
-    rs = np.random.RandomState(11)
-    q, kp, vp, tbl, sl = _grid_args(cuda_card, dtype, rs, GRID_LENS)
-    bad = tbl.clone()
-    live = (sl.long() + 16) // 16
-    dead = torch.arange(64, device=cuda_card)[None, :] >= live[:, None]
-    bad[dead] = 1 << 30
+def _grid_dead(tbl, sl, B):
+    """(tables whose slots past each row's live count hold an index far
+    outside the pool, which the kernel must never read; the same tables
+    with those slots zeroed, for the plain version, which gathers whole
+    tables)."""
+    M = tbl.shape[1]
+    live = (sl.long() + B) // B
+    dead = torch.arange(M, device=tbl.device)[None, :] >= live[:, None]
+    return tbl.masked_fill(dead, 1 << 30), tbl.masked_fill(dead, 0)
+
+
+def _grid_checked(args, window, dtype, B):
+    """One counted call on its route, with dead table slots set to 2^30,
+    held against the plain version."""
+    q, kp, vp, tbl, sl = args
+    bad, clean = _grid_dead(tbl, sl, B)
+    route = grid_route(dtype, q.shape[-1])
     n = paged_attention.launches
+    by_route = dict(paged_attention.launches_by_route)
     out = paged_attention(q, kp, vp, bad, sl, window=window)
     torch.cuda.synchronize()
     assert paged_attention.launches == n + 1
-    tbl[dead] = 0
-    ref = paged_attention_plain(q, kp, vp, tbl, sl, window=window)
+    by_route[route] += 1
+    assert paged_attention.launches_by_route == by_route
+    ref = paged_attention_plain(q, kp, vp, clean, sl, window=window)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
                                rtol=0)
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 100, 7, 1, 5000],
+                         ids=["full", "window", "short-window", "window1",
+                              "window-wide"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_grid_kernel_matches_plain(cuda_card, dtype, window):
+    """The paged engine's geometry (16 rows, 32 heads over 8 kv heads, d
+    128, blocks of 16, 64 slots a row), lens with 0, block edges and a row
+    at M * B - 1; every slot past a row's live count holds an index far
+    outside the pool, which the kernel must never read. bf16 and fp16 on
+    the mma route, fp32 on simt."""
+    rs = np.random.RandomState(11)
+    args = _grid_args(cuda_card, dtype, rs, GRID_LENS)
+    _grid_checked(args, window, dtype, 16)
+
+
+@pytest.mark.parametrize("case", ["alone", "among-short"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_grid_kernel_one_long_row(cuda_card, dtype, case):
+    """One row of 8192 positions (512 slots of 16) alone, and one row at
+    M * B - 1 among short ones: a cluster's chunks all live beside
+    clusters with one live chunk."""
+    rs = np.random.RandomState(21)
+    if case == "alone":
+        args = _grid_args(cuda_card, dtype, rs, [8191], M=512, P=513)
+    else:
+        args = _grid_args(cuda_card, dtype, rs,
+                          [1023] + list(rs.randint(0, 20, 15)))
+    for window in (None, 1000):
+        _grid_checked(args, window, dtype, 16)
+
+
+@pytest.mark.parametrize("M", [5, 63])
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_grid_kernel_uneven_chunks(cuda_card, dtype, R, M):
+    """M not a multiple of the cluster: the last chunk runs past the
+    table (M 63), whole chunks lie past it (M 5); a single row."""
+    rs = np.random.RandomState(M + R)
+    lens = ([M * 16 - 1] + list(rs.randint(0, M * 16, R - 1)))[:R]
+    args = _grid_args(cuda_card, dtype, rs, lens, M=M, P=4 * M + 1)
+    for window in (None, 20):
+        _grid_checked(args, window, dtype, 16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_grid_kernel_groups(cuda_card, dtype, group, d):
+    """Query heads per kv head 1, 4, 8, 16 and 32 (1, 2 and 4 tiles of 8
+    query rows; at d 128 and 32 rows the query sits in shared memory) at
+    head_dim 64 and 128, a small pool with blocks of 8, with and without a
+    window."""
+    rs = np.random.RandomState(d + group)
+    args = _grid_args(cuda_card, dtype, rs, [0, 7, 8, 127], h=2 * group,
+                      kvh=2, d=d, B=8, M=16, P=80)
+    for window in (None, 20):
+        _grid_checked(args, window, dtype, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_grid_kernel_repeats_bitwise(cuda_card, dtype):
+    """Each row's chunks merge in chunk order, whatever the order in which
+    the cluster's blocks finish: two calls give the same bits."""
+    rs = np.random.RandomState(32)
+    args = _grid_args(cuda_card, dtype, rs, rs.randint(0, 1024, 16))
+    for window in (None, 300):
+        a = paged_attention(*args, window=window)
+        b = paged_attention(*args, window=window)
+        assert torch.equal(a, b)
+
+
+def test_grid_kernel_cluster_of_16(cuda_card):
+    """The mma kernel with a row's chunks in a cluster of 16 (beyond the
+    portable 8) and with one kv head a block: the same function."""
+    rs = np.random.RandomState(33)
+    q, kp, vp, tbl, sl = _grid_args(cuda_card, torch.bfloat16, rs,
+                                    GRID_LENS)
+    ref = paged_attention_plain(q, kp, vp, tbl, sl, window=100)
+    for split in (grid_split(16, 64, 8, 132, cluster=16), (8, 8, 1)):
+        out = grid_module._launch("mma", q, kp, vp, tbl, sl, None, 100,
+                                  split)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=ATOL[torch.bfloat16], rtol=0)
+
+
+def _graph_node_types(graph):
+    """The node types of a captured CUDA graph (its handle is a CUgraph),
+    read through the driver API: 0 is a kernel node."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(t)) == 0
+        types.append(t.value)
+    return types
+
+
+def test_grid_kernel_one_launch_and_only_the_output(cuda_card):
+    """The mma route makes one kernel launch a call (the chunks merge in
+    their cluster): a captured call is a graph of one kernel node. An
+    eager call allocates only the output. (torch.profiler dropped this
+    cluster launch's device event in some sessions, so the launch is
+    counted in the graph.)"""
+    rs = np.random.RandomState(34)
+    args = _grid_args(cuda_card, torch.bfloat16, rs, GRID_LENS)
+    paged_attention(*args)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_card)
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_card) - before == (
+        out.numel() * out.element_size() + 511) // 512 * 512
+    n = paged_attention.launches_by_route["mma"]
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        paged_attention(*args)
+    assert paged_attention.launches_by_route["mma"] == n + 1
+    assert _graph_node_types(graph) == [0]
 
 
 @pytest.mark.parametrize("d,group", [(64, 2), (256, 1), (128, 16)])
@@ -694,12 +831,14 @@ def test_grid_kernel_equals_ragged_bitwise_and_repeats(cuda_card):
                                atol=ATOL[torch.bfloat16], rtol=0)
 
 
-def test_grid_kernel_replays_in_a_cuda_graph(cuda_card):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_grid_kernel_replays_in_a_cuda_graph(cuda_card, dtype):
     """One call captured in a CUDA graph; seq_lens and table contents
-    changed in place between replays; each replay agrees with the plain
-    version on the new values."""
+    changed in place between replays (which changes which chunks are
+    live); each replay agrees with the plain version on the new values."""
     rs = np.random.RandomState(13)
-    q, kp, vp, tbl, sl = _grid_args(cuda_card, torch.bfloat16, rs,
+    q, kp, vp, tbl, sl = _grid_args(cuda_card, dtype, rs,
                                     rs.randint(1, 900, 16))
     paged_attention(q, kp, vp, tbl, sl, window=200)  # warm-up, uncaptured
     torch.cuda.synchronize()
@@ -708,7 +847,7 @@ def test_grid_kernel_replays_in_a_cuda_graph(cuda_card):
         out = paged_attention(q, kp, vp, tbl, sl, window=200)
     for seed in (1, 2):
         rs2 = np.random.RandomState(seed)
-        _, _, _, tbl2, sl2 = _grid_args(cuda_card, torch.bfloat16, rs2,
+        _, _, _, tbl2, sl2 = _grid_args(cuda_card, dtype, rs2,
                                         rs2.randint(0, 64 * 16 - 1, 16))
         tbl.copy_(tbl2)
         sl.copy_(sl2)
@@ -716,4 +855,4 @@ def test_grid_kernel_replays_in_a_cuda_graph(cuda_card):
         torch.cuda.synchronize()
         ref = paged_attention_plain(q, kp, vp, tbl, sl, window=200)
         torch.testing.assert_close(out.float(), ref.float(),
-                                   atol=ATOL[torch.bfloat16], rtol=0)
+                                   atol=ATOL[dtype], rtol=0)

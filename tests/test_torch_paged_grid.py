@@ -9,7 +9,13 @@ other rows' blocks. ``paged_decode_attention`` under every value of
 ``PADDLE_TPU_PAGED_ATTN`` is held against the JAX function under the same
 value, and must take the same route; the port's ``PagedEngine`` under
 ``grid`` must give the JAX engine's greedy tokens.
-``test_torch_kernels_gpu.py`` holds the CUDA kernel against the plain
+The mma kernel's static rules are pinned here too: its route depends on
+the dtype and head_dim alone, its chunk / cluster / heads-per-block split
+on the static shapes and the SM count alone, and its plain spec of which
+(row, chunk) blocks stream K/V (``grid_live_chunks``) is held against the
+ragged kernel's chunk schedule at one query a row and against the TPU
+kernel's own ``run`` predicate and index-map clamp, recomputed in numpy.
+``test_torch_kernels_gpu.py`` holds the CUDA kernels against the plain
 version on the card."""
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +34,10 @@ from paddle_tpu.ops.pallas.paged_attention import paged_attention_pallas
 from paddle_tpu_torch.generation import paged as port_paged
 from paddle_tpu_torch.generation.paged import PagedEngine, PagedKV
 from paddle_tpu_torch.ops.kernels.paged_attention import (
+    CLUSTER, MAX_CLUSTER, grid_live_chunks, grid_route, grid_split,
     paged_attention, paged_attention_plain)
+from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+    build_chunk_schedule
 
 # fp32 on the CPU: both sides sum the same fp32 products in another order
 ATOL_FP32 = 1e-5
@@ -211,3 +220,96 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="at most 32"):
         paged_attention(torch.zeros(4, 66, 64), torch.zeros(40, 8, 2, 64),
                         torch.zeros(40, 8, 2, 64), tables, sl)
+
+
+def test_grid_route_depends_on_dtype_and_head_dim_alone():
+    for dtype in (torch.bfloat16, torch.float16):
+        assert grid_route(dtype, 64) == grid_route(dtype, 128) == "mma"
+        assert grid_route(dtype, 256) == "simt"
+    assert {grid_route(torch.float32, d) for d in (64, 128, 256)} == {
+        "simt"}
+
+
+def test_grid_split_depends_on_static_shapes_and_sm_count_alone():
+    """At the paged engine's geometry (16 rows, 64 slots, 8 kv heads, 132
+    SMs) a row is a cluster of 8 chunks of 8 slots, 2 kv heads a block
+    (512 blocks); one row of 512 slots takes 16 chunks of 32 slots, one kv
+    head a block. Every split covers the table with a power-of-two number
+    of chunks, no more than the table needs."""
+    assert grid_split(16, 64, 8, 132) == (8, 8, 2)
+    assert grid_split(1, 512, 8, 132) == (16, 32, 1)
+    assert grid_split(64, 64, 8, 132) == (8, 8, 4)
+    assert grid_split(16, 64, 8, 132, cluster=16) == (16, 4, 4)
+    for R, M, kvh, sms in ((1, 1, 1, 132), (1, 5, 8, 132), (4, 63, 2, 132),
+                           (3, 7, 1, 16), (256, 64, 8, 132),
+                           (16, 2048, 8, 78)):
+        for cluster in (None, 1, 2, CLUSTER, MAX_CLUSTER):
+            chunks, C, hpb = grid_split(R, M, kvh, sms, cluster)
+            assert (chunks, C, hpb) == grid_split(R, M, kvh, sms, cluster)
+            assert chunks & (chunks - 1) == 0
+            assert chunks <= (cluster or MAX_CLUSTER)
+            assert chunks * C >= M and (chunks == 1 or chunks // 2 < M)
+            assert hpb in (1, 2, 4) and hpb <= kvh
+    with pytest.raises(ValueError, match="cluster"):
+        grid_split(16, 64, 8, 132, cluster=32)
+
+
+def _live_case(seed, R, M, B):
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(0, M * B, R).astype(np.int32)
+    lens[:3] = [0, M * B - 1, B - 1]
+    return torch.from_numpy(np.zeros((R, M), np.int32)), \
+        torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("B,M,C", [(8, 12, 3), (16, 64, 8), (16, 63, 8),
+                                   (4, 5, 1), (16, 64, 4)])
+@pytest.mark.parametrize("window", [None, 1, 20, 100, 5000],
+                         ids=["none", "w1", "w20", "w100", "wide"])
+def test_grid_live_chunks_match_the_chunk_schedule(B, M, C, window):
+    """The (row, chunk) blocks the grid kernel streams are the live items
+    of the ragged kernel's chunk schedule at one query a row (itself the
+    JAX package's ``build_schedule`` merged C blocks at a time); chunks
+    past the table are never live."""
+    tbl, sl = _live_case(B + M + C, 9, M, B)
+    chunks = -(-M // C) + 2
+    live = grid_live_chunks(sl, M, chunks, C, B, window=window)
+    row, chunk, ok = build_chunk_schedule(tbl, sl, C, B, window=window)
+    want = {(r, c) for r, c, v in zip(row.tolist(), chunk.tolist(),
+                                      ok.tolist()) if v}
+    got = {tuple(x) for x in torch.nonzero(live).tolist()}
+    assert got == want
+    assert live.sum(dim=1).min() >= 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("B", [4, 16])
+@pytest.mark.parametrize("window", [None, 1, 7, 50, 5000],
+                         ids=["none", "w1", "w7", "w50", "wide"])
+def test_grid_live_chunks_match_the_tpu_predicate(seed, B, window):
+    """The TPU kernel (``paged_attention.py:58-61``) runs grid step (r, ti)
+    when ti B < valid and, with a window, (ti + 1) B > valid - window; its
+    K/V index map (``:110-118``) clamps every step to [lo, last], so the
+    blocks it fetches are the ones it runs. A chunk of C blocks is live in
+    the grid kernel exactly when one of its blocks runs there."""
+    rs = np.random.RandomState(seed)
+    R, M = 12, 20
+    lens = rs.randint(0, M * B, R)
+    lens[:2] = [0, M * B - 1]
+    for C in (1, 3, 4, 8):
+        chunks = -(-M // C)
+        live = grid_live_chunks(torch.from_numpy(lens.astype(np.int32)), M,
+                                chunks, C, B, window=window).numpy()
+        for r in range(R):
+            valid = int(lens[r]) + 1
+            ti = np.arange(M)
+            run = ti * B < valid
+            if window is not None:
+                run &= (ti + 1) * B > valid - window
+            last = max(-(-valid // B) - 1, 0)
+            lo = 0 if window is None else max(valid - window, 0) // B
+            fetched = set(np.clip(ti, lo, last).tolist())
+            assert fetched == set(ti[run].tolist())
+            want = [bool(run[j * C:(j + 1) * C].any())
+                    for j in range(chunks)]
+            assert live[r].tolist() == want, (r, C)
