@@ -50,19 +50,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    sampled call must give valid ids. Last,
    torch.profiler splits one decode step's device time by kernel kind
    and gives the device's busy share of the step;
-7. the paged slice, on the same model: ``PagedEngine(fused_tick=False)``
-   serves (a) 24 seeded requests (prompts 32-768, 32-128 new tokens, 4
-   sampled, one with a stop sequence, admission mid-decode) with the
-   counts set to 0 just before and read just after: ragged paged
-   attention must run once per layer and decode tick (32 x decode_steps),
-   all on the mma route, and never during a prefill, flash and decode
-   attention never; a rerun
-   must give identical tokens, sampled ones included. (b) chunked
-   prefill with the prefix cache: 8 requests sharing a 512-token prefix
-   must hit it, and a resubmitted prompt must give its cold run's tokens.
-   (c) ``Predictor.serve_stream`` over a pool too small for its load
-   must preempt and still complete every request. TTFT, tick time,
-   tokens/s and peak memory are printed beside the card.
+7. the paged slice, on the same model: ``PagedEngine(model, **PAGED)`` at
+   its defaults (the device-resident tick, each tick program captured
+   once into a CUDA graph and replayed, ring mode, delta transitions, the
+   fused patch queue) serves (a) 24 seeded requests (prompts 32-768,
+   32-128 new tokens, 4 sampled, one with a stop sequence, admission
+   mid-decode) with the counts set to 0 just before and read just after:
+   ragged paged attention must run once per layer and decode tick (32 x
+   decode_steps, counted inside the graphs), all on the mma route, and
+   never during a prefill, flash and decode attention never; one dispatch
+   per tick and prefill. The same submissions through
+   ``fused_tick=False`` (the host tick) must give identical tokens and
+   logprobs, sampled ones included, and so must a rerun. A profiled
+   steady tick must show one graph launch and 32 ragged kernels; the
+   steady tick of the graphed engine and of the host tick are timed in
+   turns. (b) chunked prefill with the prefix cache: 8 requests sharing
+   a 512-token prefix must hit it, and a resubmitted prompt must give its
+   cold run's tokens. (c) ``Predictor.serve_stream`` at the defaults over
+   a pool too small for its load must preempt and still complete every
+   request. TTFT, tick time, tokens/s, peak memory and the graphs' pool
+   bytes are printed beside the card.
 
 8. the flash backward (phases run beside 3 and 4): the dq and dk/dv
    kernels against their plain version at sq = sk = 2048 (causal, window
@@ -99,13 +106,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``Predictor(model, Config().enable_weight_only_quant(8))``: the same
    ``generate`` with quant 7 x 32 x 127 (all on the mma route), flash 32
    and decode 32 x 127 launches and its numbers next to bf16's;
-   ``PagedEngine`` on it under
+   ``PagedEngine`` on it at its defaults (graphed ticks) under
    ``PADDLE_TPU_PAGED_ATTN=grid`` (grid once per layer and tick, all on
    the mma route, quant once per projection and tick or short prefill,
-   ragged never), a rerun, a profiled steady tick (the grid attention's
-   device time), and the same requests under ``ragged``; last the model
-   rebuilt from the seed and quantized to int4, through the same
-   ``generate``.
+   ragged never, counted inside the graphs), the host tick's streams
+   bit for bit, a rerun, a profiled steady tick (one graph launch, 32
+   grid and 224 quant kernels, the grid attention's device time), and
+   the same requests under ``ragged``; last the model rebuilt from the
+   seed and quantized to int4, through the same ``generate``.
 
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
@@ -120,6 +128,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -290,7 +299,6 @@ def sass_counts(lib) -> dict:
     """{kernel function: (HGMMA, UTMALDG, HMMA)}: the wgmma, TMA-load and
     mma.sync instructions in each function of a built library, from
     cuobjdump's SASS listing."""
-    import os
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -1197,39 +1205,137 @@ def _serve(eng, subs, late_after: int):
     return out, time.perf_counter() - t0, ttft, in_prefill[0]
 
 
-def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged"):
-    """Where a steady paged decode tick's time goes: 16 greedy requests
-    decoding (no admission, no finish), ``ticks`` ticks timed on the
-    host clock, then the same number under torch.profiler split by
-    kernel kind (ragged or grid attention: their kernels' names). Device
-    busy share = device time over the unprofiled tick. Returns the
-    categories' device ms per tick, or None without device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _fill(eng, ids, n_new):
+    """Submit one 256-token greedy request per slot and run the step that
+    admits and prefills them all (and dispatches their first tick)."""
     for i in range(eng.R):
-        eng.submit(f"p{i}", ids(256), max_new_tokens=3 * ticks + 4)
-    eng.step()                          # admit + prefill all, first tick
+        eng.submit(f"p{i}", ids(256), max_new_tokens=n_new)
+    eng.step()
+    torch.cuda.synchronize()
+
+
+def _timed_ticks(eng, ticks: int) -> float:
+    """Mean host ms of ``ticks`` steady steps, closed by a synchronize."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(ticks):
         eng.step()
     torch.cuda.synchronize()
-    tick_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    return (time.perf_counter() - t0) * 1e3 / ticks
+
+
+def graph_nodes(graph):
+    """(kernel names, memory-copy and memset nodes) of a CUDA graph
+    captured with ``keep_graph=True``, read through libcuda's graph
+    calls: what each replay launches, whatever a profiler records."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    class KernelParams(ctypes.Structure):      # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    def check(rc, what):
+        if rc:
+            fail(f"{what} returned CUresult {rc}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    names, memory = [], 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value in (1, 2):               # memcpy, memset
+            memory += 1
+        if kind.value != 0:                    # 0: a kernel node
+            continue
+        p = KernelParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(p)),
+              "cuGraphKernelNodeGetParams_v2")
+        func = p.func
+        if not func:
+            f = ctypes.c_void_p()
+            check(cu.cuKernelGetFunction(ctypes.byref(f),
+                                         ctypes.c_void_p(p.kern)),
+                  "cuKernelGetFunction")
+            func = f.value
+        name = ctypes.c_char_p()
+        check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)),
+              "cuFuncGetName")
+        names.append(name.value.decode())
+    return names, memory
+
+
+class _TimedGraph:
+    """A captured graph whose ``replay`` records the host's time in the
+    call (the launch of the whole graph), in ms."""
+
+    def __init__(self, graph):
+        self.graph, self.ms = graph, []
+
+    def replay(self):
+        t0 = time.perf_counter()
+        self.graph.replay()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+
+
+def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged",
+                       expect=None):
+    """Where a steady paged decode tick's time goes: 16 greedy requests
+    decoding (no admission, no finish), ``ticks`` ticks timed on the
+    host clock, then the same number under torch.profiler split by
+    kernel kind (ragged or grid attention: their kernels' names). Device
+    busy share = device time over the unprofiled tick. ``expect`` maps a
+    kernel-name part to the kernels each tick must show (on a graphed
+    engine also one graph launch a tick): it fails otherwise. Returns the
+    categories' device ms per tick, or None without device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _fill(eng, ids, 3 * ticks + 4)
+    w0 = eng._h_decode.stats()["sum"]
+    steady = (True, 1, os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged"))
+    timed = None
+    if steady in eng._graphs:
+        g = eng._graphs[steady]
+        timed = _TimedGraph(g.graph)
+        eng._graphs[steady] = g._replace(graph=timed)
+    tick_ms = _timed_ticks(eng, ticks)
+    if timed is not None:
+        eng._graphs[steady] = g
+    replay_ms = sum(timed.ms) / max(len(timed.ms), 1) if timed else 0.0
+    # a fused engine's histogram holds its drains' waits for the device:
+    # the rest of a step is the host's own
+    wait_ms = (eng._h_decode.stats()["sum"] - w0) / ticks
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / ticks
+        wall = _timed_ticks(eng, ticks)
     cats = {"ragged_attention": 0.0, "grid_attention": 0.0, "gemm": 0.0,
             "quant_matmul": 0.0, "other": 0.0}
-    n = 0
+    n = replays = 0
+    launch_us = 0.0
+    seen = dict.fromkeys(expect or (), 0)
+    spans = []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            if "cudaGraphLaunch" in e.name:
+                replays += 1
+                launch_us += e.time_range.elapsed_us()
+            continue
+        if getattr(e, "is_user_annotation", False):
             continue
         n += 1
+        spans.append((e.time_range.start, e.time_range.end))
         name = e.name.lower()
+        for part in seen:
+            seen[part] += part in name
         cat = ("ragged_attention" if "ragged_" in name else
                "grid_attention" if "grid_" in name else
                "quant_matmul" if "qmm_" in name else
@@ -1246,14 +1352,93 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged"):
     log(f"[profile] {label} decode tick (16 active rows, seq_len ~256-300): "
         f"unprofiled {tick_ms:.2f} ms, under the profiler {wall:.2f} ms, "
         f"device busy {busy:.3f} ms ({100 * busy / tick_ms:.1f} % of the "
-        f"unprofiled tick), {n / ticks:.0f} device ops per tick; "
+        f"unprofiled tick), {n / ticks:.0f} device ops per tick, "
+        f"{replays / ticks:.2f} graph launches per tick; "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in cats.items())
         + f" [{card}]")
+    # where the device idles under the profiler: gaps between consecutive
+    # device ops, short ones (inside a replay or a launch burst) apart
+    # from long ones (the device waiting for the host's next step)
+    spans.sort()
+    gaps = [b - a1 for (_, a1), (b, _) in zip(spans, spans[1:]) if b > a1]
+    short = sum(g for g in gaps if g <= 100.0) / 1e3 / ticks
+    long_ = sum(g for g in gaps if g > 100.0) / 1e3 / ticks
+    check_ms = 0.0
+    if eng._fused:
+        # the per-dispatch check that the weights did not move
+        t0 = time.perf_counter()
+        for _ in range(100):
+            eng._weights_moved()
+        check_ms = (time.perf_counter() - t0) * 10
+    log(f"[profile] {label} idle per tick under the profiler: gaps <= 100 "
+        f"us between device ops {short:.3f} ms, longer gaps {long_:.3f} "
+        f"ms; unprofiled: the drains' wait for the device {wait_ms:.3f} "
+        f"ms a step, the host's own step {tick_ms - wait_ms:.3f} ms"
+        + (f", of it the replay call {replay_ms:.3f} ms (under the "
+           f"profiler its cudaGraphLaunch "
+           f"{launch_us / 1e3 / max(replays, 1):.3f} ms) and the weights' "
+           f"check {check_ms:.3f} ms"
+           if eng._fused else " (host tick: the wait is its read-back)")
+        + f" [{card}]")
+    if expect:
+        # the steady tick's graph: each named kernel ``expect`` times in
+        # its node list; the profiler must see them in every replay,
+        # short only by the device events it dropped in all (it drops a
+        # few in long sessions): the replay's nodes and the ring's four
+        # copies a step, less what it recorded
+        names, memory = graph_nodes(eng._graphs[steady].graph)
+        nodes = {k: sum(k in x.lower() for x in names) for k in expect}
+        dropped = max((len(names) + memory + 4) * ticks - n, 0)
+        log(f"[profile] {label}: the steady graph holds {len(names)} "
+            f"kernel and {memory} copy/memset nodes, by name {nodes}; "
+            f"profiled kernels per tick by name "
+            f"{ {k: v / ticks for k, v in seen.items()} } (want {expect}; "
+            f"device events the profiler dropped: {dropped}), graph "
+            f"launches per tick {replays / ticks:.2f}")
+        if nodes != expect:
+            fail(f"{label}: the tick graph's kernels by name {nodes} != "
+                 f"{expect}")
+        for k, want in expect.items():
+            if not want * ticks - dropped <= seen[k] <= want * ticks:
+                fail(f"{label}: {seen[k]} {k} kernels profiled in {ticks} "
+                     f"ticks, want {want * ticks} less at most {dropped} "
+                     f"dropped")
+        if replays != ticks:
+            fail(f"{label}: {replays} graph launches in {ticks} ticks")
     return cats
 
 
+def tick_ab(fused, host, ids, card, label, ticks: int = 16):
+    """The steady tick of the graphed default engine against the host
+    tick, in turns (fused, host, host, fused) in this process, so the
+    host's drift falls on both alike."""
+    got = {"fused": [], "host": []}
+    for key in ("fused", "host", "host", "fused"):
+        eng = fused if key == "fused" else host
+        _fill(eng, ids, ticks + 8)
+        got[key].append(_timed_ticks(eng, ticks))
+        eng.run()
+    mean = {k: sum(v) / len(v) for k, v in got.items()}
+    log(f"[{label}] steady tick (16 rows, seq_len ~256-300), ms in turns "
+        f"fused, host, host, fused: fused "
+        + ", ".join(f"{x:.2f}" for x in got["fused"]) + "; host "
+        + ", ".join(f"{x:.2f}" for x in got["host"])
+        + f"; host / fused {mean['host'] / mean['fused']:.2f} [{card}]")
+    return mean
+
+
+def _same_streams(label, out, lps, ref, ref_lps):
+    """Tokens and logprobs of two runs bit for bit, or fail."""
+    bad = sorted(r for r in ref if out.get(r) != ref[r]
+                 or lps.get(r) != ref_lps.get(r))
+    if bad or set(out) != set(ref):
+        fail(f"{label}: the graphed tick's streams differ from the host "
+             f"tick's: {bad}")
+
+
 def phase_paged(seed, dev, card, model):
-    """Llama-3-8B served by the ported PagedEngine on its host tick."""
+    """Llama-3-8B served by the ported PagedEngine at its defaults (the
+    graphed device-resident tick) against its host tick."""
     import numpy as np
 
     import paddle_tpu_torch as ptt
@@ -1276,26 +1461,42 @@ def phase_paged(seed, dev, card, model):
             kw["stop_sequences"] = [[int(t) for t in rs.randint(
                 0, cfg.vocab_size, 2)], [int(rs.randint(cfg.vocab_size))]]
         subs.append((f"a{i}", ids(int(rs.randint(32, 769))), kw))
-    eng = PagedEngine(model, fused_tick=False, **PAGED)
+    eng = PagedEngine(model, **PAGED)
+    host = PagedEngine(model, fused_tick=False, **PAGED)
     pool_gb = sum(kp.numel() * kp.element_size() * 2
                   for kp, _ in eng.pools) / 1e9
-    log(f"[paged] PagedEngine(fused_tick=False, {PAGED}): KV pool "
-        f"{pool_gb:.2f} GB on the card")
-    _serve(eng, subs[:2], late_after=0)          # warm-up (allocator)
+    log(f"[paged] PagedEngine({PAGED}) at its defaults (fused_tick, ring, "
+        f"delta transitions, patch queue {eng._pq_len}, ring "
+        f"{eng._ring_len}): KV pool {pool_gb:.2f} GB on the card, and "
+        f"the same with fused_tick=False")
+    # warm-up: the allocator, and the greedy and sampled graphs' captures
+    _serve(eng, subs[:1], late_after=0)
+    _serve(eng, subs[5:6], late_after=0)
+    log(f"[paged] captured tick programs {sorted(eng._graphs)}: graph pool "
+        f"{eng.graph_pool_bytes / 1e6:.1f} MB")
     torch.cuda.reset_peak_memory_stats(dev)
     steps0 = eng.stats["decode_steps"]
+    disp0, up0 = eng.dispatch_count, eng.h2d_uploads
     read = _reset_launches()
     out, wall, ttft, in_prefill = _serve(eng, subs, late_after=8)
     launches = read()
+    lps = dict(eng.logprobs)
     ticks = eng.stats["decode_steps"] - steps0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     want = dict(NO_LAUNCHES, ragged=L * ticks)
     log(f"[paged] (a) launches in the run: {launches} (want {want}; "
-        f"{in_prefill} inside prefills)")
+        f"{in_prefill} inside prefills); {eng.dispatch_count - disp0} "
+        f"dispatches and {eng.h2d_uploads - up0} uploads for {ticks} ticks "
+        f"and {len(subs)} prefills; ring drains {eng.ring_drains}, "
+        f"blocking {eng.ring_blocking_drains}; full rebuilds "
+        f"{eng.full_rebuilds}, patches fused {eng.patches_fused}")
     if launches != want or in_prefill:
         fail(f"paged launches {launches} != {want} (prefills: "
              f"{in_prefill})")
     routes = _check_routes("paged (a)", ragged=L * ticks)
+    if eng.dispatch_count - disp0 != ticks + len(subs):
+        fail(f"paged (a): {eng.dispatch_count - disp0} dispatches for "
+             f"{ticks} ticks and {len(subs)} prefills")
     new_tokens = 0
     for rid, tok_ids, kw in subs:
         got = out.get(rid)
@@ -1312,21 +1513,31 @@ def phase_paged(seed, dev, card, model):
     t = np.array([ttft[r] for r, _, _ in subs])
     log(f"[paged] (a) 24 requests, {new_tokens} new tokens in {ticks} "
         f"decode ticks, {wall:.2f} s: TTFT median {np.median(t):.1f} ms "
-        f"p99 {np.percentile(t, 99):.1f} ms, mean tick "
-        f"{h['mean']:.2f} ms (paged_decode_step_ms, {h['count']} ticks "
+        f"p99 {np.percentile(t, 99):.1f} ms, mean drain wait "
+        f"{h['mean']:.2f} ms (paged_decode_step_ms, {h['count']} drains "
         f"incl. warm-up), {new_tokens / wall:.1f} new tokens/s, peak "
-        f"memory {peak_gb:.2f} GB [{card}]")
+        f"memory {peak_gb:.2f} GB, graph pool "
+        f"{eng.graph_pool_bytes / 1e6:.1f} MB [{card}]")
+    ref, hwall, httft, _ = _serve(host, subs, late_after=8)
+    _same_streams("paged (a)", out, lps, ref, dict(host.logprobs))
+    ht = np.array([httft[r] for r, _, _ in subs])
+    log(f"[paged] (a) the host tick (fused_tick=False) on the same "
+        f"submissions: identical tokens and logprobs (4 sampled "
+        f"included), {hwall:.2f} s, {new_tokens / hwall:.1f} new tokens/s, "
+        f"TTFT median {np.median(ht):.1f} ms p99 "
+        f"{np.percentile(ht, 99):.1f} ms [{card}]")
     again, _, _, _ = _serve(eng, subs, late_after=8)
     if again != out:
         bad = [r for r in out if again.get(r) != out[r]]
         fail(f"a rerun of the same submissions gave other tokens: {bad}")
     log("[paged] (a) rerun of the same submissions: identical tokens "
         "(4 sampled included)")
-    profile_paged_tick(eng, ids, card)
-    del eng
+    profile_paged_tick(eng, ids, card, expect={"ragged_": L})
+    tick_ab(eng, host, ids, card, "paged")
+    del eng, host
 
     # (b) chunked prefill + prefix cache
-    eng = PagedEngine(model, fused_tick=False, chunk_prefill_tokens=128,
+    eng = PagedEngine(model, chunk_prefill_tokens=128,
                       enable_prefix_cache=True, **PAGED)
     prefix = ids(512)
     subs = [(f"b{i}", torch.cat([prefix, ids(64)]),
@@ -1339,21 +1550,21 @@ def phase_paged(seed, dev, card, model):
     log(f"[paged] (b) chunk 128 + prefix cache: prefix_hit_tokens {hits}, "
         f"prefill chunks {eng.stats['prefill_chunks']}, 7 borrowers TTFT "
         f"median {np.median(list(ttft.values())):.1f} ms; resubmitted "
-        f"prompt identical to its cold run: {res[rid] == cold[rid]} "
-        f"[{card}]")
+        f"prompt identical to its cold run: {res[rid] == cold[rid]}; "
+        f"patches fused {eng.patches_fused}, full rebuilds "
+        f"{eng.full_rebuilds} [{card}]")
     if not hits > 0:
         fail("the shared 512-token prefix never hit the prefix cache")
     if res[rid] != cold[rid] or any(len(v) != 32 for v in warm.values()):
         fail("a prefix-cache hit changed a request's greedy tokens")
     del eng
 
-    # (c) preemption through Predictor.serve_stream
+    # (c) preemption through Predictor.serve_stream, at the defaults
     pred = ptt.Predictor(model, device=dev)
     reqs = {f"c{i}": ids(256) for i in range(8)}
     geo = dict(PAGED, num_blocks=129)
     t0 = time.perf_counter()
-    res = pred.serve_stream(reqs, max_new_tokens=128, fused_tick=False,
-                            **geo)
+    res = pred.serve_stream(reqs, max_new_tokens=128, **geo)
     wall = time.perf_counter() - t0
     st = pred.last_serve_stats
     log(f"[paged] (c) serve_stream, 8 x (256 + 128) tokens in a "
@@ -1782,19 +1993,19 @@ def phase_quant_slice(dev, card, model, bf16):
 
 
 def phase_quant_paged(seed, dev, card, model):
-    """The paged path on the int8 model: ``PagedEngine(fused_tick=False)``
-    under ``PADDLE_TPU_PAGED_ATTN=grid`` (set in the process and restored
-    after) over 12 seeded requests, a third of them with prompts of at
-    most 64 tokens (their whole-prompt prefill passes the quant gate),
-    admission mid-decode. Counts: grid once per layer and decode tick (on
-    the mma route), ragged, flash and decode never, quant once per
-    projection and (decode tick or short prefill). A rerun must give
-    identical tokens, and torch.profiler splits a steady tick (the grid
-    attention's device time per tick). Then the same requests under
-    ``ragged``: its counts, and its tokens against the grid run's.
-    Returns the grid run's launches and launches by route."""
-    import os
-
+    """The paged path on the int8 model: ``PagedEngine`` at its defaults
+    (the graphed device-resident tick) under ``PADDLE_TPU_PAGED_ATTN=grid``
+    (set in the process and restored after) over 12 seeded requests, a
+    third of them with prompts of at most 64 tokens (their whole-prompt
+    prefill passes the quant gate), admission mid-decode. Counts, inside
+    the graphs: grid once per layer and decode tick (on the mma route),
+    ragged, flash and decode never, quant once per projection and (decode
+    tick or short prefill). The host tick (``fused_tick=False``) must give
+    the same tokens and logprobs, so must a rerun, and torch.profiler
+    splits a steady tick (grid and quant kernels per tick, the grid
+    attention's device time). Then the same requests under ``ragged``:
+    its counts, and its tokens against the grid run's. Returns the grid
+    run's launches and launches by route."""
     import numpy as np
 
     import paddle_tpu_torch as ptt
@@ -1815,12 +2026,13 @@ def phase_quant_paged(seed, dev, card, model):
     try:
         for mode in ("grid", "ragged"):
             os.environ["PADDLE_TPU_PAGED_ATTN"] = mode
-            eng = PagedEngine(model, fused_tick=False, **PAGED)
-            _serve(eng, subs[:2], late_after=0)      # warm-up (allocator)
+            eng = PagedEngine(model, **PAGED)
+            _serve(eng, subs[:2], late_after=0)      # warm-up, capture
             st0 = dict(eng.stats)
             read = _reset_launches()
             out, wall, ttft, _ = _serve(eng, subs, late_after=8)
             launches = read()
+            lps = dict(eng.logprobs)
             ticks = eng.stats["decode_steps"] - st0["decode_steps"]
             prefills = eng.stats["prefills"] - st0["prefills"]
             preempted = eng.stats["preemptions"] - st0["preemptions"]
@@ -1846,6 +2058,14 @@ def phase_quant_paged(seed, dev, card, model):
                 if len(out.get(rid, ())) != kw["max_new_tokens"]:
                     fail(f"int8 paged ({mode}): request {rid} was cut")
             if mode == "grid":
+                host = PagedEngine(model, fused_tick=False, **PAGED)
+                ref, hwall, _, _ = _serve(host, subs, late_after=8)
+                _same_streams("int8 paged (grid)", out, lps, ref,
+                              dict(host.logprobs))
+                log(f"[int8 paged] grid: the host tick on the same "
+                    f"submissions gave identical tokens and logprobs, "
+                    f"{hwall:.2f} s against {wall:.2f} s [{card}]")
+                del host
                 again, _, _, _ = _serve(eng, subs, late_after=8)
                 if again != out:
                     fail("int8 paged (grid): a rerun gave other tokens")
@@ -1853,7 +2073,8 @@ def phase_quant_paged(seed, dev, card, model):
                     "identical tokens")
                 profile_paged_tick(eng, lambda k: torch.randint(
                     0, cfg.vocab_size, (k,), generator=gen), card,
-                    label="int8 grid")
+                    label="int8 grid",
+                    expect={"grid_": L, "qmm_": QUANT_PER_LAYER * L})
             runs[mode] = (out, launches, routes)
             del eng
     finally:

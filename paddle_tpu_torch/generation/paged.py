@@ -1,6 +1,7 @@
 """Paged KV cache and continuous batching (counterpart of
 ``paddle_tpu/generation/paged.py``): the paged KV helpers and
-``PagedEngine`` on its per-tick host path (``fused_tick=False``).
+``PagedEngine``, with its device-resident tick (the default) and the
+per-tick host path (``fused_tick=False``, the bit-exactness reference).
 
 - The KV cache is a pool of ``num_blocks`` physical blocks of
   ``block_size`` tokens per layer (``[P, B, kvh, d]``, the JAX package's
@@ -13,20 +14,35 @@
   nothing ever reads them as live data.
 - Each ``step()`` admits what fits (slot and blocks), prefills (whole
   prompt or one chunk per prefilling slot), then runs one decode tick for
-  every active slot: the host uploads its mirrors (tables, lengths, last
-  tokens, sampling parameters), runs the model once, and reads back the
-  chosen tokens. Scheduling, the prefix cache, preemption, stop
+  every active slot. Scheduling, the prefix cache, preemption, stop
   sequences, cancel and timeout are host bookkeeping, as in the JAX
   package.
 - A decode tick's attention is the ragged paged kernel, once per layer
   (the grid paged kernel under ``PADDLE_TPU_PAGED_ATTN=grid``, as in the
   JAX package); whole-prompt prefill is dense causal attention over the
   prompt and a chunk attends over its row's gathered blocks.
+- The device-resident tick (``fused_tick=True``): block tables, lengths,
+  last tokens, sampling parameters, keys, budgets, eos ids and the
+  active mask live on the device as one fixed set of tensors, allocated
+  once per engine and advanced in place by the tick program (attention,
+  repetition penalty, sampling, done flags). On a CUDA card each program
+  (greedy or sampled, K ticks, the paged-attention route) is captured
+  once into a CUDA graph and replayed: a steady tick is one replay and
+  no upload. On the CPU the same function runs eagerly.
+- Ring mode (on with the fused tick): the program appends each tick's
+  tokens to a device ring; the ring is copied to pinned host memory
+  after the replay without waiting, and the next ``step()`` drains it,
+  one step behind the device. Slot transitions travel as one-row
+  descriptors (delta transitions), staged into a device queue the next
+  tick's program applies first (the fused patch queue).
+  ``delta_transitions=False`` (full rebuilds), ``patch_fuse=False``
+  (one eager patch per descriptor) and ``ring_mode=False`` (a blocking
+  read of each tick) are the JAX package's reference modes, kept bitwise
+  equal to the default.
 
-The device-resident tick (``fused_tick=True``, ring mode, delta
-transitions, the fused patch queue, scan ticks), speculative ticks, the
-host-RAM spill tier and the tick-phase profiler come with later slices;
-their constructor arguments raise ``NotImplementedError``.
+Speculative ticks (``spec_tokens > 0``), the host-RAM spill tier and the
+tick-phase profiler (``tick_profile=True``) come with later slices; their
+constructor arguments raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,18 +50,20 @@ import hashlib
 import itertools
 import os
 import time
+import weakref
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops.attention import dense_attention, use_paged_kernel
+from ..ops.kernels import add_launches, launch_counts, live_workspaces
 from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..utils import observability as obs
 from ..utils.faults import BackpressureError
-from .sampling import (repetition_penalty_rows, sample_token_rows,
-                       seed_key_row)
+from .sampling import (override_key_rows, repetition_penalty_rows,
+                       sample_token_rows, seed_key_row)
 
 __all__ = ["PagedKV", "PagedEngine"]
 
@@ -218,6 +236,15 @@ class _Request:
         self.t_submit = time.monotonic()
 
 
+class _TickGraph(NamedTuple):
+    """A captured tick program: the graph, the launches its capture
+    counted ({wrapper: (launches, by route)}, added at each replay), and
+    the kernel workspaces it writes, kept alive with it."""
+    graph: Any
+    launches: Dict[Any, tuple]
+    keep: List[Any]
+
+
 class PagedEngine:
     """Continuous-batching serving engine for Llama-family CausalLMs.
 
@@ -227,11 +254,16 @@ class PagedEngine:
     mid-stream. The pools live on the model's device: on a CUDA model a
     decode tick launches the ragged paged kernel once per layer.
 
-    The constructor keeps the JAX package's signature and defaults.
-    ``fused_tick=False`` is the only tick this slice has: the default
-    ``True``, and ``ring_mode`` / ``delta_transitions`` / ``patch_fuse`` /
-    ``ticks_per_dispatch > 1`` with it, raise ``NotImplementedError``, as
-    do ``spec_tokens > 0`` and ``tick_profile=True``.
+    The constructor keeps the JAX package's signature, defaults and
+    ``ValueError``s: the device-resident tick (``fused_tick=True``) with
+    ring mode, delta transitions and the fused patch queue (queue length
+    R) on, a ring of 16, one tick a dispatch. ``ticks_per_dispatch=K``
+    runs K ticks in one program where that cannot change a stream.
+    ``spec_tokens > 0`` and ``tick_profile=True`` raise
+    ``NotImplementedError``.
+
+    On a CUDA card a tick program that fails to capture or replay raises:
+    the engine never falls back to an eager tick.
     """
 
     def __init__(self, model, max_slots: int = 8, num_blocks: int = 128,
@@ -254,22 +286,16 @@ class PagedEngine:
                  profile_clock=None,
                  profile_ring_len: int = 1024):
         later = []
-        if fused_tick or ring_mode or delta_transitions or patch_fuse \
-                or int(ticks_per_dispatch) > 1:
-            later.append("the device-resident tick (fused_tick=True, "
-                         "ring_mode, delta_transitions, patch_fuse, "
-                         "ticks_per_dispatch > 1) comes with slice A4(b)-(c)")
         if int(spec_tokens) > 0:
             later.append("speculative ticks (spec_tokens > 0) come with "
-                         "slice A4(d)")
+                         "slice A2(d)")
         if tick_profile:
             later.append("the tick-phase profiler (tick_profile=True) comes "
-                         "with slice A4(e)")
+                         "with slice A2(e)")
         if later:
-            raise NotImplementedError(
-                "; ".join(later) + " of the port; pass fused_tick=False for "
-                "the host tick")
-        cfg = model.config
+            raise NotImplementedError("; ".join(later) + " of the port")
+        if int(spec_tokens) < 0:
+            raise ValueError("spec_tokens must be >= 0")
         self.model = model
         self.device = model.device
         self.R, self.P, self.B, self.M = (max_slots, num_blocks,
@@ -299,6 +325,63 @@ class PagedEngine:
         self._prefix_rev: Dict[int, set] = {}        # block -> keys
         self.block_refs: Dict[int, int] = {}         # live owner count
         self.cached_free: Dict[int, None] = {}       # LRU, insertion order
+        # --- the device-resident tick ---------------------------------
+        # fused_tick=True keeps the tick's state on the device, advanced
+        # in place by one program per tick; the host re-sends a row only
+        # on a slot transition. fused_tick=False is the per-tick host
+        # path, the reference the fused streams must match bit for bit.
+        self._fused = bool(fused_tick)
+        self._dev_live = False          # device state built at least once
+        self._dev_dirty = True          # host mirrors changed since build
+        self._dev_keys_dirty = False    # device keys advanced since sync
+        self._key_overrides: set = set()  # rows host re-keyed (authoritative)
+        # K ticks in one program where no stream can tell (_scan_ticks)
+        self._ticks_per_dispatch = max(1, int(ticks_per_dispatch))
+        # ring mode: the tick appends its tokens to a device ring, drained
+        # one step behind; off, each tick's tokens are read back at once
+        self._ring = self._fused if ring_mode is None else bool(ring_mode)
+        if self._ring and not self._fused:
+            raise ValueError(
+                "ring_mode requires fused_tick=True: the ring is "
+                "carried in the fused tick's device state")
+        maxadv = self._ticks_per_dispatch
+        self._ring_len = max(16, 2 * maxadv) if ring_len is None \
+            else max(int(ring_len), 2 * maxadv)
+        self._pending: Optional[Dict[str, Any]] = None  # outstanding tick
+        self._drained = np.zeros((self.R,), np.int64)   # consumed cursors
+        # delta transitions: a transition sends one row's descriptor, not
+        # a rebuild of the whole state (the reference mode when off)
+        self._delta = self._fused if delta_transitions is None \
+            else bool(delta_transitions)
+        if self._delta and not self._fused:
+            raise ValueError(
+                "delta_transitions requires fused_tick=True: patches "
+                "edit the fused tick's device-resident state")
+        self._delta_rows: set = set()   # slots awaiting a patch flush
+        # descriptor (int32; floats and key words as raw bits): [0]=row
+        # [1]=lens [2]=last [3]=eos [4]=rem [5]=active [6]=key_override
+        # [7]=temp [8]=top_k [9]=top_p [10]=rep [11:13]=key (seed,
+        # counter) [13:15] unused (the JAX package's speculative fields)
+        # [15:15+M]=block-table row
+        self._desc_len = 15 + self.M
+        # the fused patch queue: descriptors staged into a device queue
+        # by one upload and applied by the next tick's program; off, each
+        # descriptor is one eager patch, one dispatch
+        self._fuse_patches = self._delta if patch_fuse is None \
+            else bool(patch_fuse)
+        if self._fuse_patches and not self._delta:
+            raise ValueError(
+                "patch_fuse requires delta_transitions=True: the fused "
+                "queue stages the delta path's descriptors")
+        self._pq_len = self.R if patch_queue_len is None \
+            else max(1, int(patch_queue_len))
+        # CUDA graphs of the tick programs, keyed by (greedy, K, route),
+        # sharing one private memory pool; captured on first use.
+        # graph_pool_bytes: device memory the captures reserved, summed
+        self._graphs: Dict[tuple, "_TickGraph"] = {}
+        self._graph_pool = None
+        self._graph_links = None
+        self.graph_pool_bytes = 0
         self._new_pools()
         self.slots: List[Optional[_Request]] = [None] * self.R
         self.queue: List[_Request] = []
@@ -317,8 +400,10 @@ class PagedEngine:
                       "prefill_chunks", "slot_steps",
                       "active_slot_steps", "prefix_hit_tokens",
                       "prefix_adopted_blocks", "timeouts",
-                      "cancellations", "rejected", "h2d_upload_bytes",
-                      "dispatches")}
+                      "cancellations", "rejected", "full_rebuilds",
+                      "delta_patches", "h2d_upload_bytes", "dispatches",
+                      "patches_fused", "patch_queue_overflows",
+                      "ring_cursor_rollovers")}
         self._h_decode = reg.histogram("paged_decode_step_ms",
                                        buckets=obs.SERVING_MS_BUCKETS,
                                        **self._obs_labels)
@@ -333,15 +418,29 @@ class PagedEngine:
         # (queue enter, slot take, prefill chunks, ticks, preemption,
         # finish/abort). None keeps the engine trace-free.
         self.trace_sink = None
-        # model forwards (prefills, chunks, ticks) and host-to-device
-        # mirror uploads with their bytes
+        # the one-dispatch-per-tick contract: engine programs (prefills,
+        # chunks, ticks, standalone patches; on a card a tick is one
+        # graph replay) and host-to-device uploads with their bytes
         self.dispatch_count = 0
         self.h2d_uploads = 0
         self.h2d_upload_bytes = 0
+        self.full_rebuilds = 0
+        self.delta_patches = 0
+        self.patches_fused = 0
+        self.patch_queue_overflows = 0
+        self.ring_cursor_rollovers = 0
+        # readbacks: d2h_syncs counts the blocking ones (one per sync-mode
+        # tick; in ring mode the drains that had to wait), ring_drains
+        # every ring consumption, ring_scoped_drains the one-row drains
+        # of cancel and expiry
+        self.d2h_syncs = 0
+        self.ring_drains = 0
+        self.ring_blocking_drains = 0
+        self.ring_scoped_drains = 0
 
     def _new_pools(self):
-        """Fresh pools, host mirrors and seen masks (construction and
-        ``hard_reset``)."""
+        """Fresh pools, host mirrors, seen masks and device tick state
+        (construction and ``hard_reset``)."""
         cfg = self.model.config
         kvh, d = cfg.num_key_value_heads, cfg.head_dim
         shape = (self.P, self.B, kvh, d)
@@ -363,6 +462,50 @@ class PagedEngine:
         # per-row seen-token masks for the repetition penalty
         self.seen = torch.zeros((self.R, cfg.vocab_size), dtype=torch.bool,
                                 device=self.device)
+        self._rows = torch.arange(self.R, device=self.device)
+        if self._fused:
+            self._new_state()
+
+    def _new_state(self):
+        """The device tick state: one fixed set of tensors the tick
+        programs read and write in place (a captured graph reads fixed
+        addresses), the JAX package's dtypes except the keys (int64 rows
+        of uint32 words), plus the static outputs of a dispatch and the
+        pinned host buffers of its transfers."""
+        R, M, dev = self.R, self.M, self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        Q, D = self._pq_len, self._desc_len
+        # pq and pqn share one buffer: a flush is one upload
+        self._pqbuf = torch.zeros(Q * D + 1, **i32)
+        self._st = dict(
+            tables=torch.zeros((R, M), **i32), lens=torch.zeros(R, **i32),
+            last=torch.zeros(R, **i32),
+            keys=torch.zeros((R, 2), dtype=torch.int64, device=dev),
+            temps=torch.zeros(R, **f32), tks=torch.zeros(R, **i32),
+            tps=torch.ones(R, **f32), reps=torch.ones(R, **f32),
+            eos=torch.full((R,), -1, **i32), rem=torch.zeros(R, **i32),
+            active=torch.zeros(R, dtype=torch.bool, device=dev),
+            ring=torch.zeros((R, self._ring_len), **i32),
+            rlps=torch.zeros((R, self._ring_len), **f32),
+            wcur=torch.zeros(R, **i32),
+            pq=self._pqbuf[:Q * D].view(Q, D), pqn=self._pqbuf[Q * D:])
+        K = self._ticks_per_dispatch
+        self._out_nxt = torch.zeros((K, R), dtype=torch.int64, device=dev)
+        self._out_lps = torch.zeros((K, R), **f32)
+        self._out_done = torch.zeros((K, R), dtype=torch.bool, device=dev)
+        # pinned host buffers: the staged patch queue (reused only after
+        # the event of the copy that read it) and the ring's copy
+        pin = dev.type == "cuda"
+        self._pq_host = torch.zeros(Q * D + 1, dtype=torch.int32,
+                                    pin_memory=pin)
+        self._pq_event = None
+        self._ring_host = {
+            k: torch.zeros(self._st[k].shape, dtype=self._st[k].dtype,
+                           pin_memory=pin)
+            for k in ("ring", "rlps", "wcur", "active")}
+        self._ring_event = None
+        self._drop_graphs()
 
     @property
     def stats(self) -> Dict[str, int]:
@@ -388,35 +531,404 @@ class PagedEngine:
         self._h_bytes.observe(x.nbytes)
         return torch.as_tensor(x, device=self.device)
 
-    @torch.inference_mode()
-    def _decode_step(self, tables, lens, last_tokens, keys, temps, tks, tps,
-                     reps, active):
-        logits, _ = self.model(last_tokens[:, None],
-                               kv_caches=self._caches(tables, lens),
-                               positions=lens[:, None])
-        row = repetition_penalty_rows(logits[:, -1].float(), self.seen,
-                                      reps)
-        nxt, lps, new_keys = sample_token_rows(row, keys, temps, tks, tps)
-        # active-guarded: inactive rows (idle or mid-chunk-prefill) sample
-        # garbage that must not enter their masks
-        rows = torch.arange(self.R, device=self.device)
-        self.seen[rows, nxt] |= active
-        return nxt, lps, new_keys
-
-    @torch.inference_mode()
-    def _decode_step_greedy(self, tables, lens, last_tokens, reps, active):
-        """Argmax-only tick for the all-greedy batch (no filtering, no
-        noise); the repetition penalty still applies."""
+    def _decode_core(self, tables, lens, last_tokens, reps, active,
+                     sampling=None):
+        """One decode tick's model and sampling, shared by the host tick
+        and the fused tick programs: the model over every row, the
+        repetition penalty, then the argmax (``sampling`` None: the
+        all-greedy tick, keys untouched) or per-row sampling with
+        ``sampling = (keys, temps, top_ks, top_ps)``. The chosen token
+        enters the seen masks of active rows only: inactive rows (idle or
+        mid-chunk-prefill) sample garbage. Returns (tokens, logprobs, new
+        keys or None)."""
         logits, _ = self.model(last_tokens[:, None],
                                kv_caches=self._caches(tables, lens),
                                positions=lens[:, None])
         raw = repetition_penalty_rows(logits[:, -1].float(), self.seen,
                                       reps)
-        nxt = torch.argmax(raw, dim=-1)
-        lps = torch.log_softmax(raw, dim=-1).gather(1, nxt[:, None])[:, 0]
-        rows = torch.arange(self.R, device=self.device)
-        self.seen[rows, nxt] |= active
-        return nxt, lps
+        if sampling is None:
+            nxt = torch.argmax(raw, dim=-1)
+            lps = torch.log_softmax(raw, dim=-1).gather(1, nxt[:, None])[:, 0]
+            new_keys = None
+        else:
+            nxt, lps, new_keys = sample_token_rows(raw, *sampling)
+        self.seen[self._rows, nxt] |= active
+        return nxt, lps, new_keys
+
+    # ---------------------------------------------- the device tick state
+    def _mark_dirty(self, slot_id: int):
+        """A slot transition touched ``slot_id``'s mirrors. Delta mode
+        queues a one-row patch (flushed just before the next dispatch;
+        several transitions of one slot coalesce into its final state);
+        rebuild mode (or no device state yet) marks the whole state for
+        ``_refresh_dev``."""
+        if self._delta and self._dev_live and not self._dev_dirty:
+            self._delta_rows.add(slot_id)
+        else:
+            self._dev_dirty = True
+
+    @staticmethod
+    def _slot_row_fields(s):
+        """The (last, eos, rem, active) scalars one slot contributes to the
+        device state, shared by the full rebuild and the descriptor so the
+        two upload paths cannot drift apart."""
+        eos = -1
+        rem = last = act = 0
+        if s is not None:
+            if s.eos is not None:
+                eos = s.eos
+            rem = max(s.max_new - len(s.tokens), 0)
+            if s.tokens and s.prefill_pos >= len(s.prompt):
+                act = 1
+                last = s.tokens[-1]
+        return last, eos, rem, act
+
+    def _pack_descriptor(self, i: int) -> np.ndarray:
+        """Slot ``i``'s current host-mirror state as one int32 descriptor
+        (floats and the key words as raw bits), field by field what a
+        full rebuild would upload for the row. The key is flagged
+        authoritative only for rows the host re-keyed (fresh admits,
+        chunk-final); for every other row the device key, perhaps
+        advanced by sampled ticks since the last upload, survives."""
+        s = self.slots[i]
+        d = np.zeros((self._desc_len,), np.int32)
+        d[0] = i
+        d[1] = self.seq_lens[i]
+        d[2], d[3], d[4], d[5] = self._slot_row_fields(s)
+        d[6] = 1 if i in self._key_overrides else 0
+        d[7] = np.float32(self.temps[i]).view(np.int32)
+        d[8] = self.top_ks[i]
+        d[9] = np.float32(self.top_ps[i]).view(np.int32)
+        d[10] = np.float32(self.reps[i]).view(np.int32)
+        d[11:13] = self.keys[i].view(np.int32)
+        d[15:15 + self.M] = self.block_tables[i]
+        return d
+
+    def _apply_descriptors(self, pq, valid):
+        """Write the descriptors ``pq`` [Q, D] whose ``valid`` flag is set
+        into the device state, in place: a masked scatter, every field as
+        the descriptor layout says and the key by ``override_key_rows``.
+        Invalid entries touch nothing, so an all-invalid queue leaves the
+        state bit for bit. Valid rows are distinct (the host coalesces
+        per slot), so order does not matter."""
+        st, R, M = self._st, self.R, self.M
+        rows = torch.where(valid, pq[:, 0].long(), R)
+        hit = rows[:, None] == self._rows[None, :]               # [Q, R]
+        take = hit.any(dim=0)
+        src = (hit.long() * torch.arange(
+            pq.shape[0], device=pq.device)[:, None]).sum(dim=0)
+        d = pq[src]                             # each row's descriptor
+
+        def put(name, vals):
+            t = st[name]
+            mask = take.view(-1, *([1] * (t.dim() - 1)))
+            t.copy_(torch.where(mask, vals.to(t.dtype), t))
+
+        def f32(col):
+            return d[:, col].contiguous().view(torch.float32)
+
+        put("tables", d[:, 15:15 + M])
+        put("lens", d[:, 1])
+        put("last", d[:, 2])
+        put("eos", d[:, 3])
+        put("rem", d[:, 4])
+        put("active", d[:, 5] != 0)
+        put("temps", f32(7))
+        put("tks", d[:, 8])
+        put("tps", f32(9))
+        put("reps", f32(10))
+        st["keys"].copy_(override_key_rows(
+            st["keys"], pq[:, 0], pq[:, 11:13].long(),
+            valid & (pq[:, 6] != 0)))
+
+    @torch.inference_mode()
+    def _apply_patch(self, desc: np.ndarray):
+        """The standalone patch of one descriptor, run eagerly (one
+        dispatch): the queue-overflow fallback and the ``patch_fuse=False``
+        path. The ring arrays and cursors stay as they are: a row a
+        transition patches was drained first, so a readmitted slot
+        continues the ring where its previous tenant stopped."""
+        pq = torch.as_tensor(desc[None], device=self.device)
+        self._apply_descriptors(
+            pq, torch.ones(1, dtype=torch.bool, device=self.device))
+
+    def _apply_patch_queue(self):
+        """The fused patch stage that opens every tick program: applies
+        the staged descriptors (queue entries below ``pqn``) and zeroes
+        ``pqn``, so a transition wave of up to Q rows costs no dispatch
+        of its own."""
+        st = self._st
+        Q = st["pq"].shape[0]
+        valid = torch.arange(Q, device=self.device) < st["pqn"]
+        self._apply_descriptors(st["pq"], valid)
+        st["pqn"].zero_()
+
+    def _flush_patches(self):
+        """Hand every pending transition to the device, just before a
+        dispatch and after the step's drain.
+
+        With the fused queue the coalesced descriptors are staged into a
+        pinned buffer and copied into ``pq``/``pqn`` with one
+        non-blocking upload (no dispatch); the tick program that follows
+        applies them. More rows than the queue holds (only with a
+        ``patch_queue_len`` below R) take the standalone patch, one
+        dispatch each, as does every descriptor with ``patch_fuse=False``.
+        The ring cursors are int32 on the device: long before they could
+        wrap, one full rebuild zeroes them."""
+        if self._ring and int(self._drained.max(initial=0)) > 2 ** 30:
+            self.ring_cursor_rollovers += 1
+            self._count("ring_cursor_rollovers")
+            self._refresh_dev()
+            return
+        rows = sorted(self._delta_rows)
+        if self._fuse_patches and len(rows) <= self._pq_len:
+            if self._pq_event is not None:
+                self._pq_event.synchronize()    # the last copy read it
+            host = self._pq_host.numpy()
+            host[:] = 0
+            pq = host[:-1].reshape(self._pq_len, self._desc_len)
+            for j, i in enumerate(rows):
+                pq[j] = self._pack_descriptor(i)
+                self._key_overrides.discard(i)
+            host[-1] = len(rows)
+            self._pqbuf.copy_(self._pq_host, non_blocking=True)
+            self._pq_event = self._record_event()
+            nbytes = pq.nbytes + 4
+            self.h2d_uploads += 1
+            self.h2d_upload_bytes += nbytes
+            self.patches_fused += len(rows)
+            self._count("patches_fused", len(rows))
+            self._count("h2d_upload_bytes", nbytes)
+            self._h_bytes.observe(nbytes)
+            self._delta_rows.clear()
+            return
+        if self._fuse_patches:
+            self.patch_queue_overflows += 1
+            self._count("patch_queue_overflows")
+        for i in rows:
+            desc = self._pack_descriptor(i)
+            self.h2d_uploads += 1
+            self.h2d_upload_bytes += desc.nbytes
+            self.delta_patches += 1
+            self.dispatch_count += 1
+            self._count("dispatches")
+            self._count("delta_patches")
+            self._count("h2d_upload_bytes", desc.nbytes)
+            self._h_bytes.observe(desc.nbytes)
+            self._apply_patch(desc)
+            # the device now holds the row's authoritative key
+            self._key_overrides.discard(i)
+        self._delta_rows.clear()
+
+    def _record_event(self):
+        """A CUDA event on the current stream (None on the CPU, where
+        every copy has finished when it returns)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _sync_dev(self):
+        """Bring the device state up to date before a dispatch: a full
+        rebuild when forced (first dispatch, ``hard_reset``,
+        ``delta_transitions=False``), else flush the pending patches."""
+        if not self._dev_live or self._dev_dirty:
+            self._refresh_dev()
+        elif self._delta_rows:
+            self._flush_patches()
+
+    def _sync_keys_from_dev(self):
+        """Fold the device keys back into the host mirror, except for rows
+        the host re-keyed since the last upload (their host key is the
+        authority until it is uploaded)."""
+        if not self._dev_live or not self._dev_keys_dirty:
+            return
+        dk = self._st["keys"].cpu().numpy().astype(np.uint32)
+        for r in range(self.R):
+            if r not in self._key_overrides:
+                self.keys[r] = dk[r]
+        self._dev_keys_dirty = False
+
+    @torch.inference_mode()
+    def _refresh_dev(self):
+        """Full rebuild of the device state from the host mirrors, written
+        into the fixed tensors with ``copy_``: on every transition with
+        ``delta_transitions=False``; otherwise only when forced (first
+        dispatch, ``hard_reset``, the ring-cursor guard). Its bytes are
+        counted as the JAX package counts them."""
+        self._sync_keys_from_dev()
+        self._key_overrides.clear()
+        eos = np.full((self.R,), -1, np.int32)
+        rem = np.zeros((self.R,), np.int32)
+        last = np.zeros((self.R,), np.int32)
+        act = np.zeros((self.R,), bool)
+        for i, s in enumerate(self.slots):
+            last[i], eos[i], rem[i], a = self._slot_row_fields(s)
+            act[i] = bool(a)
+        self.h2d_uploads += 1
+        self.full_rebuilds += 1
+        self._count("full_rebuilds")
+        nbytes = (self.block_tables.nbytes + self.seq_lens.nbytes
+                  + last.nbytes + self.keys.nbytes + self.temps.nbytes
+                  + self.top_ks.nbytes + self.top_ps.nbytes
+                  + self.reps.nbytes + eos.nbytes + rem.nbytes
+                  + act.nbytes)
+        st = self._st
+        for name, arr in (("tables", self.block_tables),
+                          ("lens", self.seq_lens), ("last", last),
+                          ("keys", self.keys.astype(np.int64)),
+                          ("temps", self.temps), ("tks", self.top_ks),
+                          ("tps", self.top_ps), ("reps", self.reps),
+                          ("eos", eos), ("rem", rem), ("active", act)):
+            st[name].copy_(torch.from_numpy(arr))
+        # a rebuild runs with the ring drained (every transition drains
+        # first), so zeroing the cursors loses no entry; an empty queue
+        st["ring"].zero_()
+        st["rlps"].zero_()
+        st["wcur"].zero_()
+        self._drained[:] = 0
+        self._pqbuf.zero_()
+        self.h2d_upload_bytes += nbytes
+        self._count("h2d_upload_bytes", nbytes)
+        self._h_bytes.observe(nbytes)
+        self._delta_rows.clear()
+        self._dev_dirty = False
+        self._dev_live = True
+
+    # ------------------------------------------------ the tick programs
+    def _tick(self, greedy: bool, k: int):
+        """One fused tick on the device state, in place: the staged
+        patches (first tick of a dispatch), the model over every row, the
+        penalty and the token (the host tick's ``_decode_core``), then
+        the bookkeeping: active rows advance their length, last token and
+        budget, done = eos hit or budget spent, done rows deactivate, and
+        the token goes to the row's ring slot. Writes (token, logprob,
+        done) to row ``k`` of the dispatch's outputs."""
+        st = self._st
+        if k == 0:
+            self._apply_patch_queue()
+        act = st["active"].clone()
+        sampling = None if greedy else (st["keys"], st["temps"], st["tks"],
+                                        st["tps"])
+        nxt, lps, new_keys = self._decode_core(
+            st["tables"], st["lens"], st["last"], st["reps"], act, sampling)
+        acti = act.to(torch.int32)
+        rem = st["rem"] - acti
+        done = act & (((st["eos"] >= 0) & (nxt == st["eos"])) | (rem <= 0))
+        st["lens"].add_(acti)
+        st["last"].copy_(torch.where(act, nxt.to(torch.int32), st["last"]))
+        if new_keys is not None:
+            st["keys"].copy_(new_keys)
+        st["rem"].copy_(rem)
+        st["active"].copy_(act & ~done)
+        if self._ring:
+            r, idx = self._rows, (st["wcur"] % self._ring_len).long()
+            ring, rlps = st["ring"], st["rlps"]
+            ring[r, idx] = torch.where(act, nxt.to(torch.int32), ring[r, idx])
+            rlps[r, idx] = torch.where(act, lps, rlps[r, idx])
+            st["wcur"].add_(acti)
+        self._out_nxt[k].copy_(nxt)
+        self._out_lps[k].copy_(lps)
+        self._out_done[k].copy_(done)
+
+    @torch.inference_mode()
+    def _program(self, greedy: bool, K: int):
+        """One dispatch's program: K ticks in a row (the scan ticks when K
+        > 1; each is the K=1 program's tick, so the stream is that of K
+        single dispatches)."""
+        for k in range(K):
+            self._tick(greedy, k)
+
+    def _dispatch(self, greedy: bool, K: int):
+        """Run one dispatch: eagerly on the CPU; on a card, replay the
+        program's CUDA graph, captured on its first use."""
+        if self.device.type != "cuda":
+            self._program(greedy, K)
+            return
+        # a graph freezes the weights' addresses and the route it read
+        if self._graph_links is None or self._weights_moved():
+            self._drop_graphs()
+            self._graph_links = self._weights_links()
+        key = (greedy, K, os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged"))
+        g = self._graphs.get(key)
+        if g is None:
+            self._graphs[key] = self._capture(greedy, K)
+            return
+        g.graph.replay()
+        add_launches(g.launches)
+
+    def _weights_links(self):
+        """What the captured graphs froze of the model: each submodule,
+        parameter and buffer slot as (its dict, name, a weak reference
+        to the value, the tensor's address), and each dict's size."""
+        links, sizes = [], []
+        for mod in self.model.modules():
+            for d in (mod._modules, mod._parameters, mod._buffers):
+                sizes.append((d, len(d)))
+                for k, v in d.items():
+                    links.append((d, k, None if v is None else weakref.ref(v),
+                                  v.data_ptr() if torch.is_tensor(v) else 0))
+        return links, sizes
+
+    def _weights_moved(self) -> bool:
+        """True when a module, parameter or buffer was replaced or moved
+        since the capture (weights quantized in place): its graphs would
+        read stale, perhaps freed, memory. A check of identities, cheaper
+        per dispatch than walking ``parameters()``."""
+        links, sizes = self._graph_links
+        for d, n in sizes:
+            if len(d) != n:
+                return True
+        for d, k, ref, ptr in links:
+            v = d.get(k)
+            if v is not (None if ref is None else ref()) or \
+                    (ptr and v.data_ptr() != ptr):
+                return True
+        return False
+
+    def _drop_graphs(self):
+        """Forget every captured program (new pools or state, new weights):
+        the next dispatch of each captures again."""
+        self._graphs = {}
+        self._graph_pool = None
+        self._graph_links = None
+
+    def _capture(self, greedy: bool, K: int) -> "_TickGraph":
+        """This dispatch runs the program eagerly on a side stream, which
+        also warms up what must not happen inside a capture (kernel
+        builds, workspaces, library handles); then the program is
+        captured into a CUDA graph in the engine's private pool. The
+        launches the wrappers counted while capturing did not run: they
+        are taken back and added again at each replay."""
+        dev = self.device
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._program(greedy, K)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = launch_counts()
+        # the graph's node list is kept for inspection (chip_smoke.py
+        # counts its kernels by name)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            self._program(greedy, K)
+        graph.instantiate()
+        captured = {}
+        for fn, (n, by_route) in before.items():
+            if fn.launches != n:
+                captured[fn] = (fn.launches - n, {
+                    r: k - by_route.get(r, 0)
+                    for r, k in fn.launches_by_route.items()})
+            fn.launches = n
+            fn.launches_by_route.update(by_route)
+        self.graph_pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+        return _TickGraph(graph, captured, live_workspaces())
 
     def _sample_one(self, logits_row, seen_row, req):
         """The chosen token at a prefill's last live position."""
@@ -551,6 +1063,14 @@ class PagedEngine:
         if self.trace_sink is not None:
             self.trace_sink(request_id, "engine_queue",
                             queued=len(self.queue))
+        if self._fuse_patches and self.chunk is not None:
+            # a warm engine admits at submit: chunked admission claims a
+            # slot and blocks and marks the row dirty, and its descriptor
+            # rides the staged queue into the next tick, no dispatch of
+            # its own (whole-prompt admission prefills, so it waits for
+            # the tick loop)
+            while self._try_admit():
+                pass
 
     def _blocks_needed(self, n_tokens: int) -> int:
         return (n_tokens + self.B - 1) // self.B
@@ -746,6 +1266,8 @@ class PagedEngine:
         self.top_ps[slot_id] = req.top_p
         self.reps[slot_id] = req.rep
         self.keys[slot_id] = req.key
+        self._key_overrides.add(slot_id)
+        self._mark_dirty(slot_id)
 
         if self.chunk is not None:
             # chunked mode: admission claims the slot and blocks; the
@@ -772,6 +1294,7 @@ class PagedEngine:
         self._count("prefills")
         first = int(nxt)
         self.keys[slot_id] = new_key.cpu().numpy().astype(np.uint32)
+        self._key_overrides.add(slot_id)
         req.key = self.keys[slot_id].copy()
         req.tokens.append(first)
         req.lps.append(float(lp))
@@ -797,6 +1320,7 @@ class PagedEngine:
         last = start + live >= len(ids)
         padded = np.zeros((1, self.chunk), np.int64)
         padded[0, :live] = ids[start:start + live]
+        self._mark_dirty(slot_id)    # lens/activation change this tick
         self.dispatch_count += 1
         self._count("dispatches")
         nxt, lp, new_key, seen_mid, seen_fin = self._chunk_prefill(
@@ -815,6 +1339,7 @@ class PagedEngine:
             self._count("prefills")
             self._register_prefix(req)
             self.keys[slot_id] = new_key.cpu().numpy().astype(np.uint32)
+            self._key_overrides.add(slot_id)
             req.key = self.keys[slot_id].copy()
             first = int(nxt)
             req.tokens.append(first)
@@ -836,6 +1361,7 @@ class PagedEngine:
                 return False
             slot.blocks.append(b)
             self.block_tables[slot_id, len(slot.blocks) - 1] = b
+            self._mark_dirty(slot_id)   # table row grew: patch/re-upload
         return True
 
     def _ensure_block(self, slot_id: int) -> bool:
@@ -886,6 +1412,8 @@ class PagedEngine:
         self.reps[slot_id] = 1.0
         self.seen[slot_id] = False
         self.slots[slot_id] = None
+        self._key_overrides.discard(slot_id)
+        self._mark_dirty(slot_id)
 
     def _preempt_youngest(self, exclude: int) -> bool:
         """Memory pressure: requeue the most recently admitted other
@@ -897,6 +1425,15 @@ class PagedEngine:
             return False
         victim = max(cands, key=lambda i: self.slots[i].admit_seq)
         s = self.slots[victim]
+        if self._fused and s.tokens and victim not in self._key_overrides:
+            # the fused tick never syncs s.key per tick: for a decoding
+            # victim the device key (or the mirror synced from it) is the
+            # truth; a mid-prefill victim keeps its untouched s.key
+            if self._dev_live and self._dev_keys_dirty:
+                s.key = self._st["keys"][victim].cpu().numpy().astype(
+                    np.uint32)
+            else:
+                s.key = self.keys[victim].copy()
         requeued = _Request(s.request_id, s.prompt + s.tokens,
                             s.max_new - len(s.tokens), s.eos,
                             s.temperature, s.top_k, s.top_p,
@@ -930,7 +1467,10 @@ class PagedEngine:
 
     def _expire(self):
         """Abort queued and running requests whose deadline passed
-        (checked once per tick; a forward is never interrupted)."""
+        (checked once per tick; a forward is never interrupted). A
+        running expiry drains the row first (never abort against a stale
+        mirror or an in-flight dispatch): only that row's pending ring
+        entries in delta mode, the whole ring otherwise."""
         now = time.monotonic()
         for req in [r for r in self.queue
                     if r.deadline is not None and now > r.deadline]:
@@ -940,12 +1480,21 @@ class PagedEngine:
             s = self.slots[i]
             if s is not None and s.deadline is not None \
                     and now > s.deadline:
-                self._abort(s, "timeout", slot_id=i)
+                self._drain_slot(i)
+                s = self.slots[i]   # the drain may have finished it
+                if s is not None and s.deadline is not None \
+                        and now > s.deadline:
+                    self._abort(s, "timeout", slot_id=i)
 
     def cancel(self, request_id) -> bool:
         """Abort a queued or running request (client disconnect). Its
         blocks and slot free at once; no result is recorded. False if
-        the request is unknown or already finished."""
+        the request is unknown or already finished.
+
+        A running cancel racing an in-flight dispatch drains that slot's
+        pending ring entries first, so the release cannot orphan tokens
+        or free blocks the dispatch still writes; in delta mode the drain
+        is the row's alone and the siblings' tokens stay pending."""
         for req in self.queue:
             if req.request_id == request_id:
                 self.queue.remove(req)
@@ -954,6 +1503,10 @@ class PagedEngine:
         for i in range(self.R):
             s = self.slots[i]
             if s is not None and s.request_id == request_id:
+                self._drain_slot(i)
+                s = self.slots[i]
+                if s is None or s.request_id != request_id:
+                    return False   # finished in the drained entries
                 self._abort(s, "cancelled", slot_id=i)
                 return True
         return False
@@ -1013,10 +1566,12 @@ class PagedEngine:
         return out
 
     def hard_reset(self):
-        """Return the engine to its empty post-construction state: every
-        queued or running request is dropped (the caller already failed
-        them over), and the pools and seen masks are allocated fresh.
-        Counters keep counting."""
+        """Return the engine to its empty post-construction state without
+        touching whatever the device is doing: every queued or running
+        request is dropped (the caller already failed them over), and
+        the pools, seen masks and device state are allocated fresh. The
+        captured tick programs read the old tensors, so they are dropped
+        and captured again on next use. Counters keep counting."""
         self._new_pools()
         self.slots = [None] * self.R
         self.queue = []
@@ -1027,6 +1582,13 @@ class PagedEngine:
         self._prefix_rev = {}
         self.block_refs = {}
         self.cached_free = {}
+        self._key_overrides = set()
+        self._dev_live = False
+        self._dev_dirty = True
+        self._dev_keys_dirty = False
+        self._delta_rows = set()
+        self._pending = None
+        self._drained[:] = 0
         obs.record_event("paged_hard_reset",
                          engine=self._obs_labels["engine"])
 
@@ -1037,6 +1599,7 @@ class PagedEngine:
         if drain:
             self.run()
             return
+        self._drain_pending()
         for req in list(self.queue):
             self.queue.remove(req)
             self._abort(req, "cancelled")
@@ -1046,9 +1609,12 @@ class PagedEngine:
 
     # ------------------------------------------------------------ ticks
     def step(self):
-        """One scheduler tick: expire overdue requests, admit every queued
-        request that fits, advance one prefill chunk per prefilling slot,
-        then one decode for all prefill-complete slots."""
+        """One scheduler tick: drain the previous ring dispatch (its tokens
+        land here, one step behind the device), expire overdue requests,
+        admit every queued request that fits, advance one prefill chunk
+        per prefilling slot, then one decode for all prefill-complete
+        slots (in ring mode a dispatch with no readback)."""
+        self._drain_pending()
         self._expire()
         while self._try_admit():
             pass
@@ -1070,8 +1636,121 @@ class PagedEngine:
                   if s is not None and s.tokens]
         if not active:
             return
+        if self._fused:
+            scan = self._ticks_per_dispatch > 1 and self._scan_ticks(active)
+            return self._decode_fused(active, scan=scan)
         return self._decode_host(active)
 
+    # -------------------------------------------------- the token ring
+    def _ring_wait(self):
+        """Wait for the ring copy of the outstanding dispatch and return
+        its host arrays (ring, logprobs, write cursors, active mask). A
+        copy not yet finished counts one blocking drain and one blocking
+        readback."""
+        ev = self._ring_event
+        if ev is not None and not ev.query():
+            self.ring_blocking_drains += 1
+            self.d2h_syncs += 1
+        t0 = time.perf_counter()
+        if ev is not None:
+            ev.synchronize()
+        # in ring mode the drain's wait is the program-bound time the
+        # host sees: the decode-step histogram's window
+        self._h_decode.observe((time.perf_counter() - t0) * 1e3)
+        h = self._ring_host
+        return (h["ring"].numpy(), h["rlps"].numpy(), h["wcur"].numpy(),
+                h["active"].numpy())
+
+    def _drain_pending(self):
+        """Consume the outstanding ring dispatch: the ring entries
+        committed since the last drain go through the host bookkeeping
+        the sync path does inline (appends, stop matching, the device
+        finish flags, trace events). Called at the top of every step()
+        and by every out-of-band transition, so no transition reads a
+        stale mirror. No-op when nothing is outstanding."""
+        p = self._pending
+        if p is None:
+            return
+        self._pending = None
+        self.ring_drains += 1
+        ring, rlps, wcur, act_now = self._ring_wait()
+        lag = self.dispatch_count - p["seq"] + 1   # dispatches until drain
+        for i in p["rows"]:
+            self._commit_row_drain(i, ring[i], rlps[i], wcur[i], act_now[i],
+                                   lag)
+
+    def _commit_row_drain(self, i, ring_i, rlps_i, wc, act_i, lag) -> bool:
+        """One row's share of a drain, shared by the global and the scoped
+        drain: advance the drained cursor, append the row's entries (stop
+        check on each), emit its trace event, honour the device finish
+        flag. False for a row released since the dispatch (its cursor
+        still advances)."""
+        slot = self.slots[i]
+        base = int(self._drained[i])
+        n_new = int(wc) - base
+        self._drained[i] = int(wc)
+        if slot is None:
+            return False
+        Lr = self._ring_len
+        appended, finished = self._consume_row(
+            i, ((ring_i[(base + j) % Lr], rlps_i[(base + j) % Lr], False)
+                for j in range(n_new)))
+        if self.trace_sink is not None:
+            self.trace_sink(slot.request_id, "tick", n=appended,
+                            ring_lag=lag)
+        if finished or not bool(act_i):
+            self._finish(i)     # host stop, or the device's eos/budget
+        return True
+
+    def _drain_row(self, i: int):
+        """The scoped drain of an out-of-band transition (cancel, expiry):
+        consume only slot ``i``'s pending entries. Waiting for the copy
+        waits for the whole dispatch, so releasing the row's blocks
+        afterwards cannot race an in-flight write; the siblings' entries
+        stay pending for the next step()'s drain. No-op when nothing is
+        outstanding or the row was not in the dispatch."""
+        p = self._pending
+        if p is None or i not in p["rows"]:
+            return
+        self.ring_drains += 1
+        self.ring_scoped_drains += 1
+        ring, rlps, wcur, act_now = self._ring_wait()
+        p["rows"].remove(i)
+        if not p["rows"]:
+            self._pending = None
+        self._commit_row_drain(i, ring[i], rlps[i], wcur[i], act_now[i],
+                               self.dispatch_count - p["seq"] + 1)
+
+    def _drain_slot(self, i: int):
+        """Drain before mutating slot ``i`` out-of-band: scoped to the row
+        in delta mode, the whole ring in rebuild mode."""
+        if self._delta:
+            self._drain_row(i)
+        else:
+            self._drain_pending()
+
+    def _consume_row(self, i, entries):
+        """Append each ``(token, logprob, device_done)`` entry to slot
+        ``i``, stop check first (a stop on the final budgeted or eos token
+        still records its trim), and stop at a host stop or a device done
+        flag: tokens the device committed past the cut die with the
+        slot's release. Returns ``(appended, finished)``; the caller
+        emits its trace event, then finishes."""
+        slot = self.slots[i]
+        appended = 0
+        finished = False
+        for tok, lp, dflag in entries:
+            self._count("active_slot_steps")
+            self.seq_lens[i] += 1   # the device advanced its copy too
+            slot.tokens.append(int(tok))
+            slot.lps.append(float(lp))
+            appended += 1
+            if self._stop_hit(slot) or dflag:
+                finished = True
+                break
+        return appended, finished
+
+    # --------------------------------------------------- decode ticks
     def _decode_host(self, active):
         """The per-tick host path: upload every mirror, run the model once
         for all slots, read back the tokens, and run stop/eos/budget
@@ -1084,19 +1763,22 @@ class PagedEngine:
         act_mask[active] = True
         self.dispatch_count += 1
         self._count("dispatches")
-        if np.all(self.temps[active] <= 0.0):
-            # all-greedy tick: no filtering, no noise, no key read-back
-            nxt, lps = self._decode_step_greedy(
-                self._up(self.block_tables), self._up(self.seq_lens),
-                self._up(last), self._up(self.reps), self._up(act_mask))
-        else:
-            nxt, lps, new_keys = self._decode_step(
-                self._up(self.block_tables), self._up(self.seq_lens),
-                self._up(last), self._up(self.keys.astype(np.int64)),
-                self._up(self.temps), self._up(self.top_ks),
-                self._up(self.top_ps), self._up(self.reps),
-                self._up(act_mask))
-            self.keys = new_keys.cpu().numpy().astype(np.uint32)
+        self.d2h_syncs += 1
+        greedy = bool(np.all(self.temps[active] <= 0.0))
+        with torch.inference_mode():
+            if greedy:
+                # all-greedy tick: no filtering, no noise, no key read-back
+                nxt, lps, _ = self._decode_core(
+                    self._up(self.block_tables), self._up(self.seq_lens),
+                    self._up(last), self._up(self.reps), self._up(act_mask))
+            else:
+                nxt, lps, new_keys = self._decode_core(
+                    self._up(self.block_tables), self._up(self.seq_lens),
+                    self._up(last), self._up(self.reps), self._up(act_mask),
+                    sampling=(self._up(self.keys.astype(np.int64)),
+                              self._up(self.temps), self._up(self.top_ks),
+                              self._up(self.top_ps)))
+                self.keys = new_keys.cpu().numpy().astype(np.uint32)
         nxt = nxt.cpu().numpy()
         lps = lps.cpu().numpy()
         # the read-back synced the device: this is the tick's real latency
@@ -1120,6 +1802,79 @@ class PagedEngine:
             if done:
                 # the final token's K/V is never written: never attended
                 self._finish(i)
+        return True
+
+    def _decode_fused(self, active, scan: bool = False):
+        """The fused tick's host half: bring the device state up to date
+        (a rebuild, or the staged patches), run ONE dispatch advancing
+        every active slot (``scan``: K ticks, proven safe by
+        ``_scan_ticks``), then either leave its tokens in the ring for the
+        next step()'s drain (ring mode: the ring is copied to pinned host
+        memory without waiting) or read (token, logprob, done) back at
+        once and run the bookkeeping."""
+        K = self._ticks_per_dispatch if scan else 1
+        self._sync_dev()
+        t_decode = time.perf_counter()
+        self.dispatch_count += 1
+        self._count("dispatches")
+        greedy = bool(np.all(self.temps[active] <= 0.0))
+        self._dispatch(greedy, K)
+        if not greedy:
+            self._dev_keys_dirty = True
+        self._count("decode_steps", K)
+        self._count("slot_steps", self.R * K)
+        if self._ring:
+            h, st = self._ring_host, self._st
+            for k in h:
+                h[k].copy_(st[k], non_blocking=True)
+            self._ring_event = self._record_event()
+            self._pending = dict(rows=list(active), seq=self.dispatch_count)
+            return True
+        self.d2h_syncs += 1
+        nxt = self._out_nxt[:K].cpu().numpy()
+        lps = self._out_lps[:K].cpu().numpy()
+        done = self._out_done[:K].cpu().numpy()
+        self._h_decode.observe((time.perf_counter() - t_decode) * 1e3)
+        sink = self.trace_sink
+        for i in active:
+            slot = self.slots[i]
+            # scan ticks past a row's done flag are garbage the consume
+            # cut never reads (the device's active mask froze the row)
+            appended, finished = self._consume_row(
+                i, ((nxt[k, i], lps[k, i], bool(done[k, i]))
+                    for k in range(K)))
+            if sink is not None:
+                sink(slot.request_id, "tick", n=appended)
+            if finished:
+                self._finish(i)
+        return True
+
+    def _scan_ticks(self, active) -> bool:
+        """True when the next ``ticks_per_dispatch`` ticks may run in one
+        program with no difference a stream could show from K single
+        ticks: the queue is empty (a scan must not delay an admission),
+        every occupied slot is decoding (no chunk interleaves), and every
+        row gets block headroom for its next min(K, budget) writes, all
+        checked before any block is taken (pressure falls back to the
+        single tick and its preemption). A stop completing mid-scan
+        finishes at the host; the tokens past it die with the slot."""
+        K = self._ticks_per_dispatch
+        for i, s in enumerate(self.slots):
+            if s is not None and i not in active:
+                return False          # occupied but not decode-active
+        if self.queue:
+            return False
+        needs = []
+        for i in active:
+            s = self.slots[i]
+            a = min(K, max(s.max_new - len(s.tokens), 1))
+            needs.append((i, self._blocks_needed(int(self.seq_lens[i]) + a)))
+        fresh = sum(max(n - len(self.slots[i].blocks), 0)
+                    for i, n in needs)
+        if fresh > len(self.free_blocks) + len(self.cached_free):
+            return False
+        for i, need in needs:
+            self._grow_blocks(i, need)   # pre-checked: cannot fail
         return True
 
     def run(self) -> Dict[Any, List[int]]:

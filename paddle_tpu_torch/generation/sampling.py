@@ -136,6 +136,25 @@ def seed_key_row(seed: int) -> np.ndarray:
     return np.array([int(seed) & _M32, 0], np.uint32)
 
 
+def override_key_rows(keys, rows, new_keys, flags):
+    """Scatter per-row key overrides into the [R, 2] key state (int64
+    rows of uint32 words): row ``rows[j]`` takes ``new_keys[j]`` where
+    ``flags[j] != 0``; every other row keeps its current (device) key.
+    The key rule of the engine's transition descriptors, shared by the
+    one-row patch and the fused patch queue. Rows whose flag is 0, and
+    rows outside [0, R), go to the extra index R, which is cut off: an
+    all-zero ``flags`` leaves ``keys`` bit for bit. Returns a new
+    tensor."""
+    keys = keys.long()
+    R = keys.shape[0]
+    rows = rows.long()
+    keep = (flags != 0) & (rows >= 0) & (rows < R)
+    target = torch.where(keep, rows, torch.full_like(rows, R))
+    ext = torch.cat([keys, keys.new_zeros(1, 2)])
+    ext[target] = new_keys.long() & _M32
+    return ext[:R]
+
+
 def _mul32(x, c: int):
     """(x * c) mod 2**32 for int64 tensors holding uint32 values, split
     in 16-bit halves so no intermediate leaves the int64 range."""

@@ -131,9 +131,12 @@ class Predictor:
         stop_sequences); chosen-token logprobs land in
         ``self.last_logprobs``. Returns request_id -> generated ids.
 
-        ``engine_kw`` goes to ``PagedEngine`` (this slice's engine needs
-        ``fused_tick=False``). The engine, its pools included, is cached
-        per ``engine_kw``, so repeated calls allocate nothing new."""
+        ``engine_kw`` goes to ``PagedEngine``: its defaults are the
+        device-resident tick (one CUDA-graph replay a tick on a card) with
+        ring mode and delta transitions; ``fused_tick=False`` selects the
+        host tick. The engine, its pools and captured tick programs
+        included, is cached per ``engine_kw``, so repeated calls allocate
+        nothing new."""
         from .generation.paged import PagedEngine
         key = tuple(sorted(engine_kw.items()))
         eng = self._paged_engines.get(key)

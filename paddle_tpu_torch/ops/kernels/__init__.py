@@ -13,7 +13,7 @@ version, and no fallback when a kernel fails: the wrapper raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -63,6 +63,49 @@ def stream_of(t: torch.Tensor) -> int:
     if index is None:
         index = torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def counted_wrappers():
+    """Every kernel wrapper, each counting its launches in ``launches``
+    and ``launches_by_route``."""
+    from .decode_attention import decode_attention_fwd
+    from .flash_attention import (flash_attention_bwd_dkv,
+                                  flash_attention_bwd_dq,
+                                  flash_attention_fwd)
+    from .paged_attention import paged_attention
+    from .quant_matmul import quant_matmul
+    from .ragged_paged_attention import ragged_paged_attention
+    return (flash_attention_fwd, flash_attention_bwd_dq,
+            flash_attention_bwd_dkv, decode_attention_fwd,
+            ragged_paged_attention, paged_attention, quant_matmul)
+
+
+def launch_counts() -> Dict[Any, Tuple[int, Dict[str, int]]]:
+    """{wrapper: (launches, launches by route)}, a snapshot."""
+    return {fn: (fn.launches, dict(fn.launches_by_route))
+            for fn in counted_wrappers()}
+
+
+def add_launches(counts) -> None:
+    """Add {wrapper: (launches, by route)} to the wrappers' counters (a
+    CUDA graph's replay launches what its capture counted, without
+    calling the wrappers)."""
+    for fn, (n, by_route) in counts.items():
+        fn.launches += n
+        for route, k in by_route.items():
+            fn.launches_by_route[route] = \
+                fn.launches_by_route.get(route, 0) + k
+
+
+def live_workspaces():
+    """The workspaces the kernels hold now. A CUDA graph that captured
+    launches keeps them alive: a workspace grown later replaces the old
+    one in its module, whose memory would otherwise go back to the
+    allocator while the graph still writes it."""
+    from . import decode_attention, quant_matmul, ragged_paged_attention
+    return [t for mod in (decode_attention, quant_matmul,
+                          ragged_paged_attention)
+            for pair in mod._scratch.values() for t in pair]
 
 
 def check_layout(**tensors: torch.Tensor) -> None:

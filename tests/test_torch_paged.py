@@ -316,16 +316,17 @@ def test_h2d_uploads_match_the_jax_host_path_per_tick(pair):
 
 def test_later_slice_modes_raise(pair):
     tm = pair[1]
-    with pytest.raises(NotImplementedError, match="A4\\(b\\)"):
-        PagedEngine(tm)                           # fused_tick=True default
-    with pytest.raises(NotImplementedError, match="A4\\(b\\)"):
-        PagedEngine(tm, fused_tick=False, ring_mode=True)
-    with pytest.raises(NotImplementedError, match="A4\\(d\\)"):
-        PagedEngine(tm, fused_tick=False, spec_tokens=2)
-    with pytest.raises(NotImplementedError, match="A4\\(e\\)"):
-        PagedEngine(tm, fused_tick=False, tick_profile=True)
+    for fused in (True, False):
+        with pytest.raises(NotImplementedError, match="A2\\(d\\)"):
+            PagedEngine(tm, fused_tick=fused, spec_tokens=2)
+        with pytest.raises(NotImplementedError, match="A2\\(e\\)"):
+            PagedEngine(tm, fused_tick=fused, tick_profile=True)
     with pytest.raises(ValueError, match="chunk_prefill_tokens"):
         PagedEngine(tm, fused_tick=False, enable_prefix_cache=True)
+    # the device-resident tick (the default) and its modes construct
+    assert PagedEngine(tm, **dict(BASE, fused_tick=True))._ring
+    PagedEngine(tm, **dict(BASE, fused_tick=True, ticks_per_dispatch=4,
+                           delta_transitions=False))
 
 
 # ------------------------------------------------------- per-row sampling
