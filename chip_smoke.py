@@ -70,6 +70,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    a pool too small for its load must preempt and still complete every
    request. TTFT, tick time, tokens/s, peak memory and the graphs' pool
    bytes are printed beside the card.
+   Then the speculative ticks (``[spec]`` lines): ``PagedEngine(model,
+   spec_tokens=4, spec_ngram=2, **PAGED)`` over 16 requests whose prompts
+   repeat a seeded 64-token pattern (128 new tokens; 12 greedy, 4 sampled
+   at temperature 0.8, top_p 0.9), with the counts set to 0 just before
+   and read just after: (a) ragged attention once per layer and spec
+   tick (32 x ticks, counted inside the graph, all on the mma route),
+   one dispatch per tick and prefill; a steady spec tick is one dispatch
+   and no upload, and its graph holds 32 ragged kernels; (b) every
+   greedy stream of the spec engine and of the spec-off default engine
+   re-scored by one prefill forward: each emitted token's logit within
+   ``TOL_TEACHER`` of its position's maximum; (c) (in phase 3) the
+   ragged kernel at T = 5 and T = 9 (two launches) in the engine's
+   geometry in bf16 and fp16;
+   (d) the JAX tests' LookupStub at head_dim 128: spec streams bit for
+   bit the spec-off streams, greedy and sampled, with drafts accepted.
+   Printed: tokens/s of both engines, the accept rate and tokens per
+   forward, the graph pool, a profiled steady spec tick (its device busy
+   share), spec and spec-off ticks in turns, and (in phase 4) the ragged
+   kernel's time at the verify's shape beside its bound and SDPA.
 
 8. the flash backward (phases run beside 3 and 4): the dq and dk/dv
    kernels against their plain version at sq = sk = 2048 (causal, window
@@ -185,6 +204,16 @@ BWD_TIME = (2, 2048, 32, 8, 128)
 # the serving geometry of the paged phase (KV pool ~2.1 GB in bf16)
 PAGED = dict(max_slots=16, block_size=16, max_blocks_per_seq=64,
              num_blocks=1025)
+# the speculative phase's engine arguments beside PAGED
+SPEC = dict(spec_tokens=4, spec_ngram=2)
+# teacher-forced check of a greedy stream (bf16 Llama-3-8B, random
+# weights): each emitted token's logit within this of its position's
+# maximum logit, when the stream is re-scored by one prefill forward. The
+# batched decode and the prefill round the same bf16 activations through
+# other kernels and matmul shapes over 32 layers; at logits of magnitude
+# ~2-4 a bf16 step is 2^-7 to 2^-6, so 0.125 is 8-16 steps of the logits
+# the two paths may differ by in a near tie.
+TOL_TEACHER = 0.125
 QUANT_SOURCE = "paddle_tpu_torch/csrc/quant_matmul.cu"
 QUANT_REPLACES = "paddle_tpu/ops/pallas/quant_matmul.py:67"
 GRID_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
@@ -769,6 +798,29 @@ def paged_case(gen, dev, lens, T=1, dtype=torch.bfloat16, R=16, h=32,
     return q, kp, vp, tables.contiguous(), lens
 
 
+def sdpa_inputs(sets, lens, T=1):
+    """SDPA's yardstick inputs for ``paged_case`` sets: q as [R, h, T, d],
+    each row's K/V gathered through its table and head-expanded to [R, h,
+    M * B, d] (outside every timing; the port never calls SDPA), and the
+    [R, 1, T, M * B] mask of the positions query t attends (<= seq_len +
+    t). Returns (list of (q, k, v), mask)."""
+    q0, kp0, _, tbl0, _ = sets[0]
+    (R, M), (_, B, kvh, d), h = tbl0.shape, kp0.shape, q0.shape[-2]
+    dev = q0.device
+    kpos = torch.arange(M * B, device=dev)
+    qpos = lens[:, None] + torch.arange(T, device=dev)[None, :]
+    mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
+    out = []
+    for q, kp, vp, tbl, _ in sets:
+        tb = tbl.long()
+        ks = kp[tb].reshape(R, M * B, kvh, d).transpose(1, 2)
+        vs = vp[tb].reshape(R, M * B, kvh, d).transpose(1, 2)
+        out.append((q.reshape(R, T, h, d).transpose(1, 2).contiguous(),
+                    ks.repeat_interleave(h // kvh, 1).contiguous(),
+                    vs.repeat_interleave(h // kvh, 1).contiguous()))
+    return out, mask
+
+
 def ragged_lens(gen, dev, T, R=16, B=16, M=64):
     edge = [0, B - 1, B, M * B - T]
     rest = torch.randint(1, M * B - T, (R - len(edge),), generator=gen,
@@ -779,22 +831,28 @@ def ragged_lens(gen, dev, T, R=16, B=16, M=64):
 def phase_ragged_checks(gen, dev):
     """The ragged kernel against its plain version at the engine's
     geometry (R 16, h 32, kvh 8, d 128, B 16, M 64, P 1025), bf16 (mma)
-    and fp32 (simt): 1, 2 and 4 queries per row, no window and window
-    100, lens with idle rows, block edges and a row at M * B - T, rows 1
-    and 2 borrowing row 0's blocks; one long row among short ones; every
-    call on its route by count and, in bf16, repeated bit for bit. Then
-    one call captured in a CUDA graph and replayed after seq_lens and
-    tables changed in place. Returns the bf16 T = 1 no-window error."""
+    and fp32 (simt): 1, 2, 4, 5 and 9 queries per row (5: the speculative
+    verify at k = 4, 20 query rows a kv head, the mma kernel's two-tile
+    instance; 9: k = 8, 36 query rows, which the wrapper runs as two
+    launches of 5 and 4 queries), no window and window 100, lens with
+    idle rows, block edges and a row at M * B - T, rows 1 and 2 borrowing
+    row 0's blocks; fp16 (mma) at 5 and 9 queries per row; one long row among short ones; every call
+    on its route by count and repeated bit for bit. Then one call
+    captured in a CUDA graph and replayed after seq_lens and tables
+    changed in place. Returns the bf16 T = 1 no-window error."""
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_plain, ragged_route)
+        query_windows, ragged_paged_attention, ragged_paged_attention_plain,
+        ragged_route)
     first = None
     B, M = PAGED["block_size"], PAGED["max_blocks_per_seq"]
-    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32,
-                                                   TOL_FP32)):
+    for dtype, tol, Ts in ((torch.bfloat16, TOL_BF16, (1, 2, 4, 5, 9)),
+                           (torch.float16, TOL_FP16, (5, 9)),
+                           (torch.float32, TOL_FP32, (1, 2, 4, 5))):
         route = ragged_route(dtype, 128)
-        cases = [(T, window, ragged_lens(gen, dev, T)) for T in (1, 2, 4)
+        cases = [(T, window, ragged_lens(gen, dev, T)) for T in Ts
                  for window in (None, 100)]
-        cases.append((1, None, [M * B - 1] + [3] * 15))
+        if 1 in Ts:
+            cases.append((1, None, [M * B - 1] + [3] * 15))
         for T, window, lens in cases:
             args = paged_case(gen, dev, lens, T=T, dtype=dtype)
             fn = ragged_paged_attention
@@ -802,7 +860,7 @@ def phase_ragged_checks(gen, dev):
             out = fn(*args, window=window)
             again = fn(*args, window=window)
             torch.cuda.synchronize()
-            before[route] += 2
+            before[route] += 2 * len(query_windows(T, 4))
             if fn.launches_by_route != before:
                 fail(f"ragged {dtype} T={T}: launches by route "
                      f"{fn.launches_by_route} != {before}")
@@ -863,16 +921,7 @@ def phase_paged_time(gen, dev, card):
     call_bytes = el * (2 * valid * kvh * d + 2 * R * h * d)
     n = copies_for(call_bytes)
     sets = [paged_case(gen, dev, lens) for _ in range(n)]
-    kpos = torch.arange(M * B, device=dev)
-    mask = (kpos[None, :] <= lens[:, None])[:, None, None, :]
-    lib_sets = []
-    for q, kp, vp, tbl, _ in sets:
-        tb = tbl.long()
-        ks = kp[tb].reshape(R, M * B, kvh, d).transpose(1, 2)
-        vs = vp[tb].reshape(R, M * B, kvh, d).transpose(1, 2)
-        lib_sets.append((q[:, :, None], ks.repeat_interleave(h // kvh, 1)
-                         .contiguous(), vs.repeat_interleave(h // kvh, 1)
-                         .contiguous()))
+    lib_sets, mask = sdpa_inputs(sets, lens)
     lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
         *lib_sets[i % n], attn_mask=mask), iters=200)
     bound_ms, bound_by = bound(call_bytes, 4 * d * valid * h)
@@ -1288,20 +1337,23 @@ class _TimedGraph:
 
 
 def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged",
-                       expect=None):
+                       expect=None, n_new=None):
     """Where a steady paged decode tick's time goes: 16 greedy requests
-    decoding (no admission, no finish), ``ticks`` ticks timed on the
-    host clock, then the same number under torch.profiler split by
-    kernel kind (ragged or grid attention: their kernels' names). Device
-    busy share = device time over the unprofiled tick. ``expect`` maps a
-    kernel-name part to the kernels each tick must show (on a graphed
-    engine also one graph launch a tick): it fails otherwise. Returns the
+    decoding (no admission, no finish: ``n_new`` tokens each, by default
+    enough for one token a tick), ``ticks`` ticks timed on the host clock,
+    then the same number under torch.profiler split by kernel kind
+    (ragged or grid attention: their kernels' names). Device busy share =
+    device time over the unprofiled tick. ``expect`` maps a kernel-name
+    part to the kernels each tick must show (on a graphed engine also one
+    graph launch a tick): it fails otherwise. Returns the tick's ms
+    unprofiled and under the profiler, its device busy ms and the
     categories' device ms per tick, or None without device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _fill(eng, ids, 3 * ticks + 4)
+    _fill(eng, ids, n_new or 3 * ticks + 4)
     w0 = eng._h_decode.stats()["sum"]
-    steady = (True, 1, os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged"))
+    steady = (True, "spec" if eng._spec_k else 1,
+              os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged"))
     timed = None
     if steady in eng._graphs:
         g = eng._graphs[steady]
@@ -1349,7 +1401,7 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged",
             f"tick busy share not measured")
         return None
     busy = sum(cats.values())
-    log(f"[profile] {label} decode tick (16 active rows, seq_len ~256-300): "
+    log(f"[profile] {label} decode tick (16 active rows from seq_len 256): "
         f"unprofiled {tick_ms:.2f} ms, under the profiler {wall:.2f} ms, "
         f"device busy {busy:.3f} ms ({100 * busy / tick_ms:.1f} % of the "
         f"unprofiled tick), {n / ticks:.0f} device ops per tick, "
@@ -1384,11 +1436,12 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged",
         # the steady tick's graph: each named kernel ``expect`` times in
         # its node list; the profiler must see them in every replay,
         # short only by the device events it dropped in all (it drops a
-        # few in long sessions): the replay's nodes and the ring's four
-        # copies a step, less what it recorded
+        # few in long sessions): the replay's nodes and the ring's copies
+        # a step, less what it recorded
         names, memory = graph_nodes(eng._graphs[steady].graph)
         nodes = {k: sum(k in x.lower() for x in names) for k in expect}
-        dropped = max((len(names) + memory + 4) * ticks - n, 0)
+        dropped = max((len(names) + memory + len(eng._ring_host)) * ticks
+                      - n, 0)
         log(f"[profile] {label}: the steady graph holds {len(names)} "
             f"kernel and {memory} copy/memset nodes, by name {nodes}; "
             f"profiled kernels per tick by name "
@@ -1405,25 +1458,28 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged",
                      f"dropped")
         if replays != ticks:
             fail(f"{label}: {replays} graph launches in {ticks} ticks")
-    return cats
+    return dict(tick_ms=tick_ms, profiled_ms=wall, busy_ms=busy, cats=cats)
 
 
-def tick_ab(fused, host, ids, card, label, ticks: int = 16):
-    """The steady tick of the graphed default engine against the host
-    tick, in turns (fused, host, host, fused) in this process, so the
-    host's drift falls on both alike."""
-    got = {"fused": [], "host": []}
-    for key in ("fused", "host", "host", "fused"):
-        eng = fused if key == "fused" else host
-        _fill(eng, ids, ticks + 8)
+def tick_ab(fused, host, ids, card, label, ticks: int = 16,
+            names=("fused", "host"), n_new=None):
+    """The steady tick of two engines (by default the graphed default
+    engine against the host tick), in turns (first, second, second,
+    first) in this process, so the host's drift falls on both alike.
+    ``n_new``: tokens a request, by default enough for one a tick."""
+    a, b = names
+    got = {a: [], b: []}
+    for key in (a, b, b, a):
+        eng = fused if key == a else host
+        _fill(eng, ids, n_new or ticks + 8)
         got[key].append(_timed_ticks(eng, ticks))
         eng.run()
     mean = {k: sum(v) / len(v) for k, v in got.items()}
-    log(f"[{label}] steady tick (16 rows, seq_len ~256-300), ms in turns "
-        f"fused, host, host, fused: fused "
-        + ", ".join(f"{x:.2f}" for x in got["fused"]) + "; host "
-        + ", ".join(f"{x:.2f}" for x in got["host"])
-        + f"; host / fused {mean['host'] / mean['fused']:.2f} [{card}]")
+    log(f"[{label}] steady tick (16 rows from seq_len 256), ms in turns "
+        f"{a}, {b}, {b}, {a}: {a} "
+        + ", ".join(f"{x:.2f}" for x in got[a]) + f"; {b} "
+        + ", ".join(f"{x:.2f}" for x in got[b])
+        + f"; {b} / {a} {mean[b] / mean[a]:.2f} [{card}]")
     return mean
 
 
@@ -1578,6 +1634,299 @@ def phase_paged(seed, dev, card, model):
         fail("serve_stream under preemption lost or cut a request")
     pred._paged_engines.clear()
     return launches, routes
+
+
+def _teacher_gap(model, prompt, stream) -> float:
+    """Re-score ``stream`` with one prefill forward over prompt + stream:
+    the largest gap between a position's maximum logit and the logit of
+    the token the engine emitted there (0 where it took the argmax)."""
+    ids = torch.as_tensor(list(prompt) + list(stream[:-1]),
+                          device=model.device)[None]
+    with torch.inference_mode():
+        logits = model(ids)[0, len(prompt) - 1:].float()
+    tok = torch.as_tensor(stream, device=logits.device)[:, None]
+    gap = logits.max(dim=-1).values - logits.gather(1, tok)[:, 0]
+    return float(gap.max())
+
+
+def _divergence(model, prompt, a, b):
+    """Where two greedy streams of one prompt first differ: (index, the
+    top-2 margin of the prefill re-score's logits there, the gaps of a's
+    and b's tokens below that position's maximum). The re-score is one
+    prefill over prompt + the common prefix."""
+    i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+    ids = torch.as_tensor(list(prompt) + list(a[:i]),
+                          device=model.device)[None]
+    with torch.inference_mode():
+        row = model(ids)[0, -1].float()
+    top = row.topk(2).values
+    return (i, float(top[0] - top[1]), float(top[0] - row[a[i]]),
+            float(top[0] - row[b[i]]))
+
+
+def _spec_stub_check(dev, card):
+    """(d) The JAX tests' LookupStub on the card (logits read from a
+    table, joined by the attention with weight 0.0; head_dim 128 in bf16,
+    so each verify runs the ragged kernel at T = 5): the spec engine's
+    streams bit for bit the spec-off engine's, greedy and sampled, with
+    drafts accepted."""
+    import numpy as np
+
+    import importlib.util
+
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        ragged_paged_attention
+
+    # the stub's one definition, in the GPU tests (no JAX there), loaded by
+    # its path: a ``tests`` package installed elsewhere may shadow ours
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_spec_gpu.py")
+    spec = importlib.util.spec_from_file_location("test_torch_spec_gpu",
+                                                  path)
+    stubs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stubs)
+    LookupStub = stubs.LookupStub
+
+    def cyc(n, start):
+        return np.asarray([[(start + i) % 7 for i in range(n)]])
+
+    sampled = dict(temperature=0.9, top_k=12, seed=3)
+    subs = [("g0", cyc(6, 1), dict(max_new_tokens=30)),
+            ("g1", cyc(9, 3), dict(max_new_tokens=25, eos_token_id=5)),
+            ("s0", cyc(5, 2), dict(max_new_tokens=18, **sampled)),
+            ("s1", cyc(8, 4), dict(max_new_tokens=24, temperature=1.5,
+                                   top_p=0.9, seed=8))]
+    geo = dict(max_slots=4, num_blocks=64, block_size=16,
+               max_blocks_per_seq=8, prefill_buckets=(32,))
+    runs = {}
+    for k in (0, 4):
+        eng = PagedEngine(LookupStub(device=dev, head_dim=128,
+                                     dtype=torch.bfloat16),
+                          spec_tokens=k, **geo)
+        before = ragged_paged_attention.launches_by_route["mma"]
+        for rid, ids, kw in subs:
+            eng.submit(rid, ids, **kw)
+        out = eng.run()
+        runs[k] = (out, dict(eng.logprobs), eng.stats,
+                   ragged_paged_attention.launches_by_route["mma"] - before,
+                   sorted(eng._graphs))
+    (off, off_lp, off_st, _, _), (on, on_lp, on_st, mma, graphs) = \
+        runs[0], runs[4]
+    log(f"[spec] (d) LookupStub (head_dim 128, bf16) on the card: spec "
+        f"streams equal spec-off bit for bit (2 greedy, 2 sampled): "
+        f"{on == off and on_lp == off_lp}; accepted "
+        f"{on_st['spec_accepted']} of {on_st['spec_proposed']} drafts, "
+        f"{on_st['decode_steps']} spec ticks against {off_st['decode_steps']}"
+        f"; ragged mma launches {mma}; graphs {graphs} [{card}]")
+    if on != off or on_lp != off_lp:
+        fail("spec (d): the stub's spec streams differ from spec-off")
+    if not on_st["spec_accepted"] > 0 or not mma > 0:
+        fail("spec (d): the stub accepted no draft or never ran the ragged "
+             "kernel")
+
+
+def _spec_steady(eng, ids, L, card, ticks: int = 8):
+    """(a) 16 rows each holding every block it needs, so no transition:
+    each steady step must be one dispatch (one graph replay) and no
+    upload, the replay counting 32 ragged launches a tick on the mma
+    route, and the steady graph must hold 32 ragged kernel nodes."""
+    _fill(eng, ids, 4 * eng._spec_k * ticks + 64)
+    for _ in range(2):
+        eng.step()
+    for i in range(eng.R):
+        eng._grow_blocks(i, eng._blocks_needed(
+            int(eng.seq_lens[i]) + (eng._spec_k + 1) * (ticks + 3)))
+    eng.step()                          # the growth's patches land
+    torch.cuda.synchronize()
+    d0, u0, t0 = eng.dispatch_count, eng.h2d_uploads, eng.stats[
+        "decode_steps"]
+    read = _reset_launches()
+    for _ in range(ticks):
+        eng.step()
+    torch.cuda.synchronize()
+    launches = read()
+    n = eng.stats["decode_steps"] - t0
+    names, memory = graph_nodes(eng._graphs[(
+        True, "spec", os.environ.get("PADDLE_TPU_PAGED_ATTN",
+                                     "ragged"))].graph)
+    rag = sum("ragged_" in x.lower() for x in names)
+    log(f"[spec] (a) steady spec ticks: {n} ticks, "
+        f"{eng.dispatch_count - d0} dispatches, "
+        f"{eng.h2d_uploads - u0} uploads, launches {launches}; the steady "
+        f"graph holds {len(names)} kernel nodes, {rag} of them ragged, and "
+        f"{memory} copy/memset nodes [{card}]")
+    if n != ticks or eng.dispatch_count - d0 != ticks \
+            or eng.h2d_uploads != u0:
+        fail("spec (a): a steady spec tick is not one dispatch without "
+             "upload")
+    if launches != dict(NO_LAUNCHES, ragged=L * ticks) or rag != L:
+        fail(f"spec (a): ragged launches {launches} or graph nodes {rag} "
+             f"!= {L} a tick")
+    _check_routes("spec (a) steady", ragged=L * ticks)
+    eng.close(drain=False)
+
+
+def phase_spec(seed, dev, card, model):
+    """Llama-3-8B served by ``PagedEngine(spec_tokens=4, spec_ngram=2)``
+    at its other defaults (the speculative tick captured into a CUDA
+    graph), against the spec-off default engine on the same submissions.
+    Returns the ragged launches and routes of the spec run."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    t_phase = time.perf_counter()
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rs = np.random.RandomState(seed + 20)
+    gen = ptt.make_generator(seed + 21, "cpu")
+
+    def pattern_ids(n):
+        """n tokens repeating a seeded 64-token pattern."""
+        pat = torch.randint(0, cfg.vocab_size, (64,), generator=gen)
+        return pat.repeat(-(-n // 64))[:n]
+
+    # 16 requests, each repeating its own pattern 2-5 times, 128 new
+    # tokens: 12 greedy, 4 sampled
+    subs = []
+    for i in range(16):
+        kw = dict(max_new_tokens=128)
+        if i % 4 == 3:
+            kw.update(temperature=0.8, top_p=0.9, seed=2000 + i)
+        subs.append((f"s{i}", pattern_ids(64 * int(rs.randint(2, 6))), kw))
+    eng = PagedEngine(model, **SPEC, **PAGED)
+    off = PagedEngine(model, **PAGED)
+    log(f"[spec] PagedEngine({SPEC}, {PAGED}) at its other defaults (ring "
+        f"{eng._ring_len}, descriptor {eng._desc_len} int32), against "
+        f"the spec-off default engine")
+    # warm-up: the greedy and sampled spec graphs' captures (and the
+    # spec-off engine's, for the tokens/s beside it)
+    for e in (eng, off):
+        _serve(e, subs[:1], late_after=0)
+        _serve(e, subs[3:4], late_after=0)
+    log(f"[spec] captured spec programs {sorted(eng._graphs)}: graph pool "
+        f"{eng.graph_pool_bytes / 1e6:.1f} MB (spec-off engine "
+        f"{off.graph_pool_bytes / 1e6:.1f} MB) [{card}]")
+    steps0, off0 = eng.stats["decode_steps"], off.stats["decode_steps"]
+    disp0, up0 = eng.dispatch_count, eng.h2d_uploads
+    prop0, acc0 = eng.stats["spec_proposed"], eng.stats["spec_accepted"]
+    _, tpf_sum0, tpf_n0 = eng._h_tpf.export()
+    read = _reset_launches()
+    out, wall, ttft, in_prefill = _serve(eng, subs, late_after=4)
+    launches = read()
+    ticks = eng.stats["decode_steps"] - steps0
+    want = dict(NO_LAUNCHES, ragged=L * ticks)
+    log(f"[spec] (a) launches in the run: {launches} (want {want}; "
+        f"{in_prefill} inside prefills); {eng.dispatch_count - disp0} "
+        f"dispatches and {eng.h2d_uploads - up0} uploads for {ticks} spec "
+        f"ticks and {len(subs)} prefills")
+    if launches != want or in_prefill:
+        fail(f"spec launches {launches} != {want} (prefills: {in_prefill})")
+    routes = _check_routes("spec (a)", ragged=L * ticks)
+    if eng.dispatch_count - disp0 != ticks + len(subs):
+        fail(f"spec (a): {eng.dispatch_count - disp0} dispatches for "
+             f"{ticks} ticks and {len(subs)} prefills")
+    for rid, _, kw in subs:
+        got = out.get(rid)
+        if got is None or len(got) != kw["max_new_tokens"] or not all(
+                0 <= t < cfg.vocab_size for t in got):
+            fail(f"spec request {rid}: {None if got is None else len(got)} "
+                 f"tokens or ids outside the vocabulary")
+    new_tokens = sum(len(v) for v in out.values())
+    prop = eng.stats["spec_proposed"] - prop0
+    acc = eng.stats["spec_accepted"] - acc0
+    _, tpf_sum, tpf_n = eng._h_tpf.export()
+    ref, owall, ottft, _ = _serve(off, subs, late_after=4)
+    off_ticks = off.stats["decode_steps"] - off0
+    t, ot = (np.array([d[r] for r, _, _ in subs]) for d in (ttft, ottft))
+    log(f"[spec] 16 requests (12 greedy, 4 sampled), {new_tokens} new "
+        f"tokens: spec {ticks} ticks, {wall:.2f} s, "
+        f"{new_tokens / wall:.1f} new tokens/s, TTFT median "
+        f"{np.median(t):.1f} ms; spec-off {owall:.2f} s, "
+        f"{new_tokens / owall:.1f} new tokens/s, TTFT median "
+        f"{np.median(ot):.1f} ms, {off_ticks} ticks; accept rate {acc / max(prop, 1):.4f} ({acc} of "
+        f"{prop} drafts), tokens per forward a row "
+        f"{(tpf_sum - tpf_sum0) / max(tpf_n - tpf_n0, 1):.3f} [{card}]")
+    # (b) teacher-forced: each greedy stream re-scored by one prefill
+    gaps = {}
+    for name, res in (("spec", out), ("spec-off", ref)):
+        gaps[name] = max(_teacher_gap(model, ids.tolist(), res[rid])
+                         for rid, ids, kw in subs if "temperature" not in kw)
+    same = {kind: sum(out[r] == ref[r] for r, _, kw in subs
+                      if ("temperature" in kw) == (kind == "sampled"))
+            for kind in ("greedy", "sampled")}
+    log(f"[spec] (b) teacher-forced check of the 12 greedy streams (one "
+        f"prefill over prompt + stream): largest gap between a position's "
+        f"maximum logit and the emitted token's, spec {gaps['spec']:.4f}, "
+        f"spec-off {gaps['spec-off']:.4f}, tolerance {TOL_TEACHER}; "
+        f"streams identical between the engines: {same['greedy']} of 12 "
+        f"greedy, {same['sampled']} of 4 sampled [{card}]")
+    for rid, ids, kw in subs:
+        if "temperature" in kw or out[rid] == ref[rid]:
+            continue
+        i, margin, ga, gb = _divergence(model, ids.tolist(), out[rid],
+                                        ref[rid])
+        log(f"[spec] (b) greedy stream {rid} first differs at token {i} "
+            f"of {len(out[rid])}: top-2 margin there {margin:.4f} under "
+            f"the prefill re-score; spec's token {ga:.4f} and spec-off's "
+            f"{gb:.4f} below the maximum [{card}]")
+    for name, g in gaps.items():
+        if not g <= TOL_TEACHER:
+            fail(f"spec (b): the {name} engine emitted a token {g:.4f} "
+                 f"below its position's maximum logit")
+    _spec_steady(eng, pattern_ids, L, card)
+    prof = profile_paged_tick(eng, pattern_ids, card, label="spec",
+                              expect={"ragged_": L}, n_new=5 * 2 * 16 + 16)
+    if prof is not None:
+        log(f"[spec] steady spec tick (16 rows from seq_len 256): "
+            f"unprofiled {prof['tick_ms']:.2f} ms, profiled "
+            f"{prof['profiled_ms']:.2f} ms, device busy "
+            f"{prof['busy_ms']:.3f} ms "
+            f"({100 * prof['busy_ms'] / prof['tick_ms']:.1f} %) [{card}]")
+    tick_ab(eng, off, pattern_ids, card, "spec", names=("spec", "spec-off"),
+            n_new=5 * 16 + 16)
+    del eng, off
+    _spec_stub_check(dev, card)
+    log(f"[spec] the phase took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return launches, routes
+
+
+def phase_spec_ragged_time(gen, dev, card):
+    """The ragged kernel at the speculative verify's shape: q [16, 5, 32,
+    128] over the engine's pools [1025, 16, 8, 128], bf16, seq_lens drawn
+    from 64..1019, device time from a CUDA graph over copies larger than
+    the L2; its plain version; SDPA on the same values (K/V pre-gathered
+    and head-expanded, a per-(row, query) length mask; the port never
+    calls it); the bound: each row's K/V of seq_len + 5 positions and q
+    and out once, 4 d flops per (query head, query, attended position)."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_plain)
+    R, T, h, kvh, d, B, M = 16, 5, 32, 8, 128, 16, 64
+    lens = torch.randint(64, M * B - T, (R,), generator=gen, device=dev)
+    kv_pos = int((lens + T).sum())
+    att = int((T * (lens + 1) + T * (T - 1) // 2).sum())
+    call_bytes = 2 * (2 * kv_pos * kvh * d + 2 * R * T * h * d)
+    n = copies_for(call_bytes)
+    sets = [paged_case(gen, dev, lens, T=T) for _ in range(n)]
+    lib_sets, mask = sdpa_inputs(sets, lens, T)
+    lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
+        *lib_sets[i % n], attn_mask=mask), iters=200)
+    ms = graph_ms(lambda i: ragged_paged_attention(*sets[i % n]), calls=40)
+    plain_ms = cuda_ms(lambda i: ragged_paged_attention_plain(*sets[i % n]),
+                       iters=20)
+    bound_ms, bound_by = bound(call_bytes, 4 * d * h * att)
+    log(f"[spec] ragged at the verify's shape q [16, 5, 32, 128], pools "
+        f"[1025, 16, 8, 128], bf16: kernel {ms:.4f} ms (device time, CUDA "
+        f"graph), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {call_bytes / 1e6:.1f} MB) "
+        f"[{card}]")
+    del sets, lib_sets
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _device_profile(pred, ids, new_tokens, ptt):
@@ -2717,6 +3066,7 @@ def main():
     phase_fp16_checks(gen, dev)
     times = phase_kernel_times(gen, dev, card)
     times.update(phase_paged_time(gen, dev, card))
+    phase_spec_ragged_time(gen, dev, card)
     times["quant"] = phase_quant_times(gen, dev, card)
     bwd_times, bwd_errs = phase_bwd_times(gen, dev, card)
     times.update(bwd_times)
@@ -2728,6 +3078,7 @@ def main():
     launches = dict(bf16["launches"])
     routes = dict(bf16["routes"])
     paged, paged_routes = phase_paged(args.seed, dev, card, model)
+    phase_spec(args.seed, dev, card, model)
     launches["ragged"] = paged["ragged"]
     routes["ragged"] = paged_routes["ragged"]
     pred, int8 = phase_quant_slice(dev, card, model, bf16)

@@ -40,9 +40,23 @@ per-tick host path (``fused_tick=False``, the bit-exactness reference).
   read of each tick) are the JAX package's reference modes, kept bitwise
   equal to the default.
 
-Speculative ticks (``spec_tokens > 0``), the host-RAM spill tier and the
-tick-phase profiler (``tick_profile=True``) come with later slices; their
-constructor arguments raise ``NotImplementedError``.
+- Speculative ticks (``spec_tokens=k``): each tick drafts up to k tokens
+  a row from the row's own committed stream (prompt lookup), verifies
+  the k+1 positions in one model call (the ragged kernel at T = k+1,
+  under either kernel route: one launch a layer while (k+1) x the query
+  heads per kv head fit its 32 query rows, else one per window of
+  queries that fit), and commits each row's accepted window inside the
+  same program (an unrolled accept scan: repetition penalty as of each
+  position, eos and budget cutting the window). A row's draft count
+  adapts to its accept rate (an EMA on the device) and to its write
+  headroom, down to the plain one-token tick inside the same program.
+  Sampled rows draw each position's token as the plain tick would with
+  the same key, so spec streams equal spec-off streams on the same
+  logits, greedy and sampled.
+
+The host-RAM spill tier and the tick-phase profiler
+(``tick_profile=True``) come with a later slice; the latter raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,14 +76,24 @@ from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..utils import observability as obs
 from ..utils.faults import BackpressureError
-from .sampling import (override_key_rows, repetition_penalty_rows,
-                       sample_token_rows, seed_key_row)
+from .prompt_lookup import mask_drafts, propose_ngram_rows, token_buffer_row
+from .sampling import (fold_in_rows, override_key_rows,
+                       repetition_penalty_rows, sample_token_rows,
+                       seed_key_row)
 
 __all__ = ["PagedKV", "PagedEngine"]
 
 # unique per-process engine label: every engine's counters live in the
 # process registry, while `stats` / `health()` stay per instance
 _engine_ids = itertools.count()
+
+# adaptive draft count of the speculative tick (the JAX package's policy):
+# a per-request EMA of the accepted share of drafts, kept on the device
+# with a host mirror on the request. Below the floor a row stops drafting
+# and probes with one draft every PROBE-th tick it is active.
+_SPEC_EMA_ALPHA = 0.3
+_SPEC_EMA_FLOOR = 0.25
+_SPEC_PROBE_EVERY = 16
 
 
 class PagedKV(NamedTuple):
@@ -168,7 +192,9 @@ def paged_decode_attention(q, pk: PagedKV, scale: Optional[float] = None,
     - ``ragged`` (the default, and any unknown value): the ragged paged
       kernel, for single- and multi-query rows;
     - ``grid``: the grid paged kernel for single-query rows (T == 1);
-      multi-query rows take the dense gather;
+      multi-query rows (the speculative verify) take the ragged kernel,
+      where the JAX package takes its dense gather: the grid kernel holds
+      one query a row, and the plain gather must not run on a card;
     - ``dense``: the dense gather.
 
     Each kernel runs its plain version on CPU tensors. The dense route is
@@ -182,9 +208,8 @@ def paged_decode_attention(q, pk: PagedKV, scale: Optional[float] = None,
             fn = paged_attention if mode == "grid" else ragged_paged_attention
             return fn(q[:, 0], pk.kp, pk.vp, pk.block_tables, pk.seq_lens,
                       scale, window=window)[:, None]
-        if mode != "grid":
-            return ragged_paged_attention(q, pk.kp, pk.vp, pk.block_tables,
-                                          pk.seq_lens, scale, window=window)
+        return ragged_paged_attention(q, pk.kp, pk.vp, pk.block_tables,
+                                      pk.seq_lens, scale, window=window)
     tbl = pk.block_tables.long()
     ks = pk.kp[tbl]                                   # [R, M, B, kvh, d]
     vs = pk.vp[tbl]
@@ -200,6 +225,33 @@ def paged_decode_attention(q, pk: PagedKV, scale: Optional[float] = None,
     return dense_attention(q, ks, vs, attn_mask=keep[:, None], scale=scale)
 
 
+def _choose_tokens(raw, sampling=None):
+    """A tick's token choice from penalised fp32 logits [R, V]: the argmax
+    (``sampling`` None: every row greedy, keys untouched) or per-row
+    sampling with ``sampling = (keys, temps, top_ks, top_ps)``. Returns
+    (tokens, logprobs, new keys or None)."""
+    if sampling is None:
+        nxt = torch.argmax(raw, dim=-1)
+        lps = torch.log_softmax(raw, dim=-1).gather(1, nxt[:, None])[:, 0]
+        return nxt, lps, None
+    return sample_token_rows(raw, *sampling)
+
+
+def _check_verify_shapes(cfg, T: int):
+    """On a card, the speculative verify's attention must take the ragged
+    kernel: raise ValueError when the kernel gate refuses the model's
+    shapes at T queries a row, which would send every layer's verify
+    through the plain gather."""
+    kvh, d = cfg.num_key_value_heads, cfg.head_dim
+    h = getattr(cfg, "num_attention_heads", kvh)
+    if not use_paged_kernel(torch.empty(1, T, h, d, device="meta"),
+                            torch.empty(1, 1, kvh, d, device="meta")):
+        raise ValueError(
+            f"spec_tokens on a card needs the ragged paged kernel, which "
+            f"does not take {h} query heads over {kvh} kv heads at "
+            f"head_dim {d}")
+
+
 class _Request:
     """Queued or running request. ``key`` is the row's sampling key
     [seed, counter] (uint32): each emitted token, at prefill or at a
@@ -209,7 +261,7 @@ class _Request:
                  "blocks", "prefix", "prefix_lps", "admit_seq",
                  "temperature", "top_k", "top_p", "key", "lps",
                  "prefill_pos", "stop", "trim", "rep", "deadline",
-                 "t_submit")
+                 "t_submit", "spec_ema")
 
     def __init__(self, request_id, prompt, max_new, eos, temperature,
                  top_k, top_p, key, prefix=None, prefix_lps=None,
@@ -234,6 +286,7 @@ class _Request:
         self.blocks: List[int] = []
         self.prefill_pos = 0            # prompt tokens already cached
         self.t_submit = time.monotonic()
+        self.spec_ema = 1.0             # accepted share of drafts (EMA)
 
 
 class _TickGraph(NamedTuple):
@@ -259,8 +312,9 @@ class PagedEngine:
     ring mode, delta transitions and the fused patch queue (queue length
     R) on, a ring of 16, one tick a dispatch. ``ticks_per_dispatch=K``
     runs K ticks in one program where that cannot change a stream.
-    ``spec_tokens > 0`` and ``tick_profile=True`` raise
-    ``NotImplementedError``.
+    ``spec_tokens=k`` makes every tick speculative (up to k drafts a row
+    from ``spec_ngram``-token matches; it takes precedence over K).
+    ``tick_profile=True`` raises ``NotImplementedError``.
 
     On a CUDA card a tick program that fails to capture or replay raises:
     the engine never falls back to an eager tick.
@@ -285,17 +339,10 @@ class PagedEngine:
                  tick_profile: bool = False,
                  profile_clock=None,
                  profile_ring_len: int = 1024):
-        later = []
-        if int(spec_tokens) > 0:
-            later.append("speculative ticks (spec_tokens > 0) come with "
-                         "slice A2(d)")
         if tick_profile:
-            later.append("the tick-phase profiler (tick_profile=True) comes "
-                         "with slice A2(e)")
-        if later:
-            raise NotImplementedError("; ".join(later) + " of the port")
-        if int(spec_tokens) < 0:
-            raise ValueError("spec_tokens must be >= 0")
+            raise NotImplementedError(
+                "the tick-phase profiler (tick_profile=True) comes with "
+                "slice A2(e) of the port")
         self.model = model
         self.device = model.device
         self.R, self.P, self.B, self.M = (max_slots, num_blocks,
@@ -337,6 +384,21 @@ class PagedEngine:
         self._key_overrides: set = set()  # rows host re-keyed (authoritative)
         # K ticks in one program where no stream can tell (_scan_ticks)
         self._ticks_per_dispatch = max(1, int(ticks_per_dispatch))
+        # speculative ticks: k drafts a row, verified in one forward
+        self._spec_k = int(spec_tokens)
+        self._spec_ngram = int(spec_ngram)
+        if self._spec_k:
+            if self._spec_k < 1:
+                raise ValueError("spec_tokens must be >= 0")
+            if self._spec_ngram < 1:
+                raise ValueError("spec_ngram must be >= 1")
+            if not self._fused:
+                raise ValueError(
+                    "spec_tokens requires fused_tick=True: the "
+                    "proposer/verify/commit live inside the fused "
+                    "device program")
+            if self.device.type == "cuda":
+                _check_verify_shapes(model.config, self._spec_k + 1)
         # ring mode: the tick appends its tokens to a device ring, drained
         # one step behind; off, each tick's tokens are read back at once
         self._ring = self._fused if ring_mode is None else bool(ring_mode)
@@ -344,7 +406,7 @@ class PagedEngine:
             raise ValueError(
                 "ring_mode requires fused_tick=True: the ring is "
                 "carried in the fused tick's device state")
-        maxadv = self._ticks_per_dispatch
+        maxadv = max(self._ticks_per_dispatch, self._spec_k + 1)
         self._ring_len = max(16, 2 * maxadv) if ring_len is None \
             else max(int(ring_len), 2 * maxadv)
         self._pending: Optional[Dict[str, Any]] = None  # outstanding tick
@@ -361,9 +423,10 @@ class PagedEngine:
         # descriptor (int32; floats and key words as raw bits): [0]=row
         # [1]=lens [2]=last [3]=eos [4]=rem [5]=active [6]=key_override
         # [7]=temp [8]=top_k [9]=top_p [10]=rep [11:13]=key (seed,
-        # counter) [13:15] unused (the JAX package's speculative fields)
-        # [15:15+M]=block-table row
-        self._desc_len = 15 + self.M
+        # counter) [13]=spec EMA [14]=spec tick counter (always 0)
+        # [15:15+M]=block-table row [15+M:]=committed-token row (spec)
+        self._desc_len = 15 + self.M + (
+            self.M * self.B + self._spec_k + 1 if self._spec_k else 0)
         # the fused patch queue: descriptors staged into a device queue
         # by one upload and applied by the next tick's program; off, each
         # descriptor is one eager patch, one dispatch
@@ -400,7 +463,8 @@ class PagedEngine:
                       "prefill_chunks", "slot_steps",
                       "active_slot_steps", "prefix_hit_tokens",
                       "prefix_adopted_blocks", "timeouts",
-                      "cancellations", "rejected", "full_rebuilds",
+                      "cancellations", "rejected", "spec_proposed",
+                      "spec_accepted", "full_rebuilds",
                       "delta_patches", "h2d_upload_bytes", "dispatches",
                       "patches_fused", "patch_queue_overflows",
                       "ring_cursor_rollovers")}
@@ -410,6 +474,8 @@ class PagedEngine:
         self._h_wait = reg.histogram("paged_queue_wait_ms",
                                      buckets=obs.SERVING_MS_BUCKETS,
                                      **self._obs_labels)
+        self._h_tpf = reg.histogram("paged_tokens_per_forward",
+                                    **self._obs_labels)
         self._h_bytes = reg.histogram("paged_h2d_bytes",
                                       buckets=obs.BYTES_BUCKETS,
                                       **self._obs_labels)
@@ -494,6 +560,27 @@ class PagedEngine:
         self._out_nxt = torch.zeros((K, R), dtype=torch.int64, device=dev)
         self._out_lps = torch.zeros((K, R), **f32)
         self._out_done = torch.zeros((K, R), dtype=torch.bool, device=dev)
+        ring_keys = ("ring", "rlps", "wcur", "active")
+        if self._spec_k:
+            # the committed-stream buffer the proposer matches over (the
+            # +k+1 tail takes the tick's candidate writes), the accept
+            # EMA, the probe counter, and the last dispatch's drafted and
+            # accepted counts (read by the ring's drain)
+            T = self._spec_k + 1
+            self._st.update(
+                toks=torch.zeros((R, M * self.B + T), **i32),
+                ema=torch.ones(R, **f32), tickc=torch.zeros(R, **i32))
+            if self._ring:
+                self._st.update(kprop_last=torch.zeros(R, **i32),
+                                macc_last=torch.zeros(R, **i32))
+                ring_keys += ("kprop_last", "macc_last")
+            # sync mode's readback: candidates, logprobs, emitted count,
+            # drafted, accepted, done
+            self._out_spec = dict(
+                G=torch.zeros((R, T), dtype=torch.int64, device=dev),
+                LP=torch.zeros((R, T), **f32), n=torch.zeros(R, **i32),
+                kprop=torch.zeros(R, **i32), macc=torch.zeros(R, **i32),
+                done=torch.zeros(R, dtype=torch.bool, device=dev))
         # pinned host buffers: the staged patch queue (reused only after
         # the event of the copy that read it) and the ring's copy
         pin = dev.type == "cuda"
@@ -503,7 +590,7 @@ class PagedEngine:
         self._ring_host = {
             k: torch.zeros(self._st[k].shape, dtype=self._st[k].dtype,
                            pin_memory=pin)
-            for k in ("ring", "rlps", "wcur", "active")}
+            for k in ring_keys}
         self._ring_event = None
         self._drop_graphs()
 
@@ -546,12 +633,7 @@ class PagedEngine:
                                positions=lens[:, None])
         raw = repetition_penalty_rows(logits[:, -1].float(), self.seen,
                                       reps)
-        if sampling is None:
-            nxt = torch.argmax(raw, dim=-1)
-            lps = torch.log_softmax(raw, dim=-1).gather(1, nxt[:, None])[:, 0]
-            new_keys = None
-        else:
-            nxt, lps, new_keys = sample_token_rows(raw, *sampling)
+        nxt, lps, new_keys = _choose_tokens(raw, sampling)
         self.seen[self._rows, nxt] |= active
         return nxt, lps, new_keys
 
@@ -602,6 +684,14 @@ class PagedEngine:
         d[10] = np.float32(self.reps[i]).view(np.int32)
         d[11:13] = self.keys[i].view(np.int32)
         d[15:15 + self.M] = self.block_tables[i]
+        if self._spec_k:
+            # d[14], the probe counter, stays 0: a patched row's probe
+            # cadence restarts, as a rebuild restarts it
+            d[13] = np.float32(s.spec_ema if s is not None
+                               else 1.0).view(np.int32)
+            d[15 + self.M:] = token_buffer_row(
+                s.prompt + s.tokens if s is not None else (),
+                self._desc_len - 15 - self.M)
         return d
 
     def _apply_descriptors(self, pq, valid):
@@ -637,6 +727,10 @@ class PagedEngine:
         put("tks", d[:, 8])
         put("tps", f32(9))
         put("reps", f32(10))
+        if self._spec_k:
+            put("toks", d[:, 15 + M:])
+            put("ema", f32(13))
+            put("tickc", d[:, 14])
         st["keys"].copy_(override_key_rows(
             st["keys"], pq[:, 0], pq[:, 11:13].long(),
             valid & (pq[:, 6] != 0)))
@@ -782,6 +876,23 @@ class PagedEngine:
                           ("tps", self.top_ps), ("reps", self.reps),
                           ("eos", eos), ("rem", rem), ("active", act)):
             st[name].copy_(torch.from_numpy(arr))
+        if self._spec_k:
+            # each row's prompt and emitted tokens, its accept EMA, and
+            # the probe counters restarted
+            tk = np.zeros(tuple(st["toks"].shape), np.int32)
+            ema = np.ones((self.R,), np.float32)
+            for i, s in enumerate(self.slots):
+                if s is not None:
+                    tk[i] = token_buffer_row(s.prompt + s.tokens,
+                                             tk.shape[1])
+                    ema[i] = s.spec_ema
+            nbytes += tk.nbytes + ema.nbytes
+            st["toks"].copy_(torch.from_numpy(tk))
+            st["ema"].copy_(torch.from_numpy(ema))
+            st["tickc"].zero_()
+            if self._ring:
+                st["kprop_last"].zero_()
+                st["macc_last"].zero_()
         # a rebuild runs with the ring drained (every transition drains
         # first), so zeroing the cursors loses no entry; an empty queue
         st["ring"].zero_()
@@ -832,28 +943,148 @@ class PagedEngine:
         self._out_lps[k].copy_(lps)
         self._out_done[k].copy_(done)
 
+    def _tick_spec(self, greedy: bool):
+        """One speculative tick on the device state, in place (the JAX
+        package's ``_fused_tick_spec``): the staged patches; each row's
+        draft cap ``kprop`` (the adaptive want, capped by the write
+        headroom read off its table, where unallocated entries are the
+        garbage block 0, and by its budget); the prompt-lookup drafts;
+        one model call over [last, drafts] (the ragged kernel at T = k+1,
+        once a layer); the accept scan over the k+1 positions, unrolled;
+        then the commit of lengths, last tokens, budgets, the active
+        mask, the committed-stream buffer, the EMA, the probe counters,
+        the keys and the ring window.
+
+        Position j of the scan penalises its logits over ``seen`` as of
+        j (the window's earlier emitted tokens included), draws its
+        token as the plain tick would with the row's key advanced by j,
+        and accepts the draft iff the token equals it. A row emits at j
+        while it is alive: alive past j only if it accepted a real draft
+        there and neither eos nor its budget ended it, so the first
+        rejection's token is the correction and position k's the bonus.
+        The K/V of rejected drafts sits past the committed length (past
+        the row's allocated blocks it lands in the garbage block) and is
+        overwritten before it becomes readable."""
+        st, R = self._st, self.R
+        self._apply_patch_queue()
+        k = self._spec_k
+        T = k + 1
+        lens, rem, tables, keys = st["lens"], st["rem"], st["tables"], \
+            st["keys"]
+        active = st["active"].clone()
+        C = lens + 1                    # committed tokens of active rows
+        capw = (tables > 0).sum(dim=1).to(torch.int32) * self.B - lens
+        probe = (st["tickc"] % _SPEC_PROBE_EVERY) == 0
+        zero = torch.zeros_like(lens)
+        want = torch.where(st["ema"] >= _SPEC_EMA_FLOOR, zero + k,
+                           torch.where(probe, zero + 1, zero))
+        kprop = torch.where(active, torch.minimum(
+            torch.minimum(want, capw - 1), rem - 1).clamp(0, k), zero)
+        drafts = mask_drafts(propose_ngram_rows(
+            st["toks"], C, k, self._spec_ngram, fill=-1), kprop)
+        ids = torch.cat([st["last"][:, None], drafts.clamp_min(0)], dim=1)
+        positions = lens[:, None] + torch.arange(T, device=self.device)
+        logits, _ = self.model(ids.long(),
+                               kv_caches=self._caches(tables, lens),
+                               positions=positions, paged_decode=True)
+        logits = logits.float()
+        drafts_ext = torch.cat([drafts, torch.full_like(drafts[:, :1], -1)],
+                               dim=1)
+        alive = active.clone()
+        nem = torch.zeros_like(lens)
+        macc = torch.zeros_like(lens)
+        eos_hit = torch.zeros_like(active)
+        is_eos_ok = st["eos"] >= 0
+        toks, lps = [], []
+        for j in range(T):
+            raw = repetition_penalty_rows(logits[:, j], self.seen,
+                                          st["reps"])
+            # the token the plain tick would draw here (key advanced by
+            # j); the draft is accepted iff it equals it (the one-hot
+            # residual rule, sampling.residual_resample_rows)
+            tok, lp, _ = _choose_tokens(raw, None if greedy else (
+                fold_in_rows(keys, j), st["temps"], st["tks"], st["tps"]))
+            d_j = drafts_ext[:, j]
+            acc = (d_j >= 0) & (tok == d_j)
+            emit = alive
+            self.seen[self._rows, tok] |= emit
+            nem = nem + emit.to(torch.int32)
+            macc = macc + (emit & acc).to(torch.int32)
+            is_eos = is_eos_ok & (tok == st["eos"])
+            eos_hit = eos_hit | (emit & is_eos)
+            alive = emit & acc & ~is_eos & (nem < rem)
+            toks.append(tok)
+            lps.append(lp)
+        G = torch.stack(toks, dim=1)                            # [R, T]
+        LP = torch.stack(lps, dim=1)
+        n_eff = torch.where(active, nem, zero)
+        done = active & (eos_hit | (rem - n_eff <= 0))
+        # the buffer takes all T candidates: those past n_eff sit beyond
+        # the committed count, never match, and are overwritten next tick
+        # (C + k <= M * B + k, the buffer's last index, for every row)
+        buf = st["toks"]
+        cols = (C[:, None] + torch.arange(T, device=self.device)).long()
+        buf.scatter_(1, cols.clamp(max=buf.shape[1] - 1), G.to(torch.int32))
+        last = G.gather(1, (n_eff - 1).clamp_min(0).long()[:, None])[:, 0]
+        ema = torch.where(
+            kprop > 0,
+            (1.0 - _SPEC_EMA_ALPHA) * st["ema"] + _SPEC_EMA_ALPHA
+            * (macc.float() / kprop.float().clamp_min(1.0)), st["ema"])
+        st["lens"].add_(n_eff)
+        st["last"].copy_(torch.where(active, last.to(torch.int32),
+                                     st["last"]))
+        st["rem"].sub_(n_eff)
+        st["active"].copy_(active & ~done)
+        st["ema"].copy_(ema)
+        st["tickc"].add_(active.to(torch.int32))
+        if not greedy:
+            keys.copy_(fold_in_rows(keys, n_eff))   # one per emitted token
+        if self._ring:
+            # the emitted window goes to ring entries wcur .. wcur+n_eff-1;
+            # T <= ring_len / 2, so a row's window never wraps onto itself
+            r = self._rows[:, None]
+            idx = ((st["wcur"][:, None] + torch.arange(
+                T, device=self.device)) % self._ring_len).long()
+            win = torch.arange(T, device=self.device)[None, :] < \
+                n_eff[:, None]
+            ring, rlps = st["ring"], st["rlps"]
+            ring[r, idx] = torch.where(win, G.to(torch.int32), ring[r, idx])
+            rlps[r, idx] = torch.where(win, LP, rlps[r, idx])
+            st["wcur"].add_(n_eff)
+            st["kprop_last"].copy_(kprop)
+            st["macc_last"].copy_(macc)
+        out = self._out_spec
+        for name, val in (("G", G), ("LP", LP), ("n", n_eff),
+                          ("kprop", kprop), ("macc", macc), ("done", done)):
+            out[name].copy_(val)
+
     @torch.inference_mode()
-    def _program(self, greedy: bool, K: int):
-        """One dispatch's program: K ticks in a row (the scan ticks when K
-        > 1; each is the K=1 program's tick, so the stream is that of K
-        single dispatches)."""
+    def _program(self, greedy: bool, K: int, spec: bool = False):
+        """One dispatch's program: the speculative tick, or K ticks in a
+        row (the scan ticks when K > 1; each is the K=1 program's tick, so
+        the stream is that of K single dispatches)."""
+        if spec:
+            self._tick_spec(greedy)
+            return
         for k in range(K):
             self._tick(greedy, k)
 
-    def _dispatch(self, greedy: bool, K: int):
+    def _dispatch(self, greedy: bool, K: int, spec: bool = False):
         """Run one dispatch: eagerly on the CPU; on a card, replay the
-        program's CUDA graph, captured on its first use."""
+        program's CUDA graph, captured on its first use. The graphs are
+        keyed (greedy, K or "spec", route)."""
         if self.device.type != "cuda":
-            self._program(greedy, K)
+            self._program(greedy, K, spec)
             return
         # a graph freezes the weights' addresses and the route it read
         if self._graph_links is None or self._weights_moved():
             self._drop_graphs()
             self._graph_links = self._weights_links()
-        key = (greedy, K, os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged"))
+        key = (greedy, "spec" if spec else K,
+               os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged"))
         g = self._graphs.get(key)
         if g is None:
-            self._graphs[key] = self._capture(greedy, K)
+            self._graphs[key] = self._capture(greedy, K, spec)
             return
         g.graph.replay()
         add_launches(g.launches)
@@ -894,7 +1125,7 @@ class PagedEngine:
         self._graph_pool = None
         self._graph_links = None
 
-    def _capture(self, greedy: bool, K: int) -> "_TickGraph":
+    def _capture(self, greedy: bool, K: int, spec: bool) -> "_TickGraph":
         """This dispatch runs the program eagerly on a side stream, which
         also warms up what must not happen inside a capture (kernel
         builds, workspaces, library handles); then the program is
@@ -905,7 +1136,7 @@ class PagedEngine:
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._program(greedy, K)
+            self._program(greedy, K, spec)
         torch.cuda.current_stream(dev).wait_stream(side)
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -917,7 +1148,7 @@ class PagedEngine:
         # counts its kernels by name)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, pool=self._graph_pool):
-            self._program(greedy, K)
+            self._program(greedy, K, spec)
         graph.instantiate()
         captured = {}
         for fn, (n, by_route) in before.items():
@@ -1351,11 +1582,17 @@ class PagedEngine:
                     or (req.eos is not None and first == req.eos):
                 self._finish(slot_id)
 
-    def _grow_blocks(self, slot_id: int, need: int) -> bool:
+    def _grow_blocks(self, slot_id: int, need: int,
+                     reserve: int = 0) -> bool:
         """Grow a slot's table to ``need`` blocks; False when the pool
-        cannot serve."""
+        cannot serve. ``reserve`` refuses to take the allocatable blocks
+        (free and parked) down to that count: the speculative headroom
+        uses it so its grabs never starve ``_ensure_block``."""
         slot = self.slots[slot_id]
         while len(slot.blocks) < need:
+            if reserve and len(self.free_blocks) + \
+                    len(self.cached_free) <= reserve:
+                return False
             b = self._alloc_block()
             if b is None:
                 return False
@@ -1441,6 +1678,7 @@ class PagedEngine:
                             prefix=s.prefix + s.tokens,
                             prefix_lps=s.prefix_lps + s.lps,
                             stop=s.stop, rep=s.rep, deadline=s.deadline)
+        requeued.spec_ema = s.spec_ema   # the adaptive draft count survives
         self.queue.insert(0, requeued)
         self._release(victim)
         self._count("preemptions")
@@ -1515,6 +1753,9 @@ class PagedEngine:
         """Stats snapshot for load balancers and probes: scheduler
         counters plus live occupancy (slots, blocks, queue depth)."""
         snap = dict(self.stats)
+        prop = snap.get("spec_proposed", 0)
+        snap["spec_accept_rate"] = round(
+            snap.get("spec_accepted", 0) / prop, 4) if prop else 0.0
         ticks = snap.get("decode_steps", 0)
         snap["dispatches_per_tick"] = round(
             snap.get("dispatches", 0) / ticks, 4) if ticks else 0.0
@@ -1637,6 +1878,11 @@ class PagedEngine:
         if not active:
             return
         if self._fused:
+            if self._spec_k:
+                # a speculative tick is already a multi-token dispatch: it
+                # takes the place of the scan ticks
+                self._spec_headroom(active)
+                return self._decode_fused(active, spec=True)
             scan = self._ticks_per_dispatch > 1 and self._scan_ticks(active)
             return self._decode_fused(active, scan=scan)
         return self._decode_host(active)
@@ -1644,8 +1890,9 @@ class PagedEngine:
     # -------------------------------------------------- the token ring
     def _ring_wait(self):
         """Wait for the ring copy of the outstanding dispatch and return
-        its host arrays (ring, logprobs, write cursors, active mask). A
-        copy not yet finished counts one blocking drain and one blocking
+        its host arrays by name (ring, logprobs, write cursors, active
+        mask; with spec, each row's drafted and accepted counts). A copy
+        not yet finished counts one blocking drain and one blocking
         readback."""
         ev = self._ring_event
         if ev is not None and not ev.query():
@@ -1657,9 +1904,7 @@ class PagedEngine:
         # in ring mode the drain's wait is the program-bound time the
         # host sees: the decode-step histogram's window
         self._h_decode.observe((time.perf_counter() - t0) * 1e3)
-        h = self._ring_host
-        return (h["ring"].numpy(), h["rlps"].numpy(), h["wcur"].numpy(),
-                h["active"].numpy())
+        return {k: v.numpy() for k, v in self._ring_host.items()}
 
     def _drain_pending(self):
         """Consume the outstanding ring dispatch: the ring entries
@@ -1673,17 +1918,39 @@ class PagedEngine:
             return
         self._pending = None
         self.ring_drains += 1
-        ring, rlps, wcur, act_now = self._ring_wait()
+        h = self._ring_wait()
+        spec = self._spec_k > 0
+        if spec:
+            rows = p["rows"]
+            self._count_drafts(int(h["kprop_last"][rows].sum()),
+                               int(h["macc_last"][rows].sum()))
         lag = self.dispatch_count - p["seq"] + 1   # dispatches until drain
         for i in p["rows"]:
-            self._commit_row_drain(i, ring[i], rlps[i], wcur[i], act_now[i],
-                                   lag)
+            self._commit_row_drain(
+                i, h["ring"][i], h["rlps"][i], h["wcur"][i], h["active"][i],
+                int(h["kprop_last"][i]) if spec else 0,
+                int(h["macc_last"][i]) if spec else 0, lag)
 
-    def _commit_row_drain(self, i, ring_i, rlps_i, wc, act_i, lag) -> bool:
+    def _count_drafts(self, proposed: int, accepted: int):
+        self._count("spec_proposed", proposed)
+        self._count("spec_accepted", accepted)
+
+    def _spec_mirror(self, slot, kp: int, ma: int):
+        """The host mirror of a row's device EMA, advanced as the tick
+        advanced it (the device copy stays the authority until the next
+        upload)."""
+        if kp:
+            slot.spec_ema = ((1.0 - _SPEC_EMA_ALPHA) * slot.spec_ema
+                             + _SPEC_EMA_ALPHA * (float(ma) / float(kp)))
+
+    def _commit_row_drain(self, i, ring_i, rlps_i, wc, act_i, kp, ma,
+                          lag) -> bool:
         """One row's share of a drain, shared by the global and the scoped
-        drain: advance the drained cursor, append the row's entries (stop
-        check on each), emit its trace event, honour the device finish
-        flag. False for a row released since the dispatch (its cursor
+        drain: advance the drained cursor, mirror the spec EMA and count
+        the tokens per forward, append the row's entries (stop check on
+        each), emit its trace event, honour the device finish flag.
+        ``kp``/``ma``: the row's drafted and accepted counts (0 without
+        spec). False for a row released since the dispatch (its cursor
         still advances)."""
         slot = self.slots[i]
         base = int(self._drained[i])
@@ -1691,13 +1958,18 @@ class PagedEngine:
         self._drained[i] = int(wc)
         if slot is None:
             return False
+        if self._spec_k:
+            self._h_tpf.observe(n_new)
+            self._spec_mirror(slot, kp, ma)
         Lr = self._ring_len
         appended, finished = self._consume_row(
             i, ((ring_i[(base + j) % Lr], rlps_i[(base + j) % Lr], False)
                 for j in range(n_new)))
         if self.trace_sink is not None:
-            self.trace_sink(slot.request_id, "tick", n=appended,
-                            ring_lag=lag)
+            ev = dict(n=appended, ring_lag=lag)
+            if self._spec_k:
+                ev.update(proposed=kp, accepted=ma)
+            self.trace_sink(slot.request_id, "tick", **ev)
         if finished or not bool(act_i):
             self._finish(i)     # host stop, or the device's eos/budget
         return True
@@ -1714,12 +1986,17 @@ class PagedEngine:
             return
         self.ring_drains += 1
         self.ring_scoped_drains += 1
-        ring, rlps, wcur, act_now = self._ring_wait()
+        h = self._ring_wait()
         p["rows"].remove(i)
         if not p["rows"]:
             self._pending = None
-        self._commit_row_drain(i, ring[i], rlps[i], wcur[i], act_now[i],
-                               self.dispatch_count - p["seq"] + 1)
+        kp = ma = 0
+        if self._spec_k:
+            kp, ma = int(h["kprop_last"][i]), int(h["macc_last"][i])
+        if self._commit_row_drain(
+                i, h["ring"][i], h["rlps"][i], h["wcur"][i], h["active"][i],
+                kp, ma, self.dispatch_count - p["seq"] + 1):
+            self._count_drafts(kp, ma)
 
     def _drain_slot(self, i: int):
         """Drain before mutating slot ``i`` out-of-band: scoped to the row
@@ -1804,33 +2081,31 @@ class PagedEngine:
                 self._finish(i)
         return True
 
-    def _decode_fused(self, active, scan: bool = False):
+    def _decode_fused(self, active, scan: bool = False, spec: bool = False):
         """The fused tick's host half: bring the device state up to date
         (a rebuild, or the staged patches), run ONE dispatch advancing
         every active slot (``scan``: K ticks, proven safe by
-        ``_scan_ticks``), then either leave its tokens in the ring for the
-        next step()'s drain (ring mode: the ring is copied to pinned host
-        memory without waiting) or read (token, logprob, done) back at
-        once and run the bookkeeping."""
+        ``_scan_ticks``; ``spec``: the speculative tick), then either
+        leave its tokens in the ring for the next step()'s drain (ring
+        mode: the ring is copied to pinned host memory without waiting)
+        or read the outputs back at once and run the bookkeeping."""
         K = self._ticks_per_dispatch if scan else 1
         self._sync_dev()
         t_decode = time.perf_counter()
         self.dispatch_count += 1
         self._count("dispatches")
         greedy = bool(np.all(self.temps[active] <= 0.0))
-        self._dispatch(greedy, K)
+        self._dispatch(greedy, K, spec)
         if not greedy:
             self._dev_keys_dirty = True
         self._count("decode_steps", K)
         self._count("slot_steps", self.R * K)
         if self._ring:
-            h, st = self._ring_host, self._st
-            for k in h:
-                h[k].copy_(st[k], non_blocking=True)
-            self._ring_event = self._record_event()
-            self._pending = dict(rows=list(active), seq=self.dispatch_count)
+            self._leave_in_ring(active)
             return True
         self.d2h_syncs += 1
+        if spec:
+            return self._read_spec(active, t_decode)
         nxt = self._out_nxt[:K].cpu().numpy()
         lps = self._out_lps[:K].cpu().numpy()
         done = self._out_done[:K].cpu().numpy()
@@ -1848,6 +2123,64 @@ class PagedEngine:
             if finished:
                 self._finish(i)
         return True
+
+    def _spec_headroom(self, active):
+        """Best-effort blocks so each active row can write its k+1
+        positions this tick (one draft's worth for a row whose EMA
+        collapsed). It never preempts and keeps one block a row in
+        reserve; a row that gets no headroom drafts less or nothing (the
+        tick caps its drafts by the write room its table shows)."""
+        for i in active:
+            s = self.slots[i]
+            if s.max_new - len(s.tokens) < 2:
+                continue
+            k_want = self._spec_k if s.spec_ema >= _SPEC_EMA_FLOOR else 1
+            # a table holds at most M blocks: at that edge the tick's
+            # write-room cap shrinks the drafts instead
+            need = min(
+                self._blocks_needed(int(self.seq_lens[i]) + k_want + 1),
+                self.M)
+            if not self._grow_blocks(i, need, reserve=len(active)):
+                return
+
+    def _read_spec(self, active, t_decode):
+        """The speculative tick's sync-mode readback (ring mode leaves the
+        window to the drain, which appends it and counts the drafts):
+        read (candidates, logprobs, emitted count, drafted, accepted,
+        done) and run each row's bookkeeping over its emitted window:
+        appends, the stop check inside the window (a stop mid-window
+        finishes the request; tokens past it die with the slot), the
+        device's finish flag."""
+        out = {k: v.cpu().numpy() for k, v in self._out_spec.items()}
+        self._h_decode.observe((time.perf_counter() - t_decode) * 1e3)
+        self._count_drafts(int(out["kprop"][active].sum()),
+                           int(out["macc"][active].sum()))
+        sink = self.trace_sink
+        for i in active:
+            slot = self.slots[i]
+            n = int(out["n"][i])
+            kp, ma = int(out["kprop"][i]), int(out["macc"][i])
+            self._h_tpf.observe(n)
+            self._spec_mirror(slot, kp, ma)
+            appended, finished = self._consume_row(
+                i, ((out["G"][i, j], out["LP"][i, j], False)
+                    for j in range(n)))
+            if sink is not None:
+                sink(slot.request_id, "tick", n=appended, proposed=kp,
+                     accepted=ma)
+            if finished or bool(out["done"][i]):
+                self._finish(i)
+        return True
+
+    def _leave_in_ring(self, active):
+        """Ring mode after a dispatch: copy the ring (and the state the
+        drain reads) to pinned host memory without waiting, and leave the
+        dispatch outstanding for the next step()'s drain."""
+        h, st = self._ring_host, self._st
+        for k in h:
+            h[k].copy_(st[k], non_blocking=True)
+        self._ring_event = self._record_event()
+        self._pending = dict(rows=list(active), seq=self.dispatch_count)
 
     def _scan_ticks(self, active) -> bool:
         """True when the next ``ticks_per_dispatch`` ticks may run in one

@@ -1,6 +1,6 @@
 """Logits processors for autoregressive decoding (the subset of
 ``paddle_tpu/generation/sampling.py`` that ``generate()`` and the paged
-engine's host tick use).
+engine's ticks use, the speculative verify's included).
 
 Filtering masks to the finite -1e30, as the JAX package does, so a
 filtered row never holds a NaN. ``generate()`` draws from an explicit
@@ -88,6 +88,24 @@ def suffix_window_hits(seq, cur: int, g: int):
     last = seq[..., max(cur - g, 0):max(cur - g, 0) + g]      # [..., g]
     hit = (win == last[..., None, :]).all(dim=-1)
     return hit & (starts <= cur - g - 1) & (cur >= g)
+
+
+def suffix_window_hits_rows(seqs, cur, g: int):
+    """:func:`suffix_window_hits` with a committed count per row: seqs
+    [R, L], ``cur`` [R] tensor -> [R, L] bool. The suffix is read where
+    the JAX package's ``dynamic_slice`` reads it (start clamped into the
+    row), and no value goes to the host."""
+    R, L = seqs.shape
+    dev = seqs.device
+    cur = cur.long()
+    starts = torch.arange(L, device=dev)
+    offs = torch.arange(g, device=dev)
+    win = seqs[:, (starts[:, None] + offs[None, :]).clamp(0, L - 1)]
+    first = (cur - g).clamp(0, max(L - g, 0))
+    last = seqs.gather(1, first[:, None] + offs[None, :])      # [R, g]
+    hit = (win == last[:, None, :]).all(dim=-1)
+    return hit & (starts[None, :] <= (cur - g - 1)[:, None]) \
+        & (cur >= g)[:, None]
 
 
 # ------------------------------------------------------- per-row sampling
@@ -203,6 +221,52 @@ def sample_token_rows(logits, keys, temperature, top_k, top_p):
                          sampled)
     logprobs = torch.log_softmax(raw, dim=-1).gather(
         1, tokens[:, None])[:, 0]
+    return tokens, logprobs, fold_in_rows(keys, 1)
+
+
+# ------------------------------------------- the speculative verify's keys
+def fold_in_rows(keys, j):
+    """The key of a row's j-th draw from ``keys`` [R, 2]: its counter
+    advanced by ``j`` (an int, or an [R] tensor), mod 2**32. Position j of
+    a speculative tick's verify window draws with it, which is the key the
+    plain tick would use for the row's j-th next token."""
     keys = keys.long()
-    new_keys = torch.stack([keys[:, 0], (keys[:, 1] + 1) & _M32], dim=1)
-    return tokens, logprobs, new_keys
+    if torch.is_tensor(j):
+        j = j.long()
+    return torch.stack([keys[:, 0], (keys[:, 1] + j) & _M32], dim=1)
+
+
+def split_key_rows(keys, n=1):
+    """(carry, sub) of a tick: ``sub`` is the rows' keys as they stand,
+    from which each verify position folds its own (:func:`fold_in_rows`);
+    ``carry`` has every counter advanced by ``n`` (an int or an [R] tensor
+    of the tokens each row emitted), so each emitted token advances the
+    stream by one, as on the plain tick. Counterpart of the JAX package's
+    one-split-per-tick rule on its threefry keys."""
+    return fold_in_rows(keys, n), keys.long()
+
+
+def residual_resample_rows(logits, draft, keys, temperature, top_k,
+                           top_p):
+    """One verify position of the rejection-sampled speculative tick with
+    a deterministic (one-hot) draft, row-batched: logits [R, V] fp32 (the
+    penalty-applied logits the plain tick would sample from), draft [R]
+    (< 0: no draft), keys [R, 2] this position's keys, temperature /
+    top_k / top_p as :func:`sample_token_rows`.
+
+    The token is the plain tick's Gumbel-max sample from the filtered
+    logits (greedy rows: the argmax), and the draft is accepted iff the
+    token equals it. That is the JAX package's residual rule with a
+    one-hot draft q = onehot(d): P(accept) = p(d) under the filtered
+    distribution p, and on a rejection the token follows p with d removed
+    and renormalised, so P(emit y) = p(y) whatever the draft. The token
+    is also exactly the one the plain tick draws with the same key, so a
+    speculative stream equals the spec-off stream bit for bit on the
+    same logits, sampled rows included.
+
+    Returns (tokens [R] int64, accepted [R] bool, logprobs [R] fp32 of
+    the token under the unfiltered softmax)."""
+    tokens, logprobs, _ = sample_token_rows(logits, keys, temperature,
+                                            top_k, top_p)
+    accepted = (draft >= 0) & (tokens == draft)
+    return tokens, accepted, logprobs

@@ -134,7 +134,9 @@ class Predictor:
         ``engine_kw`` goes to ``PagedEngine``: its defaults are the
         device-resident tick (one CUDA-graph replay a tick on a card) with
         ring mode and delta transitions; ``fused_tick=False`` selects the
-        host tick. The engine, its pools and captured tick programs
+        host tick, and ``spec_tokens=k`` (with ``spec_ngram``) the
+        speculative tick: up to k prompt-lookup drafts a row, verified in
+        one forward and committed in the same program. The engine, its pools and captured tick programs
         included, is cached per ``engine_kw``, so repeated calls allocate
         nothing new."""
         from .generation.paged import PagedEngine

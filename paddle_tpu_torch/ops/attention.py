@@ -87,13 +87,15 @@ def dense_attention(query, key, value, attn_mask=None, causal=False,
 
 def use_paged_kernel(q, kp) -> bool:
     """The ragged paged kernel's shapes (q [R, T, h, d], pools [P, B, kvh,
-    d]): whole query-head groups, head_dim 64, 128 or 256, and T x group
-    query rows that fit the kernel. The TPU gate's interpret-mode switch
-    and its Mosaic rules (B % 8, d % 128 or kvh == 1) are not inherited."""
-    T, h, d = q.shape[1], q.shape[2], q.shape[3]
+    d]): whole query-head groups of at most the kernel's query rows,
+    head_dim 64, 128 or 256, any T (the wrapper splits a window whose T x
+    group rows do not fit one launch, as the TPU gate admits any T). The
+    TPU gate's interpret-mode switch and its Mosaic rules (B % 8, d % 128
+    or kvh == 1) are not inherited."""
+    h, d = q.shape[2], q.shape[3]
     kvh = kp.shape[2]
     return (h % kvh == 0 and d in _PAGED_HEAD_DIMS
-            and T * (h // kvh) <= _PAGED_MAX_ROWS)
+            and h // kvh <= _PAGED_MAX_ROWS)
 
 
 def use_decode_kernel(q, k_cache) -> bool:

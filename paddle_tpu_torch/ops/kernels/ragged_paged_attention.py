@@ -64,7 +64,7 @@ from . import _build, check_layout, sm_count, stream_of, use_kernel
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
-MAX_ROWS = 32       # T x (query heads per kv head) the kernel holds
+MAX_ROWS = 32       # T x (query heads per kv head) one launch holds
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROUTES = ("mma", "simt")
 MMA_HEAD_DIMS = (64, 128)
@@ -176,6 +176,16 @@ def ragged_chunk_blocks(R: int, M: int, B: int, kvh: int, sms: int) -> int:
     return min(c, M)
 
 
+def query_windows(T: int, group: int):
+    """The (first, end) query indices of each launch for a window of T
+    queries a row at ``group`` query heads per kv head: one window when
+    T x group fits ``MAX_ROWS``, else the fewest windows of whole queries
+    that fit, of near-equal length (9 queries at group 4: 5 and 4)."""
+    n = -(-T // (MAX_ROWS // group))
+    size = -(-T // n)
+    return [(t, min(t + size, T)) for t in range(0, T, size)]
+
+
 def _scratch_for(dev: torch.device, floats: int, counters: int):
     """The card's fp32 workspace of at least ``floats`` elements and its
     int32 counters (at least ``counters``, all 0), grown when too
@@ -216,9 +226,9 @@ def _check(q, kp, vp, block_tables, seq_lens, window):
                         f"got {q.dtype}, {kp.dtype}, {vp.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if T * (h // kvh) > MAX_ROWS:
-        raise ValueError(f"{T} queries x {h // kvh} heads per kv head; the "
-                         f"kernel takes at most {MAX_ROWS} query rows")
+    if h // kvh > MAX_ROWS:
+        raise ValueError(f"{h // kvh} query heads per kv head; the kernel "
+                         f"takes at most {MAX_ROWS} query rows")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
 
@@ -265,8 +275,19 @@ def ragged_paged_attention(q: torch.Tensor, kp: torch.Tensor,
     block_tables [R, M] and seq_lens [R], int32. Returns q's shape.
 
     CPU tensors take :func:`ragged_paged_attention_plain`; CUDA tensors
-    launch the kernel, on the current stream, or raise."""
+    launch the kernel, on the current stream, or raise. A launch holds at
+    most ``MAX_ROWS`` query rows a kv head (T x query heads per kv head):
+    a longer window runs as :func:`query_windows` of consecutive queries,
+    one launch each, window j's queries at seq_lens + its first index (the
+    caller wrote the K/V of every query before the call)."""
     _check(q, kp, vp, block_tables, seq_lens, window)
+    T = q.shape[1] if q.dim() == 4 else 1
+    spans = query_windows(T, q.shape[-2] // kp.shape[2])
+    if len(spans) > 1:
+        return torch.cat([
+            ragged_paged_attention(q[:, t0:t1].contiguous(), kp, vp,
+                                   block_tables, seq_lens + t0, scale,
+                                   window) for t0, t1 in spans], dim=1)
     if not use_kernel(q, kp, vp, block_tables, seq_lens):
         return ragged_paged_attention_plain(q, kp, vp, block_tables,
                                             seq_lens, scale, window)

@@ -316,9 +316,11 @@ def test_h2d_uploads_match_the_jax_host_path_per_tick(pair):
 
 def test_later_slice_modes_raise(pair):
     tm = pair[1]
+    # speculative ticks are ported: they need the device-resident tick
+    assert PagedEngine(tm, **dict(BASE, fused_tick=True, spec_tokens=2))._spec_k == 2
+    with pytest.raises(ValueError, match="fused_tick"):
+        PagedEngine(tm, fused_tick=False, spec_tokens=2)
     for fused in (True, False):
-        with pytest.raises(NotImplementedError, match="A2\\(d\\)"):
-            PagedEngine(tm, fused_tick=fused, spec_tokens=2)
         with pytest.raises(NotImplementedError, match="A2\\(e\\)"):
             PagedEngine(tm, fused_tick=fused, tick_profile=True)
     with pytest.raises(ValueError, match="chunk_prefill_tokens"):

@@ -7,7 +7,8 @@ within 1e-5: idle rows (seq_len 0), block edges, a sliding window, GQA
 groups 1, 2 and 4, and table slots past each row's live count that hold
 other rows' blocks. ``paged_decode_attention`` under every value of
 ``PADDLE_TPU_PAGED_ATTN`` is held against the JAX function under the same
-value, and must take the same route; the port's ``PagedEngine`` under
+value, and must take the same route (multi-query rows under ``grid``
+excepted: the port sends them to the ragged kernel); the port's ``PagedEngine`` under
 ``grid`` must give the JAX engine's greedy tokens.
 The mma kernel's static rules are pinned here too: its route depends on
 the dtype and head_dim alone, its chunk / cluster / heads-per-block split
@@ -126,7 +127,7 @@ def routes(monkeypatch):
 
 
 @pytest.mark.parametrize("mode,T,route", [
-    ("grid", 1, "grid"), ("grid", 3, "dense"), ("ragged", 1, "ragged"),
+    ("grid", 1, "grid"), ("grid", 3, "ragged"), ("ragged", 1, "ragged"),
     ("ragged", 3, "ragged"), ("dense", 1, "dense"), ("bogus", 1, "ragged"),
     (None, 3, "ragged"),
 ], ids=["grid", "grid-multi-query", "ragged", "ragged-multi-query",
@@ -135,7 +136,9 @@ def routes(monkeypatch):
 def test_paged_decode_attention_routes_as_jax(monkeypatch, routes, mode, T,
                                               route, window):
     """The variable is read at call time, value for value as the JAX
-    package reads it, and both packages give the same numbers."""
+    package reads it, except that multi-query rows under ``grid`` take
+    the ragged kernel where the JAX package takes its dense gather; both
+    packages give the same numbers."""
     if mode is not None:
         monkeypatch.setenv("PADDLE_TPU_PAGED_ATTN", mode)
     q, kp, vp, tables, sl = _case(17, T=T, lens=[0, 8, 21, 44])

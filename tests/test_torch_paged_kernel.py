@@ -153,7 +153,9 @@ def test_gate_takes_shapes_only():
     kp = torch.zeros(4, 8, 2, 64)
     assert port_attn.use_paged_kernel(torch.zeros(2, 1, 4, 64), kp)
     assert port_attn.use_paged_kernel(torch.zeros(2, 16, 4, 64), kp)
-    assert not port_attn.use_paged_kernel(torch.zeros(2, 17, 4, 64), kp)
+    # any T: the wrapper splits a window of more than 32 query rows
+    assert port_attn.use_paged_kernel(torch.zeros(2, 17, 4, 64), kp)
+    assert not port_attn.use_paged_kernel(torch.zeros(2, 1, 66, 64), kp)
     assert not port_attn.use_paged_kernel(torch.zeros(2, 1, 3, 64), kp)
     assert not port_attn.use_paged_kernel(torch.zeros(2, 1, 4, 96),
                                           torch.zeros(4, 8, 2, 96))
@@ -219,8 +221,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="head_dim"):
         ragged_paged_attention(q[..., :48], kp[..., :48], vp[..., :48],
                                tables, sl)
+    # more query heads a kv head than one launch holds (a long window of
+    # queries is split instead)
     with pytest.raises(ValueError, match="query rows"):
-        ragged_paged_attention(torch.zeros(4, 17, 4, 64), kp, vp, tables,
+        ragged_paged_attention(torch.zeros(4, 1, 66, 64), kp, vp, tables,
                                sl)
     with pytest.raises(ValueError, match="seq_lens"):
         ragged_paged_attention(q, kp, vp, tables, sl[:2])
