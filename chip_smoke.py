@@ -89,6 +89,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward, the graph pool, a profiled steady spec tick (its device busy
    share), spec and spec-off ticks in turns, and (in phase 4) the ragged
    kernel's time at the verify's shape beside its bound and SDPA.
+   Then the serving gateway (``[gateway]`` lines), on the same model:
+   (a) ``Gateway`` over two replicas at the defaults with the tick-phase
+   profiler, chunked prefill (128), the prefix cache and a spill arena,
+   on the one model, serves 24 HTTP requests (16 SSE, 8 JSON, 4 sampled;
+   16 share a 512-token prefix; prompts 520-900, 64-128 new), with the
+   counts set to 0 just before and read just after: ragged attention
+   once per layer and tick of both replicas (counted inside the graphs,
+   all on the mma route), each steady graph holding 32 ragged nodes;
+   every stream bit for bit that of a direct engine over the same
+   submissions; the prefix cache hit; client TTFT, tokens/s and the
+   sizes of ``/healthz``, ``/metrics`` and ``/debugz``; (b) the
+   tick-phase split of a steady plain and spec tick (phases summing to
+   the wall in every record, the document valid) and profile on/off in
+   turns; (c) 1 s of ``/profilez`` under load, which must trace ragged
+   kernels; (d) a 128-block pool serving more 512-token prefixes than
+   it holds: an evicted prefix restored from the arena (0 failures, no
+   recapture, the stream bit for bit the warm engine's), its ms beside
+   the cold prefill chunks it saves; (e) ``drain()`` with requests in
+   flight: they finish, a new request gets 503, no slot stays held.
 
 8. the flash backward (phases run beside 3 and 4): the dq and dk/dv
    kernels against their plain version at sq = sk = 2048 (causal, window
@@ -148,8 +167,10 @@ import argparse
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1672,21 +1693,12 @@ def _spec_stub_check(dev, card):
     drafts accepted."""
     import numpy as np
 
-    import importlib.util
-
     from paddle_tpu_torch.generation.paged import PagedEngine
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
         ragged_paged_attention
 
-    # the stub's one definition, in the GPU tests (no JAX there), loaded by
-    # its path: a ``tests`` package installed elsewhere may shadow ours
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "test_torch_spec_gpu.py")
-    spec = importlib.util.spec_from_file_location("test_torch_spec_gpu",
-                                                  path)
-    stubs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(stubs)
-    LookupStub = stubs.LookupStub
+    # the stub's one definition, in the GPU tests (no JAX there)
+    LookupStub = _tests_module("test_torch_spec_gpu").LookupStub
 
     def cyc(n, start):
         return np.asarray([[(start + i) % 7 for i in range(n)]])
@@ -1889,6 +1901,431 @@ def phase_spec(seed, dev, card, model):
     del eng, off
     _spec_stub_check(dev, card)
     log(f"[spec] the phase took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return launches, routes
+
+
+def _tests_module(name):
+    """A module of the repository's ``tests`` directory (no JAX in it),
+    loaded by its path: a ``tests`` package installed elsewhere may
+    shadow ours."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _timed_method(obj, name, sink):
+    """Wrap ``obj.name`` so each call appends its ms to ``sink``, timed
+    between two synchronizes of the card."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        sink.append((a, (time.perf_counter() - t0) * 1e3))
+        return out
+    setattr(obj, name, timed)
+
+
+def _phase_split(eng, ticks, label, card):
+    """The mean tick-phase split of ``eng``'s last ``ticks`` steady
+    ticks (host, h2d, dispatch, device, drain and the wall, ms); fails
+    unless each record's phases sum to its wall and the tickphase/1
+    document validates."""
+    from paddle_tpu_torch.utils import observability as obs
+    doc = eng.tick_profile_doc()
+    bad = obs.validate_tickphase_doc(doc)
+    if bad:
+        fail(f"{label}: the tickphase document is invalid: {bad[:3]}")
+    recs = doc["entries"][-ticks:]
+    for r in recs:
+        gap = abs(sum(r[f"{p}_ms"] for p in obs.TICK_PHASES) - r["wall_ms"])
+        if gap > 1e-3:
+            fail(f"{label}: tick {r['tick']}'s phases miss its wall by "
+                 f"{gap} ms")
+    total = abs(sum(eng.tick_phase_totals.values()) - eng.tick_wall_ms_total)
+    if total > 1e-6 * max(eng.tick_wall_ms_total, 1.0):
+        fail(f"{label}: the phase totals miss the wall total by {total} ms")
+    mean = {k: sum(r[f"{k}_ms"] for r in recs) / len(recs)
+            for k in obs.TICK_PHASES + ("wall",)}
+    log(f"[gateway] (b) {label}: mean of {len(recs)} steady ticks (16 rows "
+        f"from seq_len 256), ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in mean.items())
+        + f"; phases sum to the wall in every record (1e-3 ms), the "
+        f"document validates [{card}]")
+    if not all(r["dispatches"] == 1 for r in recs):
+        fail(f"{label}: a steady profiled tick is not one dispatch")
+    log(f"[gateway] (b) {label}: uploads in those ticks (block growth's "
+        f"patches) {sum(r['uploads'] for r in recs)}, "
+        f"{sum(r['bytes'] for r in recs)} B")
+    return mean
+
+
+def phase_gateway(seed, dev, card, model):
+    """Llama-3-8B served over HTTP/SSE by the port's ``Gateway``: two
+    replicas on the one model (graphed ticks, ring, tick profiler, prefix
+    cache, a spill arena) against a direct engine; the tick-phase split
+    of a plain and a speculative tick; ``/profilez``; the spill tier at
+    full width; the drain. Returns the ragged launches and routes of the
+    gateway's traffic."""
+    import asyncio
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.serving import Gateway, KVSpillArena
+    from paddle_tpu_torch.utils import observability as obs
+    t_phase = time.perf_counter()
+    client = _tests_module("test_torch_gateway_gpu")
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    route = os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged")
+    rs = np.random.RandomState(seed + 30)
+    gen = ptt.make_generator(seed + 31, "cpu")
+
+    def tids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+
+    def ids(n):
+        return tids(n).tolist()
+
+    # the run dir /profilez traces into; removed with its artifacts at
+    # the end of the phase
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_gateway_")
+    obs.configure(run_dir)
+    geo = dict(PAGED, chunk_prefill_tokens=128, enable_prefix_cache=True)
+    prefix = ids(512)
+    reqs = []
+    for i in range(24):
+        n_new = int(rs.randint(64, 129))
+        n_prompt = int(rs.randint(520, min(900, PAGED["max_blocks_per_seq"]
+                                           * PAGED["block_size"] - n_new)
+                                  + 1))
+        prompt = prefix + ids(n_prompt - 512) if i < 16 else ids(n_prompt)
+        r = dict(prompt=prompt, max_new_tokens=n_new, request_id=f"g{i}",
+                 stream=i % 3 != 2)
+        if i % 6 == 3:
+            r.update(temperature=0.8, top_p=0.95, seed=3000 + i)
+        reqs.append(r)
+    arena = KVSpillArena(1 << 30, name="chip-gateway")
+    engines = [PagedEngine(model, tick_profile=True, **geo)
+               for _ in range(2)]
+    # warm-up outside the gateway: each replica's greedy and sampled
+    # tick graphs are captured before it takes traffic
+    for eng in engines:
+        eng.submit("w0", tids(200), max_new_tokens=4)
+        eng.run()
+        eng.submit("w1", tids(200), max_new_tokens=4, temperature=0.8,
+                   seed=1)
+        eng.run()
+        eng.results.clear()
+        eng.logprobs.clear()
+    torch.cuda.synchronize()
+    log(f"[gateway] two replicas PagedEngine({geo}, tick_profile=True) on "
+        f"the one Llama-3-8B (their ticks serialize on the model's lock), "
+        f"a 1 GiB KVSpillArena; graphs {[sorted(e._graphs) for e in engines]}")
+    gw = Gateway(engines, name="chip", spill_arena=arena)
+    ttft = {}
+    steps0 = [e.stats["decode_steps"] for e in engines]
+    out = {}
+
+    async def one(r):
+        t0 = time.perf_counter()
+
+        async def first():
+            ttft[r["request_id"]] = (time.perf_counter() - t0) * 1e3
+        if r["stream"]:
+            st, _, toks, fin = await client.sse(gw.port, r, on_first=first)
+            return st, toks, fin
+        st, _, payload = await client.http(
+            gw.port, "POST", "/v1/generate", json.dumps(r).encode())
+        fin = json.loads(payload)
+        return st, fin.get("tokens"), fin
+
+    async def serve():
+        await gw.start()
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*[one(r) for r in reqs])
+        wall = time.perf_counter() - t0
+        sizes = {}
+        for path in ("/healthz", "/metrics", "/debugz"):
+            st, _, body = await client.http(gw.port, "GET", path)
+            if st != 200:
+                fail(f"gateway {path}: status {st}")
+            sizes[path] = body
+        return res, wall, sizes
+
+    async def profilez():
+        """(c) 1 s of /profilez under load: 8 clients resend the first 8
+        prompts until the capture answers (its start may take seconds:
+        the first torch.profiler session of a process sets up CUPTI)."""
+        stop, done = asyncio.Event(), []
+
+        async def client_loop(k):
+            i = 0
+            while not stop.is_set():
+                done.append(await one(dict(reqs[k], request_id=f"c{k}.{i}",
+                                           stream=True)))
+                i += 1
+        load = [asyncio.ensure_future(client_loop(k)) for k in range(8)]
+        await asyncio.sleep(0.2)
+        st, _, body = await client.http(gw.port, "GET",
+                                        "/profilez?duration_s=1")
+        stop.set()
+        await asyncio.gather(*load)
+        return st, json.loads(body), done
+
+    async def drain():
+        """(e) drain() with 4 requests in flight, a fifth after it."""
+        flights = [asyncio.ensure_future(one(dict(
+            r, request_id=f"e{i}", stream=True, max_new_tokens=64)))
+            for i, r in enumerate(reqs[16:20])]
+        await client.poll(lambda: sum(e.health()["active_slots"]
+                                      for e in engines) >= 4, 30)
+        t0 = time.perf_counter()
+        task = asyncio.ensure_future(gw.drain())
+        await client.poll(lambda: gw.draining, 5)
+        late = await client.sse(gw.port, dict(prompt=reqs[0]["prompt"],
+                                              max_new_tokens=4))
+        done = await asyncio.gather(*flights)
+        await task
+        return done, late, time.perf_counter() - t0
+
+    async def main():
+        read = _reset_launches()
+        res, wall, sizes = await serve()
+        launches = read()
+        ticks = [e.stats["decode_steps"] - s0
+                 for e, s0 in zip(engines, steps0)]
+        routes = _check_routes("gateway (a)", ragged=L * sum(ticks))
+        pz = await profilez()
+        dr = await drain()
+        return res, wall, sizes, launches, ticks, routes, pz, dr
+
+    res, wall, sizes, launches, ticks, routes, pz, dr = asyncio.run(main())
+    # (a) the streams against a direct engine over the same submissions
+    for r, (st, toks, fin) in zip(reqs, res):
+        if st != 200 or fin.get("finish_reason") != "stop":
+            fail(f"gateway (a) {r['request_id']}: status {st}, {fin}")
+        out[r["request_id"]] = (toks, fin["logprobs"])
+    want = dict(NO_LAUNCHES, ragged=L * sum(ticks))
+    log(f"[gateway] (a) launches in the run: {launches} (want {want}: "
+        f"{L} x the {ticks} decode ticks of the two replicas, counted "
+        f"inside the graphs)")
+    if launches != want:
+        fail(f"gateway (a): launches {launches} != {want}")
+    for i, eng in enumerate(engines):
+        names, _ = graph_nodes(eng._graphs[(True, 1, route)].graph)
+        rag = sum("ragged_" in x.lower() for x in names)
+        if rag != L:
+            fail(f"gateway (a): replica r{i}'s steady graph holds {rag} "
+                 f"ragged kernels, not {L}")
+    direct = PagedEngine(model, **geo)
+    for r in reqs:
+        kw = {k: v for k, v in r.items()
+              if k not in ("prompt", "request_id", "stream")}
+        direct.submit(r["request_id"], torch.as_tensor(r["prompt"]), **kw)
+    ref = direct.run()
+    bad = []
+    for r in reqs:
+        rid = r["request_id"]
+        toks, lps = out[rid]
+        if toks != ref[rid] or lps != direct.logprobs[rid]:
+            bad.append(rid)
+            if toks != ref[rid] and "temperature" not in r:
+                i, margin, ga, gb = _divergence(model, r["prompt"], toks,
+                                                ref[rid])
+                log(f"[gateway] (a) stream {rid} first differs from the "
+                    f"direct engine's at token {i} of {len(toks)}: top-2 "
+                    f"margin there {margin:.4f} under a prefill re-score; "
+                    f"the gateway's token {ga:.4f} and the direct "
+                    f"engine's {gb:.4f} below the maximum [{card}]")
+    hits = [e.stats["prefix_hit_tokens"] for e in engines]
+    t = np.array([ttft[r["request_id"]] for r in reqs if r["stream"]])
+    new_tokens = sum(len(out[r["request_id"]][0]) for r in reqs)
+    log(f"[gateway] (a) 24 requests over HTTP (16 SSE, 8 JSON, 4 sampled; "
+        f"16 share a 512-token prefix; prompts 520-900, 64-128 new): "
+        f"{new_tokens} new tokens in {wall:.2f} s, {new_tokens / wall:.1f} "
+        f"new tokens/s; client TTFT (SSE) median {np.median(t):.1f} ms p99 "
+        f"{np.percentile(t, 99):.1f} ms; decode ticks {ticks}; "
+        f"prefix_hit_tokens by replica {hits}; streams bit for bit the "
+        f"direct engine's: {24 - len(bad)} of 24 [{card}]")
+    if bad:
+        fail(f"gateway (a): streams differ from the direct engine's: {bad}")
+    if not max(hits) > 0:
+        fail("gateway (a): the shared prefix never hit a replica's cache")
+    prom = sizes["/metrics"].decode()
+    line = next(ln for ln in prom.splitlines()
+                if ln.startswith("gateway_tokens_total{"))
+    log(f"[gateway] (a) /healthz {len(sizes['/healthz'])} B, /metrics "
+        f"{len(sizes['/metrics'])} B ({len(prom.splitlines())} lines; "
+        f"{line}), /debugz {len(sizes['/debugz'])} B")
+    # (c) /profilez
+    st, body, done = pz
+    if st != 200 or not body.get("traced") or not body.get("trace") \
+            or not os.path.getsize(body["trace"]) > 0:
+        fail(f"gateway (c): /profilez did not trace: {st} {body}")
+    if any(s != 200 or f.get("finish_reason") != "stop"
+           for s, _, f in done):
+        fail("gateway (c): a request under the capture failed")
+    with open(body["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    n_rag = sum("ragged_" in k.lower() for k in kernels)
+    n_launch = sum("cudaGraphLaunch" in e.get("name", "") for e in events)
+    if not n_rag:
+        fail(f"gateway (c): the /profilez trace holds no ragged kernel "
+             f"({len(kernels)} kernels, {n_launch} graph launches)")
+    log(f"[gateway] (c) /profilez?duration_s=1 under 8 SSE clients "
+        f"({len(done)} requests served meanwhile): traced, "
+        f"{os.path.getsize(body['trace'])} B of Chrome trace with "
+        f"{len(kernels)} kernels ({n_rag} ragged; the profiler may drop "
+        f"some of a replayed graph's) and {n_launch} cudaGraphLaunch, "
+        f"{len(body['tickphase_files'])} tickphase files; per replica "
+        + "; ".join(f"{k}: {v['ticks_in_window']} ticks, wall "
+                    f"{v['wall_ms_in_window']} ms, phases "
+                    f"{v['phase_ms_in_window']}"
+                    for k, v in body["replicas"].items())
+        + f" [{card}]")
+    # (e) the drain
+    done, late, drain_s = dr
+    held = [e.health() for e in engines]
+    log(f"[gateway] (e) drain() with 4 requests in flight: they finished "
+        f"{[f.get('finish_reason') for _, _, f in done]}, a request after "
+        f"it got {late[0]}, slots held afterwards "
+        f"{[h['active_slots'] for h in held]}, queued "
+        f"{[h['queued'] for h in held]}; {drain_s:.2f} s, arena "
+        f"{arena.snapshot()['records']} records after the drain's spill")
+    if any(s != 200 or f.get("finish_reason") != "stop" or len(tk) != 64
+           for s, tk, f in done) or late[0] != 503 \
+            or any(h["active_slots"] or h["queued"] for h in held):
+        fail("gateway (e): the drain lost a request, admitted one, or left "
+             "a slot held")
+    for eng in engines:
+        obs.unregister_flusher(eng._flush_tick_profile)
+    del gw, engines
+
+    # (b) the tick-phase split of a steady plain and a steady spec tick
+    on = PagedEngine(model, tick_profile=True, **PAGED)
+    off = PagedEngine(model, **PAGED)
+    _fill(on, tids, 64)
+    for _ in range(16):
+        on.step()
+    torch.cuda.synchronize()
+    _phase_split(on, 16, "plain tick, profile on", card)
+    on.run()
+    tick_ab(on, off, tids, card, "gateway (b) plain",
+            names=("profile-on", "profile-off"))
+    obs.unregister_flusher(on._flush_tick_profile)
+    del on, off
+
+    def pattern_ids(n):
+        pat = tids(64)
+        return pat.repeat(-(-n // 64))[:n]
+
+    son = PagedEngine(model, tick_profile=True, **SPEC, **PAGED)
+    soff = PagedEngine(model, **SPEC, **PAGED)
+    _fill(son, pattern_ids, 5 * 16 + 32)
+    for _ in range(12):
+        son.step()
+    torch.cuda.synchronize()
+    _phase_split(son, 12, "spec tick (k 4), profile on", card)
+    son.run()
+    tick_ab(son, soff, pattern_ids, card, "gateway (b) spec",
+            names=("profile-on", "profile-off"), n_new=5 * 16 + 16)
+    obs.unregister_flusher(son._flush_tick_profile)
+    del son, soff
+
+    # (d) the spill tier at full width: a 128-block pool (2 MiB a block)
+    # serving more prefixes than it holds
+    spill_geo = dict(PAGED, num_blocks=129, chunk_prefill_tokens=128,
+                     enable_prefix_cache=True)
+    sarena = KVSpillArena(1 << 30, name="chip-spill")
+    seng = PagedEngine(model, **spill_geo)
+    seng.attach_spill(sarena)
+    restores, chunks, takes = [], [], []
+    _timed_method(seng, "_restore_span", restores)
+    _timed_method(sarena, "take", takes)
+    _timed_method(seng, "_advance_chunk", chunks)
+    p1 = ids(512)
+    a = p1 + ids(64)
+    a2 = p1 + ids(64)
+    seng.submit("a", torch.as_tensor(a), max_new_tokens=64)
+    # the cold prompt's 5 chunks (4 of the prefix, the 64-token tail)
+    # under torch.profiler: the card's busy time against the chunks' wall
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            seng.step()
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    cold = seng.run()["a"]
+    prefill_ms = sum(ms for _, ms in chunks[:4])   # the prefix's 4 chunks
+    log(f"[gateway] (d) cold prompt of 576 tokens as 5 prefill chunks of "
+        f"128 (each step of a lone request: one chunk, then its first "
+        f"tick): {[round(ms, 2) for _, ms in chunks[:5]]} ms a chunk "
+        f"(synchronized); under the profiler the card was busy "
+        f"{busy:.2f} ms over {len(dev_ev)} device ops in those 5 steps "
+        f"[{card}]")
+    for i in range(4):
+        seng.submit(f"f{i}", torch.as_tensor(ids(512) + ids(64)),
+                    max_new_tokens=64)
+    seng.run()
+    spans = seng.stats["spill_spans"]
+    graphs = dict(seng._graphs)
+    pool_bytes = seng.graph_pool_bytes
+    b0 = seng.h2d_upload_bytes
+    seng.submit("a2", torch.as_tensor(a2), max_new_tokens=64)
+    got = seng.run()["a2"]
+    got_lps = seng.logprobs["a2"]
+    st = seng.stats
+    warm = PagedEngine(model, **geo)
+    warm.submit("a", torch.as_tensor(a), max_new_tokens=64)
+    warm_a = warm.run()["a"]
+    warm.submit("a2", torch.as_tensor(a2), max_new_tokens=64)
+    warm_a2 = warm.run()["a2"]
+    recaptured = seng._graphs.keys() != graphs.keys() or any(
+        seng._graphs[k] is not g for k, g in graphs.items()) \
+        or seng.graph_pool_bytes != pool_bytes
+    rms = sum(ms for _, ms in restores)
+    log(f"[gateway] (d) spill tier: PagedEngine(num_blocks=129, chunk 128, "
+        f"prefix cache) + 1 GiB arena: {spans} spans spilled under the "
+        f"flood; the 512-token prefix restored {st['spill_restores']} "
+        f"time(s) ({st['spill_restored_tokens']} tokens, "
+        f"{st['spill_restore_failures']} failures) in {rms:.2f} ms "
+        f"(of it the arena's take, its crc32 check included, "
+        f"{sum(ms for _, ms in takes):.2f} ms; {len(restores)} restore "
+        f"calls, "
+        f"{(seng.h2d_upload_bytes - b0) / 2 ** 20:.1f} MiB uploaded) "
+        f"against {prefill_ms:.2f} ms for the prefix's 4 prefill chunks "
+        f"cold; graphs recaptured across the restore: {recaptured}; the "
+        f"restored stream equals the warm engine's: {got == warm_a2 and got_lps == warm.logprobs['a2']}; "
+        f"the cold stream the warm engine's: {cold == warm_a} [{card}]")
+    if not spans > 0 or not st["spill_restores"] > 0 \
+            or st["spill_restore_failures"]:
+        fail(f"gateway (d): spill {spans}, restores {st['spill_restores']}, "
+             f"failures {st['spill_restore_failures']}")
+    if got != warm_a2 or got_lps != warm.logprobs["a2"] or cold != warm_a:
+        fail("gateway (d): the restored stream differs from the warm one")
+    if recaptured:
+        fail("gateway (d): a restore recaptured the tick graphs")
+    del seng, warm, direct
+    obs.reset()
+    shutil.rmtree(run_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[gateway] the phase took {time.perf_counter() - t_phase:.1f} s "
         f"[{card}]")
     return launches, routes
 
@@ -3079,7 +3516,8 @@ def main():
     routes = dict(bf16["routes"])
     paged, paged_routes = phase_paged(args.seed, dev, card, model)
     phase_spec(args.seed, dev, card, model)
-    launches["ragged"] = paged["ragged"]
+    gw_launches, _ = phase_gateway(args.seed, dev, card, model)
+    launches["ragged"] = paged["ragged"] + gw_launches["ragged"]
     routes["ragged"] = paged_routes["ragged"]
     pred, int8 = phase_quant_slice(dev, card, model, bf16)
     launches["quant"] = int8["launches"]["quant"]

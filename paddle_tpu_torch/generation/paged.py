@@ -54,24 +54,45 @@ per-tick host path (``fused_tick=False``, the bit-exactness reference).
   the same key, so spec streams equal spec-off streams on the same
   logits, greedy and sampled.
 
-The host-RAM spill tier and the tick-phase profiler
-(``tick_profile=True``) come with a later slice; the latter raises
-``NotImplementedError``.
+- The tick-phase profiler (``tick_profile=True``): each ``step()`` is
+  one window split into host, h2d (uploads), dispatch (the graph
+  replay, or the eager program on the CPU), device (the wait for the
+  device at the drain) and drain (the host read of the outputs), the
+  host being the residual, so the five sum to the wall exactly. Phases
+  land in registry histograms and a bounded ring of per-tick records
+  (the ``tickphase/1`` document). It reads clocks and waits only where
+  the next statement would wait anyway: streams, dispatches and uploads
+  are those of the profiler off.
+- The host-RAM spill tier (``attach_spill``): prefix-cache spans are
+  copied to a :class:`~..serving.kvspill.KVSpillArena` before eviction
+  (and on drain), and a later admission whose prefix the arena holds
+  scatters it back into the pools in place (one dispatch, one upload)
+  instead of prefilling it. Spilled bytes are laid out as the JAX
+  package's: ``(2L, n, B, kvh, d)`` in the pool's dtype.
+
+On a card, engines on distinct models can tick on their own threads
+(the serving gateway's replicas): their steps run together, and a tick
+graph's capture runs alone (``device.card_lock``).
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import itertools
+import json
 import os
+import threading
 import time
 import weakref
+from collections import deque
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..device import card_lock
 from ..ops.attention import dense_attention, use_paged_kernel
-from ..ops.kernels import add_launches, launch_counts, live_workspaces
+from ..ops.kernels import add_launches, capturing_launches, live_workspaces
 from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..utils import observability as obs
@@ -94,6 +115,26 @@ _engine_ids = itertools.count()
 _SPEC_EMA_ALPHA = 0.3
 _SPEC_EMA_FLOOR = 0.25
 _SPEC_PROBE_EVERY = 16
+
+
+
+# the JAX package's dtype names: a spilled span's geometry says them, so
+# spans are laid out and checked as the JAX package's are
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+                torch.float32: "float32"}
+
+
+def _card_work(fn):
+    """An engine method that launches work on its card runs under a share
+    of ``card_lock`` there (a capture or a profiler's start and stop hold
+    it alone)."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        if self.device.type != "cuda":
+            return fn(self, *args, **kwargs)
+        with card_lock.shared():
+            return fn(self, *args, **kwargs)
+    return run
 
 
 class PagedKV(NamedTuple):
@@ -289,6 +330,129 @@ class _Request:
         self.spec_ema = 1.0             # accepted share of drafts (EMA)
 
 
+class _TickPhaseProfile:
+    """Tick-phase accounting: where one scheduler tick's wall time goes.
+
+    - ``h2d``      — uploads of host mirrors and staged patches
+    - ``dispatch`` — the tick program's dispatch: one CUDA-graph replay
+                     call on a card (the launch, not the compute), the
+                     eager program on the CPU
+    - ``device``   — the wait for the device at the drain boundary (the
+                     ring copy's event, or the stream in sync mode): the
+                     program-bound wait the host actually ate
+    - ``drain``    — the host read of the outputs after that wait
+    - ``host``     — the residual: tick wall minus the four bracketed
+                     phases (scheduler bookkeeping, descriptor packing,
+                     stop matching, trace emission)
+
+    The residual construction makes the five phases sum to the tick wall
+    exactly (pinned under an injected clock in the tests).
+
+    Host-side bookkeeping only: phases land in registry histograms
+    (``paged_tick_phase_ms{phase=...}`` on the SERVING_MS_BUCKETS grid)
+    plus a bounded per-tick ring of records (phase times, dispatches,
+    uploads, bytes, fused patches, active slots). Nothing here touches
+    the device beyond a wait the very next statement would make anyway:
+    profile-on streams are bitwise profile-off streams, and the steady
+    tick stays one dispatch and no upload.
+
+    ``clock`` is injectable (tests pin the phase math deterministically
+    the way ``MetricsTimeSeries(clock=...)`` does)."""
+
+    def __init__(self, labels: Dict[str, str], clock=None,
+                 capacity: int = 1024):
+        self.clock = clock if clock is not None else time.perf_counter
+        self.capacity = max(int(capacity), 1)
+        self.ring: deque = deque(maxlen=self.capacity)
+        self.totals = {p: 0.0 for p in obs.TICK_PHASES}
+        self.wall_total_ms = 0.0
+        self.ticks = 0
+        reg = obs.registry()
+        self._hists = {
+            p: reg.histogram("paged_tick_phase_ms",
+                             buckets=obs.SERVING_MS_BUCKETS,
+                             phase=p, **labels)
+            for p in obs.TICK_PHASES}
+        self._h_wall = reg.histogram("paged_tick_wall_ms",
+                                     buckets=obs.SERVING_MS_BUCKETS,
+                                     **labels)
+        self._acc: Optional[Dict[str, float]] = None
+        self._t0 = 0.0
+        self._last: Optional[Dict[str, float]] = None
+
+    def begin(self):
+        """Open a tick window (top of ``PagedEngine.step``)."""
+        self._acc = {p: 0.0 for p in obs.TICK_PHASES if p != "host"}
+        self._t0 = self.clock()
+
+    def add(self, phase: str, dt_ms: float):
+        """Accumulate one bracketed window. Out-of-tick windows (the
+        scoped drains a cancel or expiry runs between steps) feed the
+        totals and histograms but no tick record: there is no tick."""
+        dt_ms = max(float(dt_ms), 0.0)
+        if self._acc is None:
+            self.totals[phase] += dt_ms
+            self._hists[phase].observe(dt_ms)
+            return
+        self._acc[phase] += dt_ms
+
+    def acc(self, phase: str) -> float:
+        """The current tick's accumulated time for ``phase`` (0 outside a
+        tick): lets a caller bracket a compound expression and deduct
+        the child uploads it already counted."""
+        return self._acc.get(phase, 0.0) if self._acc is not None \
+            else 0.0
+
+    def end(self, *, dispatches: int, uploads: int, nbytes: int,
+            patches: int, active: int):
+        """Close the tick: host = wall - bracketed phases (clamped at 0),
+        observe the histograms, append the ring record."""
+        t1 = self.clock()
+        wall = max((t1 - self._t0) * 1e3, 0.0)
+        acc = self._acc or {}
+        self._acc = None
+        host = max(wall - sum(acc.values()), 0.0)
+        phases = dict(acc)
+        phases["host"] = host
+        rec: Dict[str, Any] = {
+            "tick": self.ticks, "t": round(float(t1), 6),
+            "wall_ms": round(wall, 4),
+        }
+        for p in obs.TICK_PHASES:
+            v = phases.get(p, 0.0)
+            rec[f"{p}_ms"] = round(v, 4)
+            self.totals[p] += v
+            self._hists[p].observe(v)
+        rec.update(dispatches=int(dispatches), uploads=int(uploads),
+                   bytes=int(nbytes), patches=int(patches),
+                   active=int(active))
+        self._h_wall.observe(wall)
+        self.wall_total_ms += wall
+        self.ticks += 1
+        self.ring.append(rec)
+        self._last = {k: rec[k] for k in
+                      ("wall_ms",) + tuple(f"{p}_ms"
+                                           for p in obs.TICK_PHASES)}
+
+    def last_phases(self) -> Optional[Dict[str, float]]:
+        """The most recent completed tick's phase split: what a drained
+        tick trace event attaches (the drain commits tokens one dispatch
+        behind)."""
+        return dict(self._last) if self._last is not None else None
+
+    def to_doc(self, engine: str) -> Dict[str, Any]:
+        """The ``tickphase/1`` document (``obs.validate_tickphase_doc``
+        checks it)."""
+        return {"schema": obs.TICKPHASE_SCHEMA, "engine": engine,
+                "dumped_wall": time.time(),
+                "clock_now": float(self.clock()),
+                "capacity": self.capacity, "ticks": self.ticks,
+                "wall_total_ms": round(self.wall_total_ms, 4),
+                "phase_totals_ms": {p: round(v, 4) for p, v
+                                    in self.totals.items()},
+                "entries": list(self.ring)}
+
+
 class _TickGraph(NamedTuple):
     """A captured tick program: the graph, the launches its capture
     counted ({wrapper: (launches, by route)}, added at each replay), and
@@ -314,7 +478,8 @@ class PagedEngine:
     runs K ticks in one program where that cannot change a stream.
     ``spec_tokens=k`` makes every tick speculative (up to k drafts a row
     from ``spec_ngram``-token matches; it takes precedence over K).
-    ``tick_profile=True`` raises ``NotImplementedError``.
+    ``tick_profile=True`` times each tick's phases (``profile_clock``
+    injectable, ``profile_ring_len`` records kept).
 
     On a CUDA card a tick program that fails to capture or replay raises:
     the engine never falls back to an eager tick.
@@ -339,10 +504,6 @@ class PagedEngine:
                  tick_profile: bool = False,
                  profile_clock=None,
                  profile_ring_len: int = 1024):
-        if tick_profile:
-            raise NotImplementedError(
-                "the tick-phase profiler (tick_profile=True) comes with "
-                "slice A2(e) of the port")
         self.model = model
         self.device = model.device
         self.R, self.P, self.B, self.M = (max_slots, num_blocks,
@@ -370,8 +531,15 @@ class PagedEngine:
         self.prefix_caching = bool(enable_prefix_cache)
         self.prefix_cache: Dict[bytes, tuple] = {}   # key -> block ids
         self._prefix_rev: Dict[int, set] = {}        # block -> keys
+        # bumped on every prefix-cache mutation (register, evict,
+        # restore) so a poller can skip an unchanged digest set; never
+        # reset for the engine's lifetime, not even by hard_reset()
+        self.prefix_generation = 0
         self.block_refs: Dict[int, int] = {}         # live owner count
         self.cached_free: Dict[int, None] = {}       # LRU, insertion order
+        # the host-RAM spill tier: a KVSpillArena attached by its owner
+        # (the gateway) through attach_spill(); it outlives the engine
+        self._spill = None
         # --- the device-resident tick ---------------------------------
         # fused_tick=True keeps the tick's state on the device, advanced
         # in place by one program per tick; the host re-sends a row only
@@ -467,7 +635,9 @@ class PagedEngine:
                       "spec_accepted", "full_rebuilds",
                       "delta_patches", "h2d_upload_bytes", "dispatches",
                       "patches_fused", "patch_queue_overflows",
-                      "ring_cursor_rollovers")}
+                      "ring_cursor_rollovers", "spill_spans",
+                      "spill_restores", "spill_restored_tokens",
+                      "spill_restore_failures")}
         self._h_decode = reg.histogram("paged_decode_step_ms",
                                        buckets=obs.SERVING_MS_BUCKETS,
                                        **self._obs_labels)
@@ -503,6 +673,84 @@ class PagedEngine:
         self.ring_drains = 0
         self.ring_blocking_drains = 0
         self.ring_scoped_drains = 0
+        # the tick-phase profiler: off costs one None check a bracket
+        self.tick_profile = bool(tick_profile)
+        self._prof: Optional[_TickPhaseProfile] = None
+        if self.tick_profile:
+            self._prof = _TickPhaseProfile(
+                self._obs_labels, clock=profile_clock,
+                capacity=profile_ring_len)
+            # obs.reset() (the gateway's SIGTERM path) leaves
+            # tickphase_<engine>.json in the run dir
+            obs.register_flusher(self._flush_tick_profile)
+
+    # ------------------------------------------------------ tick profiler
+    @property
+    def tick_phase_totals(self) -> Optional[Dict[str, float]]:
+        """Cumulative per-phase milliseconds (None with the profiler
+        off)."""
+        return dict(self._prof.totals) if self._prof is not None \
+            else None
+
+    @property
+    def tick_wall_ms_total(self) -> float:
+        """Cumulative measured tick wall (ms; 0 with the profiler off):
+        ``sum(tick_phase_totals.values())`` up to per-tick clamping."""
+        return self._prof.wall_total_ms if self._prof is not None \
+            else 0.0
+
+    def tick_profile_doc(self) -> Optional[Dict[str, Any]]:
+        """The ``tickphase/1`` ring document (None, profiler off)."""
+        if self._prof is None:
+            return None
+        return self._prof.to_doc(self._obs_labels["engine"])
+
+    def dump_tick_profile(self, path: str) -> Optional[str]:
+        """Atomic JSON dump of the tick-phase ring (the gateway writes
+        one per replica on drain and on a ``/profilez`` capture). No-op
+        with the profiler off."""
+        doc = self.tick_profile_doc()
+        if doc is None:
+            return None
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+        return path
+
+    def _flush_tick_profile(self) -> Optional[str]:
+        """The reset()-time flush into the configured run dir."""
+        d = obs.run_dir()
+        if d is None or self._prof is None:
+            return None
+        try:
+            return self.dump_tick_profile(os.path.join(
+                d, f"tickphase_{self._obs_labels['engine']}.json"))
+        except Exception:
+            return None
+
+    def _tick_phase_fields(self) -> Optional[Dict[str, float]]:
+        """The phase split attached to tick trace events (the last
+        completed tick's: ring drains commit one dispatch behind)."""
+        return self._prof.last_phases() if self._prof is not None \
+            else None
+
+    def _clock(self):
+        """The profiler's clock, or None with the profiler off."""
+        return self._prof.clock() if self._prof is not None else None
+
+    def _phase(self, phase: str, t0) -> None:
+        """Add the time since ``t0`` (a ``_clock()`` reading) to
+        ``phase``; no-op with the profiler off."""
+        if self._prof is not None:
+            self._prof.add(phase, (self._prof.clock() - t0) * 1e3)
+
+    def _wait_device(self):
+        """Profile-on only, before a blocking read: wait for the engine's
+        stream, so the wait counts as device time and the read as drain
+        (the read would wait for the same work)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _new_pools(self):
         """Fresh pools, host mirrors, seen masks and device tick state
@@ -616,7 +864,10 @@ class PagedEngine:
         self.h2d_upload_bytes += x.nbytes
         self._count("h2d_upload_bytes", x.nbytes)
         self._h_bytes.observe(x.nbytes)
-        return torch.as_tensor(x, device=self.device)
+        tp = self._clock()
+        out = torch.as_tensor(x, device=self.device)
+        self._phase("h2d", tp)
+        return out
 
     def _decode_core(self, tables, lens, last_tokens, reps, active,
                      sampling=None):
@@ -785,8 +1036,10 @@ class PagedEngine:
                 pq[j] = self._pack_descriptor(i)
                 self._key_overrides.discard(i)
             host[-1] = len(rows)
+            tp = self._clock()
             self._pqbuf.copy_(self._pq_host, non_blocking=True)
             self._pq_event = self._record_event()
+            self._phase("h2d", tp)
             nbytes = pq.nbytes + 4
             self.h2d_uploads += 1
             self.h2d_upload_bytes += nbytes
@@ -869,6 +1122,7 @@ class PagedEngine:
                   + self.reps.nbytes + eos.nbytes + rem.nbytes
                   + act.nbytes)
         st = self._st
+        tp = self._clock()
         for name, arr in (("tables", self.block_tables),
                           ("lens", self.seq_lens), ("last", last),
                           ("keys", self.keys.astype(np.int64)),
@@ -900,6 +1154,7 @@ class PagedEngine:
         st["wcur"].zero_()
         self._drained[:] = 0
         self._pqbuf.zero_()
+        self._phase("h2d", tp)
         self.h2d_upload_bytes += nbytes
         self._count("h2d_upload_bytes", nbytes)
         self._h_bytes.observe(nbytes)
@@ -1126,39 +1381,46 @@ class PagedEngine:
         self._graph_links = None
 
     def _capture(self, greedy: bool, K: int, spec: bool) -> "_TickGraph":
-        """This dispatch runs the program eagerly on a side stream, which
-        also warms up what must not happen inside a capture (kernel
-        builds, workspaces, library handles); then the program is
-        captured into a CUDA graph in the engine's private pool. The
-        launches the wrappers counted while capturing did not run: they
-        are taken back and added again at each replay."""
+        """This dispatch runs the program eagerly, which also warms up
+        what must not happen inside a capture (kernel builds,
+        workspaces, library handles); then the program is captured into
+        a CUDA graph in the engine's private pool. The launches the
+        wrappers make while capturing do not run: this thread counts
+        them into the graph's record, added to the wrappers' counters at
+        each replay.
+
+        The warm-up runs on a side stream (on the current stream, the
+        int8 tick's graph gave other streams than its eager program,
+        bit for bit the host tick's with the side stream). Engines may
+        tick on their own threads (the gateway's replicas on distinct
+        models): the capture holds ``card_lock`` alone, so no other
+        engine launches meanwhile (they share the kernels' workspaces),
+        and the side stream first waits for the default stream, where
+        every engine's earlier work was enqueued. The capture itself runs
+        in ``thread_local`` mode: another thread's CUDA calls meanwhile
+        (a profiler's synchronize) do not invalidate it."""
         dev = self.device
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._program(greedy, K, spec)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        before = launch_counts()
-        # the graph's node list is kept for inspection (chip_smoke.py
-        # counts its kernels by name)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            self._program(greedy, K, spec)
-        graph.instantiate()
-        captured = {}
-        for fn, (n, by_route) in before.items():
-            if fn.launches != n:
-                captured[fn] = (fn.launches - n, {
-                    r: k - by_route.get(r, 0)
-                    for r, k in fn.launches_by_route.items()})
-            fn.launches = n
-            fn.launches_by_route.update(by_route)
-        self.graph_pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+        with card_lock.exclusive():
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._program(greedy, K, spec)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            # the graph's node list is kept for inspection (chip_smoke.py
+            # counts its kernels by name)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with capturing_launches() as captured:
+                with torch.cuda.graph(graph, pool=self._graph_pool,
+                                      capture_error_mode="thread_local"):
+                    self._program(greedy, K, spec)
+            graph.instantiate()
+            self.graph_pool_bytes += \
+                torch.cuda.memory_reserved(dev) - reserved
         return _TickGraph(graph, captured, live_workspaces())
 
     def _sample_one(self, logits_row, seen_row, req):
@@ -1212,6 +1474,7 @@ class PagedEngine:
         return nxt[0], lps[0], new_key[0], seen_row, seen_out
 
     # ------------------------------------------------------------- host
+    @_card_work
     def submit(self, request_id, input_ids, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None,
                temperature: float = 0.0, top_k: int = 0,
@@ -1315,6 +1578,9 @@ class PagedEngine:
             b = self.free_blocks.pop()
         elif self.cached_free:
             b = next(iter(self.cached_free))
+            # spill before evict: the dying spans' KV goes to the arena
+            # first, so their digests stay restorable
+            self._spill_evicted(b)
             self._evict_registered(b)
             # the cascade moves co-members (possibly b) to the free list
             # as their registrations die; track b either way
@@ -1346,6 +1612,7 @@ class PagedEngine:
             entry = self.prefix_cache.pop(key, None)
             if entry is not None:
                 self._unhook(key, entry)
+                self.prefix_generation += 1
         self._prefix_rev.pop(b, None)
 
     def _release_block(self, b: int):
@@ -1358,6 +1625,239 @@ class PagedEngine:
             self.cached_free[b] = None
         else:
             self.free_blocks.append(b)
+
+    # ------------------------------------------------ host-RAM spill tier
+    def attach_spill(self, arena):
+        """Attach (or detach with None) a
+        :class:`~..serving.kvspill.KVSpillArena`. Its owner (the gateway
+        worker) calls it at engine construction and after every
+        supervisor rebuild: the arena's spans outlive this engine."""
+        self._spill = arena
+
+    def _spill_geometry(self) -> tuple:
+        """The layout a spilled payload is valid under: (layers, block
+        size, kv heads, head dim, dtype name, chunk). Any skew makes the
+        bytes meaningless: the arena refuses the restore and the request
+        prefills. The dtype is the JAX package's name for it, so both
+        packages lay out and check spans alike."""
+        kp = self.pools[0][0]
+        _, B, kvh, d = kp.shape
+        return (len(self.pools), int(B), int(kvh), int(d),
+                _DTYPE_NAMES[kp.dtype], self.chunk)
+
+    def _spill_fetch(self, entry) -> bytes:
+        """Copy a span's KV to the host: every layer's K and V rows of
+        ``entry``'s blocks, packed as one ``(2L, n, B, kvh, d)`` buffer
+        (layer-major, K before V) of the pool dtype's bytes, the layout
+        ``_restore_span`` reverses. The gather runs on the engine's
+        stream, behind any dispatch still in flight, and a block being
+        spilled is parked: no row of an outstanding dispatch holds it (a
+        block parks when its last owner is released, after that row's
+        entries were drained)."""
+        idx = torch.as_tensor(np.asarray(entry, np.int64),
+                              device=self.device)
+        with torch.inference_mode():
+            stacked = torch.stack([p[idx] for pair in self.pools
+                                   for p in pair])
+            raw = stacked.contiguous().view(torch.uint8).cpu()
+        return raw.numpy().tobytes()
+
+    def _spill_evicted(self, b: int):
+        """Bank every registered span that dies with block ``b`` before
+        ``_evict_registered`` drops it. Failures are the arena's (counted
+        drops): eviction proceeds regardless."""
+        if self._spill is None:
+            return
+        spans = [(key, entry) for key in self._prefix_rev.get(b, ())
+                 for entry in (self.prefix_cache.get(key),)
+                 if entry is not None]
+        if not spans:
+            return
+        # live sub-spans of a dying span ride along: their KV is a
+        # block-prefix of the dying payload, so the arena indexes them
+        # as aliases with no extra copy, which keeps a hot shared prefix
+        # restorable even though only its cold descendants are evicted
+        dying_keys = {k for k, _ in spans}
+        dying_entries = [e for _, e in spans]
+        for key, entry in list(self.prefix_cache.items()):
+            if key in dying_keys:
+                continue
+            if any(len(e) > len(entry) and e[:len(entry)] == entry
+                   for e in dying_entries):
+                spans.append((key, tuple(entry)))
+        n = self._spill.spill(spans, self._spill_fetch,
+                              self._spill_geometry(),
+                              self.prefix_generation)
+        self._count("spill_spans", n)
+
+    def spill_parked(self) -> int:
+        """Bank every live prefix-cache span into the arena (gateway
+        drain or SIGTERM: the pools are about to die, the arena
+        survives). Returns the payload records stored."""
+        if self._spill is None or not self.prefix_cache:
+            return 0
+        spans = list(self.prefix_cache.items())
+        n = self._spill.spill(spans, self._spill_fetch,
+                              self._spill_geometry(),
+                              self.prefix_generation)
+        self._count("spill_spans", n)
+        return n
+
+    def spill_live(self) -> int:
+        """Bank every active slot's computed KV span into the arena
+        (drain migration, crash salvage). For each live request the span
+        is the chunk-grid prefix of ``prompt + generated`` whose KV the
+        pools hold (``seq_lens`` is host-authoritative): what a survivor
+        restores through ``_arena_restore`` instead of prefilling prompt
+        and committed tokens. Whole sub-span chains go in one call, so
+        shorter digests alias the one payload. Returns the payload
+        records stored; a slot that fails is skipped (its stream just
+        prefills again)."""
+        if self._spill is None or not self.prefix_caching:
+            return 0
+        spans = []
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            try:
+                ids = list(req.prompt) + [int(t) for t in req.tokens]
+                n_kv = min(int(self.seq_lens[i]), len(ids))
+                n_full = (n_kv // self.chunk) * self.chunk
+                if n_full <= 0:
+                    continue
+                blocks = tuple(int(b)
+                               for b in req.blocks[:n_full // self.B])
+                if len(blocks) * self.B < n_full:
+                    continue
+                for k, dkey in enumerate(
+                        self._chunk_digests(ids, n_full)):
+                    nb = (k + 1) * self.chunk // self.B
+                    spans.append((dkey, blocks[:nb]))
+            except Exception:
+                continue
+        if not spans:
+            return 0
+        n = self._spill.spill(spans, self._spill_fetch,
+                              self._spill_geometry(),
+                              self.prefix_generation)
+        self._count("spill_spans", n)
+        return n
+
+    @torch.inference_mode()
+    def _spill_upload(self, idx, data):
+        """Scatter a restored span's packed KV ``(2L, npad, B, kvh, d)``
+        into block rows ``idx`` of every layer's pools, in place
+        (``index_copy_`` on the engine's stream, so it lands before the
+        next dispatch): the captured tick graphs read the pools at fixed
+        addresses, and a restore must not cost a capture. Pad rows
+        target the garbage block 0."""
+        for l, (kp, vp) in enumerate(self.pools):
+            kp.index_copy_(0, idx, data[2 * l])
+            vp.index_copy_(0, idx, data[2 * l + 1])
+
+    def _arena_restore(self, ids: List[int]):
+        """Admission-side arena probe: if the arena holds a strictly
+        longer span of ``ids`` than the prefix cache does, upload it into
+        fresh blocks and register it; ``_prefix_lookup`` then adopts it
+        like any warm span (``prefix_hit_tokens`` counts it; the skipped
+        prefill is the win). Every failure (checksum, truncation,
+        geometry skew, no block headroom) is counted and falls through
+        to a plain prefill."""
+        if self._spill is None or not self.prefix_caching:
+            return
+        chain = self._chunk_digests(ids, len(ids) - 1)
+        if not chain:
+            return
+        live = 0
+        for i, d in enumerate(chain):
+            if d in self.prefix_cache:
+                live = i + 1
+        for i in range(len(chain) - 1, live - 1, -1):
+            if self._spill.probe(chain[i]) is None:
+                continue
+            if self._restore_span(chain, i):
+                return
+            # a failed take evicted that record; shorter spans may live
+            # in other records: keep probing down the chain
+
+    def _restore_span(self, chain: List[bytes], i: int) -> bool:
+        """Restore span ``chain[i]`` from the arena: one upload and one
+        scatter (counted as one upload and one dispatch, as the JAX
+        package counts its restore), then the span and its sub-spans
+        registered over the new blocks and parked for adoption."""
+        C = self.chunk
+        n_blocks = (i + 1) * C // self.B
+        if len(self.free_blocks) + len(self.cached_free) < n_blocks:
+            self._count("spill_restore_failures")
+            return False
+        got = self._spill.take(chain[i], self._spill_geometry())
+        if got is None:
+            self._count("spill_restore_failures")
+            return False
+        payload, rec_tokens = got
+        kp = self.pools[0][0]
+        _, B, kvh, d = kp.shape
+        L = len(self.pools)
+        rec_blocks = rec_tokens // B
+        expect = 2 * L * rec_blocks * B * kvh * d * kp.element_size()
+        if len(payload) != expect or rec_blocks < n_blocks:
+            self._count("spill_restore_failures")  # tokens/geometry skew
+            return False
+        blocks: List[int] = []
+        for _ in range(n_blocks):
+            b = self._alloc_block()      # may cascade-spill more spans
+            if b is None:
+                for ob in blocks:
+                    self._release_block(ob)
+                self._count("spill_restore_failures")
+                return False
+            blocks.append(b)
+        # pad to a power of two with the garbage block, as the JAX
+        # package pads its restore program's shapes (the same bytes)
+        npad = 1
+        while npad < n_blocks:
+            npad *= 2
+        idx = np.zeros((npad,), np.int64)          # pad -> garbage block
+        idx[:n_blocks] = blocks
+        data = torch.frombuffer(bytearray(payload), dtype=kp.dtype).view(
+            2 * L, rec_blocks, B, kvh, d)[:, :n_blocks]
+        padded = torch.zeros((2 * L, npad, B, kvh, d), dtype=kp.dtype)
+        padded[:, :n_blocks] = data
+        nbytes = padded.numel() * padded.element_size()
+        self.dispatch_count += 1
+        self._count("dispatches")
+        self.h2d_uploads += 1
+        self.h2d_upload_bytes += nbytes
+        self._count("h2d_upload_bytes", nbytes)
+        self._h_bytes.observe(nbytes)
+        # a copy from pageable host memory returns once the source was
+        # read, so ``padded`` may die after it
+        self._spill_upload(torch.as_tensor(idx, device=self.device),
+                           padded.to(self.device))
+        # register every sub-span over the restored blocks (as
+        # _register_prefix does), then park them: the caller's
+        # _prefix_lookup adopts them
+        for j in range(i + 1):
+            key = chain[j]
+            entry = tuple(blocks[:(j + 1) * C // self.B])
+            old = self.prefix_cache.get(key)
+            if old == entry:
+                continue
+            if old is not None:
+                self._unhook(key, old)
+            self.prefix_cache[key] = entry
+            self.prefix_generation += 1
+            for b in entry:
+                self._prefix_rev.setdefault(b, set()).add(key)
+        for b in blocks:
+            self._release_block(b)       # registered: parks in cached_free
+        tokens = (i + 1) * C
+        self._count("spill_restores")
+        self._count("spill_restored_tokens", tokens)
+        obs.record_event("kv_spill_restore",
+                         engine=self._obs_labels["engine"],
+                         tokens=tokens, blocks=n_blocks)
+        return True
 
     def _chunk_digests(self, ids: List[int], max_tokens: int):
         """SHA-256 chain digest per chunk-grid prefix span (digest_k =
@@ -1399,14 +1899,21 @@ class PagedEngine:
 
     def has_prefix(self, digest: str) -> bool:
         """True when ``digest`` (hex) has live blocks in the prefix
-        cache: the router's "is this replica warm" probe."""
+        cache: the router's "is this replica warm" probe. An attached
+        spill arena extends the warm tier: a span restorable from host
+        RAM costs one upload, not a prefill, so a rebuilt replica
+        advertises (and receives) its spilled prefixes at once, and the
+        routing pulls the restore through ``_arena_restore``."""
         if not self.prefix_caching or not digest:
             return False
         try:
             raw = bytes.fromhex(digest)
         except ValueError:
             return False
-        return raw in self.prefix_cache
+        if raw in self.prefix_cache:
+            return True
+        return (self._spill is not None
+                and self._spill.probe(raw) is not None)
 
     def _prefix_lookup(self, ids: List[int]):
         """Longest chunk-grid prefix of ``ids`` with a live entry, capped
@@ -1437,6 +1944,7 @@ class PagedEngine:
             if old is not None:  # last writer wins
                 self._unhook(key, old)
             self.prefix_cache[key] = entry
+            self.prefix_generation += 1
             for b in entry:
                 self._prefix_rev.setdefault(b, set()).add(key)
 
@@ -1462,6 +1970,10 @@ class PagedEngine:
         except ValueError:
             return False
         ids = req.prompt
+        if self._spill is not None:
+            # warm-miss probe of the host spill tier: a restored span
+            # registers itself and the lookup below adopts it
+            self._arena_restore(ids)
         cached, adopted = self._prefix_lookup(ids)
         need = self._blocks_needed(len(ids) + 1)
         fresh = need - len(adopted)
@@ -1724,6 +2236,7 @@ class PagedEngine:
                         and now > s.deadline:
                     self._abort(s, "timeout", slot_id=i)
 
+    @_card_work
     def cancel(self, request_id) -> bool:
         """Abort a queued or running request (client disconnect). Its
         blocks and slot free at once; no result is recorded. False if
@@ -1767,9 +2280,119 @@ class PagedEngine:
             free_blocks=len(self.free_blocks),
             cached_free_blocks=len(self.cached_free),
             total_blocks=self.P - 1,
+            spill_attached=self._spill is not None,
             results_pending=len(self.results),
             aborted=len(self.cancelled))
         return snap
+
+    def debug_snapshot(self, max_digests: int = 32) -> Dict[str, Any]:
+        """Live engine introspection for the gateway's ``/debugz``: the
+        slot map, block-pool occupancy (``live`` = blocks owned by
+        running requests; ``fragmentation_frac`` = the share of the pool
+        parked in prefix-cache entries, reusable only through eviction),
+        the prefix-cache digests the router probes, the queued request
+        ids, and the spill, speculation, ring, transition and tick-phase
+        accounting. Read from another thread without stopping the tick
+        thread: every field is O(1)/O(R) host bookkeeping, and a torn
+        snapshot costs debug fidelity, never correctness."""
+        now = time.monotonic()
+        slots: List[Optional[Dict[str, Any]]] = []
+        for i, s in enumerate(list(self.slots)):
+            if s is None:
+                slots.append(None)
+                continue
+            slots.append({
+                "request_id": str(s.request_id),
+                "seq_len": int(self.seq_lens[i]),
+                "prompt_tokens": len(s.prompt),
+                "prefill_pos": s.prefill_pos,
+                "emitted": len(s.prefix) + len(s.tokens),
+                "remaining_budget": max(s.max_new - len(s.tokens), 0),
+                "blocks": len(s.blocks),
+                "spec_ema": round(float(s.spec_ema), 4),
+                "deadline_in_s": round(s.deadline - now, 3)
+                if s.deadline is not None else None,
+            })
+        total = self.P - 1               # block 0 is the garbage block
+        free = len(self.free_blocks)
+        parked = len(self.cached_free)
+        live = max(total - free - parked, 0)
+        try:
+            digests = [k.hex() for k in
+                       list(self.prefix_cache)[:max_digests]]
+            n_entries = len(self.prefix_cache)
+        except RuntimeError:             # resized mid-iteration
+            digests, n_entries = [], -1
+        try:
+            # the tick thread mutates _delta_rows; a resize mid-iteration
+            # costs this field, never the whole snapshot
+            pending = sorted(self._delta_rows)
+        except RuntimeError:
+            pending = []
+        return {
+            "slots": slots,
+            "block_pool": {
+                "total": total, "free": free, "cached_free": parked,
+                "live": live,
+                "occupancy_frac": round(live / max(total, 1), 4),
+                "free_frac": round((free + parked) / max(total, 1), 4),
+                "fragmentation_frac": round(parked / max(total, 1), 4),
+            },
+            "prefix_cache": {"entries": n_entries, "digests": digests,
+                             "generation": self.prefix_generation},
+            "spill": {
+                "attached": self._spill is not None,
+                "restores": int(
+                    self._counters["spill_restores"].value),
+                "restored_tokens": int(
+                    self._counters["spill_restored_tokens"].value),
+                "restore_failures": int(
+                    self._counters["spill_restore_failures"].value),
+                "spilled_spans": int(
+                    self._counters["spill_spans"].value),
+            },
+            "queued": [str(r.request_id)
+                       for r in list(self.queue)[:max_digests]],
+            "spec": {"enabled": bool(self._spec_k), "k": self._spec_k,
+                     "ngram": self._spec_ngram if self._spec_k else 0},
+            "ring": {"enabled": self._ring, "ring_len": self._ring_len,
+                     "outstanding": self._pending is not None,
+                     "drains": self.ring_drains,
+                     "blocking_drains": self.ring_blocking_drains,
+                     "scoped_drains": self.ring_scoped_drains,
+                     "d2h_syncs": self.d2h_syncs},
+            # how slot churn is paid for: one-row patches against full
+            # rebuilds, and the upload bytes either way
+            "transitions": {
+                "delta_enabled": self._delta,
+                "patch_fuse_enabled": self._fuse_patches,
+                "patch_queue_len": self._pq_len,
+                "full_rebuilds": self.full_rebuilds,
+                "delta_patches": self.delta_patches,
+                "patches_fused": self.patches_fused,
+                "patch_queue_overflows": self.patch_queue_overflows,
+                "ring_cursor_rollovers": self.ring_cursor_rollovers,
+                "pending_patch_rows": pending,
+                "h2d_uploads": self.h2d_uploads,
+                "h2d_upload_bytes": self.h2d_upload_bytes,
+                "dispatches": self.dispatch_count,
+                "dispatches_per_tick": round(
+                    self.dispatch_count
+                    / max(int(self._counters["decode_steps"].value), 1),
+                    4),
+            },
+            # where the last tick's wall time went, and the totals, with
+            # tick_profile on
+            "tick_profile": {
+                "enabled": self._prof is not None,
+                "ticks": self._prof.ticks,
+                "wall_total_ms": round(self._prof.wall_total_ms, 3),
+                "phase_totals_ms": {
+                    p: round(v, 3)
+                    for p, v in self._prof.totals.items()},
+                "last_tick": self._prof.last_phases(),
+            } if self._prof is not None else {"enabled": False},
+        }
 
     # ------------------------------------------------- fault tolerance
     def export_resumable(self) -> Dict[Any, Dict[str, Any]]:
@@ -1819,6 +2442,9 @@ class PagedEngine:
         self.results = {}
         self.logprobs = {}
         self.cancelled = {}
+        if self.prefix_cache:
+            # the cache set changed (to empty): a poller must notice
+            self.prefix_generation += 1
         self.prefix_cache = {}
         self._prefix_rev = {}
         self.block_refs = {}
@@ -1849,12 +2475,34 @@ class PagedEngine:
                 self._abort(self.slots[i], "cancelled", slot_id=i)
 
     # ------------------------------------------------------------ ticks
+    @_card_work
     def step(self):
         """One scheduler tick: drain the previous ring dispatch (its tokens
         land here, one step behind the device), expire overdue requests,
         admit every queued request that fits, advance one prefill chunk
         per prefilling slot, then one decode for all prefill-complete
-        slots (in ring mode a dispatch with no readback)."""
+        slots (in ring mode a dispatch with no readback).
+
+        With ``tick_profile`` on, the whole tick is one profiler window:
+        the bracketed h2d, dispatch, device and drain time plus the host
+        residual land in the per-tick ring and the phase histograms."""
+        prof = self._prof
+        if prof is None:
+            return self._step_inner()
+        prof.begin()
+        d0, u0 = self.dispatch_count, self.h2d_uploads
+        b0, p0 = self.h2d_upload_bytes, self.patches_fused
+        try:
+            return self._step_inner()
+        finally:
+            prof.end(
+                dispatches=self.dispatch_count - d0,
+                uploads=self.h2d_uploads - u0,
+                nbytes=self.h2d_upload_bytes - b0,
+                patches=self.patches_fused - p0,
+                active=sum(1 for s in self.slots if s is not None))
+
+    def _step_inner(self):
         self._drain_pending()
         self._expire()
         while self._try_admit():
@@ -1898,13 +2546,18 @@ class PagedEngine:
         if ev is not None and not ev.query():
             self.ring_blocking_drains += 1
             self.d2h_syncs += 1
+        tp = self._clock()
         t0 = time.perf_counter()
         if ev is not None:
             ev.synchronize()
         # in ring mode the drain's wait is the program-bound time the
         # host sees: the decode-step histogram's window
         self._h_decode.observe((time.perf_counter() - t0) * 1e3)
-        return {k: v.numpy() for k, v in self._ring_host.items()}
+        self._phase("device", tp)
+        tr = self._clock()
+        out = {k: v.numpy() for k, v in self._ring_host.items()}
+        self._phase("drain", tr)
+        return out
 
     def _drain_pending(self):
         """Consume the outstanding ring dispatch: the ring entries
@@ -1969,6 +2622,11 @@ class PagedEngine:
             ev = dict(n=appended, ring_lag=lag)
             if self._spec_k:
                 ev.update(proposed=kp, accepted=ma)
+            ph = self._tick_phase_fields()
+            if ph is not None:
+                # the last completed tick's split: the one whose tokens
+                # this drain commits
+                ev["phase"] = ph
             self.trace_sink(slot.request_id, "tick", **ev)
         if finished or not bool(act_i):
             self._finish(i)     # host stop, or the device's eos/budget
@@ -2033,7 +2691,7 @@ class PagedEngine:
         for all slots, read back the tokens, and run stop/eos/budget
         bookkeeping in Python."""
         t_decode = time.perf_counter()
-        last = np.zeros((self.R,), np.int64)
+        last = np.zeros((self.R,), np.int32)   # the JAX package's dtype
         for i in active:
             last[i] = self.slots[i].tokens[-1]
         act_mask = np.zeros((self.R,), bool)
@@ -2042,6 +2700,12 @@ class PagedEngine:
         self._count("dispatches")
         self.d2h_syncs += 1
         greedy = bool(np.all(self.temps[active] <= 0.0))
+        # the model call interleaves _up uploads with the dispatch: the
+        # h2d time _up counted is deducted from the dispatch's
+        prof = self._prof
+        if prof is not None:
+            tp = prof.clock()
+            h0 = prof.acc("h2d")
         with torch.inference_mode():
             if greedy:
                 # all-greedy tick: no filtering, no noise, no key read-back
@@ -2056,8 +2720,16 @@ class PagedEngine:
                               self._up(self.temps), self._up(self.top_ks),
                               self._up(self.top_ps)))
                 self.keys = new_keys.cpu().numpy().astype(np.uint32)
+        if prof is not None:
+            prof.add("dispatch", (prof.clock() - tp) * 1e3
+                     - (prof.acc("h2d") - h0))
+            tp = prof.clock()
+            self._wait_device()
+            self._phase("device", tp)
+        tr = self._clock()
         nxt = nxt.cpu().numpy()
         lps = lps.cpu().numpy()
+        self._phase("drain", tr)
         # the read-back synced the device: this is the tick's real latency
         self._h_decode.observe((time.perf_counter() - t_decode) * 1e3)
         self._count("decode_steps")
@@ -2095,7 +2767,9 @@ class PagedEngine:
         self.dispatch_count += 1
         self._count("dispatches")
         greedy = bool(np.all(self.temps[active] <= 0.0))
+        tp = self._clock()
         self._dispatch(greedy, K, spec)
+        self._phase("dispatch", tp)
         if not greedy:
             self._dev_keys_dirty = True
         self._count("decode_steps", K)
@@ -2106,9 +2780,15 @@ class PagedEngine:
         self.d2h_syncs += 1
         if spec:
             return self._read_spec(active, t_decode)
+        tp = self._clock()
+        if tp is not None:
+            self._wait_device()
+        self._phase("device", tp)
+        tr = self._clock()
         nxt = self._out_nxt[:K].cpu().numpy()
         lps = self._out_lps[:K].cpu().numpy()
         done = self._out_done[:K].cpu().numpy()
+        self._phase("drain", tr)
         self._h_decode.observe((time.perf_counter() - t_decode) * 1e3)
         sink = self.trace_sink
         for i in active:
@@ -2151,7 +2831,13 @@ class PagedEngine:
         appends, the stop check inside the window (a stop mid-window
         finishes the request; tokens past it die with the slot), the
         device's finish flag."""
+        tp = self._clock()
+        if tp is not None:
+            self._wait_device()
+        self._phase("device", tp)
+        tr = self._clock()
         out = {k: v.cpu().numpy() for k, v in self._out_spec.items()}
+        self._phase("drain", tr)
         self._h_decode.observe((time.perf_counter() - t_decode) * 1e3)
         self._count_drafts(int(out["kprop"][active].sum()),
                            int(out["macc"][active].sum()))

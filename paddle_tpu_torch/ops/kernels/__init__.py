@@ -10,9 +10,16 @@ The tensor's device decides the route, and nothing else does:
 
 There is no environment flag that sends CUDA tensors to the plain
 version, and no fallback when a kernel fails: the wrapper raises.
+
+Each wrapper counts its launches through :func:`count_launch`. A thread
+inside :func:`capturing_launches` (a CUDA-graph capture: the launches do
+not run) counts into its own record instead, so a capture on one thread
+never takes back or absorbs the launches another thread makes meanwhile.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Dict, Tuple
 
 import torch
@@ -65,36 +72,46 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def counted_wrappers():
-    """Every kernel wrapper, each counting its launches in ``launches``
-    and ``launches_by_route``."""
-    from .decode_attention import decode_attention_fwd
-    from .flash_attention import (flash_attention_bwd_dkv,
-                                  flash_attention_bwd_dq,
-                                  flash_attention_fwd)
-    from .paged_attention import paged_attention
-    from .quant_matmul import quant_matmul
-    from .ragged_paged_attention import ragged_paged_attention
-    return (flash_attention_fwd, flash_attention_bwd_dq,
-            flash_attention_bwd_dkv, decode_attention_fwd,
-            ragged_paged_attention, paged_attention, quant_matmul)
+_count_lock = threading.Lock()
+_capture = threading.local()
 
 
-def launch_counts() -> Dict[Any, Tuple[int, Dict[str, int]]]:
-    """{wrapper: (launches, launches by route)}, a snapshot."""
-    return {fn: (fn.launches, dict(fn.launches_by_route))
-            for fn in counted_wrappers()}
+def count_launch(fn, route: str) -> None:
+    """One launch of wrapper ``fn`` on ``route``: into the wrapper's
+    counters, or into this thread's capture record while it captures."""
+    rec = getattr(_capture, "record", None)
+    if rec is not None:
+        n, by_route = rec.get(fn, (0, {}))
+        by_route[route] = by_route.get(route, 0) + 1
+        rec[fn] = (n + 1, by_route)
+        return
+    add_launches({fn: (1, {route: 1})})
+
+
+@contextlib.contextmanager
+def capturing_launches():
+    """Count this thread's launches into the yielded record
+    ({wrapper: (launches, by route)}) instead of the wrappers'
+    counters, for the extent of the block."""
+    record: Dict[Any, Tuple[int, Dict[str, int]]] = {}
+    prev = getattr(_capture, "record", None)
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = prev
 
 
 def add_launches(counts) -> None:
     """Add {wrapper: (launches, by route)} to the wrappers' counters (a
     CUDA graph's replay launches what its capture counted, without
     calling the wrappers)."""
-    for fn, (n, by_route) in counts.items():
-        fn.launches += n
-        for route, k in by_route.items():
-            fn.launches_by_route[route] = \
-                fn.launches_by_route.get(route, 0) + k
+    with _count_lock:
+        for fn, (n, by_route) in counts.items():
+            fn.launches += n
+            for route, k in by_route.items():
+                fn.launches_by_route[route] = \
+                    fn.launches_by_route.get(route, 0) + k
 
 
 def live_workspaces():

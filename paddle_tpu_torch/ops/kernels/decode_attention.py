@@ -51,7 +51,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build, check_layout, sm_count, stream_of, use_kernel
+from . import (_build, check_layout, count_launch, sm_count, stream_of,
+               use_kernel)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -178,8 +179,7 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
             0 if window is None else int(window), splits, DTYPES[q.dtype],
             stream_of(q))
     _build.check("decode_attention", rc)
-    decode_attention_fwd.launches += 1
-    decode_attention_fwd.launches_by_route[route] += 1
+    count_launch(decode_attention_fwd, route)
     return out
 
 

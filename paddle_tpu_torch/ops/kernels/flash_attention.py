@@ -91,7 +91,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, check_layout, stream_of, use_kernel
+from . import _build, check_layout, count_launch, stream_of, use_kernel
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -163,8 +163,7 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def _count(fn, route):
-    fn.launches += 1
-    fn.launches_by_route[route] += 1
+    count_launch(fn, route)
 
 
 def _reset_counts(fn):

@@ -59,7 +59,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, check_layout, sm_count, stream_of, use_kernel
+from . import (_build, check_layout, count_launch, sm_count, stream_of,
+               use_kernel)
 from .ragged_paged_attention import (DTYPES, HEAD_DIMS,
                                      ragged_paged_attention_plain,
                                      ragged_route)
@@ -200,8 +201,7 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
              else None)
     out = _launch(route, q, kp, vp, block_tables, seq_lens, scale, window,
                   split)
-    paged_attention.launches += 1
-    paged_attention.launches_by_route[route] += 1
+    count_launch(paged_attention, route)
     return out
 
 

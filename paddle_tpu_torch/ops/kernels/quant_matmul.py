@@ -58,7 +58,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import _build, check_layout, sm_count, stream_of, use_kernel
+from . import (_build, check_layout, count_launch, sm_count, stream_of,
+               use_kernel)
 
 QUANT_BLOCK = 128   # code rows per scale (quantize_blockwise block_size)
 MAX_ROWS = 64       # the gate's largest m
@@ -219,8 +220,7 @@ def quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
                 out.data_ptr(), partial.data_ptr(), m, din, dout, bits,
                 row_chunk(m), splits, DTYPES[x.dtype], stream_of(x))
     _build.check("quant_matmul", rc)
-    quant_matmul.launches += 1
-    quant_matmul.launches_by_route[route] += 1
+    count_launch(quant_matmul, route)
     return out
 
 

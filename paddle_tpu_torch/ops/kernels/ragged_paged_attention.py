@@ -60,7 +60,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build, check_layout, sm_count, stream_of, use_kernel
+from . import (_build, check_layout, count_launch, sm_count, stream_of,
+               use_kernel)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -301,8 +302,7 @@ def ragged_paged_attention(q: torch.Tensor, kp: torch.Tensor,
              if route == "mma" else 0)
     out = _launch(route, q, kp, vp, block_tables, seq_lens, scale, window,
                   chunk)
-    ragged_paged_attention.launches += 1
-    ragged_paged_attention.launches_by_route[route] += 1
+    count_launch(ragged_paged_attention, route)
     return out
 
 

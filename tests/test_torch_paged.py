@@ -320,9 +320,10 @@ def test_later_slice_modes_raise(pair):
     assert PagedEngine(tm, **dict(BASE, fused_tick=True, spec_tokens=2))._spec_k == 2
     with pytest.raises(ValueError, match="fused_tick"):
         PagedEngine(tm, fused_tick=False, spec_tokens=2)
+    # the tick-phase profiler is ported too: it constructs in both modes
     for fused in (True, False):
-        with pytest.raises(NotImplementedError, match="A2\\(e\\)"):
-            PagedEngine(tm, fused_tick=fused, tick_profile=True)
+        eng = PagedEngine(tm, fused_tick=fused, tick_profile=True)
+        assert eng.tick_profile_doc()["ticks"] == 0
     with pytest.raises(ValueError, match="chunk_prefill_tokens"):
         PagedEngine(tm, fused_tick=False, enable_prefix_cache=True)
     # the device-resident tick (the default) and its modes construct
