@@ -15,7 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, in bf16, at the shapes of the Llama-3-8B serving path, with the
    tolerance stated below; the decode kernel at cache indices on the
    edges of its T splits, with and without a window, in bf16, fp16 and
-   fp32, each call repeated bit for bit; the ragged paged kernel in bf16
+   fp32, each call repeated bit for bit, at a device ``cache_index`` (one
+   for all rows and one a row) bit for bit the host-int launch, and
+   replayed from a CUDA graph after the index changed in place; the
+   ragged paged kernel in bf16
    (mma) and fp32 (simt), with 1, 2 and 4 queries per row, with a window
    and with one long row among short ones, each call on its route by
    count and repeated bit for bit, and replayed from a CUDA graph after
@@ -46,10 +49,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    is set to 0 just before this run and read just after: flash attention
    must run once per layer (32), all on the wgmma route, decode
    attention once per layer and decode step (32 x 127), all on the mma
-   route. A second greedy call must give the same tokens, and one seeded
-   sampled call must give valid ids. Last,
-   torch.profiler splits one decode step's device time by kernel kind
-   and gives the device's busy share of the step;
+   route. Each decode step is one replay of the step captured into a
+   CUDA graph (its cache index read on the device), whose nodes must
+   hold 32 decode kernels; the counts are those nodes times the
+   replays. A second greedy call must give the same tokens, and the
+   greedy and a seeded sampled stream must be bit for bit the
+   uncaptured step's (timed beside it). Last, torch.profiler splits one
+   decode step's device time by kernel kind and gives the device's busy
+   share of the step, beside the graph's pool;
 7. the paged slice, on the same model: ``PagedEngine(model, **PAGED)`` at
    its defaults (the device-resident tick, each tick program captured
    once into a CUDA graph and replayed, ring mode, delta transitions, the
@@ -109,6 +116,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    the cold prefill chunks it saves; (e) ``drain()`` with requests in
    flight: they finish, a new request gets 503, no slot stays held.
 
+   Then the rest of ``generate()`` (``[family]`` lines), on the same
+   model, each sub-run with the counts set to 0 just before it and read
+   just after: (a) beam search, b 2 x 4 beams (decode at 8 rows), 64
+   new, length_penalty 1.2: flash 32, decode 32 x 63 from a graph of 32
+   decode nodes, bit for bit its uncaptured run; (b)
+   ``ngram_speculative_generate`` on 4 rows repeating a 64-token pattern
+   (512 tokens), k 4, ngram 2, 128 new, greedy (each stream within
+   ``TOL_TEACHER`` of its re-scored maxima; the verify takes the masked
+   cache path, so flash 32 and nothing else) and sampled (bit for bit
+   its uncaptured run); (c) ``speculative_generate`` with a draft at
+   Llama-3.2-1B's published widths (random weights from the seed), on
+   the same prompts, 64 new (cut from 128 for the script's time):
+   flash 32 + 16, decode 16 x 5 an iteration at per-row device indices,
+   greedy streams within ``TOL_TEACHER``; target forwards and tokens per
+   forward printed; (d) ``BatchingPredictor`` over
+   ``Predictor.generate``: 16 concurrent submits, every answer bit for
+   bit its row of the same batch through ``Predictor.generate``, the
+   batches and the queue-wait histogram printed; (e) an HF checkpoint
+   (Llama-3-8B widths cut to 2 layers, bf16, two shards and an index,
+   written from the seed without the ``safetensors`` package) through
+   ``from_pretrained``: every parameter bit for bit
+   ``load_jax_state_dict``'s on the same arrays.
+
 8. the flash backward (phases run beside 3 and 4): the dq and dk/dv
    kernels against their plain version at sq = sk = 2048 (causal, window
    256, packed segments, non-causal; d 128 and 64; bf16 and fp32; bits
@@ -142,8 +172,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    small fp32 Llama quantized to int8 and int4 through ``Predictor``, the
    card against the CPU. Then phase 6's model quantized in place by
    ``Predictor(model, Config().enable_weight_only_quant(8))``: the same
-   ``generate`` with quant 7 x 32 x 127 (all on the mma route), flash 32
-   and decode 32 x 127 launches and its numbers next to bf16's;
+   ``generate`` (graphed as in phase 6, its graph holding 224 quant
+   nodes) with quant 7 x 32 x 127 (all on the mma route), flash 32 and
+   decode 32 x 127 launches and its numbers next to bf16's;
    ``PagedEngine`` on it at its defaults (graphed ticks) under
    ``PADDLE_TPU_PAGED_ATTN=grid`` (grid once per layer and tick, all on
    the mma route, quant once per projection and tick or short prefill,
@@ -172,6 +203,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import torch
 
@@ -474,20 +506,20 @@ def _decode_splits_at(q, ck, cv, ci, splits):
     """The decode kernel of the main path's route with ``splits`` blocks
     along T instead of the rule's, for the split-count line only (outside
     every counted run)."""
-    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import _build, workspace
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     b, h, d = q.shape
     T, kv = ck.shape[1], ck.shape[2]
-    work, arrivals = da._scratch_for(q.device, b * kv * splits * (h // kv)
-                                     * (d + 2), b * kv)
+    work, arrivals = workspace("decode_attention", q.device,
+                               b * kv * splits * (h // kv) * (d + 2), b * kv)
     out = torch.empty_like(q)
     fn = _build.entry("decode_attention",
                       f"decode_attention_fwd_{da.decode_route(q.dtype)}",
                       da._ARGTYPES)
     _build.check("decode_attention", fn(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), out.data_ptr(),
-        work.data_ptr(), arrivals.data_ptr(), b, T, h, kv, d, ci, d ** -0.5,
-        0, splits, da.DTYPES[q.dtype],
+        work.data_ptr(), arrivals.data_ptr(), b, T, h, kv, d, ci, None, 0,
+        d ** -0.5, 0, splits, da.DTYPES[q.dtype],
         torch.cuda.current_stream().cuda_stream))
     return out
 
@@ -662,12 +694,56 @@ def decode_edges(T, b, kv):
                     (2 * c - 1, 5), (T - 1, None), (T - 1, 128)]
 
 
+def decode_rows_check(q, ck, cv, rows, window, tol, label):
+    """The decode kernel at a device ``cache_index`` of one index a row,
+    the rows' indices distinct (``rows``): against its plain version on
+    the same tensor within ``tol``, and each row bit for bit that row of
+    the host-int launch at its own index (a kernel reading another row's
+    index fails here). Then a CUDA graph of the launch, replayed after the
+    indices changed in place (reversed), the same. Returns the error."""
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_fwd_plain)
+    ci = torch.tensor(rows, dtype=torch.int32, device=q.device)
+    out = decode_attention_fwd(q, ck, cv, ci, window=window)
+    torch.cuda.synchronize()
+    err = max_err(out, decode_attention_fwd_plain(q, ck, cv, ci,
+                                                  window=window))
+    if not err <= tol:
+        fail(f"decode kernel at per-row indices {rows} window {window} "
+             f"disagrees with its plain version ({label}): {err:.3e}")
+
+    def by_row(got, idx):
+        for i, r in enumerate(idx):
+            if not torch.equal(got[i], decode_attention_fwd(
+                    q, ck, cv, r, window=window)[i]):
+                fail(f"decode kernel at per-row indices {idx} window "
+                     f"{window}: row {i} differs from the host-int launch "
+                     f"at {r} ({label})")
+    by_row(out, rows)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = decode_attention_fwd(q, ck, cv, ci, window=window)
+    ci.copy_(torch.tensor(rows[::-1], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    by_row(g_out, rows[::-1])
+    del graph
+    return err
+
+
 def phase_decode_checks(gen, dev):
     """The decode kernels (split along T; mma for bf16 and fp16, simt for
     fp32) against their plain version at the slice's shape (q [4,32,128],
     cache [4,640,8,128]) at cache indices on the edges of the splits, with
-    and without a window; each call made twice must give the same bits.
-    Returns the bf16 error at the last position."""
+    and without a window; each call made twice must give the same bits,
+    and so must the call at a device ``cache_index`` (one int32 for all
+    rows, and one a row), bit for bit the host-int launch. Distinct
+    indices a row (:func:`decode_rows_check`) against the plain version
+    and row by row against the host-int launch, also at the draft
+    model's shape (d 64). Then a CUDA graph of the device-index launch,
+    replayed after the index changed in place, must give the host-int
+    launch's bits at each new index. Returns the bf16 error at the last
+    position."""
     from paddle_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_fwd, decode_attention_fwd_plain, decode_route)
     b, T, h, kv, d = 4, 640, 32, 8, 128
@@ -692,13 +768,65 @@ def phase_decode_checks(gen, dev):
             if not torch.equal(out, again):
                 fail(f"decode kernel does not repeat at cache_index {ci} "
                      f"window {window} ({dtype})")
+            for dev_ci in (torch.tensor(ci, dtype=torch.int32, device=dev),
+                           torch.full((b,), ci, dtype=torch.int32,
+                                      device=dev)):
+                at_dev = decode_attention_fwd(q, ck, cv, dev_ci,
+                                              window=window)
+                if not torch.equal(at_dev, out):
+                    fail(f"decode kernel at a device cache_index "
+                         f"{tuple(dev_ci.shape)} differs from the host-int "
+                         f"launch at {ci} window {window} ({dtype})")
             if dtype == torch.bfloat16 and (ci, window) == (T - 1, None):
                 main_err = err
         log(f"[check] decode {str(dtype)[6:]} ({decode_route(dtype)} "
             f"kernel) [4,32,128] over [4,640,8,128], "
             f"{splits} splits of {-(-T // splits)} positions: max_abs_err at "
             f"cache_index/window " + ", ".join(line) + f" (tol {tol}); "
-            f"bitwise repeat")
+            f"bitwise repeat; at a device cache_index (one, and one a row) "
+            f"bit for bit the host-int launch")
+        c = -(-T // splits)
+        rows = [5, c - 1, c + 10, T - 1]
+        line = [f"{w}: {decode_rows_check(q, ck, cv, rows, w, tol, dtype):.3e}"
+                for w in (None, 20, 128)]
+        log(f"[check] decode {str(dtype)[6:]} at distinct per-row device "
+            f"indices {rows} (window " + ", ".join(line) + f"; tol {tol}): "
+            f"each row bit for bit the host-int launch at its index, also "
+            f"from a graph replayed at the indices reversed in place")
+        # replayed from a CUDA graph after the index changed in place
+        for window in (None, 128):
+            ci_dev = torch.tensor(0, dtype=torch.int32, device=dev)
+            decode_attention_fwd(q, ck, cv, ci_dev, window=window)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = decode_attention_fwd(q, ck, cv, ci_dev, window=window)
+            for ci, _ in edges:
+                ci_dev.fill_(ci)
+                graph.replay()
+                torch.cuda.synchronize()
+                if not torch.equal(out, decode_attention_fwd(
+                        q, ck, cv, ci, window=window)):
+                    fail(f"decode graph replayed at cache_index {ci} "
+                         f"window {window} differs from the host-int "
+                         f"launch ({dtype})")
+            del graph
+        log(f"[check] decode {str(dtype)[6:]}: a CUDA graph of the launch at "
+            f"a device cache_index, replayed after the index changed in "
+            f"place to each of {[ci for ci, _ in edges]} (window None and "
+            f"128), bit for bit the host-int launch")
+    # the draft model's shape in phase_generate_family (c): head_dim 64,
+    # the rows' cursors apart
+    b, T, d = 4, 581, 64
+    q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    ck, cv = (torch.randn(b, T, kv, d, generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    rows = [131, 262, 400, 579]
+    err = decode_rows_check(q, ck, cv, rows, None, TOL_BF16, "draft d 64")
+    log(f"[check] decode bf16 at the draft's shape q [4,32,64] over "
+        f"[4,581,8,64], per-row device indices {rows}: max_abs_err "
+        f"{err:.3e} (tol {TOL_BF16}); each row bit for bit the host-int "
+        f"launch, also from a graph replayed at the indices reversed")
     return main_err
 
 
@@ -761,9 +889,14 @@ def phase_kernel_times(gen, dev, card):
                      .repeat_interleave(h // kv, 1).contiguous())
                     for q, ck, cv in sets]
         # device time from a CUDA graph of back-to-back calls: the
-        # wrapper's host time per call is longer than these kernels
-        ms = graph_ms(lambda i: decode_attention_fwd(*sets[i % n], ci),
+        # wrapper's host time per call is longer than these kernels. The
+        # main path launches at a device cache_index (read by the kernel
+        # on the device); the host-int launch is timed beside it
+        ci_dev = torch.tensor(ci, dtype=torch.int32, device=dev)
+        ms = graph_ms(lambda i: decode_attention_fwd(*sets[i % n], ci_dev),
                       calls=60)
+        host_ms = graph_ms(lambda i: decode_attention_fwd(*sets[i % n], ci),
+                           calls=60)
         eager_ms = cuda_ms(lambda i: decode_attention_fwd(*sets[i % n], ci),
                            iters=200)
         plain_ms = graph_ms(lambda i: decode_attention_fwd_plain(
@@ -774,8 +907,10 @@ def phase_kernel_times(gen, dev, card):
         rows[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          shape=f"q {[b, h, d]} cache {[b, T, kv, d]} "
-                               f"cache_index {ci} (CUDA graph; kernel "
-                               f"{eager_ms:.4f} ms a call eager)")
+                               f"cache_index {ci} on the device (CUDA "
+                               f"graph; at a host-int index "
+                               f"{host_ms:.4f} ms; kernel {eager_ms:.4f} ms "
+                               f"a call eager)")
         # the split rule against half and twice its split count, same
         # inputs, same timing
         rule = decode_splits(
@@ -1089,16 +1224,48 @@ def _weight_gb(model) -> float:
                for t in [*model.parameters(), *model.buffers()]) / 1e9
 
 
+def _step_program(model, match, label):
+    """The decode program the model keeps (its buffers and its captured
+    step) whose cache key satisfies ``match``."""
+    for key, prog in model._gen_exec_cache.programs.items():
+        if match(key):
+            return prog
+    fail(f"{label}: no such decode program on the model")
+
+
+def _graph_kernels(prog, label, want):
+    """The kernels the program's captured step launches at each replay,
+    read from the graph's nodes: each of ``want`` ({name fragment: n})
+    must be there n times. Returns {fragment: n} and the node count."""
+    if prog.step.graph is None:
+        fail(f"{label}: the decode step was never captured")
+    names, memory = graph_nodes(prog.step.graph.graph)
+    got = {frag: sum(frag in n for n in names) for frag in want}
+    if got != want:
+        fail(f"{label}: the step graph holds {got}, want {want}")
+    return got, len(names), memory
+
+
 def _generate_run(ptt, pred, ids, new, want, label, dev, card):
-    """Warm-up, the prefill's own time (a generate of 1 token), then the
-    main path: one greedy generate of ``new`` tokens with every kernel's
-    count set to 0 just before and read just after (it must equal
-    ``want``), and a second greedy call that must give the same tokens."""
+    """Warm-up (the first decode step of a program runs eagerly and
+    captures it into a CUDA graph), the prefill's own time (a generate of
+    1 token), then the main path: one greedy generate of ``new`` tokens
+    with every kernel's count set to 0 just before and read just after
+    (it must equal ``want``): its decode steps are replays of the
+    captured step, whose graph's nodes must hold each per-step kernel
+    once a layer (decode, and quant a projection), and the counts must be
+    those nodes times the replays. A second greedy call must give the
+    same tokens; the greedy and a seeded sampled stream must be bit for
+    bit the uncaptured step's (``eager_steps``), whose decode step is
+    timed beside the graphed one."""
+    from paddle_tpu_torch.generation import eager_steps
     b, prompt = ids.shape
+    L = pred.model.config.num_hidden_layers
     vocab = pred.model.config.vocab_size
     greedy = ptt.GenerationConfig(max_new_tokens=new)
     one = ptt.GenerationConfig(max_new_tokens=1)
-    pred.generate(ids, config=one)      # warm-up (cuBLAS handles, allocator)
+    pred.generate(ids, config=greedy)   # warm-up: captures the step
+    pred.generate(ids, config=one)      # the prefill's own program
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pred.generate(ids, config=one)
@@ -1119,6 +1286,21 @@ def _generate_run(ptt, pred, ids, new, want, label, dev, card):
         fail(f"{label}: kernel launches {launches} != {want}")
     routes = _check_routes(label, flash=want["flash"], decode=want["decode"],
                            quant=want["quant"])
+    prog = _step_program(
+        pred.model, lambda k: k[:4] == ("generate", b, prompt + new, False),
+        label)
+    per_step = {"decode_mma_kernel": L}
+    if want["quant"]:
+        per_step["qmm_mma"] = QUANT_PER_LAYER * L
+    nodes, n_nodes, n_memory = _graph_kernels(prog, label, per_step)
+    if launches["decode"] != nodes["decode_mma_kernel"] * (new - 1):
+        fail(f"{label}: decode launches {launches['decode']} are not the "
+             f"graph's {nodes['decode_mma_kernel']} a step x {new - 1}")
+    log(f"[{label}] the decode step is one CUDA-graph replay: its graph "
+        f"holds {n_nodes} kernel nodes ({nodes} a step) and {n_memory} "
+        f"memcpy/memset nodes; {new - 1} steps = {new - 1} replays; graph "
+        f"pool {prog.step.pool_bytes / 2**20:.1f} MiB, step buffers "
+        f"{prog.nbytes / 2**20:.1f} MiB [{card}]")
     if tuple(out.shape) != (b, prompt + new):
         fail(f"{label}: generate returned shape {tuple(out.shape)}")
     if not torch.equal(out[:, :prompt], ids):
@@ -1127,15 +1309,45 @@ def _generate_run(ptt, pred, ids, new, want, label, dev, card):
         fail(f"{label}: generate returned ids outside the vocabulary")
     decode_ms = (total_ms - prefill_ms) / (new - 1)
     log(f"[{label}] prefill {prefill_ms:.1f} ms ({b} x {prompt} tokens + "
-        f"first token), decode {decode_ms:.2f} ms/token step, "
+        f"first token), decode {decode_ms:.2f} ms/token step (graphed), "
         f"{b * new / (total_ms / 1e3):.1f} new tokens/s, generate "
         f"{total_ms:.1f} ms, peak memory {peak_gb:.2f} GB [{card}]")
     again = pred.generate(ids, config=greedy)
     if not torch.equal(again, out):
         fail(f"{label}: a second greedy generate gave other tokens")
-    log(f"[{label}] second greedy generate: identical tokens")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with eager_steps():
+        eager = pred.generate(ids, config=greedy)
+    torch.cuda.synchronize()
+    eager_ms = ((time.perf_counter() - t0) * 1e3 - prefill_ms) / (new - 1)
+    if not torch.equal(eager, out):
+        fail(f"{label}: the graphed greedy stream differs from the "
+             f"uncaptured step's")
+    sampled_cfg = ptt.GenerationConfig(max_new_tokens=new, do_sample=True,
+                                       temperature=0.8, top_p=0.95)
+    sampled = pred.generate(ids, config=sampled_cfg,
+                            generator=ptt.make_generator(7, dev))
+    with eager_steps():
+        sampled_eager = pred.generate(ids, config=sampled_cfg,
+                                      generator=ptt.make_generator(7, dev))
+    ok = (tuple(sampled.shape) == (b, prompt + new)
+          and bool(((sampled >= 0) & (sampled < vocab)).all())
+          and torch.equal(sampled[:, :prompt], ids))
+    if not ok:
+        fail(f"{label}: sampled generate returned invalid ids")
+    if not torch.equal(sampled, sampled_eager):
+        fail(f"{label}: the graphed sampled stream differs from the "
+             f"uncaptured step's")
+    log(f"[{label}] second greedy generate: identical tokens; greedy and "
+        f"seeded sampled (temperature 0.8, top_p 0.95; "
+        f"{int((sampled[:, prompt:] != out[:, prompt:]).sum())} of "
+        f"{b * new} tokens differ from greedy) streams bit for bit the "
+        f"uncaptured step's; uncaptured decode step {eager_ms:.2f} ms "
+        f"against {decode_ms:.2f} graphed [{card}]")
     return dict(out=out, prefill_ms=prefill_ms, decode_ms=decode_ms,
-                peak_gb=peak_gb, launches=launches, routes=routes)
+                eager_ms=eager_ms, peak_gb=peak_gb, launches=launches,
+                routes=routes, pool_mib=prog.step.pool_bytes / 2**20)
 
 
 def phase_slice(seed, dev, card):
@@ -1162,19 +1374,6 @@ def phase_slice(seed, dev, card):
     L = cfg.num_hidden_layers
     want = dict(NO_LAUNCHES, flash=L, decode=L * (new - 1))
     run = _generate_run(ptt, pred, ids, new, want, "slice", dev, card)
-    out = run["out"]
-    sampled_cfg = ptt.GenerationConfig(max_new_tokens=new, do_sample=True,
-                                       temperature=0.8, top_p=0.95)
-    sampled = pred.generate(ids, config=sampled_cfg,
-                            generator=ptt.make_generator(seed + 2, dev))
-    ok = (tuple(sampled.shape) == (b, prompt + new)
-          and bool(((sampled >= 0) & (sampled < cfg.vocab_size)).all())
-          and torch.equal(sampled[:, :prompt], ids))
-    if not ok:
-        fail("sampled generate returned invalid ids")
-    log(f"[slice] sampled generate (temperature 0.8, top_p 0.95): valid "
-        f"ids; {int((sampled[:, prompt:] != out[:, prompt:]).sum())} of "
-        f"{b * new} tokens differ from greedy")
     profile_decode_step(ptt, pred, ids, run["decode_ms"], card, "bf16")
     run.update(ids=ids, new=new, weight_gb=_weight_gb(model),
                logits=pred.run(ids)[:, -1].float())
@@ -1377,12 +1576,13 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged",
               os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged"))
     timed = None
     if steady in eng._graphs:
-        g = eng._graphs[steady]
+        step = eng._graphs[steady]
+        g = step.graph
         timed = _TimedGraph(g.graph)
-        eng._graphs[steady] = g._replace(graph=timed)
+        step.graph = g._replace(graph=timed)
     tick_ms = _timed_ticks(eng, ticks)
     if timed is not None:
-        eng._graphs[steady] = g
+        step.graph = g
     replay_ms = sum(timed.ms) / max(len(timed.ms), 1) if timed else 0.0
     # a fused engine's histogram holds its drains' waits for the device:
     # the rest of a step is the host's own
@@ -1441,7 +1641,7 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged",
         # the per-dispatch check that the weights did not move
         t0 = time.perf_counter()
         for _ in range(100):
-            eng._weights_moved()
+            eng._graphs.moved()
         check_ms = (time.perf_counter() - t0) * 10
     log(f"[profile] {label} idle per tick under the profiler: gaps <= 100 "
         f"us between device ops {short:.3f} ms, longer gaps {long_:.3f} "
@@ -1459,7 +1659,7 @@ def profile_paged_tick(eng, ids, card, ticks: int = 16, label="paged",
         # short only by the device events it dropped in all (it drops a
         # few in long sessions): the replay's nodes and the ring's copies
         # a step, less what it recorded
-        names, memory = graph_nodes(eng._graphs[steady].graph)
+        names, memory = graph_nodes(eng._graphs[steady].graph.graph)
         nodes = {k: sum(k in x.lower() for x in names) for k in expect}
         dropped = max((len(names) + memory + len(eng._ring_host)) * ticks
                       - n, 0)
@@ -1761,7 +1961,7 @@ def _spec_steady(eng, ids, L, card, ticks: int = 8):
     n = eng.stats["decode_steps"] - t0
     names, memory = graph_nodes(eng._graphs[(
         True, "spec", os.environ.get("PADDLE_TPU_PAGED_ATTN",
-                                     "ragged"))].graph)
+                                     "ragged"))].graph.graph)
     rag = sum("ragged_" in x.lower() for x in names)
     log(f"[spec] (a) steady spec ticks: {n} ticks, "
         f"{eng.dispatch_count - d0} dispatches, "
@@ -2122,7 +2322,8 @@ def phase_gateway(seed, dev, card, model):
     if launches != want:
         fail(f"gateway (a): launches {launches} != {want}")
     for i, eng in enumerate(engines):
-        names, _ = graph_nodes(eng._graphs[(True, 1, route)].graph)
+        step = eng._graphs[(True, 1, route)]
+        names, _ = graph_nodes(step.graph.graph)
         rag = sum("ragged_" in x.lower() for x in names)
         if rag != L:
             fail(f"gateway (a): replica r{i}'s steady graph holds {rag} "
@@ -2330,6 +2531,353 @@ def phase_gateway(seed, dev, card, model):
     return launches, routes
 
 
+def _write_safetensors(path, tensors):
+    """The safetensors layout (an 8-byte little-endian header length, a
+    JSON header, the raw little-endian tensors) of {name: CPU bf16
+    tensor}, written without the ``safetensors`` package."""
+    import struct
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().tobytes())
+
+
+# Llama-3.2-1B's published widths (its config.json): the draft model of
+# the speculative check, with random weights from the seed
+LLAMA32_1B = dict(vocab_size=128256, hidden_size=2048,
+                  intermediate_size=8192, num_hidden_layers=16,
+                  num_attention_heads=32, num_key_value_heads=8,
+                  rope_theta=500000.0, tie_word_embeddings=True,
+                  max_position_embeddings=131072,
+                  rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                                "low_freq_factor": 1.0,
+                                "high_freq_factor": 4.0,
+                                "original_max_position_embeddings": 8192})
+
+
+def _family_beam(ptt, model, dev, card, gen):
+    """(a) beam search, b 2, 4 beams, 64 new, length_penalty 1.2."""
+    from paddle_tpu_torch.generation import eager_steps
+    L, V = model.config.num_hidden_layers, model.config.vocab_size
+    b, k, prompt, new = 2, 4, 512, 64
+    ids = torch.randint(0, V, (b, prompt), device=dev, generator=gen)
+    cfg = ptt.GenerationConfig(max_new_tokens=new, num_beams=k,
+                               length_penalty=1.2)
+    ptt.generate(model, ids, cfg)               # warm-up: captures
+    read = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ptt.generate(model, ids, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read()
+    want = dict(NO_LAUNCHES, flash=L, decode=L * (new - 1))
+    if launches != want:
+        fail(f"beam: launches {launches} != {want}")
+    _check_routes("beam", flash=L, decode=L * (new - 1))
+    prog = _step_program(model, lambda key: key[:4] == (
+        "beam", b, k, prompt + new), "beam")
+    _graph_kernels(prog, "beam", {"decode_mma_kernel": L})
+    with eager_steps():
+        eager = ptt.generate(model, ids, cfg)
+    if not torch.equal(out, eager):
+        fail("beam: the graphed beam search differs from its uncaptured "
+             "run")
+    if tuple(out.shape) != (b, prompt + new) or \
+            not torch.equal(out[:, :prompt], ids):
+        fail("beam: wrong shape or prompt")
+    log(f"[family] (a) beam search, b {b} x {k} beams ({b * k} decode "
+        f"rows), {prompt} + {new} tokens, length_penalty 1.2: {ms:.1f} ms "
+        f"({(ms / new):.2f} ms a step), launches {launches}; each step one "
+        f"replay of a graph with {L} decode nodes (at {b * k} rows); the "
+        f"output bit for bit its uncaptured run; graph pool "
+        f"{prog.step.pool_bytes / 2**20:.1f} MiB [{card}]")
+
+
+def _spec_line(label, stats, ms, card, extra=""):
+    fwd = stats["target_forwards"]
+    tpf = stats["tokens_per_forward"]
+    log(f"[family] {label}: {ms:.1f} ms, target forwards by row {fwd} "
+        f"(plain greedy: {sum(stats['emitted_tokens'])} in all), tokens "
+        f"per forward {[round(x, 3) for x in tpf]} (mean "
+        f"{sum(tpf) / len(tpf):.3f}){extra} [{card}]")
+
+
+def _family_spec(ptt, model, dev, card, gen, seed):
+    """(b) prompt-lookup (128 new) and (c) draft-model (64 new)
+    speculative generate on 4 rows repeating a 64-token pattern, k 4."""
+    from paddle_tpu_torch.generation import eager_steps
+    from paddle_tpu_torch.generation.speculative import (
+        ngram_speculative_generate, speculative_generate)
+    L, V = model.config.num_hidden_layers, model.config.vocab_size
+    b, prompt, new, k = 4, 512, 128, 4
+    ids = torch.randint(0, V, (b, 64), device=dev,
+                        generator=gen).repeat(1, prompt // 64)
+    kw = dict(max_new_tokens=new, num_draft_tokens=k, return_stats=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def teacher(label, out):
+        gaps = [_teacher_gap(model, out[r, :prompt].tolist(),
+                             out[r, prompt:].tolist()) for r in range(b)]
+        if max(gaps) > TOL_TEACHER:
+            fail(f"{label}: a greedy stream's teacher-forced gap "
+                 f"{max(gaps):.4f} exceeds {TOL_TEACHER}")
+        return f"; teacher-forced gaps {[round(g, 4) for g in gaps]} " \
+            f"(tol {TOL_TEACHER})"
+
+    ngram = lambda **x: ngram_speculative_generate(  # noqa: E731
+        model, ids, ngram=2, **kw, **x)
+    ngram()                                     # warm-up: captures
+    read = _reset_launches()
+    (out, stats), ms = timed(ngram)
+    launches = read()
+    if launches != dict(NO_LAUNCHES, flash=L):
+        fail(f"ngram: launches {launches} (the verify takes the masked "
+             f"cache path: flash {L} for the prefill, nothing else)")
+    prog = _step_program(model, lambda key: key[:3] == ("spec", id(None), 2)
+                         and not key[-1], "ngram")
+    _spec_line("(b) ngram_speculative_generate, greedy, ngram 2", stats, ms,
+               card, teacher("ngram", out)
+               + f"; {prog.last_steps} iterations, each one replay")
+    skw = dict(temperature=0.8, top_p=0.95)
+    ngram(generator=ptt.make_generator(seed + 42, dev), **skw)
+    (sout, sstats), sms = timed(lambda: ngram(
+        generator=ptt.make_generator(seed + 42, dev), **skw))
+    with eager_steps():
+        seager, _ = ngram(generator=ptt.make_generator(seed + 42, dev), **skw)
+    if not torch.equal(sout, seager):
+        fail("ngram sampled: the graphed stream differs from its "
+             "uncaptured run")
+    if not ((sout >= 0) & (sout < V)).all():
+        fail("ngram sampled: ids outside the vocabulary")
+    _spec_line("(b) ngram_speculative_generate, sampled (temperature 0.8, "
+               "top_p 0.95)", sstats, sms, card,
+               "; bit for bit its uncaptured run")
+
+    draft = ptt.LlamaForCausalLM(ptt.LlamaConfig(**LLAMA32_1B), device=dev,
+                                 generator=ptt.make_generator(seed + 43,
+                                                              dev))
+    DL = draft.config.num_hidden_layers
+    # 64 new tokens, not 128: the phase's one cut, for the script's time
+    kw = dict(kw, max_new_tokens=64)
+    speculative_generate(model, draft, ids, **kw)          # warm-up
+    read = _reset_launches()
+    (dout, dstats), dms = timed(
+        lambda: speculative_generate(model, draft, ids, **kw))
+    launches = read()
+    prog = _step_program(model, lambda key: key[:2] == ("spec", id(draft)),
+                         "draft")
+    want = dict(NO_LAUNCHES, flash=L + DL,
+                decode=DL * (k + 1) * prog.last_steps)
+    if launches != want:
+        fail(f"draft: launches {launches} != {want}")
+    _check_routes("draft", flash=L + DL, decode=want["decode"])
+    _graph_kernels(prog, "draft", {"decode_mma_kernel": DL * (k + 1)})
+    _spec_line(f"(c) speculative_generate, draft Llama-3.2-1B widths "
+               f"(hidden 2048, {DL} layers, 32/8 heads, head_dim 64, ffn "
+               f"8192, tied), random weights", dstats, dms, card,
+               teacher("draft", dout)
+               + f"; {prog.last_steps} iterations, each one replay of a "
+                 f"graph with {DL * (k + 1)} decode nodes (the draft's, "
+                 f"per-row cache index), launches {launches}")
+    # the program in the target's cache holds the draft weakly: dropping
+    # it frees its weights, and the program goes stale
+    alive = weakref.ref(draft)
+    del draft
+    gc.collect()
+    if alive() is not None:
+        fail("draft: the dropped draft model is still alive")
+    if not prog.stale():
+        fail("draft: the program of a dropped draft is not stale")
+    log("[family] (c) the dropped draft model is freed (the target's "
+        "cached program held it weakly) and its program is stale")
+
+
+def _batched(bp, prompts, engine, **kw):
+    """``len(prompts)`` concurrent ``submit``s to ``bp``, its engine call
+    set to ``engine(ids, **kw)`` (recording each batch): each answer must
+    be bit for bit its row of the same stacked batch through ``engine``.
+    Returns (batches formed, wall s, health, queue-wait histogram)."""
+    import threading
+
+    from paddle_tpu_torch.utils import observability as obs
+    n = len(prompts)
+    batches = []
+
+    def record(ids):
+        batches.append(ids.copy())
+        return engine(ids, **kw)
+    bp.predictor.run = record
+    futs = [None] * n
+    go = threading.Barrier(n)
+
+    def client(i):
+        go.wait(timeout=60)
+        futs[i] = bp.submit(prompts[i])
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    bp.close()
+    h = bp.health()
+    wait = obs.registry().snapshot()[
+        f'serving_queue_wait_ms{{engine="{bp._obs_labels["engine"]}"}}']
+    ref = {}
+    for batch in batches:
+        for row, ids in zip(engine(batch, **kw), batch):
+            ref[ids.tobytes()] = row
+    same = sum(torch.equal(o, ref[p.tobytes()])
+               for o, p in zip(outs, prompts))
+    if same != n or h["served"] != n:
+        fail(f"batching: {same} of {n} answers equal their batch's rows "
+             f"through {engine.__name__}; health {h}")
+    return [len(x) for x in batches], wall, h, wait
+
+
+def _family_batching(ptt, model, dev, card, gen):
+    """(d) ``BatchingPredictor``: 8 concurrent submits through its own
+    engine call, ``Predictor.run`` (each answer's logits bit for bit its
+    row of the same stacked batch through ``Predictor.run``); then 16
+    through ``Predictor.generate`` (set as the predictor's engine call),
+    each answer bit for bit its row of the same batch through it."""
+    V = model.config.vocab_size
+    for engine, n, s, kw in (("run", 8, 64, {}),
+                             ("generate", 16, 256,
+                              dict(max_new_tokens=32))):
+        bp = ptt.BatchingPredictor(model, device=dev, max_batch=8,
+                                   max_delay_ms=50)
+        prompts = torch.randint(0, V, (n, s), generator=gen,
+                                device=dev).cpu().numpy()
+        sizes, wall, h, wait = _batched(
+            bp, prompts, getattr(bp.predictor, engine), **kw)
+        log(f"[family] (d) BatchingPredictor(max_batch 8, max_delay_ms 50) "
+            f"over Predictor.{engine} ({s}"
+            + (f" + {kw['max_new_tokens']}" if kw else "")
+            + f" tokens): {n} concurrent submits in {wall:.2f} s, batches "
+            f"formed {sizes}, every answer bit for bit its row of the same "
+            f"batch through Predictor.{engine}; queue wait ms: count "
+            f"{wait['count']}, p50 {wait.get('p50')}, p99 "
+            f"{wait.get('p99')}, max {wait.get('max')}; health {h} [{card}]")
+
+
+def _family_hf(ptt, dev, card, seed):
+    """(e) a 2-layer, full-width Llama-3-8B HF checkpoint (two shards and
+    an index, bf16) written from the seed, then ``from_pretrained``: its
+    parameters bit for bit those of ``load_jax_state_dict`` on the same
+    arrays (and the written tensors), its logits those of the source."""
+    from paddle_tpu_torch.convert import load_jax_state_dict
+    from paddle_tpu_torch.models import hf_interop
+    cfg = ptt.llama3_8b(num_hidden_layers=2)
+    src = ptt.LlamaForCausalLM(cfg, device=dev,
+                               generator=ptt.make_generator(seed + 50, dev))
+    tensors = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+    d = tempfile.mkdtemp(prefix="hf_llama_")
+    try:
+        t0 = time.perf_counter()
+        names = sorted(tensors)
+        shards = {n: ("model-00001-of-00002.safetensors"
+                      if n.startswith("model.layers.")
+                      else "model-00002-of-00002.safetensors")
+                  for n in names}
+        for shard in sorted(set(shards.values())):
+            _write_safetensors(os.path.join(d, shard),
+                               {n: tensors[n] for n in names
+                                if shards[n] == shard})
+        with open(os.path.join(d, "model.safetensors.index.json"),
+                  "w") as f:
+            json.dump({"weight_map": shards}, f)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"model_type": "llama", "vocab_size": cfg.vocab_size,
+                       "hidden_size": cfg.hidden_size,
+                       "intermediate_size": cfg.intermediate_size,
+                       "num_hidden_layers": 2,
+                       "num_attention_heads": cfg.num_attention_heads,
+                       "num_key_value_heads": cfg.num_key_value_heads,
+                       "max_position_embeddings":
+                           cfg.max_position_embeddings,
+                       "rms_norm_eps": cfg.rms_norm_eps,
+                       "rope_theta": cfg.rope_theta,
+                       "tie_word_embeddings": False,
+                       "torch_dtype": "bfloat16"}, f)
+        nbytes = sum(os.path.getsize(os.path.join(d, n))
+                     for n in os.listdir(d))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = hf_interop.from_pretrained(d, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        arrays = {k: v.float().numpy() for k, v in tensors.items()}
+        ref = ptt.LlamaForCausalLM(cfg, device=dev,
+                                   generator=ptt.make_generator(1, dev))
+        load_jax_state_dict(ref, hf_interop.convert_hf_state_dict(
+            arrays, cfg, "llama"))
+        got, want = model.state_dict(), ref.state_dict()
+        bad = [k for k in want if not torch.equal(got[k], want[k])
+               or not torch.equal(got[k].cpu(), tensors[k])]
+        if bad or set(got) != set(want):
+            fail(f"hf: from_pretrained parameters differ from "
+                 f"load_jax_state_dict's on the same arrays: {bad[:4]}")
+        ids = torch.randint(0, cfg.vocab_size, (2, 64), device=dev,
+                            generator=ptt.make_generator(seed + 51, dev))
+        with torch.inference_mode():
+            same = torch.equal(model(ids), src(ids))
+        if not same:
+            fail("hf: the loaded model's logits differ from the source's")
+        del arrays
+        log(f"[family] (e) HF checkpoint: Llama-3-8B widths, 2 layers, bf16, "
+            f"{len(names)} tensors in 2 shards + index, {nbytes / 1e9:.2f} GB "
+            f"written in {t_write:.1f} s (no safetensors package); "
+            f"from_pretrained onto the card in {t_load:.1f} s: every "
+            f"parameter bit for bit load_jax_state_dict's on the same "
+            f"arrays and the written tensors, logits the source's [{card}]")
+        del model, ref
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_generate_family(seed, dev, card, model):
+    """The rest of ``generate()`` on phase 6's Llama-3-8B (``[family]``
+    lines): (a) beam search, (b) prompt-lookup and (c) draft-model
+    speculative generate, (d) ``BatchingPredictor``, (e) an HF checkpoint
+    through ``from_pretrained``. Each sub-run's counts are set to 0 just
+    before it and read just after."""
+    import paddle_tpu_torch as ptt
+    t_phase = time.perf_counter()
+    gen = ptt.make_generator(seed + 40, dev)
+    _family_beam(ptt, model, dev, card, gen)
+    _family_spec(ptt, model, dev, card, gen, seed)
+    _family_batching(ptt, model, dev, card, gen)
+    # the buffers of (a)-(d)'s programs, before (e) loads a checkpoint
+    model._gen_exec_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _family_hf(ptt, dev, card, seed)
+    log(f"[family] the phase took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+
+
 def phase_spec_ragged_time(gen, dev, card):
     """The ragged kernel at the speculative verify's shape: q [16, 5, 32,
     128] over the engine's pools [1025, 16, 8, 128], bf16, seq_lens drawn
@@ -2399,25 +2947,27 @@ def _device_profile(pred, ids, new_tokens, ptt):
 
 def profile_decode_step(ptt, pred, ids, step_ms, card, label):
     """Where a decode step's time goes: torch.profiler over a generate of
-    1 and of 33 new tokens; the difference over 32 is one decode step.
-    Device busy share = its device time over the step's wall time, with
-    the profiler (inflated) and without it (``step_ms``, the main run);
-    host idle = the unprofiled step less the device's busy time."""
-    w1, c1, n1 = _device_profile(pred, ids, 1, ptt)
-    w33, c33, n33 = _device_profile(pred, ids, 33, ptt)
+    1 and of 33 new tokens; the difference over 32 is one decode step's
+    device time by kernel kind. Device busy share = that time over the
+    unprofiled step (``step_ms``, the main run); host idle = the
+    unprofiled step less the device's busy time. (The profiled wall is
+    not used: with the step one graph replay, the host runs ahead of the
+    card and the two generates' profiler costs differ by more than the
+    32 steps take.)"""
+    # warm: the 33-token program captures its step
+    pred.generate(ids, config=ptt.GenerationConfig(max_new_tokens=33))
+    _, c1, n1 = _device_profile(pred, ids, 1, ptt)
+    _, c33, n33 = _device_profile(pred, ids, 33, ptt)
     steps = 32
     if n33 == n1:
         log("[profile] torch.profiler recorded no device events: device "
             "busy share not measured")
         return
-    step_wall = (w33 - w1) / steps
     per = {k: (c33[k] - c1[k]) / steps for k in c33}
     busy = sum(per.values())
-    log(f"[profile] {label} decode step under the profiler: wall "
-        f"{step_wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / step_wall:.1f} % of it, {100 * busy / step_ms:.1f}"
-        f" % of the unprofiled {step_ms:.2f} ms step; host idle "
-        f"{max(step_ms - busy, 0.0):.3f} ms of it), "
+    log(f"[profile] {label} decode step: device busy {busy:.3f} ms, "
+        f"{100 * busy / step_ms:.1f} % of the unprofiled {step_ms:.2f} ms "
+        f"step (host idle {max(step_ms - busy, 0.0):.3f} ms of it), "
         f"{(n33 - n1) / steps:.0f} device ops per step; "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in per.items())
         + f" [{card}]")
@@ -2895,6 +3445,8 @@ def phase_int4(seed, dev, card, bf16):
     run = _generate_run(ptt, pred, bf16["ids"], new, want, "int4", dev, card)
     run["weight_gb"] = weight_gb
     _against_bf16("int4", pred, run, bf16, card)
+    profile_decode_step(ptt, pred, bf16["ids"], run["decode_ms"], card,
+                        "int4")
     return pred
 
 
@@ -2924,7 +3476,8 @@ def phase_decode_ab(seed, dev, card, int4, ids):
 
     steps = {k: [] for k in preds}
     for key in ("bf16", "int8", "int4", "int4", "int8", "bf16"):
-        timed(preds[key], 1)                           # warm
+        timed(preds[key], 33)          # warm: captures the 33-token step
+        timed(preds[key], 1)
         steps[key].append((timed(preds[key], 33) - timed(preds[key], 1))
                           / 32)
     mean = {k: sum(v) / len(v) for k, v in steps.items()}
@@ -3517,6 +4070,7 @@ def main():
     paged, paged_routes = phase_paged(args.seed, dev, card, model)
     phase_spec(args.seed, dev, card, model)
     gw_launches, _ = phase_gateway(args.seed, dev, card, model)
+    phase_generate_family(args.seed, dev, card, model)
     launches["ragged"] = paged["ragged"] + gw_launches["ragged"]
     routes["ragged"] = paged_routes["ragged"]
     pred, int8 = phase_quant_slice(dev, card, model, bf16)

@@ -5,27 +5,37 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when asked for the card and there is none.
 
 It serves Llama two ways. ``Predictor.generate`` runs the forward over a
-static KV cache (``generate()``). ``PagedEngine``
-(``generation/paged.py``) and ``Predictor.serve_stream`` run a
-continuous-batching engine over a paged KV cache, on the per-tick host
-path. ``Trainer`` (``trainer.py``) trains it on one card with the
-optimizers of ``optimizer/``, through flash attention and its backward.
-Five hand-written kernels for ``sm_90a`` sit under ``ops/kernels``, with
-their sources in ``csrc``: flash-attention forward, the flash backward's
-dq and dk/dv, decode attention and ragged paged attention.
+static KV cache (``generate()``: greedy, sampled and beam search, each
+decode step one CUDA-graph replay; ``generation.speculative``: draft-model
+and prompt-lookup speculative decoding; ``BatchingPredictor`` coalesces
+concurrent requests). ``PagedEngine`` (``generation/paged.py``) and
+``Predictor.serve_stream`` run a continuous-batching engine over a paged
+KV cache, and ``serving/`` a gateway over it. ``Trainer``
+(``trainer.py``) trains it on one card with the optimizers of
+``optimizer/``, through flash attention and its backward. Weights load
+from ``checkpoint.save`` files in the JAX package's format and from HF
+safetensors checkpoints (``models.from_pretrained``). Seven hand-written
+kernels for ``sm_90a`` sit under ``ops/kernels``, with their sources in
+``csrc``: flash-attention forward, the flash backward's dq and dk/dv,
+decode attention, ragged and grid paged attention, and the weight-only
+quantized matmul.
 """
 from .convert import load_jax_state_dict
 from .device import resolve_device
-from .generation import GenerationConfig, generate
-from .inference import Config, Predictor
+from .checkpoint import load, save
+from .generation import GenerationConfig, beam_search, generate
+from .inference import (BatchingPredictor, Config, Predictor,
+                        create_predictor)
 from . import optimizer
 from .models import (LlamaConfig, LlamaForCausalLM, causal_lm_loss,
-                     llama3_8b, llama_tiny)
+                     from_pretrained, llama3_8b, llama_tiny)
 from .trainer import Trainer, TrainerCallback, TrainingArguments
 from .utils.rng import make_generator
 
 __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
-           "generate", "Config", "Predictor", "LlamaConfig",
+           "generate", "beam_search", "Config", "Predictor",
+           "BatchingPredictor", "create_predictor", "save", "load",
+           "from_pretrained", "LlamaConfig",
            "LlamaForCausalLM", "causal_lm_loss", "llama3_8b", "llama_tiny",
            "make_generator", "optimizer", "Trainer", "TrainerCallback",
            "TrainingArguments"]

@@ -41,11 +41,30 @@ def load_jax_state_dict(model: nn.Module,
     if missing or unexpected:
         raise KeyError(f"state_dict mismatch: missing={missing[:5]} "
                        f"unexpected={unexpected[:5]}")
-    transposed = {f"{name}.weight" if name else "weight"
-                  for name, mod in model.named_modules()
-                  if isinstance(mod, Linear)}
-    for name, dst in own.items():
-        src = np.asarray(params[name])
+    copy_jax_params(model, params, own)
+
+
+def _transposed(model: nn.Module):
+    return {f"{name}.weight" if name else "weight"
+            for name, mod in model.named_modules() if isinstance(mod, Linear)}
+
+
+@torch.no_grad()
+def copy_jax_params(model: nn.Module, params: Mapping[str, np.ndarray],
+                    own=None) -> None:
+    """Copy each of ``params`` into the model's tensor of that name, with
+    :func:`load_jax_state_dict`'s transposes and casts, without its check
+    that every key is there (``from_pretrained`` loads a checkpoint one
+    shard at a time and checks the keys at the end)."""
+    own = model.state_dict(keep_vars=True) if own is None else own
+    transposed = _transposed(model)
+    for name in params:
+        dst = own[name]
+        src = params[name]
+        if torch.is_tensor(src):
+            src = src.detach().cpu().float().numpy() \
+                if src.is_floating_point() else src.cpu().numpy()
+        src = np.asarray(src)
         value = torch.from_numpy(np.array(
             src, np.float32 if dst.is_floating_point() else src.dtype))
         if name in transposed:
@@ -54,3 +73,15 @@ def load_jax_state_dict(model: nn.Module,
             raise ValueError(f"{name}: shape {tuple(value.shape)} after "
                              f"conversion, model holds {tuple(dst.shape)}")
         dst.copy_(value.to(device=dst.device, dtype=dst.dtype))
+
+
+@torch.no_grad()
+def jax_state_dict(model: nn.Module):
+    """The model's parameters and persistent buffers under the JAX
+    package's names and layout (every ``Linear`` weight transposed to
+    [in, out]), as CPU tensors of the model's dtypes: what the JAX
+    package's ``model.state_dict()`` holds, for ``checkpoint.save``."""
+    transposed = _transposed(model)
+    return {name: (t.T if name in transposed else t).detach().cpu()
+            .contiguous()
+            for name, t in model.state_dict().items()}

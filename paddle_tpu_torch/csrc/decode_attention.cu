@@ -6,6 +6,11 @@
 // Layout: q [b, h, d], caches [b, T, kv, d], out [b, h, d]. Positions
 // 0..cache_index attend (only the trailing `window` of them when
 // window > 0). Query head kvh*G + g reads kv head kvh, G = h / kv.
+// cache_index is a host int, or is read by every block from an int32
+// array on the device (the TPU kernel's scalar-prefetch operand): one
+// index for all rows (stride 0) or one a row (stride 1). A CUDA graph of
+// a decode step then replays at whatever index the step wrote there. The
+// device value is clamped into [0, T); the caller keeps it in range.
 //
 // Grid (splits, kv, b): split s of (row, kv head) covers cache positions
 // [s * chunk, (s + 1) * chunk), chunk = ceil(T / splits), with `splits`
@@ -170,6 +175,14 @@ __device__ void merge_and_store(Merge<D, G, STREAMS>& sm, T* out, float* work,
   if (tid == 0) arrivals[pair] = 0;  // ready for the next launch
 }
 
+// Row b's cache index: from the device array when the caller passed one
+// (clamped into the cache), else the host value.
+__device__ inline int row_cache_index(const int* ci_dev, int stride, int b,
+                                      int host, int tlen) {
+  if (ci_dev == nullptr) return host;
+  return min(max(ci_dev[(size_t)b * stride], 0), tlen - 1);
+}
+
 // The positions split `split` covers: [p0, p1), with the live splits
 // first .. last; false when this split has none.
 __device__ inline bool split_range(int cache_index, int window, int chunk,
@@ -214,8 +227,9 @@ __global__ void __launch_bounds__(THREADS)
     decode_mma_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, T* __restrict__ out,
                       float* __restrict__ work, int* __restrict__ arrivals,
-                      int tlen, int h, int kv, int cache_index, float scale,
-                      int window, int chunk) {
+                      int tlen, int h, int kv, int cache_index,
+                      const int* __restrict__ ci_dev, int ci_stride,
+                      float scale, int window, int chunk) {
   using Geo = MmaGeo<D>;
   constexpr int RS = Geo::RS;
   __shared__ Merge<D, G, WARPS> sm;
@@ -224,9 +238,9 @@ __global__ void __launch_bounds__(THREADS)
   const int group = h / kv;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r = lane / 4, c = lane % 4;
+  const int ci = row_cache_index(ci_dev, ci_stride, b, cache_index, tlen);
   int first, last, p0, p1;
-  if (!split_range(cache_index, window, chunk, split, first, last, p0, p1))
-    return;
+  if (!split_range(ci, window, chunk, split, first, last, p0, p1)) return;
 
   unsigned char* my = stage_raw + warp * Geo::WARP_BYTES;  // K0 V0 K1 V1
   const size_t rstride = (size_t)kv * D;
@@ -390,8 +404,9 @@ __global__ void __launch_bounds__(THREADS)
                        const float* __restrict__ kc,
                        const float* __restrict__ vc, float* __restrict__ out,
                        float* __restrict__ work, int* __restrict__ arrivals,
-                       int tlen, int h, int kv, int cache_index, float scale,
-                       int window, int chunk) {
+                       int tlen, int h, int kv, int cache_index,
+                       const int* __restrict__ ci_dev, int ci_stride,
+                       float scale, int window, int chunk) {
   using Geo = SimtGeo<D>;
   constexpr int LPR = Geo::LPR, EPL = Geo::EPL, RPW = Geo::RPW, W = Geo::W;
   constexpr int STREAMS = Geo::STREAMS;
@@ -401,9 +416,9 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane / LPR, sl = lane % LPR;
   const int stream = warp * RPW + sub;
+  const int ci = row_cache_index(ci_dev, ci_stride, b, cache_index, tlen);
   int first, last, p0, p1;
-  if (!split_range(cache_index, window, chunk, split, first, last, p0, p1))
-    return;
+  if (!split_range(ci, window, chunk, split, first, last, p0, p1)) return;
 
   // stream (warp, sub) takes positions base + u * RPW + sub, u < U, and
   // holds the next pass's rows in flight while it works on this pass's
@@ -525,6 +540,8 @@ struct Args {
   const void *q, *kc, *vc;
   void *out, *work, *arrivals;
   int b, tlen, h, kv, cache_index;
+  const int* ci_dev;
+  int ci_stride;
   float scale;
   int window, splits;
   cudaStream_t stream;
@@ -541,7 +558,8 @@ int launch_mma(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.kc),
       static_cast<const T*>(a.vc), static_cast<T*>(a.out),
       static_cast<float*>(a.work), static_cast<int*>(a.arrivals), a.tlen,
-      a.h, a.kv, a.cache_index, a.scale, a.window, chunk);
+      a.h, a.kv, a.cache_index, a.ci_dev, a.ci_stride, a.scale, a.window,
+      chunk);
   return cudaGetLastError();
 }
 
@@ -553,7 +571,8 @@ int launch_simt(const Args& a) {
           static_cast<const float*>(a.q), static_cast<const float*>(a.kc),
           static_cast<const float*>(a.vc), static_cast<float*>(a.out),
           static_cast<float*>(a.work), static_cast<int*>(a.arrivals), a.tlen,
-          a.h, a.kv, a.cache_index, a.scale, a.window, chunk);
+          a.h, a.kv, a.cache_index, a.ci_dev, a.ci_stride, a.scale, a.window,
+      chunk);
   return cudaGetLastError();
 }
 
@@ -577,7 +596,10 @@ int by_shape(int d, int group, F&& f) {
 
 int checked(const Args& a, int d) {
   if (a.kv < 1 || a.h % a.kv != 0 || a.h / a.kv > MAX_GROUP ||
-      a.cache_index < 0 || a.cache_index >= a.tlen || a.splits < 1 ||
+      (a.ci_dev == nullptr &&
+       (a.cache_index < 0 || a.cache_index >= a.tlen)) ||
+      (a.ci_dev != nullptr && a.ci_stride != 0 && a.ci_stride != 1) ||
+      a.splits < 1 ||
       a.splits > MAX_SPLITS || a.splits > a.tlen ||
       (d != 64 && d != 128 && d != 256))
     return cudaErrorInvalidValue;
@@ -587,18 +609,24 @@ int checked(const Args& a, int d) {
 }  // namespace
 
 // The two routes: mma takes dtype 1 (bf16) or 2 (fp16), simt dtype 0
-// (fp32). window <= 0 means none. work: fp32 [b, kv, splits, h / kv,
-// d + 2] scratch; arrivals: int32 [b * kv], all 0 (the kernel leaves them
-// 0 again). Both are unused when one split is live.
+// (fp32). window <= 0 means none. cache_index_dev: null (take
+// cache_index), or an int32 array on the device with one index (stride
+// 0) or one a row (stride 1); cache_index is then unused. work: fp32
+// [b, kv, splits, h / kv, d + 2] scratch; arrivals: int32 [b * kv], all
+// 0 (the kernel leaves them 0 again). Both are unused when one split is
+// live.
 extern "C" int decode_attention_fwd_mma(const void* q, const void* k_cache,
                                         const void* v_cache, void* out,
                                         void* work, void* arrivals, int b,
                                         int tlen, int h, int kv, int d,
-                                        int cache_index, float scale,
+                                        int cache_index,
+                                        const void* cache_index_dev,
+                                        int cache_index_stride, float scale,
                                         int window, int splits, int dtype,
                                         void* stream) {
   const Args a{q, k_cache, v_cache, out, work, arrivals, b, tlen, h, kv,
-               cache_index, scale, window, splits,
+               cache_index, static_cast<const int*>(cache_index_dev),
+               cache_index_stride, scale, window, splits,
                static_cast<cudaStream_t>(stream)};
   if (const int rc = checked(a, d)) return rc;
   return ptt::by_half_dtype(dtype, [&](auto tag) {
@@ -613,11 +641,14 @@ extern "C" int decode_attention_fwd_simt(const void* q, const void* k_cache,
                                          const void* v_cache, void* out,
                                          void* work, void* arrivals, int b,
                                          int tlen, int h, int kv, int d,
-                                         int cache_index, float scale,
+                                         int cache_index,
+                                         const void* cache_index_dev,
+                                         int cache_index_stride, float scale,
                                          int window, int splits, int dtype,
                                          void* stream) {
   const Args a{q, k_cache, v_cache, out, work, arrivals, b, tlen, h, kv,
-               cache_index, scale, window, splits,
+               cache_index, static_cast<const int*>(cache_index_dev),
+               cache_index_stride, scale, window, splits,
                static_cast<cudaStream_t>(stream)};
   if (const int rc = checked(a, d)) return rc;
   if (dtype != 0) return cudaErrorInvalidValue;

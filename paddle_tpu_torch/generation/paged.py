@@ -81,9 +81,7 @@ import hashlib
 import itertools
 import json
 import os
-import threading
 import time
-import weakref
 from collections import deque
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -92,11 +90,11 @@ import torch
 
 from ..device import card_lock
 from ..ops.attention import dense_attention, use_paged_kernel
-from ..ops.kernels import add_launches, capturing_launches, live_workspaces
 from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..utils import observability as obs
 from ..utils.faults import BackpressureError
+from .graphs import CapturedStep, ExecCache
 from .prompt_lookup import mask_drafts, propose_ngram_rows, token_buffer_row
 from .sampling import (fold_in_rows, override_key_rows,
                        repetition_penalty_rows, sample_token_rows,
@@ -453,15 +451,6 @@ class _TickPhaseProfile:
                 "entries": list(self.ring)}
 
 
-class _TickGraph(NamedTuple):
-    """A captured tick program: the graph, the launches its capture
-    counted ({wrapper: (launches, by route)}, added at each replay), and
-    the kernel workspaces it writes, kept alive with it."""
-    graph: Any
-    launches: Dict[Any, tuple]
-    keep: List[Any]
-
-
 class PagedEngine:
     """Continuous-batching serving engine for Llama-family CausalLMs.
 
@@ -606,13 +595,10 @@ class PagedEngine:
                 "queue stages the delta path's descriptors")
         self._pq_len = self.R if patch_queue_len is None \
             else max(1, int(patch_queue_len))
-        # CUDA graphs of the tick programs, keyed by (greedy, K, route),
-        # sharing one private memory pool; captured on first use.
-        # graph_pool_bytes: device memory the captures reserved, summed
-        self._graphs: Dict[tuple, "_TickGraph"] = {}
-        self._graph_pool = None
-        self._graph_links = None
-        self.graph_pool_bytes = 0
+        # the tick programs, keyed by (greedy, K or "spec", route): a
+        # CapturedStep each, captured on first use into the cache's one
+        # shared pool, all dropped when the weights move
+        self._graphs = ExecCache(self.model)
         self._new_pools()
         self.slots: List[Optional[_Request]] = [None] * self.R
         self.queue: List[_Request] = []
@@ -840,7 +826,7 @@ class PagedEngine:
                            pin_memory=pin)
             for k in ring_keys}
         self._ring_event = None
-        self._drop_graphs()
+        self._graphs.clear()
 
     @property
     def stats(self) -> Dict[str, int]:
@@ -1325,103 +1311,26 @@ class PagedEngine:
             self._tick(greedy, k)
 
     def _dispatch(self, greedy: bool, K: int, spec: bool = False):
-        """Run one dispatch: eagerly on the CPU; on a card, replay the
-        program's CUDA graph, captured on its first use. The graphs are
-        keyed (greedy, K or "spec", route)."""
+        """Run one dispatch: eagerly on the CPU; on a card, through the
+        program's :class:`graphs.CapturedStep` (its first call runs the
+        program and captures it, holding ``card_lock`` alone with the
+        warm-up on a side stream; later calls replay the graph and add
+        the launches its capture counted). A graph freezes the weights'
+        addresses and the route it read: the key holds the route, and
+        the cache drops every graph when the weights move."""
         if self.device.type != "cuda":
             self._program(greedy, K, spec)
             return
-        # a graph freezes the weights' addresses and the route it read
-        if self._graph_links is None or self._weights_moved():
-            self._drop_graphs()
-            self._graph_links = self._weights_links()
         key = (greedy, "spec" if spec else K,
                os.environ.get("PADDLE_TPU_PAGED_ATTN", "ragged"))
-        g = self._graphs.get(key)
-        if g is None:
-            self._graphs[key] = self._capture(greedy, K, spec)
-            return
-        g.graph.replay()
-        add_launches(g.launches)
+        self._graphs.get(key, lambda: CapturedStep(
+            self._program, self.device, pool=self._graphs.shared_pool(),
+            args=(greedy, K, spec)))()
 
-    def _weights_links(self):
-        """What the captured graphs froze of the model: each submodule,
-        parameter and buffer slot as (its dict, name, a weak reference
-        to the value, the tensor's address), and each dict's size."""
-        links, sizes = [], []
-        for mod in self.model.modules():
-            for d in (mod._modules, mod._parameters, mod._buffers):
-                sizes.append((d, len(d)))
-                for k, v in d.items():
-                    links.append((d, k, None if v is None else weakref.ref(v),
-                                  v.data_ptr() if torch.is_tensor(v) else 0))
-        return links, sizes
-
-    def _weights_moved(self) -> bool:
-        """True when a module, parameter or buffer was replaced or moved
-        since the capture (weights quantized in place): its graphs would
-        read stale, perhaps freed, memory. A check of identities, cheaper
-        per dispatch than walking ``parameters()``."""
-        links, sizes = self._graph_links
-        for d, n in sizes:
-            if len(d) != n:
-                return True
-        for d, k, ref, ptr in links:
-            v = d.get(k)
-            if v is not (None if ref is None else ref()) or \
-                    (ptr and v.data_ptr() != ptr):
-                return True
-        return False
-
-    def _drop_graphs(self):
-        """Forget every captured program (new pools or state, new weights):
-        the next dispatch of each captures again."""
-        self._graphs = {}
-        self._graph_pool = None
-        self._graph_links = None
-
-    def _capture(self, greedy: bool, K: int, spec: bool) -> "_TickGraph":
-        """This dispatch runs the program eagerly, which also warms up
-        what must not happen inside a capture (kernel builds,
-        workspaces, library handles); then the program is captured into
-        a CUDA graph in the engine's private pool. The launches the
-        wrappers make while capturing do not run: this thread counts
-        them into the graph's record, added to the wrappers' counters at
-        each replay.
-
-        The warm-up runs on a side stream (on the current stream, the
-        int8 tick's graph gave other streams than its eager program,
-        bit for bit the host tick's with the side stream). Engines may
-        tick on their own threads (the gateway's replicas on distinct
-        models): the capture holds ``card_lock`` alone, so no other
-        engine launches meanwhile (they share the kernels' workspaces),
-        and the side stream first waits for the default stream, where
-        every engine's earlier work was enqueued. The capture itself runs
-        in ``thread_local`` mode: another thread's CUDA calls meanwhile
-        (a profiler's synchronize) do not invalidate it."""
-        dev = self.device
-        with card_lock.exclusive():
-            side = torch.cuda.Stream(device=dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self._program(greedy, K, spec)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            # the graph's node list is kept for inspection (chip_smoke.py
-            # counts its kernels by name)
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with capturing_launches() as captured:
-                with torch.cuda.graph(graph, pool=self._graph_pool,
-                                      capture_error_mode="thread_local"):
-                    self._program(greedy, K, spec)
-            graph.instantiate()
-            self.graph_pool_bytes += \
-                torch.cuda.memory_reserved(dev) - reserved
-        return _TickGraph(graph, captured, live_workspaces())
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Device memory the tick programs' captures reserved, summed."""
+        return self._graphs.graph_pool_bytes()
 
     def _sample_one(self, logits_row, seen_row, req):
         """The chosen token at a prefill's last live position."""

@@ -203,6 +203,17 @@ def gumbel_noise_rows(keys, vocab: int):
     return -torch.log(-torch.log(u))
 
 
+def row_keys(generator, b: int, device) -> torch.Tensor:
+    """[b, 2] int64 key rows (seed, counter 0), each row's seed drawn
+    from ``generator`` (a seed-0 generator on ``device`` when None)."""
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    seeds = torch.randint(0, 1 << 32, (b,), generator=generator,
+                          device=generator.device, dtype=torch.int64)
+    return torch.stack([seeds, torch.zeros_like(seeds)], 1).to(device)
+
+
 def sample_token_rows(logits, keys, temperature, top_k, top_p):
     """Per-row sampling for continuous batching. logits [R, V] (raw);
     keys [R, 2] int64 rows of (seed, counter); temperature [R] (<= 0:

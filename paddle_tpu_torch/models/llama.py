@@ -236,7 +236,7 @@ class LlamaAttention(nn.Module):
     def forward(self, x, rope, kv_cache=None, cache_index=None,
                 attn_mask=None, attn_start=None, segment_ids=None,
                 positions=None, paged_chunk: bool = False,
-                paged_decode: bool = False):
+                paged_decode: bool = False, cache_at=None):
         """``rope`` is the (cos, sin) pair of :func:`rotary_cos_sin`.
 
         With ``kv_cache`` a :class:`PagedKV` (the paged engine), this
@@ -247,10 +247,14 @@ class LlamaAttention(nn.Module):
         its row's earlier chunks too; a whole prompt is causal attention
         over itself (its pad tail lands in the garbage block).
 
-        With ``kv_cache`` = (k, v) [b, T, kv, d] tensors, this token's K/V
-        are written into the cache IN PLACE at ``cache_index`` (a Python
-        int; the JAX package returns an updated copy through
-        ``dynamic_update_slice``), and (out, (k, v)) is returned."""
+        With ``kv_cache`` = (k, v) [b, T, kv, d] tensors, this step's K/V
+        are written into the cache IN PLACE at ``cache_index`` (the JAX
+        package returns an updated copy through ``dynamic_update_slice``),
+        and (out, (k, v)) is returned. ``cache_index`` is a Python int, or
+        an integer tensor on the device of one index or one a row, read
+        nowhere on the host (a captured decode step replays at whatever
+        index it holds); then ``cache_at`` is the (rows [b, 1], positions
+        [b, s]) index pair the model built from it, where the K/V land."""
         cfg = self.config
         b, s, _ = x.shape
         nh, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -278,14 +282,20 @@ class LlamaAttention(nn.Module):
 
         if kv_cache is not None:
             ck, cv = kv_cache
-            cache_index = operator.index(cache_index)
-            ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
-            cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
+            on_device = torch.is_tensor(cache_index)
+            if on_device:
+                ck.index_put_(cache_at, k.to(ck.dtype))
+                cv.index_put_(cache_at, v.to(cv.dtype))
+            else:
+                cache_index = operator.index(cache_index)
+                ck[:, cache_index:cache_index + s] = k.to(ck.dtype)
+                cv[:, cache_index:cache_index + s] = v.to(cv.dtype)
             if s == 1 and attn_start is None:
-                # single-token decode: GQA-native decode kernel
+                # single-token decode: GQA-native decode kernel (at a
+                # device index, the kernel reads it on the device)
                 out = decode_attention(q, ck, cv, cache_index,
                                        window=self.window)
-            elif cache_index == 0 and attn_start is None \
+            elif not on_device and cache_index == 0 and attn_start is None \
                     and cfg.use_flash_attention \
                     and use_flash(q, k, None, 0.0):
                 # prefill at cache start: nothing earlier in the cache can
@@ -295,23 +305,27 @@ class LlamaAttention(nn.Module):
                 out = flash_attention(q, k.to(ck.dtype), v.to(cv.dtype),
                                       causal=True, window=self.window)
             else:
-                # prefill-with-cache and left-padded batches: mask
-                # positions beyond cache_index+s; with attn_start, also
+                # prefill-with-cache, left-padded batches and multi-token
+                # steps at a device index (the speculative verify): mask
+                # positions beyond each query's own; with attn_start, also
                 # mask each row's pad prefix out of the cache
                 total = ck.shape[1]
-                kpos = torch.arange(total, device=x.device)[None, :]
-                qpos = cache_index + torch.arange(s, device=x.device)[:, None]
-                mask = (kpos <= qpos)[None, None]
+                kpos = torch.arange(total, device=x.device)[None, None, :]
+                if on_device:
+                    qpos = cache_at[1][:, :, None]              # [b, s, 1]
+                else:
+                    qpos = cache_index + torch.arange(
+                        s, device=x.device)[None, :, None]      # [1, s, 1]
+                mask = kpos <= qpos
                 if self.window is not None:
-                    mask = mask & (qpos - kpos < self.window)[None, None]
+                    mask = mask & (qpos - kpos < self.window)
                 if attn_start is not None:
-                    pad_ok = kpos[None] >= attn_start[:, None, None]
+                    pad_ok = kpos >= attn_start[:, None, None]
                     # pad-prefix queries keep their own position: an
                     # all-masked softmax row is NaN, and the NaN would
                     # re-enter real rows in the next layer as 0 * NaN
-                    self_ok = (kpos == qpos)[None]
-                    mask = mask & (pad_ok | self_ok)[:, None]
-                out = dense_attention(q, ck, cv, attn_mask=mask)
+                    mask = mask & (pad_ok | (kpos == qpos))
+                out = dense_attention(q, ck, cv, attn_mask=mask[:, None])
             out = self.o_proj(out.reshape(b, s, nh * d))
             return out, (ck, cv)
 
@@ -367,14 +381,15 @@ class LlamaDecoderLayer(nn.Module):
     def forward(self, x, rope, kv_cache=None, cache_index=None,
                 attn_mask=None, attn_start=None, segment_ids=None,
                 positions=None, paged_chunk: bool = False,
-                paged_decode: bool = False):
+                paged_decode: bool = False, cache_at=None):
         attn_out = self.self_attn(self.input_layernorm(x), rope,
                                   kv_cache=kv_cache, cache_index=cache_index,
                                   attn_mask=attn_mask, attn_start=attn_start,
                                   segment_ids=segment_ids,
                                   positions=positions,
                                   paged_chunk=paged_chunk,
-                                  paged_decode=paged_decode)
+                                  paged_decode=paged_decode,
+                                  cache_at=cache_at)
         new_cache = None
         if kv_cache is not None:
             attn_out, new_cache = attn_out
@@ -414,10 +429,21 @@ class LlamaModel(nn.Module):
                 paged_decode: bool = False):
         cfg = self.config
         b, s = input_ids.shape
+        cache_at = None
+        if torch.is_tensor(cache_index):
+            # a device index: the cache rows and positions this step
+            # writes, built once for every layer
+            dev = input_ids.device
+            at = (cache_index.reshape(-1, 1).long()
+                  + torch.arange(s, device=dev)[None, :]).expand(b, s)
+            cache_at = (torch.arange(b, device=dev)[:, None], at)
         if positions is None:
-            start = cache_index if cache_index is not None else 0
-            positions = start + torch.arange(
-                s, device=input_ids.device)[None, :].expand(b, s)
+            if cache_at is not None:
+                positions = cache_at[1]
+            else:
+                start = cache_index if cache_index is not None else 0
+                positions = start + torch.arange(
+                    s, device=input_ids.device)[None, :].expand(b, s)
             if attn_start is not None:
                 # left-padded rows: RoPE position 0 sits at each row's
                 # first real token, not at the pad prefix
@@ -442,7 +468,7 @@ class LlamaModel(nn.Module):
                         cache_index=cache_index, attn_mask=attn_mask,
                         attn_start=attn_start, segment_ids=segment_ids,
                         positions=positions, paged_chunk=paged_chunk,
-                        paged_decode=paged_decode)
+                        paged_decode=paged_decode, cache_at=cache_at)
             if kv_caches is not None:
                 x, cache = out
                 new_caches.append(cache)

@@ -14,7 +14,8 @@ import math
 import torch
 
 from .kernels.decode_attention import HEAD_DIMS as _DECODE_HEAD_DIMS
-from .kernels.decode_attention import MAX_GROUP, decode_attention_fwd
+from .kernels.decode_attention import (MAX_GROUP, decode_attention_fwd,
+                                       valid_positions)
 from .kernels.flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
 from .kernels.flash_attention import FlashAttentionFunction
 from .kernels.ragged_paged_attention import HEAD_DIMS as _PAGED_HEAD_DIMS
@@ -62,7 +63,9 @@ def dense_attention(query, key, value, attn_mask=None, causal=False,
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
-    neg_inf = torch.tensor(float("-inf"), device=scores.device)
+    # a fill on the device, not a host copy: this runs inside captured
+    # decode programs (the speculative verify)
+    neg_inf = torch.full((), float("-inf"), device=scores.device)
     if causal:
         sk = k.shape[2]
         mask = torch.ones(sq, sk, dtype=torch.bool,
@@ -107,10 +110,11 @@ def use_decode_kernel(q, k_cache) -> bool:
             and d in _DECODE_HEAD_DIMS)
 
 
-def decode_attention(q, k_cache, v_cache, cache_index: int, scale=None,
+def decode_attention(q, k_cache, v_cache, cache_index, scale=None,
                      window=None):
     """Single-token decode over a static KV cache. q [b, 1, h, d];
-    k/v_cache [b, T, kv, d]; positions <= cache_index attend.
+    k/v_cache [b, T, kv, d]; positions <= cache_index attend (a Python
+    int, or an integer tensor on the device of one index or one a row).
 
     Both paths are GQA-native: neither repeats K/V per query head."""
     b, s, h, d = q.shape
@@ -129,12 +133,9 @@ def decode_attention(q, k_cache, v_cache, cache_index: int, scale=None,
     qg = q[:, 0].reshape(b, kv, g, d)
     scores = torch.einsum("bkgd,btkd->bkgt", qg.float(),
                           k_cache.float()) * scale
-    kpos = torch.arange(T, device=q.device)
-    mask = kpos <= cache_index
-    if window is not None:
-        mask = mask & (kpos > cache_index - window)
+    mask = valid_positions(T, cache_index, window, q.device)[:, None, None]
     scores = torch.where(mask, scores,
-                         torch.tensor(float("-inf"), device=q.device))
+                         torch.full((), float("-inf"), device=q.device))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", probs, v_cache)
     return out.reshape(b, 1, h, d)

@@ -114,15 +114,45 @@ def add_launches(counts) -> None:
                     fn.launches_by_route.get(route, 0) + k
 
 
-def live_workspaces():
-    """The workspaces the kernels hold now. A CUDA graph that captured
-    launches keeps them alive: a workspace grown later replaces the old
-    one in its module, whose memory would otherwise go back to the
-    allocator while the graph still writes it."""
-    from . import decode_attention, quant_matmul, ragged_paged_attention
-    return [t for mod in (decode_attention, quant_matmul,
-                          ragged_paged_attention)
-            for pair in mod._scratch.values() for t in pair]
+_workspaces: Dict[Tuple[str, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def workspace(kernel: str, dev: torch.device, floats: int, counters: int):
+    """``kernel``'s fp32 workspace of at least ``floats`` elements and its
+    int32 counters (at least ``counters``, all 0; the kernels leave them
+    at 0), kept per card. Each grows to the largest size asked of it so
+    far: calls whose needs alternate (a layer's seven projections) share
+    one pair instead of replacing it at every call. A thread inside
+    :func:`keeping_workspaces` (a CUDA-graph capture) records each pair
+    it is handed, so the graph keeps alive every workspace it writes: a
+    pair replaced later (grown) goes back to the allocator only once no
+    graph holds it."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    work, arrivals = _workspaces.get((kernel, idx), (None, None))
+    if work is None or work.numel() < floats or arrivals.numel() < counters:
+        floats = max(floats, 1, 0 if work is None else work.numel())
+        counters = max(counters, 1, 0 if work is None else arrivals.numel())
+        work = torch.empty(floats, dtype=torch.float32, device=dev)
+        arrivals = torch.zeros(counters, dtype=torch.int32, device=dev)
+        _workspaces[(kernel, idx)] = (work, arrivals)
+    kept = getattr(_capture, "kept", None)
+    if kept is not None:
+        kept[id(work)] = (work, arrivals)
+    return work, arrivals
+
+
+@contextlib.contextmanager
+def keeping_workspaces():
+    """Record, for the extent of the block, every workspace pair this
+    thread's kernel calls are handed (:func:`workspace`); yields the
+    record, {id: (workspace, counters)}."""
+    kept: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+    prev = getattr(_capture, "kept", None)
+    _capture.kept = kept
+    try:
+        yield kept
+    finally:
+        _capture.kept = prev
 
 
 def check_layout(**tensors: torch.Tensor) -> None:

@@ -47,12 +47,12 @@ from __future__ import annotations
 import ctypes
 import math
 import operator
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from . import (_build, check_layout, count_launch, sm_count, stream_of,
-               use_kernel)
+               use_kernel, workspace)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -67,9 +67,8 @@ MAX_SPLITS = 64     # the kernel's merge holds at most this many
 ROUTES = ("mma", "simt")
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-# per card: the (workspace, counters) scratch
-_scratch: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+             + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float]
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _check(q, k_cache, v_cache, cache_index, window):
@@ -91,7 +90,14 @@ def _check(q, k_cache, v_cache, cache_index, window):
     if h // kv > MAX_GROUP:
         raise ValueError(f"{h // kv} query heads per kv head; the kernel "
                          f"takes at most {MAX_GROUP}")
-    if not 0 <= cache_index < T:
+    if torch.is_tensor(cache_index):
+        if cache_index.is_floating_point() or cache_index.numel() not in (
+                1, b) or cache_index.device != q.device:
+            raise ValueError(
+                f"a tensor cache_index must hold 1 or {b} integers on "
+                f"{q.device}; got {cache_index.dtype} "
+                f"{tuple(cache_index.shape)} on {cache_index.device}")
+    elif not 0 <= operator.index(cache_index) < T:
         raise ValueError(f"cache_index {cache_index} outside [0, {T})")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -112,33 +118,33 @@ def decode_splits(T: int, pairs: int, sms: int) -> int:
     return max(1, min(-(-T // MIN_CHUNK), sms // pairs, MAX_SPLITS))
 
 
-def _scratch_for(dev: torch.device, floats: int, pairs: int):
-    """The card's fp32 workspace of at least ``floats`` elements and its
-    int32 counters (at least ``pairs``, all 0), grown when too small."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    work, arrivals = _scratch.get(idx, (None, None))
-    if work is None or work.numel() < floats or arrivals.numel() < pairs:
-        work = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
-        arrivals = torch.zeros(max(pairs, 1), dtype=torch.int32, device=dev)
-        _scratch[idx] = (work, arrivals)
-    return work, arrivals
+
+def valid_positions(T: int, cache_index, window=None, device=None):
+    """[1 or b, T] bool: the cache positions a row attends, 0 ..
+    cache_index (only the trailing ``window`` of them with a window), for
+    a host int or a tensor of one index or one a row."""
+    pos = torch.arange(T, device=device)[None, :]
+    # a host int stays one: no host-to-device copy (a captured graph
+    # refuses those)
+    ci = cache_index.reshape(-1, 1).long() if torch.is_tensor(cache_index) \
+        else operator.index(cache_index)
+    keep = pos <= ci
+    if window is not None:
+        keep = keep & (pos > ci - window)
+    return keep
 
 
-def decode_attention_fwd_plain(q, k_cache, v_cache, cache_index: int,
+def decode_attention_fwd_plain(q, k_cache, v_cache, cache_index,
                                scale: Optional[float] = None, window=None):
     """The same function in plain PyTorch, over the whole cache: [b, h, d]
     in q's dtype."""
-    cache_index = operator.index(cache_index)
     _check(q, k_cache, v_cache, cache_index, window)
     b, h, d = q.shape
     T, kv = k_cache.shape[1], k_cache.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     qg = q.float().reshape(b, kv, h // kv, d)
     s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * scale
-    pos = torch.arange(T, device=q.device)
-    keep = pos <= cache_index
-    if window is not None:
-        keep = keep & (pos > cache_index - window)
+    keep = valid_positions(T, cache_index, window, q.device)[:, None, None]
     s = torch.where(keep, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -149,15 +155,17 @@ def decode_attention_fwd_plain(q, k_cache, v_cache, cache_index: int,
 
 
 def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, cache_index: int,
+                         v_cache: torch.Tensor, cache_index,
                          scale: Optional[float] = None,
                          window: Optional[int] = None) -> torch.Tensor:
-    """q [b, h, d]; k/v_cache [b, T, kv, d]; ``cache_index`` is a Python
-    int, the write position of the current token. Returns [b, h, d].
+    """q [b, h, d]; k/v_cache [b, T, kv, d]; ``cache_index`` is the write
+    position of the current token: a Python int, or an integer tensor on
+    the device of one index or one a row (read by the kernel on the
+    device; int32 is taken as it is, other types are cast). Returns
+    [b, h, d].
 
     CPU tensors take :func:`decode_attention_fwd_plain`; CUDA tensors
     launch the kernel, on the current stream, or raise."""
-    cache_index = operator.index(cache_index)
     _check(q, k_cache, v_cache, cache_index, window)
     if not use_kernel(q, k_cache, v_cache):
         return decode_attention_fwd_plain(q, k_cache, v_cache, cache_index,
@@ -167,17 +175,25 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     T, kv = k_cache.shape[1], k_cache.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     splits = decode_splits(T, b * kv, sm_count(q))
-    work, arrivals = _scratch_for(q.device, b * kv * splits * (h // kv)
-                                  * (d + 2), b * kv)
+    work, arrivals = workspace("decode_attention", q.device,
+                               b * kv * splits * (h // kv) * (d + 2), b * kv)
     route = decode_route(q.dtype)
+    host_ci, ci_dev, ci_stride = 0, None, 0
+    if torch.is_tensor(cache_index):
+        ci_dev = cache_index.reshape(-1)
+        if ci_dev.dtype != torch.int32 or not ci_dev.is_contiguous():
+            ci_dev = ci_dev.to(torch.int32).contiguous()
+        ci_stride = 0 if ci_dev.numel() == 1 else 1
+    else:
+        host_ci = operator.index(cache_index)
     out = torch.empty_like(q)
     fn = _build.entry("decode_attention", f"decode_attention_fwd_{route}",
                       _ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), work.data_ptr(), arrivals.data_ptr(), b, T, h,
-            kv, d, cache_index, float(scale),
-            0 if window is None else int(window), splits, DTYPES[q.dtype],
-            stream_of(q))
+            kv, d, host_ci, None if ci_dev is None else ci_dev.data_ptr(),
+            ci_stride, float(scale), 0 if window is None else int(window),
+            splits, DTYPES[q.dtype], stream_of(q))
     _build.check("decode_attention", rc)
     count_launch(decode_attention_fwd, route)
     return out

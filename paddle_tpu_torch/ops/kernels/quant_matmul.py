@@ -54,12 +54,11 @@ No atomics decide an order of sums: both repeat bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
 
 import torch
 
 from . import (_build, check_layout, count_launch, sm_count, stream_of,
-               use_kernel)
+               use_kernel, workspace)
 
 QUANT_BLOCK = 128   # code rows per scale (quantize_blockwise block_size)
 MAX_ROWS = 64       # the gate's largest m
@@ -74,8 +73,6 @@ ROUTES = ("mma", "simt")
 _ARGTYPES = {
     "simt": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "mma": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
-# per card: the mma kernel's (workspace, counters) scratch
-_scratch: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def use_quant_matmul(x2d, qweight, block_size: int) -> bool:
@@ -154,20 +151,6 @@ def _mma_rows(m: int) -> int:
     return next(n for n in (8, 16, 32, 64) if m <= n or n == 64)
 
 
-def _scratch_for(dev: torch.device, floats: int, counters: int):
-    """The card's fp32 workspace of at least ``floats`` elements and its
-    int32 counters (at least ``counters``, all 0), grown when too
-    small."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    work, arrivals = _scratch.get(idx, (None, None))
-    if (work is None or work.numel() < floats
-            or arrivals.numel() < counters):
-        work = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
-        arrivals = torch.zeros(max(counters, 1), dtype=torch.int32,
-                               device=dev)
-        _scratch[idx] = (work, arrivals)
-    return work, arrivals
-
 
 def splits_for(m: int, din: int, dout: int, sms: int) -> int:
     """Contraction splits: as many blocks as fit in one wave at three a
@@ -207,8 +190,9 @@ def quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
     if route == "mma":
         splits = mma_splits(m, din, dout, sm_count(x), bits)
         tiles = -(-dout // MMA_COLS) * -(-m // MMA_ROWS)
-        work, arrivals = _scratch_for(
-            x.device, tiles * splits * _mma_rows(m) * MMA_COLS, tiles)
+        work, arrivals = workspace(
+            "quant_matmul", x.device,
+            tiles * splits * _mma_rows(m) * MMA_COLS, tiles)
         rc = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
                 out.data_ptr(), work.data_ptr(), arrivals.data_ptr(), m,
                 din, dout, bits, splits, DTYPES[x.dtype], stream_of(x))

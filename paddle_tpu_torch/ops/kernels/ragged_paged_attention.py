@@ -56,12 +56,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from . import (_build, check_layout, count_launch, sm_count, stream_of,
-               use_kernel)
+               use_kernel, workspace)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -79,8 +79,6 @@ _ARGTYPES = {
                 ctypes.c_void_p]),
     "mma": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])}
-# per card: the mma kernel's (workspace, counters) scratch
-_scratch: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def ragged_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -186,20 +184,6 @@ def query_windows(T: int, group: int):
     size = -(-T // n)
     return [(t, min(t + size, T)) for t in range(0, T, size)]
 
-
-def _scratch_for(dev: torch.device, floats: int, counters: int):
-    """The card's fp32 workspace of at least ``floats`` elements and its
-    int32 counters (at least ``counters``, all 0), grown when too
-    small."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    work, arrivals = _scratch.get(idx, (None, None))
-    if (work is None or work.numel() < floats
-            or arrivals.numel() < counters):
-        work = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
-        arrivals = torch.zeros(max(counters, 1), dtype=torch.int32,
-                               device=dev)
-        _scratch[idx] = (work, arrivals)
-    return work, arrivals
 
 
 def _check(q, kp, vp, block_tables, seq_lens, window):
@@ -326,8 +310,8 @@ def _launch(route, q, kp, vp, block_tables, seq_lens, scale, window,
         nc = -(-M // chunk)
         groups = -(-kvh // min(kvh, HEADS_PER_BLOCK))
         span = -(-T * (h // kvh) * (d + 2) // 4) * 4  # one partial
-        work, arrivals = _scratch_for(q.device, R * kvh * nc * span,
-                                      R * groups)
+        work, arrivals = workspace("ragged_paged_attention", q.device,
+                                   R * kvh * nc * span, R * groups)
         rc = fn(*ptrs, work.data_ptr(), arrivals.data_ptr(), R, T, h, kvh,
                 d, M, B, float(scale), window, chunk, DTYPES[q.dtype],
                 stream_of(q))

@@ -226,7 +226,7 @@ def test_steady_spec_tick_is_one_replay(cuda_card, monkeypatch, k, mode):
     assert ticks == 6
     assert eng.dispatch_count - d0 == ticks and eng.h2d_uploads == u0
     assert ragged_paged_attention.launches_by_route["mma"] == L * ticks
-    names, _ = _graph_nodes()(eng._graphs[(True, "spec", mode)].graph)
+    names, _ = _graph_nodes()(eng._graphs[(True, "spec", mode)].graph.graph)
     assert sum("ragged_" in n.lower() for n in names) == L
     eng.run()
 
