@@ -159,7 +159,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, then step times with prefetch depth 0 against 2. Last, with
    recompute=True the loss and gradients must equal those without, and
    2 steps must run the flash forward twice per layer and step and give
-   the same losses.
+   the same losses. The Trainer runs at the JAX package's defaults
+   (graceful shutdown on), and Adam / AdamW update every tensor in one
+   launch of the fused kernel (``csrc/fused_adam.cu``): its count is one a
+   step. Beside the kernel checks, the fused update against its plain
+   version on the card (``[adam]`` lines: bf16 with fp32 masters and a
+   clip, fp32 without masters, fp16 with an inverse loss scale, decay on
+   some tensors, a set ``found_inf`` writing nothing, bits repeating) and
+   its time at the 4-layer training tensors beside the plain version,
+   ``torch.optim.AdamW(fused=True)`` and the bound. The feed A/B has a
+   third arm, a DataLoader with two spawned workers. Then (``[resume]``)
+   full width cut to 1 layer: 4 steps uninterrupted, a fresh run
+   preempted at step 3 (``SystemExit(76)``, a ~17.8 GB checkpoint), a
+   fresh Trainer resumed to step 4, whose final loss must be within 1e-6
+   of the uninterrupted run's; and (``[fp16]``) the 4-layer model in fp16
+   with fp32 masters and a GradScaler at its defaults for 10 steps (a
+   skipped step must keep every parameter; a forced step at scale 2^40
+   must be skipped), through the fp16 wgmma kernels.
 
 10. weight-only quantized serving (the kernel phases run beside 3 and 4):
    the quant kernel against its plain version at every Llama-3-8B
@@ -186,7 +202,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
-forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid),
+forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
+``cuda-simt`` for the fused AdamW update),
 then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the ``paddle_tpu_torch`` package beside it, it exits
@@ -295,7 +312,43 @@ MMA_KERNELS = {"quant_matmul": ("qmm_mma_kernel",),
                "paged_attention": ("grid_mma_kernel",)}
 # every kernel's launch count, each 0
 NO_LAUNCHES = dict.fromkeys(("flash", "decode", "ragged", "flash_bwd_dq",
-                             "flash_bwd_dkv", "quant", "grid"), 0)
+                             "flash_bwd_dkv", "quant", "grid",
+                             "fused_adamw"), 0)
+# the fused Adam / AdamW update (csrc/fused_adam.cu). It replaces the
+# update XLA fuses inside the JAX package's jitted train step (no
+# pallas_call)
+ADAM_SOURCE = "paddle_tpu_torch/csrc/fused_adam.cu"
+ADAM_REPLACES = ("paddle_tpu/optimizer/optimizers.py:182 (Adam._update, "
+                 "XLA-fused in the jitted step; not a pallas_call)")
+# kernel vs plain version, max |d| over a tensor against max |ref| of it.
+# Both round every fp32 op on its own at the same points, but PyTorch
+# divides a CUDA tensor by a Python scalar through its reciprocal, so
+# the update may differ by an ulp, and the fp32 master by an ulp of its
+# largest element (2^-22 leaves a factor of 2; m and v take no
+# division); a 16-bit parameter is the master rounded once, so one step
+# of its type where a master's ulp crosses a rounding boundary. (The CPU
+# tests hold the plain version to the JAX package's Adam within 1e-6.)
+TOL_ADAM = {torch.float32: 2.0 ** -22, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}
+# fp32 operations an element of the update, for its bound (the clip's
+# multiply, m 3, v 4, the bias-corrected step 5, decay 2, the master 2),
+# at the H100's fp32 rate outside the tensor cores
+ADAM_OPS = 17
+FP32_FLOP_PER_S = 67e12
+# the optimizer's device ms in the profiled 4-layer train step before
+# this kernel (the per-tensor eager update, as this script's profile
+# measured it on an NVIDIA H100 80GB HBM3 at 700 W)
+ADAM_BEFORE_MS = "64.42-64.97"
+# the resume phase: full width, depth cut to 1 layer (a checkpoint of
+# ~17.8 GB: bf16 params, fp32 masters, m and v), 4 steps
+RESUME_LAYERS = 1
+RESUME_STEPS = 4
+RESUME_PREEMPT = 3
+# the resumed run's final loss against the uninterrupted run's (the JAX
+# package's tests/test_preemption.py bound)
+TOL_RESUME = 1e-6
+# the fp16 phase: full width, 4 layers, 10 steps, GradScaler defaults
+FP16_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -1385,6 +1438,7 @@ def _reset_launches():
         decode_attention_fwd
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
     from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
     from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
     from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
@@ -1393,7 +1447,8 @@ def _reset_launches():
            "ragged": ragged_paged_attention,
            "flash_bwd_dq": flash_attention_bwd_dq,
            "flash_bwd_dkv": flash_attention_bwd_dkv,
-           "quant": quant_matmul, "grid": paged_attention}
+           "quant": quant_matmul, "grid": paged_attention,
+           "fused_adamw": fused_adam}
     for fn in fns.values():
         fn.launches = 0
         if hasattr(fn, "launches_by_route"):
@@ -3761,8 +3816,7 @@ def phase_train_small(dev):
     n0 = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
     for m in (gpu, cpu):
         args = ptt.TrainingArguments(output_dir="output/chip_smoke_small",
-                                     max_steps=1, logging_steps=1,
-                                     graceful_shutdown=False)
+                                     max_steps=1, logging_steps=1)
         tr = ptt.Trainer(m, ptt.optimizer.SGD(learning_rate=1.0), args,
                          train_dataloader=batch)
         tr.train()
@@ -3791,14 +3845,19 @@ def phase_train_small(dev):
              "backward kernels")
 
 
-def _train_model(seed, dev, **overrides):
+def _train_model(seed, dev, layers=TRAIN_LAYERS, **overrides):
     import paddle_tpu_torch as ptt
-    cfg = ptt.llama3_8b(num_hidden_layers=TRAIN_LAYERS, **overrides)
+    cfg = ptt.llama3_8b(num_hidden_layers=layers, **overrides)
     return ptt.LlamaForCausalLM(cfg, device=dev,
                                 generator=ptt.make_generator(seed, dev))
 
 
-def _trainer(model, batches, steps, clock=None, prefetch_depth=2):
+def _trainer(model, batches, steps, clock=None, prefetch_depth=2,
+             output_dir="output/chip_smoke_train", scaler=None, **kw):
+    """The training slice's Trainer at the JAX package's defaults
+    (graceful shutdown on, resume on when save_steps is set): AdamW with
+    fp32 masters, weight decay 0.01, a 2-step warm-up into a cosine over
+    10, global-norm clipping at 1.0, logging every step."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.optimizer import lr
     sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=10),
@@ -3806,15 +3865,15 @@ def _trainer(model, batches, steps, clock=None, prefetch_depth=2):
     opt = ptt.optimizer.AdamW(
         learning_rate=sched, weight_decay=0.01, multi_precision=True,
         grad_clip=ptt.optimizer.ClipGradByGlobalNorm(1.0))
-    args = ptt.TrainingArguments(output_dir="output/chip_smoke_train",
-                                 max_steps=steps, logging_steps=1,
-                                 prefetch_depth=prefetch_depth,
-                                 graceful_shutdown=False)
+    args = ptt.TrainingArguments(output_dir=output_dir, max_steps=steps,
+                                 logging_steps=1,
+                                 prefetch_depth=prefetch_depth, **kw)
     return ptt.Trainer(model, opt, args, train_dataloader=batches,
-                       callbacks=[clock] if clock else None)
+                       callbacks=[clock] if clock else None, scaler=scaler)
 
 
-def profile_train_step(tr, step_ms, card):
+def profile_train_step(tr, step_ms, card,
+                       label="train step (4 layers, [2,2048])"):
     """torch.profiler over one more step of the trainer: device time by
     kind (weight matmuls, flash forward, dq, dk/dv, the optimizer's clip
     and update, other elementwise) and the device's busy share of the
@@ -3854,16 +3913,21 @@ def profile_train_step(tr, step_ms, card):
     if not kernels:
         log("[profile] torch.profiler recorded no device events: train step "
             "split not measured")
-        return
+        return None
     busy = sum(cats.values())
     note = ("" if opt else " (no device-side optimizer range: the optimizer "
             "is not measured apart and is counted in other)")
-    log(f"[profile] train step (4 layers, [2,2048]): under the profiler "
+    fused = sum(e.time_range.elapsed_us() / 1e3 for e in kernels
+                if "fused_adam" in e.name)
+    log(f"[profile] {label}: under the profiler "
         f"{wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / step_ms:.1f}"
         f" % of the unprofiled median step {step_ms:.1f} ms), "
         f"{len(kernels)} device ops; "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in cats.items()) + note
-        + f" [{card}]")
+        + f"; the optimizer's {cats['optimizer']:.2f} ms hold the fused "
+        f"update kernel's {fused:.2f} ms (the per-tensor update before it: "
+        f"{ADAM_BEFORE_MS} ms) [{card}]")
+    return cats
 
 
 def phase_train(seed, dev, card):
@@ -3917,8 +3981,10 @@ def phase_train(seed, dev, card):
     launches = read()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     L = cfg.num_hidden_layers
+    # the fused update: one launch a step (one parameter/gradient type)
     want = dict(NO_LAUNCHES, flash=L * TRAIN_STEPS,
-                flash_bwd_dq=L * TRAIN_STEPS, flash_bwd_dkv=L * TRAIN_STEPS)
+                flash_bwd_dq=L * TRAIN_STEPS, flash_bwd_dkv=L * TRAIN_STEPS,
+                fused_adamw=TRAIN_STEPS)
     losses = [v for _, v in tr.logger.history["loss"]]
     log(f"[train] launches in {TRAIN_STEPS} steps: {launches} (want {want})")
     log(f"[train] losses per step: " + ", ".join(f"{x:.4f}" for x in losses))
@@ -3927,6 +3993,8 @@ def phase_train(seed, dev, card):
     routes = _check_routes("train", flash=L * TRAIN_STEPS,
                            flash_bwd_dq=L * TRAIN_STEPS,
                            flash_bwd_dkv=L * TRAIN_STEPS)
+    from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
+    routes["fused_adamw"] = dict(fused_adam.launches_by_route)
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail("training loss is not finite at every step")
     if not losses[-1] < losses[0]:
@@ -3951,25 +4019,37 @@ def phase_train(seed, dev, card):
     torch.cuda.empty_cache()
 
     # the feed: the same model trained on by fresh Trainers that prefetch
-    # (depth 2, the default) or feed inline (depth 0), in the order 0, 2,
-    # 2, 0; the median of each run's steps 3 to FEED_STEPS
-    feed = {0: [], 2: []}
-    for depth in (0, 2, 2, 0):
+    # (depth 2, the default) or feed inline (depth 0) from the batch list,
+    # or prefetch from a DataLoader with two spawned workers over the same
+    # token rows, in the order 0, 2, loader, loader, 2, 0; the median of
+    # each run's steps 3 to FEED_STEPS
+    from paddle_tpu_torch.io import DataLoader, Subset
+    rows = np.concatenate(batches)
+    feed = {0: [], 2: [], "loader": []}
+    for arm in (0, 2, "loader", "loader", 2, 0):
         clock = StepClock()
-        tr = _trainer(model, batches, FEED_STEPS, clock, depth)
+        data = batches
+        if arm == "loader":
+            data = DataLoader(Subset(rows, list(range(len(rows)))),
+                              batch_size=TRAIN_BATCH[0], num_workers=2,
+                              persistent_workers=True)
+        tr = _trainer(model, data, FEED_STEPS, clock, 0 if arm == 0 else 2)
         torch.cuda.synchronize()
         clock.t = [time.perf_counter()]
         tr.train()
         torch.cuda.synchronize()
-        feed[depth].append(float(np.median(np.diff(clock.t)[2:])) * 1e3)
-        del tr
+        feed[arm].append(float(np.median(np.diff(clock.t)[2:])) * 1e3)
+        if arm == "loader":
+            data.shutdown()
+        del tr, data
         gc.collect()
         torch.cuda.empty_cache()
     log(f"[train] feed A/B, median step ms of steps 3-{FEED_STEPS} (host "
-        f"clock, loss synced), runs in the order 0, 2, 2, 0: "
-        f"prefetch_depth=0 " + ", ".join(f"{x:.2f}" for x in feed[0])
+        f"clock, loss synced), runs in the order 0, 2, loader, loader, 2, "
+        f"0: prefetch_depth=0 " + ", ".join(f"{x:.2f}" for x in feed[0])
         + "; prefetch_depth=2 " + ", ".join(f"{x:.2f}" for x in feed[2])
-        + f" [{card}]")
+        + "; DataLoader(num_workers=2) with prefetch_depth=2 "
+        + ", ".join(f"{x:.2f}" for x in feed["loader"]) + f" [{card}]")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4007,7 +4087,7 @@ def phase_train(seed, dev, card):
     rc_peak = torch.cuda.max_memory_allocated(dev) / 1e9
     rc_losses = [v for _, v in tr.logger.history["loss"]]
     want_rc = dict(NO_LAUNCHES, flash=2 * L * 2, flash_bwd_dq=L * 2,
-                   flash_bwd_dkv=L * 2)
+                   flash_bwd_dkv=L * 2, fused_adamw=2)
     log(f"[train] recompute=True (full), 2 steps: launches {rc} (want "
         f"{want_rc}); losses {rc_losses[0]:.4f}, {rc_losses[1]:.4f} (plain "
         f"run {losses[0]:.4f}, {losses[1]:.4f}); peak memory {rc_peak:.2f} GB"
@@ -4023,6 +4103,425 @@ def phase_train(seed, dev, card):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, routes
+
+
+# ----------------------------------------------- the fused optimizer update
+# tensors of the checks: Llama-3-8B projection shapes, a norm, and sizes
+# that leave ragged tails (not multiples of 4 nor of the 2048-element chunk)
+ADAM_CHECK_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096,),
+                     (4099, 7), (3,))
+ADAM_HYPER = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8,
+                  weight_decay=0.1, step=5)
+
+
+def _adam_case(gen, dev, shapes, pdtype, gdtype, masters):
+    """Parameters, gradients, masters, m and v from the generator, the
+    state as after a few steps (m and v nonzero)."""
+    ws = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    grads = [(torch.randn(s, generator=gen, device=dev) * 1e-2).to(gdtype)
+             for s in shapes]
+    ms = [torch.randn(s, generator=gen, device=dev) * 1e-3 for s in shapes]
+    vs = [(torch.randn(s, generator=gen, device=dev) * 1e-3).square()
+          for s in shapes]
+    return ([w.to(pdtype) for w in ws], grads,
+            [w.clone() for w in ws] if masters else None, ms, vs)
+
+
+def _adam_clone(case):
+    params, grads, masters, ms, vs = case
+    return ([t.clone() for t in params], grads,
+            None if masters is None else [t.clone() for t in masters],
+            [t.clone() for t in ms], [t.clone() for t in vs])
+
+
+def phase_adam_checks(gen, dev):
+    """The fused update against its plain version on the card, on the same
+    inputs: (a) bf16 parameters with fp32 masters, AdamW, a clip scale of
+    0.37; (b) fp32 parameters without masters, Adam (L2 decay); (c) fp16
+    parameters with masters and a GradScaler's inverse scale 2^-15 (fp16
+    gradients scaled up by 2^15); decay on every other tensor; then (d)
+    ``found_inf`` set: every byte of every tensor unchanged. Each case
+    also repeats bit for bit. Returns the largest |d| of case (a)'s
+    parameters and masters (the main path's case)."""
+    from paddle_tpu_torch.ops.kernels.fused_adam import (
+        fused_adam, fused_adam_reference)
+    cases = {
+        "a bf16 + fp32 masters, AdamW, clip 0.37": (
+            torch.bfloat16, torch.bfloat16, True, True,
+            dict(clip_scale=torch.tensor(0.37, device=dev))),
+        "b fp32, no masters, Adam L2": (
+            torch.float32, torch.float32, False, False, {}),
+        "c fp16 + fp32 masters, AdamW, inv_scale 2^-15": (
+            torch.float16, torch.float16, True, True,
+            dict(inv_scale=torch.tensor(2.0 ** -15, device=dev))),
+    }
+    decay = [i % 2 == 0 for i in range(len(ADAM_CHECK_SHAPES))]
+    main_err = None
+    for label, (pd, gd, masters, decoupled, scalars) in cases.items():
+        case = _adam_case(gen, dev, ADAM_CHECK_SHAPES, pd, gd, masters)
+        if "inv_scale" in scalars:
+            case = (case[0], [(g.float() * 2.0 ** 15).to(gd)
+                              for g in case[1]]) + case[2:]
+        kw = dict(ADAM_HYPER, decoupled=decoupled, **scalars)
+        runs = [_adam_clone(case) for _ in range(3)]
+        fused_adam(*runs[0], decay, **kw)
+        fused_adam(*runs[1], decay, **kw)
+        fused_adam_reference(*runs[2], decay, **kw)
+        torch.cuda.synchronize()
+        kern, again, plain = runs
+        repeat = all(torch.equal(a, b) for a, b in zip(
+            kern[0] + (kern[2] or []) + kern[3] + kern[4],
+            again[0] + (again[2] or []) + again[3] + again[4]))
+        worst, err = {}, 0.0
+        groups = {"param": (kern[0], plain[0], pd),
+                  "m": (kern[3], plain[3], torch.float32),
+                  "v": (kern[4], plain[4], torch.float32)}
+        if masters:
+            groups["master"] = (kern[2], plain[2], torch.float32)
+        for name, (got, want, dt) in groups.items():
+            share = 0.0
+            for a, b in zip(got, want):
+                d = max_err(a, b)
+                share = max(share, d / (TOL_ADAM[dt] * float(
+                    b.float().abs().max()) + 1e-30))
+                if name in ("param", "master"):
+                    err = max(err, d)
+            worst[name] = share
+        log(f"[adam] {label}: max |d| / tol by tensor kind "
+            + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+            + f" (tol {TOL_ADAM[pd]:.3g} x max|ref| for the "
+            f"{str(pd).split('.')[1]} parameters, {TOL_ADAM[torch.float32]:.3g}"
+            f" for fp32 state); max |d| of parameters and masters "
+            f"{err:.3e}; repeat bitwise {repeat}")
+        if max(worst.values()) > 1.0 or not repeat:
+            fail(f"fused Adam {label}: disagrees with its plain version or "
+                 f"does not repeat")
+        if main_err is None:
+            main_err = err
+        del runs, case
+    case = _adam_case(gen, dev, ADAM_CHECK_SHAPES, torch.bfloat16,
+                      torch.bfloat16, True)
+    before = _adam_clone(case)
+    fused_adam(*case, decay, decoupled=True,
+               inv_scale=torch.tensor(1.0, device=dev),
+               found_inf=torch.tensor(True, device=dev), **ADAM_HYPER)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(case[0] + case[2] + case[3] + case[4],
+                               before[0] + before[2] + before[3]
+                               + before[4]))
+    log(f"[adam] d found_inf set: every byte unchanged {same}")
+    if not same:
+        fail("fused Adam wrote with found_inf set")
+    return main_err
+
+
+def phase_adam_times(seed, dev, card):
+    """The fused update at the 4-layer training tensors (bf16 parameters
+    of Llama-3-8B width, 4 layers, fp32 masters, AdamW, a clip scale):
+    the kernel, its plain version (tensor by tensor) and
+    ``torch.optim.AdamW(fused=True)`` stepping fp32 copies with their own
+    fp32 gradients (the same 28 bytes a parameter), in turns (kernel,
+    plain, library, library, plain, kernel), CUDA events over 3 calls a
+    turn; beside the bound from this run's parameter count."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops.kernels.fused_adam import (
+        fused_adam, fused_adam_reference)
+    model = _train_model(seed, dev)
+    params = [p.detach() for p in model.parameters()]
+    n = sum(p.numel() for p in params)
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    grads = [(torch.randn(p.shape, generator=gen, device=dev) * 1e-3)
+             .to(p.dtype) for p in params]
+    masters = [p.float() for p in params]
+    ms = [torch.zeros_like(m) for m in masters]
+    vs = [torch.zeros_like(m) for m in masters]
+    decay = [p.dim() > 1 for p in params]
+    clip = torch.tensor(0.5, device=dev)
+    cache = {}
+    kw = dict(ADAM_HYPER, decoupled=True, clip_scale=clip)
+    lib_params = [torch.nn.Parameter(m) for m in masters]
+    for lp, g in zip(lib_params, grads):
+        lp.grad = g.float()
+    lib = torch.optim.AdamW(lib_params, lr=ADAM_HYPER["lr"],
+                            betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                            fused=True)
+    fns = {"kernel": lambda i: fused_adam(params, grads, masters, ms, vs,
+                                          decay, cache=cache, **kw),
+           "plain": lambda i: fused_adam_reference(params, grads, masters,
+                                                   ms, vs, decay, **kw),
+           "library": lambda i: lib.step()}
+    times = {k: [] for k in fns}
+    for name in ("kernel", "plain", "library", "library", "plain",
+                 "kernel"):
+        times[name].append(cuda_ms(fns[name], iters=3, warmup=1))
+    el = {k: float(np.mean(v)) for k, v in times.items()}
+    nbytes = sum(p.numel() * (p.element_size() + g.element_size() + 24)
+                 for p, g in zip(params, grads))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ADAM_OPS * n / FP32_FLOP_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[adam] update of {n / 1e9:.3f} B parameters (Llama-3-8B width, "
+        f"{TRAIN_LAYERS} layers, {len(params)} tensors, bf16 + fp32 masters,"
+        f" AdamW, clip): kernel " + ", ".join(f"{x:.3f}" for x in
+                                             times["kernel"])
+        + " ms; plain " + ", ".join(f"{x:.3f}" for x in times["plain"])
+        + " ms; torch.optim.AdamW(fused=True) on fp32 copies "
+        + ", ".join(f"{x:.3f}" for x in times["library"])
+        + f" ms; bound {bound_ms:.3f} ms ({bound_by}: {nbytes / 1e9:.2f} GB "
+        f"at 3.35 TB/s) -> kernel at {100 * bound_ms / el['kernel']:.1f} % "
+        f"of the bound; the per-tensor update before this kernel "
+        f"{ADAM_BEFORE_MS} ms [{card}]")
+    del model, params, grads, masters, ms, vs, lib, lib_params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ms=el["kernel"], plain_ms=el["plain"],
+                library_ms=el["library"], bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def _dir_gb(path) -> float:
+    total = 0
+    for root, _, names in os.walk(path):
+        total += sum(os.path.getsize(os.path.join(root, n)) for n in names)
+    return total / 1e9
+
+
+def phase_resume(seed, dev, card):
+    """Preempt and resume at full width with the depth cut to
+    RESUME_LAYERS (a checkpoint of about 17.8 GB, written to this
+    machine's disk): a DataLoader with a shuffled sampler, the Trainer at
+    its defaults with save_steps=100, RESUME_STEPS steps uninterrupted;
+    then a fresh run with ``faults.scoped("preempt@3")``, which must exit
+    with SystemExit(76) after checkpointing step 3; then a fresh Trainer
+    that resumes (the sampler restored in O(1)) to step RESUME_STEPS.
+    Its final loss must be within TOL_RESUME of the uninterrupted run's;
+    the counts of the resumed run (set to 0 just before it) must show
+    its one step through the flash kernels and the fused update. The
+    checkpoint directory is removed."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.io import DataLoader, RandomSampler, Subset
+    from paddle_tpu_torch.utils import faults
+    from paddle_tpu_torch.utils.shutdown import PREEMPTED_RC
+    root = os.path.abspath("output/chip_smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    vocab = ptt.llama3_8b().vocab_size
+    rows = np.random.RandomState(seed + 40).randint(
+        0, vocab, (4 * TRAIN_BATCH[0], TRAIN_BATCH[1]))
+
+    def run(out, preempt=None, timed=None):
+        model = _train_model(seed, dev, layers=RESUME_LAYERS)
+        ds = Subset(rows, list(range(len(rows))))
+        dl = DataLoader(ds, batch_size=TRAIN_BATCH[0],
+                        sampler=RandomSampler(ds, generator=seed + 41))
+        tr = _trainer(model, dl, RESUME_STEPS, output_dir=out,
+                      save_steps=100)
+        if timed is not None:
+            inner = tr._try_resume
+
+            def resume(*a, **k):
+                t0 = time.perf_counter()
+                torch.cuda.synchronize()
+                step = inner(*a, **k)
+                torch.cuda.synchronize()
+                timed["restore_s"] = time.perf_counter() - t0
+                return step
+            tr._try_resume = resume
+        code = None
+        if preempt is None:
+            tr.train()
+        else:
+            with faults.scoped(preempt):
+                try:
+                    tr.train()
+                except SystemExit as e:   # the preemption exit itself
+                    code = e.code
+        torch.cuda.synchronize()
+        return tr, code
+
+    ref, _ = run(os.path.join(root, "ref"))
+    ref_losses = [v for _, v in ref.logger.history["loss"]]
+    n_params = sum(p.numel() for p in ref.model.parameters())
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = os.path.join(root, "run")
+    free0 = shutil.disk_usage(root).free / 1e9
+    t0 = time.perf_counter()
+    tr, code = run(out, preempt=f"preempt@{RESUME_PREEMPT}")
+    preempt_s = time.perf_counter() - t0
+    save = dict(tr._ckpt.last_save) if tr._ckpt is not None else {}
+    step_dir = os.path.join(out, "checkpoints", str(RESUME_PREEMPT))
+    gb = _dir_gb(step_dir) if os.path.isdir(step_dir) else 0.0
+    free1 = shutil.disk_usage(root).free / 1e9
+    stopped = tr.global_step
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[resume] Llama-3-8B width, {RESUME_LAYERS} layer(s) (depth cut "
+        f"from 32 for the checkpoint's size on this machine's disk), "
+        f"{n_params / 1e9:.3f} B params: preempt@{RESUME_PREEMPT} -> "
+        f"SystemExit({code}) at step {stopped}; checkpoint of step "
+        f"{RESUME_PREEMPT}: {gb:.2f} GB written, host copy "
+        f"{save.get('snapshot_s', float('nan')):.2f} s + files, sha256 and "
+        f"commit {save.get('write_s', float('nan')):.2f} s (the run "
+        f"{preempt_s:.1f} s in all); free disk {free0:.1f} GB before, "
+        f"{free1:.1f} GB after [{card}]")
+    if code != PREEMPTED_RC or stopped != RESUME_PREEMPT or not gb:
+        fail(f"resume: the preempted run exited {code} at step {stopped} "
+             f"(want SystemExit({PREEMPTED_RC}) at step {RESUME_PREEMPT} "
+             f"with a checkpoint)")
+
+    timed = {}
+    read = _reset_launches()
+    tr, _ = run(out, timed=timed)
+    launches = read()
+    losses = [v for _, v in tr.logger.history["loss"]]
+    final, ref_final = losses[-1], ref_losses[-1]
+    L = RESUME_LAYERS
+    steps = RESUME_STEPS - RESUME_PREEMPT
+    want = dict(NO_LAUNCHES, flash=L * steps, flash_bwd_dq=L * steps,
+                flash_bwd_dkv=L * steps, fused_adamw=steps)
+    log(f"[resume] resumed from step {RESUME_PREEMPT} in "
+        f"{timed.get('restore_s', float('nan')):.2f} s (verify sha256, "
+        f"read, copy into the live tensors; files read "
+        f"{tr._ckpt.last_restore.get('read_s', float('nan')):.2f} s), "
+        f"sampler restored {tr._sampler_restored}, to step "
+        f"{tr.global_step}: final loss {final:.6f} vs uninterrupted "
+        f"{ref_final:.6f} (|d| {abs(final - ref_final):.2e}, tol "
+        f"{TOL_RESUME}; bitwise {final == ref_final}); uninterrupted losses "
+        + ", ".join(f"{x:.4f}" for x in ref_losses)
+        + f"; launches {launches} (want {want}) [{card}]")
+    ok = (tr._sampler_restored and tr.global_step == RESUME_STEPS
+          and abs(final - ref_final) <= TOL_RESUME)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[resume] phase {time.perf_counter() - t_phase:.1f} s; checkpoint "
+        f"directory removed")
+    if not ok:
+        fail("resume: the resumed run did not end at the uninterrupted "
+             "run's loss")
+    if launches != want:
+        fail(f"resume launches {launches} != {want}")
+    _check_routes("resume", flash=L * steps, flash_bwd_dq=L * steps,
+                  flash_bwd_dkv=L * steps)
+
+
+def phase_fp16_train(seed, dev, card):
+    """fp16 training: Llama-3-8B width, 4 layers, an fp16 model with fp32
+    masters (AdamW through the fused update), a GradScaler at its
+    defaults (2^15), FP16_STEPS steps over the phase-9 batches. A step
+    is skipped when the scale falls; a skipped step must leave every
+    parameter bit for bit as it was. The loss must be finite on the
+    applied steps and fall; the flash forward, dq and dk/dv take their
+    fp16 wgmma routes, once per layer and step (the counts set to 0 just
+    before the run, read just after), the fused update once a step. Then
+    a profiled step, and one step at a scale of 2^40, which must be
+    skipped (its gradients overflow fp16) with every parameter kept."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.amp import GradScaler
+    t_phase = time.perf_counter()
+    model = _train_model(seed, dev, dtype=torch.float16)
+    rs = np.random.RandomState(seed + 20)
+    batches = [rs.randint(0, model.config.vocab_size, TRAIN_BATCH)
+               for _ in range(2)]
+
+    class Watch(ptt.TrainerCallback):
+        """After each step: the scale, and whether a skipped step (scale
+        fell) left the parameters as they were before it."""
+
+        def __init__(self, tr):
+            self.tr = tr
+            self.rows = []
+            self.kept = []
+            self.t = [time.perf_counter()]
+            self.scale = float(tr._scaler_state["scale"])
+            self.snap = self._snap()
+
+        def _snap(self):
+            return [p.detach().clone() for p in self.tr.model.parameters()]
+
+        def on_step_end(self, step, logs):
+            self.t.append(time.perf_counter())
+            scale = float(self.tr._scaler_state["scale"])
+            skipped = scale < self.scale
+            if skipped:
+                self.kept.append(all(
+                    torch.equal(a, b) for a, b in
+                    zip(self.tr.model.parameters(), self.snap)))
+            self.rows.append((step, logs["loss"], scale, skipped))
+            self.scale = scale
+            self.snap = self._snap()
+            self.t[-1] = time.perf_counter()   # the snapshot is not step
+
+    tr = _trainer(model, batches, FP16_STEPS, scaler=GradScaler(),
+                  output_dir="output/chip_smoke_fp16")
+    watch = Watch(tr)
+    tr.callbacks.append(watch)
+    torch.cuda.synchronize()
+    read = _reset_launches()
+    watch.t = [time.perf_counter()]
+    tr.train()
+    torch.cuda.synchronize()
+    launches = read()
+    L = model.config.num_hidden_layers
+    want = dict(NO_LAUNCHES, flash=L * FP16_STEPS,
+                flash_bwd_dq=L * FP16_STEPS, flash_bwd_dkv=L * FP16_STEPS,
+                fused_adamw=FP16_STEPS)
+    applied = [loss for _, loss, _, skipped in watch.rows if not skipped]
+    skipped = [step for step, _, _, s in watch.rows if s]
+    log(f"[fp16] Llama-3-8B width, {L} layers, fp16 + fp32 masters, "
+        f"GradScaler defaults: step (loss, scale): "
+        + ", ".join(f"{s} ({loss:.4f}, {sc:g})"
+                    for s, loss, sc, _ in watch.rows)
+        + f"; skipped steps {skipped} (parameters kept bit for bit: "
+        f"{watch.kept}); launches {launches} (want {want})")
+    # the step time without the callback's snapshots (the clock is
+    # restarted after each)
+    steps_ms = [(b - a) * 1e3 for a, b in zip(watch.t, watch.t[1:])]
+    log(f"[fp16] step ms (host clock, loss synced; the parameter snapshot "
+        f"of the check excluded): " + ", ".join(f"{x:.1f}" for x in steps_ms)
+        + f"; median of steps 3-{FP16_STEPS} "
+        f"{float(np.median(steps_ms[2:])):.1f} ms; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    if launches != want:
+        fail(f"fp16 training launches {launches} != {want}")
+    _check_routes("fp16 train", flash=L * FP16_STEPS,
+                  flash_bwd_dq=L * FP16_STEPS, flash_bwd_dkv=L * FP16_STEPS)
+    profile_train_step(tr, float(np.median(steps_ms[2:])), card,
+                       label="fp16 train step (4 layers, [2,2048])")
+    # one step at a scale of 2^40: the fp16 gradients of the logits
+    # overflow, so the step must be skipped (the scale halves) and leave
+    # every parameter as it was
+    n_rows = len(watch.rows)
+    tr._scaler_state["scale"].fill_(2.0 ** 40)
+    watch.scale = 2.0 ** 40
+    tr.train(max_steps=tr.global_step + 1)
+    forced = watch.rows[n_rows:]
+    log(f"[fp16] a step at scale 2^40: (step, loss, scale after, skipped) "
+        f"{forced}; parameters kept bit for bit: {watch.kept}")
+    if not (forced and forced[-1][3] and forced[-1][2] == 2.0 ** 39):
+        fail(f"fp16: the step at scale 2^40 was not skipped: {forced}")
+    if not watch.kept or not all(watch.kept):
+        fail("fp16: a skipped step changed the parameters")
+    if len(applied) < 2 or not all(np.isfinite(applied)) or \
+            not applied[-1] < applied[0]:
+        fail(f"fp16: the loss is not finite on the applied steps or did not "
+             f"fall: {applied}")
+    del tr, watch, model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -4054,6 +4553,7 @@ def main():
     errs["quant"] = phase_quant_checks(gen, dev)
     phase_bwd_checks(gen, dev)
     phase_fp16_checks(gen, dev)
+    errs["fused_adamw"] = phase_adam_checks(gen, dev)
     times = phase_kernel_times(gen, dev, card)
     times.update(phase_paged_time(gen, dev, card))
     phase_spec_ragged_time(gen, dev, card)
@@ -4061,6 +4561,7 @@ def main():
     bwd_times, bwd_errs = phase_bwd_times(gen, dev, card)
     times.update(bwd_times)
     errs.update(bwd_errs)
+    times["fused_adamw"] = phase_adam_times(args.seed, dev, card)
     phase_small_reference(dev)
     phase_small_quant(dev)
     phase_train_small(dev)
@@ -4089,9 +4590,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     trained, train_routes = phase_train(args.seed, dev, card)
-    for key in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for key in ("flash_bwd_dq", "flash_bwd_dkv", "fused_adamw"):
         launches[key] = trained[key]
         routes[key] = train_routes[key]
+    phase_resume(args.seed, dev, card)
+    phase_fp16_train(args.seed, dev, card)
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,
@@ -4102,7 +4605,8 @@ def main():
             "ragged": ("ragged_paged_attention", RAGGED_SOURCE,
                        RAGGED_REPLACES),
             "grid": ("paged_attention", GRID_SOURCE, GRID_REPLACES),
-            "quant": ("quant_matmul", QUANT_SOURCE, QUANT_REPLACES)}
+            "quant": ("quant_matmul", QUANT_SOURCE, QUANT_REPLACES),
+            "fused_adamw": ("fused_adamw", ADAM_SOURCE, ADAM_REPLACES)}
     kernels = []
     for key, (name, source, replaces) in meta.items():
         t = times[key]

@@ -11,14 +11,18 @@ and prompt-lookup speculative decoding; ``BatchingPredictor`` coalesces
 concurrent requests). ``PagedEngine`` (``generation/paged.py``) and
 ``Predictor.serve_stream`` run a continuous-batching engine over a paged
 KV cache, and ``serving/`` a gateway over it. ``Trainer``
-(``trainer.py``) trains it on one card with the optimizers of
-``optimizer/``, through flash attention and its backward. Weights load
+(``trainer.py``) trains it on one card at the JAX package's defaults:
+the optimizers of ``optimizer/`` (Adam and AdamW in one fused pass),
+fp16 with ``amp.GradScaler``, the ``io/`` DataLoader, step checkpoints
+with auto-resume (``checkpoint/distributed_ckpt.py``), the preemption
+and hang exits and divergence rollback, through flash attention and its
+backward. Weights load
 from ``checkpoint.save`` files in the JAX package's format and from HF
-safetensors checkpoints (``models.from_pretrained``). Seven hand-written
+safetensors checkpoints (``models.from_pretrained``). Eight hand-written
 kernels for ``sm_90a`` sit under ``ops/kernels``, with their sources in
 ``csrc``: flash-attention forward, the flash backward's dq and dk/dv,
-decode attention, ragged and grid paged attention, and the weight-only
-quantized matmul.
+decode attention, ragged and grid paged attention, the weight-only
+quantized matmul, and the fused Adam / AdamW update.
 """
 from .convert import load_jax_state_dict
 from .device import resolve_device
@@ -26,7 +30,7 @@ from .checkpoint import load, save
 from .generation import GenerationConfig, beam_search, generate
 from .inference import (BatchingPredictor, Config, Predictor,
                         create_predictor)
-from . import optimizer
+from . import amp, io, optimizer
 from .models import (LlamaConfig, LlamaForCausalLM, causal_lm_loss,
                      from_pretrained, llama3_8b, llama_tiny)
 from .trainer import Trainer, TrainerCallback, TrainingArguments
@@ -37,5 +41,5 @@ __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "BatchingPredictor", "create_predictor", "save", "load",
            "from_pretrained", "LlamaConfig",
            "LlamaForCausalLM", "causal_lm_loss", "llama3_8b", "llama_tiny",
-           "make_generator", "optimizer", "Trainer", "TrainerCallback",
-           "TrainingArguments"]
+           "make_generator", "amp", "io", "optimizer", "Trainer",
+           "TrainerCallback", "TrainingArguments"]

@@ -22,20 +22,23 @@ buffer stays empty past ``stall_timeout_s`` the consumer takes the fetch
 lock and feeds itself synchronously from the wrapped iterator
 (``sync_fallbacks`` counts these). The lock serializes every access to
 the inner iterator, so producer and degraded consumer never interleave a
-fetch.
+fetch. The ``prefetch_stall`` fault site wedges the producer on purpose.
 """
 from __future__ import annotations
 
 import queue
 import sys
 import threading
+import time
 from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import faults
 from ..utils import observability as obs
+from .dataloader import bounded_put
 
 __all__ = ["DevicePrefetcher", "default_device_put"]
 
@@ -72,30 +75,17 @@ def default_device_put(batch, device: torch.device):
     return _tree_map(put, batch)
 
 
-def _bounded_put(q: "queue.Queue", item, stop: threading.Event,
-                 poll_s: float = 0.05) -> bool:
-    """Producer put that re-checks ``stop`` while the queue is full, so an
-    abandoned consumer can't leave the producer parked forever. Returns
-    False when stopped before the item fit."""
-    while not stop.is_set():
-        try:
-            q.put(item, timeout=poll_s)
-            return True
-        except queue.Full:
-            continue
-    return False
-
-
 class _PrefetchIterator:
     """One epoch's background feed; created by ``iter(DevicePrefetcher)``."""
 
-    def __init__(self, loader, prep, device, depth, stall_timeout_s):
+    def __init__(self, loader, prep, device, depth, stall_timeout_s,
+                 inner=None):
         self._prep = prep
         self._device = device
         self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
                         else None)
         self._stall_timeout_s = stall_timeout_s
-        self._inner = iter(loader)
+        self._inner = inner if inner is not None else iter(loader)
         self._snapshot = getattr(loader, "state_dict", None)
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._lock = threading.Lock()          # serializes self._inner
@@ -141,13 +131,18 @@ class _PrefetchIterator:
         return (placed, event), snap
 
     def _put(self, item) -> bool:
-        ok = _bounded_put(self._q, item, self._stop)
+        ok = bounded_put(self._q, item, self._stop)
         self._g_depth.set(self._q.qsize())
         return ok
 
     def _produce(self):
         try:
             while not self._stop.is_set():
+                if faults.inject("prefetch_stall"):
+                    # outside the lock: the consumer's degraded
+                    # synchronous path must be able to feed itself while
+                    # this thread is wedged
+                    time.sleep(faults.prefetch_stall_seconds())
                 with self._lock:
                     if self._stop.is_set() or self._exhausted:
                         break
@@ -275,7 +270,8 @@ class DevicePrefetcher:
     position in the wrapped loader's own schema."""
 
     def __init__(self, loader: Iterable, prep: Optional[Callable] = None,
-                 depth: int = 2, stall_timeout_s: float = 5.0, device=None):
+                 depth: int = 2, stall_timeout_s: float = 5.0, device=None,
+                 initial_iter: Optional[Iterable] = None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self.loader = loader
@@ -283,13 +279,20 @@ class DevicePrefetcher:
         self.depth = depth
         self.device = resolve_device(device)
         self.stall_timeout_s = stall_timeout_s
+        # a partly consumed iterator for the first epoch only (the
+        # trainer's legacy resume skip advances the raw loader before
+        # wrapping, so discarded batches never pay prep and the copy);
+        # later epochs iterate the loader afresh
+        self._initial_iter = initial_iter
         self._it: Optional[_PrefetchIterator] = None
         self._last_state: Optional[dict] = None
 
     def __iter__(self):
         self.close()
+        inner, self._initial_iter = self._initial_iter, None
         self._it = _PrefetchIterator(self.loader, self.prep, self.device,
-                                     self.depth, self.stall_timeout_s)
+                                     self.depth, self.stall_timeout_s,
+                                     inner=inner)
         return self._it
 
     def state_dict(self) -> dict:

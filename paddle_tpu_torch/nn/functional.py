@@ -15,8 +15,10 @@ def linear(x, weight, bias=None):
     """y = x @ W.T + b with the weight stored the torch way, [out, in].
 
     The JAX package stores Linear weights [in, out]; ``convert`` transposes
-    them on the way in, so the product is the same."""
-    return TF.linear(x, weight, bias)
+    them on the way in, so the product is the same. Under
+    ``amp.auto_cast`` (O1) the inputs are cast to the AMP dtype first."""
+    from ..amp import maybe_cast
+    return TF.linear(maybe_cast(x), maybe_cast(weight), maybe_cast(bias))
 
 
 def embedding(ids, weight):

@@ -1,13 +1,17 @@
-"""Optimizers, LR schedules and gradient clipping (counterpart of
-``paddle_tpu/optimizer``): ``SGD``, ``Momentum``, ``Adam``, ``AdamW``,
-every schedule of ``lr.py``, and the clips. Lamb, Adafactor, RMSProp and
-the other optimizers of the JAX package come with a later training
-slice."""
-from . import lr
+"""Optimizers, LR schedules, gradient clipping and the moving average of
+weights (counterpart of ``paddle_tpu/optimizer``): every optimizer of the
+JAX package (Adam and AdamW through one fused pass), every schedule of
+``lr.py``, the clips, and ``ema``."""
+from . import ema, lr
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    global_norm)
-from .optimizers import SGD, Adam, AdamW, Momentum, Optimizer
+from .ema import ExponentialMovingAverage
+from .optimizers import (SGD, Adadelta, Adafactor, Adagrad, Adam, Adamax,
+                         AdamW, Lamb, Momentum, NAdam, Optimizer, RAdam,
+                         RMSProp, Rprop)
 
-__all__ = ["lr", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "global_norm", "SGD", "Adam", "AdamW",
-           "Momentum", "Optimizer"]
+__all__ = ["lr", "ema", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue", "global_norm", "ExponentialMovingAverage",
+           "SGD", "Momentum", "Adam", "AdamW", "Adagrad", "RMSProp", "Lamb",
+           "Adafactor", "Adadelta", "Adamax", "NAdam", "RAdam", "Rprop",
+           "Optimizer"]

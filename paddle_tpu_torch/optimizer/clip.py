@@ -56,10 +56,22 @@ class ClipGradByGlobalNorm(GradClipBase):
         self.clip_norm = clip_norm
 
     @torch.no_grad()
+    def scale(self, grads, inv_scale=None) -> torch.Tensor:
+        """The clip factor min(1, clip_norm / global norm) as an fp32
+        tensor on the gradients' device, without touching the gradients:
+        the fused Adam pass multiplies by it. With a GradScaler's
+        ``inv_scale`` the norm is that of the unscaled gradients, taken
+        as ``inv_scale`` times the scaled gradients' norm (the norm is
+        homogeneous, and the scale is a power of two: the same value as
+        the norm of the unscaled copies, without making them)."""
+        norm = global_norm(grads)
+        if inv_scale is not None:
+            norm = norm * inv_scale
+        return torch.clamp(self.clip_norm / norm.clamp_min(1e-12), max=1.0)
+
+    @torch.no_grad()
     def __call__(self, grads):
         if not grads:
             return grads
-        scale = torch.clamp(
-            self.clip_norm / global_norm(grads).clamp_min(1e-12), max=1.0)
-        torch._foreach_mul_(list(grads.values()), scale)
+        torch._foreach_mul_(list(grads.values()), self.scale(grads))
         return grads

@@ -1,6 +1,7 @@
 """Deterministic fault injection + retry/backoff (chaos hardening): the
 port's copy of ``paddle_tpu/utils/faults.py``, with the registry listing
-only the sites the port wires (serving, the spill tier, the KV wire).
+only the sites the port wires (training, data loading and checkpoints,
+serving, the spill tier, the KV wire).
 
 The optimistic halves of fault tolerance (StepWatchdog, elastic
 supervise, orbax auto-resume) only matter if the recovery paths they
@@ -74,9 +75,45 @@ __all__ = [
 # ------------------------------------------------------------- inventory
 # site name -> (wired location, what firing does there). ONE source of
 # truth: the CLI prints this, and tests assert every listed site is
-# actually wired. The training and data-loading sites of the JAX
-# package's registry join with their modules.
+# actually wired. The JAX package's collective and fleet sites join with
+# their modules.
 SITES: Dict[str, Tuple[str, str]] = {
+    # --- training and data-loading chaos
+    "step_nan": (
+        "paddle_tpu_torch/trainer.py:Trainer.train",
+        "poison the just-finished step: loss and float params become NaN "
+        "(numeric divergence; exercises StepWatchdog nan_patience + the "
+        "Trainer's bounded checkpoint-rollback loop)"),
+    "ckpt_corrupt": (
+        "paddle_tpu_torch/checkpoint/distributed_ckpt.py:"
+        "DistributedCheckpoint._write_manifest",
+        "flip bytes in a committed checkpoint step's files AFTER its "
+        "manifest is written (bit rot; exercises checksum verification "
+        "and the previous-complete-step restore fallback)"),
+    "worker_crash": (
+        "paddle_tpu_torch/io/worker.py:_worker_loop",
+        "hard-exit (os._exit) a DataLoader worker process while a batch "
+        "is outstanding (OOM-kill stand-in; exercises the pool's "
+        "dead-worker detection instead of an eternal queue.get)"),
+    "hang": (
+        "paddle_tpu_torch/trainer.py:Trainer.train",
+        "sleep PADDLE_TPU_FAULT_HANG_S (default 3600) seconds before the "
+        "next step (preempted-chip stand-in; exercises the StepWatchdog "
+        "hang path: checkpoint + exit for the elastic supervisor)"),
+    "preempt": (
+        "paddle_tpu_torch/trainer.py:Trainer.train",
+        "request graceful shutdown at the next step boundary (SIGTERM "
+        "stand-in for a scheduler preemption notice): the Trainer "
+        "checkpoints its exact step, drains the async writer, and exits "
+        "PREEMPTED_RC — which elastic.supervise restarts without "
+        "consuming a max_restarts attempt"),
+    "prefetch_stall": (
+        "paddle_tpu_torch/io/device_prefetch.py:_PrefetchIterator._produce",
+        "sleep PADDLE_TPU_FAULT_PREFETCH_STALL_S (default 30) in the "
+        "device-prefetch producer thread before its next fetch (slow or "
+        "wedged host input pipeline stand-in; the consumer's stall "
+        "timeout degrades the trainer to synchronous feeding instead of "
+        "deadlocking the step loop)"),
     # --- serving chaos: the replica-level sites the supervisor and
     # failover tests arm, wired into the gateway's replica tick loop
     # and SSE writer

@@ -6,7 +6,7 @@ The failure modes that matter in a training loop are (1) numeric
 divergence (NaN/Inf loss) and (2) a hung step. ``StepWatchdog`` covers
 both: a streak counter of non-finite losses with a divergence threshold,
 and a wall-clock heartbeat a monitor thread checks (the trainer's hang
-exit comes with the next training slice; the heartbeat itself is here)."""
+exit: checkpoint and exit for the elastic supervisor)."""
 from __future__ import annotations
 
 import math

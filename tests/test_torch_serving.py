@@ -376,7 +376,9 @@ def test_ring_docs_validate_across_packages():
 def test_port_sites_are_jax_sites_wired_in_the_port():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert set(faults.SITES) <= set(jax_faults.SITES)
-    assert {"tick_crash", "dispatch_hang", "replica_drop", "stream_stall",
+    assert {"step_nan", "ckpt_corrupt", "worker_crash", "hang", "preempt",
+            "prefetch_stall",
+            "tick_crash", "dispatch_hang", "replica_drop", "stream_stall",
             "slow_replica", "spill_corrupt", "spill_slow", "spill_drop",
             "xfer_corrupt", "xfer_trunc", "xfer_slow"} == set(faults.SITES)
     for site, (where, what) in faults.SITES.items():
