@@ -200,6 +200,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same requests under ``ragged``; last the model rebuilt from the
    seed and quantized to int4, through the same ``generate``.
 
+11. the MoE families (``[moe]`` lines, after the fp16 phase, with
+   everything before it freed): the flash forward, decode and ragged
+   kernels at ERNIE-4.5's head shape (20 query heads on 4 kv heads,
+   GQA group 5; bf16 and fp16) against their plain versions, and their
+   times beside SDPA and the bound; ERNIE-4.5-21B-A3B at full width and
+   depth (``Ernie45MoeConfig()``, 21.77 B params, random bf16 weights
+   drawn on the card) through ``Predictor.generate`` (4 x 512 + 64; the
+   counts set to 0 just before the greedy run and read just after: flash
+   28, decode 28 x 63 from a step graph of 28 decode nodes, all on their
+   tensor-core routes; greedy and sampled bit for bit the uncaptured
+   step; the stream teacher forced through the model's forward step by
+   step; an MoE layer free of host reads under the sync-debug mode; the
+   step against the bound of reading every expert's weights; the step's
+   device time split into expert products, routing and dispatch,
+   attention kernels and the rest), then through ``PagedEngine`` (16
+   requests, whole-prompt prefill: ragged 28 x ticks inside the graphs,
+   all mma; a profiled steady tick); DeepSeek-V2-Lite's published widths
+   built through ``config_from_hf`` from a written ``config.json``,
+   through ``generate`` (graphed bit for bit uncaptured, MLA's cache
+   bytes against a (k, v) cache's); a V3-style variant at the same
+   widths with one MTP module through ``mtp_speculative_generate``
+   (tokens per forward). Its flash, decode and ragged launches join the
+   kernels line's.
+
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
@@ -1764,8 +1788,8 @@ def _same_streams(label, out, lps, ref, ref_lps):
     bad = sorted(r for r in ref if out.get(r) != ref[r]
                  or lps.get(r) != ref_lps.get(r))
     if bad or set(out) != set(ref):
-        fail(f"{label}: the graphed tick's streams differ from the host "
-             f"tick's: {bad}")
+        fail(f"{label}: the streams of two runs that must be bit for bit "
+             f"equal differ: {bad}")
 
 
 def phase_paged(seed, dev, card, model):
@@ -4524,6 +4548,551 @@ def phase_fp16_train(seed, dev, card):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- MoE phase
+# ERNIE-4.5-21B-A3B's attention at the serving shapes: 20 query heads on
+# 4 kv heads (GQA group 5), head_dim 128
+MOE_FLASH = (4, 512, 20, 4, 128)        # b, s, h, kv, d
+MOE_DECODE = (4, 576, 20, 4, 128)       # b, T, h, kv, d
+MOE_RAGGED = dict(R=16, h=20, kvh=4)
+# DeepSeek-V2-Lite's published config.json (the fields config_from_hf
+# reads)
+DSV2_LITE = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408,
+    "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "n_shared_experts": 2,
+    "n_routed_experts": 64, "num_experts_per_tok": 6,
+    "first_k_dense_replace": 1, "kv_lora_rank": 512, "q_lora_rank": None,
+    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "topk_method": "greedy", "n_group": 1, "topk_group": 1,
+    "routed_scaling_factor": 1.0, "norm_topk_prob": False,
+    "moe_layer_freq": 1, "rope_theta": 10000, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 163840, "torch_dtype": "bfloat16",
+    "tie_word_embeddings": False, "attention_bias": False,
+    "rope_scaling": {"type": "yarn", "factor": 40, "beta_fast": 32,
+                     "beta_slow": 1, "mscale": 0.707,
+                     "mscale_all_dim": 0.707,
+                     "original_max_position_embeddings": 4096}}
+# the V3-style variant at the same widths: sigmoid scores, 8 groups of 8
+# experts, the top-2-sum group score, 4 groups eligible, one MTP module
+DSV3_VARIANT = dict(DSV2_LITE, model_type="deepseek_v3", n_group=8,
+                    topk_group=4, norm_topk_prob=True)
+# the MoE phase's depth cuts (none: every model at its published depth)
+MOE_CUTS = "none"
+
+
+def _moe_kernel_checks(gen, dev, card):
+    """The flash forward, decode and ragged kernels at ERNIE-4.5's head
+    shape (group 5), bf16 and fp16, against their plain versions at the
+    script's tolerances, each launch on its tensor-core route by count;
+    then their bf16 times beside the plain versions, SDPA (heads
+    pre-expanded) and the bound."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_fwd_plain)
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_plain)
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_plain)
+    fb, fs, fh, fkv, fd = MOE_FLASH
+    db, dT, dh, dkv, dd = MOE_DECODE
+    R, rh, rkvh = MOE_RAGGED["R"], MOE_RAGGED["h"], MOE_RAGGED["kvh"]
+    dec_ci = torch.tensor([dT - 1, 300, 64, 511], dtype=torch.int32,
+                          device=dev)
+    lens = ragged_lens(gen, dev, 1)
+
+    def decode_case(dtype):
+        return [(torch.randn(*s, generator=gen, device=dev)).to(dtype)
+                for s in ((db, dh, dd), (db, dT, dkv, dd), (db, dT, dkv, dd))]
+
+    def routed(fn, route, call):
+        n = fn.launches_by_route[route]
+        out = call()
+        torch.cuda.synchronize()
+        if fn.launches_by_route[route] != n + 1:
+            fail(f"moe kernels: {fn.__name__} did not launch once on its "
+                 f"{route} route at group 5")
+        return out
+
+    for dtype, tol in ((torch.bfloat16, TOL_BF16),
+                       (torch.float16, TOL_FP16)):
+        name = str(dtype).split(".")[-1]
+        q, k, v = (t.to(dtype) for t in flash_inputs(gen, dev, *MOE_FLASH))
+        out, lse = routed(flash_attention_fwd, "wgmma",
+                          lambda: flash_attention_fwd(q, k, v, causal=True))
+        ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=True)
+        e_f = max_err(out, ref)
+        qd, ck, cv = decode_case(dtype)
+        out = routed(decode_attention_fwd, "mma",
+                     lambda: decode_attention_fwd(qd, ck, cv, dec_ci))
+        e_d = max_err(out, decode_attention_fwd_plain(qd, ck, cv, dec_ci))
+        case = paged_case(gen, dev, lens, dtype=dtype, h=rh, kvh=rkvh)
+        out = routed(ragged_paged_attention, "mma",
+                     lambda: ragged_paged_attention(*case))
+        e_r = max_err(out, ragged_paged_attention_plain(*case))
+        log(f"[moe] kernels at group 5, {name}: flash q {[fb, fs, fh, fd]} "
+            f"kv {[fb, fs, fkv, fd]} causal max_abs_err {e_f:.3e} (lse "
+            f"{max_err(lse, ref_lse):.3e}); decode q {[db, dh, dd]} cache "
+            f"{[db, dT, dkv, dd]} at per-row device indices "
+            f"{dec_ci.tolist()} {e_d:.3e}; ragged q {[R, rh, dd]} T 1, "
+            f"pools [1025, 16, {rkvh}, {dd}] {e_r:.3e}; tol {tol}")
+        if not (e_f <= tol and e_d <= tol and e_r <= tol):
+            fail(f"moe kernels: a kernel disagrees with its plain version "
+                 f"at group 5 in {name}")
+
+    el = 2
+    # flash at ERNIE's prefill shape
+    call_bytes = el * (2 * fb * fs * fh * fd + 2 * fb * fs * fkv * fd) \
+        + 4 * fb * fh * fs
+    n = copies_for(call_bytes)
+    sets = [flash_inputs(gen, dev, *MOE_FLASH) for _ in range(n)]
+    lib = [tuple(t.transpose(1, 2).repeat_interleave(fh // t.shape[2], 1)
+                 .contiguous() for t in qkv) for qkv in sets]
+    times = {"flash": dict(
+        ms=cuda_ms(lambda i: flash_attention_fwd(*sets[i % n], causal=True),
+                   iters=40),
+        plain_ms=cuda_ms(lambda i: flash_attention_fwd_plain(
+            *sets[i % n], causal=True), iters=5),
+        library_ms=cuda_ms(lambda i: TF.scaled_dot_product_attention(
+            *lib[i % n], is_causal=True), iters=40),
+        bound=bound(call_bytes, 4 * fd * fb * fh * fs * (fs + 1) // 2),
+        shape=f"q {[fb, fs, fh, fd]} kv {[fb, fs, fkv, fd]} causal")}
+    del sets, lib
+    # decode at the per-row device indices
+    valid = int((dec_ci + 1).sum())
+    call_bytes = el * (2 * db * dh * dd + 2 * valid * dkv * dd)
+    n = copies_for(call_bytes)
+    sets = [decode_case(torch.bfloat16) for _ in range(n)]
+    kpos = torch.arange(dT, device=dev)
+    mask = (kpos[None, :] <= dec_ci[:, None].long())[:, None, None]
+    lib = [(q[:, :, None], ck.transpose(1, 2).repeat_interleave(
+        dh // dkv, 1).contiguous(), cv.transpose(1, 2).repeat_interleave(
+        dh // dkv, 1).contiguous()) for q, ck, cv in sets]
+    times["decode"] = dict(
+        ms=graph_ms(lambda i: decode_attention_fwd(*sets[i % n], dec_ci),
+                    calls=60),
+        plain_ms=graph_ms(lambda i: decode_attention_fwd_plain(
+            *sets[i % n], dec_ci), calls=10),
+        library_ms=graph_ms(lambda i: TF.scaled_dot_product_attention(
+            *lib[i % n], attn_mask=mask), calls=60),
+        bound=bound(call_bytes, 4 * dd * dh * valid),
+        shape=f"q {[db, dh, dd]} cache {[db, dT, dkv, dd]} at per-row "
+              f"device indices {dec_ci.tolist()} (CUDA graph)")
+    del sets, lib
+    # ragged over the engine's pools, T = 1
+    valid = int((torch.as_tensor(lens) + 1).sum())
+    call_bytes = el * (2 * valid * rkvh * dd + 2 * R * rh * dd)
+    n = copies_for(call_bytes)
+    sets = [paged_case(gen, dev, lens, h=rh, kvh=rkvh) for _ in range(n)]
+    lib, mask = sdpa_inputs(sets, torch.as_tensor(lens, device=dev))
+    times["ragged"] = dict(
+        ms=graph_ms(lambda i: ragged_paged_attention(*sets[i % n]),
+                    calls=40),
+        plain_ms=cuda_ms(lambda i: ragged_paged_attention_plain(
+            *sets[i % n]), iters=20),
+        library_ms=cuda_ms(lambda i: TF.scaled_dot_product_attention(
+            *lib[i % n], attn_mask=mask), iters=100),
+        bound=bound(call_bytes, 4 * dd * valid * rh),
+        shape=f"q {[R, rh, dd]} T 1, pools [1025, 16, {rkvh}, {dd}], "
+              f"seq_lens {sorted(lens)} (CUDA graph)")
+    del sets, lib
+    for key, t in times.items():
+        t["bound_ms"], t["bound_by"] = t.pop("bound")
+        log(f"[moe] time {key} at group 5, {t['shape']}: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}) [{card}]")
+
+
+def _moe_split(prof):
+    """Device ms of a profiled run by part: the attention kernels by name
+    (launched from their wrappers, outside any torch op), the kernels of
+    the ops inside the MoE layers' ``moe_experts`` and ``moe_route``
+    profiler ranges (a kernel is charged to the op that launched it, the
+    op to its innermost such range), and the rest of the device's
+    time."""
+    from torch.autograd import DeviceType
+    attention = ("flash_fwd_", "decode_mma", "decode_simt", "ragged_")
+    cats = dict.fromkeys(("expert_products", "routing_dispatch",
+                          "attention_kernels", "rest"), 0.0)
+    total = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False):
+                continue
+            ms = e.time_range.elapsed_us() / 1e3
+            total += ms
+            if any(w in e.name.lower() for w in attention):
+                cats["attention_kernels"] += ms
+            continue
+        if not e.kernels:
+            continue
+        part, p = None, e
+        while p is not None and part is None:
+            part = {"moe_experts": "expert_products",
+                    "moe_route": "routing_dispatch"}.get(p.name)
+            p = p.cpu_parent
+        if part is not None:
+            cats[part] += sum(k.duration for k in e.kernels) / 1e3
+    cats["rest"] = total - sum(cats.values())
+    return cats
+
+
+def _moe_step_profile(ptt, pred, ids, step_ms, card, label):
+    """One decode step's device time split (``_moe_split``) from the
+    uncaptured step (the graph replays the same kernels, but a graph
+    keeps no profiler ranges): generates of 1 and 9 new tokens under
+    torch.profiler, the difference over 8 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.generation import eager_steps
+    per = {}
+    for new in (1, 9):
+        cfg = ptt.GenerationConfig(max_new_tokens=new)
+        with eager_steps():
+            pred.generate(ids, config=cfg)              # warm
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                pred.generate(ids, config=cfg)
+                torch.cuda.synchronize()
+        per[new] = _moe_split(prof)
+    split = {k: (per[9][k] - per[1][k]) / 8 for k in per[9]}
+    busy = sum(split.values())
+    if busy <= 0:
+        log(f"[moe] {label}: torch.profiler charged no kernel to an op: "
+            f"the device-time split is not measured")
+        return None
+    log(f"[moe] {label} decode step device time (uncaptured step, "
+        f"torch.profiler): {busy:.3f} ms, "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f} %)"
+                    for k, v in split.items())
+        + f"; against the graphed step's {step_ms:.2f} ms: device busy "
+        f"{100 * busy / step_ms:.1f} % [{card}]")
+    return split
+
+
+def _weights_read_per_step(model):
+    """Bytes a decode step reads of the weights in the JAX design: every
+    parameter (each expert multiplies its whole capacity bucket every
+    step), the embedding table aside (one row a token)."""
+    emb = model.model.embed_tokens.weight
+    return sum(p.numel() * p.element_size() for p in model.parameters()
+               if p is not emb)
+
+
+def _moe_teacher(model, ids, out, new):
+    """Re-run the greedy stream through the model's forward, teacher
+    forced: the prompt's prefill into a fresh cache, then each emitted
+    token a step at a device index (the shapes ``generate`` ran, so the
+    same routing): every emitted token must be its step's argmax. Returns
+    the largest gap below a step's maximum logit."""
+    b, prompt = ids.shape
+    caches = model.init_kv_caches(b, prompt + new)
+    gap = 0.0
+    with torch.inference_mode():
+        logits, _ = model(ids, kv_caches=caches, cache_index=0)
+        for t in range(new):
+            row = logits[:, -1].float()
+            tok = out[:, prompt + t]
+            gap = max(gap, float((row.max(-1).values
+                                  - row.gather(1, tok[:, None])[:, 0]).max()))
+            if t + 1 < new:
+                ci = torch.full((b,), prompt + t, dtype=torch.int32,
+                                device=ids.device)
+                logits, _ = model(tok[:, None], kv_caches=caches,
+                                  cache_index=ci)
+    return gap
+
+
+def _moe_sync_free(model, dev):
+    """An MoE layer's forward at the decode shape under the sync-debug
+    mode "error": a host read on the routing path raises."""
+    from paddle_tpu_torch.parallel.moe import MoEMLP
+    mlp = next(m for m in model.modules() if isinstance(m, MoEMLP))
+    x = torch.randn(4, 1, mlp.hidden_size, device=dev,
+                    dtype=next(mlp.parameters()).dtype)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            mlp(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _moe_ernie(seed, dev, card):
+    """ERNIE-4.5-21B-A3B at full width and depth, random bf16 weights
+    drawn on the card: ``generate`` (graphed; against the uncaptured
+    step; teacher forced), the decode step's split and bound, then the
+    PagedEngine. Returns the launches of the main paths."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    t0 = time.perf_counter()
+    cfg = ptt.models.Ernie45MoeConfig()
+    model = ptt.models.Ernie45MoeForCausalLM(
+        cfg, device=dev, generator=ptt.make_generator(seed + 60, dev))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    L = cfg.num_hidden_layers
+    log(f"[moe] ERNIE-4.5-21B-A3B (Ernie45MoeConfig() defaults: {L} layers, "
+        f"hidden {cfg.hidden_size}, heads {cfg.num_attention_heads}/"
+        f"{cfg.num_key_value_heads}, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok} of width {cfg.moe_intermediate_size}, "
+        f"shared {cfg.shared_expert_intermediate_size}, layer 0 dense "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, {cfg.dtype}): "
+        f"{n_params / 1e9:.2f} B params, "
+        f"{_weight_gb(model):.1f} GB, random init on the card in "
+        f"{time.perf_counter() - t0:.1f} s; depth cuts: {MOE_CUTS}")
+    _moe_sync_free(model, dev)
+    log("[moe] an MoE layer's forward at the decode shape under "
+        "torch.cuda.set_sync_debug_mode('error'): no host read")
+    pred = ptt.Predictor(model, device=dev)
+    b, prompt, new = 4, 512, 64
+    ids = torch.randint(0, cfg.vocab_size, (b, prompt), device=dev,
+                        generator=ptt.make_generator(seed + 61, dev))
+    want = dict(NO_LAUNCHES, flash=L, decode=L * (new - 1))
+    run = _generate_run(ptt, pred, ids, new, want, "moe", dev, card)
+    gap = _moe_teacher(model, ids, run["out"], new)
+    log(f"[moe] teacher-forced re-run of the greedy stream through the "
+        f"model's forward (prefill, then one step a token at a device "
+        f"index): largest gap below a step's maximum logit {gap:.4f} (tol "
+        f"{TOL_TEACHER})")
+    if gap > TOL_TEACHER:
+        fail(f"moe: the greedy stream is not the teacher-forced argmax "
+             f"(gap {gap:.4f})")
+    nbytes = _weights_read_per_step(model)
+    step_bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[moe] decode step {run['decode_ms']:.2f} ms graphed "
+        f"({run['eager_ms']:.2f} uncaptured) against its bound "
+        f"{step_bound:.2f} ms: every expert multiplies its capacity "
+        f"bucket (C = 4) each step, so a step reads the {nbytes / 1e9:.1f} "
+        f"GB of weights but the embedding table at 3.35 TB/s; prefill "
+        f"{run['prefill_ms']:.1f} ms ({b} x {prompt}); peak memory "
+        f"{run['peak_gb']:.2f} GB [{card}]")
+    profile_decode_step(ptt, pred, ids, run["decode_ms"], card, "moe")
+    _moe_step_profile(ptt, pred, ids, run["decode_ms"], card, "moe")
+    launches = {k: run["launches"][k] for k in ("flash", "decode")}
+    launches["ragged"] = _moe_engine(seed, dev, card, model)
+    del pred, model, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _moe_engine(seed, dev, card, model):
+    """The PagedEngine on ERNIE at its defaults (graphed ticks), whole-
+    prompt prefill, 16 greedy requests: ragged once per layer and tick on
+    the mma route, never in a prefill; a steady tick profiled."""
+    import numpy as np
+
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rs = np.random.RandomState(seed + 62)
+    gen = torch.Generator().manual_seed(seed + 63)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+
+    subs = [(f"m{i}", ids(int(rs.randint(64, 513))),
+             dict(max_new_tokens=64)) for i in range(16)]
+    eng = PagedEngine(model, **PAGED)
+    _serve(eng, subs[:1], late_after=0)                 # captures
+    steps0 = eng.stats["decode_steps"]
+    disp0 = eng.dispatch_count
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = _reset_launches()
+    out, wall, ttft, in_prefill = _serve(eng, subs, late_after=4)
+    launches = read()
+    ticks = eng.stats["decode_steps"] - steps0
+    want = dict(NO_LAUNCHES, ragged=L * ticks)
+    log(f"[moe] PagedEngine({PAGED}) on ERNIE-4.5-21B-A3B, 16 requests "
+        f"(prompts 64-512, 64 new, greedy, whole-prompt prefill): "
+        f"launches {launches} (want {want}; {in_prefill} inside "
+        f"prefills); {eng.dispatch_count - disp0} dispatches for {ticks} "
+        f"ticks and 16 prefills")
+    if launches != want or in_prefill:
+        fail(f"moe engine: launches {launches} != {want}")
+    _check_routes("moe engine", ragged=L * ticks)
+    if sorted(out) != sorted(r for r, _, _ in subs) or any(
+            len(v) != 64 or not all(0 <= t < cfg.vocab_size for t in v)
+            for v in out.values()):
+        fail("moe engine: a request was lost, cut or gave ids outside the "
+             "vocabulary")
+    t = np.array(list(ttft.values()))
+    log(f"[moe] engine: {16 * 64} new tokens in {ticks} ticks, {wall:.2f} "
+        f"s, {16 * 64 / wall:.1f} new tokens/s, TTFT median "
+        f"{np.median(t):.1f} ms p99 {np.percentile(t, 99):.1f} ms, peak "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, graph "
+        f"pool {eng.graph_pool_bytes / 1e6:.1f} MB [{card}]")
+    # every row of a tick routes, idle ones too, against the live rows'
+    # capacity: idle rows' colliding garbage-block writes carry one value
+    # (paged_decode_write), so a rerun and the host tick must give the
+    # same tokens and logprobs bit for bit
+    lps = dict(eng.logprobs)
+    again, _, _, _ = _serve(eng, subs, late_after=4)
+    _same_streams("moe engine rerun", again, dict(eng.logprobs), out, lps)
+    host = PagedEngine(model, fused_tick=False, **PAGED)
+    ref, _, _, _ = _serve(host, subs, late_after=4)
+    _same_streams("moe engine", out, lps, ref, dict(host.logprobs))
+    del host
+    log("[moe] engine streams: a rerun and the host tick "
+        "(fused_tick=False) give identical tokens and logprobs")
+    prof = profile_paged_tick(eng, ids, card, ticks=8, label="moe paged",
+                              expect={"ragged_": L})
+    if prof is not None:
+        step_bound = _weights_read_per_step(model) / HBM_BYTES_PER_S * 1e3
+        log(f"[moe] steady tick {prof['tick_ms']:.2f} ms graphed against "
+            f"the weights' bound {step_bound:.2f} ms (16 rows: C = 4, every "
+            f"expert multiplies) [{card}]")
+    del eng
+    return launches["ragged"]
+
+
+def _moe_deepseek(seed, dev, card):
+    """DeepSeek-V2-Lite's widths through ``config_from_hf`` and
+    ``generate`` (graphed; MLA reaches no kernel of the port), then the
+    V3-style variant through ``mtp_speculative_generate``."""
+    import dataclasses
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.generation import eager_steps
+    from paddle_tpu_torch.generation.speculative import \
+        mtp_speculative_generate
+    from paddle_tpu_torch.models.hf_interop import config_from_hf
+    b, prompt, new = 4, 512, 64
+
+    def build(hf, seed_, **over):
+        d = tempfile.mkdtemp(prefix="chip_smoke_dsv2_")
+        try:
+            with open(os.path.join(d, "config.json"), "w") as f:
+                json.dump(hf, f)
+            cls, cfg, mt = config_from_hf(d)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        cfg = dataclasses.replace(cfg, **over)
+        t0 = time.perf_counter()
+        model = cls(cfg, device=dev,
+                    generator=ptt.make_generator(seed_, dev))
+        torch.cuda.synchronize()
+        return model, cfg, mt, time.perf_counter() - t0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    model, cfg, mt, build_s = build(DSV2_LITE, seed + 70)
+    L = cfg.num_hidden_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    mla = (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * L * 2
+    kv = 2 * cfg.num_attention_heads * cfg.v_head_dim * L * 2
+    heads, width = cfg.num_attention_heads, cfg.moe_intermediate_size
+    log(f"[moe] DeepSeek-V2-Lite widths through config_from_hf "
+        f"({mt}: {L} layers, hidden {cfg.hidden_size}, {heads} heads, "
+        f"kv_lora_rank {cfg.kv_lora_rank}, q_lora_rank "
+        f"{cfg.q_lora_rank}, qk {cfg.qk_nope_head_dim}+"
+        f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}, {cfg.num_experts} "
+        f"experts top-{cfg.num_experts_per_tok} of {width}, "
+        f"{cfg.num_shared_experts} shared, layer 0 dense "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, yarn "
+        f"{cfg.rope_scaling['factor']}): {n_params / 1e9:.2f} B params, "
+        f"{_weight_gb(model):.1f} GB, random init on the card in "
+        f"{build_s:.1f} s; MLA cache {mla} B a token against {kv} B for a "
+        f"(k, v) cache of its heads ({kv / mla:.1f}x); depth cuts: "
+        f"{MOE_CUTS}")
+    ids = torch.randint(0, cfg.vocab_size, (b, prompt), device=dev,
+                        generator=ptt.make_generator(seed + 71, dev))
+    gcfg = ptt.GenerationConfig(max_new_tokens=new)
+    one = ptt.GenerationConfig(max_new_tokens=1)
+    ptt.generate(model, ids, gcfg)                      # warm: captures
+    ptt.generate(model, ids, one)
+    _, prefill_ms = timed(lambda: ptt.generate(model, ids, one))
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = _reset_launches()
+    out, total_ms = timed(lambda: ptt.generate(model, ids, gcfg))
+    launches = read()
+    if launches != NO_LAUNCHES:
+        fail(f"deepseek generate: launches {launches} (MLA reaches no "
+             f"kernel of the port)")
+    with eager_steps():
+        ref, eager_ms = timed(lambda: ptt.generate(model, ids, gcfg))
+    if not torch.equal(out, ref):
+        fail("deepseek: the graphed greedy stream differs from the "
+             "uncaptured step's")
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        fail("deepseek: ids outside the vocabulary")
+    gap = _moe_teacher(model, ids, out, new)
+    if gap > TOL_TEACHER:
+        fail(f"deepseek: the greedy stream is not the teacher-forced "
+             f"argmax (gap {gap:.4f})")
+    step_ms = (total_ms - prefill_ms) / (new - 1)
+    step_bound = _weights_read_per_step(model) / HBM_BYTES_PER_S * 1e3
+    log(f"[moe] DeepSeek-V2-Lite generate {b} x {prompt} + {new}: prefill "
+        f"{prefill_ms:.1f} ms, decode {step_ms:.2f} ms a step graphed "
+        f"({(eager_ms - prefill_ms) / (new - 1):.2f} uncaptured, the "
+        f"streams bit for bit) against its weights' bound {step_bound:.2f} "
+        f"ms, teacher-forced gap {gap:.4f}, launches {launches} (the "
+        f"absorbed decode is torch einsums, as in the JAX package), peak "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+        f"[{card}]")
+    del model, out, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, cfg, mt, build_s = build(DSV3_VARIANT, seed + 72,
+                                    num_nextn_predict_layers=1)
+    rows = 2
+    kw = dict(max_new_tokens=new, num_draft_tokens=4, return_stats=True)
+    mtp_speculative_generate(model, ids[:rows], **kw)   # warm: captures
+    (out, stats), ms = timed(
+        lambda: mtp_speculative_generate(model, ids[:rows], **kw))
+    with eager_steps():
+        ref, _ = mtp_speculative_generate(model, ids[:rows],
+                                          **dict(kw, max_new_tokens=16))
+    short, _ = mtp_speculative_generate(model, ids[:rows],
+                                        **dict(kw, max_new_tokens=16))
+    if not torch.equal(short, ref):
+        fail("mtp: the graphed iteration's stream differs from the "
+             "uncaptured one's")
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        fail("mtp: ids outside the vocabulary")
+    log(f"[moe] V3-style variant at the same widths ({mt} through "
+        f"config_from_hf: sigmoid scores, {cfg.n_group} groups, top-"
+        f"{cfg.topk_group} by {cfg.group_score_mode}, norm_topk_prob; one "
+        f"MTP module; {sum(p.numel() for p in model.parameters()) / 1e9:.2f}"
+        f" B params) through mtp_speculative_generate, {rows} x {prompt} + "
+        f"{new}, 4 drafts a round, rows decoded one at a time (MoE): "
+        f"{ms:.1f} ms, target forwards {stats['target_forwards']}, tokens "
+        f"per forward {[round(x, 3) for x in stats['tokens_per_forward']]}"
+        f" (random weights: says nothing of a trained model's accept "
+        f"rate); graphed bit for bit uncaptured at 16 new [{card}]")
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(seed, dev, card):
+    """The MoE families (``[moe]`` lines): the kernels at ERNIE's shapes,
+    ERNIE-4.5-21B-A3B through ``generate`` and the PagedEngine,
+    DeepSeek-V2-Lite's widths through ``generate``, the V3-style variant
+    through ``mtp_speculative_generate``. Returns the main paths'
+    launches of flash, decode and ragged."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 50)
+    _moe_kernel_checks(gen, dev, card)
+    launches = _moe_ernie(seed, dev, card)
+    _moe_deepseek(seed, dev, card)
+    log(f"[moe] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4595,6 +5164,8 @@ def main():
         routes[key] = train_routes[key]
     phase_resume(args.seed, dev, card)
     phase_fp16_train(args.seed, dev, card)
+    for key, n in phase_moe(args.seed, dev, card).items():
+        launches[key] += n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,

@@ -16,7 +16,11 @@ the optimizers of ``optimizer/`` (Adam and AdamW in one fused pass),
 fp16 with ``amp.GradScaler``, the ``io/`` DataLoader, step checkpoints
 with auto-resume (``checkpoint/distributed_ckpt.py``), the preemption
 and hang exits and divergence rollback, through flash attention and its
-backward. Weights load
+backward. ``models`` also
+serves Qwen2, the MoE families (Qwen2-MoE, ERNIE-4.5-MoE and
+DeepSeek-V2/V3 with MLA and MTP, on ``parallel/moe.py``) through the
+same ``generate()``, ``Predictor`` and, for Qwen2-MoE and ERNIE,
+``PagedEngine``. Weights load
 from ``checkpoint.save`` files in the JAX package's format and from HF
 safetensors checkpoints (``models.from_pretrained``). Eight hand-written
 kernels for ``sm_90a`` sit under ``ops/kernels``, with their sources in

@@ -28,7 +28,12 @@ def load_jax_state_dict(model: nn.Module,
       and [out, in] here, so it is transposed. Everything else keeps its
       layout: embedding tables, norm weights, biases, and a
       ``QuantizedLinear``'s codes and scales, which are [din, dout] in
-      both packages (it is not a ``Linear``).
+      both packages (it is not a ``Linear``). Nor are the MoE layers'
+      parameters (``parallel.moe.MoEMLP``): the stacked experts
+      ``w_gate``/``w_up`` [E, h, m] and ``w_down`` [E, m, h], the router
+      ``gate`` [h, E], the ``shared_*`` projections and
+      ``shared_expert_gate`` [h, 1] are plain parameters in the JAX
+      layout in both packages, and are copied untransposed.
     - Dtypes: each value is cast to the dtype of the tensor it fills and
       moved to its device. Floating values go through float32, so bf16
       scales cross bit for bit; integer codes are copied as integers.

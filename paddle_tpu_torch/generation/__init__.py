@@ -331,9 +331,9 @@ class _BeamProgram(DecodeProgram):
         """Every beam takes the state of its source beam, in place."""
         flat = (beam_src + self.base).reshape(-1)
         self.tokens.copy_(self.tokens.index_select(0, flat))
-        for ck, cv in self.caches:
-            ck.copy_(ck.index_select(0, flat))
-            cv.copy_(cv.index_select(0, flat))
+        for cache in self.caches:       # (k, v), or MLA's (latents, k_pe)
+            for t in cache:
+                t.copy_(t.index_select(0, flat))
         if self.use_rep:
             self.seen.copy_(self.seen.index_select(0, flat))
 

@@ -152,12 +152,25 @@ class PagedKV(NamedTuple):
         return self.kp.shape[1]
 
 
+def _last_writer(slot):
+    """slot [N]: each write's flat target. Returns, for each write, the
+    index of the last write to the same target: writing
+    ``src[_last_writer(slot)]`` gives colliding writes one value, the
+    sequential (last wins) result, whatever order the device applies
+    duplicate indices in (CUDA does not order them)."""
+    ar = torch.arange(slot.shape[0], device=slot.device)
+    return torch.where(slot[:, None] == slot[None, :], ar, -1).amax(1)
+
+
 def paged_decode_write(pk: PagedKV, k, v) -> PagedKV:
     """Write each row's new K/V (k [R, T, kvh, d]) into its blocks at
     positions seq_len .. seq_len+T-1, in place; returns ``pk``. Positions
     past a row's allocated blocks land in the garbage block (unallocated
     table entries are 0, and logical blocks past M go there
-    explicitly)."""
+    explicitly). Idle rows collide there and read their position 0 back,
+    and in an MoE layer their hidden states compete with live rows for
+    capacity, so colliding writes all carry the last row's K/V
+    (``_last_writer``): the tick is deterministic on a card."""
     B = pk.block_size
     R, T = k.shape[0], k.shape[1]
     lens = pk.seq_lens.long()
@@ -166,18 +179,18 @@ def paged_decode_write(pk: PagedKV, k, v) -> PagedKV:
         r = torch.arange(R, device=k.device)
         bidx = tables[r, lens // B]
         boff = lens % B
-        pk.kp.index_put_((bidx, boff), k[:, 0].to(pk.kp.dtype))
-        pk.vp.index_put_((bidx, boff), v[:, 0].to(pk.vp.dtype))
-        return pk
-    M = tables.shape[1]
-    r = torch.arange(R, device=k.device)[:, None]
-    pos = lens[:, None] + torch.arange(T, device=k.device)[None, :]
-    lb = pos // B
-    bidx = torch.where(lb < M, tables[r, lb.clamp(0, M - 1)],
-                       torch.zeros_like(lb))
-    boff = pos % B
-    pk.kp.index_put_((bidx, boff), k.to(pk.kp.dtype))
-    pk.vp.index_put_((bidx, boff), v.to(pk.vp.dtype))
+    else:
+        M = tables.shape[1]
+        r = torch.arange(R, device=k.device)[:, None]
+        pos = lens[:, None] + torch.arange(T, device=k.device)[None, :]
+        lb = pos // B
+        bidx = torch.where(lb < M, tables[r, lb.clamp(0, M - 1)],
+                           torch.zeros_like(lb)).reshape(-1)
+        boff = (pos % B).reshape(-1)
+    w = _last_writer(bidx * B + boff)
+    k, v = k.reshape(R * T, *k.shape[2:]), v.reshape(R * T, *v.shape[2:])
+    pk.kp.index_put_((bidx, boff), k[w].to(pk.kp.dtype))
+    pk.vp.index_put_((bidx, boff), v[w].to(pk.vp.dtype))
     return pk
 
 
@@ -289,6 +302,26 @@ def _check_verify_shapes(cfg, T: int):
             f"spec_tokens on a card needs the ragged paged kernel, which "
             f"does not take {h} query heads over {kvh} kv heads at "
             f"head_dim {d}")
+
+
+def _check_pageable(model):
+    """The pools hold each layer's K/V per kv head, as the models' static
+    (k, v) caches do. A model whose own cache has another layout (MLA's
+    latents and k_pe a layer) cannot be paged: ValueError, as the JAX
+    engine's unpacking of its PagedKV raises."""
+    init = getattr(model, "init_kv_caches", None)
+    if init is None:                     # a stub model: no static cache
+        return
+    cfg = model.config
+    want = (1, 1, cfg.num_key_value_heads, cfg.head_dim)
+    layer = init(1, 1)[0]
+    got = [tuple(t.shape) for t in layer]
+    if got != [want, want]:
+        raise ValueError(
+            f"PagedEngine: the model's KV cache is {got} a layer (batch "
+            f"1, length 1), not per-head (k, v) {[want, want]}; the "
+            f"PagedKV pools hold per-head K/V, so an MLA model is not "
+            f"paged (the JAX engine fails on the same unpacking)")
 
 
 class _Request:
@@ -599,6 +632,7 @@ class PagedEngine:
         # CapturedStep each, captured on first use into the cache's one
         # shared pool, all dropped when the weights move
         self._graphs = ExecCache(self.model)
+        _check_pageable(model)
         self._new_pools()
         self.slots: List[Optional[_Request]] = [None] * self.R
         self.queue: List[_Request] = []

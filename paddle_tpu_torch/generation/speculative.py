@@ -1,7 +1,8 @@
 """Speculative decoding (counterpart of
 ``paddle_tpu/generation/speculative.py``: ``speculative_generate``,
-``ngram_speculative_generate``, ``_commit``, ``_mask_tail``,
-``_spec_stats``; Leviathan et al. 2023, prompt-lookup decoding).
+``mtp_speculative_generate``, ``ngram_speculative_generate``,
+``_commit``, ``_mask_tail``, ``_spec_stats``; Leviathan et al. 2023,
+prompt-lookup decoding, DeepSeek-V3's MTP self-drafting).
 
 A draft (a small model, or the continuation of the most recent earlier
 match of the last ``ngram`` tokens) proposes ``k`` tokens; the target
@@ -15,11 +16,14 @@ The JAX package vmaps a single-row ``while_loop`` over the rows, which
 gives every row its own cursor and freezes finished rows. Here the rows
 stay one batch with a cursor each (``n`` [b] on the device): the models
 take a per-row device cache index (the decode kernel reads it per row),
-and an iteration advances only the rows still live. One iteration (the
-draft steps, the verify, the commit) is one program over fixed buffers,
-a CUDA-graph replay on a card (``graphs.CapturedStep``), repeated until
-every row is frozen (read from the card every few iterations, one check
-behind; a frozen row's iterations change nothing it returns).
+and an iteration advances only the rows still live. A model whose rows
+interact (an MoE layer's capacity is shared by the tokens of a call) is
+decoded a row at a time instead, which is what the vmap gives it. One
+iteration (the draft steps, the verify, the commit) is one program over
+fixed buffers, a CUDA-graph replay on a card (``graphs.CapturedStep``),
+repeated until every row is frozen (read from the card every few
+iterations, one check behind; a frozen row's iterations change nothing
+it returns).
 
 Sampled prompt-lookup decoding draws with the (seed, counter) key rows
 of ``sampling.sample_token_rows``: verify position j of a row draws
@@ -237,8 +241,30 @@ class _SpecProgram(DecodeProgram):
         self.run_steps(max(self.total - P - 1, 0), self.frozen,
                        every=FROZEN_CHECK_EVERY)
         out = _mask_tail(self.tokens, self.n, self.total, self.pad)
-        return (out.to(input_ids.dtype), self.nfwd.cpu().numpy(),
-                self.n.cpu().numpy())
+        # copies: on the CPU .numpy() would share the program's buffers
+        return (out.to(input_ids.dtype), self.nfwd.cpu().numpy().copy(),
+                self.n.cpu().numpy().copy())
+
+
+def _rows_alone(*models) -> bool:
+    """Whether a batch must be decoded a row at a time: the JAX package
+    vmaps a one-row loop over the rows, so a model whose rows interact
+    (MoE capacity, ``rows_independent``) routes each row as a batch of
+    one there."""
+    return not all(getattr(m, "rows_independent", True)
+                   for m in models if m is not None)
+
+
+def _by_rows(run, input_ids, keys, rows_alone):
+    """``run(ids, keys)`` -> (out, nfwd, n_end) over the whole batch, or
+    row by row (the same one-row program each time) and stacked."""
+    if not rows_alone or input_ids.shape[0] == 1:
+        return run(input_ids, keys)
+    parts = [run(input_ids[r:r + 1], None if keys is None
+                 else keys[r:r + 1]) for r in range(input_ids.shape[0])]
+    return (torch.cat([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]),
+            np.concatenate([p[2] for p in parts]))
 
 
 def _spec_run(target, draft, input_ids, max_new_tokens, k, ngram, eos,
@@ -248,16 +274,23 @@ def _spec_run(target, draft, input_ids, max_new_tokens, k, ngram, eos,
     input_ids = torch.as_tensor(input_ids, device=device)
     bsz, prompt_len = input_ids.shape
     sampled = temperature > 0.0
-    key = ("spec", id(draft), ngram, bsz, prompt_len, max_new_tokens, k,
-           eos, pad, sampled)
-    prog = exec_cache_for(target, RESIDENT_BYTES).get(
-        key, lambda: _SpecProgram(target, draft, bsz, prompt_len,
-                                  max_new_tokens, k, ngram, eos, pad,
-                                  sampled))
     keys = row_keys(generator, bsz, device) if sampled else None
-    out, nfwd, n_end = prog.run(input_ids, keys, temperature, top_k, top_p)
+    total = prompt_len + max_new_tokens
+
+    def run(ids, row_keys_):
+        b = ids.shape[0]
+        key = ("spec", id(draft), ngram, b, prompt_len, max_new_tokens, k,
+               eos, pad, sampled)
+        prog = exec_cache_for(target, RESIDENT_BYTES).get(
+            key, lambda: _SpecProgram(target, draft, b, prompt_len,
+                                      max_new_tokens, k, ngram, eos, pad,
+                                      sampled))
+        return prog.run(ids, row_keys_, temperature, top_k, top_p)
+
+    out, nfwd, n_end = _by_rows(run, input_ids, keys,
+                                _rows_alone(target, draft))
     if return_stats:
-        return out, _spec_stats(nfwd, n_end, prog.total, prompt_len, bsz)
+        return out, _spec_stats(nfwd, n_end, total, prompt_len, bsz)
     return out
 
 
@@ -283,18 +316,160 @@ def speculative_generate(target, draft, input_ids, max_new_tokens: int = 64,
                      eos_token_id, pad_token_id, return_stats)
 
 
+class _MtpProgram(DecodeProgram):
+    """The fixed buffers of one MTP self-speculative decode shape and its
+    iteration (the body of the JAX package's ``while_loop``): the depth-0
+    MTP module drafts k tokens by chaining its own pre-norm output
+    (Eagle-style, one MLA cache of its own), one target forward verifies
+    them and yields the true hiddens, and a bulk pass of the module over
+    the committed window rewrites its cache from them and gives the next
+    round's first draft. Rows keep a cursor each (``n`` [b]); frozen rows
+    change nothing they return."""
+
+    def __init__(self, model, b, prompt_len, max_new, k, eos, pad):
+        super().__init__(model.device)
+        self.model = model
+        dev, cfg = self.device, model.config
+        self.b, self.k, self.eos, self.pad = b, k, eos, pad
+        self.prompt_len = prompt_len
+        self.total = total = prompt_len + max_new
+        L = total + k + 1
+        self.t_caches = model.init_kv_caches(b, L)
+        self.m_cache = model.init_mtp_cache(b, L)
+        self.tokens = torch.zeros(b, L, dtype=torch.int64, device=dev)
+        self.n = torch.zeros(b, dtype=torch.int32, device=dev)
+        self.done = torch.zeros(b, dtype=torch.bool, device=dev)
+        self.nfwd = torch.zeros(b, dtype=torch.int32, device=dev)
+        self.frozen = torch.zeros((), dtype=torch.bool, device=dev)
+        self.h_last = torch.zeros(b, 1, cfg.hidden_size, dtype=cfg.dtype,
+                                  device=dev)
+        self.d0 = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.rows = torch.arange(b, device=dev)
+        self.j = torch.arange(k + 1, device=dev)[None, :]
+        self.nbytes = buffer_bytes(self.t_caches, self.m_cache, self.tokens)
+
+    def _mtp(self, h_prev, tok, positions, cache_index):
+        """One pass of the depth-0 module over ``tok`` at ``positions``
+        with its own cache: (shared-head logits fp32, PRE-norm hidden)."""
+        model = self.model
+        normed, pre, _ = model.mtp[0](
+            h_prev, model.model.embed_tokens(tok), positions,
+            kv_cache=self.m_cache, cache_index=cache_index)
+        return model.lm_head(normed).float(), pre
+
+    def _at(self, x, idx):
+        """Row r's entry ``idx[r]`` of x [b, s, ...] -> [b, ...]."""
+        return x[self.rows, idx.long()]
+
+    def _step(self):
+        k, tokens = self.k, self.tokens
+        live = (self.n < self.total) & ~self.done
+        ns = torch.clamp(self.n, max=self.total)
+        tokens.scatter_(1, ns.long()[:, None], self.d0[:, None])
+        # the k-1 chained draft steps: at position cur the module takes
+        # the previous step's pre-norm output and draft, and predicts
+        # the token at cur + 2
+        h_prev, tok_prev, cur = self.h_last, self.d0, ns - 1
+        for _ in range(k - 1):
+            lg, pre = self._mtp(h_prev, tok_prev[:, None], cur[:, None], cur)
+            nxt = torch.argmax(lg[:, -1], dim=-1)
+            tokens.scatter_(1, (cur + 2).long()[:, None], nxt[:, None])
+            h_prev, tok_prev, cur = pre[:, -1:], nxt, cur + 1
+        # verify: ONE target forward over [t_{n-1}, d_0 .. d_{k-1}], with
+        # the true hiddens for the bulk pass
+        chunk = tokens.gather(1, (ns - 1).long()[:, None] + self.j)
+        logits, h_ctx, _ = self.model(chunk, kv_caches=self.t_caches,
+                                      cache_index=ns - 1,
+                                      return_prenorm=True)
+        g = torch.argmax(logits.float(), dim=-1)
+        draft = tokens.gather(1, ns.long()[:, None] + self.j[:, :k])
+        _, adv, done = _commit(tokens, g, draft, ns, k, self.eos, self.pad,
+                               self.done)
+        # bulk: the module's cache rewritten for the committed window from
+        # the target's hiddens; the next round's d0 / h_last are read at
+        # the accepted boundary
+        toks_in = tokens.gather(1, ns.long()[:, None] + self.j)
+        m_logits, m_pre = self._mtp(h_ctx, toks_in,
+                                    (ns - 1)[:, None] + self.j, ns - 1)
+        sel = adv - 1
+        h_last = self._at(m_pre, sel)[:, None]
+        d0 = torch.argmax(self._at(m_logits, sel), dim=-1)
+        self.h_last.copy_(torch.where(live[:, None, None], h_last,
+                                      self.h_last))
+        self.d0.copy_(torch.where(live, d0, self.d0))
+        self.n.copy_(torch.where(live, self.n + adv.to(torch.int32), self.n))
+        self.done.copy_(torch.where(live, done, self.done))
+        self.nfwd += live.to(torch.int32)
+        self.frozen.copy_(~((self.n < self.total) & ~self.done).any())
+
+    def _run(self, input_ids):
+        P, b = self.prompt_len, self.b
+        logits, pre, _ = self.model(input_ids, kv_caches=self.t_caches,
+                                    cache_index=0, return_prenorm=True)
+        first = torch.argmax(logits[:, -1], dim=-1)
+        self.tokens[:, :P].copy_(input_ids)
+        self.tokens[:, P:].fill_(self.pad)
+        self.tokens[:, P] = first
+        # the module's prefill: position i pairs h_i with the embedding
+        # of t_{i+1}, so the shifted stream is prompt[1:] + [first]; it
+        # fills the module's cache and gives d0 (for position P + 1)
+        m_toks = torch.cat([input_ids[:, 1:].long(), first[:, None]], dim=1)
+        m_pos = torch.arange(P, device=self.device)[None, :].expand(b, P)
+        m_logits, m_pre = self._mtp(pre, m_toks, m_pos, 0)
+        self.d0.copy_(torch.argmax(m_logits[:, -1], dim=-1))
+        self.h_last.copy_(m_pre[:, -1:])
+        self.n.fill_(P + 1)
+        self.done.copy_(first == self.eos if self.eos is not None
+                        else torch.zeros_like(self.done))
+        self.nfwd.fill_(1)
+        self.frozen.copy_(~((self.n < self.total) & ~self.done).any())
+        self.run_steps(max(self.total - P - 1, 0), self.frozen,
+                       every=FROZEN_CHECK_EVERY)
+        out = _mask_tail(self.tokens, self.n, self.total, self.pad)
+        # copies: on the CPU .numpy() would share the program's buffers
+        return (out.to(input_ids.dtype), self.nfwd.cpu().numpy().copy(),
+                self.n.cpu().numpy().copy())
+
+
+@torch.inference_mode()
 def mtp_speculative_generate(model, input_ids, max_new_tokens: int = 64,
                              num_draft_tokens: int = 4,
                              eos_token_id: Optional[int] = None,
                              pad_token_id: int = 0,
                              return_stats: bool = False):
-    """Self-speculation through the model's multi-token-prediction head
-    (the JAX package's ``mtp_speculative_generate``). Its only models
-    with MTP heads are the DeepSeek-V2/V3 family, which the port has not
-    ported yet."""
-    raise NotImplementedError(
-        "mtp_speculative_generate comes with the port of deepseek_v2 "
-        "(its only models with MTP depth modules)")
+    """Greedy decode accelerated by the model's own multi-token-prediction
+    head, no second model (DeepSeek-V3 tech report, MTP for speculative
+    decoding): the depth-0 MTP module drafts ``num_draft_tokens`` tokens
+    a round (:class:`_MtpProgram`) and one target forward verifies them.
+    The output equals the model's greedy ``generate`` row by row,
+    whatever the drafts; with ``return_stats``, also the target forwards
+    and tokens per forward, as :func:`speculative_generate` gives them.
+    A model whose rows interact (MoE: every DeepSeek) decodes its rows
+    one at a time, as the JAX package's vmap over rows does."""
+    cfg = model.config
+    if getattr(cfg, "num_nextn_predict_layers", 0) < 1:
+        raise ValueError("model has no MTP depth modules "
+                         "(config.num_nextn_predict_layers == 0)")
+    k = int(num_draft_tokens)
+    if k < 1:
+        raise ValueError("num_draft_tokens must be >= 1")
+    input_ids = torch.as_tensor(input_ids, device=model.device)
+    bsz, prompt_len = input_ids.shape
+
+    def run(ids, _keys):
+        key = ("mtp", ids.shape[0], prompt_len, max_new_tokens, k,
+               eos_token_id, pad_token_id)
+        prog = exec_cache_for(model, RESIDENT_BYTES).get(
+            key, lambda: _MtpProgram(model, ids.shape[0], prompt_len,
+                                     max_new_tokens, k, eos_token_id,
+                                     pad_token_id))
+        return prog.run(ids)
+
+    out, nfwd, n_end = _by_rows(run, input_ids, None, _rows_alone(model))
+    if return_stats:
+        return out, _spec_stats(nfwd, n_end, prompt_len + max_new_tokens,
+                                prompt_len, bsz)
+    return out
 
 
 @torch.inference_mode()

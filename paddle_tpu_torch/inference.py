@@ -77,6 +77,17 @@ def _pad_rows(x: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand(cap - x.shape[0], *x.shape[1:])])
 
 
+def _crop(out, b: int, cap: int):
+    """Every tensor of ``out`` (nested tuples and lists too, as an MoE
+    forward's (logits, aux)) with a leading dim of ``cap`` cut to ``b``
+    rows."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_crop(o, b, cap) for o in out)
+    if torch.is_tensor(out) and out.dim() and out.shape[0] == cap:
+        return out[:b]
+    return out
+
+
 class Predictor:
     """Wraps a model for serving on ``device`` (the CUDA card unless the
     caller passes ``device="cpu"``; the model is moved there). As the JAX
@@ -88,11 +99,17 @@ class Predictor:
         self.config = config or Config()
         self.device = resolve_device(device)
         if self.config.dtype is not None:
-            # parameters only: buffers such as the fp32 RoPE frequencies
-            # keep their dtype
+            # parameters and persistent buffers (an MoE layer's
+            # expert_bias), as the JAX package's Layer.to casts them; the
+            # non-persistent fp32 RoPE frequencies keep their dtype
             for p in model.parameters():
                 if p.is_floating_point():
                     p.data = p.data.to(self.config.dtype)
+            for mod in model.modules():
+                for name, buf in mod._buffers.items():
+                    if buf is not None and buf.is_floating_point() and \
+                            name not in mod._non_persistent_buffers_set:
+                        mod._buffers[name] = buf.to(self.config.dtype)
         if self.config.quant_bits:
             from .quant import quantize_model
             quantize_model(model, bits=self.config.quant_bits,
@@ -122,19 +139,22 @@ class Predictor:
         b = args[0].shape[0] if args[0].dim() else 1
         cap = self._bucket(b)
         out = self.model(*[self._padded(a, b, cap) for a in args])
-        if cap != b and out.dim() and out.shape[0] == cap:
-            out = out[:b]
-        return out
+        return _crop(out, b, cap) if cap != b else out
 
     __call__ = run
 
     def generate(self, input_ids, prompt_start=None, **kwargs):
         """Autoregressive generation through the model's static KV cache
         (``generate`` of ``paddle_tpu_torch.generation``); the batch pads
-        to its bucket and the padding rows are cropped."""
+        to its bucket and the padding rows are cropped. A model whose
+        rows interact (``rows_independent`` False: MoE capacity is shared
+        by every token of a call) runs at the caller's batch, as the JAX
+        ``Predictor.generate`` runs every model: padding rows would
+        change which of its tokens the experts drop."""
         input_ids = torch.as_tensor(input_ids, device=self.device)
         b = input_ids.shape[0]
-        cap = self._bucket(b)
+        cap = self._bucket(b) \
+            if getattr(self.model, "rows_independent", True) else b
         if prompt_start is not None:
             prompt_start = self._padded(prompt_start, b, cap)
         out = self.model.generate(self._padded(input_ids, b, cap),

@@ -13,6 +13,12 @@ class CausalLMBase(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    # whether each batch row's outputs depend on that row alone: an MoE
+    # layer's experts take a capacity of tokens shared by every row of a
+    # call, so rows compete for it (padding a batch changes which tokens
+    # are dropped, and a row served alone is routed as a batch of one)
+    rows_independent = True
+
     def generate(self, input_ids, config=None, generator=None, **kwargs):
         from ..generation import generate as _generate
         return _generate(self, input_ids, config=config,

@@ -205,6 +205,49 @@ def apply_rotary(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def register_rope(module: nn.Module, config, device):
+    """The model's RoPE schedule: ``module.rope_inv_freq`` (an fp32
+    buffer, not persistent and never cast with the weights) and
+    ``module.attn_scaling``, from the config's ``rope_scaling``."""
+    inv_freq, module.attn_scaling = rope_params_from_scaling(
+        config.head_dim, config.rope_theta, config.rope_scaling,
+        config.max_position_embeddings)
+    if inv_freq is None:
+        inv_freq = _plain_inv_freq(config.head_dim, config.rope_theta)
+    module.register_buffer("rope_inv_freq",
+                           inv_freq.to(device=device, dtype=torch.float32),
+                           persistent=False)
+
+
+def cache_positions(input_ids, positions=None, cache_index=None,
+                    attn_start=None):
+    """(positions [b, s], cache_at) of a forward over ``input_ids`` [b,
+    s]: the positions given, or ``cache_index + arange(s)`` (left-padded
+    rows start at their first real token); ``cache_at`` is None, or for
+    a device ``cache_index`` (one index or one a row) the (rows [b, 1],
+    positions [b, s]) index pair this step's K/V land at, built once for
+    every layer."""
+    b, s = input_ids.shape
+    cache_at = None
+    if torch.is_tensor(cache_index):
+        dev = input_ids.device
+        at = (cache_index.reshape(-1, 1).long()
+              + torch.arange(s, device=dev)[None, :]).expand(b, s)
+        cache_at = (torch.arange(b, device=dev)[:, None], at)
+    if positions is None:
+        if cache_at is not None:
+            positions = cache_at[1]
+        else:
+            start = cache_index if cache_index is not None else 0
+            positions = start + torch.arange(
+                s, device=input_ids.device)[None, :].expand(b, s)
+        if attn_start is not None:
+            # left-padded rows: RoPE position 0 sits at each row's first
+            # real token, not at the pad prefix
+            positions = (positions - attn_start[:, None]).clamp_min(0)
+    return positions, cache_at
+
+
 # -------------------------------------------------------------- components
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, layer_idx: int = 0, *,
@@ -413,41 +456,15 @@ class LlamaModel(nn.Module):
              for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=config.dtype)
-        inv_freq, self.attn_scaling = rope_params_from_scaling(
-            config.head_dim, config.rope_theta, config.rope_scaling,
-            config.max_position_embeddings)
-        if inv_freq is None:
-            inv_freq = _plain_inv_freq(config.head_dim, config.rope_theta)
-        # fp32 always: not a parameter, and never cast with the weights
-        self.register_buffer("rope_inv_freq",
-                             inv_freq.to(device=device, dtype=torch.float32),
-                             persistent=False)
+        register_rope(self, config, device)
 
     def forward(self, input_ids, positions=None, kv_caches=None,
                 cache_index=None, attn_mask=None, attn_start=None,
                 segment_ids=None, paged_chunk: bool = False,
                 paged_decode: bool = False):
         cfg = self.config
-        b, s = input_ids.shape
-        cache_at = None
-        if torch.is_tensor(cache_index):
-            # a device index: the cache rows and positions this step
-            # writes, built once for every layer
-            dev = input_ids.device
-            at = (cache_index.reshape(-1, 1).long()
-                  + torch.arange(s, device=dev)[None, :]).expand(b, s)
-            cache_at = (torch.arange(b, device=dev)[:, None], at)
-        if positions is None:
-            if cache_at is not None:
-                positions = cache_at[1]
-            else:
-                start = cache_index if cache_index is not None else 0
-                positions = start + torch.arange(
-                    s, device=input_ids.device)[None, :].expand(b, s)
-            if attn_start is not None:
-                # left-padded rows: RoPE position 0 sits at each row's
-                # first real token, not at the pad prefix
-                positions = (positions - attn_start[:, None]).clamp_min(0)
+        positions, cache_at = cache_positions(input_ids, positions,
+                                              cache_index, attn_start)
         x = self.embed_tokens(input_ids)
         rope = rotary_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                               x.dtype, inv_freq=self.rope_inv_freq,

@@ -239,3 +239,199 @@ def test_greedy_generate_from_pretrained_matches_jax(tmp_path):
                                   JaxGenConfig(max_new_tokens=10)))
     got = ptt.generate(tm, torch.from_numpy(ids), max_new_tokens=10)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+# ------------------------------------------------------- the MoE families
+MOE_CONFIGS = {
+    "qwen2_moe": dict(
+        model_type="qwen2_moe", num_experts=4, num_experts_per_tok=2,
+        moe_intermediate_size=32, shared_expert_intermediate_size=48,
+        norm_topk_prob=True, decoder_sparse_step=1, rms_norm_eps=1e-6),
+    "ernie4_5_moe": dict(
+        model_type="ernie4_5_moe", moe_num_experts=4, moe_k=2,
+        moe_intermediate_size=32, moe_num_shared_experts=2,
+        moe_layer_start_index=1, use_bias=False),
+    "deepseek_v2": dict(
+        model_type="deepseek_v2", n_routed_experts=4,
+        num_experts_per_tok=2, moe_intermediate_size=32, n_shared_experts=1,
+        first_k_dense_replace=1, q_lora_rank=None, kv_lora_rank=32,
+        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+        topk_method="group_limited_greedy", n_group=2, topk_group=1,
+        rope_scaling=dict(type="yarn", factor=4.0,
+                          original_max_position_embeddings=64,
+                          mscale=0.707, mscale_all_dim=0.707)),
+    "deepseek_v3": dict(
+        model_type="deepseek_v3", n_routed_experts=4,
+        num_experts_per_tok=2, moe_intermediate_size=32, n_shared_experts=1,
+        first_k_dense_replace=1, q_lora_rank=24, kv_lora_rank=32,
+        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+        n_group=2, topk_group=1, routed_scaling_factor=2.5,
+        rope_scaling=dict(type="yarn", factor=4.0,
+                          original_max_position_embeddings=64,
+                          mscale=1.0, mscale_all_dim=1.0)),
+}
+
+
+def _moe_weights(cfg, seed):
+    """An HF checkpoint of ``cfg``'s family, seeded: Llama names for the
+    embeddings, norms and dense layers, the family's names for the
+    attention, router, experts, shared experts and score bias."""
+    rs = np.random.RandomState(seed)
+    mt = cfg["model_type"]
+    h, f, v = cfg["hidden_size"], cfg["intermediate_size"], \
+        cfg["vocab_size"]
+    nh = cfg["num_attention_heads"]
+    E = cfg.get("num_experts") or cfg.get("moe_num_experts") or \
+        cfg.get("n_routed_experts")
+    m = cfg["moe_intermediate_size"]
+    first_dense = cfg.get("first_k_dense_replace",
+                          cfg.get("moe_layer_start_index", 0))
+
+    def lin(o, i):
+        return rs.randn(o, i) * 0.1
+
+    w = {"model.embed_tokens.weight": rs.randn(v, h),
+         "model.norm.weight": 1 + 0.1 * rs.randn(h),
+         "lm_head.weight": lin(v, h)}
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        w[p + "input_layernorm.weight"] = 1 + 0.1 * rs.randn(h)
+        w[p + "post_attention_layernorm.weight"] = 1 + 0.1 * rs.randn(h)
+        if mt.startswith("deepseek"):
+            qd = cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"]
+            r = cfg["kv_lora_rank"]
+            a = p + "self_attn."
+            if cfg["q_lora_rank"] is None:
+                w[a + "q_proj.weight"] = lin(nh * qd, h)
+            else:
+                w[a + "q_a_proj.weight"] = lin(cfg["q_lora_rank"], h)
+                w[a + "q_a_layernorm.weight"] = \
+                    1 + 0.1 * rs.randn(cfg["q_lora_rank"])
+                w[a + "q_b_proj.weight"] = lin(nh * qd, cfg["q_lora_rank"])
+            w[a + "kv_a_proj_with_mqa.weight"] = lin(
+                r + cfg["qk_rope_head_dim"], h)
+            w[a + "kv_a_layernorm.weight"] = 1 + 0.1 * rs.randn(r)
+            w[a + "kv_b_proj.weight"] = lin(
+                nh * (cfg["qk_nope_head_dim"] + cfg["v_head_dim"]), r)
+            w[a + "o_proj.weight"] = lin(h, nh * cfg["v_head_dim"])
+        else:
+            d = h // nh
+            kv = cfg["num_key_value_heads"] * d
+            for n, o in (("q", h), ("k", kv), ("v", kv)):
+                w[p + f"self_attn.{n}_proj.weight"] = lin(o, h)
+                if mt == "qwen2_moe":
+                    w[p + f"self_attn.{n}_proj.bias"] = 0.1 * rs.randn(o)
+            w[p + "self_attn.o_proj.weight"] = lin(h, h)
+        mlp = p + "mlp."
+        if i < first_dense:
+            w.update({mlp + "gate_proj.weight": lin(f, h),
+                      mlp + "up_proj.weight": lin(f, h),
+                      mlp + "down_proj.weight": lin(h, f)})
+            continue
+        w[mlp + "gate.weight"] = lin(E, h)
+        for e in range(E):
+            x = f"{mlp}experts.{e}."
+            w.update({x + "gate_proj.weight": lin(m, h),
+                      x + "up_proj.weight": lin(m, h),
+                      x + "down_proj.weight": lin(h, m)})
+        if mt == "qwen2_moe":
+            sm = cfg["shared_expert_intermediate_size"]
+            shared = mlp + "shared_expert."
+            w[mlp + "shared_expert_gate.weight"] = lin(1, h)
+        else:
+            sm = m * (cfg.get("n_shared_experts")
+                      or cfg.get("moe_num_shared_experts"))
+            shared = mlp + "shared_experts."
+        w.update({shared + "gate_proj.weight": lin(sm, h),
+                  shared + "up_proj.weight": lin(sm, h),
+                  shared + "down_proj.weight": lin(h, sm)})
+        if mt == "ernie4_5_moe":
+            w[mlp + "moe_statics.e_score_correction_bias"] = \
+                0.1 * rs.randn(1, E)
+        if mt == "deepseek_v3":
+            w[mlp + "gate.e_score_correction_bias"] = 0.1 * rs.randn(E)
+    return {k: a.astype(np.float32) for k, a in w.items()}
+
+
+def _write_experts_split(dirpath, cfg, weights):
+    """Two shards and an index; each MoE layer's even experts in the
+    first shard and its odd ones in the second."""
+    os.makedirs(dirpath, exist_ok=True)
+    with open(os.path.join(dirpath, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    names = ["model-00001-of-00002.safetensors",
+             "model-00002-of-00002.safetensors"]
+    wm = {}
+    for i, k in enumerate(sorted(weights)):
+        m = hf_interop._MOE_EXPERT.match(k)
+        wm[k] = names[int(m.group(2)) % 2 if m else i % 2]
+    for name in names:
+        safetensors_numpy.save_file(
+            {k: weights[k] for k in weights if wm[k] == name},
+            os.path.join(dirpath, name))
+    with open(os.path.join(dirpath, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"weight_map": wm}, f)
+    return str(dirpath)
+
+
+@pytest.mark.parametrize("family", list(MOE_CONFIGS))
+def test_moe_from_pretrained_matches_jax(tmp_path, family):
+    """Experts split across two shards: the port fills each stacked
+    tensor expert by expert as the shards arrive, the JAX package merges
+    the checkpoint first; the same parameters bit for bit and the same
+    logits."""
+    cfg = _hf_config(**MOE_CONFIGS[family])
+    d = _write_experts_split(tmp_path / family, cfg,
+                             _moe_weights(cfg, seed=14))
+    jcls, jcfg, jmt = jax_hf.config_from_hf(d)
+    tcls, tcfg, tmt = hf_interop.config_from_hf(d)
+    assert (tcls.__name__, tmt) == (jcls.__name__, jmt)
+    for f in jcfg.__dataclass_fields__:
+        if f != "dtype":
+            assert getattr(tcfg, f) == getattr(jcfg, f), f
+    jm = jax_hf.from_pretrained(d)
+    tm = hf_interop.from_pretrained(d, device="cpu")
+    _assert_same_model(jm, tm, cfg["vocab_size"])
+    # the whole-checkpoint converter stacks what from_pretrained filled
+    conv = hf_interop.convert_hf_state_dict(
+        hf_interop.load_hf_checkpoint(d), tcfg, family)
+    jconv = jax_hf.convert_hf_state_dict(
+        jax_hf.load_hf_checkpoint(d), jcfg, family)
+    assert set(conv) == set(jconv)
+    for k in jconv:
+        np.testing.assert_array_equal(conv[k], np.asarray(jconv[k]))
+
+
+def test_moe_missing_expert_raises(tmp_path):
+    cfg = _hf_config(**MOE_CONFIGS["qwen2_moe"])
+    weights = _moe_weights(cfg, seed=15)
+    for p in ("gate", "up", "down"):
+        weights.pop(f"model.layers.1.mlp.experts.3.{p}_proj.weight")
+    d = _write_experts_split(tmp_path / "gap", cfg, weights)
+    with pytest.raises(KeyError, match="missing experts"):
+        hf_interop.from_pretrained(d, device="cpu")
+
+
+def test_qwen2_loads_as_qwen2_and_variants_raise_as_in_jax(tmp_path):
+    d = _write(tmp_path / "q", _hf_config(model_type="qwen2"),
+               _hf_weights(_hf_config(), seed=16))
+    cls, cfg, _ = hf_interop.config_from_hf(d)
+    assert cls is ptt.models.Qwen2ForCausalLM
+    assert isinstance(cfg, ptt.models.Qwen2Config)
+    bad = {
+        "sparse-step": dict(MOE_CONFIGS["qwen2_moe"], decoder_sparse_step=2),
+        "topk-method": dict(MOE_CONFIGS["deepseek_v2"],
+                            topk_method="noaux_tc"),
+        "layer-freq": dict(MOE_CONFIGS["deepseek_v2"], moe_layer_freq=2),
+        "rope": dict(MOE_CONFIGS["deepseek_v2"],
+                     rope_scaling=dict(type="linear", factor=2.0)),
+        "rotate-half": dict(MOE_CONFIGS["deepseek_v3"],
+                            rope_interleave=False)}
+    for name, over in bad.items():
+        d = _write(tmp_path / name, _hf_config(**over), {})
+        with pytest.raises(ValueError) as ref:
+            jax_hf.config_from_hf(d)
+        with pytest.raises(ValueError) as got:
+            hf_interop.config_from_hf(d)
+        assert str(got.value) == str(ref.value), name

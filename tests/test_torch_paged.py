@@ -396,3 +396,73 @@ def test_noise_is_a_function_of_the_key_alone():
     assert not torch.equal(g[0], g[1]) and not torch.equal(g[0], g[2])
     assert torch.equal(sampling.gumbel_noise_rows(keys[1:2], 50)[0], g[1])
     assert sampling.seed_key_row(2 ** 32 + 5).tolist() == [5, 0]
+
+
+# ---------------------------------------------------------------- MoE
+# Qwen2-MoE with tight expert capacity (cf 0.5: C = 4 for the 8-row
+# tick's 16 choices and a 16-token prefill's 32, over 4 experts), so
+# tokens are dropped and every row of a tick, idle rows included,
+# competes for the experts' slots
+MOE = dict(capacity_factor=0.5)
+MOE_ENGINE = dict(max_slots=8, num_blocks=64)
+
+
+def _moe_pair():
+    from paddle_tpu.models import qwen2_moe as jax_qwen2_moe
+    from paddle_tpu_torch.models import qwen2_moe
+    pt.seed(0)
+    jm = jax_qwen2_moe.Qwen2MoeForCausalLM(
+        jax_qwen2_moe.qwen2_moe_tiny(**MOE))
+    jm.eval()
+    jm.lm_head.weight = jm.lm_head.weight * 10.0   # decisive logits
+    tm = qwen2_moe.Qwen2MoeForCausalLM(qwen2_moe.qwen2_moe_tiny(**MOE),
+                                       device="cpu")
+    ptt.load_jax_state_dict(tm, {k: np.asarray(v)
+                                 for k, v in jm.state_dict().items()})
+    return jm, tm
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "host"])
+def test_moe_engine_matches_jax(monkeypatch, fused):
+    """Qwen2-MoE through both engines (whole-prompt prefill), requests
+    finishing at different ticks so idle rows sit among live ones: the
+    same tokens, logprobs within ATOL_LP, the same counters; the port's
+    run dropped tokens, so the capacity competition was live."""
+    from paddle_tpu_torch.parallel import moe
+    dropped = []
+    route = moe._route
+
+    def counting(*a, **kw):
+        out = route(*a, **kw)
+        dropped.append(int((~out[2]).sum()))
+        return out
+    monkeypatch.setattr(moe, "_route", counting)
+    rs = np.random.RandomState(11)
+    script = []
+    for i in range(7):
+        script += [("submit", f"m{i}", _ids(rs, rs.randint(4, 20)),
+                    dict(max_new_tokens=int(rs.randint(3, 12)))),
+                   ("step", 2)]
+    _both(_moe_pair(), script, fused_tick=fused, **MOE_ENGINE)
+    assert sum(dropped) > 0
+
+
+def test_moe_chunked_and_mla_engines_raise_as_in_jax():
+    """The JAX engine cannot chunk-prefill an MoE model (its forward has
+    no ``paged_chunk``) nor page MLA's latent cache; nor can the port."""
+    from paddle_tpu.models import deepseek_v2 as jax_ds
+    from paddle_tpu_torch.models import deepseek_v2 as ds
+    jm, tm = _moe_pair()
+    script = [("submit", "c", _ids(np.random.RandomState(1), 20),
+               dict(max_new_tokens=4)), ("step", 1)]
+    for eng in (JaxEngine(jm, **dict(BASE, chunk_prefill_tokens=8)),
+                PagedEngine(tm, **dict(BASE, chunk_prefill_tokens=8))):
+        with pytest.raises(TypeError, match="paged_chunk"):
+            _drive(eng, script)
+    pt.seed(0)
+    jd = jax_ds.DeepseekV2ForCausalLM(jax_ds.deepseek_v2_tiny())
+    td = ds.DeepseekV2ForCausalLM(ds.deepseek_v2_tiny(), device="cpu")
+    with pytest.raises(ValueError):
+        _drive(JaxEngine(jd, **BASE), script)
+    with pytest.raises(ValueError, match="PagedKV"):
+        _drive(PagedEngine(td, **BASE), script)

@@ -168,7 +168,8 @@ def test_gate_takes_shapes_only():
 def test_paged_writes_match_jax(T):
     """Decode writes (T = 1 and T > 1, positions past M to the garbage
     block) and prefill writes (pads to the garbage block) leave the same
-    pools as the JAX package's, and write the port's pools in place."""
+    pools as the JAX package's, and write the port's pools in place; the
+    decode writes leave the garbage block as writes in row order do."""
     q, kp, vp, tables, sl = _case(5, T=T, lens=[0, 7, 8, 46])
     rs = np.random.RandomState(6)
     k = rs.randn(4, T, 2, 64).astype(np.float32)
@@ -186,6 +187,17 @@ def test_paged_writes_match_jax(T):
                                   np.asarray(ref.kp)[live])
     np.testing.assert_array_equal(tvp.numpy()[live],
                                   np.asarray(ref.vp)[live])
+    # every block, the garbage block too, as the writes in row order
+    # leave it: colliding writes carry the last one's K/V on any device
+    seq_k, seq_v = kp.copy(), vp.copy()
+    B, M = kp.shape[1], tables.shape[1]
+    for r in range(4):
+        for t in range(T):
+            pos = sl[r] + t
+            b = tables[r, pos // B] if pos // B < M else 0
+            seq_k[b, pos % B], seq_v[b, pos % B] = k[r, t], v[r, t]
+    np.testing.assert_array_equal(tkp.numpy(), seq_k)
+    np.testing.assert_array_equal(tvp.numpy(), seq_v)
 
     kc = rs.randn(1, 16, 2, 64).astype(np.float32)
     lens0 = np.array([11], np.int32)

@@ -444,6 +444,7 @@ def test_card_lock_captures_alone():
     finishes."""
     import sys
     import threading
+    import time
 
     from paddle_tpu_torch.device import CardLock
 
@@ -459,6 +460,9 @@ def test_card_lock_captures_alone():
                     state["in_step"] += 1
                     if state["in_step"] > 1:
                         state["overlapped"] += 1
+                # yield inside the step, so other threads' steps start
+                # within it whatever the host's load
+                time.sleep(0)
                 if i % 50 == k:
                     with guard:
                         state["waiting"] += 1

@@ -1,7 +1,8 @@
 """The port's speculative decoding against the JAX package's, on the same
 weights (fp32, CPU): ``speculative_generate`` (a draft model) and
-``ngram_speculative_generate`` (prompt lookup), the cases of
-``tests/test_speculative.py``.
+``ngram_speculative_generate`` (prompt lookup) on Llama, and
+``mtp_speculative_generate`` (the model's own MTP module drafting) on
+DeepSeek-V3-style models, the cases of ``tests/test_speculative.py``.
 
 Greedy: token ids identical to JAX's speculative output and to greedy
 ``generate`` in both packages, target forwards equal to JAX's. Sampled
@@ -15,9 +16,12 @@ import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
+from paddle_tpu.generation import mtp_speculative_generate as jax_mtp
 from paddle_tpu.generation import ngram_speculative_generate as jax_ngram
 from paddle_tpu.generation import speculative_generate as jax_spec
+from paddle_tpu.models import DeepseekV2ForCausalLM as JaxDeepseek
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+from paddle_tpu.models import deepseek_v2_tiny as jax_deepseek_tiny
 from paddle_tpu.models import llama_tiny as jax_llama_tiny
 from paddle_tpu_torch.generation import (mtp_speculative_generate,
                                          ngram_speculative_generate,
@@ -174,10 +178,85 @@ class TestSpeculative:
         assert len(tt._gen_exec_cache.programs) == 1
 
     def test_mtp_raises_until_its_models_are_ported(self, models):
+        """A model without MTP depth modules (a Llama) raises the JAX
+        package's ValueError; the DeepSeek models that have them are
+        ported (``TestMTPSpeculative``)."""
         _, _, tt, _ = models
-        with pytest.raises(NotImplementedError, match="deepseek_v2"):
+        with pytest.raises(ValueError, match="num_nextn"):
             mtp_speculative_generate(tt, torch.from_numpy(_prompt()),
                                      max_new_tokens=4)
+
+
+def _mtp_pair(head_scale=10.0):
+    """``deepseek_v2_tiny`` with one MTP module, as the JAX tests build
+    it (lm_head x 10: decisive logits), in both packages."""
+    pt.seed(0)
+    jm = JaxDeepseek(jax_deepseek_tiny(num_nextn_predict_layers=1))
+    jm.eval()
+    jm.lm_head.weight = jm.lm_head.weight * head_scale
+    tm = ptt.models.DeepseekV2ForCausalLM(
+        ptt.models.deepseek_v2_tiny(num_nextn_predict_layers=1),
+        device="cpu")
+    ptt.load_jax_state_dict(tm, {k: np.asarray(v)
+                                 for k, v in jm.state_dict().items()})
+    return jm, tm
+
+
+class TestMTPSpeculative:
+    """MTP-as-draft self-speculation against the JAX package's
+    ``mtp_speculative_generate``, the cases of its tests: the same token
+    ids and target forwards, and the model's own greedy ``generate``."""
+
+    @pytest.fixture(scope="class")
+    def mtp(self):
+        return _mtp_pair()
+
+    @pytest.mark.parametrize("b,k,new,eos,seed", [
+        (1, 3, 20, None, 21),
+        (1, 3, 20, 7, 23),
+        (2, 2, 16, None, 24),
+    ], ids=["exact", "eos", "batched"])
+    def test_exact_and_equal_to_jax(self, mtp, b, k, new, eos, seed):
+        jm, tm = mtp
+        ids = _prompt(seed, b)
+        ref, rstats = jax_mtp(jm, jnp.asarray(ids), max_new_tokens=new,
+                              num_draft_tokens=k, eos_token_id=eos,
+                              return_stats=True)
+        got, stats = mtp_speculative_generate(
+            tm, torch.from_numpy(ids), max_new_tokens=new,
+            num_draft_tokens=k, eos_token_id=eos, return_stats=True)
+        _check(ref, got, rstats, stats)
+        assert stats == {k_: (v.tolist() if hasattr(v, "tolist") else v)
+                         for k_, v in rstats.items()}
+        want = ptt.generate(tm, torch.from_numpy(ids), max_new_tokens=new,
+                            eos_token_id=eos)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+    def test_forced_full_accept_cuts_forwards(self):
+        """A zero head: target and draft both argmax to token 0, so every
+        draft is accepted, ~(k+1) tokens a target forward."""
+        jm, tm = _mtp_pair(head_scale=0.0)
+        ids = _prompt(22)
+        ref, rstats = jax_mtp(jm, jnp.asarray(ids), max_new_tokens=24,
+                              num_draft_tokens=4, return_stats=True)
+        got, stats = mtp_speculative_generate(
+            tm, torch.from_numpy(ids), max_new_tokens=24,
+            num_draft_tokens=4, return_stats=True)
+        _check(ref, got, rstats, stats)
+        assert stats["target_forwards"] <= 6
+        assert stats["tokens_per_forward"] > 3.5
+
+    def test_program_reused_and_bad_k_raises(self, mtp):
+        """One program per shape, reused: a second call allocates nothing
+        and gives the same tokens."""
+        _, tm = mtp
+        ids = torch.from_numpy(_prompt(25))
+        a = mtp_speculative_generate(tm, ids, max_new_tokens=8)
+        n = len(tm._gen_exec_cache.programs)
+        b = mtp_speculative_generate(tm, ids, max_new_tokens=8)
+        assert torch.equal(a, b) and len(tm._gen_exec_cache.programs) == n
+        with pytest.raises(ValueError, match="num_draft_tokens"):
+            mtp_speculative_generate(tm, ids, num_draft_tokens=0)
 
 
 class TestNgramSpeculative:
