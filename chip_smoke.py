@@ -224,10 +224,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    (tokens per forward). Its flash, decode and ragged launches join the
    kernels line's.
 
+12. the multi-device slice (``[parallel]`` lines, last): (a)
+   ``flash_attention_with_lse`` (the function the ring runs a block pair
+   through) at the ring's block at Llama-3-8B width (q [1,2048,32,128],
+   kv [1,2048,8,128], bf16), causal and not, against its plain twin:
+   out and lse of the forward, dq, dk, dv of the backward with a random
+   nonzero lse cotangent (folded into delta before the dq and dk/dv
+   kernels; the twin forms the dense terms), and the fold alone (dout
+   0: dq and dk against the dense lse terms, dv 0), bits repeating, the
+   autograd Function equal to the direct calls; its forward time (the
+   kernels line's row) beside the twin, SDPA's forward (it returns no
+   lse) and the bound, and its backward's; (b) the ring's block math on
+   one card: a causal sequence of 4 x 2048 positions, each sp index's
+   exact sequence of ``ring_flash_step`` calls and lse merges over the
+   blocks the ring hands it, against one ``flash_attention`` over all
+   8192 positions (out and the gradients of q, k, v), with the counts
+   set to 0 just before and read just after (10 block pairs:
+   flash_attention_with_lse 10, its backward 10, all on wgmma), and each
+   rank's time against the single call's; (c) ``fleet.init`` at a world
+   of one on NCCL, ``fleet.distributed_model`` (DTensor parameters) and
+   the Trainer at phase 9's config for 5 steps: the losses bit for bit
+   the plain Trainer's, the same launches, and both step times. The
+   card machine has one GPU: multi-rank results are proved on the CPU
+   (the gloo tests).
+
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
-``cuda-simt`` for the fused AdamW update),
+``cuda-simt`` for the fused AdamW update; ``flash_attention_with_lse``'s
+launches are the ring's of phase 12),
 then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the ``paddle_tpu_torch`` package beside it, it exits
@@ -286,6 +311,12 @@ DKV_REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:389"
 # gradient: p and ds are rounded to bf16 at the same points, the sums run
 # in another order over up to 2048 keys or 4 x 2048 query rows
 TOL_BWD_BF16 = 2e-2
+# flash_attention_with_lse's out against its twin, elementwise: 2^-6 |ref|
+# (a few bf16 steps of the value) plus 2^-8 max|ref|. At the ring's
+# non-causal block |out| is ~0.02, where TOL_BF16 would be as large as
+# the values themselves
+TOL_LSE_OUT_REL = 2.0 ** -6
+TOL_LSE_OUT_ABS = 2.0 ** -8
 # the training slice: Llama-3-8B width, 4 layers, [2, 2048] batches
 TRAIN_LAYERS = 4
 TRAIN_BATCH = (2, 2048)
@@ -337,7 +368,7 @@ MMA_KERNELS = {"quant_matmul": ("qmm_mma_kernel",),
 # every kernel's launch count, each 0
 NO_LAUNCHES = dict.fromkeys(("flash", "decode", "ragged", "flash_bwd_dq",
                              "flash_bwd_dkv", "quant", "grid",
-                             "fused_adamw"), 0)
+                             "fused_adamw", "flash_lse", "flash_lse_bwd"), 0)
 # the fused Adam / AdamW update (csrc/fused_adam.cu). It replaces the
 # update XLA fuses inside the JAX package's jitted train step (no
 # pallas_call)
@@ -365,6 +396,14 @@ FP32_FLOP_PER_S = 67e12
 ADAM_BEFORE_MS = "64.42-64.97"
 # the resume phase: full width, depth cut to 1 layer (a checkpoint of
 # ~17.8 GB: bf16 params, fp32 masters, m and v), 4 steps
+# flash attention with lse (the ring's block function): it reaches the
+# forward and both backward kernels
+LSE_REPLACES = "paddle_tpu/ops/pallas/flash_attention.py:542"
+# the ring at Llama-3-8B width on one card: 4 sp blocks of 2048 positions
+RING_SP = 4
+RING_BLOCK = (1, 2048, 32, 8, 128)      # b, s per rank, h, kv, d
+PARALLEL_STEPS = 5
+
 RESUME_LAYERS = 1
 RESUME_STEPS = 4
 RESUME_PREEMPT = 3
@@ -1461,7 +1500,8 @@ def _reset_launches():
     from paddle_tpu_torch.ops.kernels.decode_attention import \
         decode_attention_fwd
     from paddle_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
+        flash_attention_with_lse, flash_attention_with_lse_bwd)
     from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
     from paddle_tpu_torch.ops.kernels.paged_attention import paged_attention
     from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
@@ -1472,7 +1512,9 @@ def _reset_launches():
            "flash_bwd_dq": flash_attention_bwd_dq,
            "flash_bwd_dkv": flash_attention_bwd_dkv,
            "quant": quant_matmul, "grid": paged_attention,
-           "fused_adamw": fused_adam}
+           "fused_adamw": fused_adam,
+           "flash_lse": flash_attention_with_lse,
+           "flash_lse_bwd": flash_attention_with_lse_bwd}
     for fn in fns.values():
         fn.launches = 0
         if hasattr(fn, "launches_by_route"):
@@ -5093,6 +5135,325 @@ def phase_moe(seed, dev, card):
     return launches
 
 
+def _lse_case(gen, dev, b, s, h, kv, d):
+    """bf16 q, k, v, dout and a nonzero fp32 lse cotangent."""
+    q, k, v, g, _ = _bwd_inputs(gen, dev, torch.bfloat16, b, s, h, kv, d)
+    g_lse = torch.randn(b, h, s, generator=gen, device=dev) * 0.5
+    return q, k, v, g, g_lse
+
+
+def _parallel_lse(gen, dev, card):
+    """(a) flash_attention_with_lse at the ring's block shape against its
+    plain twin, causal and not: out and lse of the forward, dq, dk, dv of
+    the backward with a random nonzero lse cotangent (the kernels with the
+    cotangent folded into delta against the dense terms), each repeated
+    bit for bit; the autograd Function against the direct calls. Then its
+    times at the block (non-causal: the ring's past blocks), forward and
+    backward, beside the plain twin, SDPA (forward only: it returns no
+    lse) and the bounds. Returns (max_abs_err, time row)."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    b, s, h, kv, d = RING_BLOCK
+    worst = 0.0
+    for causal in (True, False):
+        q, k, v, g, g_lse = _lse_case(gen, dev, b, s, h, kv, d)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_with_lse_bwd(q, k, v, out, lse, g, g_lse,
+                                              causal=causal)
+        again = fa.flash_attention_with_lse_bwd(q, k, v, out, lse, g, g_lse,
+                                                causal=causal)
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        fo, fl = fa.flash_attention_with_lse(*xs, causal=causal)
+        fg = torch.autograd.grad([fo, fl], xs, [g, g_lse])
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v,
+                                                        causal=causal)
+        ref = fa.flash_attention_with_lse_bwd_plain(q, k, v, out, lse, g,
+                                                    g_lse, causal=causal)
+        err, lse_err = max_err(out, ref_out), max_err(lse, ref_lse)
+        out_d = (out.float() - ref_out.float()).abs()
+        out_max = float(ref_out.float().abs().max())
+        out_tol = (TOL_LSE_OUT_REL * ref_out.float().abs()
+                   + TOL_LSE_OUT_ABS * out_max)
+        out_share = float((out_d / out_tol).max())
+        line = [f"out {err:.3e} (max|ref| {out_max:.3e}, {out_share:.3f} "
+                f"of its bound at worst)", f"lse {lse_err:.3e}"]
+        ok = out_share <= 1.0 and lse_err <= 1e-2
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            e, rmax = max_err(a, r), float(r.float().abs().max())
+            line.append(f"{name} {e:.3e} (max|ref| {rmax:.3e})")
+            ok = ok and e <= TOL_BWD_BF16 * rmax
+            worst = max(worst, e)
+        # the fold alone: with dout = 0 the kernels' dq and dk are the lse
+        # cotangent's share (ds = p g_lse scale) and dv is 0, against the
+        # dense lse_grad_terms in fp32
+        zero = torch.zeros_like(g)
+        fq, fk, fv = fa.flash_attention_with_lse_bwd(
+            q, k, v, out, lse, zero, g_lse, causal=causal)
+        rq, rk = fa.lse_grad_terms(q, k, lse, g_lse, causal=causal)
+        for name, a, r in (("dq", fq, rq), ("dk", fk, rk)):
+            e, rmax = max_err(a, r), float(r.abs().max())
+            line.append(f"fold-only {name} {e:.3e} (max|ref| {rmax:.3e})")
+            ok = ok and e <= TOL_BWD_BF16 * rmax
+        fold_dv = float(fv.float().abs().max())
+        line.append(f"fold-only max|dv| {fold_dv:.1e}")
+        ok = ok and fold_dv == 0.0
+        del zero, fq, fk, fv, rq, rk
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        func = (torch.equal(fo, out) and torch.equal(fl, lse)
+                and all(torch.equal(x, y) for x, y in zip(fg, got)))
+        log(f"[parallel] (a) flash_attention_with_lse bf16 "
+            f"{'causal' if causal else 'non-causal'} q {[b, s, h, d]} kv "
+            f"{[b, s, kv, d]}, lse cotangent folded into delta, against the "
+            f"dense twin: " + ", ".join(line) + f" (tol out "
+            f"{TOL_LSE_OUT_REL} |ref| + {TOL_LSE_OUT_ABS} max|ref|, lse "
+            f"1e-2, grads {TOL_BWD_BF16} x max|ref|, fold-only dv 0); "
+            f"bitwise repeat {same}; autograd Function = direct calls "
+            f"{func}")
+        if not (ok and same and func):
+            fail(f"flash_attention_with_lse disagrees with its twin, does "
+                 f"not repeat, or its Function differs (causal={causal})")
+        worst = max(worst, err)
+    # times at the block, non-causal, inputs rotated past the L2
+    el = 2
+    fwd_bytes = el * (2 * b * s * h * d + 2 * b * s * kv * d) + 4 * b * h * s
+    n = copies_for(fwd_bytes)
+    sets = [_lse_case(gen, dev, b, s, h, kv, d) for _ in range(n)]
+    outs = [fa.flash_attention_fwd(q, k, v) for q, k, v, _, _ in sets]
+    lib_sets = [tuple(t.transpose(1, 2).repeat_interleave(h // t.shape[2], 1)
+                      .contiguous() for t in x[:3]) for x in sets]
+    ms = cuda_ms(lambda i: fa.flash_attention_with_lse(*sets[i % n][:3]),
+                 iters=40)
+    plain_ms = cuda_ms(lambda i: fa.flash_attention_fwd_plain(
+        *sets[i % n][:3]), iters=5)
+    lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
+        *lib_sets[i % n]), iters=40)
+    prod = 2 * d * b * h * s * s
+    bound_ms, bound_by = bound(fwd_bytes, 2 * prod)
+
+    def bwd(i):
+        q, k, v, g, gl = sets[i % n]
+        o, l = outs[i % n]
+        return fa.flash_attention_with_lse_bwd(q, k, v, o, l, g, gl)
+
+    def bwd_plain(i):
+        q, k, v, g, gl = sets[i % n]
+        o, l = outs[i % n]
+        return fa.flash_attention_with_lse_bwd_plain(q, k, v, o, l, g, gl)
+    bwd_ms = cuda_ms(bwd, iters=20)
+    bwd_plain_ms = cuda_ms(bwd_plain, iters=3, warmup=1)
+    # the backward reads q, k, v, out, dout, lse, the cotangent and writes
+    # dq, dk, dv; 5 products (s, dp, dq, dk, dv) per pair
+    bwd_bytes = el * (4 * b * s * h * d + 4 * b * s * kv * d) \
+        + 8 * b * h * s
+    bwd_bound, bwd_by = bound(bwd_bytes, 5 * prod)
+    log(f"[time] flash_attention_with_lse at q {[b, s, h, d]} kv "
+        f"{[b, s, kv, d]} bf16 non-causal: forward {ms:.4f} ms (bound "
+        f"{bound_ms:.4f} ms by {bound_by}; plain twin {plain_ms:.4f} ms; "
+        f"sdpa forward, no lse, {lib_ms:.4f} ms); backward with the lse "
+        f"cotangent folded into the dq and dk/dv kernels {bwd_ms:.4f} ms "
+        f"(bound {bwd_bound:.4f} ms by {bwd_by}; the dense twin "
+        f"{bwd_plain_ms:.4f} ms) [{card}]")
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    del sets, outs, lib_sets
+    return worst, row
+
+
+def _parallel_ring(gen, dev, card):
+    """(b) The ring's block math at full width on one card: a causal
+    sequence of RING_SP x 2048 positions (heads 32/8, d 128, bf16); for
+    each sp index, the exact sequence of ``ring_flash_step`` calls (the
+    diagonal block causal, every past block whole, merged by lse) that
+    ``ring_flash_attention`` runs on that rank, over the block the ring
+    hands it at each step; out and the gradients of q, k, v against one
+    ``flash_attention`` over all the positions. The counts are set to 0
+    just before the ring's forward and backward and read just after:
+    flash_attention_with_lse once per block pair a rank takes (10 at sp
+    4), its backward as often. Returns (launches, routes)."""
+    import math
+
+    from paddle_tpu_torch.ops.attention import flash_attention
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_lse, flash_attention_with_lse_bwd)
+    from paddle_tpu_torch.parallel.ring import ring_flash_step
+    n = RING_SP
+    b, sb, h, kv, d = RING_BLOCK
+    S = n * sb
+    q, k, v, g, _ = _bwd_inputs(gen, dev, torch.bfloat16, b, S, h, kv, d)
+    scale = 1.0 / math.sqrt(d)
+
+    def ring(q, k, v, only=None):
+        outs = []
+        for idx in range(n) if only is None else [only]:
+            blk = lambda t, j: t[:, j * sb:(j + 1) * sb].contiguous()  # noqa: E731,E501
+            o, lse, _ = ring_flash_step(blk(q, idx), blk(k, idx),
+                                        blk(v, idx), None, None, 0, idx,
+                                        True, scale)
+            for step in range(1, n):
+                j = (idx - step) % n     # the block the ring holds now
+                o, lse, _ = ring_flash_step(blk(q, idx), blk(k, j),
+                                            blk(v, j), o, lse, step, idx,
+                                            True, scale)
+            outs.append(o.to(q.dtype))
+        return torch.cat(outs, dim=1) if only is None else outs[0]
+
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    torch.cuda.synchronize()
+    read = _reset_launches()
+    out = ring(*xs)
+    grads = torch.autograd.grad(out, xs, g)
+    torch.cuda.synchronize()
+    launches = read()
+    pairs = n * (n + 1) // 2
+    want = dict(NO_LAUNCHES, flash_lse=pairs, flash_lse_bwd=pairs,
+                flash=pairs, flash_bwd_dq=pairs, flash_bwd_dkv=pairs)
+    log(f"[parallel] (b) ring launches (sp {n}, causal): {launches} (want "
+        f"{want})")
+    if launches != want:
+        fail(f"ring launches {launches} != {want}")
+    routes = _check_routes("parallel", flash=pairs, flash_bwd_dq=pairs,
+                           flash_bwd_dkv=pairs)
+    routes["flash_lse"] = dict(flash_attention_with_lse.launches_by_route)
+    routes["flash_lse_bwd"] = dict(
+        flash_attention_with_lse_bwd.launches_by_route)
+    ys = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention(*ys, causal=True)
+    ref_grads = torch.autograd.grad(ref, ys, g)
+    torch.cuda.synchronize()
+    line, ok = [], True
+    for name, a, r in zip(("out", "dq", "dk", "dv"),
+                          (out.detach(),) + grads,
+                          (ref.detach(),) + ref_grads):
+        e, rmax = max_err(a, r), float(r.float().abs().max())
+        line.append(f"{name} {e:.3e} (max|ref| {rmax:.3e})")
+        ok = ok and e <= TOL_BWD_BF16 * rmax
+    log(f"[parallel] (b) ring of {n} x {sb} at Llama-3-8B width (q "
+        f"{[b, S, h, d]}, kv {[b, S, kv, d]}, bf16, causal) against one "
+        f"flash_attention over {S} positions: " + ", ".join(line)
+        + f" (tol {TOL_BWD_BF16} x max|ref|)")
+    if not ok:
+        fail("the ring's block math disagrees with one flash attention")
+
+    # times: each rank's share (forward + backward of its block pairs)
+    # against the single flash call over all positions
+    def rank_step(idx):
+        zs = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = ring(*zs, only=idx)
+        torch.autograd.grad(o, zs, g[:, idx * sb:(idx + 1) * sb])
+
+    def whole(_):
+        zs = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(flash_attention(*zs, causal=True), zs, g)
+    per_rank = [cuda_ms(lambda i, r=r: rank_step(r), iters=5)
+                for r in range(n)]
+    whole_ms = cuda_ms(whole, iters=5)
+    log(f"[time] ring forward + backward per sp rank (sp {n}, block {sb}, "
+        f"causal; rank r takes r + 1 block pairs): "
+        + ", ".join(f"rank {r} {t:.3f} ms" for r, t in enumerate(per_rank))
+        + f"; one flash_attention forward + backward over {S} positions "
+        f"{whole_ms:.3f} ms (its 1/{n} share {whole_ms / n:.3f} ms; the "
+        f"slowest rank at {max(per_rank) / (whole_ms / n):.2f} x that "
+        f"share) [{card}]")
+    return launches, routes
+
+
+def _parallel_mesh(seed, dev, card):
+    """(c) The mesh path on NCCL with a world of one: ``fleet.init`` with
+    every degree 1, ``fleet.distributed_model`` (DTensor parameters), then
+    the Trainer, PR 13's 4-layer Llama-3-8B-width config for
+    PARALLEL_STEPS steps; its losses bit for bit the plain Trainer's on
+    the same seed and batches, and the flash forward, dq, dk/dv and the
+    fused update launched on the mesh run as on the plain one. Both step
+    times (DTensor's host cost is their difference)."""
+    import gc
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env, fleet
+    from paddle_tpu_torch.parallel.sharding import is_sharded
+
+    class StepClock(ptt.TrainerCallback):
+        def __init__(self):
+            self.t = []
+
+        def on_step_end(self, step, logs):
+            self.t.append(time.perf_counter())
+
+    rs = np.random.RandomState(seed + 20)
+    batches = [rs.randint(0, 128256, TRAIN_BATCH) for _ in range(2)]
+    runs = {}
+    for arm in ("plain", "mesh"):
+        model = _train_model(seed, dev)
+        if arm == "mesh":
+            st = fleet.DistributedStrategy(hybrid_configs={})
+            fleet.init(strategy=st)
+            mesh = env.get_mesh()
+            fleet.distributed_model(model)
+            sharded = sum(is_sharded(p) for p in model.parameters())
+            log(f"[parallel] (c) mesh {mesh.shape} on {mesh.device}, "
+                f"backend {dist.get_backend()}, world "
+                f"{dist.get_world_size()}; {sharded} of "
+                f"{len(list(model.parameters()))} parameters are DTensors")
+        clock = StepClock()
+        tr = _trainer(model, batches, PARALLEL_STEPS, clock,
+                      output_dir=f"output/chip_smoke_parallel_{arm}")
+        torch.cuda.synchronize()
+        read = _reset_launches()
+        clock.t = [time.perf_counter()]
+        tr.train()
+        torch.cuda.synchronize()
+        launches = read()
+        steps_ms = np.diff(clock.t) * 1e3
+        runs[arm] = dict(losses=[v for _, v in tr.logger.history["loss"]],
+                         launches=launches,
+                         step_ms=float(np.median(steps_ms[1:])))
+        del tr, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    L = TRAIN_LAYERS
+    want = dict(NO_LAUNCHES, flash=L * PARALLEL_STEPS,
+                flash_bwd_dq=L * PARALLEL_STEPS,
+                flash_bwd_dkv=L * PARALLEL_STEPS, fused_adamw=PARALLEL_STEPS)
+    a, m = runs["plain"], runs["mesh"]
+    same = a["losses"] == m["losses"]
+    log(f"[parallel] (c) losses plain: "
+        + ", ".join(f"{x:.6f}" for x in a["losses"]) + "; mesh: "
+        + ", ".join(f"{x:.6f}" for x in m["losses"])
+        + f"; bit for bit {same}; launches plain {a['launches']}, mesh "
+        f"{m['launches']} (want {want})")
+    log(f"[time] (c) Trainer step, 4 layers [2, 2048], median of steps "
+        f"2-{PARALLEL_STEPS}: plain {a['step_ms']:.1f} ms, on the "
+        f"world-one mesh (DTensor parameters) {m['step_ms']:.1f} ms: "
+        f"DTensor's host cost {m['step_ms'] - a['step_ms']:.1f} ms a step "
+        f"[{card}]")
+    if not same:
+        fail("the mesh Trainer's losses differ from the plain Trainer's")
+    if a["launches"] != want or m["launches"] != want:
+        fail("the mesh or plain Trainer launched other kernels than "
+             f"{want}")
+    env.clear_mesh()
+    dist.destroy_process_group()
+    for arm in runs:
+        shutil.rmtree(f"output/chip_smoke_parallel_{arm}",
+                      ignore_errors=True)
+
+
+def phase_parallel(seed, gen, dev, card):
+    """The multi-device slice on one card (``[parallel]`` lines): (a)
+    flash_attention_with_lse against its twin, (b) the ring's block math
+    at full width (its launches are the kernels line's), (c) the mesh
+    path through NCCL at a world of one. Returns (errors, times,
+    launches, routes) for the kernels line."""
+    err, row = _parallel_lse(gen, dev, card)
+    launches, routes = _parallel_ring(gen, dev, card)
+    _parallel_mesh(seed, dev, card)
+    return err, row, launches, routes
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5166,6 +5527,12 @@ def main():
     phase_fp16_train(args.seed, dev, card)
     for key, n in phase_moe(args.seed, dev, card).items():
         launches[key] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs["flash_lse"], times["flash_lse"], ring_launches, ring_routes = \
+        phase_parallel(args.seed, gen, dev, card)
+    launches["flash_lse"] = ring_launches["flash_lse"]
+    routes["flash_lse"] = ring_routes["flash_lse"]
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,
@@ -5177,7 +5544,10 @@ def main():
                        RAGGED_REPLACES),
             "grid": ("paged_attention", GRID_SOURCE, GRID_REPLACES),
             "quant": ("quant_matmul", QUANT_SOURCE, QUANT_REPLACES),
-            "fused_adamw": ("fused_adamw", ADAM_SOURCE, ADAM_REPLACES)}
+            "fused_adamw": ("fused_adamw", ADAM_SOURCE, ADAM_REPLACES),
+            "flash_lse": ("flash_attention_with_lse",
+                          f"{FLASH_SOURCE} + {FLASH_BWD_SOURCE}",
+                          LSE_REPLACES)}
     kernels = []
     for key, (name, source, replaces) in meta.items():
         t = times[key]

@@ -168,8 +168,16 @@ class GradScaler:
         |g| alone, in one read of each gradient and without an fp32 copy:
         that element's product is the largest, so it overflows if any
         does, and a NaN or inf anywhere makes the maximum NaN or inf."""
-        amax = torch.stack([torch.linalg.vector_norm(g, ord=float("inf"))
-                            .float() for g in _values(grads)]).max()
+        from ..parallel.sharding import is_sharded, local
+        values = _values(grads)
+        amax = torch.stack([torch.linalg.vector_norm(local(g),
+                                                     ord=float("inf"))
+                            .float() for g in values]).max()
+        if any(is_sharded(g) for g in values):
+            # every rank of the mesh skips the same steps
+            from ..distributed.collective import _reduce_
+            from ..distributed.env import HYBRID_AXES
+            amax = _reduce_(amax, "max", HYBRID_AXES)
         return ~torch.isfinite(amax * inv)
 
     def unscale(self, grads, state=None):
@@ -179,10 +187,14 @@ class GradScaler:
             dev = _values(grads)[0].device if _values(grads) else "cpu"
             return grads, torch.zeros((), dtype=torch.bool, device=dev)
         inv = self.inv_scale(state)
+        from ..parallel.sharding import map_local
+
+        def un(g):
+            return map_local(g, lambda t: t.float() * inv)
         if isinstance(grads, dict):
-            unscaled = {k: g.float() * inv for k, g in grads.items()}
+            unscaled = {k: un(g) for k, g in grads.items()}
         else:
-            unscaled = type(grads)(g.float() * inv for g in grads)
+            unscaled = type(grads)(un(g) for g in grads)
         return unscaled, self.found_inf(grads, inv)
 
     def update_state(self, state, found_inf):

@@ -37,6 +37,16 @@ manifest is written.
 
 ``restore`` returns the tree with CPU tensors; the trainer copies them
 into its live tensors in place.
+
+On a mesh (``torch.distributed`` initialised): a ``DTensor`` leaf is
+saved as its logical full tensor (``full_tensor()``, a collective, so
+every rank calls ``save`` at the same step), and rank 0 alone writes
+the files, the manifest and the sidecar. Every rank restores the full
+tensors and keeps its own shard (``parallel.sharding.local_shard``), so a
+step saved on one mesh resumes on another (another dp degree, or fsdp
+and tp splits). A save with ``wait`` returns on every rank once rank 0's
+write is durable, and the trainer makes the other ranks wait for rank
+0's write before a resume reads it.
 """
 from __future__ import annotations
 
@@ -90,7 +100,8 @@ def _flatten(tree, tensors: List[torch.Tensor]):
     if isinstance(tree, (list, tuple)):
         return [_flatten(v, tensors) for v in tree]
     if torch.is_tensor(tree):
-        t = tree.detach()
+        from ..parallel.sharding import full_tensor
+        t = full_tensor(tree.detach())
         if t.dtype not in _DTYPES.values():
             raise TypeError(f"cannot checkpoint a {t.dtype} tensor")
         host = t.to("cpu", copy=True).contiguous()
@@ -104,6 +115,18 @@ def _flatten(tree, tensors: List[torch.Tensor]):
     if tree is None or isinstance(tree, (bool, int, float, str)):
         return tree
     raise TypeError(f"cannot checkpoint a leaf of type {type(tree)}")
+
+
+def _is_writer() -> bool:
+    """Rank 0 of an initialised process group, or a lone process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier():
+    """Every rank of an initialised process group (nothing alone)."""
+    from ..distributed.env import barrier
+    barrier()
 
 
 def _bytes_of(t: torch.Tensor) -> memoryview:
@@ -263,6 +286,15 @@ class DistributedCheckpoint:
         tensors: List[torch.Tensor] = []
         index = {"format": FORMAT, "tree": _flatten(state, tensors)}
         snapshot_s = time.perf_counter() - t0
+        durable = wait or not self.async_save
+        if not _is_writer():
+            # the gather above was this rank's part of the save; a durable
+            # save returns on every rank once rank 0's write is done
+            self.last_save = {"step": step, "snapshot_s": snapshot_s,
+                              "bytes": 0}
+            if durable:
+                _barrier()
+            return
         if meta is not None:
             try:
                 self._write_meta(step, meta)
@@ -272,8 +304,11 @@ class DistributedCheckpoint:
         self.last_save = {"step": step, "snapshot_s": snapshot_s,
                           "bytes": sum(t.numel() * t.element_size()
                                        for t in tensors)}
-        if wait or not self.async_save:
-            self._write_step(step, index, tensors)
+        if durable:
+            try:
+                self._write_step(step, index, tensors)
+            finally:
+                _barrier()
         else:
             self._writer = threading.Thread(
                 target=self._write_step_logged, args=(step, index, tensors),

@@ -5,9 +5,11 @@ The same classes and the same numpy generators as the JAX package, so one
 seed gives one index order in both packages, and the same resumable
 state (``state_dict`` / ``load_state_dict``: the in-epoch cursor, O(1) to
 save and to restore). ``DistributedBatchSampler`` shards the index space
-per data-parallel rank; its rank and world size default to
-``torch.distributed``'s when a process group is initialised, and to 0 and
-1 otherwise."""
+per data-parallel rank; its rank and world size default to the installed
+mesh's batch coordinate (dp x fsdp, dp major: the ranks of one
+coordinate, which differ only in tp, sp, pp or ep, read the same
+batches), else to ``torch.distributed``'s when a process group is
+initialised, and to 0 and 1 otherwise."""
 from __future__ import annotations
 
 import math
@@ -17,9 +19,13 @@ import numpy as np
 
 
 def _dist_world():
-    """(world size, rank) of the initialised ``torch.distributed`` process
-    group, or (1, 0) without one."""
+    """(world size, rank) of the data: the installed mesh's batch degree
+    and coordinate, else the initialised ``torch.distributed`` process
+    group's, or (1, 0) without one."""
     import torch.distributed as dist
+    from ..distributed import env
+    if env.has_mesh():
+        return env.batch_coordinates()
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0

@@ -4,9 +4,13 @@ The serving paths of the JAX package, in PyTorch: the static-KV-cache
 attention that ``generate()`` drives, the paged KV cache that
 ``PagedEngine`` drives, and the no-cache forward, which the trainer
 differentiates (flash attention through its backward kernels, per-layer
-recompute when ``config.recompute`` is on). The branches that belong to
-the multi-device slice raise ``NotImplementedError``: ring attention over
-a sequence-parallel mesh and the pipeline-parallel train step.
+recompute when ``config.recompute`` is on). On a mesh the no-cache
+forward runs on this rank's block: its rows of the batch, its heads
+under ``tp`` (the projections are the tp layers, with their
+collectives), and with ``sequence_parallel`` its block of positions
+under ``sp``, attended through ``ring_attention`` at global positions
+(RoPE included). The pipeline-parallel train step still raises
+``NotImplementedError``.
 
 PyTorch idiom inside: ``nn.Module``s with an explicit device and
 generator, the RoPE tables computed once per forward in ``LlamaModel``
@@ -25,6 +29,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.collective import axis_index, axis_size
 from ..generation.paged import (PagedKV, paged_chunk_attention,
                                 paged_decode_attention, paged_decode_write,
                                 paged_prefill_write)
@@ -35,6 +40,7 @@ from ..ops.attention import (decode_attention, dense_attention,
                              flash_attention, segment_mask, use_flash)
 from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
                                VocabParallelEmbedding, parallel_matmul)
+from ..parallel.ring import ring_attention
 from ..parallel.sharding import constraint
 from ..utils.rng import make_generator
 from .base import CausalLMBase
@@ -66,7 +72,7 @@ class LlamaConfig:
     max_window_layers: Optional[int] = None
     # Llama-3.1+ rope_scaling (HF types llama3 / yarn / linear / default)
     rope_scaling: Optional[Dict[str, Any]] = None
-    sequence_parallel: bool = False    # ring attention: multi-device slice
+    sequence_parallel: bool = False    # ring attention over the sp axis
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -248,15 +254,16 @@ def cache_positions(input_ids, positions=None, cache_index=None,
     return positions, cache_at
 
 
+def sp_degree() -> int:
+    """The degree of the installed mesh's ``sp`` axis (1 without one)."""
+    return axis_size("sp")
+
+
 # -------------------------------------------------------------- components
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, layer_idx: int = 0, *,
                  device, generator):
         super().__init__()
-        if config.sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel (ring attention over the sp mesh axis) "
-                "comes with the multi-device slice of the port")
         self.config = config
         mwl = config.max_window_layers
         # HF-Qwen2 semantics: the window applies from max_window_layers on
@@ -266,15 +273,14 @@ class LlamaAttention(nn.Module):
         h, kv, d = (config.num_attention_heads,
                     config.num_key_value_heads, config.head_dim)
         kw = dict(generator=generator, device=device, dtype=config.dtype)
-        bias = config.attention_bias
-        self.q_proj = ColumnParallelLinear(config.hidden_size, h * d,
-                                           has_bias=bias, **kw)
-        self.k_proj = ColumnParallelLinear(config.hidden_size, kv * d,
-                                           has_bias=bias, **kw)
-        self.v_proj = ColumnParallelLinear(config.hidden_size, kv * d,
-                                           has_bias=bias, **kw)
+        col = dict(kw, has_bias=config.attention_bias, gather_output=False)
+        self.q_proj = ColumnParallelLinear(config.hidden_size, h * d, **col)
+        self.k_proj = ColumnParallelLinear(config.hidden_size, kv * d, **col)
+        self.v_proj = ColumnParallelLinear(config.hidden_size, kv * d, **col)
         self.o_proj = RowParallelLinear(h * d, config.hidden_size,
                                         has_bias=False, **kw)
+
+    _sp_degree = staticmethod(sp_degree)
 
     def forward(self, x, rope, kv_cache=None, cache_index=None,
                 attn_mask=None, attn_start=None, segment_ids=None,
@@ -300,11 +306,12 @@ class LlamaAttention(nn.Module):
         [b, s]) index pair the model built from it, where the K/V land."""
         cfg = self.config
         b, s, _ = x.shape
-        nh, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                      cfg.head_dim)
-        q = self.q_proj(x).reshape(b, s, nh, d)
-        k = self.k_proj(x).reshape(b, s, kvh, d)
-        v = self.v_proj(x).reshape(b, s, kvh, d)
+        d = cfg.head_dim
+        # this rank's heads: all of them, or 1/tp of them under tp
+        q = self.q_proj(x).reshape(b, s, -1, d)
+        k = self.k_proj(x).reshape(b, s, -1, d)
+        v = self.v_proj(x).reshape(b, s, -1, d)
+        nh = q.shape[2]
         cos, sin = rope
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
 
@@ -372,7 +379,14 @@ class LlamaAttention(nn.Module):
             out = self.o_proj(out.reshape(b, s, nh * d))
             return out, (ck, cv)
 
-        if cfg.use_flash_attention and attn_mask is None \
+        if cfg.sequence_parallel and attn_mask is None \
+                and self._sp_degree() > 1:
+            # ring attention: the sequence stays split over sp, the K/V
+            # blocks (and segment ids) rotate, masks at global positions
+            out = ring_attention(q, k, v, axis_name="sp", causal=True,
+                                 segment_ids=segment_ids,
+                                 window=self.window)
+        elif cfg.use_flash_attention and attn_mask is None \
                 and use_flash(q, k, None, 0.0):
             out = flash_attention(q, k, v, causal=True,
                                   segment_ids=segment_ids,
@@ -396,10 +410,11 @@ class LlamaMLP(nn.Module):
         super().__init__()
         kw = dict(has_bias=False, generator=generator, device=device,
                   dtype=config.dtype)
+        col = dict(kw, gather_output=False)
         self.gate_proj = ColumnParallelLinear(config.hidden_size,
-                                              config.intermediate_size, **kw)
+                                              config.intermediate_size, **col)
         self.up_proj = ColumnParallelLinear(config.hidden_size,
-                                            config.intermediate_size, **kw)
+                                            config.intermediate_size, **col)
         self.down_proj = RowParallelLinear(config.intermediate_size,
                                            config.hidden_size, **kw)
 
@@ -463,6 +478,13 @@ class LlamaModel(nn.Module):
                 segment_ids=None, paged_chunk: bool = False,
                 paged_decode: bool = False):
         cfg = self.config
+        if positions is None and kv_caches is None \
+                and cfg.sequence_parallel and sp_degree() > 1:
+            # this rank's block of the sequence: global RoPE positions
+            s = input_ids.shape[1]
+            positions = (axis_index("sp") * s + torch.arange(
+                s, device=input_ids.device))[None, :].expand(
+                    input_ids.shape[0], s)
         positions, cache_at = cache_positions(input_ids, positions,
                                               cache_index, attn_start)
         x = self.embed_tokens(input_ids)

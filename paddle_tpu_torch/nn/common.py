@@ -4,6 +4,12 @@
 Each layer allocates its parameters on ``device`` in ``dtype`` and fills
 them from the ``generator`` it is given. Linear weights are stored
 [out, in], the torch way; the JAX package stores [in, out].
+
+Partition metadata (the JAX package's ``ParamMeta.partition``): a
+parameter may carry ``partition``, one mesh-axis name (or tuple of
+names, or None) per dim, in the port's own layout: a Linear weight's
+tuple is the JAX one reversed, as its shape is. ``parallel.sharding``
+reads it through :func:`partition_of`.
 """
 from __future__ import annotations
 
@@ -15,6 +21,18 @@ from torch import nn
 from ..device import resolve_device
 from . import functional as F
 from . import initializer as I
+
+
+def partition_of(param):
+    """A parameter's partition tuple (see the module docstring), or None."""
+    return getattr(param, "partition", None)
+
+
+def set_partition(param, partition):
+    """Tag ``param`` with a partition tuple in the port's layout; returns
+    it."""
+    param.partition = tuple(partition) if partition is not None else None
+    return param
 
 
 def _param(shape, init, generator, device, dtype):

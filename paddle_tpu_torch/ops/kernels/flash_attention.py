@@ -82,6 +82,18 @@ dout tiles by TMA; all four products run on the tensor cores (p and ds
 as register operands). The ``simt`` kernels run theirs as fp32 FMAs on
 the CUDA cores from shared-memory tiles of packed 16-bit words, two
 blocks per SM at d <= 128.
+
+With lse: ``flash_attention_with_lse`` replaces the function of that name
+(:542; ``_flash_lse`` :493 and its VJP :498-515), which reaches the same
+three TPU kernels (:183, :375, :389) and returns lse as a second,
+differentiable output: the ring's merge across cards needs it. Forward:
+the row-1 kernel, which forms lse anyway. Backward: the JAX package forms
+the lse cotangent's terms densely (``_lse_grad_terms`` :518, an [sq, sk]
+product per head); here the cotangent is folded into delta before the
+row 2-3 kernels run, since d lse_i / d s_ij = p_ij gives ds = p (dp -
+(delta - g_lse)) scale: the kernels then form dq + dq2 and dk + dk2 with
+no dense term and no kernel change, and dv is unchanged. The dense route
+stays as the plain twin (``flash_attention_with_lse_bwd_plain``).
 """
 from __future__ import annotations
 
@@ -271,7 +283,8 @@ def _bwd_plain(q, k, v, out, lse, dout, causal, scale, window, segment_ids,
     s = _masked_scores(qf, kf, scale, causal, window, segment_ids)
     p = torch.exp(s - lse[..., None])
     dp = gf @ vf.transpose(-1, -2)
-    ds = (p * (dp - _delta(out, dout)[..., None]) * scale).to(q.dtype).float()
+    delta = _delta(out, dout)
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
     grads = []
     if dq_part:
         grads.append((ds @ kf).to(q.dtype))               # [b, h, sq, d]
@@ -417,3 +430,108 @@ class FlashAttentionFunction(torch.autograd.Function):
                                          segment_ids=segment_ids,
                                          **ctx.opts)
         return dq, dk, dv, None, None, None, None
+
+
+# ------------------------------------------------- flash with exposed lse
+def lse_grad_terms(q, k, lse, g_lse, *, causal=False, scale=None):
+    """The lse cotangent's share of dq and dk, over the whole score matrix
+    in fp32 (the JAX package's ``_lse_grad_terms`` :518, in the [b, s, h,
+    d] layout): d lse_i / d s_ij = p_ij, so sum_i g_lse_i lse_i adds
+    g_lse_i p_ij k_j scale to dq_i and g_lse_i p_ij q_i scale to dk_j
+    (summed over a GQA group's query heads). Returns fp32 (dq2, dk2)."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    group = h // hk
+    qf = q.float().transpose(1, 2)                       # [b, h, sq, d]
+    kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    s = _masked_scores(qf, kf, scale, causal, None, None)
+    w = torch.exp(s - lse[..., None]) * g_lse.float()[..., None] * scale
+    dq = w @ kf
+    dk = (w.transpose(-1, -2) @ qf).reshape(b, hk, group, sk, d).sum(2)
+    return dq.transpose(1, 2), dk.transpose(1, 2)
+
+
+def flash_attention_with_lse_bwd_plain(q, k, v, out, lse, dout, g_lse, *,
+                                       causal=False, scale=None):
+    """The plain twin of the backward with both cotangents, as the JAX
+    package's ``_flash_lse_vjp_bwd`` (:498) forms it: the FA-2 backward
+    of ``dout`` (:func:`flash_attention_bwd_plain`), then the dense
+    :func:`lse_grad_terms` added to dq and dk in fp32 and cast once.
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                           causal=causal, scale=scale)
+    dq2, dk2 = lse_grad_terms(q, k, lse, g_lse, causal=causal, scale=scale)
+    return ((dq.float() + dq2).to(q.dtype), (dk.float() + dk2).to(k.dtype),
+            dv)
+
+
+def flash_attention_with_lse_bwd(q, k, v, out, lse, dout, g_lse, *,
+                                 causal=False, scale=None):
+    """Backward of :func:`flash_attention_with_lse` with cotangents for
+    both outputs (``dout`` [b, sq, h, d], ``g_lse`` [b, h, sq] fp32).
+
+    CPU tensors take :func:`flash_attention_with_lse_bwd_plain` (the
+    dense lse terms, as the JAX package); CUDA tensors launch the dq and
+    dk/dv kernels of rows 2-3 with ``delta - g_lse`` in place of delta,
+    which is exactly the dense route's dq + dq2 and dk + dk2 (dv does not
+    see the lse), or raise."""
+    _check_bwd(q, k, v, out, lse, dout, causal, None, None)
+    if tuple(g_lse.shape) != tuple(lse.shape):
+        raise ValueError(f"g_lse must have lse's shape {tuple(lse.shape)}; "
+                         f"got {tuple(g_lse.shape)}")
+    if not use_kernel(q, k, v, out, lse, dout, g_lse):
+        return flash_attention_with_lse_bwd_plain(
+            q, k, v, out, lse, dout, g_lse, causal=causal, scale=scale)
+    scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
+    delta = (_delta(out, dout) - g_lse.float()).contiguous()
+    kw = dict(causal=causal, scale=scale, window=None)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, None, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, None, **kw)
+    _count(flash_attention_with_lse_bwd, flash_route(q.dtype, q.shape[3]))
+    return dq, dk, dv
+
+
+class FlashAttentionWithLseFunction(torch.autograd.Function):
+    """Flash attention returning (out, lse) with a backward for both
+    (the counterpart of ``_flash_lse`` and its VJP, :493-515): the
+    forward kernel of row 1 (which forms lse anyway), and
+    :func:`flash_attention_with_lse_bwd`.
+
+        out, lse = FlashAttentionWithLseFunction.apply(q, k, v, causal,
+                                                       scale)
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False, scale=None):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        if use_kernel(q, k, v):
+            _count(flash_attention_with_lse, flash_route(q.dtype,
+                                                         q.shape[3]))
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, scale=scale)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_with_lse_bwd(
+            q, k, v, out, lse, dout.contiguous(), g_lse.contiguous(),
+            **ctx.opts)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(query, key, value, causal=False, scale=None):
+    """[b, s, h, d] flash attention returning (out in the inputs' dtype,
+    lse [b, h, sq] fp32), differentiable in both: the building block of
+    the ring's cross-device softmax merge (counterpart of
+    ``paddle_tpu/ops/pallas/flash_attention.py:542``). Its launches are
+    counted on this function (``launches``, ``launches_by_route``) and
+    its backward's on :func:`flash_attention_with_lse_bwd`, beside the
+    row 1-3 wrappers' own counts."""
+    return FlashAttentionWithLseFunction.apply(query, key, value, causal,
+                                               scale)
+
+
+_reset_counts(flash_attention_with_lse)
+_reset_counts(flash_attention_with_lse_bwd)

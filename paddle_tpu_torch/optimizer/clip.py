@@ -3,7 +3,10 @@
 Each clip takes a dict ``{name: gradient}``, scales or clamps the
 gradients in place (``torch._foreach_*`` where a whole dict is scaled by
 one factor) and returns the same dict. Norms are taken in fp32 whatever
-the gradients' dtype, as in the JAX package.
+the gradients' dtype, as in the JAX package. A gradient may be a
+``DTensor`` (a parameter sharded on the mesh): its norm is that of the
+logical tensor, each element counted once (``sharding.full_norms``), and
+it is scaled or clamped in its local shard.
 """
 from __future__ import annotations
 
@@ -11,13 +14,13 @@ from typing import Dict
 
 import torch
 
+from ..parallel.sharding import full_norms, local
+
 
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of every gradient's squared entries), fp32, as a tensor on
     the gradients' device."""
-    norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
-             for g in grads.values()]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack(full_norms(grads.values())))
 
 
 class GradClipBase:
@@ -33,7 +36,7 @@ class ClipGradByValue(GradClipBase):
     @torch.no_grad()
     def __call__(self, grads):
         for g in grads.values():
-            g.clamp_(self.min, self.max)
+            local(g).clamp_(self.min, self.max)
         return grads
 
 
@@ -45,9 +48,9 @@ class ClipGradByNorm(GradClipBase):
 
     @torch.no_grad()
     def __call__(self, grads):
-        for g in grads.values():
-            n = torch.linalg.vector_norm(g, dtype=torch.float32)
-            g.mul_(torch.clamp(self.clip_norm / n.clamp_min(1e-12), max=1.0))
+        for g, n in zip(grads.values(), full_norms(grads.values())):
+            local(g).mul_(torch.clamp(self.clip_norm / n.clamp_min(1e-12),
+                                      max=1.0))
         return grads
 
 
@@ -73,5 +76,6 @@ class ClipGradByGlobalNorm(GradClipBase):
     def __call__(self, grads):
         if not grads:
             return grads
-        torch._foreach_mul_(list(grads.values()), self.scale(grads))
+        torch._foreach_mul_([local(g) for g in grads.values()],
+                            self.scale(grads))
         return grads

@@ -22,6 +22,13 @@ takes a ``GradScaler``'s device scalars: the gradients are unscaled
 first, and a step with ``found_inf`` set leaves parameters and state as
 they were (the JAX trainer's ``GradScaler.select``), with no host sync.
 
+On a mesh the parameters are ``DTensor``s (``fleet.distributed_model``):
+``init`` makes the slots and masters as DTensors with the same
+placements (the JAX package's optimizer state inheriting its parameters'
+shardings: ZeRO stage 1 over fsdp), ``apply`` takes DTensor gradients in
+those placements, the clips take logical norms, and every update runs on
+the local shards (the fused pass on their raw pointers).
+
 The stateful paddle facade: ``Optimizer(parameters=module)`` then
 ``opt.step()`` after ``loss.backward()`` reads each trainable parameter's
 ``.grad``; ``clear_grad()`` drops them.
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels.fused_adam import fused_adam
+from ..parallel.sharding import local, map_local
 from .clip import ClipGradByGlobalNorm, GradClipBase
 from .lr import LRScheduler
 
@@ -79,7 +87,8 @@ class Optimizer:
         (it may scale the grads in place); a set ``found_inf`` (a device
         bool) keeps every parameter and state tensor as it was."""
         if inv_scale is not None:
-            grads = {k: g.float() * inv_scale for k, g in grads.items()}
+            grads = {k: map_local(g, lambda t: t.float() * inv_scale)
+                     for k, g in grads.items()}
         if self.grad_clip is not None:
             grads = self.grad_clip(grads)
         lr = _lr_value(self._lr, step)
@@ -88,11 +97,12 @@ class Optimizer:
             else []
         before = [t.clone() for t in held]
         for name, p in params.items():
-            work = master[name] if master is not None else p.detach().float()
-            self._update(name, work, grads[name], state["slots"][name], lr,
-                         step)
+            p = local(p.detach())
+            work = local(master[name]) if master is not None else p.float()
+            self._update(name, work, local(grads[name]),
+                         _local_tree(state["slots"][name]), lr, step)
             if master is not None or work.data_ptr() != p.data_ptr():
-                p.detach().copy_(work)
+                p.copy_(work)
         for t, old in zip(held, before):
             t.copy_(torch.where(found_inf, old, t))
         return params, state
@@ -153,14 +163,22 @@ class Optimizer:
         self._step_count = int(sd["step"])
 
 
+def _local_tree(x):
+    """A slot (None, a tensor or a dict of them) with each DTensor
+    replaced by its local shard."""
+    if isinstance(x, dict):
+        return {k: _local_tree(v) for k, v in x.items()}
+    return local(x) if torch.is_tensor(x) else x
+
+
 def _state_tensors(params, state):
-    """Every tensor ``apply`` may write: the parameters, the masters and
-    the slots."""
-    out = [p.detach() for p in params.values()]
+    """Every (local) tensor ``apply`` may write: the parameters, the
+    masters and the slots."""
+    out = [local(p.detach()) for p in params.values()]
 
     def walk(x):
         if torch.is_tensor(x):
-            out.append(x)
+            out.append(local(x))
         elif isinstance(x, dict):
             for v in x.values():
                 walk(v)
@@ -241,9 +259,12 @@ class Adam(Optimizer):
         master = state.get("master")
         slots = state["slots"]
         fused_adam(
-            [params[k].detach() for k in names], [grads[k] for k in names],
-            [master[k] for k in names] if master is not None else None,
-            [slots[k]["m"] for k in names], [slots[k]["v"] for k in names],
+            [local(params[k].detach()) for k in names],
+            [local(grads[k]) for k in names],
+            [local(master[k]) for k in names] if master is not None
+            else None,
+            [local(slots[k]["m"]) for k in names],
+            [local(slots[k]["v"]) for k in names],
             [self._decays(k) for k in names],
             lr=_lr_value(self._lr, step), beta1=self.beta1,
             beta2=self.beta2, eps=self.epsilon,

@@ -1,6 +1,16 @@
+"""Hybrid-parallel building blocks (counterpart of ``paddle_tpu/parallel``;
+reference: paddle/distributed/fleet/meta_parallel/*)."""
 from .layers import (ColumnParallelLinear, RowParallelLinear,
                      VocabParallelEmbedding, parallel_matmul)
-from .sharding import constraint
+from .moe import MoEMLP, top_k_routing
+from .ring import ring_attention, ring_flash_attention, ulysses_attention
+from .sharding import (ShardingError, constraint, param_shardings,
+                       partition_to_sharding, shard_layer, tree_shardings,
+                       validate_partition)
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "parallel_matmul", "constraint"]
+           "VocabParallelEmbedding", "parallel_matmul", "MoEMLP",
+           "top_k_routing", "ring_attention", "ring_flash_attention",
+           "ulysses_attention", "ShardingError", "constraint",
+           "param_shardings", "partition_to_sharding", "shard_layer",
+           "tree_shardings", "validate_partition"]

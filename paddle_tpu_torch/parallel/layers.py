@@ -1,36 +1,172 @@
-"""Tensor-parallel layers on one device (counterpart of
-``paddle_tpu/parallel/layers.py``).
+"""Tensor-parallel layers (counterpart of ``paddle_tpu/parallel/layers.py``;
+reference: paddle/distributed/fleet/layers/mpu/mp_layers.py —
+ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+parallel_matmul — and mp_ops.py's _c_identity/_c_concat/_mp_allreduce).
 
-In the JAX package these are full-size layers with sharding hints that
-GSPMD turns into collectives; on one device they are the dense layers.
-They keep their names so that a model's parameter names match the JAX
-package's, and their default initializers. Sharding across cards comes
-with the multi-device slice.
+The JAX package keeps each weight logically full-size with a ``tp``
+partition and lets GSPMD insert the collectives. Here the weights carry
+the same partitions in the port's layout (a Linear weight is [out, in],
+so the JAX ``(None, "tp")`` is ``("tp", None)``), ``parallel.sharding``
+splits them over the ``tp`` ranks as DTensors, and each layer runs on
+its rank's shard with the Megatron collectives written out:
+
+  ColumnParallelLinear  W [out/tp, in]: x enters through ``_copy`` (the
+                        identity forward, a tp all-reduce of its
+                        gradient), y leaves split on out, or gathered
+                        (``gather_output``, the JAX default)
+  RowParallelLinear     W [out, in/tp]: x arrives split on in
+                        (``input_is_parallel``, the default; else this
+                        rank's slice is taken), the partial products are
+                        summed over tp (``_reduce``), then the bias
+  VocabParallelEmbedding  rows [vocab/tp, h]: ids outside this rank's
+                        rows read zeros, and the tp sum merges
+
+With ``tp`` of degree 1 (or no mesh) every collective is the identity
+and the layers are the dense ones, bit for bit. Parameter names and
+default initializers are the JAX package's.
 """
 from __future__ import annotations
 
+import torch
+
+from ..distributed import collective as C
+from ..distributed.collective import axis_index, axis_size
+from ..nn import functional as F
 from ..nn import initializer as I
-from ..nn.common import Embedding, Linear
+from ..nn.common import Embedding, Linear, set_partition
+
+TP = "tp"
+
+
+class _Copy(torch.autograd.Function):
+    """The identity forward, an all-reduce over tp backward (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C._reduce_(g.clone(), C.ReduceOp.SUM, TP)
+
+
+class _Reduce(torch.autograd.Function):
+    """An all-reduce over tp forward, the identity backward (Megatron's g:
+    the output's cotangent is the same on every tp rank)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return C._reduce_(x.clone(), C.ReduceOp.SUM, TP)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _Gather(torch.autograd.Function):
+    """Gather the last dim over tp forward; this rank's slice backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return C._gather(x, TP, x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = axis_size(TP)
+        return g.chunk(n, dim=-1)[axis_index(TP)].contiguous()
+
+
+class _Split(torch.autograd.Function):
+    """This rank's slice of the last dim forward; a tp gather backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        n = axis_size(TP)
+        return x.chunk(n, dim=-1)[axis_index(TP)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return C._gather(g, TP, g.dim() - 1)
+
+
+def _tp() -> int:
+    return axis_size(TP)
 
 
 class ColumnParallelLinear(Linear):
-    """Output dim split over ``tp`` in the JAX package; dense here."""
+    """Output dim split over ``tp``: weight partition ``("tp", None)``,
+    bias ``("tp",)``."""
+
+    def __init__(self, in_features, out_features, *, gather_output=True,
+                 **kw):
+        super().__init__(in_features, out_features, **kw)
+        self.gather_output = gather_output
+        set_partition(self.weight, ("tp", None))
+        if self.bias is not None:
+            set_partition(self.bias, ("tp",))
+
+    def forward(self, x):
+        if _tp() == 1:
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(_Copy.apply(x), self.weight, self.bias)
+        return _Gather.apply(y) if self.gather_output else y
+
+    def extra_repr(self):
+        return f"in={self.in_features}, out={self.out_features}, col-parallel"
 
 
 class RowParallelLinear(Linear):
-    """Input dim split over ``tp`` in the JAX package; dense here."""
+    """Input dim split over ``tp``: weight partition ``(None, "tp")``; the
+    bias is added after the sum, replicated."""
+
+    def __init__(self, in_features, out_features, *, input_is_parallel=True,
+                 **kw):
+        super().__init__(in_features, out_features, **kw)
+        self.input_is_parallel = input_is_parallel
+        set_partition(self.weight, (None, "tp"))
+
+    def forward(self, x):
+        if _tp() == 1:
+            return F.linear(x, self.weight, self.bias)
+        if not self.input_is_parallel:
+            x = _Split.apply(x)
+        y = _Reduce.apply(F.linear(x, self.weight))
+        return y if self.bias is None else y + self.bias
+
+    def extra_repr(self):
+        return f"in={self.in_features}, out={self.out_features}, row-parallel"
 
 
 class VocabParallelEmbedding(Embedding):
-    """Vocab dim split over ``tp`` in the JAX package; dense here.
-    Initialised N(0, 0.02), as there."""
+    """Vocab dim split over ``tp``: weight partition ``("tp", None)``.
+    Initialised N(0, 0.02), as in the JAX package."""
 
     def __init__(self, num_embeddings, embedding_dim, **kw):
         kw.setdefault("weight_init", I.Normal(0.0, 0.02))
         super().__init__(num_embeddings, embedding_dim, **kw)
+        set_partition(self.weight, ("tp", None))
+
+    def forward(self, x):
+        if _tp() == 1:
+            return F.embedding(x, self.weight)
+        rows = self.weight.shape[0]
+        start = axis_index(TP) * rows
+        mine = (x >= start) & (x < start + rows)
+        y = F.embedding(torch.where(mine, x - start, torch.zeros_like(x)),
+                        self.weight)
+        y = y * mine[..., None].to(y.dtype)
+        return _Reduce.apply(y)
+
+    def extra_repr(self):
+        return f"{self.num_embeddings}, {self.embedding_dim}, vocab-parallel"
 
 
 def parallel_matmul(x, weight, transpose_y: bool = False):
     """LM-head projection against an embedding table (``transpose_y`` for
-    tied embeddings, whose weight is [vocab, hidden])."""
-    return x @ (weight.T if transpose_y else weight)
+    tied embeddings, whose weight is [vocab, hidden]). Under tp the table
+    is vocab-split: each rank projects onto its rows and the logits are
+    gathered over tp."""
+    if _tp() == 1:
+        return x @ (weight.T if transpose_y else weight)
+    y = _Copy.apply(x) @ (weight.T if transpose_y else weight)
+    return _Gather.apply(y)

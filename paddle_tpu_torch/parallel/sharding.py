@@ -1,7 +1,329 @@
-"""Sharding hints on one device (counterpart of
-``paddle_tpu/parallel/sharding.py``'s ``constraint``)."""
+"""Parameter sharding on the mesh (counterpart of
+``paddle_tpu/parallel/sharding.py``; reference:
+paddle/distributed/fleet/base/topology.py and meta_parallel/*).
+
+In the JAX package a parameter stays a logically full-size array with a
+``NamedSharding`` resolved from its ``ParamMeta.partition`` (a tuple of
+mesh-axis names, e.g. ``("tp", None)``), and GSPMD inserts the
+collectives. The torch counterpart of such an array is a ``DTensor``:
+``shard_layer`` replaces every parameter by an ``nn.Parameter`` holding
+a DTensor with the placements its partition (in the port's layout, see
+``nn.common.partition_of``) resolves to, fsdp included. ZeRO stages 1-3
+are not separate code paths: sharding the optimizer state, the gradients
+or the parameters over ``fsdp`` is stages 1, 2 or 3.
+
+The forward runs on local tensors. A pre-hook on the sharded root module
+(:func:`materialize`) makes each parameter's compute tensor: fsdp shards
+gathered, tp shards kept (the tp layers of ``parallel.layers`` run on
+them with explicit collectives), everything else replicated; it is
+``DTensor.redistribute(...).to_local(grad_placements=...)``, so autograd
+returns each parameter's gradient as a DTensor in the parameter's own
+placements: the local gradients are declared partial sums over the
+batch axes (dp, fsdp, sp) of degree > 1, and the backward sums them (an
+all-reduce, or a reduce-scatter onto an fsdp shard). The compute
+tensors shadow the parameters as instance attributes until
+:func:`release` (or the next forward): a recomputed layer's backward
+reads them again.
+
+Also here, as in the JAX package: the partition validator (unknown axes,
+non-dividing degrees rejected when the sharding is resolved) and
+``constraint``, which becomes a redistribute of an activation: the
+identity with no mesh, and axes that do not divide a dimension dropped.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..distributed.env import (BATCH_AXES, Mesh, NamedSharding, get_mesh,
+                               has_mesh)
+from ..nn.common import partition_of
+
+# the axes a parameter's local gradient is a partial sum over: each rank
+# of them sees other data
+GRAD_SUM_AXES = BATCH_AXES + ("sp",)
 
 
-def constraint(x, *spec):  # noqa: ARG001 - the spec names mesh axes
-    """The identity: with one device there is nothing to shard."""
-    return x
+class ShardingError(ValueError):
+    """Invalid partition: unknown mesh axis or non-divisible dimension."""
+
+
+def _axes(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def validate_partition(shape: Tuple[int, ...], partition, mesh: Mesh,
+                       name: str = "<param>") -> None:
+    """Reject a partition that names an axis the mesh lacks, has more
+    entries than the shape, or splits a dim its degree does not divide."""
+    if partition is None:
+        return
+    if len(partition) > len(shape):
+        raise ShardingError(
+            f"{name}: partition {partition} has more entries than shape "
+            f"{tuple(shape)}")
+    for dim, axes in enumerate(partition):
+        if axes is None:
+            continue
+        degree = 1
+        for ax in _axes(axes):
+            if ax not in mesh.shape:
+                raise ShardingError(
+                    f"{name}: unknown mesh axis {ax!r}; mesh has "
+                    f"{tuple(mesh.shape)}")
+            degree *= mesh.shape[ax]
+        if shape[dim] % degree != 0:
+            raise ShardingError(
+                f"{name}: dim {dim} of shape {tuple(shape)} not divisible "
+                f"by {_axes(axes)} degree {degree}")
+
+
+def partition_to_sharding(partition, mesh: Optional[Mesh] = None
+                          ) -> NamedSharding:
+    mesh = mesh or get_mesh()
+    return NamedSharding(mesh, tuple(partition) if partition else ())
+
+
+def _drop_dead_axes(partition, mesh: Mesh):
+    """Drop axes of degree 1 (or absent) so specs stay minimal."""
+    if partition is None:
+        return None
+    out = []
+    for axes in partition:
+        if axes is None:
+            out.append(None)
+            continue
+        kept = tuple(a for a in _axes(axes) if mesh.shape.get(a, 1) > 1)
+        out.append(None if not kept else (kept[0] if len(kept) == 1
+                                          else kept))
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def param_shardings(layer: nn.Module, mesh: Optional[Mesh] = None,
+                    fsdp_axis: Optional[str] = "fsdp",
+                    fsdp_min_size: int = 2 ** 16
+                    ) -> Dict[str, NamedSharding]:
+    """Resolve every parameter's partition into a NamedSharding.
+
+    If the mesh has a non-trivial ``fsdp_axis``, parameters of at least
+    ``fsdp_min_size`` elements additionally get fsdp on their largest
+    still-unsharded divisible dim (the last such dim among equals, as the
+    JAX package's ``max`` over (size, dim) pairs picks it)."""
+    mesh = mesh or get_mesh()
+    out: Dict[str, NamedSharding] = {}
+    fsdp_n = mesh.shape.get(fsdp_axis, 1) if fsdp_axis else 1
+    for name, value in layer.named_parameters():
+        part = _drop_dead_axes(partition_of(value), mesh)
+        part = list(part) if part else []
+        part += [None] * (value.ndim - len(part))
+        if fsdp_n > 1 and value.numel() >= fsdp_min_size:
+            cand = [(value.shape[d], d) for d in range(value.ndim)
+                    if part[d] is None and value.shape[d] % fsdp_n == 0]
+            if cand:
+                _, d = max(cand)
+                part[d] = fsdp_axis
+        part = tuple(part)
+        validate_partition(tuple(value.shape), part, mesh, name)
+        out[name] = partition_to_sharding(part, mesh)
+    return out
+
+
+def _owner(root: nn.Module, name: str):
+    mod_name, _, attr = name.rpartition(".")
+    return (root.get_submodule(mod_name) if mod_name else root), attr
+
+
+def _distribute(t: torch.Tensor, sh: NamedSharding):
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    placements = sh.placements
+    t = t.detach()
+    if sh.mesh.size == 1:
+        # a world of one: no collective to make it
+        return DTensor.from_local(t, sh.mesh.device_mesh, placements,
+                                  run_check=False)
+    # the source rank's values everywhere (the JAX device_put of one
+    # controller's array)
+    return distribute_tensor(t.to(sh.mesh.device), sh.mesh.device_mesh,
+                             placements)
+
+
+def shard_layer(layer: nn.Module, mesh: Optional[Mesh] = None,
+                **kw) -> Dict[str, NamedSharding]:
+    """Replace every parameter of ``layer`` by a DTensor parameter
+    placed by :func:`param_shardings` (its partition metadata kept), and
+    install the forward pre-hook that materializes the compute tensors.
+    Returns the sharding dict."""
+    mesh = mesh or get_mesh()
+    shardings = param_shardings(layer, mesh, **kw)
+    for name, p in list(layer.named_parameters()):
+        owner, attr = _owner(layer, name)
+        new = nn.Parameter(_distribute(p.data, shardings[name]),
+                           requires_grad=p.requires_grad)
+        if partition_of(p) is not None:
+            new.partition = partition_of(p)
+        owner._parameters[attr] = new
+    old = getattr(layer, "_sharding_hook", None)
+    if old is not None:
+        old.remove()
+    layer._sharding_hook = layer.register_forward_pre_hook(_materialize_hook)
+    layer._shardings = shardings
+    return shardings
+
+
+def _materialize_hook(module, args):
+    materialize(module)      # returns None: the call's arguments stay
+
+
+def is_sharded(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def local(t):
+    """The local tensor of a DTensor (an alias of its storage), else
+    ``t``."""
+    return t._local_tensor if is_sharded(t) else t
+
+
+def _compute_placements(p):
+    """(placements of the compute tensor, placements of its gradient):
+    tp shards stay, other axes replicate; the gradient is a partial sum
+    over the live batch axes."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = p.device_mesh
+    names = mesh.mesh_dim_names
+    compute, grad = [], []
+    for a, pl, n in zip(names, p.placements, mesh.mesh.shape):
+        keep = pl if a == "tp" else Replicate()
+        compute.append(keep)
+        grad.append(Partial() if a in GRAD_SUM_AXES and n > 1 else keep)
+    return compute, grad
+
+
+def materialize(root: nn.Module) -> Dict[str, torch.Tensor]:
+    """Make every DTensor parameter's compute tensor and install it as
+    an instance attribute of its module (shadowing the parameter for
+    attribute reads; ``named_parameters`` and ``state_dict`` still see
+    the DTensors). Returns {name: compute tensor}."""
+    out = {}
+    for name, p in root.named_parameters():
+        if not is_sharded(p):
+            continue
+        compute, grad = _compute_placements(p)
+        t = p.redistribute(p.device_mesh, compute).to_local(
+            grad_placements=grad)
+        owner, attr = _owner(root, name)
+        owner.__dict__[attr] = t
+        out[name] = t
+    return out
+
+
+def release(root: nn.Module) -> None:
+    """Drop the compute tensors :func:`materialize` installed (they hold
+    gathered fsdp shards and the last step's graph)."""
+    for name, p in root.named_parameters():
+        if is_sharded(p):
+            owner, attr = _owner(root, name)
+            owner.__dict__.pop(attr, None)
+
+
+def map_local(t, fn):
+    """``fn`` applied to a DTensor's local tensor, rewrapped with its
+    placements (or to ``t`` itself)."""
+    if not is_sharded(t):
+        return fn(t)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(fn(t._local_tensor), t.device_mesh,
+                              t.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def full_tensor(t):
+    """The logical full tensor of a DTensor (a collective over its
+    sharded axes), else ``t``."""
+    return t.full_tensor() if is_sharded(t) else t
+
+
+def local_shard(full: torch.Tensor, like) -> torch.Tensor:
+    """This rank's shard of the logical tensor ``full`` in ``like``'s
+    placements (``like`` a DTensor; else ``full``). No collective."""
+    if not is_sharded(like):
+        return full
+    from torch.distributed.tensor import Shard
+    mesh = like.device_mesh
+    coord = mesh.get_coordinate()
+    t = full
+    for pl, n, c in zip(like.placements, mesh.mesh.shape, coord):
+        if isinstance(pl, Shard) and n > 1:
+            t = t.chunk(int(n), dim=pl.dim)[c]
+    return t
+
+
+def _shard_axes(t) -> Tuple[str, ...]:
+    """The live mesh axes that split DTensor ``t`` (empty for a plain
+    tensor or a replicated DTensor)."""
+    if not is_sharded(t):
+        return ()
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    return tuple(a for a, pl, n in zip(mesh.mesh_dim_names, t.placements,
+                                       mesh.mesh.shape)
+                 if isinstance(pl, Shard) and n > 1)
+
+
+def full_norms(tensors):
+    """The fp32 2-norm of each logical tensor, as 0-dim tensors: a
+    replicated or plain tensor's from its local values, a sharded one's
+    from its shards' squared norms summed over the axes that split it
+    (one all-reduce per distinct set of axes), so every logical element
+    counts once and no replica twice."""
+    from ..distributed.collective import _reduce_
+    tensors = list(tensors)
+    norms = [torch.linalg.vector_norm(local(t), dtype=torch.float32)
+             for t in tensors]
+    groups: Dict[Tuple[str, ...], list] = {}
+    for i, t in enumerate(tensors):
+        axes = _shard_axes(t)
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        sq = torch.stack([norms[i] for i in idx]) ** 2
+        sq = _reduce_(sq, "sum", axes).sqrt()
+        for j, i in enumerate(idx):
+            norms[i] = sq[j]
+    return norms
+
+
+def constraint(x, *spec):
+    """The counterpart of ``lax.with_sharding_constraint`` on an
+    activation. Activations here are local tensors already laid out as
+    the spec asks (the model runs on its rank's batch rows and sequence
+    block, and the tp layers keep their own layout), so this is the
+    identity; for a DTensor it redistributes to the spec, dropping axes
+    that do not divide their dim, as the JAX hint does."""
+    if not has_mesh() or not is_sharded(x):
+        return x
+    mesh = get_mesh()
+    cleaned = _drop_dead_axes(tuple(spec), mesh)
+    if not cleaned:
+        return x
+    fitted = []
+    for dim, axes in enumerate(cleaned):
+        degree = 1
+        for a in _axes(axes) if axes is not None else ():
+            degree *= mesh.shape.get(a, 1)
+        fitted.append(axes if axes is not None
+                      and x.shape[dim] % degree == 0 else None)
+    return x.redistribute(x.device_mesh,
+                          NamedSharding(mesh, tuple(fitted)).placements)
+
+
+def tree_shardings(tree, like: Dict[str, NamedSharding], default=None):
+    """Map a flat {name: tensor} tree to its shardings, falling back to
+    ``default`` (replicated if None) for names absent from ``like``."""
+    default = default or NamedSharding(get_mesh(), ())
+    return {k: like.get(k, default) for k in tree}

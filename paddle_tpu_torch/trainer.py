@@ -21,12 +21,33 @@ Checkpoints go through ``checkpoint.distributed_ckpt`` (one directory a
 step under ``<output_dir>/checkpoints``, asynchronous writes, sha256
 manifests); a resume copies the saved tensors into the live ones in
 place. The meta sidecar has the JAX trainer's keys (step, topology,
-sampler).
+sampler), and a resume under another data-parallel degree reconciles the
+gradient accumulation as the JAX trainer does.
+
+On a mesh (``fleet.init`` then ``fleet.distributed_model``: DTensor
+parameters) every rank runs this loop on the same step. The loader's
+batch is the global batch, as the JAX step's is, unless it comes from a
+``DistributedBatchSampler`` split over the mesh's batch coordinate (its
+defaults under a mesh): each microbatch's rows are split over dp x fsdp
+(dp major) and, for a token array, its positions over sp. The default
+causal-LM loss then sums this rank's cross entropy over the next-token
+labels of its block (the last position of an sp block is labelled by the
+next block's first token) and divides by the global label count (one
+all-reduce), so the ranks' losses and gradients add up to the JAX
+step's; a custom ``loss_fn`` / ``logits_loss`` sees this rank's block and
+its value is averaged over the ranks that split the data. The parameter
+gradients come back from autograd as DTensors summed over those ranks
+(see ``parallel.sharding``), the clip takes logical norms, a
+GradScaler's overflow check agrees on every rank, and the update runs on
+the local shards. Every rank takes part in a checkpoint (rank 0 writes
+it), and the ranks agree on a preemption at a logging boundary and exit
+on the same step.
 
 Still raising ``NotImplementedError``, never skipped silently: the
 compile cache (``compile_cache_dir``) and ``aot_warmup``, which have no
-counterpart in an eager step yet, and the interleaved pipeline
-(``virtual_pp_degree > 1``).
+counterpart in an eager step yet, the interleaved pipeline
+(``virtual_pp_degree > 1``), and a mesh with pipeline (pp) or expert (ep)
+parallelism.
 """
 from __future__ import annotations
 
@@ -41,9 +62,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from .distributed import env as denv
+from .distributed.collective import _reduce_
 from .io.device_prefetch import DevicePrefetcher, default_device_put
-from .models.llama import causal_lm_loss
+from .nn import functional as F
 from .optimizer.optimizers import Optimizer
+from .parallel import sharding
 from .utils import faults
 from .utils import observability as obs
 from .utils.logging import LogWriter
@@ -125,7 +149,8 @@ class Trainer:
         elif logits_loss is not None:
             self.loss_fn = lambda m, batch: logits_loss(m(batch), batch)
         else:
-            self.loss_fn = lambda m, batch: causal_lm_loss(m(batch), batch)
+            # the default causal-LM loss splits its labels itself: _loss
+            self.loss_fn = None
         self.train_dataloader = train_dataloader
         self.eval_dataloader = eval_dataloader
         self.callbacks = callbacks or []
@@ -138,7 +163,7 @@ class Trainer:
         params = dict(model.named_parameters())
         self._trainable = {k: p for k, p in params.items()
                            if p.requires_grad}
-        self.device = next(iter(params.values())).device
+        self.device = sharding.local(next(iter(params.values()))).device
         self._opt_state = None
         # fp16 loss scaling: the scaler's state lives on the device and
         # moves inside the step; inf steps skip the update there
@@ -167,6 +192,12 @@ class Trainer:
                "aot_warmup": a.aot_warmup,
                "virtual_pp_degree > 1 (the interleaved pipeline)":
                    a.virtual_pp_degree > 1}
+        if denv.has_mesh():
+            shape = denv.get_mesh().shape
+            off["a mesh with pp > 1 (pipeline parallel)"] = \
+                shape.get("pp", 1) > 1
+            off["a mesh with ep > 1 (expert parallel)"] = \
+                shape.get("ep", 1) > 1
         on = [k for k, v in off.items() if v]
         if on:
             raise NotImplementedError(
@@ -181,6 +212,91 @@ class Trainer:
             return [{k: v[i] for k, v in batch.items()} for i in range(accum)]
         return [batch[i] for i in range(accum)]
 
+    # ------------------------------------------------------------ the mesh
+    @staticmethod
+    def _split_degree() -> int:
+        """How many ranks split the data: dp x fsdp x sp (1 off a mesh)."""
+        return denv.axis_degree(sharding.GRAD_SUM_AXES)
+
+    def _rows_split_by_sampler(self, loader) -> bool:
+        """The loader yields this rank's rows already: its batch sampler
+        is a DistributedBatchSampler over the mesh's batch coordinate."""
+        from .io.sampler import DistributedBatchSampler
+        bs = getattr(loader, "batch_sampler", None)
+        deg, coord = denv.batch_coordinates()
+        return (isinstance(bs, DistributedBatchSampler) and deg > 1
+                and bs.nranks == deg and bs.local_rank == coord)
+
+    def _local_batch(self, batch, loader):
+        """This rank's block of a (global) microbatch: its rows over dp x
+        fsdp, then, for arrays of two or more dims, its positions over
+        sp. Dicts and tuples are split leaf by leaf."""
+        deg, coord = denv.batch_coordinates()
+        sp, sp_idx = denv.axis_degree("sp"), denv.axis_coordinate("sp")
+        rows = deg > 1 and not self._rows_split_by_sampler(loader)
+
+        def split(x):
+            if not torch.is_tensor(x):
+                return x
+            if rows:
+                if x.shape[0] % deg:
+                    raise ValueError(f"batch rows {x.shape[0]} do not split "
+                                     f"over dp x fsdp = {deg}")
+                x = x.chunk(deg, dim=0)[coord]
+            if sp > 1 and x.dim() >= 2:
+                if x.shape[1] % sp:
+                    raise ValueError(f"sequence {x.shape[1]} does not split "
+                                     f"over sp = {sp}")
+                x = x.chunk(sp, dim=1)[sp_idx]
+            return x
+        if isinstance(batch, dict):
+            return {k: split(v) for k, v in batch.items()}
+        if isinstance(batch, (list, tuple)):
+            return type(batch)(split(v) for v in batch)
+        return split(batch)
+
+    def _loss(self, batch, loader):
+        """This rank's share of the loss of ``batch``, such that the
+        ranks' shares add up to the loss of the global batch (the loss
+        itself when no rank splits the data).
+
+        The default loss is the shifted next-token cross entropy of
+        ``causal_lm_loss`` in one form for every mesh: the labels are
+        taken from the whole rows before the split (the last position of
+        an sp block is labelled by the next one's first token), and this
+        rank's summed cross entropy is divided by the global label count
+        (an all-reduce, the identity off a mesh)."""
+        if self.loss_fn is None:
+            labels = torch.cat([batch[:, 1:], torch.full_like(
+                batch[:, :1], -100)], dim=1)
+            ids, labels = self._local_batch((batch, labels), loader)
+            total = F.cross_entropy(self.model(ids), labels,
+                                    ignore_index=-100, reduction="sum")
+            count = (labels != -100).sum().to(total.dtype)
+            count = _reduce_(count, "sum", sharding.GRAD_SUM_AXES)
+            return total / count.clamp_min(1.0)
+        n = self._split_degree()
+        if n == 1:
+            return self.loss_fn(self.model, batch)
+        return self.loss_fn(self.model,
+                            self._local_batch(batch, loader)) / n
+
+    def _preempt_agreed(self, flag: bool) -> bool:
+        """Whether to exit for a preemption now: ``flag`` itself on one
+        rank; on several, ``flag`` or'ed over the world, and only at a
+        logging boundary, where the loop has just synced the host with
+        the device (the ranks exit on the same step, and a step between
+        boundaries makes no host sync for it). A notice thus waits up to
+        ``logging_steps`` steps on a world of more than one rank."""
+        import torch.distributed as dist
+        if not (dist.is_initialized() and dist.get_world_size() > 1):
+            return flag
+        if self.global_step % self.args.logging_steps:
+            return False
+        t = torch.tensor([int(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
     def _train_step(self, batch, stepno: int):
         """Forward, loss (scaled, with a GradScaler) and gradients per
         microbatch, the mean of the gradients, then the optimizer's clip
@@ -193,19 +309,24 @@ class Trainer:
         grads = None
         loss_sum = None
         for mb in micro:
-            loss = self.loss_fn(self.model, mb)
+            loss = self._loss(mb, self.train_dataloader)
             target = scaler.scale(loss, sstate) if scaler else loss
             g = torch.autograd.grad(target, params)
             loss = loss.detach()
             if grads is None:
                 grads, loss_sum = list(g), loss
             else:
-                torch._foreach_add_(grads, g)
+                torch._foreach_add_([sharding.local(x) for x in grads],
+                                    [sharding.local(x) for x in g])
                 loss_sum = loss_sum + loss
             del g
+        sharding.release(self.model)
         if len(micro) > 1:
-            torch._foreach_div_(grads, len(micro))
+            torch._foreach_div_([sharding.local(x) for x in grads],
+                                len(micro))
             loss_sum = loss_sum / len(micro)
+        if self._split_degree() > 1:
+            loss_sum = _reduce_(loss_sum, "sum", sharding.GRAD_SUM_AXES)
         grads = dict(zip(self._trainable, grads))
         with obs.span("optimizer_apply", step=stepno):
             if scaler is None:
@@ -315,7 +436,11 @@ class Trainer:
                 sd = self._shutdown or GracefulShutdown()
                 self._shutdown = sd
                 sd.request("injected preempt")
-            if self._shutdown is not None and self._shutdown.requested():
+            if self._preempt_agreed(self._shutdown is not None
+                                    and self._shutdown.requested()):
+                if self._shutdown is None:
+                    self._shutdown = GracefulShutdown()
+                self._shutdown.request("preempted on another rank")
                 self._preempt_exit()
             if faults.inject("hang", step=self.global_step):
                 # chaos: a stuck step; the watchdog's hang path must
@@ -355,7 +480,7 @@ class Trainer:
                 with torch.no_grad():
                     for p in self.model.parameters():
                         if p.is_floating_point():
-                            p.mul_(float("nan"))
+                            sharding.local(p).mul_(float("nan"))
                 loss = torch.full((), float("nan"))
             if self.global_step % args.logging_steps == 0 or \
                     self.global_step == max_steps:
@@ -512,8 +637,13 @@ class Trainer:
                     torch.no_grad():
                 for batch in self.eval_dataloader:
                     # device scalars; one host sync at the end
-                    losses.append(self.loss_fn(self.model,
-                                               self._place(batch)).float())
+                    loss = self._loss(self._place(batch),
+                                      self.eval_dataloader).float()
+                    if self._split_degree() > 1:
+                        loss = _reduce_(loss, "sum",
+                                        sharding.GRAD_SUM_AXES)
+                    losses.append(loss)
+                sharding.release(self.model)
                 mean = (float(torch.stack(losses).mean()) if losses
                         else float("nan"))
         finally:
@@ -553,14 +683,40 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_save(self.global_step)
 
+    def _dp_degree(self) -> int:
+        """Batch-sharding degree of the live mesh (dp and fsdp both split
+        the batch; 1 with no mesh installed)."""
+        return denv.axis_degree(denv.BATCH_AXES)
+
+    def _live_mesh_shape(self) -> Optional[Dict[str, int]]:
+        if not denv.has_mesh():
+            return None
+        return dict(denv.get_mesh().shape)
+
+    def _loader_batch_size(self) -> Optional[int]:
+        """The per-step batch the dataloader feeds, when discoverable
+        (None for plain iterables)."""
+        dl = self.train_dataloader
+        bs = getattr(getattr(dl, "batch_sampler", None), "batch_size",
+                     None) or getattr(dl, "batch_size", None)
+        try:
+            return int(bs) if bs else None
+        except (TypeError, ValueError):
+            return None
+
     def _checkpoint_meta(self) -> Dict[str, Any]:
         """Host-side sidecar for the step: the sampler position (O(1)
-        resume) and the topology (dp degree, accumulation)."""
-        meta: Dict[str, Any] = {
-            "step": self.global_step,
-            # one device: no data-parallel degree to reconcile on resume
-            "topology": {"device_count": 1, "dp": 1,
-                         "accum": self.args.gradient_accumulation_steps}}
+        resume) and the topology manifest (device count, dp degree,
+        accumulation, mesh) for the cross-topology reconcile."""
+        topo: Dict[str, Any] = {
+            "device_count": denv.get_mesh().size if denv.has_mesh() else 1,
+            "dp": self._dp_degree(),
+            "accum": self.args.gradient_accumulation_steps}
+        mesh_shape = self._live_mesh_shape()
+        if mesh_shape is not None:
+            topo["mesh"] = mesh_shape
+        meta: Dict[str, Any] = {"step": self.global_step,
+                                "topology": topo}
         # the live feed's state: with prefetch active the raw loader has
         # run AHEAD by the buffer depth; the prefetcher reports the
         # consumer position
@@ -681,8 +837,10 @@ class Trainer:
             return None
         ckpt = self._ckpt_manager()
         # a rollback can race an in-flight async save: make it durable
-        # (its manifest written) before choosing the step
+        # (its manifest written) before choosing the step; on a mesh the
+        # other ranks wait for rank 0's write
         ckpt.wait_until_finished()
+        denv.barrier()
         step = ckpt.latest_complete_step()
         if step is None:
             return None
@@ -716,13 +874,13 @@ class Trainer:
 
     def _restore_meta(self, ckpt, step: int):
         """Apply the step's sidecar: the O(1) sampler restore, instead of
-        _skip_consumed's replay. (The JAX trainer also reconciles a
-        checkpoint of another data-parallel degree here; the port trains
-        on one device and writes dp 1.)"""
+        _skip_consumed's replay, and the reconcile of a checkpoint written
+        under another data-parallel degree."""
         self._sampler_restored = False
         meta = ckpt.load_meta(step)
         if not meta:
             return
+        self._reconcile_topology(meta.get("topology"))
         sd = meta.get("sampler")
         dl = self.train_dataloader
         if sd and dl is not None and hasattr(dl, "load_state_dict"):
@@ -735,11 +893,54 @@ class Trainer:
                       file=sys.stderr, flush=True)
 
 
+    def _reconcile_topology(self, saved: Optional[Dict[str, Any]]):
+        """The job may come back with another data-parallel degree: keep
+        the effective global batch by recomputing the gradient
+        accumulation from the saved dp degree, and log the change, as the
+        JAX trainer does. The parameters and moments are saved whole, so
+        they re-split onto any mesh; a saved mesh with pipeline or expert
+        parallelism is not one the port can resume from."""
+        if not saved:
+            return
+        old_mesh = saved.get("mesh") or {}
+        if old_mesh.get("pp", 1) > 1 or old_mesh.get("ep", 1) > 1:
+            raise NotImplementedError(
+                f"resuming a checkpoint saved on mesh {old_mesh} (pipeline "
+                f"or expert parallel) comes with {NEXT_SLICE}")
+        cur_dp = self._dp_degree()
+        old_dp = int(saved.get("dp", cur_dp) or cur_dp)
+        if old_dp == cur_dp:
+            return
+        old_accum = int(saved.get("accum",
+                                  self.args.gradient_accumulation_steps))
+        effective = old_dp * old_accum
+        new_accum = max(1, effective // cur_dp)
+        # the accum factor must divide the loader batch (the step folds
+        # the batch into accum microbatches): clamp down to a divisor
+        batch = self._loader_batch_size()
+        if batch:
+            while batch % new_accum:
+                new_accum -= 1
+        if new_accum * cur_dp != effective:
+            print(f"[trainer] effective global batch not exactly "
+                  f"preservable: dp {old_dp}->{cur_dp} with accum "
+                  f"{old_accum}, loader batch {batch} "
+                  f"(using accum={new_accum})",
+                  file=sys.stderr, flush=True)
+        print(f"[trainer] topology change on resume: dp {old_dp} -> "
+              f"{cur_dp} (mesh {saved.get('mesh')} -> now "
+              f"{self._live_mesh_shape()}); gradient accumulation "
+              f"{old_accum} -> {new_accum} to preserve the effective "
+              f"global batch", file=sys.stderr, flush=True)
+        self.args.gradient_accumulation_steps = new_accum
+
+
 @torch.no_grad()
 def _copy_into(live, saved):
-    """Copy a restored tree's tensors into the live tree's, in place."""
+    """Copy a restored tree's tensors into the live tree's, in place (a
+    DTensor takes its own shard of the saved full tensor)."""
     if isinstance(live, dict):
         for k, v in live.items():
             _copy_into(v, saved[k])
     elif torch.is_tensor(live):
-        live.copy_(saved)
+        sharding.local(live).copy_(sharding.local_shard(saved, live))

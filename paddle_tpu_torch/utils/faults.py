@@ -1,7 +1,7 @@
 """Deterministic fault injection + retry/backoff (chaos hardening): the
 port's copy of ``paddle_tpu/utils/faults.py``, with the registry listing
 only the sites the port wires (training, data loading and checkpoints,
-serving, the spill tier, the KV wire).
+the eager collectives, serving, the spill tier, the KV wire).
 
 The optimistic halves of fault tolerance (StepWatchdog, elastic
 supervise, orbax auto-resume) only matter if the recovery paths they
@@ -75,8 +75,7 @@ __all__ = [
 # ------------------------------------------------------------- inventory
 # site name -> (wired location, what firing does there). ONE source of
 # truth: the CLI prints this, and tests assert every listed site is
-# actually wired. The JAX package's collective and fleet sites join with
-# their modules.
+# actually wired.
 SITES: Dict[str, Tuple[str, str]] = {
     # --- training and data-loading chaos
     "step_nan": (
@@ -107,6 +106,11 @@ SITES: Dict[str, Tuple[str, str]] = {
         "checkpoints its exact step, drains the async writer, and exits "
         "PREEMPTED_RC — which elastic.supervise restarts without "
         "consuming a max_restarts attempt"),
+    "collective_fail": (
+        "paddle_tpu_torch/distributed/collective.py:_eager",
+        "raise CollectiveError before an eager collective runs (transient "
+        "link failure stand-in; exercises retry_with_backoff around the "
+        "eager_* collectives)"),
     "prefetch_stall": (
         "paddle_tpu_torch/io/device_prefetch.py:_PrefetchIterator._produce",
         "sleep PADDLE_TPU_FAULT_PREFETCH_STALL_S (default 30) in the "

@@ -127,13 +127,15 @@ def test_load_jax_state_dict_is_strict():
 
 
 def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ptt.LlamaForCausalLM(ptt.llama_tiny(sequence_parallel=True),
-                             device="cpu")
-    # recompute is ported (the training slice): same logits as without
-    tm = ptt.LlamaForCausalLM(ptt.llama_tiny(recompute=True), device="cpu")
+    # sequence_parallel is ported (the multi-device slice): without an
+    # sp axis of degree > 1 it is the dense forward, bit for bit
     ref = ptt.LlamaForCausalLM(ptt.llama_tiny(), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.long)
+    sp = ptt.LlamaForCausalLM(ptt.llama_tiny(sequence_parallel=True),
+                              device="cpu")
+    assert torch.equal(sp(ids), ref(ids))
+    # recompute is ported (the training slice): same logits as without
+    tm = ptt.LlamaForCausalLM(ptt.llama_tiny(recompute=True), device="cpu")
     assert torch.equal(tm(ids), ref(ids))
     with pytest.raises(NotImplementedError, match="pipeline"):
         tm.pipeline_functional(2)

@@ -377,7 +377,7 @@ def test_port_sites_are_jax_sites_wired_in_the_port():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert set(faults.SITES) <= set(jax_faults.SITES)
     assert {"step_nan", "ckpt_corrupt", "worker_crash", "hang", "preempt",
-            "prefetch_stall",
+            "prefetch_stall", "collective_fail",
             "tick_crash", "dispatch_hang", "replica_drop", "stream_stall",
             "slow_replica", "spill_corrupt", "spill_slow", "spill_drop",
             "xfer_corrupt", "xfer_trunc", "xfer_slow"} == set(faults.SITES)
