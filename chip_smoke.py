@@ -224,7 +224,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (tokens per forward). Its flash, decode and ragged launches join the
    kernels line's.
 
-12. the multi-device slice (``[parallel]`` lines, last): (a)
+12. the multi-device slice (``[parallel]`` lines): (a)
    ``flash_attention_with_lse`` (the function the ring runs a block pair
    through) at the ring's block at Llama-3-8B width (q [1,2048,32,128],
    kv [1,2048,8,128], bf16), causal and not, against its plain twin:
@@ -247,6 +247,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    the plain Trainer's, the same launches, and both step times. The
    card machine has one GPU: multi-rank results are proved on the CPU
    (the gloo tests).
+
+13. pipeline and expert parallel training (``[moe-train]`` and ``[pp]``
+   lines, last): (a) at a small width (ERNIE's shape cut to 2 layers,
+   hidden 256, bf16, every expert chosen) each parameter's gradient
+   through the flash kernels within ``TOL_GRAD_REL`` (relative L2) of
+   the same weights' through the kernels' plain twins on the card; then
+   ERNIE-4.5-21B-A3B at full width cut to 3 layers (layer 0 dense, 2.2
+   B params, bf16, AdamW with fp32 masters) through
+   ``Trainer(loss_fn=moe_lm_loss)`` for 5 steps on one repeated [2,
+   2048] batch, the counts set to 0 just before and read just after
+   (flash forward, dq and dk/dv once per layer and step, all on the
+   wgmma route at GQA group 5; the fused update once a step): the loss
+   finite and falling, at least ``MIN_FREE_GB`` left free at the peak;
+   step ms, MFU over the active parameters, peak memory and the last
+   step's dropped choices printed; (b) a world-one NCCL mesh naming pp
+   (degree 1), Llama-3-8B width at 4 layers, tokens [4, 1, 2048]:
+   ``pipeline_functional(1)`` and ``pipeline_functional(1, vpp=2)``
+   against the plain accumulated step on the same weights, the loss
+   within fp32 rounding and every flat gradient within
+   ``TOL_GRAD_REL``, with their launches and times beside the plain
+   step's. pp > 1 and ep > 1 need several ranks: the CPU gloo tests
+   prove them. The phase's flash, dq, dk/dv and update launches join
+   the kernels line's.
 
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
@@ -5454,6 +5477,455 @@ def phase_parallel(seed, gen, dev, card):
     return err, row, launches, routes
 
 
+# phase 13: an MoE model through the Trainer, and the pipeline schedules
+MOE_TRAIN_LAYERS = 3          # ERNIE-4.5-21B-A3B cut: 1 dense + 2 MoE
+MOE_TRAIN_BATCH = (2, 2048)
+MOE_TRAIN_STEPS = 5
+MOE_TRAIN_ATTN = (2, 2048, 20, 4, 128)  # b, s, h, kv, d of its attention
+# bf16 gradients on two routes of the same weights (relative L2)
+TOL_GRAD_REL = 2e-2
+# state a parameter: bf16 weight and gradient, fp32 master, m and v
+STATE_BYTES_PER_PARAM = 16
+MIN_FREE_GB = 15.0
+PP_LAYERS = 4
+PP_MICRO = (4, 1, 2048)       # M microbatches of [1, 2048]
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _moe_drop_hooks(model):
+    """Forward pre-hooks that record each MoE layer's (dropped, routed)
+    choices of the call, through the layer's own routing."""
+    from paddle_tpu_torch.parallel.moe import MoEMLP, _route
+    seen = []
+
+    def hook(mod, args):
+        with torch.no_grad():
+            x = args[0].reshape(-1, mod.hidden_size)
+            logits = x.float() @ mod.gate.float()
+            _, _, keep, _, _ = _route(
+                logits, mod.top_k, mod.capacity(x.shape[0]),
+                bias=mod.expert_bias, norm_topk_prob=mod.norm_topk_prob,
+                n_group=mod.n_group, topk_group=mod.topk_group,
+                scoring=mod.scoring, group_score_mode=mod.group_score_mode)
+            seen.append((int((~keep).sum()), keep.numel()))
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, MoEMLP)]
+    return seen, handles
+
+
+def _moe_attn_check(seed, dev):
+    """The flash forward, dq and dk/dv kernels at the shape (a)'s train
+    step gives them (MOE_TRAIN_ATTN: ERNIE-4.5's 20 query heads on 4 kv
+    heads, GQA group 5, d 128, [2, 2048], causal, bf16) against their
+    plain versions on the same inputs: the output within TOL_BF16,
+    dq, dk and dv within TOL_BWD_BF16 x max|ref|, each kernel launched
+    once on its wgmma route."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 75)
+    q, k, v, g, _ = _bwd_inputs(gen, dev, torch.bfloat16, *MOE_TRAIN_ATTN)
+    _reset_launches()
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    torch.cuda.synchronize()
+    _check_routes("moe-train check", flash=1, flash_bwd_dq=1,
+                  flash_bwd_dkv=1)
+    ref_out, _ = flash_attention_fwd_plain(q, k, v, causal=True)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True)
+    errs = {"out": (max_err(out, ref_out), TOL_BF16)}
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        rmax = float(r.float().abs().max())
+        errs[name] = (max_err(a, r), TOL_BWD_BF16 * rmax)
+    b, s, h, kv, d = MOE_TRAIN_ATTN
+    log(f"[moe-train] flash at the train step's shape, q {[b, s, h, d]} kv "
+        f"{[b, s, kv, d]} (group {h // kv}), causal, bf16, against the "
+        f"plain versions: " + ", ".join(
+            f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in errs.items()))
+    for name, (e, t) in errs.items():
+        if not e <= t:
+            fail(f"moe-train: flash {name} at group {h // kv} disagrees with "
+                 f"its plain version: {e:.3e} > {t:.3e}")
+    del q, k, v, g, out, lse, got, ref, ref_out
+
+
+def _moe_grad_routes(seed, dev, card):
+    """(a) at a small width: an ERNIE-shaped MoE model (2 layers, hidden
+    256, bf16) whose gradients through the flash kernels must be within
+    TOL_GRAD_REL (relative L2, each parameter) of the same weights'
+    gradients through the kernels' plain twins on the card (the forward
+    and backward of ``FlashAttentionFunction`` pointed at
+    ``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain``, which
+    round where the kernels do). Every expert is chosen (top-k = E) so
+    that bf16 noise cannot flip a choice between the two routes."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import moe_lm_loss
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    cfg = ptt.models.Ernie45MoeConfig(
+        vocab_size=1024, hidden_size=256, intermediate_size=512,
+        moe_intermediate_size=256, num_hidden_layers=2,
+        num_attention_heads=2, num_key_value_heads=1, num_experts=4,
+        num_experts_per_tok=4, shared_expert_intermediate_size=256,
+        dtype=torch.bfloat16)
+    model = ptt.models.Ernie45MoeForCausalLM(
+        cfg, device=dev, generator=ptt.make_generator(seed + 71, dev))
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), device=dev,
+                        generator=ptt.make_generator(seed + 72, dev))
+    params = dict(model.named_parameters())
+    grads = {}
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            fa.flash_attention_fwd = fa.flash_attention_fwd_plain
+            fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+        try:
+            read = _reset_launches()
+            loss = moe_lm_loss(*model(ids, return_aux=True), ids)
+            grads[route] = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            n = read()
+        finally:
+            fa.flash_attention_fwd, fa.flash_attention_bwd = kernels
+        on = route == "kernels"
+        if (n["flash"] == 2) != on or (n["flash_bwd_dq"] == 2) != on:
+            fail(f"moe-train (a) small: the {route} route launched {n}")
+    errs = {k: _rel_l2(grads["kernels"][k], grads["plain"][k])
+            for k in params}
+    worst = max(errs, key=errs.get)
+    log(f"[moe-train] (a) small ERNIE shape (2 layers, hidden 256, heads "
+        f"2/1, d 128, 4 experts all chosen, bf16, [2, 256]): gradients "
+        f"through the flash kernels vs through their plain twins on the "
+        f"card, relative L2 per parameter: worst {errs[worst]:.2e} "
+        f"({worst}), median {sorted(errs.values())[len(errs) // 2]:.2e} "
+        f"(tol {TOL_GRAD_REL}) [{card}]")
+    if errs[worst] > TOL_GRAD_REL:
+        fail(f"moe-train: {worst}'s gradient through the kernels is "
+             f"{errs[worst]:.3e} (relative L2) from the plain twins'")
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_train_split(tr, step_ms, card):
+    """torch.profiler over one more step of the MoE trainer: device ms by
+    part. The flash kernels and the fused update by kernel name; the
+    expert products are the kernels of the ops inside the MoE layers'
+    ``moe_experts`` ranges (forward) and of the ``BmmBackward0`` nodes
+    (the experts' bmm are the model's only ones); routing and dispatch
+    the kernels inside ``moe_route`` (the forward's routing, bucket fill
+    and combine); their backward those of the ``IndexBackward0`` nodes
+    (the bucket fill's and the combine's gathers are the model's only
+    tensor-indexed reads that take a gradient); other matmul kernels by
+    name; the rest of the device's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    named = (("flash_fwd_", "flash_fwd"), ("flash_bwd_dq_", "flash_bwd_dq"),
+             ("flash_bwd_dkv_", "flash_bwd_dkv"),
+             ("fused_adam", "fused_update"))
+    ranges = {"moe_experts": "expert_products",
+              "moe_route": "routing_dispatch"}
+    nodes = {"BmmBackward0": "expert_products",
+             "IndexBackward0": "dispatch_combine_backward"}
+
+    def gemm(name):
+        return any(w in name.lower() for w in ("gemm", "gemv", "xmma",
+                                                "cutlass", "nvjet"))
+
+    def part_of(e):
+        while e is not None:
+            if e.name in ranges:
+                return ranges[e.name]
+            for w, part in nodes.items():
+                if w in e.name:
+                    return part
+            e = e.cpu_parent
+        return None
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train(max_steps=tr.global_step + 1)
+        torch.cuda.synchronize()
+    cats = dict.fromkeys(("expert_products", "routing_dispatch",
+                          "dispatch_combine_backward", "flash_fwd",
+                          "flash_bwd_dq", "flash_bwd_dkv", "fused_update",
+                          "other_gemm", "rest"), 0.0)
+    total = gemms = gemms_in_parts = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False):
+                continue
+            ms = e.time_range.elapsed_us() / 1e3
+            total += ms
+            cat = next((c for w, c in named if w in e.name), None)
+            if cat is not None:
+                cats[cat] += ms
+            elif gemm(e.name):
+                gemms += ms
+            continue
+        if not e.kernels:
+            continue
+        part = part_of(e)
+        if part is None:
+            continue
+        for kern in e.kernels:
+            if not any(w in kern.name for w, _ in named):
+                cats[part] += kern.duration / 1e3
+                gemms_in_parts += kern.duration / 1e3 if gemm(kern.name) \
+                    else 0.0
+    if total <= 0 or cats["expert_products"] <= 0:
+        log("[profile] torch.profiler charged no kernel to the MoE layers: "
+            "the MoE train step's split is not measured")
+        return None
+    cats["other_gemm"] = gemms - gemms_in_parts
+    cats["rest"] = total - sum(cats.values())
+    log(f"[profile] moe train step device time (one more step under "
+        f"torch.profiler): {total:.2f} ms, " + ", ".join(
+            f"{k} {v:.2f} ms ({100 * v / total:.1f} %)"
+            for k, v in cats.items())
+        + f"; against the unprofiled median step's {step_ms:.1f} ms: device"
+        f" busy {100 * total / step_ms:.1f} % [{card}]")
+    return cats
+
+
+def _moe_train(seed, dev, card):
+    """(a) ERNIE-4.5-21B-A3B at full width cut to MOE_TRAIN_LAYERS (layer
+    0 dense, the rest MoE), bf16, AdamW with fp32 masters through
+    ``Trainer(loss_fn=moe_lm_loss)`` for MOE_TRAIN_STEPS steps on one
+    repeated [2, 2048] batch. Counts set to 0 just before and read just
+    after: the flash forward, dq and dk/dv once per layer and step on the
+    wgmma route, the fused update once a step. The loss must stay finite
+    and fall. Returns the launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import moe_lm_loss
+    from paddle_tpu_torch.utils.profiler import llama_flops_per_token
+
+    class StepClock(ptt.TrainerCallback):
+        def __init__(self):
+            self.t = []
+
+        def on_step_end(self, step, logs):
+            self.t.append(time.perf_counter())
+
+    cfg = ptt.models.Ernie45MoeConfig(num_hidden_layers=MOE_TRAIN_LAYERS)
+    L, E, k = cfg.num_hidden_layers, cfg.num_experts, cfg.num_experts_per_tok
+    t0 = time.perf_counter()
+    model = ptt.models.Ernie45MoeForCausalLM(
+        cfg, device=dev, generator=ptt.make_generator(seed + 70, dev))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    routed = sum(p.numel() for n, p in model.named_parameters()
+                 if n.split(".")[-1] in ("w_gate", "w_up", "w_down"))
+    embed = model.model.embed_tokens.weight.numel()
+    # active a token: all but the input table and the unchosen experts
+    active = n_params - embed - routed + routed * k // E
+    state_gb = n_params * STATE_BYTES_PER_PARAM / 1e9
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    log(f"[moe-train] ERNIE-4.5-21B-A3B at full width (hidden "
+        f"{cfg.hidden_size}, {E} experts top-{k} of width "
+        f"{cfg.moe_intermediate_size}, heads {cfg.num_attention_heads}/"
+        f"{cfg.num_key_value_heads})"
+        f" cut to {L} layers (layer 0 dense): {n_params / 1e9:.3f} B params"
+        f" ({active / 1e9:.3f} B active a token: the routed experts' "
+        f"{routed / 1e9:.3f} B counted {k}/{E}, the input table not), "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s; training "
+        f"state at {STATE_BYTES_PER_PARAM} B a parameter {state_gb:.1f} GB "
+        f"of the card's {total_gb:.1f} GB")
+    rs = np.random.RandomState(seed + 73)
+    batch = [rs.randint(0, cfg.vocab_size, MOE_TRAIN_BATCH)]
+    clock = StepClock()
+    opt = ptt.optimizer.AdamW(
+        learning_rate=1e-3, weight_decay=0.01, multi_precision=True,
+        grad_clip=ptt.optimizer.ClipGradByGlobalNorm(1.0))
+    tr = ptt.Trainer(model, opt, ptt.TrainingArguments(
+        output_dir="output/chip_smoke_moe_train",
+        max_steps=MOE_TRAIN_STEPS, logging_steps=1),
+        loss_fn=lambda m, b: moe_lm_loss(*m(b, return_aux=True), b),
+        train_dataloader=batch, callbacks=[clock])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = _reset_launches()
+    clock.t = [time.perf_counter()]
+    tr.train(max_steps=MOE_TRAIN_STEPS - 1)
+    # the last step's drops, read by hooks outside the timed steps
+    seen, handles = _moe_drop_hooks(model)
+    tr.train(max_steps=MOE_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    launches = read()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [v for _, v in tr.logger.history["loss"]]
+    step_ms = float(np.median(np.diff(clock.t)[1:-1] * 1e3))
+    tokens = int(np.prod(MOE_TRAIN_BATCH))
+    fpt = llama_flops_per_token(active, L, MOE_TRAIN_BATCH[1],
+                                cfg.hidden_size)
+    mfu = tokens / (step_ms / 1e3) * fpt / BF16_FLOP_PER_S
+    dropped = sum(d for d, _ in seen) / max(sum(n for _, n in seen), 1)
+    log(f"[moe-train] losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"[moe-train] step {step_ms:.1f} ms (median of steps 2-"
+        f"{MOE_TRAIN_STEPS - 1}), {tokens / (step_ms / 1e3):.0f} tokens/s, "
+        f"MFU {100 * mfu:.2f} % over the active parameters (6N + attention"
+        f", {fpt / 1e9:.2f} GFLOP a token, against "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s); peak memory {peak_gb:.1f} "
+        f"GB ({total_gb - peak_gb:.1f} GB free); the last step dropped "
+        f"{100 * dropped:.2f} % of its "
+        f"routed choices ({sum(d for d, _ in seen)} of "
+        f"{sum(n for _, n in seen)}) [{card}]")
+    S = MOE_TRAIN_STEPS
+    want = dict(NO_LAUNCHES, flash=L * S, flash_bwd_dq=L * S,
+                flash_bwd_dkv=L * S, fused_adamw=S)
+    log(f"[moe-train] launches in {S} steps: {launches} (want {want})")
+    if launches != want:
+        fail(f"moe-train: launches {launches} != {want}")
+    _check_routes("moe-train", flash=L * S, flash_bwd_dq=L * S,
+                  flash_bwd_dkv=L * S)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"moe-train: the loss did not fall: {losses}")
+    if total_gb - peak_gb < MIN_FREE_GB:
+        fail(f"moe-train: {total_gb - peak_gb:.1f} GB left free at the peak"
+             f" (want {MIN_FREE_GB})")
+    _moe_train_split(tr, step_ms, card)
+    del tr, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree("output/chip_smoke_moe_train", ignore_errors=True)
+    return launches
+
+
+def _pp_schedules(seed, dev, card):
+    """(b) The pipeline code on the card: a world-one NCCL mesh naming pp
+    (degree 1: the hand-offs stay on the rank), Llama-3-8B width at
+    PP_LAYERS layers, tokens [M, 1, 2048]. ``pipeline_functional(1)``
+    (1F1B) and ``pipeline_functional(1, vpp=2)`` (interleaved), each
+    through ``pipeline_grads`` (the Trainer's pipeline step up to its
+    update), against the plain accumulated step on the same weights and
+    batch: the loss
+    within fp32 rounding (bit for bit printed), every flat gradient
+    within TOL_GRAD_REL (relative L2). Counts set to 0 just before each
+    run and read just after. Returns the launches of the two pipeline
+    runs."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import env, fleet
+    from paddle_tpu_torch.models.llama import causal_lm_loss
+    from paddle_tpu_torch.parallel import sharding
+    from paddle_tpu_torch.parallel.pipeline import pipeline_grads
+
+    fleet.init(strategy=fleet.DistributedStrategy(
+        hybrid_configs={"pp_degree": 1}))
+    mesh = env.get_mesh()
+    model = _train_model(seed, dev, layers=PP_LAYERS)
+    fleet.distributed_model(model)
+    params = dict(model.named_parameters())
+    M = PP_MICRO[0]
+    rs = np.random.RandomState(seed + 74)
+    tokens = torch.from_numpy(rs.randint(0, model.config.vocab_size,
+                                         PP_MICRO)).to(dev)
+    log(f"[pp] mesh {mesh.shape} on {mesh.device}, backend "
+        f"{dist.get_backend()}, world {dist.get_world_size()}; Llama-3-8B "
+        f"width, {PP_LAYERS} layers, tokens {list(PP_MICRO)}")
+
+    def plain():
+        loss, acc = 0.0, None
+        for m in range(M):
+            lm = causal_lm_loss(model(tokens[m]), tokens[m])
+            g = torch.autograd.grad(lm, list(params.values()))
+            acc = list(g) if acc is None else [a + b for a, b in
+                                               zip(acc, g)]
+            loss = loss + lm.detach().float()
+        sharding.release(model)
+        return loss / M, {k: sharding.local(a) / M for k, a in
+                          zip(params, acc)}
+
+    def piped(vpp):
+        # the Trainer's pipeline step up to its update
+        loss, g = pipeline_grads(model, model.pipeline_functional(
+            1, vpp=vpp), tokens)
+        return loss, {k: sharding.local(a) for k, a in g.items()}
+
+    runs, launches = {}, {}
+    for arm in ("plain", "vpp1", "vpp2", "plain"):
+        fn = plain if arm == "plain" else (lambda v=int(arm[-1]): piped(v))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        read = _reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = read()
+        runs.setdefault(arm, []).append(
+            (float(loss), grads, ms,
+             torch.cuda.max_memory_allocated(dev) / 1e9))
+        launches[arm] = n
+    L = PP_LAYERS
+    want = {"plain": L * M, "vpp1": L * M, "vpp2": L * M + L // 2 * M}
+    ref_loss, ref = runs["plain"][0][:2]
+    for arm in ("vpp1", "vpp2"):
+        loss, grads, ms, peak = runs[arm][0]
+        errs = {k: _rel_l2(grads[k], ref[k]) for k in ref}
+        worst = max(errs, key=errs.get)
+        log(f"[pp] {arm}: loss {loss:.6f} vs plain {ref_loss:.6f} "
+            f"(difference {loss - ref_loss:+.3e}, bit for bit "
+            f"{loss == ref_loss}); gradients' relative L2 worst "
+            f"{errs[worst]:.2e} ({worst}), median "
+            f"{sorted(errs.values())[len(errs) // 2]:.2e} (tol "
+            f"{TOL_GRAD_REL}); launches {launches[arm]}")
+        log(f"[time] pp {arm} step (forward + backward, {M} microbatches) "
+            f"{ms:.1f} ms against the plain accumulated step's "
+            f"{runs['plain'][0][2]:.1f} / {runs['plain'][1][2]:.1f} ms "
+            f"(before / after); peak memory {peak:.1f} GB against "
+            f"{runs['plain'][0][3]:.1f} GB [{card}]")
+        if abs(loss - ref_loss) > 1e-6 * abs(ref_loss):
+            fail(f"pp {arm}: loss {loss} != the plain step's {ref_loss}")
+        if errs[worst] > TOL_GRAD_REL:
+            fail(f"pp {arm}: {worst}'s gradient is {errs[worst]:.3e} "
+                 f"(relative L2) from the plain step's")
+        n = launches[arm]
+        if (n["flash"], n["flash_bwd_dq"], n["flash_bwd_dkv"]) != (
+                want[arm], L * M, L * M):
+            fail(f"pp {arm}: launches {n}, want flash {want[arm]}, dq and "
+                 f"dk/dv {L * M}")
+    if runs["plain"][0][0] != runs["plain"][1][0]:
+        fail("pp: the plain step's loss is not repeatable")
+    del model, runs, ref
+    env.clear_mesh()
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches["vpp1"][k] + launches["vpp2"][k]
+            for k in ("flash", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def phase_pp_ep(seed, dev, card):
+    """Pipeline and expert parallel training on one card (``[moe-train]``
+    and ``[pp]`` lines): (a) the flash kernels at the MoE train step's
+    attention shape against their plain versions, an MoE model trains
+    through the Trainer (its step's device time split under the
+    profiler), and its gradients at a small width hold to the plain
+    route; (b) the 1F1B and interleaved schedules at pp 1, through the
+    Trainer's pipeline step, against the plain step. pp > 1 and ep > 1
+    need several ranks, and NCCL refuses two on one card: they are
+    proved in the CPU gloo worlds (tests/test_torch_pipeline.py,
+    tests/test_torch_ep.py). Returns the launches for the kernels line."""
+    t0 = time.perf_counter()
+    _moe_attn_check(seed, dev)
+    _moe_grad_routes(seed, dev, card)
+    launches = _moe_train(seed, dev, card)
+    for key, n in _pp_schedules(seed, dev, card).items():
+        launches[key] += n
+    log(f"[pp] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5533,6 +6005,11 @@ def main():
         phase_parallel(args.seed, gen, dev, card)
     launches["flash_lse"] = ring_launches["flash_lse"]
     routes["flash_lse"] = ring_routes["flash_lse"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_pp_ep(args.seed, dev, card).items():
+        if key in ("flash", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw"):
+            launches[key] += n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,

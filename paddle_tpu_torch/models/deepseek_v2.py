@@ -42,8 +42,9 @@ from ..nn import RMSNorm
 from ..nn import functional as F
 from ..nn.common import Linear
 from ..ops.attention import dense_attention
+from ..distributed.collective import axis_size
 from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
-                               VocabParallelEmbedding)
+                               VocabParallelEmbedding, copy_to)
 from ..parallel.moe import MoEMLP
 from ..parallel.sharding import constraint
 from ..utils.rng import make_generator
@@ -176,16 +177,20 @@ class MLAttention(nn.Module):
         h = cfg.num_attention_heads
         kw = dict(generator=generator, device=device, dtype=cfg.dtype)
         bias = bool(cfg.attention_bias)
+        # the per-head projections stay split over tp (this rank's heads,
+        # as o_proj's split input expects); the JAX layer gathers them
+        # and lets GSPMD split the heads again
+        col = dict(kw, gather_output=False)
         if cfg.q_lora_rank is None:
             self.q_proj = ColumnParallelLinear(
-                cfg.hidden_size, h * cfg.qk_head_dim, has_bias=bias, **kw)
+                cfg.hidden_size, h * cfg.qk_head_dim, has_bias=bias, **col)
         else:
             self.q_a_proj = Linear(cfg.hidden_size, cfg.q_lora_rank,
                                    has_bias=bias, **kw)
             self.q_a_layernorm = RMSNorm(cfg.q_lora_rank, cfg.rms_norm_eps,
                                          device=device, dtype=cfg.dtype)
             self.q_b_proj = ColumnParallelLinear(
-                cfg.q_lora_rank, h * cfg.qk_head_dim, has_bias=False, **kw)
+                cfg.q_lora_rank, h * cfg.qk_head_dim, has_bias=False, **col)
         # the latent and the single decoupled key
         self.kv_a_proj_with_mqa = Linear(
             cfg.hidden_size, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
@@ -194,7 +199,7 @@ class MLAttention(nn.Module):
                                       device=device, dtype=cfg.dtype)
         self.kv_b_proj = ColumnParallelLinear(
             cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim),
-            has_bias=False, **kw)
+            has_bias=False, **col)
         self.o_proj = RowParallelLinear(h * cfg.v_head_dim, cfg.hidden_size,
                                         has_bias=bias, **kw)
         self.scale = cfg.qk_head_dim ** -0.5
@@ -210,7 +215,7 @@ class MLAttention(nn.Module):
             q = self.q_proj(x)
         else:
             q = self.q_b_proj(self.q_a_layernorm(self.q_a_proj(x)))
-        q = q.reshape(b, s, cfg.num_attention_heads, cfg.qk_head_dim)
+        q = q.reshape(b, s, -1, cfg.qk_head_dim)      # this rank's heads
         return (q[..., :cfg.qk_nope_head_dim],
                 apply_interleaved(q[..., cfg.qk_nope_head_dim:], *rope))
 
@@ -220,13 +225,18 @@ class MLAttention(nn.Module):
         ckv = self.kv_a_proj_with_mqa(x)
         c = self.kv_a_layernorm(ckv[..., :r])
         k_pe = apply_interleaved(ckv[..., r:][:, :, None, :], *rope)[:, :, 0]
+        if axis_size("tp") > 1:
+            # the one decoupled key serves every head, and a tp rank
+            # attends with its own: its gradient sums over tp (the
+            # latent's sum is kv_b_proj's)
+            k_pe = copy_to(k_pe, "tp")
         return c, k_pe
 
     def _expand(self, c):
         """latent [b, s, r] -> (k_nope [b, s, h, nope], v [b, s, h, v])."""
         cfg = self.config
         kv = self.kv_b_proj(c).reshape(
-            c.shape[0], c.shape[1], cfg.num_attention_heads,
+            c.shape[0], c.shape[1], -1,
             cfg.qk_nope_head_dim + cfg.v_head_dim)
         return kv[..., :cfg.qk_nope_head_dim], kv[..., cfg.qk_nope_head_dim:]
 
@@ -238,8 +248,9 @@ class MLAttention(nn.Module):
         ``cache_at`` the model built) and (out, cache) is returned."""
         cfg = self.config
         b, s, _ = x.shape
-        h, nope = cfg.num_attention_heads, cfg.qk_nope_head_dim
+        nope = cfg.qk_nope_head_dim
         q_nope, q_pe = self._queries(x, rope)
+        h = q_nope.shape[2]           # this rank's heads (all, or 1/tp)
         c, k_pe = self._latents(x, rope)
 
         if kv_cache is not None:

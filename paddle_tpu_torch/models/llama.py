@@ -9,8 +9,8 @@ forward runs on this rank's block: its rows of the batch, its heads
 under ``tp`` (the projections are the tp layers, with their
 collectives), and with ``sequence_parallel`` its block of positions
 under ``sp``, attended through ``ring_attention`` at global positions
-(RoPE included). The pipeline-parallel train step still raises
-``NotImplementedError``.
+(RoPE included). ``llama_pipeline_functional`` wires the model into the
+1F1B and interleaved pipelines of ``parallel.pipeline``.
 
 PyTorch idiom inside: ``nn.Module``s with an explicit device and
 generator, the RoPE tables computed once per forward in ``LlamaModel``
@@ -29,7 +29,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed import collective as C
 from ..distributed.collective import axis_index, axis_size
+from ..distributed.env import BATCH_AXES, axis_degree
 from ..generation.paged import (PagedKV, paged_chunk_attention,
                                 paged_decode_attention, paged_decode_write,
                                 paged_prefill_write)
@@ -40,8 +42,11 @@ from ..ops.attention import (decode_attention, dense_attention,
                              flash_attention, segment_mask, use_flash)
 from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
                                VocabParallelEmbedding, parallel_matmul)
+from ..parallel.pipeline import pipeline_value_and_grad
+from ..parallel.pipeline_interleaved import \
+    interleaved_pipeline_value_and_grad
 from ..parallel.ring import ring_attention
-from ..parallel.sharding import constraint
+from ..parallel.sharding import bind, constraint
 from ..utils.rng import make_generator
 from .base import CausalLMBase
 
@@ -535,9 +540,13 @@ class LlamaForCausalLM(CausalLMBase):
                 generator=generator, device=device, dtype=config.dtype)
 
     def pipeline_functional(self, pp: int, logits_loss=None, vpp: int = 1):
-        raise NotImplementedError(
-            "the pipeline-parallel train step (llama_pipeline_functional) "
-            "comes with the multi-device training slice of the port")
+        """1F1B pipeline train step over ``pp`` stages (the Trainer's pp
+        path). ``logits_loss(logits, labels) -> scalar mean`` swaps the
+        last stage's loss head (default: shifted causal-LM cross
+        entropy). ``vpp`` > 1 interleaves that many virtual chunks per
+        rank (Megatron-style), shrinking the pipeline bubble vpp-fold."""
+        return llama_pipeline_functional(self, pp, logits_loss=logits_loss,
+                                         vpp=vpp)
 
     def forward(self, input_ids, positions=None, kv_caches=None,
                 cache_index=None, attn_mask=None, attn_start=None,
@@ -563,3 +572,120 @@ def causal_lm_loss(logits, labels, ignore_index: int = -100):
     (the token ids themselves in the default recipe)."""
     return F.cross_entropy(logits[:, :-1], labels[:, 1:],
                            ignore_index=ignore_index, reduction="mean")
+
+
+# ------------------------------------------------------- pipeline parallel
+def llama_pipeline_functional(model: nn.Module, pp: int, logits_loss=None,
+                              vpp: int = 1):
+    """Wire a LlamaForCausalLM (or a model of its shape: ``model.model``
+    with ``embed_tokens``, ``layers``, ``norm`` and the RoPE buffers, and
+    ``lm_head``) into the 1F1B pipeline (reference:
+    fleet.meta_parallel.PipelineLayer's LayerDesc segmentation: the
+    embedding at stage 0, ``num_hidden_layers / (pp * vpp)`` decoder
+    layers a stage, the final norm and lm_head at the last stage).
+
+    Returns ``vag(flat_params, tokens[M, b, s]) -> (loss, flat_grads)``:
+    flat parameter names stay the single source of truth (the optimizer
+    and the checkpoint see them unchanged); ``split`` hands this rank its
+    stages' parameters and ``merge`` gathers every stage's gradients over
+    pp, so each rank returns the whole flat gradient. ``flat_params``
+    are the tensors the model computes with (a sharded model's compute
+    tensors); the gradients are theirs. On a mesh ``tokens`` are this
+    rank's rows, and the loss and gradients are its share: the head loss
+    and the MoE aux terms divided by the dp x fsdp degree, so that their
+    sum over those ranks is the JAX step's."""
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    S = pp * vpp  # global stages (vpp chunks per rank when interleaved)
+    if L % S != 0:
+        raise ValueError(f"num_hidden_layers {L} % (pp*vpp) {S} != 0")
+    if cfg.tie_word_embeddings:
+        raise ValueError("pipeline requires untied embeddings (the tied "
+                         "table would live on two stages)")
+    n_per = L // S
+    inner = model.model
+    rel = [k for k, _ in inner.layers[0].named_parameters()]
+
+    def stage_names(g):
+        return [f"model.layers.{g * n_per + i}.{k}" for i in range(n_per)
+                for k in rel]
+
+    def split(flat):
+        d = axis_index("pp")
+        stages = [{n: flat[n] for n in stage_names(c * pp + d)}
+                  for c in range(vpp)]
+        pick = lambda pre: {k: v for k, v in flat.items()  # noqa: E731
+                            if k.startswith(pre)}
+        return {"embed": pick("model.embed_tokens."),
+                "stages": stages if vpp > 1 else stages[0],
+                "head": {**pick("model.norm."), **pick("lm_head.")}}
+
+    def merge(grads, like):
+        flat = {**grads["embed"], **grads["head"]}
+        mine = grads["stages"] if vpp > 1 else [grads["stages"]]
+        if pp == 1:
+            for chunk in mine:
+                flat.update(chunk)
+            return flat
+        # every stage's gradients, gathered over pp (uniform stages:
+        # one buffer a rank, each of the same length; a tp rank's are
+        # its shards, shaped as ``like``'s)
+        buf = torch.cat([g.float().reshape(-1) for chunk in mine
+                         for g in chunk.values()])
+        every = C._gather(buf[None], "pp", 0)
+        for r in range(pp):
+            names = [n for c in range(vpp) for n in stage_names(c * pp + r)]
+            parts = every[r].split([like[n].numel() for n in names])
+            for n, part in zip(names, parts):
+                flat[n] = part.view(like[n].shape).to(like[n].dtype)
+        return flat
+
+    def share():
+        return axis_degree(BATCH_AXES)
+
+    def embed_fn(ep, tokens):
+        bind(model, ep)
+        return inner.embed_tokens(tokens)
+
+    def stage_fn(sp, x):
+        bind(model, sp)
+        first = int(next(iter(sp)).split(".")[2])
+        b, sl = x.shape[0], x.shape[1]
+        positions = torch.arange(sl, device=x.device)[None, :].expand(b, sl)
+        rope = rotary_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                              x.dtype, inv_freq=inner.rope_inv_freq,
+                              attention_scaling=inner.attn_scaling)
+        aux = None
+        for layer in inner.layers[first:first + n_per]:
+            out = layer(x, rope)
+            if isinstance(out, tuple):
+                # MoE decoder layers return (x, aux); the pipeline seeds
+                # each stage's aux at its own backward tick
+                x, a = out
+                aux = a if aux is None else aux + a
+            else:
+                x = out
+        return x if aux is None else (x, aux / share())
+
+    loss_head = logits_loss or causal_lm_loss
+
+    def head_loss_fn(hp, y, labels):
+        bind(model, hp)
+        logits = model.lm_head(inner.norm(y)).float()
+        return loss_head(logits, labels) / share()
+
+    if vpp == 1:
+        run = pipeline_value_and_grad(embed_fn, stage_fn, head_loss_fn, pp)
+    else:
+        run = interleaved_pipeline_value_and_grad(
+            embed_fn, stage_fn, head_loss_fn, pp, vpp)
+
+    def vag(flat_params, tokens):
+        if axis_size("sp") > 1:
+            raise NotImplementedError(
+                "pipeline parallel with sp > 1 (ring attention inside the "
+                "stages) is not ported")
+        loss, grads = run(split(flat_params), tokens, tokens)
+        return loss, merge(grads, flat_params)
+
+    return vag

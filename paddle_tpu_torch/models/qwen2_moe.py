@@ -34,7 +34,8 @@ from ..parallel.sharding import constraint
 from ..utils.rng import make_generator
 from .base import CausalLMBase
 from .llama import (LlamaAttention, LlamaConfig, LlamaMLP, cache_positions,
-                    causal_lm_loss, register_rope, rotary_cos_sin)
+                    causal_lm_loss, llama_pipeline_functional, register_rope,
+                    rotary_cos_sin)
 
 
 @dataclass
@@ -226,9 +227,18 @@ class Qwen2MoeForCausalLM(CausalLMBase):
         return (logits, aux) if return_aux else logits
 
     def pipeline_functional(self, pp: int, logits_loss=None, vpp: int = 1):
-        raise NotImplementedError(
-            "the pipeline-parallel train step with expert parallelism "
-            "comes with the multi-device slice of the port (ROADMAP A8)")
+        """1F1B pipeline over ``pp`` stages, composed with expert
+        parallelism: the MoE layers' aux loss rides each stage's own
+        backward (reference: fleet pp+ep hybrid topology). Requires
+        uniform layers (first_k_dense_replace == 0) so every stage holds
+        the same parameters."""
+        if self.config.first_k_dense_replace:
+            raise ValueError(
+                "pipeline_functional needs uniform MoE layers "
+                "(first_k_dense_replace=0): dense and MoE layer params "
+                "cannot stack into one [pp, n_per, ...] tree")
+        return llama_pipeline_functional(self, pp, logits_loss=logits_loss,
+                                         vpp=vpp)
 
 
 def moe_lm_loss(logits, aux_loss, labels, ignore_index: int = -100):

@@ -3,6 +3,7 @@ reference: paddle/distributed/fleet/meta_parallel/*)."""
 from .layers import (ColumnParallelLinear, RowParallelLinear,
                      VocabParallelEmbedding, parallel_matmul)
 from .moe import MoEMLP, top_k_routing
+from .pipeline import pipeline_apply, spmd_pipeline, stack_stage_params
 from .ring import ring_attention, ring_flash_attention, ulysses_attention
 from .sharding import (ShardingError, constraint, param_shardings,
                        partition_to_sharding, shard_layer, tree_shardings,
@@ -10,7 +11,8 @@ from .sharding import (ShardingError, constraint, param_shardings,
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "parallel_matmul", "MoEMLP",
-           "top_k_routing", "ring_attention", "ring_flash_attention",
+           "top_k_routing", "pipeline_apply", "spmd_pipeline",
+           "stack_stage_params", "ring_attention", "ring_flash_attention",
            "ulysses_attention", "ShardingError", "constraint",
            "param_shardings", "partition_to_sharding", "shard_layer",
            "tree_shardings", "validate_partition"]

@@ -39,28 +39,44 @@ TP = "tp"
 
 
 class _Copy(torch.autograd.Function):
-    """The identity forward, an all-reduce over tp backward (Megatron's f)."""
+    """The identity forward, an all-reduce over ``axis`` backward
+    (Megatron's f)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, axis):
+        ctx.axis = axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return C._reduce_(g.clone(), C.ReduceOp.SUM, TP)
+        return C._reduce_(g.clone(), C.ReduceOp.SUM, ctx.axis), None
 
 
 class _Reduce(torch.autograd.Function):
-    """An all-reduce over tp forward, the identity backward (Megatron's g:
-    the output's cotangent is the same on every tp rank)."""
+    """An all-reduce over ``axis`` forward, the identity backward
+    (Megatron's g: the output's cotangent is the same on every rank of
+    the axis)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return C._reduce_(x.clone(), C.ReduceOp.SUM, TP)
+    def forward(ctx, x, axis):
+        return C._reduce_(x.clone(), C.ReduceOp.SUM, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
+
+
+def copy_to(x, axis: str):
+    """Megatron's f over ``axis``: ``x`` enters work split over the axis
+    (each rank computes a part of a sum from it), so its gradient is the
+    sum of the ranks' gradients."""
+    return _Copy.apply(x, axis)
+
+
+def reduce_from(x, axis: str):
+    """Megatron's g over ``axis``: the sum of the ranks' parts, whose
+    cotangent every rank of the axis already holds whole."""
+    return _Reduce.apply(x, axis)
 
 
 class _Gather(torch.autograd.Function):
@@ -108,7 +124,7 @@ class ColumnParallelLinear(Linear):
     def forward(self, x):
         if _tp() == 1:
             return F.linear(x, self.weight, self.bias)
-        y = F.linear(_Copy.apply(x), self.weight, self.bias)
+        y = F.linear(_Copy.apply(x, TP), self.weight, self.bias)
         return _Gather.apply(y) if self.gather_output else y
 
     def extra_repr(self):
@@ -130,7 +146,7 @@ class RowParallelLinear(Linear):
             return F.linear(x, self.weight, self.bias)
         if not self.input_is_parallel:
             x = _Split.apply(x)
-        y = _Reduce.apply(F.linear(x, self.weight))
+        y = _Reduce.apply(F.linear(x, self.weight), TP)
         return y if self.bias is None else y + self.bias
 
     def extra_repr(self):
@@ -155,7 +171,7 @@ class VocabParallelEmbedding(Embedding):
         y = F.embedding(torch.where(mine, x - start, torch.zeros_like(x)),
                         self.weight)
         y = y * mine[..., None].to(y.dtype)
-        return _Reduce.apply(y)
+        return _Reduce.apply(y, TP)
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}, vocab-parallel"
@@ -168,5 +184,5 @@ def parallel_matmul(x, weight, transpose_y: bool = False):
     gathered over tp."""
     if _tp() == 1:
         return x @ (weight.T if transpose_y else weight)
-    y = _Copy.apply(x) @ (weight.T if transpose_y else weight)
+    y = _Copy.apply(x, TP) @ (weight.T if transpose_y else weight)
     return _Gather.apply(y)

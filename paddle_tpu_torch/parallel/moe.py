@@ -8,8 +8,20 @@ JAX layout (so ``load_jax_state_dict`` copies them without a transpose,
 as it does the router ``gate`` [h, E], the ``shared_*`` projections and
 ``shared_expert_gate``), and every expert multiplies a fixed bucket of
 ``capacity`` rows, whatever the routing put there: static shapes, so a
-decode step is one captured graph. The ``ep`` sharding is the identity
-on one device.
+decode step is one captured graph.
+
+On a mesh, what GSPMD computes for the JAX layer is written out. The
+JAX package splits activations over dp and fsdp (and sp) only, and
+routes the logical array: every token of the call competes for one
+capacity. So the layer gathers the call's tokens over the axes that
+split the data (an ``all_gather`` whose gradient is the reduce-scatter)
+and every rank makes the same routing decisions. The experts carry the
+JAX partition ``("ep", None, None)``: an ep rank holds E / ep of them
+(its DTensor shard), fills and multiplies only their buckets, and the
+combine's sum over experts becomes a sum over ep (Megatron's f and g
+over ``ep``: ``parallel.layers.copy_to`` / ``reduce_from``). Each ep
+rank sees the same tokens and holds the whole loss, so no gradient is
+summed over ep. With every axis of degree 1 none of this runs.
 
 Routing is the JAX package's, decision for decision: scores in fp32
 (the router product ``x.float() @ gate.float()``; TF32 must stay off),
@@ -41,7 +53,11 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..distributed import collective as C
+from ..distributed.env import BATCH_AXES, axis_coordinate, axis_degree
 from ..nn import functional as F
+from ..nn.common import set_partition
+from .layers import copy_to, reduce_from
 from .sharding import constraint
 
 __all__ = ["top_k_routing", "MoEMLP"]
@@ -143,6 +159,34 @@ def top_k_routing(router_logits, k: int, capacity: int,
     return dispatch, combine, aux
 
 
+def _call_tokens(x):
+    """(the tokens of the whole call [T, h], the rows of this rank's
+    tokens in them or None). ``x`` is this rank's block, [b, s, h] (or
+    [b, h]): its rows of the batch over dp x fsdp and, for [b, s, h],
+    its positions over sp. The gather orders the tokens as the JAX
+    layer's logical ``x.reshape(-1, h)`` does."""
+    h = x.shape[-1]
+    deg = axis_degree(BATCH_AXES)
+    sp = axis_degree("sp") if x.dim() >= 3 else 1
+    if deg == 1 and sp == 1:
+        return x.reshape(-1, h), None
+    g = x
+    if sp > 1:
+        g = C.all_gather(g, "sp", axis=1)
+    if deg > 1:
+        g = C.all_gather(g, BATCH_AXES, axis=0)
+    dev = x.device
+    rows = axis_coordinate(BATCH_AXES) * x.shape[0] + torch.arange(
+        x.shape[0], device=dev)
+    if x.dim() >= 3:
+        cols = axis_coordinate("sp") * x.shape[1] + torch.arange(
+            x.shape[1], device=dev)
+        mine = (rows[:, None] * g.shape[1] + cols[None, :]).reshape(-1)
+    else:
+        mine = rows
+    return g.reshape(-1, h), mine
+
+
 def _jax_xavier(shape, generator, device, dtype):
     """A parameter in the JAX package's layout, drawn with its Xavier
     normal fans (2-D [in, out]; 3-D [E, in, out] counts in * out and
@@ -193,6 +237,8 @@ class MoEMLP(nn.Module):
         self.w_gate = _jax_xavier((E, h, m), **kw)
         self.w_up = _jax_xavier((E, h, m), **kw)
         self.w_down = _jax_xavier((E, m, h), **kw)
+        for w in (self.w_gate, self.w_up, self.w_down):
+            set_partition(w, ("ep", None, None))
         # loss-free balancing bias: selection only, updated outside the
         # gradient path; in the weights' dtype, as the JAX package casts it
         self.register_buffer("expert_bias",
@@ -219,40 +265,70 @@ class MoEMLP(nn.Module):
     def forward(self, x, return_aux: bool = False):
         orig_shape = x.shape
         h, E, k = self.hidden_size, self.num_experts, self.top_k
-        xt = x.reshape(-1, h)                              # [T, h]
-        T = xt.shape[0]
+        xt = x.reshape(-1, h)                              # [T_l, h]
+        # the call's tokens: this rank's, or on a mesh every rank's of
+        # the axes that split the data (one routing for all of them)
+        xg, mine = _call_tokens(x)                         # [T, h]
+        T = xg.shape[0]
         C = self.capacity(T)
+        # this rank's experts: all E, or its E / ep shard under ep. With
+        # all E here the ownership masks below would be all true: the
+        # unsplit path leaves their elementwise launches out of the
+        # captured decode step
+        El = self.w_gate.shape[0]
+        split = El != E
+        e0 = axis_coordinate("ep") * El if split else 0
         with record_function("moe_route"):
-            logits = xt.float() @ self.gate.float()
+            logits = xg.float() @ self.gate.float()
             ids, slot, keep, gates, aux = _route(
                 logits, k, C, bias=self.expert_bias,
                 norm_topk_prob=self.norm_topk_prob, n_group=self.n_group,
                 topk_group=self.topk_group, scoring=self.scoring,
                 group_score_mode=self.group_score_mode)
+            if split:
+                # the buckets' tokens and the gates enter work split
+                # over ep: their gradients sum over it
+                xg, gates = copy_to(xg, "ep"), copy_to(gates, "ep")
+                own = (ids >= e0) & (ids < e0 + El)
             # each bucket slot's token (T: an empty slot, a zero row);
-            # dropped choices all land in the extra slot E*C, unread
-            at = torch.where(keep, ids * C + slot,
-                             torch.full_like(slot, E * C)).reshape(-1)
-            src = torch.full((E * C + 1,), T, dtype=torch.long,
+            # dropped choices, and others' experts, all land in the
+            # extra slot El*C, unread
+            fill = keep & own if split else keep
+            at = torch.where(fill, (ids - e0) * C + slot,
+                             torch.full_like(slot, El * C)).reshape(-1)
+            src = torch.full((El * C + 1,), T, dtype=torch.long,
                              device=x.device)
             src.scatter_(0, at, torch.arange(T, device=x.device)
                          .repeat_interleave(k))
-            xe = torch.cat([xt, xt.new_zeros(1, h)])[src[:E * C]] \
-                .reshape(E, C, h)
+            xe = torch.cat([xg, xg.new_zeros(1, h)])[src[:El * C]] \
+                .reshape(El, C, h)
             xe = constraint(xe, "ep", None, None)
         with record_function("moe_experts"):
             # per-expert SwiGLU over every bucket, batched over E
             g = torch.bmm(xe, self.w_gate)
             u = torch.bmm(xe, self.w_up)
-            ye = torch.bmm(F.silu(g) * u, self.w_down)         # [E, C, h]
+            ye = torch.bmm(F.silu(g) * u, self.w_down)         # [El, C, h]
             ye = constraint(ye, "ep", None, None)
         with record_function("moe_route"):
-            # the combine: each token's kept expert rows, weighted by its
-            # gates rounded to the activations' dtype and summed in fp32
-            rows = ye.reshape(E * C, h)[(ids * C + slot).reshape(-1)] \
-                .reshape(T, k, h)
+            # the combine, for this rank's tokens: each token's kept
+            # expert rows, weighted by its gates rounded to the
+            # activations' dtype and summed in fp32 (over ep too)
+            if mine is not None:
+                ids, slot, gates = ids[mine], slot[mine], gates[mine]
+            Tl = ids.shape[0]
             w = gates.to(x.dtype).float()
-            y = (rows.float() * w[..., None]).sum(dim=1).to(x.dtype)
+            if split:
+                own = (ids >= e0) & (ids < e0 + El)
+                at = torch.where(own, (ids - e0) * C + slot,
+                                 torch.zeros_like(slot))
+                w = torch.where(own, w, torch.zeros_like(w))
+            else:
+                at = ids * C + slot
+            rows = ye.reshape(El * C, h)[at.reshape(-1)].reshape(Tl, k, h)
+            y = (rows.float() * w[..., None]).sum(dim=1)
+            if split:
+                y = reduce_from(y, "ep")
+            y = y.to(x.dtype)
         if self.routed_scaling_factor != 1.0:
             y = y * self.routed_scaling_factor
         if self.shared:

@@ -15,7 +15,8 @@ or the parameters over ``fsdp`` is stages 1, 2 or 3.
 The forward runs on local tensors. A pre-hook on the sharded root module
 (:func:`materialize`) makes each parameter's compute tensor: fsdp shards
 gathered, tp shards kept (the tp layers of ``parallel.layers`` run on
-them with explicit collectives), everything else replicated; it is
+them with explicit collectives), ep shards kept (``MoEMLP`` multiplies
+this rank's experts), everything else replicated; it is
 ``DTensor.redistribute(...).to_local(grad_placements=...)``, so autograd
 returns each parameter's gradient as a DTensor in the parameter's own
 placements: the local gradients are declared partial sums over the
@@ -42,7 +43,9 @@ from ..distributed.env import (BATCH_AXES, Mesh, NamedSharding, get_mesh,
 from ..nn.common import partition_of
 
 # the axes a parameter's local gradient is a partial sum over: each rank
-# of them sees other data
+# of them sees other data. Not ep: its ranks see the same tokens (the
+# JAX package splits activations over dp and fsdp only) and each holds
+# the whole loss, so a replicated parameter's gradient is whole there
 GRAD_SUM_AXES = BATCH_AXES + ("sp",)
 
 
@@ -189,16 +192,21 @@ def local(t):
     return t._local_tensor if is_sharded(t) else t
 
 
+# the axes whose shards a layer computes on as they are: tp (the tp
+# layers' collectives) and ep (each rank multiplies its own experts)
+LOCAL_AXES = ("tp", "ep")
+
+
 def _compute_placements(p):
     """(placements of the compute tensor, placements of its gradient):
-    tp shards stay, other axes replicate; the gradient is a partial sum
-    over the live batch axes."""
+    tp and ep shards stay, other axes replicate; the gradient is a
+    partial sum over the live batch axes."""
     from torch.distributed.tensor import Partial, Replicate
     mesh = p.device_mesh
     names = mesh.mesh_dim_names
     compute, grad = [], []
     for a, pl, n in zip(names, p.placements, mesh.mesh.shape):
-        keep = pl if a == "tp" else Replicate()
+        keep = pl if a in LOCAL_AXES else Replicate()
         compute.append(keep)
         grad.append(Partial() if a in GRAD_SUM_AXES and n > 1 else keep)
     return compute, grad
@@ -214,21 +222,28 @@ def materialize(root: nn.Module) -> Dict[str, torch.Tensor]:
         if not is_sharded(p):
             continue
         compute, grad = _compute_placements(p)
-        t = p.redistribute(p.device_mesh, compute).to_local(
+        out[name] = p.redistribute(p.device_mesh, compute).to_local(
             grad_placements=grad)
-        owner, attr = _owner(root, name)
-        owner.__dict__[attr] = t
-        out[name] = t
+    bind(root, out)
     return out
 
 
+def bind(root: nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
+    """Install ``tensors`` ({parameter name: tensor}) as instance
+    attributes of their modules: a module's code then reads them in
+    place of its parameters until :func:`release`."""
+    for name, t in tensors.items():
+        owner, attr = _owner(root, name)
+        owner.__dict__[attr] = t
+
+
 def release(root: nn.Module) -> None:
-    """Drop the compute tensors :func:`materialize` installed (they hold
-    gathered fsdp shards and the last step's graph)."""
-    for name, p in root.named_parameters():
-        if is_sharded(p):
-            owner, attr = _owner(root, name)
-            owner.__dict__.pop(attr, None)
+    """Drop the tensors :func:`materialize` and :func:`bind` installed
+    (compute tensors hold gathered fsdp shards and the last step's
+    graph)."""
+    for name, _ in root.named_parameters():
+        owner, attr = _owner(root, name)
+        owner.__dict__.pop(attr, None)
 
 
 def map_local(t, fn):

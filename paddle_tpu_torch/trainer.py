@@ -43,11 +43,20 @@ the local shards. Every rank takes part in a checkpoint (rank 0 writes
 it), and the ranks agree on a preemption at a logging boundary and exit
 on the same step.
 
+With pp > 1 on the mesh and a model that has ``pipeline_functional``,
+the step is the JAX trainer's pipeline step: the gradient-accumulation
+microbatches [M, b, s] (a [b, s] batch is one) go through the 1F1B
+schedule of ``parallel.pipeline``, or the interleaved one when
+``virtual_pp_degree > 1``; the loss head runs on the last stage (the
+default causal-LM loss, or ``logits_loss``), and every rank gets the
+whole flat gradient, so the optimizer and the checkpoint see the usual
+parameters. Under ep each rank multiplies its own experts
+(``parallel.moe``). Checkpoints hold whole tensors under flat names, so
+a run saved on any mesh resumes on any other.
+
 Still raising ``NotImplementedError``, never skipped silently: the
 compile cache (``compile_cache_dir``) and ``aot_warmup``, which have no
-counterpart in an eager step yet, the interleaved pipeline
-(``virtual_pp_degree > 1``), and a mesh with pipeline (pp) or expert (ep)
-parallelism.
+counterpart in an eager step yet.
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ from .io.device_prefetch import DevicePrefetcher, default_device_put
 from .nn import functional as F
 from .optimizer.optimizers import Optimizer
 from .parallel import sharding
+from .parallel.pipeline import pipeline_grads
 from .utils import faults
 from .utils import observability as obs
 from .utils.logging import LogWriter
@@ -81,8 +91,8 @@ NEXT_SLICE = "a later slice of the port"
 @dataclass
 class TrainingArguments:
     """The JAX package's ``TrainingArguments``: same fields, same
-    defaults, same meaning. ``compile_cache_dir``, ``aot_warmup`` and
-    ``virtual_pp_degree > 1`` raise when set (see the module docstring).
+    defaults, same meaning. ``compile_cache_dir`` and ``aot_warmup``
+    raise when set (see the module docstring).
     Fields that nothing here reads, kept so that arguments written for the
     JAX trainer construct unchanged: ``donate_state`` (XLA buffer
     donation: the update here is in place already, and a checkpoint
@@ -144,6 +154,10 @@ class Trainer:
         self.args = args or TrainingArguments()
         if loss_fn is not None and logits_loss is not None:
             raise ValueError("pass loss_fn OR logits_loss, not both")
+        # the pipeline step can only take a loss head (logits_loss): a
+        # whole-model loss_fn cannot be split onto the stages
+        self._default_loss = loss_fn is None
+        self._logits_loss = logits_loss
         if loss_fn is not None:
             self.loss_fn = loss_fn
         elif logits_loss is not None:
@@ -184,20 +198,13 @@ class Trainer:
         self._data_feed = None
         self.step_timer: Optional[StepTimer] = None
         self._derived_flops: Optional[float] = None
+        self._pipeline = None
 
     def _check_supported(self):
         a = self.args
         off = {"compile_cache_dir (the compile cache)":
                    a.compile_cache_dir is not None,
-               "aot_warmup": a.aot_warmup,
-               "virtual_pp_degree > 1 (the interleaved pipeline)":
-                   a.virtual_pp_degree > 1}
-        if denv.has_mesh():
-            shape = denv.get_mesh().shape
-            off["a mesh with pp > 1 (pipeline parallel)"] = \
-                shape.get("pp", 1) > 1
-            off["a mesh with ep > 1 (expert parallel)"] = \
-                shape.get("ep", 1) > 1
+               "aot_warmup": a.aot_warmup}
         on = [k for k, v in off.items() if v]
         if on:
             raise NotImplementedError(
@@ -297,12 +304,60 @@ class Trainer:
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return bool(t.item())
 
+    def _build_pipeline(self):
+        """The pipeline step's ``vag(flat_params, tokens)`` when the mesh
+        has pp > 1 and the model ``pipeline_functional`` (the JAX
+        trainer's pp path, with its refusals), else None."""
+        pp = denv.axis_degree("pp")
+        if pp == 1 or not hasattr(self.model, "pipeline_functional"):
+            return None
+        if len(self._trainable) < len(dict(self.model.named_parameters())):
+            raise ValueError(
+                "frozen parameters (PEFT/LoRA) are not supported on "
+                "the pipeline-parallel path: the 1F1B schedule "
+                "differentiates the full stage stack; run LoRA under "
+                "tp/fsdp/dp instead")
+        if self.scaler is not None:
+            raise ValueError("fp16 GradScaler is not supported with "
+                             "pipeline parallelism (use bf16)")
+        if not self._default_loss:
+            raise ValueError(
+                "a whole-model loss_fn cannot be decomposed onto "
+                "pipeline stages; pass logits_loss=(logits, labels) -> "
+                "scalar instead — it runs at the last stage")
+        return self.model.pipeline_functional(
+            pp, logits_loss=self._logits_loss,
+            vpp=self.args.virtual_pp_degree)
+
+    def _pipeline_step(self, batch, stepno: int):
+        """One pipeline step: this rank's rows of each microbatch through
+        the schedule, the whole flat gradient (on a sharded model the
+        compute tensors' gradients taken back to the DTensor parameters
+        in one backward, summed over the data axes there), then the
+        optimizer. Returns the loss as a device scalar."""
+        if not torch.is_tensor(batch):
+            raise TypeError(
+                "pipeline path expects a token-id array batch "
+                f"[n_micro, b, s] or [b, s], got {type(batch)}")
+        if batch.dim() == 2:  # [b, s] -> single microbatch
+            batch = batch[None]
+        tokens = torch.stack([self._local_batch(mb, self.train_dataloader)
+                              for mb in batch])
+        loss, grads = pipeline_grads(self.model, self._pipeline, tokens,
+                                     self._trainable)
+        with obs.span("optimizer_apply", step=stepno):
+            self.optimizer.apply(self._trainable, grads, self._opt_state,
+                                 stepno)
+        return loss
+
     def _train_step(self, batch, stepno: int):
         """Forward, loss (scaled, with a GradScaler) and gradients per
         microbatch, the mean of the gradients, then the optimizer's clip
         and in-place update; with a GradScaler the unscale, the skip of a
         non-finite step and the move of the scale, all on the device.
         Returns the (mean, unscaled) loss as a device scalar."""
+        if self._pipeline is not None:
+            return self._pipeline_step(batch, stepno)
         params = list(self._trainable.values())
         micro = self._micro_batches(batch)
         scaler, sstate = self.scaler, self._scaler_state
@@ -356,6 +411,7 @@ class Trainer:
             self._try_resume()
         if self.train_dataloader is None:
             raise ValueError("pass train_dataloader")
+        self._pipeline = self._build_pipeline()
         # the feed is built AFTER _try_resume restored the sampler's
         # position. Legacy fallback when no sampler state was restored
         # (plain iterables, checkpoints without meta): replay the stream
@@ -897,16 +953,11 @@ class Trainer:
         """The job may come back with another data-parallel degree: keep
         the effective global batch by recomputing the gradient
         accumulation from the saved dp degree, and log the change, as the
-        JAX trainer does. The parameters and moments are saved whole, so
-        they re-split onto any mesh; a saved mesh with pipeline or expert
-        parallelism is not one the port can resume from."""
+        JAX trainer does. The parameters and moments are saved whole under
+        their flat names, so they re-split onto any mesh, pipeline and
+        expert parallel ones included."""
         if not saved:
             return
-        old_mesh = saved.get("mesh") or {}
-        if old_mesh.get("pp", 1) > 1 or old_mesh.get("ep", 1) > 1:
-            raise NotImplementedError(
-                f"resuming a checkpoint saved on mesh {old_mesh} (pipeline "
-                f"or expert parallel) comes with {NEXT_SLICE}")
         cur_dp = self._dp_degree()
         old_dp = int(saved.get("dp", cur_dp) or cur_dp)
         if old_dp == cur_dp:

@@ -5,6 +5,8 @@ package, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -580,6 +582,8 @@ def test_quant_kernel_one_launch_and_only_the_output(cuda_card, m):
     from torch.profiler import ProfilerActivity, profile
     x, q, s = _quant_case(cuda_card, torch.bfloat16, m, 4096, 1024, 8)
     quant_matmul(x, q, s, 8)
+    # an earlier test's garbage must not be freed inside the measurement
+    gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(cuda_card)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -784,6 +788,7 @@ def test_grid_kernel_one_launch_and_only_the_output(cuda_card):
     rs = np.random.RandomState(34)
     args = _grid_args(cuda_card, torch.bfloat16, rs, GRID_LENS)
     paged_attention(*args)
+    gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(cuda_card)
     out = paged_attention(*args)

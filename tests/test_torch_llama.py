@@ -137,8 +137,17 @@ def test_later_slices_raise_not_implemented():
     # recompute is ported (the training slice): same logits as without
     tm = ptt.LlamaForCausalLM(ptt.llama_tiny(recompute=True), device="cpu")
     assert torch.equal(tm(ids), ref(ids))
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        tm.pipeline_functional(2)
+    # the pipeline step is ported: it refuses what the JAX one refuses
+    with pytest.raises(ValueError, match=r"2 % \(pp\*vpp\) 3"):
+        tm.pipeline_functional(3)
+    tied = ptt.LlamaForCausalLM(ptt.llama_tiny(tie_word_embeddings=True),
+                                device="cpu")
+    with pytest.raises(ValueError, match="untied embeddings"):
+        tied.pipeline_functional(2)
+    # two stages need a mesh whose pp degree is 2
+    with pytest.raises(ValueError, match="pp' degree is 1"):
+        tm.pipeline_functional(2)(dict(tm.named_parameters()),
+                                  ids[None].expand(1, 2, 4))
 
 
 @pytest.mark.parametrize("overrides", [dict(), dict(sliding_window=6)],

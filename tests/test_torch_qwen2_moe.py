@@ -286,9 +286,16 @@ def test_left_padded_generate_raises_as_in_jax(pairs):
 
 
 def test_pipeline_functional_raises(pairs):
-    _, tm = pairs["qwen2-moe"]
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tm.pipeline_functional(2)
+    """The pipeline step is ported; it refuses what the JAX one refuses:
+    dense first layers (DeepSeek-MoE) and layers that do not split into
+    the stages."""
+    for family, pp, match in (("deepseek-moe", 2, "uniform MoE layers"),
+                              ("qwen2-moe", 4, r"% \(pp\*vpp\) 4")):
+        jm, tm = pairs[family]
+        for m in (jm, tm):
+            with pytest.raises(ValueError, match=match):
+                m.pipeline_functional(pp)
+    assert callable(pairs["qwen2-moe"][1].pipeline_functional(2))
 
 
 def test_ernie45_defaults_are_21b_a3b():

@@ -6,8 +6,10 @@ spawned gloo world of 4 ranks, ring, Ulysses and ring flash at sp = 4
 against the JAX functions under ``shard_map`` on 4 of the 8 virtual
 devices (out and gradients; causal and not, GQA, segments and a window,
 the masked delegation; ring flash's own path against the JAX ring's
-block pairs, the same function), and Llama with ``sequence_parallel`` on {"sp":
-2, "dp": 2} against the JAX model on the same mesh. fp32 throughout."""
+block pairs, the same function, and against the JAX ring flash itself,
+run in a spawned process of its own), and Llama with
+``sequence_parallel`` on {"sp": 2, "dp": 2} against the JAX model on the
+same mesh. fp32 throughout."""
 import contextlib
 import functools
 
@@ -260,18 +262,46 @@ def _jax_llama(p):
     return out
 
 
+# the cases the JAX ring flash itself holds (its Pallas kernel in
+# interpret mode, in a process of its own)
+RING_FLASH = ["ring_flash_causal", "ring_flash"]
+
+
+def _start_jax_ring_flash(cases, tmp):
+    """Spawn the JAX ring flash on the RING_FLASH cases; returns (the
+    process, its output file)."""
+    import multiprocessing as mp
+
+    import jax_ring_flash_child
+    path = str(tmp / "jax_ring_flash.npz")
+    proc = mp.get_context("spawn").Process(
+        target=jax_ring_flash_child.run,
+        args=([c for c in cases if c["name"] in RING_FLASH], path))
+    proc.start()
+    return proc, path
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """One world of 4 ranks runs every case (started first, so the JAX
-    references below overlap it); returns (port results by rank, JAX
-    references)."""
+    references below overlap it), and the JAX ring flash its own process;
+    returns (port results by rank, JAX references)."""
     p = _payload()
-    handle = start_world("ring", WORLD, tmp_path_factory.mktemp("ring"), p)
+    tmp = tmp_path_factory.mktemp("ring")
+    handle = start_world("ring", WORLD, tmp, p)
+    proc, path = _start_jax_ring_flash(p["cases"], tmp)
     with _no_cache_writes():
         mesh = Mesh(np.array(jax.devices()[:WORLD]), ("sp",))
         ref = _jax_refs(p["cases"], mesh)
         ref.update({f"llama_{k}": v for k, v in _jax_llama(p).items()})
-    return handle.result(), ref
+    ranks = handle.result()
+    proc.join(timeout=240)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(timeout=10)
+    ref["jax_ring_flash"] = (proc.exitcode, dict(np.load(path))
+                             if proc.exitcode == 0 else None)
+    return ranks, ref
 
 
 def _blocks(ranks, name):
@@ -300,3 +330,17 @@ def test_llama_sequence_parallel_matches_jax(world, name):
     for r in ranks:     # every rank gathered the whole logits
         np.testing.assert_allclose(r[f"llama_{name}"], ref[f"llama_{name}"],
                                    **TOL_LOGITS)
+
+
+@pytest.mark.parametrize("case", RING_FLASH)
+def test_ring_flash_matches_jax_ring_flash(world, case):
+    """The port's ``ring_flash_attention`` at sp = 4 against the JAX
+    package's own ``ring_flash_attention`` (not only its dense ring):
+    out, dq, dk, dv on the same global inputs, causal and not."""
+    ranks, ref = world
+    code, got_jax = ref["jax_ring_flash"]
+    assert code == 0, f"the JAX ring flash process exited with {code}"
+    got = _blocks(ranks, case)
+    for name, a in zip(("out", "dq", "dk", "dv"), got):
+        np.testing.assert_allclose(a, got_jax[f"{case}/{name}"], **TOL,
+                                   err_msg=f"{case} {name}")

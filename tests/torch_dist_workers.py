@@ -418,5 +418,239 @@ def ring_cases(rank, world, p):
     return out
 
 
+# ------------------------------------------------------------- pipeline
+def smoothed_ce(logits, labels, eps=0.1):
+    """A custom loss head (the JAX package's test's label smoothing)."""
+    import torch
+    v = logits.shape[-1]
+    lp = torch.log_softmax(logits[:, :-1], dim=-1)
+    tgt = torch.nn.functional.one_hot(labels[:, 1:], v) * (1 - eps) + eps / v
+    return -(tgt * lp).sum(dim=-1).mean()
+
+
+def _pp_model(kind, cfg, params):
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import models
+    if kind == "moe":
+        m = models.Qwen2MoeForCausalLM(models.qwen2_moe_tiny(**cfg),
+                                       device="cpu")
+    else:
+        m = ptt.LlamaForCausalLM(ptt.llama_tiny(**cfg), device="cpu")
+    return _jax_weights(m, params)
+
+
+def _fleet(mesh_shape, stage=1):
+    from paddle_tpu_torch.distributed import fleet
+    inv = {v: k for k, v in fleet.DistributedStrategy._DEGREE_TO_AXIS.items()}
+    fleet.init(strategy=fleet.DistributedStrategy(
+        hybrid_configs={inv[a]: n for a, n in mesh_shape.items()},
+        sharding_stage=stage), device="cpu")
+
+
+def _rows(x, dim=0):
+    """This rank's rows of a global array over dp x fsdp."""
+    import torch
+    from paddle_tpu_torch.distributed import env
+    deg, coord = env.batch_coordinates()
+    return torch.from_numpy(x).chunk(deg, dim=dim)[coord].contiguous()
+
+
+def pp_value_and_grad(model, tokens, pp, vpp=1, logits_loss=None):
+    """What the Trainer's pipeline step computes before the update: the
+    loss (summed over the data axes) and every parameter's whole
+    gradient, as numpy."""
+    from paddle_tpu_torch.parallel.pipeline import pipeline_grads
+    vag = model.pipeline_functional(pp, logits_loss=logits_loss, vpp=vpp)
+    loss, g = pipeline_grads(model, vag, tokens)
+    return float(loss), {k: _np(v) for k, v in g.items()}
+
+
+def _pp_trainer(mesh_shape, p, out_dir, steps, save_steps=0, vpp=1,
+                accum=2):
+    import torch
+    import paddle_tpu_torch as ptt
+    _fleet(mesh_shape)
+    model = _pp_model("llama", p["cfg"], p["params"]["trainer"])
+    from paddle_tpu_torch.distributed import fleet
+    fleet.distributed_model(model, fsdp_min_size=1 << 30)
+    opt = ptt.optimizer.AdamW(
+        learning_rate=1e-3, weight_decay=0.01,
+        grad_clip=ptt.optimizer.ClipGradByGlobalNorm(1.0))
+    args = ptt.TrainingArguments(output_dir=out_dir, max_steps=steps,
+                                 logging_steps=1, save_steps=save_steps,
+                                 prefetch_depth=0, virtual_pp_degree=vpp,
+                                 gradient_accumulation_steps=accum)
+    tr = ptt.Trainer(model, opt, args, train_dataloader=[
+        torch.from_numpy(b) for b in p["batches"]])
+    tr.train()
+    return tr, model
+
+
+def pipeline_cases(rank, world, p):
+    """pipeline_functional's loss and gradients on the cases of the JAX
+    package's tests/test_pipeline_1f1b.py, the pp path's refusals, the
+    Trainer's pp and vpp steps, and a resume from {"pp": 2, "dp": 2}
+    onto {"dp": 4}."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env, fleet
+    out = {}
+    for c in p["cases"]:
+        _fleet(c["mesh"])
+        model = _pp_model(c["kind"], c["cfg"], p["params"][c["params"]])
+        fleet.distributed_model(model, fsdp_min_size=1 << 30)
+        loss_head = smoothed_ce if c.get("smooth") else None
+        out[c["name"]] = pp_value_and_grad(
+            model, _rows(c["tokens"], dim=1), c["mesh"]["pp"],
+            c.get("vpp", 1), loss_head)
+    # the GPipe forward, and the refusals of the Trainer's pp path
+    _fleet({"pp": 2, "dp": 2})
+    from paddle_tpu_torch.parallel import pipeline_apply
+    out["apply"] = _np(pipeline_apply(
+        lambda prm, x: torch.tanh(x @ prm["w"]),
+        {"w": torch.from_numpy(p["apply"][0])},
+        torch.from_numpy(p["apply"][1])))
+    refusals = {}
+    for key in ("frozen", "scaler", "loss_fn", "dict"):
+        model = _pp_model("llama", p["cfg"], p["params"]["trainer"])
+        kw = {}
+        if key == "frozen":
+            model.model.embed_tokens.weight.requires_grad_(False)
+        if key == "scaler":
+            kw["scaler"] = ptt.amp.GradScaler()
+        if key == "loss_fn":
+            kw["loss_fn"] = lambda m, b: m(b).sum()
+        batches = [{"input_ids": torch.zeros(2, 16, dtype=torch.long)}] \
+            if key == "dict" else [torch.zeros(2, 16, dtype=torch.long)]
+        tr = ptt.Trainer(model, ptt.optimizer.SGD(), ptt.TrainingArguments(
+            output_dir=os.path.join(p["out_dir"], "refuse", str(rank)),
+            max_steps=1, prefetch_depth=0), train_dataloader=batches, **kw)
+        try:
+            tr.train()
+            refusals[key] = None
+        except (ValueError, TypeError) as e:
+            refusals[key] = (type(e).__name__, str(e))
+    out["refusals"] = refusals
+    # the Trainer, 3 steps, 1F1B (saving step 2 for the resume below)
+    # and interleaved
+    shared = os.path.join(p["out_dir"], "resume")
+    for vpp in (1, 2):
+        tr, model = _pp_trainer(
+            {"pp": 2, "dp": 2}, p, shared if vpp == 1 else os.path.join(
+                p["out_dir"], f"vpp{vpp}", str(rank)), 3,
+            save_steps=2 if vpp == 1 else 0, vpp=vpp)
+        out[f"train_vpp{vpp}"] = (_losses(tr), {
+            k: _np(v) for k, v in model.named_parameters()})
+    # resume the 1F1B run's step 2 on {"dp": 4}
+    env.clear_mesh()
+    tr, model = _pp_trainer({"dp": 4}, p, shared, 4, save_steps=2)
+    out["resume"] = (_losses(tr), tr.args.gradient_accumulation_steps,
+                     {k: _np(v) for k, v in model.named_parameters()})
+    return out
+
+
+# ------------------------------------------------------------------- ep
+def _family(kind, cfg, params):
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.models import deepseek_v2 as ds
+    if kind == "deepseek":
+        m = ds.DeepseekV2ForCausalLM(ds.deepseek_v2_tiny(**cfg), device="cpu")
+    else:
+        m = models.Qwen2MoeForCausalLM(models.qwen2_moe_tiny(**cfg),
+                                       device="cpu")
+    return _jax_weights(m, params)
+
+
+def family_loss(kind):
+    """The training objective of ``kind``: moe_lm_loss for Qwen2-MoE,
+    deepseek_mtp_loss for DeepSeek-V2 with its MTP module."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.models import deepseek_v2 as ds
+    if kind == "deepseek":
+        return lambda m, b: ds.deepseek_mtp_loss(*m(b, return_mtp=True), b,
+                                                 weight=0.1)
+    return lambda m, b: models.moe_lm_loss(*m(b, return_aux=True), b)
+
+
+def family_trainer(kind, cfg, params, batches, out_dir, steps,
+                   save_steps=0):
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env, fleet
+    model = _family(kind, cfg, params)
+    if env.has_mesh():
+        fleet.distributed_model(model, fsdp_min_size=1 << 30)
+    opt = ptt.optimizer.AdamW(
+        learning_rate=1e-3, weight_decay=0.01,
+        grad_clip=ptt.optimizer.ClipGradByGlobalNorm(1.0))
+    args = ptt.TrainingArguments(output_dir=out_dir, max_steps=steps,
+                                 logging_steps=1, save_steps=save_steps,
+                                 prefetch_depth=0)
+    tr = ptt.Trainer(model, opt, args, loss_fn=family_loss(kind),
+                     train_dataloader=[torch.from_numpy(b)
+                                       for b in batches])
+    tr.train()
+    return _losses(tr), {k: _np(v) for k, v in model.named_parameters()}
+
+
+def ep_cases(rank, world, p):
+    """MoEMLP on {"ep": 2, "dp": 2} (output, aux, every gradient, the
+    routing, the local expert shards); Qwen2-MoE and DeepSeek-V2 forward
+    on {"dp": 2, "tp": 2}; the Trainer, 3 steps, with moe_lm_loss on
+    {"ep": 2, "dp": 2} (saving step 2) and deepseek_mtp_loss on {"dp": 2,
+    "tp": 2}."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import env, fleet
+    from paddle_tpu_torch.parallel.moe import MoEMLP, top_k_routing
+    from paddle_tpu_torch.parallel.sharding import shard_layer
+    out = {}
+    _fleet({"ep": 2, "dp": 2})
+    mlp = MoEMLP(**p["mlp_kw"], generator=ptt.make_generator(0, "cpu"),
+                 device="cpu")
+    with torch.no_grad():
+        for name, t in mlp.named_parameters():
+            t.copy_(torch.from_numpy(p["mlp"][name]))
+    shard_layer(mlp, fsdp_min_size=1 << 30)
+    x = _rows(p["x"]).requires_grad_(True)
+    y, aux = mlp(x, return_aux=True)
+    n = env.axis_degree(env.BATCH_AXES)
+    obj = (y * _rows(p["go"])).sum() + aux / n
+    params = dict(mlp.named_parameters())
+    grads = torch.autograd.grad(obj, [x] + list(params.values()))
+    out["mlp"] = dict(
+        y=_np(_gathered(y, ())), aux=float(aux),
+        dx=_np(_gathered(grads[0], ())),
+        grads={k: _np(g) for k, g in zip(params, grads[1:])},
+        local={k: tuple(v.to_local().shape) for k, v in params.items()})
+    with torch.no_grad():
+        xg = C._gather(x.detach(), ("dp", "fsdp"), 0).reshape(-1, 32)
+        logits = xg.float() @ mlp.gate.float()
+        dispatch, _, _ = top_k_routing(
+            logits, mlp.top_k, mlp.capacity(xg.shape[0]))
+    out["dispatch"] = _np(dispatch)
+    # the families' forward on {"dp": 2, "tp": 2}
+    _fleet({"dp": 2, "tp": 2})
+    for kind in ("qwen", "deepseek"):
+        model = _family(kind, p["cfgs"][kind], p["params"][kind])
+        fleet.distributed_model(model, fsdp_min_size=1 << 30)
+        with torch.no_grad():
+            logits = model(_rows(p["ids"]))
+        out[f"fwd_{kind}"] = _np(_gathered(logits, ()))
+    # the Trainer (the Qwen2-MoE run saves step 2 for a resume)
+    for kind, mesh in (("qwen", {"ep": 2, "dp": 2}),
+                       ("deepseek", {"dp": 2, "tp": 2})):
+        _fleet(mesh)
+        qwen = kind == "qwen"
+        out[f"train_{kind}"] = family_trainer(
+            kind, p["cfgs"][kind], p["params"][kind], p["batches"],
+            os.path.join(p["out_dir"], "resume") if qwen else
+            os.path.join(p["out_dir"], kind, str(rank)), 3,
+            save_steps=2 if qwen else 0)
+    return out
+
+
 CASES = {"distributed": distributed_cases, "parallel": parallel_cases,
-         "dp4": dp4_cases, "ring": ring_cases}
+         "dp4": dp4_cases, "ring": ring_cases, "pipeline": pipeline_cases,
+         "ep": ep_cases}
