@@ -271,6 +271,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    prove them. The phase's flash, dq, dk/dv and update launches join
    the kernels line's.
 
+14. the serving fleet (``[fleet]`` lines, last): two
+   ``paddle_tpu_torch.serving.fleet.replica_main`` processes spawned
+   together by ``LocalProcessManager`` (``--model llama3-8b --seed``:
+   Llama-3-8B at full width and depth drawn from the seed on the card,
+   ``PagedEngine`` at the gateway phase's geometry, warmed and graphed
+   before the readiness line) behind a ``FleetFrontend`` in this process;
+   the gateway phase's 24 requests through the frontend; once a replica
+   holds two greedy SSE streams mid-flight (8 tokens at the client, 24
+   to go), it is SIGKILLed. Every answer complete (the streamed tokens
+   are the final event's, as many as asked); the streams that never
+   failed over bit for bit a direct ``PagedEngine`` on this process's
+   own model from the same seed (tokens and logprobs); each greedy
+   stream that failed over mid-flight bit for bit that direct engine's
+   resume of its committed prefix (``resume_tokens``; where it departs
+   from the uninterrupted run is printed with the top-2 margin there:
+   the survivor prefills what the dead replica had decoded); at least
+   two such streams; at least ``FLEET_MIN_WARM`` of the 15 prefix
+   followers routed warm by the frontend's counters. Each replica's
+   ragged launches are read from its own ``/debugz`` (the survivor's
+   exactly 32 per decode tick of the traffic, all on the mma route) and
+   join the kernels line's. Printed: cold start, client TTFT p50/p99,
+   tokens/s, failovers and time to resume after the kill; the survivor
+   drains on SIGTERM and exits 0, and no process outlives the phase.
+
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
@@ -288,6 +312,7 @@ import gc
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2311,6 +2336,27 @@ def _phase_split(eng, ticks, label, card):
     return mean
 
 
+def _gateway_traffic(rs, ids):
+    """The gateway's and the fleet's 24 requests: 16 share a 512-token
+    prefix, prompts of 520-900 tokens, 64-128 new, every third one JSON
+    (not streamed), one in six sampled. ``rs``: a numpy RandomState;
+    ``ids(n)``: n seeded token ids."""
+    prefix = ids(512)
+    reqs = []
+    for i in range(24):
+        n_new = int(rs.randint(64, 129))
+        n_prompt = int(rs.randint(520, min(900, PAGED["max_blocks_per_seq"]
+                                           * PAGED["block_size"] - n_new)
+                                  + 1))
+        prompt = prefix + ids(n_prompt - 512) if i < 16 else ids(n_prompt)
+        r = dict(prompt=prompt, max_new_tokens=n_new, request_id=f"g{i}",
+                 stream=i % 3 != 2)
+        if i % 6 == 3:
+            r.update(temperature=0.8, top_p=0.95, seed=3000 + i)
+        reqs.append(r)
+    return reqs
+
+
 def phase_gateway(seed, dev, card, model):
     """Llama-3-8B served over HTTP/SSE by the port's ``Gateway``: two
     replicas on the one model (graphed ticks, ring, tick profiler, prefix
@@ -2345,19 +2391,7 @@ def phase_gateway(seed, dev, card, model):
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_gateway_")
     obs.configure(run_dir)
     geo = dict(PAGED, chunk_prefill_tokens=128, enable_prefix_cache=True)
-    prefix = ids(512)
-    reqs = []
-    for i in range(24):
-        n_new = int(rs.randint(64, 129))
-        n_prompt = int(rs.randint(520, min(900, PAGED["max_blocks_per_seq"]
-                                           * PAGED["block_size"] - n_new)
-                                  + 1))
-        prompt = prefix + ids(n_prompt - 512) if i < 16 else ids(n_prompt)
-        r = dict(prompt=prompt, max_new_tokens=n_new, request_id=f"g{i}",
-                 stream=i % 3 != 2)
-        if i % 6 == 3:
-            r.update(temperature=0.8, top_p=0.95, seed=3000 + i)
-        reqs.append(r)
+    reqs = _gateway_traffic(rs, ids)
     arena = KVSpillArena(1 << 30, name="chip-gateway")
     engines = [PagedEngine(model, tick_profile=True, **geo)
                for _ in range(2)]
@@ -5926,6 +5960,435 @@ def phase_pp_ep(seed, dev, card):
     return launches
 
 
+# the fleet phase: seconds a replica process may take to print its
+# readiness line (a fresh process imports torch, draws Llama-3-8B on the
+# card, loads the kernels and captures its greedy and sampled tick
+# graphs), and seconds the frontend waits for a peer's next line before
+# reading the peer as dead (three processes time-slice the card, and a
+# request's first token waits behind the other requests' prefills)
+FLEET_SPAWN_TIMEOUT_S = 300
+FLEET_PEER_READ_TIMEOUT_S = 120
+# the prefix-sharing requests that must route warm (the ladder's warm or
+# sticky verdict), of the 15 that follow the first: the frontend routes
+# on probe snapshots up to one interval old, and a follower routed after
+# a probe saw the first ones' load spills past ``spill_margin`` by design
+FLEET_MIN_WARM = 12
+
+
+async def _sse_timed(port, payload, units):
+    """One SSE request: (status, final event, t_sent). Each token lands
+    in ``units`` as it arrives, as (token, lp, time.perf_counter())."""
+    import asyncio
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    body = json.dumps(payload).encode()
+    try:
+        writer.write((f"POST /v1/generate HTTP/1.1\r\nHost: t\r\n"
+                      f"Content-Length: {len(body)}\r\n\r\n").encode()
+                     + body)
+        await writer.drain()
+        status = int((await reader.readline()).split()[1])
+        while (await reader.readline()) not in (b"\r\n", b"\n", b""):
+            pass
+        final = None
+        while status == 200:
+            ln = await reader.readline()
+            if not ln:
+                break
+            ln = ln.strip()
+            if not ln.startswith(b"data: "):
+                continue
+            ev = json.loads(ln[6:])
+            if ev.get("done"):
+                final = ev
+                break
+            units.append((ev["token"], ev.get("lp"), time.perf_counter()))
+        return status, final, t0
+    finally:
+        writer.close()
+        try:
+            await writer.wait_closed()
+        except Exception:
+            pass
+
+
+def _replica_doc(peer, path):
+    """A replica gateway's JSON answer on ``path``, read by the fleet's
+    own adapter (the replica's side of the counts)."""
+    return peer._get_json(path)
+
+
+def _ragged_of(debugz):
+    k = debugz.get("kernel_launches", {}).get("ragged_paged_attention") \
+        or {"launches": 0, "by_route": {}}
+    return k["launches"], dict(k["by_route"])
+
+
+def _taken(routes):
+    return {r for r, n in routes.items() if n}
+
+
+def _prefix_hits(healthz):
+    return sum(int(r["engine"].get("prefix_hit_tokens", 0))
+               for r in healthz["replicas"].values())
+
+
+def _decode_steps(healthz):
+    return sum(int(r["engine"].get("decode_steps", 0))
+               for r in healthz["replicas"].values())
+
+
+def phase_fleet(seed, dev, card):
+    """The serving fleet on the one card: two ``replica_main`` processes,
+    each Llama-3-8B at full width and depth from ``seed`` through the
+    ``PagedEngine`` at the gateway phase's geometry, spawned by
+    ``LocalProcessManager`` behind a ``FleetFrontend`` in this process;
+    the gateway phase's 24 requests through the frontend; one replica
+    SIGKILLed while at least two greedy SSE streams on it are mid-flight.
+    Every stream against a direct engine on this process's own model
+    from the same seed: bit for bit where nothing failed over, and where
+    a stream failed over, bit for bit the direct engine's own resume of
+    the committed prefix (the survivor prefills what the dead replica
+    had decoded, so its logits are not the uninterrupted run's bits; how
+    far the tokens agree with the uninterrupted run is printed). Each
+    replica's ragged launches are read from its ``/debugz``. Returns the
+    ragged launches the replicas made in the traffic."""
+    import asyncio
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.serving.fleet import (FleetFrontend,
+                                                LocalProcessManager)
+    from paddle_tpu_torch.serving.fleet.replica_main import \
+        llama3_8b_engine_kw
+    t_phase = time.perf_counter()
+    client = _tests_module("test_torch_gateway_gpu")
+    cfg = ptt.llama3_8b()
+    L = cfg.num_hidden_layers
+    geo = dict(PAGED, chunk_prefill_tokens=128, enable_prefix_cache=True)
+    if llama3_8b_engine_kw() != geo:
+        fail(f"fleet: replica_main's llama3-8b geometry "
+             f"{llama3_8b_engine_kw()} is not the gateway phase's {geo}")
+    rs = np.random.RandomState(seed + 30)
+    gen = ptt.make_generator(seed + 31, "cpu")
+    reqs = _gateway_traffic(
+        rs, lambda n: torch.randint(0, cfg.vocab_size, (n,),
+                                    generator=gen).tolist())
+    by_id = {r["request_id"]: r for r in reqs}
+    greedy_sse = {r["request_id"] for r in reqs
+                  if r["stream"] and "temperature" not in r}
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    fe = FleetFrontend([], chunk_tokens=128, name="chip-fleet",
+                       peer_read_timeout_s=FLEET_PEER_READ_TIMEOUT_S)
+    mgr = LocalProcessManager(fe, model="llama3-8b", chunk_tokens=128,
+                              seed=seed,
+                              spawn_timeout_s=FLEET_SPAWN_TIMEOUT_S,
+                              probe_interval_s=0.25, stale_after_s=10.0,
+                              log_dir=log_dir)
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            spawns = [pool.submit(mgr.spawn) for _ in range(2)]
+            try:
+                peers = [f.result() for f in spawns]
+            except Exception as e:
+                for name in os.listdir(log_dir):
+                    with open(os.path.join(log_dir, name)) as f:
+                        log(f"[fleet] {name}: ...{f.read()[-3000:]}")
+                fail(f"fleet: a replica did not start: {e!r}")
+        cold_s = time.perf_counter() - t0
+        procs = dict(mgr.procs)
+        base, hit0 = {}, {}
+        for p in peers:
+            hz = _replica_doc(p, "/healthz")
+            base[p.name] = (_ragged_of(_replica_doc(p, "/debugz"))[0],
+                            _decode_steps(hz))
+            hit0[p.name] = _prefix_hits(hz)
+        log(f"[fleet] two replica_main processes (--model llama3-8b "
+            f"--seed {seed}: PagedEngine({geo}), warmed and graphed "
+            f"before ready) up in {cold_s:.1f} s, spawned together; card "
+            f"memory free before {free / 2**30:.1f} of "
+            f"{total / 2**30:.1f} GiB; ragged launches and decode ticks "
+            f"of the warm-up {base} [{card}]")
+        results, wall, kill, end_docs, hz_fe, ring = asyncio.run(
+            _fleet_traffic(fe, mgr, reqs, greedy_sse, client))
+        # the direct engine on this process's own model, from the seed
+        model = ptt.LlamaForCausalLM(cfg, device=dev,
+                                     generator=ptt.make_generator(seed,
+                                                                  dev))
+        direct = PagedEngine(model, **geo)
+        for r in reqs:
+            kw = {k: v for k, v in r.items()
+                  if k not in ("prompt", "request_id", "stream")}
+            direct.submit(r["request_id"], torch.as_tensor(r["prompt"]),
+                          **kw)
+        ref = direct.run()
+        ref_lps = dict(direct.logprobs)
+        committed = {}
+        for e in ring:
+            offs = [f for _, k, f in e.get("events", ())
+                    if k == "resume_offset"]
+            if e.get("failovers"):
+                committed[e["request_id"]] = offs[-1]["committed"] \
+                    if offs else 0
+        # time to resume: the kill to the first token the survivor
+        # produced (the one after the committed prefix)
+        resume_ms = sorted(
+            (results[rid]["times"][c] - kill["t_kill"]) * 1e3
+            for rid, c in committed.items()
+            if rid in greedy_sse and 0 < c < len(results[rid]["times"]))
+        resumed = {}
+        for rid, c in committed.items():
+            r = by_id[rid]
+            if c and "temperature" not in r:
+                done = ref[rid][:c]
+                direct.submit(f"{rid}.resume",
+                              torch.as_tensor(r["prompt"] + done),
+                              max_new_tokens=r["max_new_tokens"] - c,
+                              resume_tokens=done,
+                              resume_lps=ref_lps[rid][:c])
+        if any(c and "temperature" not in by_id[rid]
+               for rid, c in committed.items()):
+            out = direct.run()
+            for rid in committed:
+                if f"{rid}.resume" in out:
+                    resumed[rid] = (out[f"{rid}.resume"],
+                                    direct.logprobs[f"{rid}.resume"])
+        _fleet_check(reqs, results, ref, ref_lps, committed, resumed,
+                     kill, greedy_sse, model, card)
+        cached = {kill["peer"]: _prefix_hits(kill["healthz"]),
+                  end_docs["peer"]: _prefix_hits(end_docs["healthz"])}
+        log(f"[fleet] prefix_hit_tokens in the traffic by replica "
+            f"{ {k: v - hit0[k] for k, v in cached.items()} } (the killed "
+            f"one's up to the kill; requests admitted together cannot "
+            f"adopt a prefix none of them has prefilled yet)")
+        # the replicas' own counts
+        survivor = end_docs["peer"]
+        launched = {}
+        n0, s0 = base[kill["peer"]]
+        launched[kill["peer"]] = kill["ragged"] - n0
+        n1, routes1 = _ragged_of(end_docs["debugz"])
+        s1 = _decode_steps(end_docs["healthz"])
+        b_n, b_s = base[survivor]
+        launched[survivor] = n1 - b_n
+        if n1 - b_n != L * (s1 - b_s) or _taken(routes1) != {"mma"} \
+                or kill["ragged"] % L or not kill["ragged"] > n0 \
+                or _taken(kill["routes"]) != {"mma"}:
+            fail(f"fleet: replica ragged launches: survivor {n1 - b_n} in "
+                 f"{s1 - b_s} ticks (want {L} x ticks, by route "
+                 f"{routes1}); killed replica {kill['ragged']} by route "
+                 f"{kill['routes']} (since warm-up {kill['ragged'] - n0})")
+        log(f"[fleet] ragged launches read from each replica's /debugz "
+            f"(hand-written ragged_mma_kernel, by route): killed "
+            f"{kill['peer']} {kill['ragged'] - n0} in the traffic up to "
+            f"the kill ({kill['routes']}, {kill['ragged']} since the "
+            f"process began); survivor {survivor} {n1 - b_n} = {L} x "
+            f"{s1 - b_s} ticks ({routes1}) [{card}]")
+        ttft = np.array([v["ttft_ms"] for v in results.values()
+                         if v["ttft_ms"] is not None])
+        new_tokens = sum(len(v["tokens"]) for v in results.values())
+        log(f"[fleet] 24 requests through the FleetFrontend (16 SSE, 8 "
+            f"JSON, 4 sampled; 16 share a 512-token prefix; prompts "
+            f"520-900, 64-128 new): {new_tokens} new tokens in "
+            f"{wall:.2f} s, {new_tokens / wall:.1f} new tokens/s; client "
+            f"TTFT (SSE) p50 {np.percentile(ttft, 50):.1f} ms p99 "
+            f"{np.percentile(ttft, 99):.1f} ms; frontend failovers "
+            f"{hz_fe['peer_failovers']}, retry budget exhausted "
+            f"{hz_fe['retry_budget_exhausted']}; time to resume after the "
+            f"SIGKILL (the kill to each mid-stream greedy stream's first "
+            f"token from the survivor) {[round(x, 1) for x in resume_ms]} "
+            f"ms, median {np.median(resume_ms):.1f} ms; one card "
+            f"time-sliced by three processes [{card}]")
+        # the survivor drains on SIGTERM and exits 0; the killed one is
+        # gone
+        t0 = time.perf_counter()
+        mgr.stop_all(grace_s=60.0)
+        for p in procs.values():
+            p.wait(10)
+        rcs = {n: p.returncode for n, p in procs.items()}
+        log(f"[fleet] survivor drained by SIGTERM in "
+            f"{time.perf_counter() - t0:.1f} s; replica exit codes {rcs}; "
+            f"phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+        if rcs[survivor] != 0 or rcs[kill["peer"]] != -signal.SIGKILL:
+            fail(f"fleet: replica exit codes {rcs} (want 0 for the "
+                 f"drained survivor, -9 for the killed one)")
+        return sum(launched.values())
+    finally:
+        # nothing outlives the phase, whatever failed
+        mgr.stop_all(grace_s=10.0)
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+async def _fleet_traffic(fe, mgr, reqs, greedy_sse, client):
+    """Send the requests through ``fe``; SIGKILL the first replica seen
+    holding two greedy SSE streams mid-flight (each with 8 tokens at the
+    client and at least 24 to go); wait for every answer; read the
+    survivor's counts once it idles. Returns (results, wall s, the
+    kill's record, the survivor's docs, the frontend's /healthz, its
+    trace ring)."""
+    import asyncio
+    loop = asyncio.get_running_loop()
+    await fe.start()
+    live = {r["request_id"]: [] for r in reqs}
+    results = {}
+
+    async def one(r):
+        rid = r["request_id"]
+        if r["stream"]:
+            st, fin, t0 = await _sse_timed(fe.port, r, live[rid])
+            units = live[rid]
+            results[rid] = dict(
+                status=st, final=fin or {},
+                tokens=[u[0] for u in units],
+                times=[u[2] for u in units],
+                ttft_ms=(units[0][2] - t0) * 1e3 if units else None)
+        else:
+            st, _, payload = await client.http(
+                fe.port, "POST", "/v1/generate", json.dumps(r).encode())
+            fin = json.loads(payload)
+            results[rid] = dict(status=st, final=fin,
+                                tokens=fin.get("tokens"), ttft_ms=None)
+
+    async def watch():
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            cands = []
+            for p in list(fe.peers):
+                doc = await loop.run_in_executor(None, _replica_doc, p,
+                                                 "/debugz")
+                slots = [s for rep in doc["replicas"].values()
+                         for s in (rep.get("engine") or {}).get("slots")
+                         or () if s]
+                mid = [s["request_id"] for s in slots
+                       if s["request_id"] in greedy_sse
+                       and s["remaining_budget"] >= 24
+                       and len(live[s["request_id"]]) >= 8]
+                if len(mid) >= 2:
+                    cands.append((len(slots), p.name, p, doc, mid))
+            if cands:
+                _, name, p, doc, mid = min(cands, key=lambda c: c[:2])
+                hz = await loop.run_in_executor(None, _replica_doc, p,
+                                                "/healthz")
+                n, routes = _ragged_of(doc)
+                router = fe.healthz()["router"]
+                t_kill = time.perf_counter()
+                if mgr.kill(name) != name:
+                    raise RuntimeError(f"fleet: could not kill {name}")
+                return dict(peer=name, ragged=n, routes=routes, mid=mid,
+                            t_kill=t_kill, healthz=hz, router=router)
+            await asyncio.sleep(0.05)
+        raise RuntimeError("fleet: no replica held two greedy streams "
+                           "mid-flight")
+
+    t0 = time.perf_counter()
+    tasks = [asyncio.ensure_future(one(r)) for r in reqs]
+    kill = await watch()
+    await asyncio.gather(*tasks)
+    wall = time.perf_counter() - t0
+    ring = fe.ring.snapshot()
+    survivor = next(p for p in fe.peers if p.name != kill["peer"])
+    deadline = time.monotonic() + 30
+    while True:
+        hz = await loop.run_in_executor(None, _replica_doc, survivor,
+                                        "/healthz")
+        idle = all(not r["engine"]["active_slots"]
+                   and not r["engine"]["queued"]
+                   for r in hz["replicas"].values())
+        if idle or time.monotonic() > deadline:
+            break
+        await asyncio.sleep(0.1)
+    dz = await loop.run_in_executor(None, _replica_doc, survivor, "/debugz")
+    hz = await loop.run_in_executor(None, _replica_doc, survivor,
+                                    "/healthz")
+    hz_fe = fe.healthz()
+    await fe.drain()
+    return (results, wall, kill,
+            dict(peer=survivor.name, debugz=dz, healthz=hz), hz_fe, ring)
+
+
+def _fleet_check(reqs, results, ref, ref_lps, committed, resumed, kill,
+                 greedy_sse, model, card):
+    """Every answer complete (no token missing or repeated: the streamed
+    tokens are the final event's, as many as asked); the streams that
+    never failed over, and the JSON ones that restarted from nothing,
+    bit for bit the direct engine's; each greedy stream that failed over
+    mid-flight bit for bit the direct engine's resume of its committed
+    prefix; at least two such streams; the prefix-sharing requests
+    routed warm; the shared prefix hit a replica's cache."""
+    by_id = {r["request_id"]: r for r in reqs}
+    bad = []
+    moved = []
+    for r in reqs:
+        rid = r["request_id"]
+        res = results[rid]
+        fin = res["final"]
+        toks = res["tokens"]
+        if res["status"] != 200 or fin.get("finish_reason") != "stop" \
+                or fin.get("tokens") != toks \
+                or len(toks) != r["max_new_tokens"]:
+            fail(f"fleet {rid}: status {res['status']}, finish "
+                 f"{fin.get('finish_reason')}, {len(toks or ())} tokens "
+                 f"streamed against {len(fin.get('tokens') or ())} in the "
+                 f"final event, {r['max_new_tokens']} asked")
+        if "temperature" in r and rid in committed:
+            continue        # a sampled failover re-derives its seed
+        c = committed.get(rid, 0)
+        if c == 0:
+            if toks != ref[rid] or fin["logprobs"] != ref_lps[rid]:
+                bad.append(rid)
+            continue
+        want, want_lps = resumed[rid]
+        same = toks == want and fin["logprobs"] == want_lps
+        if not same:
+            bad.append(rid)
+        if rid in greedy_sse and c < r["max_new_tokens"]:
+            k = next((i for i, (a, b) in enumerate(zip(toks, ref[rid]))
+                      if a != b), None)
+            margin = None if k is None else _divergence(
+                model, r["prompt"], toks, ref[rid])[1]
+            moved.append((rid, c, k, margin))
+    if bad:
+        for rid in bad:
+            if "temperature" not in by_id[rid] and rid not in committed:
+                i, margin, _, _ = _divergence(
+                    model, by_id[rid]["prompt"], results[rid]["tokens"],
+                    ref[rid])
+                log(f"[fleet] stream {rid} first differs from the direct "
+                    f"engine's at token {i}: top-2 margin there "
+                    f"{margin:.4f} [{card}]")
+        fail(f"fleet: streams differ from the direct engine's: {bad}")
+    hits = kill["router"]["prefix_route_hits"]
+    log(f"[fleet] killed {kill['peer']} with greedy streams {kill['mid']} "
+        f"mid-flight; failed over mid-stream and finished on the survivor "
+        f"bit for bit the direct engine's resume of their committed "
+        f"prefix: " + ", ".join(
+            f"{rid} at token {c} ("
+            + ("whole stream equal to the uninterrupted run"
+               if k is None else
+               f"first token unlike the uninterrupted run's at {k}, top-2 "
+               f"margin there {m:.4f}") + ")"
+            for rid, c, k, m in moved)
+        + f"; the other {len(reqs) - len(moved)} streams bit for bit the "
+        f"direct engine's; prefix routes at the kill: {hits} warm or "
+        f"sticky, {kill['router']['prefix_route_misses']} cold [{card}]")
+    if len(moved) < 2:
+        fail(f"fleet: {len(moved)} greedy streams failed over mid-flight "
+             f"(want at least 2)")
+    if hits < FLEET_MIN_WARM:
+        fail(f"fleet: {hits} prefix-sharing requests routed warm (want "
+             f"at least {FLEET_MIN_WARM} of 15)")
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6010,6 +6473,9 @@ def main():
     for key, n in phase_pp_ep(args.seed, dev, card).items():
         if key in ("flash", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw"):
             launches[key] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["ragged"] += phase_fleet(args.seed, dev, card)
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,

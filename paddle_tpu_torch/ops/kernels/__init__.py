@@ -74,6 +74,8 @@ def stream_of(t: torch.Tensor) -> int:
 
 _count_lock = threading.Lock()
 _capture = threading.local()
+# every wrapper that has counted a launch in this process, by name
+_counted: Dict[str, Any] = {}
 
 
 def count_launch(fn, route: str) -> None:
@@ -108,10 +110,21 @@ def add_launches(counts) -> None:
     calling the wrappers)."""
     with _count_lock:
         for fn, (n, by_route) in counts.items():
+            _counted.setdefault(fn.__name__, fn)
             fn.launches += n
             for route, k in by_route.items():
                 fn.launches_by_route[route] = \
                     fn.launches_by_route.get(route, 0) + k
+
+
+def launch_counts() -> Dict[str, Dict[str, Any]]:
+    """This process's launches so far, by wrapper name: ``{name:
+    {"launches": n, "by_route": {route: n}}}`` for every wrapper that has
+    counted one (a serving process reports them in ``/debugz``)."""
+    with _count_lock:
+        return {name: {"launches": int(fn.launches),
+                       "by_route": dict(fn.launches_by_route)}
+                for name, fn in sorted(_counted.items())}
 
 
 _workspaces: Dict[Tuple[str, int], Tuple[torch.Tensor, torch.Tensor]] = {}

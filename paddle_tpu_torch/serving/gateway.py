@@ -69,6 +69,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..ops.kernels import launch_counts
 from ..utils import faults
 from ..utils import observability as obs
 from ..utils.faults import BackpressureError
@@ -1539,6 +1540,9 @@ class Gateway:
                 "slo": self._slo.snapshot()
                 if self._slo is not None else None,
             },
+            # this process's hand-written kernel launches so far (a
+            # fleet reads its replicas' counts here)
+            "kernel_launches": launch_counts(),
         }
 
     # ------------------------------------------------------------- health

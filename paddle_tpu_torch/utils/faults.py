@@ -1,7 +1,7 @@
 """Deterministic fault injection + retry/backoff (chaos hardening): the
 port's copy of ``paddle_tpu/utils/faults.py``, with the registry listing
 only the sites the port wires (training, data loading and checkpoints,
-the eager collectives, serving, the spill tier, the KV wire).
+the eager collectives, serving, the fleet, the spill tier, the KV wire).
 
 The optimistic halves of fault tolerance (StepWatchdog, elastic
 supervise, orbax auto-resume) only matter if the recovery paths they
@@ -152,6 +152,49 @@ SITES: Dict[str, Tuple[str, str]] = {
         "on the replica's tick thread (degraded-host stand-in; the "
         "watchdog must NOT fire below its deadline, and least-loaded "
         "routing shifts traffic off the slow replica)"),
+    # --- fleet chaos: remote-replica sites wired into the fleet
+    # frontend's proxy path and the peer prober (the remote analogues
+    # of tick_crash/slow_replica), and the frontend tier's own failure
+    # modes, exercised by the fleet sim's chaos schedules and the load
+    # generator's --frontend-kill
+    "peer_conn_drop": (
+        "paddle_tpu_torch/serving/fleet/frontend.py:"
+        "FleetFrontend._proxy_stream",
+        "sever the frontend->peer connection of an in-flight proxied "
+        "stream (peer gateway process death / network partition "
+        "stand-in; exercises the fleet failover path: resubmit "
+        "prompt+committed on a surviving peer, greedy streams stay "
+        "bitwise the uninterrupted run)"),
+    "peer_slow": (
+        "paddle_tpu_torch/serving/fleet/remote.py:"
+        "RemoteReplica._probe_once",
+        "sleep PADDLE_TPU_FAULT_PEER_SLOW_S (default 0.05) in a remote "
+        "replica's health/gossip probe (congested peer stand-in; the "
+        "staleness bound must evict a peer whose probes stop landing, "
+        "never wedge the router)"),
+    "frontend_conn_drop": (
+        "paddle_tpu_torch/serving/fleet/frontend.py:"
+        "FleetFrontend._proxy_stream",
+        "sever the CLIENT->frontend leg of an in-flight proxied "
+        "stream (frontend process death stand-in; the client holds "
+        "only its committed prefix and must resume against a "
+        "surviving sibling frontend via resume_tokens — zero lost, "
+        "zero duplicated committed tokens)"),
+    "gossip_partition": (
+        "paddle_tpu_torch/serving/fleet/remote.py:"
+        "RemoteReplica._probe_once",
+        "partition the GOSSIP channel only: the health leg lands but "
+        "digest/metrics fetches are dropped (also severs "
+        "frontend<->frontend /gossipz links in serving/fleet/ha.py); "
+        "peers stay routable while warm routing degrades toward "
+        "least-loaded — a partition must never read as an outage"),
+    "peer_storm": (
+        "paddle_tpu_torch/serving/fleet/remote.py:probe_delay",
+        "collapse the seeded probe-round jitter to zero delay so "
+        "every armed peer's next round fires NOW (thundering-herd "
+        "stand-in at N frontends x M peers; the fleet sim's "
+        "probe-storm schedule arms it and must page, while the "
+        "jittered clean twin stays quiet)"),
     # --- KV spill tier chaos: the host-RAM arena's own failure modes,
     # wired inside KVSpillArena so every producer (eviction spill,
     # drain spill) and consumer (warm-miss restore) inherits them

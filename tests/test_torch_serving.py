@@ -16,7 +16,7 @@ guards the copies against drift.
   documents (each package's validator accepts both);
 - ``utils/faults.py``: spec parsing, occurrence addressing, seeded
   probabilistic fires, the backoff schedule; the port's registry is the
-  JAX one's serving, spill and wire sites, each wired in the port;
+  JAX one's serving, fleet, spill and wire sites, each wired in the port;
 - ``serving/kvxfer.py``: the wire bytes and every rung of the decode
   ladder, both directions;
 - ``serving/kvspill.py``: one arena script.
@@ -380,7 +380,9 @@ def test_port_sites_are_jax_sites_wired_in_the_port():
             "prefetch_stall", "collective_fail",
             "tick_crash", "dispatch_hang", "replica_drop", "stream_stall",
             "slow_replica", "spill_corrupt", "spill_slow", "spill_drop",
-            "xfer_corrupt", "xfer_trunc", "xfer_slow"} == set(faults.SITES)
+            "xfer_corrupt", "xfer_trunc", "xfer_slow",
+            "peer_conn_drop", "peer_slow", "frontend_conn_drop",
+            "gossip_partition", "peer_storm"} == set(faults.SITES)
     for site, (where, what) in faults.SITES.items():
         path = where.split(":")[0]
         assert path.startswith("paddle_tpu_torch/"), site
