@@ -295,6 +295,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens/s, failovers and time to resume after the kill; the survivor
    drains on SIGTERM and exits 0, and no process outlives the phase.
 
+15. tensor-parallel serving (``[tp]`` lines, last): (a) the flash
+   forward, decode and ragged (T = 1 and the verify's T = 5) kernels at
+   every per-rank head count tp serving gives them (Llama-3-70B's 64
+   query over 8 kv heads at tp 2, 4 and 8, Llama-3-8B's 32 over 8 at tp
+   8: 32/4, 16/2, 8/1 and 4/1 a rank), bf16, against their plain
+   versions (``TOL_BF16``), each launch on its tensor-core route by count
+   (the ragged kernel once per query window of 32 rows), and their times
+   beside the plain versions, SDPA and the bound; the quant kernel at
+   Llama-3-70B's per-rank projections at tp 4 (``TP_QUANT``: column
+   shards, the fused qkv and gate_up, and the row layers through the
+   wrapper's offset into the whole scales table), int8 and int4, m 4
+   and 16, against its plain version, timed beside a bf16 matmul on the
+   dequantized weight and the bound; (b) Llama-3-8B at full width and
+   depth, twice from the seed: one plain, one sharded on a world-one
+   NCCL mesh (``{"tp": 1}``) and bound once (``bind_static``), through
+   ``Predictor.generate`` (4 x 512 + ``TP_NEW``, the counts set to 0 just
+   before the sharded run and read just after: flash 32, decode 32 x
+   (``TP_NEW`` - 1) from the step graph) and the ``PagedEngine`` (chunked
+   prefill 128, the prefix cache, a 384-token shared prefix, one sampled
+   request of 8, then ``spec_tokens=4``; one graph replay a tick, ragged
+   once per layer and tick): tokens (and the engine's logprobs) bit for
+   bit the plain model's, step and tick times in turns, one schedule
+   digest's host cost (the tp > 1 check's hash; its gloo all-gather
+   needs two ranks); (c) ``fuse_projections`` on the
+   sharded model in bf16 (its step graph's kernel count and step time
+   against the unfused model's, its greedy streams re-scored by the
+   unfused model within ``TOL_TEACHER``) and in int8 (the plain model
+   sharded and quantized by ``Predictor``: 224 quant nodes a step
+   unfused, 128 fused, the unfused streams re-scored by the fused model
+   within ``TOL_TEACHER``). At tp 1 every tp collective is the identity:
+   the graphs hold no collective, and tp > 1 is proved by the CPU gloo
+   tests. The phase's flash, decode, ragged and quant launches join the
+   kernels line's.
+
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
@@ -6389,6 +6423,487 @@ def _fleet_check(reqs, results, ref, ref_lps, committed, resumed, kill,
         fail(f"fleet: {hits} prefix-sharing requests routed warm (want "
              f"at least {FLEET_MIN_WARM} of 15)")
 
+# phase 15: tensor-parallel serving. The per-rank head counts (query
+# heads, kv heads) tp serving launches the attention kernels at:
+# Llama-3-70B (64 q over 8 kv) at tp 2, 4 and 8, Llama-3-8B (32 over 8)
+# at tp 8
+TP_HEADS = {"70B tp 2": (32, 4), "70B tp 4": (16, 2), "70B tp 8": (8, 1),
+            "8B tp 8": (4, 1)}
+TP_FLASH = (4, 512)                      # b, s of generate()'s prefill
+TP_DECODE = (4, 640)                     # b, T of its static cache
+# Llama-3-70B's per-rank projections at tp 4: (label, din of the rank's
+# codes, dout of the rank's codes, scale blocks of the whole table, the
+# rank whose offset is read); row layers keep the whole scales table and
+# read their rank's blocks (the last rank's, the largest offset)
+TP_QUANT = (("q col", 8192, 2048, 64, 0),
+            ("k/v col", 8192, 256, 64, 0),
+            ("gate/up col", 8192, 7168, 64, 0),
+            ("o row", 2048, 8192, 64, 3),
+            ("down row", 7168, 8192, 224, 3),
+            ("qkv fused col", 8192, 2560, 64, 0),
+            ("gate_up fused col", 8192, 14336, 64, 0))
+TP_NEW = 64          # generate()'s new tokens in the tp phase (the slice: 128)
+
+
+def _tp_attention(gen, dev, card):
+    """(a) The flash forward, decode and ragged kernels (T = 1 and 5) at
+    every per-rank head count of ``TP_HEADS``, bf16, against their plain
+    versions (``TOL_BF16``), every launch on its tensor-core route by
+    count; their device times beside the plain versions, SDPA (heads
+    pre-expanded, K/V pre-gathered for the paged calls) and the bound."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_fwd_plain)
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_plain)
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
+        query_windows, ragged_paged_attention, ragged_paged_attention_plain)
+    fb, fs = TP_FLASH
+    db, dT = TP_DECODE
+    d, el, R = 128, 2, 16
+    ci = torch.tensor(dT - 1, dtype=torch.int32, device=dev)
+    rows = []
+    for label, (h, kvh) in TP_HEADS.items():
+        fns = {"flash": flash_attention_fwd, "decode": decode_attention_fwd,
+               "ragged": ragged_paged_attention}
+        before = {k: dict(f.launches_by_route) for k, f in fns.items()}
+        # checks against the plain versions
+        q, k, v = flash_inputs(gen, dev, fb, fs, h, kvh, d)
+        out, _ = flash_attention_fwd(q, k, v, causal=True)
+        errs = {"flash": max_err(out, flash_attention_fwd_plain(
+            q, k, v, causal=True)[0])}
+        qd, ck, cv = (torch.randn(*s, generator=gen, device=dev)
+                      .to(torch.bfloat16)
+                      for s in ((db, h, d), (db, dT, kvh, d),
+                                (db, dT, kvh, d)))
+        errs["decode"] = max_err(decode_attention_fwd(qd, ck, cv, ci),
+                                 decode_attention_fwd_plain(qd, ck, cv, ci))
+        want_ragged = 0
+        for T in (1, 5):
+            lens = ragged_lens(gen, dev, T)
+            case = paged_case(gen, dev, lens, T=T, h=h, kvh=kvh)
+            errs[f"ragged T{T}"] = max_err(
+                ragged_paged_attention(*case),
+                ragged_paged_attention_plain(*case))
+            want_ragged += len(query_windows(T, h // kvh))
+        torch.cuda.synchronize()
+        got = {k: {r: n - before[k][r] for r, n in
+                   f.launches_by_route.items()} for k, f in fns.items()}
+        want = {"flash": {"wgmma": 1, "simt": 0},
+                "decode": {"mma": 1, "simt": 0},
+                "ragged": {"mma": want_ragged, "simt": 0}}
+        log(f"[tp] (a) {label}: {h} query heads over {kvh} kv heads a rank, "
+            f"bf16, max_abs_err against the plain versions "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (tol {TOL_BF16}); launches by route {got}")
+        if got != want:
+            fail(f"tp (a) {label}: launches by route {got} != {want}")
+        if not all(e <= TOL_BF16 for e in errs.values()):
+            fail(f"tp (a) {label}: a kernel disagrees with its plain "
+                 f"version")
+        # times: flash at the prefill shape
+        call_bytes = el * (2 * fb * fs * h * d + 2 * fb * fs * kvh * d) \
+            + 4 * fb * h * fs
+        n = copies_for(call_bytes)
+        sets = [flash_inputs(gen, dev, fb, fs, h, kvh, d) for _ in range(n)]
+        lib = [tuple(t.transpose(1, 2).repeat_interleave(h // t.shape[2], 1)
+                     .contiguous() for t in qkv) for qkv in sets]
+        t = {"flash": dict(
+            ms=graph_ms(lambda i: flash_attention_fwd(*sets[i % n],
+                                                      causal=True),
+                        calls=20),
+            plain_ms=cuda_ms(lambda i: flash_attention_fwd_plain(
+                *sets[i % n], causal=True), iters=5),
+            library_ms=graph_ms(lambda i: TF.scaled_dot_product_attention(
+                *lib[i % n], is_causal=True), calls=20),
+            bound=bound(call_bytes, 4 * d * fb * h * fs * (fs + 1) // 2),
+            shape=f"q {[fb, fs, h, d]} kv {[fb, fs, kvh, d]} causal")}
+        del sets, lib
+        # decode at the cache's last position
+        call_bytes = el * (2 * db * h * d + 2 * db * dT * kvh * d)
+        n = copies_for(call_bytes)
+        sets = [tuple(torch.randn(*s, generator=gen, device=dev)
+                      .to(torch.bfloat16)
+                      for s in ((db, h, d), (db, dT, kvh, d),
+                                (db, dT, kvh, d))) for _ in range(n)]
+        lib = [(q[:, :, None], ck.transpose(1, 2).repeat_interleave(
+            h // kvh, 1).contiguous(), cv.transpose(1, 2).repeat_interleave(
+            h // kvh, 1).contiguous()) for q, ck, cv in sets]
+        t["decode"] = dict(
+            ms=graph_ms(lambda i: decode_attention_fwd(*sets[i % n], ci),
+                        calls=60),
+            plain_ms=graph_ms(lambda i: decode_attention_fwd_plain(
+                *sets[i % n], ci), calls=10),
+            library_ms=graph_ms(lambda i: TF.scaled_dot_product_attention(
+                *lib[i % n]), calls=60),
+            bound=bound(call_bytes, 4 * d * db * h * dT),
+            shape=f"q {[db, h, d]} cache {[db, dT, kvh, d]} at {dT - 1}")
+        del sets, lib
+        # ragged over the engine's pools at T = 1 and the verify's T = 5
+        for T in (1, 5):
+            lens = torch.randint(64, 1024 - T, (R,), generator=gen,
+                                 device=dev)
+            kv_pos = int((lens + T).sum())
+            att = int((T * (lens + 1) + T * (T - 1) // 2).sum())
+            call_bytes = el * (2 * kv_pos * kvh * d + 2 * R * T * h * d)
+            n = copies_for(call_bytes)
+            sets = [paged_case(gen, dev, lens, T=T, h=h, kvh=kvh)
+                    for _ in range(n)]
+            lib, mask = sdpa_inputs(sets, lens, T)
+            t[f"ragged T{T}"] = dict(
+                ms=graph_ms(lambda i: ragged_paged_attention(*sets[i % n]),
+                            calls=40),
+                plain_ms=cuda_ms(lambda i: ragged_paged_attention_plain(
+                    *sets[i % n]), iters=10),
+                library_ms=graph_ms(lambda i: TF.scaled_dot_product_attention(
+                    *lib[i % n], attn_mask=mask), calls=40),
+                bound=bound(call_bytes, 4 * d * h * att),
+                shape=f"q {[R, T, h, d]}, pools [1025, 16, {kvh}, {d}], "
+                      f"{len(query_windows(T, h // kvh))} launch(es) a call")
+            del sets, lib
+        for key, r in t.items():
+            r["bound_ms"], r["bound_by"] = r.pop("bound")
+            log(f"[tp] (a) time {key}, {label}, {r['shape']}: kernel "
+                f"{r['ms']:.4f} ms (device time, CUDA graph), plain "
+                f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+            rows.append((label, key, r))
+    return rows
+
+
+def _tp_quant(gen, dev, card):
+    """(a) The quant kernel at Llama-3-70B's per-rank projections at tp 4
+    (``TP_QUANT``), int8 and int4, m = 4 and 16: the row layers through
+    the wrapper's ``block_offset`` into the whole scales table. Each
+    against its plain version over the rank's scale blocks (``TOL_QUANT_*``),
+    on the mma route by count; its device time beside the plain version,
+    a bf16 matmul on the dequantized weight and the bound."""
+    from paddle_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_plain)
+    from paddle_tpu_torch.quant import dequantize_weight
+    rows = []
+    for bits in (8, 4):
+        for label, din, dout, blocks, rank in TP_QUANT:
+            nb = din // 128
+            off = rank * nb
+            code_bytes = din * dout * bits // 8
+            n = copies_for(code_bytes)
+            sets = []
+            for _ in range(n):
+                codes, _ = _quantized(gen, dev, din, dout, bits)
+                scales = (torch.rand(blocks, dout, generator=gen, device=dev)
+                          * 1e-3 + 1e-4).to(torch.bfloat16)
+                sets.append((codes, scales))
+            ws = [dequantize_weight(c, s[off:off + nb], bits,
+                                    dtype=torch.bfloat16) for c, s in sets]
+            for m in (4, 16):
+                x = torch.randn(m, din, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                mma0 = quant_matmul.launches_by_route["mma"]
+                got = quant_matmul(x, *sets[0], bits, block_offset=off)
+                ref = quant_matmul_plain(x, sets[0][0],
+                                         sets[0][1][off:off + nb], bits)
+                torch.cuda.synchronize()
+                bad = ((got.float() - ref.float()).abs()
+                       > TOL_QUANT_REL * ref.float().abs()
+                       + TOL_QUANT_ABS * ref.float().abs().max())
+                err = max_err(got, ref)
+                if quant_matmul.launches_by_route["mma"] != mma0 + 1:
+                    fail(f"tp (a) quant {label}: not one mma launch")
+                if bool(bad.any()):
+                    fail(f"tp (a) quant int{bits} {label} m={m}: "
+                         f"{int(bad.sum())} elements off the plain version "
+                         f"(max_abs_err {err:.3e})")
+                nbytes = (code_bytes + 2 * nb * dout + 2 * m * (din + dout))
+                b_ms, b_by = bound(nbytes, 2 * m * din * dout)
+                r = dict(
+                    ms=graph_ms(lambda i: quant_matmul(
+                        x, *sets[i % n], bits, block_offset=off), calls=60),
+                    plain_ms=graph_ms(lambda i: quant_matmul_plain(
+                        x, sets[i % n][0], sets[i % n][1][off:off + nb],
+                        bits), calls=6),
+                    library_ms=graph_ms(lambda i: torch.matmul(x, ws[i % n]),
+                                        calls=60),
+                    bound_ms=b_ms, bound_by=b_by, err=err)
+                log(f"[tp] (a) quant int{bits} {label} {din}->{dout} m={m}"
+                    f" (scale blocks {off}..{off + nb} of {blocks}): "
+                    f"max_abs_err {err:.3e}; kernel {r['ms']:.4f} ms (device "
+                    f"time, CUDA graph), plain {r['plain_ms']:.4f} ms, bf16 "
+                    f"matmul on the dequantized weight "
+                    f"{r['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}) [{card}]")
+                rows.append((f"int{bits} {label} m={m}", r))
+            del sets, ws
+    return rows
+
+
+def _tp_generate(pred, ids, new, label):
+    """One warmed greedy ``generate`` timed on the host (closed by a
+    synchronize), the counts set to 0 just before it and read just after,
+    and its decode step's graph kernel nodes. Returns (tokens, decode ms a
+    step, kernel nodes, launches, quant nodes)."""
+    import paddle_tpu_torch as ptt
+    b, prompt = ids.shape
+    greedy = ptt.GenerationConfig(max_new_tokens=new)
+    one = ptt.GenerationConfig(max_new_tokens=1)
+    pred.generate(ids, config=greedy)
+    pred.generate(ids, config=one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.generate(ids, config=one)
+    torch.cuda.synchronize()
+    prefill = time.perf_counter() - t0
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    out = pred.generate(ids, config=greedy)
+    torch.cuda.synchronize()
+    step_ms = ((time.perf_counter() - t0) - prefill) * 1e3 / (new - 1)
+    launches = read()
+    prog = _step_program(pred.model, lambda k: k[:4] == (
+        "generate", b, prompt + new, False), label)
+    names, _ = graph_nodes(prog.step.graph.graph)
+    return (out, step_ms, len(names), launches,
+            sum("qmm_mma" in n for n in names))
+
+
+class _ReplayCount:
+    """Counts ``torch.cuda.CUDAGraph.replay`` calls while it is on."""
+
+    def __enter__(self):
+        self.n, self._orig = 0, torch.cuda.CUDAGraph.replay
+        count = self
+
+        def replay(graph, *a, **kw):
+            count.n += 1
+            return count._orig(graph, *a, **kw)
+        torch.cuda.CUDAGraph.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph.replay = self._orig
+
+
+def _tp_engine(model, subs, warm, **kw):
+    """The tp phase's engine (chunked prefill 128, the prefix cache) over
+    ``subs`` after the ``warm`` requests (a
+    greedy and a sampled one: the tick programs' captures); returns
+    (results, logprobs, engine, ticks, replays, launches)."""
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    eng = PagedEngine(model, chunk_prefill_tokens=128,
+                      enable_prefix_cache=True, **PAGED,
+                      **kw)
+    for w in warm:      # each tick program alone: greedy, then sampled
+        _serve(eng, [w], late_after=0)
+    steps0 = eng.stats["decode_steps"]
+    read = _reset_launches()
+    with _ReplayCount() as rc:
+        out, _, _, _ = _serve(eng, subs, late_after=4)
+    launches = read()
+    ticks = eng.stats["decode_steps"] - steps0
+    return out, dict(eng.logprobs), eng, ticks, rc.n, launches
+
+
+def _tp_serving(seed, dev, card):
+    """(b) Llama-3-8B at full width and depth on a world-one NCCL mesh
+    ({"tp": 1}): sharded, bound once, through ``Predictor.generate`` and
+    the ``PagedEngine``, bit for bit the same weights unsharded in this
+    process (a second model from the same seed), steps and ticks timed
+    in turns; (c) ``fuse_projections`` on it in bf16 and int8. Returns
+    the sharded paths' launches."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.nn.fuse import fuse_projections
+    from paddle_tpu_torch.parallel.sharding import (bind_static, local,
+                                                    shard_layer,
+                                                    sharded_build)
+    cfg = ptt.llama3_8b()
+    L = cfg.num_hidden_layers
+    new = TP_NEW
+
+    def build():
+        return ptt.LlamaForCausalLM(cfg, device=dev,
+                                    generator=ptt.make_generator(seed, dev))
+    plain = build()
+    mesh = env.init_parallel_env({"tp": 1})
+    # each decoder layer cut to this rank's shards as it is drawn
+    with sharded_build(fsdp_min_size=1 << 30):
+        sharded = build()
+    shard_layer(sharded, fsdp_min_size=1 << 30)
+    bound_t = bind_static(sharded)
+    same = all(torch.equal(a, local(b)) for a, b in zip(
+        plain.parameters(), sharded.parameters()))
+    aliased = all(bound_t[n].data_ptr() == local(p).data_ptr()
+                  for n, p in sharded.named_parameters())
+    log(f"[tp] (b) Llama-3-8B at full width and depth twice from seed "
+        f"{seed}: one plain, one built sharded (sharded_build) on mesh "
+        f"{mesh.shape} over "
+        f"{dist.get_backend()} (world {dist.get_world_size()}) and bound "
+        f"once (bind_static): weights equal {same}, every compute tensor "
+        f"the local shard itself {aliased}; at tp 1 every tp collective "
+        f"is the identity, so the captured graphs hold none")
+    if not (same and aliased):
+        fail("tp (b): the sharded model's weights are not the plain ones")
+    del bound_t
+    pa = ptt.Predictor(plain, device=dev)
+    pb = ptt.Predictor(sharded, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (4, 512), device=dev,
+                        generator=ptt.make_generator(seed + 1, dev))
+    want = dict(NO_LAUNCHES, flash=L, decode=L * (new - 1))
+    ra = _generate_run(ptt, pa, ids, new, want, "tp plain", dev, card)
+    rb = _generate_run(ptt, pb, ids, new, want, "tp sharded", dev, card)
+    launches = dict(rb["launches"])
+    if not torch.equal(ra["out"], rb["out"]):
+        fail("tp (b): the sharded model's greedy tokens differ from the "
+             "plain model's")
+    turns = {"plain": [], "sharded": []}
+    for arm in ("plain", "sharded", "sharded", "plain"):
+        turns[arm].append(_tp_generate(pa if arm == "plain" else pb, ids,
+                                       new, arm)[1])
+    log(f"[tp] (b) generate 4 x 512 + {new}, greedy: tokens bit for bit the "
+        f"plain model's; decode step in turns plain "
+        + "/".join(f"{x:.3f}" for x in turns["plain"]) + " ms, sharded "
+        + "/".join(f"{x:.3f}" for x in turns["sharded"]) + f" ms [{card}]")
+
+    # the engine: 8 requests on a 384-token shared prefix, one sampled
+    gen = ptt.make_generator(seed + 30, "cpu")
+
+    def toks(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+    warm = [("w0", toks(200), dict(max_new_tokens=4)),
+            ("w1", toks(200), dict(max_new_tokens=4, temperature=0.8,
+                                   seed=3))]
+    prefix = toks(384)
+    subs = [(f"t{i}", torch.cat([prefix, toks(64)]),
+             dict(max_new_tokens=32, **(dict(temperature=0.8, top_p=0.95,
+                                             seed=77) if i == 5 else {})))
+            for i in range(8)]
+    ticks_ms = {}
+    for spec in (0, 4):
+        kw = dict(SPEC) if spec else {}
+        tag = "spec" if spec else "paged"
+        oa, la, ea, ta, _, _ = _tp_engine(plain, subs, warm, **kw)
+        ob, lb, eb, tb, rep, lb_launches = _tp_engine(sharded, subs, warm,
+                                                      **kw)
+        _same_streams(f"tp (b) {tag}", ob, lb, oa, la)
+        hits = eb.stats["prefix_hit_tokens"]
+        # the host cost of the tp > 1 schedule check's digest (its gloo
+        # all-gather needs two ranks, and is not timed here)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            eb.schedule_digest()
+        digest_us = (time.perf_counter() - t0) / 200 * 1e6
+        ragged_want = lb_launches["ragged"]
+        log(f"[tp] (b) PagedEngine{' spec_tokens=4' if spec else ''} "
+            f"(chunk 128, prefix cache, 1 sampled of 8) on the sharded "
+            f"model: streams and logprobs bit for bit the plain model's; "
+            f"{tb} ticks, {rep} graph replays, prefix_hit_tokens {hits}, "
+            f"launches {lb_launches}; one schedule digest "
+            f"{digest_us:.1f} us on the host [{card}]")
+        if rep != tb or hits <= 0:
+            fail(f"tp (b) {tag}: {rep} graph replays for {tb} ticks, "
+                 f"prefix hits {hits}")
+        if ragged_want != L * tb or lb_launches["flash"] \
+                or lb_launches["decode"]:
+            fail(f"tp (b) {tag}: launches {lb_launches}")
+        _check_routes(f"tp (b) {tag}", ragged=ragged_want)
+        if not spec:
+            launches["ragged"] = ragged_want
+        ea_ms, eb_ms = [], []
+        for eng, acc in ((ea, ea_ms), (eb, eb_ms), (eb, eb_ms), (ea, ea_ms)):
+            _fill(eng, toks, 32)
+            for _ in range(3):          # the 256-token prompts' 2nd chunk
+                eng.step()
+            acc.append(_timed_ticks(eng, 16))
+            eng.run()
+        ticks_ms[tag] = (ea_ms, eb_ms)
+        log(f"[tp] (b) steady {tag} tick, 16 rows, in turns: plain "
+            + "/".join(f"{x:.3f}" for x in ea_ms) + " ms, sharded "
+            + "/".join(f"{x:.3f}" for x in eb_ms) + f" ms [{card}]")
+        del ea, eb
+    gc.collect()
+
+    # (c) fused projections, bf16: the sharded model fused in place
+    unfused = _tp_generate(pb, ids, new, "tp unfused")
+    logits = pa.run(ids)[:, -1].float()
+    fuse_projections(sharded)
+    fused = _tp_generate(pb, ids, new, "tp fused")
+    gaps = [_teacher_gap(plain, ids[r].tolist(), fused[0][r, 512:].tolist())
+            for r in range(ids.shape[0])]
+    flogits = pb.run(ids)[:, -1].float()
+    ldiff = float((flogits - logits).abs().max())
+    turns = {"unfused": [], "fused": []}
+    for arm in ("unfused", "fused", "fused", "unfused"):
+        turns[arm].append(_tp_generate(pa if arm == "unfused" else pb, ids,
+                                       new, arm)[1])
+    log(f"[tp] (c) fuse_projections, bf16: decode step graph "
+        f"{fused[2]} kernel nodes fused against {unfused[2]} unfused; step "
+        f"in turns unfused " + "/".join(f"{x:.3f}" for x in turns["unfused"])
+        + " ms, fused " + "/".join(f"{x:.3f}" for x in turns["fused"])
+        + f" ms; the fused greedy streams re-scored by the unfused model: "
+        f"largest gap {max(gaps):.4f} (tol {TOL_TEACHER}); last-position "
+        f"logits max |diff| {ldiff:.4f} of max |logit| "
+        f"{float(logits.abs().max()):.3f}; "
+        f"{int((fused[0] != unfused[0]).sum())} of {4 * (512 + new)} "
+        f"tokens differ [{card}]")
+    if max(gaps) > TOL_TEACHER:
+        fail("tp (c): a fused bf16 greedy token is not within the teacher "
+             "tolerance of the unfused model's maximum")
+    del pb, sharded, fused, unfused
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) int8: the plain model sharded, quantized by Predictor, then fused
+    shard_layer(plain, fsdp_min_size=1 << 30)
+    pq = ptt.Predictor(plain, ptt.Config().enable_weight_only_quant(8),
+                       device=dev)
+    q_unfused = _tp_generate(pq, ids, new, "tp int8 unfused")
+    q_launch = q_unfused[3]["quant"]
+    if q_launch != q_unfused[4] * (new - 1) or \
+            q_unfused[4] != QUANT_PER_LAYER * L:
+        fail(f"tp (c) int8: {q_launch} quant launches, {q_unfused[4]} "
+             f"quant nodes in the step graph")
+    _check_routes("tp (c) int8", quant=q_launch, decode=L * (new - 1))
+    qlogits = pq.run(ids)[:, -1].float()
+    fuse_projections(pq.model)
+    q_fused = _tp_generate(pq, ids, new, "tp int8 fused")
+    gaps = [_teacher_gap(pq.model, ids[r].tolist(),
+                         q_unfused[0][r, 512:].tolist())
+            for r in range(ids.shape[0])]
+    qdiff = float((pq.run(ids)[:, -1].float() - qlogits).abs().max())
+    launches["quant"] = q_launch
+    log(f"[tp] (c) int8 on the sharded model (each rank's codes of its "
+        f"shards), then fused: decode step graph {q_fused[2]} kernel "
+        f"nodes ({q_fused[4]} quant) fused against {q_unfused[2]} "
+        f"({q_unfused[4]} quant); step {q_fused[1]:.3f} ms fused against "
+        f"{q_unfused[1]:.3f} unfused; quant launches in one unfused "
+        f"generate {q_launch}, fused {q_fused[3]['quant']}; the unfused int8 streams re-scored by the fused "
+        f"model: largest gap {max(gaps):.4f} (tol {TOL_TEACHER}); "
+        f"last-position logits max |diff| {qdiff:.4f} [{card}]")
+    if max(gaps) > TOL_TEACHER:
+        fail("tp (c): an int8 greedy token is not within the teacher "
+             "tolerance of the fused model's maximum")
+    del pq, pa, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    env.clear_mesh()
+    dist.destroy_process_group()
+    return launches
+
+
+def phase_tp(seed, gen, dev, card):
+    """Tensor-parallel serving on one card (``[tp]`` lines): (a) the
+    kernels at the per-rank shapes tp serving launches, (b) the sharded
+    serving path at a world of one, (c) fused projections. Returns the
+    main path's launches."""
+    _tp_attention(gen, dev, card)
+    _tp_quant(gen, dev, card)
+    return _tp_serving(seed, dev, card)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6476,6 +6991,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     launches["ragged"] += phase_fleet(args.seed, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_tp(args.seed, gen, dev, card).items():
+        launches[key] += n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,

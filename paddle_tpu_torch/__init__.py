@@ -36,7 +36,7 @@ from .inference import (BatchingPredictor, Config, Predictor,
                         create_predictor)
 from . import amp, io, optimizer
 from .models import (LlamaConfig, LlamaForCausalLM, causal_lm_loss,
-                     from_pretrained, llama3_8b, llama_tiny)
+                     from_pretrained, llama3_70b, llama3_8b, llama_tiny)
 from .trainer import Trainer, TrainerCallback, TrainingArguments
 from .utils.rng import make_generator
 
@@ -44,6 +44,7 @@ __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "generate", "beam_search", "Config", "Predictor",
            "BatchingPredictor", "create_predictor", "save", "load",
            "from_pretrained", "LlamaConfig",
-           "LlamaForCausalLM", "causal_lm_loss", "llama3_8b", "llama_tiny",
+           "LlamaForCausalLM", "causal_lm_loss", "llama3_8b", "llama3_70b",
+           "llama_tiny",
            "make_generator", "amp", "io", "optimizer", "Trainer",
            "TrainerCallback", "TrainingArguments"]

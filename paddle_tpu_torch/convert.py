@@ -39,6 +39,13 @@ def load_jax_state_dict(model: nn.Module,
       scales cross bit for bit; integer codes are copied as integers.
     - Strict, as the JAX ``set_state_dict`` is: a missing or unexpected key
       raises ``KeyError``; a shape that does not fit raises ``ValueError``.
+    - A fused JAX model's ``qkv_proj`` / ``gate_up_proj`` weights (and
+      biases) load into a port model fused by
+      ``nn.fuse.fuse_projections`` at the same tp degree: the fused
+      layers are ``Linear``s, so their weights are transposed, and both
+      packages interleave the outputs in the same rank order.
+    - On a tp mesh, load into the whole model, then shard it
+      (``parallel.sharding.shard_layer``): each rank keeps its shards.
     """
     own = model.state_dict(keep_vars=True)
     missing = [k for k in own if k not in params]

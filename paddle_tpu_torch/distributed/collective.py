@@ -22,6 +22,9 @@ The ``eager_*`` forms take a rank's shard outside any region, as the JAX
 package's ``shard_map`` facades do, and retry a transient failure
 (``CollectiveError``, the injected ``collective_fail`` fault, or a
 backend error) up to ``PADDLE_TPU_COLLECTIVE_RETRIES`` attempts in all.
+They synchronize the stream, so a CUDA graph cannot hold one: inside a
+capture they raise, and the captured decode steps and ticks reach only
+the in-region functions (the tp layers' gather and sum).
 """
 from __future__ import annotations
 
@@ -292,6 +295,13 @@ def broadcast(x, src: int = 0, group: AxisName = "dp"):
 
 # ------------------------------------------------------------ eager facades
 def _eager(fn, x, group):
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        # a facade retries and synchronizes the stream, which a capture
+        # forbids: a captured program calls the in-region collectives
+        raise RuntimeError(
+            f"eager collective on axis {group!r} inside a CUDA graph "
+            f"capture; captured programs call the in-region collectives")
+
     def attempt():
         # chaos: a transient link failure surfaces BEFORE the collective
         # runs; the retry below is the recovery contract for both the

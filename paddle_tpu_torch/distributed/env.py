@@ -66,6 +66,7 @@ class Mesh:
                                                 device_mesh.mesh.shape)}
         self.size = int(device_mesh.mesh.numel())
         self._coord = device_mesh.get_coordinate()
+        self._host_groups: Dict[str, object] = {}
 
     def __repr__(self):
         return f"Mesh({self.shape}, device={self.device})"
@@ -88,6 +89,29 @@ class Mesh:
     def group(self, axis: str):
         """The process group of ``axis`` (its degree must exceed 1)."""
         return self.device_mesh.get_group(axis)
+
+    def host_group(self, axis: str):
+        """A gloo process group over ``axis``'s ranks, for checks of host
+        state (CPU tensors: no device stream waits for them): the axis's
+        own group under gloo, else one made on the first call, which
+        every rank of the world makes at the same point of its program
+        (``new_group`` is collective). Its degree must exceed 1."""
+        g = self._host_groups.get(axis)
+        if g is not None:
+            return g
+        if dist.get_backend() == "gloo":
+            g = self.group(axis)
+        else:
+            ranks = self.device_mesh.mesh
+            dim = self.axis_names.index(axis)
+            me = dist.get_rank()
+            for row in ranks.movedim(dim, -1).reshape(
+                    -1, ranks.shape[dim]).tolist():
+                made = dist.new_group(row, backend="gloo")
+                if me in row:
+                    g = made
+        self._host_groups[axis] = g
+        return g
 
 
 @dataclass(frozen=True)

@@ -80,6 +80,7 @@ def generate(model, input_ids, config: Optional[GenerationConfig] = None,
     cfg = config or GenerationConfig(**kwargs)
     if config is not None and kwargs:
         cfg = dataclasses.replace(cfg, **kwargs)
+    _check_serving(model, "generate()")
     if cfg.no_repeat_ngram_size < 0:
         raise ValueError("no_repeat_ngram_size must be >= 0")
     if cfg.repetition_penalty <= 0:
@@ -107,6 +108,16 @@ def generate(model, input_ids, config: Optional[GenerationConfig] = None,
         key, lambda: _GenerateProgram(model, cfg, b, total,
                                       start is not None))
     return prog.run(input_ids, cfg, keys, start)
+
+
+def _check_serving(model, where: str) -> None:
+    """A model on a tp mesh serves once its weights are bound
+    (``parallel.sharding.bind_static``), and only a family ported for it
+    (``NotImplementedError`` for the MoE families and MLA at tp > 1)."""
+    from ..models.base import check_tp_serving
+    from ..parallel.sharding import require_static
+    check_tp_serving(model, where)
+    require_static(model, where)
 
 
 def _logits_processors(cfg, vocab):
@@ -279,6 +290,7 @@ def beam_search(model, input_ids, config: GenerationConfig):
     ``score / length**length_penalty`` (HF convention; the length counts
     no eos)."""
     cfg = config
+    _check_serving(model, "beam_search()")
     device = model.device
     input_ids = torch.as_tensor(input_ids, device=device)
     b, prompt_len = input_ids.shape

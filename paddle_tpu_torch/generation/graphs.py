@@ -96,17 +96,34 @@ def capture(fn: Callable[[], None], device: torch.device, pool):
     return TickGraph(graph, captured, list(kept.values())), grown
 
 
+def _address(v) -> int:
+    """A tensor's address (a DTensor's: its local shard's), else 0."""
+    if not torch.is_tensor(v):
+        return 0
+    return getattr(v, "_local_tensor", v).data_ptr()
+
+
+def _bound(mod) -> dict:
+    """The tensors bound over ``mod``'s parameters (a sharded model's
+    compute tensors, ``parallel.sharding.bind``), by name."""
+    return {k: mod.__dict__[k] for k in mod._parameters
+            if k in mod.__dict__}
+
+
 def weights_links(model):
-    """What a graph froze of ``model``: each submodule, parameter and
-    buffer slot as (its dict, name, a weak reference to the value, the
-    tensor's address), and each dict's size."""
+    """What a graph froze of ``model``: each submodule, parameter,
+    buffer and bound compute tensor slot as (its dict, name, a weak
+    reference to the value, the tensor's address), and each dict's
+    size."""
     links, sizes = [], []
     for mod in model.modules():
         for d in (mod._modules, mod._parameters, mod._buffers):
             sizes.append((d, len(d)))
             for k, v in d.items():
                 links.append((d, k, None if v is None else weakref.ref(v),
-                              v.data_ptr() if torch.is_tensor(v) else 0))
+                              _address(v)))
+        for k, v in _bound(mod).items():
+            links.append((mod.__dict__, k, weakref.ref(v), _address(v)))
     return links, sizes
 
 
@@ -122,7 +139,7 @@ def weights_moved(recorded) -> bool:
     for d, k, ref, ptr in links:
         v = d.get(k)
         if v is not (None if ref is None else ref()) or \
-                (ptr and v.data_ptr() != ptr):
+                (ptr and _address(v) != ptr):
             return True
     return False
 

@@ -73,6 +73,18 @@ per-tick host path (``fused_tick=False``, the bit-exactness reference).
 On a card, engines on distinct models can tick on their own threads
 (the serving gateway's replicas): their steps run together, and a tick
 graph's capture runs alone (``device.card_lock``).
+
+On a ``tp`` mesh (a model sharded by ``parallel.sharding.shard_layer``
+and bound by ``bind_static``) every rank runs an engine over the same
+submissions: its pools hold its own ``num_key_value_heads / tp`` heads,
+its forwards call the tp layers' collectives, and its host scheduler
+must decide as every other rank does. Its decisions read the engine's
+own state alone, except a request's deadline, which reads a clock: the
+ranks agree on which deadlines passed (one host all-reduce a step while
+a request has one). At tp > 1 each step compares a digest of its
+schedule (queue length, slots and their prefill and token counts, block
+tables, lengths, dispatches) across the ranks over a gloo group of host
+tensors, and raises where they part.
 """
 from __future__ import annotations
 
@@ -89,9 +101,11 @@ import numpy as np
 import torch
 
 from ..device import card_lock
+from ..distributed.env import axis_degree, get_mesh
 from ..ops.attention import dense_attention, use_paged_kernel
 from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
+from ..parallel.layers import local_heads
 from ..utils import observability as obs
 from ..utils.faults import BackpressureError
 from .graphs import CapturedStep, ExecCache
@@ -294,8 +308,8 @@ def _check_verify_shapes(cfg, T: int):
     kernel: raise ValueError when the kernel gate refuses the model's
     shapes at T queries a row, which would send every layer's verify
     through the plain gather."""
-    kvh, d = cfg.num_key_value_heads, cfg.head_dim
-    h = getattr(cfg, "num_attention_heads", kvh)
+    h, kvh = local_heads(cfg)
+    d = cfg.head_dim
     if not use_paged_kernel(torch.empty(1, T, h, d, device="meta"),
                             torch.empty(1, 1, kvh, d, device="meta")):
         raise ValueError(
@@ -313,7 +327,7 @@ def _check_pageable(model):
     if init is None:                     # a stub model: no static cache
         return
     cfg = model.config
-    want = (1, 1, cfg.num_key_value_heads, cfg.head_dim)
+    want = (1, 1, local_heads(cfg)[1], cfg.head_dim)
     layer = init(1, 1)[0]
     got = [tuple(t.shape) for t in layer]
     if got != [want, want]:
@@ -501,7 +515,8 @@ class PagedEngine:
     ``spec_tokens=k`` makes every tick speculative (up to k drafts a row
     from ``spec_ngram``-token matches; it takes precedence over K).
     ``tick_profile=True`` times each tick's phases (``profile_clock``
-    injectable, ``profile_ring_len`` records kept).
+    injectable, ``profile_ring_len`` records kept). At tp > 1 each
+    step compares its :meth:`schedule_digest` across the tp ranks.
 
     On a CUDA card a tick program that fails to capture or replay raises:
     the engine never falls back to an eager tick.
@@ -526,6 +541,8 @@ class PagedEngine:
                  tick_profile: bool = False,
                  profile_clock=None,
                  profile_ring_len: int = 1024):
+        from . import _check_serving
+        _check_serving(model, "PagedEngine")
         self.model = model
         self.device = model.device
         self.R, self.P, self.B, self.M = (max_slots, num_blocks,
@@ -632,6 +649,11 @@ class PagedEngine:
         # CapturedStep each, captured on first use into the cache's one
         # shared pool, all dropped when the weights move
         self._graphs = ExecCache(self.model)
+        # the cross-rank schedule check, made at tp > 1 only
+        self._tp = axis_degree("tp")
+        self.rank_check = self._tp > 1
+        self._host_tp = get_mesh().host_group("tp") if self.rank_check \
+            else None
         _check_pageable(model)
         self._new_pools()
         self.slots: List[Optional[_Request]] = [None] * self.R
@@ -776,8 +798,7 @@ class PagedEngine:
         """Fresh pools, host mirrors, seen masks and device tick state
         (construction and ``hard_reset``)."""
         cfg = self.model.config
-        kvh, d = cfg.num_key_value_heads, cfg.head_dim
-        shape = (self.P, self.B, kvh, d)
+        shape = (self.P, self.B, local_heads(cfg)[1], cfg.head_dim)
         self.pools = [(torch.zeros(shape, dtype=cfg.dtype,
                                    device=self.device),
                        torch.zeros(shape, dtype=cfg.dtype,
@@ -2163,21 +2184,63 @@ class PagedEngine:
         (checked once per tick; a forward is never interrupted). A
         running expiry drains the row first (never abort against a stale
         mirror or an in-flight dispatch): only that row's pending ring
-        entries in delta mode, the whole ring otherwise."""
+        entries in delta mode, the whole ring otherwise. At tp > 1 the
+        ranks agree on what expired (:meth:`_agree`)."""
         now = time.monotonic()
-        for req in [r for r in self.queue
-                    if r.deadline is not None and now > r.deadline]:
-            self.queue.remove(req)
-            self._abort(req, "timeout")
+        reqs = list(self.queue) + list(self.slots)
+        if not any(r is not None and r.deadline is not None for r in reqs):
+            return
+        late = self._agree([r is not None and r.deadline is not None
+                            and now > r.deadline for r in reqs])
+        n = len(self.queue)
+        for req, gone in zip(reqs[:n], late[:n]):
+            if gone:
+                self.queue.remove(req)
+                self._abort(req, "timeout")
         for i in range(self.R):
-            s = self.slots[i]
-            if s is not None and s.deadline is not None \
-                    and now > s.deadline:
+            if late[n + i]:
                 self._drain_slot(i)
                 s = self.slots[i]   # the drain may have finished it
-                if s is not None and s.deadline is not None \
-                        and now > s.deadline:
+                if s is not None and s is reqs[n + i]:
                     self._abort(s, "timeout", slot_id=i)
+
+    def _agree(self, flags) -> List[bool]:
+        """``flags`` OR-ed over the tp ranks (each rank's own at tp 1):
+        a decision that reads a clock comes out the same on every rank."""
+        if self._host_tp is None:
+            return list(flags)
+        t = torch.tensor(flags, dtype=torch.int32)
+        torch.distributed.all_reduce(t, torch.distributed.ReduceOp.MAX,
+                                     group=self._host_tp)
+        return [bool(v) for v in t.tolist()]
+
+    def schedule_digest(self) -> int:
+        """A 63-bit digest of this step's schedule: the queue length,
+        each slot's occupancy with its prefill position and token count,
+        the block tables, the lengths and the dispatch count. Equal on
+        every rank of a tp mesh that decides alike."""
+        h = hashlib.blake2b(digest_size=8)
+        occ = [(-1, -1) if s is None else (s.prefill_pos, len(s.tokens))
+               for s in self.slots]
+        h.update(np.asarray([len(self.queue), self.dispatch_count]
+                            + [v for pair in occ for v in pair],
+                            np.int64).tobytes())
+        h.update(self.block_tables.tobytes())
+        h.update(self.seq_lens.tobytes())
+        return int.from_bytes(h.digest(), "little") >> 1
+
+    def _check_ranks(self):
+        """Compare this step's :meth:`schedule_digest` across the tp ranks
+        (a gloo all-gather of one host int64); ``RuntimeError`` where they
+        part."""
+        mine = self.schedule_digest()
+        got = [torch.zeros(1, dtype=torch.int64) for _ in range(self._tp)]
+        torch.distributed.all_gather(
+            got, torch.tensor([mine], dtype=torch.int64), group=self._host_tp)
+        if any(int(g) != mine for g in got):
+            raise RuntimeError(
+                f"tp ranks' engine schedules parted at dispatch "
+                f"{self.dispatch_count}: digests {[int(g) for g in got]}")
 
     @_card_work
     def cancel(self, request_id) -> bool:
@@ -2464,6 +2527,8 @@ class PagedEngine:
                     raise RuntimeError(
                         "paged KV pool cannot hold even one request; "
                         "raise num_blocks")
+        if self.rank_check:
+            self._check_ranks()
         active = [i for i, s in enumerate(self.slots)
                   if s is not None and s.tokens]
         if not active:

@@ -13,6 +13,13 @@ depend on its batch, resumes exactly after a preemption (the key rides
 with the request), and gives the same tokens on the CPU and the card for
 the same logits. Neither kind of sampled stream matches the JAX
 package's bit for bit; they match it in distribution.
+
+On a tp mesh the ranks agree without a collective of their own: the
+lm_head gathers the logits (``gather_output``), so every rank holds the
+same logits bit for bit, and the same key rows (``generate()``'s seeds
+from the same generator, the engine's from the same submissions); a
+draw reads nothing else, so every rank emits the same tokens and the
+ranks' schedulers stay in step.
 """
 from __future__ import annotations
 

@@ -270,6 +270,10 @@ def _by_rows(run, input_ids, keys, rows_alone):
 def _spec_run(target, draft, input_ids, max_new_tokens, k, ngram, eos,
               pad, return_stats, generator=None, temperature=0.0, top_k=0,
               top_p=1.0):
+    from . import _check_serving
+    for m in (target, draft):
+        if m is not None:
+            _check_serving(m, "speculative generate")
     device = target.device
     input_ids = torch.as_tensor(input_ids, device=device)
     bsz, prompt_len = input_ids.shape
@@ -446,6 +450,8 @@ def mtp_speculative_generate(model, input_ids, max_new_tokens: int = 64,
     and tokens per forward, as :func:`speculative_generate` gives them.
     A model whose rows interact (MoE: every DeepSeek) decodes its rows
     one at a time, as the JAX package's vmap over rows does."""
+    from . import _check_serving
+    _check_serving(model, "mtp_speculative_generate()")
     cfg = model.config
     if getattr(cfg, "num_nextn_predict_layers", 0) < 1:
         raise ValueError("model has no MTP depth modules "

@@ -93,28 +93,54 @@ class Predictor:
     caller passes ``device="cpu"``; the model is moved there). As the JAX
     one does, it first casts the model's floating parameters to
     ``config.dtype`` and then quantizes the model in place when
-    ``config.quant_bits`` is set."""
+    ``config.quant_bits`` is set. To fuse the projections, call
+    ``nn.fuse.fuse_projections(pred.model)`` after construction: the JAX
+    order, cast, quantize, fuse.
+
+    A model sharded on the caller's mesh (``parallel.sharding.
+    shard_layer``, on the device the mesh's ranks run on) is served
+    where it is: its parameters are cast as DTensors, its compute
+    tensors bound once (``bind_static``), then each rank quantizes its
+    own shards with the tp metadata."""
 
     def __init__(self, model, config: Optional[Config] = None, device=None):
+        from .parallel.sharding import bind_static, is_sharded
         self.config = config or Config()
         self.device = resolve_device(device)
+        sharded = any(is_sharded(p) for p in model.parameters())
         if self.config.dtype is not None:
             # parameters and persistent buffers (an MoE layer's
             # expert_bias), as the JAX package's Layer.to casts them; the
-            # non-persistent fp32 RoPE frequencies keep their dtype
-            for p in model.parameters():
-                if p.is_floating_point():
-                    p.data = p.data.to(self.config.dtype)
+            # non-persistent fp32 RoPE frequencies keep their dtype. Each
+            # parameter, plain or DTensor, becomes a new Parameter keeping
+            # its partition; a tied one stays tied (the memo keeps the old
+            # one alive, so its id is not reused)
+            cast = {}
+            for mod in model.modules():
+                for name, p in mod._parameters.items():
+                    if p is None or not p.is_floating_point():
+                        continue
+                    if id(p) not in cast:
+                        new = torch.nn.Parameter(
+                            p.detach().to(self.config.dtype),
+                            requires_grad=p.requires_grad)
+                        if hasattr(p, "partition"):
+                            new.partition = p.partition
+                        cast[id(p)] = (p, new)
+                    mod._parameters[name] = cast[id(p)][1]
             for mod in model.modules():
                 for name, buf in mod._buffers.items():
                     if buf is not None and buf.is_floating_point() and \
                             name not in mod._non_persistent_buffers_set:
                         mod._buffers[name] = buf.to(self.config.dtype)
+        if sharded:
+            bind_static(model)
         if self.config.quant_bits:
             from .quant import quantize_model
             quantize_model(model, bits=self.config.quant_bits,
                            skip=self.config.quant_skip)
-        self.model = model.to(self.device).eval()
+        # a sharded model already lives on its mesh's device
+        self.model = (model if sharded else model.to(self.device)).eval()
         self.last_serve_stats = {}
         self.last_logprobs = {}
         self._paged_engines = {}

@@ -1,9 +1,26 @@
 """Shared causal-LM plumbing (counterpart of ``paddle_tpu/models/base.py``):
-``generate()`` and the static KV-cache allocator."""
+``generate()`` and the static KV-cache allocator.
+
+On a mesh with ``tp`` of degree T each rank attends its own 1/T of the
+query and kv heads (the tp projections' local columns), so each rank's
+caches hold ``num_key_value_heads / T`` heads: :func:`local_heads`.
+"""
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..distributed.env import axis_degree
+from ..parallel.layers import local_heads
+
+
+def check_tp_serving(model, where: str) -> None:
+    """``NotImplementedError`` when ``model`` does not serve on the
+    installed mesh's ``tp`` degree (> 1): the MoE families and MLA."""
+    if axis_degree("tp") > 1 and not getattr(model, "tp_serving", True):
+        raise NotImplementedError(
+            f"{where} of {type(model).__name__} on a tp > 1 mesh is not "
+            f"ported (the MoE families and MLA serve at tp 1)")
 
 
 class CausalLMBase(nn.Module):
@@ -18,6 +35,8 @@ class CausalLMBase(nn.Module):
     # call, so rows compete for it (padding a batch changes which tokens
     # are dropped, and a row served alone is routed as a batch of one)
     rows_independent = True
+    # whether generate() and the PagedEngine serve it on a tp > 1 mesh
+    tp_serving = True
 
     def generate(self, input_ids, config=None, generator=None, **kwargs):
         from ..generation import generate as _generate
@@ -26,13 +45,11 @@ class CausalLMBase(nn.Module):
 
     def init_kv_caches(self, batch_size: int, max_len: int, dtype=None):
         """One (k, v) pair of zeroed [b, max_len, kv_heads, head_dim]
-        tensors per layer, on the model's device. Decode steps write them
-        in place."""
+        tensors per layer, on the model's device; ``kv_heads`` is this
+        rank's (:func:`local_heads`). Decode steps write them in place."""
         cfg = self.config
         dtype = dtype or cfg.dtype
-        kv_heads = getattr(cfg, "num_key_value_heads", None) \
-            or cfg.num_attention_heads
-        shape = (batch_size, max_len, kv_heads, cfg.head_dim)
+        shape = (batch_size, max_len, local_heads(cfg)[1], cfg.head_dim)
         return [(torch.zeros(shape, dtype=dtype, device=self.device),
                  torch.zeros(shape, dtype=dtype, device=self.device))
                 for _ in range(cfg.num_hidden_layers)]

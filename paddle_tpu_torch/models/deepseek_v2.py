@@ -431,6 +431,7 @@ class DeepseekV2ForCausalLM(CausalLMBase):
     not given)."""
 
     rows_independent = False            # MoE capacity is per call
+    tp_serving = False                  # not ported: MoE (and MLA) at tp > 1
 
     def __init__(self, config: Optional[DeepseekV2Config] = None,
                  device=None, generator: Optional[torch.Generator] = None):

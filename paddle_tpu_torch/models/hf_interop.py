@@ -398,7 +398,14 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
     (converter drift); a model key the checkpoint lacks raises when
     ``strict``, and otherwise stays at its random init with a warning.
     ``expert_bias`` (a checkpoint without ``e_score_correction_bias``
-    balances otherwise) stays at zero, as the JAX package leaves it."""
+    balances otherwise) stays at zero, as the JAX package leaves it.
+
+    On a tp mesh each rank calls this, then ``parallel.sharding.
+    shard_layer`` (and ``bind_static`` to serve): each rank builds the
+    whole model and fills it, so at its peak a rank holds the whole
+    model plus one checkpoint shard's converted tensors; ``shard_layer``
+    then keeps only its shards (each parameter's full tensor is
+    dropped as its shard is made)."""
     import warnings
 
     from ..convert import copy_jax_params

@@ -46,7 +46,7 @@ from ..parallel.pipeline import pipeline_value_and_grad
 from ..parallel.pipeline_interleaved import \
     interleaved_pipeline_value_and_grad
 from ..parallel.ring import ring_attention
-from ..parallel.sharding import bind, constraint
+from ..parallel.sharding import bind, constraint, shard_built
 from ..utils.rng import make_generator
 from .base import CausalLMBase
 
@@ -87,6 +87,14 @@ class LlamaConfig:
 
 def llama3_8b(**overrides) -> LlamaConfig:
     return LlamaConfig(**overrides)
+
+
+def llama3_70b(**overrides) -> LlamaConfig:
+    base = dict(hidden_size=8192, intermediate_size=28672,
+                num_hidden_layers=80, num_attention_heads=64,
+                num_key_value_heads=8)
+    base.update(overrides)
+    return LlamaConfig(**base)
 
 
 def llama_tiny(**overrides) -> LlamaConfig:
@@ -264,6 +272,23 @@ def sp_degree() -> int:
     return axis_size("sp")
 
 
+def split_fused(y, T: int, widths):
+    """The projections of a fused product ``y`` [..., n] (the
+    ``qkv_proj`` or ``gate_up_proj`` of ``nn.fuse.fuse_projections``),
+    whose columns are rank-interleaved for a tp degree ``T``: ``T``
+    chunks of [x_t for each projection x]. ``widths`` are the
+    projections' full widths. Exposes the chunk axis, takes each
+    projection's slice of every chunk and reshapes back (the JAX
+    ``_fused_tp`` rule): on a tp rank ``y`` holds its own chunk alone,
+    and each projection comes out as this rank's columns; with ``T`` 1
+    it is the plain split of a concat."""
+    per = [w // T for w in widths]
+    chunks = y.shape[-1] // sum(per)          # T, or 1 on a tp rank
+    y = y.reshape(*y.shape[:-1], chunks, sum(per))
+    return [p.reshape(*y.shape[:-2], chunks * w)
+            for p, w in zip(y.split(per, dim=-1), per)]
+
+
 # -------------------------------------------------------------- components
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, layer_idx: int = 0, *,
@@ -313,9 +338,19 @@ class LlamaAttention(nn.Module):
         b, s, _ = x.shape
         d = cfg.head_dim
         # this rank's heads: all of them, or 1/tp of them under tp
-        q = self.q_proj(x).reshape(b, s, -1, d)
-        k = self.k_proj(x).reshape(b, s, -1, d)
-        v = self.v_proj(x).reshape(b, s, -1, d)
+        if hasattr(self, "qkv_proj"):
+            q, k, v = split_fused(
+                self.qkv_proj(x), self._fused_tp,
+                (cfg.num_attention_heads * d, cfg.num_key_value_heads * d,
+                 cfg.num_key_value_heads * d))
+            # slices of one product; the kernels read a dense v (q and k
+            # come out of the rotary dense)
+            v = v.contiguous()
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = q.reshape(b, s, -1, d)
+        k = k.reshape(b, s, -1, d)
+        v = v.reshape(b, s, -1, d)
         nh = q.shape[2]
         cos, sin = rope
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
@@ -413,6 +448,7 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, *, device, generator):
         super().__init__()
+        self.config = config
         kw = dict(has_bias=False, generator=generator, device=device,
                   dtype=config.dtype)
         col = dict(kw, gather_output=False)
@@ -424,6 +460,11 @@ class LlamaMLP(nn.Module):
                                            config.hidden_size, **kw)
 
     def forward(self, x):
+        if hasattr(self, "gate_up_proj"):
+            n = self.config.intermediate_size
+            gate, up = split_fused(self.gate_up_proj(x), self._fused_tp,
+                                   (n, n))
+            return self.down_proj(F.silu(gate) * up)
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
@@ -472,7 +513,8 @@ class LlamaModel(nn.Module):
         with torch.no_grad():
             self.embed_tokens.weight.mul_(config.initializer_range / 0.02)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, i, device=device, generator=generator)
+            [shard_built(LlamaDecoderLayer(config, i, device=device,
+                                           generator=generator))
              for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=config.dtype)

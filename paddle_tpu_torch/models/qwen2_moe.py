@@ -188,6 +188,7 @@ class Qwen2MoeForCausalLM(CausalLMBase):
     not given)."""
 
     rows_independent = False            # MoE capacity is per call
+    tp_serving = False                  # not ported: MoE (and MLA) at tp > 1
 
     def __init__(self, config: Qwen2MoeConfig, device=None,
                  generator: Optional[torch.Generator] = None):

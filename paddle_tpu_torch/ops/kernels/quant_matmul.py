@@ -166,12 +166,33 @@ def row_chunk(m: int) -> int:
     return 1 if m == 1 else 2 if m == 2 else 4
 
 
+def scale_rows(scales: torch.Tensor, din: int, block_offset: int = 0):
+    """The ``din / 128`` scale blocks of a product over ``din`` code rows
+    that start at block ``block_offset`` of ``scales`` (a row-parallel
+    rank's rows of a replicated table): a view, contiguous rows of a
+    contiguous table, so the kernel reads them at a base address and its
+    indexing is unchanged."""
+    n = din // QUANT_BLOCK
+    if block_offset == 0 and scales.shape[0] == n:
+        return scales
+    if block_offset < 0 or block_offset + n > scales.shape[0]:
+        raise ValueError(f"scale blocks {block_offset}..{block_offset + n} "
+                         f"outside a table of {scales.shape[0]}")
+    return scales.narrow(0, block_offset, n)
+
+
 def quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
-                 scales: torch.Tensor, bits: int = 8) -> torch.Tensor:
+                 scales: torch.Tensor, bits: int = 8,
+                 block_offset: int = 0) -> torch.Tensor:
     """x [m, din] @ dequant(qweight, scales) -> [m, dout] in x's dtype.
+    ``block_offset``: the first of ``scales``' 128-row blocks the codes
+    take (:func:`scale_rows`; a row-parallel rank's offset into the
+    replicated table).
 
     CPU tensors take :func:`quant_matmul_plain`; CUDA tensors launch the
     kernel, on the current stream, or raise."""
+    if x.dim() == 2:
+        scales = scale_rows(scales, x.shape[1], block_offset)
     _check(x, qweight, scales, bits)
     if not use_kernel(x, qweight, scales):
         return quant_matmul_plain(x, qweight, scales, bits)

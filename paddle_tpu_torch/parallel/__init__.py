@@ -5,14 +5,14 @@ from .layers import (ColumnParallelLinear, RowParallelLinear,
 from .moe import MoEMLP, top_k_routing
 from .pipeline import pipeline_apply, spmd_pipeline, stack_stage_params
 from .ring import ring_attention, ring_flash_attention, ulysses_attention
-from .sharding import (ShardingError, constraint, param_shardings,
-                       partition_to_sharding, shard_layer, tree_shardings,
-                       validate_partition)
+from .sharding import (ShardingError, bind_static, constraint,
+                       param_shardings, partition_to_sharding, shard_layer,
+                       sharded_build, tree_shardings, validate_partition)
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "parallel_matmul", "MoEMLP",
            "top_k_routing", "pipeline_apply", "spmd_pipeline",
            "stack_stage_params", "ring_attention", "ring_flash_attention",
-           "ulysses_attention", "ShardingError", "constraint",
+           "ulysses_attention", "ShardingError", "bind_static", "constraint",
            "param_shardings", "partition_to_sharding", "shard_layer",
-           "tree_shardings", "validate_partition"]
+           "sharded_build", "tree_shardings", "validate_partition"]

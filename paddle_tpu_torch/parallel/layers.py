@@ -109,6 +109,20 @@ def _tp() -> int:
     return axis_size(TP)
 
 
+def local_heads(cfg):
+    """(query heads, kv heads) of this rank: the config's, divided by the
+    installed mesh's ``tp`` degree. ``ValueError`` when the degree does
+    not divide them (the JAX package's partition check rejects the same
+    head split)."""
+    kv = getattr(cfg, "num_key_value_heads", None) or cfg.num_attention_heads
+    h = getattr(cfg, "num_attention_heads", kv)
+    tp = _tp()
+    if h % tp or kv % tp:
+        raise ValueError(f"heads ({h}q/{kv}kv) not divisible by tp degree "
+                         f"{tp}")
+    return h // tp, kv // tp
+
+
 class ColumnParallelLinear(Linear):
     """Output dim split over ``tp``: weight partition ``("tp", None)``,
     bias ``("tp",)``."""

@@ -26,6 +26,20 @@ tensors shadow the parameters as instance attributes until
 :func:`release` (or the next forward): a recomputed layer's backward
 reads them again.
 
+Serving holds its weights still: :func:`bind_static` makes and binds the
+compute tensors once and removes the pre-hook, so no redistribute runs
+in a captured decode step or tick (with tp only, each compute tensor is
+the parameter's local shard itself, not a copy). A quantized layer's
+codes and scales are buffers, not parameters: a module that lists
+``buffer_partitions()`` has each such buffer cut to this rank's shard by
+:func:`shard_layer` (a plain tensor: the layer reads its shard and
+calls its collectives itself).
+
+A model too large for one rank to hold whole (Llama-3-70B is ~141 GB in
+bf16) is built inside :func:`sharded_build`: its constructor cuts each
+decoder layer to this rank's shards as soon as the layer's weights are
+drawn (:func:`shard_built`), and :func:`shard_layer` then cuts the rest.
+
 Also here, as in the JAX package: the partition validator (unknown axes,
 non-dividing degrees rejected when the sharding is resolved) and
 ``constraint``, which becomes a redistribute of an activation: the
@@ -33,6 +47,7 @@ identity with no mesh, and axes that do not divide a dimension dropped.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -154,27 +169,104 @@ def _distribute(t: torch.Tensor, sh: NamedSharding):
                              placements)
 
 
+def _buffer_shard(t: torch.Tensor, partition, mesh: Mesh) -> torch.Tensor:
+    """This rank's shard of the full buffer ``t`` (every rank holds the
+    same values: the same seed or checkpoint), as a tensor of its own so
+    the full one can be freed. Axes split a dim first axis major."""
+    for dim, axes in enumerate(partition or ()):
+        for a in _axes(axes) if axes is not None else ():
+            n = mesh.shape.get(a, 1)
+            if n > 1:
+                t = t.chunk(n, dim=dim)[mesh.coordinate(a)]
+    return t.clone()
+
+
 def shard_layer(layer: nn.Module, mesh: Optional[Mesh] = None,
                 **kw) -> Dict[str, NamedSharding]:
     """Replace every parameter of ``layer`` by a DTensor parameter
-    placed by :func:`param_shardings` (its partition metadata kept), and
-    install the forward pre-hook that materializes the compute tensors.
-    Returns the sharding dict."""
+    placed by :func:`param_shardings` (its partition metadata kept), cut
+    every buffer a module lists in ``buffer_partitions()`` to this
+    rank's shard, and install the forward pre-hook that materializes the
+    compute tensors. Returns the sharding dict.
+
+    Each parameter's full tensor is dropped once its shard is made, so
+    loading a checkpoint into a model and then sharding it holds at most
+    the full model and one parameter's shard a rank (a model built in
+    :func:`sharded_build`: its shards, its embedding and head whole, and
+    one decoder layer whole while it is drawn). Parameters already
+    sharded there keep their shards; they must have the placements these
+    arguments give."""
     mesh = mesh or get_mesh()
     shardings = param_shardings(layer, mesh, **kw)
-    for name, p in list(layer.named_parameters()):
-        owner, attr = _owner(layer, name)
-        new = nn.Parameter(_distribute(p.data, shardings[name]),
-                           requires_grad=p.requires_grad)
-        if partition_of(p) is not None:
-            new.partition = partition_of(p)
-        owner._parameters[attr] = new
+    _shard_tensors(layer, mesh, shardings)
     old = getattr(layer, "_sharding_hook", None)
     if old is not None:
         old.remove()
     layer._sharding_hook = layer.register_forward_pre_hook(_materialize_hook)
     layer._shardings = shardings
     return shardings
+
+
+def _shard_tensors(layer: nn.Module, mesh: Mesh, shardings) -> None:
+    """Replace ``layer``'s parameters by DTensors placed by
+    ``shardings`` and cut its ``buffer_partitions()`` buffers."""
+    for name, p in list(layer.named_parameters()):
+        if is_sharded(p):
+            if tuple(p.placements) != tuple(shardings[name].placements):
+                raise ShardingError(
+                    f"{name}: sharded as {tuple(p.placements)} when built, "
+                    f"{tuple(shardings[name].placements)} now")
+            continue
+        owner, attr = _owner(layer, name)
+        new = nn.Parameter(_distribute(p.data, shardings[name]),
+                           requires_grad=p.requires_grad)
+        if partition_of(p) is not None:
+            new.partition = partition_of(p)
+        owner._parameters[attr] = new
+    for mod in layer.modules():
+        parts = getattr(mod, "buffer_partitions", None)
+        if parts is None:
+            continue
+        for attr, part in parts().items():
+            buf = mod._buffers.get(attr)
+            if buf is None or getattr(mod, "_buffers_sharded", False):
+                continue
+            validate_partition(tuple(buf.shape), _drop_dead_axes(part, mesh),
+                               mesh, attr)
+            mod._buffers[attr] = _buffer_shard(buf, part, mesh)
+        mod._buffers_sharded = True
+
+
+# the open sharded_build contexts' (mesh, param_shardings arguments)
+_BUILDS = []
+
+
+@contextlib.contextmanager
+def sharded_build(mesh: Optional[Mesh] = None, **kw):
+    """Build a model so that no rank holds it whole: inside, a model's
+    constructor cuts each decoder layer to this rank's shards as soon as
+    its weights are drawn (:func:`shard_built`). Every rank draws the
+    same values from the same seeded generator, so the model is the one
+    that :func:`shard_layer` makes of the whole built model. Build on
+    the mesh's device, then call :func:`shard_layer` on the model with
+    the same ``kw`` (it cuts the embedding, the head and whatever the
+    constructor did not). At its peak a rank holds its shards, one
+    decoder layer whole, and the embedding and head whole."""
+    _BUILDS.append((mesh or get_mesh(), kw))
+    try:
+        yield
+    finally:
+        _BUILDS.pop()
+
+
+def shard_built(layer: nn.Module) -> nn.Module:
+    """Inside :func:`sharded_build`, cut ``layer``'s parameters and
+    buffers to this rank's shards; elsewhere return it as it is. Model
+    constructors call it on each decoder layer they draw."""
+    if _BUILDS:
+        mesh, kw = _BUILDS[-1]
+        _shard_tensors(layer, mesh, param_shardings(layer, mesh, **kw))
+    return layer
 
 
 def _materialize_hook(module, args):
@@ -226,6 +318,51 @@ def materialize(root: nn.Module) -> Dict[str, torch.Tensor]:
             grad_placements=grad)
     bind(root, out)
     return out
+
+
+@torch.no_grad()
+def bind_static(root: nn.Module) -> Dict[str, torch.Tensor]:
+    """Make every DTensor parameter's compute tensor once, bind it (as
+    :func:`materialize` does) and remove the forward pre-hook of
+    :func:`shard_layer`: the serving path, whose weights do not change,
+    so a captured step or tick replays no redistribute. A tp or ep shard
+    is bound as the parameter's local tensor itself (same storage);
+    other axes are gathered once. Call it after :func:`shard_layer` and
+    after anything that replaces parameters (a cast, quantization,
+    fusion: those passes re-bind a bound model themselves), before any
+    capture. :func:`release` would undo it. Returns {name: tensor}."""
+    hook = getattr(root, "_sharding_hook", None)
+    if hook is not None:
+        hook.remove()
+        root._sharding_hook = None
+    out = {}
+    for name, p in root.named_parameters():
+        if not is_sharded(p):
+            continue
+        compute, _ = _compute_placements(p)
+        if list(compute) == list(p.placements):
+            out[name] = p._local_tensor
+        else:
+            out[name] = p.redistribute(p.device_mesh, compute).to_local()
+    bind(root, out)
+    root._static_bound = True
+    return out
+
+
+def is_static_bound(root: nn.Module) -> bool:
+    """Whether :func:`bind_static` bound ``root``'s compute tensors."""
+    return getattr(root, "_static_bound", False)
+
+
+def require_static(model: nn.Module, where: str) -> None:
+    """``ValueError`` when ``model`` is sharded with the per-forward
+    pre-hook still on: a serving entry point captures its programs over
+    tensors bound once (:func:`bind_static`)."""
+    if getattr(model, "_sharding_hook", None) is not None:
+        raise ValueError(
+            f"{where} serves a sharded model after "
+            f"parallel.sharding.bind_static(model): its weights are "
+            f"bound once, before any capture")
 
 
 def bind(root: nn.Module, tensors: Dict[str, torch.Tensor]) -> None:

@@ -94,9 +94,11 @@ def build_engine(model: str, chunk_tokens: int, device=None,
     graphs are captured here. ``weights``: a model to share (the
     replica's engines serve one set of weights)."""
     from ...generation.paged import PagedEngine
+    from ..gateway import check_single_rank
     m = weights if weights is not None else build_model(model, device,
                                                         seed)
     eng = PagedEngine(m, **engine_kw(model, chunk_tokens))
+    check_single_rank(eng, "replica_main")
     warm = list(range(1, 2 * int(chunk_tokens) + 2))
     eng.submit("warmup", warm, max_new_tokens=4)
     eng.run()

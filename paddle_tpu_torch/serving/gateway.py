@@ -609,6 +609,18 @@ class _ReplicaWorker(threading.Thread):
                                "finish_reason": reason}, now)
 
 
+def check_single_rank(engine, where: str) -> None:
+    """``NotImplementedError`` for an engine whose model is sharded at
+    tp > 1: its ranks must all see every submission, and the port has
+    no broadcast of a gateway's submissions to the ranks yet (the JAX
+    gateway drives a tp engine from its one controller)."""
+    if getattr(engine, "_tp", 1) > 1:
+        raise NotImplementedError(
+            f"{where} on a PagedEngine sharded at tp {engine._tp}: a "
+            f"gateway in front of a tp engine (every submission broadcast "
+            f"to every rank) is not ported")
+
+
 class Gateway:
     """Serve one or more PagedEngine replicas over HTTP/SSE.
 
@@ -669,6 +681,8 @@ class Gateway:
         plane on (pinned by ``tests/test_telemetry.py``)."""
         if not isinstance(engines, (list, tuple)):
             engines = [engines]
+        for eng in engines:
+            check_single_rank(eng, "Gateway")
         self.name = name or f"gw{next(_gateway_ids)}"
         self.host, self.port = host, port
         self._labels = {"gateway": self.name}

@@ -654,3 +654,294 @@ def ep_cases(rank, world, p):
 CASES = {"distributed": distributed_cases, "parallel": parallel_cases,
          "dp4": dp4_cases, "ring": ring_cases, "pipeline": pipeline_cases,
          "ep": ep_cases}
+
+
+# ---------------------------------------------------------- tp serving
+def _tp_model(cfg_kw, params, family="llama"):
+    """A port model of the tiny family config ``cfg_kw`` holding the JAX
+    weights ``params``."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import qwen2_tiny
+    cfg = (ptt.llama_tiny if family == "llama" else qwen2_tiny)(**cfg_kw)
+    cls = ptt.LlamaForCausalLM if family == "llama" else \
+        ptt.models.Qwen2ForCausalLM
+    return _jax_weights(cls(cfg, device="cpu"), params)
+
+
+def _serve(model):
+    """Shard ``model`` over the mesh's tp (tp rules only) and bind its
+    compute tensors once."""
+    from paddle_tpu_torch.parallel.sharding import bind_static, shard_layer
+    shard_layer(model, fsdp_min_size=1 << 30)
+    bind_static(model)
+    return model
+
+
+def _tp_scenario(model, p, out, tag, **engine_kw):
+    """The JAX package's ``_dryrun_paged_tp`` scenario on this rank's
+    engine: "a" finishes and parks its prefix, "b" adopts it, "s" is
+    sampled beside it."""
+    import numpy as np
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    eng = PagedEngine(model, max_slots=2, num_blocks=24, block_size=8,
+                      max_blocks_per_seq=6, prefill_buckets=(16,),
+                      chunk_prefill_tokens=8, enable_prefix_cache=True,
+                      **engine_kw)
+    # count the schedule digests the engine's cross-rank check takes
+    digests = [0]
+    digest = eng.schedule_digest
+
+    def counted():
+        digests[0] += 1
+        return digest()
+    eng.schedule_digest = counted
+    eng.submit("a", np.asarray(p["prompts"]["a"]), max_new_tokens=8)
+    res = dict(eng.run())
+    eng.submit("b", np.asarray(p["prompts"]["b"]), max_new_tokens=8)
+    eng.submit("s", np.asarray(p["sampled"]), max_new_tokens=8,
+               temperature=0.8, top_p=0.9, seed=5)
+    res.update(eng.run())
+    out[f"{tag}_streams"] = {k: list(v) for k, v in res.items()}
+    out[f"{tag}_stats"] = dict(eng.stats)
+    out[f"{tag}_pools"] = tuple(eng.pools[0][0].shape)
+    out[f"{tag}_digests"] = digests[0]
+    return eng
+
+
+def tp_serving_cases(rank, world, p):
+    """tp serving on {"tp": world}: the ``_dryrun_paged_tp`` scenario
+    (plain and speculative ticks), ``generate()`` greedy, sampled and
+    beam, fused projections, ``Predictor`` at int8 and int4, the
+    quantized tp layers, and the refusals. Every eager collective a
+    serving program reaches is counted."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.nn.fuse import fuse_projections
+    from paddle_tpu_torch.parallel.sharding import local
+    out = {}
+    eager = []
+    real_eager = C._eager
+
+    def counting(fn, x, group):
+        eager.append(str(group))
+        return real_eager(fn, x, group)
+    C._eager = counting
+    env.init_parallel_env({"tp": world}, device="cpu")
+    model = _serve(_tp_model(p["cfg"], p["params"]))
+    # the compute tensors are the local shards themselves
+    attn = model.model.layers[0].self_attn
+    w = attn.q_proj._parameters["weight"]
+    out["alias"] = attn.q_proj.weight.data_ptr() == local(w).data_ptr()
+    out["q_local"] = tuple(attn.q_proj.weight.shape)
+    # each rank keeps its shards alone: no local tensor holds the full
+    # storage it was cut from
+    out["own_storage"] = all(
+        local(p).untyped_storage().nbytes()
+        == local(p).numel() * local(p).element_size()
+        for p in model.parameters())
+    out["cache_heads"] = model.init_kv_caches(1, 4)[0][0].shape[2]
+    ids = torch.from_numpy(np.asarray(p["prompts"]["b"]))
+    with torch.no_grad():
+        out["logits"] = model(ids).numpy()
+    out["greedy"] = ptt.generate(model, ids, max_new_tokens=8).numpy()
+    out["beam"] = ptt.generate(model, ids, max_new_tokens=6,
+                               num_beams=3).numpy()
+    out["sampled"] = ptt.generate(
+        model, ids, max_new_tokens=8, do_sample=True, temperature=0.8,
+        top_k=20, generator=ptt.make_generator(3, "cpu")).numpy()
+    _tp_scenario(model, p, out, "paged")
+    _tp_scenario(model, p, out, "spec", spec_tokens=4)
+    out["eager_serving"] = list(eager)
+    # a model built in sharded_build (each decoder layer cut to this
+    # rank's shards as it is drawn) is the whole built model sharded
+    from paddle_tpu_torch.parallel.sharding import is_sharded, sharded_build
+    cfg = ptt.llama_tiny(**p["cfg"])
+    whole = _serve(ptt.LlamaForCausalLM(
+        cfg, device="cpu", generator=ptt.make_generator(11, "cpu")))
+    with sharded_build(fsdp_min_size=1 << 30):
+        built = ptt.LlamaForCausalLM(
+            cfg, device="cpu", generator=ptt.make_generator(11, "cpu"))
+    out["built_sharded"] = (
+        all(is_sharded(q) for q in built.model.layers.parameters()),
+        is_sharded(built.model.embed_tokens.weight))
+    _serve(built)
+    out["built_same"] = all(torch.equal(local(a), local(b)) for a, b in zip(
+        whole.parameters(), built.parameters()))
+    with torch.no_grad():
+        out["built_logits_same"] = torch.equal(whole(ids), built(ids))
+    # fused projections on the sharded model: this rank's fused shard and
+    # the logits
+    fuse_projections(model)
+    out["fused_qkv_local"] = model.model.layers[0].self_attn.qkv_proj \
+        .weight.numpy().copy()
+    with torch.no_grad():
+        out["fused_logits"] = model(ids).numpy()
+    out["fused_greedy"] = ptt.generate(model, ids, max_new_tokens=8).numpy()
+    # Qwen2's biased q/k/v through the fused interleave
+    qwen = _serve(_tp_model(p["qwen_cfg"], p["qwen_params"], "qwen2"))
+    fuse_projections(qwen)
+    with torch.no_grad():
+        out["qwen_fused_logits"] = qwen(ids).numpy()
+        out["qwen_fused_bias"] = qwen.model.layers[0].self_attn.qkv_proj \
+            .bias.numpy().copy()
+    # Predictor at int8 and int4 (cast, quantize with the tp metadata,
+    # fuse), and the codes each rank holds
+    qids = torch.from_numpy(np.asarray(p["qids"]))
+    for bits in (8, 4):
+        m = _serve(_tp_model(p["qcfg"], p["qparams"]))
+        pred = ptt.Predictor(m, ptt.Config().enable_weight_only_quant(bits),
+                             device="cpu")
+        lyr = m.model.layers[0]
+        out[f"q{bits}_codes"] = {
+            "q_proj": tuple(lyr.self_attn.q_proj.qweight.shape),
+            "o_proj": tuple(lyr.self_attn.o_proj.qweight.shape),
+            "o_scales": tuple(lyr.self_attn.o_proj.scales.shape),
+            "down_proj": tuple(lyr.mlp.down_proj.qweight.shape)}
+        out[f"q{bits}_logits"] = pred.run(qids).numpy()
+        out[f"q{bits}_greedy"] = pred.generate(qids,
+                                               max_new_tokens=6).numpy()
+    m = _serve(_tp_model(p["qcfg"], p["qparams"]))
+    pred = ptt.Predictor(m, ptt.Config().enable_weight_only_quant(8),
+                         device="cpu")
+    fuse_projections(pred.model)
+    out["q8_fused_logits"] = pred.run(qids).numpy()
+    out.update(_quant_layer_cases(p, world))
+    out.update(_refusals(p, world))
+    C._eager = real_eager
+    return out
+
+
+def _quant_layer_cases(p, world):
+    """The quantized tp layers: a gathered column layer quantized whole
+    then sharded equals the dense quantized layer (the JAX test_quant
+    case); a row layer's codes split on in read their blocks of the whole
+    scales table; a row split off the 128-row blocks raises."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.parallel import (ColumnParallelLinear,
+                                           RowParallelLinear)
+    from paddle_tpu_torch.parallel.sharding import shard_layer
+    from paddle_tpu_torch.quant import QuantizedLinear, linear_quant_meta
+    out = {}
+    gen = ptt.make_generator(7, "cpu")
+    x = torch.from_numpy(p["qx"])
+    col = ColumnParallelLinear(128, 64, gather_output=True, generator=gen,
+                               device="cpu")
+    q = QuantizedLinear.from_linear(col, bits=8)
+    ref = q(x)
+    shard_layer(q)
+    out["col_dense"] = (ref.numpy(), q(x).numpy(), tuple(q.qweight.shape))
+    for bits in (8, 4):
+        row = RowParallelLinear(256, 64, input_is_parallel=False,
+                                has_bias=True, generator=gen, device="cpu")
+        with torch.no_grad():
+            row.bias.normal_(generator=gen)
+        meta = linear_quant_meta(row)
+        q = QuantizedLinear.from_linear(row, bits=bits)
+        ref = q(x.repeat(1, 2))
+        shard_layer(q)
+        out[f"row{bits}"] = (ref.numpy(), q(x.repeat(1, 2)).numpy(),
+                             tuple(q.qweight.shape), tuple(q.scales.shape),
+                             meta)
+        # quantized after sharding: the same codes, the scales gathered
+        row2 = RowParallelLinear(256, 64, input_is_parallel=False,
+                                 generator=ptt.make_generator(9, "cpu"),
+                                 device="cpu")
+        whole = QuantizedLinear.from_linear(row2, bits=bits)
+        shard_layer(row2)
+        part = QuantizedLinear.from_linear(row2, bits=bits)
+        n = whole.qweight.shape[0] // world
+        r = torch.distributed.get_rank()
+        out[f"row{bits}_after"] = (
+            torch.equal(part.qweight, whole.qweight[r * n:(r + 1) * n]),
+            torch.equal(part.scales, whole.scales))
+    # a row split of 128 / tp rows cuts a scale block
+    bad = RowParallelLinear(128, 64, generator=gen, device="cpu")
+    q = QuantizedLinear.from_linear(bad, bits=8)
+    try:
+        shard_layer(q)
+        out["row_indivisible"] = None
+    except ValueError as e:
+        out["row_indivisible"] = str(e)
+    shard_layer(bad)
+    try:
+        QuantizedLinear.from_linear(bad, bits=8)
+        out["row_indivisible_after"] = None
+    except ValueError as e:
+        out["row_indivisible_after"] = str(e)
+    return out
+
+
+def _refusals(p, world):
+    """NotImplementedError for an MoE model on the tp mesh and for a
+    gateway over a tp engine; a schedule that parts across the ranks
+    raises on every rank."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.models import Qwen2MoeForCausalLM, qwen2_moe_tiny
+    from paddle_tpu_torch.serving.gateway import Gateway
+    out = {}
+    moe = _serve(Qwen2MoeForCausalLM(qwen2_moe_tiny(), device="cpu"))
+    ids = torch.ones(1, 4, dtype=torch.int64)
+    for key, fn in (("moe_generate",
+                     lambda: ptt.generate(moe, ids, max_new_tokens=2)),
+                    ("moe_engine", lambda: PagedEngine(moe))):
+        try:
+            fn()
+            out[key] = None
+        except NotImplementedError as e:
+            out[key] = str(e)
+    model = _serve(_tp_model(p["cfg"], p["params"]))
+    eng = PagedEngine(model, max_slots=2, num_blocks=16, block_size=8,
+                      max_blocks_per_seq=4, prefill_buckets=(16,))
+    try:
+        Gateway(eng)
+        out["gateway"] = None
+    except NotImplementedError as e:
+        out["gateway"] = str(e)
+    # rank 0 submits 5 prompt tokens, the others 6: one prefill bucket,
+    # so every collective matches, and the digest parts
+    rank = torch.distributed.get_rank()
+    eng.submit("x", np.arange(1, 6 if rank == 0 else 7), max_new_tokens=2)
+    try:
+        eng.run()
+        out["diverge"] = None
+    except RuntimeError as e:
+        out["diverge"] = str(e)
+    return out
+
+
+def tp4_serving_cases(rank, world, p):
+    """tp 4: one kv head a rank; the fused interleave at T = 4 through
+    generate() and the engine."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.nn.fuse import fuse_projections
+    out = {}
+    env.init_parallel_env({"tp": world}, device="cpu")
+    model = _serve(_tp_model(p["cfg"], p["params"]))
+    out["cache_heads"] = model.init_kv_caches(1, 4)[0][0].shape[2]
+    ids = torch.from_numpy(np.asarray(p["prompts"]["b"]))
+    out["greedy"] = ptt.generate(model, ids, max_new_tokens=8).numpy()
+    fuse_projections(model)
+    out["fused_qkv_local"] = model.model.layers[0].self_attn.qkv_proj \
+        .weight.numpy().copy()
+    out["fused_greedy"] = ptt.generate(model, ids, max_new_tokens=8).numpy()
+    eng = PagedEngine(model, max_slots=2, num_blocks=24, block_size=8,
+                      max_blocks_per_seq=6, prefill_buckets=(16,),
+                      chunk_prefill_tokens=8, enable_prefix_cache=True)
+    eng.submit("b", np.asarray(p["prompts"]["b"]), max_new_tokens=8)
+    out["paged"] = list(eng.run()["b"])
+    out["pools"] = tuple(eng.pools[0][0].shape)
+    return out
+
+
+CASES.update(tp_serving=tp_serving_cases, tp4_serving=tp4_serving_cases)
