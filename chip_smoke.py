@@ -329,6 +329,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    tests. The phase's flash, decode, ragged and quant launches join the
    kernels line's.
 
+16. tensor-parallel serving behind the fleet (``[tp-serve]`` lines,
+   last): (a) ``LocalProcessManager(tp=1)`` spawns ``replica_main --tp 1
+   --model llama3-8b --seed`` through ``paddle_tpu_torch.distributed.
+   launch`` (Llama-3-8B at full width and depth, built sharded on a
+   world-one NCCL mesh and bound once, its engine behind the
+   ``SequencedEngine`` that a tp replica's rank 0 serves: every call
+   recorded, encoded, decoded and applied before each step, with no
+   collective at tp 1) behind a ``FleetFrontend``; 8 greedy requests
+   sharing a 384-token prefix and one sampled: every stream bit for bit a
+   direct plain ``PagedEngine`` on this process's own model from the
+   seed (tokens and logprobs). Read from the replica's ``/debugz`` over
+   the traffic: ragged launches exactly 32 a decode tick, all on mma;
+   flash launches 0 (the engine's prefill chunks attend through dense
+   attention, as phase 11's counts show: flash serves ``generate()``);
+   the sequencer's host microseconds a step (record, send, apply). Printed: client TTFT p50/p99 and new tokens/s. A
+   SIGTERM drains the replica and every process of it exits 0. (b)
+   ``from_pretrained`` of the 2-layer full-width Llama-3-8B checkpoint
+   (phase 10 (e)'s) inside ``sharded_build`` on a world-one NCCL mesh:
+   every parameter bit for bit the whole loader's, with each load's
+   seconds and peak card memory. tp > 1 (the broadcast to other ranks, a
+   follower's loss, a rank's slices of a checkpoint) is proved by the
+   CPU gloo tests. The phase's ragged launches join the kernels line's.
+
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
@@ -2763,6 +2786,35 @@ def _write_safetensors(path, tensors):
             f.write(t.contiguous().view(torch.uint8).numpy().tobytes())
 
 
+def _write_hf_llama(d, cfg, tensors) -> int:
+    """A Llama's {name: CPU bf16 tensor} as an HF checkpoint in ``d``: two
+    shards (the decoder layers, the rest) and an index, and a
+    ``config.json`` of ``cfg``'s widths. Returns the bytes written."""
+    shards = {n: ("model-00001-of-00002.safetensors"
+                  if n.startswith("model.layers.")
+                  else "model-00002-of-00002.safetensors")
+              for n in sorted(tensors)}
+    for shard in sorted(set(shards.values())):
+        _write_safetensors(os.path.join(d, shard),
+                           {n: tensors[n] for n in sorted(tensors)
+                            if shards[n] == shard})
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"weight_map": shards}, f)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"model_type": "llama", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_hidden_layers,
+                   "num_attention_heads": cfg.num_attention_heads,
+                   "num_key_value_heads": cfg.num_key_value_heads,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "rms_norm_eps": cfg.rms_norm_eps,
+                   "rope_theta": cfg.rope_theta,
+                   "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"}, f)
+    return sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+
+
 # Llama-3.2-1B's published widths (its config.json): the draft model of
 # the speculative check, with random weights from the seed
 LLAMA32_1B = dict(vocab_size=128256, hidden_size=2048,
@@ -3006,32 +3058,7 @@ def _family_hf(ptt, dev, card, seed):
     try:
         t0 = time.perf_counter()
         names = sorted(tensors)
-        shards = {n: ("model-00001-of-00002.safetensors"
-                      if n.startswith("model.layers.")
-                      else "model-00002-of-00002.safetensors")
-                  for n in names}
-        for shard in sorted(set(shards.values())):
-            _write_safetensors(os.path.join(d, shard),
-                               {n: tensors[n] for n in names
-                                if shards[n] == shard})
-        with open(os.path.join(d, "model.safetensors.index.json"),
-                  "w") as f:
-            json.dump({"weight_map": shards}, f)
-        with open(os.path.join(d, "config.json"), "w") as f:
-            json.dump({"model_type": "llama", "vocab_size": cfg.vocab_size,
-                       "hidden_size": cfg.hidden_size,
-                       "intermediate_size": cfg.intermediate_size,
-                       "num_hidden_layers": 2,
-                       "num_attention_heads": cfg.num_attention_heads,
-                       "num_key_value_heads": cfg.num_key_value_heads,
-                       "max_position_embeddings":
-                           cfg.max_position_embeddings,
-                       "rms_norm_eps": cfg.rms_norm_eps,
-                       "rope_theta": cfg.rope_theta,
-                       "tie_word_embeddings": False,
-                       "torch_dtype": "bfloat16"}, f)
-        nbytes = sum(os.path.getsize(os.path.join(d, n))
-                     for n in os.listdir(d))
+        nbytes = _write_hf_llama(d, cfg, tensors)
         t_write = time.perf_counter() - t0
         t0 = time.perf_counter()
         model = hf_interop.from_pretrained(d, device=dev)
@@ -6904,6 +6931,258 @@ def phase_tp(seed, gen, dev, card):
     return _tp_serving(seed, dev, card)
 
 
+# phase 16: tp serving behind the fleet. 8 greedy requests share a
+# 384-token prefix (tails of 16-128 tokens), one sampled; 64 new each
+TP_SERVE_PREFIX = 384
+TP_SERVE_NEW = 64
+
+
+def _tp_serve_requests(seed, vocab):
+    import numpy as np
+    rs = np.random.RandomState(seed + 60)
+    gen = torch.Generator().manual_seed(seed + 61)
+
+    def ids(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+    prefix = ids(TP_SERVE_PREFIX)
+    reqs = [dict(request_id=f"t{i}",
+                 prompt=prefix + ids(int(rs.randint(16, 129))),
+                 max_new_tokens=TP_SERVE_NEW) for i in range(8)]
+    reqs.append(dict(request_id="ts", prompt=ids(300),
+                     max_new_tokens=TP_SERVE_NEW, temperature=0.8,
+                     top_p=0.95, seed=seed + 62))
+    return reqs
+
+
+def _flash_of(debugz):
+    k = debugz.get("kernel_launches", {}).get("flash_attention_fwd") \
+        or {"launches": 0, "by_route": {}}
+    return k["launches"], dict(k["by_route"])
+
+
+async def _tp_serve_traffic(fe, reqs):
+    """Every request through ``fe`` at once, SSE: {rid: (status, final
+    event, tokens, TTFT ms)} and the wall seconds."""
+    import asyncio
+    await fe.start()
+    out = {}
+
+    async def one(r):
+        units = []
+        st, fin, t0 = await _sse_timed(fe.port, r, units)
+        out[r["request_id"]] = (st, fin or {}, [u[0] for u in units],
+                                (units[0][2] - t0) * 1e3 if units else None)
+    t0 = time.perf_counter()
+    await asyncio.gather(*[one(r) for r in reqs])
+    wall = time.perf_counter() - t0
+    await fe.drain()
+    return out, wall
+
+
+def _tp_serve_fleet(seed, dev, card):
+    """(a) One tp replica of one rank behind the fleet: spawned through
+    the launcher, its streams bit for bit a direct plain engine's, its
+    launches read from its /debugz, drained by SIGTERM. Returns the
+    traffic's ragged launches."""
+    import asyncio
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.serving.fleet import (FleetFrontend,
+                                                LocalProcessManager)
+    from paddle_tpu_torch.serving.fleet.replica_main import \
+        llama3_8b_engine_kw
+    cfg = ptt.llama3_8b()
+    L = cfg.num_hidden_layers
+    reqs = _tp_serve_requests(seed, cfg.vocab_size)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_serve_")
+    fe = FleetFrontend([], chunk_tokens=128, name="chip-tp-serve",
+                       peer_read_timeout_s=FLEET_PEER_READ_TIMEOUT_S)
+    mgr = LocalProcessManager(fe, model="llama3-8b", chunk_tokens=128,
+                              seed=seed, tp=1,
+                              spawn_timeout_s=FLEET_SPAWN_TIMEOUT_S,
+                              probe_interval_s=0.25, stale_after_s=10.0,
+                              drain_grace_s=60.0, log_dir=log_dir)
+    proc = None
+    try:
+        t0 = time.perf_counter()
+        try:
+            peer = mgr.spawn()
+        except Exception as e:
+            for name in os.listdir(log_dir):
+                with open(os.path.join(log_dir, name)) as f:
+                    log(f"[tp-serve] {name}: ...{f.read()[-3000:]}")
+            fail(f"tp-serve (a): the tp replica did not start: {e!r}")
+        cold_s = time.perf_counter() - t0
+        proc = mgr.procs[peer.name]
+        dz0 = _replica_doc(peer, "/debugz")
+        seq0 = dz0["replicas"]["r0"]["engine"]["tp_sequencer"]
+        rag0, _ = _ragged_of(dz0)
+        fl0, _ = _flash_of(dz0)
+        steps0 = _decode_steps(_replica_doc(peer, "/healthz"))
+        results, wall = asyncio.run(_tp_serve_traffic(fe, reqs))
+        dz1 = _replica_doc(peer, "/debugz")
+        seq1 = dz1["replicas"]["r0"]["engine"]["tp_sequencer"]
+        rag1, rag_routes = _ragged_of(dz1)
+        fl1, fl_routes = _flash_of(dz1)
+        ticks = _decode_steps(_replica_doc(peer, "/healthz")) - steps0
+        ragged, flash = rag1 - rag0, fl1 - fl0
+        steps = seq1["steps"] - seq0["steps"]
+        per_step = {k: (seq1["host_us"][k] - seq0["host_us"][k])
+                    / max(steps, 1)
+                    for k in ("record", "broadcast", "apply", "step")}
+        pids = seq1["pids"]
+        # the SIGTERM drain: the launcher passes it on, rank 0 drains
+        t0 = time.perf_counter()
+        mgr.stop_all(grace_s=60.0)
+        rc = proc.wait(10)
+        drain_s = time.perf_counter() - t0
+        alive = [p for p in pids if os.path.exists(f"/proc/{p}")
+                 and open(f"/proc/{p}/stat").read().rsplit(")", 1)[1]
+                 .split()[0] != "Z"]
+        # the direct plain engine on this process's own model
+        model = ptt.LlamaForCausalLM(cfg, device=dev,
+                                     generator=ptt.make_generator(seed,
+                                                                  dev))
+        direct = PagedEngine(model, **llama3_8b_engine_kw())
+        for r in reqs:
+            direct.submit(r["request_id"], torch.as_tensor(r["prompt"]),
+                          **{k: v for k, v in r.items()
+                             if k not in ("request_id", "prompt")})
+        ref = direct.run()
+        bad = [r["request_id"] for r in reqs
+               if results[r["request_id"]][0] != 200
+               or results[r["request_id"]][1].get("finish_reason") != "stop"
+               or results[r["request_id"]][2] != ref[r["request_id"]]
+               or results[r["request_id"]][1].get("tokens")
+               != ref[r["request_id"]]
+               or results[r["request_id"]][1].get("logprobs")
+               != direct.logprobs[r["request_id"]]]
+        ttft = np.array([v[3] for v in results.values() if v[3] is not None])
+        new_tokens = sum(len(v[2]) for v in results.values())
+        log(f"[tp-serve] (a) replica_main --tp 1 --model llama3-8b --seed "
+            f"{seed} through paddle_tpu_torch.distributed.launch (world-one "
+            f"NCCL mesh, the model built sharded and bound once, its engine "
+            f"behind the SequencedEngine) up in {cold_s:.1f} s; 9 requests "
+            f"through a FleetFrontend (8 greedy sharing a "
+            f"{TP_SERVE_PREFIX}-token prefix, 1 sampled; {TP_SERVE_NEW} "
+            f"new each): {new_tokens} new tokens in {wall:.2f} s, "
+            f"{new_tokens / wall:.1f} new tokens/s; client TTFT p50 "
+            f"{np.percentile(ttft, 50):.1f} ms p99 "
+            f"{np.percentile(ttft, 99):.1f} ms; streams bit for bit the "
+            f"direct plain engine's (tokens and logprobs): "
+            f"{len(reqs) - len(bad)} of {len(reqs)} [{card}]")
+        log(f"[tp-serve] (a) the sequencer over the traffic: {steps} steps; "
+            f"host us a step: record {per_step['record']:.1f}, send "
+            f"(encode, decode; no collective at tp 1) "
+            f"{per_step['broadcast']:.1f}, apply {per_step['apply']:.1f}, "
+            f"the engine's step {per_step['step']:.1f}; "
+            f"{seq1['batch_bytes'] - seq0['batch_bytes']} batch bytes "
+            f"[{card}]")
+        log(f"[tp-serve] (a) the replica's launches over the traffic, read "
+            f"from its /debugz: ragged {ragged} = {L} x {ticks} decode "
+            f"ticks (by route {rag_routes}), flash {flash} (the engine's "
+            f"prefill chunks attend densely; by route {fl_routes}); SIGTERM "
+            f"drained it in "
+            f"{drain_s:.1f} s: launcher exit {rc}, rank processes left "
+            f"{alive} [{card}]")
+        if bad:
+            fail(f"tp-serve (a): streams differ from the direct plain "
+                 f"engine's: {bad}")
+        if ragged != L * ticks or not ticks or _taken(rag_routes) != {"mma"}:
+            fail(f"tp-serve (a): ragged launches {ragged} in {ticks} ticks "
+                 f"(want {L} a tick, on mma: {rag_routes})")
+        if flash:
+            fail(f"tp-serve (a): flash launches {flash} in the engine's "
+                 f"traffic (want 0: its prefill chunks attend densely)")
+        if rc != 0 or alive:
+            fail(f"tp-serve (a): the drained replica's launcher exited {rc}, "
+                 f"rank processes left {alive}")
+        del direct, model
+        return {"ragged": ragged}
+    finally:
+        mgr.stop_all(grace_s=10.0)
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(10)
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def _tp_serve_loader(seed, dev, card):
+    """(b) The 2-layer full-width Llama-3-8B checkpoint loaded whole, then
+    inside ``sharded_build`` on a world-one NCCL mesh: every parameter
+    bit for bit, each load's seconds and peak card memory."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.models import hf_interop
+    from paddle_tpu_torch.parallel.sharding import local, sharded_build
+    cfg = ptt.llama3_8b(num_hidden_layers=2)
+    src = ptt.LlamaForCausalLM(cfg, device=dev,
+                               generator=ptt.make_generator(seed + 50, dev))
+    tensors = {k: v.detach().cpu().to(torch.bfloat16)
+               for k, v in src.state_dict().items()}
+    del src
+    d = tempfile.mkdtemp(prefix="hf_llama_tp_")
+    try:
+        nbytes = _write_hf_llama(d, cfg, tensors)
+        del tensors
+
+        def load(**kw):
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            m = hf_interop.from_pretrained(d, device=dev)
+            torch.cuda.synchronize()
+            return (m, time.perf_counter() - t0,
+                    (torch.cuda.max_memory_allocated(dev) - base) / 2**30)
+        whole, t_whole, peak_whole = load()
+        env.init_parallel_env({"tp": 1})
+        try:
+            with sharded_build(fsdp_min_size=1 << 30):
+                per, t_per, peak_per = load()
+            want, got = whole.state_dict(), per.state_dict()
+            bad = [k for k in want if k not in got
+                   or not torch.equal(local(got[k]), want[k])]
+            log(f"[tp-serve] (b) from_pretrained of a 2-layer Llama-3-8B "
+                f"checkpoint ({nbytes / 1e9:.2f} GB bf16, 2 shards + index): "
+                f"whole {t_whole:.1f} s, peak {peak_whole:.2f} GiB above "
+                f"what was resident; inside sharded_build on a world-one "
+                f"NCCL mesh (every tensor read through the file's memory "
+                f"map, a rank's slice at a time) {t_per:.1f} s, peak "
+                f"{peak_per:.2f} GiB; parameters bit for bit the whole "
+                f"loader's: {len(want) - len(bad)} of {len(want)} [{card}]")
+            if bad or set(got) != set(want):
+                fail(f"tp-serve (b): per-rank parameters differ from the "
+                     f"whole loader's: {bad[:4]}")
+        finally:
+            env.clear_mesh()
+            dist.destroy_process_group()
+        del whole, per
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_tp_serve(seed, dev, card):
+    """Tensor-parallel serving behind the fleet at a world of one
+    (``[tp-serve]`` lines): (a) the replica, (b) the per-rank loader.
+    Returns the main path's launches."""
+    t0 = time.perf_counter()
+    launches = _tp_serve_fleet(seed, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tp_serve_loader(seed, dev, card)
+    log(f"[tp-serve] phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6994,6 +7273,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for key, n in phase_tp(args.seed, gen, dev, card).items():
+        launches[key] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_tp_serve(args.seed, dev, card).items():
         launches[key] += n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),

@@ -44,8 +44,13 @@ def load_jax_state_dict(model: nn.Module,
       ``nn.fuse.fuse_projections`` at the same tp degree: the fused
       layers are ``Linear``s, so their weights are transposed, and both
       packages interleave the outputs in the same rank order.
-    - On a tp mesh, load into the whole model, then shard it
-      (``parallel.sharding.shard_layer``): each rank keeps its shards.
+    - On a mesh, into a model already sharded (built in
+      ``parallel.sharding.sharded_build``, cut by ``shard_layer``; or the
+      whole model, sharded after): each rank reads only its own slice of
+      each array (a DTensor parameter's shard, a ``buffer_partitions()``
+      buffer's cut) and copies it into its shard, so no rank makes a
+      tensor of a sharded parameter's whole shape. The shapes checked
+      are the logical ones.
     """
     own = model.state_dict(keep_vars=True)
     missing = [k for k in own if k not in params]
@@ -65,9 +70,12 @@ def _transposed(model: nn.Module):
 def copy_jax_params(model: nn.Module, params: Mapping[str, np.ndarray],
                     own=None) -> None:
     """Copy each of ``params`` into the model's tensor of that name, with
-    :func:`load_jax_state_dict`'s transposes and casts, without its check
-    that every key is there (``from_pretrained`` loads a checkpoint one
-    shard at a time and checks the keys at the end)."""
+    :func:`load_jax_state_dict`'s transposes, casts and sharding, without
+    its check that every key is there (``from_pretrained`` loads a
+    checkpoint one shard at a time and checks the keys at the end). A
+    value may be any array with ``shape``, ``.T`` and basic indexing
+    that reads only what it is indexed by (``from_pretrained``'s views
+    of a checkpoint file)."""
     own = model.state_dict(keep_vars=True) if own is None else own
     transposed = _transposed(model)
     for name in params:
@@ -76,15 +84,47 @@ def copy_jax_params(model: nn.Module, params: Mapping[str, np.ndarray],
         if torch.is_tensor(src):
             src = src.detach().cpu().float().numpy() \
                 if src.is_floating_point() else src.cpu().numpy()
-        src = np.asarray(src)
-        value = torch.from_numpy(np.array(
-            src, np.float32 if dst.is_floating_point() else src.dtype))
+        elif not hasattr(src, "shape"):
+            src = np.asarray(src)
         if name in transposed:
-            value = value.T
-        if tuple(value.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: shape {tuple(value.shape)} after "
-                             f"conversion, model holds {tuple(dst.shape)}")
-        dst.copy_(value.to(device=dst.device, dtype=dst.dtype))
+            src = src.T
+        target, idx, held = _rank_target(model, name, dst, src.shape)
+        if tuple(src.shape) != held:
+            raise ValueError(f"{name}: shape {tuple(src.shape)} after "
+                             f"conversion, model holds {held}")
+        part = _read_part(src, idx)
+        value = torch.from_numpy(np.array(
+            part, np.float32 if dst.is_floating_point() else part.dtype))
+        target.copy_(value.to(device=target.device, dtype=target.dtype))
+
+
+def _rank_target(model: nn.Module, name: str, dst, shape):
+    """(the tensor this rank fills for ``name``, the index of its slice
+    of a source of logical ``shape``, the logical shape the model
+    holds): a DTensor's local shard and index, a buffer cut by its
+    module's ``buffer_partitions()`` and its index, else the whole."""
+    from .parallel.sharding import (_owner, buffer_index, is_sharded,
+                                    local, local_index)
+    if is_sharded(dst):
+        return local(dst), local_index(dst), tuple(dst.shape)
+    whole = tuple(slice(None) for _ in dst.shape)
+    owner, attr = _owner(model, name)
+    parts = getattr(owner, "buffer_partitions", None)
+    part = parts().get(attr) if parts is not None and getattr(
+        owner, "_buffers_sharded", False) else None
+    if part is None or len(shape) != dst.ndim:
+        return dst, whole, tuple(dst.shape)
+    from .distributed.env import get_mesh
+    idx = buffer_index(shape, part, get_mesh())
+    if tuple(s.stop - s.start for s in idx) != tuple(dst.shape):
+        return dst, whole, f"a shard of shape {tuple(dst.shape)}"
+    return dst, idx, tuple(shape)
+
+
+def _read_part(src, idx):
+    """``src[idx]`` as an array of its own (a view of a checkpoint file
+    reads only those elements)."""
+    return np.asarray(src[idx])
 
 
 @torch.no_grad()

@@ -8,14 +8,17 @@ the script in-process. Here each rank is a process of its own with one
 device, as Paddle's own launcher does it:
 
     python -m paddle_tpu_torch.distributed.launch --nproc N [--cpu]
-        [--timeout S] script.py [args...]
+        [--timeout S] [--grace S] (script.py | -m module) [args...]
 
-starts N copies of the script with ``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` set (rank r drives
-card r; with ``--cpu`` the ranks run on the CPU over gloo). The job ends
-with the first non-zero exit code of any rank: the others are stopped
-(SIGTERM, then SIGKILL after a grace period), so a dead rank never hangs
-the job. ``--nproc`` defaults to the number of cards.
+starts N copies of the script (or of ``python -m module``) with
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` set (rank r drives card r; with ``--cpu`` the ranks run
+on the CPU over gloo). The job ends with the first non-zero exit code
+of any rank: the others are stopped (SIGTERM, then SIGKILL after
+``--grace`` seconds), so a dead rank never hangs the job. A SIGTERM to
+the launcher reaches every rank, and the job then ends with the ranks'
+own codes (0 when each exits 0 within the grace period, as a draining
+server's ranks do). ``--nproc`` defaults to the number of cards.
 
 In the script, :func:`init_distributed` (called by
 ``env.init_parallel_env`` and ``fleet.init`` when no process group is up)
@@ -100,11 +103,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _stop(procs: List[subprocess.Popen]):
+def _stop(procs: List[subprocess.Popen], grace_s: float = GRACE_S):
     for p in procs:
         if p.poll() is None:
             p.send_signal(signal.SIGTERM)
-    deadline = time.monotonic() + GRACE_S
+    deadline = time.monotonic() + grace_s
     for p in procs:
         try:
             p.wait(timeout=max(0.0, deadline - time.monotonic()))
@@ -113,10 +116,29 @@ def _stop(procs: List[subprocess.Popen]):
             p.wait()
 
 
+def _split_module(argv: List[str]):
+    """(the launcher's own arguments, the module after ``-m`` or None,
+    the module's arguments): like ``python -m``, everything after the
+    module's name is the module's."""
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok == "-m":
+            if i + 1 >= len(argv):
+                raise SystemExit("launch: -m needs a module name")
+            return argv[:i], argv[i + 1], argv[i + 2:]
+        if not tok.startswith("-"):
+            break                   # the script: the rest is its own
+        i += 1 if "=" in tok or tok in ("--cpu", "-h", "--help") else 2
+    return argv, None, []
+
+
 def launch(argv=None) -> int:
     """The CLI (see the module docstring). Returns the job's exit code:
     0 when every rank exits 0, else the first non-zero code seen (124
     when ``--timeout`` ran out)."""
+    own, module, module_args = _split_module(
+        list(sys.argv[1:] if argv is None else argv))
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.distributed.launch",
         description="Start one process per rank of a torch.distributed job.")
@@ -126,9 +148,16 @@ def launch(argv=None) -> int:
                     help="run the ranks on the CPU over gloo")
     ap.add_argument("--timeout", type=float, default=None,
                     help="seconds before the whole job is stopped")
-    ap.add_argument("script")
+    ap.add_argument("--grace", type=float, default=GRACE_S,
+                    help="seconds the ranks get to exit after a SIGTERM "
+                         "before SIGKILL")
+    ap.add_argument("script", nargs=None if module is None else "?")
     ap.add_argument("args", nargs=argparse.REMAINDER)
-    a = ap.parse_args(argv)
+    a = ap.parse_args(own)
+    if module is not None:
+        cmd = [sys.executable, "-m", module, *module_args]
+    else:
+        cmd = [sys.executable, a.script, *a.args]
     n = a.nproc if a.nproc is not None else (
         1 if a.cpu else torch.cuda.device_count())
     if n < 1:
@@ -136,9 +165,10 @@ def launch(argv=None) -> int:
               file=sys.stderr)
         return 2
     port = free_port()
-    # a SIGTERM to the launcher (a scheduler's preemption) reaches every
-    # rank through the stop below
-    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    # a SIGTERM to the launcher (a scheduler's preemption, a fleet's
+    # drain) reaches every rank; the ranks then get the grace period
+    term = []
+    signal.signal(signal.SIGTERM, lambda *_: term.append(time.monotonic()))
     procs = []
     for r in range(n):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
@@ -146,13 +176,13 @@ def launch(argv=None) -> int:
                    MASTER_PORT=str(port))
         if a.cpu:
             env["PADDLE_TPU_DIST_DEVICE"] = "cpu"
-        procs.append(subprocess.Popen([sys.executable, a.script, *a.args],
-                                      env=env))
+        procs.append(subprocess.Popen(cmd, env=env))
     print(f"paddle_tpu_torch.launch: {n} rank(s) on "
           f"{'the CPU' if a.cpu else 'the cards'}, port {port}",
           file=sys.stderr)
     deadline = None if a.timeout is None else time.monotonic() + a.timeout
     rc = 0
+    forwarded = False
     try:
         while True:
             codes = [p.poll() for p in procs]
@@ -162,6 +192,14 @@ def launch(argv=None) -> int:
                 break
             if all(c == 0 for c in codes):
                 break
+            if term and not forwarded:
+                forwarded = True
+                for p in procs:
+                    if p.poll() is None:
+                        p.send_signal(signal.SIGTERM)
+            if term and time.monotonic() > term[0] + a.grace:
+                rc = 128 + signal.SIGTERM
+                break
             if deadline is not None and time.monotonic() > deadline:
                 print("launch: --timeout ran out; stopping every rank",
                       file=sys.stderr)
@@ -169,7 +207,7 @@ def launch(argv=None) -> int:
                 break
             time.sleep(0.1)
     finally:
-        _stop(procs)
+        _stop(procs, a.grace)
     return rc
 
 

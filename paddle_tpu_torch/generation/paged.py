@@ -1477,22 +1477,9 @@ class PagedEngine:
             raise BackpressureError(
                 f"engine admission queue at capacity ({self.max_queue} "
                 f"queued); shed load or retry with backoff")
-        if max_new_tokens < 1:
-            raise ValueError("max_new_tokens must be >= 1")
-        stop = tuple(tuple(int(t) for t in s)
-                     for s in (stop_sequences or ()))
-        if any(len(s) == 0 for s in stop):
-            raise ValueError("empty stop sequence")
-        if repetition_penalty <= 0:
-            raise ValueError("repetition_penalty must be > 0")
-        ids = [int(t) for t in np.asarray(input_ids).reshape(-1)]
-        total = len(ids) + max_new_tokens
-        if total > self.M * self.B:
-            raise ValueError(f"request needs {total} tokens > "
-                             f"max_blocks_per_seq*block_size "
-                             f"{self.M * self.B}")
-        if self._blocks_needed(total) > self.P - 1:
-            raise ValueError("request alone exceeds the block pool")
+        ids, stop, resume = self.check_submit(
+            input_ids, max_new_tokens, stop_sequences, repetition_penalty,
+            resume_tokens)
         self._submit_counter += 1
         if seed is None:
             # monotone per-engine counter: repeated unseeded sampled
@@ -1502,11 +1489,6 @@ class PagedEngine:
             else self.default_timeout_s
         deadline = (time.monotonic() + timeout_s) \
             if timeout_s is not None else None
-        resume = [int(t) for t in (resume_tokens or ())]
-        if resume and ids[-len(resume):] != resume:
-            raise ValueError(
-                "resume_tokens must be the tail of input_ids (the "
-                "preemption fold: prompt' = prompt + emitted)")
         rlps = [float(v) for v in (resume_lps or ())]
         if resume and len(rlps) != len(resume):
             rlps = [float("nan")] * len(resume)
@@ -1529,6 +1511,35 @@ class PagedEngine:
             # the tick loop)
             while self._try_admit():
                 pass
+
+    def check_submit(self, input_ids, max_new_tokens: int = 32,
+                     stop_sequences=None, repetition_penalty: float = 1.0,
+                     resume_tokens=None):
+        """The ``ValueError``s of :meth:`submit` for these arguments,
+        raised without touching the engine; returns the prompt, the stop
+        sequences and the resume tokens as :meth:`submit` reads them."""
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        stop = tuple(tuple(int(t) for t in s)
+                     for s in (stop_sequences or ()))
+        if any(len(s) == 0 for s in stop):
+            raise ValueError("empty stop sequence")
+        if repetition_penalty <= 0:
+            raise ValueError("repetition_penalty must be > 0")
+        ids = [int(t) for t in np.asarray(input_ids).reshape(-1)]
+        total = len(ids) + max_new_tokens
+        if total > self.M * self.B:
+            raise ValueError(f"request needs {total} tokens > "
+                             f"max_blocks_per_seq*block_size "
+                             f"{self.M * self.B}")
+        if self._blocks_needed(total) > self.P - 1:
+            raise ValueError("request alone exceeds the block pool")
+        resume = [int(t) for t in (resume_tokens or ())]
+        if resume and ids[-len(resume):] != resume:
+            raise ValueError(
+                "resume_tokens must be the tail of input_ids (the "
+                "preemption fold: prompt' = prompt + emitted)")
+        return ids, stop, resume
 
     def _blocks_needed(self, n_tokens: int) -> int:
         return (n_tokens + self.B - 1) // self.B

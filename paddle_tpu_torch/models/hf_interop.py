@@ -20,7 +20,10 @@ package: an 8-byte little-endian header length, a JSON header of
 tensors. BF16 tensors come back as float32 numpy arrays (numpy has no
 bf16 type; the JAX package's reader gives ml_dtypes' bf16, or float32
 through torch, by the ``safetensors`` version), every other dtype as
-itself, with the JAX reader's values.
+itself, with the JAX reader's values. ``from_pretrained`` reads each
+file through a memory map, one tensor (on a tp mesh, one rank's slice
+of it: a column shard is contiguous rows, a row shard strided) at a
+time.
 
 The encoder and vision families' converters come with their models.
 """
@@ -44,54 +47,108 @@ _NUMPY_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
                  "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_}
 
 
-def _load_safetensors_file(path: str) -> Dict[str, np.ndarray]:
-    """{name: array} of one ``.safetensors`` file (BF16 as float32)."""
+class _FileArray:
+    """One tensor of a ``.safetensors`` file, read only where indexed:
+    ``a[idx]`` (basic indexing) reads those elements from the file's
+    memory map and returns a numpy array of its own (BF16 widened to
+    float32, bit for bit); ``a.T`` is a 2-D tensor's transposed view;
+    ``np.asarray(a)`` reads it whole."""
+
+    def __init__(self, raw: np.ndarray, bf16: bool, transposed=False):
+        self._raw, self._bf16, self._t = raw, bf16, transposed
+        self.shape = tuple(reversed(raw.shape)) if transposed \
+            else tuple(raw.shape)
+        self.ndim = len(self.shape)
+        self.dtype = np.dtype(np.float32) if bf16 else raw.dtype
+
+    @property
+    def T(self) -> "_FileArray":
+        if self.ndim != 2:
+            raise ValueError(f"transposed view of a {self.ndim}-D tensor")
+        return _FileArray(self._raw, self._bf16, not self._t)
+
+    def __getitem__(self, idx):
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        if self._t:
+            idx = tuple(reversed(idx + (slice(None),) * (2 - len(idx))))
+        out = np.array(self._raw[idx])
+        if self._bf16:
+            out = (out.astype(np.uint32) << 16).view(np.float32)
+        return out.T if self._t else out
+
+    def __array__(self, dtype=None, copy=None):
+        out = self[tuple(slice(None) for _ in self.shape)]
+        return out if dtype is None else out.astype(dtype)
+
+    def reshape(self, *shape):
+        return np.asarray(self).reshape(*shape)
+
+
+def _open_safetensors_file(path: str) -> Dict[str, "_FileArray"]:
+    """{name: :class:`_FileArray`} over one ``.safetensors`` file's
+    memory map (nothing read yet)."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = f.read()
+    size = os.path.getsize(path) - 8 - n
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n,
+                     shape=(size,)) if size else np.zeros(0, np.uint8)
     out = {}
     for name, info in header.items():
         if name == "__metadata__":
             continue
         lo, hi = info["data_offsets"]
         shape = tuple(info["shape"])
-        raw = data[lo:hi]
-        if info["dtype"] == "BF16":
-            t = torch.frombuffer(bytearray(raw), dtype=torch.bfloat16) \
-                if raw else torch.empty(0, dtype=torch.bfloat16)
-            out[name] = t.float().numpy().reshape(shape)
+        bf16 = info["dtype"] == "BF16"
+        if bf16:
+            dt = np.dtype("<u2")
         elif info["dtype"] in _NUMPY_DTYPES:
-            out[name] = np.frombuffer(
-                raw, dtype=np.dtype(_NUMPY_DTYPES[info["dtype"]])
-                .newbyteorder("<")).reshape(shape).copy()
+            dt = np.dtype(_NUMPY_DTYPES[info["dtype"]]).newbyteorder("<")
         else:
             raise ValueError(f"{path}: tensor {name} has dtype "
                              f"{info['dtype']}, which is not read here")
+        out[name] = _FileArray(data[lo:hi].view(dt).reshape(shape), bf16)
     return out
+
+
+def _load_safetensors_file(path: str) -> Dict[str, np.ndarray]:
+    """{name: array} of one ``.safetensors`` file (BF16 as float32)."""
+    return {k: np.asarray(v) for k, v in
+            _open_safetensors_file(path).items()}
+
+
+def _checkpoint_files(model_dir: str):
+    """The checkpoint's files in load order: safetensors shards by the
+    index, a single ``model.safetensors``, or ``pytorch_model.bin``."""
+    idx = os.path.join(model_dir, "model.safetensors.index.json")
+    if os.path.exists(idx):
+        with open(idx) as f:
+            weight_map = json.load(f)["weight_map"]
+        return [os.path.join(model_dir, shard)
+                for shard in sorted(set(weight_map.values()))]
+    for name in ("model.safetensors", "pytorch_model.bin"):
+        path = os.path.join(model_dir, name)
+        if os.path.exists(path):
+            return [path]
+    raise FileNotFoundError(f"no safetensors/bin checkpoint in {model_dir}")
+
+
+def _iter_checkpoint(model_dir: str, read) -> Iterator[Dict[str, Any]]:
+    """Each file's tensors: ``read(path)`` of a safetensors file, every
+    tensor of a ``.bin`` as float32 numpy."""
+    for path in _checkpoint_files(model_dir):
+        if path.endswith(".bin"):
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+            yield {k: v.float().numpy() for k, v in sd.items()}
+        else:
+            yield read(path)
 
 
 def iter_hf_checkpoint_shards(
         model_dir: str) -> Iterator[Dict[str, np.ndarray]]:
     """Yield tensors shard by shard, so the caller converts and places
     each and lets it go before the next loads (host peak: one shard)."""
-    idx = os.path.join(model_dir, "model.safetensors.index.json")
-    if os.path.exists(idx):
-        with open(idx) as f:
-            weight_map = json.load(f)["weight_map"]
-        for shard in sorted(set(weight_map.values())):
-            yield _load_safetensors_file(os.path.join(model_dir, shard))
-        return
-    single = os.path.join(model_dir, "model.safetensors")
-    if os.path.exists(single):
-        yield _load_safetensors_file(single)
-        return
-    binp = os.path.join(model_dir, "pytorch_model.bin")
-    if os.path.exists(binp):
-        sd = torch.load(binp, map_location="cpu", weights_only=True)
-        yield {k: v.float().numpy() for k, v in sd.items()}
-        return
-    raise FileNotFoundError(f"no safetensors/bin checkpoint in {model_dir}")
+    return _iter_checkpoint(model_dir, _load_safetensors_file)
 
 
 def load_hf_checkpoint(model_dir: str) -> Dict[str, np.ndarray]:
@@ -400,23 +457,35 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
     ``expert_bias`` (a checkpoint without ``e_score_correction_bias``
     balances otherwise) stays at zero, as the JAX package leaves it.
 
-    On a tp mesh each rank calls this, then ``parallel.sharding.
-    shard_layer`` (and ``bind_static`` to serve): each rank builds the
-    whole model and fills it, so at its peak a rank holds the whole
-    model plus one checkpoint shard's converted tensors; ``shard_layer``
-    then keeps only its shards (each parameter's full tensor is
-    dropped as its shard is made)."""
+    Each file is read through a memory map, one tensor at a time. On a
+    mesh, call it inside ``parallel.sharding.sharded_build`` on every
+    rank: the model is built there (each decoder layer cut to this
+    rank's shards as it is drawn), ``shard_layer`` cuts the rest with
+    the build's arguments, and each rank then reads only its own slice
+    of each tensor into its shard, so no rank holds a decoder layer
+    whole but the one being drawn. Call ``bind_static`` on the returned
+    model to serve it. The MoE families (which serve at tp 1) load whole
+    only: ``ValueError`` inside ``sharded_build``; load them outside it
+    and shard the model with ``shard_layer``."""
     import warnings
 
     from ..convert import copy_jax_params
+    from ..parallel import sharding
     cls, cfg, mt = config_from_hf(model_dir)
     if dtype is not None:
         cfg.dtype = dtype
+    build = sharding.open_build()
+    if build is not None and mt in _MOE_PARTS:
+        raise ValueError(f"{mt} loads whole: call from_pretrained outside "
+                         f"sharded_build, then shard_layer")
     model = (model_cls or cls)(cfg, device=device, generator=generator)
+    if build is not None:
+        mesh, kw = build
+        sharding.shard_layer(model, mesh, **kw)
     own = model.state_dict(keep_vars=True)
     loaded = set()
     experts: Dict[str, set] = {}
-    for shard in iter_hf_checkpoint_shards(model_dir):
+    for shard in _iter_checkpoint(model_dir, _open_safetensors_file):
         if mt in _MOE_PARTS:
             sd, parts = _MOE_PARTS[mt](shard, cfg)
         else:

@@ -169,16 +169,32 @@ def _distribute(t: torch.Tensor, sh: NamedSharding):
                              placements)
 
 
-def _buffer_shard(t: torch.Tensor, partition, mesh: Mesh) -> torch.Tensor:
-    """This rank's shard of the full buffer ``t`` (every rank holds the
-    same values: the same seed or checkpoint), as a tensor of its own so
-    the full one can be freed. Axes split a dim first axis major."""
+def _chunk_of(bounds, dim: int, n: int, c: int) -> None:
+    """Narrow ``bounds[dim]`` ([lo, hi]) to ``torch.chunk(n)``'s piece
+    ``c`` of it."""
+    lo, hi = bounds[dim]
+    step = -(-(hi - lo) // n)
+    bounds[dim] = [min(lo + c * step, hi), min(lo + (c + 1) * step, hi)]
+
+
+def buffer_index(shape, partition, mesh: Mesh) -> Tuple[slice, ...]:
+    """The index of this rank's shard of a buffer of the full ``shape``
+    cut by ``partition`` (axes split a dim first axis major), for any
+    array: a tensor, or a numpy view of a checkpoint read only there."""
+    bounds = [[0, int(n)] for n in shape]
     for dim, axes in enumerate(partition or ()):
         for a in _axes(axes) if axes is not None else ():
             n = mesh.shape.get(a, 1)
             if n > 1:
-                t = t.chunk(n, dim=dim)[mesh.coordinate(a)]
-    return t.clone()
+                _chunk_of(bounds, dim, n, mesh.coordinate(a))
+    return tuple(slice(lo, hi) for lo, hi in bounds)
+
+
+def _buffer_shard(t: torch.Tensor, partition, mesh: Mesh) -> torch.Tensor:
+    """This rank's shard of the full buffer ``t`` (every rank holds the
+    same values: the same seed or checkpoint), as a tensor of its own so
+    the full one can be freed."""
+    return t[buffer_index(t.shape, partition, mesh)].clone()
 
 
 def shard_layer(layer: nn.Module, mesh: Optional[Mesh] = None,
@@ -257,6 +273,12 @@ def sharded_build(mesh: Optional[Mesh] = None, **kw):
         yield
     finally:
         _BUILDS.pop()
+
+
+def open_build():
+    """The innermost open :func:`sharded_build`'s (mesh, ``kw``), or
+    None."""
+    return _BUILDS[-1] if _BUILDS else None
 
 
 def shard_built(layer: nn.Module) -> nn.Module:
@@ -400,19 +422,28 @@ def full_tensor(t):
     return t.full_tensor() if is_sharded(t) else t
 
 
+def local_index(like) -> Tuple[slice, ...]:
+    """The index of this rank's shard of DTensor ``like``'s logical
+    tensor (the whole of a plain tensor), for any array of that shape: a
+    tensor, or a numpy view of a checkpoint read only there. No
+    collective."""
+    bounds = [[0, int(n)] for n in like.shape]
+    if is_sharded(like):
+        from torch.distributed.tensor import Shard
+        mesh = like.device_mesh
+        for pl, n, c in zip(like.placements, mesh.mesh.shape,
+                            mesh.get_coordinate()):
+            if isinstance(pl, Shard) and n > 1:
+                _chunk_of(bounds, pl.dim, int(n), c)
+    return tuple(slice(lo, hi) for lo, hi in bounds)
+
+
 def local_shard(full: torch.Tensor, like) -> torch.Tensor:
     """This rank's shard of the logical tensor ``full`` in ``like``'s
     placements (``like`` a DTensor; else ``full``). No collective."""
     if not is_sharded(like):
         return full
-    from torch.distributed.tensor import Shard
-    mesh = like.device_mesh
-    coord = mesh.get_coordinate()
-    t = full
-    for pl, n, c in zip(like.placements, mesh.mesh.shape, coord):
-        if isinstance(pl, Shard) and n > 1:
-            t = t.chunk(int(n), dim=pl.dim)[c]
-    return t
+    return full[local_index(like)]
 
 
 def _shard_axes(t) -> Tuple[str, ...]:

@@ -12,7 +12,14 @@ only change a real multi-host deployment needs, which is why the
 manager speaks only argv + readiness line + SIGTERM.
 
 Children are started with ``subprocess`` (``sys.executable -m``), never
-``fork``: the parent may already hold a CUDA context. Replicas on the
+``fork``: the parent may already hold a CUDA context. With ``tp=N`` a
+replica is a tensor-parallel one: the manager starts
+``paddle_tpu_torch.distributed.launch --nproc N`` over ``replica_main
+--tp N`` in a session of its own, gives it N cards of its own
+(``CUDA_VISIBLE_DEVICES``; the launcher picks a free port a replica), and
+its ``kill`` and drain reach every rank (a SIGKILL goes to the whole
+process group; a SIGTERM to the launcher, which passes it on, and rank 0
+drains and then stops the other ranks). Replicas on the
 card run the hand-written kernels from the checkout's build directory;
 two cold children building the same library at once is safe (each
 compiles to a file of its own and renames it into place), and a parent
@@ -57,10 +64,16 @@ class LocalProcessManager:
                  stale_after_s: float = 1.5,
                  extra_args: Optional[List[str]] = None,
                  env: Optional[Dict[str, str]] = None,
-                 log_dir: Optional[str] = None):
+                 log_dir: Optional[str] = None,
+                 tp: Optional[int] = None,
+                 drain_grace_s: float = 30.0):
         """``device``: the replicas' device (None: the CUDA card;
         ``"cpu"`` asks for the CPU), passed on as ``--device``. ``seed``:
-        the Llama models' weights (``--seed``)."""
+        the Llama models' weights (``--seed``). ``tp``: each replica a
+        tensor-parallel one of ``tp`` rank processes under the launcher
+        (None: one process), each on ``tp`` of this process's visible
+        cards that no other replica holds. ``drain_grace_s``: how long a
+        drained replica may take before SIGKILL."""
         # frontend HA: ``frontend`` may be a LIST — every
         # frontend gets its OWN RemoteReplica adapter per spawned
         # process (own probe thread, own breaker, own staleness
@@ -82,6 +95,9 @@ class LocalProcessManager:
         self.extra_args = list(extra_args or ())
         self.env = dict(env or {})
         self.log_dir = log_dir
+        self.tp = None if tp is None else int(tp)
+        self.drain_grace_s = float(drain_grace_s)
+        self._taken: Dict[str, List[int]] = {}
         self._counter = 0
         self._pending = 0
         self._lock = threading.Lock()
@@ -132,8 +148,9 @@ class LocalProcessManager:
         obs.record_event("fleet_scale_down", fleet=self.name,
                          peer=peer.name, migrate=bool(migrate))
         if proc is not None:
-            threading.Thread(target=self._reap, args=(proc,),
-                             daemon=True).start()
+            threading.Thread(target=self._reap,
+                             args=(proc, self.drain_grace_s,
+                                   peer.name), daemon=True).start()
 
     def _remove_everywhere(self, peer_name: str):
         """Drop the named peer's adapter from EVERY frontend (each
@@ -143,8 +160,8 @@ class LocalProcessManager:
                 if p.name == peer_name:
                     fe.remove_peer(p)
 
-    @staticmethod
-    def _reap(proc: subprocess.Popen, grace_s: float = 30.0):
+    def _reap(self, proc: subprocess.Popen, grace_s: float = 30.0,
+              name: Optional[str] = None):
         try:
             proc.send_signal(signal.SIGTERM)
         except OSError:
@@ -152,8 +169,47 @@ class LocalProcessManager:
         try:
             proc.wait(grace_s)
         except subprocess.TimeoutExpired:
-            proc.kill()
+            self._sigkill(proc)
             proc.wait(5)
+        self._free_cards(name)
+
+    def _sigkill(self, proc: subprocess.Popen):
+        """SIGKILL the replica: a tp replica's whole process group (the
+        launcher and every rank), else the one process."""
+        if self.tp is None:
+            proc.kill()
+            return
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+
+    def _free_cards(self, name: Optional[str]):
+        with self._lock:
+            self._taken.pop(name, None)
+
+    def _take_cards(self, name: str) -> Optional[str]:
+        """``CUDA_VISIBLE_DEVICES`` for a tp replica's ``tp`` cards (None
+        on the CPU or for a one-process replica)."""
+        if self.tp is None or self.device == "cpu":
+            return None
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        if visible:
+            pool = list(range(len(visible.split(","))))
+        else:
+            import torch
+            pool = list(range(torch.cuda.device_count()))
+        with self._lock:
+            used = {c for cs in self._taken.values() for c in cs}
+            free = [c for c in pool if c not in used]
+            if len(free) < self.tp:
+                raise RuntimeError(
+                    f"a tp {self.tp} replica needs {self.tp} free cards; "
+                    f"{len(free)} of {len(pool)} are free")
+            mine = free[:self.tp]
+            self._taken[name] = mine
+        ids = visible.split(",") if visible else None
+        return ",".join(ids[c].strip() if ids else str(c) for c in mine)
 
     # -------------------------------------------------------------- spawn
     def spawn(self) -> RemoteReplica:
@@ -173,6 +229,16 @@ class LocalProcessManager:
             cmd += ["--device", str(self.device)]
         cmd += self.extra_args
         env = {**os.environ, **self.env}
+        if self.tp is not None:
+            cmd = [sys.executable, "-m",
+                   "paddle_tpu_torch.distributed.launch",
+                   "--nproc", str(self.tp), "--grace",
+                   str(self.drain_grace_s)] \
+                + (["--cpu"] if self.device == "cpu" else []) \
+                + cmd[1:] + ["--tp", str(self.tp)]
+            cards = self._take_cards(name)
+            if cards is not None:
+                env["CUDA_VISIBLE_DEVICES"] = cards
         stderr = subprocess.DEVNULL
         if self.log_dir:
             os.makedirs(self.log_dir, exist_ok=True)
@@ -180,6 +246,7 @@ class LocalProcessManager:
                 self.log_dir, f"{name}.stderr.log"), "w")
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=stderr, text=True, env=env,
+                                start_new_session=self.tp is not None,
                                 cwd=os.path.dirname(os.path.dirname(
                                     os.path.dirname(os.path.dirname(
                                         os.path.abspath(__file__))))))
@@ -208,8 +275,9 @@ class LocalProcessManager:
                         port = int(v)
                 break
         if port is None:
-            proc.kill()
+            self._sigkill(proc)
             proc.wait(5)
+            self._free_cards(name)
             raise RuntimeError(
                 f"replica process never reported ready within "
                 f"{self.spawn_timeout_s:g} s (rc={proc.poll()})")
@@ -259,7 +327,8 @@ class LocalProcessManager:
         # scale-downs must target live processes) but its peer adapter
         # stays in rotation: the fleet must DISCOVER the death through
         # failed probes and dropped streams — that's the chaos
-        proc.kill()
+        self._sigkill(proc)
+        self._free_cards(peer_name)
         threading.Thread(target=proc.wait, daemon=True).start()
         obs.record_event("fleet_chaos_kill", fleet=self.name,
                          peer=peer_name)
@@ -276,5 +345,7 @@ class LocalProcessManager:
             try:
                 proc.wait(max(deadline - time.monotonic(), 0.1))
             except subprocess.TimeoutExpired:
-                proc.kill()
+                self._sigkill(proc)
         self.procs.clear()
+        with self._lock:
+            self._taken.clear()

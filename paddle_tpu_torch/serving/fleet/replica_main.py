@@ -17,6 +17,21 @@ here is the single source of truth the fleet loadgen's bitwise replay
 gate rebuilds its reference engine from (:func:`stub_engine_kw`,
 :func:`engine_kw`).
 
+A tensor-parallel replica is N rank processes, one engine each:
+
+    python -m paddle_tpu_torch.distributed.launch --nproc N [--cpu] \\
+        -m paddle_tpu_torch.serving.fleet.replica_main --tp N \\
+        --model llama3-70b [--device cpu]
+
+Each rank draws the Llama from ``--seed`` inside ``sharded_build`` (no
+rank holds a decoder layer whole but the one being drawn: the only way
+Llama-3-70B fits), shards and binds it, and wraps its engine in a
+:class:`~..tp_replica.SequencedEngine`. Rank 0 warms every rank through
+it, serves the gateway and prints the readiness line once every rank
+has warmed both tick graphs; the other ranks follow rank 0's calls
+until its drain stops them. ``--tp 1`` runs the same path as a world of
+one.
+
 The engines run on the CUDA card unless ``--device cpu`` asks for the
 CPU. A replica asked for the card on a machine without one, or whose
 kernels fail to build or load, exits non-zero before its readiness line:
@@ -30,15 +45,17 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import signal
 import sys
 from typing import Any, Dict
 
 __all__ = ["stub_engine_kw", "tiny_engine_kw", "llama3_8b_engine_kw",
-           "engine_kw", "build_model", "build_engine", "main",
+           "llama3_70b_engine_kw", "engine_kw", "build_model",
+           "build_sharded_model", "build_engine", "warm", "main",
            "READY_LINE", "MODELS"]
 
 READY_LINE = "FLEET_REPLICA_READY"
-MODELS = ("stub", "tiny", "llama3-8b")
+MODELS = ("stub", "tiny", "llama3-8b", "llama3-70b")
 
 
 def stub_engine_kw(chunk_tokens: int = 8) -> Dict[str, Any]:
@@ -66,10 +83,26 @@ def llama3_8b_engine_kw(chunk_tokens: int = 128) -> Dict[str, Any]:
                 enable_prefix_cache=True)
 
 
+def llama3_70b_engine_kw(chunk_tokens: int = 128) -> Dict[str, Any]:
+    """Llama-3-70B's serving geometry: the 8B's (16 slots of up to 1024
+    tokens, 1025 blocks of 16, chunk 128), so the two models' cells
+    compare. At tp 4 a rank's KV is 80 layers x 2 x 2 heads x 128 x 2 B
+    = 81,920 B a token: the pool takes ~1.34 GB a rank beside ~35 GB of
+    weights."""
+    return llama3_8b_engine_kw(chunk_tokens)
+
+
 def engine_kw(model: str, chunk_tokens: int) -> Dict[str, Any]:
     """The engine geometry of ``--model`` (one table for every caller)."""
     return {"stub": stub_engine_kw, "tiny": tiny_engine_kw,
-            "llama3-8b": llama3_8b_engine_kw}[model](chunk_tokens)
+            "llama3-8b": llama3_8b_engine_kw,
+            "llama3-70b": llama3_70b_engine_kw}[model](chunk_tokens)
+
+
+def _llama_config(model: str):
+    from ...models import llama3_8b, llama3_70b, llama_tiny
+    return {"tiny": llama_tiny, "llama3-8b": llama3_8b,
+            "llama3-70b": llama3_70b}[model]()
 
 
 def build_model(model: str, device=None, seed: int = 0):
@@ -80,11 +113,49 @@ def build_model(model: str, device=None, seed: int = 0):
     if model == "stub":
         from ...generation.stub import TickStubModel
         return TickStubModel(device=dev)
-    from ...models import LlamaForCausalLM, llama3_8b, llama_tiny
+    from ...models import LlamaForCausalLM
     from ...utils.rng import make_generator
-    cfg = {"tiny": llama_tiny, "llama3-8b": llama3_8b}[model]()
-    return LlamaForCausalLM(cfg, device=dev,
+    return LlamaForCausalLM(_llama_config(model), device=dev,
                             generator=make_generator(seed, dev))
+
+
+def build_sharded_model(model: str, seed: int = 0):
+    """``--model``'s Llama from ``seed`` on the installed mesh's device,
+    each decoder layer cut to this rank's tp shards as it is drawn
+    (``sharded_build``), the rest cut by ``shard_layer`` and the compute
+    tensors bound once (``bind_static``): the weights that
+    :func:`build_model` draws, sharded."""
+    if model == "stub":
+        raise ValueError("a tp replica serves a Llama (tiny, llama3-8b, "
+                         "llama3-70b), not the stub")
+    from ...distributed.env import get_mesh
+    from ...models import LlamaForCausalLM
+    from ...parallel.sharding import bind_static, shard_layer, sharded_build
+    from ...utils.rng import make_generator
+    dev = get_mesh().device
+    with sharded_build(fsdp_min_size=1 << 30):
+        m = LlamaForCausalLM(_llama_config(model), device=dev,
+                             generator=make_generator(seed, dev))
+    shard_layer(m, fsdp_min_size=1 << 30)
+    bind_static(m)
+    return m
+
+
+def warm(engine, chunk_tokens: int):
+    """Run a greedy and a sampled request through ``engine`` (a
+    ``PagedEngine`` or a tp replica's sequenced one) and drop their
+    records: its kernels are built and loaded and both tick graphs
+    captured. Returns ``engine``."""
+    w = list(range(1, 2 * int(chunk_tokens) + 2))
+    engine.submit("warmup", w, max_new_tokens=4)
+    engine.run()
+    engine.submit("warmup-sampled", w, max_new_tokens=4, temperature=0.8,
+                  seed=1)
+    engine.run()
+    for k in ("warmup", "warmup-sampled"):
+        engine.results.pop(k, None)
+        engine.logprobs.pop(k, None)
+    return engine
 
 
 def build_engine(model: str, chunk_tokens: int, device=None,
@@ -99,16 +170,7 @@ def build_engine(model: str, chunk_tokens: int, device=None,
                                                         seed)
     eng = PagedEngine(m, **engine_kw(model, chunk_tokens))
     check_single_rank(eng, "replica_main")
-    warm = list(range(1, 2 * int(chunk_tokens) + 2))
-    eng.submit("warmup", warm, max_new_tokens=4)
-    eng.run()
-    eng.submit("warmup-sampled", warm, max_new_tokens=4,
-               temperature=0.8, seed=1)
-    eng.run()
-    for k in ("warmup", "warmup-sampled"):
-        eng.results.pop(k, None)
-        eng.logprobs.pop(k, None)
-    return eng
+    return warm(eng, chunk_tokens)
 
 
 def main(argv=None) -> int:
@@ -152,30 +214,46 @@ def main(argv=None) -> int:
                          "to the fleet (terminal migrated events + "
                          "resume_kv spans) instead of finishing "
                          "them here; requires --spill-mb > 0")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="serve as one tp replica of N rank processes, "
+                         "started by python -m paddle_tpu_torch."
+                         "distributed.launch --nproc N (--cpu for gloo): "
+                         "rank 0 serves, the others follow its calls")
+    ap.add_argument("--idle-interval-s", type=float, default=None,
+                    help="--tp: the idle rank 0's heartbeat to the other "
+                         "ranks (default: tp_replica.IDLE_INTERVAL_S)")
     ns = ap.parse_args(argv)
 
-    from ...device import resolve_device
     from ...utils import observability as obs
     from .. import Gateway
-    dev = resolve_device(ns.device)
-    if ns.run_dir:
-        obs.configure(ns.run_dir)
-    shared = build_model(ns.model, dev, ns.seed)
-
-    def factory():
-        return build_engine(ns.model, ns.chunk_tokens, dev, ns.seed,
-                            weights=shared)
-
-    engines = [factory() for _ in range(max(ns.engines, 1))]
-    telemetry_kw = dict(slo_window_scale=ns.slo_window_scale) \
-        if ns.telemetry == "on" else \
-        dict(sample_interval_s=None, slo_alerting=False)
     spill_kw: Dict[str, Any] = {}
     if ns.spill_mb > 0:
         from ..kvspill import KVSpillArena
         spill_kw["spill_arena"] = KVSpillArena(
             ns.spill_mb << 20, name=ns.name or "replica")
         spill_kw["migrate_on_drain"] = ns.migrate == "on"
+    if ns.tp is not None:
+        seq = _tp_replica(ns, spill_kw.get("spill_arena"))
+        if seq is None:
+            return 0            # a follower rank: rank 0 stopped it
+        engines, factory = [seq], seq.rebuild
+        if ns.run_dir:
+            obs.configure(ns.run_dir)
+    else:
+        from ...device import resolve_device
+        dev = resolve_device(ns.device)
+        if ns.run_dir:
+            obs.configure(ns.run_dir)
+        shared = build_model(ns.model, dev, ns.seed)
+
+        def factory():
+            return build_engine(ns.model, ns.chunk_tokens, dev, ns.seed,
+                                weights=shared)
+
+        engines = [factory() for _ in range(max(ns.engines, 1))]
+    telemetry_kw = dict(slo_window_scale=ns.slo_window_scale) \
+        if ns.telemetry == "on" else \
+        dict(sample_interval_s=None, slo_alerting=False)
     gw = Gateway(engines, host=ns.host, port=ns.port,
                  max_queue=ns.max_queue, name=ns.name,
                  engine_factory=factory,
@@ -190,7 +268,44 @@ def main(argv=None) -> int:
         await gw.run_until_shutdown()
 
     asyncio.run(serve())
+    if ns.tp is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
+
+
+def _tp_replica(ns, arena):
+    """This rank of a ``--tp`` replica: the mesh, the sharded model and
+    the sequenced engine. Rank 0 gets it back warmed on every rank; a
+    follower rank follows rank 0's calls and gets None once stopped."""
+    from ...distributed.env import init_parallel_env
+    from ...generation.paged import PagedEngine
+    from ..tp_replica import IDLE_INTERVAL_S, SequencedEngine
+    if ns.engines != 1:
+        raise SystemExit("--tp: a tp replica serves one engine")
+    init_parallel_env({"tp": ns.tp}, device=ns.device)
+    model = build_sharded_model(ns.model, ns.seed)
+    kw = engine_kw(ns.model, ns.chunk_tokens)
+
+    def factory():
+        # every rank rebuilds at the same point of the sequence, so
+        # each warm-up's collectives meet
+        return warm(PagedEngine(model, **kw), ns.chunk_tokens)
+
+    seq = SequencedEngine(
+        PagedEngine(model, **kw), factory=factory, spill_arena=arena,
+        idle_interval_s=IDLE_INTERVAL_S if ns.idle_interval_s is None
+        else ns.idle_interval_s)
+    if not seq.leader:
+        # rank 0 drains on SIGTERM and then stops this rank
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        seq.follow()
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        return None
+    warm(seq, ns.chunk_tokens)
+    seq.barrier()
+    return seq
 
 
 if __name__ == "__main__":

@@ -611,14 +611,21 @@ class _ReplicaWorker(threading.Thread):
 
 def check_single_rank(engine, where: str) -> None:
     """``NotImplementedError`` for an engine whose model is sharded at
-    tp > 1: its ranks must all see every submission, and the port has
-    no broadcast of a gateway's submissions to the ranks yet (the JAX
-    gateway drives a tp engine from its one controller)."""
+    tp > 1 with no sequencer in front of it: its ranks must all see every
+    call, in one order (wrap each rank's engine in
+    :class:`~.tp_replica.SequencedEngine` and serve rank 0's);
+    ``ValueError`` for a follower rank's sequenced engine."""
+    if getattr(engine, "sequenced", False):
+        if not engine.leader:
+            raise ValueError(
+                f"{where} on a tp follower rank's engine: rank 0 serves "
+                f"the replica, the other ranks call follow()")
+        return
     if getattr(engine, "_tp", 1) > 1:
         raise NotImplementedError(
-            f"{where} on a PagedEngine sharded at tp {engine._tp}: a "
-            f"gateway in front of a tp engine (every submission broadcast "
-            f"to every rank) is not ported")
+            f"{where} on a PagedEngine sharded at tp {engine._tp} with no "
+            f"sequencer: wrap every rank's engine in "
+            f"serving.tp_replica.SequencedEngine and serve rank 0's")
 
 
 class Gateway:
@@ -801,6 +808,9 @@ class Gateway:
         self._by_replica = {w.replica: w for w in self._workers}
         # the reference engine defines prompt limits + the digest grid
         self._ref = engines[0]
+        # a span in the arena holds rank 0's heads alone at tp > 1: no
+        # peer imports it and none is imported (such resumes re-prefill)
+        self._xfer_ok = getattr(self._ref, "_tp", 1) == 1
         self._supervisor: Optional[ReplicaSupervisor] = None
         if supervise:
             for rep in replicas:
@@ -1078,7 +1088,7 @@ class Gateway:
         decode-ladder rung, over-capacity refusal — leaves the normal
         re-prefill path untouched."""
         eng = self._ref
-        if not getattr(eng, "prefix_caching", False):
+        if not getattr(eng, "prefix_caching", False) or not self._xfer_ok:
             return
         try:
             ids = [int(t) for t in desc["prompt"]]
@@ -1228,6 +1238,10 @@ class Gateway:
                         w.engine.spill_live()
                 except Exception:
                     pass        # a failed drain spill only costs warmth
+        for w in self._workers:
+            if getattr(w.engine, "sequenced", False):
+                # a tp replica's other ranks leave their follow loops
+                w.engine.stop()
         obs.record_event("gateway_drain", gateway=self.name)
         if self.sampler is not None:
             # stop the sampler thread and leave the trajectory on disk
@@ -1294,7 +1308,8 @@ class Gateway:
             digest = ""
             try:
                 ids = [int(t) for t in d["prompt"]]
-                chain = eng._chunk_digests(ids, len(ids) - 1)
+                chain = eng._chunk_digests(ids, len(ids) - 1) \
+                    if self._xfer_ok else []
                 for raw in reversed(chain):
                     if self._spill_arena.probe(raw) is not None:
                         digest = raw.hex()
@@ -1692,10 +1707,12 @@ class Gateway:
         the fetcher's decode ladder turns every one into a counted
         re-prefill fallback, never a token."""
         digest = _query_param(query, "digest", str)
-        if self._spill_arena is None or not digest:
+        if self._spill_arena is None or not digest or not self._xfer_ok:
             writer.write(_json_response(
                 404, {"error": "no spill arena" if
-                      self._spill_arena is None else "missing digest"}))
+                      self._spill_arena is None else "missing digest"
+                      if self._xfer_ok else "spans of a tp replica hold "
+                      "one rank's heads"}))
             await writer.drain()
             return
         if faults.inject("xfer_slow", gateway=self.name,
@@ -1899,7 +1916,7 @@ class Gateway:
         Every failure mode — bad encoding, any ladder rung, no peer,
         over-capacity — leaves admission exactly as it was: the stream
         re-prefills, bitwise identical."""
-        if self._spill_arena is None:
+        if self._spill_arena is None or not self._xfer_ok:
             return
         geo = self._ref._spill_geometry()
         if ref.startswith("b64:"):

@@ -5,9 +5,10 @@ coming at the offered rate whether or not the server keeps up, so
 queueing delay shows up in TTFT instead of being hidden by a closed
 loop).
 
-    python -m paddle_tpu_torch.serving.loadgen [--model stub|tiny|llama3-8b]
-        [--device cpu] [--fleet N [--fleet-kill K] [--frontends F
-        --frontend-kill K] [--autoscale]] [--url HOST:PORT ...]
+    python -m paddle_tpu_torch.serving.loadgen
+        [--model stub|tiny|llama3-8b|llama3-70b] [--device cpu]
+        [--fleet N [--tp T] [--fleet-kill K] [--frontends F
+        --frontend-kill K] [--autoscale]] [--url HOST:PORT ... [--tp T]]
         [--chaos] [--spill on] [--migrate on] [--churn] [--diurnal]
         [--jsonl PATH] [--trace-dir DIR] [--out PATH]
 
@@ -17,7 +18,12 @@ negligible-compute stub so CI measures the gateway machinery, not the
 model; ``--model llama3-8b`` serves Llama-3-8B at full width with random
 weights in the card's serving geometry). ``--url HOST:PORT`` attaches to
 an external gateway instead. The engines run on the CUDA card unless
-``--device cpu`` asks for the CPU.
+``--device cpu`` asks for the CPU. ``--tp T`` makes each ``--fleet``
+replica a tensor-parallel one of T rank processes (``replica_main --tp
+T`` under the launcher, T cards a replica), the only way to serve
+``--model llama3-70b`` (``--url`` accepts both flags: the remote
+replicas were started with their own). The in-process gateway serves at
+tp 1.
 
 Workload: ``--share-frac`` of requests carry a shared, chunk-grid-
 aligned system prompt (``--sys-tokens``) plus a short unique tail —
@@ -398,8 +404,8 @@ def _stub_model(ns):
 def _chunk(ns) -> int:
     """The engines' prefill chunk: the shared system prompt's length
     (so it lands on the chunk grid), else the model's default."""
-    return ns.sys_tokens or {"stub": 8, "tiny": 32,
-                             "llama3-8b": 128}[ns.model]
+    return ns.sys_tokens or {"stub": 8, "tiny": 32, "llama3-8b": 128,
+                             "llama3-70b": 128}[ns.model]
 
 
 def _build_fleet(ns):
@@ -458,6 +464,7 @@ def _build_fleet(ns):
     manager = LocalProcessManager(
         fes, model=ns.model, chunk_tokens=chunk,
         device=getattr(ns, "device", None), extra_args=extra,
+        tp=getattr(ns, "tp", None),
         probe_interval_s=0.1, stale_after_s=1.5)
     for _ in range(ns.fleet):
         manager.spawn()
@@ -707,6 +714,12 @@ async def run_loadgen(ns) -> dict:
         # see the knob, so the rung would bank an empty breakdown
         raise SystemExit("--tick-profile on requires in-process "
                          "replicas (no --fleet / --url)")
+    tp = getattr(ns, "tp", None)
+    if not (urls or fleet) and ((tp or 1) > 1 or ns.model == "llama3-70b"):
+        raise ValueError(
+            f"the in-process gateway serves at tp 1 (--tp {tp}, --model "
+            f"{ns.model}): a tp replica is N rank processes, so serve it "
+            f"with --fleet K --tp N, or attach to one with --url")
     if int(getattr(ns, "frontends", 1) or 1) > 1 and not fleet:
         raise SystemExit("--frontends needs --fleet: sibling "
                          "frontends share one replica-process fleet")
@@ -1366,10 +1379,15 @@ def main(argv=None) -> int:
                     choices=("prefix", "least_loaded", "round_robin"))
     ap.add_argument("--max-queue", type=int, default=256)
     ap.add_argument("--model", default="tiny",
-                    choices=("tiny", "stub", "llama3-8b"),
-                    help="llama3-8b: Llama-3-8B at full width with "
-                         "random weights, in the card's serving "
-                         "geometry")
+                    choices=("tiny", "stub", "llama3-8b", "llama3-70b"),
+                    help="llama3-8b / llama3-70b: Llama-3-8B / 70B at "
+                         "full width with random weights, in the card's "
+                         "serving geometry (70B needs --fleet K --tp N)")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="--fleet: each replica a tensor-parallel one of "
+                         "N rank processes on N cards of its own (with "
+                         "--url the remote replicas' own: accepted, not "
+                         "used)")
     ap.add_argument("--ring", default="on", choices=("on", "off"),
                     help="async token-ring decode on the replica "
                          "engines (off = synchronous per-tick "

@@ -282,6 +282,11 @@ class ReplicaSupervisor(threading.Thread):
                                  gateway=self.gw.name,
                                  replica=w.replica.name,
                                  stuck_s=round(now - t_busy, 3))
+                lost = getattr(w.engine, "check_lost", None)
+                if lost is not None:
+                    # a tp replica stuck inside a sequenced step may
+                    # wait on a rank that is gone: it ends there
+                    lost(now - t_busy)
                 self.gw._failover_worker(
                     w, reason="hang",
                     stuck_ms=round((now - t_busy) * 1e3, 1))

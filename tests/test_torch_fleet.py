@@ -983,6 +983,15 @@ async def _fleet_run(gateways, frontend, remote, reqs, drop_at, fault_mod,
     try:
         for i, r in enumerate(reqs):
             spec = dict(r, temperature=0.0, request_id=f"{tag}-{i}")
+            if i:
+                # two whole probe rounds after the last request carry
+                # its prefix digests and load to the frontend: both
+                # packages then route on the same view (routing raced
+                # the probes, and lost under load, before)
+                seen = [r.probes_total for r in reps]
+                assert await _poll(lambda: all(
+                    r.probes_total >= n + 2
+                    for r, n in zip(reps, seen)), 10)
             if i == drop_at:
                 with fault_mod.scoped("peer_conn_drop@4"):
                     out.append(await _sse(fe.port, spec))

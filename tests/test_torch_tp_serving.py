@@ -11,7 +11,7 @@ projection's codes); the quantized tp layers (the JAX
 ``test_quantized_tp_matches_dense_on_mesh`` case, a row rank's offset
 into the whole scales table, the ``ValueError`` of a row split that cuts a
 128-row block); and the refusals (an MoE model at tp 2, a gateway over a
-tp engine, ranks whose schedules part). A world of 4 runs one kv head a
+tp engine with no sequencer, ranks whose schedules part). A world of 4 runs one kv head a
 rank and the fused interleave at T = 4. The JAX side runs in this process
 on ``jax.devices()[:tp]`` while the worlds run. Weights cross from the JAX
 models as numpy."""
@@ -334,10 +334,16 @@ def test_row_split_off_the_scale_blocks_raises(worlds):
 
 def test_refusals_at_tp2(worlds):
     _, ranks, _, _, _ = worlds
-    for r in ranks:
+    for i, r in enumerate(ranks):
         assert "not ported" in r["moe_generate"]
         assert "not ported" in r["moe_engine"]
-        assert "gateway" in r["gateway"]
+        # a gateway over a bare tp engine is refused; over rank 0's
+        # sequenced engine it builds, over a follower's it is refused
+        assert "no sequencer" in r["gateway"]
+        if i == 0:
+            assert r["gateway_sequenced"] == "built"
+        else:
+            assert "follower" in r["gateway_sequenced"]
         # ranks that submit differently fail the schedule digest at once
         assert "parted" in r["diverge"]
 

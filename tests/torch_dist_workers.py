@@ -877,8 +877,9 @@ def _quant_layer_cases(p, world):
 
 def _refusals(p, world):
     """NotImplementedError for an MoE model on the tp mesh and for a
-    gateway over a tp engine; a schedule that parts across the ranks
-    raises on every rank."""
+    gateway over a bare tp engine; a gateway over rank 0's sequenced
+    engine builds, over a follower's it is refused; a schedule that
+    parts across the ranks raises on every rank."""
     import numpy as np
     import torch
     import paddle_tpu_torch as ptt
@@ -904,6 +905,13 @@ def _refusals(p, world):
         out["gateway"] = None
     except NotImplementedError as e:
         out["gateway"] = str(e)
+    from paddle_tpu_torch.serving.tp_replica import SequencedEngine
+    seq = SequencedEngine(eng, idle_interval_s=None)
+    try:
+        Gateway(seq)
+        out["gateway_sequenced"] = "built"
+    except ValueError as e:
+        out["gateway_sequenced"] = str(e)
     # rank 0 submits 5 prompt tokens, the others 6: one prefill bucket,
     # so every collective matches, and the digest parts
     rank = torch.distributed.get_rank()
@@ -945,3 +953,371 @@ def tp4_serving_cases(rank, world, p):
 
 
 CASES.update(tp_serving=tp_serving_cases, tp4_serving=tp4_serving_cases)
+
+
+# ------------------------------------------------------ tp gateway
+# the _dryrun_paged_tp engine geometry; FAULT_GEO holds 48 tokens a slot,
+# SPILL_GEO a pool of 11 blocks that parked prefixes must leave
+TP_GEO = dict(max_slots=2, num_blocks=24, block_size=8,
+              max_blocks_per_seq=6, prefill_buckets=(16,),
+              chunk_prefill_tokens=8, enable_prefix_cache=True)
+SPILL_GEO = dict(TP_GEO, num_blocks=12)
+
+
+def _direct_streams(eng, batches):
+    """Each batch's submissions run to the end on ``eng``; (tokens,
+    logprobs) by request id."""
+    import numpy as np
+    out = {}
+    for batch in batches:
+        for rid, ids, kw in batch:
+            eng.submit(rid, np.asarray(ids), **kw)
+        eng.run()
+        for rid, _, _ in batch:
+            out[rid] = (list(eng.results.pop(rid)),
+                        list(eng.logprobs.pop(rid)))
+    return out
+
+
+def _sequenced_world(model, geo, leader_fn, **seq_kw):
+    """One scenario on every rank: a fresh engine behind a
+    ``SequencedEngine``; rank 0 serves it through ``leader_fn(seq)``
+    (which drains its gateway, stopping the followers), the others
+    follow. Returns this rank's record: the leader's result or the
+    follower's stats and kept streams, and the engine's counters."""
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.serving.tp_replica import SequencedEngine
+    seq = SequencedEngine(PagedEngine(model, **geo), **seq_kw)
+    rec = {}
+    if seq.leader:
+        rec["leader"] = leader_fn(seq)
+    else:
+        keep = {}
+        rec["follow"] = seq.follow(keep)
+        rec["keep"] = keep
+    rec["stats"] = dict(seq.engine.stats)
+    rec["seq"] = seq.sequencer_stats()
+    return rec
+
+
+def tp_gateway_cases(rank, world, p):
+    """tp serving behind the gateway on {"tp": world}: the parity
+    scenario (``_dryrun_paged_tp``'s requests over HTTP) beside the same
+    submissions on a direct tp engine; at tp 2 also a disconnect, a
+    cancel, a deadline mid-stream, an idle gap, a hang on rank 0 that
+    the supervisor answers with a sequenced hard_reset, and a span
+    spilled and restored on every rank."""
+    import asyncio
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    env.init_parallel_env({"tp": world}, device="cpu")
+    model = _serve(_tp_model(p["cfg"], p["params"]))
+    reqs = p["gw_reqs"]
+    out = {"direct": _direct_streams(
+        PagedEngine(model, **TP_GEO),
+        [[(r["request_id"], r["prompt"], _engine_kw(r)) for r in batch]
+         for batch in reqs])}
+    out["parity"] = _sequenced_world(
+        model, TP_GEO, lambda seq: asyncio.run(_gw_parity(seq, reqs)),
+        idle_interval_s=0.2)
+    if world > 2:
+        return out
+    fresh = PagedEngine(model, **TP_GEO)
+    out["fresh"] = _direct_streams(fresh, [[(
+        "g", p["late"]["prompt"], _engine_kw(p["late"]))]])
+    out["faults"] = _sequenced_world(
+        model, TP_GEO, lambda seq: asyncio.run(_gw_faults(seq, p)),
+        idle_interval_s=0.2)
+    from paddle_tpu_torch.serving import KVSpillArena
+    out["spill"] = _sequenced_world(
+        model, SPILL_GEO, lambda seq: asyncio.run(_gw_spill(seq, p)),
+        idle_interval_s=0.2, spill_arena=KVSpillArena(1 << 22))
+    return out
+
+
+def _engine_kw(r):
+    return {k: v for k, v in r.items()
+            if k not in ("prompt", "request_id", "stream")}
+
+
+async def _gw_parity(seq, reqs):
+    """The requests over HTTP SSE, batch after batch (a finishes and
+    parks its prefix; b adopts it beside the sampled s); drain."""
+    import asyncio
+    from paddle_tpu_torch.serving import Gateway
+    from test_torch_gateway_gpu import sse
+    gw = Gateway(seq, name=f"tp-parity-{seq.tp}")
+    await gw.start()
+    got = {}
+    try:
+        for batch in reqs:
+            res = await asyncio.gather(*[sse(gw.port, r) for r in batch])
+            for r, (st, _, toks, fin) in zip(batch, res):
+                got[r["request_id"]] = (st, toks, fin)
+    finally:
+        await gw.drain()
+    return got
+
+
+async def _gw_faults(seq, p):
+    """At tp 2: a stream whose client disconnects after 3 tokens, one
+    whose deadline passes mid-stream (slowed ticks); an idle gap of
+    several heartbeats; then a hang on rank 0's tick thread: its stream
+    errors (no other replica), the supervisor resets the engine on every
+    rank through the sequencer, and the next request is served by the
+    reset engine."""
+    import asyncio
+    import os
+    from paddle_tpu_torch.serving import Gateway
+    from paddle_tpu_torch.utils import faults
+    from test_torch_gateway_gpu import poll, sse
+    os.environ[faults.DISPATCH_HANG_ENV_VAR] = "1.5"
+    gw = Gateway(seq, name="tp-faults", watchdog_timeout_s=0.5,
+                 breaker_backoff_s=0.05)
+    await gw.start()
+    res = {}
+    try:
+        st, _, toks, _ = await sse(gw.port, dict(p["long"], request_id="c"),
+                                   break_after=3)
+        res["disconnect"] = (st, len(toks))
+        res["freed"] = await poll(
+            lambda: not any(seq.slots) and not seq.queue, 20)
+        with faults.scoped("slow_replica"):
+            st, _, toks, fin = await sse(gw.port, dict(
+                p["long"], request_id="e", timeout_s=0.6))
+        res["deadline"] = (st, len(toks), fin)
+        await asyncio.sleep(1.0)            # five idle intervals
+        res["idle_heartbeats"] = seq.sequencer_stats()["heartbeats"]
+        w = gw._workers[0]
+        w.inject_fault("hang")
+        st, _, toks, fin = await sse(gw.port, dict(p["long"],
+                                                   request_id="h"))
+        res["hang"] = (st, fin)
+        res["rebuilt"] = await poll(lambda: gw._workers[0] is not w
+                                    and gw._workers[0].is_alive(), 30)
+        res["late"] = None
+        for _ in range(200):
+            st, _, toks, fin = await sse(gw.port, p["late"])
+            if st == 200:
+                res["late"] = (st, toks, fin)
+                break
+            await asyncio.sleep(0.05)
+    finally:
+        await gw.drain()
+    return res
+
+
+async def _gw_spill(seq, p):
+    """A is served and parks its prefix; X, Y, then Z, W fill the
+    11-block pool, evicting it into each rank's arena; A again restores
+    it there. Then
+    a drain that migrates a live stream: the gateway cancels it on every
+    rank and ends it with its committed tokens."""
+    import asyncio
+    from paddle_tpu_torch.serving import Gateway, KVSpillArena
+    from paddle_tpu_torch.utils import faults
+    from test_torch_gateway_gpu import poll, sse
+    gw = Gateway(seq, name="tp-spill",
+                 spill_arena=KVSpillArena(1 << 22, name="tp-spill"))
+    await gw.start()
+    got = {}
+    try:
+        for batch in p["spill_reqs"]:
+            res = await asyncio.gather(*[sse(gw.port, r) for r in batch])
+            for r, (st, _, toks, fin) in zip(batch, res):
+                got[r["request_id"]] = (st, toks, fin)
+        with faults.scoped("slow_replica"):
+            task = asyncio.ensure_future(sse(gw.port, dict(
+                p["long"], request_id="m")))
+            await poll(lambda: any(s is not None and len(s.tokens) >= 3
+                                   for s in seq.slots), 20)
+            await gw.drain(migrate=True)
+            st, _, toks, fin = await task
+        got["m"] = (st, toks, fin)
+    finally:
+        await gw.drain()
+    return got
+
+
+CASES.update(tp_gateway=tp_gateway_cases)
+
+
+def tp_fleet_reference(rank, world, p):
+    """The direct tp engine a fleet failover is held to: ``replica_main
+    --model tiny --tp 2``'s model from the seed and geometry, every
+    request uninterrupted, and each greedy one resumed from each prefix
+    of its stream (the fleet's rule: a failed-over stream is the direct
+    engine's resume of its committed prefix)."""
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.serving.fleet import replica_main as rm
+    env.init_parallel_env({"tp": world}, device="cpu")
+    model = rm.build_sharded_model("tiny", p["seed"])
+    eng = PagedEngine(model, **rm.tiny_engine_kw(p["chunk"]))
+    reqs = p["reqs"]
+    ref = _direct_streams(eng, [[(r["request_id"], r["prompt"],
+                                  _engine_kw(r)) for r in reqs]])
+    resumes = []
+    for r in reqs:
+        if r.get("temperature"):
+            continue
+        toks, lps = ref[r["request_id"]]
+        for c in range(1, len(toks)):
+            resumes.append((f"{r['request_id']}@{c}",
+                            r["prompt"] + toks[:c],
+                            dict(max_new_tokens=len(toks) - c,
+                                 resume_tokens=toks[:c],
+                                 resume_lps=lps[:c])))
+    return {"ref": ref, "resumed": _direct_streams(eng, [resumes])}
+
+
+CASES.update(tp_fleet_reference=tp_fleet_reference)
+
+
+# ----------------------------------------------------- per-rank loading
+def _layer_shapes(cfg):
+    """The whole shapes of a Llama decoder layer's projections (the
+    loading test's config is chosen so that no shard of one, and no other
+    tensor it makes, has one of these shapes)."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    d = h // cfg.num_attention_heads
+    kv = cfg.num_key_value_heads * d
+    return {(h, h), (kv, h), (i, h), (h, i)}
+
+
+def _whole_counter(shapes):
+    """A dispatch mode that records every tensor made with one of
+    ``shapes``: how many distinct ones were made (``made``), the most
+    alive at once (``peak``), and marks the caller can drop between
+    phases (``marks``: made so far at each mark)."""
+    import weakref
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.live, self.made, self.peak, self.marks = {}, 0, 0, []
+
+        def mark(self):
+            self.marks.append(self.made)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                # plain tensors: a DTensor's storage is its local one's
+                if type(t) is torch.Tensor and tuple(t.shape) in shapes:
+                    key = t.untyped_storage().data_ptr()
+                    if key not in self.live:
+                        self.made += 1
+                    self.live[key] = weakref.ref(t)
+            self.live = {k: r for k, r in self.live.items()
+                         if r() is not None}
+            self.peak = max(self.peak, len(self.live))
+            return out
+    return Count()
+
+
+def tp_load_cases(rank, world, p):
+    """``from_pretrained`` and ``load_jax_state_dict`` on {"tp": world}:
+    each rank's tensors against ``shard_layer`` of the whole load, what
+    the per-rank load makes and reads of a decoder layer's whole shape,
+    greedy tokens, the buffers of a quantized model, the errors."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.models import hf_interop
+    from paddle_tpu_torch.parallel import sharding
+    from paddle_tpu_torch.parallel.sharding import sharded_build
+    env.init_parallel_env({"tp": world}, device="cpu")
+    cfg = ptt.llama_tiny(**p["cfg"])
+    shapes = _layer_shapes(cfg)
+    out = {}
+    whole = _serve(hf_interop.from_pretrained(p["dir"], device="cpu"))
+    reads = []
+    real_read = convert._read_part
+
+    def read(src, idx):
+        part = real_read(src, idx)
+        reads.append(tuple(part.shape))
+        return part
+    convert._read_part = read
+    real_layer = sharding.shard_layer
+    count = _whole_counter(shapes)
+
+    def marked(*a, **kw):
+        count.mark()            # the build is over: loading begins
+        return real_layer(*a, **kw)
+    sharding.shard_layer = marked
+    with count, sharded_build(fsdp_min_size=1 << 30):
+        built = hf_interop.from_pretrained(
+            p["dir"], device="cpu", generator=ptt.make_generator(3, "cpu"))
+    sharding.shard_layer = real_layer
+    out["count"] = (count.made, count.peak, count.marks)
+    out["reads"] = list(reads)
+    sharding.bind_static(built)
+    out["hf_same"] = _same_locals(whole, built)
+    ids = torch.from_numpy(np.asarray(p["ids"]))
+    out["hf_greedy"] = ptt.generate(built, ids, max_new_tokens=8).numpy()
+    # the BF16 checkpoint through the same memory-mapped reads
+    bf = hf_interop.from_pretrained(p["bf16_dir"], device="cpu")
+    _serve(bf)
+    with sharded_build(fsdp_min_size=1 << 30):
+        bf_built = hf_interop.from_pretrained(p["bf16_dir"], device="cpu")
+    out["bf16_same"] = _same_locals(bf, bf_built)
+    # load_jax_state_dict into a model built sharded
+    jax_whole = _serve(_tp_model(p["cfg"], p["params"]))
+    reads.clear()
+    count = _whole_counter(shapes)
+    with count:
+        with sharded_build(fsdp_min_size=1 << 30):
+            m = ptt.LlamaForCausalLM(cfg, device="cpu",
+                                     generator=ptt.make_generator(5, "cpu"))
+        sharding.shard_layer(m, fsdp_min_size=1 << 30)
+        count.mark()
+        convert.load_jax_state_dict(m, p["params"])
+    out["jax_count"] = (count.made, count.peak, count.marks)
+    out["jax_reads"] = list(reads)
+    out["jax_same"] = _same_locals(jax_whole, m)
+    convert._read_part = real_read
+    # a quantized model's cut buffers: the state of a whole quantized
+    # model loaded into another, sharded, is that model sharded
+    if world == 2:
+        from paddle_tpu_torch.quant import quantize_model
+        qa = _tp_model(p["qcfg"], p["qparams"])
+        quantize_model(qa, bits=8, skip=["lm_head", "embed"])
+        qstate = {k: (v.float() if v.is_floating_point() else v).numpy()
+                  for k, v in convert.jax_state_dict(qa).items()}
+        sharding.shard_layer(qa, fsdp_min_size=1 << 30)
+        qb = ptt.LlamaForCausalLM(ptt.llama_tiny(**p["qcfg"]), device="cpu",
+                                  generator=ptt.make_generator(9, "cpu"))
+        quantize_model(qb, bits=8, skip=["lm_head", "embed"])
+        sharding.shard_layer(qb, fsdp_min_size=1 << 30)
+        convert.load_jax_state_dict(qb, qstate)
+        out["quant_same"] = _same_locals(qa, qb)
+    # the whole loader's errors, on a mesh
+    for key in ("missing", "shape"):
+        try:
+            with sharded_build(fsdp_min_size=1 << 30):
+                hf_interop.from_pretrained(p[f"{key}_dir"], device="cpu")
+            out[key] = None
+        except (KeyError, ValueError) as e:
+            out[key] = (type(e).__name__, str(e))
+    return out
+
+
+def _same_locals(a, b):
+    """Every parameter and buffer of ``a`` and ``b``: this rank's local
+    tensors bit for bit equal (names that differ count as unequal)."""
+    import torch
+    from paddle_tpu_torch.parallel.sharding import local
+    sa, sb = a.state_dict(), b.state_dict()
+    return set(sa) == set(sb) and all(
+        torch.equal(local(sa[k]), local(sb[k])) for k in sa)
+
+
+CASES.update(tp_load=tp_load_cases)
