@@ -329,8 +329,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    tests. The phase's flash, decode, ragged and quant launches join the
    kernels line's.
 
-16. tensor-parallel serving behind the fleet (``[tp-serve]`` lines,
-   last): (a) ``LocalProcessManager(tp=1)`` spawns ``replica_main --tp 1
+16. tensor-parallel serving behind the fleet (``[tp-serve]`` lines):
+   (a) ``LocalProcessManager(tp=1)`` spawns ``replica_main --tp 1
    --model llama3-8b --seed`` through ``paddle_tpu_torch.distributed.
    launch`` (Llama-3-8B at full width and depth, built sharded on a
    world-one NCCL mesh and bound once, its engine behind the
@@ -351,6 +351,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    seconds and peak card memory. tp > 1 (the broadcast to other ranks, a
    follower's loss, a rank's slices of a checkpoint) is proved by the
    CPU gloo tests. The phase's ragged launches join the kernels line's.
+
+17. the MoE families and MLA served sharded (``[tp-moe]`` lines, last):
+   (a) ERNIE-4.5-21B-A3B at full width and depth from phase 11's seed,
+   built inside ``sharded_build`` on a world-one ``{"tp": 1, "ep": 1}``
+   NCCL mesh and bound once: ``Predictor.generate`` (4 x 512 + 64, the
+   counts set to 0 just before and read just after: flash 28, decode 28
+   x 63 from the step graph) and the ``PagedEngine`` (phase 11's 16
+   requests, whole-prompt prefill: ragged once per layer and tick), each
+   stream bit for bit the plain model's that phase 11 recorded before
+   freeing it, the decode step and a steady tick beside phase 11's; (b)
+   the flash, decode and ragged kernels (T = 1 and 5) at ERNIE's heads
+   a rank at tp 2 (10 / 2) and tp 4 (5 / 1), and the quant kernel (int8,
+   m 4 and 16) at its per-rank projections (``TP_MOE_QUANT``), each
+   against its plain version and timed beside SDPA or the bf16 matmul and
+   the bound, and one MoE layer's expert products at E / ep = 64, 32 and
+   16; (c) ``LocalProcessManager(tp=1, ep=1)`` spawns ``replica_main
+   --tp 1 --ep 1 --model ernie45-21b-a3b`` behind a ``FleetFrontend``: 8
+   greedy requests and one sampled, one after another, every stream
+   (tokens and logprobs) bit for bit the plain model's engine at the
+   replica's geometry (phase 11, after the same warm-up); ragged 28 a
+   tick from its ``/debugz``; new tokens/s and TTFT; a SIGTERM drain,
+   every process exiting 0; (d) DeepSeek-V2-Lite's widths (full depth)
+   built sharded on the world-one mesh through ``generate()``, and the
+   V3-style variant through ``mtp_speculative_generate``, bit for bit
+   phase 11's plain models. tp and ep > 1 are proved by the CPU gloo
+   tests. The phase's flash, decode and ragged launches join the kernels
+   line's.
 
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
@@ -5035,30 +5062,30 @@ def _moe_ernie(seed, dev, card):
     profile_decode_step(ptt, pred, ids, run["decode_ms"], card, "moe")
     _moe_step_profile(ptt, pred, ids, run["decode_ms"], card, "moe")
     launches = {k: run["launches"][k] for k in ("flash", "decode")}
-    launches["ragged"] = _moe_engine(seed, dev, card, model)
+    launches["ragged"], engine, tick_ms = _moe_engine(seed, dev, card, model)
+    # what the tp-moe phase holds its sharded builds and its replica to:
+    # this plain model's streams (it is freed before they are built)
+    record = dict(ids=ids.cpu(), generate=run["out"].cpu(),
+                  decode_ms=run["decode_ms"], engine=engine,
+                  tick_ms=tick_ms, replica=_tp_moe_direct(seed, model))
     del pred, model, run
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, record
 
 
 def _moe_engine(seed, dev, card, model):
     """The PagedEngine on ERNIE at its defaults (graphed ticks), whole-
     prompt prefill, 16 greedy requests: ragged once per layer and tick on
-    the mma route, never in a prefill; a steady tick profiled."""
+    the mma route, never in a prefill; a steady tick timed and profiled.
+    Returns the ragged launches, the streams (results, logprobs) and the
+    steady tick's ms."""
     import numpy as np
 
     from paddle_tpu_torch.generation.paged import PagedEngine
     cfg = model.config
     L = cfg.num_hidden_layers
-    rs = np.random.RandomState(seed + 62)
-    gen = torch.Generator().manual_seed(seed + 63)
-
-    def ids(n):
-        return torch.randint(0, cfg.vocab_size, (n,), generator=gen)
-
-    subs = [(f"m{i}", ids(int(rs.randint(64, 513))),
-             dict(max_new_tokens=64)) for i in range(16)]
+    subs, ids = _moe_engine_subs(seed, cfg.vocab_size)
     eng = PagedEngine(model, **PAGED)
     _serve(eng, subs[:1], late_after=0)                 # captures
     steps0 = eng.stats["decode_steps"]
@@ -5108,37 +5135,69 @@ def _moe_engine(seed, dev, card, model):
         log(f"[moe] steady tick {prof['tick_ms']:.2f} ms graphed against "
             f"the weights' bound {step_bound:.2f} ms (16 rows: C = 4, every "
             f"expert multiplies) [{card}]")
+    tick_ms = _steady_tick_ms(eng, ids)
     del eng
-    return launches["ragged"]
+    return launches["ragged"], (out, lps), tick_ms
+
+
+def _moe_engine_subs(seed, vocab):
+    """The MoE engine phases' 16 greedy requests (prompts 64-512, 64 new)
+    and the token drawer they came from."""
+    import numpy as np
+    rs = np.random.RandomState(seed + 62)
+    gen = torch.Generator().manual_seed(seed + 63)
+
+    def ids(n):
+        return torch.randint(0, vocab, (n,), generator=gen)
+
+    return [(f"m{i}", ids(int(rs.randint(64, 513))),
+             dict(max_new_tokens=64)) for i in range(16)], ids
+
+
+def _steady_tick_ms(eng, ids):
+    """Mean ms of 16 steady ticks with every slot holding a 256-token
+    request, then the requests run out."""
+    _fill(eng, ids, 32)
+    ms = _timed_ticks(eng, 16)
+    eng.run()
+    return ms
+
+
+def _deepseek_build(hf, seed, dev, **over):
+    """A DeepSeek model of the HF config ``hf`` through ``config_from_hf``
+    (fields ``over`` replaced), drawn on ``dev`` from ``seed``: (model,
+    config, model type, seconds). Inside ``sharded_build`` each decoder
+    layer is cut to this rank's shards as it is drawn."""
+    import dataclasses
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.hf_interop import config_from_hf
+    d = tempfile.mkdtemp(prefix="chip_smoke_dsv2_")
+    try:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(hf, f)
+        cls, cfg, mt = config_from_hf(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    cfg = dataclasses.replace(cfg, **over)
+    t0 = time.perf_counter()
+    model = cls(cfg, device=dev, generator=ptt.make_generator(seed, dev))
+    torch.cuda.synchronize()
+    return model, cfg, mt, time.perf_counter() - t0
 
 
 def _moe_deepseek(seed, dev, card):
     """DeepSeek-V2-Lite's widths through ``config_from_hf`` and
     ``generate`` (graphed; MLA reaches no kernel of the port), then the
     V3-style variant through ``mtp_speculative_generate``."""
-    import dataclasses
-
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.generation import eager_steps
     from paddle_tpu_torch.generation.speculative import \
         mtp_speculative_generate
-    from paddle_tpu_torch.models.hf_interop import config_from_hf
     b, prompt, new = 4, 512, 64
 
     def build(hf, seed_, **over):
-        d = tempfile.mkdtemp(prefix="chip_smoke_dsv2_")
-        try:
-            with open(os.path.join(d, "config.json"), "w") as f:
-                json.dump(hf, f)
-            cls, cfg, mt = config_from_hf(d)
-        finally:
-            shutil.rmtree(d, ignore_errors=True)
-        cfg = dataclasses.replace(cfg, **over)
-        t0 = time.perf_counter()
-        model = cls(cfg, device=dev,
-                    generator=ptt.make_generator(seed_, dev))
-        torch.cuda.synchronize()
-        return model, cfg, mt, time.perf_counter() - t0
+        return _deepseek_build(hf, seed_, dev, **over)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -5201,6 +5260,7 @@ def _moe_deepseek(seed, dev, card):
         f"absorbed decode is torch einsums, as in the JAX package), peak "
         f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
         f"[{card}]")
+    record = dict(ids=ids.cpu(), v2_generate=out.cpu())
     del model, out, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -5232,9 +5292,11 @@ def _moe_deepseek(seed, dev, card):
         f"per forward {[round(x, 3) for x in stats['tokens_per_forward']]}"
         f" (random weights: says nothing of a trained model's accept "
         f"rate); graphed bit for bit uncaptured at 16 new [{card}]")
+    record.update(v3_mtp=out.cpu(), v3_forwards=stats["target_forwards"])
     del model, out
     gc.collect()
     torch.cuda.empty_cache()
+    return record
 
 
 def phase_moe(seed, dev, card):
@@ -5242,15 +5304,16 @@ def phase_moe(seed, dev, card):
     ERNIE-4.5-21B-A3B through ``generate`` and the PagedEngine,
     DeepSeek-V2-Lite's widths through ``generate``, the V3-style variant
     through ``mtp_speculative_generate``. Returns the main paths'
-    launches of flash, decode and ragged."""
+    launches of flash, decode and ragged, and the plain models' streams
+    the ``tp-moe`` phase holds its sharded builds to."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 50)
     _moe_kernel_checks(gen, dev, card)
-    launches = _moe_ernie(seed, dev, card)
-    _moe_deepseek(seed, dev, card)
+    launches, record = _moe_ernie(seed, dev, card)
+    record["deepseek"] = _moe_deepseek(seed, dev, card)
     log(f"[moe] phase {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, record
 
 
 def _lse_case(gen, dev, b, s, h, kv, d):
@@ -6472,9 +6535,10 @@ TP_QUANT = (("q col", 8192, 2048, 64, 0),
 TP_NEW = 64          # generate()'s new tokens in the tp phase (the slice: 128)
 
 
-def _tp_attention(gen, dev, card):
+def _tp_attention(gen, dev, card, heads=None, tag="[tp] (a)"):
     """(a) The flash forward, decode and ragged kernels (T = 1 and 5) at
-    every per-rank head count of ``TP_HEADS``, bf16, against their plain
+    every per-rank head count of ``heads`` (``TP_HEADS``; ``tag`` heads
+    the lines), bf16, against their plain
     versions (``TOL_BF16``), every launch on its tensor-core route by
     count; their device times beside the plain versions, SDPA (heads
     pre-expanded, K/V pre-gathered for the paged calls) and the bound."""
@@ -6491,7 +6555,7 @@ def _tp_attention(gen, dev, card):
     d, el, R = 128, 2, 16
     ci = torch.tensor(dT - 1, dtype=torch.int32, device=dev)
     rows = []
-    for label, (h, kvh) in TP_HEADS.items():
+    for label, (h, kvh) in (heads or TP_HEADS).items():
         fns = {"flash": flash_attention_fwd, "decode": decode_attention_fwd,
                "ragged": ragged_paged_attention}
         before = {k: dict(f.launches_by_route) for k, f in fns.items()}
@@ -6520,14 +6584,14 @@ def _tp_attention(gen, dev, card):
         want = {"flash": {"wgmma": 1, "simt": 0},
                 "decode": {"mma": 1, "simt": 0},
                 "ragged": {"mma": want_ragged, "simt": 0}}
-        log(f"[tp] (a) {label}: {h} query heads over {kvh} kv heads a rank, "
+        log(f"{tag} {label}: {h} query heads over {kvh} kv heads a rank, "
             f"bf16, max_abs_err against the plain versions "
             + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
             + f" (tol {TOL_BF16}); launches by route {got}")
         if got != want:
-            fail(f"tp (a) {label}: launches by route {got} != {want}")
+            fail(f"{tag} {label}: launches by route {got} != {want}")
         if not all(e <= TOL_BF16 for e in errs.values()):
-            fail(f"tp (a) {label}: a kernel disagrees with its plain "
+            fail(f"{tag} {label}: a kernel disagrees with its plain "
                  f"version")
         # times: flash at the prefill shape
         call_bytes = el * (2 * fb * fs * h * d + 2 * fb * fs * kvh * d) \
@@ -6591,7 +6655,7 @@ def _tp_attention(gen, dev, card):
             del sets, lib
         for key, r in t.items():
             r["bound_ms"], r["bound_by"] = r.pop("bound")
-            log(f"[tp] (a) time {key}, {label}, {r['shape']}: kernel "
+            log(f"{tag} time {key}, {label}, {r['shape']}: kernel "
                 f"{r['ms']:.4f} ms (device time, CUDA graph), plain "
                 f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
@@ -6599,9 +6663,11 @@ def _tp_attention(gen, dev, card):
     return rows
 
 
-def _tp_quant(gen, dev, card):
+def _tp_quant(gen, dev, card, table=TP_QUANT, bits_set=(8, 4),
+              tag="[tp] (a)"):
     """(a) The quant kernel at Llama-3-70B's per-rank projections at tp 4
-    (``TP_QUANT``), int8 and int4, m = 4 and 16: the row layers through
+    (``table``: ``TP_QUANT``), int8 and int4 (``bits_set``), m = 4 and 16
+    (``tag`` heads the lines): the row layers through
     the wrapper's ``block_offset`` into the whole scales table. Each
     against its plain version over the rank's scale blocks (``TOL_QUANT_*``),
     on the mma route by count; its device time beside the plain version,
@@ -6610,8 +6676,8 @@ def _tp_quant(gen, dev, card):
         quant_matmul, quant_matmul_plain)
     from paddle_tpu_torch.quant import dequantize_weight
     rows = []
-    for bits in (8, 4):
-        for label, din, dout, blocks, rank in TP_QUANT:
+    for bits in bits_set:
+        for label, din, dout, blocks, rank in table:
             nb = din // 128
             off = rank * nb
             code_bytes = din * dout * bits // 8
@@ -6637,9 +6703,9 @@ def _tp_quant(gen, dev, card):
                        + TOL_QUANT_ABS * ref.float().abs().max())
                 err = max_err(got, ref)
                 if quant_matmul.launches_by_route["mma"] != mma0 + 1:
-                    fail(f"tp (a) quant {label}: not one mma launch")
+                    fail(f"{tag} quant {label}: not one mma launch")
                 if bool(bad.any()):
-                    fail(f"tp (a) quant int{bits} {label} m={m}: "
+                    fail(f"{tag} quant int{bits} {label} m={m}: "
                          f"{int(bad.sum())} elements off the plain version "
                          f"(max_abs_err {err:.3e})")
                 nbytes = (code_bytes + 2 * nb * dout + 2 * m * (din + dout))
@@ -6653,7 +6719,7 @@ def _tp_quant(gen, dev, card):
                     library_ms=graph_ms(lambda i: torch.matmul(x, ws[i % n]),
                                         calls=60),
                     bound_ms=b_ms, bound_by=b_by, err=err)
-                log(f"[tp] (a) quant int{bits} {label} {din}->{dout} m={m}"
+                log(f"{tag} quant int{bits} {label} {din}->{dout} m={m}"
                     f" (scale blocks {off}..{off + nb} of {blocks}): "
                     f"max_abs_err {err:.3e}; kernel {r['ms']:.4f} ms (device "
                     f"time, CUDA graph), plain {r['plain_ms']:.4f} ms, bf16 "
@@ -7183,6 +7249,399 @@ def phase_tp_serve(seed, dev, card):
     return launches
 
 
+
+# phase 17: the MoE families and MLA served sharded. ERNIE-4.5-21B-A3B's
+# heads a rank at tp 2 and 4 (20 query heads over 4 kv heads)
+TP_MOE_HEADS = {"ERNIE tp 2": (10, 2), "ERNIE tp 4": (5, 1)}
+# its per-rank projections (label, din of the rank's codes, dout, scale
+# blocks of the whole table, the rank whose offset is read): attention
+# and the dense layer 0's MLP; the experts are parameters, not
+# quantized, in both packages
+TP_MOE_QUANT = (("tp 2 q col", 2560, 1280, 20, 0),
+                ("tp 2 k/v col", 2560, 256, 20, 0),
+                ("tp 2 o row", 1280, 2560, 20, 1),
+                ("tp 2 gate/up col", 2560, 6144, 20, 0),
+                ("tp 2 down row", 6144, 2560, 96, 1),
+                ("tp 4 q col", 2560, 640, 20, 0),
+                ("tp 4 k/v col", 2560, 128, 20, 0),
+                ("tp 4 o row", 640, 2560, 20, 3),
+                ("tp 4 gate/up col", 2560, 3072, 20, 0),
+                ("tp 4 down row", 3072, 2560, 96, 3))
+# the replica's frontend chunk (its engine prefills whole prompts) and
+# its traffic: 8 greedy requests and one sampled, 64 new tokens each
+TP_MOE_CHUNK = 128
+TP_MOE_NEW = 64
+
+
+def _tp_moe_requests(seed, vocab):
+    import numpy as np
+    rs = np.random.RandomState(seed + 80)
+    gen = torch.Generator().manual_seed(seed + 81)
+
+    def ids(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+    reqs = [dict(request_id=f"e{i}", prompt=ids(int(rs.randint(64, 513))),
+                 max_new_tokens=TP_MOE_NEW) for i in range(8)]
+    reqs.append(dict(request_id="es", prompt=ids(300),
+                     max_new_tokens=TP_MOE_NEW, temperature=0.8,
+                     top_p=0.95, seed=seed + 82))
+    return reqs
+
+
+def _tp_moe_direct(seed, model):
+    """The replica's streams from the plain model: an engine at
+    ``replica_main``'s ERNIE geometry, warmed as the replica warms its
+    own, then each request of ``_tp_moe_requests`` alone (as the phase
+    sends them: an MoE tick's rows share the experts' capacity, so a
+    stream depends on what runs beside it). {rid: (tokens, logprobs)}."""
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.serving.fleet.replica_main import engine_kw, warm
+    eng = PagedEngine(model, **engine_kw("ernie45-21b-a3b", TP_MOE_CHUNK))
+    warm(eng, TP_MOE_CHUNK)
+    out = {}
+    for r in _tp_moe_requests(seed, model.config.vocab_size):
+        rid = r["request_id"]
+        eng.submit(rid, torch.as_tensor(r["prompt"]),
+                   **{k: v for k, v in r.items()
+                      if k not in ("request_id", "prompt")})
+        eng.run()
+        out[rid] = (list(eng.results.pop(rid)), list(eng.logprobs.pop(rid)))
+    del eng
+    return out
+
+
+def _rank_params(model, tp, ep):
+    """Parameters a rank of a ``{"tp": tp, "ep": ep}`` mesh holds of
+    ``model``, counted from its partitions as ``shard_layer`` places them
+    (a dim split over tp or ep is divided by the degree; the rest whole)."""
+    from paddle_tpu_torch.nn.common import partition_of
+    deg = {"tp": tp, "ep": ep}
+    n = 0
+    for p in model.parameters():
+        k = p.numel()
+        for axes in partition_of(p) or ():
+            for a in (axes,) if isinstance(axes, str) else (axes or ()):
+                k //= deg.get(a, 1)
+        n += k
+    return n
+
+
+def _tp_moe_sharded(seed, dev, card, plain):
+    """(a) ERNIE-4.5-21B-A3B built sharded on a world-one ``{"tp": 1,
+    "ep": 1}`` mesh and bound once, through ``Predictor.generate`` and the
+    ``PagedEngine``, bit for bit phase 11's plain model. Returns the main
+    paths' launches."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    from paddle_tpu_torch.parallel.sharding import (bind_static, local,
+                                                    shard_layer,
+                                                    sharded_build)
+    cfg = ptt.models.Ernie45MoeConfig()
+    L = cfg.num_hidden_layers
+    mesh = env.init_parallel_env({"tp": 1, "ep": 1})
+    try:
+        t0 = time.perf_counter()
+        with sharded_build(fsdp_min_size=1 << 30):
+            model = ptt.models.Ernie45MoeForCausalLM(
+                cfg, device=dev, generator=ptt.make_generator(seed + 60,
+                                                              dev))
+        shard_layer(model, fsdp_min_size=1 << 30)
+        bound_t = bind_static(model)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        aliased = all(bound_t[n].data_ptr() == local(p).data_ptr()
+                      for n, p in model.named_parameters())
+        del bound_t
+        whole = _rank_params(model, 1, 1)
+        per_rank = {f"tp {t} x ep {e}": _rank_params(model, t, e)
+                    for t, e in ((2, 2), (4, 1), (2, 1))}
+        log(f"[tp-moe] (a) parameters a rank holds, counted from the "
+            f"partitions: whole {whole / 1e9:.2f} B ({2 * whole / 1e9:.1f} "
+            f"GB bf16); "
+            + ", ".join(f"{k} {v / 1e9:.2f} B ({2 * v / 1e9:.1f} GB)"
+                        for k, v in per_rank.items())
+            + f" [{card}]")
+        log(f"[tp-moe] (a) ERNIE-4.5-21B-A3B at full width and depth ({L} "
+            f"layers, {cfg.num_experts} experts a MoE layer) from seed "
+            f"{seed + 60}, built sharded (sharded_build: each decoder "
+            f"layer cut to this rank's shards as drawn) on mesh "
+            f"{ {k: v for k, v in mesh.shape.items() if k in ('tp', 'ep')} }"
+            f" over {dist.get_backend()} (world {dist.get_world_size()}) "
+            f"and bound once in {build_s:.1f} s, "
+            f"{_weight_gb(model):.1f} GB; every compute tensor the local "
+            f"shard itself: {aliased}; phase 11's plain model was freed "
+            f"first [{card}]")
+        if not aliased:
+            fail("tp-moe (a): a compute tensor is not its local shard")
+        pred = ptt.Predictor(model, device=dev)
+        ids = plain["ids"].to(dev)
+        new = plain["generate"].shape[1] - ids.shape[1]
+        want = dict(NO_LAUNCHES, flash=L, decode=L * (new - 1))
+        run = _generate_run(ptt, pred, ids, new, want, "tp-moe (a)", dev,
+                            card)
+        same_gen = torch.equal(run["out"].cpu(), plain["generate"])
+        launches = {k: run["launches"][k] for k in ("flash", "decode")}
+        del pred
+        subs, toks = _moe_engine_subs(seed, cfg.vocab_size)
+        eng = PagedEngine(model, **PAGED)
+        _serve(eng, subs[:1], late_after=0)         # as phase 11: captures
+        steps0 = eng.stats["decode_steps"]
+        read = _reset_launches()
+        out, wall, _, in_prefill = _serve(eng, subs, late_after=4)
+        got = read()
+        ticks = eng.stats["decode_steps"] - steps0
+        _same_streams("tp-moe (a) engine", out, dict(eng.logprobs),
+                      *plain["engine"])
+        if got != dict(NO_LAUNCHES, ragged=L * ticks) or in_prefill:
+            fail(f"tp-moe (a) engine: launches {got} in {ticks} ticks")
+        _check_routes("tp-moe (a) engine", ragged=L * ticks)
+        launches["ragged"] = got["ragged"]
+        tick_ms = _steady_tick_ms(eng, toks)
+        log(f"[tp-moe] (a) generate 4 x 512 + {new} greedy: tokens bit for "
+            f"bit phase 11's plain model: {same_gen}; PagedEngine "
+            f"({len(subs)} requests, whole-prompt prefill, {ticks} ticks, "
+            f"{16 * 64 / wall:.1f} new tokens/s): streams and logprobs bit "
+            f"for bit the plain model's; decode step {run['decode_ms']:.2f} "
+            f"ms sharded against {plain['decode_ms']:.2f} plain, steady "
+            f"tick (16 rows) {tick_ms:.2f} ms against {plain['tick_ms']:.2f}"
+            f" [{card}]")
+        if not same_gen:
+            fail("tp-moe (a): the sharded model's greedy tokens differ from "
+                 "the plain model's")
+        del eng, model, run
+    finally:
+        env.clear_mesh()
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _tp_moe_experts(gen, dev, card):
+    """(b) One ERNIE MoE layer's expert products at a decode step's
+    capacity (C = 4 for 4 tokens) with E / ep = 64, 32 and 16 experts on
+    the rank: the three batched matmuls and the SwiGLU, device time from
+    a CUDA graph, beside the bound of reading the rank's experts."""
+    import torch.nn.functional as TF
+    h, m, C = 2560, 1536, 4
+    for El in (64, 32, 16):
+        nbytes = 2 * (3 * El * h * m + 2 * El * C * h)
+        n = copies_for(nbytes)
+        sets = [tuple((torch.randn(*s, generator=gen, device=dev) * 0.02)
+                      .to(torch.bfloat16)
+                      for s in ((El, C, h), (El, h, m), (El, h, m),
+                                (El, m, h))) for _ in range(n)]
+
+        def experts(i):
+            x, wg, wu, wd = sets[i % n]
+            return torch.bmm(TF.silu(torch.bmm(x, wg)) * torch.bmm(x, wu),
+                             wd)
+        ms = graph_ms(experts, calls=10)
+        b_ms, b_by = bound(nbytes, 2 * 3 * El * C * h * m)
+        log(f"[tp-moe] (b) one MoE layer's expert products, E / ep = {El} "
+            f"experts of [{h}, {m}] on the rank, C = {C}: {ms:.4f} ms "
+            f"(device time, CUDA graph; torch.bmm, as in both packages) "
+            f"against the bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        del sets
+
+
+async def _tp_moe_traffic(fe, reqs):
+    """Each request through ``fe`` in turn, SSE: {rid: (status, final
+    event, tokens, TTFT ms)} and the wall seconds."""
+    await fe.start()
+    out = {}
+    t0 = time.perf_counter()
+    for r in reqs:
+        units = []
+        st, fin, ts = await _sse_timed(fe.port, r, units)
+        out[r["request_id"]] = (st, fin or {}, [u[0] for u in units],
+                                (units[0][2] - ts) * 1e3 if units else None)
+    wall = time.perf_counter() - t0
+    await fe.drain()
+    return out, wall
+
+
+def _tp_moe_replica(seed, dev, card, plain):
+    """(c) ``replica_main --tp 1 --ep 1 --model ernie45-21b-a3b`` behind a
+    FleetFrontend: its streams bit for bit the plain model's engine at its
+    geometry, its ragged launches read from its /debugz, drained by
+    SIGTERM. Returns the traffic's ragged launches."""
+    import asyncio
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.serving.fleet import (FleetFrontend,
+                                                LocalProcessManager)
+    cfg = ptt.models.Ernie45MoeConfig()
+    L = cfg.num_hidden_layers
+    reqs = _tp_moe_requests(seed, cfg.vocab_size)
+    ref = plain["replica"]
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_moe_")
+    fe = FleetFrontend([], chunk_tokens=TP_MOE_CHUNK, name="chip-tp-moe",
+                       peer_read_timeout_s=FLEET_PEER_READ_TIMEOUT_S)
+    mgr = LocalProcessManager(fe, model="ernie45-21b-a3b",
+                              chunk_tokens=TP_MOE_CHUNK, seed=seed + 60,
+                              tp=1, ep=1,
+                              spawn_timeout_s=FLEET_SPAWN_TIMEOUT_S,
+                              probe_interval_s=0.25, stale_after_s=10.0,
+                              drain_grace_s=60.0, log_dir=log_dir)
+    proc = None
+    try:
+        t0 = time.perf_counter()
+        try:
+            peer = mgr.spawn()
+        except Exception as e:
+            for name in os.listdir(log_dir):
+                with open(os.path.join(log_dir, name)) as f:
+                    log(f"[tp-moe] {name}: ...{f.read()[-3000:]}")
+            fail(f"tp-moe (c): the replica did not start: {e!r}")
+        cold_s = time.perf_counter() - t0
+        proc = mgr.procs[peer.name]
+        dz0 = _replica_doc(peer, "/debugz")
+        rag0, _ = _ragged_of(dz0)
+        steps0 = _decode_steps(_replica_doc(peer, "/healthz"))
+        results, wall = asyncio.run(_tp_moe_traffic(fe, reqs))
+        dz1 = _replica_doc(peer, "/debugz")
+        seq = dz1["replicas"]["r0"]["engine"]["tp_sequencer"]
+        rag1, rag_routes = _ragged_of(dz1)
+        ticks = _decode_steps(_replica_doc(peer, "/healthz")) - steps0
+        ragged = rag1 - rag0
+        pids = seq["pids"]
+        t0 = time.perf_counter()
+        mgr.stop_all(grace_s=60.0)
+        rc = proc.wait(10)
+        drain_s = time.perf_counter() - t0
+        alive = [p for p in pids if os.path.exists(f"/proc/{p}")
+                 and open(f"/proc/{p}/stat").read().rsplit(")", 1)[1]
+                 .split()[0] != "Z"]
+        bad = [r["request_id"] for r in reqs
+               if results[r["request_id"]][0] != 200
+               or results[r["request_id"]][1].get("finish_reason") != "stop"
+               or (results[r["request_id"]][2],
+                   results[r["request_id"]][1].get("logprobs"))
+               != tuple(ref[r["request_id"]])]
+        ttft = np.array([v[3] for v in results.values() if v[3] is not None])
+        new_tokens = sum(len(v[2]) for v in results.values())
+        log(f"[tp-moe] (c) replica_main --tp 1 --ep 1 --model "
+            f"ernie45-21b-a3b --seed {seed + 60} through the launcher "
+            f"(world-one NCCL mesh, built sharded, the SequencedEngine over "
+            f"the tp x ep ranks) up in {cold_s:.1f} s (seq pids {pids}); "
+            f"{len(reqs)} requests one after another through a "
+            f"FleetFrontend ({TP_MOE_NEW} new each, 1 sampled): "
+            f"{new_tokens} new tokens in {wall:.2f} s, "
+            f"{new_tokens / wall:.1f} new tokens/s; TTFT p50 "
+            f"{np.percentile(ttft, 50):.1f} ms p99 "
+            f"{np.percentile(ttft, 99):.1f} ms; streams bit for bit the "
+            f"plain model's engine (tokens and logprobs): "
+            f"{len(reqs) - len(bad)} of {len(reqs)}; ragged {ragged} = {L} "
+            f"x {ticks} ticks (by route {rag_routes}); SIGTERM drained it "
+            f"in {drain_s:.1f} s: launcher exit {rc}, rank processes left "
+            f"{alive} [{card}]")
+        if bad:
+            fail(f"tp-moe (c): streams differ from the plain engine's: {bad}")
+        if ragged != L * ticks or not ticks or _taken(rag_routes) != {"mma"}:
+            fail(f"tp-moe (c): ragged launches {ragged} in {ticks} ticks")
+        if rc != 0 or alive:
+            fail(f"tp-moe (c): the drained replica's launcher exited {rc}, "
+                 f"rank processes left {alive}")
+        return {"ragged": ragged}
+    finally:
+        mgr.stop_all(grace_s=10.0)
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(10)
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def _tp_moe_deepseek(seed, dev, card, plain):
+    """(d) DeepSeek-V2-Lite's widths (full depth) built sharded on a
+    world-one mesh through ``generate()``, and the V3-style variant
+    through ``mtp_speculative_generate``: bit for bit phase 11's plain
+    models."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.generation.speculative import \
+        mtp_speculative_generate
+    from paddle_tpu_torch.parallel.sharding import (bind_static, shard_layer,
+                                                    sharded_build)
+    ids = plain["ids"].to(dev)
+    new = plain["v2_generate"].shape[1] - ids.shape[1]
+    env.init_parallel_env({"tp": 1, "ep": 1})
+    try:
+        def sharded(hf, seed_, **over):
+            with sharded_build(fsdp_min_size=1 << 30):
+                model, cfg, _, build_s = _deepseek_build(hf, seed_, dev,
+                                                         **over)
+            shard_layer(model, fsdp_min_size=1 << 30)
+            bind_static(model)
+            return model, cfg, build_s
+        model, cfg, build_s = sharded(DSV2_LITE, seed + 70)
+        read = _reset_launches()
+        out = ptt.generate(model, ids, ptt.GenerationConfig(
+            max_new_tokens=new))
+        launches = read()
+        same_v2 = torch.equal(out.cpu(), plain["v2_generate"])
+        del model, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, cfg, build3_s = sharded(DSV3_VARIANT, seed + 72,
+                                       num_nextn_predict_layers=1)
+        rows = plain["v3_mtp"].shape[0]
+        out, stats = mtp_speculative_generate(
+            model, ids[:rows], max_new_tokens=new, num_draft_tokens=4,
+            return_stats=True)
+        same_v3 = torch.equal(out.cpu(), plain["v3_mtp"]) and \
+            stats["target_forwards"] == plain["v3_forwards"]
+        cache = tuple(model.init_kv_caches(1, 4)[0][0].shape)
+        log(f"[tp-moe] (d) DeepSeek-V2-Lite's widths ({cfg.num_hidden_layers}"
+            f" layers, full depth) built sharded on a world-one mesh in "
+            f"{build_s:.1f} s: generate 4 x 512 + {new} bit for bit phase "
+            f"11's plain model: {same_v2} (launches {launches}: MLA's "
+            f"absorbed decode is einsums in both packages); the V3-style "
+            f"variant (one MTP module) built sharded in {build3_s:.1f} s: "
+            f"mtp_speculative_generate ({rows} rows) bit for bit, target "
+            f"forwards equal: {same_v3}; a rank's latent cache a layer "
+            f"{cache} (whole: MLA's cache has no heads to split) [{card}]")
+        if not (same_v2 and same_v3):
+            fail("tp-moe (d): a sharded DeepSeek stream differs from the "
+                 "plain model's")
+        if launches != NO_LAUNCHES:
+            fail(f"tp-moe (d): launches {launches}")
+        del model, out
+    finally:
+        env.clear_mesh()
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_tp_moe(seed, gen, dev, card, plain):
+    """The MoE families and MLA served sharded (``[tp-moe]`` lines): (a)
+    ERNIE built sharded at a world of one through generate and the
+    engine, (b) the kernels at ERNIE's per-rank shapes and the expert
+    products, (c) an ERNIE replica behind the fleet, (d) DeepSeek built
+    sharded. ``plain``: phase 11's plain models' streams. Returns the
+    main paths' launches."""
+    t0 = time.perf_counter()
+    launches = _tp_moe_sharded(seed, dev, card, plain)
+    _tp_attention(gen, dev, card, heads=TP_MOE_HEADS, tag="[tp-moe] (b)")
+    _tp_quant(gen, dev, card, table=TP_MOE_QUANT, bits_set=(8,),
+              tag="[tp-moe] (b)")
+    _tp_moe_experts(gen, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["ragged"] += _tp_moe_replica(seed, dev, card, plain)["ragged"]
+    _tp_moe_deepseek(seed, dev, card, plain["deepseek"])
+    log(f"[tp-moe] phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7254,7 +7713,8 @@ def main():
         routes[key] = train_routes[key]
     phase_resume(args.seed, dev, card)
     phase_fp16_train(args.seed, dev, card)
-    for key, n in phase_moe(args.seed, dev, card).items():
+    moe_launches, moe_plain = phase_moe(args.seed, dev, card)
+    for key, n in moe_launches.items():
         launches[key] += n
     gc.collect()
     torch.cuda.empty_cache()
@@ -7277,6 +7737,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for key, n in phase_tp_serve(args.seed, dev, card).items():
+        launches[key] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_tp_moe(args.seed, gen, dev, card, moe_plain).items():
         launches[key] += n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),

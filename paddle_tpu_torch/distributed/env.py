@@ -10,9 +10,9 @@ ranks, with the JAX package's axis names in its order:
 
     dp    data parallel (parameters replicated, batch split)
     fsdp  sharded data parallel (ZeRO: parameters and moments split too)
-    pp    pipeline parallel (degree 1 in the port so far)
+    pp    pipeline parallel (the 1F1B and interleaved schedules)
     sp    sequence/context parallel (ring and Ulysses attention)
-    ep    expert parallel (degree 1 in the port so far)
+    ep    expert parallel (E / ep experts a rank)
     tp    tensor parallel, innermost: neighbouring ranks
 
 ``DeviceMesh`` makes a sub-group for every dimension, most of degree 1;
@@ -45,6 +45,10 @@ HYBRID_AXES = ("dp", "fsdp", "pp", "sp", "ep", "tp")  # tp innermost
 # the batch is split over these axes, dp major (the JAX package's
 # PartitionSpec(("dp", "fsdp")))
 BATCH_AXES = ("dp", "fsdp")
+# the axes of a serving replica's mesh: its ranks hold parts of one
+# model (heads and columns over tp, experts over ep) and see the same
+# tokens, so every one of them takes every engine call
+SERVE_AXES = ("ep", "tp")
 # every process-group and collective wait is bounded: a dead rank ends
 # the job instead of hanging it
 DEFAULT_TIMEOUT_S = 600.0
@@ -66,7 +70,7 @@ class Mesh:
                                                 device_mesh.mesh.shape)}
         self.size = int(device_mesh.mesh.numel())
         self._coord = device_mesh.get_coordinate()
-        self._host_groups: Dict[str, object] = {}
+        self._host_groups: Dict[Tuple[str, ...], object] = {}
 
     def __repr__(self):
         return f"Mesh({self.shape}, device={self.device})"
@@ -77,40 +81,49 @@ class Mesh:
             return 0
         return int(self._coord[self.axis_names.index(axis)])
 
-    def ranks(self, axis: str) -> Tuple[int, ...]:
-        """The global ranks along ``axis`` through this rank, by index."""
-        if self.shape.get(axis, 1) == 1:
-            return (dist.get_rank(),)
-        idx = list(self._coord)
-        dim = self.axis_names.index(axis)
-        idx[dim] = slice(None)
-        return tuple(int(r) for r in self.device_mesh.mesh[tuple(idx)])
+    def ranks(self, axes) -> Tuple[int, ...]:
+        """The global ranks along ``axes`` (a name or a tuple of names)
+        through this rank, ordered by their flattened index, first axis
+        major."""
+        live = [a for a in _axes(axes) if self.shape.get(a, 1) > 1]
+        me = dist.get_rank()
+        if not live:
+            return (me,)
+        return tuple(next(row for row in self._rows(live) if me in row))
+
+    def _rows(self, live):
+        """Every group of ranks along the axes ``live`` (each row holds
+        the ranks whose other coordinates are equal), as lists."""
+        dims = [self.axis_names.index(a) for a in live]
+        ranks = self.device_mesh.mesh
+        n = int(np.prod([ranks.shape[d] for d in dims]))
+        return ranks.movedim(dims, list(range(-len(dims), 0))).reshape(
+            -1, n).tolist()
 
     def group(self, axis: str):
         """The process group of ``axis`` (its degree must exceed 1)."""
         return self.device_mesh.get_group(axis)
 
-    def host_group(self, axis: str):
-        """A gloo process group over ``axis``'s ranks, for checks of host
-        state (CPU tensors: no device stream waits for them): the axis's
-        own group under gloo, else one made on the first call, which
-        every rank of the world makes at the same point of its program
-        (``new_group`` is collective). Its degree must exceed 1."""
-        g = self._host_groups.get(axis)
+    def host_group(self, axes):
+        """A gloo process group over the ranks along ``axes`` (a name or
+        a tuple of names) through this rank, for checks of host state
+        (CPU tensors: no device stream waits for them): one axis's own
+        group under gloo, else one made on the first call, which every
+        rank of the world makes at the same point of its program
+        (``new_group`` is collective). Their degree must exceed 1."""
+        live = tuple(a for a in _axes(axes) if self.shape.get(a, 1) > 1)
+        g = self._host_groups.get(live)
         if g is not None:
             return g
-        if dist.get_backend() == "gloo":
-            g = self.group(axis)
+        if dist.get_backend() == "gloo" and len(live) == 1:
+            g = self.group(live[0])
         else:
-            ranks = self.device_mesh.mesh
-            dim = self.axis_names.index(axis)
             me = dist.get_rank()
-            for row in ranks.movedim(dim, -1).reshape(
-                    -1, ranks.shape[dim]).tolist():
+            for row in self._rows(live):
                 made = dist.new_group(row, backend="gloo")
                 if me in row:
                     g = made
-        self._host_groups[axis] = g
+        self._host_groups[live] = g
         return g
 
 

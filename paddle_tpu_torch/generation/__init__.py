@@ -111,12 +111,9 @@ def generate(model, input_ids, config: Optional[GenerationConfig] = None,
 
 
 def _check_serving(model, where: str) -> None:
-    """A model on a tp mesh serves once its weights are bound
-    (``parallel.sharding.bind_static``), and only a family ported for it
-    (``NotImplementedError`` for the MoE families and MLA at tp > 1)."""
-    from ..models.base import check_tp_serving
+    """A model on a serving mesh (tp, ep) serves once its weights are
+    bound (``parallel.sharding.bind_static``)."""
     from ..parallel.sharding import require_static
-    check_tp_serving(model, where)
     require_static(model, where)
 
 

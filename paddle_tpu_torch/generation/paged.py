@@ -74,17 +74,21 @@ On a card, engines on distinct models can tick on their own threads
 (the serving gateway's replicas): their steps run together, and a tick
 graph's capture runs alone (``device.card_lock``).
 
-On a ``tp`` mesh (a model sharded by ``parallel.sharding.shard_layer``
-and bound by ``bind_static``) every rank runs an engine over the same
-submissions: its pools hold its own ``num_key_value_heads / tp`` heads,
-its forwards call the tp layers' collectives, and its host scheduler
-must decide as every other rank does. Its decisions read the engine's
+On a serving mesh of ``tp`` and ``ep`` (a model sharded by
+``parallel.sharding.shard_layer`` and bound by ``bind_static``) every
+rank runs an engine over the same submissions: its pools hold its own
+``num_key_value_heads / tp`` heads, its forwards call the tp layers'
+collectives and the MoE layers' sum over ep, and its host scheduler
+must decide as every other rank does (an MoE layer routes every row of
+a tick, idle ones too, so the pools and tables must match on every rank
+of the replica, not only the tp ones). Its decisions read the engine's
 own state alone, except a request's deadline, which reads a clock: the
 ranks agree on which deadlines passed (one host all-reduce a step while
-a request has one). At tp > 1 each step compares a digest of its
-schedule (queue length, slots and their prefill and token counts, block
-tables, lengths, dispatches) across the ranks over a gloo group of host
-tensors, and raises where they part.
+a request has one). On more than one rank each step compares a digest
+of its schedule (queue length, slots and their prefill and token counts,
+block tables, lengths, dispatches) across all the replica's ranks
+(``distributed.env.SERVE_AXES``) over a gloo group of host tensors, and
+raises where they part.
 """
 from __future__ import annotations
 
@@ -101,7 +105,7 @@ import numpy as np
 import torch
 
 from ..device import card_lock
-from ..distributed.env import axis_degree, get_mesh
+from ..distributed.env import SERVE_AXES, axis_degree, get_mesh
 from ..ops.attention import dense_attention, use_paged_kernel
 from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
@@ -515,8 +519,9 @@ class PagedEngine:
     ``spec_tokens=k`` makes every tick speculative (up to k drafts a row
     from ``spec_ngram``-token matches; it takes precedence over K).
     ``tick_profile=True`` times each tick's phases (``profile_clock``
-    injectable, ``profile_ring_len`` records kept). At tp > 1 each
-    step compares its :meth:`schedule_digest` across the tp ranks.
+    injectable, ``profile_ring_len`` records kept). On a mesh of
+    several tp x ep ranks each step compares its :meth:`schedule_digest`
+    across them.
 
     On a CUDA card a tick program that fails to capture or replay raises:
     the engine never falls back to an eager tick.
@@ -649,11 +654,12 @@ class PagedEngine:
         # CapturedStep each, captured on first use into the cache's one
         # shared pool, all dropped when the weights move
         self._graphs = ExecCache(self.model)
-        # the cross-rank schedule check, made at tp > 1 only
-        self._tp = axis_degree("tp")
-        self.rank_check = self._tp > 1
-        self._host_tp = get_mesh().host_group("tp") if self.rank_check \
-            else None
+        # the cross-rank schedule check, made on several ranks only:
+        # every rank of the replica (tp x ep) takes every call
+        self._ranks = axis_degree(SERVE_AXES)
+        self.rank_check = self._ranks > 1
+        self._host_group = get_mesh().host_group(SERVE_AXES) \
+            if self.rank_check else None
         _check_pageable(model)
         self._new_pools()
         self.slots: List[Optional[_Request]] = [None] * self.R
@@ -2195,8 +2201,8 @@ class PagedEngine:
         (checked once per tick; a forward is never interrupted). A
         running expiry drains the row first (never abort against a stale
         mirror or an in-flight dispatch): only that row's pending ring
-        entries in delta mode, the whole ring otherwise. At tp > 1 the
-        ranks agree on what expired (:meth:`_agree`)."""
+        entries in delta mode, the whole ring otherwise. On several
+        ranks they agree on what expired (:meth:`_agree`)."""
         now = time.monotonic()
         reqs = list(self.queue) + list(self.slots)
         if not any(r is not None and r.deadline is not None for r in reqs):
@@ -2216,20 +2222,21 @@ class PagedEngine:
                     self._abort(s, "timeout", slot_id=i)
 
     def _agree(self, flags) -> List[bool]:
-        """``flags`` OR-ed over the tp ranks (each rank's own at tp 1):
-        a decision that reads a clock comes out the same on every rank."""
-        if self._host_tp is None:
+        """``flags`` OR-ed over the replica's ranks (this rank's own on
+        one): a decision that reads a clock comes out the same on every
+        rank."""
+        if self._host_group is None:
             return list(flags)
         t = torch.tensor(flags, dtype=torch.int32)
         torch.distributed.all_reduce(t, torch.distributed.ReduceOp.MAX,
-                                     group=self._host_tp)
+                                     group=self._host_group)
         return [bool(v) for v in t.tolist()]
 
     def schedule_digest(self) -> int:
         """A 63-bit digest of this step's schedule: the queue length,
         each slot's occupancy with its prefill position and token count,
         the block tables, the lengths and the dispatch count. Equal on
-        every rank of a tp mesh that decides alike."""
+        every rank of a serving mesh that decides alike."""
         h = hashlib.blake2b(digest_size=8)
         occ = [(-1, -1) if s is None else (s.prefill_pos, len(s.tokens))
                for s in self.slots]
@@ -2241,16 +2248,18 @@ class PagedEngine:
         return int.from_bytes(h.digest(), "little") >> 1
 
     def _check_ranks(self):
-        """Compare this step's :meth:`schedule_digest` across the tp ranks
-        (a gloo all-gather of one host int64); ``RuntimeError`` where they
-        part."""
+        """Compare this step's :meth:`schedule_digest` across the
+        replica's ranks (a gloo all-gather of one host int64);
+        ``RuntimeError`` where they part."""
         mine = self.schedule_digest()
-        got = [torch.zeros(1, dtype=torch.int64) for _ in range(self._tp)]
+        got = [torch.zeros(1, dtype=torch.int64)
+               for _ in range(self._ranks)]
         torch.distributed.all_gather(
-            got, torch.tensor([mine], dtype=torch.int64), group=self._host_tp)
+            got, torch.tensor([mine], dtype=torch.int64),
+            group=self._host_group)
         if any(int(g) != mine for g in got):
             raise RuntimeError(
-                f"tp ranks' engine schedules parted at dispatch "
+                f"the replica's ranks' engine schedules parted at dispatch "
                 f"{self.dispatch_count}: digests {[int(g) for g in got]}")
 
     @_card_work

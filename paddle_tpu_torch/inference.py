@@ -16,6 +16,7 @@ overload protection and its counters in the metrics registry.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import queue
 import threading
@@ -92,7 +93,9 @@ class Predictor:
     """Wraps a model for serving on ``device`` (the CUDA card unless the
     caller passes ``device="cpu"``; the model is moved there). As the JAX
     one does, it first casts the model's floating parameters to
-    ``config.dtype`` and then quantizes the model in place when
+    ``config.dtype`` (and gives the model a copy of its config in that
+    dtype, so its KV caches and the engine's pools hold what its layers
+    write) and then quantizes the model in place when
     ``config.quant_bits`` is set. To fuse the projections, call
     ``nn.fuse.fuse_projections(pred.model)`` after construction: the JAX
     order, cast, quantize, fuse.
@@ -104,7 +107,7 @@ class Predictor:
     own shards with the tp metadata."""
 
     def __init__(self, model, config: Optional[Config] = None, device=None):
-        from .parallel.sharding import bind_static, is_sharded
+        from .parallel.sharding import bind_static, is_sharded, map_local
         self.config = config or Config()
         self.device = resolve_device(device)
         sharded = any(is_sharded(p) for p in model.parameters())
@@ -121,8 +124,12 @@ class Predictor:
                     if p is None or not p.is_floating_point():
                         continue
                     if id(p) not in cast:
+                        # a DTensor's local tensor is cast and rewrapped
+                        # in its placements (DTensor's own dispatch of
+                        # the cast costs seconds a new shape on a mesh)
                         new = torch.nn.Parameter(
-                            p.detach().to(self.config.dtype),
+                            map_local(p.detach(),
+                                      lambda t: t.to(self.config.dtype)),
                             requires_grad=p.requires_grad)
                         if hasattr(p, "partition"):
                             new.partition = p.partition
@@ -133,6 +140,13 @@ class Predictor:
                     if buf is not None and buf.is_floating_point() and \
                             name not in mod._non_persistent_buffers_set:
                         mod._buffers[name] = buf.to(self.config.dtype)
+            # the caches and pools the model allocates take the dtype its
+            # layers now write (the JAX package keeps the config's and
+            # promotes the attention; the port's kernels take one dtype)
+            cfg = getattr(model, "config", None)
+            if dataclasses.is_dataclass(cfg) and hasattr(cfg, "dtype"):
+                model.config = dataclasses.replace(
+                    cfg, dtype=self.config.dtype)
         if sharded:
             bind_static(model)
         if self.config.quant_bits:

@@ -4,23 +4,14 @@
 On a mesh with ``tp`` of degree T each rank attends its own 1/T of the
 query and kv heads (the tp projections' local columns), so each rank's
 caches hold ``num_key_value_heads / T`` heads: :func:`local_heads`.
+(MLA's latent cache has no heads: every rank holds it whole.)
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..distributed.env import axis_degree
 from ..parallel.layers import local_heads
-
-
-def check_tp_serving(model, where: str) -> None:
-    """``NotImplementedError`` when ``model`` does not serve on the
-    installed mesh's ``tp`` degree (> 1): the MoE families and MLA."""
-    if axis_degree("tp") > 1 and not getattr(model, "tp_serving", True):
-        raise NotImplementedError(
-            f"{where} of {type(model).__name__} on a tp > 1 mesh is not "
-            f"ported (the MoE families and MLA serve at tp 1)")
 
 
 class CausalLMBase(nn.Module):
@@ -35,8 +26,6 @@ class CausalLMBase(nn.Module):
     # call, so rows compete for it (padding a batch changes which tokens
     # are dropped, and a row served alone is routed as a batch of one)
     rows_independent = True
-    # whether generate() and the PagedEngine serve it on a tp > 1 mesh
-    tp_serving = True
 
     def generate(self, input_ids, config=None, generator=None, **kwargs):
         from ..generation import generate as _generate

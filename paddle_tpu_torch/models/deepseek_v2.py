@@ -46,7 +46,7 @@ from ..distributed.collective import axis_size
 from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
                                VocabParallelEmbedding, copy_to)
 from ..parallel.moe import MoEMLP
-from ..parallel.sharding import constraint
+from ..parallel.sharding import constraint, shard_built
 from ..utils.rng import make_generator
 from .base import CausalLMBase
 from .llama import (LlamaConfig, LlamaMLP, _plain_inv_freq, cache_positions,
@@ -392,9 +392,11 @@ class DeepseekV2Model(nn.Module):
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, generator=generator,
             device=device, dtype=config.dtype)
+        # inside sharded_build each layer is cut to this rank's shards
+        # (its heads of the MLA projections, its E / ep experts) as drawn
         self.layers = nn.ModuleList(
-            [DeepseekV2DecoderLayer(config, i, device=device,
-                                    generator=generator)
+            [shard_built(DeepseekV2DecoderLayer(config, i, device=device,
+                                                generator=generator))
              for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=config.dtype)
@@ -431,7 +433,6 @@ class DeepseekV2ForCausalLM(CausalLMBase):
     not given)."""
 
     rows_independent = False            # MoE capacity is per call
-    tp_serving = False                  # not ported: MoE (and MLA) at tp > 1
 
     def __init__(self, config: Optional[DeepseekV2Config] = None,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -447,7 +448,7 @@ class DeepseekV2ForCausalLM(CausalLMBase):
             dtype=config.dtype, **kw)
         if config.num_nextn_predict_layers > 0:
             self.mtp = nn.ModuleList(
-                [DeepseekV3MTP(config, **kw)
+                [shard_built(DeepseekV3MTP(config, **kw))
                  for _ in range(config.num_nextn_predict_layers)])
 
     def init_kv_caches(self, batch_size: int, max_len: int, dtype=None):

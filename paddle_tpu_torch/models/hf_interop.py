@@ -442,6 +442,28 @@ def config_from_hf(model_dir: str):
     return DeepseekV2ForCausalLM, cfg, mt
 
 
+def _copy_experts(name, dst, by_id) -> None:
+    """Copy a shard's experts ``{expert id: [in, out] array}`` into their
+    rows of the stacked parameter ``dst``; on a mesh, only the rows of
+    this rank's shard (its E / ep experts), each read from the file
+    there alone."""
+    from ..convert import _read_part
+    from ..parallel.sharding import local, local_index
+    idx = local_index(dst)
+    lo, hi = idx[0].start, idx[0].stop
+    mine = local(dst)
+    for e, v in by_id.items():
+        if not 0 <= e < dst.shape[0] or \
+                tuple(v.shape) != tuple(dst.shape[1:]):
+            raise ValueError(f"{name}: expert {e} of shape "
+                             f"{tuple(v.shape)} does not fit "
+                             f"{tuple(dst.shape)}")
+        if lo <= e < hi:
+            part = _read_part(v, idx[1:])
+            mine[e - lo].copy_(torch.from_numpy(
+                np.asarray(part, np.float32)))
+
+
 @torch.no_grad()
 def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
                     device=None, model_cls=None, strict: bool = True,
@@ -464,9 +486,9 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
     the build's arguments, and each rank then reads only its own slice
     of each tensor into its shard, so no rank holds a decoder layer
     whole but the one being drawn. Call ``bind_static`` on the returned
-    model to serve it. The MoE families (which serve at tp 1) load whole
-    only: ``ValueError`` inside ``sharded_build``; load them outside it
-    and shard the model with ``shard_layer``."""
+    model to serve it. An MoE family's rank reads only its own experts
+    (its E / ep rows of each stacked tensor, over ep) and its tp slices
+    of the attention and dense projections."""
     import warnings
 
     from ..convert import copy_jax_params
@@ -475,9 +497,6 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
     if dtype is not None:
         cfg.dtype = dtype
     build = sharding.open_build()
-    if build is not None and mt in _MOE_PARTS:
-        raise ValueError(f"{mt} loads whole: call from_pretrained outside "
-                         f"sharded_build, then shard_layer")
     model = (model_cls or cls)(cfg, device=device, generator=generator)
     if build is not None:
         mesh, kw = build
@@ -496,14 +515,7 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
         copy_jax_params(model, sd, own)
         loaded.update(sd)
         for name, by_id in parts.items():
-            dst = own[name]
-            for e, v in by_id.items():
-                if not 0 <= e < dst.shape[0] or \
-                        tuple(v.shape) != tuple(dst.shape[1:]):
-                    raise ValueError(f"{name}: expert {e} of shape "
-                                     f"{tuple(v.shape)} does not fit "
-                                     f"{tuple(dst.shape)}")
-                dst[e].copy_(torch.from_numpy(np.asarray(v, np.float32)))
+            _copy_experts(name, own[name], by_id)
             experts.setdefault(name, set()).update(by_id)
         del shard, sd, parts
     for name, ids in experts.items():

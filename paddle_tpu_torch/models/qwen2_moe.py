@@ -30,7 +30,7 @@ from ..nn.recompute import recompute
 from ..parallel.layers import (ColumnParallelLinear, VocabParallelEmbedding,
                                parallel_matmul)
 from ..parallel.moe import MoEMLP
-from ..parallel.sharding import constraint
+from ..parallel.sharding import constraint, shard_built
 from ..utils.rng import make_generator
 from .base import CausalLMBase
 from .llama import (LlamaAttention, LlamaConfig, LlamaMLP, cache_positions,
@@ -141,9 +141,11 @@ class Qwen2MoeModel(nn.Module):
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, generator=generator,
             device=device, dtype=config.dtype)
+        # inside sharded_build each layer is cut to this rank's shards
+        # (its heads, its dense columns, its E / ep experts) as drawn
         self.layers = nn.ModuleList(
-            [Qwen2MoeDecoderLayer(config, i, device=device,
-                                  generator=generator)
+            [shard_built(Qwen2MoeDecoderLayer(config, i, device=device,
+                                              generator=generator))
              for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=config.dtype)
@@ -188,7 +190,6 @@ class Qwen2MoeForCausalLM(CausalLMBase):
     not given)."""
 
     rows_independent = False            # MoE capacity is per call
-    tp_serving = False                  # not ported: MoE (and MLA) at tp > 1
 
     def __init__(self, config: Qwen2MoeConfig, device=None,
                  generator: Optional[torch.Generator] = None):

@@ -21,7 +21,12 @@ JAX partition ``("ep", None, None)``: an ep rank holds E / ep of them
 combine's sum over experts becomes a sum over ep (Megatron's f and g
 over ``ep``: ``parallel.layers.copy_to`` / ``reduce_from``). Each ep
 rank sees the same tokens and holds the whole loss, so no gradient is
-summed over ep. With every axis of degree 1 none of this runs.
+summed over ep. With every axis of degree 1 none of this runs. Serving
+(a mesh of tp and ep) splits no data: every rank routes the same tokens
+(the residual the tp row layers all-reduced, the same bits on every
+rank), so their decisions agree and nothing is gathered; at ep > 1 the
+ownership masks and the sum over ep run inside the captured decode step
+and tick.
 
 Routing is the JAX package's, decision for decision: scores in fp32
 (the router product ``x.float() @ gate.float()``; TF32 must stay off),

@@ -28,8 +28,9 @@ reads them again.
 
 Serving holds its weights still: :func:`bind_static` makes and binds the
 compute tensors once and removes the pre-hook, so no redistribute runs
-in a captured decode step or tick (with tp only, each compute tensor is
-the parameter's local shard itself, not a copy). A quantized layer's
+in a captured decode step or tick (on a serving mesh of tp and ep, each
+compute tensor is the parameter's local shard itself, not a copy: a
+rank's heads and columns, its E / ep experts). A quantized layer's
 codes and scales are buffers, not parameters: a module that lists
 ``buffer_partitions()`` has each such buffer cut to this rank's shard by
 :func:`shard_layer` (a plain tensor: the layer reads its shard and

@@ -15,7 +15,9 @@ Children are started with ``subprocess`` (``sys.executable -m``), never
 ``fork``: the parent may already hold a CUDA context. With ``tp=N`` a
 replica is a tensor-parallel one: the manager starts
 ``paddle_tpu_torch.distributed.launch --nproc N`` over ``replica_main
---tp N`` in a session of its own, gives it N cards of its own
+--tp N`` (with ``ep=M`` too, ``--nproc N*M`` over ``--tp N --ep M``: an
+MoE model's experts split over ep) in a session of its own, gives it its
+N (x M) cards of its own
 (``CUDA_VISIBLE_DEVICES``; the launcher picks a free port a replica), and
 its ``kill`` and drain reach every rank (a SIGKILL goes to the whole
 process group; a SIGTERM to the launcher, which passes it on, and rank 0
@@ -66,14 +68,17 @@ class LocalProcessManager:
                  env: Optional[Dict[str, str]] = None,
                  log_dir: Optional[str] = None,
                  tp: Optional[int] = None,
+                 ep: Optional[int] = None,
                  drain_grace_s: float = 30.0):
         """``device``: the replicas' device (None: the CUDA card;
         ``"cpu"`` asks for the CPU), passed on as ``--device``. ``seed``:
         the Llama models' weights (``--seed``). ``tp``: each replica a
         tensor-parallel one of ``tp`` rank processes under the launcher
         (None: one process), each on ``tp`` of this process's visible
-        cards that no other replica holds. ``drain_grace_s``: how long a
-        drained replica may take before SIGKILL."""
+        cards that no other replica holds. ``ep``: with ``tp``, each
+        replica's MoE experts split over ``ep`` more ranks (``tp * ep``
+        processes and cards). ``drain_grace_s``: how long a drained
+        replica may take before SIGKILL."""
         # frontend HA: ``frontend`` may be a LIST — every
         # frontend gets its OWN RemoteReplica adapter per spawned
         # process (own probe thread, own breaker, own staleness
@@ -96,6 +101,12 @@ class LocalProcessManager:
         self.env = dict(env or {})
         self.log_dir = log_dir
         self.tp = None if tp is None else int(tp)
+        if ep is not None and tp is None:
+            raise ValueError("ep needs tp: an ep replica is a tp one's "
+                             "ranks times ep")
+        self.ep = None if ep is None else int(ep)
+        # rank processes a replica (tp x ep), None for one process
+        self.ranks = None if tp is None else self.tp * (self.ep or 1)
         self.drain_grace_s = float(drain_grace_s)
         self._taken: Dict[str, List[int]] = {}
         self._counter = 0
@@ -189,8 +200,8 @@ class LocalProcessManager:
             self._taken.pop(name, None)
 
     def _take_cards(self, name: str) -> Optional[str]:
-        """``CUDA_VISIBLE_DEVICES`` for a tp replica's ``tp`` cards (None
-        on the CPU or for a one-process replica)."""
+        """``CUDA_VISIBLE_DEVICES`` for a tp replica's ``tp x ep`` cards
+        (None on the CPU or for a one-process replica)."""
         if self.tp is None or self.device == "cpu":
             return None
         visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -202,11 +213,11 @@ class LocalProcessManager:
         with self._lock:
             used = {c for cs in self._taken.values() for c in cs}
             free = [c for c in pool if c not in used]
-            if len(free) < self.tp:
+            if len(free) < self.ranks:
                 raise RuntimeError(
-                    f"a tp {self.tp} replica needs {self.tp} free cards; "
-                    f"{len(free)} of {len(pool)} are free")
-            mine = free[:self.tp]
+                    f"a replica of {self.ranks} ranks needs as many free "
+                    f"cards; {len(free)} of {len(pool)} are free")
+            mine = free[:self.ranks]
             self._taken[name] = mine
         ids = visible.split(",") if visible else None
         return ",".join(ids[c].strip() if ids else str(c) for c in mine)
@@ -232,10 +243,11 @@ class LocalProcessManager:
         if self.tp is not None:
             cmd = [sys.executable, "-m",
                    "paddle_tpu_torch.distributed.launch",
-                   "--nproc", str(self.tp), "--grace",
+                   "--nproc", str(self.ranks), "--grace",
                    str(self.drain_grace_s)] \
                 + (["--cpu"] if self.device == "cpu" else []) \
-                + cmd[1:] + ["--tp", str(self.tp)]
+                + cmd[1:] + ["--tp", str(self.tp)] \
+                + (["--ep", str(self.ep)] if self.ep else [])
             cards = self._take_cards(name)
             if cards is not None:
                 env["CUDA_VISIBLE_DEVICES"] = cards

@@ -6,7 +6,9 @@ manager spawns and the autoscaler scales.
         --port 0 --model stub --chunk-tokens 8 [--device cpu]
 
 Builds N engines (negligible-compute stub for harness runs, tiny llama
-for real decode, Llama-3-8B at full width for the card), WARMS them
+for real decode, Llama-3-8B at full width for the card, ERNIE-4.5-21B-
+A3B at full width for an MoE replica, its tiny config for the CPU tests),
+WARMS them
 before announcing readiness (a cold first dispatch reads as a hang to
 sub-second fleet probes: each engine runs a greedy and a sampled request
 first, so its kernels are built and loaded and its greedy and sampled
@@ -23,10 +25,16 @@ A tensor-parallel replica is N rank processes, one engine each:
         -m paddle_tpu_torch.serving.fleet.replica_main --tp N \\
         --model llama3-70b [--device cpu]
 
-Each rank draws the Llama from ``--seed`` inside ``sharded_build`` (no
-rank holds a decoder layer whole but the one being drawn: the only way
-Llama-3-70B fits), shards and binds it, and wraps its engine in a
-:class:`~..tp_replica.SequencedEngine`. Rank 0 warms every rank through
+    python -m paddle_tpu_torch.distributed.launch --nproc N*M [--cpu] \\
+        -m paddle_tpu_torch.serving.fleet.replica_main --tp N --ep M \\
+        --model ernie45-21b-a3b [--device cpu]
+
+serves an MoE model on a ``{"tp": N, "ep": M}`` mesh: attention and the
+dense layer split over tp, each rank holding E / M of every MoE layer's
+experts. Each rank draws the model from ``--seed`` inside
+``sharded_build`` (no rank holds a decoder layer whole but the one being
+drawn: the only way Llama-3-70B fits), shards and binds it, and wraps
+its engine in a :class:`~..tp_replica.SequencedEngine`. Rank 0 warms every rank through
 it, serves the gateway and prints the readiness line once every rank
 has warmed both tick graphs; the other ranks follow rank 0's calls
 until its drain stops them. ``--tp 1`` runs the same path as a world of
@@ -50,12 +58,13 @@ import sys
 from typing import Any, Dict
 
 __all__ = ["stub_engine_kw", "tiny_engine_kw", "llama3_8b_engine_kw",
-           "llama3_70b_engine_kw", "engine_kw", "build_model",
-           "build_sharded_model", "build_engine", "warm", "main",
-           "READY_LINE", "MODELS"]
+           "llama3_70b_engine_kw", "ernie_engine_kw", "engine_kw",
+           "build_model", "build_sharded_model", "build_engine", "warm",
+           "main", "READY_LINE", "MODELS"]
 
 READY_LINE = "FLEET_REPLICA_READY"
-MODELS = ("stub", "tiny", "llama3-8b", "llama3-70b")
+MODELS = ("stub", "tiny", "llama3-8b", "llama3-70b", "ernie-tiny",
+          "ernie45-21b-a3b")
 
 
 def stub_engine_kw(chunk_tokens: int = 8) -> Dict[str, Any]:
@@ -92,50 +101,75 @@ def llama3_70b_engine_kw(chunk_tokens: int = 128) -> Dict[str, Any]:
     return llama3_8b_engine_kw(chunk_tokens)
 
 
+def ernie_engine_kw(chunk_tokens: int = 0,
+                    tiny: bool = False) -> Dict[str, Any]:
+    """An MoE model's geometry, with the JAX engine's settings for it:
+    whole-prompt prefill (neither package chunk-prefills an MoE model),
+    so no prefix cache. ERNIE-4.5-21B-A3B keeps the 8B's pool (16 slots
+    of up to 1024 tokens, 1025 blocks of 16): 28 layers x 2 x 4 kv heads
+    x 128 x 2 B = 57,344 B a token whole, ~0.94 GB of pool;
+    ``chunk_tokens`` is unused. ``tiny``: the CPU tests' geometry."""
+    if tiny:
+        return dict(max_slots=4, num_blocks=128, block_size=16,
+                    max_blocks_per_seq=16, prefill_buckets=(32,))
+    return dict(max_slots=16, block_size=16, max_blocks_per_seq=64,
+                num_blocks=1025)
+
+
 def engine_kw(model: str, chunk_tokens: int) -> Dict[str, Any]:
     """The engine geometry of ``--model`` (one table for every caller)."""
+    if model == "ernie-tiny":
+        return ernie_engine_kw(chunk_tokens, tiny=True)
     return {"stub": stub_engine_kw, "tiny": tiny_engine_kw,
             "llama3-8b": llama3_8b_engine_kw,
-            "llama3-70b": llama3_70b_engine_kw}[model](chunk_tokens)
+            "llama3-70b": llama3_70b_engine_kw,
+            "ernie45-21b-a3b": ernie_engine_kw}[model](chunk_tokens)
 
 
-def _llama_config(model: str):
-    from ...models import llama3_8b, llama3_70b, llama_tiny
-    return {"tiny": llama_tiny, "llama3-8b": llama3_8b,
-            "llama3-70b": llama3_70b}[model]()
+def _model_config(model: str):
+    """(model class, config) of ``--model``."""
+    from ...models import (Ernie45MoeConfig, Ernie45MoeForCausalLM,
+                           LlamaForCausalLM, ernie45_moe_tiny, llama3_8b,
+                           llama3_70b, llama_tiny)
+    if model == "ernie45-21b-a3b":
+        return Ernie45MoeForCausalLM, Ernie45MoeConfig()
+    if model == "ernie-tiny":
+        return Ernie45MoeForCausalLM, ernie45_moe_tiny()
+    return LlamaForCausalLM, {"tiny": llama_tiny, "llama3-8b": llama3_8b,
+                              "llama3-70b": llama3_70b}[model]()
 
 
 def build_model(model: str, device=None, seed: int = 0):
     """``--model``'s weights on ``device`` (the card by default): the
-    stub's seeded tables, or a Llama drawn from ``seed``."""
+    stub's seeded tables, or a model drawn from ``seed``."""
     from ...device import resolve_device
     dev = resolve_device(device)
     if model == "stub":
         from ...generation.stub import TickStubModel
         return TickStubModel(device=dev)
-    from ...models import LlamaForCausalLM
     from ...utils.rng import make_generator
-    return LlamaForCausalLM(_llama_config(model), device=dev,
-                            generator=make_generator(seed, dev))
+    cls, cfg = _model_config(model)
+    return cls(cfg, device=dev, generator=make_generator(seed, dev))
 
 
 def build_sharded_model(model: str, seed: int = 0):
-    """``--model``'s Llama from ``seed`` on the installed mesh's device,
-    each decoder layer cut to this rank's tp shards as it is drawn
-    (``sharded_build``), the rest cut by ``shard_layer`` and the compute
-    tensors bound once (``bind_static``): the weights that
-    :func:`build_model` draws, sharded."""
+    """``--model`` from ``seed`` on the installed mesh's device, each
+    decoder layer cut to this rank's shards (tp, and an MoE layer's
+    experts over ep) as it is drawn (``sharded_build``), the rest cut by
+    ``shard_layer`` and the compute tensors bound once
+    (``bind_static``): the weights that :func:`build_model` draws,
+    sharded."""
     if model == "stub":
-        raise ValueError("a tp replica serves a Llama (tiny, llama3-8b, "
-                         "llama3-70b), not the stub")
+        raise ValueError("a tp replica serves a model (tiny, llama3-8b, "
+                         "llama3-70b, ernie-tiny, ernie45-21b-a3b), not "
+                         "the stub")
     from ...distributed.env import get_mesh
-    from ...models import LlamaForCausalLM
     from ...parallel.sharding import bind_static, shard_layer, sharded_build
     from ...utils.rng import make_generator
     dev = get_mesh().device
+    cls, cfg = _model_config(model)
     with sharded_build(fsdp_min_size=1 << 30):
-        m = LlamaForCausalLM(_llama_config(model), device=dev,
-                             generator=make_generator(seed, dev))
+        m = cls(cfg, device=dev, generator=make_generator(seed, dev))
     shard_layer(m, fsdp_min_size=1 << 30)
     bind_static(m)
     return m
@@ -219,6 +253,10 @@ def main(argv=None) -> int:
                          "started by python -m paddle_tpu_torch."
                          "distributed.launch --nproc N (--cpu for gloo): "
                          "rank 0 serves, the others follow its calls")
+    ap.add_argument("--ep", type=int, default=None,
+                    help="--tp: split an MoE model's experts over M more "
+                         "ranks (the launcher's --nproc N*M; the mesh "
+                         "{tp: N, ep: M})")
     ap.add_argument("--idle-interval-s", type=float, default=None,
                     help="--tp: the idle rank 0's heartbeat to the other "
                          "ranks (default: tp_replica.IDLE_INTERVAL_S)")
@@ -232,6 +270,9 @@ def main(argv=None) -> int:
         spill_kw["spill_arena"] = KVSpillArena(
             ns.spill_mb << 20, name=ns.name or "replica")
         spill_kw["migrate_on_drain"] = ns.migrate == "on"
+    if ns.ep is not None and ns.tp is None:
+        raise SystemExit("--ep needs --tp: an ep replica is the tp ranks "
+                         "times ep")
     if ns.tp is not None:
         seq = _tp_replica(ns, spill_kw.get("spill_arena"))
         if seq is None:
@@ -283,7 +324,7 @@ def _tp_replica(ns, arena):
     from ..tp_replica import IDLE_INTERVAL_S, SequencedEngine
     if ns.engines != 1:
         raise SystemExit("--tp: a tp replica serves one engine")
-    init_parallel_env({"tp": ns.tp}, device=ns.device)
+    init_parallel_env({"tp": ns.tp, "ep": ns.ep or 1}, device=ns.device)
     model = build_sharded_model(ns.model, ns.seed)
     kw = engine_kw(ns.model, ns.chunk_tokens)
 

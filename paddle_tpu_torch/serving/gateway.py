@@ -610,9 +610,9 @@ class _ReplicaWorker(threading.Thread):
 
 
 def check_single_rank(engine, where: str) -> None:
-    """``NotImplementedError`` for an engine whose model is sharded at
-    tp > 1 with no sequencer in front of it: its ranks must all see every
-    call, in one order (wrap each rank's engine in
+    """``NotImplementedError`` for an engine whose model is sharded over
+    several ranks (tp x ep) with no sequencer in front of it: its ranks
+    must all see every call, in one order (wrap each rank's engine in
     :class:`~.tp_replica.SequencedEngine` and serve rank 0's);
     ``ValueError`` for a follower rank's sequenced engine."""
     if getattr(engine, "sequenced", False):
@@ -621,10 +621,10 @@ def check_single_rank(engine, where: str) -> None:
                 f"{where} on a tp follower rank's engine: rank 0 serves "
                 f"the replica, the other ranks call follow()")
         return
-    if getattr(engine, "_tp", 1) > 1:
+    if getattr(engine, "_ranks", 1) > 1:
         raise NotImplementedError(
-            f"{where} on a PagedEngine sharded at tp {engine._tp} with no "
-            f"sequencer: wrap every rank's engine in "
+            f"{where} on a PagedEngine sharded over {engine._ranks} tp x "
+            f"ep ranks with no sequencer: wrap every rank's engine in "
             f"serving.tp_replica.SequencedEngine and serve rank 0's")
 
 
@@ -808,9 +808,10 @@ class Gateway:
         self._by_replica = {w.replica: w for w in self._workers}
         # the reference engine defines prompt limits + the digest grid
         self._ref = engines[0]
-        # a span in the arena holds rank 0's heads alone at tp > 1: no
-        # peer imports it and none is imported (such resumes re-prefill)
-        self._xfer_ok = getattr(self._ref, "_tp", 1) == 1
+        # a span in the arena holds rank 0's heads alone on a replica of
+        # several ranks: no peer imports it and none is imported (such
+        # resumes re-prefill)
+        self._xfer_ok = getattr(self._ref, "_ranks", 1) == 1
         self._supervisor: Optional[ReplicaSupervisor] = None
         if supervise:
             for rep in replicas:

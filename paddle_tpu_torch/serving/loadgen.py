@@ -6,8 +6,8 @@ queueing delay shows up in TTFT instead of being hidden by a closed
 loop).
 
     python -m paddle_tpu_torch.serving.loadgen
-        [--model stub|tiny|llama3-8b|llama3-70b] [--device cpu]
-        [--fleet N [--tp T] [--fleet-kill K] [--frontends F
+        [--model stub|tiny|llama3-8b|llama3-70b|ernie-tiny|ernie45-21b-a3b]
+        [--device cpu] [--fleet N [--tp T [--ep E]] [--fleet-kill K] [--frontends F
         --frontend-kill K] [--autoscale]] [--url HOST:PORT ... [--tp T]]
         [--chaos] [--spill on] [--migrate on] [--churn] [--diurnal]
         [--jsonl PATH] [--trace-dir DIR] [--out PATH]
@@ -22,8 +22,9 @@ an external gateway instead. The engines run on the CUDA card unless
 replica a tensor-parallel one of T rank processes (``replica_main --tp
 T`` under the launcher, T cards a replica), the only way to serve
 ``--model llama3-70b`` (``--url`` accepts both flags: the remote
-replicas were started with their own). The in-process gateway serves at
-tp 1.
+replicas were started with their own). ``--ep E`` splits an MoE model's
+experts (``--model ernie45-21b-a3b``) over E more ranks a replica (T x E
+processes and cards). The in-process gateway serves at tp 1.
 
 Workload: ``--share-frac`` of requests carry a shared, chunk-grid-
 aligned system prompt (``--sys-tokens``) plus a short unique tail —
@@ -405,7 +406,8 @@ def _chunk(ns) -> int:
     """The engines' prefill chunk: the shared system prompt's length
     (so it lands on the chunk grid), else the model's default."""
     return ns.sys_tokens or {"stub": 8, "tiny": 32, "llama3-8b": 128,
-                             "llama3-70b": 128}[ns.model]
+                             "llama3-70b": 128, "ernie-tiny": 32,
+                             "ernie45-21b-a3b": 128}[ns.model]
 
 
 def _build_fleet(ns):
@@ -464,7 +466,7 @@ def _build_fleet(ns):
     manager = LocalProcessManager(
         fes, model=ns.model, chunk_tokens=chunk,
         device=getattr(ns, "device", None), extra_args=extra,
-        tp=getattr(ns, "tp", None),
+        tp=getattr(ns, "tp", None), ep=getattr(ns, "ep", None),
         probe_interval_s=0.1, stale_after_s=1.5)
     for _ in range(ns.fleet):
         manager.spawn()
@@ -715,11 +717,15 @@ async def run_loadgen(ns) -> dict:
         raise SystemExit("--tick-profile on requires in-process "
                          "replicas (no --fleet / --url)")
     tp = getattr(ns, "tp", None)
-    if not (urls or fleet) and ((tp or 1) > 1 or ns.model == "llama3-70b"):
+    ep = getattr(ns, "ep", None)
+    if not (urls or fleet) and ((tp or 1) > 1 or (ep or 1) > 1
+                                or ns.model == "llama3-70b"):
         raise ValueError(
-            f"the in-process gateway serves at tp 1 (--tp {tp}, --model "
-            f"{ns.model}): a tp replica is N rank processes, so serve it "
-            f"with --fleet K --tp N, or attach to one with --url")
+            f"the in-process gateway serves at tp 1 (--tp {tp}, --ep {ep}, "
+            f"--model {ns.model}): a tp replica is N rank processes, so "
+            f"serve it with --fleet K --tp N, or attach to one with --url")
+    if ep is not None and tp is None:
+        raise ValueError("--ep needs --tp (a replica's ranks are tp x ep)")
     if int(getattr(ns, "frontends", 1) or 1) > 1 and not fleet:
         raise SystemExit("--frontends needs --fleet: sibling "
                          "frontends share one replica-process fleet")
@@ -1379,15 +1385,20 @@ def main(argv=None) -> int:
                     choices=("prefix", "least_loaded", "round_robin"))
     ap.add_argument("--max-queue", type=int, default=256)
     ap.add_argument("--model", default="tiny",
-                    choices=("tiny", "stub", "llama3-8b", "llama3-70b"),
-                    help="llama3-8b / llama3-70b: Llama-3-8B / 70B at "
-                         "full width with random weights, in the card's "
+                    choices=("tiny", "stub", "llama3-8b", "llama3-70b",
+                             "ernie-tiny", "ernie45-21b-a3b"),
+                    help="llama3-8b / llama3-70b / ernie45-21b-a3b: "
+                         "Llama-3-8B / 70B, ERNIE-4.5-21B-A3B at full "
+                         "width with random weights, in the card's "
                          "serving geometry (70B needs --fleet K --tp N)")
     ap.add_argument("--tp", type=int, default=None,
                     help="--fleet: each replica a tensor-parallel one of "
                          "N rank processes on N cards of its own (with "
                          "--url the remote replicas' own: accepted, not "
                          "used)")
+    ap.add_argument("--ep", type=int, default=None,
+                    help="--fleet --tp N: split each replica's MoE "
+                         "experts over E more ranks (N x E processes)")
     ap.add_argument("--ring", default="on", choices=("on", "off"),
                     help="async token-ring decode on the replica "
                          "engines (off = synchronous per-tick "

@@ -3,8 +3,9 @@ engine call to the other ranks (the JAX package has no counterpart: there
 one controller drives a GSPMD-sharded engine).
 
 A tp replica is N processes, one a rank of the model's ``{"tp": N}``
-mesh, each with its own :class:`~..generation.paged.PagedEngine` over its
-shards. Every rank must see every call that changes its engine, in the
+mesh (or of a ``{"tp": N, "ep": M}`` one: N x M processes, the MoE
+layers' experts split over ep), each with its own
+:class:`~..generation.paged.PagedEngine` over its shards. Every rank must see every call that changes its engine, in the
 same order, or the schedules part (the engine compares a digest of each
 step's schedule over the ranks and raises). So each rank wraps its
 engine in a :class:`SequencedEngine` at the same point of its program:
@@ -13,10 +14,12 @@ engine in a :class:`SequencedEngine` at the same point of its program:
   takes an engine. ``submit`` and ``cancel`` are checked on rank 0 (a
   submit past ``max_queue`` or with bad arguments raises there and is
   never recorded) and recorded under one lock. ``step`` sends the batch
-  recorded since the last step over the tp host group (gloo, host
-  objects: the group the schedule digest uses), and then every rank,
+  recorded since the last step over the replica's host group (gloo,
+  host objects: the group the schedule digest uses), and then every rank,
   rank 0 included, applies the batch through :meth:`_RankState.apply`
-  and steps. ``hard_reset``, ``rebuild`` (the gateway's
+  and steps. The group spans every rank of the replica, ep ones too
+  (``distributed.env.SERVE_AXES``): each of them runs the same forwards.
+  ``hard_reset``, ``rebuild`` (the gateway's
   ``engine_factory``), ``attach_spill``, ``spill_live``,
   ``spill_parked``, a barrier and ``stop`` go out at once, each with the
   calls recorded before it. Reads (results, logprobs, the prefix cache,
@@ -33,7 +36,8 @@ reaches the process group's timeout and a follower that died is found.
 Each rank's spill arena holds its own heads' blocks: spills and restores
 run on every rank at the same point of the sequence.
 
-A replica that loses a rank does not rebuild in place. At tp > 1 an
+A replica that loses a rank does not rebuild in place. On more than
+one rank (``tp`` below counts the replica's ranks, tp x ep) an
 exception while a batch is sent, applied or stepped (gloo raises when a
 peer's connection resets), or a step the gateway's watchdog finds stuck
 (:meth:`check_lost`), ends rank 0's process with :data:`EXIT_RANK_LOST`;
@@ -133,8 +137,8 @@ class SequencedEngine:
     """One rank's engine of a tp replica (see the module docstring).
 
     Construct it on every rank at the same point of the program, after
-    the model is sharded and bound (at tp > 1 the constructor gathers
-    the ranks' process ids over the tp host group). On rank 0
+    the model is sharded and bound (on several ranks the constructor
+    gathers their process ids over the replica's host group). On rank 0
     (``leader``) hand it to the :class:`~.gateway.Gateway` in place of
     the engine; on the others call :meth:`follow`.
 
@@ -154,12 +158,13 @@ class SequencedEngine:
                  on_lost=None):
         import torch.distributed as dist
         self._rank = _RankState(engine, factory, spill_arena)
-        self.tp = int(getattr(engine, "_tp", 1))
-        self._group = getattr(engine, "_host_tp", None) \
+        # the replica's ranks (tp x ep): every one takes every batch
+        self.tp = int(getattr(engine, "_ranks", 1))
+        self._group = getattr(engine, "_host_group", None) \
             if self.tp > 1 else None
         if self._group is not None:
-            from ..distributed.env import get_mesh
-            ranks = get_mesh().ranks("tp")
+            from ..distributed.env import SERVE_AXES, get_mesh
+            ranks = get_mesh().ranks(SERVE_AXES)
             self._src = ranks[0]
             self.leader = dist.get_rank() == self._src
             pids = [None] * self.tp
@@ -427,7 +432,7 @@ class SequencedEngine:
     # ------------------------------------------------------ the followers
     def _send(self, batch):
         """The batch as every rank receives it: rank 0's, encoded, sent
-        over the tp host group (two gloo broadcasts: its length, its
+        over the replica's host group (two gloo broadcasts: its length, its
         bytes) and decoded; at tp 1 encoded and decoded here."""
         if self.leader:
             data = pickle.dumps(batch)

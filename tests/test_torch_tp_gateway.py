@@ -175,6 +175,18 @@ def _wait_gone(pids, timeout):
     return all(_gone(p) for p in pids)
 
 
+def _reap(launcher, pids, t0, ended):
+    """Wait for a killed replica's launcher (up to the watchdog's limit
+    plus the launcher's grace) and its rank processes; record its exit
+    code, whether all are gone and the seconds from the kill ``t0``."""
+    try:
+        ended["rc"] = launcher.wait(WATCHDOG_S + DRAIN_GRACE_S)
+    except subprocess.TimeoutExpired:
+        ended["rc"] = None
+    ended["gone"] = _wait_gone([launcher.pid] + pids, 5)
+    ended["gone_s"] = time.monotonic() - t0
+
+
 def _tp_doc(peer):
     doc = peer._get_json("/debugz")
     return doc["replicas"]["r0"]["engine"]
@@ -207,8 +219,15 @@ async def _fleet_traffic(fe, mgr, reqs):
                     launcher = mgr.procs[p.name]
                     t0 = time.monotonic()
                     os.kill(pids[1], signal.SIGKILL)
+                    # the end of the replica's processes is timed from
+                    # the kill as it happens, not after the failed-over
+                    # traffic has finished
+                    ended = {}
+                    reaper = threading.Thread(target=_reap, args=(
+                        launcher, pids, t0, ended), daemon=True)
+                    reaper.start()
                     return dict(peer=p.name, pids=pids, mid=mid, t0=t0,
-                                launcher=launcher)
+                                reaper=reaper, ended=ended)
             await asyncio.sleep(0.02)
         raise RuntimeError("no replica held a greedy stream mid-flight")
 
@@ -288,13 +307,8 @@ def served(tmp_path_factory):
                 out["fe_health"] = fe.healthz()
                 await fe.drain()
         results, kill = asyncio.run(fleet())
-        proc = kill.pop("launcher")
-        try:
-            kill["rc"] = proc.wait(WATCHDOG_S + DRAIN_GRACE_S)
-        except subprocess.TimeoutExpired:
-            kill["rc"] = None
-        kill["gone"] = _wait_gone([proc.pid] + kill["pids"], 5)
-        kill["gone_s"] = time.monotonic() - kill["t0"]
+        kill.pop("reaper").join(WATCHDOG_S + DRAIN_GRACE_S + 10)
+        kill.update(kill.pop("ended"))
         with open(tmp / "replica_logs" / f"{kill['peer']}.stderr.log") as f:
             kill["log"] = f.read()
         out["fleet"], out["kill"] = results, kill
@@ -564,7 +578,7 @@ def test_tp1_sequenced_submit_checks_before_recording():
 def test_gateway_refuses_a_bare_tp_engine_and_a_follower(monkeypatch):
     from paddle_tpu_torch.serving.gateway import check_single_rank
     eng = PagedEngine(_tiny(), **TINY_GEO)
-    monkeypatch.setattr(eng, "_tp", 2, raising=False)
+    monkeypatch.setattr(eng, "_ranks", 2, raising=False)
     with pytest.raises(NotImplementedError, match="no sequencer"):
         check_single_rank(eng, "Gateway")
     seq = SequencedEngine(PagedEngine(_tiny(), **TINY_GEO))

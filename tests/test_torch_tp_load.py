@@ -98,6 +98,13 @@ def _write_checkpoint(d, hf, cfg, dtype="F32", torch_dtype="float32"):
     return d
 
 
+def _moe_checkpoint(d):
+    from test_torch_hf_interop import (MOE_CONFIGS, _hf_config,
+                                       _moe_weights, _write_experts_split)
+    cfg = _hf_config(**MOE_CONFIGS["qwen2_moe"])
+    return _write_experts_split(d, cfg, _moe_weights(cfg, seed=21))
+
+
 def _jax(cfg, seed):
     pt.seed(seed)
     return JaxLlama(jax_llama_tiny(**cfg))
@@ -123,7 +130,8 @@ def loaded(tmp_path_factory):
              shape_dir=_write_checkpoint(str(tmp / "shape"), wrong, cfg),
              params={k: np.asarray(v) for k, v in jm.state_dict().items()},
              qcfg=QCFG, qparams={k: np.asarray(v) for k, v in
-                                 _jax(QCFG, 1).state_dict().items()})
+                                 _jax(QCFG, 1).state_dict().items()},
+             moe_dir=_moe_checkpoint(tmp / "moe"))
     worlds = {tp: start_world("tp_load", tp, tmp, p, timeout_s=300)
               for tp in (2, 4)}
     jax_model = jax_hf.from_pretrained(d)
@@ -210,15 +218,10 @@ def test_file_views_read_what_the_whole_reader_reads(tmp_path):
                 whole["a"], torch.from_numpy(a).bfloat16().float().numpy())
 
 
-def test_moe_families_load_whole_only(tmp_path):
-    """A MoE checkpoint inside ``sharded_build`` raises before anything is
-    built: those families serve at tp 1 and load whole."""
-    from paddle_tpu_torch.parallel.sharding import sharded_build
-    with open(tmp_path / "config.json", "w") as f:
-        json.dump({"model_type": "qwen2_moe", "vocab_size": 64,
-                   "hidden_size": 32, "num_hidden_layers": 1,
-                   "num_attention_heads": 4, "intermediate_size": 64,
-                   "num_experts": 4, "moe_intermediate_size": 16}, f)
-    with sharded_build(mesh=object()):
-        with pytest.raises(ValueError, match="loads whole"):
-            hf_interop.from_pretrained(str(tmp_path), device="cpu")
+def test_moe_checkpoint_loads_a_ranks_slices(loaded):
+    """A Qwen2-MoE checkpoint (experts split over two shards) inside
+    ``sharded_build`` at tp 2: each rank's tensors are ``shard_layer`` of
+    the whole load, bit for bit."""
+    _, ranks, _ = loaded
+    for r in ranks[2]:
+        assert r["moe_same"]

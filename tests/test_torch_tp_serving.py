@@ -10,8 +10,9 @@ q/k/v; ``Predictor`` at int8 and int4 (each rank holding half of every
 projection's codes); the quantized tp layers (the JAX
 ``test_quantized_tp_matches_dense_on_mesh`` case, a row rank's offset
 into the whole scales table, the ``ValueError`` of a row split that cuts a
-128-row block); and the refusals (an MoE model at tp 2, a gateway over a
-tp engine with no sequencer, ranks whose schedules part). A world of 4 runs one kv head a
+128-row block); an MoE model served at tp 2 (its tokens the whole
+model's); and the refusals (a gateway over a tp engine with no
+sequencer, ranks whose schedules part). A world of 4 runs one kv head a
 rank and the fused interleave at T = 4. The JAX side runs in this process
 on ``jax.devices()[:tp]`` while the worlds run. Weights cross from the JAX
 models as numpy."""
@@ -334,9 +335,15 @@ def test_row_split_off_the_scale_blocks_raises(worlds):
 
 def test_refusals_at_tp2(worlds):
     _, ranks, _, _, _ = worlds
+    # an MoE model serves at tp 2: generate() and the engine give the
+    # whole model's tokens (two tokens, dropless at one row)
+    from paddle_tpu_torch.models import Qwen2MoeForCausalLM, qwen2_moe_tiny
+    moe = Qwen2MoeForCausalLM(qwen2_moe_tiny(), device="cpu")
+    want = ptt.generate(moe, torch.ones(1, 4, dtype=torch.int64),
+                        max_new_tokens=2).numpy()
     for i, r in enumerate(ranks):
-        assert "not ported" in r["moe_generate"]
-        assert "not ported" in r["moe_engine"]
+        np.testing.assert_array_equal(r["moe_generate"], want)
+        assert r["moe_engine"] == want[0, 4:].tolist()
         # a gateway over a bare tp engine is refused; over rank 0's
         # sequenced engine it builds, over a follower's it is refused
         assert "no sequencer" in r["gateway"]

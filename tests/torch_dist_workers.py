@@ -876,10 +876,11 @@ def _quant_layer_cases(p, world):
 
 
 def _refusals(p, world):
-    """NotImplementedError for an MoE model on the tp mesh and for a
-    gateway over a bare tp engine; a gateway over rank 0's sequenced
-    engine builds, over a follower's it is refused; a schedule that
-    parts across the ranks raises on every rank."""
+    """An MoE model on the tp mesh serves (its generate() and engine
+    streams, for the caller to hold to the whole model's); a gateway over
+    a bare tp engine is refused; a gateway over rank 0's sequenced engine
+    builds, over a follower's it is refused; a schedule that parts across
+    the ranks raises on every rank."""
     import numpy as np
     import torch
     import paddle_tpu_torch as ptt
@@ -889,14 +890,10 @@ def _refusals(p, world):
     out = {}
     moe = _serve(Qwen2MoeForCausalLM(qwen2_moe_tiny(), device="cpu"))
     ids = torch.ones(1, 4, dtype=torch.int64)
-    for key, fn in (("moe_generate",
-                     lambda: ptt.generate(moe, ids, max_new_tokens=2)),
-                    ("moe_engine", lambda: PagedEngine(moe))):
-        try:
-            fn()
-            out[key] = None
-        except NotImplementedError as e:
-            out[key] = str(e)
+    out["moe_generate"] = ptt.generate(moe, ids, max_new_tokens=2).numpy()
+    eng = PagedEngine(moe, max_slots=2)       # a tick's rows route dropless
+    eng.submit("m", ids[0].numpy(), max_new_tokens=2)
+    out["moe_engine"] = list(eng.run()["m"])
     model = _serve(_tp_model(p["cfg"], p["params"]))
     eng = PagedEngine(model, max_slots=2, num_blocks=16, block_size=8,
                       max_blocks_per_seq=4, prefill_buckets=(16,))
@@ -1299,6 +1296,15 @@ def tp_load_cases(rank, world, p):
         sharding.shard_layer(qb, fsdp_min_size=1 << 30)
         convert.load_jax_state_dict(qb, qstate)
         out["quant_same"] = _same_locals(qa, qb)
+    # an MoE checkpoint: the router, shared experts and experts (E / ep a
+    # rank, here ep 1) loaded a rank's slices at a time (heads 4 / 2: tp 2)
+    if world == 2:
+        moe = _serve(hf_interop.from_pretrained(p["moe_dir"], device="cpu"))
+        with sharded_build(fsdp_min_size=1 << 30):
+            moe_built = hf_interop.from_pretrained(p["moe_dir"],
+                                                   device="cpu")
+        sharding.bind_static(moe_built)
+        out["moe_same"] = _same_locals(moe, moe_built)
     # the whole loader's errors, on a mesh
     for key in ("missing", "shape"):
         try:
@@ -1321,3 +1327,193 @@ def _same_locals(a, b):
 
 
 CASES.update(tp_load=tp_load_cases)
+
+
+# ------------------------------------------------- tp (x ep) MoE serving
+# whole-prompt prefill (neither package chunk-prefills an MoE model)
+MOE_GEO = dict(max_slots=2, num_blocks=24, block_size=8,
+               max_blocks_per_seq=6, prefill_buckets=(16,))
+
+
+def moe_model(kind, cfg):
+    """(model class, config) of a tiny MoE family ``kind`` with the
+    overrides ``cfg``."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.models import deepseek_v2 as ds
+    cls, tiny = {
+        "qwen": (models.Qwen2MoeForCausalLM, models.qwen2_moe_tiny),
+        "dsmoe": (models.Qwen2MoeForCausalLM,
+                  models.qwen2_moe.deepseek_moe_tiny),
+        "ernie": (models.Ernie45MoeForCausalLM, models.ernie45_moe_tiny),
+        "ds2": (ds.DeepseekV2ForCausalLM, ds.deepseek_v2_tiny),
+        "ds3": (ds.DeepseekV2ForCausalLM, ds.deepseek_v2_tiny)}[kind]
+    return cls, tiny(**cfg)
+
+
+def _moe_served(kind, p):
+    """The JAX weights of ``kind`` in a port model built inside
+    ``sharded_build`` (each decoder layer cut to this rank's heads and
+    experts as drawn), cut by ``shard_layer``, loaded a rank's slices at
+    a time (``load_jax_state_dict``) and bound once; and whether its
+    tensors are ``shard_layer`` of the whole model loaded whole and every
+    compute tensor (tp and ep shards alike) the local shard itself."""
+    from paddle_tpu_torch.convert import load_jax_state_dict
+    from paddle_tpu_torch.parallel.sharding import (bind_static, local,
+                                                    shard_layer,
+                                                    sharded_build)
+    cls, cfg = moe_model(kind, p["cfgs"][kind])
+    with sharded_build(fsdp_min_size=1 << 30):
+        m = cls(cfg, device="cpu")
+    shard_layer(m, fsdp_min_size=1 << 30)
+    load_jax_state_dict(m, p["params"][kind])
+    bound = bind_static(m)
+    alias = all(bound[n].data_ptr() == local(t).data_ptr()
+                for n, t in m.named_parameters())
+    whole = _serve(_jax_weights(cls(cfg, device="cpu"), p["params"][kind]))
+    return m, (_same_locals(whole, m), alias)
+
+
+class _Routes:
+    """Records every MoE layer's router scores and routing decisions
+    ((logits, experts, slots, kept) per token) while on."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.parallel import moe
+        self.calls, self._real = [], moe._route
+
+        def route(*a, **kw):
+            out = self._real(*a, **kw)
+            self.calls.append(tuple(t.detach().cpu().numpy().copy()
+                                    for t in (a[0],) + out[:3]))
+            return out
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.parallel import moe
+        moe._route = self._real
+
+
+def _engine_streams(model, script):
+    """``script`` (batches of (request id, prompt, engine kwargs)) on a
+    fresh PagedEngine at ``MOE_GEO``: tokens and logprobs by request."""
+    from paddle_tpu_torch.generation.paged import PagedEngine
+    return _direct_streams(PagedEngine(model, **MOE_GEO), script)
+
+
+def _moe_generates(m, ids, out, tag, beam=True, sampled=False):
+    import torch
+    import paddle_tpu_torch as ptt
+    with torch.no_grad(), _Routes() as routes:
+        out[f"{tag}_logits"] = m(ids).float().numpy()
+    out[f"{tag}_routes"] = routes.calls
+    out[f"{tag}_greedy"] = ptt.generate(m, ids, max_new_tokens=8).numpy()
+    if beam:
+        out[f"{tag}_beam"] = ptt.generate(m, ids, max_new_tokens=6,
+                                          num_beams=3).numpy()
+    if sampled:
+        out[f"{tag}_sampled"] = ptt.generate(
+            m, ids, max_new_tokens=8, do_sample=True, temperature=0.8,
+            top_k=20, generator=ptt.make_generator(3, "cpu")).numpy()
+
+
+def _mtp(m, ids, out, tag):
+    from paddle_tpu_torch.generation.speculative import \
+        mtp_speculative_generate
+    got, stats = mtp_speculative_generate(m, ids, max_new_tokens=8,
+                                          num_draft_tokens=3,
+                                          return_stats=True)
+    out[f"{tag}_mtp"] = got.numpy()
+    out[f"{tag}_mtp_forwards"] = stats["target_forwards"]
+
+
+def _moe_checkpoints(p, out):
+    """Each MoE family's HF checkpoint loaded whole then sharded, and
+    inside ``sharded_build``: this rank's tensors bit for bit, and the
+    shapes of the expert slices it read."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import hf_interop
+    from paddle_tpu_torch.parallel.sharding import bind_static, sharded_build
+    reads, experts = [], []
+    real_read, real_copy = convert._read_part, hf_interop._copy_experts
+
+    def read(src, idx):
+        part = real_read(src, idx)
+        reads.append(tuple(part.shape))
+        return part
+
+    def copy(name, dst, by_id):
+        n = len(reads)
+        real_copy(name, dst, by_id)
+        experts.extend(reads[n:])
+    for family, d in p["ckpts"].items():
+        whole = _serve(hf_interop.from_pretrained(d, device="cpu"))
+        experts.clear()
+        convert._read_part, hf_interop._copy_experts = read, copy
+        try:
+            with sharded_build(fsdp_min_size=1 << 30):
+                built = hf_interop.from_pretrained(d, device="cpu")
+        finally:
+            convert._read_part, hf_interop._copy_experts = \
+                real_read, real_copy
+        bind_static(built)
+        out[f"ckpt_{family}"] = (_same_locals(whole, built), list(experts))
+
+
+def tp_moe_cases(rank, world, p):
+    """The MoE families and MLA served on ``p["mesh"]`` (tp, or tp x ep):
+    every model built sharded and loaded from the JAX weights a rank's
+    slices at a time; prefill logits and routing decisions, greedy, beam
+    and sampled ``generate()``, the PagedEngine, ``Predictor`` int8 and
+    bf16, MTP-as-draft, HF checkpoints loaded inside ``sharded_build``,
+    and at tp x ep a SequencedEngine behind the port's ``Gateway``."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env
+    env.init_parallel_env(p["mesh"], device="cpu")
+    out = {}
+    ids = torch.from_numpy(np.asarray(p["ids"]))
+    for kind in p["models"]:
+        m, out[f"{kind}_same"] = _moe_served(kind, p)
+        mlp = next(l for l in m.model.layers if not l.is_dense).mlp
+        out[f"{kind}_experts"] = tuple(mlp.w_gate.shape)
+        out[f"{kind}_cache"] = tuple(m.init_kv_caches(1, 4)[0][0].shape)
+        _moe_generates(m, ids, out, kind, beam=kind in p["beam"],
+                       sampled=kind in p["sampled"])
+        if kind == "ds3":
+            _mtp(m, ids, out, kind)
+        if kind in p["engine"]:
+            out[f"{kind}_engine"] = _engine_streams(m, p["script"])
+        if kind == p.get("gateway"):
+            out["gateway"] = _sequenced_world(
+                m, MOE_GEO, lambda seq: asyncio.run(
+                    _gw_parity(seq, p["gw_reqs"])), idle_interval_s=0.2)
+            out["gateway_direct"] = _engine_streams(m, [
+                [(r["request_id"], r["prompt"], _engine_kw(r))
+                 for r in batch] for batch in p["gw_reqs"]])
+        if kind in p["int8"]:
+            q, _ = _moe_served(kind, p)
+            pred = ptt.Predictor(q, ptt.Config().enable_weight_only_quant(8),
+                                 device="cpu")
+            attn = q.model.layers[0].self_attn
+            out[f"{kind}_int8_codes"] = (tuple(attn.q_proj.qweight.shape),
+                                         tuple(attn.o_proj.qweight.shape))
+            out[f"{kind}_int8_logits"] = pred.run(ids).numpy()
+            out[f"{kind}_int8_greedy"] = pred.generate(
+                ids, max_new_tokens=6).numpy()
+        if kind in p["bf16"]:
+            b, _ = _moe_served(kind, p)
+            pred = ptt.Predictor(b, ptt.Config().set_dtype("bfloat16"),
+                                 device="cpu")
+            out[f"{kind}_bf16_logits"] = pred.run(ids).float().numpy()
+            out[f"{kind}_bf16_greedy"] = pred.generate(
+                ids, max_new_tokens=8).numpy()
+    if p.get("ckpts"):
+        _moe_checkpoints(p, out)
+    return out
+
+
+CASES.update(tp_moe=tp_moe_cases)
