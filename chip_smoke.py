@@ -217,7 +217,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention kernels and the rest), then through ``PagedEngine`` (16
    requests, whole-prompt prefill: ragged 28 x ticks inside the graphs,
    all mma; a profiled steady tick); DeepSeek-V2-Lite's published widths
-   built through ``config_from_hf`` from a written ``config.json``,
+   (cut to 8 of its 27 layers, ``MOE_CUTS``) built through
+   ``config_from_hf`` from a written ``config.json``,
    through ``generate`` (graphed bit for bit uncaptured, MLA's cache
    bytes against a (k, v) cache's); a V3-style variant at the same
    widths with one MTP module through ``mtp_speculative_generate``
@@ -307,8 +308,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    shards, the fused qkv and gate_up, and the row layers through the
    wrapper's offset into the whole scales table), int8 and int4, m 4
    and 16, against its plain version, timed beside a bf16 matmul on the
-   dequantized weight and the bound; (b) Llama-3-8B at full width and
-   depth, twice from the seed: one plain, one sharded on a world-one
+   dequantized weight and the bound; (b) Llama-3-8B at full width, cut
+   to ``TP_LAYERS`` (8) of its 32 layers, twice from the seed: one
+   plain, one sharded on a world-one
    NCCL mesh (``{"tp": 1}``) and bound once (``bind_static``), through
    ``Predictor.generate`` (4 x 512 + ``TP_NEW``, the counts set to 0 just
    before the sharded run and read just after: flash 32, decode 32 x
@@ -352,7 +354,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    follower's loss, a rank's slices of a checkpoint) is proved by the
    CPU gloo tests. The phase's ragged launches join the kernels line's.
 
-17. the MoE families and MLA served sharded (``[tp-moe]`` lines, last):
+17. the MoE families and MLA served sharded (``[tp-moe]`` lines):
    (a) ERNIE-4.5-21B-A3B at full width and depth from phase 11's seed,
    built inside ``sharded_build`` on a world-one ``{"tp": 1, "ep": 1}``
    NCCL mesh and bound once: ``Predictor.generate`` (4 x 512 + 64, the
@@ -372,12 +374,49 @@ Phases, in order; any failure raises and the script exits non-zero:
    (tokens and logprobs) bit for bit the plain model's engine at the
    replica's geometry (phase 11, after the same warm-up); ragged 28 a
    tick from its ``/debugz``; new tokens/s and TTFT; a SIGTERM drain,
-   every process exiting 0; (d) DeepSeek-V2-Lite's widths (full depth)
+   every process exiting 0; (d) DeepSeek-V2-Lite's widths (8 layers)
    built sharded on the world-one mesh through ``generate()``, and the
    V3-style variant through ``mtp_speculative_generate``, bit for bit
    phase 11's plain models. tp and ep > 1 are proved by the CPU gloo
    tests. The phase's flash, decode and ragged launches join the kernels
    line's.
+
+18. fine-tuning (``[finetune]`` lines, last): first the flash forward, dq
+   and dk/dv with the packed batch's segment ids at q [2, 2048, 32, 128],
+   kv [2, 2048, 8, 128] against their plain versions (on wgmma; timed
+   beside the plain versions, SDPA with the same boolean mask and the
+   bound of the (query, key) pairs this data needs). Then Llama-3-8B at
+   full width and depth from the seed with LoRA (r 8, alpha 16) on all
+   seven projections of every layer: (a) 3 ``SFTTrainer`` steps on one
+   batch from ``DataCollatorForSFT(max_length=2048, packing=True,
+   pack_rows=2)`` over seeded prompt/response pairs of 16-512 tokens,
+   the counts set to 0 just before and read just after: flash, dq and
+   dk/dv 32 a step, every call with segment ids, on wgmma; the fused
+   AdamW once a step with state for the adapters alone; the loss falls;
+   every base weight bit for bit its host copy; every B moved; step ms,
+   tokens/s, peak memory, a profiled step and the update's time over the
+   adapters; (b) each segment of the packed rows against its forward
+   alone (padded to whole tiles, on the flash route), within
+   ``TOL_PACKED``; (c) at 2 layers, one step's adapter gradients on the
+   kernels against the kernels' plain versions, within ``TOL_GRAD_REL``;
+   (d) B zeroed, the reference log-probs from ``compute_sequence_logps``
+   over the concatenated [2, 1024] pair, 3 ``DPOTrainer`` steps: step 0
+   at ln 2 within ``TOL_LN2``, the loss falls; (e) ``generate()`` (2 x 512
+   + 32, greedy) on the adapted model, ``merge_lora``, ``generate()``
+   again with the counts read (flash 32, decode 32 x 31 on mma): the
+   captured step is rebuilt without the adapters' products, each token
+   within ``TOL_TEACHER`` of a teacher-forced forward's maximum, the
+   logits within ``TOL_MERGE`` of the adapted model's; ``unmerge_lora``
+   brings every projection within ``TOL_UNMERGE`` of its host copy; (f)
+   merged, ``PTQ`` (2 calibration batches of [1, 512], ``lm_head``
+   skipped), ``convert``, ``generate()`` with the counts read (quant 7 x
+   32 x 31 on mma), the converted logits on the quant kernel within
+   ``TOL_PTQ_PLAIN`` of its plain version, the teacher-forced gap and
+   NLL against bf16; (g) the ``[train]`` cut (4 layers, [2, 2048]) with
+   every projection in a ``FakeQuantLinear``, 2 Trainer steps. Last,
+   decode and the int8 quant kernel timed at (e)'s and (f)'s shapes. The
+   phase's launches join the kernels line's, and the segment kernels'
+   errors its errors.
 
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
@@ -4084,7 +4123,8 @@ def _trainer(model, batches, steps, clock=None, prefetch_depth=2,
 
 
 def profile_train_step(tr, step_ms, card,
-                       label="train step (4 layers, [2,2048])"):
+                       label="train step (4 layers, [2,2048])",
+                       before_ms=ADAM_BEFORE_MS):
     """torch.profiler over one more step of the trainer: device time by
     kind (weight matmuls, flash forward, dq, dk/dv, the optimizer's clip
     and update, other elementwise) and the device's busy share of the
@@ -4136,8 +4176,9 @@ def profile_train_step(tr, step_ms, card,
         f"{len(kernels)} device ops; "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in cats.items()) + note
         + f"; the optimizer's {cats['optimizer']:.2f} ms hold the fused "
-        f"update kernel's {fused:.2f} ms (the per-tensor update before it: "
-        f"{ADAM_BEFORE_MS} ms) [{card}]")
+        f"update kernel's {fused:.2f} ms"
+        + (f" (the per-tensor update before it: {before_ms} ms)"
+           if before_ms else "") + f" [{card}]")
     return cats
 
 
@@ -4429,8 +4470,21 @@ def phase_adam_checks(gen, dev):
 
 def phase_adam_times(seed, dev, card):
     """The fused update at the 4-layer training tensors (bf16 parameters
-    of Llama-3-8B width, 4 layers, fp32 masters, AdamW, a clip scale):
-    the kernel, its plain version (tensor by tensor) and
+    of Llama-3-8B width, 4 layers): :func:`_adam_times`."""
+    model = _train_model(seed, dev)
+    row = _adam_times([p.detach() for p in model.parameters()], dev, card,
+                      f"Llama-3-8B width, {TRAIN_LAYERS} layers", seed + 30,
+                      note=f"; the per-tensor update before this kernel "
+                           f"{ADAM_BEFORE_MS} ms")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _adam_times(params, dev, card, what, seed, note=""):
+    """The fused update of ``params`` (bf16, with fp32 masters, AdamW, a
+    clip scale; updated in place): the kernel, its plain version (tensor by tensor) and
     ``torch.optim.AdamW(fused=True)`` stepping fp32 copies with their own
     fp32 gradients (the same 28 bytes a parameter), in turns (kernel,
     plain, library, library, plain, kernel), CUDA events over 3 calls a
@@ -4439,10 +4493,8 @@ def phase_adam_times(seed, dev, card):
 
     from paddle_tpu_torch.ops.kernels.fused_adam import (
         fused_adam, fused_adam_reference)
-    model = _train_model(seed, dev)
-    params = [p.detach() for p in model.parameters()]
     n = sum(p.numel() for p in params)
-    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     grads = [(torch.randn(p.shape, generator=gen, device=dev) * 1e-3)
              .to(p.dtype) for p in params]
     masters = [p.float() for p in params]
@@ -4474,18 +4526,16 @@ def phase_adam_times(seed, dev, card):
     t_ops = ADAM_OPS * n / FP32_FLOP_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"[adam] update of {n / 1e9:.3f} B parameters (Llama-3-8B width, "
-        f"{TRAIN_LAYERS} layers, {len(params)} tensors, bf16 + fp32 masters,"
-        f" AdamW, clip): kernel " + ", ".join(f"{x:.3f}" for x in
-                                             times["kernel"])
+    log(f"[adam] update of {n / 1e9:.4f} B parameters ({what}, "
+        f"{len(params)} tensors, bf16 + fp32 masters, AdamW, clip): kernel "
+        + ", ".join(f"{x:.3f}" for x in times["kernel"])
         + " ms; plain " + ", ".join(f"{x:.3f}" for x in times["plain"])
         + " ms; torch.optim.AdamW(fused=True) on fp32 copies "
         + ", ".join(f"{x:.3f}" for x in times["library"])
-        + f" ms; bound {bound_ms:.3f} ms ({bound_by}: {nbytes / 1e9:.2f} GB "
+        + f" ms; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB "
         f"at 3.35 TB/s) -> kernel at {100 * bound_ms / el['kernel']:.1f} % "
-        f"of the bound; the per-tensor update before this kernel "
-        f"{ADAM_BEFORE_MS} ms [{card}]")
-    del model, params, grads, masters, ms, vs, lib, lib_params, cache
+        f"of the bound{note} [{card}]")
+    del params, grads, masters, ms, vs, lib, lib_params, cache
     gc.collect()
     torch.cuda.empty_cache()
     return dict(ms=el["kernel"], plain_ms=el["plain"],
@@ -4742,11 +4792,11 @@ MOE_FLASH = (4, 512, 20, 4, 128)        # b, s, h, kv, d
 MOE_DECODE = (4, 576, 20, 4, 128)       # b, T, h, kv, d
 MOE_RAGGED = dict(R=16, h=20, kvh=4)
 # DeepSeek-V2-Lite's published config.json (the fields config_from_hf
-# reads)
+# reads), its depth cut (MOE_CUTS)
 DSV2_LITE = {
     "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
     "intermediate_size": 10944, "moe_intermediate_size": 1408,
-    "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_hidden_layers": 8, "num_attention_heads": 16,
     "num_key_value_heads": 16, "n_shared_experts": 2,
     "n_routed_experts": 64, "num_experts_per_tok": 6,
     "first_k_dense_replace": 1, "kv_lora_rank": 512, "q_lora_rank": None,
@@ -4764,8 +4814,10 @@ DSV2_LITE = {
 # experts, the top-2-sum group score, 4 groups eligible, one MTP module
 DSV3_VARIANT = dict(DSV2_LITE, model_type="deepseek_v3", n_group=8,
                     topk_group=4, norm_topk_prob=True)
-# the MoE phase's depth cuts (none: every model at its published depth)
-MOE_CUTS = "none"
+# the MoE phase's depth cuts: DeepSeek-V2-Lite's widths (and the V3-style
+# variant) at 8 of their 27 layers, for the script's time limit; ERNIE at
+# its full depth (the tp-moe replica process builds it whole)
+MOE_CUTS = "DeepSeek-V2-Lite's widths at 8 of 27 layers"
 
 
 def _moe_kernel_checks(gen, dev, card):
@@ -6533,6 +6585,10 @@ TP_QUANT = (("q col", 8192, 2048, 64, 0),
             ("qkv fused col", 8192, 2560, 64, 0),
             ("gate_up fused col", 8192, 14336, 64, 0))
 TP_NEW = 64          # generate()'s new tokens in the tp phase (the slice: 128)
+# the tp phase's Llama-3-8B cut to 8 of its 32 layers (b, c) for the
+# script's time limit: its checks hold the sharded model to the plain one
+# bit for bit, at any depth
+TP_LAYERS = 8
 
 
 def _tp_attention(gen, dev, card, heads=None, tag="[tp] (a)"):
@@ -6798,7 +6854,7 @@ def _tp_engine(model, subs, warm, **kw):
 
 
 def _tp_serving(seed, dev, card):
-    """(b) Llama-3-8B at full width and depth on a world-one NCCL mesh
+    """(b) Llama-3-8B at full width, ``TP_LAYERS`` deep, on a world-one NCCL mesh
     ({"tp": 1}): sharded, bound once, through ``Predictor.generate`` and
     the ``PagedEngine``, bit for bit the same weights unsharded in this
     process (a second model from the same seed), steps and ticks timed
@@ -6813,7 +6869,7 @@ def _tp_serving(seed, dev, card):
     from paddle_tpu_torch.parallel.sharding import (bind_static, local,
                                                     shard_layer,
                                                     sharded_build)
-    cfg = ptt.llama3_8b()
+    cfg = ptt.llama3_8b(num_hidden_layers=TP_LAYERS)
     L = cfg.num_hidden_layers
     new = TP_NEW
 
@@ -6831,7 +6887,8 @@ def _tp_serving(seed, dev, card):
         plain.parameters(), sharded.parameters()))
     aliased = all(bound_t[n].data_ptr() == local(p).data_ptr()
                   for n, p in sharded.named_parameters())
-    log(f"[tp] (b) Llama-3-8B at full width and depth twice from seed "
+    log(f"[tp] (b) Llama-3-8B at full width, {L} of its 32 layers, twice "
+        f"from seed "
         f"{seed}: one plain, one built sharded (sharded_build) on mesh "
         f"{mesh.shape} over "
         f"{dist.get_backend()} (world {dist.get_world_size()}) and bound "
@@ -7558,7 +7615,7 @@ def _tp_moe_replica(seed, dev, card, plain):
 
 
 def _tp_moe_deepseek(seed, dev, card, plain):
-    """(d) DeepSeek-V2-Lite's widths (full depth) built sharded on a
+    """(d) DeepSeek-V2-Lite's widths (``DSV2_LITE``'s depth) built sharded on a
     world-one mesh through ``generate()``, and the V3-style variant
     through ``mtp_speculative_generate``: bit for bit phase 11's plain
     models."""
@@ -7600,7 +7657,7 @@ def _tp_moe_deepseek(seed, dev, card, plain):
             stats["target_forwards"] == plain["v3_forwards"]
         cache = tuple(model.init_kv_caches(1, 4)[0][0].shape)
         log(f"[tp-moe] (d) DeepSeek-V2-Lite's widths ({cfg.num_hidden_layers}"
-            f" layers, full depth) built sharded on a world-one mesh in "
+            f" layers; {MOE_CUTS}) built sharded on a world-one mesh in "
             f"{build_s:.1f} s: generate 4 x 512 + {new} bit for bit phase "
             f"11's plain model: {same_v2} (launches {launches}: MLA's "
             f"absorbed decode is einsums in both packages); the V3-style "
@@ -7642,7 +7699,845 @@ def phase_tp_moe(seed, gen, dev, card, plain):
     return launches
 
 
+# ------------------------------------------------------------ fine-tuning
+FT_LORA = dict(r=8, lora_alpha=16,
+               target_modules=[".*q_proj", ".*k_proj", ".*v_proj",
+                               ".*o_proj", ".*gate_proj", ".*up_proj",
+                               ".*down_proj"])
+FT_ROWS, FT_LEN = 2, 2048          # packed SFT rows of [2, 2048]
+FT_EXAMPLE = (16, 512)             # tokens of one prompt/response pair
+FT_STEPS = 3
+FT_LR = 1e-3
+FT_GRAD_LAYERS = 2                 # depth of (c)'s kernels-vs-plain step
+DPO_SEQ, DPO_PROMPT, DPO_STEPS = 1024, 256, 3   # step 0, then 2 more
+FT_NEW = 32                        # generate()'s new tokens in (e), (f)
+FT_PROMPT = (2, 512)
+PTQ_CALIB = (2, (1, 512))          # calibration batches of [1, 512]
+QAT_STEPS = 2
+# DPO's step-0 loss: the reference log-probs are the policy's own (B = 0,
+# the same [2, 1024] forward), so the loss is ln 2 up to the fp32 sums
+TOL_LN2 = 1e-3
+# (b) a packed row's segment logits against the segment's own forward,
+# max |d| over max |ref|: the two forwards round the same bf16
+# activations through other GEMM shapes (2048 against <= 512 rows) and
+# flash tilings (with and without segments) over 32 layers, ~2^-8 a
+# layer; a leak across segments or a position off by one moves the
+# logits by O(1) of their scale
+TOL_PACKED = 2.0 ** -4
+# (e) the merged model's logits against the adapted one's (W + BA rounded
+# to bf16 once against x W and x A B rounded apart), max |d| / max |ref|
+TOL_MERGE = 2.0 ** -4
+# (e) unmerge: W' = bf16(bf16(W + d) - d), two roundings of half a bf16
+# step of |W + d| each: within 2^-7 max |W| of a tensor; 2^-6 leaves d's
+# share
+TOL_UNMERGE = 2.0 ** -6
+# (f) W8A8 logits with the quant kernel against the kernel's plain
+# version: one bf16 step of a projection's output (2^-7, TOL_QUANT_REL),
+# carried through 32 layers, as (b)
+TOL_PTQ_PLAIN = 2.0 ** -4
+
+
+def _ft_examples(rs, vocab, rows, length):
+    """Seeded prompt/response pairs of FT_EXAMPLE tokens (a quarter
+    prompt), as many as ``DataCollatorForSFT(packing=True, pack_rows=
+    rows)`` packs into ``rows`` rows of ``length``: (examples, batch)."""
+    from paddle_tpu_torch.trl import DataCollatorForSFT
+    coll = DataCollatorForSFT(max_length=length, packing=True,
+                              pack_rows=rows)
+    ex = []
+    while True:
+        n = int(rs.randint(FT_EXAMPLE[0], FT_EXAMPLE[1] + 1))
+        p = max(1, n // 4)
+        cand = ex + [{"prompt_ids": rs.randint(1, vocab, p).tolist(),
+                      "response_ids": rs.randint(1, vocab, n - p).tolist()}]
+        try:
+            coll(cand)
+        except ValueError:
+            return ex, coll(ex)
+        ex = cand
+
+
+def _segment_pairs(seg, heads):
+    """(query, key) pairs the segment kernels attend for ``seg`` [b, s]:
+    causal pairs inside each run of one id (the pad id 0 included: it is
+    a segment to the kernel), times the heads."""
+    pairs = 0
+    for row in seg.tolist():
+        run = 1
+        for i in range(1, len(row) + 1):
+            if i < len(row) and row[i] == row[i - 1]:
+                run += 1
+                continue
+            pairs += run * (run + 1) // 2
+            run = 1
+    return pairs * heads
+
+
+def _ft_segment_kernels(gen, dev, card, seg):
+    """The flash forward, dq and dk/dv with this batch's packed segment ids
+    at [2, 2048, 32 / 8, 128] bf16 causal: each against its plain version
+    (TOL_BF16 for the output, TOL_BWD_BF16 x max|ref| for the gradients),
+    on the wgmma route, then timed beside the plain versions, SDPA with
+    the same boolean mask (forward, and its backward for dq, dk and dv)
+    and the bound of this data's (query, key) pairs. Returns the errors
+    by kernel key."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        _delta, flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+        flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    b, s = seg.shape
+    h, kv, d = 32, 8, 128
+    scale = 1.0 / d ** 0.5
+    seg = seg.to(dev, torch.int32)
+    sets = []
+    for _ in range(2):         # two sets: one call's inputs exceed the L2
+        q, k, v, g, _ = _bwd_inputs(gen, dev, torch.bfloat16, b, s, h, kv,
+                                    d)
+        sets.append((q, k, v, g))
+    read = _reset_launches()
+    q, k, v, g = sets[0]
+    out, lse = flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+    delta = _delta(out, g)
+    kw = dict(causal=True, scale=scale, window=None)
+    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, seg, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, seg, **kw)
+    torch.cuda.synchronize()
+    got = read()
+    _check_routes("finetune seg kernels", flash=1, flash_bwd_dq=1,
+                  flash_bwd_dkv=1)
+    ref_out, _ = flash_attention_fwd_plain(q, k, v, causal=True,
+                                           segment_ids=seg)
+    errs = {"flash": max_err(out, ref_out)}
+    refs = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True,
+                                     segment_ids=seg)
+    line = [f"out {errs['flash']:.3e} (tol {TOL_BF16})"]
+    if not errs["flash"] <= TOL_BF16:
+        fail(f"finetune: the flash forward with segments disagrees with "
+             f"its plain version at {[b, s]}")
+    for name, a, r in (("dq", dq, refs[0]), ("dk", dk, refs[1]),
+                       ("dv", dv, refs[2])):
+        err, rmax = max_err(a, r), float(r.float().abs().max())
+        key = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+        errs[key] = max(errs.get(key, 0.0), err)
+        line.append(f"{name} {err:.3e} (max|ref| {rmax:.3e})")
+        if not err <= TOL_BWD_BF16 * rmax:
+            fail(f"finetune: flash backward {name} with segments disagrees "
+                 f"with its plain version at {[b, s]}")
+    nseg = [len(set(r) - {0}) for r in seg.tolist()]
+    log(f"[finetune] flash kernels with this batch's segment ids ({nseg} "
+        f"segments a row, pad tail as id 0) at q {[b, s, h, d]} kv "
+        f"{[b, s, kv, d]} bf16 causal, launches {got['flash']}/"
+        f"{got['flash_bwd_dq']}/{got['flash_bwd_dkv']} on wgmma, against "
+        f"the plain versions: " + ", ".join(line)
+        + f" (gradients: tol {TOL_BWD_BF16} x max|ref|)")
+    del out, lse, delta, dq, dk, dv, ref_out, refs
+
+    fwd = [flash_attention_fwd(*t[:3], causal=True, segment_ids=seg)
+           for t in sets]
+    deltas = [_delta(o, t[3]) for (o, _), t in zip(fwd, sets)]
+    keep = (torch.ones(s, s, dtype=torch.bool, device=dev).tril()[None]
+            & (seg[:, :, None] == seg[:, None, :]))[:, None]
+    lib_in = [tuple(x.transpose(1, 2).contiguous().requires_grad_()
+                    for x in t[:3]) for t in sets]
+    lib_out = [TF.scaled_dot_product_attention(
+        x[0], *[y.repeat_interleave(h // kv, 1) for y in x[1:]],
+        attn_mask=keep) for x in lib_in]
+    lib_g = [t[3].transpose(1, 2).contiguous() for t in sets]
+    times = {}
+    times["flash"] = dict(
+        ms=cuda_ms(lambda i: flash_attention_fwd(
+            *sets[i % 2][:3], causal=True, segment_ids=seg), iters=20),
+        plain_ms=cuda_ms(lambda i: flash_attention_fwd_plain(
+            *sets[i % 2][:3], causal=True, segment_ids=seg), iters=3,
+            warmup=1),
+        library_ms=cuda_ms(lambda i: TF.scaled_dot_product_attention(
+            lib_in[i % 2][0], *[y.repeat_interleave(h // kv, 1)
+                                for y in lib_in[i % 2][1:]],
+            attn_mask=keep), iters=10))
+
+    def bargs(i):
+        (q, k, v, g), (_, lse) = sets[i % 2], fwd[i % 2]
+        return (q, k, v, g, lse, deltas[i % 2], seg)
+    def pargs(i):
+        (q, k, v, g), (out, lse) = sets[i % 2], fwd[i % 2]
+        return (q, k, v, out, lse, g)
+    times["flash_bwd_dq"] = dict(
+        ms=cuda_ms(lambda i: flash_attention_bwd_dq(*bargs(i), **kw),
+                   iters=10),
+        plain_ms=cuda_ms(lambda i: flash_attention_bwd_dq_plain(
+            *pargs(i), causal=True, segment_ids=seg), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda i: torch.autograd.grad(
+            lib_out[i % 2], [lib_in[i % 2][0]], lib_g[i % 2],
+            retain_graph=True), iters=5))
+    times["flash_bwd_dkv"] = dict(
+        ms=cuda_ms(lambda i: flash_attention_bwd_dkv(*bargs(i), **kw),
+                   iters=10),
+        plain_ms=cuda_ms(lambda i: flash_attention_bwd_dkv_plain(
+            *pargs(i), causal=True, segment_ids=seg), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda i: torch.autograd.grad(
+            lib_out[i % 2], list(lib_in[i % 2][1:]), lib_g[i % 2],
+            retain_graph=True), iters=5))
+    pairs = _segment_pairs(seg, h)
+    q_bytes, kv_bytes = 2 * b * s * h * d, 2 * b * s * kv * d
+    rows_b, seg_b = 4 * b * h * s, 4 * b * s
+    for key, nbytes, products in (
+            ("flash", 2 * q_bytes + 2 * kv_bytes + rows_b + seg_b, 2),
+            ("flash_bwd_dq", 3 * q_bytes + 2 * kv_bytes + 2 * rows_b + seg_b,
+             3),
+            ("flash_bwd_dkv", 2 * q_bytes + 4 * kv_bytes + 2 * rows_b
+             + seg_b, 4)):
+        times[key]["bound_ms"], times[key]["bound_by"] = bound(
+            nbytes, products * 2 * d * pairs)
+    log(f"[finetune] segment kernels at {[b, s]} (this batch's "
+        f"{pairs / (b * h * s * (s + 1) / 2):.3f} of the causal pairs), "
+        f"kernel / plain / sdpa with the mask / bound ms: "
+        + "; ".join(f"{k} {t['ms']:.4f} / {t['plain_ms']:.4f} / "
+                    f"{t['library_ms']:.4f} / {t['bound_ms']:.4f} "
+                    f"({t['bound_by']})" for k, t in times.items())
+        + f" [{card}]")
+    del sets, fwd, deltas, lib_in, lib_out, lib_g, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _ft_sft(model, batch, dev, card):
+    """(a): FT_STEPS SFTTrainer steps on the one packed batch, the counts
+    set to 0 just before and read just after. Returns (launches, the
+    trainer, the step ms)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.models.llama as llama
+    from paddle_tpu_torch.ops.kernels.fused_adam import fused_adam
+    from paddle_tpu_torch.peft import lora_state_dict
+    from paddle_tpu_torch.trl import SFTTrainer
+
+    class Clock(ptt.TrainerCallback):
+        def __init__(self):
+            self.t = []
+
+        def on_step_end(self, step, logs):
+            self.t.append(time.perf_counter())
+
+    L = model.config.num_hidden_layers
+    clock = Clock()
+    opt = ptt.optimizer.AdamW(learning_rate=FT_LR, multi_precision=True)
+    args = ptt.TrainingArguments(output_dir="output/chip_smoke_finetune",
+                                 max_steps=FT_STEPS, logging_steps=1,
+                                 prefetch_depth=0)
+    tr = SFTTrainer(model, opt, args, train_dataloader=[batch],
+                    callbacks=[clock])
+    seg_calls = [0, 0]
+    real = llama.flash_attention
+
+    def spy(q, k, v, causal=False, scale=None, segment_ids=None,
+            window=None):
+        seg_calls[segment_ids is not None] += 1
+        return real(q, k, v, causal=causal, scale=scale,
+                    segment_ids=segment_ids, window=window)
+    llama.flash_attention = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    read = _reset_launches()
+    clock.t = [time.perf_counter()]
+    try:
+        tr.train()
+        torch.cuda.synchronize()
+    finally:
+        llama.flash_attention = real
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = dict(NO_LAUNCHES, flash=L * FT_STEPS, flash_bwd_dq=L * FT_STEPS,
+                flash_bwd_dkv=L * FT_STEPS, fused_adamw=FT_STEPS)
+    losses = [v for _, v in tr.logger.history["loss"]]
+    n_train = sum(p.numel() for p in lora_state_dict(model).values())
+    n_all = sum(p.numel() for p in model.parameters())
+    log(f"[finetune] (a) launches in {FT_STEPS} SFT steps: {launches} "
+        f"(want {want}); flash calls with segment ids {seg_calls[1]}, "
+        f"without {seg_calls[0]}; losses "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    if launches != want:
+        fail(f"finetune: SFT launches {launches} != {want}")
+    if seg_calls != [0, L * FT_STEPS]:
+        fail(f"finetune: {seg_calls[0]} flash calls of the packed step "
+             f"had no segment ids")
+    _check_routes("finetune sft", flash=L * FT_STEPS,
+                  flash_bwd_dq=L * FT_STEPS, flash_bwd_dkv=L * FT_STEPS)
+    slots = tr._opt_state["slots"]
+    if set(slots) != set(lora_state_dict(model)) or \
+            fused_adam.launches_by_route != {"simt": FT_STEPS}:
+        fail("finetune: the optimizer holds state for other parameters "
+             "than the adapters, or the update launched otherwise")
+    if not (len(losses) == FT_STEPS and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        fail(f"finetune: the SFT loss did not fall: {losses}")
+    steps_ms = np.diff(clock.t) * 1e3
+    step_ms = float(np.median(steps_ms[1:]))
+    seg = batch["segment_ids"]
+    real_tokens = int((seg > 0).sum())
+    tokens = seg.numel()
+    log(f"[finetune] (a) LoRA SFT at 32 layers, packed [{FT_ROWS}, "
+        f"{FT_LEN}] ({real_tokens} of {tokens} positions real, "
+        f"{[len(set(r) - {0}) for r in seg.tolist()]} segments a row): "
+        f"trainable {n_train} of {n_all} parameters "
+        f"({100 * n_train / n_all:.3f} %); step ms (host clock, loss "
+        f"synced) " + ", ".join(f"{x:.1f}" for x in steps_ms)
+        + f"; median of steps 2-{FT_STEPS} {step_ms:.1f} ms, "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s "
+        f"({real_tokens / (step_ms / 1e3):.0f} real); peak memory "
+        f"{peak:.2f} GB [{card}]")
+    return launches, tr, step_ms
+
+
+def _ft_packed_vs_lone(model, batch, dev):
+    """(b): each segment of each packed row against its forward alone (the
+    segment padded on the right to whole 128-row tiles, so it takes the
+    flash route too; causal, so the pad changes none of its logits)."""
+    from paddle_tpu_torch.trl import packed_sft_inputs
+    L = model.config.num_hidden_layers
+    ids = batch["input_ids"].to(dev)
+    seg = batch["segment_ids"].to(dev)
+    model.eval()
+    worst, agree, total, n = 0.0, 0, 0, 0
+    read = _reset_launches()
+    with torch.inference_mode():
+        for r in range(ids.shape[0]):
+            pos, _ = packed_sft_inputs(seg[r:r + 1], with_mask=False)
+            packed = model(ids[r:r + 1], positions=pos,
+                           segment_ids=seg[r:r + 1])[0]
+            for sid in sorted(set(seg[r].tolist()) - {0}):
+                where = (seg[r] == sid).nonzero()[:, 0]
+                a, e = int(where[0]), int(where[-1]) + 1
+                padded = -(-(e - a) // 128) * 128
+                lone_ids = torch.zeros(1, padded, dtype=ids.dtype,
+                                       device=dev)
+                lone_ids[0, :e - a] = ids[r, a:e]
+                lone = model(lone_ids)[0, :e - a]
+                rel = max_err(packed[a:e], lone) / max(
+                    float(lone.abs().max()), 1e-30)
+                worst = max(worst, rel)
+                agree += int((packed[a:e].argmax(-1)
+                              == lone.argmax(-1)).sum())
+                total += e - a
+                n += 1
+            del packed
+    torch.cuda.synchronize()
+    got = read()
+    model.train()
+    log(f"[finetune] (b) {n} segments of the packed rows against their "
+        f"forwards alone: max |packed - lone| / max |lone| {worst:.3e} "
+        f"(tol {TOL_PACKED:.4g}); argmax equal at {agree} of {total} "
+        f"positions; flash launches {got['flash']} (want "
+        f"{L * (ids.shape[0] + n)}: the packed rows with segments, the lone "
+        f"segments without)")
+    if not worst <= TOL_PACKED:
+        fail("finetune: a packed segment's logits differ from its forward "
+             "alone")
+    if got["flash"] != L * (ids.shape[0] + n):
+        fail(f"finetune: (b) flash launches {got['flash']} != "
+             f"{L * (ids.shape[0] + n)}")
+    _check_routes("finetune packed", flash=L * (ids.shape[0] + n))
+
+
+def _ft_grads(seed, batch, dev):
+    """(c): one step's adapter gradients on the kernels against the same
+    step on their plain versions (``FlashAttentionFunction`` with
+    ``flash_attention_fwd_plain`` and ``flash_attention_bwd_plain``, the
+    kernels' rounding points), at full width and FT_GRAD_LAYERS layers, B
+    drawn nonzero so every adapter has a gradient."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.peft import LoRAConfig, apply_lora, lora_state_dict
+    from paddle_tpu_torch.trl import _make_sft_loss
+    model = _train_model(seed + 40, dev, layers=FT_GRAD_LAYERS)
+    apply_lora(model, LoRAConfig(**FT_LORA), ptt.make_generator(seed + 41,
+                                                                dev))
+    g = torch.Generator(device=dev).manual_seed(seed + 42)
+    with torch.no_grad():
+        for k, v in lora_state_dict(model).items():
+            if k.endswith("lora_B"):
+                v.copy_(torch.randn(v.shape, generator=g, device=dev) * 0.02)
+    names = list(lora_state_dict(model))
+    params = list(lora_state_dict(model).values())
+    b = {k: v.to(dev) for k, v in batch.items()}
+    loss_fn = _make_sft_loss(True)
+    read = _reset_launches()
+    loss_k = loss_fn(model, b)
+    grads_k = torch.autograd.grad(loss_k, params)
+    torch.cuda.synchronize()
+    got = read()
+    L = FT_GRAD_LAYERS
+    _check_routes("finetune grads", flash=L, flash_bwd_dq=L,
+                  flash_bwd_dkv=L)
+
+    real = fa.flash_attention_fwd, fa.flash_attention_bwd
+    fa.flash_attention_fwd = fa.flash_attention_fwd_plain
+    fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+    try:
+        loss_p = loss_fn(model, b)
+        grads_p = torch.autograd.grad(loss_p, params)
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = real
+    rels = sorted((_rel_l2(a, r), n) for a, r, n in zip(grads_k, grads_p,
+                                                         names))
+    log(f"[finetune] (c) {len(params)} adapter gradients of one packed SFT "
+        f"step at full width, {L} layers, kernels (launches {got}) against "
+        f"their plain versions: loss {float(loss_k.detach()):.6f} vs "
+        f"{float(loss_p.detach()):.6f}; |g - g_plain| / |g_plain| median "
+        f"{rels[len(rels) // 2][0]:.3e}, worst {rels[-1][0]:.3e} "
+        f"({rels[-1][1]}) (tol {TOL_GRAD_REL})")
+    if not rels[-1][0] <= TOL_GRAD_REL:
+        fail("finetune: an adapter gradient on the kernels disagrees with "
+             "the plain version")
+    del model, params, grads_k, grads_p, loss_k, loss_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ft_dpo(seed, model, dev, card):
+    """(d): B zeroed, the reference log-probs by compute_sequence_logps of
+    the same model over the concatenated [2, DPO_SEQ] pair (the forward
+    the DPO step runs), then DPOTrainer for DPO_STEPS steps with the
+    counts set to 0 just before the reference and read after the last
+    step. Returns the launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.peft import lora_state_dict
+    from paddle_tpu_torch.trl import DPOTrainer, compute_sequence_logps
+    L = model.config.num_hidden_layers
+    vocab = model.config.vocab_size
+    with torch.no_grad():
+        for k, v in lora_state_dict(model).items():
+            if k.endswith("lora_B"):
+                v.zero_()
+    rs = np.random.RandomState(seed + 50)
+    chosen, rejected = (torch.as_tensor(rs.randint(0, vocab, (1, DPO_SEQ)),
+                                        device=dev) for _ in range(2))
+    mask = torch.ones(1, DPO_SEQ, dtype=torch.long, device=dev)
+    mask[:, :DPO_PROMPT] = 0
+    model.train()
+    read = _reset_launches()
+    ref = compute_sequence_logps(model, torch.cat([chosen, rejected]),
+                                 torch.cat([mask, mask]), batch_size=2)
+    batch = {"chosen_ids": chosen, "chosen_mask": mask,
+             "rejected_ids": rejected, "rejected_mask": mask,
+             "ref_chosen_logps": ref[:1], "ref_rejected_logps": ref[1:]}
+    t = []
+
+    class Clock(ptt.TrainerCallback):
+        def on_step_end(self, step, logs):
+            t.append(time.perf_counter())
+    tr = DPOTrainer(model, ptt.optimizer.AdamW(learning_rate=FT_LR,
+                                               multi_precision=True),
+                    ptt.TrainingArguments(
+                        output_dir="output/chip_smoke_dpo",
+                        max_steps=DPO_STEPS, logging_steps=1,
+                        prefetch_depth=0),
+                    beta=0.1, train_dataloader=[batch], callbacks=[Clock()])
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    tr.train()
+    torch.cuda.synchronize()
+    launches = read()
+    losses = [v for _, v in tr.logger.history["loss"]]
+    want = dict(NO_LAUNCHES, flash=L * (1 + DPO_STEPS),
+                flash_bwd_dq=L * DPO_STEPS, flash_bwd_dkv=L * DPO_STEPS,
+                fused_adamw=DPO_STEPS)
+    steps_ms = np.diff(t) * 1e3
+    log(f"[finetune] (d) DPO on a chosen/rejected pair of {DPO_SEQ} tokens "
+        f"({DPO_SEQ - DPO_PROMPT} scored) as one [2, {DPO_SEQ}] forward, "
+        f"reference log-probs {[round(float(x), 3) for x in ref]}: losses "
+        + ", ".join(f"{x:.6e}" for x in losses)
+        + f" (step 0 - ln 2 = {losses[0] - np.log(2.0):.2e}, tol "
+        f"{TOL_LN2}); step ms " + ", ".join(f"{x:.1f}" for x in steps_ms)
+        + f"; launches {launches} (want {want}) [{card}]")
+    if launches != want:
+        fail(f"finetune: DPO launches {launches} != {want}")
+    _check_routes("finetune dpo", flash=L * (1 + DPO_STEPS),
+                  flash_bwd_dq=L * DPO_STEPS, flash_bwd_dkv=L * DPO_STEPS)
+    if not abs(losses[0] - np.log(2.0)) <= TOL_LN2:
+        fail(f"finetune: DPO's step-0 loss {losses[0]} is not ln 2")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"finetune: the DPO loss did not fall: {losses}")
+    del tr, batch
+    return launches
+
+
+def _ft_merge(seed, model, base, dev, card):
+    """(e): generate() on the adapted model (its step captured with the
+    adapters' hooks), merge_lora, generate() again with the counts set to
+    0 just before and read just after: the step program is rebuilt (a
+    new graph, without the adapters' products), each greedy token is
+    within TOL_TEACHER of a teacher-forced forward's maximum, the
+    prefill's logits within TOL_MERGE of the adapted model's; then
+    unmerge_lora brings every projection back within TOL_UNMERGE of the
+    host copy ``base``. Returns (launches, predictor, merged stream)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.peft import merge_lora, unmerge_lora
+    L = model.config.num_hidden_layers
+    b, prompt = FT_PROMPT
+    ids = torch.randint(0, model.config.vocab_size, (b, prompt), device=dev,
+                        generator=ptt.make_generator(seed + 60, dev))
+    pred = ptt.Predictor(model, device=dev)
+    greedy = ptt.GenerationConfig(max_new_tokens=FT_NEW)
+    match = lambda k: k[:4] == ("generate", b, prompt + FT_NEW, False)  # noqa: E731
+    with torch.inference_mode():
+        adapted = model(ids)[:, -1].float()
+    out_a = pred.generate(ids, config=greedy)
+    prog_a = _step_program(model, match, "finetune merge")
+    nodes_a = len(graph_nodes(prog_a.step.graph.graph)[0])
+    merge_lora(model)
+    pred.generate(ids, config=greedy)          # recaptures: the warm-up
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    out_m = pred.generate(ids, config=greedy)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    launches = read()
+    want = dict(NO_LAUNCHES, flash=L, decode=L * (FT_NEW - 1))
+    _check_routes("finetune merge", flash=L, decode=L * (FT_NEW - 1))
+    prog_m = _step_program(model, match, "finetune merge")
+    nodes_m = len(graph_nodes(prog_m.step.graph.graph)[0])
+    with torch.inference_mode():
+        merged = model(ids)[:, -1].float()
+    gaps = [_teacher_gap(model, ids[r].tolist(), out_m[r, prompt:].tolist())
+            for r in range(b)]
+    rel = max_err(merged, adapted) / float(adapted.abs().max())
+    same = int((out_m[:, prompt:] == out_a[:, prompt:]).sum())
+    log(f"[finetune] (e) merge_lora: generate {b} x {prompt} + {FT_NEW} "
+        f"in {gen_ms:.1f} ms, launches {launches} (want {want}); the step "
+        f"program rebuilt: {prog_m is not prog_a} ({nodes_a} kernel nodes "
+        f"with the adapters' products, {nodes_m} merged); teacher-forced "
+        f"gaps {[round(x, 4) for x in gaps]} (tol {TOL_TEACHER}); prefill "
+        f"logits merged vs adapted max |d| / max |ref| {rel:.3e} (tol "
+        f"{TOL_MERGE:.4g}); new tokens equal to the adapted stream's "
+        f"{same} of {b * FT_NEW} [{card}]")
+    if launches != want:
+        fail(f"finetune: merged generate launches {launches} != {want}")
+    if prog_m is prog_a or not nodes_m < nodes_a:
+        fail("finetune: the merge did not rebuild the captured step")
+    if not (max(gaps) <= TOL_TEACHER and rel <= TOL_MERGE):
+        fail("finetune: the merged model disagrees with the adapted one")
+    del prog_a, prog_m
+    unmerge_lora(model)
+    worst, name_w = 0.0, None
+    for name, p in model.named_parameters():
+        if name in base and "proj" in name:
+            w0 = base[name].to(dev)
+            r = max_err(p, w0) / float(w0.float().abs().max())
+            if r > worst:
+                worst, name_w = r, name
+    log(f"[finetune] (e) unmerge_lora: every projection weight back within "
+        f"max |W' - W| / max |W| {worst:.3e} ({name_w}; tol "
+        f"{TOL_UNMERGE:.4g}, the bf16 round trip)")
+    if not worst <= TOL_UNMERGE:
+        fail("finetune: unmerge did not restore the base weights")
+    return launches, pred, out_m
+
+
+def _ft_ptq(seed, model, pred, stream, dev, card):
+    """(f): merge, the bf16 teacher-forced logits of ``stream``'s first
+    row, PTQ (2 calibration batches of [1, 512], lm_head skipped),
+    convert, then generate() with the counts set to 0 just before and
+    read just after (the quant kernel 7 a layer and decode step, on
+    mma); the converted model's logits on the quant kernel against its
+    plain version; the teacher-forced gap against bf16. Returns the
+    launches."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.quant.weight_only as wo
+    from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul_plain
+    from paddle_tpu_torch.peft import merge_lora
+    from paddle_tpu_torch.quant import PTQ, W8A8Linear
+    L = model.config.num_hidden_layers
+    b, prompt = FT_PROMPT
+    merge_lora(model)
+    tf = stream[:1]
+    with torch.inference_mode():
+        ref = model(tf)[0, prompt - 1:-1].float()
+    n_calib, shape = PTQ_CALIB
+    g = ptt.make_generator(seed + 70, dev)
+    ptq = PTQ(model, skip=["lm_head"])
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(n_calib):
+            model(torch.randint(0, model.config.vocab_size, shape,
+                                device=dev, generator=g))
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ptq.convert()
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_q = sum(isinstance(m, W8A8Linear) for m in model.modules())
+    if n_q != QUANT_PER_LAYER * L:
+        fail(f"finetune: PTQ converted {n_q} layers, want "
+             f"{QUANT_PER_LAYER * L}")
+    ids = stream[:, :prompt]
+    greedy = ptt.GenerationConfig(max_new_tokens=FT_NEW)
+    pred.generate(ids, config=greedy)          # warm-up: captures the step
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    out = pred.generate(ids, config=greedy)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    launches = read()
+    want = dict(NO_LAUNCHES, flash=L, decode=L * (FT_NEW - 1),
+                quant=QUANT_PER_LAYER * L * (FT_NEW - 1))
+    _check_routes("finetune ptq", flash=L, decode=L * (FT_NEW - 1),
+                  quant=QUANT_PER_LAYER * L * (FT_NEW - 1))
+    log(f"[finetune] (f) PTQ: {n_calib} calibration batches of "
+        f"{list(shape)} in {calib_s:.2f} s, {n_q} W8A8Linear in "
+        f"{convert_s:.2f} s (weights {_weight_gb(model):.2f} GB); generate "
+        f"{b} x {prompt} + {FT_NEW} in {gen_ms:.1f} ms, launches {launches} "
+        f"(want {want}) [{card}]")
+    if launches != want:
+        fail(f"finetune: PTQ generate launches {launches} != {want}")
+    with torch.inference_mode():
+        w8 = model(tf)[0, prompt - 1:-1].float()
+        x = tf[:, :32]                 # 32 rows: the quant kernel's route
+        got = model(x).float()
+        real = wo.quant_matmul
+        wo.quant_matmul = (lambda x2, qw, sc, bits, block_offset=0:
+                           quant_matmul_plain(x2, qw, sc, bits))
+        try:
+            plain = model(x).float()
+        finally:
+            wo.quant_matmul = real
+    rel = max_err(got, plain) / float(plain.abs().max())
+    toks = tf[0, prompt:]
+    nll = [float(-torch.log_softmax(lg, -1).gather(1, toks[:, None]).mean())
+           for lg in (ref, w8)]
+    same = int((out[:, prompt:] == stream[:, prompt:]).sum())
+    log(f"[finetune] (f) W8A8 on the quant kernel vs its plain version, "
+        f"logits of a [1, 32] forward: max |d| / max |ref| {rel:.3e} (tol "
+        f"{TOL_PTQ_PLAIN:.4g}); teacher-forced over the merged bf16 "
+        f"model's {FT_NEW} greedy tokens: max |logit W8A8 - bf16| "
+        f"{max_err(w8, ref):.3e} (max |bf16| {float(ref.abs().max()):.3e}), "
+        f"NLL a token bf16 {nll[0]:.4f} vs W8A8 {nll[1]:.4f}, argmax "
+        f"equal at {int((w8.argmax(-1) == ref.argmax(-1)).sum())} of "
+        f"{FT_NEW}; W8A8 greedy tokens equal to bf16's {same} of "
+        f"{b * FT_NEW} [{card}]")
+    if not rel <= TOL_PTQ_PLAIN:
+        fail("finetune: W8A8 on the quant kernel disagrees with its plain "
+             "version")
+    return launches
+
+
+def _ft_qat(seed, dev, card):
+    """(g): the [train] cut (4 layers, [2, 2048]) with every projection in
+    a FakeQuantLinear, QAT_STEPS Trainer steps (the training slice's
+    AdamW), the counts set to 0 just before and read just after."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nn.common import Linear
+    from paddle_tpu_torch.quant import FakeQuantLinear
+    model = _train_model(seed, dev)
+    n = 0
+    for layer in model.model.layers:
+        for mod in (layer.self_attn, layer.mlp):
+            for name, sub in list(mod.named_children()):
+                if isinstance(sub, Linear):
+                    setattr(mod, name, FakeQuantLinear(sub))
+                    n += 1
+    rs = np.random.RandomState(seed + 80)
+    batches = [rs.randint(0, model.config.vocab_size, TRAIN_BATCH)]
+    t = []
+
+    class Clock(ptt.TrainerCallback):
+        def on_step_end(self, step, logs):
+            t.append(time.perf_counter())
+    tr = _trainer(model, batches, QAT_STEPS, Clock(), prefetch_depth=0,
+                  output_dir="output/chip_smoke_qat")
+    L = model.config.num_hidden_layers
+    torch.cuda.synchronize()
+    read = _reset_launches()
+    t.append(time.perf_counter())
+    tr.train()
+    torch.cuda.synchronize()
+    launches = read()
+    losses = [v for _, v in tr.logger.history["loss"]]
+    want = dict(NO_LAUNCHES, flash=L * QAT_STEPS,
+                flash_bwd_dq=L * QAT_STEPS, flash_bwd_dkv=L * QAT_STEPS,
+                fused_adamw=QAT_STEPS)
+    log(f"[finetune] (g) QAT: {n} FakeQuantLinear (int8 weights per output "
+        f"channel, straight-through) at the [train] cut ({L} layers, "
+        f"{list(TRAIN_BATCH)}): step ms "
+        + ", ".join(f"{x:.1f}" for x in np.diff(t) * 1e3)
+        + f" (step 1 with its warm-up); losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {launches} (want {want}) [{card}]")
+    if launches != want:
+        fail(f"finetune: QAT launches {launches} != {want}")
+    if not all(np.isfinite(losses)):
+        fail("finetune: a QAT loss is not finite")
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ft_decode_quant_times(gen, dev, card):
+    """Rows 4 and 7 at this phase's generate(): decode one query a row of
+    [2, 32, 128] over a [2, 544, 8, 128] cache at the last position (a
+    device index), and the int8 quant kernel at m = 2 on the four
+    projection shapes, each as device time from a CUDA graph of
+    back-to-back calls, beside its plain version, SDPA or the bf16 matmul
+    on the dequantized weight, and the bound."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_fwd_plain)
+    from paddle_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_plain)
+    from paddle_tpu_torch.quant import dequantize_weight
+    b, T, h, kv, d = FT_PROMPT[0], FT_PROMPT[1] + FT_NEW, 32, 8, 128
+    call_bytes = 2 * (2 * b * h * d + 2 * b * T * kv * d)
+    n = copies_for(call_bytes)
+    sets = [tuple(torch.randn(shape, generator=gen, device=dev)
+                  .to(torch.bfloat16)
+                  for shape in ((b, h, d), (b, T, kv, d), (b, T, kv, d)))
+            for _ in range(n)]
+    lib = [(q[:, :, None], *[c.transpose(1, 2).repeat_interleave(h // kv, 1)
+                             .contiguous() for c in (ck, cv)])
+           for q, ck, cv in sets]
+    ci = torch.tensor(T - 1, dtype=torch.int32, device=dev)
+    row = dict(ms=graph_ms(lambda i: decode_attention_fwd(*sets[i % n], ci),
+                           calls=60),
+               plain_ms=graph_ms(lambda i: decode_attention_fwd_plain(
+                   *sets[i % n], T - 1), calls=10),
+               library_ms=graph_ms(lambda i: TF.scaled_dot_product_attention(
+                   *lib[i % n]), calls=60))
+    row["bound_ms"], row["bound_by"] = bound(call_bytes, 4 * d * T * h * b)
+    line = [f"decode q {[b, h, d]} cache {[b, T, kv, d]}: kernel "
+            f"{row['ms']:.4f}, plain {row['plain_ms']:.4f}, sdpa "
+            f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})"]
+    del sets, lib
+    m = b
+    for din, dout in QUANT_SHAPES:
+        code_bytes = din * dout
+        n = copies_for(code_bytes)
+        qs = [_quantized(gen, dev, din, dout, 8) for _ in range(n)]
+        x = torch.randn(m, din, generator=gen, device=dev).to(torch.bfloat16)
+        ms = graph_ms(lambda i: quant_matmul(x, *qs[i % n], 8), calls=60)
+        bnd, by = bound(code_bytes + 2 * (din // 128) * dout
+                        + 2 * m * (din + dout), 2 * m * din * dout)
+        extra = ""
+        if (din, dout) == (4096, 14336):
+            ws = [dequantize_weight(q, sc, 8, dtype=torch.bfloat16)
+                  for q, sc in qs]
+            plain = graph_ms(lambda i: quant_matmul_plain(x, *qs[i % n], 8),
+                             calls=6)
+            libm = graph_ms(lambda i: torch.matmul(x, ws[i % n]), calls=60)
+            extra = f", plain {plain:.4f}, bf16 matmul {libm:.4f}"
+            del ws
+        line.append(f"quant int8 {din}->{dout} m={m}: kernel {ms:.4f}"
+                    f"{extra}, bound {bnd:.4f} ms ({by})")
+        del qs
+    log("[finetune] rows 4 and 7 at this phase's generate() shapes (CUDA "
+        "graph device time): " + "; ".join(line) + f" [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_finetune(seed, gen, dev, card):
+    """Phase 18 (module docstring). Returns (launches of the main-path
+    runs by kernel key, errors of the segment kernels)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.peft import LoRAConfig, apply_lora, lora_state_dict
+    t_phase = time.perf_counter()
+    cfg = ptt.llama3_8b()
+    rs = np.random.RandomState(seed + 90)
+    examples, batch = _ft_examples(rs, cfg.vocab_size, FT_ROWS, FT_LEN)
+    errs = _ft_segment_kernels(gen, dev, card, batch["segment_ids"])
+    t0 = time.perf_counter()
+    model = ptt.LlamaForCausalLM(cfg, device=dev,
+                                 generator=ptt.make_generator(seed, dev))
+    hit = apply_lora(model, LoRAConfig(**FT_LORA),
+                     ptt.make_generator(seed + 91, dev))
+    torch.cuda.synchronize()
+    base = {k: v.detach().cpu() for k, v in model.named_parameters()
+            if "lora" not in k}
+    log(f"[finetune] Llama-3-8B (32 layers, {cfg.dtype}) from the seed with "
+        f"LoRA r {FT_LORA['r']} alpha {FT_LORA['lora_alpha']} on {len(hit)} "
+        f"projections, {len(examples)} prompt/response pairs of "
+        f"{FT_EXAMPLE[0]}-{FT_EXAMPLE[1]} tokens packed into "
+        f"[{FT_ROWS}, {FT_LEN}]; built and the base weights copied to the "
+        f"host in {time.perf_counter() - t0:.1f} s")
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    sft, tr, step_ms = _ft_sft(model, batch, dev, card)
+    add(sft)
+    same = sum(torch.equal(p.detach().cpu(), base[k])
+               for k, p in model.named_parameters() if k in base)
+    moved = sum(bool(v.detach().abs().sum() > 0)
+                for k, v in lora_state_dict(model).items()
+                if k.endswith("lora_B"))
+    log(f"[finetune] (a) base weights bit for bit as before training: "
+        f"{same} of {len(base)}; lora_B moved: {moved} of {len(hit)}")
+    if same != len(base) or moved != len(hit):
+        fail("finetune: LoRA training changed a base weight or left an "
+             "adapter's B unmoved")
+    profile_train_step(tr, step_ms, card,
+                       label=f"LoRA SFT step (32 layers, [{FT_ROWS}, "
+                             f"{FT_LEN}] packed)", before_ms=None)
+    # the update over the adapters alone (448 small tensors: an eager call
+    # is host-bound; the profiled step above gives its device time)
+    _adam_times([p.detach() for p in lora_state_dict(model).values()], dev,
+                card, f"the adapters of 32 layers x 7 projections (r "
+                      f"{FT_LORA['r']})", seed=51)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ft_packed_vs_lone(model, batch, dev)
+    _ft_grads(seed, batch, dev)
+    add(_ft_dpo(seed, model, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, pred, stream = _ft_merge(seed, model, base, dev, card)
+    add(got)
+    del base
+    add(_ft_ptq(seed, model, pred, stream, dev, card))
+    del pred, model, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(_ft_qat(seed, dev, card))
+    _ft_decode_quant_times(gen, dev, card)
+    log(f"[finetune] phase took {time.perf_counter() - t_phase:.1f} s; "
+        f"launches of its main-path runs {launches} [{card}]")
+    return launches, errs
+
+
+def _clock_phases():
+    """Make every ``phase_*`` function of this module log its wall time
+    when it returns (``[wall]`` lines): the script's time limit is shared
+    by all of them."""
+    g = globals()
+    for name in [n for n in g if n.startswith("phase_")]:
+        def timed(*a, _fn=g[name], _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            log(f"[wall] {_name} {time.perf_counter() - t0:.1f} s")
+            return out
+        g[name] = timed
+
+
 def main():
+    t_start = time.perf_counter()
+    _clock_phases()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -7742,6 +8637,13 @@ def main():
     torch.cuda.empty_cache()
     for key, n in phase_tp_moe(args.seed, gen, dev, card, moe_plain).items():
         launches[key] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    ft_launches, ft_errs = phase_finetune(args.seed, gen, dev, card)
+    for key, n in ft_launches.items():
+        launches[key] += n
+    for key, err in ft_errs.items():
+        errs[key] = max(errs[key], err)
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,
@@ -7770,6 +8672,7 @@ def main():
                         "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
+    log(f"[wall] the script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,10 @@ the optimizers of ``optimizer/`` (Adam and AdamW in one fused pass),
 fp16 with ``amp.GradScaler``, the ``io/`` DataLoader, step checkpoints
 with auto-resume (``checkpoint/distributed_ckpt.py``), the preemption
 and hang exits and divergence rollback, through flash attention and its
-backward. ``models`` also
+backward. Fine-tuning rides the same Trainer: LoRA adapters
+(``peft``), packed SFT and DPO (``trl``, its data rendered with
+``tokenizer``'s chat templates), QAT and PTQ into W8A8 (``quant``).
+``models`` also
 serves Qwen2, the MoE families (Qwen2-MoE, ERNIE-4.5-MoE and
 DeepSeek-V2/V3 with MLA and MTP, on ``parallel/moe.py``) through the
 same ``generate()``, ``Predictor`` and, for Qwen2-MoE and ERNIE,
@@ -34,7 +37,7 @@ from .checkpoint import load, save
 from .generation import GenerationConfig, beam_search, generate
 from .inference import (BatchingPredictor, Config, Predictor,
                         create_predictor)
-from . import amp, io, optimizer
+from . import amp, io, optimizer, peft, quant, tokenizer, trl
 from .models import (LlamaConfig, LlamaForCausalLM, causal_lm_loss,
                      from_pretrained, llama3_70b, llama3_8b, llama_tiny)
 from .trainer import Trainer, TrainerCallback, TrainingArguments
@@ -46,5 +49,6 @@ __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "from_pretrained", "LlamaConfig",
            "LlamaForCausalLM", "causal_lm_loss", "llama3_8b", "llama3_70b",
            "llama_tiny",
-           "make_generator", "amp", "io", "optimizer", "Trainer",
-           "TrainerCallback", "TrainingArguments"]
+           "make_generator", "amp", "io", "optimizer", "peft", "quant",
+           "tokenizer", "trl", "Trainer", "TrainerCallback",
+           "TrainingArguments"]

@@ -34,6 +34,10 @@ def load_jax_state_dict(model: nn.Module,
       ``gate`` [h, E], the ``shared_*`` projections and
       ``shared_expert_gate`` [h, 1] are plain parameters in the JAX
       layout in both packages, and are copied untransposed.
+    - LoRA adapters (``peft.lora``): a ``Linear``'s ``lora_A`` ([in, r] in
+      the JAX package, [r, in] here) and ``lora_B`` ([r, out] there,
+      [out, r] here) are transposed as its weight is, and sharded by the
+      partitions ``apply_lora`` gave them.
     - Dtypes: each value is cast to the dtype of the tensor it fills and
       moved to its device. Floating values go through float32, so bf16
       scales cross bit for bit; integer codes are copied as integers.
@@ -62,8 +66,13 @@ def load_jax_state_dict(model: nn.Module,
 
 
 def _transposed(model: nn.Module):
-    return {f"{name}.weight" if name else "weight"
-            for name, mod in model.named_modules() if isinstance(mod, Linear)}
+    out = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, Linear):
+            out.update(f"{name}.{k}" if name else k
+                       for k in ("weight", "lora_A", "lora_B")
+                       if k in mod._parameters)
+    return out
 
 
 @torch.no_grad()
@@ -131,8 +140,9 @@ def _read_part(src, idx):
 def jax_state_dict(model: nn.Module):
     """The model's parameters and persistent buffers under the JAX
     package's names and layout (every ``Linear`` weight transposed to
-    [in, out]), as CPU tensors of the model's dtypes: what the JAX
-    package's ``model.state_dict()`` holds, for ``checkpoint.save``."""
+    [in, out], its LoRA adapters to [in, r] and [r, out]), as CPU
+    tensors of the model's dtypes: what the JAX package's
+    ``model.state_dict()`` holds, for ``checkpoint.save``."""
     transposed = _transposed(model)
     return {name: (t.T if name in transposed else t).detach().cpu()
             .contiguous()

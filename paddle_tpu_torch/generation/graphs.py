@@ -10,8 +10,10 @@ this module keeps true about it:
 
 - the weights' addresses: :func:`weights_links` records them and
   :func:`weights_moved` says when a module, parameter or buffer was
-  replaced or moved (weights quantized in place), after which the
-  graphs must be dropped;
+  replaced or moved (weights quantized in place), or a forward hook
+  added or removed (a LoRA adapter merged: its hook's captured delta
+  must not replay over the merged weight), after which the graphs must
+  be dropped;
 - the kernels' workspaces: the graph keeps alive every one its capture
   was handed (``keeping_workspaces``), so a workspace grown later never
   frees memory a graph still writes;
@@ -113,10 +115,12 @@ def _bound(mod) -> dict:
 def weights_links(model):
     """What a graph froze of ``model``: each submodule, parameter,
     buffer and bound compute tensor slot as (its dict, name, a weak
-    reference to the value, the tensor's address), and each dict's
-    size."""
+    reference to the value, the tensor's address), and the size of each
+    of those dicts and of each module's forward (pre-)hooks."""
     links, sizes = [], []
     for mod in model.modules():
+        for d in (mod._forward_hooks, mod._forward_pre_hooks):
+            sizes.append((d, len(d)))
         for d in (mod._modules, mod._parameters, mod._buffers):
             sizes.append((d, len(d)))
             for k, v in d.items():
@@ -129,9 +133,10 @@ def weights_links(model):
 
 def weights_moved(recorded) -> bool:
     """True when a module, parameter or buffer of the model was replaced
-    or moved since ``recorded`` (:func:`weights_links`): its graphs would
-    read stale, perhaps freed, memory. A check of identities, cheaper
-    than walking ``parameters()``."""
+    or moved, or a module gained or lost a forward hook, since
+    ``recorded`` (:func:`weights_links`): its graphs would read stale,
+    perhaps freed, memory, or replay a hook's captured work. A check of
+    identities, cheaper than walking ``parameters()``."""
     links, sizes = recorded
     for d, n in sizes:
         if len(d) != n:

@@ -22,7 +22,10 @@ scales are [in, out] in both packages and interleave along dim 1.
 
 On a model already sharded over tp, each rank's fused shard is the
 concat of its own shards (no collective), and a model bound by
-``parallel.sharding.bind_static`` is bound again. Apply after loading
+``parallel.sharding.bind_static`` is bound again. A fused layer is built
+from the weights alone, as in the JAX package: a merged LoRA adapter
+(``peft.merge_lora``) survives the fusion, an unmerged one goes with the
+unfused layers, so merge first. Apply after loading
 and after quantization (the pass consumes the unfused weights), and
 after the serving mesh is installed (the layout bakes in T).
 """

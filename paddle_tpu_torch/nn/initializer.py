@@ -1,6 +1,6 @@
-"""The weight initializers Llama uses (counterpart of
-``paddle_tpu/nn/initializer.py``: ``Constant``, ``Normal``,
-``XavierNormal``).
+"""The weight initializers Llama and its LoRA adapters use (counterpart
+of ``paddle_tpu/nn/initializer.py``: ``Constant``, ``Normal``,
+``XavierNormal``, ``KaimingUniform``).
 
 Each initializer fills a tensor in place from an explicit
 ``torch.Generator``. The draw is made in fp32 on the tensor's device and
@@ -56,3 +56,18 @@ class XavierNormal(Initializer):
         fan_in, fan_out = _fans(tensor.shape)
         std = self.gain * math.sqrt(2.0 / (fan_in + fan_out))
         return Normal(0.0, std)(tensor, generator)
+
+
+class KaimingUniform(Initializer):
+    """U(-limit, limit), limit = sqrt(2) * sqrt(3 / fan_in) (the JAX
+    initializer's defaults: relu gain), with fan_in the in dim of a
+    [out, in] (or [r, in]) weight: the JAX limit for the transposed
+    shape."""
+
+    @torch.no_grad()
+    def __call__(self, tensor, generator):
+        limit = math.sqrt(2.0) * math.sqrt(3.0 / _fans(tensor.shape)[0])
+        draw = torch.empty(tensor.shape, dtype=torch.float32,
+                           device=tensor.device)
+        draw.uniform_(-limit, limit, generator=generator)
+        return tensor.copy_(draw)

@@ -1517,3 +1517,45 @@ def tp_moe_cases(rank, world, p):
 
 
 CASES.update(tp_moe=tp_moe_cases)
+
+
+# ------------------------------------------------------------ LoRA at tp
+def lora_tp_cases(rank, world, p):
+    """LoRA on {"tp": world}: the tiny Llama with adapters on every
+    projection, the JAX weights (adapters included) loaded, sharded by
+    ``fleet.distributed_model``; each adapter's split (per dim, "tp" or
+    None) and local shape, then one SFTTrainer step on the packed batch
+    and the gathered adapters after it."""
+    import torch
+    from torch.distributed.tensor import Shard
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.peft import LoRAConfig, apply_lora, lora_state_dict
+    from paddle_tpu_torch.trl import SFTTrainer
+    fleet.init(strategy=fleet.DistributedStrategy(
+        hybrid_configs={"mp_degree": world}), device="cpu")
+    model = _tiny_llama(0)
+    apply_lora(model, LoRAConfig(**p["lora"]))
+    _jax_weights(model, p["params"])
+    fleet.distributed_model(model)
+    out = {"spec": {}, "local": {}}
+    for name, t in lora_state_dict(model).items():
+        out["spec"][name] = tuple(
+            "tp" if any(isinstance(pl, Shard) and pl.dim == d
+                        for pl in t.placements) else None
+            for d in range(t.dim()))
+        out["local"][name] = tuple(t.to_local().shape)
+    batch = {k: torch.from_numpy(v) for k, v in p["batch"].items()}
+    args = ptt.TrainingArguments(output_dir=os.path.join(p["out_dir"],
+                                                         str(rank)),
+                                 max_steps=1, logging_steps=1,
+                                 prefetch_depth=0)
+    tr = SFTTrainer(model, ptt.optimizer.AdamW(learning_rate=1e-3), args,
+                    train_dataloader=[batch])
+    tr.train()
+    out["loss"] = _losses(tr)
+    out["adapters"] = {k: _np(v) for k, v in lora_state_dict(model).items()}
+    return out
+
+
+CASES.update(lora_tp=lora_tp_cases)
