@@ -381,7 +381,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    tests. The phase's flash, decode and ragged launches join the kernels
    line's.
 
-18. fine-tuning (``[finetune]`` lines, last): first the flash forward, dq
+18. fine-tuning (``[finetune]`` lines): first the flash forward, dq
    and dk/dv with the packed batch's segment ids at q [2, 2048, 32, 128],
    kv [2, 2048, 8, 128] against their plain versions (on wgmma; timed
    beside the plain versions, SDPA with the same boolean mask and the
@@ -418,6 +418,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase's launches join the kernels line's, and the segment kernels'
    errors its errors.
 
+19. the model zoo (``[zoo]`` lines, last): (a) the flash forward, dq
+   and dk/dv at the slice's new shapes (``ZOO_FLASH``: GPT-1.3B's q [4,
+   1024, 16, 128] and GPT-2's [4, 1024, 12, 64] causal, the encoder's
+   [8, 256, 8, 64] non-causal) and the quant kernel (int8 and int4, m 4
+   and 16) at GPT-1.3B's four projections (``ZOO_QUANT``), each against
+   its plain version and timed beside it, SDPA or a bf16 matmul on the
+   dequantized weight, and the bound; (b) GPT-1.3B (``GPTConfig()``, 24
+   layers, bf16, random weights from the seed) through
+   ``Predictor.generate`` on [4, 512] + 128, greedy, the counts set to 0
+   just before and read just after: no kernel at all (GPT attends its
+   cache densely, outside the kernels, as the JAX module does), the step
+   graph holding no attention kernel, bit for bit the uncaptured step,
+   the stream within ``TOL_TEACHER`` of a teacher-forced forward; a short
+   beam run; (c) the same weights quantized to int8 and to int4 by the
+   ``Predictor``: quant 96 a step (96 nodes in the step graph, on mma),
+   each stream within ``TOL_TEACHER`` of its own model's teacher-forced
+   maxima, its gap under bf16 printed; (d) GPT-1.3B through 3 Trainer
+   steps on a repeated [4, 1024] batch: flash, dq and dk/dv 24 a step on
+   wgmma, one fused update a step, the loss falling, step ms, tokens/s,
+   MFU and a profiled step; (e) GPT-2's widths written by hand from
+   seeded bf16 weights as an HF checkpoint, through ``config_from_hf``
+   and ``from_pretrained`` (tensors bit for bit), ``generate()`` and one
+   Trainer step with flash at d 64; (f) ``ErnieForSequenceClassification``
+   at ``ErnieConfig()``: 3 Trainer steps at [32, 128] with a quarter
+   padding and dropout 0.1 from the model's generator;
+   ``ErnieForMaskedLM`` logits; one ``BertForPretraining`` step at
+   ``BertConfig()`` (MLM + NSP); (g) ``nn.TransformerEncoder`` (6 layers,
+   512 wide, 8 heads, FFN 2048) at [8, 256] in bf16: an eval forward on
+   the flash kernel, then its output and gradients on the flash kernels
+   and on their plain versions against the module in fp32 (the kernels'
+   error within ``TOL_ZOO_RATIO`` of the plain versions'), and one
+   Trainer step. The
+   phase's launches join the kernels line's, and (a)'s errors its
+   errors.
+
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
@@ -431,6 +466,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import json
 import os
@@ -8521,6 +8557,697 @@ def phase_finetune(seed, gen, dev, card):
     return launches, errs
 
 
+ZOO_FLASH = (("GPT-1.3B", (4, 1024, 16, 128), True),
+             ("GPT-2", (4, 1024, 12, 64), True),
+             ("encoder", (8, 256, 8, 64), False))    # b, s, h, d; causal
+# GPT-1.3B's four biased projections, whole (no tp): (label, din, dout,
+# scale blocks, rank) as _tp_quant reads them
+ZOO_QUANT = (("qkv", 2048, 6144, 16, 0), ("out", 2048, 2048, 16, 0),
+             ("fc_in", 2048, 8192, 16, 0), ("fc_out", 8192, 2048, 64, 0))
+ZOO_PROMPT = (4, 512)
+ZOO_NEW = 128
+ZOO_BEAM = (2, 2, 16)                # rows, beams, new tokens
+ZOO_TRAIN = (4, 1024)
+ZOO_STEPS = 3
+ZOO_GPT2 = dict(vocab_size=50257, n_embd=768, n_layer=12, n_head=12,
+                n_positions=1024, layer_norm_epsilon=1e-5)
+ZOO_CLS = (32, 128)                  # ERNIE classifier batch; 1/4 padding
+ZOO_ENC = dict(d_model=512, nhead=8, dim_feedforward=2048, layers=6)
+ZOO_ENC_BATCH = (8, 256)
+# the encoder's bf16 output and gradients on the kernels against the fp32
+# module, over the same on the kernels' plain versions: both round to
+# bf16, at other points (1.00-1.04 seen at 2 layers)
+TOL_ZOO_RATIO = 1.25
+GPT_PER_LAYER = 4                    # GPT's quantized projections a layer
+
+
+def _zoo_flash(gen, dev, card):
+    """(a) The flash forward, dq and dk/dv at the slice's new shapes
+    (``ZOO_FLASH``: GPT-1.3B's and GPT-2's causal prefill and training
+    shapes, the encoder's non-causal one), bf16: each against its plain
+    version (``TOL_BF16``; the backward within ``TOL_BWD_BF16`` of the
+    largest reference gradient) on the wgmma route by count, then its
+    time beside the plain version, SDPA (forward; its backward asked for
+    dq alone and for dk, dv alone) and the bound. Returns the rows."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        _delta, flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+        flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    rows = []
+    for label, (b, s, h, d), causal in ZOO_FLASH:
+        fns = {"flash": flash_attention_fwd,
+               "flash_bwd_dq": flash_attention_bwd_dq,
+               "flash_bwd_dkv": flash_attention_bwd_dkv}
+        kw = dict(causal=causal, scale=d ** -0.5, window=None)
+        el = 2
+        x_bytes = el * b * s * h * d
+        row_bytes = 4 * b * h * s
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        prod = 2 * d * pairs
+        n = copies_for(8 * x_bytes + row_bytes)
+        sets, lib = [], []
+        for _ in range(n):
+            q, k, v, g, _ = _bwd_inputs(gen, dev, torch.bfloat16, b, s, h,
+                                        h, d)
+            out, lse = flash_attention_fwd(q, k, v, causal=causal)
+            sets.append((q, k, v, g, lse, _delta(out, g), None, out))
+            xs = [t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v)]
+            lib.append((TF.scaled_dot_product_attention(
+                *xs, is_causal=causal), xs, g.transpose(1, 2).contiguous()))
+        before = {k: dict(f.launches_by_route) for k, f in fns.items()}
+        q, k, v, g, _, _, _, _ = sets[0]
+        out, lse = flash_attention_fwd(q, k, v, causal=causal)
+        delta = _delta(out, g)
+        ref_out, _ = flash_attention_fwd_plain(q, k, v, causal=causal)
+        errs = {"flash": max_err(out, ref_out)}
+        got = [flash_attention_bwd_dq(q, k, v, g, lse, delta, None, **kw),
+               *flash_attention_bwd_dkv(q, k, v, g, lse, delta, None, **kw)]
+        ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+        bad = []
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            err, rmax = max_err(a, r), float(r.float().abs().max())
+            key = "flash_bwd_dq" if gname == "dq" else "flash_bwd_dkv"
+            errs[key] = max(errs.get(key, 0.0), err)
+            if not err <= TOL_BWD_BF16 * rmax:
+                bad.append(f"{gname} {err:.3e} > {TOL_BWD_BF16} x {rmax:.3e}")
+        torch.cuda.synchronize()
+        routes = {k: {r: c - before[k][r]
+                      for r, c in f.launches_by_route.items()}
+                  for k, f in fns.items()}
+        log(f"[zoo] (a) flash at {label}'s shape q = k = v {[b, s, h, d]} "
+            f"bf16 {'causal' if causal else 'non-causal'}: max_abs_err "
+            f"against the plain versions " + ", ".join(
+                f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (tol {TOL_BF16}, backward {TOL_BWD_BF16} x max|ref|); "
+            f"launches by route {routes}")
+        if errs["flash"] > TOL_BF16 or bad:
+            fail(f"[zoo] (a) {label}: a flash kernel disagrees with its "
+                 f"plain version ({bad})")
+        if any(r["wgmma"] != 1 or r["simt"] for r in routes.values()):
+            fail(f"[zoo] (a) {label}: not one wgmma launch each: {routes}")
+        del got, ref, ref_out
+
+        def fwd_args(i):
+            return sets[i % n][:3]
+
+        def bwd_args(i):
+            return sets[i % n][:7]
+
+        t = {}
+        for key, fn, plain, lib_which, nbytes, flops in (
+                ("flash", lambda i: flash_attention_fwd(*fwd_args(i),
+                                                        causal=causal),
+                 lambda i: flash_attention_fwd_plain(*fwd_args(i),
+                                                     causal=causal),
+                 None, 4 * x_bytes + row_bytes, 2 * prod),
+                ("flash_bwd_dq", lambda i: flash_attention_bwd_dq(
+                    *bwd_args(i), **kw),
+                 lambda i: flash_attention_bwd_dq_plain(
+                     *sets[i % n][:3], sets[i % n][7], sets[i % n][4],
+                     sets[i % n][3], causal=causal),
+                 [0], 5 * x_bytes + 2 * row_bytes, 3 * prod),
+                ("flash_bwd_dkv", lambda i: flash_attention_bwd_dkv(
+                    *bwd_args(i), **kw),
+                 lambda i: flash_attention_bwd_dkv_plain(
+                     *sets[i % n][:3], sets[i % n][7], sets[i % n][4],
+                     sets[i % n][3], causal=causal),
+                 [1, 2], 6 * x_bytes + 2 * row_bytes, 4 * prod)):
+            if lib_which is None:
+                lib_ms = cuda_ms(lambda i: TF.scaled_dot_product_attention(
+                    *[x.detach() for x in lib[i % n][1]], is_causal=causal),
+                    iters=10)
+            else:
+                lib_ms = cuda_ms(lambda i, w=lib_which: torch.autograd.grad(
+                    lib[i % n][0], [lib[i % n][1][j] for j in w],
+                    lib[i % n][2], retain_graph=True), iters=10)
+            b_ms, b_by = bound(nbytes, flops)
+            t[key] = dict(ms=cuda_ms(fn, iters=10),
+                          plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                          err=errs[key])
+            r = t[key]
+            log(f"[zoo] (a) time {key} at {label}'s q {[b, s, h, d]} "
+                f"{'causal' if causal else 'non-causal'}: kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+                f"{r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+                f"[{card}]")
+            rows.append((label, key, r))
+        del sets, lib
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _zoo_generate(ptt, pred, ids, new, label, card, quant=0):
+    """``Predictor.generate`` on GPT, greedy, through its captured step:
+    the counts set to 0 just before the timed run and read just after
+    (no attention kernel: GPT attends its cache densely, as the JAX
+    module does; quant ``quant`` a step when quantized, the 2048-row
+    prefill taking the dequant route); the step graph's nodes hold no
+    flash or decode kernel and ``quant`` quant nodes on mma; a second
+    call and the uncaptured step give the same tokens. Returns (tokens,
+    decode ms a step, launches)."""
+    from paddle_tpu_torch.generation import eager_steps
+    b, prompt = ids.shape
+    greedy = ptt.GenerationConfig(max_new_tokens=new)
+    one = ptt.GenerationConfig(max_new_tokens=1)
+    pred.generate(ids, config=greedy)       # warm-up: captures the step
+    pred.generate(ids, config=one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.generate(ids, config=one)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    out = pred.generate(ids, config=greedy)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = dict(NO_LAUNCHES, quant=quant * (new - 1))
+    log(f"[zoo] {label} launches in one generate: {launches} (want {want})")
+    if launches != want:
+        fail(f"[zoo] {label}: kernel launches {launches} != {want}")
+    if quant:
+        _check_routes(f"zoo {label}", quant=quant * (new - 1))
+    prog = _step_program(pred.model, lambda k: k[:4] == (
+        "generate", b, prompt + new, False), label)
+    nodes, n_nodes, n_memory = _graph_kernels(
+        prog, label, {"flash_fwd": 0, "decode_": 0, "qmm_mma": quant})
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    log(f"[zoo] {label} the decode step is one CUDA-graph replay of "
+        f"{n_nodes} kernel nodes ({nodes}: no attention kernel) and "
+        f"{n_memory} memcpy/memset nodes; prefill {prefill_ms:.1f} ms ({b} "
+        f"x {prompt}), decode {decode_ms:.2f} ms/step, "
+        f"{b * new / (total_ms / 1e3):.1f} new tokens/s, peak memory "
+        f"{peak_gb:.2f} GB [{card}]")
+    if not torch.equal(pred.generate(ids, config=greedy), out):
+        fail(f"[zoo] {label}: a second greedy generate gave other tokens")
+    t0 = time.perf_counter()
+    with eager_steps():
+        eager = pred.generate(ids, config=greedy)
+    torch.cuda.synchronize()
+    eager_ms = ((time.perf_counter() - t0) * 1e3 - prefill_ms) / (new - 1)
+    if not torch.equal(eager, out):
+        fail(f"[zoo] {label}: the graphed stream differs from the "
+             f"uncaptured step's")
+    log(f"[zoo] {label} greedy streams bit for bit the uncaptured step's "
+        f"({eager_ms:.2f} ms/step uncaptured) [{card}]")
+    return out, decode_ms, launches
+
+
+def _zoo_gpt(seed, dev, card):
+    """(b) GPT-1.3B (``GPTConfig()``: 24 layers of 2048, 16 heads of 128,
+    vocab 50304) in bf16 from the seed through ``Predictor.generate`` on
+    [4, 512] prompts, 128 new tokens, and a short beam run; (c) the same
+    weights rebuilt and quantized by the ``Predictor`` to int8 and to
+    int4: 96 quant nodes a step graph on mma, each stream re-scored by
+    its own model within ``TOL_TEACHER`` (and its gap under the bf16
+    model printed). Returns the launches."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.quant import QuantizedLinear
+    cfg = ptt.GPTConfig()
+    L = cfg.num_hidden_layers
+
+    def build():
+        return ptt.GPTForCausalLM(cfg, device=dev,
+                                  generator=ptt.make_generator(seed, dev))
+
+    t0 = time.perf_counter()
+    model = build()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[zoo] (b) GPT-1.3B (hidden {cfg.hidden_size}, {L} layers, "
+        f"{cfg.num_attention_heads} heads of {cfg.head_dim}, ffn "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"tied head): {n_params / 1e9:.3f} B params, "
+        f"{_weight_gb(model):.2f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pred = ptt.Predictor(model, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, ZOO_PROMPT, device=dev,
+                        generator=ptt.make_generator(seed + 1, dev))
+    bf16, bf16_ms, _ = _zoo_generate(ptt, pred, ids, ZOO_NEW, "(b) bf16",
+                                     card)
+    gap = max(_teacher_gap(model, ids[r].tolist(),
+                           bf16[r, ZOO_PROMPT[1]:].tolist())
+              for r in range(ZOO_PROMPT[0]))
+    if not gap <= TOL_TEACHER:
+        fail(f"[zoo] (b): the bf16 stream re-scored by the model is "
+             f"{gap:.4f} off its maxima")
+    rows, beams, new = ZOO_BEAM
+    beam_cfg = ptt.GenerationConfig(max_new_tokens=new, num_beams=beams)
+    pred.generate(ids[:rows], config=beam_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beam = pred.generate(ids[:rows], config=beam_cfg)
+    torch.cuda.synchronize()
+    beam_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(beam.shape) != (rows, ZOO_PROMPT[1] + new) or not bool(
+            ((beam >= 0) & (beam < cfg.vocab_size)).all()):
+        fail("[zoo] (b) beam search returned invalid ids")
+    log(f"[zoo] (b) bf16 teacher-forced gap of the greedy streams "
+        f"{gap:.4f} (tol {TOL_TEACHER}); beam search {rows} x {beams} beams"
+        f", {new} new: {beam_ms:.1f} ms [{card}]")
+    launches = {}
+    for bits in (8, 4):
+        qmodel = build()
+        qpred = ptt.Predictor(qmodel,
+                              ptt.Config().enable_weight_only_quant(bits),
+                              device=dev)
+        n_q = sum(isinstance(m, QuantizedLinear) for m in qmodel.modules())
+        if n_q != GPT_PER_LAYER * L:
+            fail(f"[zoo] (c) int{bits}: {n_q} projections quantized, want "
+                 f"{GPT_PER_LAYER * L}")
+        out, ms, got = _zoo_generate(ptt, qpred, ids, ZOO_NEW,
+                                     f"(c) int{bits}", card,
+                                     quant=GPT_PER_LAYER * L)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        own = max(_teacher_gap(qmodel, ids[r].tolist(),
+                               out[r, ZOO_PROMPT[1]:].tolist())
+                  for r in range(ZOO_PROMPT[0]))
+        vs_bf16 = max(_teacher_gap(model, ids[r].tolist(),
+                                   out[r, ZOO_PROMPT[1]:].tolist())
+                      for r in range(ZOO_PROMPT[0]))
+        same = int((out[:, ZOO_PROMPT[1]:] == bf16[:, ZOO_PROMPT[1]:]).sum())
+        log(f"[zoo] (c) int{bits}: {n_q} projections on the quant kernel, "
+            f"weights {_weight_gb(qmodel):.2f} GB; decode {ms:.2f} ms/step "
+            f"against bf16's {bf16_ms:.2f}; its streams re-scored by its "
+            f"own model {own:.4f} (tol {TOL_TEACHER}), by the bf16 model "
+            f"{vs_bf16:.4f}; new tokens equal to bf16's {same} of "
+            f"{ZOO_PROMPT[0] * ZOO_NEW} [{card}]")
+        if not own <= TOL_TEACHER:
+            fail(f"[zoo] (c) int{bits}: its stream re-scored by its own "
+                 f"model is {own:.4f} off its maxima")
+        del qpred, qmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+    return model, pred, launches
+
+
+def _zoo_train_run(tr, steps, label, want, card, tokens=None,
+                   flops_per_token=None, need_fall=True):
+    """``tr.train()`` for ``steps`` steps with the counts set to 0 just
+    before and read just after (they must equal ``want``, the routed
+    kernels on their tensor-core routes); the losses finite (and falling,
+    with ``need_fall``); step ms, tokens/s and MFU printed. Returns (the
+    launches, the median step ms)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+
+    class StepClock(ptt.TrainerCallback):
+        def __init__(self):
+            self.t = []
+
+        def on_step_end(self, step, logs):
+            self.t.append(time.perf_counter())
+
+    clock = StepClock()
+    tr.callbacks.append(clock)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _reset_launches()
+    clock.t = [time.perf_counter()]
+    tr.train()
+    torch.cuda.synchronize()
+    launches = read()
+    tr.callbacks.remove(clock)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [v for _, v in tr.logger.history["loss"]][-steps:]
+    log(f"[zoo] {label} launches in {steps} steps: {launches} (want "
+        f"{want}); losses " + ", ".join(f"{x:.4f}" for x in losses))
+    if launches != want:
+        fail(f"[zoo] {label}: launches {launches} != {want}")
+    _check_routes(f"zoo {label}", **{k: want[k] for k in (
+        "flash", "flash_bwd_dq", "flash_bwd_dkv") if want[k]})
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"[zoo] {label}: a loss is not finite")
+    if need_fall and not losses[-1] < losses[0]:
+        fail(f"[zoo] {label}: the loss did not fall ({losses})")
+    steps_ms = np.diff(clock.t) * 1e3
+    step_ms = float(np.median(steps_ms[1:] if steps > 1 else steps_ms))
+    line = (f"[zoo] {label} step ms " + ", ".join(f"{x:.1f}"
+                                                  for x in steps_ms)
+            + f" (median of steps 2-{steps} {step_ms:.1f}), peak memory "
+            f"{peak_gb:.2f} GB")
+    if tokens:
+        tps = tokens / (step_ms / 1e3)
+        line += f", {tps:.0f} tokens/s"
+        if flops_per_token:
+            line += (f", MFU {100 * flops_per_token * tps / BF16_FLOP_PER_S:.2f}"
+                     f" % of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s")
+    log(line + f" [{card}]")
+    return launches, step_ms
+
+
+def _zoo_trainer(ptt, model, batches, steps, lr, loss_fn=None):
+    """The Trainer at the JAX package's defaults: AdamW with fp32 masters
+    and global-norm clipping at 1.0, logging every step."""
+    opt = ptt.optimizer.AdamW(learning_rate=lr, multi_precision=True,
+                              grad_clip=ptt.optimizer.ClipGradByGlobalNorm(
+                                  1.0))
+    args = ptt.TrainingArguments(output_dir="output/chip_smoke_zoo",
+                                 max_steps=steps, logging_steps=1)
+    return ptt.Trainer(model, opt, args, train_dataloader=batches,
+                       loss_fn=loss_fn)
+
+
+def _update_launches(model, steps):
+    """The fused update's launches in ``steps`` steps: one a step for each
+    dtype of the trainable parameters (one launch a (parameter,
+    gradient) type group)."""
+    return steps * len({p.dtype for p in model.parameters()
+                        if p.requires_grad})
+
+
+def _zoo_gpt_train(seed, dev, card):
+    """(d) GPT-1.3B at its 24 layers, bf16, fresh from the seed, 3 Trainer
+    steps (AdamW, fp32 masters) on one repeated [4, 1024] batch: flash,
+    dq and dk/dv 24 a step on wgmma, one fused update a step; the loss
+    falls; step ms, tokens/s, MFU (6N with the tied head + attention) and
+    a profiled step."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.utils.profiler import llama_flops_per_token
+    cfg = ptt.GPTConfig()
+    model = ptt.GPTForCausalLM(cfg, device=dev,
+                               generator=ptt.make_generator(seed + 2, dev))
+    L = cfg.num_hidden_layers
+    rs = np.random.RandomState(seed + 3)
+    batch = rs.randint(0, cfg.vocab_size, ZOO_TRAIN)
+    tr = _zoo_trainer(ptt, model, [batch], ZOO_STEPS, 1e-3)
+    n = sum(p.numel() for p in model.parameters()) \
+        - cfg.max_position_embeddings * cfg.hidden_size
+    fpt = llama_flops_per_token(n, L, ZOO_TRAIN[1], cfg.hidden_size)
+    want = dict(NO_LAUNCHES, flash=L * ZOO_STEPS,
+                flash_bwd_dq=L * ZOO_STEPS, flash_bwd_dkv=L * ZOO_STEPS,
+                fused_adamw=_update_launches(model, ZOO_STEPS))
+    launches, step_ms = _zoo_train_run(
+        tr, ZOO_STEPS, f"(d) GPT-1.3B train [{ZOO_TRAIN[0]}, {ZOO_TRAIN[1]}]",
+        want, card, tokens=ZOO_TRAIN[0] * ZOO_TRAIN[1], flops_per_token=fpt)
+    profile_train_step(tr, step_ms, card, label="GPT-1.3B train step "
+                       f"([{ZOO_TRAIN[0]}, {ZOO_TRAIN[1]}], 24 layers)",
+                       before_ms=None)
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _zoo_gpt2(seed, dev, card):
+    """(e) GPT-2's widths (``ZOO_GPT2``: 768 wide, 12 heads of 64, vocab
+    50257) written by hand from seeded bf16 weights as an HF checkpoint
+    (GPT-2's names, ``Conv1D`` weights [in, out], no ``safetensors``
+    package), through ``config_from_hf`` and ``from_pretrained``: the
+    loaded weights bit for bit the written ones (through
+    ``to``-the-JAX-layout ``jax_state_dict``), ``generate()`` on [4, 256]
+    + 32 through the captured step, and one Trainer step at [4, 1024]
+    with flash at d 64 (12 forward, dq and dk/dv on wgmma)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import jax_state_dict
+    from paddle_tpu_torch.models import hf_interop
+    c = ZOO_GPT2
+    h, V, P, L = c["n_embd"], c["vocab_size"], c["n_positions"], c["n_layer"]
+    g = torch.Generator().manual_seed(seed + 4)
+
+    def w(*shape, std=0.02):
+        return (torch.randn(*shape, generator=g) * std).to(torch.bfloat16)
+
+    tensors = {"transformer.wte.weight": w(V, h),
+               "transformer.wpe.weight": w(P, h, std=0.01),
+               "transformer.ln_f.weight": 1 + w(h, std=0.1),
+               "transformer.ln_f.bias": w(h)}
+    for i in range(L):
+        p = f"transformer.h.{i}."
+        for name, din, dout in (("attn.c_attn", h, 3 * h),
+                                ("attn.c_proj", h, h),
+                                ("mlp.c_fc", h, 4 * h),
+                                ("mlp.c_proj", 4 * h, h)):
+            tensors[p + name + ".weight"] = w(din, dout)
+            tensors[p + name + ".bias"] = w(dout)
+        for ln in ("ln_1", "ln_2"):
+            tensors[p + ln + ".weight"] = 1 + w(h, std=0.1)
+            tensors[p + ln + ".bias"] = w(h)
+    d = tempfile.mkdtemp(prefix="zoo_gpt2_")
+    try:
+        _write_safetensors(os.path.join(d, "model.safetensors"), tensors)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(c, model_type="gpt2", torch_dtype="bfloat16"), f)
+        cls, cfg, mt = hf_interop.config_from_hf(d)
+        t0 = time.perf_counter()
+        model = hf_interop.from_pretrained(d, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    got = jax_state_dict(model)
+    want = {"model.embed_tokens.weight": tensors["transformer.wte.weight"],
+            "model.embed_positions": tensors["transformer.wpe.weight"],
+            "model.layers.5.attn.qkv_proj.weight":
+                tensors["transformer.h.5.attn.c_attn.weight"],
+            "model.layers.11.mlp.fc_out.bias":
+                tensors["transformer.h.11.mlp.c_proj.bias"]}
+    if cls.__name__ != "GPTForCausalLM" or (cfg.hidden_size, cfg.head_dim,
+                                            cfg.vocab_size) != (h, 64, V):
+        fail(f"[zoo] (e) config_from_hf gave {cls.__name__} {cfg}")
+    if not all(torch.equal(got[k], v) for k, v in want.items()):
+        fail("[zoo] (e) a loaded GPT-2 tensor differs from the written one")
+    pred = ptt.Predictor(model, device=dev)
+    ids = torch.randint(0, V, (4, 256), device=dev,
+                        generator=ptt.make_generator(seed + 5, dev))
+    _zoo_generate(ptt, pred, ids, 32, "(e) GPT-2", card)
+    rs = np.random.RandomState(seed + 6)
+    tr = _zoo_trainer(ptt, model, [rs.randint(0, V, ZOO_TRAIN)], 1, 1e-4)
+    want = dict(NO_LAUNCHES, flash=L, flash_bwd_dq=L, flash_bwd_dkv=L,
+                fused_adamw=_update_launches(model, 1))
+    launches, _ = _zoo_train_run(tr, 1, "(e) GPT-2 train step", want, card,
+                                 tokens=ZOO_TRAIN[0] * ZOO_TRAIN[1],
+                                 need_fall=False)
+    log(f"[zoo] (e) GPT-2 widths from a hand-written HF checkpoint "
+        f"({sum(t.numel() for t in tensors.values()) / 1e6:.1f} M params, "
+        f"bf16): config_from_hf -> {cls.__name__}, from_pretrained "
+        f"{load_s:.2f} s, the sampled tensors bit for bit [{card}]")
+    del tr, model, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _zoo_encoders(seed, dev, card):
+    """(f) ``ErnieForSequenceClassification`` at ``ErnieConfig()`` (ERNIE
+    3.0 base widths) in bf16: 3 Trainer steps at [32, 128], a quarter of
+    the positions padding, dropout 0.1 drawn from the model's generator
+    (dense attention under the padding bias, as in JAX; the fused update
+    once a step for each parameter dtype); ``ErnieForMaskedLM`` logits
+    (finite, fp32, [32, 128, 40000]); one ``BertForPretraining`` step at
+    ``BertConfig()`` with the MLM + NSP loss."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import pretraining_loss
+    from paddle_tpu_torch.nn import functional as F
+    b, s = ZOO_CLS
+    rs = np.random.RandomState(seed + 7)
+    mask = np.ones((b, s), np.int64)
+    for r in range(b):
+        mask[r, s - int(rs.randint(0, s // 2)):] = 0    # a quarter, mean
+    ecfg = ptt.ErnieConfig()
+    ids = rs.randint(0, ecfg.vocab_size, (b, s))
+    batch = {k: torch.from_numpy(v) for k, v in (
+        ("ids", ids), ("mask", mask), ("types", np.zeros_like(ids)),
+        ("labels", rs.randint(0, 2, b)))}
+    model = ptt.ErnieForSequenceClassification(
+        ecfg, device=dev, generator=ptt.make_generator(seed + 8, dev))
+
+    def cls_loss(m, bt):
+        return F.cross_entropy(m(bt["ids"], bt["types"], bt["mask"]),
+                               bt["labels"])
+
+    tr = _zoo_trainer(ptt, model, [batch], ZOO_STEPS, 1e-4, cls_loss)
+    want = dict(NO_LAUNCHES, fused_adamw=_update_launches(model, ZOO_STEPS))
+    launches, _ = _zoo_train_run(
+        tr, ZOO_STEPS, f"(f) ERNIE 3.0 base classifier [{b}, {s}], "
+        f"{1 - mask.mean():.3f} padding, dropout "
+        f"{ecfg.hidden_dropout_prob}", want, card,
+        tokens=int(mask.sum()), need_fall=False)
+    del tr, model
+    mlm = ptt.ErnieForMaskedLM(ecfg, device=dev,
+                               generator=ptt.make_generator(seed + 9, dev))
+    mlm.eval()
+    tb = {k: v.to(dev) for k, v in batch.items()}
+    with torch.inference_mode():
+        logits = mlm(tb["ids"], tb["types"], tb["mask"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = mlm(tb["ids"], tb["types"], tb["mask"])
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(logits.shape) != (b, s, ecfg.vocab_size) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        fail("[zoo] (f) ErnieForMaskedLM logits are not finite fp32 of "
+             "the expected shape")
+    log(f"[zoo] (f) ErnieForMaskedLM eval forward [{b}, {s}]: "
+        f"{fwd_ms:.1f} ms, logits fp32 {list(logits.shape)} finite "
+        f"[{card}]")
+    del mlm, logits
+    bcfg = ptt.BertConfig()
+    bert = ptt.BertForPretraining(bcfg, device=dev,
+                                  generator=ptt.make_generator(seed + 10,
+                                                               dev))
+    bids = rs.randint(0, bcfg.vocab_size, (b, s))
+    mlm_labels = np.where(rs.rand(b, s) < 0.15, bids, -100)
+    bb = {k: torch.from_numpy(v) for k, v in (
+        ("ids", bids), ("mask", mask), ("types", np.zeros_like(bids)),
+        ("mlm", mlm_labels), ("nsp", rs.randint(0, 2, b)))}
+
+    def pt_loss(m, bt):
+        mlm_logits, nsp_logits = m(bt["ids"], bt["types"], bt["mask"])
+        return pretraining_loss(mlm_logits, bt["mlm"], nsp_logits,
+                                bt["nsp"])
+
+    tr = _zoo_trainer(ptt, bert, [bb], 1, 1e-4, pt_loss)
+    want = dict(NO_LAUNCHES, fused_adamw=_update_launches(bert, 1))
+    got, _ = _zoo_train_run(tr, 1, f"(f) BERT-base pretraining step [{b}, "
+                            f"{s}] (MLM + NSP)", want, card,
+                            need_fall=False)
+    for k, v in got.items():
+        launches[k] += v
+    del tr, bert
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _zoo_encoder_stack(seed, dev, card):
+    """(g) ``nn.TransformerEncoder`` (``ZOO_ENC``: 6 layers, 512 wide, 8
+    heads, FFN 2048, post-norm, relu) in bf16 at [8, 256]: an eval
+    forward on the flash kernel (6 launches on wgmma); the output and the
+    input's and every parameter's gradient of a loss at dropout 0, on the
+    kernels and on their plain versions, each against the same module in
+    fp32 on the plain versions: the kernels' error within
+    ``TOL_ZOO_RATIO`` times the plain versions' (the two round to bf16 at
+    other points, ~3e-2 apart in relative l2 through two post-norm
+    layers, each ~3e-2 from fp32); then one Trainer step (6 forward, dq
+    and dk/dv on wgmma, one fused update)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    c = ZOO_ENC
+    L = c["layers"]
+    layer = nn.TransformerEncoderLayer(
+        c["d_model"], c["nhead"], c["dim_feedforward"], dropout=0.0,
+        device=dev, generator=ptt.make_generator(seed + 11, dev))
+    enc32 = nn.TransformerEncoder(layer, L)
+    enc = copy.deepcopy(enc32).to(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    x = torch.randn(*ZOO_ENC_BATCH, c["d_model"], generator=g,
+                    device=dev).to(torch.bfloat16)
+    target = torch.randn(x.shape, generator=g, device=dev)
+    enc.eval()
+    read = _reset_launches()
+    with torch.no_grad():
+        out = enc(x)
+    torch.cuda.synchronize()
+    launches = read()
+    _check_routes("zoo (g) eval", flash=L)
+
+    def run(module, inp, plain, train):
+        """[output, the input's and every parameter's gradient of the
+        loss], in fp32, of ``module`` on the kernels or, with ``plain``,
+        on their plain versions."""
+        module.train(train)
+        inp = inp.detach().requires_grad_()
+        params = [inp] + list(module.parameters())
+        real = fa.flash_attention_fwd, fa.flash_attention_bwd
+        if plain:
+            fa.flash_attention_fwd = fa.flash_attention_fwd_plain
+            fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+        try:
+            y = module(inp)
+            grads = torch.autograd.grad(
+                (y.float() - target).square().mean(), params)
+        finally:
+            fa.flash_attention_fwd, fa.flash_attention_bwd = real
+        return [y.detach().float()] + [t.float() for t in grads]
+
+    names = ["output", "x"] + [n for n, _ in enc.named_parameters()]
+    ref = run(enc32, x.float(), True, False)
+    kern = run(enc, x, False, True)
+    plain = run(enc, x, True, True)
+    # each bf16 result against the fp32 plain module: the kernels must add
+    # no error beyond the plain versions' own bf16 rounding (k_proj's bias
+    # has a zero gradient up to rounding: both are noise against it)
+    ratios = [(_rel_l2(a, r) / _rel_l2(p, r), n)
+              for n, a, p, r in zip(names, kern, plain, ref)]
+    worst = max(ratios)
+    log(f"[zoo] (g) nn.TransformerEncoder ({L} layers, {c['d_model']} wide, "
+        f"{c['nhead']} heads, ffn {c['dim_feedforward']}, bf16) at "
+        f"{list(ZOO_ENC_BATCH)}: eval forward on the flash kernel "
+        f"(launches {launches['flash']}); output and {len(names) - 1} "
+        f"gradients in bf16 against the fp32 module: on the kernels "
+        f"relative l2 {_rel_l2(kern[0], ref[0]):.3e} (output), "
+        f"{_rel_l2(kern[1], ref[1]):.3e} (x), on the plain versions "
+        f"{_rel_l2(plain[0], ref[0]):.3e}, {_rel_l2(plain[1], ref[1]):.3e};"
+        f" worst kernels / plain ratio {worst[0]:.3f} ({worst[1]}; tol "
+        f"{TOL_ZOO_RATIO}); kernels against plain output "
+        f"{_rel_l2(out.float(), plain[0]):.3e} [{card}]")
+    if not worst[0] <= TOL_ZOO_RATIO:
+        fail("[zoo] (g) the encoder on the flash kernels is further from "
+             "the fp32 module than on their plain versions")
+    del ref, kern, plain, enc32
+    enc.train()
+    tr = _zoo_trainer(ptt, enc, [{"x": x, "y": target}], 1, 1e-4,
+                      lambda m, bt: (m(bt["x"]).float() - bt["y"])
+                      .square().mean())
+    want = dict(NO_LAUNCHES, flash=L, flash_bwd_dq=L, flash_bwd_dkv=L,
+                fused_adamw=_update_launches(enc, 1))
+    got, _ = _zoo_train_run(tr, 1, "(g) encoder train step", want, card,
+                            need_fall=False)
+    for k, v in got.items():
+        launches[k] += v
+    del tr, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_zoo(seed, gen, dev, card):
+    """Phase 19 (module docstring). Returns (the launches of the
+    main-path runs by kernel key, the (a) rows)."""
+    rows = _zoo_flash(gen, dev, card)
+    rows += [("GPT-1.3B", f"quant {label}", r)
+             for label, r in _tp_quant(gen, dev, card, table=ZOO_QUANT,
+                                       tag="[zoo] (a)")]
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    model, pred, got = _zoo_gpt(seed, dev, card)
+    add(got)
+    del model, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(_zoo_gpt_train(seed, dev, card))
+    add(_zoo_gpt2(seed, dev, card))
+    add(_zoo_encoders(seed, dev, card))
+    add(_zoo_encoder_stack(seed, dev, card))
+    log(f"[zoo] launches of the phase's main-path runs {launches} [{card}]")
+    return launches, rows
+
+
 def _clock_phases():
     """Make every ``phase_*`` function of this module log its wall time
     when it returns (``[wall]`` lines): the script's time limit is shared
@@ -8644,6 +9371,14 @@ def main():
         launches[key] += n
     for key, err in ft_errs.items():
         errs[key] = max(errs[key], err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_launches, zoo_rows = phase_zoo(args.seed, gen, dev, card)
+    for key, n in zoo_launches.items():
+        launches[key] += n
+    for _, key, r in zoo_rows:
+        key = "quant" if key.startswith("quant") else key
+        errs[key] = max(errs[key], r["err"])
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,

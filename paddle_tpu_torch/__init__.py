@@ -23,7 +23,9 @@ backward. Fine-tuning rides the same Trainer: LoRA adapters
 serves Qwen2, the MoE families (Qwen2-MoE, ERNIE-4.5-MoE and
 DeepSeek-V2/V3 with MLA and MTP, on ``parallel/moe.py``) through the
 same ``generate()``, ``Predictor`` and, for Qwen2-MoE and ERNIE,
-``PagedEngine``. Weights load
+``PagedEngine``; GPT through ``generate()``, the ``Predictor`` and the
+``Trainer``; the BERT-family encoders (BERT, ERNIE) and Paddle's
+``nn.Transformer`` layers through the ``Trainer``. Weights load
 from ``checkpoint.save`` files in the JAX package's format and from HF
 safetensors checkpoints (``models.from_pretrained``). Eight hand-written
 kernels for ``sm_90a`` sit under ``ops/kernels``, with their sources in
@@ -38,8 +40,12 @@ from .generation import GenerationConfig, beam_search, generate
 from .inference import (BatchingPredictor, Config, Predictor,
                         create_predictor)
 from . import amp, io, optimizer, peft, quant, tokenizer, trl
-from .models import (LlamaConfig, LlamaForCausalLM, causal_lm_loss,
-                     from_pretrained, llama3_70b, llama3_8b, llama_tiny)
+from .models import (BertConfig, BertForPretraining,
+                     BertForSequenceClassification, ErnieConfig,
+                     ErnieForMaskedLM, ErnieForSequenceClassification,
+                     GPTConfig, GPTForCausalLM, LlamaConfig,
+                     LlamaForCausalLM, causal_lm_loss, from_pretrained,
+                     llama3_70b, llama3_8b, llama_tiny)
 from .trainer import Trainer, TrainerCallback, TrainingArguments
 from .utils.rng import make_generator
 
@@ -48,7 +54,9 @@ __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "BatchingPredictor", "create_predictor", "save", "load",
            "from_pretrained", "LlamaConfig",
            "LlamaForCausalLM", "causal_lm_loss", "llama3_8b", "llama3_70b",
-           "llama_tiny",
-           "make_generator", "amp", "io", "optimizer", "peft", "quant",
-           "tokenizer", "trl", "Trainer", "TrainerCallback",
+           "llama_tiny", "GPTConfig", "GPTForCausalLM", "BertConfig",
+           "BertForPretraining", "BertForSequenceClassification",
+           "ErnieConfig", "ErnieForMaskedLM",
+           "ErnieForSequenceClassification", "make_generator", "amp", "io",
+           "optimizer", "peft", "quant", "tokenizer", "trl", "Trainer", "TrainerCallback",
            "TrainingArguments"]

@@ -24,11 +24,18 @@ def load_jax_state_dict(model: nn.Module,
     ``bias`` and ``awq_inv``).
 
     - Transposes: every ``Linear`` weight (the q/k/v/o, gate/up/down
-      projections and ``lm_head``) is stored [in, out] by the JAX package
-      and [out, in] here, so it is transposed. Everything else keeps its
-      layout: embedding tables, norm weights, biases, and a
-      ``QuantizedLinear``'s codes and scales, which are [din, dout] in
-      both packages (it is not a ``Linear``). Nor are the MoE layers'
+      projections and ``lm_head``; GPT's and BERT's fused ``qkv_proj``,
+      ``out_proj``, ``fc_in`` and ``fc_out``, the pooler, the MLM
+      transform, the NSP head and the classifiers; the ``nn.Transformer``
+      layers' projections) is stored [in, out] by the JAX package and
+      [out, in] here, so it is transposed. Everything else keeps its
+      layout: embedding tables, norm weights (``LayerNorm``'s weight and
+      bias too), biases, the plain parameter tables (GPT's
+      ``embed_positions``, BERT's ``position_embeddings`` and
+      ``token_type_embeddings``, ERNIE's ``task_type_embeddings``, the
+      MLM head's ``mlm_bias``), and a ``QuantizedLinear``'s codes and
+      scales, which are [din, dout] in both packages (it is not a
+      ``Linear``). Nor are the MoE layers'
       parameters (``parallel.moe.MoEMLP``): the stacked experts
       ``w_gate``/``w_up`` [E, h, m] and ``w_down`` [E, m, h], the router
       ``gate`` [h, E], the ``shared_*`` projections and

@@ -190,6 +190,9 @@ class _GenerateProgram(DecodeProgram):
                      if self.use_rep else None)
         self.start = (torch.zeros(b, dtype=torch.int64, device=dev)
                       if has_start else None)
+        # attn_start goes to the forward only for a left-padded batch, as
+        # in JAX: a forward without it (GPT) then raises TypeError
+        self.extra = {"attn_start": self.start} if has_start else {}
         self.keys = self.temperature = self.top_k = self.top_p = None
         if cfg.do_sample:
             self.keys = torch.zeros(b, 2, dtype=torch.int64, device=dev)
@@ -237,7 +240,7 @@ class _GenerateProgram(DecodeProgram):
         ci = self.cur - 1
         ids = self.tokens.index_select(1, ci.long().reshape(1))
         logits, _ = self.model(ids, kv_caches=self.caches, cache_index=ci,
-                               attn_start=self.start)
+                               **self.extra)
         self._emit(self._next(logits[:, 0]))
 
     def _run(self, input_ids, cfg, keys, start):
@@ -245,7 +248,7 @@ class _GenerateProgram(DecodeProgram):
         if start is not None:
             self.start.copy_(start)
         logits, _ = self.model(input_ids, kv_caches=self.caches,
-                               cache_index=0, attn_start=self.start)
+                               cache_index=0, **self.extra)
         self.tokens[:, :prompt_len].copy_(input_ids)
         self.tokens[:, prompt_len:].fill_(cfg.pad_token_id)
         self.prompt_len.fill_(prompt_len)

@@ -325,8 +325,14 @@ def _check_verify_shapes(cfg, T: int):
 def _check_pageable(model):
     """The pools hold each layer's K/V per kv head, as the models' static
     (k, v) caches do. A model whose own cache has another layout (MLA's
-    latents and k_pe a layer) cannot be paged: ValueError, as the JAX
+    latents and k_pe a layer), or whose forward takes no paged cache at
+    all (GPT: ``pages`` False), cannot be paged: ValueError, as the JAX
     engine's unpacking of its PagedKV raises."""
+    if not getattr(model, "pages", True):
+        raise ValueError(
+            f"PagedEngine: {type(model).__name__}'s forward takes no paged "
+            f"cache (no paged_chunk, and its attention unpacks its cache as "
+            f"a (k, v) pair, where the JAX engine fails on the PagedKV)")
     init = getattr(model, "init_kv_caches", None)
     if init is None:                     # a stub model: no static cache
         return

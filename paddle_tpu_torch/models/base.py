@@ -27,6 +27,10 @@ class CausalLMBase(nn.Module):
     # are dropped, and a row served alone is routed as a batch of one)
     rows_independent = True
 
+    # whether the forward takes a ``PagedKV`` as a layer's cache (the
+    # ``PagedEngine``'s pools); GPT's attention reads a (k, v) pair only
+    pages = True
+
     def generate(self, input_ids, config=None, generator=None, **kwargs):
         from ..generation import generate as _generate
         return _generate(self, input_ids, config=config,

@@ -2,17 +2,23 @@
 (counterpart of ``paddle_tpu/models/hf_interop.py``'s decoder LMs:
 ``iter_hf_checkpoint_shards``, ``load_hf_checkpoint``,
 ``_convert_llama``, ``_revert_llama``, ``_convert_qwen2_moe``,
-``_convert_deepseek_v2``, ``convert_hf_state_dict``,
-``to_hf_state_dict``, ``config_from_hf`` and ``from_pretrained``).
+``_convert_deepseek_v2``, ``_convert_bert_encoder``, ``_convert_mlm_head``,
+``_convert_bert``, ``_convert_ernie``, ``_convert_gpt2``, ``_fuse_qkv``,
+``convert_hf_state_dict``, ``to_hf_state_dict``, ``config_from_hf`` and
+``from_pretrained``).
 
 Model types: ``llama``, ``qwen2``, ``ernie4_5``, ``qwen2_moe``,
-``ernie4_5_moe``, ``deepseek_v2`` and ``deepseek_v3``. The converters
-work on numpy arrays in the JAX package's layout (every 2-D linear
-weight [in, out], HF's transposed; the experts stacked [E, in, out]), so
-a checkpoint converts to exactly what the JAX package converts it to;
-``from_pretrained`` then copies it into the port's modules as
-``load_jax_state_dict`` does (the port's ``Linear`` keeps HF's [out,
-in]), one shard at a time, experts included.
+``ernie4_5_moe``, ``deepseek_v2``, ``deepseek_v3``, ``gpt2``, ``bert``
+and ``ernie``. The converters work on numpy arrays in the JAX package's
+layout (every 2-D linear weight [in, out], HF's transposed; the experts
+stacked [E, in, out]; the BERT family's q, k and v fused into one [h,
+3h] ``qkv_proj``; GPT-2's ``Conv1D`` weights, already [in, out], kept as
+they are), so a checkpoint converts to exactly what the JAX package
+converts it to; ``from_pretrained`` then copies it into the port's
+modules as ``load_jax_state_dict`` does (the port's ``Linear`` keeps
+HF's [out, in]), one shard at a time, experts included. The BERT family
+is converted over the whole checkpoint at once (a layer's q, k and v
+may lie in different shards).
 
 The safetensors layout is read here, without the ``safetensors``
 package: an 8-byte little-endian header length, a JSON header of
@@ -25,7 +31,7 @@ file through a memory map, one tensor (on a tp mesh, one rank's slice
 of it: a column shard is contiguous rows, a row shard strided) at a
 time.
 
-The encoder and vision families' converters come with their models.
+The vision and diffusion families' converters come with their models.
 """
 from __future__ import annotations
 
@@ -267,12 +273,155 @@ def _convert_deepseek_v2(hf: Dict[str, np.ndarray],
     return _stack_experts(*_deepseek_parts(hf, cfg))
 
 
+def _src_prefix(hf: Dict[str, Any]) -> str:
+    for p in ("bert.", "ernie."):
+        if any(k.startswith(p) for k in hf):
+            return p
+    return ""
+
+
+def _fuse_qkv(hf: Dict[str, Any], q: str, k: str, v: str):
+    """Three torch [out, in] projections -> one fused [in, 3*out] weight
+    and [3*out] bias (the qkv reshape order is [3, heads, head_dim])."""
+    w = np.concatenate([np.asarray(hf[n + ".weight"]).T for n in (q, k, v)],
+                       axis=1)
+    b = np.concatenate([np.asarray(hf[n + ".bias"]) for n in (q, k, v)])
+    return w, b
+
+
+def _convert_bert_encoder(hf: Dict[str, Any], cfg,
+                          dst_prefix: str) -> Dict[str, Any]:
+    """An HF BERT-family encoder -> ``models/bert.py``'s layout: a layer's
+    three [h, h] q/k/v projections fuse into one [h, 3h] ``qkv_proj``;
+    the position and token-type tables become plain parameters."""
+    out: Dict[str, Any] = {}
+    g = hf.__getitem__
+    p = _src_prefix(hf)
+    emb = f"{p}embeddings."
+    dp = dst_prefix
+    out[dp + "embeddings.word_embeddings.weight"] = \
+        g(emb + "word_embeddings.weight")
+    out[dp + "embeddings.position_embeddings"] = \
+        g(emb + "position_embeddings.weight")
+    out[dp + "embeddings.token_type_embeddings"] = \
+        g(emb + "token_type_embeddings.weight")
+    out[dp + "embeddings.layer_norm.weight"] = g(emb + "LayerNorm.weight")
+    out[dp + "embeddings.layer_norm.bias"] = g(emb + "LayerNorm.bias")
+    for i in range(cfg.num_hidden_layers):
+        src = f"{p}encoder.layer.{i}."
+        dst = f"{dp}layers.{i}."
+        w, b = _fuse_qkv(hf, *(src + f"attention.self.{n}"
+                               for n in ("query", "key", "value")))
+        out[dst + "attention.qkv_proj.weight"] = w
+        out[dst + "attention.qkv_proj.bias"] = b
+        for name, hf_name in (("attention.out_proj", "attention.output.dense"),
+                              ("fc_in", "intermediate.dense"),
+                              ("fc_out", "output.dense")):
+            out[dst + name + ".weight"] = g(src + hf_name + ".weight").T
+            out[dst + name + ".bias"] = g(src + hf_name + ".bias")
+        for name, hf_name in (("attn_norm", "attention.output.LayerNorm"),
+                              ("out_norm", "output.LayerNorm")):
+            out[dst + name + ".weight"] = g(src + hf_name + ".weight")
+            out[dst + name + ".bias"] = g(src + hf_name + ".bias")
+    if p + "pooler.dense.weight" in hf:
+        out[dp + "pooler.dense.weight"] = g(p + "pooler.dense.weight").T
+        out[dp + "pooler.dense.bias"] = g(p + "pooler.dense.bias")
+    return out
+
+
+def _convert_mlm_head(hf: Dict[str, Any]) -> Dict[str, Any]:
+    """HF ``cls.predictions.*`` / ``cls.seq_relationship.*`` -> the
+    ``TiedMLMHead`` and the NSP head (the decoder weight is the word table
+    on both sides, so only the transform and the biases transfer)."""
+    out: Dict[str, Any] = {}
+    cp = "cls.predictions."
+    if cp + "transform.dense.weight" in hf:
+        out["mlm_head.transform.weight"] = \
+            hf[cp + "transform.dense.weight"].T
+        out["mlm_head.transform.bias"] = hf[cp + "transform.dense.bias"]
+        out["mlm_head.transform_norm.weight"] = \
+            hf[cp + "transform.LayerNorm.weight"]
+        out["mlm_head.transform_norm.bias"] = \
+            hf[cp + "transform.LayerNorm.bias"]
+        out["mlm_head.mlm_bias"] = hf[cp + "bias"]
+    if "cls.seq_relationship.weight" in hf:
+        out["nsp_head.weight"] = hf["cls.seq_relationship.weight"].T
+        out["nsp_head.bias"] = hf["cls.seq_relationship.bias"]
+    return out
+
+
+def _convert_bert(hf: Dict[str, Any], cfg) -> Dict[str, Any]:
+    out = _convert_bert_encoder(hf, cfg, "bert.")
+    out.update(_convert_mlm_head(hf))
+    return out
+
+
+def _convert_ernie(hf: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """HF model_type ``ernie`` (a BERT-family encoder with task-type
+    embeddings) -> ``ErnieForMaskedLM``; it has no NSP head."""
+    out = _convert_bert_encoder(hf, cfg, "ernie.encoder.")
+    tt = _src_prefix(hf) + "embeddings.task_type_embeddings.weight"
+    if tt in hf:
+        out["ernie.task_type_embeddings"] = hf[tt]
+    head = _convert_mlm_head(hf)
+    head.pop("nsp_head.weight", None)
+    head.pop("nsp_head.bias", None)
+    out.update(head)
+    return out
+
+
+_GPT2_LAYER = {
+    "ln_1": "ln_1", "ln_2": "ln_2",
+    "attn.c_attn": "attn.qkv_proj", "attn.c_proj": "attn.out_proj",
+    "mlp.c_fc": "mlp.fc_in", "mlp.c_proj": "mlp.fc_out",
+}
+
+
+def _convert_gpt2(hf: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """HF GPT2LMHeadModel -> ``models/gpt.py``. GPT-2's ``Conv1D`` stores
+    its weights [in, out] already (the JAX layout), so nothing is
+    transposed here (``load_jax_state_dict`` transposes them once, into
+    the port's [out, in]); the fused ``c_attn`` q|k|v column order is the
+    qkv reshape's [3, heads, head_dim]. Per key, so it works one shard at
+    a time."""
+    out = {}
+    for k, v in hf.items():
+        if k.endswith((".attn.bias", ".attn.masked_bias")):
+            continue  # causal-mask buffers
+        if k == "lm_head.weight":
+            continue  # GPT-2 always ties; the tied head reads the table
+        if k.startswith("transformer."):
+            k = k[len("transformer."):]
+        if k == "wte.weight":
+            out["model.embed_tokens.weight"] = v
+        elif k == "wpe.weight":
+            out["model.embed_positions"] = v
+        elif k.startswith("ln_f."):
+            out["model.ln_f." + k[len("ln_f."):]] = v
+        else:
+            m = re.match(r"h\.(\d+)\.(.+)\.(weight|bias)$", k)
+            if m is None:
+                raise KeyError(f"unmapped GPT-2 key {k!r}")
+            n, sub, wb = m.groups()
+            out[f"model.layers.{n}.{_GPT2_LAYER[sub]}.{wb}"] = v
+    return out
+
+
 _CONVERTERS = {"llama": _convert_llama, "qwen2": _convert_llama,
                "ernie4_5": _convert_llama,
                "qwen2_moe": _convert_qwen2_moe,
                "ernie4_5_moe": _convert_qwen2_moe,
                "deepseek_v2": _convert_deepseek_v2,
-               "deepseek_v3": _convert_deepseek_v2}
+               "deepseek_v3": _convert_deepseek_v2,
+               "bert": _convert_bert, "ernie": _convert_ernie,
+               "gpt2": _convert_gpt2}
+# converted over the whole checkpoint: a layer's q, k and v fuse
+_WHOLE_CHECKPOINT = ("bert", "ernie")
+# missing keys under these prefixes are heads a bare encoder checkpoint
+# lacks: they stay at their random init with a warning, even when strict
+_OPTIONAL_HEAD_PREFIXES = ("mlm_head.", "nsp_head.", "bert.pooler.",
+                           "ernie.encoder.pooler.",
+                           "ernie.task_type_embeddings")
 # the per-shard halves of the MoE converters: experts may span shards
 _MOE_PARTS = {"qwen2_moe": _moe_parts, "ernie4_5_moe": _moe_parts,
               "deepseek_v2": _deepseek_parts,
@@ -329,15 +478,49 @@ def _rope_scaling_cfg(hf, mt):
 def config_from_hf(model_dir: str):
     """An HF ``config.json`` -> (model class, config, model type): the
     Llama family (``llama``, ``ernie4_5``; ``qwen2``, the Llama backbone
-    with biased q/k/v), ``qwen2_moe`` / ``ernie4_5_moe`` and
-    ``deepseek_v2`` / ``deepseek_v3``, with the JAX package's fields and
-    its ``ValueError`` for each variant it does not build."""
+    with biased q/k/v), ``qwen2_moe`` / ``ernie4_5_moe``,
+    ``deepseek_v2`` / ``deepseek_v3``, ``gpt2`` (``GPTForCausalLM``, tied)
+    and ``bert`` / ``ernie`` (``BertForPretraining`` / ``ErnieForMaskedLM``),
+    with the JAX package's fields and its ``ValueError`` for each variant
+    it does not build."""
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     mt = hf.get("model_type", "")
     if mt not in _CONVERTERS:
         raise ValueError(f"unsupported model_type {mt!r} in {model_dir} "
                          f"(the port loads {sorted(_CONVERTERS)})")
+    if mt == "gpt2":
+        from .gpt import GPTConfig, GPTForCausalLM
+        cfg = GPTConfig(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["n_embd"],
+            intermediate_size=hf.get("n_inner") or 4 * hf["n_embd"],
+            num_hidden_layers=hf["n_layer"],
+            num_attention_heads=hf["n_head"],
+            max_position_embeddings=hf.get("n_positions", 1024),
+            layer_norm_epsilon=hf.get("layer_norm_epsilon", 1e-5),
+            tie_word_embeddings=True,  # GPT-2 checkpoints always tie
+            dtype=_torch_dtype(hf))
+        return GPTForCausalLM, cfg, mt
+    if mt in ("bert", "ernie"):
+        from .bert import BertConfig, BertForPretraining
+        from .ernie import ErnieConfig, ErnieForMaskedLM
+        ccls, cls = ((ErnieConfig, ErnieForMaskedLM) if mt == "ernie"
+                     else (BertConfig, BertForPretraining))
+        kw = dict(
+            vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+            num_hidden_layers=hf["num_hidden_layers"],
+            num_attention_heads=hf["num_attention_heads"],
+            intermediate_size=hf["intermediate_size"],
+            max_position_embeddings=hf.get("max_position_embeddings", 512),
+            type_vocab_size=hf.get("type_vocab_size", 2),
+            layer_norm_eps=hf.get("layer_norm_eps", 1e-12),
+            hidden_dropout_prob=hf.get("hidden_dropout_prob", 0.1),
+            dtype=_torch_dtype(hf))
+        if mt == "ernie":
+            kw["task_type_vocab_size"] = hf.get("task_type_vocab_size", 3)
+            kw["use_task_id"] = hf.get("use_task_id", True)
+        return cls, ccls(**kw), mt
     common = dict(
         vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
         num_hidden_layers=hf["num_hidden_layers"],
@@ -476,6 +659,9 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
     raises ``KeyError``. A converted key the model lacks always raises
     (converter drift); a model key the checkpoint lacks raises when
     ``strict``, and otherwise stays at its random init with a warning.
+    The heads a bare encoder checkpoint lacks (``_OPTIONAL_HEAD_PREFIXES``:
+    the MLM and NSP heads, the pooler, ERNIE's task-type table) stay at
+    their random init with the warning, strict or not, as in JAX.
     ``expert_bias`` (a checkpoint without ``e_score_correction_bias``
     balances otherwise) stays at zero, as the JAX package leaves it.
 
@@ -504,7 +690,13 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
     own = model.state_dict(keep_vars=True)
     loaded = set()
     experts: Dict[str, set] = {}
-    for shard in _iter_checkpoint(model_dir, _open_safetensors_file):
+    shards = _iter_checkpoint(model_dir, _open_safetensors_file)
+    if mt in _WHOLE_CHECKPOINT:
+        whole: Dict[str, Any] = {}
+        for shard in shards:
+            whole.update(shard)
+        shards = [whole]
+    for shard in shards:
         if mt in _MOE_PARTS:
             sd, parts = _MOE_PARTS[mt](shard, cfg)
         else:
@@ -525,8 +717,10 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
     loaded.update(experts)
     missing = [k for k in own
                if k not in loaded and not k.endswith(".expert_bias")]
-    if missing and strict:
-        raise KeyError(f"checkpoint missing model keys: {missing[:8]}")
+    hard_missing = [k for k in missing
+                    if not k.startswith(_OPTIONAL_HEAD_PREFIXES)]
+    if hard_missing and strict:
+        raise KeyError(f"checkpoint missing model keys: {hard_missing[:8]}")
     if missing:
         warnings.warn(f"{len(missing)} keys left at random init "
                       f"(e.g. {missing[:4]})", stacklevel=2)

@@ -1,5 +1,5 @@
 """Core layers (counterpart of ``paddle_tpu/nn/common.py``: ``Linear``,
-``Embedding``).
+``Embedding``, ``Dropout``).
 
 Each layer allocates its parameters on ``device`` in ``dtype`` and fills
 them from the ``generator`` it is given. Linear weights are stored
@@ -80,3 +80,24 @@ class Embedding(nn.Module):
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"
+
+
+class Dropout(nn.Module):
+    """Dropout in Paddle's two modes (``functional.dropout``). In training
+    with p > 0 the mask is drawn from ``generator``, which must then be
+    given (the JAX layer draws from the global ``next_key()``; the port
+    keeps no global random state)."""
+
+    def __init__(self, p=0.5, mode="upscale_in_train", *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p = p
+        self.mode = mode
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, self.p, training=self.training,
+                         generator=self.generator, mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}, mode={self.mode}"

@@ -12,8 +12,8 @@ says which intermediates the backward may keep. Here that is
 - ``everything_saveable``: no checkpoint at all.
 
 The forward is replayed with the same inputs and no random state of its
-own, so the recompute is deterministic (the port's forward draws no
-random numbers; dropout comes with a later slice).
+own, so the recompute is deterministic (the forwards recomputed here,
+Llama's and GPT's layers, draw no random numbers).
 """
 from __future__ import annotations
 

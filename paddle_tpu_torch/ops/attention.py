@@ -49,10 +49,13 @@ def segment_mask(segment_ids):
 
 
 def dense_attention(query, key, value, attn_mask=None, causal=False,
-                    scale=None, window=None):
+                    scale=None, window=None, dropout_p=0.0, generator=None):
     """Dense path on [b, s, h, d]: fp32 softmax, GQA by repeating K/V.
     ``window`` (with causal) keeps only the trailing ``window`` keys per
-    query; a boolean ``attn_mask`` keeps where True, a float one adds."""
+    query; a boolean ``attn_mask`` keeps where True, a float one adds.
+    With ``dropout_p`` > 0 and a ``generator`` (the JAX function's
+    ``dropout_key``), the probabilities are dropped and the kept ones
+    scaled by 1 / (1 - p), after their rounding to the query's dtype."""
     b, sq, h, d = query.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q = query.transpose(1, 2)
@@ -84,6 +87,11 @@ def dense_attention(query, key, value, attn_mask=None, causal=False,
         else:
             scores = scores + attn_mask.float()
     probs = torch.softmax(scores, dim=-1).to(query.dtype)
+    if dropout_p > 0.0 and generator is not None:
+        keep = 1.0 - dropout_p
+        dmask = torch.rand(probs.shape, generator=generator,
+                           device=probs.device) < keep
+        probs = torch.where(dmask, probs / keep, torch.zeros_like(probs))
     out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
     return out.transpose(1, 2)
 

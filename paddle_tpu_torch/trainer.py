@@ -366,7 +366,9 @@ class Trainer:
         for mb in micro:
             loss = self._loss(mb, self.train_dataloader)
             target = scaler.scale(loss, sstate) if scaler else loss
-            g = torch.autograd.grad(target, params)
+            # a parameter the loss does not reach (the pooler under an MLM
+            # loss) gets a zero gradient, as jax.grad gives it
+            g = torch.autograd.grad(target, params, materialize_grads=True)
             loss = loss.detach()
             if grads is None:
                 grads, loss_sum = list(g), loss
