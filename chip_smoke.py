@@ -453,11 +453,45 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase's launches join the kernels line's, and (a)'s errors its
    errors.
 
+20. the vision and diffusion families (``[vision]`` lines, last), bf16,
+   seeded weights (every trainable parameter noised: adaLN-Zero starts
+   at zero), no attention kernel on this path (the attentions are dense
+   plain ops, as the JAX modules' are XLA math): (a) DiT-XL/2
+   (``dit_xl_2()``) and the SD VAE through ``DiTPipeline`` under
+   ``amp.auto_cast``: 4 labels (8 rows with guidance) at 256 x 256,
+   ``VISION_DIT_STEPS`` DDIM steps, each one replay of the captured
+   denoising step (replays counted, the graph's nodes counted), the
+   latents bit for bit an eager run of the same steps, ms a step against
+   its FLOP bound (counted by ``torch.utils.flop_counter``), the VAE
+   decode, images/s, peak memory; (b) MMDiT at ``MMDiTConfig()``
+   (SD3-medium's widths) with a 16-channel SD VAE through
+   ``StableDiffusion3Pipeline``: batch 1, seeded context [1, 333, 4096]
+   and pooled [1, 2048], 512 x 512, ``VISION_SD3_STEPS`` steps, the same
+   numbers; (g) each family's bf16 forward against its fp32 twin on the
+   same weights (TF32 off), and one ``DiTBlock``, one VAE
+   ``ResnetBlock`` and one ``ConvBNLayer`` alone, within
+   ``TOL_VISION_MODEL`` / ``TOL_VISION_BLOCK``; (f) (a)'s DiT-XL/2 and
+   VAE written by hand as diffusers checkpoints (bf16) and loaded with
+   ``from_pretrained``: every parameter bit for bit, two pipeline steps
+   bit for bit the source pipeline's; (c) a ViT-B/16 eval forward at
+   [64, 3, 224, 224] and 3 Trainer steps of its classifier, 3 CLIP
+   contrastive steps at batch 64 (text 77); (d) ResNet-50: an eval
+   forward and 3 Trainer steps at [64, 3, 224, 224], BatchNorm's running
+   statistics untouched by the Trainer and moved by an eager train-mode
+   forward, the convolutions' share of a profiled step; (e) DBNet
+   (ResNet-18 backbone) forward and 3 ``db_loss`` steps at [4, 3, 640,
+   640] on seeded maps, SVTR 3 ``ctc_rec_loss`` steps at [64, 3, 32,
+   128] and ``ctc_greedy_decode``. Each Trainer run's counts are set to
+   0 just before and read just after: the fused AdamW update once a step
+   and (parameter) dtype, nothing else; the losses fall. The phase's
+   launches join the kernels line's.
+
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
-``cuda-simt`` for the fused AdamW update; ``flash_attention_with_lse``'s
-launches are the ring's of phase 12),
+``cuda-simt`` for the fused AdamW update, whose launches include phase
+20's; ``flash_attention_with_lse``'s launches are the ring's of phase
+12),
 then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the ``paddle_tpu_torch`` package beside it, it exits
@@ -8852,7 +8886,8 @@ def _zoo_gpt(seed, dev, card):
 
 
 def _zoo_train_run(tr, steps, label, want, card, tokens=None,
-                   flops_per_token=None, need_fall=True):
+                   flops_per_token=None, need_fall=True, unit="tokens",
+                   tag="[zoo]"):
     """``tr.train()`` for ``steps`` steps with the counts set to 0 just
     before and read just after (they must equal ``want``, the routed
     kernels on their tensor-core routes); the losses finite (and falling,
@@ -8881,25 +8916,25 @@ def _zoo_train_run(tr, steps, label, want, card, tokens=None,
     tr.callbacks.remove(clock)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [v for _, v in tr.logger.history["loss"]][-steps:]
-    log(f"[zoo] {label} launches in {steps} steps: {launches} (want "
+    log(f"{tag} {label} launches in {steps} steps: {launches} (want "
         f"{want}); losses " + ", ".join(f"{x:.4f}" for x in losses))
     if launches != want:
-        fail(f"[zoo] {label}: launches {launches} != {want}")
+        fail(f"{tag} {label}: launches {launches} != {want}")
     _check_routes(f"zoo {label}", **{k: want[k] for k in (
         "flash", "flash_bwd_dq", "flash_bwd_dkv") if want[k]})
     if len(losses) != steps or not all(np.isfinite(losses)):
-        fail(f"[zoo] {label}: a loss is not finite")
+        fail(f"{tag} {label}: a loss is not finite")
     if need_fall and not losses[-1] < losses[0]:
-        fail(f"[zoo] {label}: the loss did not fall ({losses})")
+        fail(f"{tag} {label}: the loss did not fall ({losses})")
     steps_ms = np.diff(clock.t) * 1e3
     step_ms = float(np.median(steps_ms[1:] if steps > 1 else steps_ms))
-    line = (f"[zoo] {label} step ms " + ", ".join(f"{x:.1f}"
+    line = (f"{tag} {label} step ms " + ", ".join(f"{x:.1f}"
                                                   for x in steps_ms)
             + f" (median of steps 2-{steps} {step_ms:.1f}), peak memory "
             f"{peak_gb:.2f} GB")
     if tokens:
         tps = tokens / (step_ms / 1e3)
-        line += f", {tps:.0f} tokens/s"
+        line += f", {tps:.0f} {unit}/s"
         if flops_per_token:
             line += (f", MFU {100 * flops_per_token * tps / BF16_FLOP_PER_S:.2f}"
                      f" % of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s")
@@ -9248,6 +9283,683 @@ def phase_zoo(seed, gen, dev, card):
     return launches, rows
 
 
+# ------------------------------------------------------------------ vision
+VISION_DIT_LABELS = [207, 360, 387, 974]   # 4 classes: 8 rows with guidance
+VISION_DIT_STEPS = 50                       # DDIM steps of (a)
+VISION_SD3_STEPS = 28                       # SD3's default, (b)
+VISION_SD3_TEXT = (1, 333)                  # 77 CLIP + 256 T5 tokens
+VISION_BATCH = 64                           # (c), (d) images a step
+VISION_OCR_DET = (4, 3, 640, 640)           # (e) DBNet
+VISION_OCR_REC = (64, 3, 32, 128)           # (e) SVTR
+VISION_STEPS = 3                            # Trainer steps a family
+VISION_LR = 1e-4
+# bf16 against fp32 on the same weights, relative l2 of the output: a
+# whole model (its rounded activations over every layer), and one block
+# alone (a rounding point out of place shows there first)
+TOL_VISION_MODEL = 5e-2
+TOL_VISION_BLOCK = 2e-2
+# the weights' noise over their init (adaLN-Zero starts at zero)
+VISION_NOISE = 0.02
+CONV_KERNELS = ("conv", "implicit", "dgrad", "wgrad", "fprop", "xmma",
+                "cudnn", "winograd")
+
+
+@torch.no_grad()
+def _noised(model, seed, std=VISION_NOISE):
+    """Seeded noise on every trainable floating parameter, in place:
+    adaLN-Zero's modulation and output projections start at zero, which
+    would make a DiT block the identity and its output zero. (DiT's frozen
+    sin-cos table stays as it is, as a checkpoint leaves it.)"""
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(seed)
+    for p in model.parameters():
+        if p.is_floating_point() and p.requires_grad:
+            p.add_((std * torch.randn(p.shape, generator=gen,
+                                      device=p.device)).to(p.dtype))
+    return model
+
+
+def _rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _fp32_twin(model, cls, cfg):
+    """The same weights (the bf16 values, exactly) in an fp32 model."""
+    import dataclasses
+
+    import paddle_tpu_torch as ptt
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    for sub in ("text", "vision"):
+        if hasattr(cfg32, sub):
+            setattr(cfg32, sub, dataclasses.replace(getattr(cfg32, sub),
+                                                    dtype=torch.float32))
+    dev = next(model.parameters()).device
+    twin = cls(cfg32, device=dev, generator=ptt.make_generator(0, dev))
+    twin.load_state_dict(model.state_dict())
+    return twin.eval()
+
+
+def _timed(fn, reps=3):
+    """(the last result, median ms of ``reps`` calls, host clock with a
+    synchronize)."""
+    out, ms = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(ms)[len(ms) // 2]
+
+
+class _CountedGraph:
+    """A captured graph whose replays are counted."""
+
+    def __init__(self, graph):
+        self.graph, self.n = graph, 0
+
+    def replay(self):
+        self.n += 1
+        self.graph.replay()
+
+
+def _denoise_run(pipe, args, steps, scale, label, card, seed):
+    """The pipeline's denoising loop (no VAE): the first call captures
+    the step; the second is timed with its replays counted (one a step);
+    an eager run of the same steps (``eager_steps``) must equal it bit for
+    bit. Returns (latents, ms a step, the step's FLOPs, kernel nodes)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.generation import eager_steps
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def call():
+        gen = torch.Generator(device=pipe.device).manual_seed(seed)
+        with ptt.amp.auto_cast(dtype="bfloat16"):
+            return pipe(*args, num_inference_steps=steps,
+                        guidance_scale=scale, generator=gen)
+    call()
+    progs = list(pipe._programs.programs.values())
+    if len(progs) != 1 or progs[0].step.graph is None:
+        fail(f"[vision] {label}: the denoising step was not captured once "
+             f"({len(progs)} programs)")
+    prog = progs[0]
+    tick = prog.step.graph
+    counted = _CountedGraph(tick.graph)
+    tick_graph = tick.graph
+    prog.step.graph = tick._replace(graph=counted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latents = call()
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / steps
+    prog.step.graph = tick._replace(graph=tick_graph)
+    if counted.n != steps:
+        fail(f"[vision] {label}: {counted.n} graph replays for {steps} "
+             f"denoising steps")
+    with eager_steps():
+        eager = call()
+    if not torch.equal(latents, eager):
+        fail(f"[vision] {label}: the replayed loop's latents differ from "
+             f"the eager loop's (max |d| {max_err(latents, eager):.3e})")
+    if len(pipe._programs) != 1:
+        fail(f"[vision] {label}: the eager run built another program")
+    names, memory = graph_nodes(tick_graph)
+    x = prog.x.clone()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc, \
+            ptt.amp.auto_cast(dtype="bfloat16"):
+        prog.guided(x, prog.ts[:1].expand(x.shape[0]), prog.scale,
+                    *prog.cond)
+    return latents, ms_step, fc.get_total_flops(), len(names) + memory
+
+
+def _vision_pipeline(label, pipe, latent_pipe, args, steps, scale, card,
+                     seed, bytes_weights):
+    """(a) / (b): the loop timed and checked (``_denoise_run``), the VAE
+    decode timed, the whole pipeline once (images, images/s, peak
+    memory)."""
+    import paddle_tpu_torch as ptt
+    torch.cuda.reset_peak_memory_stats()
+    latents, ms_step, flops, nodes = _denoise_run(
+        latent_pipe, args, steps, scale, label, card, seed)
+    vae = pipe.vae
+    with torch.no_grad(), ptt.amp.auto_cast(dtype="bfloat16"):
+        images, ms_decode = _timed(
+            lambda: vae.decode(latents / vae.config.scaling_factor))
+
+    def whole():
+        gen = torch.Generator(device=pipe.device).manual_seed(seed)
+        with ptt.amp.auto_cast(dtype="bfloat16"):
+            return pipe(*args, num_inference_steps=steps,
+                        guidance_scale=scale, generator=gen)
+    whole()
+    out, ms_whole = _timed(whole, reps=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.isfinite(out.float()).all() or \
+            not torch.equal(out, images):
+        fail(f"[vision] {label}: the pipeline's images are not finite or "
+             f"differ from the loop's latents decoded")
+    n = out.shape[0]
+    bound_ops = flops / BF16_FLOP_PER_S * 1e3
+    bound_bytes = bytes_weights / HBM_BYTES_PER_S * 1e3
+    log(f"[vision] {label}: {steps} steps, {ms_step:.2f} ms a denoising "
+        f"step (one graph replay each, {nodes} nodes; bound "
+        f"{max(bound_ops, bound_bytes):.3f} ms by "
+        f"{'operations' if bound_ops >= bound_bytes else 'bytes'}: "
+        f"{flops / 1e12:.2f} TFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
+        f"{bytes_weights / 1e9:.2f} GB of weights at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+        f"{100 * max(bound_ops, bound_bytes) / ms_step:.1f} %); the replayed "
+        f"latents bit for bit the eager loop's; VAE decode {ms_decode:.1f} "
+        f"ms; the pipeline {ms_whole:.1f} ms for {n} images "
+        f"({n / ms_whole * 1e3:.2f} images/s); images "
+        f"{list(out.shape)} finite; peak memory {peak:.2f} GB [{card}]")
+    return latents
+
+
+def _weight_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _vision_dit(seed, dev, card):
+    """(a) DiT-XL/2 + the SD VAE through ``DiTPipeline``."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.diffusion import DiTPipeline
+    from paddle_tpu_torch.models import dit, vae
+    cfg = dit.dit_xl_2(dtype=torch.bfloat16)
+    model = _noised(dit.DiT(cfg, device=dev,
+                            generator=ptt.make_generator(seed + 300, dev)),
+                    seed + 301)
+    ae = _noised(vae.AutoencoderKL(vae.VAEConfig(dtype=torch.bfloat16),
+                                   device=dev,
+                                   generator=ptt.make_generator(seed + 302,
+                                                                dev)),
+                 seed + 303)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[vision] (a) DiT-XL/2 (dit_xl_2(): {cfg.num_hidden_layers} "
+        f"layers, {cfg.hidden_size} wide, {cfg.num_attention_heads} heads, "
+        f"{(cfg.input_size // cfg.patch_size) ** 2} tokens) {n / 1e6:.1f} M "
+        f"params bf16; the SD VAE (VAEConfig()) "
+        f"{sum(p.numel() for p in ae.parameters()) / 1e6:.1f} M; "
+        f"{len(VISION_DIT_LABELS)} labels x 2 rows with guidance, DDIM")
+    pipe = DiTPipeline(model, ae)
+    latent_pipe = DiTPipeline(model)
+    _vision_pipeline("(a) DiT-XL/2 256x256", pipe, latent_pipe,
+                     (VISION_DIT_LABELS,), VISION_DIT_STEPS, 4.0, card,
+                     seed + 304, _weight_bytes(model))
+    return model, ae, pipe
+
+
+def _vision_sd3(seed, dev, card):
+    """(b) MMDiT at SD3-medium's widths + a 16-channel SD VAE through
+    ``StableDiffusion3Pipeline``."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.diffusion import StableDiffusion3Pipeline
+    from paddle_tpu_torch.models import dit, vae
+    cfg = dit.MMDiTConfig(dtype=torch.bfloat16)
+    model = _noised(dit.MMDiT(cfg, device=dev,
+                              generator=ptt.make_generator(seed + 310, dev)),
+                    seed + 311)
+    ae = _noised(vae.AutoencoderKL(
+        vae.VAEConfig(latent_channels=16, dtype=torch.bfloat16), device=dev,
+        generator=ptt.make_generator(seed + 312, dev)), seed + 313)
+    gen = torch.Generator(device=dev).manual_seed(seed + 314)
+    ctx = torch.randn(VISION_SD3_TEXT + (cfg.context_dim,), generator=gen,
+                      device=dev)
+    pooled = torch.randn(VISION_SD3_TEXT[0], cfg.pooled_dim, generator=gen,
+                         device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[vision] (b) MMDiT at MMDiTConfig() ({cfg.num_hidden_layers} "
+        f"layers, {cfg.hidden_size} wide, {cfg.num_attention_heads} heads, "
+        f"{(cfg.input_size // cfg.patch_size) ** 2} image + "
+        f"{VISION_SD3_TEXT[1]} text tokens) {n / 1e9:.3f} B params bf16; "
+        f"context {list(ctx.shape)}, pooled {list(pooled.shape)}; VAE "
+        f"latent 16; flow matching, shift 3, guidance 7")
+    pipe = StableDiffusion3Pipeline(model, ae)
+    latent_pipe = StableDiffusion3Pipeline(model)
+    _vision_pipeline("(b) MMDiT 512x512", pipe, latent_pipe, (ctx, pooled),
+                     VISION_SD3_STEPS, 7.0, card, seed + 315,
+                     _weight_bytes(model))
+    return model, ae, (ctx, pooled)
+
+
+def _vision_train(ptt, model, batch, loss_fn, label, card, images,
+                  need_fall=True):
+    tr = _zoo_trainer(ptt, model, [batch], VISION_STEPS, VISION_LR,
+                      loss_fn=loss_fn)
+    tr.args.output_dir = "output/chip_smoke_vision"
+    want = dict(NO_LAUNCHES,
+                fused_adamw=_update_launches(model, VISION_STEPS))
+    launches, step_ms = _zoo_train_run(
+        tr, VISION_STEPS, label, want, card, tokens=images, unit="images",
+        need_fall=need_fall, tag="[vision]")
+    return tr, launches, step_ms
+
+
+def _eval_forward(model, fn, label, card, images):
+    model.eval()
+    with torch.no_grad():
+        out, ms = _timed(fn)
+    if not torch.isfinite(out.float()).all():
+        fail(f"[vision] {label}: the eval forward is not finite")
+    log(f"[vision] {label} eval forward {ms:.1f} ms ({images / ms * 1e3:.0f} "
+        f"images/s), output {list(out.shape)} finite [{card}]")
+    model.train()
+    return out
+
+
+def _conv_share(tr, card, label):
+    """torch.profiler over one more Trainer step: the device time of the
+    convolution kernels (cuDNN's) against the whole busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train(max_steps=tr.global_step + 1)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in ("train_step", "optimizer_apply")]
+    if not kernels:
+        log(f"[profile] {label}: no device events recorded: the conv share "
+            f"is not measured")
+        return None
+    conv = sum(e.time_range.elapsed_us() for e in kernels
+               if any(w in e.name.lower() for w in CONV_KERNELS)) / 1e3
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[profile] {label}: device busy {busy:.1f} ms in {len(kernels)} "
+        f"ops, convolution kernels {conv:.1f} ms ({100 * conv / busy:.1f} "
+        f"%); the largest kernels by name: "
+        + "; ".join(f"{n[:70]} {ms:.1f} ms" for n, ms in top) + f" [{card}]")
+    return conv / busy
+
+
+def _vision_vit_clip(seed, dev, card):
+    """(c) ViT-B/16: an eval forward at [64, 3, 224, 224] and 3 Trainer
+    steps of its classifier; CLIP (ViT-B/16 + the 12-layer text tower): 3
+    contrastive Trainer steps at batch 64, text length 77."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import clip, vit
+    from paddle_tpu_torch.nn import functional as F
+    rs = np.random.RandomState(seed + 320)
+    launches = 0
+    bf = torch.bfloat16
+    model = vit.ViTForImageClassification(
+        vit.vit_base_patch16_224(dtype=bf), device=dev,
+        generator=ptt.make_generator(seed + 321, dev))
+    size = model.config.image_size
+    px = torch.from_numpy(rs.randn(VISION_BATCH, 3, size, size)
+                          .astype(np.float32)).to(dev, bf)
+    shape = f"[{VISION_BATCH}, 3, {size}, {size}]"
+    _eval_forward(model, lambda: model(px), f"(c) ViT-B/16 {shape}",
+                  card, VISION_BATCH)
+    labels = torch.from_numpy(rs.randint(0, 1000, VISION_BATCH)).to(dev)
+    _, n, _ = _vision_train(
+        ptt, model, {"px": px, "labels": labels},
+        lambda m, b: F.cross_entropy(m(b["px"]), b["labels"]),
+        f"(c) ViT-B/16 classifier train {shape}", card, VISION_BATCH)
+    launches += n["fused_adamw"]
+    del model
+    cfg = clip.CLIPConfig()
+    cfg.text.dtype = cfg.vision.dtype = bf
+    model = clip.CLIPModel(cfg, device=dev,
+                           generator=ptt.make_generator(seed + 322, dev))
+    text = cfg.text.max_position_embeddings
+    ids = torch.from_numpy(rs.randint(1, cfg.text.vocab_size - 1,
+                                      (VISION_BATCH, text))).to(dev)
+    ids[:, -1] = cfg.text.vocab_size - 1           # end of text
+    size = cfg.vision.image_size
+    px = px[..., :size, :size]
+    _, n, _ = _vision_train(
+        ptt, model, {"ids": ids, "px": px},
+        lambda m, b: clip.clip_contrastive_loss(*m(b["ids"], b["px"])),
+        f"(c) CLIP ViT-B/16 contrastive train, batch {VISION_BATCH}, text "
+        f"{text}", card, VISION_BATCH)
+    launches += n["fused_adamw"]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _vision_resnet(seed, dev, card):
+    """(d) ResNet-50: an eval forward at [64, 3, 224, 224], 3 Trainer steps
+    (BatchNorm's running statistics untouched by them, moved by an eager
+    train-mode forward, as on the CPU), the conv share of a profiled
+    step."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.nn import functional as F
+    rs = np.random.RandomState(seed + 330)
+    bf = torch.bfloat16
+    model = resnet.resnet50(device=dev, dtype=bf,
+                            generator=ptt.make_generator(seed + 331, dev))
+    px = torch.from_numpy(rs.randn(VISION_BATCH, 3, 224, 224)
+                          .astype(np.float32)).to(dev, bf)
+    _eval_forward(model, lambda: model(px), "(d) ResNet-50 [64, 3, 224, 224]",
+                  card, VISION_BATCH)
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith(("._mean", "._variance"))}
+    labels = torch.from_numpy(rs.randint(0, 1000, VISION_BATCH)).to(dev)
+    tr, n, _ = _vision_train(
+        ptt, model, {"px": px, "labels": labels},
+        lambda m, b: F.cross_entropy(m(b["px"]), b["labels"]),
+        "(d) ResNet-50 train [64, 3, 224, 224]", card, VISION_BATCH)
+    moved = [k for k, v in stats.items()
+             if not torch.equal(model.state_dict()[k], v)]
+    if moved:
+        fail(f"[vision] (d) Trainer steps moved BatchNorm's running "
+             f"statistics ({moved[:3]}); the JAX Trainer leaves them")
+    _conv_share(tr, card, "(d) ResNet-50 train step [64, 3, 224, 224]")
+    model.train()
+    with torch.no_grad():
+        model(px)
+    still = [k for k, v in stats.items()
+             if torch.equal(model.state_dict()[k], v)]
+    if still:
+        fail(f"[vision] (d) an eager train-mode forward left running "
+             f"statistics in place ({still[:3]})")
+    log(f"[vision] (d) BatchNorm: {len(stats)} running-statistics buffers "
+        f"untouched by {VISION_STEPS + 1} Trainer steps, all moved by one "
+        f"eager train-mode forward (as the JAX package) [{card}]")
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n["fused_adamw"]
+
+
+def _vision_ocr(seed, dev, card):
+    """(e) DBNet (DBNetConfig(): a ResNet-18 backbone): a forward at [4, 3,
+    640, 640] and 3 ``db_loss`` steps on seeded maps; SVTR
+    (SVTRConfig()): 3 ``ctc_rec_loss`` steps at [64, 3, 32, 128], then
+    ``ctc_greedy_decode``."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import ppocr
+    rs = np.random.RandomState(seed + 340)
+    bf = torch.bfloat16
+    launches = 0
+    model = ppocr.DBNet(ppocr.DBNetConfig(dtype=bf), device=dev,
+                        generator=ptt.make_generator(seed + 341, dev))
+    px = torch.from_numpy(rs.randn(*VISION_OCR_DET).astype(np.float32)) \
+        .to(dev, bf)
+    _eval_forward(model, lambda: model(px)["maps"],
+                  f"(e) DBNet {list(VISION_OCR_DET)}", card,
+                  VISION_OCR_DET[0])
+    b, _, h, w = VISION_OCR_DET
+    maps = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        shrink=(rs.rand(b, h, w) < 0.1), mask=(rs.rand(b, h, w) < 0.95),
+        thresh=rs.uniform(0.3, 0.7, (b, h, w)),
+        tmask=(rs.rand(b, h, w) < 0.4)).items()}
+    maps = {k: v.float() for k, v in maps.items()}
+    _, n, _ = _vision_train(
+        ptt, model, {"px": px, **maps},
+        lambda m, bt: ppocr.db_loss(m(bt["px"]), bt["shrink"], bt["mask"],
+                                    bt["thresh"], bt["tmask"]),
+        f"(e) DBNet db_loss train {list(VISION_OCR_DET)}", card, b)
+    launches += n["fused_adamw"]
+    del model
+    cfg = ppocr.SVTRConfig(dtype=bf)
+    model = ppocr.SVTRNet(cfg, device=dev,
+                          generator=ptt.make_generator(seed + 342, dev))
+    px = torch.from_numpy(rs.randn(*VISION_OCR_REC).astype(np.float32)) \
+        .to(dev, bf)
+    nb = VISION_OCR_REC[0]
+    # labels of up to half the CTC frames (the width / 4), so that every
+    # alignment exists
+    longest = min(25, cfg.img_width // 8)
+    labels = torch.from_numpy(rs.randint(1, cfg.num_classes,
+                                         (nb, longest))).to(dev)
+    lens = torch.from_numpy(rs.randint(longest // 2, longest + 1,
+                                       nb)).to(dev)
+    _, n, _ = _vision_train(
+        ptt, model, {"px": px, "labels": labels, "lens": lens},
+        lambda m, bt: ppocr.ctc_rec_loss(m(bt["px"]), bt["labels"],
+                                         bt["lens"]),
+        f"(e) SVTR ctc_rec_loss train {list(VISION_OCR_REC)}", card, nb)
+    launches += n["fused_adamw"]
+    model.eval()
+    with torch.no_grad():
+        ids, keep = ppocr.ctc_greedy_decode(model(px))
+    log(f"[vision] (e) ctc_greedy_decode: ids {list(ids.shape)}, "
+        f"{int(keep.sum())} of {keep.numel()} positions kept [{card}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _write_diffusers(d, config, arrays):
+    """A diffusers checkpoint in ``d``: ``config.json`` and
+    ``diffusion_pytorch_model.safetensors`` of {name: fp32 numpy} written
+    as bf16, without the ``safetensors`` package. Returns the bytes."""
+    import numpy as np
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config, f)
+    path = os.path.join(d, "diffusion_pytorch_model.safetensors")
+    _write_safetensors(path, {k: torch.from_numpy(
+        np.ascontiguousarray(v)).to(torch.bfloat16)
+        for k, v in arrays.items()})
+    return os.path.getsize(path)
+
+
+def _vision_diffusers(dit_model, ae, dev, card, seed):
+    """(f) DiT-XL/2 as a diffusers ``DiTTransformer2DModel`` checkpoint and
+    the SD VAE as an ``AutoencoderKL``, written by hand (bf16) from (a)'s
+    seeded weights through ``to_hf_state_dict``, loaded with
+    ``config_from_hf`` / ``from_pretrained``: every parameter bit for bit
+    the source's, and two pipeline steps on them bit for bit the source
+    pipeline's."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.diffusion import DiTPipeline
+    from paddle_tpu_torch.models import hf_interop
+    cfg, vcfg = dit_model.config, ae.config
+    configs = {
+        "dit": dict(_class_name="DiTTransformer2DModel",
+                    sample_size=cfg.input_size, patch_size=cfg.patch_size,
+                    in_channels=cfg.in_channels,
+                    out_channels=cfg.out_channels,
+                    num_attention_heads=cfg.num_attention_heads,
+                    attention_head_dim=cfg.head_dim,
+                    num_layers=cfg.num_hidden_layers,
+                    num_embeds_ada_norm=cfg.num_classes,
+                    norm_type="ada_norm_zero"),
+        "vae": dict(_class_name="AutoencoderKL",
+                    in_channels=vcfg.in_channels, out_channels=3,
+                    latent_channels=vcfg.latent_channels,
+                    block_out_channels=[vcfg.base_channels * m for m in
+                                        vcfg.channel_multipliers],
+                    layers_per_block=vcfg.layers_per_block,
+                    norm_num_groups=vcfg.norm_groups,
+                    scaling_factor=vcfg.scaling_factor)}
+    d = tempfile.mkdtemp(prefix="diffusers_")
+    try:
+        loaded, nbytes, t_write, t_load = {}, 0, 0.0, 0.0
+        for name, src in (("dit", dit_model), ("vae", ae)):
+            t0 = time.perf_counter()
+            nbytes += _write_diffusers(os.path.join(d, name), configs[name],
+                                       hf_interop.to_hf_state_dict(src))
+            t_write += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            m = hf_interop.from_pretrained(os.path.join(d, name),
+                                           dtype=torch.bfloat16, device=dev)
+            torch.cuda.synchronize()
+            t_load += time.perf_counter() - t0
+            got, want = m.state_dict(), src.state_dict()
+            bad = [k for k in want if not torch.equal(got[k], want[k])]
+            if bad or set(got) != set(want):
+                fail(f"[vision] (f) {name}: loaded parameters differ from "
+                     f"the source's: {bad[:4]}")
+            loaded[name] = m
+        outs = []
+        for pipe in (DiTPipeline(dit_model, ae),
+                     DiTPipeline(loaded["dit"], loaded["vae"])):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            with ptt.amp.auto_cast(dtype="bfloat16"):
+                outs.append(pipe(VISION_DIT_LABELS, num_inference_steps=2,
+                                 generator=gen))
+        if not torch.equal(outs[0], outs[1]):
+            fail("[vision] (f) two pipeline steps on the loaded checkpoints "
+                 "differ from the source pipeline's")
+        log(f"[vision] (f) diffusers checkpoints (DiTTransformer2DModel at "
+            f"DiT-XL/2, AutoencoderKL at the SD VAE), bf16, "
+            f"{nbytes / 1e9:.2f} GB written in {t_write:.1f} s, "
+            f"from_pretrained in {t_load:.1f} s: every parameter bit for bit "
+            f"the source's, 2 pipeline steps bit for bit the source "
+            f"pipeline's [{card}]")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _vision_bf16(seed, dev, card, dit_model, ae, sd3_model, sd3_ae,
+                 sd3_args):
+    """(g) each family's bf16 forward against its fp32 twin (the same
+    weights) on the card, and one DiTBlock, one VAE ResnetBlock and one
+    ConvBNLayer alone. TF32 is off (cuDNN convolutions too)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import clip, dit, ppocr, resnet, vae, vit
+    rs = np.random.RandomState(seed + 350)
+    bf = torch.bfloat16
+    errs = {}
+
+    def rnd(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        cfg = dit_model.config
+        g = cfg.input_size
+        lat = rnd(4, cfg.in_channels, g, g)
+        t = torch.tensor([1, 250, 600, 999], device=dev)
+        y = torch.tensor(VISION_DIT_LABELS, device=dev)
+        twin = _fp32_twin(dit_model, dit.DiT, cfg)
+        h = rnd(4, (g // cfg.patch_size) ** 2, cfg.hidden_size)
+        cond = rnd(4, cfg.hidden_size)
+        with ptt.amp.auto_cast(dtype="bfloat16"):
+            out = dit_model(lat, t, y)
+            blk = dit_model.blocks[0](h.to(bf), cond.to(bf))
+        errs["DiT-XL/2"] = _rel_err(out, twin(lat, t, y))
+        errs["DiTBlock"] = _rel_err(blk, twin.blocks[0](h, cond))
+        del twin
+        twin = _fp32_twin(ae, vae.AutoencoderKL, ae.config)
+        z = rnd(2, ae.config.latent_channels, g, g)
+        with ptt.amp.auto_cast(dtype="bfloat16"):
+            out = ae.decode(z)
+        errs["SD VAE decode"] = _rel_err(out, twin.decode(z))
+        mid = ae.config.base_channels * ae.config.channel_multipliers[-1]
+        hh = rnd(2, mid, g, g)
+        errs["VAE ResnetBlock"] = _rel_err(ae.decoder.mid[0](hh.to(bf)),
+                                           twin.decoder.mid[0](hh))
+        del twin
+        scfg = sd3_model.config
+        twin = _fp32_twin(sd3_model, dit.MMDiT, scfg)
+        lat16 = rnd(1, scfg.in_channels, scfg.input_size, scfg.input_size)
+        ctx, pooled = sd3_args
+        t1 = torch.tensor([500], device=dev)
+        with ptt.amp.auto_cast(dtype="bfloat16"):
+            out = sd3_model(lat16, t1, ctx, pooled)
+        errs["MMDiT"] = _rel_err(out, twin(lat16, t1, ctx, pooled))
+        del twin, out
+        twin = _fp32_twin(sd3_ae, vae.AutoencoderKL, sd3_ae.config)
+        with ptt.amp.auto_cast(dtype="bfloat16"):
+            out = sd3_ae.decode(lat16)
+        errs["VAE-16 decode"] = _rel_err(out, twin.decode(lat16))
+        del twin
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, cls, cfg in (
+                ("ViT-B/16", vit.ViTForImageClassification,
+                 vit.vit_base_patch16_224(dtype=bf)),
+                ("ResNet-50", resnet.ResNet,
+                 resnet.ResNetConfig(depth=50, dtype=bf))):
+            m = _noised(cls(cfg, device=dev,
+                            generator=ptt.make_generator(seed + 351, dev)),
+                        seed + 352).eval()
+            t32 = _fp32_twin(m, cls, cfg)
+            size = getattr(cfg, "image_size", 224)
+            px = rnd(8, 3, size, size)
+            errs[name] = _rel_err(m(px.to(bf)), t32(px))
+            if name == "ResNet-50":
+                w = cfg.stem_width
+                xb = rnd(8, w, 56, 56)
+                errs["ConvBNLayer"] = _rel_err(
+                    m.stages[0][0].conv1(xb.to(bf)),
+                    t32.stages[0][0].conv1(xb))
+            del m, t32
+        ccfg = clip.CLIPConfig()
+        ccfg.text.dtype = ccfg.vision.dtype = bf
+        m = _noised(clip.CLIPModel(ccfg, device=dev,
+                                   generator=ptt.make_generator(seed + 353,
+                                                                dev)),
+                    seed + 354).eval()
+        ids = torch.from_numpy(rs.randint(
+            1, ccfg.text.vocab_size - 1,
+            (8, ccfg.text.max_position_embeddings))).to(dev)
+        size = ccfg.vision.image_size
+        px = rnd(8, 3, size, size)
+        errs["CLIP"] = _rel_err(m(ids, px.to(bf))[0],
+                                _fp32_twin(m, clip.CLIPModel, ccfg)(ids,
+                                                                    px)[0])
+        del m
+        scfg = ppocr.SVTRConfig(dtype=bf)
+        for name, cls, cfg, x in (
+                ("DBNet", ppocr.DBNet, ppocr.DBNetConfig(dtype=bf),
+                 rnd(2, 3, 640, 640)),
+                ("SVTR", ppocr.SVTRNet, scfg,
+                 rnd(8, 3, scfg.img_height, scfg.img_width))):
+            m = _noised(cls(cfg, device=dev,
+                            generator=ptt.make_generator(seed + 355, dev)),
+                        seed + 356).eval()
+            out, ref = m(x.to(bf)), _fp32_twin(m, cls, cfg)(x)
+            if name == "DBNet":
+                out, ref = out["maps"], ref["maps"]
+            errs[name] = _rel_err(out, ref)
+            del m
+    blocks = ("DiTBlock", "VAE ResnetBlock", "ConvBNLayer")
+    log("[vision] (g) bf16 against fp32 on the same weights (relative l2; "
+        "TF32 off): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tolerance: a model {TOL_VISION_MODEL}, a block "
+        f"{TOL_VISION_BLOCK}) [{card}]")
+    bad = {k: v for k, v in errs.items()
+           if not v < (TOL_VISION_BLOCK if k in blocks else TOL_VISION_MODEL)}
+    if bad:
+        fail(f"[vision] (g) bf16 outside its tolerance of fp32: {bad}")
+
+
+def phase_vision(seed, dev, card):
+    """Phase 20 (module docstring). Returns the launches of the
+    main-path runs by kernel key."""
+    dit_model, ae, _ = _vision_dit(seed, dev, card)
+    sd3_model, sd3_ae, sd3_args = _vision_sd3(seed, dev, card)
+    _vision_bf16(seed, dev, card, dit_model, ae, sd3_model, sd3_ae, sd3_args)
+    del sd3_model, sd3_ae, sd3_args
+    gc.collect()
+    torch.cuda.empty_cache()
+    _vision_diffusers(dit_model, ae, dev, card, seed + 360)
+    del dit_model, ae
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(NO_LAUNCHES, 0)
+    launches["fused_adamw"] = (_vision_vit_clip(seed, dev, card)
+                               + _vision_resnet(seed, dev, card)
+                               + _vision_ocr(seed, dev, card))
+    log(f"[vision] launches of the phase's main-path runs {launches} "
+        f"[{card}]")
+    return launches
+
+
+
 def _clock_phases():
     """Make every ``phase_*`` function of this module log its wall time
     when it returns (``[wall]`` lines): the script's time limit is shared
@@ -9379,6 +10091,10 @@ def main():
     for _, key, r in zoo_rows:
         key = "quant" if key.startswith("quant") else key
         errs[key] = max(errs[key], r["err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_vision(args.seed, dev, card).items():
+        launches[key] += n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,

@@ -25,7 +25,11 @@ DeepSeek-V2/V3 with MLA and MTP, on ``parallel/moe.py``) through the
 same ``generate()``, ``Predictor`` and, for Qwen2-MoE and ERNIE,
 ``PagedEngine``; GPT through ``generate()``, the ``Predictor`` and the
 ``Trainer``; the BERT-family encoders (BERT, ERNIE) and Paddle's
-``nn.Transformer`` layers through the ``Trainer``. Weights load
+``nn.Transformer`` layers through the ``Trainer``; the vision and
+diffusion families: ViT, CLIP, ResNet and PP-OCR (DBNet, SVTR) through
+the ``Trainer``, DiT and SD3's MMDiT with the SD VAE through
+``diffusion``'s pipelines (one captured CUDA graph a denoising step), on
+``nn``'s convolutions, pools and Batch/Group/Instance norms. Weights load
 from ``checkpoint.save`` files in the JAX package's format and from HF
 safetensors checkpoints (``models.from_pretrained``). Eight hand-written
 kernels for ``sm_90a`` sit under ``ops/kernels``, with their sources in
@@ -39,7 +43,7 @@ from .checkpoint import load, save
 from .generation import GenerationConfig, beam_search, generate
 from .inference import (BatchingPredictor, Config, Predictor,
                         create_predictor)
-from . import amp, io, optimizer, peft, quant, tokenizer, trl
+from . import amp, diffusion, io, optimizer, peft, quant, tokenizer, trl
 from .models import (BertConfig, BertForPretraining,
                      BertForSequenceClassification, ErnieConfig,
                      ErnieForMaskedLM, ErnieForSequenceClassification,
@@ -57,6 +61,6 @@ __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "llama_tiny", "GPTConfig", "GPTForCausalLM", "BertConfig",
            "BertForPretraining", "BertForSequenceClassification",
            "ErnieConfig", "ErnieForMaskedLM",
-           "ErnieForSequenceClassification", "make_generator", "amp", "io",
+           "ErnieForSequenceClassification", "make_generator", "amp", "diffusion", "io",
            "optimizer", "peft", "quant", "tokenizer", "trl", "Trainer", "TrainerCallback",
            "TrainingArguments"]

@@ -40,7 +40,15 @@ def load_jax_state_dict(model: nn.Module,
       ``w_gate``/``w_up`` [E, h, m] and ``w_down`` [E, m, h], the router
       ``gate`` [h, E], the ``shared_*`` projections and
       ``shared_expert_gate`` [h, 1] are plain parameters in the JAX
-      layout in both packages, and are copied untransposed.
+      layout in both packages, and are copied untransposed. Nor are the
+      vision and diffusion families': a conv's weight [out, in / groups,
+      k...] and a transposed conv's [in, out / groups, k...] (Paddle's
+      layouts, which are torch's too), BatchNorm's ``_mean`` and
+      ``_variance`` buffers, and the plain parameters ViT's ``cls_token``
+      and ``pos_embed``, DiT's and MMDiT's frozen ``pos_embed``, SVTR's
+      ``pos_embed``, CLIP's ``position_embedding``, ``logit_scale``,
+      ``text_projection`` and ``visual_projection`` (the last two [h,
+      proj], used as ``x @ P`` in both packages).
     - LoRA adapters (``peft.lora``): a ``Linear``'s ``lora_A`` ([in, r] in
       the JAX package, [r, in] here) and ``lora_B`` ([r, out] there,
       [out, r] here) are transposed as its weight is, and sharded by the

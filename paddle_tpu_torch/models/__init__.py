@@ -19,6 +19,18 @@ from .deepseek_v2 import (DeepseekV2Config, DeepseekV2ForCausalLM,
 from .qwen2_moe import (DeepseekMoeConfig, DeepseekMoeForCausalLM,
                         Qwen2MoeConfig, Qwen2MoeForCausalLM, Qwen2MoeModel,
                         deepseek_moe_tiny, moe_lm_loss, qwen2_moe_tiny)
+from .resnet import (ResNet, ResNetConfig, resnet18, resnet34, resnet50,
+                     resnet50_vd, resnet_tiny)
+from .vit import (ViTConfig, ViTForImageClassification, ViTModel,
+                  vit_base_patch16_224, vit_large_patch14_224, vit_tiny)
+from .clip import (CLIPConfig, CLIPModel, CLIPTextConfig, CLIPTextModel,
+                   clip_contrastive_loss, clip_tiny, gather_features)
+from .dit import (DiT, DiTConfig, MMDiT, MMDiTConfig, dit_tiny, dit_xl_2,
+                  mmdit_tiny)
+from .vae import AutoencoderKL, VAEConfig, vae_loss, vae_tiny
+from .ppocr import (DBNet, DBNetConfig, SVTRConfig, SVTRNet,
+                    ctc_greedy_decode, ctc_rec_loss, db_loss, dbnet_tiny,
+                    svtr_tiny)
 
 __all__ = ["CausalLMBase", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "causal_lm_loss", "llama3_8b", "llama3_70b", "llama_tiny",
@@ -34,4 +46,14 @@ __all__ = ["CausalLMBase", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "GPTModel", "gpt_tiny", "BertConfig", "BertForPretraining",
            "BertForSequenceClassification", "BertModel", "bert_tiny",
            "pretraining_loss", "ErnieConfig", "ErnieForMaskedLM",
-           "ErnieForSequenceClassification", "ErnieModel", "ernie_tiny"]
+           "ErnieForSequenceClassification", "ErnieModel", "ernie_tiny",
+           "ResNet", "ResNetConfig", "resnet18", "resnet34", "resnet50",
+           "resnet50_vd", "resnet_tiny", "ViTConfig",
+           "ViTForImageClassification", "ViTModel", "vit_base_patch16_224",
+           "vit_large_patch14_224", "vit_tiny", "CLIPConfig", "CLIPModel",
+           "CLIPTextConfig", "CLIPTextModel", "clip_contrastive_loss",
+           "clip_tiny", "gather_features", "DiT", "DiTConfig", "MMDiT",
+           "MMDiTConfig", "dit_tiny", "dit_xl_2", "mmdit_tiny",
+           "AutoencoderKL", "VAEConfig", "vae_loss", "vae_tiny", "DBNet",
+           "DBNetConfig", "SVTRConfig", "SVTRNet", "ctc_greedy_decode",
+           "ctc_rec_loss", "db_loss", "dbnet_tiny", "svtr_tiny"]

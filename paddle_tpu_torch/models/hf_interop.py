@@ -9,8 +9,10 @@
 
 Model types: ``llama``, ``qwen2``, ``ernie4_5``, ``qwen2_moe``,
 ``ernie4_5_moe``, ``deepseek_v2``, ``deepseek_v3``, ``gpt2``, ``bert``
-and ``ernie``. The converters work on numpy arrays in the JAX package's
-layout (every 2-D linear weight [in, out], HF's transposed; the experts
+and ``ernie``; ``vit``, ``clip``, ``resnet`` and the diffusers
+``autoencoder_kl``, ``dit`` and ``sd3_transformer``, whose converters and
+config branches are in ``hf_vision``. The converters work on numpy
+arrays in the JAX package's layout (every 2-D linear weight [in, out], HF's transposed; the experts
 stacked [E, in, out]; the BERT family's q, k and v fused into one [h,
 3h] ``qkv_proj``; GPT-2's ``Conv1D`` weights, already [in, out], kept as
 they are), so a checkpoint converts to exactly what the JAX package
@@ -30,8 +32,6 @@ itself, with the JAX reader's values. ``from_pretrained`` reads each
 file through a memory map, one tensor (on a tp mesh, one rank's slice
 of it: a column shard is contiguous rows, a row shard strided) at a
 time.
-
-The vision and diffusion families' converters come with their models.
 """
 from __future__ import annotations
 
@@ -132,7 +132,9 @@ def _checkpoint_files(model_dir: str):
             weight_map = json.load(f)["weight_map"]
         return [os.path.join(model_dir, shard)
                 for shard in sorted(set(weight_map.values()))]
-    for name in ("model.safetensors", "pytorch_model.bin"):
+    for name in ("model.safetensors",
+                 "diffusion_pytorch_model.safetensors",   # diffusers
+                 "pytorch_model.bin"):
         path = os.path.join(model_dir, name)
         if os.path.exists(path):
             return [path]
@@ -417,11 +419,16 @@ _CONVERTERS = {"llama": _convert_llama, "qwen2": _convert_llama,
                "gpt2": _convert_gpt2}
 # converted over the whole checkpoint: a layer's q, k and v fuse
 _WHOLE_CHECKPOINT = ("bert", "ernie")
+# converted over the whole checkpoint read into numpy (their converters
+# reshape and concatenate across blocks)
+_VISION = ("vit", "clip", "resnet", "autoencoder_kl", "dit",
+           "sd3_transformer")
 # missing keys under these prefixes are heads a bare encoder checkpoint
 # lacks: they stay at their random init with a warning, even when strict
 _OPTIONAL_HEAD_PREFIXES = ("mlm_head.", "nsp_head.", "bert.pooler.",
                            "ernie.encoder.pooler.",
-                           "ernie.task_type_embeddings")
+                           "ernie.task_type_embeddings",
+                           "head.")   # a bare ViTModel has no classifier
 # the per-shard halves of the MoE converters: experts may span shards
 _MOE_PARTS = {"qwen2_moe": _moe_parts, "ernie4_5_moe": _moe_parts,
               "deepseek_v2": _deepseek_parts,
@@ -441,12 +448,14 @@ def convert_hf_state_dict(hf_sd: Dict[str, np.ndarray], cfg,
 
 def to_hf_state_dict(model) -> Dict[str, np.ndarray]:
     """Export a Llama-family model to HF names and layout ([out, in], the
-    port's own ``Linear`` layout), as float32 numpy arrays for floating
-    tensors (numpy has no bf16)."""
+    port's own ``Linear`` layout), or an ``AutoencoderKL``, ``DiT`` or
+    ``MMDiT`` to the diffusers layout, as float32 numpy arrays for
+    floating tensors (numpy has no bf16)."""
     from ..convert import jax_state_dict
     sd = {k: (v.float() if v.is_floating_point() else v).numpy()
           for k, v in jax_state_dict(model).items()}
-    return _revert_llama(sd, model.config)
+    out = hf_vision.revert(model, sd)
+    return out if out is not None else _revert_llama(sd, model.config)
 
 
 def _torch_dtype(hf: Dict[str, Any]):
@@ -479,13 +488,23 @@ def config_from_hf(model_dir: str):
     """An HF ``config.json`` -> (model class, config, model type): the
     Llama family (``llama``, ``ernie4_5``; ``qwen2``, the Llama backbone
     with biased q/k/v), ``qwen2_moe`` / ``ernie4_5_moe``,
-    ``deepseek_v2`` / ``deepseek_v3``, ``gpt2`` (``GPTForCausalLM``, tied)
-    and ``bert`` / ``ernie`` (``BertForPretraining`` / ``ErnieForMaskedLM``),
-    with the JAX package's fields and its ``ValueError`` for each variant
-    it does not build."""
+    ``deepseek_v2`` / ``deepseek_v3``, ``gpt2`` (``GPTForCausalLM``, tied),
+    ``bert`` / ``ernie`` (``BertForPretraining`` / ``ErnieForMaskedLM``),
+    ``vit`` (``ViTForImageClassification``), ``resnet``, ``clip``, and a
+    diffusers ``config.json`` by its ``_class_name`` (``AutoencoderKL``,
+    ``DiTTransformer2DModel``, ``SD3Transformer2DModel``), with the JAX
+    package's fields and its ``ValueError`` for each variant it does not
+    build (a VAE without quant convs or with ``shift_factor``: SD3's and
+    FLUX's; an SD3.5 transformer; a DiT not adaLN-Zero)."""
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     mt = hf.get("model_type", "")
+    if not mt:
+        found = hf_vision.diffusers_config(hf)
+        if found is not None:
+            return found
+    if mt in ("vit", "resnet", "clip"):
+        return hf_vision.vision_config(hf, mt, _torch_dtype(hf))
     if mt not in _CONVERTERS:
         raise ValueError(f"unsupported model_type {mt!r} in {model_dir} "
                          f"(the port loads {sorted(_CONVERTERS)})")
@@ -682,6 +701,9 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
     cls, cfg, mt = config_from_hf(model_dir)
     if dtype is not None:
         cfg.dtype = dtype
+        for sub in ("text", "vision"):   # CLIP's towers read their own
+            if hasattr(cfg, sub):
+                getattr(cfg, sub).dtype = dtype
     build = sharding.open_build()
     model = (model_cls or cls)(cfg, device=device, generator=generator)
     if build is not None:
@@ -691,10 +713,11 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
     loaded = set()
     experts: Dict[str, set] = {}
     shards = _iter_checkpoint(model_dir, _open_safetensors_file)
-    if mt in _WHOLE_CHECKPOINT:
+    if mt in _WHOLE_CHECKPOINT or mt in _VISION:
         whole: Dict[str, Any] = {}
         for shard in shards:
-            whole.update(shard)
+            whole.update(shard if mt in _WHOLE_CHECKPOINT else
+                         {k: np.asarray(v) for k, v in shard.items()})
         shards = [whole]
     for shard in shards:
         if mt in _MOE_PARTS:
@@ -725,3 +748,9 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
         warnings.warn(f"{len(missing)} keys left at random init "
                       f"(e.g. {missing[:4]})", stacklevel=2)
     return model
+
+
+# the vision and diffusion families (their converters use _fuse_qkv above)
+from . import hf_vision  # noqa: E402
+
+_CONVERTERS.update(hf_vision.CONVERTERS)

@@ -1,14 +1,22 @@
 from . import functional, initializer
-from .activation import GELU, ReLU, SiLU, Tanh
+from .activation import GELU, ReLU, Sigmoid, SiLU, Tanh
 from .common import Dropout, Embedding, Linear
-from .container import LayerList
-from .norm import LayerNorm, RMSNorm
+from .container import LayerList, Sequential
+from .conv import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool2D, Conv1D,
+                   Conv2D, Conv2DTranspose, Conv3D, MaxPool2D)
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                   GroupNorm, InstanceNorm2D, LayerNorm, RMSNorm,
+                   SyncBatchNorm)
 from .transformer import (MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["functional", "initializer", "Embedding", "Linear", "Dropout",
-           "LayerList", "LayerNorm", "RMSNorm", "GELU", "ReLU", "SiLU",
-           "Tanh", "MultiHeadAttention", "TransformerEncoderLayer",
+           "LayerList", "Sequential", "LayerNorm", "RMSNorm", "BatchNorm",
+           "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "SyncBatchNorm",
+           "GroupNorm", "InstanceNorm2D", "Conv1D", "Conv2D", "Conv3D",
+           "Conv2DTranspose", "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D",
+           "AdaptiveMaxPool2D", "GELU", "ReLU", "Sigmoid", "SiLU", "Tanh",
+           "MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
            "TransformerDecoder", "Transformer"]

@@ -1,6 +1,7 @@
 """Activation layers (counterpart of ``paddle_tpu/nn/activation.py``): the
 layers of the activations ``functional`` holds, which
-``TransformerEncoderLayer``'s ``activation=`` names."""
+``TransformerEncoderLayer``'s ``activation=`` names and the vision
+models build."""
 from __future__ import annotations
 
 from torch import nn
@@ -25,3 +26,4 @@ ReLU = _make("ReLU", F.relu)
 GELU = _make("GELU", F.gelu)
 SiLU = _make("SiLU", F.silu)
 Tanh = _make("Tanh", F.tanh)
+Sigmoid = _make("Sigmoid", F.sigmoid)

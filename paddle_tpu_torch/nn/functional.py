@@ -1,14 +1,20 @@
 """The subset of ``paddle_tpu/nn/functional.py`` the port's models use:
 ``linear``, ``embedding``, ``take_rows``, ``rms_norm``, ``layer_norm``,
-the activations ``silu``, ``relu``, ``tanh`` and ``gelu`` (exact and
-tanh), ``dropout`` in both of Paddle's modes, ``scaled_dot_product_attention``
-and ``cross_entropy``.
+``batch_norm``, ``group_norm``, ``instance_norm``, ``normalize``, the
+activations ``silu``, ``relu``, ``tanh``, ``sigmoid``, ``quick_gelu`` and
+``gelu`` (exact and tanh), ``dropout`` in both of Paddle's modes,
+``scaled_dot_product_attention``, ``cross_entropy`` and ``ctc_loss``; the
+convolutions (``conv1d``, ``conv2d``, ``conv3d``, ``conv1d_transpose``,
+``conv2d_transpose``), the pools (``max_pool2d``, ``avg_pool2d``, the
+adaptive and global pools) and ``interpolate`` / ``upsample``.
 
 Where the JAX function takes a PRNG key, the port's takes an explicit
 ``torch.Generator``. The two give different bits for one seed, so the
 tests hold dropout to its rates and modes, and parity at p = 0.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as TF
@@ -30,6 +36,15 @@ def tanh(x):
 def gelu(x, approximate=False):
     """GELU, exact (erf) or, with ``approximate``, its tanh form (GPT's)."""
     return TF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def quick_gelu(x):
+    """OpenAI CLIP's quick-gelu: x * sigmoid(1.702 x)."""
+    return x * sigmoid(1.702 * x)
 
 
 # ------------------------------------------------------------------- linear
@@ -97,6 +112,72 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     if weight is not None:
         out = out * weight
     return out
+
+
+def _channel_shape(x):
+    """(1, C, 1, ...) for a per-channel [C] vector against NC... ``x``."""
+    return (1, -1) + (1,) * (x.dim() - 2)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5):
+    """Batch norm over every dim but the channel (dim 1). In training it
+    returns (out, new_mean, new_var): the batch's mean and **biased**
+    variance in fp32 normalise ``x``, and the running statistics move by
+    Paddle's convention, ``momentum * running + (1 - momentum) * batch``
+    (``torch.nn.functional.batch_norm`` weighs them the other way round
+    and keeps the unbiased variance). Out of training, the running
+    statistics normalise. The result is rounded to ``x``'s dtype before
+    the weight and the bias, which promote as ``jnp`` does."""
+    shape = _channel_shape(x)
+    if training:
+        dims = (0,) + tuple(range(2, x.dim()))
+        x32 = x.float()
+        mean = x32.mean(dim=dims)
+        var = (x32 - mean.reshape(shape)).square().mean(dim=dims)
+        new_mean = momentum * running_mean + (1 - momentum) * mean
+        new_var = momentum * running_var + (1 - momentum) * var
+    else:
+        mean, var = running_mean, running_var
+    out = ((x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                   + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    if training:
+        return out, new_mean, new_var
+    return out
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5):
+    """Group norm of NC... ``x``: each group's mean and biased variance in
+    fp32, the result rounded to ``x``'s dtype before the per-channel
+    weight and bias (which promote as ``jnp`` does)."""
+    n, c = x.shape[0], x.shape[1]
+    g = x.reshape(n, num_groups, c // num_groups, *x.shape[2:]).float()
+    dims = tuple(range(2, g.dim()))
+    mean = g.mean(dim=dims, keepdim=True)
+    var = (g - mean).square().mean(dim=dims, keepdim=True)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape) \
+        .to(x.dtype)
+    shape = _channel_shape(x)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def instance_norm(x, weight=None, bias=None, epsilon=1e-5):
+    return group_norm(x, x.shape[1], weight, bias, epsilon)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    """``x`` over its ``p``-norm along ``axis``, the norm floored at
+    ``epsilon``."""
+    norm = torch.linalg.vector_norm(x, ord=p, dim=axis, keepdim=True)
+    return x / torch.clamp(norm, min=epsilon)
 
 
 # ----------------------------------------------------------------- dropout
@@ -191,3 +272,321 @@ def cross_entropy(logits, label, weight=None, ignore_index=-100,
     if mask is not None:
         return loss.sum() / mask.sum().clamp_min(1.0)
     return loss.mean()
+
+
+def ctc_loss(log_probs, labels, input_lengths=None, label_lengths=None,
+             blank: int = 0, reduction: str = "mean"):
+    """Connectionist temporal classification loss over [B, T, C] logits
+    (log-softmaxed here) and [B, L] labels padded past ``label_lengths``:
+    the JAX function's log-space alpha recursion over time, step by step
+    (-1e30 stands for log 0, a row is frozen once its ``input_lengths``
+    ends), so its value and gradients are the JAX function's.
+    ``reduction="mean"`` averages the losses divided by their label
+    lengths (Paddle's warpctc convention), ``"sum"`` sums them."""
+    lp = torch.log_softmax(log_probs.float(), dim=-1)
+    b, t, _ = lp.shape
+    nl = labels.shape[1]
+    dev = lp.device
+    if input_lengths is None:
+        input_lengths = torch.full((b,), t, dtype=torch.long, device=dev)
+    if label_lengths is None:
+        label_lengths = torch.full((b,), nl, dtype=torch.long, device=dev)
+    input_lengths = torch.as_tensor(input_lengths, device=dev).long()
+    label_lengths = torch.as_tensor(label_lengths, device=dev).long()
+    s = 2 * nl + 1
+    # the extended sequence: blank, l1, blank, l2, ..., blank
+    ext = torch.full((b, s), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels.long()
+    neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+    pos = torch.arange(s, device=dev)[None, :]
+    ext_prev2 = TF.pad(ext, (2, 0), value=blank)[:, :s]
+    allow_skip = (ext != blank) & (ext != ext_prev2) & (pos >= 2)
+    emit = lp.gather(2, ext[:, None, :].expand(b, t, s))       # [B, T, S]
+    alpha = neg_inf.expand(b, s).clone()
+    alpha[:, 0] = emit[:, 0, 0]
+    if nl > 0:
+        alpha[:, 1] = emit[:, 0, 1]
+    for ti in range(1, t):
+        a1 = TF.pad(alpha, (1, 0), value=-1e30)[:, :s]
+        a2 = TF.pad(alpha, (2, 0), value=-1e30)[:, :s]
+        a2 = torch.where(allow_skip, a2, neg_inf)
+        stacked = torch.stack([alpha, a1, a2], dim=0)
+        m = stacked.max(dim=0).values
+        tot = m + torch.log(torch.exp(stacked - m[None]).sum(dim=0))
+        new = torch.where(m <= neg_inf / 2, neg_inf, tot) + emit[:, ti]
+        alpha = torch.where((ti < input_lengths)[:, None], new, alpha)
+    last = 2 * label_lengths
+    a_last = alpha.gather(1, last[:, None])[:, 0]
+    a_prev = alpha.gather(1, (last - 1).clamp_min(0)[:, None])[:, 0]
+    # an empty target: only the all-blank path counts
+    a_prev = torch.where(last == 0, neg_inf, a_prev)
+    m = torch.maximum(a_last, a_prev)
+    ll = m + torch.log(torch.exp(a_last - m) + torch.exp(a_prev - m))
+    loss = -torch.where(m <= neg_inf / 2, neg_inf, ll)
+    if reduction == "mean":
+        return (loss / label_lengths.clamp_min(1)).mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+# -------------------------------------------------------------------- conv
+def _ntuple(v, n):
+    return (v,) * n if isinstance(v, int) else tuple(v)
+
+
+def _same_pads(size, k, s, d):
+    """XLA's SAME padding (lo, hi) of one spatial dim."""
+    eff = (k - 1) * d + 1
+    out = -(-size // s)
+    total = max((out - 1) * s + eff - size, 0)
+    return total // 2, total - total // 2
+
+
+def _check_same_dtype(x, weight):
+    # lax.conv_general_dilated refuses mixed dtypes; so does the port
+    # (a bf16 backbone fed fp32 latents outside auto_cast)
+    if x.dtype != weight.dtype:
+        raise TypeError(f"conv requires arguments to have the same dtypes, "
+                        f"got {str(x.dtype).replace('torch.', '')}, "
+                        f"{str(weight.dtype).replace('torch.', '')}")
+
+
+_CONVS = {1: TF.conv1d, 2: TF.conv2d, 3: TF.conv3d}
+
+
+def _convnd(x, weight, bias, stride, padding, dilation, groups, n):
+    """NC... convolution with an OI... weight, as the JAX function does
+    it: under ``amp.auto_cast`` both operands are cast first; the product
+    is rounded to ``x``'s dtype, and only then is the bias added (it
+    promotes as ``jnp`` does; ``torch.nn.functional.conv2d(..., bias)``
+    would add it before the rounding). ``padding`` is an int, a tuple or
+    ``"SAME"`` / ``"VALID"``."""
+    from ..amp import maybe_cast
+    x, weight = maybe_cast(x), maybe_cast(weight)
+    _check_same_dtype(x, weight)
+    stride = _ntuple(stride, n)
+    dilation = _ntuple(dilation, n)
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be SAME or VALID, got "
+                             f"{padding!r}")
+        pads = [(0, 0)] * n if mode == "VALID" else [
+            _same_pads(x.shape[2 + i], weight.shape[2 + i], stride[i],
+                       dilation[i]) for i in range(n)]
+    else:
+        pads = [(p, p) for p in _ntuple(padding, n)]
+    if all(lo == hi for lo, hi in pads):
+        conv_pad = tuple(lo for lo, _ in pads)
+    else:
+        # TF.pad lists the last dim first
+        x = TF.pad(x, [v for lo_hi in reversed(pads) for v in lo_hi])
+        conv_pad = 0
+    out = _CONVS[n](x, weight, None, stride, conv_pad, dilation, groups)
+    out = out.to(x.dtype)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * n)
+    return out
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+    return _convnd(x, weight, bias, stride, padding, dilation, groups, 1)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+    return _convnd(x, weight, bias, stride, padding, dilation, groups, 2)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+    return _convnd(x, weight, bias, stride, padding, dilation, groups, 3)
+
+
+def _convnd_transpose(x, weight, bias, stride, padding, output_padding,
+                      dilation, groups, n):
+    """The transposed convolution as the JAX function computes it: ``x``
+    dilated by ``stride`` (zeros between its elements), padded by (k_eff
+    - 1 - p, k_eff - 1 - p + output_padding) on each spatial dim (a
+    negative pad crops), and convolved at stride 1 with the Paddle weight
+    [in, out / groups, k...] swapped to [out / groups, in, k...] and
+    flipped; with ``groups`` > 1 the weight is rebuilt group by group
+    into [out, in / groups, k...] as the JAX function rebuilds it. No
+    ``auto_cast``, and the bias is added without a cast, as there."""
+    _check_same_dtype(x, weight)
+    stride = _ntuple(stride, n)
+    dilation = _ntuple(dilation, n)
+    p = _ntuple(padding, n)
+    op = _ntuple(output_padding, n)
+    k = tuple(weight.shape[2:])
+    flip = tuple(range(2, 2 + n))
+    if groups > 1:
+        ic, ocg = weight.shape[0], weight.shape[1]
+        w = weight.reshape(groups, ic // groups, ocg, *k).transpose(1, 2) \
+            .reshape(groups * ocg, ic // groups, *k).flip(flip)
+    else:
+        w = weight.transpose(0, 1).flip(flip)
+    if any(s > 1 for s in stride):
+        size = [(x.shape[2 + i] - 1) * stride[i] + 1 for i in range(n)]
+        dil = x.new_zeros(x.shape[:2] + tuple(size))
+        dil[(slice(None), slice(None)) + tuple(
+            slice(None, None, s) for s in stride)] = x
+        x = dil
+    pads = []
+    for i in reversed(range(n)):
+        eff = (k[i] - 1) * dilation[i] + 1
+        pads += [eff - 1 - p[i], eff - 1 - p[i] + op[i]]
+    x = TF.pad(x, pads)
+    out = _CONVS[n](x, w, None, 1, 0, dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * n)
+    return out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1):
+    return _convnd_transpose(x, weight, bias, stride, padding,
+                             output_padding, dilation, groups, 1)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1):
+    return _convnd_transpose(x, weight, bias, stride, padding,
+                             output_padding, dilation, groups, 2)
+
+
+# ------------------------------------------------------------------ pooling
+def _pool2d(x, kernel_size, stride, padding, op, exclusive=True):
+    """One pooling window definition (the JAX ``reduce_window`` one): the
+    output has floor((size + 2p - k) / s) + 1 positions a dim; max pools
+    pad with -inf (an integer dtype's minimum), average pools divide the
+    window sum by the window's size or, with ``exclusive`` and any
+    padding, by the count of unpadded positions in it."""
+    k = _ntuple(kernel_size, 2)
+    s = _ntuple(stride if stride is not None else kernel_size, 2)
+    p = _ntuple(padding, 2)
+    pads = (p[1], p[1], p[0], p[0])
+    if op == "max":
+        fill = float("-inf") if x.is_floating_point() \
+            else torch.iinfo(x.dtype).min
+        return TF.max_pool2d(TF.pad(x, pads, value=fill), k, s)
+    summed = TF.avg_pool2d(TF.pad(x, pads), k, s) * math.prod(k)
+    if exclusive and any(p):
+        ones = TF.pad(torch.ones_like(x[:1, :1]), pads)
+        counts = TF.avg_pool2d(ones, k, s) * math.prod(k)
+        return summed / counts
+    return summed / math.prod(k)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0):
+    return _pool2d(x, kernel_size, stride, padding, "max")
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True):
+    return _pool2d(x, kernel_size, stride, padding, "avg", exclusive)
+
+
+def _adaptive_window(x, output_size):
+    out = _ntuple(output_size, 2)
+    h, w = x.shape[2], x.shape[3]
+    if h % out[0] or w % out[1]:
+        # the JAX pools assert it: one static window for the whole map
+        raise ValueError(f"adaptive pool needs divisible sizes: {(h, w)} "
+                         f"into {out}")
+    return h // out[0], w // out[1]
+
+
+def adaptive_avg_pool2d(x, output_size):
+    k = _adaptive_window(x, output_size)
+    return avg_pool2d(x, k, k)
+
+
+def adaptive_max_pool2d(x, output_size):
+    k = _adaptive_window(x, output_size)
+    return max_pool2d(x, k, k)
+
+
+def global_avg_pool2d(x):
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
+# ------------------------------------------------------------ interpolation
+def _resize_nearest(x, dim, n):
+    """``jax.image.resize``'s nearest: the source of output i is
+    floor((i + 0.5) * m / n) in fp32 (half-pixel centres: torch's
+    ``nearest-exact``, not its ``nearest``)."""
+    m = x.shape[dim]
+    src = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * m / n)
+    return x.index_select(dim, src.long().clamp_(max=m - 1).to(x.device))
+
+
+def _triangle(t):
+    return torch.clamp(1 - t.abs(), min=0)
+
+
+def _keys_cubic(t):
+    out = ((1.5 * t - 2.5) * t) * t + 1.0
+    out = torch.where(t >= 1.0, ((-0.5 * t + 2.5) * t - 4.0) * t + 2.0, out)
+    return torch.where(t >= 2.0, torch.zeros_like(t), out)
+
+
+def _resize_weights(m, n, kernel):
+    """``jax.image``'s ``compute_weight_mat`` [m, n] for scale n / m, no
+    translation, with its antialiasing (the kernel widened by m / n when
+    downsampling), normalised columns, and zero columns for samples
+    outside the input."""
+    inv_scale = 1.0 / (n / m)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    dist = (sample[None, :] - torch.arange(m, dtype=torch.float32)[:, None])
+    w = kernel(dist.abs() / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(torch.float32).eps)
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+_RESIZE_KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False):
+    """Resize NCHW ``x`` to ``size`` (or int(h * scale), int(w * scale)),
+    as the JAX function does. ``nearest`` (with or without
+    ``align_corners``), and ``bilinear`` / ``bicubic`` without it, are
+    ``jax.image.resize``'s: half-pixel centres, and an antialiasing
+    kernel when downsampling (a dim whose size does not change is left as
+    it is). ``bilinear`` with ``align_corners`` samples the corner grid
+    i * (h - 1) / (oh - 1) in fp32."""
+    n, c, h, w = x.shape
+    if size is None:
+        sf = _ntuple(scale_factor, 2)
+        size = (int(h * sf[0]), int(w * sf[1]))
+    oh, ow = size
+    if mode == "nearest":
+        if oh != h:
+            x = _resize_nearest(x, 2, oh)
+        if ow != w:
+            x = _resize_nearest(x, 3, ow)
+        return x
+    if not align_corners:
+        if mode not in _RESIZE_KERNELS:
+            raise ValueError(f"unknown interpolation mode {mode!r}")
+        kernel = _RESIZE_KERNELS[mode]
+        out = x if x.is_floating_point() else x.float()
+        if oh != h:
+            wh = _resize_weights(h, oh, kernel).to(out.device, out.dtype)
+            out = torch.einsum("nchw,hy->ncyw", out, wh)
+        if ow != w:
+            ww = _resize_weights(w, ow, kernel).to(out.device, out.dtype)
+            out = torch.einsum("nchw,wx->nchx", out, ww)
+        return out
+    if mode not in ("bilinear", "linear"):
+        raise NotImplementedError(f"align_corners=True with mode={mode!r}")
+    return TF.interpolate(x.float(), size=(oh, ow), mode="bilinear",
+                          align_corners=True).to(x.dtype)
+
+
+upsample = interpolate

@@ -1,13 +1,42 @@
-"""``LayerNorm`` and ``RMSNorm`` (counterpart of ``paddle_tpu/nn/norm.py``).
-Both normalise in fp32 and round to the input's dtype before the
-weight (and bias) are applied."""
+"""Normalization layers (counterpart of ``paddle_tpu/nn/norm.py``:
+``LayerNorm``, ``RMSNorm``, ``BatchNorm2D`` and its aliases ``BatchNorm1D``,
+``BatchNorm3D`` and ``BatchNorm``, ``SyncBatchNorm``, ``GroupNorm``,
+``InstanceNorm2D``). Each normalises in fp32 and rounds to the input's
+dtype before the weight (and bias) are applied.
+
+BatchNorm keeps its running statistics in the buffers ``_mean`` and
+``_variance``, the JAX names. A forward in training mode moves them, as
+the JAX layer rebinds them, except inside :func:`running_stats_kept`,
+which the ``Trainer``'s step enters: the JAX Trainer runs
+``model.functional()`` without buffers, and ``Layer.bound`` restores them
+after the forward, so its steps normalise by the batch's statistics and
+leave the running ones where they were.
+"""
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from . import functional as F
+
+_kept = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_kept():
+    """Inside this block, on this thread, a BatchNorm in training mode
+    normalises by its batch's statistics and leaves its running
+    statistics as they are (the JAX Trainer's step)."""
+    prev = getattr(_kept, "on", False)
+    _kept.on = True
+    try:
+        yield
+    finally:
+        _kept.on = prev
 
 
 class RMSNorm(nn.Module):
@@ -51,3 +80,100 @@ class LayerNorm(nn.Module):
 
     def extra_repr(self):
         return f"{self.normalized_shape}, eps={self.epsilon}"
+
+
+class BatchNorm2D(nn.Module):
+    """Batch norm over dim 1 of a [N, C, ...] input (so also the 1-D and
+    3-D layers), Paddle's momentum convention (``functional.batch_norm``)."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.num_features = num_features
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(num_features, **kw))
+        self.bias = nn.Parameter(torch.zeros(num_features, **kw))
+        self.register_buffer("_mean", torch.zeros(num_features, **kw))
+        self.register_buffer("_variance", torch.ones(num_features, **kw))
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self._mean, self._variance, self.weight,
+                                self.bias, training=False,
+                                epsilon=self.epsilon)
+        out, new_mean, new_var = F.batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=True, momentum=self.momentum, epsilon=self.epsilon)
+        if not getattr(_kept, "on", False):
+            with torch.no_grad():
+                self._mean.copy_(new_mean)
+                self._variance.copy_(new_var)
+        return out
+
+    def extra_repr(self):
+        return f"{self.num_features}"
+
+
+BatchNorm1D = BatchNorm2D    # the same math; F.batch_norm reads the rank
+BatchNorm3D = BatchNorm2D
+BatchNorm = BatchNorm2D
+
+
+class SyncBatchNorm(BatchNorm2D):
+    """``BatchNorm`` whose batch statistics span the whole data-parallel
+    batch. The JAX package gets that from GSPMD (its batch mean is
+    global); here a rank holds its own rows, so on a mesh whose dp x fsdp
+    degree is above 1 a training forward raises ``NotImplementedError``
+    (the cross-rank statistics are not ported). At a world of one it is
+    ``BatchNorm``."""
+
+    def forward(self, x):
+        from ..distributed.env import axis_degree
+        if self.training and axis_degree(("dp", "fsdp")) > 1:
+            raise NotImplementedError(
+                "SyncBatchNorm on a mesh with dp x fsdp > 1 (batch "
+                "statistics over every rank's rows) is not ported")
+        return super().forward(x)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        return layer
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.num_groups = num_groups
+        self.num_channels = num_channels
+        self.epsilon = epsilon
+        self.weight = (nn.Parameter(torch.ones(num_channels, **kw))
+                       if weight_attr is not False else None)
+        self.bias = (nn.Parameter(torch.zeros(num_channels, **kw))
+                     if bias_attr is not False else None)
+
+    def forward(self, x):
+        return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                            self.epsilon)
+
+    def extra_repr(self):
+        return f"{self.num_groups}, {self.num_channels}, eps={self.epsilon}"
+
+
+class InstanceNorm2D(nn.Module):
+    def __init__(self, num_features, epsilon=1e-5, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.num_features = num_features
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(num_features, **kw))
+        self.bias = nn.Parameter(torch.zeros(num_features, **kw))
+
+    def forward(self, x):
+        return F.instance_norm(x, self.weight, self.bias, self.epsilon)

@@ -75,6 +75,7 @@ from .distributed import env as denv
 from .distributed.collective import _reduce_
 from .io.device_prefetch import DevicePrefetcher, default_device_put
 from .nn import functional as F
+from .nn.norm import running_stats_kept
 from .optimizer.optimizers import Optimizer
 from .parallel import sharding
 from .parallel.pipeline import pipeline_grads
@@ -364,7 +365,10 @@ class Trainer:
         grads = None
         loss_sum = None
         for mb in micro:
-            loss = self._loss(mb, self.train_dataloader)
+            # the JAX step binds no buffers: BatchNorm's running statistics
+            # stay where they are (nn/norm.py)
+            with running_stats_kept():
+                loss = self._loss(mb, self.train_dataloader)
             target = scaler.scale(loss, sstate) if scaler else loss
             # a parameter the loss does not reach (the pooler under an MLM
             # loss) gets a zero gradient, as jax.grad gives it

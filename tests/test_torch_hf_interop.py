@@ -220,8 +220,8 @@ def test_strictness_and_unknown_models(tmp_path):
     d = _write(tmp_path / "extra", cfg, extra)
     with pytest.raises(KeyError, match="not in model"):
         hf_interop.from_pretrained(d, device="cpu")
-    d = _write(tmp_path / "vit", dict(cfg, model_type="vit"), {})
-    with pytest.raises(ValueError, match="vit"):
+    d = _write(tmp_path / "mamba", dict(cfg, model_type="mamba"), {})
+    with pytest.raises(ValueError, match="mamba"):
         hf_interop.from_pretrained(d, device="cpu")
 
 

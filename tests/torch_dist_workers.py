@@ -1559,3 +1559,61 @@ def lora_tp_cases(rank, world, p):
 
 
 CASES.update(lora_tp=lora_tp_cases)
+
+
+# ------------------------------------------------------------ vision at dp 2
+def clip_dp_cases(rank, world, p):
+    """CLIP's contrastive loss over {"dp": 2}: this rank's half of the
+    batch against the gathered features; the loss and the gradients of
+    the projections and logit scale. Then the refusals: ViT, CLIP and DiT
+    on a tp 2 mesh, SyncBatchNorm in training on dp 2."""
+    import math
+
+    import torch
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.models import (CLIPModel, DiT, ViTModel,
+                                         clip_contrastive_loss, clip_tiny,
+                                         dit_tiny, gather_features, vit_tiny)
+    from paddle_tpu_torch.nn import functional as F
+    D.init_parallel_env({"dp": world}, device="cpu")
+    model = _jax_weights(CLIPModel(clip_tiny(), device="cpu"), p["params"])
+    ids = torch.from_numpy(p["ids"]).long().chunk(world)[rank]
+    px = torch.from_numpy(p["px"]).chunk(world)[rank]
+    t = F.normalize(model.encode_text(ids), axis=-1)
+    v = F.normalize(model.encode_image(px), axis=-1)
+    scale = torch.exp(torch.clamp(model.logit_scale, max=math.log(100.0)))
+    tg, vg = gather_features(t, "dp"), gather_features(v, "dp")
+    loss = clip_contrastive_loss(scale * v @ tg.T, scale * t @ vg.T,
+                                 dp_axis="dp")
+    names = ("logit_scale", "text_projection", "visual_projection")
+    grads = torch.autograd.grad(loss, [getattr(model, k) for k in names])
+    out = {"loss": float(loss), "grads": dict(zip(names, _np(list(grads))))}
+    refused = {}
+    bn = nn.SyncBatchNorm(3, device="cpu")
+    try:
+        bn(torch.ones(4, 3, 2, 2))
+        refused["sync_bn"] = False
+    except NotImplementedError:
+        refused["sync_bn"] = True
+    env.clear_mesh()
+    D.init_parallel_env({"tp": world}, device="cpu")
+    calls = {"vit": lambda: ViTModel(vit_tiny(), device="cpu")(
+                 torch.zeros(1, 3, 32, 32)),
+             "clip": lambda: model.encode_text(ids),
+             "dit": lambda: DiT(dit_tiny(), device="cpu")(
+                 torch.zeros(1, 4, 8, 8), torch.zeros(1, dtype=torch.long),
+                 torch.zeros(1, dtype=torch.long))}
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = False
+        except NotImplementedError:
+            refused[name] = True
+    env.clear_mesh()
+    out["refused"] = refused
+    return out
+
+
+CASES.update(clip_dp=clip_dp_cases)
