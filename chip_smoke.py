@@ -170,7 +170,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.optim.AdamW(fused=True)`` and the bound. The feed A/B has a
    third arm, a DataLoader with two spawned workers. Then (``[resume]``)
    full width cut to 1 layer: 4 steps uninterrupted, a fresh run
-   preempted at step 3 (``SystemExit(76)``, a ~17.8 GB checkpoint), a
+   preempted at step 3 (``SystemExit(76)``, a ~17.8 GB checkpoint written
+   in the per-rank layout: this rank's pieces under ``r0/``, at a world
+   of one the whole state; the write and read seconds and bytes), a
    fresh Trainer resumed to step 4, whose final loss must be within 1e-6
    of the uninterrupted run's; and (``[fp16]``) the 4-layer model in fp16
    with fp32 masters and a GradScaler at its defaults for 10 steps (a
@@ -204,18 +206,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    everything before it freed): the flash forward, decode and ragged
    kernels at ERNIE-4.5's head shape (20 query heads on 4 kv heads,
    GQA group 5; bf16 and fp16) against their plain versions, and their
-   times beside SDPA and the bound; ERNIE-4.5-21B-A3B at full width and
-   depth (``Ernie45MoeConfig()``, 21.77 B params, random bf16 weights
-   drawn on the card) through ``Predictor.generate`` (4 x 512 + 64; the
+   times beside SDPA and the bound; ERNIE-4.5-21B-A3B at full width, cut
+   to 8 of its 28 layers (``MOE_CUTS``; random bf16 weights drawn on the
+   card) through ``Predictor.generate`` (4 x 512 + 64; the
    counts set to 0 just before the greedy run and read just after: flash
-   28, decode 28 x 63 from a step graph of 28 decode nodes, all on their
+   8, decode 8 x 63 from a step graph of 8 decode nodes, all on their
    tensor-core routes; greedy and sampled bit for bit the uncaptured
    step; the stream teacher forced through the model's forward step by
    step; an MoE layer free of host reads under the sync-debug mode; the
    step against the bound of reading every expert's weights; the step's
    device time split into expert products, routing and dispatch,
    attention kernels and the rest), then through ``PagedEngine`` (16
-   requests, whole-prompt prefill: ragged 28 x ticks inside the graphs,
+   requests, whole-prompt prefill: ragged 8 x ticks inside the graphs,
    all mma; a profiled steady tick); DeepSeek-V2-Lite's published widths
    (cut to 8 of its 27 layers, ``MOE_CUTS``) built through
    ``config_from_hf`` from a written ``config.json``,
@@ -345,8 +347,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    the traffic: ragged launches exactly 32 a decode tick, all on mma;
    flash launches 0 (the engine's prefill chunks attend through dense
    attention, as phase 11's counts show: flash serves ``generate()``);
-   the sequencer's host microseconds a step (record, send, apply). Printed: client TTFT p50/p99 and new tokens/s. A
-   SIGTERM drains the replica and every process of it exits 0. (b)
+   the sequencer's host microseconds a step (record, send, apply).
+   Printed: client TTFT p50/p99 and new tokens/s. The replica runs with
+   a spill arena and ``--migrate on``: a greedy stream sent to it alone,
+   then a SIGTERM after its first tokens; the drain migrates the stream
+   (its span banked, named as ``resume_kv``) and ``GET /kvz`` fetches
+   that span while the drain's grace holds the port: the decoded K/V
+   bit for bit the direct engine's arena record of the same prompt (their
+   blocks in common). Every process of the replica exits 0. (b)
    ``from_pretrained`` of the 2-layer full-width Llama-3-8B checkpoint
    (phase 10 (e)'s) inside ``sharded_build`` on a world-one NCCL mesh:
    every parameter bit for bit the whole loader's, with each load's
@@ -355,10 +363,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU gloo tests. The phase's ragged launches join the kernels line's.
 
 17. the MoE families and MLA served sharded (``[tp-moe]`` lines):
-   (a) ERNIE-4.5-21B-A3B at full width and depth from phase 11's seed,
+   (a) ERNIE-4.5-21B-A3B at full width and phase 11's depth cut (8
+   layers) from phase 11's seed,
    built inside ``sharded_build`` on a world-one ``{"tp": 1, "ep": 1}``
    NCCL mesh and bound once: ``Predictor.generate`` (4 x 512 + 64, the
-   counts set to 0 just before and read just after: flash 28, decode 28
+   counts set to 0 just before and read just after: flash 8, decode 8
    x 63 from the step graph) and the ``PagedEngine`` (phase 11's 16
    requests, whole-prompt prefill: ragged once per layer and tick), each
    stream bit for bit the plain model's that phase 11 recorded before
@@ -369,10 +378,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    against its plain version and timed beside SDPA or the bf16 matmul and
    the bound, and one MoE layer's expert products at E / ep = 64, 32 and
    16; (c) ``LocalProcessManager(tp=1, ep=1)`` spawns ``replica_main
-   --tp 1 --ep 1 --model ernie45-21b-a3b`` behind a ``FleetFrontend``: 8
+   --tp 1 --ep 1 --model ernie45-21b-a3b --layers 8`` behind a
+   ``FleetFrontend``: 8
    greedy requests and one sampled, one after another, every stream
    (tokens and logprobs) bit for bit the plain model's engine at the
-   replica's geometry (phase 11, after the same warm-up); ragged 28 a
+   replica's geometry (phase 11, after the same warm-up); ragged 8 a
    tick from its ``/debugz``; new tokens/s and TTFT; a SIGTERM drain,
    every process exiting 0; (d) DeepSeek-V2-Lite's widths (8 layers)
    built sharded on the world-one mesh through ``generate()``, and the
@@ -453,7 +463,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase's launches join the kernels line's, and (a)'s errors its
    errors.
 
-20. the vision and diffusion families (``[vision]`` lines, last), bf16,
+20. the vision and diffusion families (``[vision]`` lines), bf16,
    seeded weights (every trainable parameter noised: adaLN-Zero starts
    at zero), no attention kernel on this path (the attentions are dense
    plain ops, as the JAX modules' are XLA math): (a) DiT-XL/2
@@ -485,6 +495,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    0 just before and read just after: the fused AdamW update once a step
    and (parameter) dtype, nothing else; the losses fall. The phase's
    launches join the kernels line's.
+
+21. the fused-qkv families on a tp mesh (``[tp-zoo]`` lines, last): (b)
+   the flash forward, dq and dk/dv at GPT-1.3B's per-rank heads at tp 2
+   and tp 4 (q [4, 1024, 8 | 4, 128], causal) and the quant kernel at its
+   per-rank projections (``TPZ_QUANT``: the qkv rows of a rank's heads,
+   out and fc_out row-split, fc_in column-split; int8 and int4, m = 4),
+   each against its plain version and timed beside its library call and
+   the bound; then on a world-one NCCL mesh: (a) GPT-1.3B (24 layers)
+   twice from the seed, plain and built in ``sharded_build`` (its fused
+   qkv tagged as three blocks), through ``generate()`` (4 x 512 + 64) and
+   the int8 weight-only ``Predictor`` (96 quant nodes a step graph),
+   tokens bit for bit the plain model's, and 3 Trainer steps each ([4,
+   1024], AdamW: flash, dq, dk/dv 24 a step, one fused update a step),
+   losses bit for bit; (c) ViT-B/16 and DiT-XL/2 (bf16, noised) plain and
+   built sharded: an eval forward and a denoising step bit for bit; (d)
+   ResNet-50 one Trainer step through the BatchNorm that all-reduces its
+   statistics over the data axes: no collective issued at a world of one
+   (``nn.norm.stat_reductions``), its parameters bit for bit a step
+   through the per-rank statistics. tp > 1 is proved by the CPU gloo
+   tests. The sharded runs' launches join the kernels line's.
 
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
@@ -4691,6 +4721,12 @@ def phase_resume(seed, dev, card):
     save = dict(tr._ckpt.last_save) if tr._ckpt is not None else {}
     step_dir = os.path.join(out, "checkpoints", str(RESUME_PREEMPT))
     gb = _dir_gb(step_dir) if os.path.isdir(step_dir) else 0.0
+    layout = {}
+    if os.path.isdir(step_dir):
+        with open(os.path.join(step_dir, "index.json")) as f:
+            layout["format"] = json.load(f).get("format")
+        layout["pieces"] = sum(len(files) for _, _, files in
+                               os.walk(os.path.join(step_dir, "r0")))
     free1 = shutil.disk_usage(root).free / 1e9
     stopped = tr.global_step
     del tr
@@ -4700,12 +4736,16 @@ def phase_resume(seed, dev, card):
         f"from 32 for the checkpoint's size on this machine's disk), "
         f"{n_params / 1e9:.3f} B params: preempt@{RESUME_PREEMPT} -> "
         f"SystemExit({code}) at step {stopped}; checkpoint of step "
-        f"{RESUME_PREEMPT}: {gb:.2f} GB written, host copy "
+        f"{RESUME_PREEMPT}: {gb:.2f} GB written in the per-rank layout "
+        f"({layout.get('format')}: {layout.get('pieces')} piece files "
+        f"under r0/, this rank's {save.get('bytes', 0) / 1e9:.2f} GB of "
+        f"the state: at a world of one all of it), host copy "
         f"{save.get('snapshot_s', float('nan')):.2f} s + files, sha256 and "
         f"commit {save.get('write_s', float('nan')):.2f} s (the run "
         f"{preempt_s:.1f} s in all); free disk {free0:.1f} GB before, "
         f"{free1:.1f} GB after [{card}]")
-    if code != PREEMPTED_RC or stopped != RESUME_PREEMPT or not gb:
+    if code != PREEMPTED_RC or stopped != RESUME_PREEMPT or not gb or \
+            not layout.get("pieces"):
         fail(f"resume: the preempted run exited {code} at step {stopped} "
              f"(want SystemExit({PREEMPTED_RC}) at step {RESUME_PREEMPT} "
              f"with a checkpoint)")
@@ -4884,10 +4924,14 @@ DSV2_LITE = {
 # experts, the top-2-sum group score, 4 groups eligible, one MTP module
 DSV3_VARIANT = dict(DSV2_LITE, model_type="deepseek_v3", n_group=8,
                     topk_group=4, norm_topk_prob=True)
-# the MoE phase's depth cuts: DeepSeek-V2-Lite's widths (and the V3-style
-# variant) at 8 of their 27 layers, for the script's time limit; ERNIE at
-# its full depth (the tp-moe replica process builds it whole)
-MOE_CUTS = "DeepSeek-V2-Lite's widths at 8 of 27 layers"
+# the MoE phase's depth cuts, for the script's time limit:
+# DeepSeek-V2-Lite's widths (and the V3-style variant) at 8 of their 27
+# layers; ERNIE-4.5-21B-A3B at 8 of its 28 (the tp-moe phase builds it,
+# and its replica process draws it, at the same depth: replica_main
+# --layers)
+MOE_ERNIE_LAYERS = 8
+MOE_CUTS = ("DeepSeek-V2-Lite's widths at 8 of 27 layers; "
+            f"ERNIE-4.5-21B-A3B at {MOE_ERNIE_LAYERS} of 28 layers")
 
 
 def _moe_kernel_checks(gen, dev, card):
@@ -5132,21 +5176,22 @@ def _moe_sync_free(model, dev):
 
 
 def _moe_ernie(seed, dev, card):
-    """ERNIE-4.5-21B-A3B at full width and depth, random bf16 weights
-    drawn on the card: ``generate`` (graphed; against the uncaptured
+    """ERNIE-4.5-21B-A3B at full width, its depth cut (``MOE_CUTS``),
+    random bf16 weights drawn on the card: ``generate`` (graphed; against the uncaptured
     step; teacher forced), the decode step's split and bound, then the
     PagedEngine. Returns the launches of the main paths."""
     import numpy as np
 
     import paddle_tpu_torch as ptt
     t0 = time.perf_counter()
-    cfg = ptt.models.Ernie45MoeConfig()
+    cfg = ptt.models.Ernie45MoeConfig(num_hidden_layers=MOE_ERNIE_LAYERS)
     model = ptt.models.Ernie45MoeForCausalLM(
         cfg, device=dev, generator=ptt.make_generator(seed + 60, dev))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     L = cfg.num_hidden_layers
-    log(f"[moe] ERNIE-4.5-21B-A3B (Ernie45MoeConfig() defaults: {L} layers, "
+    log(f"[moe] ERNIE-4.5-21B-A3B (Ernie45MoeConfig() defaults, cut to {L} "
+        f"of 28 layers, MOE_CUTS: "
         f"hidden {cfg.hidden_size}, heads {cfg.num_attention_heads}/"
         f"{cfg.num_key_value_heads}, {cfg.num_experts} experts top-"
         f"{cfg.num_experts_per_tok} of width {cfg.moe_intermediate_size}, "
@@ -6790,10 +6835,10 @@ def _tp_attention(gen, dev, card, heads=None, tag="[tp] (a)"):
 
 
 def _tp_quant(gen, dev, card, table=TP_QUANT, bits_set=(8, 4),
-              tag="[tp] (a)"):
+              tag="[tp] (a)", rows_m=(4, 16)):
     """(a) The quant kernel at Llama-3-70B's per-rank projections at tp 4
     (``table``: ``TP_QUANT``), int8 and int4 (``bits_set``), m = 4 and 16
-    (``tag`` heads the lines): the row layers through
+    (``rows_m``; ``tag`` heads the lines): the row layers through
     the wrapper's ``block_offset`` into the whole scales table. Each
     against its plain version over the rank's scale blocks (``TOL_QUANT_*``),
     on the mma route by count; its device time beside the plain version,
@@ -6816,7 +6861,7 @@ def _tp_quant(gen, dev, card, table=TP_QUANT, bits_set=(8, 4),
                 sets.append((codes, scales))
             ws = [dequantize_weight(c, s[off:off + nb], bits,
                                     dtype=torch.bfloat16) for c, s in sets]
-            for m in (4, 16):
+            for m in rows_m:
                 x = torch.randn(m, din, generator=gen,
                                 device=dev).to(torch.bfloat16)
                 mma0 = quant_matmul.launches_by_route["mma"]
@@ -7128,6 +7173,11 @@ def phase_tp(seed, gen, dev, card):
 # 384-token prefix (tails of 16-128 tokens), one sampled; 64 new each
 TP_SERVE_PREFIX = 384
 TP_SERVE_NEW = 64
+# the replica's spill arena, and the stream the SIGTERM drain migrates
+# (a 256-token prompt: two 128-token chunks, the span /kvz serves)
+TP_SERVE_SPILL_MB = 2048
+TP_SERVE_KVZ_PROMPT = 256
+TP_SERVE_KVZ_NEW = 512
 
 
 def _tp_serve_requests(seed, vocab):
@@ -7172,6 +7222,100 @@ async def _tp_serve_traffic(fe, reqs):
     return out, wall
 
 
+async def _http_get(port, path):
+    """One HTTP/1.1 GET on this machine: (status, body bytes)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: t\r\n\r\n".encode())
+        await writer.drain()
+        status = int((await reader.readline()).split()[1])
+        n = 0
+        while True:
+            ln = await reader.readline()
+            if ln in (b"\r\n", b"\n", b""):
+                break
+            k, _, v = ln.decode().partition(":")
+            if k.strip().lower() == "content-length":
+                n = int(v.strip())
+        return status, (await reader.readexactly(n) if n else b"")
+    finally:
+        writer.close()
+        try:
+            await writer.wait_closed()
+        except Exception:
+            pass
+
+
+async def _tp_serve_kvz(port, proc, prompt):
+    """A greedy stream sent to the replica itself; after its first
+    tokens, SIGTERM: the drain migrates it (its span banked in the
+    replica's arena, its final event naming the digest as
+    ``resume_kv``), and ``/kvz`` serves that span while the drain's grace
+    holds the port. Returns (final event, tokens seen, /kvz status, the
+    record)."""
+    import asyncio
+    units = []
+    task = asyncio.ensure_future(_sse_timed(port, dict(
+        request_id="kvz", prompt=prompt, max_new_tokens=TP_SERVE_KVZ_NEW,
+        temperature=0.0), units))
+    t0 = time.monotonic()
+    while len(units) < 4 and not task.done() and \
+            time.monotonic() - t0 < FLEET_PEER_READ_TIMEOUT_S:
+        await asyncio.sleep(0.002)
+    proc.send_signal(signal.SIGTERM)
+    _, fin, _ = await task
+    digest = (fin or {}).get("resume_kv") or ""
+    status, blob = (await _http_get(port, f"/kvz?digest={digest}")
+                    if digest else (None, b""))
+    return fin or {}, len(units), status, blob
+
+
+def _tp_serve_kvz_check(kvz, direct, prompt, card):
+    """The /kvz record of the migrated stream's span against the direct
+    plain engine's arena: the same prompt served to the same span
+    (chunked prefill), its parked prefix banked, the payload taken for
+    the record's digest; the decoded K/V bit for bit equal. Returns the
+    direct engine's ragged launches (none: the stream is one token)."""
+    from paddle_tpu_torch.serving import KVSpillArena, kvxfer
+    fin, seen, status, blob = kvz
+    digest = fin.get("resume_kv") or ""
+    geo = direct._spill_geometry()
+    try:
+        got_digest, tokens, payload = kvxfer.decode_span(blob, geo)
+    except kvxfer.XferError as e:
+        fail(f"tp-serve (a): the replica's /kvz record of {digest[:12]} "
+             f"(status {status}, {len(blob)} B; stream finish "
+             f"{fin.get('finish_reason')}) does not decode: {e}")
+    arena = KVSpillArena(4 << 30, name="chip-tp-serve-direct")
+    direct.attach_spill(arena)
+    direct.submit("kvz", torch.as_tensor(prompt), max_new_tokens=1)
+    direct.run()
+    direct.spill_parked()
+    want = arena.take(bytes.fromhex(digest), geo)
+    # the records' leading blocks in common (each record the whole span
+    # its digest belongs to: the migrated stream's reaches its computed
+    # tokens, the direct engine's its parked prefix)
+    same, blocks = False, 0
+    if want is not None:
+        a = kvxfer._heads_view(payload, geo)
+        b = kvxfer._heads_view(want[0], geo)
+        blocks = min(a.shape[1], b.shape[1])
+        same = blocks > 0 and bool((a[:, :blocks] == b[:, :blocks]).all())
+    log(f"[tp-serve] (a) a live stream ({len(prompt)}-token prompt) "
+        f"migrated by the SIGTERM drain after {seen} tokens (finish "
+        f"{fin.get('finish_reason')}, {len(fin.get('tokens', []))} "
+        f"committed): GET /kvz?digest={digest[:12]}.. -> {status}, a "
+        f"{len(blob)} B kvxfer record of {tokens} tokens, geometry {geo}; "
+        f"its K/V bit for bit the direct plain engine's arena record of "
+        f"the same span over their {blocks} blocks in common "
+        f"({blocks * geo[1]} tokens): {same} [{card}]")
+    if got_digest != digest or not same:
+        fail("tp-serve (a): the replica's /kvz record is not the direct "
+             "engine's span")
+    return 0
+
+
 def _tp_serve_fleet(seed, dev, card):
     """(a) One tp replica of one rank behind the fleet: spawned through
     the launcher, its streams bit for bit a direct plain engine's, its
@@ -7195,6 +7339,8 @@ def _tp_serve_fleet(seed, dev, card):
                        peer_read_timeout_s=FLEET_PEER_READ_TIMEOUT_S)
     mgr = LocalProcessManager(fe, model="llama3-8b", chunk_tokens=128,
                               seed=seed, tp=1,
+                              extra_args=["--spill-mb", str(TP_SERVE_SPILL_MB),
+                                          "--migrate", "on"],
                               spawn_timeout_s=FLEET_SPAWN_TIMEOUT_S,
                               probe_interval_s=0.25, stale_after_s=10.0,
                               drain_grace_s=60.0, log_dir=log_dir)
@@ -7227,8 +7373,14 @@ def _tp_serve_fleet(seed, dev, card):
                     / max(steps, 1)
                     for k in ("record", "broadcast", "apply", "step")}
         pids = seq1["pids"]
-        # the SIGTERM drain: the launcher passes it on, rank 0 drains
+        # the SIGTERM drain: the launcher passes it on, rank 0 drains,
+        # migrating a live stream (its span banked in the arena and
+        # served over /kvz while the drain's grace holds the port open)
+        kvz_prompt = torch.randint(
+            0, cfg.vocab_size, (TP_SERVE_KVZ_PROMPT,),
+            generator=torch.Generator().manual_seed(seed + 63)).tolist()
         t0 = time.perf_counter()
+        kvz = asyncio.run(_tp_serve_kvz(peer.port, proc, kvz_prompt))
         mgr.stop_all(grace_s=60.0)
         rc = proc.wait(10)
         drain_s = time.perf_counter() - t0
@@ -7293,8 +7445,11 @@ def _tp_serve_fleet(seed, dev, card):
         if rc != 0 or alive:
             fail(f"tp-serve (a): the drained replica's launcher exited {rc}, "
                  f"rank processes left {alive}")
+        launches = {"ragged": ragged}
+        launches["ragged"] += _tp_serve_kvz_check(kvz, direct, kvz_prompt,
+                                                  card)
         del direct, model
-        return {"ragged": ragged}
+        return launches
     finally:
         mgr.stop_all(grace_s=10.0)
         if proc is not None and proc.poll() is None:
@@ -7466,7 +7621,7 @@ def _tp_moe_sharded(seed, dev, card, plain):
     from paddle_tpu_torch.parallel.sharding import (bind_static, local,
                                                     shard_layer,
                                                     sharded_build)
-    cfg = ptt.models.Ernie45MoeConfig()
+    cfg = ptt.models.Ernie45MoeConfig(num_hidden_layers=MOE_ERNIE_LAYERS)
     L = cfg.num_hidden_layers
     mesh = env.init_parallel_env({"tp": 1, "ep": 1})
     try:
@@ -7491,8 +7646,8 @@ def _tp_moe_sharded(seed, dev, card, plain):
             + ", ".join(f"{k} {v / 1e9:.2f} B ({2 * v / 1e9:.1f} GB)"
                         for k, v in per_rank.items())
             + f" [{card}]")
-        log(f"[tp-moe] (a) ERNIE-4.5-21B-A3B at full width and depth ({L} "
-            f"layers, {cfg.num_experts} experts a MoE layer) from seed "
+        log(f"[tp-moe] (a) ERNIE-4.5-21B-A3B at full width, cut to {L} "
+            f"layers (MOE_CUTS), {cfg.num_experts} experts a MoE layer) from seed "
             f"{seed + 60}, built sharded (sharded_build: each decoder "
             f"layer cut to this rank's shards as drawn) on mesh "
             f"{ {k: v for k, v in mesh.shape.items() if k in ('tp', 'ep')} }"
@@ -7603,7 +7758,7 @@ def _tp_moe_replica(seed, dev, card, plain):
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.serving.fleet import (FleetFrontend,
                                                 LocalProcessManager)
-    cfg = ptt.models.Ernie45MoeConfig()
+    cfg = ptt.models.Ernie45MoeConfig(num_hidden_layers=MOE_ERNIE_LAYERS)
     L = cfg.num_hidden_layers
     reqs = _tp_moe_requests(seed, cfg.vocab_size)
     ref = plain["replica"]
@@ -7612,7 +7767,8 @@ def _tp_moe_replica(seed, dev, card, plain):
                        peer_read_timeout_s=FLEET_PEER_READ_TIMEOUT_S)
     mgr = LocalProcessManager(fe, model="ernie45-21b-a3b",
                               chunk_tokens=TP_MOE_CHUNK, seed=seed + 60,
-                              tp=1, ep=1,
+                              tp=1, ep=1, extra_args=[
+                                  "--layers", str(MOE_ERNIE_LAYERS)],
                               spawn_timeout_s=FLEET_SPAWN_TIMEOUT_S,
                               probe_interval_s=0.25, stale_after_s=10.0,
                               drain_grace_s=60.0, log_dir=log_dir)
@@ -8615,10 +8771,11 @@ TOL_ZOO_RATIO = 1.25
 GPT_PER_LAYER = 4                    # GPT's quantized projections a layer
 
 
-def _zoo_flash(gen, dev, card):
+def _zoo_flash(gen, dev, card, shapes=ZOO_FLASH, tag="[zoo] (a)"):
     """(a) The flash forward, dq and dk/dv at the slice's new shapes
-    (``ZOO_FLASH``: GPT-1.3B's and GPT-2's causal prefill and training
-    shapes, the encoder's non-causal one), bf16: each against its plain
+    (``shapes``, default ``ZOO_FLASH``: GPT-1.3B's and GPT-2's causal
+    prefill and training shapes, the encoder's non-causal one; ``tag``
+    heads the lines), bf16: each against its plain
     version (``TOL_BF16``; the backward within ``TOL_BWD_BF16`` of the
     largest reference gradient) on the wgmma route by count, then its
     time beside the plain version, SDPA (forward; its backward asked for
@@ -8631,7 +8788,7 @@ def _zoo_flash(gen, dev, card):
         flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_fwd_plain)
     rows = []
-    for label, (b, s, h, d), causal in ZOO_FLASH:
+    for label, (b, s, h, d), causal in shapes:
         fns = {"flash": flash_attention_fwd,
                "flash_bwd_dq": flash_attention_bwd_dq,
                "flash_bwd_dkv": flash_attention_bwd_dkv}
@@ -8672,17 +8829,17 @@ def _zoo_flash(gen, dev, card):
         routes = {k: {r: c - before[k][r]
                       for r, c in f.launches_by_route.items()}
                   for k, f in fns.items()}
-        log(f"[zoo] (a) flash at {label}'s shape q = k = v {[b, s, h, d]} "
+        log(f"{tag} flash at {label}'s shape q = k = v {[b, s, h, d]} "
             f"bf16 {'causal' if causal else 'non-causal'}: max_abs_err "
             f"against the plain versions " + ", ".join(
                 f"{k} {e:.3e}" for k, e in errs.items())
             + f" (tol {TOL_BF16}, backward {TOL_BWD_BF16} x max|ref|); "
             f"launches by route {routes}")
         if errs["flash"] > TOL_BF16 or bad:
-            fail(f"[zoo] (a) {label}: a flash kernel disagrees with its "
+            fail(f"{tag} {label}: a flash kernel disagrees with its "
                  f"plain version ({bad})")
         if any(r["wgmma"] != 1 or r["simt"] for r in routes.values()):
-            fail(f"[zoo] (a) {label}: not one wgmma launch each: {routes}")
+            fail(f"{tag} {label}: not one wgmma launch each: {routes}")
         del got, ref, ref_out
 
         def fwd_args(i):
@@ -8724,7 +8881,7 @@ def _zoo_flash(gen, dev, card):
                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                           err=errs[key])
             r = t[key]
-            log(f"[zoo] (a) time {key} at {label}'s q {[b, s, h, d]} "
+            log(f"{tag} time {key} at {label}'s q {[b, s, h, d]} "
                 f"{'causal' if causal else 'non-causal'}: kernel "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
                 f"{r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
@@ -8736,7 +8893,8 @@ def _zoo_flash(gen, dev, card):
     return rows
 
 
-def _zoo_generate(ptt, pred, ids, new, label, card, quant=0):
+def _zoo_generate(ptt, pred, ids, new, label, card, quant=0,
+                  tag="[zoo]"):
     """``Predictor.generate`` on GPT, greedy, through its captured step:
     the counts set to 0 just before the timed run and read just after
     (no attention kernel: GPT attends its cache densely, as the JAX
@@ -8765,33 +8923,33 @@ def _zoo_generate(ptt, pred, ids, new, label, card, quant=0):
     launches = read()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = dict(NO_LAUNCHES, quant=quant * (new - 1))
-    log(f"[zoo] {label} launches in one generate: {launches} (want {want})")
+    log(f"{tag} {label} launches in one generate: {launches} (want {want})")
     if launches != want:
-        fail(f"[zoo] {label}: kernel launches {launches} != {want}")
+        fail(f"{tag} {label}: kernel launches {launches} != {want}")
     if quant:
-        _check_routes(f"zoo {label}", quant=quant * (new - 1))
+        _check_routes(f"{tag} {label}", quant=quant * (new - 1))
     prog = _step_program(pred.model, lambda k: k[:4] == (
         "generate", b, prompt + new, False), label)
     nodes, n_nodes, n_memory = _graph_kernels(
         prog, label, {"flash_fwd": 0, "decode_": 0, "qmm_mma": quant})
     decode_ms = (total_ms - prefill_ms) / (new - 1)
-    log(f"[zoo] {label} the decode step is one CUDA-graph replay of "
+    log(f"{tag} {label} the decode step is one CUDA-graph replay of "
         f"{n_nodes} kernel nodes ({nodes}: no attention kernel) and "
         f"{n_memory} memcpy/memset nodes; prefill {prefill_ms:.1f} ms ({b} "
         f"x {prompt}), decode {decode_ms:.2f} ms/step, "
         f"{b * new / (total_ms / 1e3):.1f} new tokens/s, peak memory "
         f"{peak_gb:.2f} GB [{card}]")
     if not torch.equal(pred.generate(ids, config=greedy), out):
-        fail(f"[zoo] {label}: a second greedy generate gave other tokens")
+        fail(f"{tag} {label}: a second greedy generate gave other tokens")
     t0 = time.perf_counter()
     with eager_steps():
         eager = pred.generate(ids, config=greedy)
     torch.cuda.synchronize()
     eager_ms = ((time.perf_counter() - t0) * 1e3 - prefill_ms) / (new - 1)
     if not torch.equal(eager, out):
-        fail(f"[zoo] {label}: the graphed stream differs from the "
+        fail(f"{tag} {label}: the graphed stream differs from the "
              f"uncaptured step's")
-    log(f"[zoo] {label} greedy streams bit for bit the uncaptured step's "
+    log(f"{tag} {label} greedy streams bit for bit the uncaptured step's "
         f"({eager_ms:.2f} ms/step uncaptured) [{card}]")
     return out, decode_ms, launches
 
@@ -9960,6 +10118,274 @@ def phase_vision(seed, dev, card):
 
 
 
+# phase 21: the fused-qkv families on a tp mesh. GPT-1.3B's per-rank
+# shapes at tp 2 and 4: the flash kernels' q [4, 1024, 16 / tp, 128]
+# (causal, the Trainer's and prefill's), and its four projections a rank
+# (label, din of the rank's codes, dout of the rank's codes, scale blocks
+# of the whole table, the rank whose blocks are read: a row layer's last)
+TPZ_FLASH = (("GPT-1.3B tp 2", (4, 1024, 8, 128), True),
+             ("GPT-1.3B tp 4", (4, 1024, 4, 128), True))
+TPZ_QUANT = (("qkv col tp 2", 2048, 3072, 16, 0),
+             ("qkv col tp 4", 2048, 1536, 16, 0),
+             ("out row tp 2", 1024, 2048, 16, 1),
+             ("out row tp 4", 512, 2048, 16, 3),
+             ("fc_in col tp 2", 2048, 4096, 16, 0),
+             ("fc_in col tp 4", 2048, 2048, 16, 0),
+             ("fc_out row tp 2", 4096, 2048, 64, 1),
+             ("fc_out row tp 4", 2048, 2048, 64, 3))
+TPZ_NEW = 64
+TPZ_VIT_BATCH = 16
+TPZ_DIT_BATCH = 8
+TPZ_RESNET_BATCH = 16
+
+
+def _tpz_gpt(seed, dev, card):
+    """(a) GPT-1.3B twice from the seed: plain, and built inside
+    ``sharded_build`` on the world-one mesh (its fused qkv tagged as three
+    blocks, ``fused_parts``), cut by ``shard_layer`` and bound once;
+    greedy ``generate()`` and the int8 weight-only ``Predictor`` bit for
+    bit the plain model's, then 3 Trainer steps each (AdamW, fp32
+    masters): the sharded model's losses the plain model's. Returns the
+    sharded paths' launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.parallel.sharding import (bind_static, local,
+                                                    shard_layer,
+                                                    sharded_build)
+    cfg = ptt.GPTConfig()
+    L = cfg.num_hidden_layers
+
+    def build(sharded, seed_=seed + 400, **kw):
+        if not sharded:
+            return ptt.GPTForCausalLM(
+                cfg, device=dev, generator=ptt.make_generator(seed_, dev))
+        with sharded_build(**kw):
+            m = ptt.GPTForCausalLM(
+                cfg, device=dev, generator=ptt.make_generator(seed_, dev))
+        shard_layer(m, **kw)
+        return m
+
+    serve = dict(fsdp_min_size=1 << 30)
+    plain, sharded = build(False), build(True, **serve)
+    bind_static(sharded)
+    qkv = sharded.model.layers[0].attn.qkv_proj
+    same = all(torch.equal(a, local(b)) for a, b in zip(
+        plain.parameters(), sharded.parameters()))
+    log(f"[tp-zoo] (a) GPT-1.3B ({L} layers of {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads of {cfg.head_dim}) twice from "
+        f"seed {seed + 400}: plain, and built sharded on the world-one "
+        f"mesh (qkv fused_parts {qkv._parameters['weight'].fused_parts}: "
+        f"at tp > 1 a rank holds its heads' q, k and v rows; at tp 1 the "
+        f"split is the identity): weights equal {same}")
+    if not same:
+        fail("tp-zoo (a): the sharded GPT's weights are not the plain ones")
+    ids = torch.randint(0, cfg.vocab_size, ZOO_PROMPT, device=dev,
+                        generator=ptt.make_generator(seed + 401, dev))
+    launches = dict.fromkeys(NO_LAUNCHES, 0)
+    outs = {}
+    for arm, m in (("plain", plain), ("sharded", sharded)):
+        pred = ptt.Predictor(m, device=dev)
+        outs[arm], _, _ = _zoo_generate(ptt, pred, ids, TPZ_NEW,
+                                        f"(a) {arm} bf16", card,
+                                        tag="[tp-zoo]")
+        del pred
+    if not torch.equal(outs["plain"], outs["sharded"]):
+        fail("tp-zoo (a): the sharded GPT's greedy tokens differ from the "
+             "plain model's")
+    del plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arm in ("plain", "sharded"):
+        m = build(arm == "sharded", **serve)
+        if arm == "sharded":
+            bind_static(m)
+        pred = ptt.Predictor(m, ptt.Config().enable_weight_only_quant(8),
+                             device=dev)
+        outs[arm], _, got = _zoo_generate(
+            ptt, pred, ids, TPZ_NEW, f"(a) {arm} int8", card,
+            quant=GPT_PER_LAYER * L, tag="[tp-zoo]")
+        if arm == "sharded":
+            for k, v in got.items():
+                launches[k] += v
+        del pred, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not torch.equal(outs["plain"], outs["sharded"]):
+        fail("tp-zoo (a): the sharded GPT's int8 tokens differ from the "
+             "plain model's")
+    log(f"[tp-zoo] (a) generate 4 x 512 + {TPZ_NEW}, greedy, bf16 and int8 "
+        f"weight-only: the sharded model's tokens bit for bit the plain "
+        f"model's [{card}]")
+    rs = np.random.RandomState(seed + 402)
+    batch = rs.randint(0, cfg.vocab_size, ZOO_TRAIN)
+    losses = {}
+    for arm in ("plain", "sharded"):
+        m = build(arm == "sharded", seed_=seed + 403)
+        tr = _zoo_trainer(ptt, m, [batch], ZOO_STEPS, 1e-3)
+        tr.args.output_dir = "output/chip_smoke_tp_zoo"
+        want = dict(NO_LAUNCHES, flash=L * ZOO_STEPS,
+                    flash_bwd_dq=L * ZOO_STEPS, flash_bwd_dkv=L * ZOO_STEPS,
+                    fused_adamw=_update_launches(m, ZOO_STEPS))
+        got, _ = _zoo_train_run(
+            tr, ZOO_STEPS, f"(a) GPT-1.3B {arm} train [{ZOO_TRAIN[0]}, "
+            f"{ZOO_TRAIN[1]}]", want, card, tokens=ZOO_TRAIN[0] * ZOO_TRAIN[1],
+            tag="[tp-zoo]")
+        losses[arm] = [v for _, v in tr.logger.history["loss"]]
+        if arm == "sharded":
+            for k, v in got.items():
+                launches[k] += v
+        del tr, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[tp-zoo] (a) 3 Trainer steps: plain losses "
+        + ", ".join(f"{x:.6f}" for x in losses["plain"]) + "; sharded "
+        + ", ".join(f"{x:.6f}" for x in losses["sharded"])
+        + f"; bit for bit {losses['plain'] == losses['sharded']} [{card}]")
+    if losses["plain"] != losses["sharded"]:
+        fail("tp-zoo (a): the sharded GPT's Trainer losses differ from the "
+             "plain model's")
+    return launches
+
+
+def _tpz_vision(seed, dev, card):
+    """(c) ViT-B/16 and DiT-XL/2 twice from the seed in bf16, plain and
+    built sharded on the world-one mesh: one eval forward and one
+    denoising step bit for bit the plain model's."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import dit, vit
+    from paddle_tpu_torch.parallel.sharding import (bind_static,
+                                                    shard_layer,
+                                                    sharded_build)
+    bf = torch.bfloat16
+    gen = ptt.make_generator(seed + 410, dev)
+    cases = (
+        ("ViT-B/16", lambda g: vit.ViTForImageClassification(
+            vit.vit_base_patch16_224(dtype=bf), device=dev, generator=g),
+         lambda: (torch.randn(TPZ_VIT_BATCH, 3, 224, 224, generator=gen,
+                              device=dev).to(bf),)),
+        ("DiT-XL/2", lambda g: dit.DiT(dit.dit_xl_2(dtype=bf), device=dev,
+                                       generator=g),
+         lambda: (torch.randn(TPZ_DIT_BATCH, 4, 32, 32, generator=gen,
+                              device=dev).to(bf),
+                  torch.randint(0, 1000, (TPZ_DIT_BATCH,), generator=gen,
+                                device=dev),
+                  torch.randint(0, 1000, (TPZ_DIT_BATCH,), generator=gen,
+                                device=dev))))
+    for label, make, inputs in cases:
+        # seeded noise on both (adaLN-Zero would make DiT's output zero)
+        with torch.no_grad():
+            plain = _noised(make(ptt.make_generator(seed + 411, dev)),
+                            seed + 412).eval()
+            with sharded_build(fsdp_min_size=1 << 30):
+                sharded = _noised(make(ptt.make_generator(seed + 411, dev)),
+                                  seed + 412)
+        shard_layer(sharded, fsdp_min_size=1 << 30)
+        bind_static(sharded)
+        sharded.eval()
+        args = inputs()
+        with torch.no_grad():
+            a, b = plain(*args), sharded(*args)
+        torch.cuda.synchronize()
+        what = "eval logits" if label.startswith("ViT") else \
+            "denoising step's output"
+        log(f"[tp-zoo] (c) {label} bf16, plain and built sharded on the "
+            f"world-one mesh: one {what} {list(a.shape)}, bit for bit "
+            f"{torch.equal(a, b)} [{card}]")
+        if not torch.equal(a, b):
+            fail(f"tp-zoo (c): the sharded {label}'s {what} differs from "
+                 f"the plain model's")
+        del plain, sharded, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _tpz_resnet(seed, dev, card):
+    """(d) ResNet-50, bf16, one Trainer step through the BatchNorm that
+    all-reduces its statistics over the data axes, at a world of one: no
+    collective issued (``nn.norm.stat_reductions``), the parameters bit
+    for bit a step through the per-rank statistics of the layer before
+    the all-reduce (``functional.batch_norm`` without ``ranks``)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import norm
+    rs = np.random.RandomState(seed + 420)
+    px = torch.from_numpy(rs.randn(TPZ_RESNET_BATCH, 3, 224, 224)
+                          .astype(np.float32)).to(dev, torch.bfloat16)
+    labels = torch.from_numpy(rs.randint(0, 1000, TPZ_RESNET_BATCH)).to(dev)
+    params = {}
+    real = F.batch_norm
+    for arm in ("global", "local"):
+        model = resnet.resnet50(device=dev, dtype=torch.bfloat16,
+                                generator=ptt.make_generator(seed + 421,
+                                                             dev))
+        tr = _zoo_trainer(ptt, model, [{"px": px, "labels": labels}], 1,
+                          VISION_LR, loss_fn=lambda m, b: F.cross_entropy(
+                              m(b["px"]), b["labels"]))
+        tr.args.output_dir = "output/chip_smoke_tp_zoo"
+        before = norm.stat_reductions
+        if arm == "local":
+            # the layer's statistics as computed before the all-reduce
+            def local_only(*a, ranks=1, axes=(), **kw):
+                return real(*a, **kw)
+            F.batch_norm = local_only
+        try:
+            tr.train()
+        finally:
+            F.batch_norm = real
+        torch.cuda.synchronize()
+        issued = norm.stat_reductions - before
+        params[arm] = {k: v.detach().clone()
+                       for k, v in model.named_parameters()}
+        if arm == "global":
+            log(f"[tp-zoo] (d) ResNet-50 bf16, one Trainer step on "
+                f"[{TPZ_RESNET_BATCH}, 3, 224, 224] at a world of one: "
+                f"statistics all-reduces issued {issued} (a degree of 1 "
+                f"issues none) [{card}]")
+            if issued:
+                fail(f"tp-zoo (d): {issued} statistics all-reduces at a "
+                     f"world of one")
+        del tr, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = all(torch.equal(params["global"][k], params["local"][k])
+               for k in params["global"])
+    log(f"[tp-zoo] (d) the step's {len(params['global'])} parameters bit "
+        f"for bit the per-rank statistics' step: {same} [{card}]")
+    if not same:
+        fail("tp-zoo (d): ResNet-50's step differs from the step through "
+             "the per-rank statistics")
+
+
+def phase_tp_zoo(seed, gen, dev, card):
+    """Phase 21 (module docstring). Returns the launches of the main-path
+    runs by kernel key."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import env
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(NO_LAUNCHES, 0)
+    _zoo_flash(gen, dev, card, shapes=TPZ_FLASH, tag="[tp-zoo] (b)")
+    _tp_quant(gen, dev, card, table=TPZ_QUANT, tag="[tp-zoo] (b)",
+              rows_m=(4,))
+    mesh = env.init_parallel_env({"tp": 1})
+    try:
+        log(f"[tp-zoo] world-one mesh {mesh.shape} over "
+            f"{dist.get_backend()} (world {dist.get_world_size()})")
+        for k, v in _tpz_gpt(seed, dev, card).items():
+            launches[k] += v
+        _tpz_vision(seed, dev, card)
+        _tpz_resnet(seed, dev, card)
+    finally:
+        env.clear_mesh()
+        dist.destroy_process_group()
+    log(f"[tp-zoo] phase {time.perf_counter() - t0:.1f} s; launches of its "
+        f"main-path runs {launches} [{card}]")
+    return launches
+
 def _clock_phases():
     """Make every ``phase_*`` function of this module log its wall time
     when it returns (``[wall]`` lines): the script's time limit is shared
@@ -10094,6 +10520,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for key, n in phase_vision(args.seed, dev, card).items():
+        launches[key] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_tp_zoo(args.seed, gen, dev, card).items():
         launches[key] += n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),

@@ -9,12 +9,17 @@ orbax checkpoints cannot be read here (nor these there):
 
     <dir>/<step>/index.json    {"format": FORMAT, "tree": ...}: the saved
                                nested dict, each tensor replaced by
-                               {"__tensor__": "t00012.bin", "dtype":
-                               "bfloat16", "shape": [...]}, other leaves
+                               {"__tensor__": "t00012", "dtype":
+                               "bfloat16", "shape": [...], "pieces":
+                               [{"file": "r1/t00012.0.bin", "index":
+                               [[lo, hi], ...]}, ...]}, other leaves
                                (numbers, strings, None) kept as JSON
-    <dir>/<step>/t00012.bin    the tensor's raw bytes, little-endian, in
-                               its own dtype (bf16 and fp16 included)
-    <dir>/manifests/<step>.json  sha256 and size of every file of the step
+    <dir>/<step>/r<k>/t00012.<j>.bin  a piece of the tensor that rank k
+                               wrote: the elements of its box of the
+                               logical tensor, raw, little-endian, in the
+                               tensor's own dtype (bf16 and fp16 too)
+    <dir>/manifests/<step>.json  sha256 and size of every file of the
+                               step, every rank's
     <dir>/meta/<step>.json     the trainer's host-side sidecar (sampler
                                position, topology)
 
@@ -38,15 +43,24 @@ manifest is written.
 ``restore`` returns the tree with CPU tensors; the trainer copies them
 into its live tensors in place.
 
-On a mesh (``torch.distributed`` initialised): a ``DTensor`` leaf is
-saved as its logical full tensor (``full_tensor()``, a collective, so
-every rank calls ``save`` at the same step), and rank 0 alone writes
-the files, the manifest and the sidecar. Every rank restores the full
-tensors and keeps its own shard (``parallel.sharding.local_shard``), so a
-step saved on one mesh resumes on another (another dp degree, or fsdp
-and tp splits). A save with ``wait`` returns on every rank once rank 0's
-write is durable, and the trainer makes the other ranks wait for rank
-0's write before a resume reads it.
+On a mesh (``torch.distributed`` initialised) every rank calls ``save``
+at the same step and writes the pieces it owns, no tensor gathered: a
+``DTensor`` leaf's local shard as the boxes of the logical tensor it
+covers (a fused projection's strided shard as one box a block), and a
+replicated tensor (or a plain one) by its lowest holder alone, the rank
+at coordinate 0 of every mesh axis that does not split it. Each rank
+hashes its own files; their digests and boxes reach rank 0 over a gloo
+group of the module's own (a gather: the barrier that every rank's write
+is durable), and rank 0 then writes the index, commits the step and
+writes the manifest and the sidecar. ``restore(like=...)`` reads, for a
+``DTensor`` leaf of ``like``, only the pieces that overlap this rank's
+shard, and returns that shard; without ``like`` (or for a plain leaf)
+the whole tensor, reassembled. So a step saved on one mesh resumes on
+another (another dp degree, fsdp and tp splits, a world of one). Steps
+in the earlier layout (``paddle_tpu_torch.step/1``: rank 0 wrote whole
+tensors, ``<step>/t00012.bin``) restore as one piece a tensor. A save
+with ``wait`` returns on every rank once the step is committed, and the
+trainer makes every rank wait for the commit before a resume reads it.
 """
 from __future__ import annotations
 
@@ -69,7 +83,9 @@ from ..utils import observability as obs
 __all__ = ["DistributedCheckpoint", "CheckpointCorruptionError",
            "auto_resume", "FORMAT"]
 
-FORMAT = "paddle_tpu_torch.step/1"
+FORMAT = "paddle_tpu_torch.step/2"
+# the layout before per-rank pieces: rank 0 wrote every tensor whole
+FORMAT_WHOLE = "paddle_tpu_torch.step/1"
 # files written, hashed or read at once (hashlib and file I/O release
 # the GIL on large buffers)
 IO_THREADS = 8
@@ -92,35 +108,71 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def _flatten(tree, tensors: List[torch.Tensor]):
-    """The tree as JSON with each tensor replaced by its file entry; the
-    tensors are appended to ``tensors`` as host copies."""
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _boxes(idx):
+    """(local box, global box) pairs of a ``local_index``: a strided dim's
+    blocks each a box of their own, laid end to end in the local
+    shard."""
+    out = [((), ())]
+    for e in idx:
+        parts = e if isinstance(e, tuple) else (e,)
+        step, opts = 0, []
+        for g in parts:
+            n = g.stop - g.start
+            opts.append((slice(step, step + n), g))
+            step += n
+        out = [(lb + (lo,), gb + (go,)) for lb, gb in out for lo, go in opts]
+    return out
+
+
+def _owned_pieces(t: torch.Tensor):
+    """The (local box, global box) pieces of tensor ``t`` that this rank
+    writes: a DTensor's local shard where this rank is its lowest holder
+    (coordinate 0 of every mesh axis that does not split it), a plain
+    tensor on rank 0; nothing otherwise."""
+    from ..parallel.sharding import is_sharded, local_index, split_of
+    if not is_sharded(t):
+        whole = tuple(slice(0, n) for n in t.shape)
+        return [(whole, whole)] if _rank() == 0 else []
+    mesh = t.device_mesh
+    for pl, n, c in zip(t.placements, mesh.mesh.shape,
+                        mesh.get_coordinate()):
+        if split_of(pl) is None and n > 1 and c != 0:
+            return []
+    return _boxes(local_index(t))
+
+
+def _flatten(tree, pieces: List[Tuple[str, torch.Tensor, list]],
+             names: List[str]):
+    """The tree as JSON with each tensor replaced by its entry (no pieces
+    yet: rank 0 adds every rank's; ``names`` collects the entries' ids);
+    the pieces this rank writes are appended to ``pieces`` as (entry id,
+    host copy, global box)."""
     if isinstance(tree, dict):
-        return {str(k): _flatten(v, tensors) for k, v in tree.items()}
+        return {str(k): _flatten(v, pieces, names) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_flatten(v, tensors) for v in tree]
+        return [_flatten(v, pieces, names) for v in tree]
     if torch.is_tensor(tree):
-        from ..parallel.sharding import full_tensor
-        t = full_tensor(tree.detach())
+        from ..parallel.sharding import local
+        t = tree.detach()
         if t.dtype not in _DTYPES.values():
             raise TypeError(f"cannot checkpoint a {t.dtype} tensor")
-        host = t.to("cpu", copy=True).contiguous()
-        entry = {_TENSOR: f"t{len(tensors):05d}.bin",
-                 "dtype": str(t.dtype).replace("torch.", ""),
-                 "shape": list(t.shape)}
-        tensors.append(host)
-        return entry
+        name = f"t{len(names):05d}"
+        names.append(name)
+        for lbox, gbox in _owned_pieces(t):
+            host = local(t)[lbox].to("cpu", copy=True).contiguous()
+            pieces.append((name, host, [[g.start, g.stop] for g in gbox]))
+        return {_TENSOR: name, "dtype": str(t.dtype).replace("torch.", ""),
+                "shape": list(t.shape)}
     if isinstance(tree, np.generic):
         return tree.item()
     if tree is None or isinstance(tree, (bool, int, float, str)):
         return tree
     raise TypeError(f"cannot checkpoint a leaf of type {type(tree)}")
-
-
-def _is_writer() -> bool:
-    """Rank 0 of an initialised process group, or a lone process."""
-    import torch.distributed as dist
-    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _barrier():
@@ -143,12 +195,81 @@ def _check_like(got, like, path="state"):
         for k in like:
             _check_like(got[k], like[k], f"{path}.{k}")
     elif torch.is_tensor(like):
-        if not torch.is_tensor(got) or got.dtype != like.dtype or \
+        if not isinstance(got, (torch.Tensor, _Meta)) or \
+                got.dtype != like.dtype or \
                 tuple(got.shape) != tuple(like.shape):
-            desc = (f"{got.dtype} {tuple(got.shape)}" if torch.is_tensor(got)
+            desc = (f"{got.dtype} {tuple(got.shape)}"
+                    if isinstance(got, (torch.Tensor, _Meta))
                     else type(got).__name__)
             raise ValueError(f"{path}: {desc} != {like.dtype} "
                              f"{tuple(like.shape)}")
+
+
+class _Entries(dict):
+    """A saved tree's index read as the tree it describes, for
+    :func:`_check_like`: each tensor entry stands for a tensor of its
+    dtype and logical shape."""
+
+    def __init__(self, tree):
+        super().__init__({k: _entry_view(v) for k, v in tree.items()})
+
+
+class _Meta:
+    def __init__(self, entry):
+        self.dtype = _DTYPES[entry["dtype"]]
+        self.shape = tuple(entry["shape"])
+
+
+def _entry_view(node):
+    if isinstance(node, dict):
+        return _Meta(node) if _TENSOR in node else _Entries(node)
+    if isinstance(node, list):
+        return [_entry_view(v) for v in node]
+    return node
+
+
+# raw views of a piece file by element size (bf16 and fp16 as int16)
+_RAW = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
+
+
+def _read_region(d: str, entry, like) -> torch.Tensor:
+    """The tensor ``entry`` describes, or this rank's shard of it when
+    ``like`` is a ``DTensor``: each box of the shard filled from the
+    pieces that overlap it, each piece file read through a memory map
+    (only the rows it is indexed by). A step in the earlier layout has
+    one piece a tensor, the whole of it."""
+    from ..parallel.sharding import is_sharded, local_index
+    dtype = _DTYPES[entry["dtype"]]
+    shape = tuple(entry["shape"])
+    whole = [[0, n] for n in shape]
+    pieces = entry.get("pieces")
+    if pieces is None:
+        pieces = [{"file": entry[_TENSOR], "index": whole}]
+    idx = (local_index(like) if is_sharded(like)
+           else tuple(slice(0, n) for n in shape))
+    out = torch.empty([sum(g.stop - g.start for g in
+                           (e if isinstance(e, tuple) else (e,)))
+                       for e in idx], dtype=dtype)
+    raw = _RAW[torch.empty((), dtype=dtype).element_size()]
+    for lbox, gbox in _boxes(idx):
+        for piece in pieces:
+            box = piece["index"]
+            cut = [(max(g.start, lo), min(g.stop, hi))
+                   for g, (lo, hi) in zip(gbox, box)]
+            if any(a >= b for a, b in cut):
+                continue
+            pshape = tuple(hi - lo for lo, hi in box)
+            path = os.path.join(d, piece["file"])
+            arr = (np.fromfile(path, dtype=raw).reshape(pshape)
+                   if not pshape or 0 in pshape else
+                   np.memmap(path, dtype=raw, mode="r", shape=pshape))
+            src = tuple(slice(a - lo, b - lo)
+                        for (a, b), (lo, _) in zip(cut, box))
+            dst = tuple(slice(lb.start + a - g.start, lb.start + b - g.start)
+                        for (a, b), g, lb in zip(cut, gbox, lbox))
+            out[dst] = torch.from_numpy(
+                np.array(arr[src])).view(dtype)
+    return out
 
 
 class DistributedCheckpoint:
@@ -173,6 +294,7 @@ class DistributedCheckpoint:
         # host copy save() pays; write: files, commit and manifest)
         self.last_save: Dict[str, Any] = {}
         self.last_restore: Dict[str, Any] = {}
+        self._ranks_group = None
 
     # ------------------------------------------------------------- paths
     def _step_dir(self, step: int) -> str:
@@ -228,11 +350,12 @@ class DistributedCheckpoint:
         largest file."""
         d = self._step_dir(step)
         largest, size = None, -1
-        for name in os.listdir(d):
-            p = os.path.join(d, name)
-            s = os.path.getsize(p)
-            if s > size:
-                largest, size = p, s
+        for root, _, names in os.walk(d):
+            for name in names:
+                p = os.path.join(root, name)
+                s = os.path.getsize(p)
+                if s > size:
+                    largest, size = p, s
         if largest is None:
             return
         with open(largest, "r+b") as f:
@@ -276,42 +399,31 @@ class DistributedCheckpoint:
     # ------------------------------------------------------------ save
     def save(self, step: int, state: Dict[str, Any], wait: bool = False,
              meta: Optional[Dict[str, Any]] = None):
-        """Copy ``state`` (a nested dict of tensors and plain values) to
-        host memory, then write it as step ``step``: in the background
-        unless ``wait`` (or ``async_save=False``), in which case the
-        files, the commit and the manifest are durable on return. ``meta``
-        (JSON-serialisable) is written at once to the step's sidecar."""
+        """Copy this rank's pieces of ``state`` (a nested dict of tensors
+        and plain values) to host memory, then write them as step
+        ``step``: in the background unless ``wait`` (or
+        ``async_save=False``), in which case the step is committed, its
+        manifest written, on every rank's return. ``meta``
+        (JSON-serialisable) is written to the step's sidecar by rank 0
+        once every rank's files are durable."""
         t0 = time.perf_counter()
         self._join_writer()
-        tensors: List[torch.Tensor] = []
-        index = {"format": FORMAT, "tree": _flatten(state, tensors)}
+        group = self._group()
+        pieces: List[Tuple[str, torch.Tensor, list]] = []
+        index = {"format": FORMAT, "tree": _flatten(state, pieces, [])}
         snapshot_s = time.perf_counter() - t0
         durable = wait or not self.async_save
-        if not _is_writer():
-            # the gather above was this rank's part of the save; a durable
-            # save returns on every rank once rank 0's write is done
-            self.last_save = {"step": step, "snapshot_s": snapshot_s,
-                              "bytes": 0}
-            if durable:
-                _barrier()
-            return
-        if meta is not None:
-            try:
-                self._write_meta(step, meta)
-            except (OSError, TypeError, ValueError) as e:
-                print(f"[ckpt] meta sidecar for step {step} failed: {e}",
-                      file=sys.stderr, flush=True)
+        # what this rank copied to host memory: its own pieces only
         self.last_save = {"step": step, "snapshot_s": snapshot_s,
                           "bytes": sum(t.numel() * t.element_size()
-                                       for t in tensors)}
+                                       for _, t, _ in pieces)}
+        args = (step, index, pieces, meta, group)
         if durable:
-            try:
-                self._write_step(step, index, tensors)
-            finally:
-                _barrier()
+            self._write_step(*args)
+            _barrier()
         else:
             self._writer = threading.Thread(
-                target=self._write_step_logged, args=(step, index, tensors),
+                target=self._write_step_logged, args=args,
                 name=f"ckpt-writer-{step}", daemon=True)
             self._writer.start()
         save_ms = (time.perf_counter() - t0) * 1e3
@@ -319,28 +431,79 @@ class DistributedCheckpoint:
         obs.record_event("ckpt_save", step=step, wait=wait,
                          ms=round(save_ms, 3))
 
-    def _write_step_logged(self, step, index, tensors):
+    def _group(self):
+        """The gloo group the ranks' digests travel over (made at the
+        first save on a world of several ranks: every rank saves), or
+        None alone."""
+        import torch.distributed as dist
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return None
+        if self._ranks_group is None:
+            self._ranks_group = dist.new_group(backend="gloo")
+        return self._ranks_group
+
+    def _write_step_logged(self, *args):
         try:
-            self._write_step(step, index, tensors)
+            self._write_step(*args)
         except BaseException as e:     # surfaced by the next join
             self._writer_error = e
 
-    def _write_step(self, step: int, index, tensors):
+    def _write_step(self, step: int, index, pieces, meta, group):
+        """This rank's pieces into ``<step>.partial/r<rank>/``, hashed;
+        the digests and boxes gathered to rank 0, which writes the
+        index, commits the step, writes the manifest and the sidecar."""
+        import torch.distributed as dist
         t0 = time.perf_counter()
         final = self._step_dir(step)
         tmp = final + ".partial"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
+        rank = _rank()
+        sub = f"r{rank}"
+        shutil.rmtree(os.path.join(tmp, sub), ignore_errors=True)
+        os.makedirs(os.path.join(tmp, sub))
+        counts: Dict[str, int] = {}
 
-        def write(i):
-            name = f"t{i:05d}.bin"
-            data = _bytes_of(tensors[i])
-            with open(os.path.join(tmp, name), "wb") as f:
+        def named(piece):
+            name, _, box = piece
+            j = counts[name] = counts.get(name, -1) + 1
+            return f"{sub}/{name}.{j}.bin", piece
+        jobs = [named(q) for q in pieces]
+
+        def write(job):
+            rel, (name, t, box) = job
+            data = _bytes_of(t)
+            with open(os.path.join(tmp, rel), "wb") as f:
                 f.write(data)
-            return name, {"sha256": hashlib.sha256(data).hexdigest(),
-                          "size": data.nbytes}
+            return name, rel, box, {"sha256": hashlib.sha256(data)
+                                    .hexdigest(), "size": data.nbytes}
         with ThreadPoolExecutor(IO_THREADS) as pool:
-            files = dict(pool.map(write, range(len(tensors))))
+            mine = list(pool.map(write, jobs))
+        if group is not None:
+            got = [None] * dist.get_world_size() if rank == 0 else None
+            dist.gather_object(mine, got, dst=0, group=group)
+        else:
+            got = [mine]
+        self.last_save["write_s"] = time.perf_counter() - t0
+        if rank != 0:
+            return
+        where: Dict[str, list] = {}
+        files = {}
+        for written in got:
+            for name, rel, box, digest in written:
+                where.setdefault(name, []).append({"file": rel,
+                                                   "index": box})
+                files[rel] = digest
+
+        def place(node):
+            if isinstance(node, dict):
+                if _TENSOR in node:
+                    node["pieces"] = where.get(node[_TENSOR], [])
+                else:
+                    for v in node.values():
+                        place(v)
+            elif isinstance(node, list):
+                for v in node:
+                    place(v)
+        place(index["tree"])
         raw = json.dumps(index).encode()
         with open(os.path.join(tmp, "index.json"), "wb") as f:
             f.write(raw)
@@ -350,6 +513,12 @@ class DistributedCheckpoint:
             shutil.rmtree(final)     # save step): the newer bytes win
         os.replace(tmp, final)
         self._verify_memo.pop(step, None)
+        if meta is not None:
+            try:
+                self._write_meta(step, meta)
+            except (OSError, TypeError, ValueError) as e:
+                print(f"[ckpt] meta sidecar for step {step} failed: {e}",
+                      file=sys.stderr, flush=True)
         try:
             self._write_manifest(step, files)
         except OSError as e:         # the manifest is best-effort
@@ -397,7 +566,9 @@ class DistributedCheckpoint:
         """The tree of step ``step`` (default: the latest complete and
         verified one) with CPU tensors. ``like`` (a tree of the same
         structure) is checked against it: the same keys, each tensor's
-        dtype and shape (ValueError otherwise).
+        dtype and logical shape (ValueError otherwise); where ``like``
+        holds a ``DTensor``, the restored leaf is this rank's shard of
+        it, read from the pieces that overlap it alone.
 
         A step that fails checksum verification falls back to the next
         older one that passes (a warning on stderr);
@@ -429,9 +600,7 @@ class DistributedCheckpoint:
                       file=sys.stderr, flush=True)
                 continue
             t0 = time.perf_counter()
-            out = self._restore_step(s)
-            if like is not None:
-                _check_like(out, like)
+            out = self._restore_step(s, like)
             self.last_restored_step = s
             restore_s = time.perf_counter() - t0
             self.last_restore = {"step": s, "read_s": restore_s}
@@ -443,38 +612,37 @@ class DistributedCheckpoint:
             f"every checkpoint step in {self.directory} failed checksum "
             f"verification ({candidates})")
 
-    def _restore_step(self, step: int):
+    def _restore_step(self, step: int, like=None):
         d = self._step_dir(step)
         with open(os.path.join(d, "index.json")) as f:
             index = json.load(f)
-        if index.get("format") != FORMAT:
+        if index.get("format") not in (FORMAT, FORMAT_WHOLE):
             raise ValueError(f"{d}: format {index.get('format')!r}, "
                              f"expected {FORMAT!r}")
-        entries = []
+        if like is not None:
+            _check_like(_Entries(index["tree"]), like)
+        jobs = []
 
-        def collect(node):
+        def plan(node, want):
             if isinstance(node, dict):
                 if _TENSOR in node:
-                    entries.append(node)
-                else:
-                    for v in node.values():
-                        collect(v)
+                    jobs.append((node, want))
+                    return
+                for k, v in node.items():
+                    plan(v, want.get(k) if isinstance(want, dict) else None)
             elif isinstance(node, list):
-                for v in node:
-                    collect(v)
-        collect(index["tree"])
-
-        def read(e):
-            raw = np.fromfile(os.path.join(d, e[_TENSOR]), dtype=np.uint8)
-            t = torch.from_numpy(raw).view(_DTYPES[e["dtype"]])
-            return e[_TENSOR], t.reshape(e["shape"])
+                for i, v in enumerate(node):
+                    plan(v, want[i] if isinstance(want, (list, tuple))
+                         else None)
+        plan(index["tree"], like)
         with ThreadPoolExecutor(IO_THREADS) as pool:
-            loaded = dict(pool.map(read, entries))
+            loaded = dict(pool.map(lambda job: (id(job[0]),
+                                                _read_region(d, *job)), jobs))
 
         def build(node):
             if isinstance(node, dict):
                 if _TENSOR in node:
-                    return loaded[node[_TENSOR]]
+                    return loaded[id(node)]
                 return {k: build(v) for k, v in node.items()}
             if isinstance(node, list):
                 return [build(v) for v in node]

@@ -147,8 +147,10 @@ def _rank_target(model: nn.Module, name: str, dst, shape):
 
 def _read_part(src, idx):
     """``src[idx]`` as an array of its own (a view of a checkpoint file
-    reads only those elements)."""
-    return np.asarray(src[idx])
+    reads only those elements; a fused projection's strided dim block by
+    block, ``parallel.sharding.take``)."""
+    from .parallel.sharding import take
+    return np.asarray(take(src, idx))
 
 
 @torch.no_grad()

@@ -132,9 +132,13 @@ class NamedSharding:
     """A partition spec on the mesh (the counterpart of
     ``jax.sharding.NamedSharding``): ``spec[d]`` names the axis, or tuple
     of axes, that splits tensor dim d, or None. ``placements`` is the
-    ``DTensor`` form: one ``Shard(d)`` or ``Replicate()`` per mesh axis."""
+    ``DTensor`` form: one ``Shard(d)`` or ``Replicate()`` per mesh axis.
+    ``fused`` > 1 (a fused projection's weight, ``nn.common.set_fused``)
+    makes a tp split of dim 0 cut each of that many blocks apart: a
+    strided shard, rank t holding its part of every block."""
     mesh: Mesh
     spec: Tuple
+    fused: int = 1
 
     @property
     def placements(self):
@@ -145,6 +149,10 @@ class NamedSharding:
                 continue
             for a in (axes,) if isinstance(axes, str) else axes:
                 out[a] = Shard(d)
+                if a == "tp" and d == 0 and self.fused > 1:
+                    from torch.distributed.tensor.placement_types import \
+                        _StridedShard
+                    out[a] = _StridedShard(0, split_factor=self.fused)
         return [out[a] for a in self.mesh.axis_names]
 
 

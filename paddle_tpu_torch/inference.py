@@ -107,6 +107,7 @@ class Predictor:
     own shards with the tp metadata."""
 
     def __init__(self, model, config: Optional[Config] = None, device=None):
+        from .nn.common import copy_meta
         from .parallel.sharding import bind_static, is_sharded, map_local
         self.config = config or Config()
         self.device = resolve_device(device)
@@ -131,9 +132,7 @@ class Predictor:
                             map_local(p.detach(),
                                       lambda t: t.to(self.config.dtype)),
                             requires_grad=p.requires_grad)
-                        if hasattr(p, "partition"):
-                            new.partition = p.partition
-                        cast[id(p)] = (p, new)
+                        cast[id(p)] = (p, copy_meta(p, new))
                     mod._parameters[name] = cast[id(p)][1]
             for mod in model.modules():
                 for name, buf in mod._buffers.items():

@@ -32,10 +32,10 @@ from ..nn import functional as F
 from ..nn import initializer as I
 from ..ops.attention import dense_attention
 from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
-                               VocabParallelEmbedding, parallel_matmul)
+                               VocabParallelEmbedding, local_heads,
+                               parallel_matmul)
 from ..parallel.sharding import constraint
 from ..utils.rng import make_generator
-from .gpt import refuse_tp
 
 
 @dataclass
@@ -123,14 +123,13 @@ class BertSelfAttention(nn.Module):
         kw = dict(generator=generator, device=device, dtype=config.dtype,
                   has_bias=True)
         self.qkv_proj = ColumnParallelLinear(h, 3 * h, gather_output=False,
-                                             **kw)
+                                             fused_parts=3, **kw)
         self.out_proj = RowParallelLinear(h, h, **kw)
 
     def forward(self, x, attn_bias=None):
-        refuse_tp("BERT")
         cfg = self.config
         b, s, _ = x.shape
-        nh, d = cfg.num_attention_heads, cfg.head_dim
+        nh, d = local_heads(cfg)[0], cfg.head_dim
         q, k, v = self.qkv_proj(x).reshape(b, s, 3, nh, d).unbind(2)
         out = dense_attention(q, k, v, causal=False, attn_mask=attn_bias)
         return self.out_proj(out.reshape(b, s, nh * d))

@@ -18,8 +18,8 @@ The contrastive loss under data parallelism: ``gather_features`` is an
 all-gather over the mesh's dp group (the identity off a mesh), and
 ``clip_contrastive_loss(..., dp_axis="dp")`` offsets the labels by this
 rank's index times its rows, as the JAX functions do inside
-``shard_map``. With ``tp`` > 1 the fused qkv would need the rank
-interleave of ``nn/fuse.py``: ``NotImplementedError``.
+``shard_map``. On a tp mesh each tower's fused qkv holds this rank's
+heads' q, k and v columns (``ColumnParallelLinear(fused_parts=3)``).
 """
 from __future__ import annotations
 
@@ -36,9 +36,9 @@ from ..nn import Embedding, LayerList, LayerNorm
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..ops.attention import dense_attention
-from ..parallel.layers import ColumnParallelLinear, RowParallelLinear
+from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
+                               local_heads)
 from ..utils.rng import make_generator
-from .gpt import refuse_tp
 from .vit import ViTConfig, ViTModel, act
 
 
@@ -89,7 +89,8 @@ class CLIPTextBlock(nn.Module):
         h, eps = config.hidden_size, config.layer_norm_eps
         kw = dict(generator=generator, device=device, has_bias=True)
         self.norm1 = LayerNorm(h, epsilon=eps, device=device)
-        self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False, **kw)
+        self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                   fused_parts=3, **kw)
         self.proj = RowParallelLinear(h, h, **kw)
         self.norm2 = LayerNorm(h, epsilon=eps, device=device)
         self.fc1 = ColumnParallelLinear(h, config.intermediate_size,
@@ -97,10 +98,9 @@ class CLIPTextBlock(nn.Module):
         self.fc2 = RowParallelLinear(config.intermediate_size, h, **kw)
 
     def forward(self, x):
-        refuse_tp("CLIP")
         cfg = self.config
         b, s, _ = x.shape
-        nh, d = cfg.num_attention_heads, cfg.head_dim
+        nh, d = local_heads(cfg)[0], cfg.head_dim
         q, k, v = self.qkv(self.norm1(x)).reshape(b, s, 3, nh, d).unbind(2)
         attn = dense_attention(q, k, v, causal=True)
         x = x + self.proj(attn.reshape(b, s, nh * d))

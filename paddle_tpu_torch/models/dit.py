@@ -18,8 +18,10 @@ Dtypes are the JAX package's: the timestep features are fp32 and
 ``pos_embed`` is cast to the latents' dtype, so a bf16 model fed fp32
 latents outside ``amp.auto_cast`` raises in its patch conv, as
 ``lax.conv`` does; under ``auto_cast`` it runs. The attention is dense
-(XLA math in the JAX module). With ``tp`` > 1 DiT's fused qkv would need
-the rank interleave of ``nn/fuse.py``: ``NotImplementedError``.
+(XLA math in the JAX module). On a tp mesh DiT's fused qkv holds this
+rank's heads' q, k and v columns (``ColumnParallelLinear(fused_parts=3)``),
+its projection and MLP are the Megatron pair; MMDiT's stream projections
+are plain layers, replicated, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,9 +37,9 @@ from ..nn import Conv2D, Embedding, LayerList, LayerNorm, Linear, SiLU
 from ..nn import Sequential
 from ..nn import functional as F
 from ..ops.attention import dense_attention
-from ..parallel.layers import ColumnParallelLinear, RowParallelLinear
+from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
+                               local_heads)
 from ..utils.rng import make_generator
-from .gpt import refuse_tp
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10000.0):
@@ -159,7 +161,8 @@ class DiTBlock(nn.Module):
         mlp = int(h * config.mlp_ratio)
         kw = dict(generator=generator, device=device, has_bias=True)
         self.norm1 = _norm(h, device)
-        self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False, **kw)
+        self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                   fused_parts=3, **kw)
         self.proj = RowParallelLinear(h, h, **kw)
         self.norm2 = _norm(h, device)
         self.fc1 = ColumnParallelLinear(h, mlp, gather_output=False, **kw)
@@ -167,10 +170,9 @@ class DiTBlock(nn.Module):
         self.ada = _zero_linear(h, 6 * h, device=device, generator=generator)
 
     def _attn(self, x):
-        refuse_tp("DiT")
         cfg = self.config
         b, s, _ = x.shape
-        nh, d = cfg.num_attention_heads, cfg.head_dim
+        nh, d = local_heads(cfg)[0], cfg.head_dim
         q, k, v = self.qkv(x).reshape(b, s, 3, nh, d).unbind(2)
         out = dense_attention(q, k, v, causal=False)
         return self.proj(out.reshape(b, s, nh * d))

@@ -24,9 +24,12 @@ Attention follows the JAX module's three routes:
 
 The forward takes no ``attn_start`` (a left-padded ``generate()`` raises
 ``TypeError``, as the JAX call does) and no paged cache (a
-``PagedEngine`` refuses the model: ``pages = False``). With ``tp`` > 1 the
-fused qkv would need the rank interleave of ``nn/fuse.py``, which is not
-ported for this family: ``NotImplementedError``.
+``PagedEngine`` refuses the model: ``pages = False``). On a tp mesh the
+fused qkv holds this rank's heads' q, k and v columns with their biases
+(``ColumnParallelLinear(fused_parts=3)``: a strided shard of the JAX
+layout, so ``state_dict`` and checkpoints keep that layout), the caches
+hold this rank's heads, and the tied head is ``parallel_matmul`` over the
+vocab-split table.
 """
 from __future__ import annotations
 
@@ -38,14 +41,14 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..distributed.collective import axis_size
 from ..nn import LayerList, LayerNorm
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.recompute import recompute
 from ..ops.attention import dense_attention, flash_attention, use_flash
 from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
-                               VocabParallelEmbedding, parallel_matmul)
+                               VocabParallelEmbedding, local_heads,
+                               parallel_matmul)
 from ..parallel.sharding import constraint
 from ..utils.rng import make_generator
 from .base import CausalLMBase
@@ -80,17 +83,6 @@ def gpt_tiny(**overrides) -> GPTConfig:
     return GPTConfig(**base)
 
 
-def refuse_tp(family: str) -> None:
-    """``NotImplementedError`` on a mesh whose ``tp`` degree is above 1:
-    the fused qkv of the GPT and BERT families would need the rank
-    interleave of ``nn/fuse.py`` (the JAX package shards it through
-    GSPMD)."""
-    if axis_size("tp") > 1:
-        raise NotImplementedError(
-            f"{family} on a mesh with tp > 1 (its fused qkv needs the "
-            f"rank interleave of nn/fuse.py) is not ported")
-
-
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, *, device, generator):
         super().__init__()
@@ -100,7 +92,7 @@ class GPTAttention(nn.Module):
                   has_bias=True)
         # fused qkv: one column-parallel matmul, split after
         self.qkv_proj = ColumnParallelLinear(h, 3 * h, gather_output=False,
-                                             **kw)
+                                             fused_parts=3, **kw)
         self.out_proj = RowParallelLinear(h, h, **kw)
 
     def forward(self, x, kv_cache: Optional[Tuple] = None, cache_index=None,
@@ -110,10 +102,9 @@ class GPTAttention(nn.Module):
         or an integer tensor on the device of one index or one a row,
         whose (rows, positions) index pair the model built as
         ``cache_at``), and (out, (k, v)) is returned."""
-        refuse_tp("GPT")
         cfg = self.config
         b, s, _ = x.shape
-        nh, d = cfg.num_attention_heads, cfg.head_dim
+        nh, d = local_heads(cfg)[0], cfg.head_dim
         qkv = self.qkv_proj(x).reshape(b, s, 3, nh, d)
         q, k, v = qkv.unbind(2)
         if kv_cache is not None:

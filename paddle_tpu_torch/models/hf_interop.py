@@ -666,6 +666,33 @@ def _copy_experts(name, dst, by_id) -> None:
                 np.asarray(part, np.float32)))
 
 
+def _cast_loaded(model, own, names, dtype) -> None:
+    """Give each floating tensor of ``model`` named in ``names`` the dtype
+    ``dtype`` before the checkpoint is copied in, as the JAX loader's
+    ``_place`` casts every floating tensor of the converted checkpoint to
+    the config's dtype: a bf16 checkpoint's heads that the constructor
+    keeps fp32 (ViT's classifier, CLIP's projections and logit scale,
+    the BERT family's NSP and classifier heads) load bf16. Tensors the
+    checkpoint lacks keep the constructor's dtype, as in JAX. A DTensor
+    is cast by its local shard, keeping its placements and metadata."""
+    from ..nn.common import copy_meta
+    from ..parallel.sharding import _owner, map_local
+    for name in names:
+        t = own.get(name)
+        if t is None or not t.is_floating_point() or t.dtype == dtype:
+            continue
+        owner, attr = _owner(model, name)
+        if attr in owner._parameters:
+            new = copy_meta(t, torch.nn.Parameter(
+                map_local(t.detach(), lambda x: x.to(dtype)),
+                requires_grad=t.requires_grad))
+            owner._parameters[attr] = new
+        else:
+            new = t.to(dtype)
+            owner._buffers[attr] = new
+        own[name] = new
+
+
 @torch.no_grad()
 def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
                     device=None, model_cls=None, strict: bool = True,
@@ -727,6 +754,7 @@ def from_pretrained(model_dir: str, dtype: Optional[torch.dtype] = None,
         unexpected = [k for k in [*sd, *parts] if k not in own]
         if unexpected:
             raise KeyError(f"converted keys not in model: {unexpected[:8]}")
+        _cast_loaded(model, own, sd, cfg.dtype)
         copy_jax_params(model, sd, own)
         loaded.update(sd)
         for name, by_id in parts.items():

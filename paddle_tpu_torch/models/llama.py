@@ -726,7 +726,9 @@ def llama_pipeline_functional(model: nn.Module, pp: int, logits_loss=None,
         if axis_size("sp") > 1:
             raise NotImplementedError(
                 "pipeline parallel with sp > 1 (ring attention inside the "
-                "stages) is not ported")
+                "stages): the JAX package does not run this mesh either "
+                "(its ring's shard_map inside the pipeline's raises under "
+                "jit; without sequence_parallel XLA deadlocks)")
         loss, grads = run(split(flat_params), tokens, tokens)
         return loss, merge(grads, flat_params)
 

@@ -12,8 +12,9 @@ with exact or quick GELU. The head pools the class token or, with
 built in fp32 and cast to ``config.dtype``; the classifier's head stays
 fp32 and its logits are fp32, as in the JAX package. The attention is
 dense (the JAX module calls ``dense_attention``: XLA math, no kernel).
-With ``tp`` > 1 the fused qkv would need the rank interleave of
-``nn/fuse.py``: ``NotImplementedError``.
+On a tp mesh the fused qkv holds this rank's heads' q, k and v columns
+(``ColumnParallelLinear(fused_parts=3)``), and ``proj`` / ``fc2`` sum the
+ranks' parts before their bias, as GSPMD does with the JAX layers.
 """
 from __future__ import annotations
 
@@ -28,10 +29,10 @@ from ..nn import Conv2D, Dropout, LayerList, LayerNorm, Linear
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..ops.attention import dense_attention
-from ..parallel.layers import ColumnParallelLinear, RowParallelLinear
+from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
+                               local_heads)
 from ..parallel.sharding import constraint
 from ..utils.rng import make_generator
-from .gpt import refuse_tp
 
 
 @dataclass
@@ -104,14 +105,14 @@ class ViTAttention(nn.Module):
         self.config = config
         h = config.hidden_size
         kw = dict(generator=generator, device=device, has_bias=True)
-        self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False, **kw)
+        self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                   fused_parts=3, **kw)
         self.proj = RowParallelLinear(h, h, **kw)
 
     def forward(self, x):
-        refuse_tp("ViT")
         cfg = self.config
         b, s, _ = x.shape
-        nh, d = cfg.num_attention_heads, cfg.head_dim
+        nh, d = local_heads(cfg)[0], cfg.head_dim
         q, k, v = self.qkv(x).reshape(b, s, 3, nh, d).unbind(2)
         out = dense_attention(q, k, v, causal=False)
         return self.proj(out.reshape(b, s, nh * d))

@@ -10,6 +10,13 @@ parameter may carry ``partition``, one mesh-axis name (or tuple of
 names, or None) per dim, in the port's own layout: a Linear weight's
 tuple is the JAX one reversed, as its shape is. ``parallel.sharding``
 reads it through :func:`partition_of`.
+
+A fused projection's weight (the GPT, BERT, ViT, CLIP and DiT families'
+qkv: [3 h, in], q, k and v stacked on dim 0) also carries
+``fused_parts`` (:func:`set_fused`): dim 0 is that many blocks, and a tp
+split cuts each block apart, so rank t holds ``[q_t; k_t; v_t]``, its
+own heads' columns of each (``parallel.sharding``; the order of
+``nn.fuse``'s interleave).
 """
 from __future__ import annotations
 
@@ -33,6 +40,27 @@ def set_partition(param, partition):
     it."""
     param.partition = tuple(partition) if partition is not None else None
     return param
+
+
+def fused_of(param) -> int:
+    """How many blocks a tp split cuts apart on dim 0 of ``param`` (1: a
+    plain split)."""
+    return getattr(param, "fused_parts", 1)
+
+
+def set_fused(param, parts: int):
+    """Tag ``param`` as ``parts`` blocks stacked on dim 0, each split over
+    tp on its own (module docstring); returns it."""
+    param.fused_parts = int(parts)
+    return param
+
+
+def copy_meta(src, dst):
+    """Give ``dst`` the partition metadata of ``src``; returns ``dst``."""
+    for k in ("partition", "fused_parts"):
+        if hasattr(src, k):
+            setattr(dst, k, getattr(src, k))
+    return dst
 
 
 def _param(shape, init, generator, device, dtype):

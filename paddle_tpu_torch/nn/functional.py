@@ -119,8 +119,26 @@ def _channel_shape(x):
     return (1, -1) + (1,) * (x.dim() - 2)
 
 
+class _RankSum(torch.autograd.Function):
+    """The sum over the ranks of ``axes`` forward, and the same sum of the
+    cotangents backward: each rank's loss is its share of the global
+    loss, so a value every rank reads gets the sum of their gradients."""
+
+    @staticmethod
+    def forward(ctx, t, axes):
+        from ..distributed.collective import _reduce_
+        ctx.axes = axes
+        return _reduce_(t.clone(), "sum", axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..distributed.collective import _reduce_
+        return _reduce_(g.clone(), "sum", ctx.axes), None
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
-               training=False, momentum=0.9, epsilon=1e-5):
+               training=False, momentum=0.9, epsilon=1e-5, ranks=1,
+               axes=()):
     """Batch norm over every dim but the channel (dim 1). In training it
     returns (out, new_mean, new_var): the batch's mean and **biased**
     variance in fp32 normalise ``x``, and the running statistics move by
@@ -128,13 +146,25 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     (``torch.nn.functional.batch_norm`` weighs them the other way round
     and keeps the unbiased variance). Out of training, the running
     statistics normalise. The result is rounded to ``x``'s dtype before
-    the weight and the bias, which promote as ``jnp`` does."""
+    the weight and the bias, which promote as ``jnp`` does.
+
+    With ``ranks`` > 1 the batch is split over the mesh ``axes`` (each of
+    the ``ranks`` ranks holds as many rows): the mean and then the
+    variance are per-channel sums all-reduced over ``axes`` (two
+    collectives, differentiable), so the statistics are the global
+    batch's, as the JAX layer's are on a global array."""
     shape = _channel_shape(x)
     if training:
         dims = (0,) + tuple(range(2, x.dim()))
         x32 = x.float()
-        mean = x32.mean(dim=dims)
-        var = (x32 - mean.reshape(shape)).square().mean(dim=dims)
+        if ranks > 1:
+            n = ranks * (x32.numel() // x32.shape[1])
+            mean = _RankSum.apply(x32.sum(dim=dims), axes) / n
+            var = _RankSum.apply((x32 - mean.reshape(shape)).square()
+                                 .sum(dim=dims), axes) / n
+        else:
+            mean = x32.mean(dim=dims)
+            var = (x32 - mean.reshape(shape)).square().mean(dim=dims)
         new_mean = momentum * running_mean + (1 - momentum) * mean
         new_var = momentum * running_var + (1 - momentum) * var
     else:
@@ -192,7 +222,12 @@ def dropout(x, p=0.5, training=True, generator=None,
     ``downscale_in_infer`` applies the raw mask in training and scales
     by 1 - p in inference. The mask is drawn from ``generator`` (required
     in training, as the JAX function requires its key), on ``x``'s
-    device: ``uniform < 1 - p``, as ``jax.random.bernoulli`` draws it."""
+    device: ``uniform < 1 - p``, as ``jax.random.bernoulli`` draws it.
+    Every rank of a mesh draws the same mask from the same generator, so
+    the copies of a replicated ``x`` stay equal; for an ``x`` split over
+    a mesh axis (a rank's heads or columns) pass
+    ``utils.rng.fold_axis(generator, axis)``: each rank then draws its
+    own mask, as one global JAX mask gives each shard its own bits."""
     if mode not in DROPOUT_MODES:
         raise ValueError(f"mode must be one of {DROPOUT_MODES}, got "
                          f"{mode!r}")

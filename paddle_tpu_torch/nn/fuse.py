@@ -20,6 +20,13 @@ are [out, in], so the interleave runs along dim 0 (the JAX package's
 [in, out] weights interleave along dim 1); a quantized layer's codes and
 scales are [in, out] in both packages and interleave along dim 1.
 
+The families whose checkpoints are fused already (GPT, BERT, ERNIE,
+ViT, CLIP, DiT: one qkv of [q; k; v]) keep that layout and get the same
+rank order from the sharding instead: their qkv weight and bias are
+tagged as three blocks (``nn.common.set_fused``), and a tp split cuts
+each block apart (a strided DTensor shard), so rank t computes on
+``q_t|k_t|v_t`` while ``state_dict`` and checkpoints read the JAX order.
+
 On a model already sharded over tp, each rank's fused shard is the
 concat of its own shards (no collective), and a model bound by
 ``parallel.sharding.bind_static`` is bound again. A fused layer is built

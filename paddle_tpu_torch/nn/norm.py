@@ -11,6 +11,15 @@ which the ``Trainer``'s step enters: the JAX Trainer runs
 ``model.functional()`` without buffers, and ``Layer.bound`` restores them
 after the forward, so its steps normalise by the batch's statistics and
 leave the running ones where they were.
+
+On a mesh whose dp x fsdp degree is above 1 a rank holds its own rows of
+the batch, while the JAX layer normalises a global array: a training
+forward all-reduces the per-channel sums over the data axes (the mean,
+then the biased variance, as differentiable collectives), so every
+rank normalises by the global batch's statistics and the running ones
+move by them. ``SyncBatchNorm`` is the same layer, as in the JAX
+package. At a degree of 1 no collective is issued
+(``stat_reductions`` counts them).
 """
 from __future__ import annotations
 
@@ -24,6 +33,9 @@ from ..device import resolve_device
 from . import functional as F
 
 _kept = threading.local()
+# the all-reduces of batch statistics issued in training forwards on a
+# mesh that splits the batch (none at a dp x fsdp degree of 1)
+stat_reductions = 0
 
 
 @contextlib.contextmanager
@@ -104,9 +116,15 @@ class BatchNorm2D(nn.Module):
             return F.batch_norm(x, self._mean, self._variance, self.weight,
                                 self.bias, training=False,
                                 epsilon=self.epsilon)
+        from ..distributed.env import BATCH_AXES, axis_degree
+        ranks = axis_degree(BATCH_AXES)
+        if ranks > 1:
+            global stat_reductions
+            stat_reductions += 2
         out, new_mean, new_var = F.batch_norm(
             x, self._mean, self._variance, self.weight, self.bias,
-            training=True, momentum=self.momentum, epsilon=self.epsilon)
+            training=True, momentum=self.momentum, epsilon=self.epsilon,
+            ranks=ranks, axes=BATCH_AXES)
         if not getattr(_kept, "on", False):
             with torch.no_grad():
                 self._mean.copy_(new_mean)
@@ -123,20 +141,9 @@ BatchNorm = BatchNorm2D
 
 
 class SyncBatchNorm(BatchNorm2D):
-    """``BatchNorm`` whose batch statistics span the whole data-parallel
-    batch. The JAX package gets that from GSPMD (its batch mean is
-    global); here a rank holds its own rows, so on a mesh whose dp x fsdp
-    degree is above 1 a training forward raises ``NotImplementedError``
-    (the cross-rank statistics are not ported). At a world of one it is
-    ``BatchNorm``."""
-
-    def forward(self, x):
-        from ..distributed.env import axis_degree
-        if self.training and axis_degree(("dp", "fsdp")) > 1:
-            raise NotImplementedError(
-                "SyncBatchNorm on a mesh with dp x fsdp > 1 (batch "
-                "statistics over every rank's rows) is not ported")
-        return super().forward(x)
+    """``BatchNorm``, as in the JAX package ("SyncBatchNorm == BatchNorm
+    here"): every BatchNorm's batch statistics span the whole data-parallel
+    batch (module docstring)."""
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

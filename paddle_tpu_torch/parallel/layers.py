@@ -33,7 +33,7 @@ from ..distributed import collective as C
 from ..distributed.collective import axis_index, axis_size
 from ..nn import functional as F
 from ..nn import initializer as I
-from ..nn.common import Embedding, Linear, set_partition
+from ..nn.common import Embedding, Linear, set_fused, set_partition
 
 TP = "tp"
 
@@ -125,15 +125,23 @@ def local_heads(cfg):
 
 class ColumnParallelLinear(Linear):
     """Output dim split over ``tp``: weight partition ``("tp", None)``,
-    bias ``("tp",)``."""
+    bias ``("tp",)``. ``fused_parts`` > 1 (a fused qkv: q, k and v
+    stacked on the outputs) splits each part apart
+    (``nn.common.set_fused``), so a rank's outputs are its own heads'
+    columns of each part, which the JAX package's global reshape to
+    [..., 3, heads, d] gives the rank's heads under GSPMD."""
 
     def __init__(self, in_features, out_features, *, gather_output=True,
-                 **kw):
+                 fused_parts: int = 1, **kw):
         super().__init__(in_features, out_features, **kw)
         self.gather_output = gather_output
         set_partition(self.weight, ("tp", None))
         if self.bias is not None:
             set_partition(self.bias, ("tp",))
+        if fused_parts > 1:
+            for p in (self.weight, self.bias):
+                if p is not None:
+                    set_fused(p, fused_parts)
 
     def forward(self, x):
         if _tp() == 1:

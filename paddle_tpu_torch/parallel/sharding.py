@@ -56,7 +56,7 @@ from torch import nn
 
 from ..distributed.env import (BATCH_AXES, Mesh, NamedSharding, get_mesh,
                                has_mesh)
-from ..nn.common import partition_of
+from ..nn.common import copy_meta, fused_of, partition_of
 
 # the axes a parameter's local gradient is a partial sum over: each rank
 # of them sees other data. Not ep: its ranks see the same tokens (the
@@ -74,9 +74,10 @@ def _axes(axes) -> Tuple[str, ...]:
 
 
 def validate_partition(shape: Tuple[int, ...], partition, mesh: Mesh,
-                       name: str = "<param>") -> None:
+                       name: str = "<param>", fused: int = 1) -> None:
     """Reject a partition that names an axis the mesh lacks, has more
-    entries than the shape, or splits a dim its degree does not divide."""
+    entries than the shape, or splits a dim its degree does not divide
+    (each of ``fused`` blocks, for dim 0 of a fused projection)."""
     if partition is None:
         return
     if len(partition) > len(shape):
@@ -93,16 +94,16 @@ def validate_partition(shape: Tuple[int, ...], partition, mesh: Mesh,
                     f"{name}: unknown mesh axis {ax!r}; mesh has "
                     f"{tuple(mesh.shape)}")
             degree *= mesh.shape[ax]
-        if shape[dim] % degree != 0:
+        if shape[dim] % (degree * (fused if dim == 0 else 1)) != 0:
             raise ShardingError(
                 f"{name}: dim {dim} of shape {tuple(shape)} not divisible "
                 f"by {_axes(axes)} degree {degree}")
 
 
-def partition_to_sharding(partition, mesh: Optional[Mesh] = None
-                          ) -> NamedSharding:
+def partition_to_sharding(partition, mesh: Optional[Mesh] = None,
+                          fused: int = 1) -> NamedSharding:
     mesh = mesh or get_mesh()
-    return NamedSharding(mesh, tuple(partition) if partition else ())
+    return NamedSharding(mesh, tuple(partition) if partition else (), fused)
 
 
 def _drop_dead_axes(partition, mesh: Mesh):
@@ -146,8 +147,9 @@ def param_shardings(layer: nn.Module, mesh: Optional[Mesh] = None,
                 _, d = max(cand)
                 part[d] = fsdp_axis
         part = tuple(part)
-        validate_partition(tuple(value.shape), part, mesh, name)
-        out[name] = partition_to_sharding(part, mesh)
+        validate_partition(tuple(value.shape), part, mesh, name,
+                           fused_of(value))
+        out[name] = partition_to_sharding(part, mesh, fused_of(value))
     return out
 
 
@@ -237,9 +239,7 @@ def _shard_tensors(layer: nn.Module, mesh: Mesh, shardings) -> None:
         owner, attr = _owner(layer, name)
         new = nn.Parameter(_distribute(p.data, shardings[name]),
                            requires_grad=p.requires_grad)
-        if partition_of(p) is not None:
-            new.partition = partition_of(p)
-        owner._parameters[attr] = new
+        owner._parameters[attr] = copy_meta(p, new)
     for mod in layer.modules():
         parts = getattr(mod, "buffer_partitions", None)
         if parts is None:
@@ -423,20 +423,66 @@ def full_tensor(t):
     return t.full_tensor() if is_sharded(t) else t
 
 
-def local_index(like) -> Tuple[slice, ...]:
+def split_of(pl):
+    """(dim, blocks) of a placement that splits a tensor: a ``Shard``'s
+    (blocks 1) or a strided shard's (its split factor: the fused
+    projections, ``nn.common.set_fused``); None for any other."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if isinstance(pl, _StridedShard):
+        return pl.dim, pl.split_factor
+    if isinstance(pl, Shard):
+        return pl.dim, 1
+    return None
+
+
+def local_index(like) -> Tuple:
     """The index of this rank's shard of DTensor ``like``'s logical
     tensor (the whole of a plain tensor), for any array of that shape: a
-    tensor, or a numpy view of a checkpoint read only there. No
-    collective."""
+    tensor, or a numpy view of a checkpoint read only there
+    (:func:`take`). No collective. Each entry is a slice, or, on the dim
+    a strided shard splits, a tuple of slices: this rank's part of each
+    block, in the order the local shard holds them."""
     bounds = [[0, int(n)] for n in like.shape]
+    blocks = {}
     if is_sharded(like):
-        from torch.distributed.tensor import Shard
         mesh = like.device_mesh
         for pl, n, c in zip(like.placements, mesh.mesh.shape,
                             mesh.get_coordinate()):
-            if isinstance(pl, Shard) and n > 1:
-                _chunk_of(bounds, pl.dim, int(n), c)
-    return tuple(slice(lo, hi) for lo, hi in bounds)
+            split = split_of(pl)
+            if split is None or n == 1:
+                continue
+            dim, k = split
+            if k > 1:
+                blocks[dim] = (k, int(n), c)
+            else:
+                _chunk_of(bounds, dim, int(n), c)
+    out = []
+    for dim, (lo, hi) in enumerate(bounds):
+        if dim not in blocks:
+            out.append(slice(lo, hi))
+            continue
+        k, n, c = blocks[dim]
+        size = (hi - lo) // k
+        out.append(tuple(slice(lo + j * size + c * size // n,
+                               lo + j * size + (c + 1) * size // n)
+                         for j in range(k)))
+    return tuple(out)
+
+
+def take(src, idx):
+    """``src[idx]`` for an index of :func:`local_index` (or
+    ``buffer_index``): the blocks of a strided dim read one by one and
+    concatenated. A numpy source gives numpy, a tensor a tensor; a view
+    of a checkpoint file reads only the indexed elements."""
+    for dim, e in enumerate(idx):
+        if isinstance(e, tuple):
+            parts = [take(src, idx[:dim] + (s,) + idx[dim + 1:]) for s in e]
+            if torch.is_tensor(parts[0]):
+                return torch.cat(parts, dim=dim)
+            import numpy as np
+            return np.concatenate([np.asarray(q) for q in parts], axis=dim)
+    return src[idx]
 
 
 def local_shard(full: torch.Tensor, like) -> torch.Tensor:
@@ -444,7 +490,7 @@ def local_shard(full: torch.Tensor, like) -> torch.Tensor:
     placements (``like`` a DTensor; else ``full``). No collective."""
     if not is_sharded(like):
         return full
-    return full[local_index(like)]
+    return take(full, local_index(like))
 
 
 def _shard_axes(t) -> Tuple[str, ...]:
@@ -452,11 +498,10 @@ def _shard_axes(t) -> Tuple[str, ...]:
     tensor or a replicated DTensor)."""
     if not is_sharded(t):
         return ()
-    from torch.distributed.tensor import Shard
     mesh = t.device_mesh
     return tuple(a for a, pl, n in zip(mesh.mesh_dim_names, t.placements,
                                        mesh.mesh.shape)
-                 if isinstance(pl, Shard) and n > 1)
+                 if split_of(pl) is not None and n > 1)
 
 
 def full_norms(tensors):

@@ -55,7 +55,7 @@ import argparse
 import asyncio
 import signal
 import sys
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 __all__ = ["stub_engine_kw", "tiny_engine_kw", "llama3_8b_engine_kw",
            "llama3_70b_engine_kw", "ernie_engine_kw", "engine_kw",
@@ -126,33 +126,38 @@ def engine_kw(model: str, chunk_tokens: int) -> Dict[str, Any]:
             "ernie45-21b-a3b": ernie_engine_kw}[model](chunk_tokens)
 
 
-def _model_config(model: str):
-    """(model class, config) of ``--model``."""
+def _model_config(model: str, layers: Optional[int] = None):
+    """(model class, config) of ``--model``, cut to ``layers`` decoder
+    layers when given (``--layers``: a depth cut, widths kept)."""
     from ...models import (Ernie45MoeConfig, Ernie45MoeForCausalLM,
                            LlamaForCausalLM, ernie45_moe_tiny, llama3_8b,
                            llama3_70b, llama_tiny)
+    over = {} if layers is None else dict(num_hidden_layers=int(layers))
     if model == "ernie45-21b-a3b":
-        return Ernie45MoeForCausalLM, Ernie45MoeConfig()
+        return Ernie45MoeForCausalLM, Ernie45MoeConfig(**over)
     if model == "ernie-tiny":
-        return Ernie45MoeForCausalLM, ernie45_moe_tiny()
+        return Ernie45MoeForCausalLM, ernie45_moe_tiny(**over)
     return LlamaForCausalLM, {"tiny": llama_tiny, "llama3-8b": llama3_8b,
-                              "llama3-70b": llama3_70b}[model]()
+                              "llama3-70b": llama3_70b}[model](**over)
 
 
-def build_model(model: str, device=None, seed: int = 0):
+def build_model(model: str, device=None, seed: int = 0,
+                layers: Optional[int] = None):
     """``--model``'s weights on ``device`` (the card by default): the
-    stub's seeded tables, or a model drawn from ``seed``."""
+    stub's seeded tables, or a model drawn from ``seed`` (``layers``: its
+    depth cut)."""
     from ...device import resolve_device
     dev = resolve_device(device)
     if model == "stub":
         from ...generation.stub import TickStubModel
         return TickStubModel(device=dev)
     from ...utils.rng import make_generator
-    cls, cfg = _model_config(model)
+    cls, cfg = _model_config(model, layers)
     return cls(cfg, device=dev, generator=make_generator(seed, dev))
 
 
-def build_sharded_model(model: str, seed: int = 0):
+def build_sharded_model(model: str, seed: int = 0,
+                        layers: Optional[int] = None):
     """``--model`` from ``seed`` on the installed mesh's device, each
     decoder layer cut to this rank's shards (tp, and an MoE layer's
     experts over ep) as it is drawn (``sharded_build``), the rest cut by
@@ -167,7 +172,7 @@ def build_sharded_model(model: str, seed: int = 0):
     from ...parallel.sharding import bind_static, shard_layer, sharded_build
     from ...utils.rng import make_generator
     dev = get_mesh().device
-    cls, cfg = _model_config(model)
+    cls, cfg = _model_config(model, layers)
     with sharded_build(fsdp_min_size=1 << 30):
         m = cls(cfg, device=dev, generator=make_generator(seed, dev))
     shard_layer(m, fsdp_min_size=1 << 30)
@@ -257,6 +262,9 @@ def main(argv=None) -> int:
                     help="--tp: split an MoE model's experts over M more "
                          "ranks (the launcher's --nproc N*M; the mesh "
                          "{tp: N, ep: M})")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this many decoder layers (its "
+                         "widths kept)")
     ap.add_argument("--idle-interval-s", type=float, default=None,
                     help="--tp: the idle rank 0's heartbeat to the other "
                          "ranks (default: tp_replica.IDLE_INTERVAL_S)")
@@ -285,7 +293,7 @@ def main(argv=None) -> int:
         dev = resolve_device(ns.device)
         if ns.run_dir:
             obs.configure(ns.run_dir)
-        shared = build_model(ns.model, dev, ns.seed)
+        shared = build_model(ns.model, dev, ns.seed, ns.layers)
 
         def factory():
             return build_engine(ns.model, ns.chunk_tokens, dev, ns.seed,
@@ -325,7 +333,7 @@ def _tp_replica(ns, arena):
     if ns.engines != 1:
         raise SystemExit("--tp: a tp replica serves one engine")
     init_parallel_env({"tp": ns.tp, "ep": ns.ep or 1}, device=ns.device)
-    model = build_sharded_model(ns.model, ns.seed)
+    model = build_sharded_model(ns.model, ns.seed, ns.layers)
     kw = engine_kw(ns.model, ns.chunk_tokens)
 
     def factory():

@@ -808,10 +808,12 @@ class Gateway:
         self._by_replica = {w.replica: w for w in self._workers}
         # the reference engine defines prompt limits + the digest grid
         self._ref = engines[0]
-        # a span in the arena holds rank 0's heads alone on a replica of
-        # several ranks: no peer imports it and none is imported (such
-        # resumes re-prefill)
-        self._xfer_ok = getattr(self._ref, "_ranks", 1) == 1
+        # spans cross replicas as records of the whole model's heads: a
+        # replica of several ranks exports and imports them through its
+        # sequencer (every rank's part); an unsequenced engine of several
+        # ranks is refused above
+        self._xfer_ok = getattr(self._ref, "sequenced", False) or \
+            getattr(self._ref, "_ranks", 1) == 1
         self._supervisor: Optional[ReplicaSupervisor] = None
         if supervise:
             for rep in replicas:
@@ -1093,7 +1095,7 @@ class Gateway:
             return
         try:
             ids = [int(t) for t in desc["prompt"]]
-            geo = eng._spill_geometry()
+            geo = self._xfer_geo()
             chain = eng._chunk_digests(ids, len(ids) - 1)
         except Exception:
             return
@@ -1109,7 +1111,7 @@ class Gateway:
                 blob = None
             if blob is None:
                 continue                     # peer may hold a shorter span
-            if kvxfer.inject_span(self._spill_arena, blob, geo,
+            if kvxfer.inject_span(self._xfer_store(), blob, geo,
                                   gateway=self.name) is not None:
                 if req.trace is not None:
                     req.trace.ev("kv_xfer_restore",
@@ -1239,10 +1241,6 @@ class Gateway:
                         w.engine.spill_live()
                 except Exception:
                     pass        # a failed drain spill only costs warmth
-        for w in self._workers:
-            if getattr(w.engine, "sequenced", False):
-                # a tp replica's other ranks leave their follow loops
-                w.engine.stop()
         obs.record_event("gateway_drain", gateway=self.name)
         if self.sampler is not None:
             # stop the sampler thread and leave the trajectory on disk
@@ -1275,6 +1273,12 @@ class Gateway:
             # (it would still finish correctly via re-prefill, but
             # the whole point of migrating is skipping that)
             await asyncio.sleep(self._xfer_grace_s)
+        for w in self._workers:
+            if getattr(w.engine, "sequenced", False):
+                # a tp replica's other ranks leave their follow loops
+                # (after the grace: a /kvz export gathers every rank's
+                # part of a span)
+                w.engine.stop()
         if self._server is not None:
             self._server.close()
             try:
@@ -1697,6 +1701,20 @@ class Gateway:
         writer.write(_json_response(404, {"error": f"no route {path}"}))
         await writer.drain()
 
+    def _xfer_store(self):
+        """The arena spans are exported from and imported into: the
+        spill arena, or a sequenced replica's, which takes and puts every
+        rank's part (``SequencedEngine.xfer_arena``)."""
+        if getattr(self._ref, "sequenced", False):
+            return self._ref.xfer_arena()
+        return self._spill_arena
+
+    def _xfer_geo(self) -> tuple:
+        """The geometry records carry: the whole model's kv heads."""
+        if getattr(self._ref, "sequenced", False):
+            return self._ref.xfer_geometry()
+        return self._ref._spill_geometry()
+
     async def _serve_kvz(self, query: str, writer):
         """``GET /kvz?digest=<hex>``: one spill-arena span as a kvxfer
         wire record (peer fetch — the fleet-fetchable face of
@@ -1712,17 +1730,22 @@ class Gateway:
             writer.write(_json_response(
                 404, {"error": "no spill arena" if
                       self._spill_arena is None else "missing digest"
-                      if self._xfer_ok else "spans of a tp replica hold "
-                      "one rank's heads"}))
+                      if self._xfer_ok else "spans of an unsequenced "
+                      "engine of several ranks"}))
             await writer.drain()
             return
         if faults.inject("xfer_slow", gateway=self.name,
                          digest=str(digest)[:12]):
             await asyncio.sleep(faults.xfer_slow_seconds())
+        def export():
+            return kvxfer.export_span(self._xfer_store(), str(digest),
+                                      self._xfer_geo(), gateway=self.name)
         try:
-            blob = kvxfer.export_span(
-                self._spill_arena, str(digest),
-                self._ref._spill_geometry(), gateway=self.name)
+            # a sequenced replica's export is a command every rank
+            # applies: off the event loop, behind the tick in flight
+            blob = (await asyncio.get_running_loop().run_in_executor(
+                None, export)) if getattr(self._ref, "sequenced", False) \
+                else export()
         except Exception:
             blob = None
         if blob is None:
@@ -1919,7 +1942,7 @@ class Gateway:
         re-prefills, bitwise identical."""
         if self._spill_arena is None or not self._xfer_ok:
             return
-        geo = self._ref._spill_geometry()
+        geo = self._xfer_geo()
         if ref.startswith("b64:"):
             import base64
             import binascii
@@ -1927,7 +1950,7 @@ class Gateway:
                 blob = base64.b64decode(ref[4:], validate=True)
             except (binascii.Error, ValueError):
                 return
-            kvxfer.inject_span(self._spill_arena, blob, geo,
+            kvxfer.inject_span(self._xfer_store(), blob, geo,
                                gateway=self.name)
             return
         try:
@@ -1942,7 +1965,7 @@ class Gateway:
         except Exception:
             blob = None
         if blob is not None:
-            kvxfer.inject_span(self._spill_arena, blob, geo,
+            kvxfer.inject_span(self._xfer_store(), blob, geo,
                                gateway=self.name)
 
     async def _generate(self, body, headers, reader, writer):

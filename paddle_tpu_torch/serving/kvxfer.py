@@ -34,6 +34,13 @@ crc must catch it), ``xfer_trunc`` cuts the encoded record short
 ``/kvz`` handler (the serving side of this module), bounded by the
 fetcher's ``xfer_timeout_s``.
 
+A replica of several ranks (``serving/tp_replica.py``) holds each span
+as its ranks' parts, each rank's arena its own kv heads. Its records are
+the whole model's all the same: :func:`join_heads` lays the ranks' parts
+side by side along the heads (tp order) into the payload of the whole
+geometry, and :func:`split_heads` cuts a received payload back into
+them, so a record is the same whatever tp degree served it.
+
 Counters (one set per ``gateway`` label, exported like every other
 registry metric through ``/metrics`` and ``/metricsz``):
 ``kv_xfer_{spans,bytes,hits,fallbacks,checksum_failures}_total``.
@@ -49,7 +56,8 @@ from ..utils import faults
 from ..utils import observability as obs
 
 __all__ = ["XferError", "encode_span", "decode_span", "export_span",
-           "inject_span", "counters_snapshot"]
+           "inject_span", "counters_snapshot", "join_heads", "split_heads",
+           "whole_geometry"]
 
 MAGIC = b"KVX1"
 _HEAD = struct.Struct("<I")
@@ -81,6 +89,44 @@ def counters_snapshot(gateway: str) -> Dict[str, int]:
     loadgen banks into the serving rung)."""
     return {f"kv_xfer_{n}_total": int(c.value)
             for n, c in _ctr(gateway).items()}
+
+
+# bytes an element of a spill payload's dtype (the engine's names)
+_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+
+def _heads_view(payload: bytes, geometry: tuple):
+    """A payload as a uint8 array [2L, n, B, kvh, d x itemsize]."""
+    import numpy as np
+    layers, block, kvh, d, dtype = geometry[:5]
+    row = block * kvh * d * _ITEMSIZE[dtype]
+    arr = np.frombuffer(bytes(payload), np.uint8)
+    n = arr.size // (2 * layers * row)
+    return arr.reshape(2 * layers, n, block, kvh, d * _ITEMSIZE[dtype])
+
+
+def whole_geometry(geometry: tuple, parts: int) -> tuple:
+    """The geometry of ``parts`` ranks' spans of ``geometry`` joined
+    along the kv heads."""
+    g = list(geometry)
+    g[2] = int(g[2]) * int(parts)
+    return tuple(g)
+
+
+def join_heads(payloads, geometry: tuple) -> bytes:
+    """The ranks' payloads of one span (each of ``geometry``, its own kv
+    heads; in tp order) as one payload of the whole model's heads."""
+    import numpy as np
+    return np.concatenate([_heads_view(p, geometry) for p in payloads],
+                          axis=3).tobytes()
+
+
+def split_heads(payload: bytes, geometry: tuple, parts: int):
+    """A whole-model payload of ``geometry`` cut into ``parts`` payloads
+    of consecutive kv heads (tp order): each rank's part."""
+    import numpy as np
+    return [np.ascontiguousarray(a).tobytes() for a in np.split(
+        _heads_view(payload, geometry), parts, axis=3)]
 
 
 class XferError(ValueError):

@@ -34,7 +34,15 @@ the engine ORs expiries over the ranks. While rank 0 is idle it sends an
 empty batch every ``idle_interval_s``, so the followers' wait never
 reaches the process group's timeout and a follower that died is found.
 Each rank's spill arena holds its own heads' blocks: spills and restores
-run on every rank at the same point of the sequence.
+run on every rank at the same point of the sequence. A span crosses
+replicas as one record of the whole model's heads (``serving/kvxfer``):
+:meth:`SequencedEngine.xfer_arena` is the arena the gateway exports from
+and imports into. An export is a sequenced command: every rank takes its
+part from its arena and gathers it to rank 0 over the host group, which
+joins the heads in tp order (one rank of each tp coordinate: ep ranks
+hold the same heads). An import sends each rank its heads' part of the
+decoded record, and every rank puts it at the same point of the
+sequence, so the arenas keep the same spans.
 
 A replica that loses a rank does not rebuild in place. On more than
 one rank (``tp`` below counts the replica's ranks, tp x ep) an
@@ -78,6 +86,8 @@ class _RankState:
         self.factory = factory
         self.arena = spill_arena
         self.attached = False
+        # gathers one object a rank to rank 0 (set by SequencedEngine)
+        self.gather = lambda obj: [obj]
 
     def apply(self, batch, times: Dict[str, float]) -> List[Any]:
         """Apply ``batch``'s commands in order; returns each one's value.
@@ -119,6 +129,17 @@ class _RankState:
                 out.append(eng.spill_live())
             elif op == "spill_parked":
                 out.append(eng.spill_parked())
+            elif op == "export":
+                # this rank's part of a span, gathered to rank 0
+                got = None if self.arena is None else self.arena.take(
+                    cmd[1], eng._spill_geometry())
+                out.append(self.gather((_tp_coordinate(), got)))
+            elif op == "import":
+                _, raw, tokens, parts = cmd
+                ok = self.arena is not None and self.arena.put(
+                    raw, parts[_tp_coordinate()[0]], tokens,
+                    eng._spill_geometry())
+                out.append(self.gather(bool(ok)))
             elif op == "barrier":
                 out.append(None)
             elif op == "stop":
@@ -131,6 +152,62 @@ class _RankState:
 
 def _exit_lost(why: str) -> None:
     os._exit(EXIT_RANK_LOST)
+
+
+def _tp_coordinate():
+    """(tp coordinate, ep coordinate) of this rank on the installed mesh
+    ((0, 0) without one)."""
+    from ..distributed.env import axis_coordinate, has_mesh
+    if not has_mesh():
+        return 0, 0
+    return axis_coordinate("tp"), axis_coordinate("ep")
+
+
+class _ReplicaArena:
+    """The arena a gateway exports spans from and imports them into, for
+    a sequenced replica: spans of the whole model's heads
+    (``kvxfer.whole_geometry``), each held as the ranks' parts."""
+
+    def __init__(self, seq: "SequencedEngine"):
+        self.seq = seq
+
+    def probe(self, digest: bytes):
+        arena = self.seq._rank.arena
+        return None if arena is None else arena.probe(digest)
+
+    def take(self, digest: bytes, geometry: tuple):
+        """Every rank's part of the span under ``digest``, joined along
+        the heads; None when any rank lacks it or ``geometry`` is not the
+        whole model's."""
+        from . import kvxfer
+        if tuple(geometry) != self.seq.xfer_geometry():
+            return None
+        with self.seq._lock:
+            got = self.seq._flush([("export", bytes(digest))])[-1]
+        parts = {}
+        for (tp, ep), part in got:
+            if ep == 0:
+                parts[tp] = part
+        if any(p is None for p in parts.values()):
+            return None
+        local = self.seq._rank.engine._spill_geometry()
+        return (kvxfer.join_heads([parts[t][0] for t in sorted(parts)],
+                                  local), parts[0][1])
+
+    def put(self, digest: bytes, payload: bytes, tokens: int,
+            geometry: tuple) -> bool:
+        """Each rank's heads of ``payload`` into its arena, at one point
+        of the sequence; True when every rank kept it."""
+        from . import kvxfer
+        if tuple(geometry) != self.seq.xfer_geometry():
+            return False
+        n = int(self.seq.xfer_geometry()[2]) \
+            // int(self.seq._rank.engine._spill_geometry()[2])
+        parts = kvxfer.split_heads(payload, geometry, n)
+        with self.seq._lock:
+            got = self.seq._flush([("import", bytes(digest), int(tokens),
+                                    parts)])[-1]
+        return all(got)
 
 
 class SequencedEngine:
@@ -158,6 +235,7 @@ class SequencedEngine:
                  on_lost=None):
         import torch.distributed as dist
         self._rank = _RankState(engine, factory, spill_arena)
+        self._rank.gather = self._gather
         # the replica's ranks (tp x ep): every one takes every batch
         self.tp = int(getattr(engine, "_ranks", 1))
         self._group = getattr(engine, "_host_group", None) \
@@ -343,6 +421,32 @@ class SequencedEngine:
             self._flush([("stop",)])
             self._stopped = True
         self._halt.set()
+
+    # ------------------------------------------------ the KV transfer
+    def xfer_geometry(self) -> tuple:
+        """The geometry of this replica's spans as records carry them:
+        the whole model's kv heads (``kvxfer.whole_geometry``)."""
+        from . import kvxfer
+        local = self._rank.engine._spill_geometry()
+        heads = int(getattr(self._rank.engine.model.config,
+                            "num_key_value_heads", None)
+                    or self._rank.engine.model.config.num_attention_heads)
+        return kvxfer.whole_geometry(local, heads // int(local[2]))
+
+    def xfer_arena(self) -> _ReplicaArena:
+        """The arena the gateway exports spans from and imports them
+        into (module docstring)."""
+        return _ReplicaArena(self)
+
+    def _gather(self, obj):
+        """``obj`` of every rank of the replica, in its group's order, on
+        rank 0 (None on the others); ``[obj]`` at one rank."""
+        if self._group is None:
+            return [obj]
+        import torch.distributed as dist
+        got = [None] * self.tp if self.leader else None
+        dist.gather_object(obj, got, dst=self._src, group=self._group)
+        return got
 
     # ------------------------------------------------------- the leader
     def _check_open(self):

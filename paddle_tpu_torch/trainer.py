@@ -995,9 +995,10 @@ class Trainer:
 @torch.no_grad()
 def _copy_into(live, saved):
     """Copy a restored tree's tensors into the live tree's, in place (a
-    DTensor takes its own shard of the saved full tensor)."""
+    DTensor's restored leaf is this rank's shard already:
+    ``DistributedCheckpoint.restore(like=...)`` reads only its pieces)."""
     if isinstance(live, dict):
         for k, v in live.items():
             _copy_into(v, saved[k])
     elif torch.is_tensor(live):
-        sharding.local(live).copy_(sharding.local_shard(saved, live))
+        sharding.local(live).copy_(saved)

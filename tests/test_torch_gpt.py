@@ -8,7 +8,7 @@ greedy and beam ``generate()``, the weight-only ``Predictor`` at int8
 and int4 (hidden 256, so every projection quantizes), speculative
 generation, the ``Trainer`` (plain and ``recompute``) and the packed SFT
 fallback. The refusals kept as JAX has them (a left-padded
-``generate()``, a ``PagedEngine``, tp > 1) and the position clamp past
+``generate()``, a ``PagedEngine``) and the position clamp past
 ``max_position_embeddings`` are held too."""
 import jax.numpy as jnp
 import numpy as np
@@ -202,11 +202,13 @@ def test_positions_past_the_table_clamp_as_in_jax():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-def test_refusals_kept_as_in_jax(monkeypatch):
+def test_refusals_kept_as_in_jax():
     """A left-padded ``generate()`` raises ``TypeError`` in both packages
     (the forward takes no ``attn_start``), while a batch without
     ``prompt_start`` serves; a ``PagedEngine`` refuses GPT (its attention
-    unpacks the cache as a (k, v) pair); tp > 1 is not ported."""
+    unpacks the cache as a (k, v) pair). tp > 1 is no refusal: the fused
+    qkv's weight and bias are split over tp by q, k and v apart
+    (``tests/test_torch_tp_zoo.py`` holds GPT at tp 2)."""
     jm, tm = _pair(seed=12)
     ids = _ids(2, 8, 256, seed=13)
     start = np.array([0, 3], np.int32)
@@ -219,9 +221,9 @@ def test_refusals_kept_as_in_jax(monkeypatch):
     with pytest.raises(ValueError, match="PagedEngine"):
         PagedEngine(tm, max_slots=2, block_size=16, max_blocks_per_seq=4)
     import paddle_tpu_torch.models.gpt as gpt
-    monkeypatch.setattr(gpt, "axis_size", lambda axis: 2)
-    with pytest.raises(NotImplementedError, match="tp > 1"):
-        tm(torch.from_numpy(ids).long())
+    assert not hasattr(gpt, "refuse_tp")
+    qkv = tm.model.layers[0].attn.qkv_proj
+    assert qkv.weight.fused_parts == qkv.bias.fused_parts == 3
 
 
 @pytest.mark.parametrize("recompute", (False, True))

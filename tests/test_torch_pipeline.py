@@ -361,3 +361,20 @@ def test_pipeline_apply_matches_jax(world):
                                            {"w": torch.zeros(2)}])
     assert stacked["w"].shape == (2, 2)
     assert torch.equal(stacked["w"][1], torch.zeros(2))
+
+
+def test_pp_with_sp_is_refused_as_the_jax_package_cannot_run_it(monkeypatch):
+    """pp with sp > 1 raises ``NotImplementedError`` when the step runs:
+    the JAX package's own step does not run on that mesh (its ring's
+    ``shard_map`` nested in the pipeline's raises under ``jit``; without
+    ``sequence_parallel`` XLA deadlocks), so the port keeps the refusal
+    and its message says so."""
+    import paddle_tpu_torch.models.llama as llama
+    model = ptt.LlamaForCausalLM(ptt.llama_tiny(), device="cpu")
+    vag = model.pipeline_functional(2)
+    monkeypatch.setattr(llama, "axis_size",
+                        lambda axis: 2 if axis == "sp" else 1)
+    flat = {k: v.detach() for k, v in model.named_parameters()}
+    with pytest.raises(NotImplementedError,
+                       match="does not run this mesh either"):
+        vag(flat, torch.zeros(2, 1, 8, dtype=torch.long))

@@ -13,7 +13,8 @@ order, before each step.
   driven directly. At tp 2 also a client disconnect, a deadline
   mid-stream, an idle gap, a hang on rank 0 answered by a sequenced
   ``hard_reset``, a span spilled and restored on every rank and a drain
-  that migrates a live stream. The schedule digest, compared every step,
+  that migrates a live stream (its span banked on every rank and named as
+  its ``resume_kv``). The schedule digest, compared every step,
   never parts (it would raise), every rank ends with the same counters,
   and the drain ends every rank with exit 0.
 - Processes: two ``replica_main --tp 2 --model tiny`` replicas spawned by
@@ -440,7 +441,9 @@ def test_drain_migration_cancels_on_every_rank(served):
     st, toks, fin = ranks[0]["spill"]["leader"]["m"]
     assert st == 200 and fin["finish_reason"] == "migrated"
     assert 3 <= len(fin["tokens"]) < 40 and fin["tokens"][:len(toks)] == toks
-    assert fin["resume_kv"] == ""     # a tp replica's spans stay its own
+    # the live span is banked on every rank and named for the survivor
+    # (a tp replica's spans cross replicas: tests/test_torch_tp_kvxfer.py)
+    assert fin["resume_kv"] and bytes.fromhex(fin["resume_kv"])
     assert ranks[1]["spill"]["stats"]["cancellations"] == \
         ranks[0]["spill"]["stats"]["cancellations"] == 1
 

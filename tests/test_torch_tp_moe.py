@@ -16,7 +16,8 @@ process on ``jax.devices()[:n]`` while the worlds run.
 - Greedy ``generate()``, beam search, the ``PagedEngine`` and MTP-as-draft
   streams equal the JAX package's; the sampled streams and every other
   stream are the same on every rank.
-- ``Predictor`` int8 logits within ``ATOL_INT8`` of the JAX quantized
+- ``Predictor`` int8 (and int4, on Qwen2-MoE and ERNIE-4.5-MoE at hidden
+  256) logits within ``ATOL_INT8`` of the JAX quantized
   model's, greedy equal; bf16 logits within ``ATOL_BF16`` of the fp32 ones.
 - HF checkpoints of the four MoE families loaded inside ``sharded_build``
   give this rank's tensors of the whole load bit for bit, reading only
@@ -69,27 +70,35 @@ V3 = dict(num_experts=8, n_group=4, topk_group=2, scoring="sigmoid",
 CFGS = {"qwen": dict(capacity_factor=0.5), "dsmoe": {},
         "ernie": dict(hidden_size=256, intermediate_size=512,
                       num_attention_heads=8, num_key_value_heads=4),
-        "ds2": {}, "ds3": V3}
+        "ds2": {}, "ds3": V3,
+        # Qwen2-MoE at hidden 256: every attention projection quantizes
+        "qwenq": dict(hidden_size=256, intermediate_size=512,
+                      num_attention_heads=8, num_key_value_heads=4,
+                      capacity_factor=0.5)}
 JAX_MODELS = {"qwen": (jqwen.Qwen2MoeForCausalLM, jqwen.qwen2_moe_tiny),
               "dsmoe": (jqwen.Qwen2MoeForCausalLM, jqwen.deepseek_moe_tiny),
               "ernie": (jernie.Ernie45MoeForCausalLM,
                         jernie.ernie45_moe_tiny),
               "ds2": (jds.DeepseekV2ForCausalLM, jds.deepseek_v2_tiny),
-              "ds3": (jds.DeepseekV2ForCausalLM, jds.deepseek_v2_tiny)}
-SEEDS = {"qwen": 0, "dsmoe": 1, "ernie": 2, "ds2": 3, "ds3": 4}
-EXPERTS = {"qwen": 4, "dsmoe": 8, "ernie": 4, "ds2": 4, "ds3": 8}
+              "ds3": (jds.DeepseekV2ForCausalLM, jds.deepseek_v2_tiny),
+              "qwenq": (jqwen.Qwen2MoeForCausalLM, jqwen.qwen2_moe_tiny)}
+SEEDS = {"qwen": 0, "dsmoe": 1, "ernie": 2, "ds2": 3, "ds3": 4, "qwenq": 9}
+EXPERTS = {"qwen": 4, "dsmoe": 8, "ernie": 4, "ds2": 4, "ds3": 8,
+           "qwenq": 4}
 # tuples, not sets: the parametrized cases must come out in one order in
 # every process that collects them
 WORLDS = {
     "tp2": dict(mesh={"tp": 2}, models=("qwen", "ernie", "ds2", "ds3"),
                 beam=("qwen", "ds2"), sampled=("qwen",), engine=("qwen",),
-                int8=("ernie",), bf16=("ernie",), ckpts=True),
+                int8=("ernie",), int4=("qwenq", "ernie"), bf16=("ernie",),
+                ckpts=True),
     "tp4": dict(mesh={"tp": 4}, models=("ernie", "ds2"), beam=("ernie",),
-                sampled=(), engine=("ernie",), int8=(), bf16=(),
+                sampled=(), engine=("ernie",), int8=(), int4=(), bf16=(),
                 ckpts=False),
     "tp2ep2": dict(mesh={"tp": 2, "ep": 2}, models=("dsmoe", "ds3", "ernie"),
                    beam=("dsmoe",), sampled=("dsmoe",), engine=(),
-                   gateway="dsmoe", int8=("ernie",), bf16=(), ckpts=True)}
+                   gateway="dsmoe", int8=("ernie",), int4=("qwenq", "ernie"),
+                   bf16=(), ckpts=True)}
 # the replica process: replica_main --model ernie-tiny from this seed
 FLEET_SEED = 7
 
@@ -188,13 +197,14 @@ def _checkpoints(tmp):
 def _payload(world, tmp):
     w = WORLDS[world]
     params = {}
-    for kind in w["models"]:
+    for kind in dict.fromkeys(w["models"] + w["int4"]):
         params[kind] = {k: np.asarray(v)
                         for k, v in _jax_model(kind).state_dict().items()}
     reqs = _requests()
     return dict(mesh=w["mesh"], models=w["models"], beam=w["beam"],
                 sampled=w["sampled"], engine=w["engine"],
-                gateway=w.get("gateway"), int8=w["int8"], bf16=w["bf16"],
+                gateway=w.get("gateway"), int8=w["int8"], int4=w["int4"],
+                bf16=w["bf16"],
                 cfgs=CFGS, params=params,
                 ids=np.random.RandomState(6).randint(1, 256, (2, 9)),
                 script=_script(reqs), gw_reqs=reqs,
@@ -277,6 +287,13 @@ def _jax_refs(world, p):
                 ref[f"{kind}_int8_logits"] = _jax_forward(q, p["ids"])
                 ref[f"{kind}_int8_greedy"] = np.asarray(
                     q.generate(ids, max_new_tokens=6, temperature=0.0))
+        for kind in w["int4"]:
+            q = _jax_model(kind)
+            jax_quantize_model(q, bits=4, skip=["lm_head", "embed"])
+            jax_shard_layer(q, fsdp_min_size=1 << 30)
+            ref[f"{kind}_int4_logits"] = _jax_forward(q, p["ids"])
+            ref[f"{kind}_int4_greedy"] = np.asarray(
+                q.generate(ids, max_new_tokens=6, temperature=0.0))
     return ref
 
 
@@ -510,6 +527,27 @@ def test_predictor_int8_matches_jax(served, world, kind):
     np.testing.assert_array_equal(ranks[world][0][f"{kind}_int8_greedy"],
                                   refs[world][f"{kind}_int8_greedy"])
     _same_on_every_rank(ranks[world], f"{kind}_int8_greedy")
+
+
+@pytest.mark.parametrize("world,kind", _cases("int4"))
+def test_predictor_int4_matches_jax(served, world, kind):
+    """The weight-only ``Predictor`` at int4 on Qwen2-MoE and
+    ERNIE-4.5-MoE at hidden 256 (every attention projection quantizes;
+    the experts are stacked parameters, not linears, in both packages):
+    logits within ``ATOL_INT8`` of the JAX quantized model on the same
+    mesh, greedy tokens equal, the same on every rank."""
+    _, ranks, refs, _ = served
+    h = CFGS[kind]["hidden_size"]
+    tp = WORLDS[world]["mesh"]["tp"]
+    for r in ranks[world]:
+        np.testing.assert_allclose(r[f"{kind}_int4_logits"],
+                                   refs[world][f"{kind}_int4_logits"],
+                                   atol=ATOL_INT8, rtol=0)
+        # a rank's int4 codes of its q columns and o rows (two a byte)
+        assert r[f"{kind}_int4_codes"][0][1] == h // tp
+    np.testing.assert_array_equal(ranks[world][0][f"{kind}_int4_greedy"],
+                                  refs[world][f"{kind}_int4_greedy"])
+    _same_on_every_rank(ranks[world], f"{kind}_int4_greedy")
 
 
 @pytest.mark.parametrize("world,kind", _cases("bf16"))

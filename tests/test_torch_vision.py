@@ -8,9 +8,10 @@ them), set back into it, and its ``state_dict()`` carried across with
 both packages on one batch: the loss histories and every parameter after
 them agree, and BatchNorm's running statistics stay where they were in
 both (the JAX step binds no buffers). CLIP's contrastive loss at dp 2
-runs in one CPU gloo world against the JAX functions under ``shard_map``
-on a 2-device CPU mesh, with the refusals of tp > 1 and of
-``SyncBatchNorm`` on dp > 1 checked in the same world.
+(with each tower split over tp 2) runs in one CPU gloo world of 4 against
+the JAX functions under ``shard_map`` on a 2-device CPU mesh, with
+``SyncBatchNorm`` on dp 2 held to the global batch's statistics in the
+same world.
 
 Tolerances are the zoo tests': ``ATOL`` for outputs, ``RTOL_LOSS`` for
 loss histories, ``ATOL_PARAMS`` for parameters after the steps."""
@@ -315,7 +316,8 @@ def _dp_payload():
     jm = jclip.CLIPModel(jclip.clip_tiny())
     params = jittered(jm, 17)
     ids, px = _clip_inputs(8, seed=18)
-    return jm, dict(params=params, ids=ids, px=px)
+    return jm, dict(params=params, ids=ids, px=px,
+                    mesh={"dp": DP, "tp": 2}, bn_x=_images(6, 3, 5, 4, 19))
 
 
 def _jax_dp_reference(jm, p):
@@ -354,22 +356,33 @@ def _jax_dp_reference(jm, p):
 
 
 def test_clip_contrastive_loss_at_dp2_matches_jax(tmp_path):
-    """Two gloo ranks, each with half the batch: its features gathered
-    over dp, its loss with the labels offset by its rank; the ranks'
-    losses equal the JAX shards', and their gradients (the all-gather's
-    backward sums the cotangents over the ranks) add up to the JAX
-    gradient of the summed loss. In the same world: ViT, CLIP and DiT
-    raise ``NotImplementedError`` on a tp 2 mesh, and ``SyncBatchNorm``
-    in training on dp 2."""
+    """Four gloo ranks on {"dp": 2, "tp": 2}, each dp pair with half the
+    batch and each tower's heads split over tp: its features gathered
+    over dp, its loss with the labels offset by its dp index; the ranks'
+    losses equal the JAX shards', and the gradients of one tp rank of
+    each dp pair (the all-gather's backward sums the cotangents over dp;
+    the projections are replicated over tp) add up to the JAX gradient
+    of the summed loss. In the same world, ``SyncBatchNorm`` in training
+    on dp 2 normalises by the global batch's statistics and moves its
+    running ones by them, as the JAX layer does on a global array."""
     jm, p = _dp_payload()
-    handle = start_world("clip_dp", DP, tmp_path, p)
+    handle = start_world("clip_dp", DP * 2, tmp_path, p)
     want_losses, want_grads = _jax_dp_reference(jm, p)
     ranks = handle.result()
-    np.testing.assert_allclose([r["loss"] for r in ranks], want_losses,
+    np.testing.assert_allclose([r["loss"] for r in ranks],
+                               [want_losses[r["dp"]] for r in ranks],
                                rtol=1e-5, atol=1e-6)
     for k, g in want_grads.items():
-        np.testing.assert_allclose(sum(r["grads"][k] for r in ranks), g,
-                                   atol=1e-5, rtol=1e-4, err_msg=k)
+        np.testing.assert_allclose(
+            sum(r["grads"][k] for r in ranks if r["tp"] == 0), g,
+            atol=1e-5, rtol=1e-4, err_msg=k)
+    x = p["bn_x"]
+    mean, var = x.mean(axis=(0, 2, 3)), x.var(axis=(0, 2, 3))
+    y = (x - mean[None, :, None, None]) / np.sqrt(
+        var[None, :, None, None] + 1e-5)
     for r in ranks:
-        assert r["refused"] == {"vit": True, "clip": True, "dit": True,
-                                "sync_bn": True}
+        np.testing.assert_allclose(r["bn"]["y"], np.split(y, DP)[r["dp"]],
+                                   atol=1e-5, rtol=0)
+        np.testing.assert_allclose(r["bn"]["mean"], 0.1 * mean, atol=1e-6)
+        np.testing.assert_allclose(r["bn"]["var"], 0.9 + 0.1 * var,
+                                   atol=1e-6)

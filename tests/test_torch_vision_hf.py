@@ -402,3 +402,33 @@ def test_unsupported_variants_are_refused_as_in_jax(tmp_path, kind, extra,
     with pytest.raises(ValueError, match=match) as terr:
         hf_interop.config_from_hf(str(d))
     assert str(terr.value) == str(jerr.value)
+
+
+TOL_BF16 = 0      # loaded tensors: both packages round fp32 to bf16 (RNE)
+
+
+@pytest.mark.parametrize("case", ("vit", "clip-eos2"))
+def test_bf16_checkpoints_load_with_the_jax_dtypes(tmp_path, case):
+    """A checkpoint whose config says bfloat16 loads every tensor in the
+    JAX loader's dtype, key by key: the JAX ``_place`` casts each
+    floating tensor of the checkpoint to the config's dtype, so the heads
+    the constructor keeps fp32 (ViT's classifier, CLIP's projections and
+    logit scale) load bf16. Then the values, within ``TOL_BF16``."""
+    cfg, w = _hf_case(case, seed=8)
+    cfg = dict(cfg, torch_dtype="bfloat16")
+    d = _write(tmp_path / case, cfg, w)
+    jm = jax_hf.from_pretrained(d)
+    tm = hf_interop.from_pretrained(d, device="cpu")
+    jsd = dict(jm.state_dict())
+    tsd = jax_state_dict(tm)
+    assert set(tsd) == set(jsd)
+    got = {k: str(v.dtype).replace("torch.", "") for k, v in tsd.items()}
+    want = {k: str(jnp.asarray(v).dtype) for k, v in jsd.items()}
+    assert got == want
+    assert want[("head.weight" if case == "vit" else "text_projection")] \
+        == "bfloat16"
+    for k in jsd:
+        ref = np.asarray(jnp.asarray(jsd[k], jnp.float32))
+        tol = COMPUTED.get(k, TOL_BF16)
+        np.testing.assert_allclose(tsd[k].float().numpy(), ref, atol=tol,
+                                   rtol=0, err_msg=k)

@@ -257,3 +257,36 @@ def test_logits_match_transformers(tmp_path, case):
     for o, r in zip(_outputs(tm, ids, False), refs):
         np.testing.assert_allclose(o, r.numpy(), atol=TOL_LOGITS,
                                    rtol=TOL_LOGITS)
+
+
+TOL_BF16 = 0      # loaded tensors: both packages round fp32 to bf16 (RNE)
+
+
+@pytest.mark.parametrize("case", ("bert", "ernie"))
+def test_bf16_checkpoints_load_with_the_jax_dtypes(tmp_path, case):
+    """A checkpoint whose config says bfloat16 loads every tensor in the
+    JAX loader's dtype, key by key: the JAX ``_place`` casts each
+    floating tensor of the checkpoint to the config's dtype (the NSP and
+    MLM heads the constructor keeps fp32 load bf16), and a tensor the
+    checkpoint lacks keeps the constructor's dtype in both. Then the
+    loaded values, within ``TOL_BF16``."""
+    cfg, weights = CASES[case](seed=9)
+    cfg = dict(cfg, torch_dtype="bfloat16")
+    d = _write(tmp_path / case, cfg, weights)
+    jconv = jax_hf.convert_hf_state_dict(
+        weights, *jax_hf.config_from_hf(d)[1:])
+    jm = jax_hf.from_pretrained(d)
+    tm = hf_interop.from_pretrained(d, device="cpu")
+    jsd = dict(jm.state_dict())
+    tsd = jax_state_dict(tm)
+    assert set(tsd) == set(jsd)
+    got = {k: str(v.dtype).replace("torch.", "") for k, v in tsd.items()}
+    want = {k: str(jnp.asarray(v).dtype) for k, v in jsd.items()}
+    assert got == want
+    assert "bfloat16" in {want[k] for k in jconv if "cls" in k
+                          or "head" in k}
+    for k in jconv:
+        np.testing.assert_allclose(
+            tsd[k].float().numpy(),
+            np.asarray(jnp.asarray(jsd[k], jnp.float32)), atol=TOL_BF16,
+            rtol=0, err_msg=k)

@@ -1346,7 +1346,8 @@ def moe_model(kind, cfg):
                   models.qwen2_moe.deepseek_moe_tiny),
         "ernie": (models.Ernie45MoeForCausalLM, models.ernie45_moe_tiny),
         "ds2": (ds.DeepseekV2ForCausalLM, ds.deepseek_v2_tiny),
-        "ds3": (ds.DeepseekV2ForCausalLM, ds.deepseek_v2_tiny)}[kind]
+        "ds3": (ds.DeepseekV2ForCausalLM, ds.deepseek_v2_tiny),
+        "qwenq": (models.Qwen2MoeForCausalLM, models.qwen2_moe_tiny)}[kind]
     return cls, tiny(**cfg)
 
 
@@ -1511,6 +1512,16 @@ def tp_moe_cases(rank, world, p):
             out[f"{kind}_bf16_logits"] = pred.run(ids).float().numpy()
             out[f"{kind}_bf16_greedy"] = pred.generate(
                 ids, max_new_tokens=8).numpy()
+    for kind in p["int4"]:
+        q, _ = _moe_served(kind, p)
+        pred = ptt.Predictor(q, ptt.Config().enable_weight_only_quant(4),
+                             device="cpu")
+        attn = q.model.layers[0].self_attn
+        out[f"{kind}_int4_codes"] = (tuple(attn.q_proj.qweight.shape),
+                                     tuple(attn.o_proj.qweight.shape))
+        out[f"{kind}_int4_logits"] = pred.run(ids).numpy()
+        out[f"{kind}_int4_greedy"] = pred.generate(
+            ids, max_new_tokens=6).numpy()
     if p.get("ckpts"):
         _moe_checkpoints(p, out)
     return out
@@ -1563,24 +1574,31 @@ CASES.update(lora_tp=lora_tp_cases)
 
 # ------------------------------------------------------------ vision at dp 2
 def clip_dp_cases(rank, world, p):
-    """CLIP's contrastive loss over {"dp": 2}: this rank's half of the
-    batch against the gathered features; the loss and the gradients of
-    the projections and logit scale. Then the refusals: ViT, CLIP and DiT
-    on a tp 2 mesh, SyncBatchNorm in training on dp 2."""
+    """CLIP's contrastive loss over {"dp": 2, "tp": 2} (each tower's fused
+    qkv split over tp): this rank's half of the batch (by its dp
+    coordinate) against the gathered features; the loss and the
+    gradients of the projections and logit scale. Then ``SyncBatchNorm``
+    in training on this rank's rows: the output and the running
+    statistics (the global batch's)."""
     import math
 
     import torch
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.distributed import env
-    from paddle_tpu_torch.models import (CLIPModel, DiT, ViTModel,
-                                         clip_contrastive_loss, clip_tiny,
-                                         dit_tiny, gather_features, vit_tiny)
+    from paddle_tpu_torch.models import (CLIPModel, clip_contrastive_loss,
+                                         clip_tiny, gather_features)
     from paddle_tpu_torch.nn import functional as F
-    D.init_parallel_env({"dp": world}, device="cpu")
+    from paddle_tpu_torch.parallel.sharding import materialize, shard_layer
+    D.init_parallel_env(p["mesh"], device="cpu")
+    dp, coord = env.axis_degree("dp"), env.axis_coordinate("dp")
     model = _jax_weights(CLIPModel(clip_tiny(), device="cpu"), p["params"])
-    ids = torch.from_numpy(p["ids"]).long().chunk(world)[rank]
-    px = torch.from_numpy(p["px"]).chunk(world)[rank]
+    shard_layer(model)
+    # the towers are called outside the model's forward (its pre-hook):
+    # bind the compute tensors (tp shards kept, the rest replicated)
+    materialize(model)
+    ids = torch.from_numpy(p["ids"]).long().chunk(dp)[coord]
+    px = torch.from_numpy(p["px"]).chunk(dp)[coord]
     t = F.normalize(model.encode_text(ids), axis=-1)
     v = F.normalize(model.encode_image(px), axis=-1)
     scale = torch.exp(torch.clamp(model.logit_scale, max=math.log(100.0)))
@@ -1589,31 +1607,428 @@ def clip_dp_cases(rank, world, p):
                                  dp_axis="dp")
     names = ("logit_scale", "text_projection", "visual_projection")
     grads = torch.autograd.grad(loss, [getattr(model, k) for k in names])
-    out = {"loss": float(loss), "grads": dict(zip(names, _np(list(grads))))}
-    refused = {}
+    out = {"loss": float(loss), "grads": dict(zip(names, _np(list(grads)))),
+           "dp": coord, "tp": env.axis_coordinate("tp")}
     bn = nn.SyncBatchNorm(3, device="cpu")
-    try:
-        bn(torch.ones(4, 3, 2, 2))
-        refused["sync_bn"] = False
-    except NotImplementedError:
-        refused["sync_bn"] = True
+    y = bn(torch.from_numpy(p["bn_x"]).chunk(dp)[coord])
+    out["bn"] = dict(y=_np(y), mean=_np(bn._mean), var=_np(bn._variance))
     env.clear_mesh()
-    D.init_parallel_env({"tp": world}, device="cpu")
-    calls = {"vit": lambda: ViTModel(vit_tiny(), device="cpu")(
-                 torch.zeros(1, 3, 32, 32)),
-             "clip": lambda: model.encode_text(ids),
-             "dit": lambda: DiT(dit_tiny(), device="cpu")(
-                 torch.zeros(1, 4, 8, 8), torch.zeros(1, dtype=torch.long),
-                 torch.zeros(1, dtype=torch.long))}
-    for name, call in calls.items():
-        try:
-            call()
-            refused[name] = False
-        except NotImplementedError:
-            refused[name] = True
-    env.clear_mesh()
-    out["refused"] = refused
     return out
 
 
 CASES.update(clip_dp=clip_dp_cases)
+
+
+# ------------------------------------------------------ BatchNorm at dp 2
+def _bn_family(name, params):
+    from paddle_tpu_torch.models import (DBNet, ResNet, dbnet_tiny,
+                                         resnet_tiny)
+    model = (ResNet(resnet_tiny(), device="cpu") if name == "resnet"
+             else DBNet(dbnet_tiny(), device="cpu"))
+    return _jax_weights(model, params)
+
+
+def _bn_loss(name):
+    from paddle_tpu_torch.models import db_loss
+    from paddle_tpu_torch.nn import functional as F
+    if name == "resnet":
+        return lambda m, b: F.cross_entropy(m(b["x"]), b["labels"])
+    return lambda m, b: db_loss(m(b["x"]), b["shrink"], b["mask"],
+                                b["thresh"], b["tmask"])
+
+
+def bn_dp_cases(rank, world, p):
+    """BatchNorm over {"dp": world}: for ResNet and DBNet, an eager
+    train-mode forward on this rank's rows (the running statistics it
+    leaves), then ``Trainer(loss_fn=...)``, SGD, 3 steps on the global
+    batch (losses, every parameter, the buffers); ``SyncBatchNorm``'s
+    output and gradients on this rank's rows; the collectives counted."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn import SyncBatchNorm, norm
+    fleet.init(strategy=fleet.DistributedStrategy(
+        hybrid_configs={"dp_degree": world}), device="cpu")
+    out = {}
+    for name in ("resnet", "dbnet"):
+        batch = {k: torch.from_numpy(v) for k, v in p[name]["batch"].items()}
+        model = _bn_family(name, p[name]["params"]).train()
+        with torch.no_grad():
+            model(batch["x"].chunk(world)[rank])
+        out[f"{name}_eager"] = {k: _np(v) for k, v in model.state_dict()
+                                .items() if k.endswith(("_mean",
+                                                        "_variance"))}
+        model = _bn_family(name, p[name]["params"])
+        fleet.distributed_model(model)
+        before = norm.stat_reductions
+        tr = ptt.Trainer(model, ptt.optimizer.SGD(learning_rate=p["lr"][name]),
+                         ptt.TrainingArguments(
+                             output_dir=os.path.join(p["out"], name, str(rank)),
+                             max_steps=3, logging_steps=1, prefetch_depth=0,
+                             graceful_shutdown=False),
+                         loss_fn=_bn_loss(name), train_dataloader=[batch])
+        tr.train()
+        out[f"{name}_reductions"] = norm.stat_reductions - before
+        out[f"{name}_losses"] = [v for _, v in _losses(tr)]
+        out[f"{name}_state"] = {k: _np(v)
+                                for k, v in model.state_dict().items()}
+    bn = SyncBatchNorm(3, device="cpu")
+    x = torch.from_numpy(p["sync"]["x"]).chunk(world)[rank].requires_grad_()
+    w = torch.from_numpy(p["sync"]["w"]).chunk(world)[rank]
+    y = bn(x)
+    gx, gw, gb = torch.autograd.grad((y * w).sum(), [x, bn.weight, bn.bias])
+    out["sync"] = dict(y=_np(y), gx=_np(gx), gw=_np(gw), gb=_np(gb),
+                       mean=_np(bn._mean), var=_np(bn._variance))
+    return out
+
+
+CASES.update(bn_dp=bn_dp_cases)
+
+
+# ------------------------------------------ the fused-qkv families on tp
+def _zoo_model(name, cfg_kw):
+    """A port model of the tiny family ``name`` (the families of
+    ``test_torch_tp_zoo.py``), on the CPU."""
+    from paddle_tpu_torch import models as M
+    cls, cfg = {
+        "gpt": (M.GPTForCausalLM, M.gpt_tiny),
+        "bert-pt": (M.BertForPretraining, M.bert_tiny),
+        "bert-cls": (M.BertForSequenceClassification, M.bert_tiny),
+        "ernie-mlm": (M.ErnieForMaskedLM, M.ernie_tiny),
+        "ernie-cls": (M.ErnieForSequenceClassification, M.ernie_tiny),
+        "vit": (M.ViTForImageClassification, M.vit_tiny),
+        "clip": (M.CLIPModel, M.clip_tiny),
+        "dit": (M.DiT, M.dit_tiny),
+        "mmdit": (M.MMDiT, M.mmdit_tiny),
+    }[name]
+    return cls(cfg(**cfg_kw), device="cpu")
+
+
+def zoo_loss(name):
+    """The port's ``loss_fn(model, batch)`` of a family's Trainer case."""
+    import torch
+    from paddle_tpu_torch.models import (clip_contrastive_loss,
+                                         pretraining_loss)
+    from paddle_tpu_torch.nn import functional as F
+
+    def enc(m, b):
+        return m(torch.as_tensor(b["ids"]), torch.as_tensor(b["types"]),
+                 torch.as_tensor(b["mask"]))
+    if name == "bert-pt":
+        def loss(m, b):
+            mlm, nsp = enc(m, b)
+            return pretraining_loss(mlm, b["mlm_labels"], nsp, b["labels"])
+        return loss
+    if name == "ernie-mlm":
+        return lambda m, b: F.cross_entropy(enc(m, b), b["mlm_labels"],
+                                            ignore_index=-100)
+    if name in ("bert-cls", "ernie-cls"):
+        return lambda m, b: F.cross_entropy(enc(m, b), b["labels"])
+    if name == "vit":
+        return lambda m, b: F.cross_entropy(m(b["px"]), b["labels"])
+    if name == "clip":
+        return lambda m, b: clip_contrastive_loss(*m(b["ids"], b["px"]))
+    return None                                  # gpt: the causal-LM loss
+
+
+def _zoo_sharded(name, p, build=False):
+    """Family ``name`` on the installed mesh holding the JAX weights:
+    built inside ``sharded_build`` and loaded a rank's slices at a time
+    (``build``), or loaded whole and then sharded."""
+    from paddle_tpu_torch.convert import load_jax_state_dict
+    from paddle_tpu_torch.parallel.sharding import shard_layer, sharded_build
+    fam = p["families"][name]
+    if build:
+        with sharded_build():
+            m = _zoo_model(name, fam["cfg"])
+        shard_layer(m)
+        load_jax_state_dict(m, fam["params"])
+        return m
+    m = _jax_weights(_zoo_model(name, fam["cfg"]), fam["params"])
+    shard_layer(m)
+    return m
+
+
+def _zoo_train(name, p, out_dir):
+    import torch
+    import paddle_tpu_torch as ptt
+    fam = p["families"][name]
+    m = _zoo_sharded(name, p)
+    batch = fam["batch"]
+    data = ([torch.from_numpy(b).long() for b in batch] if name == "gpt"
+            else [{k: torch.from_numpy(v).long() if v.dtype.kind == "i"
+                   else torch.from_numpy(v) for k, v in batch.items()}])
+    tr = ptt.Trainer(m, ptt.optimizer.SGD(learning_rate=fam["lr"]),
+                     ptt.TrainingArguments(output_dir=out_dir, max_steps=3,
+                                           logging_steps=1, prefetch_depth=0,
+                                           graceful_shutdown=False),
+                     loss_fn=zoo_loss(name), train_dataloader=data)
+    tr.train()
+    return {"losses": [v for _, v in _losses(tr)],
+            "state": {k: _np(v) for k, v in m.state_dict().items()}}
+
+
+def tp_zoo_cases(rank, world, p):
+    """The GPT, BERT/ERNIE, ViT, CLIP, DiT and MMDiT families on
+    ``p["mesh"]`` ({"tp": 2}, or {"dp": 2, "tp": 2} for ``p["train"]``
+    alone): GPT built in ``sharded_build`` (each rank's q, k, v columns
+    read from the JAX state dict), its state dict back in the JAX layout;
+    logits, greedy and beam ``generate()``, the weight-only ``Predictor``
+    at int8 and int4; the Trainer cases; the encoders' eval outputs; a
+    DiT and an MMDiT step and a DiT pipeline; dropout on a tp mesh."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.parallel.sharding import bind_static, local
+    env.init_parallel_env(p["mesh"], device="cpu")
+    out = {}
+    for name in p["train"]:
+        out[f"train_{name}"] = _zoo_train(
+            name, p, os.path.join(p["out"], name, str(rank)))
+    gpt_ids = torch.from_numpy(p["gpt_ids"]).long()
+    g = _zoo_sharded("gpt", p, build=True)
+    qkv = g.model.layers[0].attn.qkv_proj
+    out["gpt_qkv_local"] = (local(qkv._parameters["weight"]).numpy().copy(),
+                            local(qkv._parameters["bias"]).numpy().copy())
+    out["gpt_state"] = {k: _np(v) for k, v in g.state_dict().items()}
+    bind_static(g)
+    with torch.no_grad():
+        out["gpt_logits"] = g(gpt_ids).numpy()
+    if not p["serve"]:
+        return out
+    out["gpt_greedy"] = ptt.generate(g, gpt_ids, max_new_tokens=8).numpy()
+    out["gpt_beam"] = ptt.generate(g, gpt_ids, max_new_tokens=6,
+                                   num_beams=3).numpy()
+    for bits in (8, 4):
+        m = _zoo_sharded("gpt", p)
+        bind_static(m)
+        pred = ptt.Predictor(m, ptt.Config().enable_weight_only_quant(bits),
+                             device="cpu")
+        out[f"gpt_q{bits}_logits"] = pred.run(gpt_ids).numpy()
+        out[f"gpt_q{bits}_greedy"] = pred.generate(gpt_ids,
+                                                   max_new_tokens=6).numpy()
+    for name in ("vit", "clip", "dit", "mmdit"):
+        m = _zoo_sharded(name, p).eval()
+        bind_static(m)
+        args = [torch.from_numpy(a) if a.dtype.kind == "f"
+                else torch.from_numpy(a).long() for a in p[f"{name}_in"]]
+        with torch.no_grad():
+            y = m(*args)
+        out[f"{name}_out"] = _np(list(y) if isinstance(y, tuple) else y)
+        if name == "dit":
+            from paddle_tpu_torch.diffusion.pipelines import DiTPipeline
+            out["dit_pipe"] = DiTPipeline(m)(
+                p["pipe_labels"], num_inference_steps=4,
+                generator=torch.Generator().manual_seed(p["pipe_seed"])
+            ).numpy()
+    out.update(_tp_dropout(p))
+    return out
+
+
+def _tp_dropout(p):
+    """A train-mode BERT forward with dropout on a tp mesh: the hidden
+    states (replicated after each row-parallel reduce, one dropout mask
+    on every rank), and a dropout over this rank's attention
+    probabilities (its heads: its own bits, ``utils.rng.fold_axis``)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import BertModel, bert_tiny
+    from paddle_tpu_torch.ops.attention import dense_attention
+    from paddle_tpu_torch.parallel.sharding import bind_static, shard_layer
+    from paddle_tpu_torch.utils.rng import fold_axis
+    cfg = bert_tiny(hidden_dropout_prob=0.1)
+    m = BertModel(cfg, device="cpu", generator=ptt.make_generator(5, "cpu"))
+    shard_layer(m)
+    bind_static(m)
+    m.train()
+    ids = torch.from_numpy(p["drop_ids"]).long()
+    with torch.no_grad():
+        hidden, _ = m(ids)
+        x = m.embeddings(ids)
+        b, s, _ = x.shape
+        q, k, _ = m.layers[0].attention.qkv_proj(x).reshape(
+            b, s, 3, -1, cfg.head_dim).unbind(2)
+        # values that pick each key: the output is the dropped
+        # probability matrix itself, zero exactly where the mask drops
+        pick = torch.eye(s)[None, :, None, :].expand(b, s, q.shape[2], s)
+        gen = fold_axis(ptt.make_generator(9, "cpu"), "tp")
+        dropped = dense_attention(q, k, pick, dropout_p=0.1, generator=gen)
+    return {"drop_hidden": hidden.numpy(),
+            "drop_mask": (dropped != 0).numpy()}
+
+
+CASES.update(tp_zoo=tp_zoo_cases)
+
+
+# ------------------------------------------------- per-rank checkpoints
+class _NewBytes:
+    """A dispatch mode summing the bytes of every plain tensor an op makes
+    on storage of its own, not its inputs' (what a save allocates; a
+    DTensor's ops are counted through its local tensors')."""
+
+    def __init__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+        outer = self
+        self.total = 0
+
+        def ptrs(xs):
+            return {t.untyped_storage().data_ptr() for t in xs
+                    if type(t) is torch.Tensor}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                seen = ptrs(tree_leaves((args, kwargs)))
+                for t in tree_leaves(out):
+                    if type(t) is torch.Tensor and \
+                            t.untyped_storage().data_ptr() not in seen:
+                        outer.total += t.untyped_storage().nbytes()
+                return out
+        self.mode = Mode()
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}/")
+    elif hasattr(tree, "shape"):
+        yield prefix[:-1], tree
+
+
+def _restores_bit_for_bit(ckpt, step, tr, saved):
+    """Restore ``step`` into a tree like ``tr``'s state (this rank's
+    shards read alone) and compare each leaf with this rank's shard of
+    the saved full tensor, bit for bit."""
+    import torch
+    from paddle_tpu_torch.parallel.sharding import local, local_shard
+    tr._opt_state = tr.optimizer.init(tr._trainable)
+    like = tr._state_tree()
+    got = ckpt.restore(step, like=like)
+    same = {}
+    mine = dict(_leaves(got))
+    for name, live in _leaves(like):
+        want = local_shard(torch.from_numpy(saved[name]).to(live.dtype), live)
+        same[name] = (tuple(mine[name].shape) == tuple(local(live).shape)
+                      and torch.equal(mine[name], want))
+    return same
+
+
+def ckpt_ranks_cases(rank, world, p):
+    """Per-rank checkpoints on a world of 2: the Trainer on {"fsdp": 2}
+    saves step 2 (each rank its own shards; the bytes a save allocates
+    counted), resumes it to step 4; step 2 restored into {"fsdp": 2} and
+    {"tp": 2} (each rank reading its shards alone) bit for bit."""
+    from paddle_tpu_torch.checkpoint.distributed_ckpt import \
+        DistributedCheckpoint
+    from paddle_tpu_torch.distributed import env
+    shared = p["dir"]
+    out = {}
+    tr, model = _train({"fsdp": 2}, p, shared, steps=2, save_steps=2)
+    tr._ckpt.wait_until_finished()
+    out["saved"] = {k: _np(v) for k, v in _leaves(tr._state_tree())}
+    counter = _NewBytes()
+    with counter.mode:
+        tr.save_checkpoint(wait=True)
+    out["save_new_bytes"] = counter.total
+    out["save_bytes"] = tr._ckpt.last_save["bytes"]
+    out["total_bytes"] = sum(v.nbytes for v in out["saved"].values())
+    env.clear_mesh()
+    tr2, _ = _train({"fsdp": 2}, p, shared, steps=4, save_steps=2)
+    out["resumed"] = _losses(tr2)
+    env.clear_mesh()
+    ckpt = DistributedCheckpoint(os.path.join(shared, "checkpoints"))
+    for key, shape in (("fsdp", {"fsdp": 2}), ("tp", {"tp": 2})):
+        from paddle_tpu_torch.distributed import fleet
+        inv = {v: k for k, v in
+               fleet.DistributedStrategy._DEGREE_TO_AXIS.items()}
+        fleet.init(strategy=fleet.DistributedStrategy(
+            hybrid_configs={inv[a]: n for a, n in shape.items()},
+            sharding_stage=3), device="cpu")
+        model = _tiny_llama(0, **p.get("cfg", {}))
+        fleet.distributed_model(model, fsdp_min_size=p["fsdp_min_size"])
+        tr3 = _trainer(model, [], os.path.join(p["scratch"], key,
+                                               str(rank)), 0)
+        out[f"restore_{key}"] = _restores_bit_for_bit(ckpt, 2, tr3,
+                                                      out["saved"])
+        env.clear_mesh()
+    return out
+
+
+CASES.update(ckpt_ranks=ckpt_ranks_cases)
+
+
+# ------------------------------------------- a tp replica's KV transfer
+def longest_resident(eng, arena, ids):
+    """The hex digest of the longest chunk-grid span of ``ids`` held in
+    ``arena`` (the gateway's own walk), or None."""
+    for raw in reversed(eng._chunk_digests(list(ids), len(ids) - 1)):
+        if arena.probe(raw) is not None:
+            return raw.hex()
+    return None
+
+
+def kvx_resume(q, done, k, record):
+    """A resumed stream's request: prompt ``q`` plus the first ``k`` of
+    its ``done`` tokens committed, the span as an inline record."""
+    import base64
+    return dict(request_id=f"resume-{len(q)}-{k}", prompt=list(q) + done[:k],
+                resume_tokens=done[:k], max_new_tokens=len(done) - k,
+                temperature=0.0,
+                resume_kv="b64:" + base64.b64encode(record).decode())
+
+
+def tp_kvxfer_cases(rank, world, p):
+    """A sequenced replica on ``p["mesh"]`` ({"tp": 2}, or {"tp": 2,
+    "ep": 2} with the dense model: each ep rank holds the same heads)
+    behind the port's ``Gateway``: a stream migrated from a tp 1 replica
+    resumes from its imported record; a span it served comes out of
+    ``/kvz``; a corrupt and a truncated record re-prefill."""
+    import asyncio
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.serving import KVSpillArena
+    env.init_parallel_env(p["mesh"], device="cpu")
+    model = _serve(_tp_model(p["cfg"], p["params"]))
+    return _sequenced_world(
+        model, TP_GEO, lambda seq: asyncio.run(_kvx_leader(seq, p)),
+        idle_interval_s=0.2, spill_arena=KVSpillArena(1 << 22))
+
+
+async def _kvx_leader(seq, p):
+    from paddle_tpu_torch.serving import Gateway, KVSpillArena, kvxfer
+    from test_torch_gateway_gpu import http, sse
+    gw = Gateway(seq, name=f"tp-kvx-{seq.tp}",
+                 spill_arena=KVSpillArena(1 << 22, name=f"tp-kvx-{seq.tp}"))
+    await gw.start()
+    out = {}
+    try:
+        q1, u1 = p["streams"]["q1"]
+        st, _, toks, fin = await sse(gw.port, kvx_resume(q1, u1, 3,
+                                                         p["r1"]))
+        out["resume"] = (st, toks, fin["finish_reason"])
+        out["after_resume"] = (kvxfer.counters_snapshot(gw.name),
+                               dict(seq.stats))
+        q2, _ = p["streams"]["q2"]
+        st, _, toks, fin = await sse(gw.port, dict(
+            request_id="q2", prompt=q2, max_new_tokens=p["new"],
+            temperature=0.0))
+        out["q2"] = (st, toks)
+        seq.spill_parked()
+        digest = longest_resident(seq, gw._spill_arena, q2 + toks[:3])
+        st, _, blob = await http(gw.port, "GET", f"/kvz?digest={digest}")
+        out["kvz"] = (st, digest, blob)
+        q3, u3 = p["streams"]["q3"]
+        for kind in ("corrupt", "trunc"):
+            st, _, toks, fin = await sse(gw.port, dict(
+                kvx_resume(q3, u3, 3, p[f"r3_{kind}"]),
+                request_id=f"q3-{kind}"))
+            out[kind] = (st, toks)
+        out["end"] = (kvxfer.counters_snapshot(gw.name), dict(seq.stats))
+    finally:
+        await gw.drain()
+    return out
+
+
+CASES.update(tp_kvxfer=tp_kvxfer_cases)
