@@ -139,6 +139,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``from_pretrained``: every parameter bit for bit
    ``load_jax_state_dict``'s on the same arrays.
 
+   Then the host side of the user paths (``[host]`` lines), on the same
+   model: (a) the native runtime (``paddle_tpu_torch/native``) built
+   with the card host's compiler (its seconds printed), its staging
+   arena, ``gather_stack``, ``gather_pad``, ring and trie tokenizer
+   against numpy / Python; (b) a byte-level BPE learned in the script
+   from ``HOST_CORPUS`` (no tokenizer files on the card machine; every
+   id below 128,256, Llama-3's layout) under ``LLAMA3_SPLIT`` on stdlib
+   ``re``: the native merge loop's ids equal the Python loop's and
+   ``decode(encode(s)) == s``; ``TextGenerationPipeline`` on the 32-layer
+   bf16 model, 4 prompts of different lengths left-padded to a bucket,
+   32 greedy new tokens (ms a new token printed; no attention kernel
+   launches, a left-padded batch attends densely as in the JAX package):
+   each row within ``TOL_TEACHER`` of its teacher-forced re-score, as is
+   its solo ``generate()``, and on a small fp32 model each padded row bit
+   for bit its solo run; (c) ``ptt.Model(resnet50())`` with AdamW,
+   ``nn.CrossEntropyLoss()`` and ``metric.Accuracy(topk=(1, 5))``:
+   ``fit`` for 8 steps over ``DataLoader(TensorDataset(seeded images,
+   labels), batch_size=32, use_native=True)``, the losses within
+   ``TOL_HAPI`` of (expected bit for bit with) the same steps by hand
+   under cuDNN deterministic, 8 fused update launches (added to the
+   kernels line), BatchNorm's running statistics kept, then
+   ``evaluate`` and ``predict`` over native loaders; ms a step and
+   images/s printed; (d) the four report tools (``python -m
+   paddle_tpu_torch.tools.*``) as subprocesses on the [gateway] phase's
+   dumps (its reqtrace and tick-phase rings, series docs and span trace)
+   and on (c)'s run dir: every exit 0 with a non-empty summary,
+   ``trace_export --check`` clean, ``obs_report --check`` OK.
+
 8. the flash backward (phases run beside 3 and 4): the dq and dk/dv
    kernels against their plain version at sq = sk = 2048 (causal, window
    256, packed segments, non-causal; d 128 and 64; bf16 and fp32; bits
@@ -335,8 +363,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 16. tensor-parallel serving behind the fleet (``[tp-serve]`` lines):
    (a) ``LocalProcessManager(tp=1)`` spawns ``replica_main --tp 1
-   --model llama3-8b --seed`` through ``paddle_tpu_torch.distributed.
-   launch`` (Llama-3-8B at full width and depth, built sharded on a
+   --model llama3-8b --layers 8 --seed`` through
+   ``paddle_tpu_torch.distributed.launch`` (Llama-3-8B at full width, cut
+   to 8 of its 32 layers (``TP_SERVE_LAYERS``), built sharded on a
    world-one NCCL mesh and bound once, its engine behind the
    ``SequencedEngine`` that a tp replica's rank 0 serves: every call
    recorded, encoded, decoded and applied before each step, with no
@@ -344,7 +373,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    sharing a 384-token prefix and one sampled: every stream bit for bit a
    direct plain ``PagedEngine`` on this process's own model from the
    seed (tokens and logprobs). Read from the replica's ``/debugz`` over
-   the traffic: ragged launches exactly 32 a decode tick, all on mma;
+   the traffic: ragged launches exactly 8 a decode tick (one a layer), all on mma;
    flash launches 0 (the engine's prefill chunks attend through dense
    attention, as phase 11's counts show: flash serves ``generate()``);
    the sequencer's host microseconds a step (record, send, apply).
@@ -520,7 +549,7 @@ It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
 ``cuda-simt`` for the fused AdamW update, whose launches include phase
-20's; ``flash_attention_with_lse``'s launches are the ring's of phase
+20's and ``[host]``'s ``Model.fit``; ``flash_attention_with_lse``'s launches are the ring's of phase
 12),
 then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -2586,7 +2615,9 @@ def phase_gateway(seed, dev, card, model):
     cache, a spill arena) against a direct engine; the tick-phase split
     of a plain and a speculative tick; ``/profilez``; the spill tier at
     full width; the drain. Returns the ragged launches and routes of the
-    gateway's traffic."""
+    gateway's traffic, and the run dir holding its dumps (the reqtrace
+    and tick-phase rings, the series docs, the span trace), which the
+    [host] phase feeds to the report tools and then removes."""
     import asyncio
 
     import numpy as np
@@ -2609,8 +2640,8 @@ def phase_gateway(seed, dev, card, model):
     def ids(n):
         return tids(n).tolist()
 
-    # the run dir /profilez traces into; removed with its artifacts at
-    # the end of the phase
+    # the run dir /profilez traces into; the [host] phase reads its
+    # artifacts and removes it
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_gateway_")
     obs.configure(run_dir)
     geo = dict(PAGED, chunk_prefill_tokens=128, enable_prefix_cache=True)
@@ -2711,6 +2742,9 @@ def phase_gateway(seed, dev, card, model):
         return res, wall, sizes, launches, ticks, routes, pz, dr
 
     res, wall, sizes, launches, ticks, routes, pz, dr = asyncio.run(main())
+    # the replicas' request-trace rings and tick-phase rings, kept in the
+    # run dir for the report tools of the [host] phase
+    dumped = gw.dump_traces(run_dir) + gw.dump_tick_profiles(run_dir)
     # (a) the streams against a direct engine over the same submissions
     for r, (st, toks, fin) in zip(reqs, res):
         if st != 200 or fin.get("finish_reason") != "stop":
@@ -2923,13 +2957,15 @@ def phase_gateway(seed, dev, card, model):
     if recaptured:
         fail("gateway (d): a restore recaptured the tick graphs")
     del seng, warm, direct
-    obs.reset()
-    shutil.rmtree(run_dir, ignore_errors=True)
+    obs.reset()        # flushes the series docs and the span trace
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[gateway] dumps kept for the [host] phase's tools in {run_dir}: "
+        f"{[os.path.basename(p) for p in dumped]} and "
+        f"{sorted(os.listdir(run_dir))}")
     log(f"[gateway] the phase took {time.perf_counter() - t_phase:.1f} s "
         f"[{card}]")
-    return launches, routes
+    return launches, routes, run_dir
 
 
 def _write_safetensors(path, tensors):
@@ -3281,6 +3317,524 @@ def phase_generate_family(seed, dev, card, model):
     _family_hf(ptt, dev, card, seed)
     log(f"[family] the phase took {time.perf_counter() - t_phase:.1f} s "
         f"[{card}]")
+
+
+# phase 7 (last): the host side of the user paths. The card machine has
+# no tokenizer files and no ``tokenizers``: the script learns byte-level
+# BPE merges from this fixed multilingual corpus by a greedy pair count
+HOST_CORPUS = (
+    "The quick brown fox jumps over the lazy dog, and the dog sleeps on.",
+    "Serving large language models means batching requests of different "
+    "lengths; left padding keeps every row's last token at one column.",
+    "def train_step(model, batch):\n    loss = model(batch).mean()\n"
+    "    return loss.backward()\n",
+    "Der schnelle braune Fuchs springt über den faulen Hund.",
+    "Le renard brun rapide saute par-dessus le chien paresseux, déjà vu.",
+    "El rápido zorro marrón salta sobre el perro perezoso en España.",
+    "Быстрая коричневая лиса прыгает через ленивую собаку.",
+    "敏捷的棕色狐狸跳过了懒狗。大型语言模型的推理需要批处理。",
+    "素早い茶色の狐がのろまな犬を飛び越える。東京は晴れです。",
+    "빠른 갈색 여우가 게으른 개를 뛰어넘습니다.",
+    "الثعلب البني السريع يقفز فوق الكلب الكسول.",
+    "तेज़ भूरी लोमड़ी आलसी कुत्ते के ऊपर कूदती है।",
+    "Numbers 0 7 42 1234 3.14159 2,718,281 and 2026-10-18T12:00:00Z.",
+    "Emoji 🚀🤖🔥 and symbols ±×÷ → ∞ ≤ ≥ … «quotes» “smart”.",
+    "don't can't won't it's we're I'll they'd you've SHE'S DON'T",
+    "   leading spaces\tand\ttabs\nnewlines\r\nwindows line ends",
+)
+HOST_MERGES = 3000
+# Llama-3's id layout: 128000 regular tokens (the learned ones, then
+# three-byte fillers no merge makes, so that every id a random model
+# emits decodes), then 256 special tokens
+HOST_REGULAR = 128000
+HOST_SPECIAL = {**{f"<|reserved_special_token_{i}|>": 128000 + i
+                   for i in range(256)},
+                "<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+                "<|eot_id|>": 128009}
+HOST_PROMPTS = (
+    "The quick brown fox",
+    "Serving large language models means batching requests of different "
+    "lengths; the pipeline left-pads them.",
+    "敏捷的棕色狐狸跳过了懒狗。Der schnelle braune Fuchs springt über den "
+    "faulen Hund. Быстрая коричневая лиса прыгает через ленивую собаку. "
+    "Numbers 1234 3.14159 and 🚀🤖.",
+    "def train_step(model, batch):",
+)
+HOST_NEW = 32
+# hapi: ResNet-50 (fp32) through Model.fit, 8 steps of 32 seeded images
+HOST_STEPS = 8
+HOST_BATCH = 32
+# Model.fit's losses against the same steps written out by hand, max
+# |d| / |loss| (both run the same ops in the same order with cuDNN
+# deterministic: expected bit for bit, this is the bound if they are not)
+TOL_HAPI = 1e-5
+HOST_TOOLS_TIMEOUT_S = 300
+
+
+def _learn_bpe(corpus, n_merges, split_pattern):
+    """Byte-level BPE merges by a greedy pair count: the corpus split by
+    ``split_pattern``, each piece in GPT-2's byte alphabet; each round
+    merges the most frequent adjacent pair (ties: the larger pair), until
+    ``n_merges`` or no pair is left. Returns (vocab, merges): the 256
+    byte symbols at ids 0-255, each merge's new token after them."""
+    import re
+    from collections import Counter
+
+    from paddle_tpu_torch.tokenizer import bytes_to_unicode
+    from paddle_tpu_torch.tokenizer.bpe import translate_split
+    enc = bytes_to_unicode()
+    split = re.compile(translate_split(split_pattern))
+    words = Counter(tuple(enc[b] for b in piece.encode("utf-8"))
+                    for line in corpus for piece in split.findall(line))
+    vocab = {enc[b]: b for b in range(256)}
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(best)
+        new = best[0] + best[1]
+        vocab.setdefault(new, len(vocab))
+        merged = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(new)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    return vocab, merges
+
+
+def _trie_reference(vocab, unk, text):
+    """Greedy longest match over the UTF-8 bytes (the trie's rule: a later
+    duplicate entry takes the id)."""
+    table = {}
+    for i, tok in enumerate(vocab):
+        if tok:
+            table[tok.encode("utf-8")] = i
+    longest = max(len(k) for k in table)
+    raw, out, i = text.encode("utf-8"), [], 0
+    while i < len(raw):
+        for n in range(min(longest, len(raw) - i), 0, -1):
+            if raw[i:i + n] in table:
+                out.append(table[raw[i:i + n]])
+                i += n
+                break
+        else:
+            out.append(unk)
+            i += 1
+    return out
+
+
+def _host_native(seed, card):
+    """(a) The native runtime built with this host's compiler, and its
+    arena, gathers, ring and trie against numpy / Python."""
+    import threading
+
+    import numpy as np
+
+    from paddle_tpu_torch import native
+    t0 = time.perf_counter()
+    native.lib()
+    first_s = time.perf_counter() - t0
+    rs = np.random.RandomState(seed + 90)
+    pool = native.ThreadPool(8)
+    arena = native.StagingArena(1 << 26)
+    items = [rs.randn(3, 224, 224).astype(np.float32)
+             for _ in range(HOST_BATCH)]
+    got = native.gather_stack(pool, items, arena)
+    stack_ok = np.array_equal(got, np.stack(items)) \
+        and arena.used() >= got.nbytes
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        native.gather_stack(pool, items)
+    native_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        np.stack(items)
+    numpy_ms = (time.perf_counter() - t0) * 1e3 / reps
+    arena.reset()
+    seqs = [rs.randint(0, 128256, n) for n in rs.randint(0, 700, 64)]
+    pad = native.gather_pad(pool, seqs, 512, pad_value=-1, dtype=np.int64,
+                            arena=arena)
+    want = np.full((64, 512), -1, np.int64)
+    for i, q in enumerate(seqs):
+        want[i, :min(len(q), 512)] = q[:512]
+    pad_ok = np.array_equal(pad, want)
+    ring, popped = native.Ring(64), []
+
+    def consume():
+        while (v := ring.pop(10_000)) is not None:
+            popped.append(v)
+
+    th = threading.Thread(target=consume)
+    th.start()
+    for v in range(20_000):
+        ring.push(v, 10_000)
+    ring.close()
+    th.join(30)
+    ring_ok = not th.is_alive() and popped == list(range(20_000))
+    vocab = ["<unk>"] + sorted({w for line in HOST_CORPUS
+                                for w in line.split()}) + list("abcde ")
+    trie = native.Tokenizer(vocab, 0)
+    texts = list(HOST_CORPUS)
+    trie_ok = all(trie.encode(t).tolist() == _trie_reference(vocab, 0, t)
+                  for t in texts)
+    ids, lens = trie.encode_batch(texts, pool, max_len=64, pad_id=-1)
+    trie_ok = trie_ok and all(
+        ids[i, :lens[i]].tolist() == _trie_reference(vocab, 0, t)[:64]
+        for i, t in enumerate(texts))
+    log(f"[host] (a) native runtime: {' '.join(native.compiler())} "
+        f"{' '.join(native.CXX_FLAGS)} built in {native.build_seconds:.2f} "
+        f"s (first lib() call {first_s:.2f} s); gather_stack of "
+        f"{HOST_BATCH} x [3, 224, 224] fp32 into the arena equal to "
+        f"np.stack: {stack_ok} ({native_ms:.2f} ms on 8 threads against "
+        f"np.stack's {numpy_ms:.2f} ms, host); gather_pad 64 rows to 512 "
+        f"equal to numpy: {pad_ok}; ring 20000 values across threads in "
+        f"order: {ring_ok}; trie tokenizer ({len(vocab)} entries) equal "
+        f"to a Python longest match, alone and batched: {trie_ok} [{card}]")
+    if not (stack_ok and pad_ok and ring_ok and trie_ok):
+        fail(f"host (a): stack {stack_ok}, pad {pad_ok}, ring {ring_ok}, "
+             f"trie {trie_ok}")
+
+
+def _host_tokenizer(card):
+    """(b) A byte-level BPE learned here, under LLAMA3_SPLIT: the native
+    merge loop's ids against the Python loop's, and round trips."""
+    from paddle_tpu_torch.tokenizer import LLAMA3_SPLIT, BPETokenizer
+    from paddle_tpu_torch.tokenizer import bpe
+    from paddle_tpu_torch.tokenizer import bytes_to_unicode
+    t0 = time.perf_counter()
+    vocab, merges = _learn_bpe(HOST_CORPUS, HOST_MERGES, LLAMA3_SPLIT)
+    learn_s = time.perf_counter() - t0
+    learned = len(vocab)
+    alphabet = [bytes_to_unicode()[b] for b in range(256)]
+    fillers = (a + b + c for a in alphabet for b in alphabet
+               for c in alphabet)
+    while len(vocab) < HOST_REGULAR:
+        vocab.setdefault(next(fillers), len(vocab))
+    special = {}
+    for name, i in HOST_SPECIAL.items():     # the named ones win their ids
+        special = {k: v for k, v in special.items() if v != i}
+        special[name] = i
+    tok = BPETokenizer(vocab, merges, special_tokens=special,
+                       split_pattern=LLAMA3_SPLIT)
+    if tok._native is None:
+        fail("host (b): the learned vocab built no native merge loop")
+    texts = list(HOST_CORPUS) + list(HOST_PROMPTS) + [
+        "<|begin_of_text|>Hello<|eot_id|>", "ROMAN Ⅻ ⅷ ² ½ ٣٤٥",
+        "next\u0085line sep​zero", "", "a"]
+    c0 = dict(bpe.counts)
+    same = sum(tok._native.encode_words(tok.pretokenize(t))
+               == tok._convert(tok.tokenize(t)) for t in texts)
+    trips = sum(tok.decode(tok.encode(t)) == t for t in texts)
+    ran = {k: bpe.counts[k] - c0[k] for k in c0}
+    top = max(max(vocab.values()), max(special.values()))
+    big = "\n".join(HOST_CORPUS) * 40
+    t0 = time.perf_counter()
+    n_native = len(tok.encode(big))
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    n_python = len(tok._convert(tok.tokenize(big)))
+    python_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[host] (b) BPE learned from the {len(HOST_CORPUS)}-line corpus "
+        f"in {learn_s:.2f} s: {len(merges)} merges, {learned} learned "
+        f"tokens (fillers to {len(vocab)}) + {len(special)} special, the "
+        f"largest id {top} (< 128256); "
+        f"LLAMA3_SPLIT on stdlib re: native ids equal to the Python loop's "
+        f"on {same} of {len(texts)} strings, decode(encode(s)) == s on "
+        f"{trips} of {len(texts)}; stretches encoded by loop {ran}; "
+        f"{len(big)} characters ({n_native} ids) in {native_ms:.1f} ms "
+        f"natively, {python_ms:.1f} ms through the Python loop "
+        f"({n_python} ids; host) [{card}]")
+    if same != len(texts) or trips != len(texts) or ran["python"] \
+            or n_native != n_python or top >= 128256:
+        fail(f"host (b): native == python on {same}, round trips {trips} of "
+             f"{len(texts)}, loops {ran}, ids {n_native} vs {n_python}, "
+             f"top id {top}")
+    return tok
+
+
+class _EncodeOnly:
+    """A tokenizer without ``decode``: the pipeline then returns the new
+    ids of each row (cut at eos)."""
+
+    def __init__(self, tok):
+        self.encode = tok.encode
+
+
+def _host_pipeline(ptt, seed, dev, card, model, tok):
+    """(b) TextGenerationPipeline on the 32-layer bf16 Llama-3-8B and on
+    a small fp32 model: 4 prompts of different lengths, greedy."""
+    from paddle_tpu_torch.generation import TextGenerationPipeline
+    cfg = ptt.GenerationConfig(max_new_tokens=HOST_NEW)
+    prompts = list(HOST_PROMPTS)
+    enc = [tok.encode(p) for p in prompts]
+    pipe = TextGenerationPipeline(model, tok, cfg)
+    pipe(prompts)                                 # warm-up: captures
+    read = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = pipe(prompts)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read()
+    rows = TextGenerationPipeline(model, _EncodeOnly(tok), cfg)(prompts)
+    solo = []
+    for e in enc:
+        out = model.generate(torch.tensor([e], device=dev), config=cfg)
+        solo.append(out[0, len(e):].tolist())
+    equal = [r == s for r, s in zip(rows, solo)]
+    gaps = [_teacher_gap(model, e, r) for e, r in zip(enc, rows)]
+    solo_gaps = [_teacher_gap(model, e, s) for e, s in zip(enc, solo)]
+    texts_ok = texts == [tok.decode(r, skip_special_tokens=True)
+                         for r in rows]
+    width = pipe._bucket(max(len(e) for e in enc))
+    log(f"[host] (b) TextGenerationPipeline on Llama-3-8B (32 layers, "
+        f"bf16): {len(prompts)} prompts of {[len(e) for e in enc]} tokens "
+        f"left-padded to the {width} bucket, {HOST_NEW} greedy new tokens: "
+        f"{wall_ms:.1f} ms, {wall_ms / HOST_NEW:.2f} ms a new token of the "
+        f"batch ({wall_ms / HOST_NEW / len(prompts):.2f} ms a token), "
+        f"tokenize and decode included; attention launches in the call "
+        f"{ {k: v for k, v in launches.items() if v} } (a left-padded "
+        f"batch attends densely, as in the JAX package); rows equal to "
+        f"their solo generate() bit for bit: {equal}; teacher-forced gaps "
+        f"of the padded rows {[round(g, 4) for g in gaps]}, of the solo "
+        f"runs {[round(g, 4) for g in solo_gaps]} (tol {TOL_TEACHER}); "
+        f"texts are the rows decoded: {texts_ok} [{card}]")
+    log(f"[host] (b) the first text (random weights): {texts[0][:60]!r}")
+    if any(launches.values()):
+        fail(f"host (b): the left-padded pipeline launched kernels "
+             f"{launches}")
+    if max(gaps + solo_gaps) > TOL_TEACHER or not texts_ok:
+        fail(f"host (b): teacher-forced gaps {gaps} / {solo_gaps} over "
+             f"{TOL_TEACHER}, or texts differ from the rows")
+    # bit for bit on a small fp32 model (no bf16 ties)
+    small = ptt.LlamaForCausalLM(
+        ptt.llama_tiny(vocab_size=model.config.vocab_size), device=dev,
+        generator=ptt.make_generator(seed + 93, dev))
+    rows = TextGenerationPipeline(small, _EncodeOnly(tok), cfg)(prompts)
+    solo = [small.generate(torch.tensor([e], device=dev),
+                           config=cfg)[0, len(e):].tolist() for e in enc]
+    log(f"[host] (b) the same pipeline on llama_tiny (fp32, vocab "
+        f"{small.config.vocab_size}): each padded row bit for bit its solo "
+        f"generate(): {[r == s for r, s in zip(rows, solo)]} [{card}]")
+    if rows != solo:
+        fail("host (b): a padded fp32 row differs from its solo run")
+    del small
+    model._gen_exec_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _host_hapi(ptt, seed, dev, card, run_dir):
+    """(c) ``ptt.Model(resnet50())``: fit over a native DataLoader, then
+    evaluate and predict; the losses against the same steps by hand."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.native import loader as native_loader
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.norm import running_stats_kept
+    from paddle_tpu_torch.utils import observability as obs
+    from paddle_tpu_torch.utils.logging import LogWriter
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    rs = np.random.RandomState(seed + 92)
+    n = HOST_STEPS * HOST_BATCH
+    images = rs.randn(n, 3, 224, 224).astype(np.float32)
+    labels = rs.randint(0, 1000, n).astype(np.int64)
+    net = resnet.resnet50(device=dev,
+                          generator=ptt.make_generator(seed + 91, dev))
+    hand = copy.deepcopy(net)
+    buffers0 = {k: v.clone() for k, v in net.named_buffers()}
+    model = ptt.Model(net).prepare(
+        ptt.optimizer.AdamW(learning_rate=1e-4),
+        loss=ptt.nn.CrossEntropyLoss(),
+        metrics=ptt.metric.Accuracy(topk=(1, 5)))
+    obs.configure(run_dir)
+    writer = LogWriter(run_dir)
+    marks = []
+
+    class Clock:
+        def on_train_batch_end(self, step, logs):   # float(loss) synced
+            marks.append(time.perf_counter())
+            ms = (marks[-1] - marks[-2]) * 1e3
+            obs.record_event("step_end", step=step, ms=ms)
+            obs.histogram("hapi_step_ms").observe(ms)
+            obs.counter("hapi_steps_total").inc()
+            writer.add_scalar("loss", logs["loss"], step)
+            writer.add_scalar("images_per_sec", HOST_BATCH / ms * 1e3, step)
+
+    loader = DataLoader(TensorDataset([images, labels]),
+                        batch_size=HOST_BATCH, use_native=True)
+    c0 = dict(native_loader.counts)
+    read = _reset_launches()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    with obs.span("hapi_fit", steps=HOST_STEPS):
+        hist = model.fit(loader, epochs=1, log_freq=1, verbose=0,
+                         callbacks=[Clock()])
+    launches = read()
+    fit_loader = {k: native_loader.counts[k] - c0[k] for k in c0}
+    step_ms = np.diff(marks) * 1e3
+    obs.publish(writer, HOST_STEPS)
+    writer.close()
+    obs.dump_flight("hapi_fit")      # the flight window, trace, metrics
+    # the same steps by hand: forward, loss, autograd.grad, AdamW.apply
+    params = dict(hand.named_parameters())
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4)
+    state = opt.init(params)
+    by_hand = []
+    for i in range(HOST_STEPS):
+        sl = slice(i * HOST_BATCH, (i + 1) * HOST_BATCH)
+        x = torch.from_numpy(np.stack(list(images[sl]))).to(dev)
+        y = torch.from_numpy(labels[sl]).to(dev)
+        with running_stats_kept():
+            loss = F.cross_entropy(hand(x), y).float()
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    materialize_grads=True)
+        opt.apply(params, dict(zip(params, grads)), state, i)
+        by_hand.append(float(loss.detach()))
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(hist["loss"], by_hand))
+    d_param = max(float((a - b).abs().max()) for a, b in zip(
+        net.parameters(), hand.parameters()))
+    kept = all(torch.equal(v, buffers0[k]) for k, v in net.named_buffers())
+    c1 = dict(native_loader.counts)
+    res = model.evaluate(DataLoader(TensorDataset([images[:64],
+                                                   labels[:64]]),
+                                    batch_size=HOST_BATCH, use_native=True),
+                         verbose=0)
+    preds = model.predict(DataLoader(TensorDataset([images[:64]]),
+                                     batch_size=HOST_BATCH, use_native=True))
+    rest_loader = {k: native_loader.counts[k] - c1[k] for k in c1}
+    preds_ok = len(preds) == 2 and all(
+        p.shape == (HOST_BATCH, 1000) and np.isfinite(p).all() for p in preds)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    steady = float(np.median(step_ms[1:]))
+    want = dict(NO_LAUNCHES, fused_adamw=_update_launches(net, HOST_STEPS))
+    log(f"[host] (c) ptt.Model(resnet50()) (fp32, cuDNN deterministic) "
+        f".prepare(AdamW, nn.CrossEntropyLoss(), metric.Accuracy(topk=(1, "
+        f"5))).fit over DataLoader(TensorDataset([images, labels]), "
+        f"batch_size={HOST_BATCH}, use_native=True), {HOST_STEPS} steps: "
+        f"losses {[round(v, 4) for v in hist['loss']]}; the same steps by "
+        f"hand: bit for bit {hist['loss'] == by_hand} (max |d|/|loss| "
+        f"{d_loss:.3g}, tol {TOL_HAPI}; parameters max |d| {d_param:.3g}); "
+        f"BatchNorm's running statistics kept: {kept}; launches {launches} "
+        f"(want {want}) [{card}]")
+    log(f"[host] (c) a step {steady:.2f} ms (median of steps 2-"
+        f"{HOST_STEPS}; the first {step_ms[0]:.2f} ms), "
+        f"{HOST_BATCH / steady * 1e3:.1f} images/s; the loader's batches "
+        f"by way: fit {fit_loader} (an (image, label) sample's label is a "
+        f"numpy scalar, which sends the batch to collate_fn, as in the JAX "
+        f"package), evaluate + predict {rest_loader}; evaluate {res}; "
+        f"predict {len(preds)} x {preds[0].shape} finite: {preds_ok} "
+        f"[{card}]")
+    if launches != want or d_loss > TOL_HAPI or not kept or not preds_ok \
+            or rest_loader["native"] != 2 or not np.isfinite(res["loss"]):
+        fail(f"host (c): launches {launches} (want {want}), loss d {d_loss}, "
+             f"buffers kept {kept}, predict {preds_ok}, loader "
+             f"{rest_loader}, evaluate {res}")
+    del model, net, hand, opt, state, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _host_tools(card, gw_dir, host_dir):
+    """(d) The four report tools, as ``python -m`` subprocesses, on the
+    [gateway] phase's dumps and on this phase's run dir."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_trace = os.path.join(host_dir, "waterfall.json")
+    runs = {
+        "trace_report --json (gateway)": ("trace_report", gw_dir, "--json"),
+        "obs_report --json (gateway)": ("obs_report", gw_dir, "--json"),
+        "obs_report --json (host)": ("obs_report", host_dir, "--json"),
+        "fleet_dash (gateway)": ("fleet_dash", gw_dir),
+        "trace_export --check (gateway)": ("trace_export", gw_dir, "-o",
+                                           out_trace, "--check"),
+        "obs_report --check": ("obs_report", "--check"),
+    }
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", f"paddle_tpu_torch.tools.{v[0]}", *v[1:]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=here) for k, v in runs.items()}
+    done = {}
+    for k, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=HOST_TOOLS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        done[k] = (p.returncode, out, err)
+    wall = time.perf_counter() - t0
+    bad = {k: (rc, err[-2000:]) for k, (rc, out, err) in done.items()
+           if rc != 0 or not out.strip()}
+    if bad:
+        fail(f"host (d): tools failed: {bad}")
+    tr = json.loads(done["trace_report --json (gateway)"][1])
+    og = json.loads(done["obs_report --json (gateway)"][1])
+    oh = json.loads(done["obs_report --json (host)"][1])
+    with open(out_trace) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    dash = done["fleet_dash (gateway)"][1].splitlines()
+    log(f"[host] (d) the port's tools on the card machine (6 processes in "
+        f"{wall:.1f} s, every exit 0): trace_report over "
+        f"{len(tr.get('rings', []))} reqtrace rings, {tr.get('requests')} "
+        f"requests ({tr.get('retained')} retained), classes "
+        f"{sorted(tr.get('classes', {}))}; obs_report on the gateway dir: "
+        f"phase_decompose {og.get('phase_decompose')}; on the host dir: "
+        f"{oh.get('steps_recorded')} steps, step ms {oh.get('step_ms')}, "
+        f"loss {oh.get('train', {}).get('loss')}; fleet_dash "
+        f"{len(dash)} lines ({dash[0] if dash else ''!r}); trace_export "
+        f"--check clean, {n_events} Chrome trace events; obs_report "
+        f"--check: {done['obs_report --check'][1].strip()} [{card}]")
+    if oh.get("steps_recorded") != HOST_STEPS or not tr.get("requests") \
+            or not n_events:
+        fail(f"host (d): steps {oh.get('steps_recorded')}, requests "
+             f"{tr.get('requests')}, trace events {n_events}")
+
+
+def phase_host(seed, dev, card, model, gw_dir):
+    """The host side of the user paths (``[host]`` lines), after
+    ``[family]`` on its Llama-3-8B: (a) the native runtime, (b) the BPE
+    tokenizer and ``TextGenerationPipeline``, (c) ``paddle.Model`` with
+    the loss layers and metrics over the native ``DataLoader``, (d) the
+    report tools on the [gateway] phase's dumps and this phase's run dir.
+    Returns (c)'s fused update launches."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.utils import observability as obs
+    t_phase = time.perf_counter()
+    host_dir = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    try:
+        _host_native(seed, card)
+        tok = _host_tokenizer(card)
+        _host_pipeline(ptt, seed, dev, card, model, tok)
+        try:
+            launches = _host_hapi(ptt, seed, dev, card, host_dir)
+        finally:
+            obs.reset()      # flushes the run dir's span trace
+        _host_tools(card, gw_dir, host_dir)
+    finally:
+        shutil.rmtree(host_dir, ignore_errors=True)
+        shutil.rmtree(gw_dir, ignore_errors=True)
+    log(f"[host] the phase took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return {"fused_adamw": launches["fused_adamw"]}
 
 
 def phase_spec_ragged_time(gen, dev, card):
@@ -7177,6 +7731,9 @@ TP_SERVE_NEW = 64
 # (a 256-token prompt: two 128-token chunks, the span /kvz serves)
 TP_SERVE_SPILL_MB = 2048
 TP_SERVE_KVZ_PROMPT = 256
+# the replica's depth: 8 of Llama-3-8B's 32 layers at its full widths
+# (``replica_main --layers``), to keep the script inside its time limit
+TP_SERVE_LAYERS = 8
 TP_SERVE_KVZ_NEW = 512
 
 
@@ -7331,7 +7888,7 @@ def _tp_serve_fleet(seed, dev, card):
                                                 LocalProcessManager)
     from paddle_tpu_torch.serving.fleet.replica_main import \
         llama3_8b_engine_kw
-    cfg = ptt.llama3_8b()
+    cfg = ptt.llama3_8b(num_hidden_layers=TP_SERVE_LAYERS)
     L = cfg.num_hidden_layers
     reqs = _tp_serve_requests(seed, cfg.vocab_size)
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_serve_")
@@ -7340,7 +7897,8 @@ def _tp_serve_fleet(seed, dev, card):
     mgr = LocalProcessManager(fe, model="llama3-8b", chunk_tokens=128,
                               seed=seed, tp=1,
                               extra_args=["--spill-mb", str(TP_SERVE_SPILL_MB),
-                                          "--migrate", "on"],
+                                          "--migrate", "on",
+                                          "--layers", str(TP_SERVE_LAYERS)],
                               spawn_timeout_s=FLEET_SPAWN_TIMEOUT_S,
                               probe_interval_s=0.25, stale_after_s=10.0,
                               drain_grace_s=60.0, log_dir=log_dir)
@@ -7407,8 +7965,8 @@ def _tp_serve_fleet(seed, dev, card):
                != direct.logprobs[r["request_id"]]]
         ttft = np.array([v[3] for v in results.values() if v[3] is not None])
         new_tokens = sum(len(v[2]) for v in results.values())
-        log(f"[tp-serve] (a) replica_main --tp 1 --model llama3-8b --seed "
-            f"{seed} through paddle_tpu_torch.distributed.launch (world-one "
+        log(f"[tp-serve] (a) replica_main --tp 1 --model llama3-8b --layers "
+            f"{L} (of 32; widths kept) --seed {seed} through paddle_tpu_torch.distributed.launch (world-one "
             f"NCCL mesh, the model built sharded and bound once, its engine "
             f"behind the SequencedEngine) up in {cold_s:.1f} s; 9 requests "
             f"through a FleetFrontend (8 greedy sharing a "
@@ -10448,8 +11006,9 @@ def main():
     routes = dict(bf16["routes"])
     paged, paged_routes = phase_paged(args.seed, dev, card, model)
     phase_spec(args.seed, dev, card, model)
-    gw_launches, _ = phase_gateway(args.seed, dev, card, model)
+    gw_launches, _, gw_dir = phase_gateway(args.seed, dev, card, model)
     phase_generate_family(args.seed, dev, card, model)
+    host_launches = phase_host(args.seed, dev, card, model, gw_dir)
     launches["ragged"] = paged["ragged"] + gw_launches["ragged"]
     routes["ragged"] = paged_routes["ragged"]
     pred, int8 = phase_quant_slice(dev, card, model, bf16)
@@ -10524,6 +11083,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for key, n in phase_tp_zoo(args.seed, gen, dev, card).items():
+        launches[key] += n
+    for key, n in host_launches.items():
         launches[key] += n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),

@@ -51,6 +51,8 @@ from .models import (BertConfig, BertForPretraining,
                      LlamaForCausalLM, causal_lm_loss, from_pretrained,
                      llama3_70b, llama3_8b, llama_tiny)
 from .trainer import Trainer, TrainerCallback, TrainingArguments
+from . import metric
+from .hapi import Model, summary
 from .utils.rng import make_generator
 
 __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
@@ -63,4 +65,4 @@ __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "ErnieConfig", "ErnieForMaskedLM",
            "ErnieForSequenceClassification", "make_generator", "amp", "diffusion", "io",
            "optimizer", "peft", "quant", "tokenizer", "trl", "Trainer", "TrainerCallback",
-           "TrainingArguments"]
+           "TrainingArguments", "metric", "Model", "summary"]

@@ -425,11 +425,12 @@ class _BeamProgram(DecodeProgram):
         return out.to(input_ids.dtype)
 
 
+from .pipeline import TextGenerationPipeline  # noqa: E402
 from .paged import PagedEngine, PagedKV  # noqa: E402
 from .prompt_lookup import propose_ngram, propose_ngram_rows  # noqa: E402
 from .speculative import (mtp_speculative_generate,  # noqa: E402
                           ngram_speculative_generate, speculative_generate)
 
-__all__ += ["PagedEngine", "PagedKV", "propose_ngram", "propose_ngram_rows",
+__all__ += ["TextGenerationPipeline", "PagedEngine", "PagedKV", "propose_ngram", "propose_ngram_rows",
             "speculative_generate", "mtp_speculative_generate",
             "ngram_speculative_generate"]

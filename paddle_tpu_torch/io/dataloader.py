@@ -7,8 +7,11 @@ Batches are numpy arrays (the trainer's ``DevicePrefetcher`` turns them
 into tensors on the card). ``num_workers > 0`` on a map-style dataset
 runs spawned worker processes (``io/worker.py``); an iterable dataset
 takes a background thread. ``state_dict`` / ``load_state_dict`` carry the
-batch sampler's cursor for O(1) resume. ``use_native=True`` (the JAX
-package's C++ batch assembler) is not ported: it raises.
+batch sampler's cursor for O(1) resume. ``use_native=True`` stacks each
+batch on the native runtime's thread pool into its staging arena
+(``native/loader.py``); such a loader keeps the thread prefetcher and
+starts no worker processes, as in the JAX package. Its library is built
+at first use, and a failed build raises.
 """
 from __future__ import annotations
 
@@ -65,10 +68,6 @@ class DataLoader:
         self.collate_fn = collate_fn or default_collate_fn
         self.num_workers = num_workers
         self.prefetch_factor = max(prefetch_factor, 1)
-        if use_native:
-            raise NotImplementedError(
-                "use_native=True: the native C++ batch assembler is not "
-                "ported (ROADMAP A10); use the default use_native=False")
         self.use_native = use_native
         self.worker_init_fn = worker_init_fn
         self.persistent_workers = persistent_workers
@@ -93,6 +92,10 @@ class DataLoader:
 
     # ------------------------------------------------------------ iteration
     def _assemble(self, indices):
+        if self.use_native:
+            from ..native import loader as native_loader
+            return native_loader.assemble(self.dataset, indices,
+                                          self.collate_fn)
         return self.collate_fn([self.dataset[i] for i in indices])
 
     def _iter_sync(self):
@@ -208,10 +211,11 @@ class DataLoader:
 
     def __iter__(self):
         if self.num_workers > 0:
-            # map-style -> real worker processes; an iterable dataset keeps
-            # the thread prefetcher (it shards via get_worker_info only
-            # when the user opts in, so default to single-stream)
-            if not self._iterable:
+            # map-style -> real worker processes; iterable/native keep the
+            # thread prefetcher (the native path's thread pool is its
+            # worker pool; an IterableDataset shards via get_worker_info
+            # only when the user opts in, so default to single-stream)
+            if not self._iterable and not self.use_native:
                 return self._iter_multiprocess()
             return self._iter_prefetch()
         return self._iter_sync()

@@ -3,7 +3,13 @@
 ``batch_norm``, ``group_norm``, ``instance_norm``, ``normalize``, the
 activations ``silu``, ``relu``, ``tanh``, ``sigmoid``, ``quick_gelu`` and
 ``gelu`` (exact and tanh), ``dropout`` in both of Paddle's modes,
-``scaled_dot_product_attention``, ``cross_entropy`` and ``ctc_loss``; the
+``scaled_dot_product_attention``, ``cross_entropy``, ``ctc_loss`` and the
+losses ``nn/loss.py``'s layers call (``nll_loss``, ``mse_loss``,
+``l1_loss``, ``smooth_l1_loss``, ``binary_cross_entropy`` with and
+without logits, ``kl_div``, ``poisson_nll_loss``,
+``hinge_embedding_loss``, ``margin_ranking_loss``, ``soft_margin_loss``,
+``multi_label_soft_margin_loss``, ``cosine_embedding_loss``,
+``triplet_margin_loss`` on ``pairwise_distance``); the
 convolutions (``conv1d``, ``conv2d``, ``conv3d``, ``conv1d_transpose``,
 ``conv2d_transpose``), the pools (``max_pool2d``, ``avg_pool2d``, the
 adaptive and global pools) and ``interpolate`` / ``upsample``.
@@ -363,6 +369,144 @@ def ctc_loss(log_probs, labels, input_lengths=None, label_lengths=None,
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+# ------------------------------------------------------------------ losses
+# The JAX package's loss functions (``paddle_tpu/nn/functional.py``), term
+# for term: the same clamps, masks and reductions, so ``nn/loss.py``'s
+# layers give the JAX values under every ``reduction``.
+def _reduce(loss, reduction):
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    return loss.mean()
+
+
+def _softplus(x):
+    """log(1 + exp(x)) without the overflow (``jax.nn.softplus``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def nll_loss(log_probs, label, weight=None, ignore_index=-100,
+             reduction="mean"):
+    """Labels equal to ``ignore_index`` are masked; ``"mean"`` divides by
+    the unmasked count (at least 1), with or without ``weight``."""
+    n = log_probs.shape[-1]
+    idx = label.long().clamp(0, n - 1)
+    loss = -log_probs.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+    mask = (label != ignore_index).to(loss.dtype)
+    loss = loss * mask
+    if weight is not None:
+        loss = loss * weight[idx]
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    return loss.sum() / mask.sum().clamp_min(1.0)
+
+
+def mse_loss(input, label, reduction="mean"):  # noqa: A002
+    return _reduce(torch.square(input - label), reduction)
+
+
+def l1_loss(input, label, reduction="mean"):  # noqa: A002
+    return _reduce(torch.abs(input - label), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):  # noqa: A002
+    diff = torch.abs(input - label)
+    loss = torch.where(diff < delta, 0.5 * diff * diff / delta,
+                       diff - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None,  # noqa: A002
+                         reduction="mean"):
+    eps = 1e-12
+    loss = -(label * torch.log(input.clamp_min(eps))
+             + (1 - label) * torch.log((1 - input).clamp_min(eps)))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    logit = logit.float()
+    loss = (logit.clamp_min(0) - logit * label
+            + torch.log1p(torch.exp(-torch.abs(logit))))
+    if pos_weight is not None:
+        loss = loss * ((pos_weight - 1) * label + 1)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean"):  # noqa: A002 (input: log-prob)
+    loss = label * (torch.log(label.clamp_min(1e-12)) - input)
+    return _reduce(loss, reduction)
+
+
+def poisson_nll_loss(input, label, log_input=True,  # noqa: A002
+                     full=False, epsilon=1e-8, reduction="mean"):
+    if log_input:
+        loss = torch.exp(input) - label * input
+    else:
+        loss = input - label * torch.log(input + epsilon)
+    if full:
+        stirling = (label * torch.log(label + epsilon) - label
+                    + 0.5 * torch.log(2 * math.pi * (label + epsilon)))
+        loss = loss + torch.where(label > 1, stirling,
+                                  torch.zeros_like(stirling))
+    return _reduce(loss, reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0,  # noqa: A002
+                         reduction="mean"):
+    loss = torch.where(label == 1.0, input, (margin - input).clamp_min(0.0))
+    return _reduce(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0,  # noqa: A002
+                        reduction="mean"):
+    return _reduce((-label * (input - other) + margin).clamp_min(0.0),
+                   reduction)
+
+
+def soft_margin_loss(input, label, reduction="mean"):  # noqa: A002
+    return _reduce(_softplus(-label * input), reduction)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,  # noqa: A002
+                                 reduction="mean"):
+    # log_sigmoid(x) == -softplus(-x), as jax.nn.log_sigmoid
+    loss = label * _softplus(-input) + (1 - label) * _softplus(input)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss.mean(dim=-1), reduction)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean"):
+    sim = (input1 * input2).sum(-1) / (
+        torch.linalg.vector_norm(input1, dim=-1)
+        * torch.linalg.vector_norm(input2, dim=-1)).clamp_min(1e-12)
+    loss = torch.where(label == 1, 1.0 - sim, (sim - margin).clamp_min(0.0))
+    return _reduce(loss, reduction)
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False):
+    d = (torch.abs(x - y + epsilon) ** p).sum(-1) ** (1.0 / p)
+    return d.unsqueeze(-1) if keepdim else d
+
+
+def triplet_margin_loss(anchor, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, reduction="mean"):
+    # epsilon inside the distance keeps the p-root differentiable at zero
+    dp = pairwise_distance(anchor, positive, p, epsilon)
+    dn = pairwise_distance(anchor, negative, p, epsilon)
+    return _reduce((dp - dn + margin).clamp_min(0.0), reduction)
 
 
 # -------------------------------------------------------------------- conv

@@ -159,8 +159,16 @@ def test_distributed_sampler_reads_torch_distributed(monkeypatch):
 
 
 def test_native_loader_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tio.DataLoader(list(range(4)), use_native=True)
+    # use_native=True is ported now (tests/test_torch_native.py holds it
+    # against the JAX loader); a dataset of ints takes collate_fn there,
+    # as in the JAX package, and the native loader counts that path
+    from paddle_tpu_torch.native import loader as native_loader
+    before = dict(native_loader.counts)
+    got = list(tio.DataLoader(list(range(4)), batch_size=2,
+                              use_native=True))
+    assert [b.tolist() for b in got] == [[0, 1], [2, 3]]
+    assert native_loader.counts["collate"] - before["collate"] == 2
+    assert native_loader.counts["native"] == before["native"]
 
 
 def test_iterable_dataset_batches_with_a_thread():

@@ -1142,12 +1142,14 @@ CASES.update(tp_gateway=tp_gateway_cases)
 def tp_fleet_reference(rank, world, p):
     """The direct tp engine a fleet failover is held to: ``replica_main
     --model tiny --tp 2``'s model from the seed and geometry, every
-    request uninterrupted, and each greedy one resumed from each prefix
-    of its stream (the fleet's rule: a failed-over stream is the direct
-    engine's resume of its committed prefix)."""
+    request uninterrupted, and each one resumed from each prefix of its
+    stream (the fleet's rule: a failed-over stream is the direct engine's
+    resume of its committed prefix; a sampled one, from the empty prefix
+    on, under the seed the frontend re-derives for its first hop)."""
     from paddle_tpu_torch.distributed import env
     from paddle_tpu_torch.generation.paged import PagedEngine
     from paddle_tpu_torch.serving.fleet import replica_main as rm
+    from paddle_tpu_torch.serving.fleet.frontend import _SEED_FOLD
     env.init_parallel_env({"tp": world}, device="cpu")
     model = rm.build_sharded_model("tiny", p["seed"])
     eng = PagedEngine(model, **rm.tiny_engine_kw(p["chunk"]))
@@ -1156,15 +1158,16 @@ def tp_fleet_reference(rank, world, p):
                                   _engine_kw(r)) for r in reqs]])
     resumes = []
     for r in reqs:
-        if r.get("temperature"):
-            continue
         toks, lps = ref[r["request_id"]]
-        for c in range(1, len(toks)):
+        sampled = {}
+        if r.get("temperature"):
+            sampled = dict(_engine_kw(r), seed=r["seed"] + _SEED_FOLD)
+        for c in range(0 if sampled else 1, len(toks)):
+            kw = dict(sampled, max_new_tokens=len(toks) - c)
+            if c:
+                kw.update(resume_tokens=toks[:c], resume_lps=lps[:c])
             resumes.append((f"{r['request_id']}@{c}",
-                            r["prompt"] + toks[:c],
-                            dict(max_new_tokens=len(toks) - c,
-                                 resume_tokens=toks[:c],
-                                 resume_lps=lps[:c])))
+                            r["prompt"] + toks[:c], kw))
     return {"ref": ref, "resumed": _direct_streams(eng, [resumes])}
 
 
