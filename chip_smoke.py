@@ -100,7 +100,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (a) ``Gateway`` over two replicas at the defaults with the tick-phase
    profiler, chunked prefill (128), the prefix cache and a spill arena,
    on the one model, serves 24 HTTP requests (16 SSE, 8 JSON, 4 sampled;
-   16 share a 512-token prefix; prompts 520-900, 64-128 new), with the
+   16 share a 512-token prefix; prompts 520-900, 32-64 new), with the
    counts set to 0 just before and read just after: ragged attention
    once per layer and tick of both replicas (counted inside the graphs,
    all on the mma route), each steady graph holding 32 ragged nodes;
@@ -545,12 +545,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the per-rank statistics. tp > 1 is proved by the CPU gloo
    tests. The sharded runs' launches join the kernels line's.
 
+22. Paddle's layer API (``[api]`` lines, last): (a) a PaddleNLP-style
+   decoder written against the public API only (an ``nn.Layer`` of
+   ``nn.Linear`` and ``create_parameter``; ``incubate.nn.functional``'s
+   ``fused_rms_norm``, ``fused_rotary_position_embedding`` on cos / sin
+   tables gathered at ``position_ids``, ``fused_dot_product_attention(
+   is_causal=True)``, ``swiglu`` and ``fused_dropout_add``) at
+   Llama-3-8B's widths cut to 4 layers, bf16 [2, 2048], its weights from
+   the port's ``LlamaForCausalLM`` layers: outputs and every gradient
+   against those layers bit for bit (else within ``TOL_API_REL``), flash,
+   dq and dk/dv 4 times a step on the wgmma route, a step timed beside
+   the Llama layers' in turns; with an ``attn_mask`` the dense route and
+   no flash launch; (b) ``vision.datasets.FakeData`` (256 x 256 x 3)
+   through the ImageNet train transforms (seeded): the first batch of a
+   0-worker ``io.DataLoader`` equal to the transforms by hand, then a
+   2-worker loader (each worker's transforms reseeded from its
+   ``WorkerInfo.seed``) into ``Model(vision.resnet50())`` fp32 for 4 fit
+   steps, one fused update a step; (c) the beginner example
+   (``seed(0)``, an ``nn.Layer`` with ``nn.Flatten``, ``summary``,
+   ``Model`` with AdamW, ``F.cross_entropy`` and ``Accuracy``, 2 epochs
+   of ``FakeData``, ``evaluate``, ``save``); (d) every function and layer
+   ``nn`` gained in this slice on the card against the CPU (fp32, within
+   ``TOL_API_SWEEP``), the random ones by their invariants. Its
+   launches join the kernels line's.
+
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
 ``cuda-simt`` for the fused AdamW update, whose launches include phase
-20's and ``[host]``'s ``Model.fit``; ``flash_attention_with_lse``'s launches are the ring's of phase
-12),
+20's, ``[host]``'s and ``[api]``'s ``Model.fit``; the flash forward, dq
+and dk/dv include ``[api] (a)``'s; ``flash_attention_with_lse``'s
+launches are the ring's of phase 12),
 then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA
 card, or without the ``paddle_tpu_torch`` package beside it, it exits
@@ -2588,15 +2613,16 @@ def _phase_split(eng, ticks, label, card):
     return mean
 
 
-def _gateway_traffic(rs, ids):
+def _gateway_traffic(rs, ids, new=(64, 128)):
     """The gateway's and the fleet's 24 requests: 16 share a 512-token
-    prefix, prompts of 520-900 tokens, 64-128 new, every third one JSON
-    (not streamed), one in six sampled. ``rs``: a numpy RandomState;
-    ``ids(n)``: n seeded token ids."""
+    prefix, prompts of 520-900 tokens, ``new`` (least, most) new tokens
+    (the fleet's 64-128), every third one JSON (not streamed), one in six
+    sampled. ``rs``: a numpy RandomState; ``ids(n)``: n seeded token
+    ids."""
     prefix = ids(512)
     reqs = []
     for i in range(24):
-        n_new = int(rs.randint(64, 129))
+        n_new = int(rs.randint(new[0], new[1] + 1))
         n_prompt = int(rs.randint(520, min(900, PAGED["max_blocks_per_seq"]
                                            * PAGED["block_size"] - n_new)
                                   + 1))
@@ -2607,6 +2633,11 @@ def _gateway_traffic(rs, ids):
             r.update(temperature=0.8, top_p=0.95, seed=3000 + i)
         reqs.append(r)
     return reqs
+
+
+# the gateway's new tokens a request (least, most): cut from the fleet's
+# 64-128 when [api] was added, to keep the script's time
+GATEWAY_NEW = (32, 64)
 
 
 def phase_gateway(seed, dev, card, model):
@@ -2645,7 +2676,7 @@ def phase_gateway(seed, dev, card, model):
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_gateway_")
     obs.configure(run_dir)
     geo = dict(PAGED, chunk_prefill_tokens=128, enable_prefix_cache=True)
-    reqs = _gateway_traffic(rs, ids)
+    reqs = _gateway_traffic(rs, ids, GATEWAY_NEW)
     arena = KVSpillArena(1 << 30, name="chip-gateway")
     engines = [PagedEngine(model, tick_profile=True, **geo)
                for _ in range(2)]
@@ -2787,7 +2818,8 @@ def phase_gateway(seed, dev, card, model):
     t = np.array([ttft[r["request_id"]] for r in reqs if r["stream"]])
     new_tokens = sum(len(out[r["request_id"]][0]) for r in reqs)
     log(f"[gateway] (a) 24 requests over HTTP (16 SSE, 8 JSON, 4 sampled; "
-        f"16 share a 512-token prefix; prompts 520-900, 64-128 new): "
+        f"16 share a 512-token prefix; prompts 520-900, "
+        f"{GATEWAY_NEW[0]}-{GATEWAY_NEW[1]} new): "
         f"{new_tokens} new tokens in {wall:.2f} s, {new_tokens / wall:.1f} "
         f"new tokens/s; client TTFT (SSE) median {np.median(t):.1f} ms p99 "
         f"{np.percentile(t, 99):.1f} ms; decode ticks {ticks}; "
@@ -10944,6 +10976,587 @@ def phase_tp_zoo(seed, gen, dev, card):
         f"main-path runs {launches} [{card}]")
     return launches
 
+# ------------------------------------------------------------------ [api]
+API_LAYERS = TRAIN_LAYERS        # Llama-3-8B's widths, cut to 4 layers
+API_BATCH = TRAIN_BATCH          # [2, 2048], one forward and backward a step
+API_STEPS = 3                    # timed steps of each model, in turns
+# relative error past which (a) fails where it is not bit for bit: one
+# bf16 rounding step (2^-8) amplified through 4 layers and a backward
+TOL_API_REL = 2e-2
+# the masked call (dense attention, fp32 softmax) against the flash route
+# (its own rounding points) over the 4 layers, relative to the largest
+TOL_API_MASKED = 2.0 ** -4
+API_IMAGE = (256, 256, 3)        # (b) FakeData's HWC images
+API_FIT_BATCH = 32
+API_FIT_STEPS = 4
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# (d) the card against the CPU in fp32 (TF32 off): a few ulps of a sum
+# or of a transcendental, relative to max(1, |value|)
+TOL_API_SWEEP = 1e-4
+# the port's Llama decoder layer's names -> the [api] decoder's
+API_RENAME = {"input_layernorm.weight": "input_norm_weight",
+              "post_attention_layernorm.weight": "post_norm_weight",
+              **{f"self_attn.{p}_proj.weight": f"{p}_proj.weight"
+                 for p in "qkvo"},
+              **{f"mlp.{p}_proj.weight": f"{p}_proj.weight"
+                 for p in ("gate", "up", "down")}}
+
+
+def api_decoder(cfg, device=None, layers=None):
+    """A PaddleNLP-style Llama decoder written against the public API
+    only: an ``nn.Layer`` subclass of ``nn.Linear`` projections and
+    ``create_parameter`` norm weights whose forward calls
+    ``incubate.nn.functional``'s ``fused_rms_norm``,
+    ``fused_rotary_position_embedding`` (cos / sin tables [max_pos, d /
+    2] gathered at ``position_ids``), ``fused_dot_product_attention(
+    is_causal=True)``, ``swiglu`` and ``fused_dropout_add`` at p 0.
+    ``load_from(llama)`` copies the weights of the port's
+    ``LlamaForCausalLM`` decoder layers (``API_RENAME``)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import initializer as I
+    h, d, dt = cfg.hidden_size, cfg.head_dim, cfg.dtype
+    nh, kvh = cfg.num_attention_heads, cfg.num_key_value_heads
+
+    class DecoderLayer(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            kw = dict(bias_attr=False, device=device, dtype=dt)
+            self.q_proj = nn.Linear(h, nh * d, **kw)
+            self.k_proj = nn.Linear(h, kvh * d, **kw)
+            self.v_proj = nn.Linear(h, kvh * d, **kw)
+            self.o_proj = nn.Linear(nh * d, h, **kw)
+            self.gate_proj = nn.Linear(h, cfg.intermediate_size, **kw)
+            self.up_proj = nn.Linear(h, cfg.intermediate_size, **kw)
+            self.down_proj = nn.Linear(cfg.intermediate_size, h, **kw)
+            ones = I.Constant(1.0)
+            self.input_norm_weight = self.create_parameter(
+                [h], dt, ones, device=device)
+            self.post_norm_weight = self.create_parameter(
+                [h], dt, ones, device=device)
+
+        def forward(self, x, cos, sin, position_ids, attn_mask=None):
+            b, s, _ = x.shape
+            y = IF.fused_rms_norm(x, self.input_norm_weight,
+                                  epsilon=cfg.rms_norm_eps)
+            q = self.q_proj(y).reshape(b, s, nh, d)
+            k = self.k_proj(y).reshape(b, s, kvh, d)
+            v = self.v_proj(y).reshape(b, s, kvh, d)
+            q, k, _ = IF.fused_rotary_position_embedding(
+                q, k, None, sin=sin, cos=cos, position_ids=position_ids)
+            a = IF.fused_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                               is_causal=True)
+            x = IF.fused_dropout_add(self.o_proj(a.reshape(b, s, nh * d)),
+                                     x, p=0.0)
+            y = IF.fused_rms_norm(x, self.post_norm_weight,
+                                  epsilon=cfg.rms_norm_eps)
+            return IF.fused_dropout_add(
+                self.down_proj(IF.swiglu(self.gate_proj(y), self.up_proj(y))),
+                x, p=0.0)
+
+    class Decoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.layers = nn.LayerList(
+                [DecoderLayer() for _ in range(layers or
+                                               cfg.num_hidden_layers)])
+
+        def forward(self, x, cos, sin, position_ids, attn_mask=None):
+            for layer in self.layers:
+                x = layer(x, cos, sin, position_ids, attn_mask)
+            return x
+
+        def load_from(self, llama):
+            state = {}
+            for i, _ in enumerate(self.layers):
+                src = llama.model.layers[i].state_dict()
+                state.update({f"layers.{i}.{API_RENAME[k]}": v
+                              for k, v in src.items()})
+            self.set_state_dict(state)
+            return self
+
+    return Decoder()
+
+
+def api_rope_tables(llama, max_pos):
+    """The Llama model's RoPE as [max_pos, d / 2] cos and sin tables
+    (``rotary_cos_sin`` over every position, its own schedule)."""
+    from paddle_tpu_torch.models.llama import rotary_cos_sin
+    m, cfg = llama.model, llama.config
+    pos = torch.arange(max_pos, device=m.rope_inv_freq.device)[None]
+    cos, sin = rotary_cos_sin(pos, cfg.head_dim, cfg.rope_theta, cfg.dtype,
+                              inv_freq=m.rope_inv_freq,
+                              attention_scaling=m.attn_scaling)
+    return cos.reshape(max_pos, -1), sin.reshape(max_pos, -1)
+
+
+def _api_rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _api_decoder_run(seed, dev, card):
+    """(a) The API-written decoder at Llama-3-8B's widths (4 layers, bf16,
+    [2, 2048]) against the port's own Llama layers on its weights."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.llama import rotary_cos_sin
+    cfg = ptt.llama3_8b(num_hidden_layers=API_LAYERS)
+    llama = ptt.LlamaForCausalLM(cfg, device=dev,
+                                 generator=ptt.make_generator(seed + 131,
+                                                              dev))
+    ptt.seed(seed)
+    api = api_decoder(cfg, dev).load_from(llama)
+    b, s = API_BATCH
+    gen = ptt.make_generator(seed + 132, dev)
+    x0 = torch.randn(b, s, cfg.hidden_size, generator=gen, device=dev,
+                     dtype=cfg.dtype)
+    cot = torch.randn(b, s, cfg.hidden_size, generator=gen, device=dev,
+                      dtype=cfg.dtype)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    cos, sin = api_rope_tables(llama, s)
+    m = llama.model
+    rope = rotary_cos_sin(pos, cfg.head_dim, cfg.rope_theta, cfg.dtype,
+                          inv_freq=m.rope_inv_freq,
+                          attention_scaling=m.attn_scaling)
+    ref_params = dict(m.layers.named_parameters())
+
+    def api_step():
+        x = x0.detach().requires_grad_(True)
+        out = api(x, cos, sin, pos)
+        out.backward(cot)
+        return out.detach(), x.grad
+
+    def ref_step():
+        x = x0.detach().requires_grad_(True)
+        h = x
+        for layer in m.layers:
+            h = layer(h, rope)
+        h.backward(cot)
+        return h.detach(), x.grad
+
+    read = _reset_launches()
+    out, gx = api_step()
+    launches = read()
+    routes = _check_routes("api (a)", flash=API_LAYERS,
+                           flash_bwd_dq=API_LAYERS,
+                           flash_bwd_dkv=API_LAYERS)
+    want = dict(NO_LAUNCHES, flash=API_LAYERS, flash_bwd_dq=API_LAYERS,
+                flash_bwd_dkv=API_LAYERS)
+    api_grads = {n: p.grad for n, p in api.named_parameters()}
+    ref_out, ref_gx = ref_step()
+    pairs = [("out", out, ref_out), ("d x", gx, ref_gx)]
+    for name, p in ref_params.items():
+        i, rest = name.split(".", 1)
+        pairs.append((f"d {name}", api_grads[f"layers.{i}.{API_RENAME[rest]}"],
+                      p.grad))
+    same = {n: torch.equal(a, r) for n, a, r in pairs}
+    rel = max(_api_rel(a, r) for _, a, r in pairs)
+    # in turns: the API model's step and the Llama layers' step
+    t_api, t_ref = [], []
+    for _ in range(API_STEPS):
+        for fn, sink in ((api_step, t_api), (ref_step, t_ref)):
+            api.zero_grad(set_to_none=True)
+            m.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3)
+    ms_api, ms_ref = sorted(t_api)[API_STEPS // 2], \
+        sorted(t_ref)[API_STEPS // 2]
+    # the masked call: the dense route, no flash kernel
+    mask = torch.ones(b, 1, 1, s, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        read = _reset_launches()
+        masked = api(x0, cos, sin, pos, attn_mask=mask)
+        masked_launches = read()
+    masked_rel = _api_rel(masked, out)
+    bit = all(same.values())
+    log(f"[api] (a) a PaddleNLP-style decoder (nn.Layer subclass: nn.Linear, "
+        f"create_parameter, incubate.nn.functional fused_rms_norm, "
+        f"fused_rotary_position_embedding on [{s}, {cfg.head_dim // 2}] "
+        f"tables, fused_dot_product_attention(is_causal=True), swiglu, "
+        f"fused_dropout_add p 0) at Llama-3-8B's widths, {API_LAYERS} "
+        f"layers, bf16 [{b}, {s}], weights from the port's "
+        f"LlamaForCausalLM layers: outputs and gradients against those "
+        f"layers bit for bit: {bit} ({sum(same.values())} of {len(same)} "
+        f"tensors equal; max relative error {rel:.3g}, tol {TOL_API_REL}); "
+        f"launches a step {launches} (want {want}), by route {routes}; a "
+        f"step {ms_api:.2f} ms (median of {API_STEPS}) against the Llama "
+        f"layers' {ms_ref:.2f} ms, in turns [{card}]")
+    log(f"[api] (a) with an attn_mask (all True, [{b}, 1, 1, {s}]): the "
+        f"dense route, launches {masked_launches}, relative error against "
+        f"the flash route {masked_rel:.3g} (tol {TOL_API_MASKED}) [{card}]")
+    if launches != want or (not bit and rel > TOL_API_REL):
+        fail(f"api (a): launches {launches} (want {want}), bit for bit "
+             f"{bit}, max relative error {rel} (tol {TOL_API_REL})")
+    if any(masked_launches[k] for k in ("flash", "flash_bwd_dq",
+                                        "flash_bwd_dkv")) \
+            or masked_rel > TOL_API_MASKED:
+        fail(f"api (a) masked: launches {masked_launches}, relative error "
+             f"{masked_rel}")
+    del api, llama, m, ref_params, api_grads, pairs
+    return launches, {"ms": ms_api, "llama_ms": ms_ref}
+
+
+def _api_pipeline(T, seed):
+    """The ImageNet train transform with seeded generators."""
+    import numpy as np
+    return T.Compose([
+        T.RandomResizedCrop(224, rng=np.random.default_rng(seed)),
+        T.RandomHorizontalFlip(rng=np.random.default_rng(seed + 1)),
+        T.ToTensor(), T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+
+
+def _api_reseed_worker(worker_id):
+    """DataLoader ``worker_init_fn``: each random transform a stream of
+    this worker's own, from its seed (the pool's base seed plus the
+    worker's id, as the JAX package's workers get it); a generator given
+    at construction reaches every spawned worker as the same copy."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import get_worker_info
+    info = get_worker_info()
+    for i, t in enumerate(info.dataset.transform.transforms):
+        if getattr(t, "rng", None) is not None:
+            t.rng = np.random.default_rng([info.seed, i])
+
+
+def _api_imagenet(seed, dev, card):
+    """(b) FakeData through the ImageNet train transforms and
+    ``io.DataLoader`` into ``Model(vision.resnet50())``, fp32."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision import datasets
+    from paddle_tpu_torch.vision import transforms as T
+    n = API_FIT_STEPS * API_FIT_BATCH
+    kw = dict(num_samples=n, image_shape=API_IMAGE, num_classes=1000,
+              seed=seed)
+    ds = datasets.FakeData(transform=_api_pipeline(T, seed), **kw)
+    t0 = time.perf_counter()
+    first = next(iter(DataLoader(ds, batch_size=API_FIT_BATCH)))
+    load_s = time.perf_counter() - t0
+    raw = datasets.FakeData(**kw)
+    hand = _api_pipeline(T, seed)
+    imgs = np.stack([hand(raw[i][0]) for i in range(API_FIT_BATCH)])
+    labels = np.stack([raw[i][1] for i in range(API_FIT_BATCH)])
+    equal = (np.array_equal(np.asarray(first[0]), imgs)
+             and np.array_equal(np.asarray(first[1]), labels)
+             and imgs.shape == (API_FIT_BATCH, 3, 224, 224))
+    net = ptt.vision.resnet50(device=dev)
+    model = ptt.Model(net).prepare(ptt.optimizer.AdamW(learning_rate=1e-4),
+                                   loss=ptt.nn.CrossEntropyLoss(),
+                                   metrics=ptt.metric.Accuracy())
+    marks = []
+
+    class Clock:
+        def on_train_batch_end(self, step, logs):   # float(loss) synced
+            marks.append(time.perf_counter())
+
+    loader = DataLoader(datasets.FakeData(
+        transform=_api_pipeline(T, seed + 7), **kw),
+        batch_size=API_FIT_BATCH, num_workers=2,
+        worker_init_fn=_api_reseed_worker)
+    read = _reset_launches()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    hist = model.fit(loader, epochs=1, log_freq=1, verbose=0,
+                     callbacks=[Clock()])
+    launches = read()
+    step_ms = np.diff(marks) * 1e3
+    steady = float(np.median(step_ms[1:]))
+    want = dict(NO_LAUNCHES, fused_adamw=_update_launches(net,
+                                                           API_FIT_STEPS))
+    finite = bool(np.isfinite(hist["loss"]).all())
+    log(f"[api] (b) vision.datasets.FakeData(image_shape={API_IMAGE}, "
+        f"num_classes=1000) through transforms.Compose([RandomResizedCrop("
+        f"224), RandomHorizontalFlip(), ToTensor(), Normalize(ImageNet)]) "
+        f"(seeded generators): with num_workers=0 the first batch (loaded in "
+        f"{load_s:.2f} s) equals the transforms by hand: {equal}; "
+        f"io.DataLoader(batch_size={API_FIT_BATCH}, num_workers=2, each "
+        f"worker's transforms reseeded from its WorkerInfo.seed) into "
+        f"Model(vision.resnet50()) fp32, {API_FIT_STEPS} fit steps: losses "
+        f"{[round(v, 4) for v in hist['loss']]}; a step {steady:.2f} ms "
+        f"(median of steps 2-{API_FIT_STEPS}; the first {step_ms[0]:.2f} "
+        f"ms), {API_FIT_BATCH / steady * 1e3:.1f} images/s; launches "
+        f"{launches} (want {want}) [{card}]")
+    if not equal or launches != want or not finite:
+        fail(f"api (b): first batch by hand {equal}, launches {launches} "
+             f"(want {want}), losses {hist['loss']}")
+    del model, net
+    return launches, {"ms": steady,
+                      "images_per_s": API_FIT_BATCH / steady * 1e3}
+
+
+def _api_beginner(seed, dev, card):
+    """(c) The port's counterpart of ``examples/mnist_model_api.py`` on the
+    card."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.datasets import FakeData
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.flatten = nn.Flatten()
+            self.fc1 = nn.Linear(3 * 16 * 16, 128)
+            self.fc2 = nn.Linear(128, 10)
+
+        def forward(self, x):
+            return self.fc2(nn.functional.relu(self.fc1(self.flatten(x))))
+
+    ptt.seed(0)
+    net = Net()
+    ptt.seed(0)
+    twin = Net()
+    same = all(torch.equal(a, b) for a, b in zip(net.parameters(),
+                                                   twin.parameters()))
+    text = ptt.summary(net)["text"]
+    model = ptt.Model(net)
+    model.prepare(ptt.optimizer.AdamW(learning_rate=1e-3),
+                  loss=nn.functional.cross_entropy,
+                  metrics=ptt.metric.Accuracy())
+    data = FakeData(num_samples=256, image_shape=(3, 16, 16),
+                    num_classes=10)
+    read = _reset_launches()
+    hist = model.fit(data, batch_size=32, epochs=2, log_freq=4, verbose=0)
+    launches = read()
+    res = model.evaluate(data, batch_size=32, verbose=0)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_api_")
+    try:
+        model.save(os.path.join(out_dir, "mnist", "model"))
+        saved = sorted(os.listdir(os.path.join(out_dir, "mnist")))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    want = dict(NO_LAUNCHES, fused_adamw=_update_launches(net, 16))
+    ok = (same and launches == want and saved
+          and np.isfinite(hist["loss"]).all() and np.isfinite(res["loss"]))
+    log(f"[api] (c) the beginner path on the card: seed(0); Net(nn.Layer) "
+        f"with nn.Flatten twice, the same weights: {same}; summary "
+        f"{text.splitlines()[-1].strip()}; Model(net).prepare(AdamW, "
+        f"F.cross_entropy, metric.Accuracy()).fit(FakeData(256, (3, 16, "
+        f"16)), batch_size=32, epochs=2, log_freq=4): losses "
+        f"{[round(v, 4) for v in hist['loss']]}; evaluate {res}; save -> "
+        f"{saved}; launches {launches} (want {want}) [{card}]")
+    if not ok:
+        fail(f"api (c): same weights {same}, launches {launches} (want "
+             f"{want}), saved {saved}, losses {hist['loss']}, evaluate {res}")
+    return launches
+
+
+def _api_sweep_cases(rs):
+    """(d) name -> (args, kwargs) of every function ``nn.functional``
+    gained in this slice but the random ones; numpy float32 arrays are
+    the inputs."""
+    import numpy as np
+
+    def f(*s, lo=None, hi=None):
+        if lo is not None:
+            return rs.uniform(lo, hi, s).astype(np.float32)
+        return rs.randn(*s).astype(np.float32)
+    x = f(2, 8, 6, 6)
+    unpool = torch.nn.functional.max_pool2d(torch.from_numpy(f(1, 2, 8, 8)),
+                                            2, 2, return_indices=True)
+    acts = ("relu6", "leaky_relu", "elu", "selu", "celu", "swish", "mish",
+            "hardswish", "hardsigmoid", "hardtanh", "hardshrink",
+            "softshrink", "tanhshrink", "softplus", "softsign",
+            "log_sigmoid", "thresholded_relu")
+    cases = {a: ([x * 3], {}) for a in acts}
+    ints = lambda hi, *s: rs.randint(0, hi, s).astype(np.int64)  # noqa
+    cases.update({
+        "prelu": ([x, f(1, 8, 1, 1, lo=0.1, hi=0.4)], {}),
+        "softmax": ([x], {"axis": 1}), "log_softmax": ([x], {}),
+        "glu": ([x], {"axis": 1}), "swiglu": ([x, f(2, 8, 6, 6)], {}),
+        "pixel_shuffle": ([x, 2], {}), "pixel_unshuffle": ([x, 2], {}),
+        "channel_shuffle": ([x, 4], {}),
+        "unfold": ([x, 3, 2, 1, 1], {}),
+        "fold": ([f(2, 27, 16), (8, 7), 3, 2, 1, 1], {}),
+        "softmax_with_cross_entropy": ([f(5, 7), ints(7, 5)], {}),
+        "cosine_similarity": ([x, f(2, 8, 6, 6)], {"axis": 1}),
+        "one_hot": ([ints(5, 3, 4), 5], {}),
+        "label_smooth": ([np.eye(5, dtype=np.float32)[[1, 3]]], {}),
+        "temporal_shift": ([f(6, 8, 2, 2), 3], {}),
+        "pad": ([x, [1, 2, 2, 1]], {"mode": "reflect"}),
+        "zeropad2d": ([x, (1, 2, 3, 4)], {}),
+        "max_pool1d": ([f(2, 3, 12), 3, 2, 1], {}),
+        "avg_pool1d": ([f(2, 3, 12), 3, 2, 1], {}),
+        "max_pool3d": ([f(1, 2, 6, 6, 6), 2, 2], {}),
+        "avg_pool3d": ([f(1, 2, 5, 6, 6), 3, 2, 1], {}),
+        "adaptive_avg_pool1d": ([f(2, 3, 12), 4], {}),
+        "max_unpool2d": ([unpool[0].numpy(), unpool[1].numpy(), 2, 2], {}),
+        "affine_grid": ([f(2, 2, 3), (2, 3, 5, 7)], {}),
+        "grid_sample": ([x, f(2, 4, 3, 2, lo=-1.2, hi=1.2)], {}),
+        "local_response_norm": ([x, 5], {}),
+        "sequence_mask": ([ints(5, 3)], {"maxlen": 6}),
+        "bilinear": ([f(3, 6), f(3, 7), f(5, 6, 7), f(5)], {}),
+        "maxout": ([x, 2], {}),
+        "square_error_cost": ([f(4, 3), f(4, 3)], {}),
+        "log_loss": ([f(4, 1, lo=0.05, hi=0.95),
+                      (rs.rand(4, 1) > 0.5).astype(np.float32)], {}),
+        "sigmoid_focal_loss": ([f(4, 3),
+                                (rs.rand(4, 3) > 0.5).astype(np.float32)],
+                               {}),
+        "dice_loss": ([f(3, 4, 5, lo=0.01, hi=1.0), ints(5, 3, 4, 1)], {}),
+        "npair_loss": ([f(6, 4), f(6, 4), ints(3, 6)], {}),
+        "margin_cross_entropy": ([f(5, 7, lo=-0.9, hi=0.9), ints(7, 5)],
+                                 {"scale": 8.0}),
+    })
+    return cases
+
+
+def _api_sweep_layers(rs):
+    """(d) the layers this slice added but the random ones: (class, args,
+    kwargs, inputs)."""
+    import numpy as np
+
+    def f(*s):
+        return rs.randn(*s).astype(np.float32)
+    x = f(2, 8, 6, 6)
+    unpool = torch.nn.functional.max_pool2d(torch.from_numpy(f(1, 2, 8, 8)),
+                                            2, 2, return_indices=True)
+    acts = ("ReLU6", "Swish", "Mish", "LogSigmoid", "Tanhshrink",
+            "Hardswish", "Hardsigmoid", "Hardtanh", "Hardshrink",
+            "Softshrink", "Softplus", "Softsign", "ELU", "SELU", "CELU",
+            "LeakyReLU", "LogSoftmax", "Identity", "Flatten",
+            "ThresholdedReLU")
+    rows = [(a, (), {}, [x]) for a in acts]
+    rows += [("Softmax", (), {"axis": 1}, [x]), ("GLU", (), {"axis": 1}, [x]),
+             ("PReLU", (8,), {}, [x]),
+             ("Upsample", (), {"scale_factor": 2}, [x]),
+             ("UpsamplingBilinear2D", (), {"size": (9, 11)}, [x]),
+             ("PixelShuffle", (2,), {}, [x]),
+             ("PixelUnshuffle", (2,), {}, [x]),
+             ("ChannelShuffle", (4,), {}, [x]),
+             ("Pad2D", ([1, 2, 0, 1],), {"mode": "reflect"}, [x]),
+             ("Pad1D", ([2, 1],), {"mode": "replicate"}, [f(2, 3, 7)]),
+             ("ZeroPad2D", (2,), {}, [x]),
+             ("CosineSimilarity", (), {}, [x, f(2, 8, 6, 6)]),
+             ("PairwiseDistance", (), {}, [f(5, 4), f(5, 4)]),
+             ("MaxPool1D", (3, 2, 1), {}, [f(2, 3, 12)]),
+             ("AvgPool1D", (3, 2, 1), {}, [f(2, 3, 12)]),
+             ("MaxPool3D", (2,), {}, [f(1, 2, 4, 6, 6)]),
+             ("AvgPool3D", (3, 2, 1), {}, [f(1, 2, 4, 6, 6)]),
+             ("AdaptiveAvgPool1D", (3,), {}, [f(2, 3, 12)]),
+             ("Fold", ((6, 6), 3), {"paddings": 1}, [f(2, 72, 36)]),
+             ("Unfold", (3,), {"paddings": 1}, [x]),
+             ("LocalResponseNorm", (3,), {}, [x]),
+             ("Maxout", (2,), {}, [x]),
+             ("Bilinear", (6, 7, 5), {}, [f(3, 6), f(3, 7)]),
+             ("MaxUnPool2D", (2, 2), {},
+              [unpool[0].numpy(), unpool[1].numpy()])]
+    return rows
+
+
+def _api_sweep(seed, dev, card):
+    """(d) Each new ``F`` function and ``nn`` class once on the card and
+    once on the CPU, the card held to the CPU; the random ones by their
+    invariants on the card."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    def on(v, d):
+        return torch.from_numpy(v).to(d) if isinstance(v, np.ndarray) else v
+
+    def err(a, b):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+    rs = np.random.RandomState(seed + 141)
+    worst, bad = {}, []
+    for name, (args, kw) in _api_sweep_cases(rs).items():
+        fn = getattr(F, name)
+        ref = fn(*[on(a, "cpu") for a in args], **kw)
+        got = fn(*[on(a, dev) for a in args], **kw)
+        if got.device.type != "cuda":
+            bad.append(f"{name}: ran on {got.device}")
+        worst[name] = err(got, ref)
+    for cls, a, kw, inputs in _api_sweep_layers(rs):
+        ptt.seed(seed)
+        layer = getattr(nn, cls)(*a, **kw, **({"device": "cpu"} if cls in (
+            "Bilinear", "PReLU") else {}))
+        ref = layer(*[on(v, "cpu") for v in inputs])
+        got = layer.to(dev)(*[on(v, dev) for v in inputs])
+        worst[cls] = err(got, ref)
+    # the random ones, on the card: their invariants
+    gen = ptt.make_generator(seed + 142, dev)
+    p = 0.3
+    xs = torch.rand(64, 64, 3, 3, device=dev, generator=gen) + 0.5
+    d2 = F.dropout2d(xs, p, generator=gen).reshape(64, 64, -1)
+    d3 = F.dropout3d(xs[..., None], p, generator=gen).reshape(64, 64, -1)
+    for name, out in (("dropout2d", d2), ("dropout3d", d3)):
+        whole = ((out == 0).all(-1) | torch.isclose(
+            out, xs.reshape(64, 64, -1) / (1 - p)).all(-1)).all()
+        share = float((out == 0).all(-1).float().mean())
+        if not whole or abs(share - p) > 0.05:
+            bad.append(f"{name}: whole channels {bool(whole)}, share {share}")
+    xn = torch.randn(256, 256, device=dev, generator=gen)
+    ad = F.alpha_dropout(xn, 0.2, generator=gen)
+    if abs(float(ad.mean())) > 0.02 or abs(float(ad.var()) - 1) > 0.03:
+        bad.append(f"alpha_dropout: mean {float(ad.mean())}, var "
+                   f"{float(ad.var())}")
+    rr = F.rrelu(xn, 0.1, 0.3, generator=gen)
+    slope = rr[xn < 0] / xn[xn < 0]
+    if float(slope.min()) < 0.1 - 1e-6 or float(slope.max()) > 0.3 + 1e-6:
+        bad.append(f"rrelu: slopes {float(slope.min())}..{float(slope.max())}")
+    gs = F.gumbel_softmax(torch.log(torch.tensor(
+        [0.1, 0.2, 0.3, 0.4], device=dev)).expand(20000, 4), 0.5,
+        hard=True, generator=gen)
+    freq = gs.argmax(-1).bincount(minlength=4).float() / 20000
+    if float((freq - torch.tensor([0.1, 0.2, 0.3, 0.4],
+                                  device=dev)).abs().max()) > 0.02:
+        bad.append(f"gumbel_softmax: frequencies {freq.tolist()}")
+    for cls in ("Dropout2D", "Dropout3D", "AlphaDropout", "RReLU"):
+        layer = getattr(nn, cls)(generator=gen)
+        inp = {"Dropout3D": xs[..., None], "Dropout2D": xs}.get(cls, xn)
+        train = layer.train()(inp)
+        ev = layer.eval()(inp)
+        want = F.rrelu(inp, training=False) if cls == "RReLU" else inp
+        if torch.equal(train, want) or not torch.equal(ev, want):
+            bad.append(f"{cls}: train mode drew nothing or eval is not "
+                       f"{'the mean slope' if cls == 'RReLU' else 'x'}")
+    over = {k: v for k, v in worst.items() if not v <= TOL_API_SWEEP}
+    log(f"[api] (d) the sweep: {len(_api_sweep_cases(rs))} functions and "
+        f"{len(_api_sweep_layers(rs))} layers on the card against the CPU, "
+        f"fp32, worst relative error {max(worst.values()):.3g} "
+        f"({max(worst, key=worst.get)}; tol {TOL_API_SWEEP}); the random "
+        f"ones (dropout2d, dropout3d, alpha_dropout, rrelu, gumbel_softmax "
+        f"and their layers) by their invariants: "
+        f"{'held' if not bad else bad} [{card}]")
+    if over or bad:
+        fail(f"api (d): over tolerance {over}; {bad}")
+
+
+def phase_api(seed, dev, card):
+    """Paddle's layer API on the card (``[api]`` lines): (a) a decoder
+    written against ``nn.Layer`` and ``incubate.nn.functional`` at
+    Llama-3-8B's widths, held to the port's Llama layers, on the flash
+    kernels; (b) the ImageNet input path through ``Model.fit``; (c) the
+    beginner example; (d) a sweep of the new functions and layers, card
+    against CPU. Returns the main-path launches of (a), (b) and (c)."""
+    t0 = time.perf_counter()
+    a_launches, a_times = _api_decoder_run(seed, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b_launches, _ = _api_imagenet(seed, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_launches = _api_beginner(seed, dev, card)
+    _api_sweep(seed, dev, card)
+    launches = {k: a_launches[k] + b_launches[k] + c_launches[k]
+                for k in a_launches}
+    log(f"[api] the phase took {time.perf_counter() - t0:.1f} s; "
+        f"launches of its main-path runs {launches} [{card}]")
+    return launches
+
+
 def _clock_phases():
     """Make every ``phase_*`` function of this module log its wall time
     when it returns (``[wall]`` lines): the script's time limit is shared
@@ -11086,6 +11699,10 @@ def main():
         launches[key] += n
     for key, n in host_launches.items():
         launches[key] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_api(args.seed, dev, card).items():
+        launches[key] = launches.get(key, 0) + n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),
             "flash_bwd_dq": ("flash_attention_bwd_dq", FLASH_BWD_SOURCE,

@@ -36,7 +36,17 @@ kernels for ``sm_90a`` sit under ``ops/kernels``, with their sources in
 ``csrc``: flash-attention forward, the flash backward's dq and dk/dv,
 decode attention, ragged and grid paged attention, the weight-only
 quantized matmul, and the fused Adam / AdamW update.
+
+Paddle's layer API sits on top: ``nn`` (every layer a ``nn.Layer``, a
+``torch.nn.Module`` with Paddle's methods, and ``nn.functional``),
+``incubate.nn.functional`` (the fused ops PaddleNLP imports; its causal
+attention runs the flash kernels), ``vision.transforms`` and
+``vision.datasets``, ``Model`` / ``summary`` and the ambient random
+stream: ``seed(s)`` makes every layer built without a generator draw
+the same weights again.
 """
+import torch
+
 from .convert import load_jax_state_dict
 from .device import resolve_device
 from .checkpoint import load, save
@@ -53,7 +63,30 @@ from .models import (BertConfig, BertForPretraining,
 from .trainer import Trainer, TrainerCallback, TrainingArguments
 from . import metric
 from .hapi import Model, summary
-from .utils.rng import make_generator
+from .utils.rng import get_rng_state, make_generator, seed, set_rng_state
+from . import callbacks, incubate, nn, vision
+
+
+def no_grad(fn=None):
+    """paddle.no_grad: a context (``no_grad()``) or a decorator
+    (``no_grad(fn)``) that records no gradients."""
+    return torch.no_grad() if fn is None else torch.no_grad()(fn)
+
+
+def device_count() -> int:
+    return torch.cuda.device_count()
+
+
+def get_device() -> str:
+    """Paddle's device string of the current card ("gpu:0"), or "cpu"
+    where there is none."""
+    if not torch.cuda.is_available():
+        return "cpu"
+    return f"gpu:{torch.cuda.current_device()}"
+
+
+def is_compiled_with_cuda() -> bool:
+    return torch.backends.cuda.is_built()
 
 __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "generate", "beam_search", "Config", "Predictor",
@@ -65,4 +98,7 @@ __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "ErnieConfig", "ErnieForMaskedLM",
            "ErnieForSequenceClassification", "make_generator", "amp", "diffusion", "io",
            "optimizer", "peft", "quant", "tokenizer", "trl", "Trainer", "TrainerCallback",
-           "TrainingArguments", "metric", "Model", "summary"]
+           "TrainingArguments", "metric", "Model", "summary", "seed",
+           "get_rng_state", "set_rng_state", "no_grad", "device_count",
+           "get_device", "is_compiled_with_cuda", "callbacks", "incubate",
+           "nn", "vision"]

@@ -13,9 +13,15 @@ device, as Paddle's own launcher does it:
 starts N copies of the script (or of ``python -m module``) with
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``MASTER_PORT`` set (rank r drives card r; with ``--cpu`` the ranks run
-on the CPU over gloo). The job ends with the first non-zero exit code
-of any rank: the others are stopped (SIGTERM, then SIGKILL after
-``--grace`` seconds), so a dead rank never hangs the job. A SIGTERM to
+on the CPU over gloo). The rendezvous store is the launcher's own: it
+binds a ``TCPStore`` server to a port the OS picks before it starts a
+rank, holds it for the job, and the ranks join it as clients
+(``TORCHELASTIC_USE_AGENT_STORE``, as under torchrun). No port is
+chosen free and handed on, so another job starting beside this one
+cannot take it before rank 0 binds. The job ends with the exit code of
+the first rank to exit non-zero (a thread a rank records the order):
+the others are stopped (SIGTERM, then SIGKILL after ``--grace``
+seconds), so a dead rank never hangs the job. A SIGTERM to
 the launcher reaches every rank, and the job then ends with the ranks'
 own codes (0 when each exits 0 within the grace period, as a draining
 server's ranks do). ``--nproc`` defaults to the number of cards.
@@ -31,9 +37,9 @@ import argparse
 import datetime
 import os
 import signal
-import socket
 import subprocess
 import sys
+import threading
 import time
 from typing import List, Optional
 
@@ -96,11 +102,36 @@ def init_distributed(coordinator_address: Optional[str] = None,
     return info
 
 
-def free_port() -> int:
-    """A TCP port on localhost that nothing listens on now."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def rendezvous_store(timeout_s: float = 1800.0):
+    """The job's rendezvous: a ``TCPStore`` server on 127.0.0.1 at a port
+    the OS picks, bound before any rank starts. Read its ``port``; keep
+    it until the ranks have exited."""
+    import torch.distributed as dist
+    return dist.TCPStore("127.0.0.1", 0, is_master=True,
+                         wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=timeout_s))
+
+
+# the ranks join the launcher's store as clients (torch's rendezvous
+# reads these, as it does under torchrun)
+AGENT_STORE_ENV = {"TORCHELASTIC_USE_AGENT_STORE": "True",
+                   "TORCHELASTIC_RESTART_COUNT": "0"}
+
+
+def _exit_order(procs: List[subprocess.Popen]) -> list:
+    """A list that gets (monotonic time, exit code) of each process as it
+    exits, from one waiting thread a process: when a rank dies and a
+    peer fails on the broken connection a moment later, both may have
+    exited by the next poll, and the job's code must be the first
+    one's."""
+    exits = []
+
+    def wait(p):
+        code = p.wait()
+        exits.append((time.monotonic(), code))
+    for p in procs:
+        threading.Thread(target=wait, args=(p,), daemon=True).start()
+    return exits
 
 
 def _stop(procs: List[subprocess.Popen], grace_s: float = GRACE_S):
@@ -135,8 +166,8 @@ def _split_module(argv: List[str]):
 
 def launch(argv=None) -> int:
     """The CLI (see the module docstring). Returns the job's exit code:
-    0 when every rank exits 0, else the first non-zero code seen (124
-    when ``--timeout`` ran out)."""
+    0 when every rank exits 0, else the code of the first rank to exit
+    non-zero (124 when ``--timeout`` ran out)."""
     own, module, module_args = _split_module(
         list(sys.argv[1:] if argv is None else argv))
     ap = argparse.ArgumentParser(
@@ -164,7 +195,8 @@ def launch(argv=None) -> int:
         print("launch: no card found; pass --cpu to run on the CPU",
               file=sys.stderr)
         return 2
-    port = free_port()
+    store = rendezvous_store()
+    port = store.port
     # a SIGTERM to the launcher (a scheduler's preemption, a fleet's
     # drain) reaches every rank; the ranks then get the grace period
     term = []
@@ -173,7 +205,7 @@ def launch(argv=None) -> int:
     for r in range(n):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
                    LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port))
+                   MASTER_PORT=str(port), **AGENT_STORE_ENV)
         if a.cpu:
             env["PADDLE_TPU_DIST_DEVICE"] = "cpu"
         procs.append(subprocess.Popen(cmd, env=env))
@@ -183,14 +215,15 @@ def launch(argv=None) -> int:
     deadline = None if a.timeout is None else time.monotonic() + a.timeout
     rc = 0
     forwarded = False
+    exits = _exit_order(procs)
     try:
         while True:
-            codes = [p.poll() for p in procs]
-            bad = [c for c in codes if c not in (None, 0)]
+            codes = [c for _, c in sorted(exits)]
+            bad = [c for c in codes if c != 0]
             if bad:
                 rc = bad[0]
                 break
-            if all(c == 0 for c in codes):
+            if len(codes) == n:
                 break
             if term and not forwarded:
                 forwarded = True
@@ -208,6 +241,7 @@ def launch(argv=None) -> int:
             time.sleep(0.1)
     finally:
         _stop(procs, a.grace)
+        del store
     return rc
 
 

@@ -8,7 +8,8 @@ copies them untransposed. They are drawn as the JAX layers draw them:
 Kaiming-uniform on fan_in = in / groups x the kernel's size, a conv's
 bias U(-1 / sqrt(fan_in), 1 / sqrt(fan_in)), a transposed conv's bias
 zero; ``bias_attr=False`` builds none, and an ``Initializer`` as
-``weight_attr`` replaces the weight's.
+``weight_attr`` replaces the weight's. Without a ``generator`` a layer
+takes the ambient stream's next one (``utils.rng``).
 """
 from __future__ import annotations
 
@@ -18,20 +19,23 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils import rng
 from . import functional as F
 from . import initializer as I
+from .layer import Layer
 from .common import _param
 from .functional import _ntuple
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     _fn = None
 
     def __init__(self, in_channels, out_channels, kernel_size, stride,
                  padding, dilation, groups, weight_attr, bias_attr, ndim, *,
-                 generator, device=None, dtype=torch.float32):
+                 generator=None, device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
+        generator = generator or rng.next_generator(device)
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.kernel_size = _ntuple(kernel_size, ndim)
@@ -64,7 +68,7 @@ def _conv_class(name, ndim, fn):
 
         def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                      padding=0, dilation=1, groups=1, weight_attr=None,
-                     bias_attr=None, *, generator, device=None,
+                     bias_attr=None, *, generator=None, device=None,
                      dtype=torch.float32):
             super().__init__(in_channels, out_channels, kernel_size, stride,
                              padding, dilation, groups, weight_attr,
@@ -79,13 +83,14 @@ Conv2D = _conv_class("Conv2D", 2, F.conv2d)
 Conv3D = _conv_class("Conv3D", 3, F.conv3d)
 
 
-class Conv2DTranspose(nn.Module):
+class Conv2DTranspose(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, output_padding=0, dilation=1, groups=1,
-                 weight_attr=None, bias_attr=None, *, generator, device=None,
-                 dtype=torch.float32):
+                 weight_attr=None, bias_attr=None, *, generator=None,
+                 device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
+        generator = generator or rng.next_generator(device)
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size = _ntuple(kernel_size, 2)
         self.stride, self.padding = stride, padding
@@ -107,7 +112,7 @@ class Conv2DTranspose(nn.Module):
                                   self.dilation, self.groups)
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0):
         super().__init__()
         self.kernel_size, self.stride, self.padding = (kernel_size, stride,
@@ -117,7 +122,7 @@ class MaxPool2D(nn.Module):
         return F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0):
         super().__init__()
         self.kernel_size, self.stride, self.padding = (kernel_size, stride,
@@ -127,7 +132,7 @@ class AvgPool2D(nn.Module):
         return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size):
         super().__init__()
         self.output_size = output_size
@@ -136,7 +141,7 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self.output_size)
 
 
-class AdaptiveMaxPool2D(nn.Module):
+class AdaptiveMaxPool2D(Layer):
     def __init__(self, output_size):
         super().__init__()
         self.output_size = output_size

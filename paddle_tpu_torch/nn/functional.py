@@ -1,22 +1,17 @@
-"""The subset of ``paddle_tpu/nn/functional.py`` the port's models use:
-``linear``, ``embedding``, ``take_rows``, ``rms_norm``, ``layer_norm``,
-``batch_norm``, ``group_norm``, ``instance_norm``, ``normalize``, the
-activations ``silu``, ``relu``, ``tanh``, ``sigmoid``, ``quick_gelu`` and
-``gelu`` (exact and tanh), ``dropout`` in both of Paddle's modes,
-``scaled_dot_product_attention``, ``cross_entropy``, ``ctc_loss`` and the
-losses ``nn/loss.py``'s layers call (``nll_loss``, ``mse_loss``,
-``l1_loss``, ``smooth_l1_loss``, ``binary_cross_entropy`` with and
-without logits, ``kl_div``, ``poisson_nll_loss``,
-``hinge_embedding_loss``, ``margin_ranking_loss``, ``soft_margin_loss``,
-``multi_label_soft_margin_loss``, ``cosine_embedding_loss``,
-``triplet_margin_loss`` on ``pairwise_distance``); the
-convolutions (``conv1d``, ``conv2d``, ``conv3d``, ``conv1d_transpose``,
-``conv2d_transpose``), the pools (``max_pool2d``, ``avg_pool2d``, the
-adaptive and global pools) and ``interpolate`` / ``upsample``.
+"""paddle.nn.functional (counterpart of ``paddle_tpu/nn/functional.py``):
+every function of the JAX module, as plain torch ops with the JAX
+function's semantics where they differ from torch's (``pad``'s spec
+order, ``grid_sample``'s and ``affine_grid``'s ``align_corners=True``,
+the pools' ``exclusive``, Paddle's argument names for ``unfold`` and
+``fold``, the dropout modes, the rounding points of the norms, the
+convolutions and the losses). Only ``scaled_dot_product_attention``
+runs a hand-written kernel: the flash kernels, through
+``ops.attention``, where the JAX function reaches the Pallas ones.
 
 Where the JAX function takes a PRNG key, the port's takes an explicit
-``torch.Generator``. The two give different bits for one seed, so the
-tests hold dropout to its rates and modes, and parity at p = 0.
+``torch.Generator``, required in training as the JAX key is. The two
+give different bits for one seed, so the tests hold the random
+functions to their rates, modes and invariants, and parity at p = 0.
 """
 from __future__ import annotations
 
@@ -53,6 +48,119 @@ def quick_gelu(x):
     return x * sigmoid(1.702 * x)
 
 
+def relu6(x):
+    return torch.clamp(x, 0, 6)
+
+
+def leaky_relu(x, negative_slope=0.01):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def prelu(x, weight):
+    return torch.where(x >= 0, x, weight * x)
+
+
+def elu(x, alpha=1.0):
+    return torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772):
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def celu(x, alpha=1.0):
+    return x.clamp_min(0) + torch.clamp(alpha * torch.expm1(x / alpha), max=0)
+
+
+swish = silu
+
+
+def mish(x):
+    return x * torch.tanh(_softplus(x))
+
+
+def hardswish(x):
+    return x * torch.clamp(x + 3, 0, 6) / 6
+
+
+def hardsigmoid(x, slope=1 / 6, offset=0.5):
+    return torch.clamp(slope * x + offset, 0, 1)
+
+
+def hardtanh(x, min=-1.0, max=1.0):  # noqa: A002
+    return torch.clamp(x, min, max)
+
+
+def hardshrink(x, threshold=0.5):
+    return torch.where(x.abs() > threshold, x, torch.zeros_like(x))
+
+
+def softshrink(x, threshold=0.5):
+    return torch.sign(x) * (x.abs() - threshold).clamp_min(0)
+
+
+def tanhshrink(x):
+    return x - torch.tanh(x)
+
+
+def softplus(x, beta=1.0, threshold=20.0):
+    return torch.where(beta * x > threshold, x,
+                       torch.log1p(torch.exp(beta * x)) / beta)
+
+
+def softsign(x):
+    return x / (1 + x.abs())
+
+
+def log_sigmoid(x):
+    return -_softplus(-x)
+
+
+def softmax(x, axis=-1, dtype=None):
+    from ..amp import to_dtype
+    return torch.softmax(x.to(to_dtype(dtype)) if dtype else x, dim=axis)
+
+
+def log_softmax(x, axis=-1):
+    return torch.log_softmax(x, dim=axis)
+
+
+def _need(generator, what):
+    if generator is None:
+        raise ValueError(f"{what} in training mode needs an explicit "
+                         f"torch.Generator")
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, generator=None):
+    """softmax((x + g) / temperature) with Gumbel noise g = -log(-log u),
+    u uniform in [tiny, 1) as ``jax.random.gumbel`` draws it, from
+    ``generator`` (required, as the JAX key is); ``hard`` takes the
+    one-hot of the argmax forward and the soft gradient backward."""
+    _need(generator, "gumbel_softmax")
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    g = -torch.log(-torch.log(u.clamp_min(tiny))).to(x.dtype)
+    y = torch.softmax((x + g) / temperature, dim=axis)
+    if hard:
+        idx = y.argmax(dim=axis, keepdim=True)
+        hard_y = torch.zeros_like(y).scatter_(axis, idx, 1.0)
+        y = hard_y + y - y.detach()
+    return y
+
+
+def glu(x, axis=-1):
+    a, b = x.chunk(2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+def swiglu(x, gate=None):
+    """silu(x) * gate; with no gate, ``x`` splits in half on the last
+    dim (Paddle's fused swiglu)."""
+    if gate is None:
+        x, gate = x.chunk(2, dim=-1)
+    return TF.silu(x) * gate
+
+
 # ------------------------------------------------------------------- linear
 def linear(x, weight, bias=None):
     """y = x @ W.T + b with the weight stored the torch way, [out, in].
@@ -73,8 +181,12 @@ def linear(x, weight, bias=None):
     return TF.linear(x, weight, bias)
 
 
-def embedding(ids, weight):
-    return TF.embedding(ids, weight)
+def embedding(ids, weight, padding_idx=None, sparse=False):  # noqa: ARG001
+    """Rows of ``weight`` at ``ids``; rows at ``padding_idx`` read zeros."""
+    out = TF.embedding(ids, weight)
+    if padding_idx is not None:
+        out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
 
 
 def take_rows(table, idx):
@@ -634,34 +746,56 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
 
 
 # ------------------------------------------------------------------ pooling
-def _pool2d(x, kernel_size, stride, padding, op, exclusive=True):
-    """One pooling window definition (the JAX ``reduce_window`` one): the
-    output has floor((size + 2p - k) / s) + 1 positions a dim; max pools
-    pad with -inf (an integer dtype's minimum), average pools divide the
-    window sum by the window's size or, with ``exclusive`` and any
-    padding, by the count of unpadded positions in it."""
-    k = _ntuple(kernel_size, 2)
-    s = _ntuple(stride if stride is not None else kernel_size, 2)
-    p = _ntuple(padding, 2)
-    pads = (p[1], p[1], p[0], p[0])
+_POOLS = {"max": {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d},
+          "avg": {1: TF.avg_pool1d, 2: TF.avg_pool2d, 3: TF.avg_pool3d}}
+
+
+def _pool_nd(x, kernel_size, stride, padding, nd, op, exclusive=True):
+    """One pooling window definition for 1-, 2- and 3-D (the JAX
+    ``reduce_window`` one): the output has floor((size + 2p - k) / s) + 1
+    positions a dim; max pools pad with -inf (an integer dtype's
+    minimum), average pools divide the window sum by the window's size
+    or, with ``exclusive`` and any padding, by the count of unpadded
+    positions in it."""
+    k = _ntuple(kernel_size, nd)
+    s = _ntuple(stride if stride is not None else kernel_size, nd)
+    p = _ntuple(padding, nd)
+    pads = [v for pi in reversed(p) for v in (pi, pi)]
     if op == "max":
         fill = float("-inf") if x.is_floating_point() \
             else torch.iinfo(x.dtype).min
-        return TF.max_pool2d(TF.pad(x, pads, value=fill), k, s)
-    summed = TF.avg_pool2d(TF.pad(x, pads), k, s) * math.prod(k)
+        return _POOLS["max"][nd](TF.pad(x, pads, value=fill), k, s)
+    avg = _POOLS["avg"][nd]
+    summed = avg(TF.pad(x, pads), k, s) * math.prod(k)
     if exclusive and any(p):
         ones = TF.pad(torch.ones_like(x[:1, :1]), pads)
-        counts = TF.avg_pool2d(ones, k, s) * math.prod(k)
+        counts = avg(ones, k, s) * math.prod(k)
         return summed / counts
     return summed / math.prod(k)
 
 
+def max_pool1d(x, kernel_size, stride=None, padding=0):
+    return _pool_nd(x, kernel_size, stride, padding, 1, "max")
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True):
+    return _pool_nd(x, kernel_size, stride, padding, 1, "avg", exclusive)
+
+
 def max_pool2d(x, kernel_size, stride=None, padding=0):
-    return _pool2d(x, kernel_size, stride, padding, "max")
+    return _pool_nd(x, kernel_size, stride, padding, 2, "max")
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True):
-    return _pool2d(x, kernel_size, stride, padding, "avg", exclusive)
+    return _pool_nd(x, kernel_size, stride, padding, 2, "avg", exclusive)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0):
+    return _pool_nd(x, kernel_size, stride, padding, 3, "max")
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, exclusive=True):
+    return _pool_nd(x, kernel_size, stride, padding, 3, "avg", exclusive)
 
 
 def _adaptive_window(x, output_size):
@@ -769,3 +903,391 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
 
 
 upsample = interpolate
+
+
+# ------------------------------------------------------------ random masks
+# Each takes the JAX function's ``key`` as ``generator`` and requires it in
+# training; out of training each is the identity (rrelu: the mean slope).
+def dropout2d(x, p=0.5, training=True, generator=None):
+    """Drop whole channels of NC... ``x``: one draw a (row, channel)."""
+    if not training or p == 0.0:
+        return x
+    _need(generator, "dropout2d")
+    keep = 1.0 - p
+    mask = torch.rand(x.shape[:2] + (1,) * (x.dim() - 2),
+                      generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+def dropout3d(x, p=0.5, training=True, generator=None):
+    if not training or p == 0.0:
+        return x
+    _need(generator, "dropout3d")
+    mask = torch.rand(x.shape[:2] + (1, 1, 1), generator=generator,
+                      device=x.device) < 1.0 - p
+    return x * mask / (1.0 - p)
+
+
+def alpha_dropout(x, p=0.5, training=True, generator=None):
+    """SELU-preserving dropout: dropped elements take SELU's saturation
+    value, and an affine map keeps the mean and variance."""
+    if not training or p == 0.0:
+        return x
+    _need(generator, "alpha_dropout")
+    alpha_p = -1.7580993408473766
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - p
+    a = 1.0 / ((1 - p) * (1 + p * alpha_p ** 2)) ** 0.5
+    b = -a * alpha_p * p
+    return a * torch.where(keep, x, torch.full_like(x, alpha_p)) + b
+
+
+def rrelu(x, lower=1.0 / 8, upper=1.0 / 3, training=True, generator=None):
+    """Leaky ReLU with a slope drawn uniformly in [lower, upper) for each
+    element in training, their mean out of it."""
+    if not training:
+        return torch.where(x >= 0, x, x * (lower + upper) / 2)
+    _need(generator, "rrelu")
+    slope = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
+        .uniform_(lower, upper, generator=generator).to(x.dtype)
+    return torch.where(x >= 0, x, x * slope)
+
+
+def thresholded_relu(x, threshold=1.0):
+    return torch.where(x > threshold, x, torch.zeros_like(x))
+
+
+def maxout(x, groups, axis=1):
+    axis = axis % x.dim()
+    shape = list(x.shape)
+    shape[axis: axis + 1] = [shape[axis] // groups, groups]
+    return x.reshape(shape).amax(dim=axis + 1)
+
+
+# ------------------------------------------------------------------ shapes
+def one_hot(x, num_classes):
+    """fp32 one-hot over a new last dim; an index outside [0,
+    num_classes) gives a row of zeros, as ``jax.nn.one_hot``."""
+    classes = torch.arange(num_classes, device=x.device)
+    return (x.unsqueeze(-1) == classes).to(torch.float32)
+
+
+def label_smooth(label, epsilon=0.1):
+    return label * (1 - epsilon) + epsilon / label.shape[-1]
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64"):
+    """[..., maxlen] mask of positions below each length; ``maxlen``
+    defaults to the largest length."""
+    lengths = torch.as_tensor(lengths)
+    ml = int(maxlen) if maxlen is not None else int(lengths.max())
+    dt = dtype if isinstance(dtype, torch.dtype) else getattr(torch, dtype)
+    pos = torch.arange(ml, device=lengths.device)
+    return (pos < lengths.unsqueeze(-1)).to(dt)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25):
+    """TSM over [n * seg_num, c, h, w]: the first ``shift_ratio`` of the
+    channels move one segment back in time, the next as many one forward,
+    the rest stay."""
+    nt, c, h, w = x.shape
+    x = x.reshape(nt // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    left = torch.cat([x[:, 1:, :fold], torch.zeros_like(x[:, :1, :fold])], 1)
+    right = torch.cat([torch.zeros_like(x[:, :1, fold:2 * fold]),
+                       x[:, :-1, fold:2 * fold]], 1)
+    return torch.cat([left, right, x[:, :, 2 * fold:]], 2) \
+        .reshape(nt, c, h, w)
+
+
+def pixel_shuffle(x, upscale_factor):
+    n, c, h, w = x.shape
+    r = upscale_factor
+    x = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, c // (r * r), h * r, w * r)
+
+
+def pixel_unshuffle(x, downscale_factor):
+    n, c, h, w = x.shape
+    r = downscale_factor
+    x = x.reshape(n, c, h // r, r, w // r, r).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n, c * r * r, h // r, w // r)
+
+
+def channel_shuffle(x, groups):
+    n, c, h, w = x.shape
+    return x.reshape(n, groups, c // groups, h, w).transpose(1, 2) \
+        .reshape(n, c, h, w)
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """Source indices of a dim of size ``n`` padded by (lo, hi) in a
+    ``jnp.pad`` mode: ``edge``, ``wrap``, ``reflect`` (no edge repeat) or
+    ``symmetric`` (edge repeated), any pad width."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    if mode == "wrap":
+        return i % n
+    if mode == "reflect":
+        if n == 1:
+            return torch.zeros_like(i)
+        i = i % (2 * n - 2)
+        return torch.where(i >= n, 2 * n - 2 - i, i)
+    if mode == "symmetric":
+        i = i % (2 * n)
+        return torch.where(i >= n, 2 * n - 1 - i, i)
+    raise ValueError(f"unknown pad mode {mode!r}")
+
+
+def _pad(x, cfg, mode="constant", value=0.0):
+    """``jnp.pad(x, cfg, mode)``: cfg one (lo, hi) a dim of ``x``."""
+    if mode == "constant":
+        return TF.pad(x, [v for lo_hi in reversed(cfg) for v in lo_hi],
+                      value=value)
+    for d, (lo, hi) in enumerate(cfg):
+        if lo or hi:
+            x = x.index_select(d, _pad_index(x.shape[d], lo, hi, mode,
+                                             x.device))
+    return x
+
+
+_PAD_MODES = {"reflect": "reflect", "replicate": "edge", "circular": "wrap"}
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW"):
+    """paddle.nn.functional.pad. A full spec (``len(pad) == 2 *
+    x.ndim``) pads from dim 0 outward, pair i on dim i (the opposite of
+    ``torch.nn.functional.pad``); a partial spec pads the trailing dims
+    innermost first (pair i on dim -(i + 1)); an int pads every spatial
+    side. Modes ``constant``, ``reflect``, ``replicate``, ``circular``;
+    channels-last formats raise, as in the JAX package."""
+    if data_format not in ("NCHW", "NCL", "NCDHW"):
+        raise NotImplementedError(
+            f"data_format {data_format!r}: channels-last layouts are not "
+            "supported (the port's path is channels-first)")
+    if isinstance(pad, int):
+        pad = [pad, pad] * (x.dim() - 2)
+    pad = [int(v) for v in pad]
+    if len(pad) % 2:
+        raise ValueError("pad length must be even")
+    pairs = [(pad[2 * i], pad[2 * i + 1]) for i in range(len(pad) // 2)]
+    cfg = [(0, 0)] * x.dim()
+    if len(pairs) == x.dim():
+        cfg = pairs
+    else:
+        for i, pair in enumerate(pairs):
+            cfg[x.dim() - 1 - i] = pair
+    return _pad(x, cfg, "constant" if mode == "constant"
+                else _PAD_MODES[mode], value)
+
+
+def zeropad2d(x, padding):
+    """Zeros around the last two dims: ``padding`` an int or [left,
+    right, top, bottom]."""
+    left, right, top, bottom = ((padding,) * 4 if isinstance(padding, int)
+                                else tuple(padding))
+    return TF.pad(x, (left, right, top, bottom))
+
+
+def adaptive_avg_pool1d(x, output_size):
+    out = output_size if isinstance(output_size, int) else output_size[0]
+    n = x.shape[-1]
+    if n % out:
+        raise ValueError(f"adaptive pool needs divisible sizes: {n} into "
+                         f"{out}")
+    return avg_pool1d(x, n // out, n // out)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None):
+    """Pooled values scattered back to their argmax positions (``indices``
+    as flat h * w offsets, the Paddle and torch convention), zeros
+    elsewhere."""
+    k = _ntuple(kernel_size, 2)
+    s = _ntuple(stride if stride is not None else kernel_size, 2)
+    p = _ntuple(padding, 2)
+    n, c, h, w = x.shape
+    if output_size is None:
+        oh = (h - 1) * s[0] + k[0] - 2 * p[0]
+        ow = (w - 1) * s[1] + k[1] - 2 * p[1]
+    else:
+        oh, ow = output_size[-2:]
+    flat = x.new_zeros((n, c, oh * ow))
+    flat.scatter_(2, indices.reshape(n, c, -1).long(), x.reshape(n, c, -1))
+    return flat.reshape(n, c, oh, ow)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
+    """im2col: [n, c * kh * kw, L], channels outermost. ``paddings`` pads
+    symmetrically by its first two entries (h, w), as the JAX function
+    reads an int, a pair or Paddle's 4 entries."""
+    k = _ntuple(kernel_sizes, 2)
+    p = _ntuple(paddings, 2)
+    return TF.unfold(x, k, dilation=_ntuple(dilations, 2),
+                     padding=(p[0], p[1]), stride=_ntuple(strides, 2))
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0,
+         dilations=1):
+    """col2im, the inverse of :func:`unfold`: overlapping patches sum."""
+    k = _ntuple(kernel_sizes, 2)
+    s = _ntuple(strides, 2)
+    p = _ntuple(paddings, 2)
+    d = _ntuple(dilations, 2)
+    size = _ntuple(output_sizes, 2)
+    blocks = math.prod((size[i] + 2 * p[i] - d[i] * (k[i] - 1) - 1) // s[i]
+                       + 1 for i in range(2))
+    if blocks != x.shape[-1]:
+        raise ValueError(f"fold: {x.shape[-1]} blocks for an output of "
+                         f"{size} holding {blocks}")
+    return TF.fold(x, size, k, dilation=d, padding=(p[0], p[1]), stride=s)
+
+
+def affine_grid(theta, out_shape, align_corners=True):
+    """theta [n, 2, 3] -> sampling grid [n, h, w, 2] of normalised (x,
+    y); ``align_corners`` (the default, as in the JAX package) puts -1 and
+    1 on the corner pixels' centres, else on their outer edges."""
+    from ..diffusion.schedulers import linspace
+    _, _, h, w = out_shape
+    dev = theta.device
+    if align_corners:
+        ys, xs = linspace(-1.0, 1.0, h), linspace(-1.0, 1.0, w)
+    else:
+        ys = (torch.arange(h) + 0.5) * 2.0 / h - 1.0
+        xs = (torch.arange(w) + 0.5) * 2.0 / w - 1.0
+    gy, gx = torch.meshgrid(ys.to(dev), xs.to(dev), indexing="ij")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+    return torch.einsum("hwk,nck->nhwc", base.to(theta.dtype), theta)
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True):
+    """x [n, c, h, w] sampled at grid [n, oh, ow, 2] (normalised x, y) ->
+    [n, c, oh, ow], bilinear or nearest (round half to even), with
+    ``zeros`` or ``border`` padding; ``align_corners`` defaults to True,
+    as in the JAX package. ``reflection`` raises, as there."""
+    if padding_mode not in ("zeros", "border"):
+        raise NotImplementedError(
+            f"grid_sample padding_mode {padding_mode!r} (zeros/border)")
+    n, c, h, w = x.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        fx = (gx + 1.0) * (w - 1) / 2.0
+        fy = (gy + 1.0) * (h - 1) / 2.0
+    else:
+        fx = ((gx + 1.0) * w - 1.0) / 2.0
+        fy = ((gy + 1.0) * h - 1.0) / 2.0
+    bi = torch.arange(n, device=x.device)[:, None, None, None]
+    ci = torch.arange(c, device=x.device)[None, :, None, None]
+
+    def sample_at(ix, iy):
+        inb = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        v = x[bi, ci, iy.clamp(0, h - 1)[:, None], ix.clamp(0, w - 1)[:, None]]
+        if padding_mode == "zeros":
+            v = v * inb[:, None]
+        return v
+
+    if mode == "nearest":
+        return sample_at(torch.round(fx).long(), torch.round(fy).long())
+    x0 = torch.floor(fx).long()
+    y0 = torch.floor(fy).long()
+    wx = (fx - x0)[:, None]
+    wy = (fy - y0)[:, None]
+    return (sample_at(x0, y0) * (1 - wx) * (1 - wy)
+            + sample_at(x0 + 1, y0) * wx * (1 - wy)
+            + sample_at(x0, y0 + 1) * (1 - wx) * wy
+            + sample_at(x0 + 1, y0 + 1) * wx * wy)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0):
+    """x / (k + alpha / size * sum of x^2 over a channel window)^beta, the
+    window padded (size // 2, size - 1 - size // 2) around each channel."""
+    c = x.shape[1]
+    half = size // 2
+    sq = TF.pad(x.square(), (0, 0, 0, 0, half, size - 1 - half))
+    acc = sq[:, 0:c]
+    for i in range(1, size):
+        acc = acc + sq[:, i:i + c]
+    return x / (k + alpha * acc / size) ** beta
+
+
+def bilinear(x1, x2, weight, bias=None):
+    """x1 W x2 with ``weight`` [out, in1, in2], as in the JAX package."""
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out + bias if bias is not None else out
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    dot = (x1 * x2).sum(dim=axis)
+    n1 = torch.linalg.vector_norm(x1, dim=axis)
+    n2 = torch.linalg.vector_norm(x2, dim=axis)
+    return dot / (n1 * n2).clamp_min(eps)
+
+
+# ------------------------------------------------------------ more losses
+def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1):
+    return cross_entropy(logits, label, soft_label=soft_label, axis=axis,
+                         reduction="none")
+
+
+def square_error_cost(input, label):  # noqa: A002
+    return torch.square(input - label)
+
+
+def log_loss(input, label, epsilon=1e-4):  # noqa: A002
+    return (-label * torch.log(input + epsilon)
+            - (1.0 - label) * torch.log(1.0 - input + epsilon))
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25,
+                       gamma=2.0, reduction="sum"):
+    p = torch.sigmoid(logit)
+    ce = label * _softplus(-logit) + (1 - label) * _softplus(logit)
+    pt_ = label * p + (1 - label) * (1 - p)
+    a = label * alpha + (1 - label) * (1 - alpha)
+    loss = a * (1 - pt_) ** gamma * ce
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce(loss, reduction)
+
+
+def dice_loss(input, label, epsilon=1e-5):  # noqa: A002
+    """``input`` [n, ..., c] probabilities, ``label`` [n, ..., 1] ints."""
+    oh = one_hot(label.squeeze(-1), input.shape[-1]).to(input.dtype)
+    dims = tuple(range(1, input.dim()))
+    inter = (input * oh).sum(dim=dims)
+    union = (input + oh).sum(dim=dims)
+    return (1.0 - 2.0 * inter / (union + epsilon)).mean()
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    reg = l2_reg * (anchor.square().sum(-1).mean()
+                    + positive.square().sum(-1).mean()) / 4
+    sim = anchor @ positive.T
+    lab = (labels[:, None] == labels[None, :]).to(sim.dtype)
+    lab = lab / lab.sum(dim=1, keepdim=True)
+    ce = -(lab * torch.log_softmax(sim, dim=1)).sum(dim=1).mean()
+    return ce + reg
+
+
+def hsigmoid_loss(*args, **kw):
+    raise NotImplementedError(
+        "hierarchical sigmoid needs a host-side Huffman tree; use "
+        "margin_cross_entropy / cross_entropy (the JAX package refuses it "
+        "too)")
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, return_softmax=False,
+                         reduction="mean"):
+    """ArcFace-family margin softmax, one rank: the target logit becomes
+    cos(margin1 * theta + margin2) - margin3, every logit is scaled."""
+    cos = logits.clamp(-1.0, 1.0)
+    tgt = torch.cos(margin1 * torch.arccos(cos) + margin2) - margin3
+    oh = one_hot(label, logits.shape[-1]).to(logits.dtype)
+    logp = torch.log_softmax(scale * (oh * tgt + (1 - oh) * cos), dim=-1)
+    loss = _reduce(-(oh * logp).sum(dim=-1), reduction)
+    if return_softmax:
+        return loss, torch.exp(logp)
+    return loss

@@ -8,12 +8,12 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
 from . import functional as F
+from .layer import Layer
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, label_smoothing=0.0, name=None):
         super().__init__()
@@ -32,7 +32,7 @@ class CrossEntropyLoss(nn.Module):
                                label_smoothing=self.label_smoothing)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -41,7 +41,7 @@ class MSELoss(nn.Module):
         return F.mse_loss(input, label, self.reduction)
 
 
-class L1Loss(nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -50,7 +50,7 @@ class L1Loss(nn.Module):
         return F.l1_loss(input, label, self.reduction)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0):
         super().__init__()
         self.reduction, self.delta = reduction, delta
@@ -59,7 +59,7 @@ class SmoothL1Loss(nn.Module):
         return F.smooth_l1_loss(input, label, self.reduction, self.delta)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean"):
         super().__init__()
         self.weight, self.reduction = weight, reduction
@@ -69,7 +69,7 @@ class BCELoss(nn.Module):
                                       self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None):
         super().__init__()
         self.weight, self.reduction = weight, reduction
@@ -80,7 +80,7 @@ class BCEWithLogitsLoss(nn.Module):
             logit, label, self.weight, self.reduction, self.pos_weight)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean"):
         super().__init__()
         self.weight, self.ignore_index = weight, ignore_index
@@ -91,7 +91,7 @@ class NLLLoss(nn.Module):
                           self.reduction)
 
 
-class KLDivLoss(nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -100,7 +100,7 @@ class KLDivLoss(nn.Module):
         return F.kl_div(input, label, self.reduction)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     """Reference: paddle.nn.CTCLoss (warpctc-backed); here the alpha
     recursion of ``functional.ctc_loss``."""
 
@@ -114,7 +114,7 @@ class CTCLoss(nn.Module):
                           blank=self.blank, reduction=self.reduction)
 
 
-class _SimpleLoss(nn.Module):
+class _SimpleLoss(Layer):
     """reduction-carrying wrapper over an F.* loss."""
     _fn = None
 
@@ -175,7 +175,7 @@ class MultiLabelSoftMarginLoss(_SimpleLoss):
         super().__init__(reduction, weight=weight)
 
 
-class GaussianNLLLoss(nn.Module):
+class GaussianNLLLoss(Layer):
     """reference: paddle.nn.GaussianNLLLoss. The variance is clamped to
     ``epsilon`` (no data-dependent raise), as in the JAX package."""
 

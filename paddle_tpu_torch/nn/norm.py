@@ -31,6 +31,7 @@ from torch import nn
 
 from ..device import resolve_device
 from . import functional as F
+from .layer import Layer
 
 _kept = threading.local()
 # the all-reduces of batch statistics issued in training forwards on a
@@ -51,7 +52,7 @@ def running_stats_kept():
         _kept.on = prev
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     def __init__(self, hidden_size, epsilon=1e-6, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -68,7 +69,7 @@ class RMSNorm(nn.Module):
         return f"{self.hidden_size}, eps={self.epsilon}"
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """``weight_attr=False`` / ``bias_attr=False`` build it without the
     weight / the bias, as in Paddle."""
 
@@ -94,7 +95,7 @@ class LayerNorm(nn.Module):
         return f"{self.normalized_shape}, eps={self.epsilon}"
 
 
-class BatchNorm2D(nn.Module):
+class BatchNorm2D(Layer):
     """Batch norm over dim 1 of a [N, C, ...] input (so also the 1-D and
     3-D layers), Paddle's momentum convention (``functional.batch_norm``)."""
 
@@ -150,7 +151,7 @@ class SyncBatchNorm(BatchNorm2D):
         return layer
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, *, device=None,
                  dtype=torch.float32):
@@ -172,7 +173,7 @@ class GroupNorm(nn.Module):
         return f"{self.num_groups}, {self.num_channels}, eps={self.epsilon}"
 
 
-class InstanceNorm2D(nn.Module):
+class InstanceNorm2D(Layer):
     def __init__(self, num_features, epsilon=1e-5, *, device=None,
                  dtype=torch.float32):
         super().__init__()

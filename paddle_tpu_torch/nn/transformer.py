@@ -19,9 +19,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..utils.rng import make_generator
+from ..utils import rng
 from . import functional as F
-from . import initializer as I
+from .layer import Layer
 from .common import Dropout, Linear
 from .container import LayerList
 from .norm import LayerNorm
@@ -29,20 +29,10 @@ from .norm import LayerNorm
 
 def _kw(generator, device, dtype):
     """The build keywords of one layer: its device, dtype and generator
-    (a seed-0 generator on the device when none is given)."""
+    (the ambient stream's next one on the device when none is given)."""
     device = resolve_device(device)
-    return dict(generator=generator or make_generator(0, device),
+    return dict(generator=generator or rng.next_generator(device),
                 device=device, dtype=dtype)
-
-
-def _linear(din, dout, weight_attr, bias_attr, kw):
-    """Paddle's ``Linear(din, dout, weight_attr, bias_attr)``: no bias when
-    ``bias_attr`` is False; an ``Initializer`` as ``weight_attr`` fills the
-    weight."""
-    lin = Linear(din, dout, has_bias=bias_attr is not False, **kw)
-    if isinstance(weight_attr, I.Initializer):
-        weight_attr(lin.weight.data, kw["generator"])
-    return lin
 
 
 def _clones(layer: nn.Module, n: int):
@@ -55,7 +45,7 @@ def _clones(layer: nn.Module, n: int):
                       for _ in range(n - 1)]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
                  bias_attr=None, name=None, *,
@@ -74,11 +64,12 @@ class MultiHeadAttention(nn.Module):
         self.need_weights = need_weights
         kdim = kdim or embed_dim
         vdim = vdim or embed_dim
-        self.q_proj = _linear(embed_dim, embed_dim, weight_attr, bias_attr, kw)
-        self.k_proj = _linear(kdim, embed_dim, weight_attr, bias_attr, kw)
-        self.v_proj = _linear(vdim, embed_dim, weight_attr, bias_attr, kw)
-        self.out_proj = _linear(embed_dim, embed_dim, weight_attr, bias_attr,
-                                kw)
+        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.k_proj = Linear(kdim, embed_dim, weight_attr, bias_attr, **kw)
+        self.v_proj = Linear(vdim, embed_dim, weight_attr, bias_attr, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                               **kw)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -104,7 +95,7 @@ class MultiHeadAttention(nn.Module):
         return out
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, name=None, *,
@@ -144,7 +135,7 @@ class TransformerEncoderLayer(nn.Module):
         return y
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``encoder_layer_fn`` is a layer (it and deep copies of it make the
     stack) or a function building one."""
 
@@ -166,7 +157,7 @@ class TransformerEncoder(nn.Module):
         return x
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", normalize_before=False, name=None, *,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -210,7 +201,7 @@ class TransformerDecoderLayer(nn.Module):
         return z
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer_fn, num_layers, norm=None):
         super().__init__()
         if isinstance(decoder_layer_fn, nn.Module):
@@ -229,7 +220,7 @@ class TransformerDecoder(nn.Module):
         return x
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", normalize_before=False, *,

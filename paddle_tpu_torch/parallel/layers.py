@@ -180,7 +180,7 @@ class VocabParallelEmbedding(Embedding):
     Initialised N(0, 0.02), as in the JAX package."""
 
     def __init__(self, num_embeddings, embedding_dim, **kw):
-        kw.setdefault("weight_init", I.Normal(0.0, 0.02))
+        kw.setdefault("weight_attr", I.Normal(0.0, 0.02))
         super().__init__(num_embeddings, embedding_dim, **kw)
         set_partition(self.weight, ("tp", None))
 

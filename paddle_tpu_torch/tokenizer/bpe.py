@@ -13,8 +13,10 @@ loop encoded each stretch of text.
 The pretokenizer needs no ``regex`` package. A split pattern written
 for ``regex`` (``\\p{L}``, ``\\p{N}``, ``\\s`` as Unicode White_Space) is
 translated once into a stdlib ``re`` pattern (:func:`translate_split`):
-each Unicode class becomes explicit code-point ranges built from
-``unicodedata`` (the Unicode version of this Python). A construct that
+each Unicode class becomes explicit code-point ranges read from
+``_unicode_ranges.py``, a table generated from ``regex`` itself
+(``tools/gen_unicode_ranges.py``), so the classes are ``regex``'s at
+every code point whatever this Python's Unicode version. A construct that
 ``re`` cannot express with the same meaning is refused with
 ``ValueError``. Loads either HF ``tokenizer.json`` or GPT-2 style
 ``vocab.json`` + ``merges.txt``.
@@ -26,11 +28,12 @@ import json
 import os
 import re
 import sys
-import unicodedata
 from functools import lru_cache
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ._unicode_ranges import RANGES
 
 # GPT-2's pretokenizer split (tokenizers ByteLevel default)
 GPT2_SPLIT = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+"
@@ -44,22 +47,14 @@ LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
 # "python" (a vocab outside the byte alphabet, or a byte with no id)
 counts = {"native": 0, "python": 0}
 
-# Unicode's White_Space property (PropList.txt, unchanged since 6.3):
-# what ``regex``'s \s matches. The stdlib's \s also takes U+001C..U+001F.
-WHITE_SPACE = (0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x20, 0x85, 0xA0, 0x1680,
-               *range(0x2000, 0x200B), 0x2028, 0x2029, 0x202F, 0x205F,
-               0x3000)
 _REFUSED_ESCAPES = "wWbBXGKmM"
 
 
-@lru_cache(maxsize=None)
-def _codepoints(name: str) -> Tuple[int, ...]:
-    """Code points of general category ``name`` (``L``, ``Lu``, ``N``...)
-    in this Python's Unicode tables, or of White_Space for ``"space"``."""
-    if name == "space":
-        return WHITE_SPACE
-    return tuple(c for c in range(sys.maxunicode + 1)
-                 if unicodedata.category(chr(c)).startswith(name))
+def _runs(name: str) -> List[List[int]]:
+    """[first, last] runs of general category ``name`` (``L``, ``Lu``,
+    ``N``...), or of White_Space for ``"space"``, from ``regex``'s table."""
+    flat = RANGES[name]
+    return [[flat[i], flat[i + 1]] for i in range(0, len(flat), 2)]
 
 
 def _esc(c: int) -> str:
@@ -70,12 +65,7 @@ def _esc(c: int) -> str:
 def _ranges(name: str, negate: bool) -> str:
     """The class body (no brackets) of ``name``'s code points, or of
     their complement: ``\\uXXXX-\\uYYYY`` ranges for ``re``."""
-    runs: List[List[int]] = []
-    for c in _codepoints(name):
-        if runs and c == runs[-1][1] + 1:
-            runs[-1][1] = c
-        else:
-            runs.append([c, c])
+    runs = _runs(name)
     if negate:
         gaps, start = [], 0
         for a, b in runs:

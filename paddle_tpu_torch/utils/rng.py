@@ -1,16 +1,37 @@
-"""Explicit random generators (counterpart of ``paddle_tpu/utils/rng.py``).
+"""Random generators (counterpart of ``paddle_tpu/utils/rng.py``).
 
-The JAX package keeps a global key and splits it with ``next_key()``. The
-port passes a ``torch.Generator`` to whatever draws random numbers
-(weight init, sampling) instead: no module-level state. The two
-frameworks give different numbers for one seed, so tests that compare
-them make their inputs with numpy.
+Two ways to draw, as in the JAX package:
+
+- **Explicit.** A function that draws (``F.dropout``, the initializers,
+  sampling) takes a ``torch.Generator``, as the JAX function takes a key,
+  and requires it where the JAX one asserts on its key.
+- **The ambient stream.** ``seed(s)`` resets one process-wide stream (the
+  JAX package's global key); ``next_seed()`` / ``next_generator(device)``
+  take the next draw from it, as ``next_key()`` splits the global key. A
+  layer built without a generator takes one from this stream, both to
+  fill its weights and for its dropout masks, so ``seed(0); Net()``
+  builds the same weights twice. ``generator_context(g)`` routes every
+  layer draw through ``g`` for its duration, as ``key_context(key)`` does
+  (``Layer.functional()``'s ``generator=``).
+
+JAX's threefry and torch's Philox give different numbers for one seed,
+so values drawn here match the JAX package's in distribution only; the
+tests that compare the two make their inputs with numpy.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Dict, Optional
 
 import torch
 
 from ..device import resolve_device
+
+_stream = torch.Generator()
+_stream.manual_seed(0)
+_active: contextvars.ContextVar = contextvars.ContextVar(
+    "paddle_tpu_torch_generator", default=None)
 
 
 def make_generator(seed: int = 0, device=None) -> torch.Generator:
@@ -18,6 +39,75 @@ def make_generator(seed: int = 0, device=None) -> torch.Generator:
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
     return gen
+
+
+def seed(s: int) -> int:
+    """paddle.seed: reset the ambient stream."""
+    _stream.manual_seed(int(s))
+    return s
+
+
+def get_rng_state() -> Dict[str, torch.Tensor]:
+    return {"stream": _stream.get_state()}
+
+
+def set_rng_state(state) -> None:
+    _stream.set_state(state["stream"])
+
+
+def next_seed() -> int:
+    """The next 63-bit seed of the ambient stream."""
+    return int(torch.randint(0, 2 ** 63 - 1, (), generator=_stream))
+
+
+def next_generator(device=None) -> torch.Generator:
+    """A fresh generator on ``device`` (the card by default), seeded with
+    the ambient stream's next seed."""
+    return make_generator(next_seed(), device)
+
+
+def ambient_generator(device=None) -> torch.Generator:
+    """The generator of the active :func:`generator_context`, else
+    :func:`next_generator` (a function's draw from the ambient stream, as
+    the JAX functions draw ``next_key()``)."""
+    active = _active.get()
+    return active if active is not None else next_generator(device)
+
+
+@contextlib.contextmanager
+def generator_context(generator: Optional[torch.Generator]):
+    """Every layer draw inside draws from ``generator`` (None: no
+    change)."""
+    token = _active.set(generator) if generator is not None else None
+    try:
+        yield
+    finally:
+        if token is not None:
+            _active.reset(token)
+
+
+class LayerGenerator:
+    """A layer's source of random draws: the generator it was given, or
+    one seed taken from the ambient stream at construction and a
+    generator seeded with it on each device its draws land on. Inside
+    :func:`generator_context` the context's generator wins."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        self.generator = generator
+        self.seed = None if generator is not None else next_seed()
+        self._by_device: Dict[torch.device, torch.Generator] = {}
+
+    def on(self, device) -> torch.Generator:
+        active = _active.get()
+        if active is not None:
+            return active
+        if self.generator is not None:
+            return self.generator
+        device = torch.device(device)
+        gen = self._by_device.get(device)
+        if gen is None:
+            gen = self._by_device[device] = make_generator(self.seed, device)
+        return gen
 
 
 def fold_axis(generator: torch.Generator, axis: str) -> torch.Generator:

@@ -256,3 +256,41 @@ def test_launch_dead_rank_ends_the_job(tmp_path):
     assert rc.returncode == 3, rc.stderr[-3000:]
     assert not (tmp_path / "rank0.txt").exists()
     assert secs < 90
+
+
+_PORT_SCRIPT = textwrap.dedent('''
+    import errno, os, socket, sys
+    out = sys.argv[1]
+    port = int(os.environ["MASTER_PORT"])
+    with socket.socket() as s:
+        try:
+            s.bind(("127.0.0.1", port))
+            held = "free"
+        except OSError as e:
+            held = "held" if e.errno == errno.EADDRINUSE else str(e)
+    import torch
+    from paddle_tpu_torch.distributed import all_reduce, fleet, get_rank
+    fleet.init(strategy=fleet.DistributedStrategy(
+        hybrid_configs={"dp_degree": 2}))
+    s = all_reduce(torch.tensor([1.0]), "sum", "dp")
+    with open(os.path.join(out, f"rank{get_rank()}.txt"), "w") as f:
+        f.write(f"{held} {s.item()}")
+''')
+
+
+def test_launch_holds_the_rendezvous_port_before_any_rank_starts(tmp_path):
+    """The launcher binds the rendezvous store's port before it starts a
+    rank and holds it for the job (the ranks join as clients), so no
+    other process can take the port between its choice and rank 0's
+    bind: every rank finds it held, and the world still forms."""
+    script = tmp_path / "port_job.py"
+    script.write_text(_PORT_SCRIPT)
+    rc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc", "2", "--cpu", "--timeout", "120", str(script),
+         str(tmp_path)], env=dict(os.environ, PYTHONPATH=ROOT), timeout=150,
+        capture_output=True, text=True)
+    assert rc.returncode == 0, rc.stderr[-3000:]
+    for r in range(2):
+        assert (tmp_path / f"rank{r}.txt").read_text().split() == \
+            ["held", "2.0"]

@@ -11,7 +11,6 @@ import json
 import os
 import subprocess
 import sys
-import unicodedata
 
 import pytest
 import regex
@@ -186,55 +185,54 @@ def test_sentencepiece_style_refused_as_jax(tmp_path):
     assert str(perr.value) == str(jerr.value)
 
 
-def _newer_letters():
-    """Code points that this Python's Unicode tables (unicodedata) leave
-    unassigned and ``regex``'s newer tables call a letter or number: the
-    one place the translated classes and ``regex``'s disagree."""
+def _differing(cls):
+    """Code points where the translated class ``cls`` and ``regex``'s
+    disagree, over every code point but the surrogates."""
     text = "".join(chr(c) for c in range(sys.maxunicode + 1)
                    if not 0xD800 <= c <= 0xDFFF)
     import re
-    ours = set(re.findall(tbpe.translate_split(r"[\p{L}\p{N}]"), text))
-    return ours ^ set(regex.findall(r"[\p{L}\p{N}]", text))
-
-
-NEWER = frozenset(_newer_letters())
+    ours = set(re.findall(tbpe.translate_split(cls), text))
+    return ours ^ set(regex.findall(cls, text))
 
 
 @settings(max_examples=300, deadline=None)
 @given(text=st.text(max_size=40),
        split=st.sampled_from(sorted(SPLITS)))
 def test_pretokenizer_splits_random_text_as_regex(text, split):
-    """Equal splits, except on text holding a code point of ``NEWER``
-    (recorded in ROADMAP.md as a fault); there the pieces still cover the
-    text, in order."""
+    """Equal splits on any text: the translated classes come from
+    ``regex``'s own table."""
     pattern = SPLITS[split]
     want = regex.findall(pattern, text)
     pt = ttok.BPETokenizer({}, [], split_pattern=pattern)
-    got = pt.pretokenize(text)
-    if NEWER.isdisjoint(text):
-        assert got == want
-    else:
-        event("text holds a letter newer than this Python's Unicode")
-        assert "".join(got) == text
+    assert pt.pretokenize(text) == want
 
 
-def test_unicode_classes_differ_only_where_this_python_has_no_letter():
+def test_unicode_classes_match_regex_at_every_code_point():
     """The translated classes against ``regex``'s over every code point:
-    they differ only where this Python's Unicode tables have no character
-    (category Cn) and ``regex`` carries a newer table, at 9,568 letters
-    and 93 numbers (the count recorded in ROADMAP.md, faults)."""
-    text = "".join(chr(c) for c in range(sys.maxunicode + 1)
-                   if not 0xD800 <= c <= 0xDFFF)
-    import re
-    counts = {}
-    for cls in (r"\p{L}", r"\p{N}", r"\s", r"[^\s\p{L}\p{N}]"):
-        ours = set(re.findall(tbpe.translate_split(cls), text))
-        differ = ours ^ set(regex.findall(cls, text))
-        assert {unicodedata.category(c) for c in differ} <= {"Cn"}, cls
-        counts[cls] = len(differ)
-    assert counts == {r"\p{L}": 9568, r"\p{N}": 93, r"\s": 0,
-                      r"[^\s\p{L}\p{N}]": 9661}
-    assert len(NEWER) == 9661
+    no difference in any class (ROADMAP C11, fixed: before, 9,568 letters
+    and 93 numbers newer than this Python's Unicode 15.0 differed)."""
+    counts = {cls: len(_differing(cls))
+              for cls in (r"\p{L}", r"\p{N}", r"\s", r"[^\s\p{L}\p{N}]",
+                          r"\d", r"\p{Lu}", r"\P{N}")}
+    assert counts == dict.fromkeys(counts, 0)
+    # the example recorded with the fault: one GPT-2 piece under regex
+    text = ":\U000323b0"
+    pt = ttok.BPETokenizer({}, [], split_pattern=ttok.GPT2_SPLIT)
+    assert pt.pretokenize(text) == regex.findall(ttok.GPT2_SPLIT, text)
+    assert len(pt.pretokenize(text)) == 2
+
+
+def test_unicode_table_is_what_the_generator_writes_now():
+    """``tokenizer/_unicode_ranges.py`` is, byte for byte, what
+    ``tools/gen_unicode_ranges.py`` renders from the installed
+    ``regex``."""
+    pytest.importorskip("regex", reason="the generator reads regex's "
+                        "tables; regex is not installed here")
+    from paddle_tpu_torch.tokenizer import _unicode_ranges
+    from paddle_tpu_torch.tools import gen_unicode_ranges as gen
+    with open(gen.OUT, encoding="utf-8") as f:
+        assert f.read() == gen.render(gen.table())
+    assert _unicode_ranges.REGEX_VERSION == regex.__version__
 
 
 @pytest.mark.parametrize("pattern,match", (
