@@ -545,7 +545,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the per-rank statistics. tp > 1 is proved by the CPU gloo
    tests. The sharded runs' launches join the kernels line's.
 
-22. Paddle's layer API (``[api]`` lines, last): (a) a PaddleNLP-style
+22. Paddle's layer API (``[api]`` lines): (a) a PaddleNLP-style
    decoder written against the public API only (an ``nn.Layer`` of
    ``nn.Linear`` and ``create_parameter``; ``incubate.nn.functional``'s
    ``fused_rms_norm``, ``fused_rotary_position_embedding`` on cos / sin
@@ -569,12 +569,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``TOL_API_SWEEP``), the random ones by their invariants. Its
    launches join the kernels line's.
 
+23. The tensor-level API (``[tensor]`` lines, last), each run with the
+   counts set to 0 just before it and read just after: (a) the JAX
+   training idiom, ``pure_fn, params = model.functional()`` then
+   ``ptt.value_and_grad`` of the causal-LM loss, on ``LlamaForCausalLM``
+   at Llama-3-8B's widths cut to 4 layers, bf16 [2, 2048]: the loss and
+   every gradient against an eager ``loss.backward()`` on the same model
+   and batch bit for bit, else within ``TOL_TENSOR_REL``; flash, dq and
+   dk/dv 4 times a call on the wgmma route; then ``ptt.vjp`` over one
+   decoder layer with a seeded cotangent against its eager backward;
+   both steps timed; (b) ``ptt.vmap`` of ``flash_attention(causal=True)``
+   over a mapped axis of 2 (q [2, 2, 2048, 32, 128], k / v 8 heads):
+   one forward launch, each slice bit for bit its own call; ``ptt.grad``
+   of the mapped sum: one dq and one dk/dv launch, bit for bit the
+   slices' eager gradients; ``ptt.jvp`` through the kernel raises; (c)
+   a user ``PyLayer`` (a clipped straight-through estimator) in an
+   ``nn.Layer``: eager and ``ptt.grad`` gradients equal on the card and
+   on the CPU, the card within ``TOL_TENSOR_PYLAYER`` of the CPU;
+   ``no_grad`` inside ``ptt.grad`` cuts nothing; (d) every public
+   function of ``tensor``, ``linalg``, ``fft``, ``signal``, ``audio``,
+   ``sparse`` and ``distribution`` on the card against the CPU at the CPU
+   tests' shapes (``tests/tensor_cases.py``) within ``TOL_TENSOR_SWEEP``,
+   the signed factorizations by reconstruction, the random ones by
+   support and moments. (a)'s and (b)'s launches join the kernels
+   line's.
+
 It prints a JSON line of per-kernel numbers (each kernel's route taken
 from its wrapper's counts on the main path: ``cuda-wgmma`` for the flash
 forward, dq and dk/dv, ``cuda-mma`` for decode, ragged, quant and grid,
 ``cuda-simt`` for the fused AdamW update, whose launches include phase
 20's, ``[host]``'s and ``[api]``'s ``Model.fit``; the flash forward, dq
-and dk/dv include ``[api] (a)``'s; ``flash_attention_with_lse``'s
+and dk/dv include ``[api] (a)``'s and ``[tensor]``'s; ``flash_attention_with_lse``'s
 launches are the ring's of phase 12),
 then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -4549,7 +4574,7 @@ def phase_bwd_checks(gen, dev):
             # the reference: dense attention in fp32 on the same values
             cast = (lambda t: t) if fn == "flash" else (lambda t: t.float())
             xs = [cast(t).detach().requires_grad_() for t in (q, k, v)]
-            out = (FlashAttentionFunction.apply(*xs, True) if fn == "flash"
+            out = (FlashAttentionFunction.apply(*xs, True)[0] if fn == "flash"
                    else dense_attention(*xs, causal=True))
             out.backward(cast(g))
             grads.append([x.grad for x in xs])
@@ -11557,6 +11582,566 @@ def phase_api(seed, dev, card):
     return launches
 
 
+# --------------------------------------------------------------- [tensor]
+TENSOR_LAYERS = TRAIN_LAYERS     # Llama-3-8B's widths, cut to 4 layers
+TENSOR_BATCH = TRAIN_BATCH       # [2, 2048], bf16
+TENSOR_STEPS = 2                 # timed steps of each route, in turns
+# (a) where the functional step is not bit for bit the eager one: the
+# relative error past which it fails (as TOL_API_REL: one bf16 rounding
+# step amplified through 4 layers and a backward; torch.func runs some
+# backward formulas as other kernels than eager autograd does)
+TOL_TENSOR_REL = 2e-2
+# (b) q [2 mapped, 2, 2048, 32, 128], k / v with 8 kv heads, bf16
+TENSOR_VMAP = (2, 2, 2048, 32, 8, 128)
+# (c) the PyLayer model's gradients, card against CPU, fp32 (TF32 off)
+TOL_TENSOR_PYLAYER = 1e-4
+# (d) the card against the CPU in fp32: a few ulps of a sum, a
+# factorization or a transcendental, relative to max(1, |value|)
+TOL_TENSOR_SWEEP = 1e-4
+
+
+def _rel_max(a, b) -> float:
+    """max |a - b| / max |b| in fp32 (0 for equal tensors)."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _tensor_functional(seed, dev, card):
+    """(a) The JAX training idiom at Llama-3-8B's widths: ``pure_fn,
+    params = model.functional()``, ``ptt.value_and_grad`` of the causal-LM
+    loss, held to an eager ``loss.backward()`` on the same model and
+    batch; then ``ptt.vjp`` over one decoder layer against its eager
+    backward."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.llama import rotary_cos_sin
+    cfg = ptt.llama3_8b(num_hidden_layers=TENSOR_LAYERS)
+    model = ptt.LlamaForCausalLM(cfg, device=dev,
+                                 generator=ptt.make_generator(seed + 151,
+                                                              dev))
+    b, s = TENSOR_BATCH
+    gen = ptt.make_generator(seed + 152, dev)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    pure, params = model.functional()
+    frozen = {n: p.detach() for n, p in params.items()}
+    step = ptt.value_and_grad(
+        lambda p: ptt.causal_lm_loss(pure(p, ids), ids))
+
+    def eager():
+        model.zero_grad(set_to_none=True)
+        loss = ptt.causal_lm_loss(model(ids), ids)
+        loss.backward()
+        return loss.detach(), {n: q.grad for n, q in
+                               model.named_parameters()}
+
+    read = _reset_launches()
+    loss, grads = step(frozen)
+    torch.cuda.synchronize()
+    launches = read()
+    routes = _check_routes("tensor (a)", flash=TENSOR_LAYERS,
+                           flash_bwd_dq=TENSOR_LAYERS,
+                           flash_bwd_dkv=TENSOR_LAYERS)
+    want = dict(NO_LAUNCHES, flash=TENSOR_LAYERS,
+                flash_bwd_dq=TENSOR_LAYERS, flash_bwd_dkv=TENSOR_LAYERS)
+    e_loss, e_grads = eager()
+    pairs = [("loss", loss, e_loss)] + [(n, grads[n], e_grads[n])
+                                        for n in e_grads]
+    same = {n: torch.equal(a, r) for n, a, r in pairs}
+    rel = {n: _rel_max(a, r) for n, a, r in pairs if not same[n]}
+    worst = max(rel.values(), default=0.0)
+    t_func, t_eager = [], []
+    for _ in range(TENSOR_STEPS):
+        for fn, sink in ((lambda: step(frozen), t_func), (eager, t_eager)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3)
+    ms_func, ms_eager = min(t_func), min(t_eager)
+    log(f"[tensor] (a) ptt.value_and_grad over model.functional() of "
+        f"LlamaForCausalLM at Llama-3-8B's widths, {TENSOR_LAYERS} layers, "
+        f"bf16 [{b}, {s}], against eager loss.backward(): "
+        f"{sum(same.values())} of {len(same)} tensors bit for bit (loss "
+        f"{'equal' if same['loss'] else 'differs'}), the others within "
+        f"max relative error {worst:.3g} (tol {TOL_TENSOR_REL}; worst "
+        f"{max(rel, key=rel.get) if rel else '-'}); launches a call "
+        f"{launches} (want {want}), by route {routes}; a step "
+        f"{ms_func:.2f} ms functional against {ms_eager:.2f} ms eager "
+        f"(best of {TENSOR_STEPS}, in turns) [{card}]")
+    if launches != want or worst > TOL_TENSOR_REL:
+        fail(f"tensor (a): launches {launches} (want {want}), max relative "
+             f"error {worst} (tol {TOL_TENSOR_REL}) in {rel}")
+    del grads, e_grads, pairs, frozen
+    # ptt.vjp over one decoder layer with a seeded cotangent
+    layer = model.model.layers[0]
+    m = model.model
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    rope = rotary_cos_sin(pos, cfg.head_dim, cfg.rope_theta, cfg.dtype,
+                          inv_freq=m.rope_inv_freq,
+                          attention_scaling=m.attn_scaling)
+    x0 = torch.randn(b, s, cfg.hidden_size, generator=gen, device=dev,
+                     dtype=cfg.dtype)
+    cot = torch.randn(b, s, cfg.hidden_size, generator=gen, device=dev,
+                      dtype=cfg.dtype)
+    read = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, pull = ptt.vjp(lambda x: layer(x, rope), x0)
+    (gx,) = pull(cot)
+    torch.cuda.synchronize()
+    ms_vjp = (time.perf_counter() - t0) * 1e3
+    vjp_launches = read()
+    x = x0.detach().requires_grad_(True)
+    e_out = layer(x, rope)
+    e_out.backward(cot)
+    v_same = torch.equal(out, e_out.detach()) and torch.equal(gx, x.grad)
+    v_rel = max(_rel_max(out, e_out), _rel_max(gx, x.grad))
+    v_want = dict(NO_LAUNCHES, flash=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+    log(f"[tensor] (a) ptt.vjp over decoder layer 0 with a seeded "
+        f"cotangent: output and input gradient against the eager backward "
+        f"bit for bit {v_same} (max relative error {v_rel:.3g}, tol "
+        f"{TOL_TENSOR_REL}); launches {vjp_launches} (want {v_want}); "
+        f"{ms_vjp:.2f} ms [{card}]")
+    if vjp_launches != v_want or v_rel > TOL_TENSOR_REL:
+        fail(f"tensor (a) vjp: launches {vjp_launches}, relative error "
+             f"{v_rel}")
+    for key in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+        launches[key] += vjp_launches[key]
+    model.zero_grad(set_to_none=True)
+    del model, m, layer, params
+    return launches, {"ms": ms_func, "eager_ms": ms_eager, "vjp_ms": ms_vjp}
+
+
+def _tensor_vmap(seed, dev, card):
+    """(b) ``ptt.vmap`` of the flash kernel: one forward launch for the
+    mapped call, bit for bit the slices; ``ptt.grad`` of the mapped sum:
+    one dq and one dk/dv launch, bit for bit the slices' eager
+    gradients; forward mode raises."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops.attention import flash_attention
+    n, b, s, h, kv, d = TENSOR_VMAP
+    gen = ptt.make_generator(seed + 153, dev)
+    q, k, v = (torch.randn(n, b, s, heads, d, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for heads in (h, kv, kv))
+    cot = torch.randn(q.shape, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+
+    def attn(q, k, v):
+        return flash_attention(q, k, v, causal=True)
+
+    read = _reset_launches()
+    out = ptt.vmap(attn)(q, k, v)
+    torch.cuda.synchronize()
+    fwd = read()
+    fwd_routes = _check_routes("tensor (b) vmap", flash=1)
+    slices = all(torch.equal(out[i], attn(q[i], k[i], v[i]))
+                 for i in range(n))
+
+    def loss(q, k, v):
+        return (ptt.vmap(attn)(q, k, v).float() * cot.float()).sum()
+    read = _reset_launches()
+    grads = ptt.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    torch.cuda.synchronize()
+    bwd = read()
+    bwd_routes = _check_routes("tensor (b) grad", flash=1, flash_bwd_dq=1,
+                               flash_bwd_dkv=1)
+    g_same = True
+    for i in range(n):
+        xs = [t[i].detach().requires_grad_(True) for t in (q, k, v)]
+        (attn(*xs).float() * cot[i].float()).sum().backward()
+        g_same &= all(torch.equal(g[i], x.grad) for g, x in zip(grads, xs))
+    try:
+        ptt.jvp(lambda q: attn(q, k[0], v[0]), (q[0],),
+                (torch.ones_like(q[0]),))
+        jvp_raised = None
+    except NotImplementedError as e:
+        jvp_raised = type(e).__name__
+    want_f = dict(NO_LAUNCHES, flash=1)
+    want_b = dict(NO_LAUNCHES, flash=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+    log(f"[tensor] (b) ptt.vmap of flash_attention(causal=True) over a "
+        f"mapped axis of {n}, q [{n}, {b}, {s}, {h}, {d}], k/v {kv} heads, "
+        f"bf16: launches {fwd} (want {want_f}), by route {fwd_routes}, "
+        f"each slice bit for bit its own call {slices}; ptt.grad of the "
+        f"mapped sum: launches {bwd} (want {want_b}), by route "
+        f"{bwd_routes}, bit for bit the slices' eager gradients {g_same}; "
+        f"ptt.jvp through flash raises {jvp_raised} [{card}]")
+    if fwd != want_f or bwd != want_b or not slices or not g_same \
+            or jvp_raised is None:
+        fail(f"tensor (b): launches {fwd} / {bwd}, slices {slices}, "
+             f"gradients {g_same}, jvp raised {jvp_raised}")
+    return {key: fwd[key] + bwd[key] for key in fwd}
+
+
+def _tensor_pylayer(seed, dev, card):
+    """(c) A user ``PyLayer`` (a clipped straight-through estimator)
+    inside a small ``nn.Layer``: its gradients under eager ``.backward()``
+    and under ``ptt.grad`` equal, and equal to the CPU's; ``no_grad``
+    inside ``ptt.grad`` cuts nothing."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import autograd, nn
+
+    class ClippedSTE(autograd.PyLayer):
+        """Ternary forward (sign where |x| > 0.5, else 0), the gradient
+        passed straight through where |x| <= 1."""
+
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return torch.sign(x) * (x.abs() > 0.5).to(x.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, = ctx.saved_tensor()
+            return g * (x.abs() <= 1).to(g.dtype)
+
+    class Quantized(nn.Layer):
+        def __init__(self, device):
+            super().__init__()
+            self.fc1 = nn.Linear(64, 64, device=device,
+                                 generator=ptt.make_generator(seed + 154,
+                                                              device))
+            self.fc2 = nn.Linear(64, 8, device=device,
+                                 generator=ptt.make_generator(seed + 155,
+                                                              device))
+
+        def forward(self, x):
+            with ptt.no_grad():
+                scale = x.abs().amax() + 1
+            return self.fc2(ClippedSTE.apply(self.fc1(x) / scale) * scale)
+
+    def routes(layer, x):
+        pure, params = layer.functional()
+        layer.zero_grad(set_to_none=True)
+        layer(x).square().sum().backward()
+        eager = {n: p.grad.clone() for n, p in layer.named_parameters()}
+        func = ptt.grad(lambda p: pure(p, x).square().sum())(
+            {n: p.detach() for n, p in params.items()})
+        return eager, func
+
+    x = torch.randn(128, 64, generator=ptt.make_generator(seed + 156, "cpu"))
+    card_l, cpu_l = Quantized(dev), Quantized("cpu")
+    cpu_l.load_state_dict({k: t.cpu() for k, t in
+                           card_l.state_dict().items()})
+    eager, func = routes(card_l, x.to(dev))
+    c_eager, c_func = routes(cpu_l, x)
+    both = all(torch.equal(eager[n], func[n]) for n in eager) and \
+        all(torch.equal(c_eager[n], c_func[n]) for n in c_eager)
+    vs_cpu = max(_rel_max(eager[n].cpu(), c_eager[n]) for n in eager)
+
+    def f(v):
+        with ptt.no_grad():
+            y = 2 * v
+        return (y * v).sum()
+    ng = ptt.grad(f)(torch.ones(3, device=dev)).tolist()
+    log(f"[tensor] (c) a clipped straight-through ternary PyLayer in an "
+        f"nn.Layer (fp32, [128, 64]): eager .backward() and ptt.grad bit for bit "
+        f"on the card and on the CPU {both}; the card against the CPU "
+        f"max relative error {vs_cpu:.3g} (tol {TOL_TENSOR_PYLAYER}); "
+        f"no_grad inside ptt.grad gives {ng} (JAX: [4.0, 4.0, 4.0]) "
+        f"[{card}]")
+    if not both or vs_cpu > TOL_TENSOR_PYLAYER or ng != [4.0] * 3:
+        fail(f"tensor (c): both routes equal {both}, card against CPU "
+             f"{vs_cpu}, no_grad {ng}")
+
+
+def _sweep_err(got, ref, bad, name):
+    """The largest error of a card result against the CPU's, relative to
+    max(1, |value|); a tensor off the card, a dtype, shape or integer
+    value that differs is recorded in ``bad``."""
+    import numpy as np
+    if isinstance(ref, (tuple, list)):
+        return max((_sweep_err(g, r, bad, name) for g, r in zip(got, ref)),
+                   default=0.0)
+    if isinstance(ref, np.ndarray):
+        got, ref = torch.from_numpy(np.asarray(got)), torch.from_numpy(ref)
+    elif not isinstance(ref, torch.Tensor):
+        if got != ref:
+            bad.append(f"{name}: {got} != {ref}")
+        return 0.0
+    elif got.device.type != "cuda":
+        bad.append(f"{name}: ran on {got.device}")
+    got = got.detach().cpu().resolve_conj()
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        bad.append(f"{name}: {got.dtype} {tuple(got.shape)} != "
+                   f"{ref.dtype} {tuple(ref.shape)}")
+        return 0.0
+    if not (ref.is_floating_point() or ref.is_complex()):
+        if not torch.equal(got, ref):
+            bad.append(f"{name}: integer values differ")
+        return 0.0
+    if ref.numel() == 0:
+        return 0.0
+    a, r = got.to(torch.complex128), ref.to(torch.complex128)
+    nan = torch.isnan(r.real) | torch.isnan(r.imag)
+    if not torch.equal(nan, torch.isnan(a.real) | torch.isnan(a.imag)):
+        bad.append(f"{name}: NaNs differ")
+    a, r = a[~nan], r[~nan]
+    inf = torch.isinf(r.real)
+    if not torch.equal(a[inf], r[inf]):
+        bad.append(f"{name}: infinities differ")
+    a, r = a[~inf], r[~inf]
+    if not r.numel():
+        return 0.0
+    return float(((a - r).abs() / r.abs().clamp_min(1.0)).max())
+
+
+def _tensor_sweep(seed, dev, card):
+    """(d) Every public function of ``tensor``, ``linalg``, ``fft``,
+    ``signal``, ``audio``, ``sparse`` and ``distribution`` once on the
+    card and once on the CPU, at the CPU tests' small shapes
+    (``tests/tensor_cases.py``), in fp32: the deterministic ones within
+    ``TOL_TENSOR_SWEEP``, the factorizations whose factors carry signs
+    by reconstruction, the random ones by shape, dtype, support and
+    moments; ``histogram`` and ``lstsq`` among the cases."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import audio as PAu
+    from paddle_tpu_torch import distribution as PD
+    from paddle_tpu_torch import fft as PF
+    from paddle_tpu_torch import linalg as PL
+    from paddle_tpu_torch import signal as PSg
+    from paddle_tpu_torch import sparse as PSp
+    from paddle_tpu_torch import tensor as P
+    C = _tests_module("tensor_cases")
+
+    def on(a, d):
+        if isinstance(a, C.T):
+            return torch.from_numpy(a.a.copy()).to(d)
+        if isinstance(a, (list, tuple)) and any(isinstance(e, C.T)
+                                                for e in a):
+            return type(a)(on(e, d) for e in a)
+        return a
+
+    worst, bad = {}, []
+
+    def held(name, fn):
+        try:
+            ref = fn("cpu")
+            got = fn(dev)
+        except Exception as e:  # a failure on either device is recorded
+            bad.append(f"{name}: {type(e).__name__}: {e}")
+            return
+        worst[name] = _sweep_err(got, ref, bad, name)
+
+    for cid, name, args, kw, port_kw, _ in C.TENSOR_CASES:
+        held(f"tensor.{cid}", lambda d, name=name, args=args, kw=kw,
+             pk=port_kw: getattr(P, name)(
+                 *[on(a, d) for a in args],
+                 **{k: on(a, d) for k, a in kw.items()},
+                 **({"device": d} if pk else {})))
+    signed = ("svd", "qr", "eig", "eigh", "pca_lowrank", "svd_lowrank")
+    for cid, args, kw in C.LINALG_CASES:
+        name = cid.split("-")[0]
+        fn = (lambda d, name=name, args=args, kw=kw: getattr(PL, name)(
+            *[on(a, d) for a in args], **{k: on(a, d) for k, a in
+                                          kw.items()}))
+        if cid == "eigvals-sorted":
+            held(f"linalg.{cid}", lambda d, fn=fn: torch.from_numpy(
+                np.sort_complex(fn(d).cpu().numpy())).to(d))
+        else:
+            held(f"linalg.{cid}", fn)
+    for name, a in (("lu", C.A), ("lstsq", None)):
+        if name == "lu":
+            held("linalg.lu", lambda d: PL.lu(torch.from_numpy(a).to(d)))
+            held("linalg.lu_unpack", lambda d: PL.lu_unpack(
+                *PL.lu(torch.from_numpy(a).to(d))))
+        else:
+            deficient = np.concatenate([C.R[:, :2], C.R[:, :1] + C.R[:, 1:2]],
+                                       1)
+            for tag, (x, y) in (("full", (C.R, C.V[:5])),
+                                ("deficient", (deficient, C.V[:5])),
+                                ("matrix", (C.A, C.B))):
+                held(f"linalg.lstsq-{tag}", lambda d, x=x, y=y: PL.lstsq(
+                    torch.from_numpy(x).to(d), torch.from_numpy(y).to(d)))
+    geq, tau = torch.geqrf(torch.from_numpy(C.R))
+    held("linalg.householder_product", lambda d: PL.householder_product(
+        geq.to(d), tau.to(d)))
+    held("linalg.ormqr", lambda d: PL.ormqr(geq.to(d), tau.to(d),
+                                            torch.ones(5, 2, device=d)))
+    # the signed factorizations, on the card: by reconstruction
+    Rd = torch.from_numpy(C.R).to(dev)
+    SPDd = torch.from_numpy(C.SPD).to(dev)
+    recon = {
+        "svd": lambda: (lambda u, s_, vh: u * s_ @ vh)(*PL.svd(Rd)),
+        "qr": lambda: (lambda q_, r_: q_ @ r_)(*PL.qr(Rd)),
+        "eig": lambda: (lambda w, vv: (vv * w @ torch.linalg.inv(vv))
+                        .real)(*PL.eig(SPDd)),
+        "eigh": lambda: (lambda w, vv: vv * w @ vv.mT)(*PL.eigh(SPDd)),
+    }
+    for name, fn in recon.items():
+        want = C.SPD if name.startswith("eig") else C.R
+        worst[f"linalg.{name}-reconstruction"] = _sweep_err(
+            fn(), torch.from_numpy(want), bad, name)
+    low = torch.from_numpy((np.random.RandomState(seed).randn(12, 2)
+                            @ np.random.RandomState(seed + 1).randn(2, 7))
+                           .astype(np.float32))
+    for name in signed[4:]:
+        u, s_, vv = getattr(PL, name)(low.to(dev), q=3)
+        base = low - low.mean(0) if name == "pca_lowrank" else low
+        worst[f"linalg.{name}-reconstruction"] = _sweep_err(
+            u * s_ @ vv.mT, base, bad, name)
+    for cid, args, kw in C.FFT_CASES:
+        name = cid.split("-")[0]
+        held(f"fft.{cid}", lambda d, name=name, args=args, kw=kw: getattr(
+            PF, name)(*[on(a, d) for a in args], **kw))
+    for name in ("fftfreq", "rfftfreq"):
+        held(f"fft.{name}", lambda d, name=name: getattr(PF, name)(
+            10, 0.5, device=d))
+    sig = np.random.RandomState(seed + 2).randn(2, 300).astype(np.float32)
+    short = sig[:, :40].copy()
+    win = torch.from_numpy(np.hanning(64).astype(np.float32))
+
+    def sg(d, x=sig):
+        return torch.from_numpy(x).to(d)
+    held("signal.frame", lambda d: PSg.frame(sg(d), 64, 16))
+    held("signal.overlap_add", lambda d: PSg.overlap_add(
+        PSg.frame(sg(d), 64, 16), 16))
+    held("signal.stft", lambda d: PSg.stft(sg(d), 64, 10,
+                                           window=win.to(d)))
+    held("signal.istft", lambda d: PSg.istft(PSg.stft(sg(d), 64), 64))
+    held("signal.stft-short", lambda d: PSg.stft(sg(d, short), 128, 16))
+    held("signal.istft-short", lambda d: PSg.istft(
+        PSg.stft(sg(d, short), 128, 16), 128, 16, length=40))
+    if tuple(PSg.istft(PSg.stft(sg(dev, short), 128, 16), 128, 16,
+                       length=40).shape) != (2, 32):
+        bad.append("signal.istft-short: length=40 did not give 32 samples")
+    for w in ("hann", "hamming", "blackman", "ones"):
+        held(f"audio.get_window-{w}", lambda d, w=w: PAu.get_window(
+            w, 32, device=d))
+    f_hz = np.array([0., 300., 1000., 4000.], np.float32)
+    held("audio.hz_to_mel", lambda d: PAu.hz_to_mel(sg(d, f_hz)))
+    held("audio.mel_to_hz", lambda d: PAu.mel_to_hz(sg(d, f_hz)))
+    held("audio.mel_frequencies", lambda d: PAu.mel_frequencies(
+        10, 20.0, 8000.0, device=d))
+    held("audio.compute_fbank_matrix", lambda d: PAu.compute_fbank_matrix(
+        16000, 512, 40, device=d))
+    held("audio.create_dct", lambda d: PAu.create_dct(13, 40, device=d))
+    held("audio.power_to_db", lambda d: PAu.power_to_db(sg(d).abs() ** 2))
+    for layer, kw in (("Spectrogram", dict(n_fft=128)),
+                      ("MelSpectrogram", dict(sr=16000, n_fft=128,
+                                              n_mels=16)),
+                      ("LogMelSpectrogram", dict(sr=16000, n_fft=128,
+                                                 n_mels=16)),
+                      ("MFCC", dict(sr=16000, n_mfcc=8, n_mels=16,
+                                    n_fft=128))):
+        held(f"audio.{layer}", lambda d, layer=layer, kw=kw: getattr(
+            PAu, layer)(**kw, device=d)(sg(d)))
+
+    def dense(r):
+        return r.to_dense() if isinstance(r, PSp._SparseBase) else r
+    for cid, fn in C.SPARSE_OPS:
+        held(f"sparse.{cid}", lambda d, fn=fn: dense(fn(
+            PSp, lambda a, d=d: torch.from_numpy(np.asarray(a)).to(d))))
+    for cid in ("coo", "csr"):
+        held(f"sparse.{cid}", lambda d, cid=cid: dense(getattr(C, cid)(
+            PSp, lambda a, d=d: torch.from_numpy(np.asarray(a)).to(d))))
+    for name, dist, value in C.dists(PD, lambda a: torch.from_numpy(
+            np.asarray(a))):
+        for meth in ("log_prob", "prob", "entropy", "mean", "variance",
+                     "cdf"):
+            try:
+                getattr(dist, meth)
+            except (AttributeError, NotImplementedError):
+                continue
+
+            def call(d, name=name, meth=meth):
+                dd, vv = next((x, v) for n, x, v in C.dists(
+                    PD, lambda a: torch.from_numpy(np.asarray(a)).to(d))
+                    if n == name)
+                f = getattr(dd, meth)
+                return f(vv) if meth in ("log_prob", "prob", "cdf") else \
+                    (f() if meth == "entropy" else f)
+            try:
+                call("cpu")
+            except NotImplementedError:
+                continue
+            held(f"distribution.{name}.{meth}", call)
+    for cid, pair in C.KL_PAIRS:
+        held(f"distribution.kl-{cid}", lambda d, pair=pair: PD.kl_divergence(
+            *pair(PD, lambda a: torch.from_numpy(np.asarray(a)).to(d))))
+    # the random ones, on the card: shape, dtype, support, moments
+    gen = ptt.make_generator(seed + 157, dev)
+    n = 200000
+    draws = {
+        "tensor.rand": (P.rand([n], generator=gen), 0.5, 1 / 12, (0, 1)),
+        "tensor.randn": (P.randn([n], generator=gen), 0.0, 1.0, None),
+        "tensor.normal": (P.normal(2.0, 3.0, [n], generator=gen), 2.0, 9.0,
+                          None),
+        "tensor.uniform": (P.uniform([n], min=-2.0, max=4.0, generator=gen),
+                           1.0, 3.0, (-2, 4)),
+        "tensor.randint": (P.randint(2, 7, [n], generator=gen).float(), 4.0,
+                           2.0, (2, 6)),
+        "tensor.bernoulli": (P.bernoulli(torch.full([n], 0.3, device=dev),
+                                         generator=gen), 0.3, 0.21, (0, 1)),
+        "tensor.poisson": (P.poisson(torch.full([n], 4.0, device=dev),
+                                     generator=gen), 4.0, 4.0, (0, None)),
+        "tensor.multinomial": (P.multinomial(torch.tensor(
+            [[1., 0., 3.]], device=dev), n, replacement=True,
+            generator=gen)[0].float(), 1.5, 0.75, (0, 2)),
+        "distribution.Gamma": (PD.Gamma(torch.tensor(3.0, device=dev),
+                                        torch.tensor(2.0, device=dev))
+                               .sample((n,), generator=gen), 1.5, 0.75,
+                               (0, None)),
+        "distribution.Beta": (PD.Beta(torch.tensor(2.0, device=dev),
+                                      torch.tensor(3.0, device=dev))
+                              .sample((n,), generator=gen), 0.4, 0.04,
+                              (0, 1)),
+        "distribution.StudentT": (PD.StudentT(
+            torch.tensor(6.0, device=dev)).sample((n,), generator=gen),
+            0.0, 1.5, None),
+        "distribution.Binomial": (PD.Binomial(
+            torch.tensor(10.0, device=dev), torch.tensor(0.3, device=dev))
+            .sample((n,), generator=gen), 3.0, 2.1, (0, 10)),
+    }
+    for name, (a, mean, var, support) in draws.items():
+        a = a.double()
+        if a.device.type != "cuda":
+            bad.append(f"{name}: drawn on {a.device}")
+        if abs(float(a.mean()) - mean) > 5 * (var / n) ** 0.5:
+            bad.append(f"{name}: mean {float(a.mean())} (want {mean})")
+        if support is not None and (
+                float(a.min()) < support[0]
+                or (support[1] is not None and float(a.max()) > support[1])):
+            bad.append(f"{name}: outside {support}")
+    perm = P.randperm(1000, generator=gen)
+    if sorted(perm.tolist()) != list(range(1000)):
+        bad.append("tensor.randperm: not a permutation")
+    over = {k: e for k, e in worst.items() if not e <= TOL_TENSOR_SWEEP}
+    top = max(worst, key=worst.get)
+    log(f"[tensor] (d) the sweep: {len(worst)} calls of tensor, linalg "
+        f"(lstsq and the reconstructions on the card), fft, signal (stft / "
+        f"istft of a [2, 40] signal at n_fft 128 included), audio, sparse "
+        f"and distribution held on the card against the CPU in fp32, "
+        f"worst relative error {worst[top]:.3g} ({top}; tol "
+        f"{TOL_TENSOR_SWEEP}); {len(draws) + 1} random ones on the card "
+        f"by support and moments over {n} draws: "
+        f"{'held' if not bad else f'{len(bad)} failed'} [{card}]")
+    if over or bad:
+        fail(f"tensor (d): over tolerance {over}; {len(bad)} failed, the "
+             f"first {bad[:20]}")
+    return len(worst), worst[top]
+
+
+def phase_tensor(seed, dev, card):
+    """The tensor-level API on the card (``[tensor]`` lines): (a) the JAX
+    training idiom at Llama-3-8B's widths through the flash kernels; (b)
+    ``vmap`` through the kernel, one launch; (c) a ``PyLayer``; (d) the
+    sweep. Returns the main-path launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    a_launches, a_times = _tensor_functional(seed, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b_launches = _tensor_vmap(seed, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tensor_pylayer(seed, dev, card)
+    _tensor_sweep(seed, dev, card)
+    launches = {k: a_launches[k] + b_launches[k] for k in a_launches}
+    log(f"[tensor] the phase took {time.perf_counter() - t0:.1f} s; "
+        f"launches of its main-path runs {launches} [{card}]")
+    return launches
+
+
 def _clock_phases():
     """Make every ``phase_*`` function of this module log its wall time
     when it returns (``[wall]`` lines): the script's time limit is shared
@@ -11702,6 +12287,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     for key, n in phase_api(args.seed, dev, card).items():
+        launches[key] = launches.get(key, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in phase_tensor(args.seed, dev, card).items():
         launches[key] = launches.get(key, 0) + n
 
     meta = {"flash": ("flash_attention_fwd", FLASH_SOURCE, FLASH_REPLACES),

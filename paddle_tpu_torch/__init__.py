@@ -65,12 +65,17 @@ from . import metric
 from .hapi import Model, summary
 from .utils.rng import get_rng_state, make_generator, seed, set_rng_state
 from . import callbacks, incubate, nn, vision
-
-
-def no_grad(fn=None):
-    """paddle.no_grad: a context (``no_grad()``) or a decorator
-    (``no_grad(fn)``) that records no gradients."""
-    return torch.no_grad() if fn is None else torch.no_grad()(fn)
+from . import dtypes
+from .dtypes import (bfloat16, bool_, complex64, float16, float32, float64,
+                     int8, int16, int32, int64, uint8)
+from .tensor import *  # noqa: F401,F403 (Paddle's flat namespace)
+from .tensor import Tensor
+from .tensor import __all__ as _tensor_names
+from ._func import grad, jvp, stop_gradient, value_and_grad, vjp, vmap
+from . import autograd
+from .autograd import no_grad
+from . import (audio, distribution, fft, linalg, serving, signal,  # noqa: E402
+               sparse)
 
 
 def device_count() -> int:
@@ -88,6 +93,16 @@ def get_device() -> str:
 def is_compiled_with_cuda() -> bool:
     return torch.backends.cuda.is_built()
 
+
+def set_default_dtype(dtype):
+    """Returns ``dtype`` as a torch dtype and changes nothing, as the JAX
+    package's does: float32 stays the default."""
+    return dtypes.to_dtype(dtype)
+
+
+def get_default_dtype():
+    return float32
+
 __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "generate", "beam_search", "Config", "Predictor",
            "BatchingPredictor", "create_predictor", "save", "load",
@@ -101,4 +116,9 @@ __all__ = ["load_jax_state_dict", "resolve_device", "GenerationConfig",
            "TrainingArguments", "metric", "Model", "summary", "seed",
            "get_rng_state", "set_rng_state", "no_grad", "device_count",
            "get_device", "is_compiled_with_cuda", "callbacks", "incubate",
-           "nn", "vision"]
+           "nn", "vision", "dtypes", "bfloat16", "bool_", "complex64",
+           "float16", "float32", "float64", "int8", "int16", "int32",
+           "int64", "uint8", "Tensor", "grad", "value_and_grad", "vjp",
+           "jvp", "vmap", "stop_gradient", "autograd", "audio",
+           "distribution", "fft", "linalg", "serving", "signal", "sparse",
+           "set_default_dtype", "get_default_dtype"] + _tensor_names

@@ -21,27 +21,12 @@ import threading
 
 import torch
 
+from ..dtypes import to_dtype
+
 __all__ = ["auto_cast", "amp_guard", "amp_dtype", "maybe_cast", "decorate",
            "GradScaler", "to_dtype"]
 
 _amp_state = threading.local()
-
-_DTYPE_ALIASES = {
-    "float16": torch.float16, "fp16": torch.float16, "half": torch.float16,
-    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
-    "float32": torch.float32, "fp32": torch.float32, "float": torch.float32,
-    "float64": torch.float64, "fp64": torch.float64,
-    "double": torch.float64}
-
-
-def to_dtype(dtype):
-    """A paddle-style dtype name (or a torch dtype) as a torch dtype."""
-    if dtype is None or isinstance(dtype, torch.dtype):
-        return dtype
-    try:
-        return _DTYPE_ALIASES[dtype]
-    except KeyError:
-        raise ValueError(f"unknown dtype {dtype!r}") from None
 
 
 def _dtype():

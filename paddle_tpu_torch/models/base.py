@@ -11,11 +11,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..nn.layer import Layer
 from ..parallel.layers import local_heads
 
 
 class CausalLMBase(nn.Module):
-    """Base for *ForCausalLM heads: generation + KV-cache allocation."""
+    """Base for *ForCausalLM heads: generation + KV-cache allocation, and
+    ``functional()``, the JAX package's training idiom: ``pure_fn, params
+    = model.functional()``, then ``value_and_grad`` over ``pure_fn(params,
+    ids)`` (``nn.Layer.functional``)."""
+
+    functional = Layer.functional
 
     @property
     def device(self) -> torch.device:

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import tensor as _tensor
 from ..device import resolve_device
 from ..utils import rng
 from . import functional as F
@@ -254,7 +255,7 @@ class Flatten(Layer):
         self.start_axis, self.stop_axis = start_axis, stop_axis
 
     def forward(self, x):
-        return torch.flatten(x, self.start_axis, self.stop_axis)
+        return _tensor.flatten(x, self.start_axis, self.stop_axis)
 
 
 class Upsample(Layer):
@@ -275,23 +276,16 @@ class UpsamplingBilinear2D(Upsample):
 
 
 class Pad2D(Layer):
-    """``paddle_tpu.tensor.pad``'s semantics, as the JAX layer has them: a
-    flat [lo0, hi0, lo1, hi1, ...] pads the trailing dims in order (pair
-    0 on the first of them), an int every dim; ``mode`` a ``jnp.pad``
-    mode (``constant``, ``reflect``, ``edge``, ``wrap``, ``symmetric``)."""
+    """``tensor.pad``, as the JAX layer calls it: a flat [lo0, hi0, lo1,
+    hi1, ...] pads the trailing dims in order (pair 0 on the first of
+    them), an int every dim; ``mode`` a ``jnp.pad`` mode."""
 
     def __init__(self, padding, mode="constant", value=0.0):
         super().__init__()
         self.padding, self.mode, self.value = padding, mode, value
 
     def forward(self, x):
-        p = self.padding
-        if isinstance(p, int):
-            cfg = [(p, p)] * x.dim()
-        else:
-            pairs = [(p[i], p[i + 1]) for i in range(0, len(p), 2)]
-            cfg = [(0, 0)] * (x.dim() - len(pairs)) + pairs
-        return F._pad(x, cfg, self.mode, self.value)
+        return _tensor.pad(x, self.padding, self.mode, self.value)
 
 
 class Pad1D(Layer):

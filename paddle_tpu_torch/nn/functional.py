@@ -20,6 +20,8 @@ import math
 import torch
 import torch.nn.functional as TF
 
+from .. import tensor as _tensor
+
 
 # ------------------------------------------------------------- activations
 def silu(x):
@@ -117,7 +119,7 @@ def log_sigmoid(x):
 
 
 def softmax(x, axis=-1, dtype=None):
-    from ..amp import to_dtype
+    from ..dtypes import to_dtype
     return torch.softmax(x.to(to_dtype(dtype)) if dtype else x, dim=axis)
 
 
@@ -1020,38 +1022,6 @@ def channel_shuffle(x, groups):
         .reshape(n, c, h, w)
 
 
-def _pad_index(n, lo, hi, mode, device):
-    """Source indices of a dim of size ``n`` padded by (lo, hi) in a
-    ``jnp.pad`` mode: ``edge``, ``wrap``, ``reflect`` (no edge repeat) or
-    ``symmetric`` (edge repeated), any pad width."""
-    i = torch.arange(-lo, n + hi, device=device)
-    if mode == "edge":
-        return i.clamp(0, n - 1)
-    if mode == "wrap":
-        return i % n
-    if mode == "reflect":
-        if n == 1:
-            return torch.zeros_like(i)
-        i = i % (2 * n - 2)
-        return torch.where(i >= n, 2 * n - 2 - i, i)
-    if mode == "symmetric":
-        i = i % (2 * n)
-        return torch.where(i >= n, 2 * n - 1 - i, i)
-    raise ValueError(f"unknown pad mode {mode!r}")
-
-
-def _pad(x, cfg, mode="constant", value=0.0):
-    """``jnp.pad(x, cfg, mode)``: cfg one (lo, hi) a dim of ``x``."""
-    if mode == "constant":
-        return TF.pad(x, [v for lo_hi in reversed(cfg) for v in lo_hi],
-                      value=value)
-    for d, (lo, hi) in enumerate(cfg):
-        if lo or hi:
-            x = x.index_select(d, _pad_index(x.shape[d], lo, hi, mode,
-                                             x.device))
-    return x
-
-
 _PAD_MODES = {"reflect": "reflect", "replicate": "edge", "circular": "wrap"}
 
 
@@ -1078,8 +1048,8 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW"):
     else:
         for i, pair in enumerate(pairs):
             cfg[x.dim() - 1 - i] = pair
-    return _pad(x, cfg, "constant" if mode == "constant"
-                else _PAD_MODES[mode], value)
+    return _tensor.pad(x, cfg, "constant" if mode == "constant"
+                       else _PAD_MODES[mode], value)
 
 
 def zeropad2d(x, padding):

@@ -28,7 +28,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
-from ..amp import to_dtype
+from ..dtypes import to_dtype
 from ..utils import rng
 
 

@@ -37,9 +37,10 @@ def flash_attention(query, key, value, causal=False, scale=None,
     """[b, s, h, d] flash attention; GQA-aware. ``segment_ids`` [b, s]
     (0 = pad) restricts attention to same-segment pairs. Differentiable on
     both devices through :class:`FlashAttentionFunction`, whose backward
-    is the flash backward kernels on the card."""
+    is the flash backward kernels on the card (the Function's second
+    output, the lse, is dropped)."""
     return FlashAttentionFunction.apply(query, key, value, causal, scale,
-                                        window, segment_ids)
+                                        window, segment_ids)[0]
 
 
 def segment_mask(segment_ids):

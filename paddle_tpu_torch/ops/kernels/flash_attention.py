@@ -401,35 +401,111 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=False,
     return dq, dk, dv
 
 
+def _fold(info, in_dims, args):
+    """Under ``vmap``: each tensor of ``args`` (all lead with the batch
+    dim) with its mapped dim moved to the front and folded into the batch
+    dim (an unmapped one expanded first), so one launch serves the whole
+    mapped call, as ``jax.vmap`` batches the Pallas kernel."""
+    n = info.batch_size
+    out = []
+    for a, d in zip(args, in_dims):
+        if not isinstance(a, torch.Tensor):
+            out.append(a)
+            continue
+        a = a.expand(n, *a.shape) if d is None else a.movedim(d, 0)
+        out.append(a.reshape(n * a.shape[1], *a.shape[2:]).contiguous())
+    return out
+
+
+def _unfold(info, outs):
+    """The results of a folded launch with the mapped dim split back out
+    in front (``out_dims`` 0)."""
+    n = info.batch_size
+    res = tuple(None if o is None else o.reshape(n, -1, *o.shape[1:])
+                for o in outs)
+    return res, tuple(None if o is None else 0 for o in outs)
+
+
+class _FoldedBackward(torch.autograd.Function):
+    """``fn(*args)`` for a backward that launches the flash backward
+    kernels: under ``vmap`` (``jacrev``, ``vmap`` of ``grad``) the mapped
+    dim folds into the batch dim and one launch serves the mapped call,
+    never handing a batched tensor to the kernel wrapper, which reads
+    ``data_ptr``. It is not differentiable again."""
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the flash backward is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, fn, *args):
+        outs = _FoldedBackward.apply(fn, *_fold(info, in_dims[1:], args))
+        return _unfold(info, outs)
+
+
+def _flash_bwd_call(q, k, v, out, lse, dout, segment_ids, causal, scale,
+                    window):
+    return flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                               scale=scale, window=window,
+                               segment_ids=segment_ids)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its own backward (the counterpart of the JAX
-    package's ``custom_vjp`` wiring, ``_flash`` / ``_flash_seg``): the
-    forward saves q, k, v, out and the fp32 lse; the backward runs
+    package's ``custom_vjp`` wiring, ``_flash`` / ``_flash_seg``), in the
+    form ``torch.func`` takes: ``forward`` returns (out, lse), the fp32
+    lse marked non-differentiable (``ops.attention.flash_attention`` drops
+    it); ``setup_context`` saves q, k, v, out and lse; the backward runs
     :func:`flash_attention_bwd`, the kernels on the card and the plain
     formula on the CPU. ``segment_ids`` gets no gradient.
 
-        out = FlashAttentionFunction.apply(q, k, v, causal, scale, window,
-                                           segment_ids)
+    Under ``torch.func.vmap`` the ``vmap`` rule folds the mapped dim into
+    the batch dim: one launch serves the mapped call, each slice's bits
+    those of its own call. It has no ``jvp`` rule, so forward mode
+    (``jvp``, ``hessian``) raises, as ``jax.jvp`` of the ``custom_vjp``
+    does.
+
+        out, lse = FlashAttentionFunction.apply(q, k, v, causal, scale,
+                                                window, segment_ids)
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=False, scale=None, window=None,
+    def forward(q, k, v, causal=False, scale=None, window=None,
                 segment_ids=None):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                       window=window,
-                                       segment_ids=segment_ids)
-        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
-        ctx.opts = dict(causal=causal, scale=scale, window=window)
-        return out
+        return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                   window=window, segment_ids=segment_ids)
 
     @staticmethod
-    def backward(ctx, dout):
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, scale, window, segment_ids = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.opts = (causal, scale, window)
+
+    @staticmethod
+    def backward(ctx, dout, _g_lse):
         q, k, v, out, lse, segment_ids = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(),
-                                         segment_ids=segment_ids,
-                                         **ctx.opts)
+        dq, dk, dv = _FoldedBackward.apply(
+            _flash_bwd_call, q, k, v, out, lse, dout.contiguous(),
+            segment_ids, *ctx.opts)
         return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal=False, scale=None, window=None,
+             segment_ids=None):
+        q, k, v, *_, segment_ids = _fold(
+            info, in_dims, (q, k, v, causal, scale, window, segment_ids))
+        return _unfold(info, FlashAttentionFunction.apply(
+            q, k, v, causal, scale, window, segment_ids))
 
 
 # ------------------------------------------------- flash with exposed lse
@@ -492,33 +568,49 @@ def flash_attention_with_lse_bwd(q, k, v, out, lse, dout, g_lse, *,
     return dq, dk, dv
 
 
+def _flash_lse_bwd_call(q, k, v, out, lse, dout, g_lse, causal, scale):
+    return flash_attention_with_lse_bwd(q, k, v, out, lse, dout, g_lse,
+                                        causal=causal, scale=scale)
+
+
 class FlashAttentionWithLseFunction(torch.autograd.Function):
     """Flash attention returning (out, lse) with a backward for both
     (the counterpart of ``_flash_lse`` and its VJP, :493-515): the
     forward kernel of row 1 (which forms lse anyway), and
-    :func:`flash_attention_with_lse_bwd`.
+    :func:`flash_attention_with_lse_bwd`. In ``torch.func`` form, with
+    :class:`FlashAttentionFunction`'s ``vmap`` rule and no ``jvp`` rule.
 
         out, lse = FlashAttentionWithLseFunction.apply(q, k, v, causal,
                                                        scale)
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=False, scale=None):
+    def forward(q, k, v, causal=False, scale=None):
         out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         if use_kernel(q, k, v):
             _count(flash_attention_with_lse, flash_route(q.dtype,
                                                          q.shape[3]))
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = dict(causal=causal, scale=scale)
         return out, lse
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, scale = inputs
+        ctx.save_for_backward(q, k, v, *output)
+        ctx.opts = (causal, scale)
 
     @staticmethod
     def backward(ctx, dout, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_with_lse_bwd(
-            q, k, v, out, lse, dout.contiguous(), g_lse.contiguous(),
-            **ctx.opts)
+        dq, dk, dv = _FoldedBackward.apply(
+            _flash_lse_bwd_call, q, k, v, out, lse, dout.contiguous(),
+            g_lse.contiguous(), *ctx.opts)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal=False, scale=None):
+        q, k, v, *_ = _fold(info, in_dims, (q, k, v, causal, scale))
+        return _unfold(info, FlashAttentionWithLseFunction.apply(
+            q, k, v, causal, scale))
 
 
 def flash_attention_with_lse(query, key, value, causal=False, scale=None):

@@ -102,7 +102,7 @@ def test_function_backward_matches_jax_grad(pallas_interpret, case):
     window = case.get("window")
     ref = _jax_grads(q, k, v, g, case["causal"], window, seg)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-    out = FlashAttentionFunction.apply(
+    out, _ = FlashAttentionFunction.apply(
         tq, tk, tv, case["causal"], None, window,
         None if seg is None else torch.from_numpy(seg))
     out.backward(torch.from_numpy(g))
@@ -182,7 +182,7 @@ def test_strided_output_gradient_is_taken():
     for strided in (False, True):
         tq, tk, tv = (torch.from_numpy(x).requires_grad_()
                       for x in (q, k, v))
-        out = FlashAttentionFunction.apply(tq, tk, tv, True)
+        out, _ = FlashAttentionFunction.apply(tq, tk, tv, True)
         tg = torch.from_numpy(g)
         if strided:
             # a transposed copy viewed back: same values, other strides

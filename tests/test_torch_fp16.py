@@ -160,7 +160,7 @@ def test_fp16_flash_bwd_matches_jax_grad(pallas_interpret, case):
         return jnp.sum(out.astype(jnp.float32) * jnp.asarray(g, jnp.float32))
     ref = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     xs = [t.requires_grad_() for t in _t(q, k, v)]
-    out = FlashAttentionFunction.apply(
+    out, _ = FlashAttentionFunction.apply(
         *xs, case["causal"], None, window,
         None if seg is None else torch.from_numpy(seg))
     out.backward(torch.from_numpy(g))

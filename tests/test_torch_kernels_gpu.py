@@ -459,7 +459,7 @@ def test_flash_function_grads_on_the_card(cuda_card, dtype):
     grads = []
     for dev in (cuda_card, torch.device("cpu")):
         xs = [t.to(dev).detach().requires_grad_() for t in (q, k, v)]
-        out = FlashAttentionFunction.apply(*xs, True)
+        out, _ = FlashAttentionFunction.apply(*xs, True)
         assert type(out.grad_fn).__name__ == \
             "FlashAttentionFunctionBackward"
         out.backward(g.to(dev))

@@ -30,6 +30,7 @@ order, before each step.
 """
 import asyncio
 import contextlib
+import functools
 import json
 import os
 import signal
@@ -54,6 +55,8 @@ from paddle_tpu.serving import Gateway as JaxGateway
 from paddle_tpu_torch.generation.paged import PagedEngine
 from paddle_tpu_torch.serving import Gateway, loadgen
 from paddle_tpu_torch.serving.fleet import FleetFrontend, LocalProcessManager
+from paddle_tpu_torch.serving.fleet import manager as fleet_manager
+from paddle_tpu_torch.serving.fleet.remote import RemoteReplica
 from paddle_tpu_torch.serving.tp_replica import (EXIT_RANK_LOST,
                                                  SequencedEngine)
 from paddle_tpu_torch.utils.faults import BackpressureError
@@ -72,6 +75,21 @@ ATOL = 1e-4
 FLEET_SEED, FLEET_CHUNK = 7, 32
 WATCHDOG_S = 30.0       # replica_main's default watchdog_timeout_s
 DRAIN_GRACE_S = 15.0    # the launcher's grace the manager passes
+# the fleet's health probes of its replicas, from their first one. The
+# frontend errors a failover hop that finds no healthy peer, as the JAX
+# frontend does, and a peer that FAIL_THRESHOLD probes in a row miss
+# stays out until its breaker's probation (60 s here). On a loaded host
+# (the tier-1 run's workers and world processes beside these replicas,
+# the JAX reference this fixture computes while they spawn) /healthz can
+# take over 10 s: with the defaults (1 s, 2 misses, here 5 s of
+# staleness) the survivor was out before the traffic began in 2-core
+# runs, so every stream went to the replica then killed ("all replicas
+# unhealthy"). Here a probe's miss evicts no replica: the killed one
+# leaves by its dropped streams, and any by STALE_AFTER_S without a good
+# probe. The fixture's own /debugz reads take PROBE_TIMEOUT_S too.
+PROBE_TIMEOUT_S = 10.0
+FAIL_THRESHOLD = 10 ** 6
+STALE_AFTER_S = 30.0
 
 
 @contextlib.contextmanager
@@ -245,6 +263,14 @@ async def _fleet_traffic(fe, mgr, reqs):
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fleet_manager, "RemoteReplica", functools.partial(
+            RemoteReplica, probe_timeout_s=PROBE_TIMEOUT_S,
+            fail_threshold=FAIL_THRESHOLD))
+        return _serve(tmp_path_factory)
+
+
+def _serve(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_gateway")
     p = _payload()
     fleet_reqs = _fleet_requests()
@@ -265,7 +291,7 @@ def served(tmp_path_factory):
                        breaker_backoff_s=60.0)
     kw = dict(model="tiny", chunk_tokens=FLEET_CHUNK, device="cpu",
               seed=FLEET_SEED, tp=2, spawn_timeout_s=240,
-              probe_interval_s=0.1, stale_after_s=5.0,
+              probe_interval_s=0.1, stale_after_s=STALE_AFTER_S,
               drain_grace_s=DRAIN_GRACE_S,
               extra_args=["--idle-interval-s", "1"],
               env={"PADDLE_TPU_FAULTS": "slow_replica",
